@@ -1,0 +1,135 @@
+"""Build the port's CUDA sources into plain-C shared libraries, at first use.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a C interface, loaded with ``ctypes``.  Nothing
+includes PyTorch's headers, so a build takes seconds.  Libraries land in
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is loaded as it is.  Nothing builds at import.
+
+The flags are part of the numerics: ``-fmad=false`` stops nvcc from
+contracting ``a*b+c`` into one fused multiply-add (the JAX reference rounds
+the product first); ``-ftz=true`` flushes float32 subnormals to zero, as
+XLA does on the CPU and the TPU; and there is no ``--use_fast_math``
+(correctly rounded division, as the reference has).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-ftz=true", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
+    ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built on the machine with the "
+                       "card")
+
+
+def build(source: str) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` (if its library is not built yet) and
+    return (library path, nvcc's output including ``-Xptxas -v``)."""
+    src = CSRC / source
+    text = src.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    stem = f"{src.stem}-{digest[:16]}"
+    lib = BUILD_DIR / f"{stem}.so"
+    log = BUILD_DIR / f"{stem}.log"
+    if lib.is_file() and log.is_file():
+        return lib, log.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Compile to a private name and rename into place, so concurrent
+    # builders (test workers) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True, timeout=900)
+        out = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} "
+                               f"(exit {proc.returncode}):\n{out}")
+        log.write_text(out)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, out
+
+
+def ptxas_report(log: str) -> dict[str, str]:
+    """Per kernel entry (mangled name): ptxas's registers / spills / shared
+    memory lines from a ``-Xptxas -v`` build log."""
+    report: dict[str, list[str]] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            report[current] = []
+            continue
+        if current and ("registers" in line or "stack frame" in line):
+            report[current].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in report.items()}
+
+
+def tick_loop_instance(name: str):
+    """(P, KIND, SCALING) of a mangled ``tick_loop_kernel`` entry name."""
+    m = re.search(r"tick_loop_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+    return None if m is None else (int(m.group(1)), int(m.group(2)),
+                                   bool(int(m.group(3))))
+
+
+@functools.lru_cache(maxsize=None)
+def _load(source: str):
+    path, log = build(source)
+    return ctypes.CDLL(str(path)), log
+
+
+def load_tick_loop() -> ctypes.CDLL:
+    """The tick-loop library, built and loaded once per process."""
+    lib, _ = _load("tick_loop.cu")
+    fn = lib.tick_loop_launch
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 13
+                   + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                           ctypes.POINTER(ctypes.c_float),
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.tick_loop_error_string.argtypes = [ctypes.c_int]
+    lib.tick_loop_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_log(source: str) -> str:
+    """nvcc's output for ``source`` (building it first if needed)."""
+    return _load(source)[1]
+
+
+def cuda_error_string(lib, err: int) -> str:
+    return f"CUDA error {err}: {lib.tick_loop_error_string(err).decode()}"

@@ -1,0 +1,456 @@
+// Fused whole-transfer tick loop for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/core/engine.py::_build_pallas_core
+// (the pl.pallas_call at engine.py:612).  One launch runs a batch of
+// transfers ("lanes") from their packed initial rows to completion or to
+// the horizon: per tick the reference WAN model, the RAPL power model, the
+// controller's channel split, the interval accumulators and, every
+// ctrl_every ticks, the SLA tuner FSM (Algorithms 2, 4-6) and Algorithm 3
+// load control.  It writes the final state rows and seven per-tick traces.
+//
+// Design.  One thread per lane, a 1-D grid over lanes, the whole lane state
+// in registers; the CpuProfile (frequency ladder included) rides in the
+// by-value argument struct.  Each lane leaves its loop on its own as soon as
+// it has drained.  The physics and tuners are written out here (the TPU
+// kernel evaluated a staged jaxpr of the generic tick); templates
+// specialise on the partition count P (1..8), the controller KIND and
+// whether load control is on.
+//
+// Layout.  Traces are time-major [n_steps, B] (the wrapper hands back
+// transposed [B, n_steps] views), so at tick i the lanes of a warp store to
+// consecutive addresses; the bandwidth schedule arrives time-major too.  The
+// wrapper pre-fills the traces with the never-executed-tick values (zero
+// metrics, done = 1), so a lane writes only the ticks it executes.
+//
+// Exactness.  Bit-identical to the JAX package's float32 tick and to the
+// plain PyTorch version: built with -fmad=false (no a*b+c contraction),
+// -ftz=true (subnormals flushed to zero, as XLA does) and correctly rounded
+// division; every Python constant of the reference is a float literal
+// applied in the reference's left-to-right order, partition sums run left
+// to right, and min/max propagate NaN as XLA's do (compare and select,
+// never fminf/fmaxf).
+//
+// Bound.  Per lane the tick is a serial chain of ~150 dependent scalar
+// float32 operations, so the kernel is latency-bound: a lane-tick costs the
+// chain's latency, and only more lanes in flight hide it.  Its traffic is
+// small: 28 B of traces per lane-tick written (7 x 4 B) plus the 4 B
+// bandwidth share read.  The simple design does nothing yet about the
+// latency (no interleaving of lanes per thread, no trimming of the chain);
+// making it fast is later work.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace tick {
+
+constexpr int kMaxFreq = 16;
+constexpr int kThreads = 32;
+
+enum Kind { ME = 0, EEMT = 1, EETT = 2, ISMAIL = 3, STATIC = 4 };
+enum Fsm { SLOW_START = 0, INCREASE = 1, WARNING = 2, RECOVERY = 3 };
+
+struct Cpu {
+  float ipc, cpb, cpb_ch, pkg_static_w, core_static_w, core_dyn_w, mem_w;
+  float freq[kMaxFreq];
+  int n_freq, num_cores;
+};
+
+struct Args {
+  const float* prow;   // [B, 13 + 5P]
+  const float* bw;     // [n_steps, B]
+  const float* f0;     // [B, 2P + 9]
+  const int* i0;       // [B, 3]
+  float* fout;         // [B, 2P + 9]
+  int* iout;           // [B, 3]
+  float* tput;         // [n_steps, B] each
+  float* power;
+  float* load;
+  float* nch;
+  int* cores;
+  float* freq;
+  int* done;
+  int n_lanes, n_steps, ctrl_every;
+  float dt;
+  Cpu cpu;
+};
+
+// XLA's max/min: NaN in either operand gives NaN.
+__device__ __forceinline__ float vmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float vmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return vmin(vmax(x, lo), hi);
+}
+__device__ __forceinline__ int clipi(int x, int lo, int hi) {
+  x = x > lo ? x : lo;
+  return x < hi ? x : hi;
+}
+
+template <int P>
+__device__ __forceinline__ float sum_lr(const float (&x)[P]) {
+  float s = x[0];
+#pragma unroll
+  for (int p = 1; p < P; ++p) s = s + x[p];
+  return s;
+}
+
+__device__ __forceinline__ float freq_at(const Cpu& c, int idx) {
+  idx = clipi(idx, 0, c.n_freq - 1);
+  float f = c.freq[0];
+#pragma unroll
+  for (int k = 1; k < kMaxFreq; ++k) f = (idx == k) ? c.freq[k] : f;
+  return f;
+}
+
+template <int P, int KIND, bool SCALING>
+__device__ __forceinline__ void run_lane(const Args a, const int lane) {
+  constexpr int NP = 13 + 5 * P;
+  constexpr int NF = 2 * P + 9;
+  const int B = a.n_lanes;
+  const Cpu& cpu = a.cpu;
+  const float dt = a.dt;
+
+  // Parameter row: NetParams, SLAParams, then pp | par | total | avg | w.
+  const float* pr = a.prow + static_cast<size_t>(lane) * NP;
+  const float bandwidth = pr[0], rtt = pr[1], avg_window = pr[2];
+  const float buffer = pr[3], knee = pr[4], cross = pr[5];
+  const float target = pr[6], alpha = pr[7], beta = pr[8];
+  const float delta_ch = pr[9], max_ch = pr[10];
+  const float max_load = pr[11], min_load = pr[12];
+  float pp[P], par[P], avg_file[P], static_w[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    pp[p] = pr[13 + p];
+    par[p] = pr[13 + P + p];
+    avg_file[p] = pr[13 + 3 * P + p];
+    static_w[p] = pr[13 + 4 * P + p];
+  }
+
+  // State rows.
+  const float* s0 = a.f0 + static_cast<size_t>(lane) * NF;
+  float rem[P], win[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    rem[p] = s0[p];
+    win[p] = s0[P + p];
+  }
+  float t = s0[2 * P], energy = s0[2 * P + 1], bytes = s0[2 * P + 2];
+  float num_ch = s0[2 * P + 3], prev_ch = s0[2 * P + 4], ref = s0[2 * P + 5];
+  float acc_mb = s0[2 * P + 6], acc_j = s0[2 * P + 7], acc_s = s0[2 * P + 8];
+  const int* q0 = a.i0 + static_cast<size_t>(lane) * 3;
+  int fsm = q0[0], cores = q0[1], freq_idx = q0[2];
+
+  // Lane constants: the same float32 expressions the reference evaluates
+  // every tick (repro/core/network_model.py:90 and :107).
+  const float b_nom = bandwidth * (1.0f - cross);
+  const float ramp = clip(dt / (8.0f * rtt), 0.0f, 1.0f);
+
+  int i = 0;
+  while (i < a.n_steps && sum_lr<P>(rem) > 0.0f) {
+    const size_t o = static_cast<size_t>(i) * B + lane;
+    const float bw_scale = a.bw[o];
+
+    // Controller channel split (repro/api/controllers.py:148-150, 195-197).
+    float cc[P];
+    if (KIND == ISMAIL) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        cc[p] = (static_w[p] * num_ch) * (rem[p] > 0.0f ? 1.0f : 0.0f);
+    } else {  // heuristics.redistribute_channels
+      float rc[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) rc[p] = vmax(rem[p], 0.0f);
+      const float rs = vmax(sum_lr<P>(rc), 1e-6f);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        cc[p] = ((rc[p] / rs) * num_ch) * (rc[p] > 0.0f ? 1.0f : 0.0f);
+    }
+
+    // Network step (repro/core/network_model.py:37-122).
+    float act[P], ccn[P], wa[P], demand[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      act[p] = rem[p] > 0.0f ? 1.0f : 0.0f;
+      ccn[p] = vmax(cc[p], 0.0f) * act[p];
+      wa[p] = win[p] * act[p];
+    }
+    const float total_ch = sum_lr<P>(ccn);
+    const float n_active = vmax(sum_lr<P>(act), 1.0f);
+    const float avg_win = sum_lr<P>(wa) / n_active;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float hi = vmax(avg_file[p] / buffer, 1.0f);
+      const float par_eff = vmin(vmax(par[p], 1.0f), hi);
+      const float raw = (par_eff * win[p]) / rtt;
+      const float per_file_s =
+          avg_file[p] / vmax(raw, 1e-6f) + rtt / vmax(pp[p], 1.0f);
+      demand[p] = ccn[p] * (avg_file[p] / vmax(per_file_s, 1e-9f));
+    }
+    const float total_demand = sum_lr<P>(demand);
+    const float b_avail = b_nom * bw_scale;
+    const float per_ch = vmax(avg_win / rtt, 1e-6f);
+    const float c_sat = (knee * bandwidth) / per_ch;
+    const float over = vmax(total_ch - c_sat, 0.0f) / vmax(c_sat, 1.0f);
+    const float eff = 1.0f / (1.0f + (0.5f * over) * over);
+    const float net_cap = b_avail * eff;
+
+    // Energy model (repro/core/energy_model.py:24-54).
+    const float cf = static_cast<float>(clipi(cores, 1, cpu.num_cores));
+    const float f = freq_at(cpu, freq_idx);
+    const float cpb = cpu.cpb + cpu.cpb_ch * total_ch;
+    const float cpu_cap = (((cf * f) * 1e9f) * cpu.ipc) / (cpb * 1e6f);
+
+    const float tput = vmin(vmin(total_demand, net_cap), cpu_cap);
+    const float scale = tput / vmax(total_demand, 1e-6f);
+    float moved[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      moved[p] = vmin((demand[p] * scale) * dt, rem[p]);
+      rem[p] = rem[p] - moved[p];
+      win[p] = win[p] + (avg_window - win[p]) * ramp;
+    }
+    const float load = clip(tput / vmax(cpu_cap, 1e-6f), 0.0f, 1.0f);
+    const float dyn =
+        ((cf * cpu.core_dyn_w) * ((f * f) * f)) * clip(load, 0.0f, 1.0f);
+    const float pw =
+        ((cpu.pkg_static_w + cf * cpu.core_static_w) + dyn) + cpu.mem_w * tput;
+
+    // Accumulators (repro/core/engine.py:278-303); the lane is live here.
+    energy = energy + pw * dt;
+    bytes = bytes + sum_lr<P>(moved);
+    t = t + dt;
+    acc_mb = acc_mb + tput * dt;
+    acc_j = acc_j + pw * dt;
+    acc_s = acc_s + dt;
+
+    // Controller tick (repro/core/engine.py:228-242, 306-312;
+    // repro/core/tuners.py:50-231; repro/core/load_control.py:20-44).
+    if (KIND != STATIC && (i % a.ctrl_every) == a.ctrl_every - 1) {
+      const float rs2 = sum_lr<P>(rem);
+      const float win_s = vmax(acc_s, 1e-6f);
+      const float avg_tput = acc_mb / win_s;
+      const float avg_power = acc_j / win_s;
+      const bool in_ss = fsm == SLOW_START;
+      int n_fsm = INCREASE;
+      float n_ch = num_ch, n_prev = prev_ch, n_ref = ref;
+      if (KIND == ISMAIL) {
+        // Slow start only hands over to INCREASE; otherwise +/-1 channel.
+        if (!in_ss) {
+          const bool low = avg_tput < (1.0f - alpha) * target;
+          const bool high = avg_tput > (1.0f + beta) * target;
+          const float ch =
+              low ? num_ch + 1.0f : (high ? num_ch - 1.0f : num_ch);
+          n_ch = vmin(vmax(ch, 1.0f), max_ch);
+          n_prev = num_ch;
+        }
+      } else {
+        const float me_m =
+            acc_j + avg_power * (rs2 / vmax(avg_tput, 1e-3f));
+        n_prev = num_ch;
+        if (in_ss) {  // Algorithm 2
+          float goal = bandwidth;
+          if (KIND == EETT) goal = target > 0.0f ? vmin(goal, target) : goal;
+          const float corr = clip(goal / vmax(avg_tput, 1e-3f), 0.25f, 8.0f);
+          n_ch = clip(num_ch * corr, 1.0f, max_ch);
+          n_ref = KIND == ME ? me_m : avg_tput;
+        } else if (KIND == EETT) {  // Algorithm 6
+          const bool high = avg_tput > (1.0f + beta) * target;
+          const bool low = avg_tput < (1.0f - alpha) * target;
+          if (fsm == INCREASE) {
+            n_fsm = (high || low) ? RECOVERY : INCREASE;
+          } else {
+            n_ch = high ? vmax(num_ch - delta_ch, 1.0f)
+                        : (low ? vmin(num_ch + delta_ch, max_ch) : num_ch);
+          }
+          n_ref = target;
+        } else {  // Algorithms 4 (ME, cost metric) and 5 (EEMT, throughput)
+          const float m = KIND == ME ? me_m : avg_tput;
+          const bool up = KIND == ME ? m < (1.0f - alpha) * ref
+                                     : m > (1.0f + beta) * ref;
+          const bool bad = KIND == ME ? m > (1.0f + beta) * ref
+                                      : m < (1.0f - alpha) * ref;
+          if (fsm == INCREASE) {
+            n_ch = up ? vmin(num_ch + delta_ch, max_ch) : num_ch;
+            n_fsm = bad ? WARNING : INCREASE;
+            n_ref = KIND == ME ? m : (up ? m : ref);
+          } else if (fsm == WARNING) {
+            n_ch = bad ? vmax(num_ch - delta_ch, 1.0f) : num_ch;
+            n_fsm = bad ? RECOVERY : INCREASE;
+          } else {
+            n_ch = bad ? vmin(num_ch + delta_ch, max_ch) : num_ch;
+            n_ref = bad ? m : ref;
+          }
+        }
+        if (SCALING) {  // Algorithm 3
+          const int max_f = cpu.n_freq - 1;
+          const bool hot = load > max_load;
+          const bool cold = load < min_load;
+          const bool can_add = cores < cpu.num_cores;
+          const bool can_raise = freq_idx < max_f;
+          const bool can_lower = freq_idx > 0;
+          const bool can_drop = cores > 1;
+          const int cores_hot = can_add ? cores + 1 : cores;
+          const int freq_hot =
+              can_add ? freq_idx : (can_raise ? freq_idx + 1 : freq_idx);
+          const int freq_cold = can_lower ? freq_idx - 1 : freq_idx;
+          const int cores_cold =
+              can_lower ? cores : (can_drop ? cores - 1 : cores);
+          const int c2 = hot ? cores_hot : (cold ? cores_cold : cores);
+          const int f2 = hot ? freq_hot : (cold ? freq_cold : freq_idx);
+          cores = c2;
+          freq_idx = f2;
+        }
+      }
+      fsm = n_fsm;
+      num_ch = n_ch;
+      prev_ch = n_prev;
+      ref = n_ref;
+      acc_mb = 0.0f;
+      acc_j = 0.0f;
+      acc_s = 0.0f;
+    }
+
+    a.tput[o] = tput;
+    a.power[o] = pw;
+    a.load[o] = load;
+    a.nch[o] = total_ch;
+    a.cores[o] = cores;
+    a.freq[o] = freq_at(cpu, freq_idx);
+    a.done[o] = sum_lr<P>(rem) <= 0.0f ? 1 : 0;
+    ++i;
+  }
+
+  float* so = a.fout + static_cast<size_t>(lane) * NF;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    so[p] = rem[p];
+    so[P + p] = win[p];
+  }
+  so[2 * P] = t;
+  so[2 * P + 1] = energy;
+  so[2 * P + 2] = bytes;
+  so[2 * P + 3] = num_ch;
+  so[2 * P + 4] = prev_ch;
+  so[2 * P + 5] = ref;
+  so[2 * P + 6] = acc_mb;
+  so[2 * P + 7] = acc_j;
+  so[2 * P + 8] = acc_s;
+  int* qo = a.iout + static_cast<size_t>(lane) * 3;
+  qo[0] = fsm;
+  qo[1] = cores;
+  qo[2] = freq_idx;
+}
+
+// ---- launch ----------------------------------------------------------------
+
+template <int P, int KIND, bool SCALING>
+__global__ void __launch_bounds__(kThreads) tick_loop_kernel(const Args a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < a.n_lanes) run_lane<P, KIND, SCALING>(a, lane);
+}
+
+using KernelFn = void (*)(Args);
+
+template <int P>
+KernelFn pick(int kind, int scaling) {
+  switch (kind) {
+    case ME:
+      return scaling ? tick_loop_kernel<P, ME, true>
+                     : tick_loop_kernel<P, ME, false>;
+    case EEMT:
+      return scaling ? tick_loop_kernel<P, EEMT, true>
+                     : tick_loop_kernel<P, EEMT, false>;
+    case EETT:
+      return scaling ? tick_loop_kernel<P, EETT, true>
+                     : tick_loop_kernel<P, EETT, false>;
+    case ISMAIL:
+      return scaling ? nullptr : tick_loop_kernel<P, ISMAIL, false>;
+    case STATIC:
+      return scaling ? nullptr : tick_loop_kernel<P, STATIC, false>;
+    default:
+      return nullptr;
+  }
+}
+
+KernelFn pick_kernel(int p, int kind, int scaling) {
+  switch (p) {
+    case 1: return pick<1>(kind, scaling);
+    case 2: return pick<2>(kind, scaling);
+    case 3: return pick<3>(kind, scaling);
+    case 4: return pick<4>(kind, scaling);
+    case 5: return pick<5>(kind, scaling);
+    case 6: return pick<6>(kind, scaling);
+    case 7: return pick<7>(kind, scaling);
+    case 8: return pick<8>(kind, scaling);
+    default: return nullptr;
+  }
+}
+
+}  // namespace tick
+
+extern "C" {
+
+// Launches one tick_loop_kernel over n_lanes lanes on `stream` and returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for an argument
+// no instantiation takes).  `cpu_consts` is a host array: ipc,
+// cycles_per_byte, cycles_per_byte_per_ch, pkg_static_w, core_static_w,
+// core_dyn_w_per_ghz3, mem_w_per_mbps, then 16 frequency levels.
+int tick_loop_launch(int p, int kind, int scaling, const void* prow,
+                     const void* bw, const void* f0, const void* i0,
+                     void* fout, void* iout, void* tput, void* power,
+                     void* load, void* nch, void* cores, void* freq,
+                     void* done, int n_lanes, int n_steps, int ctrl_every,
+                     float dt, const float* cpu_consts, int n_freq,
+                     int num_cores, void* stream) {
+  tick::KernelFn fn = tick::pick_kernel(p, kind, scaling);
+  if (fn == nullptr || n_lanes <= 0 || ctrl_every <= 0 || n_freq <= 0 ||
+      n_freq > tick::kMaxFreq) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  tick::Args args;
+  args.prow = static_cast<const float*>(prow);
+  args.bw = static_cast<const float*>(bw);
+  args.f0 = static_cast<const float*>(f0);
+  args.i0 = static_cast<const int*>(i0);
+  args.fout = static_cast<float*>(fout);
+  args.iout = static_cast<int*>(iout);
+  args.tput = static_cast<float*>(tput);
+  args.power = static_cast<float*>(power);
+  args.load = static_cast<float*>(load);
+  args.nch = static_cast<float*>(nch);
+  args.cores = static_cast<int*>(cores);
+  args.freq = static_cast<float*>(freq);
+  args.done = static_cast<int*>(done);
+  args.n_lanes = n_lanes;
+  args.n_steps = n_steps;
+  args.ctrl_every = ctrl_every;
+  args.dt = dt;
+  args.cpu.ipc = cpu_consts[0];
+  args.cpu.cpb = cpu_consts[1];
+  args.cpu.cpb_ch = cpu_consts[2];
+  args.cpu.pkg_static_w = cpu_consts[3];
+  args.cpu.core_static_w = cpu_consts[4];
+  args.cpu.core_dyn_w = cpu_consts[5];
+  args.cpu.mem_w = cpu_consts[6];
+  for (int k = 0; k < tick::kMaxFreq; ++k) args.cpu.freq[k] = cpu_consts[7 + k];
+  args.cpu.n_freq = n_freq;
+  args.cpu.num_cores = num_cores;
+
+  const dim3 block(tick::kThreads);
+  const dim3 grid((n_lanes + tick::kThreads - 1) / tick::kThreads);
+  void* params[] = {&args};
+  cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid, block, params, 0,
+                   static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* tick_loop_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,93 @@
+"""The CUDA tick kernel on the card (``gpu`` marker; skipped without one).
+
+This file imports neither JAX nor the JAX package, so it runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: tests/conftest.py tears down through the JAX package.)
+"""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.api import scenario as S
+from repro_torch.core import engine
+from repro_torch.core import types
+from repro_torch.kernels import tick_loop as tl
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+import chip_smoke  # noqa: E402  (RUN_GOLDEN and its scenarios)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    return torch.device("cuda")
+
+
+def _random_scenarios(rng, n):
+    """Random transfers over every controller kind and P = 1..8."""
+    out = []
+    names = ["EEMT", "ME", "EETT", "ismail-target", "wget/curl", "http/2",
+             "ismail-max-tput", "ismail-min-energy"]
+    for k in range(n):
+        p = int(rng.integers(1, 9))
+        ds = tuple(types.DatasetSpec(f"d{j}", int(rng.integers(1, 5000)),
+                                     float(rng.uniform(1, 3000)),
+                                     float(rng.uniform(0.01, 300)))
+                   for j in range(p))
+        prof = types.NetworkProfile(
+            "r", float(rng.uniform(50, 2000)), float(rng.uniform(0.005, 0.1)),
+            float(rng.uniform(0.3, 8)), float(rng.uniform(0.5, 16)),
+            float(rng.uniform(1.0, 2.0)), float(rng.uniform(0, 0.4)))
+        name = names[k % len(names)]
+        kw = {}
+        if name in ("EEMT", "ME", "EETT"):
+            kw = dict(alpha=float(rng.uniform(0, 0.3)),
+                      beta=float(rng.uniform(0, 0.3)),
+                      delta_ch=int(rng.integers(1, 8)),
+                      max_ch=int(rng.integers(2, 129)),
+                      scaling=bool(k % 16 < 8))
+        if name in ("EETT", "ismail-target"):
+            kw["target_tput_mbps"] = float(rng.uniform(0, 1500))
+        bw = np.repeat(rng.uniform(0.2, 1.1, 10).astype(np.float32), 60)
+        out.append(api.Scenario(profile=prof, datasets=ds,
+                                controller=api.make_controller(name, **kw),
+                                total_s=60.0, dt=0.1, bw_schedule=bw))
+    return out
+
+
+@pytest.mark.gpu
+def test_kernel_bit_exact_vs_plain_version_on_the_card(cuda_device):
+    scs = list(chip_smoke.golden_scenarios().values())
+    scs += _random_scenarios(np.random.default_rng(0), 96)
+    prepared, groups = S._prepare_groups(scs, cuda_device)
+    for key, idxs in groups.items():
+        inp = S._stack_group(prepared, idxs, cuda_device)
+        prow, f0, i0 = engine.pack_batch(key.env_code, inp)
+        args = (key.ctrl_code, key.env_code, key.cpu, prow, inp.bw, f0, i0)
+        kw = dict(dt=key.dt, ctrl_every=key.ctrl_every)
+        before = tl.tick_loop.launches
+        a = tl.tick_loop(*args, **kw)
+        torch.cuda.synchronize()
+        assert tl.tick_loop.launches == before + 1
+        b = tl.tick_loop_reference(*args, **kw)
+        for x, y in zip([a[0], a[1], *a[2]], [b[0], b[1], *b[2]]):
+            assert torch.equal(x, y), key
+
+
+@pytest.mark.gpu
+def test_run_golden_on_the_card(cuda_device):
+    before = tl.tick_loop.launches
+    for cell, sc in chip_smoke.golden_scenarios().items():
+        r = api.run(sc)                       # auto -> the cuda executor
+        assert (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
+                r.avg_power_w) == chip_smoke.RUN_GOLDEN[cell], cell
+    assert tl.tick_loop.launches == before + len(chip_smoke.RUN_GOLDEN)

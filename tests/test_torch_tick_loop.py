@@ -1,0 +1,177 @@
+"""The tick-loop kernel module: its plain version against the JAX package's
+fused tick-loop kernel (``_build_pallas_core``), the wrapper's dispatch
+rules (the CUDA kernel against the plain version on a card:
+tests/test_torch_gpu.py).
+
+Two JAX oracles, on the packed rows of the four GOLDEN_SUBSET scenarios of
+tests/test_executors.py:
+
+* the Pallas kernel's own loop (engine.py:575-593: ``make_step_fn`` ticks
+  while the transfer is live, traces pre-filled) run op by op under
+  ``jax.disable_jit()`` — final rows and all seven traces bit-exact;
+* ``_build_pallas_core`` itself in interpret mode (``executor="pallas"``,
+  as tests/test_executors.py runs it).  Interpret mode hands the kernel body
+  to XLA, whose fused float32 arithmetic differs from JAX's op-by-op
+  semantics by up to 2.6e-7 relative on these cells (ROADMAP, queue 3):
+  discrete fields are held exactly, float fields to rtol 1e-6.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import api as japi
+from repro.api import scenario as jscenario
+from repro.core import engine as jengine
+from repro.core import tickstate as jts
+from repro.core import types as jtypes
+from repro_torch import api as tapi
+from repro_torch import convert
+from repro_torch.api import environments as tenv
+from repro_torch.core import engine as tengine
+from repro_torch.core import types as ttypes
+from repro_torch.kernels import build
+from repro_torch.kernels import tick_loop as tl
+from torch_parity import jax_kernel_loop_op_by_op
+
+# tests/test_executors.py GOLDEN_SUBSET
+CELLS = [("chameleon", "eemt", "fast"), ("chameleon", "me", "fast"),
+         ("chameleon", "wget/curl", "one"), ("cloudlab", "eett", "one")]
+DATASETS = {"fast": (("a", 200, 400.0, 2.0), ("b", 10, 600.0, 60.0)),
+            "one": (("c", 50, 500.0, 10.0),)}
+
+
+def _controller(api, name):
+    kw = {"target_tput_mbps": 400.0} if name == "eett" else {}
+    return api.make_controller(name, **kw)
+
+
+def _jax_prepared(cell):
+    pn, cn, dn = cell
+    sc = japi.Scenario(
+        profile=jtypes.TESTBEDS[pn],
+        datasets=tuple(jtypes.DatasetSpec(*d) for d in DATASETS[dn]),
+        controller=_controller(japi, cn), total_s=240.0, dt=0.1)
+    return jscenario._prepare(sc)
+
+
+def _port_call(cell, prep, device="cpu"):
+    """(port controller code, kwargs, rows) for one lane from JAX inputs."""
+    inp = convert.to_torch(jax.tree.map(lambda x: np.asarray(x)[None],
+                                        prep.inputs), device)
+    prow, f0, i0 = tengine.pack_batch(tenv.REFERENCE_ENV, inp)
+    ctrl = tapi.as_controller(_controller(tapi, cell[1])).code()
+    k = prep.key
+    args = (ctrl, tenv.REFERENCE_ENV, ttypes.CpuProfile(), prow, inp.bw, f0,
+            i0)
+    return args, dict(dt=k.dt, ctrl_every=k.ctrl_every)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids="/".join)
+def test_plain_version_bit_exact_vs_jax_kernel_loop(cell):
+    prep = _jax_prepared(cell)
+    want_f, want_i, want_tr = jax_kernel_loop_op_by_op(prep)
+    args, kw = _port_call(cell, prep)
+    f32, i32, m = tl.tick_loop_reference(*args, **kw)
+    np.testing.assert_array_equal(f32[0].numpy(), want_f)
+    np.testing.assert_array_equal(i32[0].numpy(), want_i)
+    for field, got, want in zip(ttypes.TickMetrics._fields, m, want_tr):
+        assert got.dtype == torch.from_numpy(want).dtype, field
+        np.testing.assert_array_equal(got[0].numpy(), want, err_msg=field)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids="/".join)
+def test_plain_version_vs_jax_pallas_interpret(cell):
+    prep = _jax_prepared(cell)
+    k = prep.key
+    runner = jengine.get_runner(k.ctrl_code, k.env_code, k.cpu, k.n_steps,
+                                k.dt, k.ctrl_every, batched=False,
+                                executor="pallas")
+    sim, ts, jm = runner(prep.inputs)
+    want_f, want_i = jts.TickLayout(k.n_partitions).pack_state(sim, ts,
+                                                               xp=np)
+    args, kw = _port_call(cell, prep)
+    f32, i32, m = tl.tick_loop_reference(*args, **kw)
+    np.testing.assert_array_equal(i32[0].numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(f32[0].numpy(), np.asarray(want_f),
+                               rtol=1e-6, atol=0)
+    for field, got, want in zip(ttypes.TickMetrics._fields, m, jm):
+        got, want = got[0].numpy(), np.asarray(want)
+        if field in ("cores", "freq_ghz", "done"):
+            np.testing.assert_array_equal(got, want.astype(got.dtype),
+                                          err_msg=field)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0,
+                                       err_msg=field)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    prep = _jax_prepared(CELLS[1])
+    args, kw = _port_call(CELLS[1], prep)
+    before = tl.tick_loop.launches
+    a = tl.tick_loop(*args, **kw)
+    b = tl.tick_loop_reference(*args, **kw)
+    assert tl.tick_loop.launches == before      # nothing was launched
+    for x, y in zip([a[0], a[1], *a[2]], [b[0], b[1], *b[2]]):
+        assert torch.equal(x, y)
+    # the traces are [B, n_steps] views of time-major buffers
+    assert a[2].tput_mbps.shape == (1, prep.key.n_steps)
+    assert a[2].tput_mbps.t().is_contiguous()
+
+
+def test_kernel_spec_covers_the_builtin_controllers():
+    ref = tenv.REFERENCE_ENV
+    spec = {name: tl.kernel_spec(tapi.make_controller(name).code(), ref)
+            for name in ("ME", "EEMT", "EETT", "ismail-target", "wget/curl",
+                         "ismail-max-tput")}
+    assert spec == {"ME": (tl.KIND_ME, True), "EEMT": (tl.KIND_EEMT, True),
+                    "EETT": (tl.KIND_EETT, True),
+                    "ismail-target": (tl.KIND_ISMAIL, False),
+                    "wget/curl": (tl.KIND_STATIC, False),
+                    "ismail-max-tput": (tl.KIND_STATIC, False)}
+    assert tl.kernel_spec(
+        tapi.make_controller("EEMT", scaling=False).code(), ref) == (
+        tl.KIND_EEMT, False)
+
+
+def test_kernel_spec_rejects_what_the_kernel_does_not_implement():
+    class Slower(tenv.ReferenceNetworkModel):
+        name = "slower"
+
+    with pytest.raises(ValueError, match="reference environment"):
+        tl.kernel_spec(tapi.make_controller("EEMT"),
+                       tenv.Environment(network=Slower()))
+
+    class Custom(tapi.TunerController):
+        pass
+
+    with pytest.raises(ValueError, match="no code for controller"):
+        tl.kernel_spec(Custom(), tenv.REFERENCE_ENV)
+
+
+def test_wrapper_rejects_other_devices():
+    prep = _jax_prepared(CELLS[0])
+    args, kw = _port_call(CELLS[0], prep, device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tl.tick_loop(*args, **kw)
+
+
+def test_ptxas_report_parsing():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN4tick16tick_loop_kernelILi3ELi1ELb1EEEvNS_4ArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN4tick16tick_loop_kernelILi3ELi1ELb1EEEvNS_4ArgsE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 0 barriers, 560 bytes cmem[0]",
+    ])
+    report = build.ptxas_report(log)
+    (name, line), = report.items()
+    assert build.tick_loop_instance(name) == (3, tl.KIND_EEMT, True)
+    assert "72 registers" in line and "0 bytes spill stores" in line
+
+
+def test_build_flags_pin_the_numerics():
+    assert "-fmad=false" in build.NVCC_FLAGS and "-ftz=true" in build.NVCC_FLAGS
+    assert "--use_fast_math" not in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

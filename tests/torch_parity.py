@@ -1,0 +1,79 @@
+"""Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py):
+JAX-side oracles and converters between the two packages' scenarios.  Data
+crosses between the packages as numpy; JAX stays on the CPU."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core import engine as jengine
+from repro.core import tickstate as jts
+from repro_torch import api as tapi
+from repro_torch.core import types as ttypes
+
+
+def port_profile(p):
+    return ttypes.NetworkProfile(*dataclasses.astuple(p))
+
+
+def port_datasets(ds):
+    return tuple(ttypes.DatasetSpec(*dataclasses.astuple(d)) for d in ds)
+
+
+def port_scenario(sc, **overrides):
+    """The port's Scenario for a JAX Scenario with a reference environment,
+    a registry-name or TunerController controller and the default CPU."""
+    ctrl = sc.controller
+    if not isinstance(ctrl, str):
+        sla = ttypes.SLA(*dataclasses.astuple(ctrl.sla))
+        ctrl = tapi.TunerController(sla=sla, scaling=ctrl.scaling,
+                                    label=ctrl.label)
+    assert sc.environment is None and sc.bw_schedule is None
+    assert dataclasses.astuple(sc.cpu) == dataclasses.astuple(
+        ttypes.CpuProfile())
+    kw = dict(profile=port_profile(sc.profile),
+              datasets=port_datasets(sc.datasets), controller=ctrl,
+              total_s=sc.total_s, dt=sc.dt, name=sc.name)
+    kw.update(overrides)
+    return tapi.Scenario(**kw)
+
+
+def jax_kernel_loop_op_by_op(prep):
+    """The loop of the JAX package's fused tick kernel (engine.py:575-593:
+    ``make_step_fn`` ticks while the transfer is live, traces pre-filled
+    with the never-executed values), one JAX op at a time under
+    ``jax.disable_jit()``.  Returns the final (f32, i32) rows and the seven
+    [n_steps] traces, as numpy."""
+    k, inp = prep.key, prep.inputs
+    lay = jts.TickLayout(k.n_partitions)
+    n = k.n_steps
+    with jax.disable_jit():
+        carry = (k.env_code.network.init_state(inp.total_mb, inp.net),
+                 jax.tree.map(jnp.asarray, inp.state0))
+        step = jengine.make_step_fn(k.ctrl_code, k.env_code, k.cpu, inp,
+                                    dt=k.dt, ctrl_every=k.ctrl_every)
+        traces = [np.zeros(n, np.float32) for _ in range(4)] + [
+            np.zeros(n, np.int32), np.zeros(n, np.float32),
+            np.ones(n, np.int32)]
+        i = 0
+        while i < n and float(jnp.sum(carry[0].remaining_mb)) > 0.0:
+            carry, m = step(carry, (jnp.int32(i), inp.bw[i]))
+            for buf, v in zip(traces, m):
+                buf[i] = np.asarray(v)
+            i += 1
+        f32, i32 = lay.pack_state(*carry, xp=np)
+    return np.asarray(f32), np.asarray(i32), traces
+
+
+def summary(f32, done, prep):
+    """(completed, time_s, energy_j, avg_tput_MBps, avg_power_w) from a
+    final f32 row and the done trace, as ``api.run`` post-processes them."""
+    lay = jts.TickLayout(prep.key.n_partitions)
+    completed = bool(np.sum(f32[:lay.n_partitions]) <= 0.0)
+    t = (float(prep.dt * (int(np.argmax(done)) + 1)) if completed
+         else float(prep.total_s))
+    energy = float(f32[lay.off_energy])
+    moved = float(f32[lay.off_bytes])
+    return (completed, t, energy, moved / max(t, 1e-9),
+            energy / max(t, 1e-9))
