@@ -6,8 +6,9 @@ check it.
 Phases (each prints a line; any failure exits non-zero):
 
 1. card     — ``nvidia-smi`` name and power limit, torch's device name/count.
-2. build    — nvcc builds ``src/repro_torch/kernels/csrc/tick_loop.cu``;
-              ptxas registers / spills / shared memory per instantiation used.
+2. build    — nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` at once
+              (one nvcc each, in parallel); ptxas registers / spills / shared
+              memory per instantiation used.
 3. goldens  — the 20 RUN_GOLDEN cells through ``repro_torch.api.run`` on the
               ``cuda`` executor, bit for bit; one launch per cell.
 4. smoke    — the Figure 2 ``--smoke`` grid swept with the ``cuda`` and the
@@ -19,13 +20,31 @@ Phases (each prints a line; any failure exits non-zero):
               plain version on the same groups, compared and timed.
 6. tune     — 4,096 EEMT lanes (256 SLA points x 16 bandwidth schedules) in
               one launch: kernel vs plain on every lane, times, bound, memory.
+7. flash    — the flash-attention kernel vs its plain version on the card at
+              qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T 128/384/
+              2048, causal or not, window 0/256, bf16/f32, with/without
+              LSE); times against bound, plain version and
+              ``scaled_dot_product_attention``; T = 32,768 checked on its
+              last 256 query rows.
+8. lm golden — full-width qwen3-0.6b in float32 (TF32 off) through
+              ``repro_torch.serve`` against ``tests/torch_goldens/
+              lm_qwen3_0_6b.json`` (JAX on the CPU): 16 greedy tokens exact,
+              top-5 logits and norms to a stated tolerance.
+9. serve    — full-width qwen3-0.6b in bf16: (a) ``generate`` of 8 x 2,048
+              prompt tokens + 128 new ones, kernel vs plain prefill logits;
+              (b) ``ContinuousBatcher`` with EEMT admission over 16 slots,
+              64 requests of 128-2,048 prompt tokens: all finish, one kernel
+              launch per layer per prefill.
 
-The last two lines are the kernel summary and
+Phases 5, 6 and 9 drive the main paths: each kernel's launch count is set
+to 0 just before and read just after.  The last two lines are the kernel
+summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import statistics
@@ -39,6 +58,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # Float32 operations of one lane-tick of csrc/tick_loop.cu, counted from the
 # source: ~22 per partition (channel split, channel rate, drain, window) and
 # ~70 per lane (contention, capacity, power, accumulators, the controller
@@ -285,6 +305,428 @@ def instances_of(scenarios, dev):
     return out
 
 
+# ------------------------------------------------- attention and serving --
+
+# Phase 7: (H, Hkv, hd) of qwen3-0.6b and qwen2-0.5b; tolerances of
+# tests/test_kernels.py.
+FLASH_HEADS = {"qwen3": (16, 8, 128), "qwen2": (14, 2, 64)}
+FLASH_BATCH, FLASH_T = (1, 8), (128, 384, 2048)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Timed at qwen3's heads, bf16, causal: (B, T).  Past FLASH_FULL_T only the
+# last FLASH_TAIL query rows are held to the plain version.
+FLASH_TIMED = ((1, 2048), (8, 2048), (1, 32768))
+FLASH_FULL_T, FLASH_TAIL = 2048, 256
+# Weights by position (tests/torch_goldens/make_lm_golden.py CHECK_LEAVES).
+GOLDEN_WEIGHT_CHECK = {"embed": (0, slice(0, 4)),
+                       "blocks/attn/wq": (27, -1, slice(-4, None)),
+                       "blocks/mlp/wd": (13, 5, slice(0, 4))}
+# Phase 8: the float32 golden's tolerance on top-5 logits and norms, relative
+# to the row's largest top-5 |logit| / its norm (measured on the H100 80GB
+# HBM3 at 700 W: see PERF.md).
+GOLDEN_RTOL = 1e-3
+# Phase 9: serving shapes.
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 2048, 128
+CB_SLOTS, CB_MAX_LEN, CB_REQUESTS, CB_MAX_NEW = 16, 4096, 64, 64
+CB_PROMPT = (128, 2048)     # prompt lengths, uniform, numpy seed 2
+# Phase 9a: kernel vs plain prefill logits in bf16, as a share of the
+# largest |logit| (see PERF.md).
+SERVE_BF16_TOL = 0.05
+
+
+def flash_bound(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes):
+    """(bound_ms, bound_by, flops, bytes) of one attention call: 4 hd
+    operations per reachable (query, key) pair and head at the tensor
+    cores' bf16 rate; q, k, v read and o written once."""
+    if causal:
+        pairs = sum(min(q + 1, Tk) for q in range(Tq))
+    else:
+        pairs = Tq * Tk
+    flops = 4 * hd * H * B * pairs
+    nbytes = elem_bytes * hd * B * (2 * H * Tq + 2 * Hkv * Tk)
+    t_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def phase_flash(dev) -> dict:
+    """[7 flash] kernel vs plain version, timed at the serving shapes."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_bhtd)
+
+    g = torch.Generator().manual_seed(7)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for (name, (H, Hkv, hd)), B, T, causal, window, dname, lse in \
+            itertools.product(FLASH_HEADS.items(), FLASH_BATCH, FLASH_T,
+                              (True, False), (0, 256),
+                              ("bfloat16", "float32"), (False, True)):
+        dt = getattr(torch, dname)
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(dev, dt)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv)]
+        kw = dict(causal=causal, window=window, return_lse=lse)
+        got = flash_attention_bhtd(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        if not lse:
+            got, want = (got,), (want,)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        check(err <= FLASH_TOL[dname],
+              f"flash attention {name} B={B} T={T} causal={causal} "
+              f"window={window} {dname} lse={lse}: max |err| {err}")
+        worst[dname] = max(worst[dname], err)
+        n += 1
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    print(f"[7 flash] kernel == plain version on {n} cases (heads "
+          f"{FLASH_HEADS}; B {FLASH_BATCH}; T {FLASH_T}; causal or not; "
+          f"window 0/256; bf16/f32; with/without LSE): max |err| bf16 "
+          f"{worst['bfloat16']:.3g} (tol 2e-2), f32 {worst['float32']:.3g} "
+          f"(tol 2e-5)", flush=True)
+
+    H, Hkv, hd = FLASH_HEADS["qwen3"]
+    out = {}
+    for B, T in FLASH_TIMED:
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2) for h in (H, Hkv, Hkv)]
+        ms = time_cuda(lambda: flash_attention_bhtd(q, k, v), 5)
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
+        bound_ms, bound_by, flops, nbytes = flash_bound(B, H, Hkv, hd, T, T,
+                                                        True, 2)
+        o = flash_attention_bhtd(q, k, v)
+        if T <= FLASH_FULL_T:
+            plain_ms = time_cuda(lambda: attention_ref(q, k, v), 5)
+            err = float((o.float() - attention_ref(q, k, v).float())
+                        .abs().max())
+            rows = "all rows"
+        else:
+            # the full plain version would need a 68.7 GB score tensor
+            plain_ms = None
+            tail = FLASH_TAIL
+            ref = attention_ref(q[:, :, -tail:], k, v, q_offset=T - tail)
+            err = float((o[:, :, -tail:].float() - ref.float()).abs().max())
+            rows = f"last {tail} rows"
+        check(err <= FLASH_TOL["bfloat16"],
+              f"flash attention B={B} T={T}: max |err| {err} ({rows})")
+        plain = "not run" if plain_ms is None else f"{plain_ms:.3f} ms"
+        print(f"[7 flash] qwen3 bf16 causal B={B} T={T}: kernel {ms:.4f} ms "
+              f"(median of 5); bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops} FLOP, {nbytes} B); x bound {ms / bound_ms:.1f}; "
+              f"plain {plain}; scaled_dot_product_attention {lib_ms:.4f} "
+              f"ms; max |err| {err:.3g} ({rows})", flush=True)
+        out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=err)
+        del q, k, v, o
+    torch.cuda.empty_cache()
+    return out[(GEN_BATCH, GEN_PROMPT)]
+
+
+def random_qwen3_params():
+    """Full-width qwen3-0.6b weights from ``random_lm_params(seed=0)``, as
+    float32 numpy in JAX's tree (the golden's weights)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    tree = convert.random_lm_params(get_config("qwen3-0.6b"), seed=0)
+    print(f"[8 lm golden] random_lm_params(qwen3-0.6b, seed=0): "
+          f"{sum(x.size for x in _leaves(tree))} parameters drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return tree
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm_golden(dev, tree):
+    """[8 lm golden] float32 qwen3-0.6b on the card vs the JAX golden."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bhtd
+    from repro_torch.models import build as build_model
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "lm_qwen3_0_6b.json")) as f:
+        gold = json.load(f)
+    for path, vals in gold["weight_check"].items():
+        leaf = tree
+        for key in path.split("/"):
+            leaf = leaf[key]
+        idx = GOLDEN_WEIGHT_CHECK[path]
+        check([float(x) for x in leaf[idx]] == vals,
+              f"random_lm_params differs from the golden's at {path}: "
+              f"numpy drew other weights here")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+    params = convert.lm_params_from_jax(tree, cfg, dev)
+    bundle = build_model(cfg)
+    prompt = torch.as_tensor(np.asarray(gold["prompt"]), device=dev)
+    B, T, N = gold["batch"], gold["prompt_len"], gold["new_tokens"]
+    state = bundle.init_decode_state(B, T + N, device=dev)
+    prefill = make_prefill(bundle, executor="cuda")
+    step = make_decode_step(bundle, executor="cuda")
+    before = flash_attention_bhtd.launches
+    logits, state = prefill(params, state, prompt)
+    launches = flash_attention_bhtd.launches - before
+    steps = [logits[:, -1].float()]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for i in range(N - 1):
+        pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
+        tok, logits, state = step(params, state, tok, pos)
+        steps.append(logits[:, -1].float())
+    got_tokens = torch.stack([s.argmax(-1) for s in steps], 1).tolist()
+    check(got_tokens == gold["tokens"],
+          f"float32 greedy tokens {got_tokens} != JAX's {gold['tokens']}")
+    top_err = norm_err = 0.0
+    for s, g in zip(steps, gold["steps"]):
+        ids = torch.as_tensor(g["top5_ids"], device=dev)
+        vals = s.gather(1, ids).double().cpu().numpy()
+        want = np.asarray(g["top5"])
+        top_err = max(top_err, float(
+            (np.abs(vals - want).max(1) / np.abs(want).max(1)).max()))
+        norms = s.double().norm(dim=-1).cpu().numpy()
+        norm_err = max(norm_err, float(
+            (np.abs(norms - np.asarray(g["norm"])) / np.asarray(g["norm"]))
+            .max()))
+    margin = min(m for g in gold["steps"] for m in g["margin"])
+    check(top_err <= GOLDEN_RTOL and norm_err <= GOLDEN_RTOL,
+          f"float32 logits vs the golden: top-5 rel err {top_err}, norm rel "
+          f"err {norm_err} (tol {GOLDEN_RTOL})")
+    print(f"[8 lm golden] qwen3-0.6b float32 (TF32 off), {B} x {T} prompt "
+          f"tokens + {N} greedy steps on the card ({launches} flash "
+          f"launches in the prefill): tokens == lm_qwen3_0_6b.json; top-5 "
+          f"logits max rel err {top_err:.3g}, norms {norm_err:.3g} (tol "
+          f"{GOLDEN_RTOL}); smallest golden top-2 margin {margin:.4g}",
+          flush=True)
+    del params, state, steps
+    torch.cuda.empty_cache()
+
+
+def phase_serve(dev, tree) -> dict:
+    """[9 serve] bf16 qwen3-0.6b: generate, then the continuous batcher."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import SLA, SLAPolicy
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_bhtd)
+    from repro_torch.models import build as build_model
+    from repro_torch.serve import (ContinuousBatcher, Request, generate,
+                                   make_decode_step, make_prefill)
+
+    cfg = get_config("qwen3-0.6b")
+    check(cfg.dtype == "bfloat16", "qwen3-0.6b serves in bf16")
+    params = convert.lm_params_from_jax(tree, cfg, dev)
+    bundle = build_model(cfg)
+    B, T, N = GEN_BATCH, GEN_PROMPT, GEN_NEW
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, T)), device=dev)
+
+    # (a) generate: the main path, launches counted from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    flash_attention_bhtd.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(bundle, params, prompt, N, T + N, device=dev,
+                    executor="cuda")
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = flash_attention_bhtd.launches
+    gen_peak = torch.cuda.max_memory_allocated()
+    check(tuple(toks.shape) == (B, N), f"generate returned {toks.shape}")
+    check(gen_launches == cfg.num_layers,
+          f"generate launched the kernel {gen_launches} times, not "
+          f"{cfg.num_layers}")
+
+    # the prefill alone, kernel vs plain version, timed
+    logits, pre_ms, states = {}, {}, {}
+    for ex in ("cuda", "reference"):
+        state = bundle.init_decode_state(B, T + N, device=dev)
+        prefill = make_prefill(bundle, executor=ex)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[ex], states[ex] = prefill(params, state, prompt)
+        torch.cuda.synchronize()
+        pre_ms[ex] = (time.perf_counter() - t0) * 1e3
+    del states["reference"]
+
+    # decode steps after the kernel's prefill: host wall per step, and the
+    # eager PyTorch calls one step makes (torch.profiler, host side only)
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_decode_step(bundle, executor="cuda")
+    state, tok = states.pop("cuda"), toks[:, :1]
+    n_dec = min(16, N - 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
+        tok, _, state = step(params, state, tok, pos)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    pos = torch.full((B, 1), T + n_dec, dtype=torch.long, device=dev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(params, state, tok, pos)
+        torch.cuda.synchronize()
+    n_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                and (e.cpu_parent is None
+                     or not e.cpu_parent.name.startswith("aten::")))
+    del state
+    a, b = logits["cuda"][:, -1].float(), logits["reference"][:, -1].float()
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    check(err <= SERVE_BF16_TOL * scale,
+          f"bf16 prefill logits, kernel vs plain: max |err| {err} > "
+          f"{SERVE_BF16_TOL} x {scale}")
+    top2 = b.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > SERVE_BF16_TOL * scale
+    agree = a.argmax(-1) == b.argmax(-1)
+    check(bool(agree[sure].all()),
+          "first greedy token differs on a row with a clear top-2 margin")
+    check(torch.equal(a.argmax(-1).int(), toks[:, 0]),
+          "generate's first token is not its prefill's argmax")
+    print(f"[9 serve] (a) generate {B} x {T} prompt + {N} new tokens "
+          f"(bf16): wall {gen_wall:.3f} s, {gen_launches} flash launches "
+          f"(one per layer); prefill {pre_ms['cuda']:.1f} ms = "
+          f"{B * T / pre_ms['cuda'] * 1e3:.0f} tok/s (plain attention "
+          f"{pre_ms['reference']:.1f} ms); decode {step_ms:.2f} ms a step "
+          f"(mean of {n_dec}) = {B / step_ms * 1e3:.0f} tok/s, {n_ops} "
+          f"eager torch calls a step ({step_ms * 1e3 / n_ops:.1f} us "
+          f"each); peak memory {gen_peak} B "
+          f"({resident} B resident before: the weights); "
+          f"prefill logits kernel vs plain max |err| {err:.4g} of max "
+          f"|logit| {scale:.4g} (tol {SERVE_BF16_TOL} x); first token "
+          f"agrees on {int(agree.sum())}/{B} rows ({int(sure.sum())} with "
+          f"a top-2 margin above the tolerance)", flush=True)
+    del logits, a, b
+    torch.cuda.empty_cache()
+
+    # (b) the SLA continuous batcher: the main path, launches from 0
+    rng = np.random.default_rng(2)
+    lens = rng.integers(CB_PROMPT[0], CB_PROMPT[1] + 1, CB_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new=CB_MAX_NEW)
+            for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cb = ContinuousBatcher(bundle, params, slots=CB_SLOTS,
+                           max_len=CB_MAX_LEN,
+                           sla=SLA(policy=SLAPolicy.MAX_THROUGHPUT,
+                                   max_ch=CB_SLOTS, delta_ch=1,
+                                   timeout_s=0.25),
+                           device=dev, executor="cuda")
+    for r in reqs:
+        cb.submit(r)
+    flash_attention_bhtd.launches = 0
+    trajectory = []
+    t0 = time.perf_counter()
+    steps = 0
+    while cb.queue or any(r is not None for r in cb.active):
+        cb.step()
+        steps += 1
+        if not trajectory or trajectory[-1][1] != cb.admitted:
+            trajectory.append((steps, cb.admitted))
+        check(steps < 10_000, "continuous batcher did not drain")
+    torch.cuda.synchronize()
+    cb_wall = time.perf_counter() - t0
+    cb_launches = flash_attention_bhtd.launches
+    cb_peak = torch.cuda.max_memory_allocated()
+    produced = sum(len(r.out) for r in reqs)
+    check(all(r.done for r in reqs), "not every request finished")
+    check(cb_launches == cfg.num_layers * CB_REQUESTS,
+          f"batcher launched the kernel {cb_launches} times, not "
+          f"{cfg.num_layers} x {CB_REQUESTS}")
+
+    # (b, held) every request's prefill again, into a slot of the drained
+    # batcher (K/V a [:, :T] view of a 4,096-long cache row, stale entries
+    # past T), once through the kernel and once through the plain version;
+    # then the kernel alone on that layer-0 view with a random q
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator().manual_seed(9)
+    cb_err = logit_err = 0.0
+    n_sure = n_agree = n_same = 0
+    for r in reqs:
+        T, slot = len(r.prompt), r.rid % CB_SLOTS
+        prompt = torch.as_tensor(r.prompt[None], device=dev)
+        out = {}
+        for ex in ("cuda", "reference"):
+            cb.executor = ex
+            out[ex] = cb._prefill(slot, prompt)[0].float()
+        a, b = out["cuda"], out["reference"]
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(err <= SERVE_BF16_TOL * scale,
+              f"batcher prefill of request {r.rid} (T={T}), kernel vs "
+              f"plain: max |err| {err} > {SERVE_BF16_TOL} x {scale}")
+        logit_err = max(logit_err, err / scale)
+        top2 = b.topk(2).values
+        if float(top2[0] - top2[1]) > SERVE_BF16_TOL * scale:
+            n_sure += 1
+            check(int(a.argmax()) == int(b.argmax()),
+                  f"batcher prefill of request {r.rid}: first token "
+                  f"differs with a clear top-2 margin")
+        n_agree += int(a.argmax()) == int(b.argmax())
+        n_same += int(a.argmax()) == r.out[0]
+        q = torch.randn(1, T, H, hd, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2)
+        k = cb.state["k"][0, slot:slot + 1, :T].transpose(1, 2)
+        v = cb.state["v"][0, slot:slot + 1, :T].transpose(1, 2)
+        err = float((flash_attention_bhtd(q, k, v).float()
+                     - attention_ref(q, k, v).float()).abs().max())
+        check(err <= FLASH_TOL["bfloat16"],
+              f"flash attention on the batcher's slot view T={T}: max "
+              f"|err| {err}")
+        cb_err = max(cb_err, err)
+    check(n_same == CB_REQUESTS,
+          f"the kernel's prefill again gave the served first token on "
+          f"{n_same}/{CB_REQUESTS} requests")
+    cb.executor = "cuda"
+    print(f"[9 serve] (b) ContinuousBatcher {CB_SLOTS} slots x "
+          f"{CB_MAX_LEN}, EEMT admission: {CB_REQUESTS}/{CB_REQUESTS} "
+          f"requests done ({int(lens.sum())} prompt tokens, {produced} "
+          f"generated) in {steps} steps, {cb_wall:.3f} s = "
+          f"{produced / cb_wall:.1f} generated tok/s, "
+          f"{(produced + int(lens.sum())) / cb_wall:.0f} tok/s with "
+          f"prompts; {cb_launches} flash launches "
+          f"(= {cfg.num_layers} x {CB_REQUESTS}); peak memory {cb_peak} B "
+          f"({resident} B resident before: the weights); "
+          f"admitted slots (step, slots): {trajectory}", flush=True)
+    print(f"[9 serve] (b) the {CB_REQUESTS} prefills again on the drained "
+          f"batcher's slots (T {int(lens.min())}-{int(lens.max())}): "
+          f"kernel vs plain last-position logits max |err| "
+          f"{logit_err:.4g} of max |logit| (tol {SERVE_BF16_TOL} x); first "
+          f"token agrees on {n_agree}/{CB_REQUESTS} ({n_sure} with a top-2 "
+          f"margin above the tolerance), kernel == served on "
+          f"{n_same}/{CB_REQUESTS}; kernel alone on the layer-0 slot views: "
+          f"max |err| {cb_err:.3g} (tol 2e-2)", flush=True)
+    del cb, params
+    torch.cuda.empty_cache()
+    return {"launches": cb_launches, "max_abs_err": cb_err}
+
+
 # ----------------------------------------------------------------- phases --
 
 def main() -> int:
@@ -304,6 +746,8 @@ def smoke(dev) -> int:
     from repro_torch.core import tickstate
     from repro_torch.kernels import build
     from repro_torch.kernels import tick_loop as tl
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
 
     # 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -319,10 +763,18 @@ def smoke(dev) -> int:
 
     # 2. build
     t0 = time.perf_counter()
+    logs = build.build_all()
     build.load_tick_loop()
-    print(f"[2 build] tick_loop.cu built and loaded in "
+    build.load_flash_attention()
+    print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    report = build.ptxas_report(build.build_log("tick_loop.cu"))
+    for name, line in build.ptxas_report(
+            logs["flash_attention.cu"]).items():
+        inst = build.flash_attention_instance(name)
+        check(inst is not None, f"unexpected entry {name}")
+        print(f"[2 build] flash_attention {inst[0]} hd={inst[1]}: {line}; "
+              f"{fa.smem_bytes(inst[1])} B dynamic shared memory")
+    report = build.ptxas_report(logs["tick_loop.cu"])
     names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC"]
     used = set()
     for scs in (list(golden_scenarios().values()),
@@ -479,13 +931,33 @@ def smoke(dev) -> int:
           f"{peak} B; sweep end to end {tune_wall:.3f} s; "
           f"{sum(r.completed for r in tune_results)} completed", flush=True)
 
+    # 7-9: flash attention, the float32 golden, serving (the tick loop's
+    # tensors are freed first, so the serving phases' peaks are their own)
+    del kern, plain, grs, outs, results, tune_results, grs_t, rows_t, \
+        kern_t, ker_rows, ref_rows
+    torch.cuda.empty_cache()
+    print(f"[7 flash] {torch.cuda.memory_allocated()} B allocated on the "
+          f"card after phases 1-6", flush=True)
+    flash = phase_flash(dev)
+    tree = random_qwen3_params()
+    phase_lm_golden(dev, tree)
+    serve = phase_serve(dev, tree)
+
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tick_loop.cu",
         "replaces": "src/repro/core/engine.py:612",
         "launches": main_launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
+        "launches": serve["launches"],
+        "max_abs_err": max(flash["max_abs_err"], serve["max_abs_err"]),
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version.
 
-    tick_loop — the fused whole-transfer tick loop (csrc/tick_loop.cu),
-                replacing repro/core/engine.py::_build_pallas_core
-    build     — nvcc build of csrc/*.cu into plain-C libraries, at first use
+    tick_loop       — the fused whole-transfer tick loop (csrc/tick_loop.cu),
+                      replacing repro/core/engine.py::_build_pallas_core
+    flash_attention — flash-attention forward (csrc/flash_attention.cu),
+                      replacing repro/kernels/flash_attention/
+                      flash_attention.py::flash_attention_bhtd
+    build           — nvcc build of csrc/*.cu into plain-C libraries, one per
+                      source with its own flags, at first use
 """

@@ -7,11 +7,15 @@ includes PyTorch's headers, so a build takes seconds.  Libraries land in
 named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is loaded as it is.  Nothing builds at import.
 
-The flags are part of the numerics: ``-fmad=false`` stops nvcc from
-contracting ``a*b+c`` into one fused multiply-add (the JAX reference rounds
-the product first); ``-ftz=true`` flushes float32 subnormals to zero, as
-XLA does on the CPU and the TPU; and there is no ``--use_fast_math``
-(correctly rounded division, as the reference has).
+Each source has its own flags (:data:`SOURCE_FLAGS`), its own library and
+its own build log.  The tick loop's flags are part of its numerics:
+``-fmad=false`` stops nvcc from contracting ``a*b+c`` into one fused
+multiply-add (the JAX reference rounds the product first); ``-ftz=true``
+flushes float32 subnormals to zero, as XLA does on the CPU and the TPU.
+The attention kernel claims no bit-exactness, only a stated tolerance
+against its plain version, so it keeps nvcc's default contraction and
+IEEE subnormals.  No source gets ``--use_fast_math`` (correctly rounded
+division and ``expf`` / ``logf``, as the references have).
 """
 from __future__ import annotations
 
@@ -28,9 +32,17 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-ftz=true", "-shared", "-Xcompiler",
-              "-fPIC", "-Xptxas", "-v")
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: The tick loop's flags (bit-exact float32: no contraction, FTZ).
+NVCC_FLAGS = _BASE_FLAGS + ("-fmad=false", "-ftz=true")
+
+#: nvcc flags per ``csrc`` source.
+SOURCE_FLAGS = {
+    "tick_loop.cu": NVCC_FLAGS,
+    "flash_attention.cu": _BASE_FLAGS,
+}
 
 
 def nvcc_path() -> str:
@@ -55,8 +67,9 @@ def build(source: str) -> tuple[Path, str]:
     """Compile ``csrc/<source>`` (if its library is not built yet) and
     return (library path, nvcc's output including ``-Xptxas -v``)."""
     src = CSRC / source
+    flags = SOURCE_FLAGS[source]
     text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     stem = f"{src.stem}-{digest[:16]}"
     lib = BUILD_DIR / f"{stem}.so"
     log = BUILD_DIR / f"{stem}.log"
@@ -68,7 +81,7 @@ def build(source: str) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True, timeout=900)
         out = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -126,10 +139,43 @@ def load_tick_loop() -> ctypes.CDLL:
     return lib
 
 
+def flash_attention_instance(name: str):
+    """(dtype, hd) of a mangled ``flash_fwd_kernel`` entry name: dtype
+    ``"float32"`` or ``"bfloat16"``."""
+    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+    return None if m is None else (
+        "float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
+
+
+def load_flash_attention() -> ctypes.CDLL:
+    """The flash-attention library, built and loaded once per process."""
+    lib, _ = _load("flash_attention.cu")
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_all() -> dict[str, str]:
+    """Build every source at once, one nvcc each, all started together;
+    returns each source's build log."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(SOURCE_FLAGS)) as pool:
+        return dict(zip(SOURCE_FLAGS, pool.map(build_log, SOURCE_FLAGS)))
+
+
 def build_log(source: str) -> str:
     """nvcc's output for ``source`` (building it first if needed)."""
     return _load(source)[1]
 
 
-def cuda_error_string(lib, err: int) -> str:
-    return f"CUDA error {err}: {lib.tick_loop_error_string(err).decode()}"
+def cuda_error_string(lib, err: int, kernel: str = "tick_loop") -> str:
+    """The text of a CUDA error code, from ``<kernel>_error_string``."""
+    fn = getattr(lib, f"{kernel}_error_string")
+    return f"CUDA error {err}: {fn(err).decode()}"

@@ -1,0 +1,76 @@
+"""Serving launcher: batched greedy decoding against a KV cache, on the CUDA
+card unless ``--device cpu`` (the port of ``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --device cpu --smoke --batch 4 --prompt-len 16 --new-tokens 32
+
+Weights are random (``torch.Generator`` seed 0), the prompt is drawn with
+numpy seed 1.  The prefill's attention runs the flash-attention kernel on
+the card and its plain version on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.api.scenario import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.flash_attention import flash_attention_bhtd
+from repro_torch.models import build
+from repro_torch.serve import make_decode_step, make_prefill
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.tp != 1:
+        raise NotImplementedError("multi-card serving (--tp > 1) is queued: "
+                                  "ROADMAP queue 1, item 9e")
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    bundle = build(cfg)
+    params = bundle.init_params(0, device=dev)
+    B, T, N = args.batch, args.prompt_len, args.new_tokens
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, T)), device=dev)
+    state = bundle.init_decode_state(B, T + N, device=dev)
+
+    prefill = make_prefill(bundle)
+    step = make_decode_step(bundle)
+
+    launches = flash_attention_bhtd.launches
+    logits, state = prefill(params, state, prompt)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    launches = flash_attention_bhtd.launches - launches
+    toks = [tok]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(N - 1):
+        pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
+        tok, _, state = step(params, state, tok, pos)
+        toks.append(tok)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+
+    print(f"{cfg.name} on {dev}: {B * (N - 1) / dt:.1f} tok/s batched "
+          f"({dt / max(N - 1, 1) * 1e3:.2f} ms/step); prefill launched the "
+          f"flash-attention kernel {launches} times")
+    return torch.cat(toks, dim=1)
+
+
+if __name__ == "__main__":
+    main()

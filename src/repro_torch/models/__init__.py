@@ -1,0 +1,52 @@
+"""Model zoo of the port (``repro/models``): one functional bundle per
+architecture family.
+
+``build(cfg)`` serves the dense family (``lm.py``: decoder-only
+transformer).  The other families raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from . import lm
+from .common import ModelConfig, MoEConfig  # noqa: F401
+
+#: Families still to port, with the ROADMAP queue 1 item that brings each.
+_LATER = {"moe": "9e (MoE, VLM and whisper)", "vlm": "9e (MoE, VLM and whisper)",
+          "audio": "9e (MoE, VLM and whisper)", "ssm": "9c (rwkv6-7b)",
+          "hybrid": "9d (recurrentgemma-2b)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    """Uniform interface over heterogeneous families."""
+
+    cfg: ModelConfig
+    init_params: Callable[..., Any]           # (seed, device=None) -> params
+    forward: Callable[..., Any]               # (params, tokens, **kw) -> (logits, state, aux)
+    init_decode_state: Callable[..., Any]     # (batch, max_len, ...) -> state
+    state_kwarg: str                          # name of the decode-state kwarg
+
+
+def build(cfg: ModelConfig) -> ModelBundle:
+    fam = cfg.family
+    if fam == "dense":
+        return ModelBundle(
+            cfg=cfg,
+            init_params=lambda seed=0, device=None: lm.init_params(
+                cfg, seed, device=device),
+            forward=lambda params, tokens, **kw: lm.forward(cfg, params,
+                                                            tokens, **kw),
+            init_decode_state=lambda b, m, dtype=torch.bfloat16,
+            device=None: lm.init_caches(cfg, b, m, dtype, device=device),
+            state_kwarg="caches",
+        )
+    if fam in _LATER:
+        raise NotImplementedError(
+            f"the {fam!r} family is not ported yet: ROADMAP queue 1, item "
+            f"{_LATER[fam]}")
+    raise ValueError(f"unknown family {fam!r}")

@@ -1,0 +1,298 @@
+"""Shared neural layers of the dense LM (the port of
+``repro/models/layers.py``; functional style over parameter dicts).
+
+Conventions, as in the JAX package:
+  * params are nested dicts of tensors, weights in JAX's ``[in, out]``
+    layout, so carrying them across is a copy;
+  * activations are [B, T, D] in the config's dtype, math in float32 where
+    it matters (softmax, norms);
+  * k/v stay un-repeated ([B, T, Hkv, hd]) and the attention einsums are
+    GQA-grouped.
+
+Causal attention over a sequence that starts at position 0 -- a forward
+without a cache with Tq > 1, or a prefill into an empty cache -- runs the
+flash attention kernel (``kernels/flash_attention``); decode, Tq > 1 into a
+non-empty cache and non-causal attention use :func:`attention_scores_full`,
+as JAX does for them (or for a short sequence).  Which one
+runs is decided from shapes and host state (the cache's write offset is a
+Python int), never by a device read.
+
+Caches are written in place (JAX returns new ones): a KV cache is the
+largest tensor of a serving run (7.5 GB for 16 slots x 4,096 positions of
+qwen3-0.6b), so the port never copies it.  A cache dict passed to
+:func:`attention` must not be reused after the call; use the one returned.
+
+No counterpart here: ``residual_shard``, ``logits_shard`` and ``_cp_shard``
+(mesh constraints; this slice runs on one card), ``remat_policy``, the MoE
+layers and M-RoPE (their slices come later), and the ring-buffer cache.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+from .common import ModelConfig
+
+NEG_INF = -2.0e38
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _normal(gen, shape, scale, dtype):
+    """float32 standard normals from ``gen`` (a CPU generator), scaled and
+    cast."""
+    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+
+# ----------------------------------------------------------------- norms ---
+
+def init_norm(cfg: ModelConfig, d: int):
+    if cfg.norm_type == "ln_nonparam":        # olmo: no learnable affine
+        return {}
+    if cfg.norm_type == "ln":
+        return {"scale": torch.ones((d,), dtype=torch.float32),
+                "bias": torch.zeros((d,), dtype=torch.float32)}
+    return {"scale": torch.ones((d,), dtype=torch.float32)}
+
+
+def _norm_impl(norm_type: str, p, x, eps: float = 1e-6):
+    xf = x.float()
+    if norm_type in ("ln", "ln_nonparam"):
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        if norm_type == "ln":
+            y = y * p["scale"] + p["bias"]
+    else:                                      # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
+    return _norm_impl(cfg.norm_type, p, x, eps)
+
+
+def rms_head_norm(x, scale, eps: float = 1e-6):
+    """qk-norm (qwen3): RMS-normalize each head vector."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+# ------------------------------------------------------------------ rope ---
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions [..., T] -> cos/sin [..., T, head_dim//2] (float32)."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [B, T, H, hd]; cos/sin broadcastable to [B, T, 1, hd//2]."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention ---
+
+def init_attention(cfg: ModelConfig, gen):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    s = 1.0 / math.sqrt(d)
+    dt = _dtype(cfg)
+    p = {
+        "wq": _normal(gen, (d, h * hd), s, dt),
+        "wk": _normal(gen, (d, hkv * hd), s, dt),
+        "wv": _normal(gen, (d, hkv * hd), s, dt),
+        "wo": _normal(gen, (h * hd, d), s, dt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dt)
+        p["bk"] = torch.zeros((hkv * hd,), dtype=dt)
+        p["bv"] = torch.zeros((hkv * hd,), dtype=dt)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32)
+    return p
+
+
+def _qkv(cfg: ModelConfig, p, x):
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, T = x.shape[:2]
+    q = q.reshape(B, T, cfg.num_heads, hd)
+    k = k.reshape(B, T, cfg.num_kv_heads, hd)
+    v = v.reshape(B, T, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def attention_scores_full(q, k, v, mask_bias):
+    """Reference full-matrix attention, GQA-grouped.
+
+    q [B,Tq,H,hd]; k/v [B,Tk,Hkv,hd] (not head-repeated); mask_bias
+    broadcastable to [B,1,1,Tq,Tk].  Scores are rounded to q's dtype before
+    the float32 softmax, as JAX's einsum does."""
+    B, Tq, H, hd = q.shape
+    hkv = k.shape[2]
+    rep = H // hkv
+    qg = q.reshape(B, Tq, hkv, rep, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float()
+    s = s / math.sqrt(hd) + mask_bias
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", w, v)
+    return o.reshape(B, Tq, H, hd)
+
+
+def _write_cache(cache, k, v, positions, from_start):
+    """Write this step's k/v into the cache in place; return the keys and
+    values to attend over (in the cache's dtype)."""
+    ck, cv = cache["k"], cache["v"]
+    T = k.shape[1]
+    if T > ck.shape[1]:
+        raise ValueError(f"cache overflow: {T} positions into a cache of "
+                         f"{ck.shape[1]}")
+    rows = cache.get("rows")
+    if cache.get("per_row"):
+        # Per-row write offsets (continuous batching): each slot writes at
+        # its own positions; only the live rows are written, so frozen
+        # slots keep their state.
+        if rows is None:
+            rows = torch.arange(k.shape[0], device=k.device)
+        if from_start:
+            ck[rows, :T] = k[rows].to(ck.dtype)
+            cv[rows, :T] = v[rows].to(cv.dtype)
+        else:
+            offs = positions[rows].long()
+            ck[rows[:, None], offs] = k[rows].to(ck.dtype)
+            cv[rows[:, None], offs] = v[rows].to(cv.dtype)
+    else:
+        idx = cache["idx"]
+        if idx + T > ck.shape[1]:
+            raise ValueError(f"cache overflow: writing {T} positions at "
+                             f"{idx} into a cache of {ck.shape[1]}")
+        ck[:, idx:idx + T] = k.to(ck.dtype)
+        cv[:, idx:idx + T] = v.to(cv.dtype)
+    return ck, cv
+
+
+def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
+              cache=None, from_start=False, executor="auto"):
+    """Unified attention: forward without a cache, prefill, and decode.
+
+    cache: None -> plain forward over x; a layer cache dict
+    (``k``, ``v``, ``idx`` [host int], ``per_row``, optional ``rows``) ->
+    write x's k/v at ``idx`` (contiguous) or at ``positions`` (per row) and
+    attend over the cache.  ``from_start``: the caller's positions are
+    0..T-1 in every row (host knowledge; the forward's default).
+    ``executor`` picks the flash-attention sites' implementation
+    (``auto``/``cuda``/``reference``, kernels/flash_attention/ops.py).
+    Returns (y [B,T,D], new_cache_or_None).  Without a cache, causal
+    attention over Tq > 1 runs the kernel, which covers both of JAX's
+    branches (full scores, and ``attention_chunked`` past ``q_chunk``).
+    """
+    q, k, v = _qkv(cfg, p, x)
+    hd = cfg.resolved_head_dim
+
+    if cfg.use_rope:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    B, Tq = q.shape[:2]
+    new_cache = None
+    if cache is not None:
+        ck, cv = _write_cache(cache, k, v, positions, from_start)
+        new_cache = dict(cache, idx=cache["idx"] + Tq)
+        if from_start and cache["idx"] == 0 and Tq > 1:
+            # Prefill into an empty cache: causal attention over the first
+            # Tq keys, read back from the cache and brought to q's dtype (a
+            # bf16 cache under a float32 model: the exact upcast JAX's
+            # mixed einsum does).
+            y = flash_attention(q, ck[:, :Tq].to(q.dtype),
+                                cv[:, :Tq].to(q.dtype), causal=True,
+                                window=window, executor=executor)
+        else:
+            # decode / cached attention: causal per-row mask; a contiguous
+            # cache also hides never-written slots past the write index.
+            Tk = ck.shape[1]
+            kpos = torch.arange(Tk, device=x.device)
+            qpos = positions
+            m = kpos[None, None, :] > qpos[:, :, None]
+            if window > 0:
+                m |= kpos[None, None, :] <= (qpos[:, :, None] - window)
+            if not cache.get("per_row"):
+                m |= (kpos >= cache["idx"] + Tq)[None, None, :]
+            bias = torch.where(m[:, None, None], NEG_INF, 0.0)
+            y = attention_scores_full(q, ck.to(q.dtype), cv.to(q.dtype), bias)
+    elif Tq > 1 and causal:
+        y = flash_attention(q, k, v, causal=True, window=window,
+                            executor=executor)
+    else:
+        # One query, or non-causal attention (JAX ignores the window
+        # there): full scores, JAX's branch for a short sequence.
+        bias = torch.zeros((1, 1, 1, 1, 1), dtype=torch.float32,
+                           device=x.device)
+        y = attention_scores_full(q, k, v, bias)
+
+    y = y.reshape(B, Tq, cfg.num_heads * hd) @ p["wo"]
+    return y, new_cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, per_row: bool = False, device=None):
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": 0, "per_row": per_row}
+
+
+# ------------------------------------------------------------------- mlp ---
+
+def init_mlp(cfg: ModelConfig, gen, d_ff: Optional[int] = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    dt = _dtype(cfg)
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "wg": _normal(gen, (d, ff), s_in, dt),
+            "wu": _normal(gen, (d, ff), s_in, dt),
+            "wd": _normal(gen, (ff, d), s_out, dt),
+        }
+    return {  # gelu mlp (whisper)
+        "wu": _normal(gen, (d, ff), s_in, dt),
+        "bu": torch.zeros((ff,), dtype=dt),
+        "wd": _normal(gen, (ff, d), s_out, dt),
+        "bd": torch.zeros((cfg.d_model,), dtype=dt),
+    }
+
+
+def mlp(cfg: ModelConfig, p, x):
+    # jax.nn.gelu defaults to the tanh approximation.
+    if cfg.mlp_type == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    if cfg.mlp_type == "geglu":
+        return (F.gelu(x @ p["wg"], approximate="tanh")
+                * (x @ p["wu"])) @ p["wd"]
+    return F.gelu(x @ p["wu"] + p["bu"], approximate="tanh") @ p["wd"] \
+        + p["bd"]

@@ -141,7 +141,11 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.api, repro_torch.convert, "
-            "repro_torch.kernels.tick_loop, repro_torch.kernels.build; "
+            "repro_torch.kernels.tick_loop, repro_torch.kernels.build, "
+            "repro_torch.kernels.flash_attention, repro_torch.models, "
+            "repro_torch.serve, repro_torch.launch.serve; "
+            "from repro_torch.configs import ARCHS, get_config; "
+            "[get_config(a) for a in ARCHS]; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,4 +1,5 @@
-"""The CUDA tick kernel on the card (``gpu`` marker; skipped without one).
+"""The CUDA kernels on the card (``gpu`` marker; skipped without one): the
+tick loop and flash attention, each against its plain version.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -19,6 +20,8 @@ from repro_torch.api import scenario as S
 from repro_torch.core import engine
 from repro_torch.core import types
 from repro_torch.kernels import tick_loop as tl
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention_bhtd)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -91,3 +94,37 @@ def test_run_golden_on_the_card(cuda_device):
         assert (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
                 r.avg_power_w) == chip_smoke.RUN_GOLDEN[cell], cell
     assert tl.tick_loop.launches == before + len(chip_smoke.RUN_GOLDEN)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64)])
+def test_flash_attention_kernel_vs_plain_version_on_the_card(cuda_device,
+                                                             dtype, H, Hkv,
+                                                             hd):
+    """Kernel == plain version within 2e-5 (float32) / 2e-2 (bf16), as in
+    tests/test_kernels.py, on [B,T,H,hd] views; o keeps q's strides."""
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(0)
+    for B, Tq, Tk, causal, window, lse in [(1, 128, 128, True, 0, False),
+                                           (2, 384, 384, False, 0, True),
+                                           (2, 200, 200, True, 64, True),
+                                           (1, 1000, 1000, True, 0, False),
+                                           (3, 70, 130, True, 0, True)]:
+        q = torch.randn(B, Tq, H, hd, generator=g).to(cuda_device, dtype)
+        k = torch.randn(B, Tk, Hkv, hd, generator=g).to(cuda_device, dtype)
+        v = torch.randn(B, Tk, Hkv, hd, generator=g).to(cuda_device, dtype)
+        args = [x.transpose(1, 2) for x in (q, k, v)]
+        kw = dict(causal=causal, window=window, return_lse=lse)
+        before = flash_attention_bhtd.launches
+        got = flash_attention_bhtd(*args, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_bhtd.launches == before + 1
+        want = attention_ref(*args, **kw)
+        if not lse:
+            got, want = (got,), (want,)
+        assert got[0].transpose(1, 2).is_contiguous()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= tol, (B, Tq, Tk, causal, window, err)
