@@ -36,9 +36,24 @@ Phases (each prints a line; any failure exits non-zero):
               64 requests of 128-2,048 prompt tokens: all finish, one kernel
               launch per layer per prefill.
 
-Phases 5, 6 and 9 drive the main paths: each kernel's launch count is set
-to 0 just before and read just after.  The last two lines are the kernel
-summary and
+10. flash bwd — the flash-attention backward kernel vs its plain version
+              on the card (qwen3 and qwen2 heads; B 1/2; T 128/200/384/1000/
+              2048; causal or not; window 0/256; bf16/f32); times against
+              bound, plain version and the backward of
+              ``scaled_dot_product_attention``.
+11. train golden — full-width qwen3-0.6b in float32 (TF32 off): two
+              ``make_train_step`` steps against ``tests/torch_goldens/
+              train_qwen3_0_6b.json`` (JAX on the CPU): loss, ce, grad norm,
+              lr, step-1 gradient norms and slices, step-2 weight slices.
+12. train   — bf16 qwen3-0.6b at full width and depth through
+              ``repro_torch.train.trainer.train`` with the SLA-tuned fetcher
+              (B 8 x T 2048, remat, 6 steps): step time, tokens/s, peak
+              memory, launches per step, the fetcher's trajectory; then one
+              step at B 2 through the kernels and through the plain versions.
+
+Phases 5, 6, 9 and 12 drive the main paths: each kernel's launch count is
+set to 0 just before and read just after.  The last two lines are the
+kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
 """
@@ -428,6 +443,447 @@ def phase_flash(dev) -> dict:
     return out[(GEN_BATCH, GEN_PROMPT)]
 
 
+# Phase 10: the backward's cases (FLASH_HEADS; non-causal only where T is
+# a multiple of the 128-key block, JAX's contract) and tolerances.  float32:
+# tests/test_kernels.py:181-182 (atol 5e-5 + rtol 5e-5 element-wise).  bf16:
+# 1e-2 of each gradient's largest magnitude -- both sides round every output
+# once to bf16 (2^-8 of a value), and float32 sums in another order can
+# flip that rounding: two bf16 ulps of the largest value, with a margin.
+BWD_BATCH, BWD_T = (1, 2), (128, 200, 384, 1000, 2048)
+BWD_F32_TOL = 5e-5
+BWD_BF16_TOL = 1e-2
+BWD_TIMED = ((1, 2048), (8, 2048))
+# Phase 11: the float32 train golden's tolerances (full width and depth,
+# cuBLAS float32 against XLA on the CPU: sums in another order through 28
+# layers).  Weights are held where |g| at step 1 exceeds TRAIN_G_FLOOR of
+# its slice's largest |g| (Adam's first step is sign-like); elsewhere to
+# 2 lr per step.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LR_RTOL = 1e-5, 1e-4, 1e-6
+TRAIN_GRAD_ATOL = 1e-3         # x the slice's largest |g|
+TRAIN_W_ATOL, TRAIN_G_FLOOR = 5e-5, 1e-3
+# Phase 12: the trainer's cell (launch/train.py:158-161 ingest).
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 6
+TRAIN_CHECK_B = 2
+# Phase 12, kernel step vs plain step in bf16 through 28 layers: loss and
+# grad norm relative, and each leaf's gradient as a relative L2 distance
+# (bf16 roundings flipped by another sum order compound over the layers).
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL, TRAIN_BF16_GRAD_RTOL = \
+    5e-3, 2e-2, 1e-1
+
+
+def bwd_bound(B, H, Hkv, hd, T, causal, elem_bytes):
+    """(bound_ms, bound_by, flops, bytes) of one attention backward: five
+    products (s, dp, dq, dk, dv) = 10 hd operations per reachable (query,
+    key) pair and query head at the tensor cores' bf16 rate; q, k, v, o, dO
+    and lse read once and dq, dk, dv written once."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    flops = 10 * hd * H * B * pairs
+    nbytes = (elem_bytes * hd * B * (4 * H * T + 4 * Hkv * T)
+              + 4 * B * H * T)
+    t_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def phase_flash_bwd(dev) -> dict:
+    """[10 flash bwd] kernel vs plain version, timed at the training
+    shapes."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    g = torch.Generator().manual_seed(10)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    max_abs = 0.0
+    n = 0
+    for (name, (H, Hkv, hd)), B, T, causal, window, dname in \
+            itertools.product(FLASH_HEADS.items(), BWD_BATCH, BWD_T,
+                              (True, False), (0, 256),
+                              ("bfloat16", "float32")):
+        if not causal and T % 128:
+            continue
+        dt = getattr(torch, dname)
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(dev, dt)
+                       .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
+        want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            a, b = a.float(), b.float()
+            diff = (a - b).abs()
+            if dname == "float32":
+                excess = float((diff - BWD_F32_TOL * b.abs()).max())
+                ok = excess <= BWD_F32_TOL
+                rel = float(diff.max())
+            else:
+                rel = float(diff.max()) / float(b.abs().max())
+                ok = rel <= BWD_BF16_TOL
+            check(ok, f"flash backward {name} B={B} T={T} causal={causal} "
+                      f"window={window} {dname} {gname}: max |err| "
+                      f"{float(diff.max())} (of max {float(b.abs().max())})")
+            worst[dname] = max(worst[dname], rel)
+            max_abs = max(max_abs, float(diff.max()))
+        n += 1
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.synchronize()
+    print(f"[10 flash bwd] kernel == plain version on {n} cases (heads "
+          f"{FLASH_HEADS}; B {BWD_BATCH}; T {BWD_T}; causal or not; window "
+          f"0/256; bf16/f32): max |err| f32 {worst['float32']:.3g} (tol "
+          f"{BWD_F32_TOL} + {BWD_F32_TOL} x |ref|), bf16 "
+          f"{worst['bfloat16']:.3g} of each gradient's max (tol "
+          f"{BWD_BF16_TOL})", flush=True)
+
+    H, Hkv, hd = FLASH_HEADS["qwen3"]
+    out = {}
+    for B, T in BWD_TIMED:
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
+        ms = time_cuda(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do),
+                       5)
+        plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+                             5)
+        got = flash_attention_bwd_bhtd(q, k, v, o, lse, do)
+        want = attention_bwd_ref(q, k, v, o, lse, do)
+        err = max(float((a.float() - b.float()).abs().max())
+                  / float(b.float().abs().max()) for a, b in zip(got, want))
+        check(err <= BWD_BF16_TOL,
+              f"flash backward B={B} T={T}: max |err| {err} of max")
+        del got, want
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_o = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                               enable_gqa=True)
+        lib_ms = time_cuda(lambda: torch.autograd.grad(
+            lib_o, xs, do, retain_graph=True), 5)
+        bound_ms, bound_by, flops, nbytes = bwd_bound(B, H, Hkv, hd, T,
+                                                      True, 2)
+        print(f"[10 flash bwd] qwen3 bf16 causal B={B} T={T}: kernel "
+              f"{ms:.4f} ms (dq + dk/dv + delta, median of 5); bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops} FLOP, {nbytes} B); "
+              f"x bound {ms / bound_ms:.1f}; plain {plain_ms:.3f} ms; "
+              f"scaled_dot_product_attention backward {lib_ms:.4f} ms; max "
+              f"|err| {err:.3g} of each gradient's max", flush=True)
+        out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, do, o, lse, xs, lib_o
+    torch.cuda.empty_cache()
+    return dict(out[(TRAIN_B, TRAIN_T)], max_abs_err=max_abs)
+
+
+def _golden_index(idx, tokens):
+    """A golden ``check_leaves`` index (JSON) as a Python index: None is
+    the first batch token, [a, b] a slice."""
+    return tuple(int(tokens[0, 0]) if i is None else
+                 slice(*i) if isinstance(i, list) else i for i in idx)
+
+
+def phase_train_golden(dev, tree):
+    """[11 train golden] two float32 train steps of qwen3-0.6b vs JAX's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import (TrainState, loss_and_grads,
+                                   make_loss_fn, make_train_step)
+
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "train_qwen3_0_6b.json")) as f:
+        gold = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+    check(cfg.remat and cfg.remat_save == "nothing", "qwen3-0.6b remats")
+    bundle = build_model(cfg)
+    params = convert.lm_params_from_jax(tree, cfg, dev)
+    arr = np.random.default_rng(gold["token_seed"]).integers(
+        0, cfg.vocab_size, (gold["batch"], gold["seq"] + 1)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(arr[:, :-1], device=dev),
+             "labels": torch.as_tensor(arr[:, 1:], device=dev)}
+    fa0, bw0 = flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches
+    _, _, _, grads = loss_and_grads(make_loss_fn(bundle, executor="cuda"),
+                                    params, batch)
+    check(flash_attention_bwd_bhtd.launches - bw0 == cfg.num_layers,
+          "the gradient did not run the backward kernel once per layer")
+    g_err = 0.0
+    for path, want in gold["grad_leaf_norms"].items():
+        leaf = grads
+        for key in path.split("/"):
+            leaf = leaf[key]
+        got = float(leaf.double().norm())
+        g_err = max(g_err, abs(got - want) / want)
+    check(g_err <= TRAIN_GNORM_RTOL,
+          f"step-1 gradient leaf norms vs the golden: rel err {g_err}")
+    gs_err = 0.0
+    for (path, idx), want in zip(gold["check_leaves"], gold["grad_slices"]):
+        leaf = grads
+        for key in path.split("/"):
+            leaf = leaf[key]
+        got = leaf[_golden_index(idx, arr)].double().cpu().numpy()
+        want = np.asarray(want)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(err <= TRAIN_GRAD_ATOL, f"step-1 gradient slice {path} "
+              f"{idx}: max |err| {err} of the slice's max")
+        gs_err = max(gs_err, err)
+    del grads
+
+    state = TrainState(params=params, opt=adamw_init(params),
+                       step=torch.zeros((), dtype=torch.int32, device=dev))
+    step = make_train_step(bundle, AdamWConfig(**gold["opt"]),
+                           executor="cuda")
+    m_err = {}
+    for i, want in enumerate(gold["steps"]):
+        state, m = step(state, batch)
+        for k, tol in (("loss", TRAIN_LOSS_RTOL), ("ce", TRAIN_LOSS_RTOL),
+                       ("grad_norm", TRAIN_GNORM_RTOL),
+                       ("lr", TRAIN_LR_RTOL)):
+            err = abs(float(m[k]) - want[k]) / abs(want[k])
+            check(err <= tol, f"train step {i + 1} {k}: {float(m[k])} vs "
+                  f"the golden's {want[k]} (rel err {err}, tol {tol})")
+            m_err[k] = max(m_err.get(k, 0.0), err)
+    lr = gold["opt"]["lr"]
+    w_err = 0.0
+    n_sure = n_all = 0
+    for (path, idx), g1, want in zip(gold["check_leaves"],
+                                     gold["grad_slices"],
+                                     gold["param_slices_after_2"]):
+        leaf = state.params
+        for key in path.split("/"):
+            leaf = leaf[key]
+        got = leaf[_golden_index(idx, arr)].double().cpu().numpy()
+        d = np.abs(got - np.asarray(want))
+        g1 = np.abs(np.asarray(g1))
+        sure = g1 > TRAIN_G_FLOOR * g1.max()
+        check(bool((d[sure] <= TRAIN_W_ATOL).all())
+              and bool((d <= 2 * lr * 2).all()),
+              f"weights after step 2, {path} {idx}: |err| {d.tolist()}")
+        w_err = max(w_err, float(d[sure].max()) if sure.any() else 0.0)
+        n_sure += int(sure.sum())
+        n_all += d.size
+    losses = [float(x["loss"]) for x in gold["steps"]]
+    print(f"[11 train golden] qwen3-0.6b float32 (TF32 off, remat), 2 x "
+          f"{gold['seq']} tokens, 2 make_train_step steps on the card vs "
+          f"train_qwen3_0_6b.json (JAX losses {losses}): rel err loss "
+          f"{m_err['loss']:.3g}, ce {m_err['ce']:.3g} (tol "
+          f"{TRAIN_LOSS_RTOL}), grad norm {m_err['grad_norm']:.3g} (tol "
+          f"{TRAIN_GNORM_RTOL}), lr {m_err['lr']:.3g} (tol {TRAIN_LR_RTOL});"
+          f" step-1 gradient leaf norms {g_err:.3g} (tol "
+          f"{TRAIN_GNORM_RTOL}), slices {gs_err:.3g} of each slice's max "
+          f"(tol {TRAIN_GRAD_ATOL}); step-2 weights max |err| {w_err:.3g} "
+          f"on {n_sure}/{n_all} sure elements (tol {TRAIN_W_ATOL}); "
+          f"flash launches fwd "
+          f"{flash_attention_bhtd.launches - fa0}, bwd "
+          f"{flash_attention_bwd_bhtd.launches - bw0}", flush=True)
+    del state, params, batch
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev) -> dict:
+    """[12 train] bf16 qwen3-0.6b through the trainer with tuned ingest."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import SLA, SLAPolicy
+    from repro_torch.data import SyntheticSource, TunedFetcher, batches
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.train import loss_and_grads, make_loss_fn, \
+        make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen3-0.6b")
+    check(cfg.dtype == "bfloat16" and cfg.remat, "qwen3-0.6b trains in "
+          "bf16 with remat")
+    bundle = build_model(cfg)
+    sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
+    fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
+    data = batches(fetcher.source, batch=TRAIN_B, seq=TRAIN_T, tuned=True,
+                   sla=sla, fetcher=fetcher)
+    marks = []
+
+    def hook(i, state, metrics):
+        marks.append((time.perf_counter(), flash_attention_bhtd.launches,
+                      flash_attention_bwd_bhtd.launches,
+                      float(metrics["loss"]), float(metrics["grad_norm"])))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_bhtd.launches = 0
+    flash_attention_bwd_bhtd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state, report = train(
+            bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
+                                total_steps=TRAIN_STEPS),
+            data, TrainerConfig(total_steps=TRAIN_STEPS, log_every=0),
+            hooks=hook, device=dev)
+    finally:
+        data.close()                   # stops the fetcher's threads
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa, bw = flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(report.steps_run == TRAIN_STEPS, f"ran {report.steps_run} steps")
+    check(all(math.isfinite(x) for x in report.losses),
+          f"non-finite loss: {report.losses}")
+    per_fa = [b[1] - a[1] for a, b in zip([(t0, 0, 0)] + marks, marks)]
+    per_bw = [b[2] - a[2] for a, b in zip([(t0, 0, 0)] + marks, marks)]
+    check(per_fa == [2 * cfg.num_layers] * TRAIN_STEPS
+          and per_bw == [cfg.num_layers] * TRAIN_STEPS,
+          f"kernel launches per step: forward {per_fa}, backward {per_bw}")
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    mean_ms = statistics.mean(step_ms)
+    tokens = TRAIN_B * TRAIN_T
+    traj = []
+    for t, w, c, fi in fetcher.trajectory:
+        if not traj or traj[-1][1:] != (w, c, fi):
+            traj.append((round(t, 2), w, c, fi))
+    print(f"[12 train] qwen3-0.6b bf16 (remat), {TRAIN_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_T} through trainer.train with SLA-tuned "
+          f"ingest: wall {wall:.3f} s (init included); steps 2-"
+          f"{TRAIN_STEPS} {mean_ms:.1f} ms a step (each "
+          f"{[round(x, 1) for x in step_ms]}) = {tokens / mean_ms * 1e3:.0f}"
+          f" tokens/s; peak memory {peak} B; launches per step: flash "
+          f"forward {per_fa[0]}, backward {per_bw[0]} ({fa} and {bw} in "
+          f"all); losses {[round(x, 4) for x in report.losses]}; grad "
+          f"norms {[round(m[4], 4) for m in marks]}; fetcher "
+          f"(s, workers, cores, freq_idx) {traj}; "
+          f"{fetcher.stats.bytes_fetched / 1e6:.1f} MB fetched, "
+          f"{fetcher.stats.energy_j:.1f} J accounted", flush=True)
+
+    breakdown = profile_train_step(dev, bundle, state)
+
+    # one step at B 2 from a copy of the trained state: kernels vs plain
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_CHECK_B, TRAIN_T + 1),
+                         generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    res = {}
+    for ex in ("cuda", "reference"):
+        _, _, _, grads = loss_and_grads(make_loss_fn(bundle, executor=ex),
+                                        state.params, batch)
+        _, m = make_train_step(bundle, opt, executor=ex)(state, batch)
+        res[ex] = (float(m["loss"]), float(m["grad_norm"]),
+                   float(global_norm(grads)), grads)
+    (lk, gk, nk, grk), (lr_, gr, nr, grr) = res["cuda"], res["reference"]
+    l_err, g_err = abs(lk - lr_) / abs(lr_), abs(gk - gr) / gr
+    from repro_torch.tree import leaves_with_paths
+    leaf_err = {}
+    for (p, a), (_, b) in zip(leaves_with_paths(grk), leaves_with_paths(grr)):
+        leaf_err[p] = float((a.float() - b.float()).norm()
+                            / b.float().norm().clamp_min(1e-30))
+    worst = max(leaf_err, key=leaf_err.get)
+    check(l_err <= TRAIN_BF16_LOSS_RTOL and g_err <= TRAIN_BF16_GNORM_RTOL
+          and leaf_err[worst] <= TRAIN_BF16_GRAD_RTOL,
+          f"bf16 step, kernels vs plain: loss {lk} vs {lr_}, grad norm {gk} "
+          f"vs {gr}, worst leaf {worst} rel L2 {leaf_err[worst]}")
+    print(f"[12 train] one bf16 step at {TRAIN_CHECK_B} x {TRAIN_T} from "
+          f"the trained state, kernels vs plain versions: loss {lk:.6f} vs "
+          f"{lr_:.6f} (rel {l_err:.3g}, tol {TRAIN_BF16_LOSS_RTOL}); grad "
+          f"norm {gk:.5f} vs {gr:.5f} (rel {g_err:.3g}, tol "
+          f"{TRAIN_BF16_GNORM_RTOL}); per-leaf gradient rel L2 distance max "
+          f"{leaf_err[worst]:.3g} at {worst} (tol {TRAIN_BF16_GRAD_RTOL}), "
+          f"median {statistics.median(leaf_err.values()):.3g}", flush=True)
+    del state, res, grk, grr
+    torch.cuda.empty_cache()
+    return {"fa_launches": fa, "bwd_launches": bw, "breakdown": breakdown}
+
+
+#: Device-kernel groups of a training step, by kernel name (first match).
+STEP_GROUPS = (("flash forward (kernel 2)", ("flash_fwd",)),
+               ("flash backward (kernel 3)", ("flash_bwd",)),
+               ("matrix products", ("gemm", "gemv", "cutlass", "xmma",
+                                    "cublas", "nvjet", "sm90_", "sm80_")),
+               ("copies", ("Memcpy", "Memset")))
+
+
+def profile_train_step(dev, bundle, state):
+    """One more B 8 x T 2048 step from ``state`` under ``torch.profiler``
+    (CPU and CUDA activity): device time by kernel group, the card's busy
+    time (the union of its kernels' intervals) and its idle share of the
+    step's host wall.  Prints "not measured" when the trace holds no
+    device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    gen = torch.Generator().manual_seed(13)
+    toks = torch.randint(0, bundle.cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                         generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
+                                               total_steps=TRAIN_STEPS))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"[12 train] profiled step: {wall_ms:.1f} ms host wall; the "
+              f"trace holds no device events: breakdown and idle share "
+              f"not measured", flush=True)
+        return None
+    other = "other (elementwise, reductions, optimizer)"
+    by = {name: 0.0 for name, _ in STEP_GROUPS}
+    by[other] = 0.0
+    others = {}
+    spans = []
+    for e in kernels:
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+        group = next((g for g, keys in STEP_GROUPS
+                      if any(k in e.name for k in keys)), other)
+        by[group] += dur
+        if group == other:
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + dur
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_ms = busy / 1e3
+    idle = max(0.0, 1.0 - busy_ms / wall_ms)
+    parts = "; ".join(f"{g} {ms:.1f} ms" for g, ms in by.items())
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[12 train] profiled step ({TRAIN_B} x {TRAIN_T}, torch.profiler "
+          f"CPU+CUDA): host wall {wall_ms:.1f} ms, {len(kernels)} device "
+          f"events, card busy {busy_ms:.1f} ms, idle {idle:.3f} of the "
+          f"wall; device time by group: {parts}; largest other kernels: "
+          f"{[(n, round(ms, 1)) for n, ms in top]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": idle, **by}
+
+
 def random_qwen3_params():
     """Full-width qwen3-0.6b weights from ``random_lm_params(seed=0)``, as
     float32 numpy in JAX's tree (the golden's weights)."""
@@ -748,6 +1204,8 @@ def smoke(dev) -> int:
     from repro_torch.kernels import tick_loop as tl
     fa = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
+    fa_bwd = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention_bwd")
 
     # 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -766,6 +1224,7 @@ def smoke(dev) -> int:
     logs = build.build_all()
     build.load_tick_loop()
     build.load_flash_attention()
+    build.load_flash_attention_bwd()
     print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, line in build.ptxas_report(
@@ -774,6 +1233,13 @@ def smoke(dev) -> int:
         check(inst is not None, f"unexpected entry {name}")
         print(f"[2 build] flash_attention {inst[0]} hd={inst[1]}: {line}; "
               f"{fa.smem_bytes(inst[1])} B dynamic shared memory")
+    for name, line in build.ptxas_report(
+            logs["flash_attention_bwd.cu"]).items():
+        inst = build.flash_attention_bwd_instance(name)
+        check(inst is not None, f"unexpected entry {name}")
+        smem = fa_bwd.smem_bytes(inst[2])[inst[0] == "dkdv"]
+        print(f"[2 build] flash_attention_bwd {inst[0]} {inst[1]} "
+              f"hd={inst[2]}: {line}; {smem} B dynamic shared memory")
     report = build.ptxas_report(logs["tick_loop.cu"])
     names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC"]
     used = set()
@@ -942,6 +1408,10 @@ def smoke(dev) -> int:
     tree = random_qwen3_params()
     phase_lm_golden(dev, tree)
     serve = phase_serve(dev, tree)
+    bwd = phase_flash_bwd(dev)
+    phase_train_golden(dev, tree)
+    del tree
+    trained = phase_train(dev)
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -953,11 +1423,19 @@ def smoke(dev) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
-        "launches": serve["launches"],
+        "launches": serve["launches"] + trained["fa_launches"],
         "max_abs_err": max(flash["max_abs_err"], serve["max_abs_err"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}]}))
+        "library_ms": flash["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces":
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
+        "launches": trained["bwd_launches"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,0 +1,2 @@
+from .checkpoint import (AsyncCheckpointer, available_steps,  # noqa: F401
+                         restore_latest, save)

@@ -12,7 +12,9 @@ copied bit for bit; nothing here imports JAX.
 
 For the LM: :func:`lm_params_from_jax` turns the JAX parameter tree (numpy
 leaves, blocks stacked ``[L, ...]``) into the port's parameters;
-:func:`caches_from_jax` / :func:`caches_to_jax` carry KV caches both ways;
+:func:`caches_from_jax` / :func:`caches_to_jax` carry KV caches both ways,
+and :func:`train_state_from_jax` / :func:`train_state_to_jax` a whole
+training state (weights, Adam moments, counters);
 :func:`random_lm_params` draws a parameter tree with numpy alone, so that
 two machines (one with JAX, one with the card) build the same weights.
 """
@@ -102,23 +104,61 @@ def caches_from_jax(tree, device):
             "per_row": "prow" in tree}
 
 
+def _numpy(t):
+    """A tensor as numpy (bfloat16 as ``ml_dtypes.bfloat16``, the type JAX
+    reads)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def caches_to_jax(caches):
     """The port's cache dict -> JAX's stacked cache tree as numpy
     (bfloat16 leaves as ``ml_dtypes.bfloat16``, the type JAX reads)."""
     n_layers = caches["k"].shape[0]
-
-    def arr(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
-
-            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-        return t.numpy()
+    arr = _numpy
     out = {"k": arr(caches["k"]), "v": arr(caches["v"]),
            "idx": np.full((n_layers,), caches["idx"], np.int32)}
     if caches.get("per_row"):
         out["prow"] = np.zeros((n_layers,), np.int32)
     return out
+
+
+def train_state_from_jax(state, cfg, device):
+    """A JAX ``TrainState`` with numpy leaves (``params``, ``opt.mu``,
+    ``opt.nu``, ``opt.count``, ``step``) -> the port's
+    :class:`~repro_torch.train.TrainState` on ``device``.  Parameters take
+    :func:`lm_params_from_jax`'s dtypes; moments and counters keep their
+    own."""
+    from .optim import OptState
+    from .train import TrainState
+
+    def same(tree):
+        if isinstance(tree, dict):
+            return {k: same(v) for k, v in tree.items()}
+        return _tensor(tree, device)
+    return TrainState(
+        params=lm_params_from_jax(state.params, cfg, device),
+        opt=OptState(mu=same(dict(state.opt.mu)), nu=same(dict(state.opt.nu)),
+                     count=_tensor(state.opt.count, device)),
+        step=_tensor(state.step, device))
+
+
+def train_state_to_jax(state):
+    """The port's ``TrainState`` -> ``{"params", "opt": {"mu", "nu",
+    "count"}, "step"}`` of numpy leaves (bfloat16 as ``ml_dtypes``), the
+    fields of JAX's ``TrainState`` / ``OptState`` by name."""
+    def arr(tree):
+        if isinstance(tree, dict):
+            return {k: arr(v) for k, v in tree.items()}
+        return _numpy(tree)
+    return {"params": arr(state.params),
+            "opt": {"mu": arr(state.opt.mu), "nu": arr(state.opt.nu),
+                    "count": _numpy(state.opt.count)},
+            "step": _numpy(state.step)}
 
 
 def random_lm_params(cfg, seed: int = 0):

@@ -221,3 +221,10 @@ def freq_table(cpu: CpuProfile, device=None) -> torch.Tensor:
     """The CPU's frequency ladder as a float32 tensor on ``device`` (cached
     per ladder and device, so the eager tick loop does not re-upload it)."""
     return _freq_table(tuple(cpu.freq_levels_ghz), torch.device(device or "cpu"))
+
+
+def host_tensors(nt):
+    """A NamedTuple of host scalars as 0-d CPU tensors (the tuner's state
+    and parameters when it runs as host control logic: continuous-batching
+    admission, the tuned fetcher)."""
+    return type(nt)(*[torch.as_tensor(np.asarray(v)) for v in nt])

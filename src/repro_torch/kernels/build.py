@@ -12,7 +12,7 @@ its own build log.  The tick loop's flags are part of its numerics:
 ``-fmad=false`` stops nvcc from contracting ``a*b+c`` into one fused
 multiply-add (the JAX reference rounds the product first); ``-ftz=true``
 flushes float32 subnormals to zero, as XLA does on the CPU and the TPU.
-The attention kernel claims no bit-exactness, only a stated tolerance
+The attention kernels (forward and backward) claim no bit-exactness, only a stated tolerance
 against its plain version, so it keeps nvcc's default contraction and
 IEEE subnormals.  No source gets ``--use_fast_math`` (correctly rounded
 division and ``expf`` / ``logf``, as the references have).
@@ -42,6 +42,7 @@ NVCC_FLAGS = _BASE_FLAGS + ("-fmad=false", "-ftz=true")
 SOURCE_FLAGS = {
     "tick_loop.cu": NVCC_FLAGS,
     "flash_attention.cu": _BASE_FLAGS,
+    "flash_attention_bwd.cu": _BASE_FLAGS,
 }
 
 
@@ -158,6 +159,32 @@ def load_flash_attention() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd_instance(name: str):
+    """(kernel, dtype, hd) of a mangled ``flash_bwd_dq_kernel`` /
+    ``flash_bwd_dkdv_kernel`` entry name: kernel ``"dq"`` or ``"dkdv"``,
+    dtype ``"float32"`` or ``"bfloat16"``."""
+    m = re.search(r"flash_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                  name)
+    return None if m is None else (
+        m.group(1), "float32" if m.group(2) == "f" else "bfloat16",
+        int(m.group(3)))
+
+
+def load_flash_attention_bwd() -> ctypes.CDLL:
+    """The flash-attention backward library, built and loaded once per
+    process."""
+    lib, _ = _load("flash_attention_bwd.cu")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 

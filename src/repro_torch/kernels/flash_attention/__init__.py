@@ -1,6 +1,8 @@
-"""Flash-attention forward: ``csrc/flash_attention.cu`` and its plain
-version (the port of ``repro/kernels/flash_attention``; the backward waits
-for the training slice)."""
+"""Flash attention: ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (backward), each beside its plain version
+(the port of ``repro/kernels/flash_attention``), and the autograd Function
+that joins them."""
 from .flash_attention import flash_attention_bhtd  # noqa: F401
-from .ops import flash_attention, flash_attention_ref  # noqa: F401
-from .ref import attention_ref  # noqa: F401
+from .flash_attention_bwd import flash_attention_bwd_bhtd  # noqa: F401
+from .ops import FlashAttention, flash_attention, flash_attention_ref  # noqa: F401
+from .ref import attention_bwd_ref, attention_ref  # noqa: F401

@@ -51,12 +51,16 @@ def _check(q, k, v):
         raise ValueError("flash_attention_bhtd: q, k, v on different devices")
 
 
-def _check_kernel_layout(name, x):
-    """The kernel reads 16-byte vectors along hd: hd contiguous, and every
+def kernel_layout_ok(x) -> bool:
+    """The kernels read 16-byte vectors along hd: hd contiguous, and every
     other stride and the base address 16-byte aligned."""
     es = x.element_size()
-    if x.stride(3) != 1 or x.data_ptr() % 16 or any(
-            (x.stride(i) * es) % 16 for i in range(3)):
+    return x.stride(3) == 1 and x.data_ptr() % 16 == 0 and all(
+        (x.stride(i) * es) % 16 == 0 for i in range(3))
+
+
+def _check_kernel_layout(name, x):
+    if not kernel_layout_ok(x):
         raise ValueError(f"flash attention kernel: {name} needs a contiguous "
                          f"last dimension and 16-byte aligned strides, got "
                          f"strides {x.stride()}")
@@ -73,8 +77,10 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     (float32 or bfloat16, hd 64 or 128), or an exception."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise ValueError("flash_attention_bhtd is forward only (the "
-                         "backward kernel comes with the training slice)")
+        raise ValueError("flash_attention_bhtd is forward only; take "
+                         "gradients through ops.flash_attention (the "
+                         "FlashAttention autograd Function, whose backward "
+                         "is flash_attention_bwd_bhtd)")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              return_lse=return_lse)

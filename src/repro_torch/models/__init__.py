@@ -1,9 +1,10 @@
 """Model zoo of the port (``repro/models``): one functional bundle per
 architecture family.
 
-``build(cfg)`` serves the dense family (``lm.py``: decoder-only
-transformer).  The other families raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``build(cfg)`` serves and trains the dense family (``lm.py``: decoder-only
+transformer).  The other families, and the VLM/audio inputs of the
+forward, raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ import torch
 
 from . import lm
 from .common import ModelConfig, MoEConfig  # noqa: F401
+
+#: Forward inputs of the VLM and audio families (JAX's train/step.py
+#: ``_EXTRA_KEYS``), ported with them.
+EXTRA_KEYS = ("frame_embeds", "vision_embeds", "mrope_pos")
 
 #: Families still to port, with the ROADMAP queue 1 item that brings each.
 _LATER = {"moe": "9e (MoE, VLM and whisper)", "vlm": "9e (MoE, VLM and whisper)",
@@ -39,8 +44,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
             cfg=cfg,
             init_params=lambda seed=0, device=None: lm.init_params(
                 cfg, seed, device=device),
-            forward=lambda params, tokens, **kw: lm.forward(cfg, params,
-                                                            tokens, **kw),
+            forward=lambda params, tokens, **kw: _dense_forward(
+                cfg, params, tokens, **kw),
             init_decode_state=lambda b, m, dtype=torch.bfloat16,
             device=None: lm.init_caches(cfg, b, m, dtype, device=device),
             state_kwarg="caches",
@@ -50,3 +55,14 @@ def build(cfg: ModelConfig) -> ModelBundle:
             f"the {fam!r} family is not ported yet: ROADMAP queue 1, item "
             f"{_LATER[fam]}")
     raise ValueError(f"unknown family {fam!r}")
+
+
+def _dense_forward(cfg, params, tokens, *, moe_impl: str = "gmm", **kw):
+    """``lm.forward``; ``moe_impl`` is ignored, as JAX ignores it for a
+    dense model."""
+    extra = [k for k in EXTRA_KEYS if kw.pop(k, None) is not None]
+    if extra:
+        raise NotImplementedError(
+            f"forward inputs {extra} are not ported yet: ROADMAP queue 1, "
+            f"item {_LATER['vlm']}")
+    return lm.forward(cfg, params, tokens, **kw)

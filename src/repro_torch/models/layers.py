@@ -15,7 +15,10 @@ flash attention kernel (``kernels/flash_attention``); decode, Tq > 1 into a
 non-empty cache and non-causal attention use :func:`attention_scores_full`,
 as JAX does for them (or for a short sequence).  Which one
 runs is decided from shapes and host state (the cache's write offset is a
-Python int), never by a device read.
+Python int), never by a device read.  Attention without a cache is
+differentiable: under autograd the kernel site runs the
+``FlashAttention`` Function (forward kernel with LSE, backward kernel), and
+:func:`attention_scores_full` is plain autograd.
 
 Caches are written in place (JAX returns new ones): a KV cache is the
 largest tensor of a serving run (7.5 GB for 16 slots x 4,096 positions of
@@ -23,8 +26,8 @@ qwen3-0.6b), so the port never copies it.  A cache dict passed to
 :func:`attention` must not be reused after the call; use the one returned.
 
 No counterpart here: ``residual_shard``, ``logits_shard`` and ``_cp_shard``
-(mesh constraints; this slice runs on one card), ``remat_policy``, the MoE
-layers and M-RoPE (their slices come later), and the ring-buffer cache.
+(mesh constraints; this slice runs on one card), the MoE layers and M-RoPE
+(their slices come later), and the ring-buffer cache.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import noop_context_fn
 
 from ..kernels.flash_attention import flash_attention
 from .common import ModelConfig
@@ -48,6 +52,19 @@ def _normal(gen, shape, scale, dtype):
     """float32 standard normals from ``gen`` (a CPU generator), scaled and
     cast."""
     return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+
+def remat_policy(cfg: ModelConfig):
+    """What a rematerialised block keeps for the backward (JAX's
+    layers.py:63-70), as ``torch.utils.checkpoint``'s ``context_fn``.
+    ``'nothing'`` recomputes the whole block and keeps only its inputs (the
+    default context).  ``'dots'`` (JAX's ``dots_with_no_batch_dims_saveable``)
+    is not ported: no config uses it (ROADMAP queue 1, item 9e)."""
+    if getattr(cfg, "remat_save", "nothing") == "dots":
+        raise NotImplementedError("remat_save='dots' is not ported (ROADMAP "
+                                  "queue 1, item 9e); every config uses "
+                                  "'nothing'")
+    return noop_context_fn
 
 
 # ----------------------------------------------------------------- norms ---

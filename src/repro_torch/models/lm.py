@@ -4,21 +4,32 @@ qwen2-0.5b, qwen3-0.6b, olmo-1b, yi-9b.
 Parameters keep JAX's tree: ``embed`` [V, D], ``blocks`` with every leaf
 stacked over layers [L, ...], ``final_norm`` (and ``head`` when the
 embeddings are untied).  A Python loop over layers takes the place of
-``lax.scan``; there is no remat (this slice serves, it does not train).
+``lax.scan``.  The forward without a cache builds an autograd graph when
+grad is enabled (training); with ``cfg.remat`` each block then runs under
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``, lm.py:96-97), so the
+backward recomputes it.  The cached paths (prefill and decode) run without
+grad.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .common import ModelConfig
 
 
-def _take(tree, i):
-    return {k: _take(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree, n):
+    """A tree of stacked [n, ...] leaves -> n per-layer trees, by one
+    ``unbind(0)`` per leaf (whose backward stacks the layers' gradients
+    into one [n, ...] tensor; ``v[i]`` per layer would add a full zero
+    gradient per layer)."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 def _stack(trees):
@@ -76,7 +87,6 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None):
     return _to(params, dev)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
             caches=None, logits_slice: Optional[int] = None,
             executor: str = "auto"):
@@ -86,6 +96,7 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     positions  [B, T] (defaults to 0..T-1; decode passes cache offsets)
     caches     stacked layer KV caches (:func:`init_caches`) or None; they
                are written in place and the returned dict replaces them
+               (always without grad)
     logits_slice  compute logits of the last ``logits_slice`` positions only
     executor   the flash-attention sites' implementation (``auto``:
                the kernel on a card, the plain version on the CPU)
@@ -94,18 +105,32 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     if cfg.family != "dense":
         raise NotImplementedError(f"the port's LM serves the dense family; "
                                   f"{cfg.family!r} comes with its slice")
+    with torch.no_grad() if caches is not None else \
+            contextlib.nullcontext():
+        return _forward(cfg, params, tokens, positions, caches, logits_slice,
+                        executor)
+
+
+def _forward(cfg, params, tokens, positions, caches, logits_slice, executor):
     B, T = tokens.shape
     x = params["embed"][tokens.long()]
     from_start = positions is None
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
 
-    for i in range(cfg.num_layers):
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    context_fn = L.remat_policy(cfg) if remat else None
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+        if remat:
+            x, _ = checkpoint(block_fwd, cfg, bp, x, positions, None,
+                              from_start=from_start, executor=executor,
+                              use_reentrant=False, context_fn=context_fn)
+            continue
         c = None
         if caches is not None:
             c = dict(caches, k=caches["k"][i], v=caches["v"][i])
-        x, _ = block_fwd(cfg, _take(params["blocks"], i), x, positions, c,
-                         from_start=from_start, executor=executor)
+        x, _ = block_fwd(cfg, bp, x, positions, c, from_start=from_start,
+                         executor=executor)
 
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_slice is not None:

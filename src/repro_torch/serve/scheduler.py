@@ -26,7 +26,7 @@ import torch
 from ..api.scenario import resolve_device
 from ..core import tuners
 from ..core.types import (CpuProfile, NetParams, NetworkProfile, SLA,
-                          SLAParams, SLAPolicy, TunerState)
+                          SLAParams, SLAPolicy, TunerState, host_tensors)
 from ..kernels.flash_attention.ops import check_executor
 from ..models import ModelBundle, lm
 
@@ -38,11 +38,6 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-
-
-def _cpu_tensors(nt):
-    """A NamedTuple of host scalars as 0-d CPU tensors."""
-    return type(nt)(*[torch.as_tensor(np.asarray(v)) for v in nt])
 
 
 class ContinuousBatcher:
@@ -66,15 +61,15 @@ class ContinuousBatcher:
         self.queue: List[Request] = []
         self.last_tok = np.zeros((slots, 1), np.int32)
         # admission controller ("channels" = admitted slots)
-        self._ts = TunerState(*_cpu_tensors(
+        self._ts = TunerState(*host_tensors(
             tuners.init_tuner_state(max(slots // 2, 1), 1, 0)))
         self.admitted = max(slots // 2, 1)
         self._tok_count = 0
         self._t_last = time.monotonic()
         self._cpu = CpuProfile()
-        self._net = _cpu_tensors(NetParams.from_profile(
+        self._net = host_tensors(NetParams.from_profile(
             NetworkProfile(name="serve", bandwidth_mbps=1e9)))
-        self._sla_p = _cpu_tensors(SLAParams.from_sla(self.sla))
+        self._sla_p = host_tensors(SLAParams.from_sla(self.sla))
 
     # ------------------------------------------------------ device steps --
     def _decode(self, toks, pos, live):

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card (``gpu`` marker; skipped without one): the
-tick loop and flash attention, each against its plain version.
+tick loop and flash attention forward and backward, each against its plain
+version.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -20,8 +21,11 @@ from repro_torch.api import scenario as S
 from repro_torch.core import engine
 from repro_torch.core import types
 from repro_torch.kernels import tick_loop as tl
-from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 flash_attention_bhtd)
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bhtd,
+                                                 flash_attention_bwd_bhtd)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -128,3 +132,47 @@ def test_flash_attention_kernel_vs_plain_version_on_the_card(cuda_device,
             assert a.dtype == b.dtype
             err = float((a.float() - b.float()).abs().max())
             assert err <= tol, (B, Tq, Tk, causal, window, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64)])
+def test_flash_attention_bwd_kernel_vs_plain_version_on_the_card(
+        cuda_device, dtype, H, Hkv, hd):
+    """Backward kernel == plain version from the same o and lse: float32
+    within 5e-5 (tests/test_kernels.py:181-182); bf16 within 2e-2 of each
+    gradient's largest magnitude (one rounding of each output to bf16, a
+    relative 2^-8, plus float32 sums in another order).  Ragged T, windows
+    and non-causal cases; launch count; then the autograd Function."""
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(1)
+    for B, T, causal, window in [(1, 128, True, 0), (2, 200, True, 64),
+                                 (1, 256, False, 0), (2, 1000, True, 0),
+                                 (1, 384, False, 128)]:
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(
+            cuda_device, dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+        o, lse = flash_attention_bhtd(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+        before = flash_attention_bwd_bhtd.launches
+        got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd_bhtd.launches == before + 1
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            scale = 1.0 if dtype == torch.float32 else float(
+                b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= tol * scale, (B, T, causal, window, err, scale)
+    x = [torch.randn(2, 256, h, hd, generator=g).to(cuda_device, dtype)
+         .requires_grad_() for h in (H, Hkv, Hkv)]
+    out = {}
+    for ex in ("cuda", "reference"):
+        o = flash_attention(*x, executor=ex)
+        out[ex] = torch.autograd.grad(o, x, torch.ones_like(o))
+    for a, b in zip(out["cuda"], out["reference"]):
+        scale = 1.0 if dtype == torch.float32 else float(
+            b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
