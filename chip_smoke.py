@@ -25,7 +25,9 @@ Phases (each prints a line; any failure exits non-zero):
               2048, causal or not, window 0/256, bf16/f32, with/without
               LSE); times against bound, plain version and
               ``scaled_dot_product_attention``; T = 32,768 checked on its
-              last 256 query rows.
+              last 256 query rows; then recurrentgemma-2b's heads (MQA
+              10/1 of 256; B 1/8, T 200/2048, window 0/2048, bf16/f32),
+              timed at B 1/8 x T 2048.
 8. lm golden — full-width qwen3-0.6b in float32 (TF32 off) through
               ``repro_torch.serve`` against ``tests/torch_goldens/
               lm_qwen3_0_6b.json`` (JAX on the CPU): 16 greedy tokens exact,
@@ -50,9 +52,25 @@ Phases (each prints a line; any failure exits non-zero):
               (B 8 x T 2048, remat, 6 steps): step time, tokens/s, peak
               memory, launches per step, the fetcher's trajectory; then one
               step at B 2 through the kernels and through the plain versions.
+13. wkv     — the WKV kernel vs its plain version at rwkv6-7b's heads (H 64,
+              hd 64; B 1/8; T 1/64/200/2048; r/k/v bf16/f32 with w f32; S0
+              zero or not): y and S_final; times against bound and plain.
+14. rglru   — the RG-LRU kernel vs its plain version, bit for bit (C 2560;
+              B 1/8; T 1/200/2048); times against bound and plain.
+15. recurrent goldens — float32 (TF32 off) rwkv6-7b at full width and 4 of
+              its 32 layers, and recurrentgemma-2b at full width and depth,
+              against ``tests/torch_goldens/lm_rwkv6_7b.json`` and
+              ``lm_recurrentgemma_2b.json`` (JAX on the CPU): 16 greedy
+              tokens exact, top-5 logits and norms to a stated tolerance.
+16. recurrent serve — both in bf16 at full width and depth: ``generate``
+              of 8 x 2,048 prompt tokens + 128 new ones (recurrentgemma's
+              ring of 2,048 wraps), launches per prefill and decode step,
+              prefill and decode tokens/s, peak memory; the prefill's
+              logits through the kernels and through the plain versions,
+              each against the float32 prefill of the same weights.
 
-Phases 5, 6, 9 and 12 drive the main paths: each kernel's launch count is
-set to 0 just before and read just after.  The last two lines are the
+Phases 5, 6, 9, 12 and 16 drive the main paths: each kernel's launch count
+is set to 0 just before and read just after.  The last two lines are the
 kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
@@ -331,6 +349,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # last FLASH_TAIL query rows are held to the plain version.
 FLASH_TIMED = ((1, 2048), (8, 2048), (1, 32768))
 FLASH_FULL_T, FLASH_TAIL = 2048, 256
+# recurrentgemma-2b's local attention: MQA 10/1 of 256, window 2,048; its
+# cases (window 0 and 2,048) and timed shapes (B, T).
+FLASH_256 = (10, 1, 256)
+FLASH_256_WINDOW, FLASH_256_T = 2048, (200, 2048)
+FLASH_256_TIMED = ((1, 2048), (8, 2048))
 # Weights by position (tests/torch_goldens/make_lm_golden.py CHECK_LEAVES).
 GOLDEN_WEIGHT_CHECK = {"embed": (0, slice(0, 4)),
                        "blocks/attn/wq": (27, -1, slice(-4, None)),
@@ -439,8 +462,52 @@ def phase_flash(dev) -> dict:
                            bound_ms=bound_ms, bound_by=bound_by,
                            max_abs_err=err)
         del q, k, v, o
+
+    # recurrentgemma-2b's heads: hd 256, MQA, causal, window 0 / 2,048
+    H, Hkv, hd = FLASH_256
+    worst256 = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for B, T, window, dname in itertools.product(
+            FLASH_BATCH, FLASH_256_T, (0, FLASH_256_WINDOW),
+            ("bfloat16", "float32")):
+        dt = getattr(torch, dname)
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(dev, dt)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv)]
+        err = float((flash_attention_bhtd(q, k, v, window=window).float()
+                     - attention_ref(q, k, v, window=window).float())
+                    .abs().max())
+        check(err <= FLASH_TOL[dname],
+              f"flash attention hd 256 B={B} T={T} window={window} "
+              f"{dname}: max |err| {err}")
+        worst256[dname] = max(worst256[dname], err)
+        n += 1
+        del q, k, v
+    print(f"[7 flash] hd 256 (heads {FLASH_256}): kernel == plain version "
+          f"on {n} cases (B {FLASH_BATCH}; T {FLASH_256_T}; causal, window "
+          f"0/{FLASH_256_WINDOW}; bf16/f32): max |err| bf16 "
+          f"{worst256['bfloat16']:.3g} (tol 2e-2), f32 "
+          f"{worst256['float32']:.3g} (tol 2e-5)", flush=True)
+    for B, T in FLASH_256_TIMED:
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2) for h in (H, Hkv, Hkv)]
+        w = FLASH_256_WINDOW
+        ms = time_cuda(lambda: flash_attention_bhtd(q, k, v, window=w), 5)
+        plain_ms = time_cuda(lambda: attention_ref(q, k, v, window=w), 5)
+        # at T <= window the window masks nothing: plain causal attention
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
+        bound_ms, bound_by, flops, nbytes = flash_bound(B, H, Hkv, hd, T, T,
+                                                        True, 2)
+        print(f"[7 flash] recurrentgemma hd 256 bf16 causal window {w} "
+              f"B={B} T={T}: kernel {ms:.4f} ms (median of 5); bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops} FLOP, {nbytes} "
+              f"B); x bound {ms / bound_ms:.1f}; plain {plain_ms:.3f} ms; "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+        del q, k, v
     torch.cuda.empty_cache()
-    return out[(GEN_BATCH, GEN_PROMPT)]
+    res = dict(out[(GEN_BATCH, GEN_PROMPT)])
+    res["max_abs_err"] = max(res["max_abs_err"], *worst256.values())
+    return res
 
 
 # Phase 10: the backward's cases (FLASH_HEADS; non-causal only where T is
@@ -1183,6 +1250,430 @@ def phase_serve(dev, tree) -> dict:
     return {"launches": cb_launches, "max_abs_err": cb_err}
 
 
+# ------------------------------------------------------ recurrent serving --
+
+# Phase 13: the WKV kernel's cases at rwkv6-7b's heads (H 64, hd 64) and
+# tolerances, relative to the reference's largest |value| (at least 1):
+# float32 sums in another order with FMA contraction (1e-4); y rounded once
+# to bf16, where a last-bit float32 difference flips a rounding (1e-2).
+WKV_HEADS, WKV_BATCH, WKV_T = 64, (1, 8), (1, 64, 200, 2048)
+WKV_TOL = {"y_float32": 1e-4, "y_bfloat16": 1e-2, "S": 1e-4}
+# Phase 14: the RG-LRU kernel's cases at recurrentgemma-2b's width.
+RGLRU_C, RGLRU_BATCH, RGLRU_T = 2560, (1, 8), (1, 200, 2048)
+# Phase 15: the recurrent goldens' tolerance on top-5 logits and norms,
+# relative to the row's largest top-5 |logit| / its norm (float32 on the
+# card against XLA on the CPU: cuBLAS sums in another order, the WKV and
+# RG-LRU recurrences in another order than JAX's scan and associative scan;
+# the smoke-width CPU tests agree to ~1e-6 relative).  Set before the run.
+RECURRENT_GOLDENS = {"rwkv6-7b": "lm_rwkv6_7b.json",
+                     "recurrentgemma-2b": "lm_recurrentgemma_2b.json"}
+RECURRENT_GOLDEN_RTOL = 1e-3
+# Phase 16: the recurrent serving shapes (phase 9's).  The bf16 prefill's
+# last logits through the kernels and through the plain versions are each
+# held to the float32 prefill of the same weights: the kernels' max |err|
+# (as a share of the largest |logit|) may be at most RECURRENT_SERVE_RATIO
+# times the plain versions'.  bf16 alone moves rwkv6-7b's logits by ~5% of
+# the largest through 32 layers, either way (a probe on the H100 80GB HBM3
+# at 700 W: kernels 4.83%, plain 4.76% from float32, 5.45% from each
+# other; recurrentgemma-2b 0.84% / 0.86% / 0.79%), so a fixed share of the
+# logits cannot tell a kernel fault from bf16 rounding, and this ratio can.
+RECURRENT_SERVE = ("rwkv6-7b", "recurrentgemma-2b")
+RECURRENT_SERVE_RATIO = 1.25
+
+
+def wkv_bound(B, H, T, hd, elem_bytes, with_s0):
+    """(bound_ms, bound_by, flops, bytes) of one WKV call: 5 hd^2 float32
+    operations per (b, h, t) (r S, the decay, the outer product and their
+    sums) at the CUDA cores' rate; r, k, v (and y) in their type and w in
+    float32 read (written) once, u, S0 and S_final once."""
+    flops = 5 * hd * hd * B * H * T
+    nbytes = (4 * elem_bytes + 4) * B * H * T * hd + 4 * H * hd \
+        + 4 * B * H * hd * hd * (2 if with_s0 else 1)
+    t_ops = flops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def rglru_bound(B, T, C, elem_bytes):
+    """(bound_ms, bound_by, flops, bytes): a, b read and h written once, 2
+    operations per element."""
+    flops = 2 * B * T * C
+    nbytes = 3 * elem_bytes * B * T * C
+    t_ops = flops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def phase_wkv(dev) -> dict:
+    """[13 wkv] kernel 4 vs its plain version at rwkv6-7b's heads, timed at
+    the serving prefill's shape."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_ref
+
+    g = torch.Generator().manual_seed(13)
+    H, hd = WKV_HEADS, 64
+
+    def inputs(B, T, dt, with_s0):
+        r, k, v = [(torch.randn(B, T, H, hd, generator=g) * 0.5).to(
+            dev, dt).transpose(1, 2) for _ in range(3)]
+        # decays as the model makes them: exp(-exp(w0 + lora)), w0 = -6
+        w = torch.exp(-torch.exp(-6.0 + 2.0 * torch.randn(
+            B, T, H, hd, generator=g))).to(dev).transpose(1, 2)
+        u = (torch.randn(H, hd, generator=g) * 0.5).to(dev)
+        S0 = ((torch.randn(B, H, hd, hd, generator=g) * 0.2).to(dev)
+              if with_s0 else None)
+        return r, k, v, w, u, S0
+
+    worst = {"y_float32": 0.0, "y_bfloat16": 0.0, "S": 0.0}
+    n = 0
+    for B, T, dname, with_s0 in itertools.product(
+            WKV_BATCH, WKV_T, ("bfloat16", "float32"), (False, True)):
+        args = inputs(B, T, getattr(torch, dname), with_s0)
+        y, S = wkv_bhtd(*args)
+        yr, Sr = wkv_ref(*args)
+        check(y.dtype == yr.dtype, "wkv output dtype")
+        ey = float((y.float() - yr.float()).abs().max()) / max(
+            1.0, float(yr.float().abs().max()))
+        eS = float((S - Sr).abs().max()) / max(1.0, float(Sr.abs().max()))
+        check(ey <= WKV_TOL[f"y_{dname}"] and eS <= WKV_TOL["S"],
+              f"wkv B={B} T={T} {dname} S0={with_s0}: y err {ey}, S err "
+              f"{eS}")
+        worst[f"y_{dname}"] = max(worst[f"y_{dname}"], ey)
+        worst["S"] = max(worst["S"], eS)
+        n += 1
+        del args, y, S, yr, Sr
+    torch.cuda.synchronize()
+    print(f"[13 wkv] kernel == plain version on {n} cases (H {H}, hd {hd}; "
+          f"B {WKV_BATCH}; T {WKV_T}; r/k/v bf16 or f32, w f32; S0 zero or "
+          f"not): max err / max(1, max |ref|) y bf16 "
+          f"{worst['y_bfloat16']:.3g} (tol {WKV_TOL['y_bfloat16']}), y f32 "
+          f"{worst['y_float32']:.3g} (tol {WKV_TOL['y_float32']}), S_final "
+          f"{worst['S']:.3g} (tol {WKV_TOL['S']})", flush=True)
+    out = {}
+    for B, T, dname in ((8, 2048, "bfloat16"), (1, 2048, "bfloat16"),
+                        (8, 1, "bfloat16")):
+        with_s0 = T == 1
+        args = inputs(B, T, getattr(torch, dname), with_s0)
+        ms = time_cuda(lambda: wkv_bhtd(*args), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wkv_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bound_ms, bound_by, flops, nbytes = wkv_bound(B, H, T, hd, 2,
+                                                      with_s0)
+        print(f"[13 wkv] rwkv6-7b heads {dname} B={B} T={T}"
+              f"{' (decode, from a state)' if with_s0 else ''}: kernel "
+              f"{ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flops} FLOP at 67 TFLOP/s float32, {nbytes} "
+              f"B); x bound {ms / bound_ms:.1f}; plain {plain_ms:.1f} ms "
+              f"(one run); library call: none", flush=True)
+        out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        del args
+    res = dict(out[(8, 2048)])
+    res["max_abs_err"] = max(worst.values())
+    return res
+
+
+def phase_rglru(dev) -> dict:
+    """[14 rglru] kernel 5 vs its plain version, bit for bit, timed at the
+    serving prefill's shape."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_ref, rglru_scan
+
+    g = torch.Generator().manual_seed(14)
+    C = RGLRU_C
+
+    def inputs(B, T, dt):
+        a = (torch.rand(B, T, C, generator=g) * 0.1 + 0.9).to(dev, dt)
+        b = (torch.randn(B, T, C, generator=g) * 0.1).to(dev, dt)
+        return a, b
+
+    n = 0
+    cases = list(itertools.product(RGLRU_BATCH, RGLRU_T, ("float32",)))
+    cases.append((2, 200, "bfloat16"))
+    for B, T, dname in cases:
+        a, b = inputs(B, T, getattr(torch, dname))
+        h = rglru_scan(a, b)
+        check(torch.equal(h, rglru_ref(a, b)),
+              f"rglru B={B} T={T} {dname}: kernel != plain version")
+        n += 1
+    torch.cuda.synchronize()
+    print(f"[14 rglru] kernel == plain version bit for bit on {n} cases "
+          f"(C {C}; B {RGLRU_BATCH}; T {RGLRU_T}; f32, and bf16 at B 2 "
+          f"T 200)", flush=True)
+    out = {}
+    for B, T in ((8, 2048), (1, 2048), (8, 1)):
+        a, b = inputs(B, T, torch.float32)
+        ms = time_cuda(lambda: rglru_scan(a, b), 5)
+        plain_ms = time_cuda(lambda: rglru_ref(a, b), 2)
+        bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4)
+        print(f"[14 rglru] recurrentgemma-2b width f32 B={B} T={T}: kernel "
+              f"{ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({nbytes} B at 3.35 TB/s, {flops} FLOP); x "
+              f"bound {ms / bound_ms:.1f}; plain {plain_ms:.3f} ms (median "
+              f"of 2); library call: none", flush=True)
+        out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+    res = dict(out[(8, 2048)])
+    res["max_abs_err"] = 0.0
+    return res
+
+
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+# Weights by position (tests/torch_goldens/make_recurrent_goldens.py
+# GOLDENS[arch]["check"]).
+RECURRENT_WEIGHT_CHECK = {
+    "rwkv6-7b": {"embed": (0, slice(0, 4)),
+                 "blocks/tm/wr": (3, -1, slice(-4, None)),
+                 "blocks/cm/wv": (1, 5, slice(0, 4)),
+                 "head": (-1, slice(-4, None))},
+    "recurrentgemma-2b": {"embed": (0, slice(0, 4)),
+                          "layers/0/rec/wx": (-1, slice(-4, None)),
+                          "layers/2/attn/wq": (5, slice(0, 4)),
+                          "layers/25/mlp/wd": (13, slice(0, 4))}}
+
+
+def phase_recurrent_golden(dev, arch):
+    """[15 recurrent golden] a float32 recurrent model on the card vs the
+    JAX golden."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import launch_counts
+    from repro_torch.models import build as build_model
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           RECURRENT_GOLDENS[arch])) as f:
+        gold = json.load(f)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              num_layers=gold["config"]["num_layers"])
+    check(dataclasses.asdict(cfg) == {
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in gold["config"].items()},
+          f"{arch}: the golden's config differs from the port's")
+    t0 = time.perf_counter()
+    tree = convert.random_lm_params(cfg, seed=gold["seed"])
+    draw_s = time.perf_counter() - t0
+    for path, vals in gold["weight_check"].items():
+        got = _leaf(tree, path)[RECURRENT_WEIGHT_CHECK[arch][path]]
+        check([float(x) for x in got] == vals,
+              f"random_lm_params differs from the golden's at {path}: "
+              f"numpy drew other weights here")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = convert.lm_params_from_jax(tree, cfg, dev)
+    del tree
+    bundle = build_model(cfg)
+    prompt = torch.as_tensor(np.asarray(gold["prompt"]), device=dev)
+    B, T, N = gold["batch"], gold["prompt_len"], gold["new_tokens"]
+    state = bundle.init_decode_state(B, T + N, device=dev)
+    prefill = make_prefill(bundle, executor="cuda")
+    step = make_decode_step(bundle, executor="cuda")
+    before = launch_counts()
+    logits, state = prefill(params, state, prompt)
+    launches = launch_counts(before)
+    steps = [logits[:, -1].float()]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for i in range(N - 1):
+        pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
+        tok, logits, state = step(params, state, tok, pos)
+        steps.append(logits[:, -1].float())
+    got_tokens = torch.stack([s.argmax(-1) for s in steps], 1).tolist()
+    check(got_tokens == gold["tokens"],
+          f"{arch} float32 greedy tokens {got_tokens} != JAX's "
+          f"{gold['tokens']}")
+    top_err = norm_err = 0.0
+    for s, gs in zip(steps, gold["steps"]):
+        ids = torch.as_tensor(gs["top5_ids"], device=dev)
+        vals = s.gather(1, ids).double().cpu().numpy()
+        want = np.asarray(gs["top5"])
+        top_err = max(top_err, float(
+            (np.abs(vals - want).max(1) / np.abs(want).max(1)).max()))
+        norms = s.double().norm(dim=-1).cpu().numpy()
+        norm_err = max(norm_err, float(
+            (np.abs(norms - np.asarray(gs["norm"]))
+             / np.asarray(gs["norm"])).max()))
+    margin = min(m for gs in gold["steps"] for m in gs["margin"])
+    check(top_err <= RECURRENT_GOLDEN_RTOL
+          and norm_err <= RECURRENT_GOLDEN_RTOL,
+          f"{arch} float32 logits vs the golden: top-5 rel err {top_err}, "
+          f"norm rel err {norm_err} (tol {RECURRENT_GOLDEN_RTOL})")
+    print(f"[15 recurrent golden] {arch} float32 (TF32 off; "
+          f"{cfg.num_layers} layers: {gold['depth_cut'] or 'full depth'}),"
+          f" {B} x {T} prompt tokens + {N} greedy steps on the card "
+          f"(weights drawn in {draw_s:.1f} s; prefill launches "
+          f"{launches}): "
+          f"tokens == {RECURRENT_GOLDENS[arch]}; top-5 logits max rel err "
+          f"{top_err:.3g}, norms {norm_err:.3g} (tol "
+          f"{RECURRENT_GOLDEN_RTOL}); smallest golden top-2 margin "
+          f"{margin:.4g}", flush=True)
+    del params, state, steps
+    torch.cuda.empty_cache()
+
+
+def phase_recurrent_serve(dev, arch) -> dict:
+    """[16 recurrent serve] a bf16 recurrent model at full width and depth:
+    generate, launches per prefill and decode step, kernels vs plain."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import KERNELS, launch_counts
+    from repro_torch.models import build as build_model
+    from repro_torch.serve import generate, make_decode_step, make_prefill
+
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16", f"{arch} serves in bf16")
+    bundle = build_model(cfg)
+    n_attn = sum(b == "local" for b in (
+        cfg.block_pattern[i % len(cfg.block_pattern)]
+        for i in range(cfg.num_layers)))
+    want_prefill = ({"wkv": cfg.num_layers, "rglru": 0, "flash_attention": 0}
+                    if cfg.family == "ssm" else
+                    {"wkv": 0, "rglru": cfg.num_layers - n_attn,
+                     "flash_attention": n_attn})
+    want_decode = dict(want_prefill, flash_attention=0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init_params(gen, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    B, T, N = GEN_BATCH, GEN_PROMPT, GEN_NEW
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, T)), device=dev)
+
+    # generate: the main path, launches counted from 0
+    for fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = generate(bundle, params, prompt, N, T + N, device=dev,
+                    executor="cuda")
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = launch_counts()
+    gen_peak = torch.cuda.max_memory_allocated()
+    check(tuple(toks.shape) == (B, N), f"generate returned {toks.shape}")
+    want_gen = {k: want_prefill[k] + (N - 1) * want_decode[k]
+                for k in KERNELS}
+    check(gen_launches == want_gen,
+          f"{arch} generate launched {gen_launches}, not {want_gen}")
+
+    # the prefill alone (kernels, then plain versions) and decode steps
+    logits, pre_ms = {}, {}
+    for ex in ("cuda", "reference"):
+        state = bundle.init_decode_state(B, T + N, device=dev)
+        prefill = make_prefill(bundle, executor=ex)
+        c0 = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[ex], st = prefill(params, state, prompt)
+        torch.cuda.synchronize()
+        pre_ms[ex] = (time.perf_counter() - t0) * 1e3
+        if ex == "cuda":
+            pre_launches, state = launch_counts(c0), st
+        del st
+    check(pre_launches == want_prefill,
+          f"{arch} prefill launched {pre_launches}, not {want_prefill}")
+    step = make_decode_step(bundle, executor="cuda")
+    tok = toks[:, :1]
+    c0 = launch_counts()
+    pos = torch.full((B, 1), T, dtype=torch.long, device=dev)
+    tok, _, state = step(params, state, tok, pos)
+    dec_launches = launch_counts(c0)
+    check(dec_launches == want_decode,
+          f"{arch} decode step launched {dec_launches}, not {want_decode}")
+    n_dec = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        pos = torch.full((B, 1), T + 1 + i, dtype=torch.long, device=dev)
+        tok, _, state = step(params, state, tok, pos)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    del state
+    a, b = logits["cuda"][:, -1].float(), logits["reference"][:, -1].float()
+    check(bool(torch.isfinite(a).all()), f"{arch}: non-finite logits")
+    check(torch.equal(a.argmax(-1).int(), toks[:, 0]),
+          f"{arch}: generate's first token is not its prefill's argmax")
+
+    # the float32 prefill of the same weights, through the kernels
+    import dataclasses
+
+    def upcast(tree):
+        if isinstance(tree, dict):
+            return {k: upcast(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [upcast(v) for v in tree]
+        return tree.float()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params32 = upcast(params)
+    del params
+    torch.cuda.empty_cache()
+    b32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    f, _ = make_prefill(b32, executor="cuda")(
+        params32, b32.init_decode_state(B, T + N, device=dev), prompt)
+    f = f[:, -1].float()
+    del params32
+    scale = float(f.abs().max())
+    err = {"kernels": float((a - f).abs().max()) / scale,
+           "plain": float((b - f).abs().max()) / scale,
+           "each other": float((a - b).abs().max()) / float(b.abs().max())}
+    check(err["kernels"] <= RECURRENT_SERVE_RATIO * err["plain"],
+          f"{arch} bf16 prefill logits: the kernels' max |err| from float32 "
+          f"{err['kernels']:.4g} of max |logit| is above "
+          f"{RECURRENT_SERVE_RATIO} x the plain versions' {err['plain']:.4g}")
+    top2 = f.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * max(err.values()) * scale
+    agree = a.argmax(-1) == f.argmax(-1)
+    check(bool(agree[sure].all()),
+          f"{arch}: the first greedy token differs from float32's on a row "
+          f"with a clear top-2 margin")
+    print(f"[16 recurrent serve] {arch} bf16, {cfg.num_layers} layers, "
+          f"weights drawn on the card in {draw_s:.1f} s ({resident} B): "
+          f"generate {B} x {T} prompt + {N} new tokens, wall "
+          f"{gen_wall:.3f} s, launches {gen_launches}; prefill "
+          f"{pre_ms['cuda']:.1f} ms = {B * T / pre_ms['cuda'] * 1e3:.0f} "
+          f"tok/s (plain versions {pre_ms['reference']:.1f} ms), launches "
+          f"{pre_launches}; decode {step_ms:.2f} ms a step (mean of "
+          f"{n_dec}, past position {T}) = {B / step_ms * 1e3:.0f} tok/s, "
+          f"launches a step {dec_launches}; peak memory {gen_peak} B; "
+          f"bf16 prefill logits' max |err| as a share of max |logit|: "
+          f"kernels vs float32 {err['kernels']:.4g}, plain vs float32 "
+          f"{err['plain']:.4g} (kernels at most {RECURRENT_SERVE_RATIO} x "
+          f"plain), kernels vs plain {err['each other']:.4g}; first token "
+          f"agrees with float32's on {int(agree.sum())}/{B} rows "
+          f"({int(sure.sum())} with a clear top-2 margin)", flush=True)
+    del logits, a, b, f
+    torch.cuda.empty_cache()
+    return {"launches": gen_launches, "max_abs_err": err["each other"]}
+
+
 # ----------------------------------------------------------------- phases --
 
 def main() -> int:
@@ -1225,6 +1716,8 @@ def smoke(dev) -> int:
     build.load_tick_loop()
     build.load_flash_attention()
     build.load_flash_attention_bwd()
+    build.load_wkv()
+    build.load_rglru()
     print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, line in build.ptxas_report(
@@ -1240,6 +1733,14 @@ def smoke(dev) -> int:
         smem = fa_bwd.smem_bytes(inst[2])[inst[0] == "dkdv"]
         print(f"[2 build] flash_attention_bwd {inst[0]} {inst[1]} "
               f"hd={inst[2]}: {line}; {smem} B dynamic shared memory")
+    for name, line in build.ptxas_report(logs["wkv.cu"]).items():
+        inst = build.wkv_instance(name)
+        check(inst is not None, f"unexpected entry {name}")
+        print(f"[2 build] wkv r/k/v {inst[0]}, w {inst[1]}: {line}")
+    for name, line in build.ptxas_report(logs["rglru.cu"]).items():
+        inst = build.rglru_instance(name)
+        check(inst is not None, f"unexpected entry {name}")
+        print(f"[2 build] rglru {inst}: {line}")
     report = build.ptxas_report(logs["tick_loop.cu"])
     names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC"]
     used = set()
@@ -1412,6 +1913,12 @@ def smoke(dev) -> int:
     phase_train_golden(dev, tree)
     del tree
     trained = phase_train(dev)
+    wkv = phase_wkv(dev)
+    rglru = phase_rglru(dev)
+    for arch in RECURRENT_GOLDENS:
+        phase_recurrent_golden(dev, arch)
+    rserve = {arch: phase_recurrent_serve(dev, arch)
+              for arch in RECURRENT_SERVE}
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -1423,7 +1930,8 @@ def smoke(dev) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
-        "launches": serve["launches"] + trained["fa_launches"],
+        "launches": serve["launches"] + trained["fa_launches"]
+        + rserve["recurrentgemma-2b"]["launches"]["flash_attention"],
         "max_abs_err": max(flash["max_abs_err"], serve["max_abs_err"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -1435,7 +1943,21 @@ def smoke(dev) -> int:
         "launches": trained["bwd_launches"],
         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]}))
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}, {
+        "name": "wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6/rwkv6.py:68",
+        "launches": rserve["rwkv6-7b"]["launches"]["wkv"],
+        "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
+        "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
+        "bound_by": wkv["bound_by"], "library_ms": None}, {
+        "name": "rglru", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru/rglru.py:61",
+        "launches": rserve["recurrentgemma-2b"]["launches"]["rglru"],
+        "max_abs_err": rglru["max_abs_err"], "ms": rglru["ms"],
+        "plain_ms": rglru["plain_ms"], "bound_ms": rglru["bound_ms"],
+        "bound_by": rglru["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

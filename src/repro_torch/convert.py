@@ -11,8 +11,11 @@ a caller-given NamedTuple class, e.g. one of the JAX package's).  Values are
 copied bit for bit; nothing here imports JAX.
 
 For the LM: :func:`lm_params_from_jax` turns the JAX parameter tree (numpy
-leaves, blocks stacked ``[L, ...]``) into the port's parameters;
+leaves, blocks stacked ``[L, ...]``, or recurrentgemma's list of layers)
+into the port's parameters;
 :func:`caches_from_jax` / :func:`caches_to_jax` carry KV caches both ways,
+:func:`states_from_jax` / :func:`states_to_jax` the recurrent families'
+decode states,
 and :func:`train_state_from_jax` / :func:`train_state_to_jax` a whole
 training state (weights, Adam moments, counters);
 :func:`random_lm_params` draws a parameter tree with numpy alone, so that
@@ -74,23 +77,31 @@ def _tensor(a, device, dtype=None):
     return t.to(device)
 
 
+#: Leaves JAX's init keeps in float32 under any model dtype: qk-norm
+#: scales, rwkv6's mixing, decay, bonus and GroupNorm parameters, and the
+#: RG-LRU's Λ; and everything under a norm.
+_F32_LEAVES = ("q_norm", "k_norm", "mu", "w0", "u", "gn_scale", "mu_k",
+               "mu_r", "lam")
+_F32_NORMS = ("ln0", "ln1", "ln2", "ln_out", "final_norm")
+
+
 def _f32_leaf(path) -> bool:
-    """JAX keeps norm parameters in float32 under any model dtype."""
-    return path[-1] in ("q_norm", "k_norm") or any(
-        p in ("ln1", "ln2", "final_norm") for p in path)
+    return path[-1] in _F32_LEAVES or any(p in _F32_NORMS for p in path)
 
 
 def lm_params_from_jax(tree, cfg, device):
-    """The JAX LM parameter tree (numpy leaves, blocks stacked [L, ...]) ->
-    the port's parameters on ``device``: the same tree, each floating leaf
-    in the dtype JAX's init gives it (norms float32, the rest the config's
-    dtype), so a float32 tree from :func:`random_lm_params` serves either
-    dtype."""
+    """The JAX LM parameter tree (numpy leaves; blocks stacked [L, ...], or
+    a list of per-layer dicts) -> the port's parameters on ``device``: the
+    same tree, each floating leaf in the dtype JAX's init gives it
+    (:data:`_F32_LEAVES` and norms float32, the rest the config's dtype),
+    so a float32 tree from :func:`random_lm_params` serves either dtype."""
     wdt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     def conv(node, path):
         if isinstance(node, dict):
             return {k: conv(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, path + (str(i),)) for i, v in enumerate(node)]
         return _tensor(node, device,
                        torch.float32 if _f32_leaf(path) else wdt)
     return conv(dict(tree), ())
@@ -125,6 +136,34 @@ def caches_to_jax(caches):
     if caches.get("per_row"):
         out["prow"] = np.zeros((n_layers,), np.int32)
     return out
+
+
+def states_from_jax(states, device):
+    """A recurrent family's JAX decode state (numpy leaves) -> the port's:
+    rwkv6's stacked triple (tm_last, S, cm_last), or recurrentgemma's list
+    of per-layer ring caches (dicts with ``k``, ``v``, ``pos``, ``idx``)
+    and (conv_state, h) pairs.  Dtypes are kept."""
+    def ring(c):
+        return {"k": _tensor(c["k"], device), "v": _tensor(c["v"], device),
+                "pos": _tensor(c["pos"], device),
+                "idx": int(np.asarray(c["idx"])), "per_row": False}
+    if isinstance(states, tuple):
+        return tuple(_tensor(x, device) for x in states)
+    return [ring(st) if isinstance(st, dict) else
+            tuple(_tensor(x, device) for x in st) for st in states]
+
+
+def states_to_jax(states):
+    """The port's decode state of a recurrent family -> JAX's, as numpy
+    (bfloat16 leaves as ``ml_dtypes.bfloat16``): the inverse of
+    :func:`states_from_jax`."""
+    def ring(c):
+        return {"k": _numpy(c["k"]), "v": _numpy(c["v"]),
+                "pos": _numpy(c["pos"]), "idx": np.int32(c["idx"])}
+    if isinstance(states, tuple):
+        return tuple(_numpy(x) for x in states)
+    return [ring(st) if isinstance(st, dict) else
+            tuple(_numpy(x) for x in st) for st in states]
 
 
 def train_state_from_jax(state, cfg, device):
@@ -162,24 +201,28 @@ def train_state_to_jax(state):
 
 
 def random_lm_params(cfg, seed: int = 0):
-    """Random LM parameters in JAX's tree layout (blocks stacked [L, ...]),
-    as float32 numpy, from ``np.random.default_rng(seed)`` alone.
+    """Random LM parameters in JAX's tree layout, as float32 numpy, from
+    ``np.random.default_rng(seed)`` alone, for the dense, ssm (rwkv6) and
+    hybrid (recurrentgemma) families.
 
-    Scales are JAX's init (models/lm.py:63, layers.py:183-202, 435-451):
-    ``embed`` normal * 0.02; attention weights normal / sqrt(d_model);
-    ``wg``/``wu`` normal / sqrt(d_model), ``wd`` normal / sqrt(d_ff); biases
-    0 and norm scales 1.  Draw order: embed, then per block leaf (wq, wk,
-    wv, wo, wg, wu, wd) all L layers at once, then ``head`` if untied."""
+    Dense (blocks stacked [L, ...]).  Scales are JAX's init (models/lm.py:63,
+    layers.py:183-202, 435-451): ``embed`` normal * 0.02; attention weights
+    normal / sqrt(d_model); ``wg``/``wu`` normal / sqrt(d_model), ``wd``
+    normal / sqrt(d_ff); biases 0 and norm scales 1.  Draw order: embed,
+    then per block leaf (wq, wk, wv, wo, wg, wu, wd) all L layers at once,
+    then ``head`` if untied.  The other families: :func:`_random_rwkv6`,
+    :func:`_random_rglru`."""
+    if cfg.family == "ssm":
+        return _random_rwkv6(cfg, np.random.default_rng(seed))
+    if cfg.family == "hybrid":
+        return _random_rglru(cfg, np.random.default_rng(seed))
     if cfg.moe is not None or cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError("random_lm_params covers the dense "
-                                  "swiglu/geglu LMs")
+                                  "swiglu/geglu LMs, rwkv6 and "
+                                  "recurrentgemma")
     rng = np.random.default_rng(seed)
     L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
     hd, h, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-
-    def normal(shape, scale):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
-            scale)
 
     def norm():
         if cfg.norm_type == "ln_nonparam":
@@ -190,11 +233,11 @@ def random_lm_params(cfg, seed: int = 0):
         return out
 
     s_d, s_ff = 1.0 / np.sqrt(d), 1.0 / np.sqrt(ff)
-    embed = normal((cfg.vocab_size, d), 0.02)
-    attn = {"wq": normal((L, d, h * hd), s_d),
-            "wk": normal((L, d, hkv * hd), s_d),
-            "wv": normal((L, d, hkv * hd), s_d),
-            "wo": normal((L, h * hd, d), s_d)}
+    embed = _normal(rng, (cfg.vocab_size, d), 0.02)
+    attn = {"wq": _normal(rng, (L, d, h * hd), s_d),
+            "wk": _normal(rng, (L, d, hkv * hd), s_d),
+            "wv": _normal(rng, (L, d, hkv * hd), s_d),
+            "wo": _normal(rng, (L, h * hd, d), s_d)}
     if cfg.qkv_bias:
         attn.update(bq=np.zeros((L, h * hd), np.float32),
                     bk=np.zeros((L, hkv * hd), np.float32),
@@ -202,12 +245,101 @@ def random_lm_params(cfg, seed: int = 0):
     if cfg.qk_norm:
         attn.update(q_norm=np.ones((L, hd), np.float32),
                     k_norm=np.ones((L, hd), np.float32))
-    mlp = {"wg": normal((L, d, ff), s_d), "wu": normal((L, d, ff), s_d),
-           "wd": normal((L, ff, d), s_ff)}
+    mlp = {"wg": _normal(rng, (L, d, ff), s_d),
+           "wu": _normal(rng, (L, d, ff), s_d),
+           "wd": _normal(rng, (L, ff, d), s_ff)}
     params = {"embed": embed,
               "blocks": {"ln1": norm(), "attn": attn, "ln2": norm(),
                          "mlp": mlp},
               "final_norm": {k: v[0] for k, v in norm().items()}}
     if not cfg.tie_embeddings:
-        params["head"] = normal((d, cfg.vocab_size), 0.02)
+        params["head"] = _normal(rng, (d, cfg.vocab_size), 0.02)
     return params
+
+
+def _normal(rng, shape, scale):
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+
+def _random_rwkv6(cfg, rng):
+    """rwkv6 (models/rwkv6.py:31-82 in JAX), blocks stacked [L, ...]:
+    ``embed`` and ``head`` normal * 0.02; ``mix_A``, ``w_A`` and the time
+    mix's ``wr``/``wk``/``wv``/``wg``/``wo`` normal / sqrt(d_model);
+    ``mix_B``, ``w_B`` normal * 0.01; the channel mix's ``wk``, ``wr``
+    normal / sqrt(d_model) and ``wv`` normal / sqrt(d_ff); ``mu``, ``u``,
+    ``mu_k``, ``mu_r`` 0.5, ``w0`` -6, GroupNorm and LayerNorm scales 1 and
+    biases 0.  Draw order: embed; then, all L layers at once, the time
+    mix's mix_A, mix_B, w_A, w_B, wr, wk, wv, wg, wo and the channel mix's
+    wk, wv, wr; then head."""
+    L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    s_d = 1.0 / np.sqrt(d)
+
+    def full(shape, value):
+        return np.full(shape, value, np.float32)
+
+    def ln(lead=()):
+        return {"scale": np.ones(lead + (d,), np.float32),
+                "bias": np.zeros(lead + (d,), np.float32)}
+
+    embed = _normal(rng, (V, d), 0.02)
+    tm = {"mix_A": _normal(rng, (L, 5, d, 32), s_d),
+          "mix_B": _normal(rng, (L, 5, 32, d), 0.01),
+          "w_A": _normal(rng, (L, d, 64), s_d),
+          "w_B": _normal(rng, (L, 64, d), 0.01)}
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        tm[name] = _normal(rng, (L, d, d), s_d)
+    tm.update(mu=full((L, 5, d), 0.5), w0=full((L, d), -6.0),
+              u=full((L, d), 0.5), gn_scale=full((L, d), 1.0))
+    cm = {"wk": _normal(rng, (L, d, ff), s_d),
+          "wv": _normal(rng, (L, ff, d), 1.0 / np.sqrt(ff)),
+          "wr": _normal(rng, (L, d, d), s_d),
+          "mu_k": full((L, d), 0.5), "mu_r": full((L, d), 0.5)}
+    return {"embed": embed, "ln0": ln(),
+            "blocks": {"ln1": ln((L,)), "tm": tm, "ln2": ln((L,)),
+                       "cm": cm},
+            "ln_out": ln(), "head": _normal(rng, (d, V), 0.02)}
+
+
+def _random_rglru(cfg, rng):
+    """recurrentgemma (models/rglru.py:53-140 and layers.py:183-202,
+    435-451 in JAX), a list of per-layer dicts: ``embed`` normal * 0.02;
+    attention and ``wx``/``wy`` normal / sqrt(d_model); ``conv_w`` normal *
+    0.1; the gates' blocks normal / sqrt(lru / 8); ``wo`` normal /
+    sqrt(lru); GeGLU ``wg``/``wu`` normal / sqrt(d_model), ``wd`` normal /
+    sqrt(d_ff); biases 0, RMSNorm scales 1, ``lam`` linspace(2.2, 6.9).
+    Draw order: embed; then layer by layer its attention (wq, wk, wv, wo)
+    or recurrent block (wx, wy, conv_w, gate_a, gate_x, wo), then its MLP
+    (wg, wu, wd)."""
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hd, h, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    lru = cfg.lru_width or d
+    bd = lru // 8
+    s_d = 1.0 / np.sqrt(d)
+    embed = _normal(rng, (V, d), 0.02)
+    layers = []
+    for i in range(cfg.num_layers):
+        p = {"ln1": {"scale": np.ones((d,), np.float32)},
+             "ln2": {"scale": np.ones((d,), np.float32)}}
+        if cfg.block_pattern[i % len(cfg.block_pattern)] == "local":
+            p["attn"] = {"wq": _normal(rng, (d, h * hd), s_d),
+                         "wk": _normal(rng, (d, hkv * hd), s_d),
+                         "wv": _normal(rng, (d, hkv * hd), s_d),
+                         "wo": _normal(rng, (h * hd, d), s_d)}
+        else:
+            p["rec"] = {
+                "wx": _normal(rng, (d, lru), s_d),
+                "wy": _normal(rng, (d, lru), s_d),
+                "conv_w": _normal(rng, (cfg.conv_width, lru), 0.1),
+                "conv_b": np.zeros((lru,), np.float32),
+                "gate_a": {"w": _normal(rng, (8, bd, bd), 1 / np.sqrt(bd)),
+                           "b": np.zeros((lru,), np.float32)},
+                "gate_x": {"w": _normal(rng, (8, bd, bd), 1 / np.sqrt(bd)),
+                           "b": np.zeros((lru,), np.float32)},
+                "lam": np.linspace(2.2, 6.9, lru).astype(np.float32),
+                "wo": _normal(rng, (lru, d), 1.0 / np.sqrt(lru))}
+        p["mlp"] = {"wg": _normal(rng, (d, ff), s_d),
+                    "wu": _normal(rng, (d, ff), s_d),
+                    "wd": _normal(rng, (ff, d), 1.0 / np.sqrt(ff))}
+        layers.append(p)
+    return {"embed": embed, "layers": layers,
+            "final_norm": {"scale": np.ones((d,), np.float32)}}

@@ -6,6 +6,10 @@ version.
     flash_attention — flash-attention forward (csrc/flash_attention.cu),
                       replacing repro/kernels/flash_attention/
                       flash_attention.py::flash_attention_bhtd
+    rwkv6           — the RWKV-6 WKV recurrence (csrc/wkv.cu), replacing
+                      repro/kernels/rwkv6/rwkv6.py::wkv_bhtd
+    rglru           — the RG-LRU scan (csrc/rglru.cu), replacing
+                      repro/kernels/rglru/rglru.py::rglru_scan
     build           — nvcc build of csrc/*.cu into plain-C libraries, one per
                       source with its own flags, at first use
 """

@@ -12,9 +12,12 @@ its own build log.  The tick loop's flags are part of its numerics:
 ``-fmad=false`` stops nvcc from contracting ``a*b+c`` into one fused
 multiply-add (the JAX reference rounds the product first); ``-ftz=true``
 flushes float32 subnormals to zero, as XLA does on the CPU and the TPU.
-The attention kernels (forward and backward) claim no bit-exactness, only a stated tolerance
-against its plain version, so it keeps nvcc's default contraction and
-IEEE subnormals.  No source gets ``--use_fast_math`` (correctly rounded
+The RG-LRU scan is built with ``-fmad=false`` too, and without the flush:
+it equals its plain version (eager PyTorch on the card, which keeps IEEE
+subnormals) bit for bit.  The attention kernels (forward and backward) and
+the WKV recurrence claim no bit-exactness, only a stated tolerance against
+their plain versions, so they keep nvcc's default contraction and IEEE
+subnormals.  No source gets ``--use_fast_math`` (correctly rounded
 division and ``expf`` / ``logf``, as the references have).
 """
 from __future__ import annotations
@@ -43,6 +46,8 @@ SOURCE_FLAGS = {
     "tick_loop.cu": NVCC_FLAGS,
     "flash_attention.cu": _BASE_FLAGS,
     "flash_attention_bwd.cu": _BASE_FLAGS,
+    "wkv.cu": _BASE_FLAGS,
+    "rglru.cu": _BASE_FLAGS + ("-fmad=false",),
 }
 
 
@@ -185,6 +190,53 @@ def load_flash_attention_bwd() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wkv_instance(name: str):
+    """(dtype of r/k/v, dtype of w) of a mangled ``wkv_kernel`` entry name,
+    each ``"float32"`` or ``"bfloat16"``."""
+    m = re.search(r"wkv_kernelI(f|13__nv_bfloat16)(f|S\d*_|13__nv_bfloat16)E",
+                  name)
+    if m is None:
+        return None
+    first = "float32" if m.group(1) == "f" else "bfloat16"
+    second = m.group(2)
+    return first, (first if second.startswith("S") else
+                   "float32" if second == "f" else "bfloat16")
+
+
+def load_wkv() -> ctypes.CDLL:
+    """The WKV library, built and loaded once per process."""
+    lib, _ = _load("wkv.cu")
+    fn = lib.wkv_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.wkv_error_string.argtypes = [ctypes.c_int]
+    lib.wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rglru_instance(name: str):
+    """The dtype (``"float32"`` or ``"bfloat16"``) of a mangled
+    ``rglru_kernel`` entry name."""
+    m = re.search(r"rglru_kernelI(f|13__nv_bfloat16)E", name)
+    return None if m is None else (
+        "float32" if m.group(1) == "f" else "bfloat16")
+
+
+def load_rglru() -> ctypes.CDLL:
+    """The RG-LRU scan library, built and loaded once per process."""
+    lib, _ = _load("rglru.cu")
+    fn = lib.rglru_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.rglru_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -27,6 +27,11 @@
 // block, and key tiles that the causal or window mask rules out for every
 // row of the block are never loaded (about half the work at causal).
 //
+// Head widths 64 (qwen2), 128 (qwen3) and 256 (recurrentgemma's MQA, which
+// doubles the output accumulators to 128 floats a thread and the shared
+// memory to 139,904 bytes; ptxas's registers and spills for it are printed
+// by chip_smoke.py's build phase).
+//
 // Layout.  One thread block per (q tile of 64 rows, head, batch row); the
 // TPU's sequential key grid axis is a loop inside the block over 32-row key
 // tiles held in shared memory as float32.  128 threads: 16 row groups of 4
@@ -272,7 +277,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  strides: 12 element
+// dtype: 0 = float32, 1 = bfloat16; hd: 64, 128 or 256.  strides: 12 element
 // strides (batch, head, time) of q, k, v, o in that order.  lse may be null.
 // Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for a
 // dtype / hd the kernel has no instantiation for.
@@ -293,6 +298,12 @@ int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
                                      strides, causal, window, scale, s);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk,
+                                      strides, causal, window, scale, s);
+  if (dtype == 0 && hd == 256)
+    return launch<float, 256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
+                              causal, window, scale, s);
+  if (dtype == 1 && hd == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk,
                                       strides, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,8 +19,9 @@ import torch
 
 from .ref import attention_ref
 
-#: Head widths the kernel is instantiated for (qwen2's 64, qwen3's 128).
-HEAD_DIMS = (64, 128)
+#: Head widths the kernel is instantiated for (qwen2's 64, qwen3's 128,
+#: recurrentgemma's 256).
+HEAD_DIMS = (64, 128, 256)
 
 
 def smem_bytes(hd: int) -> int:
@@ -74,7 +75,7 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     read in place, and ``o`` is allocated with q's strides.
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
-    (float32 or bfloat16, hd 64 or 128), or an exception."""
+    (float32 or bfloat16, hd 64, 128 or 256), or an exception."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise ValueError("flash_attention_bhtd is forward only; take "

@@ -19,9 +19,12 @@ import math
 
 import torch
 
-from .flash_attention import (_DTYPE_CODE, HEAD_DIMS, _check,
-                              _check_kernel_layout)
+from .flash_attention import _DTYPE_CODE, _check, _check_kernel_layout
 from .ref import attention_bwd_ref
+
+#: Head widths the backward kernels are instantiated for (the dense
+#: family's; the recurrent families do not train yet).
+HEAD_DIMS = (64, 128)
 
 
 def smem_bytes(hd: int) -> tuple[int, int]:

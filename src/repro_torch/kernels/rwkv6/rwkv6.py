@@ -1,0 +1,102 @@
+"""RWKV-6 WKV recurrence: the hand-written CUDA kernel's wrapper.
+
+:func:`wkv_bhtd` replaces the JAX package's Pallas TPU kernel
+``repro/kernels/rwkv6/rwkv6.py::wkv_bhtd`` (``_wkv_kernel``).  The kernel is
+``kernels/csrc/wkv.cu``, built by :mod:`repro_torch.kernels.build` at first
+use; its source note says what bounds it on an H100 and how it is laid
+out.  Beyond the TPU kernel it takes an initial state and returns the
+final one, which serving carries from the prefill into decode.  For tensors
+on the CPU the wrapper computes the plain version,
+:func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`; for CUDA tensors it
+launches the kernel on the current stream without synchronising, or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ref import wkv_ref
+
+#: The kernel's head width (rwkv6's).
+HEAD_DIM = 64
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: (r/k/v dtype, w dtype) pairs the kernel is instantiated for.
+_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+          (torch.bfloat16, torch.bfloat16)}
+
+
+def _check(r, k, v, w, u, S0):
+    if any(x.dim() != 4 for x in (r, k, v, w)):
+        raise ValueError("wkv_bhtd takes r, k, v, w [B, H, T, hd]")
+    B, H, T, hd = r.shape
+    if any(x.shape != r.shape for x in (k, v, w)):
+        raise ValueError(f"wkv_bhtd: r, k, v, w shapes differ "
+                         f"({[tuple(x.shape) for x in (r, k, v, w)]})")
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"wkv_bhtd: u {tuple(u.shape)} is not [H, hd] = "
+                         f"{(H, hd)}")
+    if S0 is not None and tuple(S0.shape) != (B, H, hd, hd):
+        raise ValueError(f"wkv_bhtd: S0 {tuple(S0.shape)} is not "
+                         f"[B, H, hd, hd] = {(B, H, hd, hd)}")
+    if not (r.dtype == k.dtype == v.dtype):
+        raise ValueError(f"wkv_bhtd: r, k, v dtypes differ ({r.dtype}, "
+                         f"{k.dtype}, {v.dtype})")
+    if len({x.device for x in (r, k, v, w, u)
+            + (() if S0 is None else (S0,))}) != 1:
+        raise ValueError("wkv_bhtd: inputs on different devices")
+
+
+def wkv_bhtd(r, k, v, w, u, S0=None):
+    """r, k, v, w [B, H, T, hd]; u [H, hd]; S0 [B, H, hd, hd] or None ->
+    (y [B, H, T, hd] in r's dtype, S_final [B, H, hd, hd] float32).  Any
+    strides whose last one is 1: a ``transpose(1, 2)`` view of the model's
+    [B, T, H, hd] tensors is read in place, and ``y`` is allocated with r's
+    strides.
+
+    CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
+    (r/k/v float32 with w float32; r/k/v bf16 with w float32 or bf16; hd
+    64), or an exception."""
+    _check(r, k, v, w, u, S0)
+    if r.device.type == "cpu":
+        return wkv_ref(r, k, v, w, u, S0)
+    if r.device.type != "cuda":
+        raise ValueError(f"the WKV kernel runs on CUDA (or, as its plain "
+                         f"version, on the CPU), got {r.device}")
+    B, H, T, hd = r.shape
+    if (r.dtype, w.dtype) not in _PAIRS:
+        raise ValueError(f"the WKV kernel takes r/k/v and w dtypes in "
+                         f"{sorted((str(a), str(b)) for a, b in _PAIRS)}, "
+                         f"got ({r.dtype}, {w.dtype})")
+    if hd != HEAD_DIM:
+        raise ValueError(f"the WKV kernel takes hd {HEAD_DIM}, got {hd}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if x.stride(3) != 1:
+            raise ValueError(f"WKV kernel: {name} needs a contiguous last "
+                             f"dimension, got strides {x.stride()}")
+    u = u.float().contiguous()
+    S0 = None if S0 is None else S0.float().contiguous()
+    y = torch.empty_like(r)
+    S = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B and H:
+        from .. import build
+
+        lib = build.load_wkv()
+        strides = (ctypes.c_longlong * 15)(*[
+            x.stride(i) for x in (r, k, v, w, y) for i in (0, 1, 2)])
+        with torch.cuda.device(r.device):
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            err = lib.wkv_launch(
+                _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype], r.data_ptr(),
+                k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                None if S0 is None else S0.data_ptr(), y.data_ptr(),
+                S.data_ptr(), B, H, T, strides, stream)
+        if err != 0:
+            raise RuntimeError(f"WKV kernel launch failed: "
+                               f"{build.cuda_error_string(lib, err, 'wkv')}")
+        wkv_bhtd.launches += 1
+    return y, S
+
+
+#: Kernel launches since the last reset (set to 0 to start counting).
+wkv_bhtd.launches = 0

@@ -1,13 +1,17 @@
-"""Serving launcher: batched greedy decoding against a KV cache, on the CUDA
-card unless ``--device cpu`` (the port of ``repro/launch/serve.py``).
+"""Serving launcher: batched greedy decoding against a KV cache or a
+recurrent state, on the CUDA card unless ``--device cpu`` (the port of
+``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --device cpu --smoke --batch 4 --prompt-len 16 --new-tokens 32
 
 Weights are random (``torch.Generator`` seed 0), the prompt is drawn with
-numpy seed 1.  The prefill's attention runs the flash-attention kernel on
-the card and its plain version on the CPU.
+numpy seed 1.  The kernels (flash attention, WKV, RG-LRU) run on the card
+and their plain versions on the CPU; the launcher prints how many times
+each kernel launched in the prefill and in one decode step.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 from repro_torch.api.scenario import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_bhtd
+from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.kernels.rwkv6 import wkv_bhtd
 from repro_torch.models import build
 from repro_torch.serve import make_decode_step, make_prefill
 
@@ -50,26 +56,41 @@ def main(argv=None):
     prefill = make_prefill(bundle)
     step = make_decode_step(bundle)
 
-    launches = flash_attention_bhtd.launches
+    before = launch_counts()
     logits, state = prefill(params, state, prompt)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    launches = flash_attention_bhtd.launches - launches
+    pre = launch_counts(before)
     toks = [tok]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
+    dec = None
     for i in range(N - 1):
         pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
+        before = launch_counts()
         tok, _, state = step(params, state, tok, pos)
+        if i == 0:
+            dec = launch_counts(before)
         toks.append(tok)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
 
     print(f"{cfg.name} on {dev}: {B * (N - 1) / dt:.1f} tok/s batched "
-          f"({dt / max(N - 1, 1) * 1e3:.2f} ms/step); prefill launched the "
-          f"flash-attention kernel {launches} times")
+          f"({dt / max(N - 1, 1) * 1e3:.2f} ms/step); kernel launches in "
+          f"the prefill {pre}, in one decode step {dec}")
     return torch.cat(toks, dim=1)
+
+
+#: Every kernel a serving path can launch, by name.
+KERNELS = {"flash_attention": flash_attention_bhtd, "wkv": wkv_bhtd,
+           "rglru": rglru_scan}
+
+
+def launch_counts(since=None):
+    """Each kernel's launch count, or its launches after ``since``."""
+    now = {name: fn.launches for name, fn in KERNELS.items()}
+    return now if since is None else {k: now[k] - since[k] for k in now}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Model zoo of the port (``repro/models``): one functional bundle per
 architecture family.
 
-``build(cfg)`` serves and trains the dense family (``lm.py``: decoder-only
-transformer).  The other families, and the VLM/audio inputs of the
-forward, raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+``build(cfg)`` dispatches on ``cfg.family``:
+    dense   -> lm.py     (decoder-only transformer; serves and trains)
+    ssm     -> rwkv6.py  (Finch, attention-free; serves)
+    hybrid  -> rglru.py  (recurrentgemma: RG-LRU + local attention; serves)
+The other families, and the VLM/audio inputs of the dense forward, raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import lm
+from . import lm, rglru, rwkv6
 from .common import ModelConfig, MoEConfig  # noqa: F401
 
 #: Forward inputs of the VLM and audio families (JAX's train/step.py
@@ -22,8 +24,7 @@ EXTRA_KEYS = ("frame_embeds", "vision_embeds", "mrope_pos")
 
 #: Families still to port, with the ROADMAP queue 1 item that brings each.
 _LATER = {"moe": "9e (MoE, VLM and whisper)", "vlm": "9e (MoE, VLM and whisper)",
-          "audio": "9e (MoE, VLM and whisper)", "ssm": "9c (rwkv6-7b)",
-          "hybrid": "9d (recurrentgemma-2b)"}
+          "audio": "9e (MoE, VLM and whisper)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +50,28 @@ def build(cfg: ModelConfig) -> ModelBundle:
             init_decode_state=lambda b, m, dtype=torch.bfloat16,
             device=None: lm.init_caches(cfg, b, m, dtype, device=device),
             state_kwarg="caches",
+        )
+    if fam == "ssm":
+        return ModelBundle(
+            cfg=cfg,
+            init_params=lambda seed=0, device=None: rwkv6.init_params(
+                cfg, seed, device=device),
+            forward=lambda params, tokens, **kw: rwkv6.forward(
+                cfg, params, tokens, **kw),
+            init_decode_state=lambda b, m, dtype=torch.bfloat16,
+            device=None: rwkv6.init_states(cfg, b, dtype, device=device),
+            state_kwarg="states",
+        )
+    if fam == "hybrid":
+        return ModelBundle(
+            cfg=cfg,
+            init_params=lambda seed=0, device=None: rglru.init_params(
+                cfg, seed, device=device),
+            forward=lambda params, tokens, **kw: rglru.forward(
+                cfg, params, tokens, **kw),
+            init_decode_state=lambda b, m, dtype=torch.bfloat16,
+            device=None: rglru.init_states(cfg, b, m, dtype, device=device),
+            state_kwarg="states",
         )
     if fam in _LATER:
         raise NotImplementedError(

@@ -1,5 +1,6 @@
-"""Shared neural layers of the dense LM (the port of
-``repro/models/layers.py``; functional style over parameter dicts).
+"""Shared neural layers of the dense LM and of recurrentgemma's local
+attention (the port of ``repro/models/layers.py``; functional style over
+parameter dicts).
 
 Conventions, as in the JAX package:
   * params are nested dicts of tensors, weights in JAX's ``[in, out]``
@@ -10,9 +11,10 @@ Conventions, as in the JAX package:
     GQA-grouped.
 
 Causal attention over a sequence that starts at position 0 -- a forward
-without a cache with Tq > 1, or a prefill into an empty cache -- runs the
-flash attention kernel (``kernels/flash_attention``); decode, Tq > 1 into a
-non-empty cache and non-causal attention use :func:`attention_scores_full`,
+without a cache with Tq > 1, or a prefill into an empty (contiguous or
+ring) cache -- runs the flash attention kernel (``kernels/flash_attention``);
+decode, Tq > 1 into a non-empty cache and non-causal attention use
+:func:`attention_scores_full`,
 as JAX does for them (or for a short sequence).  Which one
 runs is decided from shapes and host state (the cache's write offset is a
 Python int), never by a device read.  Attention without a cache is
@@ -25,9 +27,17 @@ largest tensor of a serving run (7.5 GB for 16 slots x 4,096 positions of
 qwen3-0.6b), so the port never copies it.  A cache dict passed to
 :func:`attention` must not be reused after the call; use the one returned.
 
+The ring-buffer cache of windowed attention (``init_cache(ring=True)``,
+JAX's layers.py:321-335, 360-368) holds the last ``max_len`` keys with
+their absolute positions (``pos``, -1 where never written): a write lands
+at ``idx % max_len``, and the mask hides unwritten slots, later positions
+and keys a window or more behind.  A write that does not fit between its
+slot and the ring's end raises ``ValueError`` (JAX raises for a prefill
+longer than the ring, and clamps the start of one that would wrap).
+
 No counterpart here: ``residual_shard``, ``logits_shard`` and ``_cp_shard``
-(mesh constraints; this slice runs on one card), the MoE layers and M-RoPE
-(their slices come later), and the ring-buffer cache.
+(mesh constraints; this port runs on one card), and the MoE layers and
+M-RoPE (their slice comes later).
 """
 from __future__ import annotations
 
@@ -49,9 +59,10 @@ def _dtype(cfg: ModelConfig):
 
 
 def _normal(gen, shape, scale, dtype):
-    """float32 standard normals from ``gen`` (a CPU generator), scaled and
-    cast."""
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    """float32 standard normals from ``gen``, on the generator's device,
+    scaled and cast."""
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def remat_policy(cfg: ModelConfig):
@@ -211,14 +222,30 @@ def _write_cache(cache, k, v, positions, from_start):
     return ck, cv
 
 
+def _write_ring(cache, k, v, positions):
+    """Write this step's k/v and positions into the ring at ``idx % len``
+    in place; return the ring's keys and values."""
+    ck, cv = cache["k"], cache["v"]
+    T, clen = k.shape[1], ck.shape[1]
+    slot = cache["idx"] % clen
+    if slot + T > clen:
+        raise ValueError(f"ring cache overflow: writing {T} positions at "
+                         f"slot {slot} of a ring of {clen}")
+    ck[:, slot:slot + T] = k.to(ck.dtype)
+    cv[:, slot:slot + T] = v.to(cv.dtype)
+    cache["pos"][:, slot:slot + T] = positions.to(torch.int32)
+    return ck, cv
+
+
 def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
               cache=None, from_start=False, executor="auto"):
     """Unified attention: forward without a cache, prefill, and decode.
 
     cache: None -> plain forward over x; a layer cache dict
-    (``k``, ``v``, ``idx`` [host int], ``per_row``, optional ``rows``) ->
-    write x's k/v at ``idx`` (contiguous) or at ``positions`` (per row) and
-    attend over the cache.  ``from_start``: the caller's positions are
+    (``k``, ``v``, ``idx`` [host int], ``per_row``, optional ``rows``, and
+    ``pos`` for a ring) -> write x's k/v at ``idx`` (contiguous), at
+    ``idx % len`` (ring) or at ``positions`` (per row) and attend over the
+    cache.  ``from_start``: the caller's positions are
     0..T-1 in every row (host knowledge; the forward's default).
     ``executor`` picks the flash-attention sites' implementation
     (``auto``/``cuda``/``reference``, kernels/flash_attention/ops.py).
@@ -237,17 +264,28 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
 
     B, Tq = q.shape[:2]
     new_cache = None
+    ring = cache is not None and "pos" in cache
     if cache is not None:
-        ck, cv = _write_cache(cache, k, v, positions, from_start)
+        ck, cv = (_write_ring(cache, k, v, positions) if ring else
+                  _write_cache(cache, k, v, positions, from_start))
         new_cache = dict(cache, idx=cache["idx"] + Tq)
         if from_start and cache["idx"] == 0 and Tq > 1:
             # Prefill into an empty cache: causal attention over the first
             # Tq keys, read back from the cache and brought to q's dtype (a
             # bf16 cache under a float32 model: the exact upcast JAX's
-            # mixed einsum does).
+            # mixed einsum does).  In a ring these sit at slots 0..Tq-1.
             y = flash_attention(q, ck[:, :Tq].to(q.dtype),
                                 cv[:, :Tq].to(q.dtype), causal=True,
                                 window=window, executor=executor)
+        elif ring:
+            # The ring's mask from the absolute positions of its slots.
+            kpos = cache["pos"]
+            dist = positions[:, :, None] - kpos[:, None, :]
+            m = (dist < 0) | (kpos[:, None, :] < 0)
+            if window > 0:
+                m |= dist >= window
+            bias = torch.where(m[:, None, None], NEG_INF, 0.0)
+            y = attention_scores_full(q, ck.to(q.dtype), cv.to(q.dtype), bias)
         else:
             # decode / cached attention: causal per-row mask; a contiguous
             # cache also hides never-written slots past the write index.
@@ -276,12 +314,17 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, per_row: bool = False, device=None):
+               dtype=torch.bfloat16, ring: bool = False,
+               per_row: bool = False, device=None):
     hd = cfg.resolved_head_dim
     shape = (batch, max_len, cfg.num_kv_heads, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "idx": 0, "per_row": per_row}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device),
+         "idx": 0, "per_row": per_row}
+    if ring:
+        c["pos"] = torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device)
+    return c
 
 
 # ------------------------------------------------------------------- mlp ---

@@ -45,6 +45,12 @@ class ContinuousBatcher:
                  max_len: int = 256, sla: Optional[SLA] = None, device=None,
                  executor: str = "auto"):
         check_executor(executor)
+        if bundle.cfg.family != "dense":
+            # JAX's batcher also needs the dense family's stacked caches
+            # (scheduler.py:12-13, :50).
+            raise NotImplementedError(
+                f"ContinuousBatcher serves the dense family (per-row KV "
+                f"caches), not {bundle.cfg.family!r}")
         self.device = resolve_device(device)
         self.bundle = bundle
         self.params = params

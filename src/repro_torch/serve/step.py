@@ -1,5 +1,7 @@
 """Serving: prefill + single-token decode steps (the port of
-``repro/serve/step.py``) for the dense family."""
+``repro/serve/step.py``) for every family ``models.build`` serves: the
+dense LM's KV caches, rwkv6's recurrent states and recurrentgemma's mix of
+ring caches and recurrent states, through the bundle's ``state_kwarg``."""
 from __future__ import annotations
 
 import numpy as np

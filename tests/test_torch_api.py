@@ -143,6 +143,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.api, repro_torch.convert, "
             "repro_torch.kernels.tick_loop, repro_torch.kernels.build, "
             "repro_torch.kernels.flash_attention, repro_torch.models, "
+            "repro_torch.kernels.rwkv6, repro_torch.kernels.rglru, "
+            "repro_torch.models.rwkv6, repro_torch.models.rglru, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.train, repro_torch.train.trainer, "
             "repro_torch.optim, repro_torch.ckpt, repro_torch.data, "

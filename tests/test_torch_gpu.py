@@ -1,6 +1,6 @@
 """The CUDA kernels on the card (``gpu`` marker; skipped without one): the
-tick loop and flash attention forward and backward, each against its plain
-version.
+tick loop, flash attention forward (hd 64, 128 and 256) and backward, the
+WKV recurrence and the RG-LRU scan, each against its plain version.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -26,6 +26,8 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention,
                                                  flash_attention_bhtd,
                                                  flash_attention_bwd_bhtd)
+from repro_torch.kernels.rglru import rglru_ref, rglru_scan
+from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_ref
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -102,7 +104,8 @@ def test_run_golden_on_the_card(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64)])
+@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64),
+                                      (10, 1, 256)])
 def test_flash_attention_kernel_vs_plain_version_on_the_card(cuda_device,
                                                              dtype, H, Hkv,
                                                              hd):
@@ -176,3 +179,52 @@ def test_flash_attention_bwd_kernel_vs_plain_version_on_the_card(
         scale = 1.0 if dtype == torch.float32 else float(
             b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_wkv_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
+                                                 w_dtype):
+    """Kernel 4 == plain version on [B,T,H,64] views, from zero and from a
+    state: y within 1e-4 (float32) / 1e-2 (bf16) of its largest |value|
+    (float32 sums in another order, FMA contraction; one bf16 rounding of
+    y), S_final within 1e-4 of its largest |value|."""
+    g = torch.Generator().manual_seed(2)
+    for B, T, H, with_s0 in [(1, 1, 3, True), (2, 200, 4, False),
+                             (1, 64, 2, True), (3, 17, 1, True)]:
+        r, k, v = [(torch.randn(B, T, H, 64, generator=g) * 0.5).to(
+            cuda_device, dtype).transpose(1, 2) for _ in range(3)]
+        w = (torch.rand(B, T, H, 64, generator=g) * 0.5 + 0.45).to(
+            cuda_device, w_dtype).transpose(1, 2)
+        u = (torch.randn(H, 64, generator=g) * 0.3).to(cuda_device)
+        S0 = ((torch.randn(B, H, 64, 64, generator=g) * 0.2).to(cuda_device)
+              if with_s0 else None)
+        before = wkv_bhtd.launches
+        y, S = wkv_bhtd(r, k, v, w, u, S0)
+        torch.cuda.synchronize()
+        assert wkv_bhtd.launches == before + 1
+        yr, Sr = wkv_ref(r, k, v, w, u, S0)
+        assert y.dtype == yr.dtype and y.transpose(1, 2).is_contiguous()
+        ytol = 1e-4 if dtype == torch.float32 else 1e-2
+        assert float((y.float() - yr.float()).abs().max()) <= \
+            ytol * max(1.0, float(yr.float().abs().max()))
+        assert float((S - Sr).abs().max()) <= \
+            1e-4 * max(1.0, float(Sr.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_bit_exact_vs_plain_version_on_the_card(cuda_device,
+                                                             dtype):
+    g = torch.Generator().manual_seed(3)
+    for B, T, C in [(1, 1, 2560), (2, 200, 300), (3, 64, 2560)]:
+        a = (torch.rand(B, T, C, generator=g) * 0.4 + 0.5).to(cuda_device,
+                                                              dtype)
+        b = (torch.randn(B, T, C, generator=g) * 0.1).to(cuda_device, dtype)
+        before = rglru_scan.launches
+        h = rglru_scan(a, b)
+        torch.cuda.synchronize()
+        assert rglru_scan.launches == before + 1
+        assert torch.equal(h, rglru_ref(a, b)), (B, T, C)

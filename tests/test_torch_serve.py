@@ -109,6 +109,37 @@ def test_launch_serve_on_the_cpu():
                       "--tp", "2"])
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_launch_serve_recurrent_on_the_cpu(arch, capsys):
+    """The recurrent families through the launcher; on the CPU no kernel
+    launches (the plain versions run)."""
+    toks = tlaunch.main(["--arch", arch, "--device", "cpu", "--smoke",
+                         "--batch", "2", "--prompt-len", "8",
+                         "--new-tokens", "4"])
+    assert tuple(toks.shape) == (2, 4) and toks.dtype == torch.int32
+    out = capsys.readouterr().out
+    zero = "{'flash_attention': 0, 'wkv': 0, 'rglru': 0}"
+    assert f"in the prefill {zero}, in one decode step {zero}" in out
+
+
+def test_recurrent_entry_points_need_a_card(monkeypatch):
+    """As the dense family's: the card unless the CPU is asked for; the
+    continuous batcher serves the dense family only, as in JAX."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        tb = tbuild(t_smoke(arch))
+        tp = tb.init_params(0, device="cpu")
+        for call in (lambda: tb.init_params(0),
+                     lambda: tb.init_decode_state(1, 8),
+                     lambda: tserve.generate(tb, tp, np.zeros((1, 4),
+                                                              np.int32),
+                                             max_new=2, max_len=8)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        with pytest.raises(NotImplementedError, match="dense family"):
+            tsched.ContinuousBatcher(tb, tp, device="cpu")
+
+
 def test_entry_points_need_a_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tb = tbuild(t_smoke("qwen3-0.6b"))
