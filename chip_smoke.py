@@ -8,7 +8,9 @@ Phases (each prints a line; any failure exits non-zero):
 1. card     — ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build    — nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` at once
               (one nvcc each, in parallel); ptxas registers / spills / shared
-              memory per instantiation used.
+              memory per instantiation used; the count of ``HGMMA``
+              (wgmma) instructions in the bf16 attention libraries
+              (``cuobjdump --dump-sass``), which must not be 0.
 3. goldens  — the 20 RUN_GOLDEN cells through ``repro_torch.api.run`` on the
               ``cuda`` executor, bit for bit; one launch per cell.
 4. smoke    — the Figure 2 ``--smoke`` grid swept with the ``cuda`` and the
@@ -20,14 +22,15 @@ Phases (each prints a line; any failure exits non-zero):
               plain version on the same groups, compared and timed.
 6. tune     — 4,096 EEMT lanes (256 SLA points x 16 bandwidth schedules) in
               one launch: kernel vs plain on every lane, times, bound, memory.
-7. flash    — the flash-attention kernel vs its plain version on the card at
-              qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T 128/384/
-              2048, causal or not, window 0/256, bf16/f32, with/without
-              LSE); times against bound, plain version and
-              ``scaled_dot_product_attention``; T = 32,768 checked on its
-              last 256 query rows; then recurrentgemma-2b's heads (MQA
-              10/1 of 256; B 1/8, T 200/2048, window 0/2048, bf16/f32),
-              timed at B 1/8 x T 2048.
+7. flash    — the flash-attention kernels vs their plain version on the
+              card at qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T
+              128/384/2048, causal or not, window 0/256, bf16 (wgmma
+              kernel) / f32 (FMA kernel), with/without LSE); times against
+              bound, plain version and ``scaled_dot_product_attention``;
+              T = 32,768 checked on its last 256 query rows; then
+              recurrentgemma-2b's heads (MQA 10/1 of 256; B 1/8, T 200/
+              2048, window 0/2048, bf16/f32), timed at B 1/8 x T 2048; the
+              f32 kernel timed at B 1 x T 2048.
 8. lm golden — full-width qwen3-0.6b in float32 (TF32 off) through
               ``repro_torch.serve`` against ``tests/torch_goldens/
               lm_qwen3_0_6b.json`` (JAX on the CPU): 16 greedy tokens exact,
@@ -38,11 +41,12 @@ Phases (each prints a line; any failure exits non-zero):
               64 requests of 128-2,048 prompt tokens: all finish, one kernel
               launch per layer per prefill.
 
-10. flash bwd — the flash-attention backward kernel vs its plain version
-              on the card (qwen3 and qwen2 heads; B 1/2; T 128/200/384/1000/
-              2048; causal or not; window 0/256; bf16/f32); times against
-              bound, plain version and the backward of
-              ``scaled_dot_product_attention``.
+10. flash bwd — the flash-attention backward kernels vs their plain
+              version on the card (qwen3 and qwen2 heads; B 1/2; T 128/200/
+              384/1000/2048; causal or not; window 0/256; bf16 (wgmma) /
+              f32 (FMA)); times against bound, plain version and the
+              backward of ``scaled_dot_product_attention``, bf16 at B 1/8
+              and f32 at B 1 x T 2048.
 11. train golden — full-width qwen3-0.6b in float32 (TF32 off): two
               ``make_train_step`` steps against ``tests/torch_goldens/
               train_qwen3_0_6b.json`` (JAX on the CPU): loss, ce, grad norm,
@@ -70,7 +74,10 @@ Phases (each prints a line; any failure exits non-zero):
               each against the float32 prefill of the same weights.
 
 Phases 5, 6, 9, 12 and 16 drive the main paths: each kernel's launch count
-is set to 0 just before and read just after.  The last two lines are the
+is set to 0 just before and read just after; every attention launch there
+must take the bf16 (wgmma) route.  The float32 (FMA) attention kernels'
+launches are counted over the float32 goldens' entry points (phases 8, 11
+and 15).  The last two lines are the
 kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
@@ -354,6 +361,8 @@ FLASH_FULL_T, FLASH_TAIL = 2048, 256
 FLASH_256 = (10, 1, 256)
 FLASH_256_WINDOW, FLASH_256_T = 2048, (200, 2048)
 FLASH_256_TIMED = ((1, 2048), (8, 2048))
+# The float32 (FMA) kernel's timed shape (B, T), at qwen3's heads.
+FLASH_F32_TIMED = (1, 2048)
 # Weights by position (tests/torch_goldens/make_lm_golden.py CHECK_LEAVES).
 GOLDEN_WEIGHT_CHECK = {"embed": (0, slice(0, 4)),
                        "blocks/attn/wq": (27, -1, slice(-4, None)),
@@ -371,20 +380,55 @@ CB_PROMPT = (128, 2048)     # prompt lengths, uniform, numpy seed 2
 SERVE_BF16_TOL = 0.05
 
 
-def flash_bound(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes):
+def flash_bound(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes,
+                ops_per_s=BF16_TENSOR_OPS_PER_S):
     """(bound_ms, bound_by, flops, bytes) of one attention call: 4 hd
-    operations per reachable (query, key) pair and head at the tensor
-    cores' bf16 rate; q, k, v read and o written once."""
+    operations per reachable (query, key) pair and head at ``ops_per_s``
+    (the tensor cores' bf16 rate; float32's 67 TFLOP/s for float32
+    inputs); q, k, v read and o written once."""
     if causal:
         pairs = sum(min(q + 1, Tk) for q in range(Tq))
     else:
         pairs = Tq * Tk
     flops = 4 * hd * H * B * pairs
     nbytes = elem_bytes * hd * B * (2 * H * Tq + 2 * Hkv * Tk)
-    t_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
+
+
+def reset_attention_counts():
+    """Sets the attention kernels' launch counts, in all and by route, to 0
+    (just before a main path runs)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    for fn in (flash_attention_bhtd, flash_attention_bwd_bhtd):
+        fn.launches = 0
+        fn.route_launches = {"wgmma": 0, "fma": 0}
+
+
+def check_bf16_route(where):
+    """Every attention launch since :func:`reset_attention_counts` took the
+    bf16 (wgmma) route."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    for fn in (flash_attention_bhtd, flash_attention_bwd_bhtd):
+        check(fn.route_launches == {"wgmma": fn.launches, "fma": 0},
+              f"{where}: {fn.__name__} took routes {fn.route_launches} "
+              f"in {fn.launches} launches")
+
+
+def fma_launches():
+    """(forward, backward) launches of the float32 (FMA) attention kernels
+    so far."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    return (flash_attention_bhtd.route_launches["fma"],
+            flash_attention_bwd_bhtd.route_launches["fma"])
 
 
 def phase_flash(dev) -> dict:
@@ -453,7 +497,8 @@ def phase_flash(dev) -> dict:
         check(err <= FLASH_TOL["bfloat16"],
               f"flash attention B={B} T={T}: max |err| {err} ({rows})")
         plain = "not run" if plain_ms is None else f"{plain_ms:.3f} ms"
-        print(f"[7 flash] qwen3 bf16 causal B={B} T={T}: kernel {ms:.4f} ms "
+        print(f"[7 flash] qwen3 bf16 (wgmma kernel) causal B={B} T={T}: "
+              f"kernel {ms:.4f} ms "
               f"(median of 5); bound {bound_ms:.4f} ms by {bound_by} "
               f"({flops} FLOP, {nbytes} B); x bound {ms / bound_ms:.1f}; "
               f"plain {plain}; scaled_dot_product_attention {lib_ms:.4f} "
@@ -498,16 +543,40 @@ def phase_flash(dev) -> dict:
             q, k, v, is_causal=True, enable_gqa=True), 5)
         bound_ms, bound_by, flops, nbytes = flash_bound(B, H, Hkv, hd, T, T,
                                                         True, 2)
-        print(f"[7 flash] recurrentgemma hd 256 bf16 causal window {w} "
+        print(f"[7 flash] recurrentgemma hd 256 bf16 (wgmma kernel) causal "
+              f"window {w} "
               f"B={B} T={T}: kernel {ms:.4f} ms (median of 5); bound "
               f"{bound_ms:.4f} ms by {bound_by} ({flops} FLOP, {nbytes} "
               f"B); x bound {ms / bound_ms:.1f}; plain {plain_ms:.3f} ms; "
               f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
         del q, k, v
+
+    # the float32 (FMA) kernel at qwen3's heads
+    H, Hkv, hd = FLASH_HEADS["qwen3"]
+    B, T = FLASH_F32_TIMED
+    q, k, v = [torch.randn(B, T, h, hd, generator=g).to(dev).transpose(1, 2)
+               for h in (H, Hkv, Hkv)]
+    ms = time_cuda(lambda: flash_attention_bhtd(q, k, v), 5)
+    plain_ms = time_cuda(lambda: attention_ref(q, k, v), 5)
+    lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 5)
+    bound_ms, bound_by, flops, nbytes = flash_bound(
+        B, H, Hkv, hd, T, T, True, 4, F32_OPS_PER_S)
+    print(f"[7 flash] qwen3 f32 (FMA kernel) causal B={B} T={T}: kernel "
+          f"{ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
+          f"{bound_by} at the 67 TFLOP/s float32 rate ({flops} FLOP, "
+          f"{nbytes} B); x bound {ms / bound_ms:.1f}; plain "
+          f"{plain_ms:.3f} ms; scaled_dot_product_attention {lib_ms:.4f} ms",
+          flush=True)
+    f32 = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=max(worst["float32"], worst256["float32"]))
+    del q, k, v
     torch.cuda.empty_cache()
     res = dict(out[(GEN_BATCH, GEN_PROMPT)])
-    res["max_abs_err"] = max(res["max_abs_err"], *worst256.values())
-    return res
+    res["max_abs_err"] = max(res["max_abs_err"], worst["bfloat16"],
+                             worst256["bfloat16"])
+    return {"bf16": res, "f32": f32}
 
 
 # Phase 10: the backward's cases (FLASH_HEADS; non-causal only where T is
@@ -520,6 +589,7 @@ BWD_BATCH, BWD_T = (1, 2), (128, 200, 384, 1000, 2048)
 BWD_F32_TOL = 5e-5
 BWD_BF16_TOL = 1e-2
 BWD_TIMED = ((1, 2048), (8, 2048))
+BWD_F32_TIMED = (1, 2048)
 # Phase 11: the float32 train golden's tolerances (full width and depth,
 # cuBLAS float32 against XLA on the CPU: sums in another order through 28
 # layers).  Weights are held where |g| at step 1 exceeds TRAIN_G_FLOOR of
@@ -538,16 +608,17 @@ TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL, TRAIN_BF16_GRAD_RTOL = \
     5e-3, 2e-2, 1e-1
 
 
-def bwd_bound(B, H, Hkv, hd, T, causal, elem_bytes):
+def bwd_bound(B, H, Hkv, hd, T, causal, elem_bytes,
+              ops_per_s=BF16_TENSOR_OPS_PER_S):
     """(bound_ms, bound_by, flops, bytes) of one attention backward: five
     products (s, dp, dq, dk, dv) = 10 hd operations per reachable (query,
-    key) pair and query head at the tensor cores' bf16 rate; q, k, v, o, dO
-    and lse read once and dq, dk, dv written once."""
+    key) pair and query head at ``ops_per_s`` (as :func:`flash_bound`); q,
+    k, v, o, dO and lse read once and dq, dk, dv written once."""
     pairs = T * (T + 1) // 2 if causal else T * T
     flops = 10 * hd * H * B * pairs
     nbytes = (elem_bytes * hd * B * (4 * H * T + 4 * Hkv * T)
               + 4 * B * H * T)
-    t_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
@@ -567,7 +638,7 @@ def phase_flash_bwd(dev) -> dict:
 
     g = torch.Generator().manual_seed(10)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    max_abs = 0.0
+    max_abs = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for (name, (H, Hkv, hd)), B, T, causal, window, dname in \
             itertools.product(FLASH_HEADS.items(), BWD_BATCH, BWD_T,
@@ -596,7 +667,7 @@ def phase_flash_bwd(dev) -> dict:
                       f"window={window} {dname} {gname}: max |err| "
                       f"{float(diff.max())} (of max {float(b.abs().max())})")
             worst[dname] = max(worst[dname], rel)
-            max_abs = max(max_abs, float(diff.max()))
+            max_abs[dname] = max(max_abs[dname], float(diff.max()))
         n += 1
         del q, k, v, do, o, lse, got, want
     torch.cuda.synchronize()
@@ -631,7 +702,8 @@ def phase_flash_bwd(dev) -> dict:
             lib_o, xs, do, retain_graph=True), 5)
         bound_ms, bound_by, flops, nbytes = bwd_bound(B, H, Hkv, hd, T,
                                                       True, 2)
-        print(f"[10 flash bwd] qwen3 bf16 causal B={B} T={T}: kernel "
+        print(f"[10 flash bwd] qwen3 bf16 (wgmma kernels) causal B={B} "
+              f"T={T}: kernel "
               f"{ms:.4f} ms (dq + dk/dv + delta, median of 5); bound "
               f"{bound_ms:.4f} ms by {bound_by} ({flops} FLOP, {nbytes} B); "
               f"x bound {ms / bound_ms:.1f}; plain {plain_ms:.3f} ms; "
@@ -640,8 +712,34 @@ def phase_flash_bwd(dev) -> dict:
         out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, do, o, lse, xs, lib_o
+
+    # the float32 (FMA) kernels at qwen3's heads
+    B, T = BWD_F32_TIMED
+    q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(dev)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+    o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
+    ms = time_cuda(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do), 5)
+    plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, lse, do), 5)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    lib_o = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                           enable_gqa=True)
+    lib_ms = time_cuda(lambda: torch.autograd.grad(
+        lib_o, xs, do, retain_graph=True), 5)
+    bound_ms, bound_by, flops, nbytes = bwd_bound(B, H, Hkv, hd, T, True, 4,
+                                                  F32_OPS_PER_S)
+    print(f"[10 flash bwd] qwen3 f32 (FMA kernels) causal B={B} T={T}: "
+          f"kernel {ms:.4f} ms (dq + dk/dv + delta, median of 5); bound "
+          f"{bound_ms:.4f} ms by {bound_by} at the 67 TFLOP/s float32 rate "
+          f"({flops} FLOP, {nbytes} B); x bound {ms / bound_ms:.1f}; plain "
+          f"{plain_ms:.3f} ms; scaled_dot_product_attention backward "
+          f"{lib_ms:.4f} ms", flush=True)
+    f32 = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=max_abs["float32"])
+    del q, k, v, do, o, lse, xs, lib_o
     torch.cuda.empty_cache()
-    return dict(out[(TRAIN_B, TRAIN_T)], max_abs_err=max_abs)
+    return {"bf16": dict(out[(TRAIN_B, TRAIN_T)],
+                         max_abs_err=max_abs["bfloat16"]), "f32": f32}
 
 
 def _golden_index(idx, tokens):
@@ -794,8 +892,7 @@ def phase_train(dev) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_bhtd.launches = 0
-    flash_attention_bwd_bhtd.launches = 0
+    reset_attention_counts()
     t0 = time.perf_counter()
     try:
         state, report = train(
@@ -808,6 +905,7 @@ def phase_train(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fa, bw = flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches
+    check_bf16_route("train")
     peak = torch.cuda.max_memory_allocated()
     check(report.steps_run == TRAIN_STEPS, f"ran {report.steps_run} steps")
     check(all(math.isfinite(x) for x in report.losses),
@@ -1070,13 +1168,14 @@ def phase_serve(dev, tree) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    flash_attention_bhtd.launches = 0
+    reset_attention_counts()
     t0 = time.perf_counter()
     toks = generate(bundle, params, prompt, N, T + N, device=dev,
                     executor="cuda")
     torch.cuda.synchronize()
     gen_wall = time.perf_counter() - t0
     gen_launches = flash_attention_bhtd.launches
+    check_bf16_route("generate")
     gen_peak = torch.cuda.max_memory_allocated()
     check(tuple(toks.shape) == (B, N), f"generate returned {toks.shape}")
     check(gen_launches == cfg.num_layers,
@@ -1163,7 +1262,7 @@ def phase_serve(dev, tree) -> dict:
                            device=dev, executor="cuda")
     for r in reqs:
         cb.submit(r)
-    flash_attention_bhtd.launches = 0
+    reset_attention_counts()
     trajectory = []
     t0 = time.perf_counter()
     steps = 0
@@ -1176,6 +1275,7 @@ def phase_serve(dev, tree) -> dict:
     torch.cuda.synchronize()
     cb_wall = time.perf_counter() - t0
     cb_launches = flash_attention_bhtd.launches
+    check_bf16_route("batcher")
     cb_peak = torch.cuda.max_memory_allocated()
     produced = sum(len(r.out) for r in reqs)
     check(all(r.done for r in reqs), "not every request finished")
@@ -1569,6 +1669,7 @@ def phase_recurrent_serve(dev, arch) -> dict:
     # generate: the main path, launches counted from 0
     for fn in KERNELS.values():
         fn.launches = 0
+    reset_attention_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1577,6 +1678,7 @@ def phase_recurrent_serve(dev, arch) -> dict:
     torch.cuda.synchronize()
     gen_wall = time.perf_counter() - t0
     gen_launches = launch_counts()
+    check_bf16_route(f"{arch} generate")
     gen_peak = torch.cuda.max_memory_allocated()
     check(tuple(toks.shape) == (B, N), f"generate returned {toks.shape}")
     want_gen = {k: want_prefill[k] + (N - 1) * want_decode[k]
@@ -1716,6 +1818,8 @@ def smoke(dev) -> int:
     build.load_tick_loop()
     build.load_flash_attention()
     build.load_flash_attention_bwd()
+    build.load_flash_attention_sm90()
+    build.load_flash_attention_bwd_sm90()
     build.load_wkv()
     build.load_rglru()
     print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
@@ -1724,15 +1828,30 @@ def smoke(dev) -> int:
             logs["flash_attention.cu"]).items():
         inst = build.flash_attention_instance(name)
         check(inst is not None, f"unexpected entry {name}")
-        print(f"[2 build] flash_attention {inst[0]} hd={inst[1]}: {line}; "
-              f"{fa.smem_bytes(inst[1])} B dynamic shared memory")
+        print(f"[2 build] flash_attention.cu {inst[0]} hd={inst[1]}: "
+              f"{line}; {fa.smem_bytes(inst[1])} B dynamic shared memory")
     for name, line in build.ptxas_report(
             logs["flash_attention_bwd.cu"]).items():
         inst = build.flash_attention_bwd_instance(name)
         check(inst is not None, f"unexpected entry {name}")
         smem = fa_bwd.smem_bytes(inst[2])[inst[0] == "dkdv"]
-        print(f"[2 build] flash_attention_bwd {inst[0]} {inst[1]} "
+        print(f"[2 build] flash_attention_bwd.cu {inst[0]} {inst[1]} "
               f"hd={inst[2]}: {line}; {smem} B dynamic shared memory")
+    for src in ("flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu"):
+        for name, line in build.ptxas_report(logs[src]).items():
+            inst = build.flash_attention_sm90_instance(name)
+            check(inst is not None, f"unexpected entry {name}")
+            smem = (fa.sm90_smem_bytes(inst[1]) if inst[0] == "fwd" else
+                    fa_bwd.sm90_smem_bytes(inst[1])[inst[0] == "dkdv"])
+            print(f"[2 build] {src} {inst[0]} bf16 hd={inst[1]}: {line}; "
+                  f"{smem} B dynamic shared memory")
+        hgmma = build.hgmma_count(src)
+        check(hgmma != 0, f"{src}: no HGMMA instruction in its library")
+        print(f"[2 build] {src}: "
+              + ("cuobjdump not in the toolkit, HGMMA not counted"
+                 if hgmma is None else
+                 f"{hgmma} HGMMA (wgmma) instructions in its SASS"),
+              flush=True)
     for name, line in build.ptxas_report(logs["wkv.cu"]).items():
         inst = build.wkv_instance(name)
         check(inst is not None, f"unexpected entry {name}")
@@ -1907,16 +2026,28 @@ def smoke(dev) -> int:
           f"card after phases 1-6", flush=True)
     flash = phase_flash(dev)
     tree = random_qwen3_params()
-    phase_lm_golden(dev, tree)
+    # the float32 (FMA) attention kernels' launches over the float32
+    # goldens' entry points (generate, the train step): phases 8, 11, 15
+    fma = [0, 0]
+
+    def count_fma(phase, *args):
+        before = fma_launches()
+        phase(*args)
+        for i, (a, b) in enumerate(zip(before, fma_launches())):
+            fma[i] += b - a
+
+    count_fma(phase_lm_golden, dev, tree)
     serve = phase_serve(dev, tree)
     bwd = phase_flash_bwd(dev)
-    phase_train_golden(dev, tree)
+    count_fma(phase_train_golden, dev, tree)
     del tree
     trained = phase_train(dev)
     wkv = phase_wkv(dev)
     rglru = phase_rglru(dev)
     for arch in RECURRENT_GOLDENS:
-        phase_recurrent_golden(dev, arch)
+        count_fma(phase_recurrent_golden, dev, arch)
+    check(all(fma), f"the float32 goldens launched the FMA attention kernels "
+                    f"{fma[0]} (forward) and {fma[1]} (backward) times")
     rserve = {arch: phase_recurrent_serve(dev, arch)
               for arch in RECURRENT_SERVE}
 
@@ -1928,22 +2059,30 @@ def smoke(dev) -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
         "launches": serve["launches"] + trained["fa_launches"]
         + rserve["recurrentgemma-2b"]["launches"]["flash_attention"],
-        "max_abs_err": max(flash["max_abs_err"], serve["max_abs_err"]),
-        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}, {
+        "max_abs_err": max(flash["bf16"]["max_abs_err"],
+                           serve["max_abs_err"]),
+        "ms": flash["bf16"]["ms"], "plain_ms": flash["bf16"]["plain_ms"],
+        "bound_ms": flash["bf16"]["bound_ms"],
+        "bound_by": flash["bf16"]["bound_by"],
+        "library_ms": flash["bf16"]["library_ms"]}, {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
+        "launches": fma[0], **flash["f32"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "replaces":
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
+        "launches": trained["bwd_launches"], **bwd["bf16"]}, {
+        "name": "flash_attention_bwd_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces":
             "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
-        "launches": trained["bwd_launches"],
-        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}, {
+        "launches": fma[1], **bwd["f32"]}, {
         "name": "wkv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:68",

@@ -8,16 +8,22 @@ named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is loaded as it is.  Nothing builds at import.
 
 Each source has its own flags (:data:`SOURCE_FLAGS`), its own library and
-its own build log.  The tick loop's flags are part of its numerics:
-``-fmad=false`` stops nvcc from contracting ``a*b+c`` into one fused
-multiply-add (the JAX reference rounds the product first); ``-ftz=true``
-flushes float32 subnormals to zero, as XLA does on the CPU and the TPU.
-The RG-LRU scan is built with ``-fmad=false`` too, and without the flush:
-it equals its plain version (eager PyTorch on the card, which keeps IEEE
-subnormals) bit for bit.  The attention kernels (forward and backward) and
-the WKV recurrence claim no bit-exactness, only a stated tolerance against
-their plain versions, so they keep nvcc's default contraction and IEEE
-subnormals.  No source gets ``--use_fast_math`` (correctly rounded
+its own build log; the shared header ``csrc/sm90.cuh`` (wgmma, TMA and
+mbarrier helpers of the bf16 attention kernels) is part of every source's
+hash.  Those kernels encode their TMA tensor maps on the host with
+``cuTensorMapEncodeTiled``, looked up at run time with
+``cudaGetDriverEntryPoint``, so no library links ``-lcuda``.
+
+The tick loop's flags are part of its numerics: ``-fmad=false`` stops
+nvcc from contracting ``a*b+c`` into one fused multiply-add (the JAX
+reference rounds the product first); ``-ftz=true`` flushes float32
+subnormals to zero, as XLA does on the CPU and the TPU.  The RG-LRU scan
+is built with ``-fmad=false`` too, and without the flush: it equals its
+plain version (eager PyTorch on the card, which keeps IEEE subnormals) bit
+for bit.  The attention kernels (forward and backward, float32 and bf16)
+and the WKV recurrence claim no bit-exactness, only a stated tolerance
+against their plain versions, so they keep nvcc's default contraction and
+IEEE subnormals.  No source gets ``--use_fast_math`` (correctly rounded
 division and ``expf`` / ``logf``, as the references have).
 """
 from __future__ import annotations
@@ -46,6 +52,8 @@ SOURCE_FLAGS = {
     "tick_loop.cu": NVCC_FLAGS,
     "flash_attention.cu": _BASE_FLAGS,
     "flash_attention_bwd.cu": _BASE_FLAGS,
+    "flash_attention_sm90.cu": _BASE_FLAGS,
+    "flash_attention_bwd_sm90.cu": _BASE_FLAGS,
     "wkv.cu": _BASE_FLAGS,
     "rglru.cu": _BASE_FLAGS + ("-fmad=false",),
 }
@@ -74,7 +82,8 @@ def build(source: str) -> tuple[Path, str]:
     return (library path, nvcc's output including ``-Xptxas -v``)."""
     src = CSRC / source
     flags = SOURCE_FLAGS[source]
-    text = src.read_bytes()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     stem = f"{src.stem}-{digest[:16]}"
     lib = BUILD_DIR / f"{stem}.so"
@@ -146,18 +155,19 @@ def load_tick_loop() -> ctypes.CDLL:
 
 
 def flash_attention_instance(name: str):
-    """(dtype, hd) of a mangled ``flash_fwd_kernel`` entry name: dtype
-    ``"float32"`` or ``"bfloat16"``."""
+    """(dtype, hd) of a mangled ``flash_fwd_kernel`` entry name (the
+    float32 path): dtype ``"float32"`` or ``"bfloat16"``."""
     m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
     return None if m is None else (
         "float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
 
 
 def load_flash_attention() -> ctypes.CDLL:
-    """The flash-attention library, built and loaded once per process."""
+    """The flash-attention library (float32 path), built and loaded once
+    per process."""
     lib, _ = _load("flash_attention.cu")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p])
@@ -179,11 +189,11 @@ def flash_attention_bwd_instance(name: str):
 
 
 def load_flash_attention_bwd() -> ctypes.CDLL:
-    """The flash-attention backward library, built and loaded once per
-    process."""
+    """The flash-attention backward library (float32 path), built and
+    loaded once per process."""
     lib, _ = _load("flash_attention_bwd.cu")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p])
@@ -191,6 +201,61 @@ def load_flash_attention_bwd() -> ctypes.CDLL:
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def flash_attention_sm90_instance(name: str):
+    """(kernel, hd) of a mangled entry name of the bf16 attention kernels:
+    kernel ``"fwd"``, ``"dq"`` or ``"dkdv"``."""
+    m = re.search(r"flash_(fwd|bwd_dq|bwd_dkdv)_sm90_kernelILi(\d+)E", name)
+    return None if m is None else (m.group(1).replace("bwd_", ""),
+                                   int(m.group(2)))
+
+
+def load_flash_attention_sm90() -> ctypes.CDLL:
+    """The bf16 flash-attention forward library (wgmma + TMA), built and
+    loaded once per process."""
+    lib, _ = _load("flash_attention_sm90.cu")
+    fn = lib.flash_attention_sm90_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_flash_attention_bwd_sm90() -> ctypes.CDLL:
+    """The bf16 flash-attention backward library (wgmma + TMA), built and
+    loaded once per process."""
+    lib, _ = _load("flash_attention_bwd_sm90.cu")
+    fn = lib.flash_attention_bwd_sm90_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def hgmma_count(source: str):
+    """How many ``HGMMA`` (wgmma) instructions the built library of
+    ``source`` holds, from ``cuobjdump --dump-sass``; None where the
+    toolkit has no ``cuobjdump``."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    path, _ = build(source)
+    proc = subprocess.run([str(tool), "--dump-sass", str(path)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {path}: {proc.stderr}")
+    return sum("HGMMA." in line for line in proc.stdout.splitlines())
 
 
 def wkv_instance(name: str):

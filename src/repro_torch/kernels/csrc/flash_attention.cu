@@ -1,8 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), hand-written CUDA.
+// Flash-attention forward for Hopper (sm_90a), hand-written CUDA: the
+// float32 path.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::flash_attention_bhtd
-// (_fa_kernel; pl.pallas_call at :130).  Same function: scores in float32
+// (_fa_kernel; pl.pallas_call at :130) for float32 inputs; bf16 inputs go to
+// flash_attention_sm90.cu (wgmma on the tensor cores, which would round
+// float32 to TF32).  Same function: scores in float32
 // with scale 1/sqrt(hd); masked entries (causal: key > query; window w > 0:
 // key <= query - w; keys past Tk) set to -1e30; an online max and
 // denominator per query row; o = acc / max(l, 1e-30) rounded to the input
@@ -18,14 +21,15 @@
 // so it is bound by operations, and more so at longer T (T = 32,768:
 // 4.40 TFLOP, 4.45 ms).
 //
-// What this simple design does about that bound.  It is a first, correct
-// kernel, not a fast one: every product is a float32 FMA on the CUDA cores
-// (67 TFLOP/s peak, not the tensor cores), so at best it reaches ~1/15 of
-// the bound's rate; mma/wgmma with TMA is later work.  It keeps what the TPU
-// kernel keeps out of device memory: the [Tq, Tk] scores and probabilities
-// live only in registers and shared memory, q, k and v are read once per
-// block, and key tiles that the causal or window mask rules out for every
-// row of the block are never loaded (about half the work at causal).
+// What this simple design does about that bound.  It is a correct kernel
+// for float32, not a fast one: every product is a float32 FMA on the CUDA
+// cores (67 TFLOP/s peak), so at best it reaches ~1/15 of the bf16 bound's
+// rate; in float32 that rate is the one its inputs allow.  It keeps what
+// the TPU kernel keeps out of device memory: the [Tq, Tk] scores and
+// probabilities live only in registers and shared memory, q, k and v are
+// read once per block, and key tiles that the causal or window mask rules
+// out for every row of the block are never loaded (about half the work at
+// causal).
 //
 // Head widths 64 (qwen2), 128 (qwen3) and 256 (recurrentgemma's MQA, which
 // doubles the output accumulators to 128 floats a thread and the shared
@@ -41,7 +45,6 @@
 // takes element strides for q, k, v and o (the innermost dimension must be
 // contiguous), so the model's [B, T, H, hd] layout and a key/value view of a
 // longer cache need no copy.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,22 +66,7 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
   out[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Rows [row0, row0 + R) of one (batch, head) slice into shared memory as
 // float32 with row pitch ld; rows at or past n_rows are zero.  16-byte loads.
@@ -277,34 +265,25 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64, 128 or 256.  strides: 12 element
-// strides (batch, head, time) of q, k, v, o in that order.  lse may be null.
-// Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for a
-// dtype / hd the kernel has no instantiation for.
-int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
+// float32 q, k, v, o; hd 64, 128 or 256.  strides: 12 element strides
+// (batch, head, time) of q, k, v, o in that order.  lse may be null.
+// Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for an hd
+// the kernel has no instantiation for.
+int flash_attention_launch(int hd, const void* q, const void* k,
                            const void* v, void* o, float* lse, int B, int H,
                            int Hkv, int Tq, int Tk, const long long* strides,
                            int causal, int window, float scale,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
+  if (hd == 64)
     return launch<float, 64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
                              causal, window, scale, s);
-  if (dtype == 0 && hd == 128)
+  if (hd == 128)
     return launch<float, 128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
                               causal, window, scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk,
-                                     strides, causal, window, scale, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk,
-                                      strides, causal, window, scale, s);
-  if (dtype == 0 && hd == 256)
+  if (hd == 256)
     return launch<float, 256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
                               causal, window, scale, s);
-  if (dtype == 1 && hd == 256)
-    return launch<__nv_bfloat16, 256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk,
-                                      strides, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a), hand-written CUDA.
+// Flash-attention backward for Hopper (sm_90a), hand-written CUDA: the
+// float32 path.
 //
 // Replaces the JAX package's Pallas TPU kernels
 // src/repro/kernels/flash_attention/flash_attention_bwd.py::
 // flash_attention_bwd_bhtd (_dq_kernel, pl.pallas_call at :151, and
-// _dkdv_kernel, at :172).  Same function, from the forward's saved
+// _dkdv_kernel, at :172) for float32 inputs; bf16 inputs go to
+// flash_attention_bwd_sm90.cu (wgmma on the tensor cores, which would round
+// float32 to TF32).  Same function, from the forward's saved
 // log-sum-exp: with s = q.k^T * scale (scale 1/sqrt(hd)), the forward's
 // masks (causal: key > query; window w > 0: key <= query - w; keys past Tk),
 // p = exp(s - lse) (0 where masked) and delta = rowsum(dO o o) (computed by
@@ -26,14 +29,14 @@
 // TFLOP/s, against 50.5 MB, 0.0151 ms at 3.35 TB/s (NVIDIA's H100 SXM data
 // sheet at the 700 W limit): bound by operations.
 //
-// What this simple design does about that bound.  It is a first, correct
-// kernel, not a fast one: every product is a float32 FMA on the CUDA cores
-// (67 TFLOP/s peak, not the tensor cores), and both kernels recompute s and
-// dp (14 * hd operations per pair, 1.4x the function's count); mma/wgmma
-// with TMA is later work.  It keeps the [Tq, Tk] scores, probabilities and
-// their gradients out of device memory, skips key (query) tiles that the
-// mask rules out for a whole block, and is deterministic: no atomics, every
-// output element is written once by one thread.
+// What this simple design does about that bound.  It is a correct kernel
+// for float32, not a fast one: every product is a float32 FMA on the CUDA
+// cores (67 TFLOP/s peak), and both kernels recompute s and dp (14 * hd
+// operations per pair, 1.4x the function's count).  It keeps the [Tq, Tk]
+// scores, probabilities and their gradients out of device memory, skips
+// key (query) tiles that the mask rules out for a whole block, and is
+// deterministic: no atomics, every output element is written once by one
+// thread.
 //
 // Layout.  Two kernels on the same stream, 128 threads each.
 //   dq:   one block per (64-row query tile, query head, batch row); a loop
@@ -51,7 +54,6 @@
 // element strides for q, k, v, dO, dq, dk and dv (the innermost dimension
 // contiguous), so the model's [B, T, H, hd] layout needs no copy; lse and
 // delta are contiguous [B, H, Tq] float32.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,22 +85,7 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
   out[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Rows [row0, row0 + R) of one (batch, head) slice into shared memory as
 // float32 with row pitch ld; rows at or past n_rows are zero.  16-byte loads.
@@ -450,34 +437,26 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  strides: 21 element
+// float32 q, k, v, dO, dq, dk, dv; hd 64 or 128.  strides: 21 element
 // strides (batch, head, time) of q, k, v, dO, dq, dk, dv in that order.
 // lse and delta: contiguous [B, H, Tq] float32.  Launches the dq kernel and
 // then the dk/dv kernel on ``stream``.  Returns a cudaError_t (0 on
-// success); 1 (cudaErrorInvalidValue) for a dtype / hd the kernels have no
+// success); 1 (cudaErrorInvalidValue) for an hd the kernels have no
 // instantiation for.
-int flash_attention_bwd_launch(int dtype, int hd, const void* q,
-                               const void* k, const void* v,
-                               const void* dout, const float* lse,
-                               const float* delta, void* dq, void* dk,
-                               void* dv, int B, int H, int Hkv, int Tq,
-                               int Tk, const long long* strides, int causal,
+int flash_attention_bwd_launch(int hd, const void* q, const void* k,
+                               const void* v, const void* dout,
+                               const float* lse, const float* delta,
+                               void* dq, void* dk, void* dv, int B, int H,
+                               int Hkv, int Tq, int Tk,
+                               const long long* strides, int causal,
                                int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
+  if (hd == 64)
     return launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                              Hkv, Tq, Tk, strides, causal, window, scale, s);
-  if (dtype == 0 && hd == 128)
+  if (hd == 128)
     return launch<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                               Hkv, Tq, Tk, strides, causal, window, scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                     B, H, Hkv, Tq, Tk, strides, causal,
-                                     window, scale, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                      B, H, Hkv, Tq, Tk, strides, causal,
-                                      window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

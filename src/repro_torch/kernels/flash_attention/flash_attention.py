@@ -1,14 +1,18 @@
-"""Flash-attention forward: the hand-written CUDA kernel's wrapper.
+"""Flash-attention forward: the hand-written CUDA kernels' wrapper.
 
 :func:`flash_attention_bhtd` replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention_bhtd``
-(``_fa_kernel``).  The kernel is ``kernels/csrc/flash_attention.cu``, built
-by :mod:`repro_torch.kernels.build` at first use; its source note says what
-bounds it on an H100 and how it is laid out.  For tensors on the CPU the
-wrapper computes the kernel's plain version,
+(``_fa_kernel``).  Two kernels compute it, chosen by the input type
+(:func:`route`): bf16 goes to ``kernels/csrc/flash_attention_sm90.cu``
+(``wgmma`` on the tensor cores, tiles brought in by TMA), float32 to
+``kernels/csrc/flash_attention.cu`` (float32 FMAs: ``wgmma`` would round
+float32 to TF32).  Both are built by :mod:`repro_torch.kernels.build` at
+first use; their source notes say what bounds them on an H100 and how
+they are laid out.  For tensors on the CPU the wrapper computes the
+kernels' plain version,
 :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`; for CUDA
-tensors it launches the kernel on the current stream without synchronising,
-or raises.
+tensors it launches one kernel on the current stream without
+synchronising, or raises.
 """
 from __future__ import annotations
 
@@ -25,11 +29,59 @@ HEAD_DIMS = (64, 128, 256)
 
 
 def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block (csrc/flash_attention.cu,
-    ``smem_floats``): the q tile (64 x hd+1), a k tile (32 x hd+1), a v tile
-    (32 x hd) and the probabilities (64 x 33), as float32."""
+    """Dynamic shared memory of one block of the float32 kernel
+    (csrc/flash_attention.cu, ``smem_floats``): the q tile (64 x hd+1), a k
+    tile (32 x hd+1), a v tile (32 x hd) and the probabilities (64 x 33),
+    as float32."""
     return 4 * (64 * (hd + 1) + 32 * (hd + 1) + 32 * hd + 64 * 33)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+#: The bf16 kernel's query rows a block (two warpgroups of 64).
+SM90_BQ = 128
+
+
+def sm90_bk(hd: int) -> int:
+    """Key rows of one stage of the bf16 kernel (``Fwd<HD>::kBK``)."""
+    return 64 if hd == 256 else 128
+
+
+def sm90_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block of the bf16 kernel
+    (csrc/flash_attention_sm90.cu, ``Fwd<HD>::kSmem``): the bf16 Q tile, 2
+    stages of K and V tiles, and 1,024 bytes to align the base for the
+    128-byte swizzle."""
+    return 2 * hd * (SM90_BQ + 4 * sm90_bk(hd)) + 1024
+
+
+def route(dtype, hd: int, head_dims=HEAD_DIMS) -> str:
+    """Which kernel takes inputs of ``dtype`` and head width ``hd``:
+    ``"wgmma"`` (bf16) or ``"fma"`` (float32).  A choice by input type, made
+    on the host: a kernel that fails still raises."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the flash attention kernels take float32 or "
+                         f"bfloat16, got {dtype}")
+    if hd not in head_dims:
+        raise ValueError(f"the flash attention kernels take hd in "
+                         f"{head_dims}, got {hd}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def tma_geometry(x, box_rows: int) -> list[int]:
+    """The TMA tensor map the bf16 kernels build over a [B, N, T, hd] view
+    (the kernel layout; N heads), as 9 integers: dims (hd, T, N, B), the
+    byte strides of T, N and B, and the box (64 columns x ``box_rows``
+    rows).  The map's T is the view's own, so a ``cache[:, :Tk]`` slice
+    ends at Tk and TMA reads zeros past it.  Raises for a layout TMA
+    cannot address (see :func:`kernel_layout_ok`)."""
+    _check_kernel_layout("a TMA operand", x)
+    B, N, T, hd = x.shape
+    es = x.element_size()
+    return [hd, T, N, B, x.stride(2) * es, x.stride(1) * es,
+            x.stride(0) * es, 64, box_rows]
+
+
+def _longlongs(values):
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def _check(q, k, v):
@@ -74,8 +126,9 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     is 1: a ``transpose(1, 2)`` view of the model's [B,T,H,hd] tensors is
     read in place, and ``o`` is allocated with q's strides.
 
-    CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
-    (float32 or bfloat16, hd 64, 128 or 256), or an exception."""
+    CPU tensors: the plain version.  CUDA tensors: one launch of the bf16
+    (``wgmma``) or the float32 (FMA) kernel, hd 64, 128 or 256, or an
+    exception."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise ValueError("flash_attention_bhtd is forward only; take "
@@ -90,12 +143,7 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                          f"version, on the CPU), got {q.device}")
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the flash attention kernel takes float32 or "
-                         f"bfloat16, got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernel takes hd in "
-                         f"{HEAD_DIMS}, got {hd}")
+    kernel = route(q.dtype, hd)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_kernel_layout(name, x)
     o = torch.empty_like(q)
@@ -105,24 +153,40 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     if B and Tq:
         from .. import build
 
-        lib = build.load_flash_attention()
-        strides = (ctypes.c_longlong * 12)(*[
-            x.stride(i) for x in (q, k, v, o) for i in (0, 1, 2)])
+        scale = float(1.0 / math.sqrt(hd))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attention_launch(
-                _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(),
-                None if lse is None else lse.data_ptr(), B, H, Hkv, Tq, Tk,
-                strides, int(bool(causal)), int(window),
-                float(1.0 / math.sqrt(hd)), stream)
+            lse_ptr = None if lse is None else lse.data_ptr()
+            if kernel == "wgmma":
+                lib = build.load_flash_attention_sm90()
+                bk = sm90_bk(hd)
+                geom = _longlongs(tma_geometry(q, SM90_BQ)
+                                  + tma_geometry(k, bk) + tma_geometry(v, bk))
+                err = lib.flash_attention_sm90_launch(
+                    hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), lse_ptr, B, H, Hkv, Tq, Tk, geom,
+                    _longlongs([o.stride(i) for i in (0, 1, 2)]),
+                    int(bool(causal)), int(window), scale, stream)
+                name = "flash_attention_sm90"
+            else:
+                lib = build.load_flash_attention()
+                strides = _longlongs([x.stride(i) for x in (q, k, v, o)
+                                      for i in (0, 1, 2)])
+                err = lib.flash_attention_launch(
+                    hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), lse_ptr, B, H, Hkv, Tq, Tk, strides,
+                    int(bool(causal)), int(window), scale, stream)
+                name = "flash_attention"
         if err != 0:
             raise RuntimeError(
                 f"flash attention kernel launch failed: "
-                f"{build.cuda_error_string(lib, err, 'flash_attention')}")
+                f"{build.cuda_error_string(lib, err, name)}")
         flash_attention_bhtd.launches += 1
+        flash_attention_bhtd.route_launches[kernel] += 1
     return (o, lse) if return_lse else o
 
 
-#: Kernel launches since the last reset (set to 0 to start counting).
+#: Kernel launches since the last reset (set to 0 to start counting), and
+#: the same split by route ("wgmma": bf16, "fma": float32).
 flash_attention_bhtd.launches = 0
+flash_attention_bhtd.route_launches = {"wgmma": 0, "fma": 0}

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card (``gpu`` marker; skipped without one): the
-tick loop, flash attention forward (hd 64, 128 and 256) and backward, the
-WKV recurrence and the RG-LRU scan, each against its plain version.
+tick loop, flash attention forward (hd 64, 128 and 256) and backward, each
+by both routes (bf16: wgmma; float32: FMA), the WKV recurrence and the
+RG-LRU scan, each against its plain version.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -102,6 +103,9 @@ def test_run_golden_on_the_card(cuda_device):
     assert tl.tick_loop.launches == before + len(chip_smoke.RUN_GOLDEN)
 
 
+ROUTE = {torch.float32: "fma", torch.bfloat16: "wgmma"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64),
@@ -110,31 +114,60 @@ def test_flash_attention_kernel_vs_plain_version_on_the_card(cuda_device,
                                                              dtype, H, Hkv,
                                                              hd):
     """Kernel == plain version within 2e-5 (float32) / 2e-2 (bf16), as in
-    tests/test_kernels.py, on [B,T,H,hd] views; o keeps q's strides."""
+    tests/test_kernels.py, on [B,T,H,hd] views; o keeps q's strides.  bf16
+    runs the wgmma kernel, float32 the FMA kernel.  Ragged T, Tq != Tk,
+    windows, non-causal, with and without LSE; the last case reads k and v
+    as views of a longer cache whose slots past Tk hold NaN (the kernels
+    must stop at the view, not at the storage)."""
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     g = torch.Generator().manual_seed(0)
-    for B, Tq, Tk, causal, window, lse in [(1, 128, 128, True, 0, False),
-                                           (2, 384, 384, False, 0, True),
-                                           (2, 200, 200, True, 64, True),
-                                           (1, 1000, 1000, True, 0, False),
-                                           (3, 70, 130, True, 0, True)]:
+    for B, Tq, Tk, causal, window, lse, extra in [
+            (1, 128, 128, True, 0, False, 0), (2, 384, 384, False, 0, True, 0),
+            (2, 200, 200, True, 64, True, 0),
+            (1, 1000, 1000, True, 0, False, 0),
+            (3, 70, 130, True, 0, True, 0), (3, 130, 70, True, 0, True, 0),
+            (2, 150, 150, True, 0, True, 100)]:
         q = torch.randn(B, Tq, H, hd, generator=g).to(cuda_device, dtype)
-        k = torch.randn(B, Tk, Hkv, hd, generator=g).to(cuda_device, dtype)
-        v = torch.randn(B, Tk, Hkv, hd, generator=g).to(cuda_device, dtype)
-        args = [x.transpose(1, 2) for x in (q, k, v)]
+        cache = [torch.full((B, Tk + extra, Hkv, hd), float("nan"),
+                            device=cuda_device, dtype=dtype)
+                 for _ in range(2)]
+        for c in cache:
+            c[:, :Tk] = torch.randn(B, Tk, Hkv, hd, generator=g).to(
+                cuda_device, dtype)
+        args = [q.transpose(1, 2)] + [c[:, :Tk].transpose(1, 2)
+                                      for c in cache]
         kw = dict(causal=causal, window=window, return_lse=lse)
         before = flash_attention_bhtd.launches
+        by_route = flash_attention_bhtd.route_launches[ROUTE[dtype]]
         got = flash_attention_bhtd(*args, **kw)
         torch.cuda.synchronize()
         assert flash_attention_bhtd.launches == before + 1
+        assert flash_attention_bhtd.route_launches[ROUTE[dtype]] == \
+            by_route + 1
         want = attention_ref(*args, **kw)
         if not lse:
             got, want = (got,), (want,)
         assert got[0].transpose(1, 2).is_contiguous()
         for a, b in zip(got, want):
             assert a.dtype == b.dtype
+            assert bool(torch.isfinite(a).all())
             err = float((a.float() - b.float()).abs().max())
-            assert err <= tol, (B, Tq, Tk, causal, window, err)
+            assert err <= tol, (B, Tq, Tk, causal, window, extra, err)
+
+
+def _bwd_close(a, b, dtype):
+    """float32: |a - b| <= 5e-5 + 5e-5 |b| element-wise, the reference's own
+    bound (tests/test_kernels.py:181-182, assert_allclose with atol = rtol
+    = 5e-5); bf16: within 2e-2 of the gradient's largest magnitude (one
+    rounding of each output to bf16, a relative 2^-8, plus float32 sums in
+    another order).  Returns (ok, max |a - b|)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    if dtype == torch.float32:
+        ok = bool((diff <= 5e-5 + 5e-5 * b.abs()).all())
+    else:
+        ok = float(diff.max()) <= 2e-2 * float(b.abs().max())
+    return ok, float(diff.max())
 
 
 @pytest.mark.gpu
@@ -142,33 +175,33 @@ def test_flash_attention_kernel_vs_plain_version_on_the_card(cuda_device,
 @pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64)])
 def test_flash_attention_bwd_kernel_vs_plain_version_on_the_card(
         cuda_device, dtype, H, Hkv, hd):
-    """Backward kernel == plain version from the same o and lse: float32
-    within 5e-5 (tests/test_kernels.py:181-182); bf16 within 2e-2 of each
-    gradient's largest magnitude (one rounding of each output to bf16, a
-    relative 2^-8, plus float32 sums in another order).  Ragged T, windows
-    and non-causal cases; launch count; then the autograd Function."""
-    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    """Backward kernel == plain version from the same o and lse, within
+    :func:`_bwd_close`.  Ragged T, Tq != Tk, windows and non-causal cases;
+    launch count by route; then the autograd Function."""
     g = torch.Generator().manual_seed(1)
-    for B, T, causal, window in [(1, 128, True, 0), (2, 200, True, 64),
-                                 (1, 256, False, 0), (2, 1000, True, 0),
-                                 (1, 384, False, 128)]:
+    for B, Tq, Tk, causal, window in [
+            (1, 128, 128, True, 0), (2, 200, 200, True, 64),
+            (1, 256, 256, False, 0), (2, 1000, 1000, True, 0),
+            (1, 384, 384, False, 128), (3, 70, 130, True, 0)]:
         q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(
-            cuda_device, dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+            cuda_device, dtype).transpose(1, 2)
+            for h, T in ((H, Tq), (Hkv, Tk), (Hkv, Tk), (H, Tq))]
         o, lse = flash_attention_bhtd(q, k, v, causal=causal, window=window,
                                       return_lse=True)
         before = flash_attention_bwd_bhtd.launches
+        by_route = flash_attention_bwd_bhtd.route_launches[ROUTE[dtype]]
         got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, causal=causal,
                                        window=window)
         torch.cuda.synchronize()
         assert flash_attention_bwd_bhtd.launches == before + 1
+        assert flash_attention_bwd_bhtd.route_launches[ROUTE[dtype]] == \
+            by_route + 1
         want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape
-            scale = 1.0 if dtype == torch.float32 else float(
-                b.float().abs().max())
-            err = float((a.float() - b.float()).abs().max())
-            assert err <= tol * scale, (B, T, causal, window, err, scale)
+            ok, err = _bwd_close(a, b, dtype)
+            assert ok, (B, Tq, Tk, causal, window, err)
     x = [torch.randn(2, 256, h, hd, generator=g).to(cuda_device, dtype)
          .requires_grad_() for h in (H, Hkv, Hkv)]
     out = {}
@@ -176,9 +209,26 @@ def test_flash_attention_bwd_kernel_vs_plain_version_on_the_card(
         o = flash_attention(*x, executor=ex)
         out[ex] = torch.autograd.grad(o, x, torch.ones_like(o))
     for a, b in zip(out["cuda"], out["reference"]):
-        scale = 1.0 if dtype == torch.float32 else float(
-            b.float().abs().max())
-        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+        ok, err = _bwd_close(a, b, dtype)
+        assert ok, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic_on_the_card(cuda_device,
+                                                         dtype):
+    """Two backward runs on the same inputs give bit-equal dq, dk, dv: no
+    atomics, every output element written once (GQA 16/8 and 14/2)."""
+    g = torch.Generator().manual_seed(4)
+    for B, T, H, Hkv, hd in [(2, 1000, 16, 8, 128), (1, 512, 14, 2, 64)]:
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(
+            cuda_device, dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
+        first = flash_attention_bwd_bhtd(q, k, v, o, lse, do)
+        second = flash_attention_bwd_bhtd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
