@@ -22,6 +22,21 @@ Phases (each prints a line; any failure exits non-zero):
               plain version on the same groups, compared and timed.
 6. tune     — 4,096 EEMT lanes (256 SLA points x 16 bandwidth schedules) in
               one launch: kernel vs plain on every lane, times, bound, memory.
+17. environments — run right after phase 6, on the same kernel: (a) the
+              four degenerate environments (dvfs with matched tables,
+              lossy-wan without loss or jitter, big-little with every core
+              big, logfit with a constant schedule at the nominal
+              bandwidth) over the 20 RUN_GOLDEN cells through ``api.run``,
+              bit-equal to the reference run and the goldens, one launch a
+              cell; (b) kernel vs plain on the card for lossy-wan,
+              big-little, dvfs hp race / lp capped and a fitted logfit
+              schedule x ME, EEMT (with and without scaling), EETT,
+              ismail-target and wget/curl on Chameleon x MIXED (900 s);
+              (c) the 18 ``benchmarks/fig_dvfs.py`` cells and its 24
+              GreenDataFlow cells through ``api.sweep`` against
+              ``tests/torch_goldens/fig_dvfs_full.json``, one launch per
+              group, timed; (d) phase 6's 4,096 lanes under dvfs hp race
+              (n_big 4): kernel vs plain, times, bound, memory.
 7. flash    — the flash-attention kernels vs their plain version on the
               card at qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T
               128/384/2048, causal or not, window 0/256, bf16 (wgmma
@@ -73,14 +88,18 @@ Phases (each prints a line; any failure exits non-zero):
               logits through the kernels and through the plain versions,
               each against the float32 prefill of the same weights.
 
-Phases 5, 6, 9, 12 and 16 drive the main paths: each kernel's launch count
-is set to 0 just before and read just after; every attention launch there
-must take the bf16 (wgmma) route.  The float32 (FMA) attention kernels'
-launches are counted over the float32 goldens' entry points (phases 8, 11
-and 15).  The last two lines are the
-kernel summary and
+Phases 5, 6, 9, 12, 16 and 17c drive the main paths: each kernel's launch
+count is set to 0 just before and read just after; every attention launch
+there must take the bf16 (wgmma) route.  The float32 (FMA) attention
+kernels' launches are counted over the float32 goldens' entry points
+(phases 8, 11 and 15).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
+
+    python3 chip_smoke.py --tick-loop
+
+runs phases 1-6 and 17 only (the tick loop's check after a change to it)
+and prints neither of the last two lines.
 """
 from __future__ import annotations
 
@@ -106,6 +125,11 @@ BF16_TENSOR_OPS_PER_S = 989e12
 OPS_PER_PARTITION_TICK = 22
 OPS_PER_LANE_TICK = 70
 TRACE_BYTES_PER_TICK = 28    # 7 traces x 4 B
+# ... and what an environment adds a lane-tick, by network and energy code:
+# the jitter's sinf (~20) and RTT terms, the schedule lookup; the core mix;
+# the core mix, V(f) interpolation over 16 slots, leakage and idle terms.
+ENV_NET_OPS = (0, 26, 4)       # reference, lossy-wan, logfit
+ENV_ENERGY_OPS = (0, 10, 40)   # reference, big-little, dvfs
 
 # RUN_GOLDEN of tests/test_environments.py (api.run, total_s=240, dt=0.1):
 # (completed, time_s, energy_j, avg_tput_MBps, avg_power_w).  The five cells
@@ -143,6 +167,26 @@ FIG2_TOOLS = ("wget/curl", "http/2", "ismail-min-energy", "ismail-max-tput",
 FIG2_SMOKE = (("chameleon",), ("small", "mixed"), ("wget/curl", "ME", "EEMT"))
 FIG2_TESTBEDS = ("chameleon", "cloudlab", "didclab")
 FIG2_DATASETS = ("small", "medium", "large", "mixed")
+
+# fig_dvfs axes (the port's copy of benchmarks/fig_dvfs.py and its
+# GreenDataFlow grid; tests/test_torch_environments.py holds them equal).
+FIG_DVFS_TOOLS = ("wget/curl", "ME", "EEMT")
+FIG_DVFS_FCAPS = {"uncapped": None, "2.4ghz": 2.4, "1.8ghz": 1.8}
+FIG_DVFS_CORES = {"8c": 8, "4c": 4}
+GDF_TESTBEDS = ("chameleon", "cloudlab")
+GDF_TECHS = ("hp", "lp")
+GDF_IDLES = ("race", "pace")
+
+# Phase 17b: the environments and controllers held kernel == plain, on
+# Chameleon x MIXED at fig_dvfs --smoke's 900 s.  Lossy-wan's jitter calls
+# sinf in the kernel and torch.sin in the plain version: the same libdevice
+# routine on the card, so it too is held bit for bit.
+ENV_SMOKE_CONTROLLERS = ("ME", "EEMT", "EEMT-noscaling", "EETT",
+                         "ismail-target", "wget/curl")
+ENV_SMOKE_TARGET = 400.0      # MB/s, EETT and ismail-target
+LOGFIT_LOG = (800.0, 1200.0, 400.0, 1000.0)   # MB/s, 60 s bins, rtt 40 ms
+# Phase 17d's environment.
+DVFS_TUNE = dict(tech="hp", idle="race", n_big=4)
 
 # Tune-sized sweep: 4 x 4 x 4 x 4 SLA points x 16 bandwidth schedules.
 TUNE_ALPHA = (0.05, 0.1, 0.15, 0.2)
@@ -214,7 +258,7 @@ def tune_bw_schedules():
                       .astype(np.float32), per_seg) for s in TUNE_SEEDS]
 
 
-def tune_scenarios(executor="auto"):
+def tune_scenarios(executor="auto", environment=None):
     """4,096 EEMT lanes on Chameleon x MIXED (one sweep group)."""
     from repro_torch import api
     from repro_torch.core import types
@@ -232,8 +276,123 @@ def tune_scenarios(executor="auto"):
                             profile=types.CHAMELEON, datasets=types.MIXED,
                             controller=ctrl, total_s=TUNE_TOTAL_S, dt=0.1,
                             bw_schedule=bw, executor=executor,
+                            environment=environment,
                             name=f"tune/a{a}/b{b}/d{d}/m{m}/s{s}"))
     return out
+
+
+def _tool_controller(tool):
+    from repro_torch import api
+
+    return (api.make_controller(tool, max_ch=64)
+            if tool in ("ME", "EEMT") else tool)
+
+
+def fig_dvfs_scenarios(executor="auto"):
+    """[(tool, fcap, cores), Scenario] of benchmarks/fig_dvfs.py's grid:
+    dvfs hp (n_big 4) under three frequency caps, 8 or 4 cores."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.core import types
+
+    out = []
+    for tool in FIG_DVFS_TOOLS:
+        for fcap, cap in FIG_DVFS_FCAPS.items():
+            for cores, n in FIG_DVFS_CORES.items():
+                out.append(((tool, fcap, cores), api.Scenario(
+                    profile=types.CHAMELEON, datasets=types.MIXED,
+                    cpu=dataclasses.replace(types.CpuProfile(), num_cores=n),
+                    controller=_tool_controller(tool),
+                    environment=api.make_environment("dvfs", n_big=4,
+                                                     max_freq_ghz=cap),
+                    total_s=budget_for(types.CHAMELEON),
+                    name=f"fig_dvfs/{tool}/{fcap}/{cores}",
+                    executor=executor)))
+    return out
+
+
+def greendataflow_scenarios(executor="auto"):
+    """[(testbed, tech, idle, tool), Scenario] of fig_dvfs's GreenDataFlow
+    grid: race-to-idle vs pace-to-deadline on both technologies."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    out = []
+    for tb in GDF_TESTBEDS:
+        for tech in GDF_TECHS:
+            for idle in GDF_IDLES:
+                for tool in FIG_DVFS_TOOLS:
+                    profile = types.TESTBEDS[tb]
+                    out.append(((tb, tech, idle, tool), api.Scenario(
+                        profile=profile, datasets=types.MIXED,
+                        cpu=types.CpuProfile(),
+                        controller=_tool_controller(tool),
+                        environment=api.make_environment("dvfs", tech=tech,
+                                                         idle=idle),
+                        total_s=budget_for(profile),
+                        name=f"greendataflow/{tb}/{tech}/{idle}/{tool}",
+                        executor=executor)))
+    return out
+
+
+def env_smoke_environments():
+    """Phase 17b's environments, by name; logfit is fitted from a 4-bin
+    synthetic log: one saturating 60 s transfer a bin at LOGFIT_LOG MB/s,
+    each with a 40 ms RTT."""
+    from repro_torch import api
+
+    log = [dict(start_s=k * 60.0, end_s=(k + 1) * 60.0, mb=bw * 60.0,
+                rtt_s=0.04) for k, bw in enumerate(LOGFIT_LOG)]
+    return {
+        "lossy-wan": api.make_environment("lossy-wan"),
+        "big-little": api.make_environment("big-little", n_big=4),
+        "dvfs hp race": api.make_environment("dvfs", **DVFS_TUNE),
+        "dvfs lp 1.8ghz": api.make_environment("dvfs", tech="lp",
+                                               max_freq_ghz=1.8),
+        "logfit": api.make_environment("logfit", log=log),
+    }
+
+
+def env_smoke_scenarios(executor="auto"):
+    """[(environment, controller), Scenario] of phase 17b."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    ctrls = {"ME": api.make_controller("ME", max_ch=64),
+             "EEMT": api.make_controller("EEMT", max_ch=64),
+             "EEMT-noscaling": api.make_controller("EEMT", max_ch=64,
+                                                   scaling=False),
+             "EETT": api.make_controller("EETT",
+                                         target_tput_mbps=ENV_SMOKE_TARGET),
+             "ismail-target": api.make_controller(
+                 "ismail-target", target_tput_mbps=ENV_SMOKE_TARGET),
+             "wget/curl": "wget/curl"}
+    return [((en, cn), api.Scenario(
+        profile=types.CHAMELEON, datasets=types.MIXED, controller=ctrls[cn],
+        environment=env, total_s=900.0, executor=executor,
+        name=f"env/{en}/{cn}"))
+        for en, env in env_smoke_environments().items()
+        for cn in ENV_SMOKE_CONTROLLERS]
+
+
+def degenerate_environments(profile, cpu):
+    """The four environments that must reproduce the reference physics bit
+    for bit on ``profile`` and ``cpu``."""
+    from repro_torch import api
+    from repro_torch.workloads import LogFitNetworkModel
+
+    return {
+        "dvfs matched": api.Environment(
+            network=api.DvfsNetworkModel(),
+            energy=api.DvfsEnergyModel.matched(cpu)),
+        "lossy-wan clean": api.Environment(network=api.LossyWanNetworkModel(
+            loss_rate=0.0, jitter_frac=0.0)),
+        "big-little all big": api.Environment(
+            energy=api.BigLittleEnergyModel(n_big=cpu.num_cores)),
+        "logfit constant": api.Environment(network=LogFitNetworkModel(
+            bw_mbps=(profile.bandwidth_mbps,) * 3)),
+    }
 
 
 # ---------------------------------------------------------------- helpers --
@@ -312,15 +471,20 @@ def bound_of(groups_rows, lane_ticks):
     trace written once, the parameter/state rows read and written once, and
     the bandwidth share of every executed lane-tick read once; operations
     per executed lane-tick over the float32 peak."""
+    from repro_torch.kernels import tick_loop as tl
+
     nbytes = 0
     ops = 0
     for (key, (prow, bw, f0, i0)), ticks in zip(groups_rows, lane_ticks):
         b, n = bw.shape
+        spec = tl.env_spec(key.env_code)
         nbytes += TRACE_BYTES_PER_TICK * n * b
         nbytes += 4 * (prow.numel() + 2 * f0.numel() + 2 * i0.numel())
-        nbytes += 4 * ticks
+        nbytes += 4 * ticks + 4 * len(spec.schedule)
         ops += ticks * (OPS_PER_LANE_TICK
-                        + OPS_PER_PARTITION_TICK * key.n_partitions)
+                        + OPS_PER_PARTITION_TICK * key.n_partitions
+                        + ENV_NET_OPS[spec.network]
+                        + ENV_ENERGY_OPS[spec.energy])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -328,7 +492,8 @@ def bound_of(groups_rows, lane_ticks):
 
 
 def instances_of(scenarios, dev):
-    """(P, KIND, SCALING) kernel instantiations a sweep would launch."""
+    """(P, KIND, SCALING, environment kernel?) instantiations a sweep would
+    launch."""
     from repro_torch.api import scenario as S
     from repro_torch.api.controllers import as_controller
     from repro_torch.api.environments import as_environment
@@ -340,9 +505,196 @@ def instances_of(scenarios, dev):
     merged = S._merged_partition_counts(keys)
     out = set()
     for k in keys:
-        kind, scaling = tl.kernel_spec(k.ctrl_code, k.env_code)
-        out.add((merged[k], kind, scaling))
+        kind, scaling, spec = tl.kernel_spec(k.ctrl_code, k.env_code)
+        out.add((merged[k], kind, scaling, not spec.reference))
     return out
+
+
+def degeneration_scenarios(executor="auto"):
+    """[((cell, environment), Scenario)]: every RUN_GOLDEN cell under each
+    of the four degenerate environments."""
+    import dataclasses
+
+    out = []
+    for cell, sc in golden_scenarios(executor).items():
+        for en, env in degenerate_environments(sc.profile, sc.cpu).items():
+            out.append(((cell, en), dataclasses.replace(sc, environment=env)))
+    return out
+
+
+def fig_dvfs_headline(cells, results) -> dict:
+    """Per tool at 8 cores: the energy-optimal frequency cap, its savings
+    over the uncapped ladder and its throughput cost
+    (benchmarks/fig_dvfs.py::headline)."""
+    out = {}
+    for tool in FIG_DVFS_TOOLS:
+        rows = {fcap: r for ((t, fcap, cores), _), r in zip(cells, results)
+                if t == tool and cores == "8c"}
+        best = min(rows, key=lambda k: rows[k].energy_j)
+        out[tool] = {
+            "best_fcap": best,
+            "energy_savings_pct":
+                100.0 * (1 - rows[best].energy_j / rows["uncapped"].energy_j),
+            "tput_cost_pct":
+                100.0 * (1 - rows[best].avg_tput_gbps
+                         / rows["uncapped"].avg_tput_gbps),
+        }
+    return out
+
+
+def phase_environments(dev, ref_runs) -> dict:
+    """Phase 17: the environment families through the tick kernel (see the
+    module docstring).  ``ref_runs`` are phase 3's reference-environment
+    results of the RUN_GOLDEN cells."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import tick_loop as tl
+
+    t_phase = time.perf_counter()
+
+    # (a) degenerations: bit-equal to the reference environment's runs
+    before = tl.tick_loop.launches
+    bad = []
+    cases = degeneration_scenarios(executor="cuda")
+    for (cell, en), sc in cases:
+        r = api.run(sc, device=dev)
+        got = (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
+               r.avg_power_w)
+        same = all(np.array_equal(x, y)
+                   for x, y in zip(r.metrics, ref_runs[cell].metrics))
+        if got != RUN_GOLDEN[cell] or not same:
+            bad.append((cell, en, got))
+    launched = tl.tick_loop.launches - before
+    check(not bad, f"17a degenerations differ from the reference: {bad}")
+    check(launched == len(cases),
+          f"17a: {launched} launches for {len(cases)} runs")
+    n_env = len(cases) // len(RUN_GOLDEN)
+    print(f"[17 envs] (a) {n_env} degenerate environments (dvfs matched, "
+          f"lossy-wan clean, big-little all big, logfit constant) x "
+          f"{len(RUN_GOLDEN)} RUN_GOLDEN cells on the cuda executor: "
+          f"bit-equal to the goldens and to the reference runs' 7 traces; "
+          f"{launched} launches", flush=True)
+
+    # (b) kernel == plain version on the card, per environment
+    t_plain = 0.0
+    by_env: dict = {}
+    for (en, cn), sc in env_smoke_scenarios(executor="cuda"):
+        (key, rows), = groups_on_card([sc], dev)
+        kern = call(tl.tick_loop, key, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = call(tl.tick_loop_reference, key, rows)
+        torch.cuda.synchronize()
+        t_plain += time.perf_counter() - t0
+        equal, err = compare_outputs(kern, plain)
+        check(equal, f"17b {en} / {cn}: kernel != plain version "
+                     f"(max |err| {err})")
+        by_env.setdefault(en, []).append(
+            (cn, executed_lane_ticks(kern[2], key.n_steps)))
+    for en, runs in by_env.items():
+        print(f"[17 envs] (b) {en}: kernel == plain on the card for "
+              f"{len(runs)} controllers (final rows and 7 traces bit-equal);"
+              f" executed ticks "
+              + ", ".join(f"{cn} {t}" for cn, t in runs), flush=True)
+    print(f"[17 envs] (b) plain versions {t_plain:.1f} s in all",
+          flush=True)
+
+    # (c) the fig_dvfs and GreenDataFlow grids at full size (main paths)
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "fig_dvfs_full.json")) as f:
+        gold = json.load(f)
+    grids = {"fig_dvfs": (fig_dvfs_scenarios(), ("tool", "fcap", "cores")),
+             "greendataflow": (greendataflow_scenarios(),
+                               ("testbed", "tech", "idle", "tool"))}
+    launches = {}
+    grs = []
+    for gname, (cells, axes) in grids.items():
+        g = gold[gname]
+        scs = [sc for _, sc in cells]
+        n_groups = api.group_count(scs, device=dev)
+        check(n_groups == g["group_count"],
+              f"{gname}: group_count {n_groups} != JAX's {g['group_count']}")
+        tl.tick_loop.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = api.sweep(scs, device=dev)
+        wall = time.perf_counter() - t0
+        launches[gname] = tl.tick_loop.launches
+        check(launches[gname] == n_groups,
+              f"{gname}: {launches[gname]} launches for {n_groups} groups")
+        want = {tuple(r[a] for a in axes): r for r in g["rows"]}
+        n_exact = 0
+        for (cell, _), r in zip(cells, results):
+            w = want[cell]
+            check(r.completed == w["completed"] and r.time_s == w["time_s"],
+                  f"{gname} {cell}: completed/time_s {r.completed}/"
+                  f"{r.time_s} vs {w['completed']}/{w['time_s']}")
+            for fld in ("energy_j", "avg_tput_MBps"):
+                check(abs(getattr(r, fld) - w[fld]) <= 1e-5 * abs(w[fld]),
+                      f"{gname} {cell}: {fld} {getattr(r, fld)} vs {w[fld]}")
+            n_exact += all(getattr(r, fld) == w[fld] for fld in
+                           ("time_s", "energy_j", "avg_tput_MBps",
+                            "avg_power_w"))
+        print(f"[17 envs] (c) {gname}: {len(results)} cells in {n_groups} "
+              f"groups ({launches[gname]} launches), sweep wall {wall:.3f} "
+              f"s; {sum(r.completed for r in results)} completed; vs "
+              f"fig_dvfs_full.json: completed/time_s exact, energy/tput "
+              f"rtol 1e-5, {n_exact}/{len(results)} cells bit-exact",
+              flush=True)
+        if gname == "fig_dvfs":
+            print(f"[17 envs] (c) headline "
+                  f"{json.dumps(fig_dvfs_headline(cells, results))}; JAX "
+                  f"{json.dumps(g['headline'])}", flush=True)
+        grs += groups_on_card(scs, dev)
+    kern_c = [call(tl.tick_loop, k, r) for k, r in grs]
+    ticks_c = [executed_lane_ticks(m, k.n_steps)
+               for (k, _), (_, _, m) in zip(grs, kern_c)]
+    ms_c = time_cuda(lambda: [call(tl.tick_loop, k, r) for k, r in grs], 5)
+    bound_c, by_c, nbytes_c, ops_c = bound_of(grs, ticks_c)
+    print(f"[17 envs] (c) kernel on both grids' {len(grs)} groups: "
+          f"{ms_c:.3f} ms (median of 5, {len(grs)} launches); "
+          f"{sum(ticks_c)} executed lane-ticks; bound {bound_c:.4f} ms by "
+          f"{by_c} ({nbytes_c} B, {ops_c} ops)", flush=True)
+    del kern_c, grs
+
+    # (d) a tune-sized dvfs launch: 4,096 lanes in one group
+    env_d = api.make_environment("dvfs", **DVFS_TUNE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res_d = api.sweep(tune_scenarios(environment=env_d), device=dev)
+    wall_d = time.perf_counter() - t0
+    peak_d = torch.cuda.max_memory_allocated()
+    grs_d = groups_on_card(tune_scenarios(executor="cuda",
+                                          environment=env_d), dev)
+    check(len(grs_d) == 1, f"dvfs tune split into {len(grs_d)} groups")
+    (key_d, rows_d), = grs_d
+    kern_d = call(tl.tick_loop, key_d, rows_d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_d = call(tl.tick_loop_reference, key_d, rows_d)
+    torch.cuda.synchronize()
+    plain_d_ms = (time.perf_counter() - t0) * 1e3
+    eq_d, err_d = compare_outputs(kern_d, plain_d)
+    check(eq_d, f"dvfs tune: kernel != plain version (max |err| {err_d})")
+    del plain_d
+    ticks_d = executed_lane_ticks(kern_d[2], key_d.n_steps)
+    ms_d = time_cuda(lambda: call(tl.tick_loop, key_d, rows_d), 5)
+    bound_d, by_d, nbytes_d, ops_d = bound_of(grs_d, [ticks_d])
+    b, n = rows_d[1].shape
+    print(f"[17 envs] (d) dvfs hp race n_big 4: {b} lanes x {n} ticks, 1 "
+          f"group: kernel == plain on all lanes; kernel {ms_d:.3f} ms "
+          f"(median of 5); {ticks_d} executed lane-ticks = "
+          f"{ticks_d / (ms_d / 1e3):.4g} lane-ticks/s; {nbytes_d} B "
+          f"written/read, memory bound "
+          f"{nbytes_d / HBM_BYTES_PER_S * 1e3:.4f} ms (bound {bound_d:.4f} "
+          f"ms by {by_d}, {ops_d} ops); plain {plain_d_ms:.1f} ms; peak "
+          f"memory {peak_d} B; sweep end to end {wall_d:.3f} s; "
+          f"{sum(r.completed for r in res_d)} completed", flush=True)
+    print(f"[17 envs] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches}
 
 
 # ------------------------------------------------- attention and serving --
@@ -1784,11 +2136,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    return smoke(torch.device("cuda"))
+    return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv)
 
 
-def smoke(dev) -> int:
-    """Every phase, on the CUDA device ``dev``."""
+def smoke(dev, tick_only=False) -> int:
+    """Every phase (with ``tick_only``, phases 1-6 and 17), on the CUDA
+    device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -1863,21 +2216,35 @@ def smoke(dev) -> int:
     report = build.ptxas_report(logs["tick_loop.cu"])
     names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC"]
     used = set()
+    env_d = api.make_environment("dvfs", **DVFS_TUNE)
     for scs in (list(golden_scenarios().values()),
                 [s for _, s in fig2_scenarios(smoke=False)],
-                tune_scenarios()[:1]):
+                tune_scenarios()[:1],
+                [s for _, s in degeneration_scenarios()],
+                [s for _, s in env_smoke_scenarios()],
+                [s for _, s in fig_dvfs_scenarios()],
+                [s for _, s in greendataflow_scenarios()],
+                tune_scenarios(environment=env_d)[:1]):
         used |= instances_of(scs, dev)
-    by_inst = {build.tick_loop_instance(k): v for k, v in report.items()}
-    for p, k, s in sorted(used):
-        check((p, k, s) in by_inst, f"no ptxas entry for P={p} {names[k]}")
-        print(f"[2 build] P={p} {names[k]}{'+scaling' if s else ''}: "
-              f"{by_inst[(p, k, s)]}")
+    by_inst = {}
+    for k, v in report.items():
+        for env, parse in ((False, build.tick_loop_instance),
+                           (True, build.tick_loop_env_instance)):
+            if parse(k) is not None:
+                by_inst[(*parse(k), env)] = v
+    for p, k, s, e in sorted(used):
+        check((p, k, s, e) in by_inst,
+              f"no ptxas entry for P={p} {names[k]} (environments: {e})")
+        entry = "tick_loop_env_kernel" if e else "tick_loop_kernel"
+        print(f"[2 build] {entry} P={p} {names[k]}{'+scaling' if s else ''}: "
+              f"{by_inst[(p, k, s, e)]}")
 
     # 3. goldens
     before = tl.tick_loop.launches
     bad = []
+    ref_runs = {}
     for cell, sc in golden_scenarios(executor="cuda").items():
-        r = api.run(sc, device=dev)
+        r = ref_runs[cell] = api.run(sc, device=dev)
         got = (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
                r.avg_power_w)
         if got != RUN_GOLDEN[cell]:
@@ -2017,13 +2384,20 @@ def smoke(dev) -> int:
           f"{peak} B; sweep end to end {tune_wall:.3f} s; "
           f"{sum(r.completed for r in tune_results)} completed", flush=True)
 
-    # 7-9: flash attention, the float32 golden, serving (the tick loop's
-    # tensors are freed first, so the serving phases' peaks are their own)
+    # 17: the environment families, on the same kernel
     del kern, plain, grs, outs, results, tune_results, grs_t, rows_t, \
         kern_t, ker_rows, ref_rows
     torch.cuda.empty_cache()
+    envs = phase_environments(dev, ref_runs)
+    if tick_only:
+        print("chip_smoke: tick-loop phases (1-6, 17) passed")
+        return 0
+
+    # 7-9: flash attention, the float32 golden, serving (the tick loop's
+    # tensors are freed first, so the serving phases' peaks are their own)
+    torch.cuda.empty_cache()
     print(f"[7 flash] {torch.cuda.memory_allocated()} B allocated on the "
-          f"card after phases 1-6", flush=True)
+          f"card after phases 1-6 and 17", flush=True)
     flash = phase_flash(dev)
     tree = random_qwen3_params()
     # the float32 (FMA) attention kernels' launches over the float32
@@ -2055,7 +2429,11 @@ def smoke(dev) -> int:
         "name": "tick_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tick_loop.cu",
         "replaces": "src/repro/core/engine.py:612",
-        "launches": main_launches, "max_abs_err": max_err, "ms": ms,
+        "launches": main_launches + sum(envs["launches"].values()),
+        "launches_by_path": {"fig2": main_launches, **envs["launches"]},
+        "environments": ["reference", "lossy-wan", "logfit", "big-little",
+                         "dvfs"],
+        "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",

@@ -11,7 +11,9 @@ One engine substrate, many controllers, compared apples-to-apples:
 
 Controllers are addressed by registry name (``api.list_controllers()``) or
 constructed directly; the physics they run against is an
-:class:`Environment` (``api.list_environments()``).  ``api.sweep([...])``
+:class:`Environment` (``api.list_environments()``: ``reference``,
+``lossy-wan``, ``big-little``, ``dvfs``, ``logfit``), which pairs a
+:class:`NetworkModel` with an :class:`EnergyModel`.  ``api.sweep([...])``
 groups shape-compatible scenarios — same controller code AND environment
 code — and runs each group as one lane batch: one launch of the CUDA tick
 kernel on a card.
@@ -22,22 +24,24 @@ from .controllers import (Controller, ControllerInit,  # noqa: F401
                           IsmailTargetController, StaticBaselineController,
                           TunerController, as_controller, list_controllers,
                           make_controller, register_controller)
-from .environments import (EnergyModel, Environment,  # noqa: F401
-                           NetworkModel, ReferenceEnergyModel,
-                           ReferenceNetworkModel, as_environment,
-                           list_energy_models, list_environments,
-                           list_network_models, make_energy_model,
-                           make_environment, make_network_model,
-                           register_energy_model, register_environment,
-                           register_network_model)
+from .environments import (BigLittleEnergyModel,  # noqa: F401
+                           DvfsEnergyModel, DvfsNetworkModel, EnergyModel,
+                           Environment, LossyWanNetworkModel, NetworkModel,
+                           ReferenceEnergyModel, ReferenceNetworkModel,
+                           as_environment, list_energy_models,
+                           list_environments, list_network_models,
+                           make_energy_model, make_environment,
+                           make_network_model, register_energy_model,
+                           register_environment, register_network_model)
 from .scenario import (GroupRun, Scenario, group_count,  # noqa: F401
                        resolve_device, run, run_groups, sweep)
 
 __all__ = [
-    "Controller", "ControllerInit", "EnergyModel", "Environment",
-    "GroupRun", "IsmailTargetController", "NetworkModel",
-    "ReferenceEnergyModel", "ReferenceNetworkModel", "Scenario",
-    "StaticBaselineController", "TransferResult", "TunerController",
+    "BigLittleEnergyModel", "Controller", "ControllerInit",
+    "DvfsEnergyModel", "DvfsNetworkModel", "EnergyModel", "Environment",
+    "GroupRun", "IsmailTargetController", "LossyWanNetworkModel",
+    "NetworkModel", "ReferenceEnergyModel", "ReferenceNetworkModel",
+    "Scenario", "StaticBaselineController", "TransferResult", "TunerController",
     "as_controller", "as_environment", "group_count", "list_controllers",
     "list_energy_models", "list_environments", "list_network_models",
     "make_controller", "make_energy_model", "make_environment",

@@ -6,6 +6,7 @@ energy-efficient transfer tuning with dynamic CPU frequency & core scaling.
     tuners        — Algorithms 4-6 (ME / EEMT / EETT) + Slow Start (Alg 2)
     load_control  — Algorithm 3 (threshold frequency/core scaling)
     energy_model  — RAPL-calibrated host power model
+    dvfs          — first-principles DVFS host physics (V(f), CV²f, leakage)
     network_model — discrete-time WAN channel simulator
     tickstate     — flat state / parameter rows of a lane batch
     engine        — tick semantics and the reference / cuda executors
@@ -13,8 +14,10 @@ energy-efficient transfer tuning with dynamic CPU frequency & core scaling.
 
 The user-facing surface is ``repro_torch.api``.
 """
-from . import (baselines, energy_model, engine, fsm, heuristics,  # noqa: F401
-               load_control, network_model, tickstate, tuners, types)
+from . import (baselines, dvfs, energy_model, engine, fsm,  # noqa: F401
+               heuristics, load_control, network_model, tickstate, tuners,
+               types)
+from .dvfs import DVFS_TECHS, DvfsEnergyModel  # noqa: F401
 from .engine import TransferResult  # noqa: F401
 from .types import (CHAMELEON, CLOUDLAB, DIDCLAB, LARGE_FILES,  # noqa: F401
                     MEDIUM_FILES, MIXED, SMALL_FILES, TESTBEDS, CpuProfile,

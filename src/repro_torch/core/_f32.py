@@ -19,6 +19,9 @@ Four habits of PyTorch would otherwise change the last bit of a result:
 * Per-transfer scalars carry a leading lane axis ``[B]`` while partition
   arrays are ``[B, P]``; :func:`col` lines the former up with the latter
   (``vmap`` did that implicitly).
+
+:func:`interp_f32` is ``jnp.interp`` (no ``left`` / ``right`` /
+``period``) written op for op in these terms.
 """
 from __future__ import annotations
 
@@ -27,6 +30,10 @@ import torch.nn.functional as F
 
 #: The largest float32 subnormal: ``|x| <=`` this flushes to zero.
 SUBNORMAL_MAX = 1.1754942106924411e-38
+
+#: ``np.spacing(np.finfo(np.float32).eps)`` (2**-46): below it ``jnp.interp``
+#: treats a table step as empty.
+INTERP_DX_EPS = 1.4210854715202004e-14
 
 
 def ftz(x: torch.Tensor) -> torch.Tensor:
@@ -59,3 +66,25 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     while cond.dim() < a.dim():
         cond = cond[..., None]
     return torch.where(cond, a, b)
+
+
+def interp_f32(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor):
+    """``jnp.interp(x, xp, fp)`` op for op (jax/_src/numpy/lax_numpy.py
+    ``_interp``): the bracketing step ``i = clip(searchsorted(xp, x,
+    right), 1, n - 1)``, ``fp[i-1] + ((x - xp[i-1]) / dx) * df`` (or
+    ``fp[i-1]`` where ``|dx| <= spacing(eps)``), and ``fp[0]`` / ``fp[-1]``
+    outside the table.  ``xp`` and ``fp`` are float32 ``[n]``, ``n >= 2``,
+    on ``x``'s device; every ``+ - x /`` is flushed, the division is tensor
+    by tensor."""
+    n = xp.shape[0]
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(1, n - 1)
+    x0, x1 = xp[i - 1], xp[i]
+    f0, f1 = fp[i - 1], fp[i]
+    df = ftz(f1 - f0)
+    dx = ftz(x1 - x0)
+    delta = ftz(x - x0)
+    dx0 = dx.abs() <= INTERP_DX_EPS
+    step = ftz(torch.div(delta, torch.where(dx0, torch.ones_like(dx), dx)))
+    f = torch.where(dx0, f0, ftz(f0 + ftz(step * df)))
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)

@@ -33,7 +33,7 @@ Both take a lane batch in the flat rows of
   drives :func:`make_step_fn` over the whole batch, one tensor op at a time.
   It runs on any device and is the plain version the kernel is held to.
 * ``cuda`` — ``tick_loop``: one launch of the hand-written CUDA kernel for
-  the whole batch (reference environment, built-in controllers).
+  the whole batch (built-in environments and controllers).
 
 ``executor="auto"`` resolves per device (:func:`resolve_executor`): ``cuda``
 on a CUDA device, ``reference`` on the CPU.  The plain version runs on a

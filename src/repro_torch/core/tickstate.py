@@ -20,9 +20,27 @@ tensors with any leading (lane) shape.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from .types import NetParams, SimState, SLAParams, TunerState
+
+@functools.lru_cache(maxsize=None)
+def _const_table(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+
+
+def const_table(values: tuple, device=None) -> torch.Tensor:
+    """A static float32 lookup table (the DVFS V(f) curves, a fitted
+    bandwidth schedule) on ``device``: one tensor per distinct (values,
+    device), uploaded once.  Every caller shares it, so it is read-only by
+    contract: nothing in the port writes to it (PyTorch has no read-only
+    tensors to enforce that)."""
+    return _const_table(tuple(float(v) for v in values),
+                        torch.device(device or "cpu"))
+
 
 # Scalar slots appended after the two [P] blocks of the f32 state row.
 _SIM_SCALARS = ("t", "energy_j", "bytes_moved")

@@ -127,8 +127,17 @@ def ptxas_report(log: str) -> dict[str, str]:
 
 
 def tick_loop_instance(name: str):
-    """(P, KIND, SCALING) of a mangled ``tick_loop_kernel`` entry name."""
+    """(P, KIND, SCALING) of a mangled ``tick_loop_kernel`` entry name (the
+    reference environment's kernel)."""
     m = re.search(r"tick_loop_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+    return None if m is None else (int(m.group(1)), int(m.group(2)),
+                                   bool(int(m.group(3))))
+
+
+def tick_loop_env_instance(name: str):
+    """(P, KIND, SCALING) of a mangled ``tick_loop_env_kernel`` entry name
+    (the kernel with the environment codes)."""
+    m = re.search(r"tick_loop_env_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
     return None if m is None else (int(m.group(1)), int(m.group(2)),
                                    bool(int(m.group(3))))
 
@@ -147,7 +156,9 @@ def load_tick_loop() -> ctypes.CDLL:
                    + [ctypes.c_int] * 3 + [ctypes.c_float,
                                            ctypes.POINTER(ctypes.c_float),
                                            ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p])
+                                           ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_float),
+                                           ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.tick_loop_error_string.argtypes = [ctypes.c_int]
     lib.tick_loop_error_string.restype = ctypes.c_char_p

@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel repro/core/engine.py::_build_pallas_core
 // (the pl.pallas_call at engine.py:612).  One launch runs a batch of
 // transfers ("lanes") from their packed initial rows to completion or to
-// the horizon: per tick the reference WAN model, the RAPL power model, the
-// controller's channel split, the interval accumulators and, every
+// the horizon: per tick the environment's WAN model and host power model,
+// the controller's channel split, the interval accumulators and, every
 // ctrl_every ticks, the SLA tuner FSM (Algorithms 2, 4-6) and Algorithm 3
 // load control.  It writes the final state rows and seven per-tick traces.
 //
@@ -12,9 +12,24 @@
 // in registers; the CpuProfile (frequency ladder included) rides in the
 // by-value argument struct.  Each lane leaves its loop on its own as soon as
 // it has drained.  The physics and tuners are written out here (the TPU
-// kernel evaluated a staged jaxpr of the generic tick); templates
+// kernel evaluated a staged jaxpr of the generic tick, with the
+// environment's constant tables hoisted into kernel inputs); templates
 // specialise on the partition count P (1..8), the controller KIND and
 // whether load control is on.
+//
+// Environments.  tick_loop_kernel spells out the reference physics only.
+// tick_loop_env_kernel adds the other families of repro_torch.api
+// .environments, chosen by codes in the argument struct: the network model
+// (reference, lossy-wan: Mathis window cap, sharper knee, sinusoidal RTT
+// jitter; logfit: a fitted bandwidth schedule read through a device
+// pointer, and a fitted RTT) and the energy model (reference, big-little:
+// core mix; dvfs: core mix, V(f) interpolation over a table of at most 16
+// points carried by value, CV^2f power, leakage, race or pace idle, a
+// governor cap on the frequency).  Every lane of a launch shares the codes,
+// so their branches never diverge; the reference kernel is compiled without
+// them.  The controller keeps the profile's network numbers (the JAX engine
+// hands the tuner inp.net, not the environment's), so slow start's goal is
+// the nominal bandwidth under every environment.
 //
 // Layout.  Traces are time-major [n_steps, B] (the wrapper hands back
 // transposed [B, n_steps] views), so at tick i the lanes of a warp store to
@@ -28,7 +43,10 @@
 // division; every Python constant of the reference is a float literal
 // applied in the reference's left-to-right order, partition sums run left
 // to right, and min/max propagate NaN as XLA's do (compare and select,
-// never fminf/fmaxf).
+// never fminf/fmaxf).  An environment's constants arrive as the float32
+// rounding of the JAX package's Python double expressions.  lossy-wan's
+// jitter calls the accurate libdevice sinf (no fast math), the routine
+// torch.sin runs on the card; against JAX's own sin it is not bit-exact.
 //
 // Bound.  Per lane the tick is a serial chain of ~150 dependent scalar
 // float32 operations, so the kernel is latency-bound: a lane-tick costs the
@@ -46,15 +64,39 @@
 namespace tick {
 
 constexpr int kMaxFreq = 16;
+constexpr int kMaxVf = 16;
 constexpr int kThreads = 32;
+// np.spacing(np.finfo(np.float32).eps) = 2^-46: jnp.interp's empty step.
+constexpr float kInterpDxEps = 1.4210854715202004e-14f;
 
 enum Kind { ME = 0, EEMT = 1, EETT = 2, ISMAIL = 3, STATIC = 4 };
 enum Fsm { SLOW_START = 0, INCREASE = 1, WARNING = 2, RECOVERY = 3 };
+enum Network { NET_REFERENCE = 0, NET_LOSSY_WAN = 1, NET_LOGFIT = 2 };
+enum Energy { ENERGY_REFERENCE = 0, ENERGY_BIG_LITTLE = 1, ENERGY_DVFS = 2 };
 
 struct Cpu {
   float ipc, cpb, cpb_ch, pkg_static_w, core_static_w, core_dyn_w, mem_w;
   float freq[kMaxFreq];
   int n_freq, num_cores;
+};
+
+// The environment of a launch (tick_loop_env_kernel only).  The flags are
+// the JAX package's Python conditionals: no min or divide without loss, no
+// sin without jitter, no RTT override without a fitted RTT.
+struct Env {
+  int network, energy;
+  int loss, jitter, fit_rtt;   // lossy-wan, lossy-wan, logfit
+  int race, capped, n_vf;      // dvfs
+  int n_bins;                  // logfit
+  float w_loss, knee_div, jitter_rate, jitter_frac;  // lossy-wan
+  float bin_s, rtt_fit;                              // logfit
+  // big-little and dvfs: little_dyn / little_static are big-little's
+  // little_dyn_frac / little_static_frac and dvfs's little_cap_frac /
+  // little_leak_frac.
+  float n_big, little_perf, little_dyn, little_static;
+  float cap_nf, leak_w, leak_w_per_v, idle_leak, max_freq;  // dvfs
+  float vf_f[kMaxVf], vf_v[kMaxVf];                         // dvfs V(f)
+  const float* bins;           // logfit bandwidth schedule [n_bins]
 };
 
 struct Args {
@@ -74,6 +116,7 @@ struct Args {
   int n_lanes, n_steps, ctrl_every;
   float dt;
   Cpu cpu;
+  Env env;
 };
 
 // XLA's max/min: NaN in either operand gives NaN.
@@ -107,7 +150,46 @@ __device__ __forceinline__ float freq_at(const Cpu& c, int idx) {
   return f;
 }
 
-template <int P, int KIND, bool SCALING>
+// tab[k] by selects, so the by-value table stays out of local memory.
+__device__ __forceinline__ float vf_at(const float (&tab)[kMaxVf], int k) {
+  float v = tab[0];
+#pragma unroll
+  for (int j = 1; j < kMaxVf; ++j) v = (k == j) ? tab[j] : v;
+  return v;
+}
+
+// jnp.interp(x, vf_f, vf_v) op for op (jax/_src/numpy/lax_numpy.py _interp;
+// repro_torch.core._f32.interp_f32).
+__device__ __forceinline__ float voltage(const Env& e, float x) {
+  int i = 0;  // searchsorted(vf_f, x, side="right")
+#pragma unroll
+  for (int k = 0; k < kMaxVf; ++k) i += (k < e.n_vf && e.vf_f[k] <= x) ? 1 : 0;
+  i = clipi(i, 1, e.n_vf - 1);
+  const float x0 = vf_at(e.vf_f, i - 1), y0 = vf_at(e.vf_v, i - 1);
+  const float df = vf_at(e.vf_v, i) - y0;
+  const float dx = vf_at(e.vf_f, i) - x0;
+  const float delta = x - x0;
+  const bool dx0 = fabsf(dx) <= kInterpDxEps;
+  float v = dx0 ? y0 : y0 + (delta / (dx0 ? 1.0f : dx)) * df;
+  v = x < e.vf_f[0] ? e.vf_v[0] : v;
+  return x > vf_at(e.vf_f, e.n_vf - 1) ? vf_at(e.vf_v, e.n_vf - 1) : v;
+}
+
+// sinf out of line: libdevice's accurate sinf (its Payne-Hanek slow path
+// included) is emitted once for the module, not into all 64 environment
+// instances.
+__device__ __noinline__ float sin_out_of_line(float x) { return sinf(x); }
+
+// The operating point's frequency: the ladder's, under dvfs's governor cap.
+template <bool ENV>
+__device__ __forceinline__ float op_freq(const Cpu& c, const Env& e,
+                                         int idx) {
+  const float f = freq_at(c, idx);
+  if (ENV && e.energy == ENERGY_DVFS && e.capped) return vmin(f, e.max_freq);
+  return f;
+}
+
+template <int P, int KIND, bool SCALING, bool ENV>
 __device__ __forceinline__ void run_lane(const Args a, const int lane) {
   constexpr int NP = 13 + 5 * P;
   constexpr int NF = 2 * P + 9;
@@ -145,15 +227,41 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
   const int* q0 = a.i0 + static_cast<size_t>(lane) * 3;
   int fsm = q0[0], cores = q0[1], freq_idx = q0[2];
 
+  // The environment's network numbers that hold for the whole transfer
+  // (repro_torch/api/environments.py LossyWanNetworkModel.step,
+  // repro_torch/workloads/logfit.py LogFitNetworkModel.step).
+  const Env& env = a.env;
+  float rtt_c = rtt, win_c = avg_window, knee_c = knee;
+  if (ENV && env.network == NET_LOSSY_WAN && env.loss) {
+    win_c = vmin(avg_window, env.w_loss);
+    knee_c = knee / env.knee_div;
+  }
+  if (ENV && env.network == NET_LOGFIT && env.fit_rtt) rtt_c = env.rtt_fit;
+
   // Lane constants: the same float32 expressions the reference evaluates
   // every tick (repro/core/network_model.py:90 and :107).
   const float b_nom = bandwidth * (1.0f - cross);
-  const float ramp = clip(dt / (8.0f * rtt), 0.0f, 1.0f);
+  const float ramp = clip(dt / (8.0f * rtt_c), 0.0f, 1.0f);
 
   int i = 0;
   while (i < a.n_steps && sum_lr<P>(rem) > 0.0f) {
     const size_t o = static_cast<size_t>(i) * B + lane;
     const float bw_scale = a.bw[o];
+
+    // This tick's environment, from the lane's time before the step: the
+    // jittered RTT (and the window ramp it sets), the schedule's bandwidth.
+    float rtt_t = rtt_c, bw_t = bandwidth, b_nom_t = b_nom, ramp_t = ramp;
+    if (ENV && env.network == NET_LOSSY_WAN && env.jitter) {
+      rtt_t = rtt_c * (1.0f + env.jitter_frac *
+                                  sin_out_of_line(env.jitter_rate * t));
+      ramp_t = clip(dt / (8.0f * rtt_t), 0.0f, 1.0f);
+    }
+    if (ENV && env.network == NET_LOGFIT) {
+      const int k = clipi(static_cast<int>(floorf(t / env.bin_s)), 0,
+                          env.n_bins - 1);
+      bw_t = env.bins[k];
+      b_nom_t = bw_t * (1.0f - cross);
+    }
 
     // Controller channel split (repro/api/controllers.py:148-150, 195-197).
     float cc[P];
@@ -186,24 +294,31 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
     for (int p = 0; p < P; ++p) {
       const float hi = vmax(avg_file[p] / buffer, 1.0f);
       const float par_eff = vmin(vmax(par[p], 1.0f), hi);
-      const float raw = (par_eff * win[p]) / rtt;
+      const float raw = (par_eff * win[p]) / rtt_t;
       const float per_file_s =
-          avg_file[p] / vmax(raw, 1e-6f) + rtt / vmax(pp[p], 1.0f);
+          avg_file[p] / vmax(raw, 1e-6f) + rtt_t / vmax(pp[p], 1.0f);
       demand[p] = ccn[p] * (avg_file[p] / vmax(per_file_s, 1e-9f));
     }
     const float total_demand = sum_lr<P>(demand);
-    const float b_avail = b_nom * bw_scale;
-    const float per_ch = vmax(avg_win / rtt, 1e-6f);
-    const float c_sat = (knee * bandwidth) / per_ch;
+    const float b_avail = b_nom_t * bw_scale;
+    const float per_ch = vmax(avg_win / rtt_t, 1e-6f);
+    const float c_sat = (knee_c * bw_t) / per_ch;
     const float over = vmax(total_ch - c_sat, 0.0f) / vmax(c_sat, 1.0f);
     const float eff = 1.0f / (1.0f + (0.5f * over) * over);
     const float net_cap = b_avail * eff;
 
-    // Energy model (repro/core/energy_model.py:24-54).
+    // Energy model (repro/core/energy_model.py:24-54; big-little:
+    // repro/api/environments.py:249-313; dvfs: repro/core/dvfs.py:170-218).
     const float cf = static_cast<float>(clipi(cores, 1, cpu.num_cores));
-    const float f = freq_at(cpu, freq_idx);
+    const float f = op_freq<ENV>(cpu, env, freq_idx);
     const float cpb = cpu.cpb + cpu.cpb_ch * total_ch;
-    const float cpu_cap = (((cf * f) * 1e9f) * cpu.ipc) / (cpb * 1e6f);
+    float big = cf, little = 0.0f, core_eff = cf;
+    if (ENV && env.energy != ENERGY_REFERENCE) {
+      big = vmin(cf, env.n_big);
+      little = vmax(cf - env.n_big, 0.0f);
+      core_eff = big + little * env.little_perf;
+    }
+    const float cpu_cap = (((core_eff * f) * 1e9f) * cpu.ipc) / (cpb * 1e6f);
 
     const float tput = vmin(vmin(total_demand, net_cap), cpu_cap);
     const float scale = tput / vmax(total_demand, 1e-6f);
@@ -212,13 +327,32 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
     for (int p = 0; p < P; ++p) {
       moved[p] = vmin((demand[p] * scale) * dt, rem[p]);
       rem[p] = rem[p] - moved[p];
-      win[p] = win[p] + (avg_window - win[p]) * ramp;
+      win[p] = win[p] + (win_c - win[p]) * ramp_t;
     }
     const float load = clip(tput / vmax(cpu_cap, 1e-6f), 0.0f, 1.0f);
-    const float dyn =
-        ((cf * cpu.core_dyn_w) * ((f * f) * f)) * clip(load, 0.0f, 1.0f);
-    const float pw =
-        ((cpu.pkg_static_w + cf * cpu.core_static_w) + dyn) + cpu.mem_w * tput;
+    float pw;
+    if (!ENV || env.energy == ENERGY_REFERENCE) {
+      const float dyn =
+          ((cf * cpu.core_dyn_w) * ((f * f) * f)) * clip(load, 0.0f, 1.0f);
+      pw = ((cpu.pkg_static_w + cf * cpu.core_static_w) + dyn) +
+           cpu.mem_w * tput;
+    } else {
+      // big-little is dvfs with V(f) = f, C_eff = core_dyn_w_per_ghz3 and
+      // leakage core_static_w; (v * v) * f is then the reference's f^3.
+      const float u = clip(load, 0.0f, 1.0f);
+      float v = f, cap = cpu.core_dyn_w, per_core = cpu.core_static_w;
+      if (env.energy == ENERGY_DVFS) {
+        v = voltage(env, f);
+        cap = env.cap_nf;
+        per_core = env.leak_w + env.leak_w_per_v * v;
+        if (env.race) per_core = per_core * (u + env.idle_leak * (1.0f - u));
+      }
+      const float dyn = (((big + little * env.little_dyn) * cap) *
+                         ((v * v) * f)) * u;
+      const float stat =
+          cpu.pkg_static_w + (big + little * env.little_static) * per_core;
+      pw = (stat + dyn) + cpu.mem_w * tput;
+    }
 
     // Accumulators (repro/core/engine.py:278-303); the lane is live here.
     energy = energy + pw * dt;
@@ -320,7 +454,7 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
     a.load[o] = load;
     a.nch[o] = total_ch;
     a.cores[o] = cores;
-    a.freq[o] = freq_at(cpu, freq_idx);
+    a.freq[o] = op_freq<ENV>(cpu, env, freq_idx);
     a.done[o] = sum_lr<P>(rem) <= 0.0f ? 1 : 0;
     ++i;
   }
@@ -351,42 +485,55 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
 template <int P, int KIND, bool SCALING>
 __global__ void __launch_bounds__(kThreads) tick_loop_kernel(const Args a) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < a.n_lanes) run_lane<P, KIND, SCALING>(a, lane);
+  if (lane < a.n_lanes) run_lane<P, KIND, SCALING, false>(a, lane);
+}
+
+template <int P, int KIND, bool SCALING>
+__global__ void __launch_bounds__(kThreads)
+    tick_loop_env_kernel(const Args a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < a.n_lanes) run_lane<P, KIND, SCALING, true>(a, lane);
 }
 
 using KernelFn = void (*)(Args);
 
+template <int P, int KIND, bool SCALING>
+KernelFn instance(bool env) {
+  return env ? tick_loop_env_kernel<P, KIND, SCALING>
+             : tick_loop_kernel<P, KIND, SCALING>;
+}
+
 template <int P>
-KernelFn pick(int kind, int scaling) {
+KernelFn pick(int kind, int scaling, bool env) {
   switch (kind) {
     case ME:
-      return scaling ? tick_loop_kernel<P, ME, true>
-                     : tick_loop_kernel<P, ME, false>;
+      return scaling ? instance<P, ME, true>(env)
+                     : instance<P, ME, false>(env);
     case EEMT:
-      return scaling ? tick_loop_kernel<P, EEMT, true>
-                     : tick_loop_kernel<P, EEMT, false>;
+      return scaling ? instance<P, EEMT, true>(env)
+                     : instance<P, EEMT, false>(env);
     case EETT:
-      return scaling ? tick_loop_kernel<P, EETT, true>
-                     : tick_loop_kernel<P, EETT, false>;
+      return scaling ? instance<P, EETT, true>(env)
+                     : instance<P, EETT, false>(env);
     case ISMAIL:
-      return scaling ? nullptr : tick_loop_kernel<P, ISMAIL, false>;
+      return scaling ? nullptr : instance<P, ISMAIL, false>(env);
     case STATIC:
-      return scaling ? nullptr : tick_loop_kernel<P, STATIC, false>;
+      return scaling ? nullptr : instance<P, STATIC, false>(env);
     default:
       return nullptr;
   }
 }
 
-KernelFn pick_kernel(int p, int kind, int scaling) {
+KernelFn pick_kernel(int p, int kind, int scaling, bool env) {
   switch (p) {
-    case 1: return pick<1>(kind, scaling);
-    case 2: return pick<2>(kind, scaling);
-    case 3: return pick<3>(kind, scaling);
-    case 4: return pick<4>(kind, scaling);
-    case 5: return pick<5>(kind, scaling);
-    case 6: return pick<6>(kind, scaling);
-    case 7: return pick<7>(kind, scaling);
-    case 8: return pick<8>(kind, scaling);
+    case 1: return pick<1>(kind, scaling, env);
+    case 2: return pick<2>(kind, scaling, env);
+    case 3: return pick<3>(kind, scaling, env);
+    case 4: return pick<4>(kind, scaling, env);
+    case 5: return pick<5>(kind, scaling, env);
+    case 6: return pick<6>(kind, scaling, env);
+    case 7: return pick<7>(kind, scaling, env);
+    case 8: return pick<8>(kind, scaling, env);
     default: return nullptr;
   }
 }
@@ -395,23 +542,69 @@ KernelFn pick_kernel(int p, int kind, int scaling) {
 
 extern "C" {
 
-// Launches one tick_loop_kernel over n_lanes lanes on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for an argument
-// no instantiation takes).  `cpu_consts` is a host array: ipc,
+// Launches one tick_loop_kernel (reference environment) or
+// tick_loop_env_kernel (any other) over n_lanes lanes on `stream` and
+// returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for an
+// argument no instantiation takes).  `cpu_consts` is a host array: ipc,
 // cycles_per_byte, cycles_per_byte_per_ch, pkg_static_w, core_static_w,
 // core_dyn_w_per_ghz3, mem_w_per_mbps, then 16 frequency levels.
+// `env_codes` holds network, energy, loss, jitter, fit_rtt, race, capped,
+// n_vf, n_bins; `env_consts` w_loss, knee_div, jitter_rate, jitter_frac,
+// bin_s, rtt_fit, n_big, little_perf, little_dyn, little_static, cap_nf,
+// leak_w, leak_w_per_v, idle_leak, max_freq, then 16 V(f) frequencies and
+// 16 voltages; `env_bins` is the device schedule of logfit (else null).
 int tick_loop_launch(int p, int kind, int scaling, const void* prow,
                      const void* bw, const void* f0, const void* i0,
                      void* fout, void* iout, void* tput, void* power,
                      void* load, void* nch, void* cores, void* freq,
                      void* done, int n_lanes, int n_steps, int ctrl_every,
                      float dt, const float* cpu_consts, int n_freq,
-                     int num_cores, void* stream) {
-  tick::KernelFn fn = tick::pick_kernel(p, kind, scaling);
+                     int num_cores, const int* env_codes,
+                     const float* env_consts, const void* env_bins,
+                     void* stream) {
+  tick::Env env;
+  env.network = env_codes[0];
+  env.energy = env_codes[1];
+  env.loss = env_codes[2];
+  env.jitter = env_codes[3];
+  env.fit_rtt = env_codes[4];
+  env.race = env_codes[5];
+  env.capped = env_codes[6];
+  env.n_vf = env_codes[7];
+  env.n_bins = env_codes[8];
+  const bool generic = env.network != tick::NET_REFERENCE ||
+                       env.energy != tick::ENERGY_REFERENCE;
+  tick::KernelFn fn = tick::pick_kernel(p, kind, scaling, generic);
   if (fn == nullptr || n_lanes <= 0 || ctrl_every <= 0 || n_freq <= 0 ||
-      n_freq > tick::kMaxFreq) {
+      n_freq > tick::kMaxFreq || env.network < 0 || env.network > 2 ||
+      env.energy < 0 || env.energy > 2 ||
+      (env.energy == tick::ENERGY_DVFS &&
+       (env.n_vf < 2 || env.n_vf > tick::kMaxVf)) ||
+      (env.network == tick::NET_LOGFIT &&
+       (env.n_bins < 1 || env_bins == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const float* ec = env_consts;
+  env.w_loss = ec[0];
+  env.knee_div = ec[1];
+  env.jitter_rate = ec[2];
+  env.jitter_frac = ec[3];
+  env.bin_s = ec[4];
+  env.rtt_fit = ec[5];
+  env.n_big = ec[6];
+  env.little_perf = ec[7];
+  env.little_dyn = ec[8];
+  env.little_static = ec[9];
+  env.cap_nf = ec[10];
+  env.leak_w = ec[11];
+  env.leak_w_per_v = ec[12];
+  env.idle_leak = ec[13];
+  env.max_freq = ec[14];
+  for (int k = 0; k < tick::kMaxVf; ++k) {
+    env.vf_f[k] = ec[15 + k];
+    env.vf_v[k] = ec[15 + tick::kMaxVf + k];
+  }
+  env.bins = static_cast<const float*>(env_bins);
   tick::Args args;
   args.prow = static_cast<const float*>(prow);
   args.bw = static_cast<const float*>(bw);
@@ -440,6 +633,7 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
   for (int k = 0; k < tick::kMaxFreq; ++k) args.cpu.freq[k] = cpu_consts[7 + k];
   args.cpu.n_freq = n_freq;
   args.cpu.num_cores = num_cores;
+  args.env = env;
 
   const dim3 block(tick::kThreads);
   const dim3 grid((n_lanes + tick::kThreads - 1) / tick::kThreads);

@@ -6,9 +6,11 @@ plain PyTorch version.
 (transfer) of a batch from its packed initial rows to completion or to the
 horizon, and writes the seven per-tick traces.  The kernel is
 ``csrc/tick_loop.cu`` (built by :mod:`repro_torch.kernels.build`); it spells
-out the reference environment's physics and the built-in controllers (ME /
-EEMT / EETT with or without load control, Ismail's target tuner, the static
-baselines), and raises for anything else.
+out the built-in controllers (ME / EEMT / EETT with or without load
+control, Ismail's target tuner, the static baselines) and the built-in
+environments — the reference, lossy-wan and logfit network models, the
+reference, big-little and dvfs energy models, in any pairing — and raises
+for anything else (:func:`kernel_spec`).
 
 :func:`tick_loop_reference` has the same signature and computes the same
 function with eager tensor ops: it is the engine's ``reference`` executor,
@@ -24,6 +26,7 @@ a warp that way — and the plain version uses the same layout.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,6 +44,44 @@ _POLICY_KIND = {SLAPolicy.MIN_ENERGY: KIND_ME,
 
 MAX_PARTITIONS = 8   # the kernel is instantiated for P = 1..8
 MAX_FREQ_LEVELS = 16
+MAX_VF_POINTS = 16   # dvfs V(f) tables ride by value, as the ladder does
+
+#: Environment codes of the kernel's argument struct.
+NET_REFERENCE, NET_LOSSY_WAN, NET_LOGFIT = range(3)
+ENERGY_REFERENCE, ENERGY_BIG_LITTLE, ENERGY_DVFS = range(3)
+#: Slots of the float32 environment constants, then the V(f) table.
+ENV_CONSTS = ("w_loss", "knee_div", "jitter_rate", "jitter_frac", "bin_s",
+              "rtt_fit", "n_big", "little_perf", "little_dyn",
+              "little_static", "cap_nf", "leak_w", "leak_w_per_v",
+              "idle_leak", "max_freq")
+#: Slots of the int environment codes.
+ENV_CODES = ("network", "energy", "loss", "jitter", "fit_rtt", "race",
+             "capped", "n_vf", "n_bins")
+
+
+class EnvSpec(NamedTuple):
+    """An environment as the kernel's arguments: ``codes`` (the
+    :data:`ENV_CODES`), ``consts`` (the :data:`ENV_CONSTS` as float32, then
+    the V(f) table padded to :data:`MAX_VF_POINTS` frequencies and as many
+    volts) and the logfit schedule (``()`` otherwise)."""
+
+    codes: tuple
+    consts: np.ndarray
+    schedule: tuple
+
+    @property
+    def network(self) -> int:
+        return self.codes[0]
+
+    @property
+    def energy(self) -> int:
+        return self.codes[1]
+
+    @property
+    def reference(self) -> bool:
+        """Whether the reference kernel (no environment code) runs it."""
+        return (self.network == NET_REFERENCE
+                and self.energy == ENERGY_REFERENCE)
 
 
 def _alloc_traces(n_steps: int, n_lanes: int, device):
@@ -99,27 +140,94 @@ def tick_loop_reference(controller, env, cpu: CpuProfile, prow, bw, f0, i0,
     return f32, i32, TickMetrics(*[b.t() for b in out])
 
 
-def kernel_spec(controller, env) -> tuple[int, bool]:
-    """(KIND, scaling) template arguments for a controller code, or raise:
-    the kernel spells out the reference environment and the built-in
-    controllers only."""
+def env_spec(env) -> EnvSpec:
+    """The kernel's arguments for an environment, or raise for a model type
+    the kernel has no code for.  Every constant is the float32 rounding of
+    the Python double expression the plain version (and the JAX package)
+    applies."""
+    from repro_torch.api import environments as E
+    from repro_torch.workloads.logfit import LogFitNetworkModel
+
+    net, en = env.network, env.energy
+    codes = dict.fromkeys(ENV_CODES, 0)
+    c = dict.fromkeys(ENV_CONSTS, 0.0)
+    vf_f, vf_v, schedule = (), (), ()
+    if type(net) in (E.ReferenceNetworkModel, E.DvfsNetworkModel):
+        codes["network"] = NET_REFERENCE
+    elif type(net) is E.LossyWanNetworkModel:
+        codes["network"] = NET_LOSSY_WAN
+        codes["loss"] = int(net.loss_rate > 0.0)
+        codes["jitter"] = int(net.jitter_frac > 0.0)
+        if codes["loss"]:
+            c["w_loss"] = net.window_cap()
+            c["knee_div"] = net.knee_divisor()
+        if codes["jitter"]:
+            c["jitter_rate"] = net.jitter_rate()
+            c["jitter_frac"] = net.jitter_frac
+    elif type(net) is LogFitNetworkModel:
+        codes["network"] = NET_LOGFIT
+        codes["fit_rtt"] = int(net.rtt_s is not None)
+        c["bin_s"] = net.bin_s
+        c["rtt_fit"] = net.rtt_s or 0.0
+        schedule = net.bw_mbps
+        codes["n_bins"] = len(schedule)
+    else:
+        raise ValueError(
+            f"the CUDA tick kernel has no code for network model "
+            f"{type(net).__name__} (it implements the reference environment "
+            f"and the lossy-wan, logfit, big-little and dvfs families); use "
+            f"executor='reference'")
+    if type(en) is E.ReferenceEnergyModel:
+        codes["energy"] = ENERGY_REFERENCE
+    elif type(en) is E.BigLittleEnergyModel:
+        codes["energy"] = ENERGY_BIG_LITTLE
+        c.update(n_big=float(en.n_big), little_perf=en.little_perf,
+                 little_dyn=en.little_dyn_frac,
+                 little_static=en.little_static_frac)
+    elif type(en) is E.DvfsEnergyModel:
+        if len(en.vf_ghz) > MAX_VF_POINTS:
+            raise ValueError(f"the CUDA tick kernel takes V(f) tables of at "
+                             f"most {MAX_VF_POINTS} points, got "
+                             f"{len(en.vf_ghz)}")
+        codes["energy"] = ENERGY_DVFS
+        codes["race"] = int(en.idle == "race")
+        codes["capped"] = int(en.max_freq_ghz is not None)
+        codes["n_vf"] = len(en.vf_ghz)
+        c.update(n_big=float(en.n_big), little_perf=en.little_perf,
+                 little_dyn=en.little_cap_frac,
+                 little_static=en.little_leak_frac, cap_nf=en.cap_nf,
+                 leak_w=en.leak_w, leak_w_per_v=en.leak_w_per_v,
+                 idle_leak=en.idle_leak_frac,
+                 max_freq=en.max_freq_ghz or 0.0)
+        vf_f, vf_v = en.vf_ghz, en.vf_volt
+    else:
+        raise ValueError(
+            f"the CUDA tick kernel has no code for energy model "
+            f"{type(en).__name__} (it implements the reference environment "
+            f"and the big-little and dvfs families); use "
+            f"executor='reference'")
+    pad = [0.0] * (MAX_VF_POINTS - len(vf_f))
+    consts = np.asarray([c[k] for k in ENV_CONSTS] + list(vf_f) + pad
+                        + list(vf_v) + pad, np.float32)
+    return EnvSpec(tuple(codes[k] for k in ENV_CODES), consts, schedule)
+
+
+def kernel_spec(controller, env) -> tuple[int, bool, EnvSpec]:
+    """(KIND, scaling, environment) arguments of the kernel for a controller
+    code and an environment, or raise: the kernel spells out the built-in
+    controllers and environments only."""
     from repro_torch.api.controllers import (IsmailTargetController,
                                              StaticBaselineController,
                                              TunerController)
-    from repro_torch.api.environments import (ReferenceEnergyModel,
-                                              ReferenceNetworkModel)
 
-    if not (type(env.network) is ReferenceNetworkModel
-            and type(env.energy) is ReferenceEnergyModel):
-        raise ValueError(f"the CUDA tick kernel implements the reference "
-                         f"environment only, got {env.name!r}; use "
-                         f"executor='reference'")
+    spec = env_spec(env)
     if type(controller) is TunerController:
-        return _POLICY_KIND[controller.sla.policy], bool(controller.scaling)
+        return (_POLICY_KIND[controller.sla.policy], bool(controller.scaling),
+                spec)
     if type(controller) is IsmailTargetController:
-        return KIND_ISMAIL, False
+        return KIND_ISMAIL, False, spec
     if type(controller) is StaticBaselineController:
-        return KIND_STATIC, False
+        return KIND_STATIC, False, spec
     raise ValueError(f"the CUDA tick kernel has no code for controller "
                      f"{type(controller).__name__}; use "
                      f"executor='reference'")
@@ -163,7 +271,6 @@ def tick_loop(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
     if prow.device.type != "cuda":
         raise ValueError(f"tick_loop runs on CUDA (or, as its plain version, "
                          f"on the CPU), got {prow.device}")
-    kind, scaling = kernel_spec(controller, env)
     n_lanes, n_steps = bw.shape
     p = _n_partitions(prow)
     if not 1 <= p <= MAX_PARTITIONS:
@@ -181,27 +288,50 @@ def tick_loop(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
     from . import build
 
     lib = build.load_tick_loop()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err, out = marshal_and_launch(
+            lib.tick_loop_launch, controller, env, cpu, prow, bw, f0, i0,
+            dt=dt, ctrl_every=ctrl_every, stream=stream)
+    if err != 0:
+        raise RuntimeError(f"tick_loop kernel launch failed: "
+                           f"{build.cuda_error_string(lib, err)}")
+    if n_lanes:
+        tick_loop.launches += 1
+    return out
+
+
+def marshal_and_launch(launch, controller, env, cpu: CpuProfile, prow, bw,
+                         f0, i0, *, dt: float, ctrl_every: int, stream):
+    """Allocate the outputs, marshal the arguments of ``tick_loop_launch``
+    (``csrc/tick_loop.cu``) and call ``launch`` with them, unless the batch
+    is empty.  Returns (error code, (f32, i32, TickMetrics)).  The tensors'
+    device is the caller's business: :func:`tick_loop` hands CUDA tensors
+    to the CUDA library; tests/test_torch_tick_loop_host.py hands CPU
+    tensors to the same source compiled for the host."""
+    kind, scaling, spec = kernel_spec(controller, env)
+    n_lanes, n_steps = bw.shape
     prow, f0, i0 = prow.contiguous(), f0.contiguous(), i0.contiguous()
     bw_t = bw.t().contiguous()                     # time-major [n_steps, B]
     fout = torch.empty_like(f0)
     iout = torch.empty_like(i0)
-    out = _alloc_traces(n_steps, n_lanes, dev)
+    out = _alloc_traces(n_steps, n_lanes, prow.device)
     consts, n_freq = _cpu_consts(cpu)
+    env_codes = (ctypes.c_int * len(spec.codes))(*spec.codes)
+    env_consts = (ctypes.c_float * len(spec.consts))(*spec.consts.tolist())
+    bins = (tickstate.const_table(spec.schedule, prow.device).data_ptr()
+            if spec.schedule else None)
+    err = 0
     if n_lanes:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.tick_loop_launch(
-                p, kind, int(scaling),
-                prow.data_ptr(), bw_t.data_ptr(), f0.data_ptr(),
-                i0.data_ptr(), fout.data_ptr(), iout.data_ptr(),
-                *[buf.data_ptr() for buf in out],
-                n_lanes, n_steps, int(ctrl_every), float(np.float32(dt)),
-                consts, n_freq, int(cpu.num_cores), stream)
-        if err != 0:
-            raise RuntimeError(f"tick_loop kernel launch failed: "
-                               f"{build.cuda_error_string(lib, err)}")
-        tick_loop.launches += 1
-    return fout, iout, TickMetrics(*[b.t() for b in out])
+        err = launch(_n_partitions(prow), kind, int(scaling),
+                     prow.data_ptr(), bw_t.data_ptr(), f0.data_ptr(),
+                     i0.data_ptr(), fout.data_ptr(), iout.data_ptr(),
+                     *[buf.data_ptr() for buf in out],
+                     n_lanes, n_steps, int(ctrl_every),
+                     float(np.float32(dt)), consts, n_freq,
+                     int(cpu.num_cores), env_codes, env_consts, bins,
+                     stream)
+    return err, (fout, iout, TickMetrics(*[b.t() for b in out]))
 
 
 #: Kernel launches since the last reset (set to 0 to start counting).

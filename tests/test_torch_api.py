@@ -148,7 +148,10 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.train, repro_torch.train.trainer, "
             "repro_torch.optim, repro_torch.ckpt, repro_torch.data, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.core.dvfs, "
+            "repro_torch.workloads, repro_torch.workloads.logfit; "
+            "from repro_torch import api; "
+            "[api.make_environment(n) for n in api.list_environments()]; "
             "from repro_torch.configs import ARCHS, get_config; "
             "[get_config(a) for a in ARCHS]; "
             "print('ok')")
@@ -166,6 +169,9 @@ def test_port_sources_import_no_jax_and_no_repro():
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    for module in ("core/dvfs.py", "api/environments.py",
+                   "workloads/__init__.py", "workloads/logfit.py"):
+        assert os.path.join(ROOT, "src", "repro_torch", module) in files
     for path in files:
         with open(path) as f:
             text = f.read()

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (``gpu`` marker; skipped without one): the
-tick loop, flash attention forward (hd 64, 128 and 256) and backward, each
-by both routes (bf16: wgmma; float32: FMA), the WKV recurrence and the
-RG-LRU scan, each against its plain version.
+tick loop (reference physics and every environment family), flash
+attention forward (hd 64, 128 and 256) and backward, each by both routes
+(bf16: wgmma; float32: FMA), the WKV recurrence and the RG-LRU scan, each
+against its plain version.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -101,6 +102,39 @@ def test_run_golden_on_the_card(cuda_device):
         assert (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
                 r.avg_power_w) == chip_smoke.RUN_GOLDEN[cell], cell
     assert tl.tick_loop.launches == before + len(chip_smoke.RUN_GOLDEN)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(chip_smoke.env_smoke_environments()))
+def test_environment_kernel_bit_exact_vs_plain_version_on_the_card(
+        cuda_device, name):
+    """chip_smoke.py phase 17b at one P and one controller: EEMT on
+    Chameleon x MIXED (P 3) for 120 s, final rows and traces bit-equal."""
+    sc = api.Scenario(profile=types.CHAMELEON, datasets=types.MIXED,
+                      controller=api.make_controller("EEMT", max_ch=64),
+                      environment=chip_smoke.env_smoke_environments()[name],
+                      total_s=120.0, executor="cuda")
+    (key, rows), = chip_smoke.groups_on_card([sc], cuda_device)
+    before = tl.tick_loop.launches
+    a = chip_smoke.call(tl.tick_loop, key, rows)
+    torch.cuda.synchronize()
+    assert tl.tick_loop.launches == before + 1
+    b = chip_smoke.call(tl.tick_loop_reference, key, rows)
+    for x, y in zip([a[0], a[1], *a[2]], [b[0], b[1], *b[2]]):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+def test_environment_degenerations_on_the_card(cuda_device):
+    """The four degenerate environments reproduce RUN_GOLDEN through
+    ``api.run`` on the card (auto -> the cuda executor), a launch each."""
+    cases = chip_smoke.degeneration_scenarios()
+    before = tl.tick_loop.launches
+    for (cell, en), sc in cases:
+        r = api.run(sc)
+        assert (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
+                r.avg_power_w) == chip_smoke.RUN_GOLDEN[cell], (cell, en)
+    assert tl.tick_loop.launches == before + len(cases)
 
 
 ROUTE = {torch.float32: "fma", torch.bfloat16: "wgmma"}

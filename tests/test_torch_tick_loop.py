@@ -15,6 +15,8 @@ tests/test_executors.py:
   semantics by up to 2.6e-7 relative on these cells (ROADMAP, queue 3):
   discrete fields are held exactly, float fields to rtol 1e-6.
 """
+import math
+
 import jax
 import numpy as np
 import pytest
@@ -121,7 +123,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_kernel_spec_covers_the_builtin_controllers():
     ref = tenv.REFERENCE_ENV
-    spec = {name: tl.kernel_spec(tapi.make_controller(name).code(), ref)
+    spec = {name: tl.kernel_spec(tapi.make_controller(name).code(), ref)[:2]
             for name in ("ME", "EEMT", "EETT", "ismail-target", "wget/curl",
                          "ismail-max-tput")}
     assert spec == {"ME": (tl.KIND_ME, True), "EEMT": (tl.KIND_EEMT, True),
@@ -130,8 +132,85 @@ def test_kernel_spec_covers_the_builtin_controllers():
                     "wget/curl": (tl.KIND_STATIC, False),
                     "ismail-max-tput": (tl.KIND_STATIC, False)}
     assert tl.kernel_spec(
-        tapi.make_controller("EEMT", scaling=False).code(), ref) == (
+        tapi.make_controller("EEMT", scaling=False).code(), ref)[:2] == (
         tl.KIND_EEMT, False)
+    assert tl.kernel_spec(tapi.make_controller("EEMT"), ref)[2].reference
+
+
+def _codes(spec):
+    return dict(zip(tl.ENV_CODES, spec.codes))
+
+
+def _consts(spec):
+    return dict(zip(tl.ENV_CONSTS, spec.consts.tolist()))
+
+
+def test_kernel_spec_covers_every_environment_pairing():
+    """Every network model x energy model the registries build (and every
+    registered environment) has kernel codes; the dvfs network is the
+    reference wire physics."""
+    ctrl = tapi.make_controller("EEMT")
+    net_code = {"reference": tl.NET_REFERENCE, "dvfs": tl.NET_REFERENCE,
+                "lossy-wan": tl.NET_LOSSY_WAN, "logfit": tl.NET_LOGFIT}
+    energy_code = {"reference": tl.ENERGY_REFERENCE,
+                   "big-little": tl.ENERGY_BIG_LITTLE,
+                   "dvfs": tl.ENERGY_DVFS}
+    networks = [tapi.make_network_model(n) for n in net_code
+                if n != "logfit"]
+    networks.append(tapi.make_environment("logfit").network)
+    for net in networks:
+        for en in tapi.list_energy_models():
+            env = tenv.Environment(network=net,
+                                   energy=tapi.make_energy_model(en))
+            spec = tl.kernel_spec(ctrl, env)[2]
+            assert (spec.network, spec.energy) == (net_code[net.name],
+                                                   energy_code[en])
+            assert spec.reference == (spec.network == spec.energy == 0)
+    for name in tapi.list_environments():
+        tl.kernel_spec(ctrl, tapi.make_environment(name))
+    for obj in (tapi.LossyWanNetworkModel(), tapi.BigLittleEnergyModel(),
+                tapi.DvfsEnergyModel.for_tech("lp")):
+        tl.kernel_spec(ctrl, tapi.as_environment(obj))
+
+
+def test_kernel_spec_constants_are_float32_of_the_python_expressions():
+    ctrl = tapi.make_controller("ME")
+    lossy = tl.kernel_spec(ctrl, tapi.make_environment(
+        "lossy-wan", loss_rate=1e-3, jitter_frac=0.2,
+        jitter_period_s=30.0))[2]
+    c = _consts(lossy)
+    assert _codes(lossy)["loss"] == _codes(lossy)["jitter"] == 1
+    assert c["w_loss"] == np.float32(1.22 * (1500.0 / (1024.0 * 1024.0))
+                                     / math.sqrt(1e-3))
+    assert c["knee_div"] == np.float32(1.0 + 4.0 * math.sqrt(1e-3))
+    assert c["jitter_rate"] == np.float32(2.0 * math.pi / 30.0)
+    assert c["jitter_frac"] == np.float32(0.2)
+    clean = tl.kernel_spec(ctrl, tapi.make_environment(
+        "lossy-wan", loss_rate=0.0, jitter_frac=0.0))[2]
+    assert _codes(clean)["loss"] == _codes(clean)["jitter"] == 0
+
+    dvfs = tl.kernel_spec(ctrl, tapi.make_environment(
+        "dvfs", tech="lp", idle="race", n_big=3, max_freq_ghz=1.8))[2]
+    c, k = _consts(dvfs), _codes(dvfs)
+    assert (k["race"], k["capped"], k["n_vf"]) == (1, 1, 7)
+    lp = tapi.DvfsEnergyModel.for_tech("lp")
+    assert c["max_freq"] == np.float32(1.8) and c["n_big"] == 3.0
+    assert c["little_dyn"] == np.float32(lp.little_cap_frac)
+    assert c["little_static"] == np.float32(lp.little_leak_frac)
+    n = len(tl.ENV_CONSTS)
+    np.testing.assert_array_equal(
+        dvfs.consts[n:n + 7], np.asarray(lp.vf_ghz, np.float32))
+    np.testing.assert_array_equal(
+        dvfs.consts[n + tl.MAX_VF_POINTS:n + tl.MAX_VF_POINTS + 7],
+        np.asarray(lp.vf_volt, np.float32))
+    assert dvfs.consts.dtype == np.float32
+    assert dvfs.consts.size == n + 2 * tl.MAX_VF_POINTS
+
+    fit = tl.kernel_spec(ctrl, tapi.make_environment("logfit", log=[
+        dict(start_s=0.0, end_s=60.0, mb=6e4, rtt_s=0.04)]))[2]
+    assert _codes(fit)["fit_rtt"] == 1 and _codes(fit)["n_bins"] == 1
+    assert _consts(fit)["rtt_fit"] == np.float32(0.04)
+    assert fit.schedule == (1000.0,)
 
 
 def test_kernel_spec_rejects_what_the_kernel_does_not_implement():
@@ -141,6 +220,19 @@ def test_kernel_spec_rejects_what_the_kernel_does_not_implement():
     with pytest.raises(ValueError, match="reference environment"):
         tl.kernel_spec(tapi.make_controller("EEMT"),
                        tenv.Environment(network=Slower()))
+
+    class Hotter(tapi.DvfsEnergyModel):
+        pass
+
+    with pytest.raises(ValueError, match="no code for energy model Hotter"):
+        tl.kernel_spec(tapi.make_controller("EEMT"),
+                       tenv.Environment(energy=Hotter()))
+    long_table = tapi.DvfsEnergyModel(
+        vf_ghz=tuple(0.5 + 0.1 * i for i in range(17)),
+        vf_volt=tuple(0.6 + 0.05 * i for i in range(17)))
+    with pytest.raises(ValueError, match="at most 16 points"):
+        tl.kernel_spec(tapi.make_controller("EEMT"),
+                       tenv.Environment(energy=long_table))
 
     class Custom(tapi.TunerController):
         pass
@@ -168,7 +260,11 @@ def test_ptxas_report_parsing():
     report = build.ptxas_report(log)
     (name, line), = report.items()
     assert build.tick_loop_instance(name) == (3, tl.KIND_EEMT, True)
+    assert build.tick_loop_env_instance(name) is None
     assert "72 registers" in line and "0 bytes spill stores" in line
+    env = "_ZN4tick20tick_loop_env_kernelILi8ELi4ELb0EEEvNS_4ArgsE"
+    assert build.tick_loop_env_instance(env) == (8, tl.KIND_STATIC, False)
+    assert build.tick_loop_instance(env) is None
 
 
 def test_build_flags_pin_the_numerics():

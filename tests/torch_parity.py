@@ -7,10 +7,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro import api as japi
 from repro.core import engine as jengine
 from repro.core import tickstate as jts
 from repro_torch import api as tapi
 from repro_torch.core import types as ttypes
+from repro_torch.workloads.logfit import LogFitNetworkModel
 
 
 def port_profile(p):
@@ -21,19 +23,55 @@ def port_datasets(ds):
     return tuple(ttypes.DatasetSpec(*dataclasses.astuple(d)) for d in ds)
 
 
+def port_cpu(cpu):
+    return ttypes.CpuProfile(*dataclasses.astuple(cpu))
+
+
+# The port's model class for each JAX model name, by protocol half.
+_NETWORKS = {"reference": tapi.ReferenceNetworkModel,
+             "lossy-wan": tapi.LossyWanNetworkModel,
+             "dvfs": tapi.DvfsNetworkModel,
+             "logfit": LogFitNetworkModel}
+_ENERGIES = {"reference": tapi.ReferenceEnergyModel,
+             "big-little": tapi.BigLittleEnergyModel,
+             "dvfs": tapi.DvfsEnergyModel}
+
+
+def port_environment(env):
+    """The port's Environment for a JAX Environment (or anything the JAX
+    ``as_environment`` takes), model by model: the class by the model's
+    name, the fields by the dataclass's."""
+    env = japi.as_environment(env)
+
+    def port(model, classes):
+        return classes[model.name](**{
+            f.name: getattr(model, f.name)
+            for f in dataclasses.fields(model)})
+
+    return tapi.Environment(network=port(env.network, _NETWORKS),
+                            energy=port(env.energy, _ENERGIES))
+
+
 def port_scenario(sc, **overrides):
-    """The port's Scenario for a JAX Scenario with a reference environment,
-    a registry-name or TunerController controller and the default CPU."""
+    """The port's Scenario for a JAX Scenario with a registry-name or
+    built-in controller (any environment and CPU)."""
     ctrl = sc.controller
-    if not isinstance(ctrl, str):
+    if type(ctrl).__name__ == "StaticBaselineController":
+        ctrl = tapi.StaticBaselineController(label=ctrl.label,
+                                             builder=ctrl.builder,
+                                             params=ctrl.params)
+    elif type(ctrl).__name__ == "IsmailTargetController":
+        ctrl = tapi.IsmailTargetController(
+            sla=ttypes.SLA(*dataclasses.astuple(ctrl.sla)), label=ctrl.label)
+    elif not isinstance(ctrl, str):
         sla = ttypes.SLA(*dataclasses.astuple(ctrl.sla))
         ctrl = tapi.TunerController(sla=sla, scaling=ctrl.scaling,
                                     label=ctrl.label)
-    assert sc.environment is None and sc.bw_schedule is None
-    assert dataclasses.astuple(sc.cpu) == dataclasses.astuple(
-        ttypes.CpuProfile())
+    assert sc.bw_schedule is None
     kw = dict(profile=port_profile(sc.profile),
               datasets=port_datasets(sc.datasets), controller=ctrl,
+              cpu=port_cpu(sc.cpu),
+              environment=port_environment(sc.environment),
               total_s=sc.total_s, dt=sc.dt, name=sc.name)
     kw.update(overrides)
     return tapi.Scenario(**kw)
