@@ -37,6 +37,29 @@ Phases (each prints a line; any failure exits non-zero):
               ``tests/torch_goldens/fig_dvfs_full.json``, one launch per
               group, timed; (d) phase 6's 4,096 lanes under dvfs hp race
               (n_big 4): kernel vs plain, times, bound, memory.
+18. learn   — run right after phase 17: learned control at
+              ``benchmarks/learn.py``'s configuration.  (a) the EEMT
+              teacher's capture (Chameleon x small/mixed, 900 s) on the
+              observed eager step, its metrics and final state bit-equal to
+              the kernel's unobserved run, and ``bc_train`` (400 steps, seed
+              0) on the card; (b) the learned kernel vs its plain version,
+              bit for bit, for JAX's BC policy (``tests/torch_goldens/
+              learn_full.json``) and the port's, under the reference
+              environment and dvfs hp race, then at phase 6's 4,096 lanes in
+              one launch: times, bound (bytes, and the MLP's operations per
+              controller tick at 67 TFLOP/s float32), memory; (c)
+              ``evaluate(JAX's policy, smoke=False)``: 20 cells in 5
+              launches against ``learn_full.json`` (a learned cell whose
+              recorded top-two logit margin is at most 1e-5 of its largest
+              |logit| is printed as a near tie, not held); (d) the port's BC
+              policy within 1.10x of the teacher's energy (``vs_teacher``);
+              (e) ``pg_train`` at tests/test_learn.py's acceptance
+              configuration, twice: the cost falls, the params are finite
+              and the two runs bit-equal; (f) the fig2 and fig_dvfs
+              Experiments (the port's copies of ``benchmarks/fig2.py``'s and
+              ``benchmarks/fig_dvfs.py``'s) against their goldens and the
+              sweep of the same cells, one launch per group; a cached re-run
+              executes no cell.
 7. flash    — the flash-attention kernels vs their plain version on the
               card at qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T
               128/384/2048, causal or not, window 0/256, bf16 (wgmma
@@ -88,9 +111,9 @@ Phases (each prints a line; any failure exits non-zero):
               logits through the kernels and through the plain versions,
               each against the float32 prefill of the same weights.
 
-Phases 5, 6, 9, 12, 16 and 17c drive the main paths: each kernel's launch
-count is set to 0 just before and read just after; every attention launch
-there must take the bf16 (wgmma) route.  The float32 (FMA) attention
+Phases 5, 6, 9, 12, 16, 17c, 18c and 18f drive the main paths: each
+kernel's launch count is set to 0 just before and read just after; every
+attention launch there must take the bf16 (wgmma) route.  The float32 (FMA) attention
 kernels' launches are counted over the float32 goldens' entry points
 (phases 8, 11 and 15).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -99,10 +122,15 @@ the JAX package; it needs a CUDA card and the rest of the repository.
     python3 chip_smoke.py --tick-loop
 
 runs phases 1-6 and 17 only (the tick loop's check after a change to it)
-and prints neither of the last two lines.
+and prints neither of the last two lines;
+
+    python3 chip_smoke.py --learn
+
+runs phases 1-3 and 18 only, and prints neither either.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import os
@@ -188,6 +216,28 @@ LOGFIT_LOG = (800.0, 1200.0, 400.0, 1000.0)   # MB/s, 60 s bins, rtt 40 ms
 # Phase 17d's environment.
 DVFS_TUNE = dict(tech="hp", idle="race", n_big=4)
 
+# Phase 18: learned control, at benchmarks/learn.py's configuration: the
+# EEMT teacher (max_ch 64) on Chameleon x small and mixed at 900 s, BC for
+# 400 steps (batch 256, lr 3e-3, seed 0); the evaluation grid against
+# tests/torch_goldens/learn_full.json, a learned cell held only where JAX's
+# smallest top-two logit margin over its controller ticks exceeds
+# LEARN_MARGIN of the largest |logit|; the port's own BC policy within
+# LEARN_BC_RATIO of the teacher's energy (repro.learn's acceptance test);
+# REINFORCE at tests/test_learn.py::test_pg_train_improves_energy_delay's
+# configuration.
+LEARN_MARGIN = 1e-5
+LEARN_BC_RATIO = 1.10
+LEARN_BC_STEPS = 400
+LEARN_PG_LANES = 8
+LEARN_PG = dict(steps=6, lr=2e-3, tput_floor_mbps=400.0)
+# Float32 operations of one learned controller tick beyond the tuner's
+# (counted from csrc/tick_loop.cu): the 9 features (~40, log1pf and log10f
+# ~20 each), per layer a product and a sum per weight and a sum per bias,
+# ~20 per tanhf, ~10 for the argmaxes and the action.
+LEARN_FEATURE_OPS = 80
+LEARN_TANH_OPS = 20
+LEARN_ACTION_OPS = 10
+
 # Tune-sized sweep: 4 x 4 x 4 x 4 SLA points x 16 bandwidth schedules.
 TUNE_ALPHA = (0.05, 0.1, 0.15, 0.2)
 TUNE_BETA = (0.02, 0.05, 0.1, 0.15)
@@ -223,13 +273,19 @@ def budget_for(profile) -> float:
     return 28800.0 if profile.bandwidth_mbps < 500 else 7200.0
 
 
+def _datasets():
+    from repro_torch.core import types
+
+    return {"small": (types.SMALL_FILES,), "medium": (types.MEDIUM_FILES,),
+            "large": (types.LARGE_FILES,), "mixed": types.MIXED}
+
+
 def fig2_scenarios(smoke=False, executor="auto"):
     """[(testbed, dataset, tool), Scenario] of the Figure 2 grid."""
     from repro_torch import api
     from repro_torch.core import types
 
-    datasets = {"small": (types.SMALL_FILES,), "medium": (types.MEDIUM_FILES,),
-                "large": (types.LARGE_FILES,), "mixed": types.MIXED}
+    datasets = _datasets()
     testbeds, dss, tools = FIG2_SMOKE if smoke else (
         FIG2_TESTBEDS, FIG2_DATASETS, FIG2_TOOLS)
     cells = []
@@ -258,8 +314,10 @@ def tune_bw_schedules():
                       .astype(np.float32), per_seg) for s in TUNE_SEEDS]
 
 
-def tune_scenarios(executor="auto", environment=None):
-    """4,096 EEMT lanes on Chameleon x MIXED (one sweep group)."""
+def tune_scenarios(executor="auto", environment=None, learned=None):
+    """4,096 EEMT lanes on Chameleon x MIXED (one sweep group); with
+    ``learned`` (policy params), the learned controller at the same SLA
+    points (their delta_ch and max_ch scale its actions)."""
     from repro_torch import api
     from repro_torch.core import types
 
@@ -269,8 +327,12 @@ def tune_scenarios(executor="auto", environment=None):
         for b in TUNE_BETA:
             for d in TUNE_DELTA_CH:
                 for m in TUNE_MAX_CH:
-                    ctrl = api.make_controller("EEMT", alpha=a, beta=b,
-                                               delta_ch=d, max_ch=m)
+                    ctrl = (api.make_controller("EEMT", alpha=a, beta=b,
+                                                delta_ch=d, max_ch=m)
+                            if learned is None else
+                            api.make_controller("learned", params=learned,
+                                                alpha=a, beta=b, delta_ch=d,
+                                                max_ch=m))
                     for s, bw in zip(TUNE_SEEDS, schedules):
                         out.append(api.Scenario(
                             profile=types.CHAMELEON, datasets=types.MIXED,
@@ -334,6 +396,113 @@ def greendataflow_scenarios(executor="auto"):
                         name=f"greendataflow/{tb}/{tech}/{idle}/{tool}",
                         executor=executor)))
     return out
+
+
+def fig2_experiment(smoke=False):
+    """benchmarks/fig2.py's Experiment, built with the port's api."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    testbeds, dss, tools = FIG2_SMOKE if smoke else (
+        FIG2_TESTBEDS, FIG2_DATASETS, FIG2_TOOLS)
+    datasets = _datasets()
+    return api.Experiment(
+        name="fig2",
+        space=api.grid(
+            api.axis("testbed", {tb: types.TESTBEDS[tb] for tb in testbeds},
+                     field="profile"),
+            api.axis("dataset", {ds: datasets[ds] for ds in dss},
+                     field="datasets"),
+            api.axis("tool", tools)),
+        base={"cpu": types.CpuProfile(),
+              "controller": lambda c: _tool_controller(c["tool"]),
+              "total_s": 900.0 if smoke
+              else (lambda c: budget_for(c["profile"]))})
+
+
+def fig_dvfs_experiment():
+    """benchmarks/fig_dvfs.py's ``experiment()``, built with the port's
+    api."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.core import types
+
+    return api.Experiment(
+        name="fig_dvfs",
+        space=api.grid(
+            api.axis("tool", FIG_DVFS_TOOLS),
+            api.axis("fcap", FIG_DVFS_FCAPS),
+            api.axis("cores", FIG_DVFS_CORES)),
+        base={"profile": types.CHAMELEON, "datasets": types.MIXED,
+              "cpu": lambda c: dataclasses.replace(types.CpuProfile(),
+                                                   num_cores=c["cores"]),
+              "controller": lambda c: _tool_controller(c["tool"]),
+              "environment": lambda c: api.make_environment(
+                  "dvfs", n_big=4, max_freq_ghz=c["fcap"]),
+              "total_s": budget_for(types.CHAMELEON)})
+
+
+def greendataflow_experiment():
+    """benchmarks/fig_dvfs.py's ``greendataflow()``, built with the port's
+    api."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    return api.Experiment(
+        name="greendataflow",
+        space=api.grid(
+            api.axis("testbed", {tb: types.TESTBEDS[tb]
+                                 for tb in GDF_TESTBEDS}, field="profile"),
+            api.axis("tech", GDF_TECHS),
+            api.axis("idle", GDF_IDLES),
+            api.axis("tool", FIG_DVFS_TOOLS)),
+        base={"cpu": types.CpuProfile(), "datasets": types.MIXED,
+              "controller": lambda c: _tool_controller(c["tool"]),
+              "environment": lambda c: api.make_environment(
+                  "dvfs", tech=c["tech"], idle=c["idle"]),
+              "total_s": lambda c: budget_for(c["profile"])})
+
+
+def learn_teacher():
+    from repro_torch import api
+
+    return api.make_controller("EEMT", max_ch=64)
+
+
+def learn_teacher_cells():
+    """benchmarks/learn.py's teacher cells: EEMT on Chameleon x small and
+    mixed at 900 s."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    return [api.Scenario(profile=types.CHAMELEON, datasets=ds,
+                         controller=learn_teacher(), total_s=900.0, dt=0.1)
+            for ds in ((types.SMALL_FILES,), types.MIXED)]
+
+
+def learn_pg_scenarios():
+    """tests/test_learn.py::test_pg_train_improves_energy_delay's lanes."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    return [api.Scenario(profile=types.CHAMELEON,
+                         datasets=(types.DatasetSpec(
+                             "d", 1000, 8000.0 + 1500.0 * i, 8.0),),
+                         controller=api.make_controller("eemt"),
+                         total_s=120.0, dt=0.1)
+            for i in range(LEARN_PG_LANES)]
+
+
+def golden_learned():
+    """(JAX's BC params from learn_full.json, the golden)."""
+    import numpy as np
+
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "learn_full.json")) as f:
+        gold = json.load(f)
+    return {k: np.asarray(v, np.float32)
+            for k, v in gold["params"].items()}, gold
 
 
 def env_smoke_environments():
@@ -466,18 +635,44 @@ def executed_lane_ticks(metrics, n_steps):
     return int(torch.where(completed, first, n_steps).sum())
 
 
-def bound_of(groups_rows, lane_ticks):
+def executed_ctrl_ticks(metrics, n_steps, ctrl_every):
+    """Controller ticks the lanes actually ran (one each ``ctrl_every``
+    executed ticks)."""
+    import torch
+
+    done = metrics.done.to(torch.int32)
+    ticks = torch.where(done.any(dim=1), done.argmax(dim=1) + 1, n_steps)
+    return int((ticks // ctrl_every).sum())
+
+
+def learned_ops(controller):
+    """(float32 operations of one learned controller tick, floats of its
+    weight table)."""
+    from repro_torch.kernels import tick_loop as tl
+
+    w = tl.policy_widths(controller)
+    weights = sum(a * b + b for a, b in zip(w[:-1], w[1:]))
+    mlp = sum(2 * a * b for a, b in zip(w[:-1], w[1:]))
+    return (mlp + LEARN_TANH_OPS * sum(w[1:-1]) + LEARN_FEATURE_OPS
+            + LEARN_ACTION_OPS, weights)
+
+
+def bound_of(groups_rows, lane_ticks, ctrl_ticks=None):
     """(bound_ms, bound_by, bytes, ops) for a set of tick_loop calls: every
-    trace written once, the parameter/state rows read and written once, and
-    the bandwidth share of every executed lane-tick read once; operations
-    per executed lane-tick over the float32 peak."""
+    trace written once, the parameter/state rows read and written once, the
+    bandwidth share of every executed lane-tick read once and a learned
+    policy's weight table read once; operations per executed lane-tick over
+    the float32 peak, plus, for a learned controller, its MLP's operations
+    per executed controller tick (``ctrl_ticks``, one count per group)."""
     from repro_torch.kernels import tick_loop as tl
 
     nbytes = 0
     ops = 0
-    for (key, (prow, bw, f0, i0)), ticks in zip(groups_rows, lane_ticks):
+    ctrl_ticks = ctrl_ticks or [0] * len(lane_ticks)
+    for (key, (prow, bw, f0, i0)), ticks, cticks in zip(
+            groups_rows, lane_ticks, ctrl_ticks):
         b, n = bw.shape
-        spec = tl.env_spec(key.env_code)
+        kind, _, spec = tl.kernel_spec(key.ctrl_code, key.env_code)
         nbytes += TRACE_BYTES_PER_TICK * n * b
         nbytes += 4 * (prow.numel() + 2 * f0.numel() + 2 * i0.numel())
         nbytes += 4 * ticks + 4 * len(spec.schedule)
@@ -485,6 +680,10 @@ def bound_of(groups_rows, lane_ticks):
                         + OPS_PER_PARTITION_TICK * key.n_partitions
                         + ENV_NET_OPS[spec.network]
                         + ENV_ENERGY_OPS[spec.energy])
+        if kind == tl.KIND_LEARNED:
+            tick_ops, table = learned_ops(key.ctrl_code)
+            nbytes += 4 * table
+            ops += cticks * tick_ops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -695,6 +894,278 @@ def phase_environments(dev, ref_runs) -> dict:
     print(f"[17 envs] phase time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"launches": launches}
+
+
+def phase_learn(dev) -> dict:
+    """Phase 18: learned control on the card (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import api, learn
+    from repro_torch.core import types
+    from repro_torch.kernels import tick_loop as tl
+
+    t_phase = time.perf_counter()
+    jax_params, gold = golden_learned()
+    teacher = learn_teacher()
+    jax_learned = learn.LearnedController(params=jax_params, sla=teacher.sla,
+                                          label="learned")
+    check(jax_learned.digest == gold["digest"],
+          "learn_full.json: params digest differs from the golden's")
+
+    # (a) teacher capture on the observed eager step, and BC, on the card
+    cells = learn_teacher_cells()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, labels = learn.teacher_dataset(cells, device=dev)
+    capture_s = time.perf_counter() - t0
+    observed = learn.run_observed(cells, device=dev)
+    before = tl.tick_loop.launches
+    _, runs = api.run_groups(cells, device=dev)
+    check(tl.tick_loop.launches - before == len(runs) == 1,
+          f"teacher cells: {tl.tick_loop.launches - before} launches for "
+          f"{len(runs)} groups")
+    (run,), = [runs]
+    for b, i in enumerate(run.indices):
+        obs_run = observed[i]
+        for name, kern, seen in zip(run.metrics._fields, run.metrics,
+                                    obs_run.metrics):
+            check(np.array_equal(kern[b].cpu().numpy(), seen),
+                  f"18a cell {i}: observed {name} != the kernel's")
+        for name, kern, seen in zip(run.sim._fields, run.sim, obs_run.sim):
+            check(np.array_equal(kern[b].cpu().numpy(), seen),
+                  f"18a cell {i}: observed final {name} != the kernel's")
+    t0 = time.perf_counter()
+    params, hist = learn.bc_train(feats, labels,
+                                  key=learn.seed_everything(0),
+                                  steps=LEARN_BC_STEPS, device=dev)
+    fit_s = time.perf_counter() - t0
+    check(hist["loss"][-1] < hist["loss"][0], "BC loss did not decrease")
+    port_learned = learn.LearnedController(params=params, sla=teacher.sla,
+                                           label="learned")
+    print(f"[18 learn] (a) teacher capture (EEMT, Chameleon x small/mixed, "
+          f"900 s) on the observed eager step: {feats.shape[0]} samples "
+          f"(JAX: {gold['train']['samples']}) in {capture_s:.2f} s; "
+          f"observed metrics and final state bit-equal to the kernel's run "
+          f"(1 launch); BC {LEARN_BC_STEPS} steps on the card in "
+          f"{fit_s:.2f} s, loss {hist['loss'][0]:.6f} -> "
+          f"{hist['loss'][-1]:.6f} (JAX {gold['train']['loss_first']:.6f} "
+          f"-> {gold['train']['loss_last']:.6f})", flush=True)
+
+    # (b) kernel == plain version: both policies, two environments
+    envs = {"reference": None,
+            "dvfs hp race": api.make_environment("dvfs", **DVFS_TUNE)}
+    t_plain = 0.0
+    for pname, ctrl in (("JAX BC", jax_learned), ("port BC", port_learned)):
+        for en, env in envs.items():
+            scs = [dataclasses.replace(sc, controller=ctrl, environment=env,
+                                       executor="cuda")
+                   for sc in learn_teacher_cells()]
+            (key, rows), = groups_on_card(scs, dev)
+            kern = call(tl.tick_loop, key, rows)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = call(tl.tick_loop_reference, key, rows)
+            torch.cuda.synchronize()
+            t_plain += time.perf_counter() - t0
+            equal, err = compare_outputs(kern, plain)
+            check(equal, f"18b {pname} / {en}: kernel != plain version "
+                         f"(max |err| {err})")
+            print(f"[18 learn] (b) {pname} policy, {en}: fig2 smoke cells "
+                  f"(Chameleon x small/mixed, 900 s): kernel == plain "
+                  f"(final rows and 7 traces bit-equal); fsm (controller "
+                  f"ticks) {kern[1][:, 0].tolist()}; executed ticks "
+                  f"{executed_lane_ticks(kern[2], key.n_steps)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res_t = api.sweep(tune_scenarios(learned=jax_params), device=dev)
+    wall_t = time.perf_counter() - t0
+    peak_t = torch.cuda.max_memory_allocated()
+    grs_t = groups_on_card(tune_scenarios(executor="cuda",
+                                          learned=jax_params), dev)
+    check(len(grs_t) == 1, f"learned tune split into {len(grs_t)} groups")
+    (key_t, rows_t), = grs_t
+    kern_t = call(tl.tick_loop, key_t, rows_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_t = call(tl.tick_loop_reference, key_t, rows_t)
+    torch.cuda.synchronize()
+    plain_t_ms = (time.perf_counter() - t0) * 1e3
+    eq_t, err_t = compare_outputs(kern_t, plain_t)
+    check(eq_t, f"learned tune: kernel != plain version (max |err| {err_t})")
+    del plain_t
+    ticks_t = executed_lane_ticks(kern_t[2], key_t.n_steps)
+    cticks_t = executed_ctrl_ticks(kern_t[2], key_t.n_steps,
+                                   key_t.ctrl_every)
+    ms_t = time_cuda(lambda: call(tl.tick_loop, key_t, rows_t), 5)
+    bound_t, by_t, nbytes_t, ops_t = bound_of(grs_t, [ticks_t], [cticks_t])
+    b, n = rows_t[1].shape
+    print(f"[18 learn] (b) learned tune (JAX BC policy at phase 6's SLA "
+          f"points and schedules): {b} lanes x {n} ticks, 1 group: kernel "
+          f"== plain "
+          f"on all lanes; kernel {ms_t:.3f} ms (median of 5); {ticks_t} "
+          f"executed lane-ticks ({cticks_t} controller ticks) = "
+          f"{ticks_t / (ms_t / 1e3):.4g} lane-ticks/s; bound "
+          f"{bound_t:.4f} ms by {by_t} ({nbytes_t} B, {ops_t} ops); plain "
+          f"{plain_t_ms:.1f} ms; peak memory {peak_t} B; sweep end to end "
+          f"{wall_t:.3f} s; {sum(r.completed for r in res_t)} completed; "
+          f"plain versions of the smoke cells {t_plain:.1f} s", flush=True)
+    del kern_t, rows_t, grs_t, res_t
+
+    # (c) the evaluation grid through the kernel (main path) vs the golden
+    exp = learn.evaluation_experiment(jax_learned, smoke=False)
+    n_groups = api.group_count([c.scenario for c in exp.cells()],
+                               device=dev)
+    check(n_groups == gold["group_count"],
+          f"learn eval: group_count {n_groups} != JAX's "
+          f"{gold['group_count']}")
+    tl.tick_loop.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = learn.evaluate(jax_learned, smoke=False, timing="cold",
+                            device=dev)
+    eval_wall = time.perf_counter() - t0
+    eval_launches = tl.tick_loop.launches
+    check(eval_launches == n_groups,
+          f"learn eval: {eval_launches} launches for {n_groups} groups")
+    want = {(r["testbed"], r["dataset"], r["tool"]): r for r in gold["rows"]}
+    near, n_exact = [], 0
+    for r in report.rows():
+        cell = (r["testbed"], r["dataset"], r["tool"])
+        w = want[cell]
+        if r["tool"] == "learned":
+            m = gold["margins"][f"{cell[0]}/{cell[1]}"]["margin"]
+            if m is not None and m <= LEARN_MARGIN:
+                near.append((cell, m))
+                continue
+        check(bool(r["completed"]) == w["completed"]
+              and r["time_s"] == w["time_s"],
+              f"learn eval {cell}: completed/time_s {r['completed']}/"
+              f"{r['time_s']} vs {w['completed']}/{w['time_s']}")
+        for fld in ("energy_j", "avg_tput_MBps"):
+            check(abs(r[fld] - w[fld]) <= 1e-5 * abs(w[fld]),
+                  f"learn eval {cell}: {fld} {r[fld]} vs {w[fld]}")
+        n_exact += all(r[f] == w[f] for f in ("time_s", "energy_j",
+                                              "avg_tput_MBps",
+                                              "avg_power_w"))
+    for cell, m in near:
+        print(f"[18 learn] (c) NEAR TIE, not held: {cell} margin {m:.3e} "
+              f"<= {LEARN_MARGIN} of the largest |logit|", flush=True)
+    print(f"[18 learn] (c) evaluate(JAX BC policy, smoke=False): "
+          f"{len(report)} cells in {n_groups} groups ({eval_launches} "
+          f"launches), wall {eval_wall:.3f} s; vs learn_full.json: "
+          f"completed/time_s exact, energy/tput rtol 1e-5 on "
+          f"{len(report) - len(near)} cells ({len(near)} near ties), "
+          f"{n_exact} bit-exact; learned cells' smallest margins "
+          + ", ".join(f"{k} {v['margin']:.3g}"
+                      for k, v in gold["margins"].items()), flush=True)
+
+    # (d) the port's BC policy against its teacher (the reference's
+    # acceptance metric)
+    rep_d = learn.evaluate(port_learned, rivals={"EEMT": teacher},
+                           smoke=True, timing="cold", device=dev)
+    ratios = learn.vs_teacher(rep_d, "EEMT")
+    check(set(ratios) == {"chameleon/small", "chameleon/mixed"},
+          f"vs_teacher cells {sorted(ratios)}")
+    for cell, r in ratios.items():
+        check(r["learned_completed"] and r["teacher_completed"]
+              and r["energy_ratio"] <= LEARN_BC_RATIO,
+              f"18d {cell}: the port's BC policy {r}")
+    print(f"[18 learn] (d) the port's BC policy vs EEMT: "
+          + "; ".join(f"{c} energy x{r['energy_ratio']:.4f} tput "
+                      f"x{r['tput_ratio']:.4f}" for c, r in ratios.items())
+          + f" (<= {LEARN_BC_RATIO}, both completed; JAX's policy: "
+          + "; ".join(f"{c} x{r['energy_ratio']:.4f}" for c, r in
+                      gold["vs_teacher"].items() if c.startswith("cham"))
+          + ")", flush=True)
+
+    # (e) REINFORCE on the card, twice
+    pg = learn.PGConfig(**LEARN_PG)
+    sla_me = types.SLA(policy=types.SLAPolicy.MIN_ENERGY)
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(learn.pg_train(learn_pg_scenarios(),
+                                   key=learn.seed_everything(0), sla=sla_me,
+                                   pg=pg, device=dev)
+                    + (time.perf_counter() - t0,))
+    (p1, h1, s1), (p2, h2, s2) = outs
+    check(h1["cost"].min() < h1["cost"][0],
+          f"PG cost did not improve: {h1['cost'].tolist()}")
+    check(all(np.isfinite(v).all() for v in p1.values()),
+          "PG params not finite")
+    check(all(np.array_equal(p1[k], p2[k]) for k in p1)
+          and np.array_equal(h1["cost"], h2["cost"]),
+          "PG is not bit-deterministic on the card")
+    print(f"[18 learn] (e) pg_train ({LEARN_PG_LANES} lanes x 120 s, "
+          f"{pg.steps} updates): cost {[round(float(c), 4) for c in h1['cost']]}"
+          f" (min < first), params finite, two runs bit-equal; "
+          f"{s1:.1f} / {s2:.1f} s = {s1 / (pg.steps + 1):.2f} s per rollout "
+          f"(greedy reference + {pg.steps} updates)", flush=True)
+
+    # (f) the figure Experiments (main paths) against the goldens and the
+    # sweep of the same scenarios; a cached re-run executes no cell
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "fig2_full.json")) as f:
+        gold_fig2 = json.load(f)
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "fig_dvfs_full.json")) as f:
+        gold_dvfs = json.load(f)
+    launches = {"learn_eval": eval_launches}
+    for name, exp, golden, axes in (
+            ("fig2_experiment", fig2_experiment(), gold_fig2,
+             ("testbed", "dataset", "tool")),
+            ("fig_dvfs_experiment", fig_dvfs_experiment(),
+             gold_dvfs["fig_dvfs"], ("tool", "fcap", "cores")),
+            ("greendataflow_experiment", greendataflow_experiment(),
+             gold_dvfs["greendataflow"],
+             ("testbed", "tech", "idle", "tool"))):
+        cells_f = exp.cells()
+        swept = api.sweep([c.scenario for c in cells_f], device=dev)
+        with tempfile.TemporaryDirectory() as cache:
+            tl.tick_loop.launches = 0
+            t0 = time.perf_counter()
+            rep = exp.run(cache=cache, cells=cells_f, device=dev)
+            wall = time.perf_counter() - t0
+            launches[name] = tl.tick_loop.launches
+            check(launches[name] == golden["group_count"],
+                  f"{name}: {launches[name]} launches for "
+                  f"{golden['group_count']} groups")
+            again = exp.run(cache=cache, cells=cells_f, device=dev)
+            check(again.meta["executed"] == 0
+                  and again.meta["cache_hits"] == len(cells_f),
+                  f"{name}: cached re-run executed {again.meta['executed']}")
+            check(all(np.array_equal(rep[m], again[m])
+                      for m in rep.metrics), f"{name}: cached rows differ")
+        want_f = {tuple(r[a] for a in axes): r for r in golden["rows"]}
+        n_exact = 0
+        for row, res in zip(rep.rows(), swept):
+            check(all(row[m] == float(getattr(res, m))
+                      for m in api.report.RESULT_METRICS),
+                  f"{name} {row}: Experiment row != the sweep's")
+            w = want_f[tuple(row[a] for a in axes)]
+            check(bool(row["completed"]) == w["completed"]
+                  and row["time_s"] == w["time_s"],
+                  f"{name} {row}: completed/time_s vs golden {w}")
+            for fld in ("energy_j", "avg_tput_MBps"):
+                check(abs(row[fld] - w[fld]) <= 1e-5 * abs(w[fld]),
+                      f"{name} {row}: {fld} vs golden {w[fld]}")
+            n_exact += all(row[f] == w[f] for f in ("time_s", "energy_j",
+                                                    "avg_tput_MBps",
+                                                    "avg_power_w"))
+        print(f"[18 learn] (f) {name}: {len(rep)} cells, {launches[name]} "
+              f"launches, wall {wall:.3f} s; rows == the sweep's; vs the "
+              f"golden completed/time_s exact, energy/tput rtol 1e-5, "
+              f"{n_exact} bit-exact; cached re-run executed 0 of "
+              f"{len(cells_f)}", flush=True)
+    print(f"[18 learn] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "tune_ms": ms_t,
+            "tune_plain_ms": plain_t_ms, "tune_bound_ms": bound_t,
+            "tune_bound_by": by_t}
 
 
 # ------------------------------------------------- attention and serving --
@@ -2136,12 +2607,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv)
+    return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv,
+                 learn_only="--learn" in sys.argv)
 
 
-def smoke(dev, tick_only=False) -> int:
-    """Every phase (with ``tick_only``, phases 1-6 and 17), on the CUDA
-    device ``dev``."""
+def smoke(dev, tick_only=False, learn_only=False) -> int:
+    """Every phase (with ``tick_only``, phases 1-6 and 17; with
+    ``learn_only``, phases 1-3 and 18), on the CUDA device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -2214,10 +2686,16 @@ def smoke(dev, tick_only=False) -> int:
         check(inst is not None, f"unexpected entry {name}")
         print(f"[2 build] rglru {inst}: {line}")
     report = build.ptxas_report(logs["tick_loop.cu"])
-    names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC"]
+    names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC", "LEARNED"]
     used = set()
     env_d = api.make_environment("dvfs", **DVFS_TUNE)
-    for scs in (list(golden_scenarios().values()),
+    learned_p, _ = golden_learned()
+    learned_c = api.make_controller("learned", params=learned_p)
+    for scs in ([dataclasses.replace(sc, controller=learned_c,
+                                     environment=env)
+                 for sc in learn_teacher_cells() for env in (None, env_d)],
+                tune_scenarios(learned=learned_p)[:1],
+                list(golden_scenarios().values()),
                 [s for _, s in fig2_scenarios(smoke=False)],
                 tune_scenarios()[:1],
                 [s for _, s in degeneration_scenarios()],
@@ -2255,6 +2733,10 @@ def smoke(dev, tick_only=False) -> int:
           f"{launched} launches for {len(RUN_GOLDEN)} golden cells")
     print(f"[3 goldens] {len(RUN_GOLDEN)}/{len(RUN_GOLDEN)} RUN_GOLDEN cells "
           f"bit-exact on the cuda executor, {launched} launches", flush=True)
+    if learn_only:
+        phase_learn(dev)
+        print("chip_smoke: learn phases (1-3, 18) passed")
+        return 0
 
     # 4. smoke grid: cuda executor vs reference executor, both on the card
     outs = {}
@@ -2392,6 +2874,7 @@ def smoke(dev, tick_only=False) -> int:
     if tick_only:
         print("chip_smoke: tick-loop phases (1-6, 17) passed")
         return 0
+    learned = phase_learn(dev)
 
     # 7-9: flash attention, the float32 golden, serving (the tick loop's
     # tensors are freed first, so the serving phases' peaks are their own)
@@ -2429,10 +2912,14 @@ def smoke(dev, tick_only=False) -> int:
         "name": "tick_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tick_loop.cu",
         "replaces": "src/repro/core/engine.py:612",
-        "launches": main_launches + sum(envs["launches"].values()),
-        "launches_by_path": {"fig2": main_launches, **envs["launches"]},
+        "launches": main_launches + sum(envs["launches"].values())
+        + sum(learned["launches"].values()),
+        "launches_by_path": {"fig2": main_launches, **envs["launches"],
+                             **learned["launches"]},
         "environments": ["reference", "lossy-wan", "logfit", "big-little",
                          "dvfs"],
+        "controllers": ["ME", "EEMT", "EETT", "ismail-target", "static",
+                        "learned"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {

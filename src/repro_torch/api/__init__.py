@@ -16,7 +16,9 @@ constructed directly; the physics they run against is an
 :class:`NetworkModel` with an :class:`EnergyModel`.  ``api.sweep([...])``
 groups shape-compatible scenarios — same controller code AND environment
 code — and runs each group as one lane batch: one launch of the CUDA tick
-kernel on a card.
+kernel on a card.  An :class:`Experiment` declares a whole grid of
+scenarios (``axis`` / ``grid`` / ``zip_`` / ``chain``), runs it through
+``sweep`` with a per-cell cache, and returns a columnar :class:`Report`.
 """
 from repro_torch.core.engine import TransferResult  # noqa: F401
 
@@ -33,19 +35,25 @@ from .environments import (BigLittleEnergyModel,  # noqa: F401
                            make_energy_model, make_environment,
                            make_network_model, register_energy_model,
                            register_environment, register_network_model)
+from .experiments import (Axis, Cell, Experiment, axis, chain,  # noqa: F401
+                          clear_cache, fingerprint, grid, scenario_key,
+                          zip_)
+from .report import Report  # noqa: F401
 from .scenario import (GroupRun, Scenario, group_count,  # noqa: F401
                        resolve_device, run, run_groups, sweep)
 
 __all__ = [
-    "BigLittleEnergyModel", "Controller", "ControllerInit",
+    "Axis", "BigLittleEnergyModel", "Cell", "Controller", "ControllerInit",
     "DvfsEnergyModel", "DvfsNetworkModel", "EnergyModel", "Environment",
-    "GroupRun", "IsmailTargetController", "LossyWanNetworkModel",
-    "NetworkModel", "ReferenceEnergyModel", "ReferenceNetworkModel",
-    "Scenario", "StaticBaselineController", "TransferResult", "TunerController",
-    "as_controller", "as_environment", "group_count", "list_controllers",
+    "Experiment", "GroupRun", "IsmailTargetController",
+    "LossyWanNetworkModel", "NetworkModel", "ReferenceEnergyModel",
+    "ReferenceNetworkModel", "Report", "Scenario",
+    "StaticBaselineController", "TransferResult", "TunerController",
+    "as_controller", "as_environment", "axis", "chain", "clear_cache",
+    "fingerprint", "grid", "group_count", "list_controllers",
     "list_energy_models", "list_environments", "list_network_models",
     "make_controller", "make_energy_model", "make_environment",
     "make_network_model", "register_controller", "register_energy_model",
     "register_environment", "register_network_model", "resolve_device",
-    "run", "run_groups", "sweep",
+    "run", "run_groups", "scenario_key", "sweep", "zip_",
 ]

@@ -23,6 +23,7 @@ The string registry::
     make_controller("eemt", max_ch=64)
     make_controller("eett", target_tput_mbps=500.0)
     make_controller("wget/curl")
+    make_controller("learned", params=...)   # repro_torch.learn
     list_controllers()
 """
 from __future__ import annotations
@@ -302,6 +303,30 @@ def _static_factory(name: str):
     return factory
 
 
+def _learned_factory(*, params=None, cfg=None, sla: Optional[SLA] = None,
+                     label: Optional[str] = None, **sla_kwargs) -> Controller:
+    """``make_controller("learned", params=...)``.
+
+    ``params`` is a trained policy dict (numpy arrays or tensors), a
+    checkpoint directory written by ``save_policy`` of either package, or
+    ``None`` (deterministic seed-0 init — enough for registry round-trips
+    and smoke tests).  SLA keyword overrides (``timeout_s``, ``delta_ch``,
+    ``max_ch``, ``policy``, ...) configure the starting operating point and
+    the action scaling.  The learn stack imports lazily: the registry stays
+    cheap for everyone who never asks for a learned controller.
+    """
+    import os
+
+    from repro_torch.learn.controller import LearnedController, load_policy
+    if sla is None:
+        sla = SLA(**sla_kwargs) if sla_kwargs else SLA()
+    elif sla_kwargs:
+        sla = dataclasses.replace(sla, **sla_kwargs)
+    if isinstance(params, (str, os.PathLike)):
+        params = load_policy(str(params))
+    return LearnedController(params=params, cfg=cfg, sla=sla, label=label)
+
+
 for _policy in (SLAPolicy.MIN_ENERGY, SLAPolicy.MAX_THROUGHPUT,
                 SLAPolicy.TARGET_THROUGHPUT):
     register_controller(_POLICY_NAMES[_policy], _tuner_factory(_policy))
@@ -309,6 +334,7 @@ register_controller("ismail-target",
                     _tuner_factory(SLAPolicy.ISMAIL_TARGET))
 for _base in baselines.BASELINE_BUILDERS:
     register_controller(_base, _static_factory(_base))
+register_controller("learned", _learned_factory)
 
 
 def as_controller(obj, *, scaling: bool = True) -> Controller:

@@ -38,6 +38,17 @@ Both take a lane batch in the flat rows of
 ``executor="auto"`` resolves per device (:func:`resolve_executor`): ``cuda``
 on a CUDA device, ``reference`` on the CPU.  The plain version runs on a
 card only when the caller names it.
+
+Observation hook
+----------------
+``observe=True`` (:func:`make_step_fn`, :func:`build_core`,
+:func:`get_runner`) adds a per-tick :class:`Observation` trace for the
+``repro_torch.learn`` rollout harness.  Only the ``reference`` executor
+emits it (the kernel has no observation outputs, as the JAX package's
+Pallas kernel has none): ``auto`` resolves to ``reference`` on any device
+when the hook is on, and an explicit ``cuda`` raises.  The flag is read
+when the step is built, so the unobserved path runs exactly the ops it ran
+before the hook existed.
 """
 from __future__ import annotations
 
@@ -65,21 +76,27 @@ MAX_CHUNKS = 64
 EXECUTORS = ("reference", "cuda")
 
 
-def resolve_executor(executor: str = "auto", device=None) -> str:
+def resolve_executor(executor: str = "auto", device=None, *,
+                     observe: bool = False) -> str:
     """Resolve an executor request for ``device`` to a concrete name.
 
-    ``auto`` picks ``cuda`` on a CUDA device and ``reference`` on the CPU.
-    ``cuda`` on a CPU device raises.  With ``device=None`` only the name is
-    validated (``auto`` passes through).
+    ``auto`` picks ``cuda`` on a CUDA device and ``reference`` on the CPU,
+    and ``reference`` on any device when the observation hook is on (the
+    kernel emits no :class:`Observation` traces).  ``cuda`` on a CPU device
+    raises, and so does ``cuda`` with ``observe=True``.  With
+    ``device=None`` only the name is validated (``auto`` passes through).
     """
     if executor != "auto" and executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r}; expected one of "
                          f"{('auto',) + EXECUTORS}")
+    if executor == "cuda" and observe:
+        raise ValueError("the cuda executor does not support observe=True; "
+                         "use executor='reference' (or 'auto')")
     if device is None:
         return executor
     on_cuda = torch.device(device).type == "cuda"
     if executor == "auto":
-        return "cuda" if on_cuda else "reference"
+        return "cuda" if on_cuda and not observe else "reference"
     if executor == "cuda" and not on_cuda:
         raise ValueError("the cuda executor needs a CUDA device; on the CPU "
                          "use executor='reference' (or 'auto')")
@@ -140,6 +157,43 @@ class ScanInputs(NamedTuple):
         )
 
 
+class Observation(NamedTuple):
+    """Per-tick rollout capture, emitted only when the engine is built with
+    ``observe=True`` (the learned-controller training hook); each field is
+    ``[B]`` per tick, ``[B, n_steps]`` as a trace.
+
+    Window quantities (``avg_tput``, ``avg_power``) are computed from the
+    controller accumulators with the exact expressions of
+    :func:`_controller_tick`, so at controller ticks (``is_ctrl``) they are
+    bit-identical to the ``Measurement`` the controller saw.  The operating
+    point (``num_ch``/``cores``/``freq_idx``) is recorded *pre-decision* and
+    the ``d_*`` fields hold the delta the controller applied this tick
+    (zero off controller ticks).  Everything is masked to zero once the
+    transfer completes, mirroring ``TickMetrics``.
+    """
+
+    avg_tput: torch.Tensor      # f32 MB/s over the accumulation window
+    avg_power: torch.Tensor     # f32 W over the accumulation window
+    cpu_load: torch.Tensor      # f32 utilisation of the active cores
+    remaining_mb: torch.Tensor  # f32 bytes left across partitions
+    num_ch: torch.Tensor        # f32 channel budget, pre-decision
+    cores: torch.Tensor         # i32 active cores, pre-decision
+    freq_idx: torch.Tensor      # i32 frequency index, pre-decision
+    bw_scale: torch.Tensor      # f32 contention share of nominal bandwidth
+    d_num_ch: torch.Tensor      # f32 channel delta applied this tick
+    d_cores: torch.Tensor       # i32 core delta applied this tick
+    d_freq_idx: torch.Tensor    # i32 frequency delta applied this tick
+    is_ctrl: torch.Tensor       # bool controller ticked (and transfer live)
+    live: torch.Tensor          # bool transfer still moving bytes
+
+
+#: dtype of each Observation field.
+OBS_DTYPES = Observation(
+    torch.float32, torch.float32, torch.float32, torch.float32,
+    torch.float32, torch.int32, torch.int32, torch.float32, torch.float32,
+    torch.int32, torch.int32, torch.bool, torch.bool)
+
+
 def _controller_tick(controller, ts: TunerState, sim, load, net, cpu,
                      sla) -> TunerState:
     """Assemble the interval measurement, delegate to the controller, reset
@@ -158,7 +212,8 @@ def _controller_tick(controller, ts: TunerState, sim, load, net, cpu,
 
 
 def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
-                 dt: float, ctrl_every: int, n_steps=None):
+                 dt: float, ctrl_every: int, n_steps=None,
+                 observe: bool = False):
     """Build the tick of a lane batch: ``step((sim, ts), (step_idx, bw))``
     returns ``((sim', ts'), TickMetrics)`` with one value per lane.
 
@@ -166,6 +221,10 @@ def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
     ``bw`` the ``[B]`` bandwidth share of this tick.  A lane is ``live``
     while it still has bytes remaining *and* ``step_idx < n_steps``;
     non-live lanes freeze their whole carry and emit zeroed metrics.
+
+    With ``observe=True`` the step returns ``((sim', ts'), (TickMetrics,
+    Observation))``; the flag is read here, so the default step is the
+    program it was before the hook existed.
     """
 
     def step(carry, xs):
@@ -196,7 +255,10 @@ def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
             acc_s=ftz(ts.acc_s + dt * livef),
         )
 
-        if controller.tunes and step_idx % ctrl_every == ctrl_every - 1:
+        ts_pre = ts  # post-accumulation, pre-decision (what the tick sees)
+        ctrl_tick = (controller.tunes
+                     and step_idx % ctrl_every == ctrl_every - 1)
+        if ctrl_tick:
             ts_new = _controller_tick(controller, ts, sim2, out.cpu_load,
                                       inp.net, cpu, inp.sla)
             ts = TunerState(*[torch.where(live, n, o)
@@ -211,7 +273,29 @@ def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
             # Recorded POST-step: True from the tick the transfer drained.
             done=sum_lr(sim2.remaining_mb) <= 0.0,
         )
-        return (sim2, ts), metrics
+        if not observe:
+            return (sim2, ts), metrics
+
+        def masked_i(x):
+            return torch.where(live, x, 0).to(torch.int32)
+
+        win_s = ts_pre.acc_s.clamp_min(1e-6)
+        obs = Observation(
+            avg_tput=ftz(ts_pre.acc_mb / win_s) * livef,
+            avg_power=ftz(ts_pre.acc_j / win_s) * livef,
+            cpu_load=out.cpu_load * livef,
+            remaining_mb=sum_lr(sim2.remaining_mb) * livef,
+            num_ch=ts_pre.num_ch * livef,
+            cores=masked_i(ts_pre.cores),
+            freq_idx=masked_i(ts_pre.freq_idx),
+            bw_scale=bw_scale * livef,
+            d_num_ch=ftz(ts.num_ch - ts_pre.num_ch) * livef,
+            d_cores=masked_i(ts.cores - ts_pre.cores),
+            d_freq_idx=masked_i(ts.freq_idx - ts_pre.freq_idx),
+            is_ctrl=(live if ctrl_tick else torch.zeros_like(live)),
+            live=live,
+        )
+        return (sim2, ts), (metrics, obs)
 
     return step
 
@@ -233,9 +317,11 @@ def pack_batch(env, inp: ScanInputs):
 
 
 def build_core(controller, env, cpu: CpuProfile, *, n_steps: int, dt: float,
-               ctrl_every: int, executor: str):
+               ctrl_every: int, executor: str, observe: bool = False):
     """One lane batch: ScanInputs (tensors, leading lane axis, all on one
-    device) -> (final SimState, TunerState, TickMetrics ``[B, n_steps]``).
+    device) -> (final SimState, TunerState, TickMetrics ``[B, n_steps]``),
+    and with ``observe=True`` the :class:`Observation` trace as a fourth
+    output.
 
     Packs the batch into the flat rows and hands them to the executor's
     tick loop (see the module docstring); ``executor`` is a concrete name.
@@ -245,17 +331,19 @@ def build_core(controller, env, cpu: CpuProfile, *, n_steps: int, dt: float,
     if executor not in EXECUTORS:
         raise ValueError(f"build_core needs a concrete executor, got "
                          f"{executor!r}")
+    resolve_executor(executor, observe=observe)
     loop = tl.tick_loop if executor == "cuda" else tl.tick_loop_reference
+    kw = {"observe": True} if observe else {}
 
     def core(inp: ScanInputs):
         if inp.bw.shape[-1] != n_steps:
             raise ValueError(f"bw has {inp.bw.shape[-1]} ticks, the runner "
                              f"was built for {n_steps}")
         prow, f0, i0 = pack_batch(env, inp)
-        f32, i32, m = loop(controller, env, cpu, prow, inp.bw, f0, i0,
-                           dt=dt, ctrl_every=ctrl_every)
+        f32, i32, m, *obs = loop(controller, env, cpu, prow, inp.bw, f0, i0,
+                                 dt=dt, ctrl_every=ctrl_every, **kw)
         sim, ts = tickstate.TickLayout(inp.pp.shape[-1]).unpack_state(f32, i32)
-        return sim, ts, m._replace(done=m.done != 0)
+        return (sim, ts, m._replace(done=m.done != 0), *obs)
 
     return core
 
@@ -282,13 +370,16 @@ def runner_cache_sizes() -> dict[str, int]:
 
 
 def get_runner(controller_code, env_code, cpu: CpuProfile, n_steps: int,
-               dt: float, ctrl_every: int, executor: str):
+               dt: float, ctrl_every: int, executor: str, *,
+               observe: bool = False):
     """Engine core for one (controller code, environment code, cpu, shape,
-    executor) group, cached.  ``executor`` must already be resolved
-    (:func:`resolve_executor` with the batch's device)."""
-    key = (controller_code, env_code, cpu, n_steps, dt, ctrl_every, executor)
+    executor, observe) group, cached.  ``executor`` must already be resolved
+    (:func:`resolve_executor` with the batch's device and ``observe``)."""
+    key = (controller_code, env_code, cpu, n_steps, dt, ctrl_every, executor,
+           observe)
     if key not in _RUNNERS:
         _RUNNERS[key] = build_core(controller_code, env_code, cpu,
                                    n_steps=n_steps, dt=dt,
-                                   ctrl_every=ctrl_every, executor=executor)
+                                   ctrl_every=ctrl_every, executor=executor,
+                                   observe=observe)
     return _RUNNERS[key]

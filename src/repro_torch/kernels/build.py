@@ -158,7 +158,9 @@ def load_tick_loop() -> ctypes.CDLL:
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int),
                                            ctypes.POINTER(ctypes.c_float),
-                                           ctypes.c_void_p, ctypes.c_void_p])
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.POINTER(ctypes.c_int),
+                                           ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.tick_loop_error_string.argtypes = [ctypes.c_int]
     lib.tick_loop_error_string.restype = ctypes.c_char_p

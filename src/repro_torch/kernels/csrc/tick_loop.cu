@@ -48,6 +48,19 @@
 // jitter calls the accurate libdevice sinf (no fast math), the routine
 // torch.sin runs on the card; against JAX's own sin it is not bit-exact.
 //
+// The learned controller (KIND LEARNED; repro/learn/controller.py:125-140,
+// the TPU kernel's hoisted constants).  Its MLP weights arrive as one
+// float32 table (w0, b0, w1, b1, ... row-major, the layer widths in the
+// argument struct); each block stages the table into shared memory once.
+// A controller tick featurizes the interval measurement (9 features:
+// clip, log1pf, log10f and divisions by the parameter row's nominal
+// bandwidth, max_ch and target), runs the tanh MLP per lane with the
+// hidden vector in local memory, each output summed over its inputs in
+// order and the bias added last (the plain version's order), takes the
+// first maximum of each head's 3 logits and applies the +/-1 steps,
+// clipped.  fsm counts controller ticks.  tanhf, log1pf and log10f are
+// libdevice's (no fast math).
+//
 // Bound.  Per lane the tick is a serial chain of ~150 dependent scalar
 // float32 operations, so the kernel is latency-bound: a lane-tick costs the
 // chain's latency, and only more lanes in flight hide it.  Its traffic is
@@ -66,10 +79,18 @@ namespace tick {
 constexpr int kMaxFreq = 16;
 constexpr int kMaxVf = 16;
 constexpr int kThreads = 32;
+// The learned controller's MLP: at most kMaxLayers layers, every width at
+// most kMaxWidth (a table of at most 9,545 floats, 38,180 bytes of shared
+// memory), kFeatures inputs and kHeads x kClasses logits.
+constexpr int kMaxLayers = 4;
+constexpr int kMaxWidth = 64;
+constexpr int kFeatures = 9;
+constexpr int kHeads = 3;
+constexpr int kClasses = 3;
 // np.spacing(np.finfo(np.float32).eps) = 2^-46: jnp.interp's empty step.
 constexpr float kInterpDxEps = 1.4210854715202004e-14f;
 
-enum Kind { ME = 0, EEMT = 1, EETT = 2, ISMAIL = 3, STATIC = 4 };
+enum Kind { ME = 0, EEMT = 1, EETT = 2, ISMAIL = 3, STATIC = 4, LEARNED = 5 };
 enum Fsm { SLOW_START = 0, INCREASE = 1, WARNING = 2, RECOVERY = 3 };
 enum Network { NET_REFERENCE = 0, NET_LOSSY_WAN = 1, NET_LOGFIT = 2 };
 enum Energy { ENERGY_REFERENCE = 0, ENERGY_BIG_LITTLE = 1, ENERGY_DVFS = 2 };
@@ -99,6 +120,17 @@ struct Env {
   const float* bins;           // logfit bandwidth schedule [n_bins]
 };
 
+// The learned controller's MLP shape: n_layers layers, widths[0..n_layers].
+struct Mlp {
+  int n_layers;
+  int widths[kMaxLayers + 1];
+};
+
+// The learned controller's inputs at one controller tick.
+struct Features {
+  float v[kFeatures];
+};
+
 struct Args {
   const float* prow;   // [B, 13 + 5P]
   const float* bw;     // [n_steps, B]
@@ -117,7 +149,15 @@ struct Args {
   float dt;
   Cpu cpu;
   Env env;
+  // The learned controller (KIND LEARNED only): the weight table on the
+  // device, its size in floats and the MLP's shape.
+  const float* policy;
+  int pol_size;
+  Mlp mlp;
 };
+
+// The block's copy of the learned controller's weight table.
+extern __shared__ float policy_smem[];
 
 // XLA's max/min: NaN in either operand gives NaN.
 __device__ __forceinline__ float vmax(float a, float b) {
@@ -179,6 +219,49 @@ __device__ __forceinline__ float voltage(const Env& e, float x) {
 // included) is emitted once for the module, not into all 64 environment
 // instances.
 __device__ __noinline__ float sin_out_of_line(float x) { return sinf(x); }
+
+// torch.argmax over one head's logits: the first maximum, a NaN above all.
+__device__ __forceinline__ int first_argmax(const float* v) {
+  float best = v[0];
+  int arg = 0;
+  for (int c = 1; c < kClasses; ++c) {
+    if (best == best && (v[c] > best || v[c] != v[c])) {
+      best = v[c];
+      arg = c;
+    }
+  }
+  return arg;
+}
+
+// The learned controller's action class of each head for one lane, packed
+// two bits a head: the MLP over the features with the block's weight
+// table, each output summed over its inputs in order, the bias last, tanh
+// between layers (repro_torch/learn/policy.py apply_policy), then the
+// first maximum of each head's logits.  Out of line, with its arguments
+// and result by value: one copy serves all the learned instances, which
+// keeps the build short, and its vectors stay in its own local memory.
+__device__ __noinline__ int policy_classes(const Mlp m, const Features f) {
+  float x[kMaxWidth], y[kMaxWidth];
+  for (int k = 0; k < kFeatures; ++k) x[k] = f.v[k];
+  const float* w = policy_smem;
+  for (int l = 0; l < m.n_layers; ++l) {
+    const int n_in = m.widths[l], n_out = m.widths[l + 1];
+    const float* bias = w + n_in * n_out;
+    const bool hidden = l < m.n_layers - 1;
+    for (int j = 0; j < n_out; ++j) {
+      float acc = x[0] * w[j];
+      for (int k = 1; k < n_in; ++k) acc = acc + x[k] * w[k * n_out + j];
+      acc = acc + bias[j];
+      y[j] = hidden ? tanhf(acc) : acc;
+    }
+    for (int j = 0; j < n_out; ++j) x[j] = y[j];
+    w = bias + n_out;
+  }
+  int cls = 0;
+  for (int h = 0; h < kHeads; ++h)
+    cls |= first_argmax(x + h * kClasses) << (2 * h);
+  return cls;
+}
 
 // The operating point's frequency: the ladder's, under dvfs's governor cap.
 template <bool ENV>
@@ -372,7 +455,31 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
       const bool in_ss = fsm == SLOW_START;
       int n_fsm = INCREASE;
       float n_ch = num_ch, n_prev = prev_ch, n_ref = ref;
-      if (KIND == ISMAIL) {
+      if (KIND == LEARNED) {
+        // repro_torch/learn/policy.py featurize, apply_policy, apply_action.
+        const float bwf = vmax(bandwidth, 1e-6f);
+        Features x;
+        x.v[0] = clip(avg_tput / bwf, 0.0f, 2.0f);
+        x.v[1] = avg_power / 40.0f;
+        x.v[2] = load;
+        x.v[3] = log1pf(vmax(rs2, 0.0f)) / 10.0f;
+        x.v[4] = num_ch / vmax(max_ch, 1.0f);
+        x.v[5] = static_cast<float>(cores) / static_cast<float>(cpu.num_cores);
+        x.v[6] = static_cast<float>(freq_idx) /
+                 static_cast<float>(cpu.n_freq - 1 > 1 ? cpu.n_freq - 1 : 1);
+        x.v[7] = clip(target / bwf, 0.0f, 2.0f);
+        x.v[8] = log10f(bwf) / 4.0f;
+        const int cls = policy_classes(a.mlp, x);
+        const int d_ch = (cls & 3) - 1;
+        const int d_cores = ((cls >> 2) & 3) - 1;
+        const int d_freq = ((cls >> 4) & 3) - 1;
+        n_ch = vmin(vmax(num_ch + static_cast<float>(d_ch) * delta_ch, 1.0f),
+                    max_ch);
+        n_prev = num_ch;
+        n_fsm = fsm + 1;
+        cores = clipi(cores + d_cores, 1, cpu.num_cores);
+        freq_idx = clipi(freq_idx + d_freq, 0, cpu.n_freq - 1);
+      } else if (KIND == ISMAIL) {
         // Slow start only hands over to INCREASE; otherwise +/-1 channel.
         if (!in_ss) {
           const bool low = avg_tput < (1.0f - alpha) * target;
@@ -482,8 +589,18 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
 
 // ---- launch ----------------------------------------------------------------
 
+// The learned controller's weight table into the block's shared memory.
+template <int KIND>
+__device__ __forceinline__ void stage_policy(const Args& a) {
+  if (KIND != LEARNED) return;
+  for (int i = threadIdx.x; i < a.pol_size; i += blockDim.x)
+    policy_smem[i] = a.policy[i];
+  __syncthreads();
+}
+
 template <int P, int KIND, bool SCALING>
 __global__ void __launch_bounds__(kThreads) tick_loop_kernel(const Args a) {
+  stage_policy<KIND>(a);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < a.n_lanes) run_lane<P, KIND, SCALING, false>(a, lane);
 }
@@ -491,6 +608,7 @@ __global__ void __launch_bounds__(kThreads) tick_loop_kernel(const Args a) {
 template <int P, int KIND, bool SCALING>
 __global__ void __launch_bounds__(kThreads)
     tick_loop_env_kernel(const Args a) {
+  stage_policy<KIND>(a);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < a.n_lanes) run_lane<P, KIND, SCALING, true>(a, lane);
 }
@@ -519,6 +637,8 @@ KernelFn pick(int kind, int scaling, bool env) {
       return scaling ? nullptr : instance<P, ISMAIL, false>(env);
     case STATIC:
       return scaling ? nullptr : instance<P, STATIC, false>(env);
+    case LEARNED:
+      return scaling ? nullptr : instance<P, LEARNED, false>(env);
     default:
       return nullptr;
   }
@@ -553,6 +673,10 @@ extern "C" {
 // bin_s, rtt_fit, n_big, little_perf, little_dyn, little_static, cap_nf,
 // leak_w, leak_w_per_v, idle_leak, max_freq, then 16 V(f) frequencies and
 // 16 voltages; `env_bins` is the device schedule of logfit (else null).
+// The learned controller (kind 5) takes `policy`, its device weight table
+// (w0, b0, w1, b1, ... row-major), and `widths`, a host array of
+// n_layers + 1 layer widths (9, hidden..., 9; at most 4 layers, each width
+// at most 64); other kinds ignore both.
 int tick_loop_launch(int p, int kind, int scaling, const void* prow,
                      const void* bw, const void* f0, const void* i0,
                      void* fout, void* iout, void* tput, void* power,
@@ -561,6 +685,7 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
                      float dt, const float* cpu_consts, int n_freq,
                      int num_cores, const int* env_codes,
                      const float* env_consts, const void* env_bins,
+                     const void* policy, const int* widths, int n_layers,
                      void* stream) {
   tick::Env env;
   env.network = env_codes[0];
@@ -583,6 +708,18 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
       (env.network == tick::NET_LOGFIT &&
        (env.n_bins < 1 || env_bins == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int pol_size = 0;
+  if (kind == tick::LEARNED) {
+    bool ok = policy != nullptr && widths != nullptr && n_layers >= 1 &&
+              n_layers <= tick::kMaxLayers &&
+              widths[0] == tick::kFeatures &&
+              widths[n_layers] == tick::kHeads * tick::kClasses;
+    for (int l = 0; ok && l <= n_layers; ++l)
+      ok = widths[l] >= 1 && widths[l] <= tick::kMaxWidth;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    for (int l = 0; l < n_layers; ++l)
+      pol_size += widths[l] * widths[l + 1] + widths[l + 1];
   }
   const float* ec = env_consts;
   env.w_loss = ec[0];
@@ -634,11 +771,17 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
   args.cpu.n_freq = n_freq;
   args.cpu.num_cores = num_cores;
   args.env = env;
+  args.policy = static_cast<const float*>(policy);
+  args.pol_size = pol_size;
+  args.mlp.n_layers = pol_size ? n_layers : 0;
+  for (int l = 0; l <= tick::kMaxLayers; ++l)
+    args.mlp.widths[l] = pol_size && l <= n_layers ? widths[l] : 0;
 
   const dim3 block(tick::kThreads);
   const dim3 grid((n_lanes + tick::kThreads - 1) / tick::kThreads);
   void* params[] = {&args};
-  cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid, block, params, 0,
+  cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid, block, params,
+                   static_cast<size_t>(pol_size) * sizeof(float),
                    static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

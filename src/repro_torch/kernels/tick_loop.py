@@ -7,10 +7,12 @@ plain PyTorch version.
 horizon, and writes the seven per-tick traces.  The kernel is
 ``csrc/tick_loop.cu`` (built by :mod:`repro_torch.kernels.build`); it spells
 out the built-in controllers (ME / EEMT / EETT with or without load
-control, Ismail's target tuner, the static baselines) and the built-in
-environments — the reference, lossy-wan and logfit network models, the
-reference, big-little and dvfs energy models, in any pairing — and raises
-for anything else (:func:`kernel_spec`).
+control, Ismail's target tuner, the static baselines, and the learned
+controller of ``repro_torch.learn``, whose MLP weights ride in as a device
+table: :func:`policy_table`) and the built-in environments — the
+reference, lossy-wan and logfit network models, the reference, big-little
+and dvfs energy models, in any pairing — and raises for anything else
+(:func:`kernel_spec`).
 
 :func:`tick_loop_reference` has the same signature and computes the same
 function with eager tensor ops: it is the engine's ``reference`` executor,
@@ -36,7 +38,8 @@ from repro_torch.core._f32 import sum_lr
 from repro_torch.core.types import CpuProfile, SLAPolicy, TickMetrics
 
 #: Controller codes of the kernel's ``KIND`` template parameter.
-KIND_ME, KIND_EEMT, KIND_EETT, KIND_ISMAIL, KIND_STATIC = range(5)
+KIND_ME, KIND_EEMT, KIND_EETT, KIND_ISMAIL, KIND_STATIC, KIND_LEARNED = \
+    range(6)
 _POLICY_KIND = {SLAPolicy.MIN_ENERGY: KIND_ME,
                 SLAPolicy.MAX_THROUGHPUT: KIND_EEMT,
                 SLAPolicy.TARGET_THROUGHPUT: KIND_EETT,
@@ -45,6 +48,11 @@ _POLICY_KIND = {SLAPolicy.MIN_ENERGY: KIND_ME,
 MAX_PARTITIONS = 8   # the kernel is instantiated for P = 1..8
 MAX_FREQ_LEVELS = 16
 MAX_VF_POINTS = 16   # dvfs V(f) tables ride by value, as the ladder does
+#: The learned controller's MLP: layers, width of any layer, and the input
+#: and output widths the kernel spells out (9 features, 3 heads x 3).
+MAX_POLICY_LAYERS = 4
+MAX_POLICY_WIDTH = 64
+POLICY_IO = 9
 
 #: Environment codes of the kernel's argument struct.
 NET_REFERENCE, NET_LOSSY_WAN, NET_LOGFIT = range(3)
@@ -97,18 +105,31 @@ def _alloc_traces(n_steps: int, n_lanes: int, device):
                         device=device))
 
 
+def _alloc_obs(n_steps: int, n_lanes: int, device):
+    """Time-major Observation buffers pre-filled with the never-executed-tick
+    values: every field zero (``is_ctrl`` and ``live`` False), as the
+    masked step emits after completion."""
+    return engine.Observation(*[
+        torch.zeros((n_steps, n_lanes), dtype=dtype, device=device)
+        for dtype in engine.OBS_DTYPES])
+
+
 def _n_partitions(prow) -> int:
     return (prow.shape[-1] - tickstate.N_NET - tickstate.N_SLA) // 5
 
 
 @torch.inference_mode()
 def tick_loop_reference(controller, env, cpu: CpuProfile, prow, bw, f0, i0,
-                        *, dt: float, ctrl_every: int):
+                        *, dt: float, ctrl_every: int,
+                        observe: bool = False):
     """Plain PyTorch tick loop over a lane batch (any device).
 
     Drives :func:`repro_torch.core.engine.make_step_fn` one tick at a time
     over all lanes, with completion masking, in chunks of ticks; it stops
-    after the first chunk in which every lane is done.
+    after the first chunk in which every lane is done.  With
+    ``observe=True`` it also returns the :class:`~repro_torch.core.engine.
+    Observation` trace, ``[B, n_steps]`` views of time-major buffers like
+    the metrics.
     """
     n_lanes, n_steps = bw.shape
     lay = tickstate.TickLayout(_n_partitions(prow))
@@ -118,8 +139,10 @@ def tick_loop_reference(controller, env, cpu: CpuProfile, prow, bw, f0, i0,
     chunk, n_chunks, padded = engine._chunking(n_steps)
     step = engine.make_step_fn(
         controller, env, cpu, inp, dt=dt, ctrl_every=ctrl_every,
-        n_steps=n_steps if padded != n_steps else None)
+        n_steps=n_steps if padded != n_steps else None, observe=observe)
     out = _alloc_traces(n_steps, n_lanes, bw.device)
+    if observe:
+        out = (*out, *_alloc_obs(n_steps, n_lanes, bw.device))
     zero_bw = torch.zeros((n_lanes,), dtype=torch.float32, device=bw.device)
 
     for k in range(n_chunks):
@@ -132,12 +155,16 @@ def tick_loop_reference(controller, env, cpu: CpuProfile, prow, bw, f0, i0,
             (sim, ts), m = step((sim, ts), (i, bw[:, i] if i < n_steps
                                             else zero_bw))
             if i < stop:
-                ms.append(m)
+                ms.append((*m[0], *m[1]) if observe else m)
         for buf, vals in zip(out, zip(*ms)):
             buf[start:stop] = torch.stack(vals).to(buf.dtype)
 
     f32, i32 = lay.pack_state(sim, ts)
-    return f32, i32, TickMetrics(*[b.t() for b in out])
+    n_m = len(TickMetrics._fields)
+    metrics = TickMetrics(*[b.t() for b in out[:n_m]])
+    if not observe:
+        return f32, i32, metrics
+    return f32, i32, metrics, engine.Observation(*[b.t() for b in out[n_m:]])
 
 
 def env_spec(env) -> EnvSpec:
@@ -212,13 +239,50 @@ def env_spec(env) -> EnvSpec:
     return EnvSpec(tuple(codes[k] for k in ENV_CODES), consts, schedule)
 
 
+def policy_widths(controller) -> tuple:
+    """The layer widths of a learned controller's MLP (inputs, hidden...,
+    outputs), or raise for a policy the kernel does not take."""
+    cfg = controller.cfg
+    widths = (cfg.obs_dim, *cfg.hidden, cfg.out_dim)
+    n_layers = len(widths) - 1
+    if n_layers > MAX_POLICY_LAYERS:
+        raise ValueError(f"the CUDA tick kernel takes learned policies of at "
+                         f"most {MAX_POLICY_LAYERS} layers, got {n_layers}")
+    if max(widths) > MAX_POLICY_WIDTH:
+        raise ValueError(f"the CUDA tick kernel takes learned policies with "
+                         f"layers at most {MAX_POLICY_WIDTH} wide, got "
+                         f"widths {widths}")
+    if widths[0] != POLICY_IO or widths[-1] != POLICY_IO:
+        raise ValueError(f"the CUDA tick kernel takes learned policies of "
+                         f"{POLICY_IO} features and {POLICY_IO} logits, got "
+                         f"widths {widths}")
+    for i, (n_in, n_out) in enumerate(zip(widths[:-1], widths[1:])):
+        if (controller.params[f"w{i}"].shape != (n_in, n_out)
+                or controller.params[f"b{i}"].shape != (n_out,)):
+            raise ValueError(f"learned policy layer {i}: params do not "
+                             f"match widths {widths}")
+    return widths
+
+
+def policy_table(controller, device) -> torch.Tensor:
+    """A learned controller's weights as the kernel's float32 table on
+    ``device``: w0 (row-major), b0, w1, b1, ...; uploaded once per (weights,
+    device) by :func:`repro_torch.core.tickstate.const_table`."""
+    n_layers = len(policy_widths(controller)) - 1
+    flat = np.concatenate([controller.params[f"{kind}{i}"].ravel()
+                           for i in range(n_layers) for kind in "wb"])
+    return tickstate.const_table(tuple(flat.tolist()), device)
+
+
 def kernel_spec(controller, env) -> tuple[int, bool, EnvSpec]:
     """(KIND, scaling, environment) arguments of the kernel for a controller
     code and an environment, or raise: the kernel spells out the built-in
-    controllers and environments only."""
+    controllers and environments only, and learned policies within the
+    :data:`MAX_POLICY_LAYERS` / :data:`MAX_POLICY_WIDTH` limits."""
     from repro_torch.api.controllers import (IsmailTargetController,
                                              StaticBaselineController,
                                              TunerController)
+    from repro_torch.learn.controller import LearnedController
 
     spec = env_spec(env)
     if type(controller) is TunerController:
@@ -228,6 +292,9 @@ def kernel_spec(controller, env) -> tuple[int, bool, EnvSpec]:
         return KIND_ISMAIL, False, spec
     if type(controller) is StaticBaselineController:
         return KIND_STATIC, False, spec
+    if type(controller) is LearnedController:
+        policy_widths(controller)
+        return KIND_LEARNED, False, spec
     raise ValueError(f"the CUDA tick kernel has no code for controller "
                      f"{type(controller).__name__}; use "
                      f"executor='reference'")
@@ -321,6 +388,12 @@ def marshal_and_launch(launch, controller, env, cpu: CpuProfile, prow, bw,
     env_consts = (ctypes.c_float * len(spec.consts))(*spec.consts.tolist())
     bins = (tickstate.const_table(spec.schedule, prow.device).data_ptr()
             if spec.schedule else None)
+    policy, widths, n_layers = None, None, 0
+    if kind == KIND_LEARNED:
+        w = policy_widths(controller)
+        policy = policy_table(controller, prow.device).data_ptr()
+        widths = (ctypes.c_int * len(w))(*w)
+        n_layers = len(w) - 1
     err = 0
     if n_lanes:
         err = launch(_n_partitions(prow), kind, int(scaling),
@@ -330,7 +403,7 @@ def marshal_and_launch(launch, controller, env, cpu: CpuProfile, prow, bw,
                      n_lanes, n_steps, int(ctrl_every),
                      float(np.float32(dt)), consts, n_freq,
                      int(cpu.num_cores), env_codes, env_consts, bins,
-                     stream)
+                     policy, widths, n_layers, stream)
     return err, (fout, iout, TickMetrics(*[b.t() for b in out]))
 
 

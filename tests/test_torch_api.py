@@ -149,7 +149,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.train, repro_torch.train.trainer, "
             "repro_torch.optim, repro_torch.ckpt, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.core.dvfs, "
-            "repro_torch.workloads, repro_torch.workloads.logfit; "
+            "repro_torch.workloads, repro_torch.workloads.logfit, "
+            "repro_torch.learn, repro_torch.api.experiments, "
+            "repro_torch.api.report; "
             "from repro_torch import api; "
             "[api.make_environment(n) for n in api.list_environments()]; "
             "from repro_torch.configs import ARCHS, get_config; "
@@ -170,7 +172,11 @@ def test_port_sources_import_no_jax_and_no_repro():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     for module in ("core/dvfs.py", "api/environments.py",
-                   "workloads/__init__.py", "workloads/logfit.py"):
+                   "workloads/__init__.py", "workloads/logfit.py",
+                   "api/report.py", "api/experiments.py",
+                   "learn/__init__.py", "learn/policy.py",
+                   "learn/controller.py", "learn/rollout.py",
+                   "learn/train.py", "learn/evaluate.py"):
         assert os.path.join(ROOT, "src", "repro_torch", module) in files
     for path in files:
         with open(path) as f:

@@ -27,8 +27,7 @@ CONTROLLERS = [
 
 
 def test_registries_list_the_ported_controllers():
-    assert set(tapi.list_controllers()) == set(japi.list_controllers()) - {
-        "learned"}
+    assert set(tapi.list_controllers()) == set(japi.list_controllers())
 
 
 def test_constants_match_jax():

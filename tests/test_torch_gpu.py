@@ -1,5 +1,6 @@
 """The CUDA kernels on the card (``gpu`` marker; skipped without one): the
-tick loop (reference physics and every environment family), flash
+tick loop (reference physics, every environment family, the learned
+controller), flash
 attention forward (hd 64, 128 and 256) and backward, each by both routes
 (bf16: wgmma; float32: FMA), the WKV recurrence and the RG-LRU scan, each
 against its plain version.
@@ -135,6 +136,58 @@ def test_environment_degenerations_on_the_card(cuda_device):
         assert (r.completed, r.time_s, r.energy_j, r.avg_tput_MBps,
                 r.avg_power_w) == chip_smoke.RUN_GOLDEN[cell], (cell, en)
     assert tl.tick_loop.launches == before + len(cases)
+
+
+def _learned_controllers():
+    """JAX's BC policy (tests/torch_goldens/learn_full.json) and a seeded
+    numpy policy of 4 layers whose heads move often."""
+    from repro_torch.learn import LearnedController
+
+    params, _ = chip_smoke.golden_learned()
+    rng = np.random.default_rng(0)
+    sizes = (9, 16, 64, 24, 9)
+    deep = {}
+    for i, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        deep[f"w{i}"] = (rng.normal(size=(n_in, n_out)) * 3.0
+                         / np.sqrt(n_in)).astype(np.float32)
+        deep[f"b{i}"] = (rng.normal(size=n_out) * 0.1).astype(np.float32)
+    return {"jax-bc": LearnedController(params=params, sla=types.SLA(
+        max_ch=64)), "deep": LearnedController(params=deep)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["jax-bc", "deep"])
+@pytest.mark.parametrize("env", ["reference", "dvfs hp race"])
+def test_learned_kernel_bit_exact_vs_plain_version_on_the_card(
+        cuda_device, policy, env):
+    """chip_smoke.py phase 18b: a learned controller on Chameleon x small
+    and mixed (900 s) and on the tune lanes of one bandwidth schedule,
+    kernel == plain version bit for bit; ``api.run`` launches the kernel
+    once."""
+    import dataclasses
+
+    ctrl = _learned_controllers()[policy]
+    environment = (None if env == "reference" else
+                   chip_smoke.env_smoke_environments()[env])
+    scs = [dataclasses.replace(sc, controller=ctrl, environment=environment,
+                               executor="cuda")
+           for sc in chip_smoke.learn_teacher_cells()]
+    tune = [dataclasses.replace(sc, environment=environment, executor="cuda")
+            for sc in chip_smoke.tune_scenarios(
+                learned=ctrl.params)[::len(chip_smoke.TUNE_SEEDS)]]
+    for group in (scs, tune):
+        (key, rows), = chip_smoke.groups_on_card(group, cuda_device)
+        before = tl.tick_loop.launches
+        a = chip_smoke.call(tl.tick_loop, key, rows)
+        torch.cuda.synchronize()
+        assert tl.tick_loop.launches == before + 1
+        b = chip_smoke.call(tl.tick_loop_reference, key, rows)
+        for x, y in zip([a[0], a[1], *a[2]], [b[0], b[1], *b[2]]):
+            assert torch.equal(x, y), (policy, env)
+        assert int(a[1][:, 0].max()) >= 2     # controller ticks ran
+    before = tl.tick_loop.launches
+    r = api.run(dataclasses.replace(scs[1], executor="auto"))
+    assert tl.tick_loop.launches == before + 1 and r.energy_j > 0
 
 
 ROUTE = {torch.float32: "fma", torch.bfloat16: "wgmma"}

@@ -135,6 +135,20 @@ def test_kernel_spec_covers_the_builtin_controllers():
         tapi.make_controller("EEMT", scaling=False).code(), ref)[:2] == (
         tl.KIND_EEMT, False)
     assert tl.kernel_spec(tapi.make_controller("EEMT"), ref)[2].reference
+    learned = tapi.make_controller("learned", max_ch=64, label="bc")
+    assert tl.kernel_spec(learned.code(), ref)[:2] == (tl.KIND_LEARNED,
+                                                       False)
+    assert tl.kernel_spec(learned.code(), tapi.make_environment(
+        "dvfs"))[2].energy == tl.ENERGY_DVFS
+    # the weight table: w0 row-major, b0, w1, b1, w2, b2 as float32
+    table = tl.policy_table(learned, "cpu")
+    assert tl.policy_widths(learned) == (9, 32, 32, 9)
+    assert table.dtype == torch.float32 and table.numel() == (
+        9 * 32 + 32 + 32 * 32 + 32 + 32 * 9 + 9)
+    assert torch.equal(table[:9 * 32],
+                       torch.as_tensor(learned.params["w0"]).reshape(-1))
+    assert torch.equal(table[-9:], torch.as_tensor(learned.params["b2"]))
+    assert tl.policy_table(learned, "cpu") is table   # uploaded once
 
 
 def _codes(spec):
@@ -239,6 +253,28 @@ def test_kernel_spec_rejects_what_the_kernel_does_not_implement():
 
     with pytest.raises(ValueError, match="no code for controller"):
         tl.kernel_spec(Custom(), tenv.REFERENCE_ENV)
+
+    from repro_torch.learn import LearnedController, PolicyConfig
+
+    for hidden, match in (((32, 32, 32, 32), "at most 4 layers"),
+                          ((65,), "at most 64 wide"),
+                          ((32, 128), "at most 64 wide")):
+        deep = LearnedController(cfg=PolicyConfig(hidden=hidden))
+        with pytest.raises(ValueError, match=match):
+            tl.kernel_spec(deep, tenv.REFERENCE_ENV)
+    wide_in = LearnedController(cfg=PolicyConfig(obs_dim=10))
+    with pytest.raises(ValueError, match="9 features"):
+        tl.kernel_spec(wide_in, tenv.REFERENCE_ENV)
+    tl.kernel_spec(LearnedController(cfg=PolicyConfig(hidden=(64, 64, 64))),
+                   tenv.REFERENCE_ENV)
+    tl.kernel_spec(LearnedController(cfg=PolicyConfig(hidden=())),
+                   tenv.REFERENCE_ENV)
+
+    class SubLearned(LearnedController):
+        pass
+
+    with pytest.raises(ValueError, match="no code for controller"):
+        tl.kernel_spec(SubLearned(), tenv.REFERENCE_ENV)
 
 
 def test_wrapper_rejects_other_devices():

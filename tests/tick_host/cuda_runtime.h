@@ -1,7 +1,9 @@
 // A stub of the CUDA runtime for compiling csrc/tick_loop.cu with g++ on the
 // CPU (tests/test_torch_tick_loop_host.py): the qualifiers vanish, the
 // thread indices are thread-local globals, and cudaLaunchKernel (defined in
-// harness.cpp) runs each block's threads one after another.
+// harness.cpp) runs each block's threads as std::threads that meet at
+// __syncthreads, with one global array as the block's dynamic shared
+// memory (blocks run one after another).
 #pragma once
 #include <cmath>
 #include <cstddef>
@@ -20,6 +22,9 @@ inline thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __noinline__ __attribute__((noinline))
 #define __global__
 #define __launch_bounds__(x)
+#define __shared__
+
+void __syncthreads();
 
 cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block,
                              void** params, size_t, cudaStream_t);

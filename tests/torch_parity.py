@@ -56,7 +56,13 @@ def port_scenario(sc, **overrides):
     """The port's Scenario for a JAX Scenario with a registry-name or
     built-in controller (any environment and CPU)."""
     ctrl = sc.controller
-    if type(ctrl).__name__ == "StaticBaselineController":
+    if type(ctrl).__name__ == "LearnedController":
+        from repro_torch.learn import LearnedController, PolicyConfig
+        ctrl = LearnedController(
+            params=ctrl.params,
+            cfg=PolicyConfig(*dataclasses.astuple(ctrl.cfg)),
+            sla=ttypes.SLA(*dataclasses.astuple(ctrl.sla)), label=ctrl.label)
+    elif type(ctrl).__name__ == "StaticBaselineController":
         ctrl = tapi.StaticBaselineController(label=ctrl.label,
                                              builder=ctrl.builder,
                                              params=ctrl.params)
@@ -102,6 +108,30 @@ def jax_kernel_loop_op_by_op(prep):
             i += 1
         f32, i32 = lay.pack_state(*carry, xp=np)
     return np.asarray(f32), np.asarray(i32), traces
+
+
+def jax_observed_op_by_op(prep):
+    """The JAX package's observed step (``make_step_fn(observe=True)``) op
+    by op under ``jax.disable_jit()``, ticking while the transfer is live;
+    ticks never executed hold the all-zero observation.  Returns the
+    ``Observation`` fields as [n_steps] numpy arrays."""
+    k, inp = prep.key, prep.inputs
+    n = k.n_steps
+    obs = jengine._init_obs_buffer(n)
+    out = [np.array(x) for x in obs]
+    with jax.disable_jit():
+        carry = (k.env_code.network.init_state(inp.total_mb, inp.net),
+                 jax.tree.map(jnp.asarray, inp.state0))
+        step = jengine.make_step_fn(k.ctrl_code, k.env_code, k.cpu, inp,
+                                    dt=k.dt, ctrl_every=k.ctrl_every,
+                                    observe=True)
+        i = 0
+        while i < n and float(jnp.sum(carry[0].remaining_mb)) > 0.0:
+            carry, (_, o) = step(carry, (jnp.int32(i), inp.bw[i]))
+            for buf, v in zip(out, o):
+                buf[i] = np.asarray(v)
+            i += 1
+    return jengine.Observation(*out)
 
 
 def summary(f32, done, prep):
