@@ -45,8 +45,9 @@ Phases (each prints a line; any failure exits non-zero):
               0) on the card; (b) the learned kernel vs its plain version,
               bit for bit, for JAX's BC policy (``tests/torch_goldens/
               learn_full.json``) and the port's, under the reference
-              environment and dvfs hp race, then at phase 6's 4,096 lanes in
-              one launch: times, bound (bytes, and the MLP's operations per
+              environment and dvfs hp race, on (c)'s own learned group
+              (Chameleon and CloudLab x small/mixed) for JAX's policy, then
+              at phase 6's 4,096 lanes in one launch: times, bound (bytes, and the MLP's operations per
               controller tick at 67 TFLOP/s float32), memory; (c)
               ``evaluate(JAX's policy, smoke=False)``: 20 cells in 5
               launches against ``learn_full.json`` (a learned cell whose
@@ -280,29 +281,6 @@ def _datasets():
             "large": (types.LARGE_FILES,), "mixed": types.MIXED}
 
 
-def fig2_scenarios(smoke=False, executor="auto"):
-    """[(testbed, dataset, tool), Scenario] of the Figure 2 grid."""
-    from repro_torch import api
-    from repro_torch.core import types
-
-    datasets = _datasets()
-    testbeds, dss, tools = FIG2_SMOKE if smoke else (
-        FIG2_TESTBEDS, FIG2_DATASETS, FIG2_TOOLS)
-    cells = []
-    for tb in testbeds:
-        for ds in dss:
-            for tool in tools:
-                profile = types.TESTBEDS[tb]
-                ctrl = (api.make_controller(tool, max_ch=64)
-                        if tool in ("ME", "EEMT") else tool)
-                cells.append(((tb, ds, tool), api.Scenario(
-                    profile=profile, datasets=datasets[ds], controller=ctrl,
-                    cpu=types.CpuProfile(),
-                    total_s=900.0 if smoke else budget_for(profile),
-                    name=f"fig2/{tb}/{ds}/{tool}", executor=executor)))
-    return cells
-
-
 def tune_bw_schedules():
     """16 piecewise-constant schedules: 60 s segments at 0.3-1.0 of nominal,
     drawn with numpy from seeds 0-15."""
@@ -348,54 +326,6 @@ def _tool_controller(tool):
 
     return (api.make_controller(tool, max_ch=64)
             if tool in ("ME", "EEMT") else tool)
-
-
-def fig_dvfs_scenarios(executor="auto"):
-    """[(tool, fcap, cores), Scenario] of benchmarks/fig_dvfs.py's grid:
-    dvfs hp (n_big 4) under three frequency caps, 8 or 4 cores."""
-    import dataclasses
-
-    from repro_torch import api
-    from repro_torch.core import types
-
-    out = []
-    for tool in FIG_DVFS_TOOLS:
-        for fcap, cap in FIG_DVFS_FCAPS.items():
-            for cores, n in FIG_DVFS_CORES.items():
-                out.append(((tool, fcap, cores), api.Scenario(
-                    profile=types.CHAMELEON, datasets=types.MIXED,
-                    cpu=dataclasses.replace(types.CpuProfile(), num_cores=n),
-                    controller=_tool_controller(tool),
-                    environment=api.make_environment("dvfs", n_big=4,
-                                                     max_freq_ghz=cap),
-                    total_s=budget_for(types.CHAMELEON),
-                    name=f"fig_dvfs/{tool}/{fcap}/{cores}",
-                    executor=executor)))
-    return out
-
-
-def greendataflow_scenarios(executor="auto"):
-    """[(testbed, tech, idle, tool), Scenario] of fig_dvfs's GreenDataFlow
-    grid: race-to-idle vs pace-to-deadline on both technologies."""
-    from repro_torch import api
-    from repro_torch.core import types
-
-    out = []
-    for tb in GDF_TESTBEDS:
-        for tech in GDF_TECHS:
-            for idle in GDF_IDLES:
-                for tool in FIG_DVFS_TOOLS:
-                    profile = types.TESTBEDS[tb]
-                    out.append(((tb, tech, idle, tool), api.Scenario(
-                        profile=profile, datasets=types.MIXED,
-                        cpu=types.CpuProfile(),
-                        controller=_tool_controller(tool),
-                        environment=api.make_environment("dvfs", tech=tech,
-                                                         idle=idle),
-                        total_s=budget_for(profile),
-                        name=f"greendataflow/{tb}/{tech}/{idle}/{tool}",
-                        executor=executor)))
-    return out
 
 
 def fig2_experiment(smoke=False):
@@ -462,6 +392,33 @@ def greendataflow_experiment():
               "environment": lambda c: api.make_environment(
                   "dvfs", tech=c["tech"], idle=c["idle"]),
               "total_s": lambda c: budget_for(c["profile"])})
+
+
+def _labelled_scenarios(exp, executor):
+    """[(labels, Scenario)] of an Experiment's cells, run by ``executor``:
+    the sweep phases read the same grids as the Experiment phases."""
+    import dataclasses
+
+    return [(tuple(c.labels.values()),
+             dataclasses.replace(c.scenario, executor=executor))
+            for c in exp.cells()]
+
+
+def fig2_scenarios(smoke=False, executor="auto"):
+    """[(testbed, dataset, tool), Scenario] of the Figure 2 grid."""
+    return _labelled_scenarios(fig2_experiment(smoke), executor)
+
+
+def fig_dvfs_scenarios(executor="auto"):
+    """[(tool, fcap, cores), Scenario] of benchmarks/fig_dvfs.py's grid:
+    dvfs hp (n_big 4) under three frequency caps, 8 or 4 cores."""
+    return _labelled_scenarios(fig_dvfs_experiment(), executor)
+
+
+def greendataflow_scenarios(executor="auto"):
+    """[(testbed, tech, idle, tool), Scenario] of fig_dvfs's GreenDataFlow
+    grid: race-to-idle vs pace-to-deadline on both technologies."""
+    return _labelled_scenarios(greendataflow_experiment(), executor)
 
 
 def learn_teacher():
@@ -978,6 +935,28 @@ def phase_learn(dev) -> dict:
                   f"(final rows and 7 traces bit-equal); fsm (controller "
                   f"ticks) {kern[1][:, 0].tolist()}; executed ticks "
                   f"{executed_lane_ticks(kern[2], key.n_steps)}", flush=True)
+    # ... and on (c)'s own learned group: Chameleon and CloudLab x small
+    # and mixed, whose bandwidth features differ
+    exp = learn.evaluation_experiment(jax_learned, smoke=False)
+    scs = [dataclasses.replace(c.scenario, executor="cuda")
+           for c in exp.cells() if c.labels["tool"] == "learned"]
+    (key, rows), = groups_on_card(scs, dev)
+    kern = call(tl.tick_loop, key, rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = call(tl.tick_loop_reference, key, rows)
+    torch.cuda.synchronize()
+    t_eval_plain = time.perf_counter() - t0
+    equal, err = compare_outputs(kern, plain)
+    check(equal, f"18b JAX BC / learn-eval learned group: kernel != plain "
+                 f"version (max |err| {err})")
+    print(f"[18 learn] (b) JAX BC policy, the learn-eval grid's learned "
+          f"group ({len(scs)} lanes, Chameleon and CloudLab x small/mixed, "
+          f"900 s): kernel == plain (final rows and 7 traces bit-equal); "
+          f"fsm (controller ticks) {kern[1][:, 0].tolist()}; executed ticks "
+          f"{executed_lane_ticks(kern[2], key.n_steps)}; plain version "
+          f"{t_eval_plain:.1f} s", flush=True)
+    del kern, plain
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res_t = api.sweep(tune_scenarios(learned=jax_params), device=dev)
@@ -1015,7 +994,6 @@ def phase_learn(dev) -> dict:
     del kern_t, rows_t, grs_t, res_t
 
     # (c) the evaluation grid through the kernel (main path) vs the golden
-    exp = learn.evaluation_experiment(jax_learned, smoke=False)
     n_groups = api.group_count([c.scenario for c in exp.cells()],
                                device=dev)
     check(n_groups == gold["group_count"],

@@ -49,9 +49,12 @@ from .scenario import Scenario, sweep
 # Bump when engine semantics change in a way that invalidates cached cell
 # results (the hash covers the scenario spec, not the simulator code).  It
 # is the JAX package's tag, so a scenario's key is the same in both
-# packages; keep the two packages' caches in separate directories (the
-# port follows JAX's op-by-op float32 semantics, jitted JAX does not).
+# packages.  Every record also names the package that wrote it, and a
+# record of the other package is a miss: the port follows JAX's op-by-op
+# float32 semantics, jitted JAX does not, so one cache directory may serve
+# both without either returning the other's numbers as its own.
 CACHE_VERSION = "repro-cells/v1"
+CACHE_PACKAGE = "repro_torch"
 
 _SCENARIO_FIELDS = tuple(f.name for f in dataclasses.fields(Scenario))
 
@@ -479,7 +482,8 @@ def _cache_read(cache_dir: str, key: str) -> Optional[dict]:
             payload = json.load(f)
     except (OSError, json.JSONDecodeError):
         return None
-    if payload.get("version") != CACHE_VERSION:
+    if (payload.get("version") != CACHE_VERSION
+            or payload.get("package") != CACHE_PACKAGE):
         return None
     return payload.get("record")
 
@@ -489,7 +493,8 @@ def _cache_write(cache_dir: str, key: str, record: dict) -> None:
     path = _cache_path(cache_dir, key)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
-        json.dump({"version": CACHE_VERSION, "record": record}, f)
+        json.dump({"version": CACHE_VERSION, "package": CACHE_PACKAGE,
+                   "record": record}, f)
     os.replace(tmp, path)           # atomic: a torn write never half-reads
 
 

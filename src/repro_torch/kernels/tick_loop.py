@@ -8,8 +8,8 @@ horizon, and writes the seven per-tick traces.  The kernel is
 ``csrc/tick_loop.cu`` (built by :mod:`repro_torch.kernels.build`); it spells
 out the built-in controllers (ME / EEMT / EETT with or without load
 control, Ismail's target tuner, the static baselines, and the learned
-controller of ``repro_torch.learn``, whose MLP weights ride in as a device
-table: :func:`policy_table`) and the built-in environments — the
+controller of ``repro_torch.learn``, whose MLP weights ride in as the
+controller's own device table, ``LearnedController.table``) and the built-in environments — the
 reference, lossy-wan and logfit network models, the reference, big-little
 and dvfs energy models, in any pairing — and raises for anything else
 (:func:`kernel_spec`).
@@ -264,16 +264,6 @@ def policy_widths(controller) -> tuple:
     return widths
 
 
-def policy_table(controller, device) -> torch.Tensor:
-    """A learned controller's weights as the kernel's float32 table on
-    ``device``: w0 (row-major), b0, w1, b1, ...; uploaded once per (weights,
-    device) by :func:`repro_torch.core.tickstate.const_table`."""
-    n_layers = len(policy_widths(controller)) - 1
-    flat = np.concatenate([controller.params[f"{kind}{i}"].ravel()
-                           for i in range(n_layers) for kind in "wb"])
-    return tickstate.const_table(tuple(flat.tolist()), device)
-
-
 def kernel_spec(controller, env) -> tuple[int, bool, EnvSpec]:
     """(KIND, scaling, environment) arguments of the kernel for a controller
     code and an environment, or raise: the kernel spells out the built-in
@@ -391,7 +381,7 @@ def marshal_and_launch(launch, controller, env, cpu: CpuProfile, prow, bw,
     policy, widths, n_layers = None, None, 0
     if kind == KIND_LEARNED:
         w = policy_widths(controller)
-        policy = policy_table(controller, prow.device).data_ptr()
+        policy = controller.table(prow.device).data_ptr()
         widths = (ctypes.c_int * len(w))(*w)
         n_layers = len(w) - 1
     err = 0

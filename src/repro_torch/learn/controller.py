@@ -6,7 +6,7 @@ and every per-scenario number flows through ``init``'s return value — but
 there is no slot for policy weights there.  A learned controller's weights
 therefore *select code*: ``code()`` returns a canonical instance that still
 carries the params (on a card the tick kernel takes them as an input
-table, ``kernels/tick_loop.py::policy_table``), and equality/hashing go by
+table, :meth:`LearnedController.table`), and equality/hashing go by
 a content digest of the weights — two controllers with bit-identical
 params share one lane batch, retrained params get another, and stale
 Experiment cache cells can never be served for new weights
@@ -93,6 +93,8 @@ class LearnedController:
         object.__setattr__(self, "cfg", cfg)
         object.__setattr__(self, "_digest", params_digest(params))
         object.__setattr__(self, "_on_device", {})
+        object.__setattr__(self, "_tables", {})
+        object.__setattr__(self, "_code", None)
 
     @property
     def name(self) -> str:
@@ -119,10 +121,14 @@ class LearnedController:
         # tick() reads only cfg + params from self; the SLA numerics arrive
         # via SLAParams, and the init operating point is numeric (state0) —
         # so the canonical instance keeps the weights (they ARE the code)
-        # and drops everything else.
+        # and drops everything else.  It is made once, so its device
+        # copies of the weights live as long as this controller.
         if self.sla == SLA() and self.label is None:
             return self
-        return LearnedController(params=self.params, cfg=self.cfg)
+        if self._code is None:
+            object.__setattr__(self, "_code", LearnedController(
+                params=self.params, cfg=self.cfg))
+        return self._code
 
     def weights(self, device) -> dict:
         """The params as float32 tensors on ``device`` (uploaded once per
@@ -133,6 +139,19 @@ class LearnedController:
                 k: torch.as_tensor(v, device=device)
                 for k, v in self.params.items()}
         return self._on_device[device]
+
+    def table(self, device) -> torch.Tensor:
+        """The weights as the tick kernel's float32 table on ``device``:
+        w0 (row-major), b0, w1, b1, ... (uploaded once per device, freed
+        with the controller)."""
+        device = torch.device(device)
+        if device not in self._tables:
+            n_layers = len(self.cfg.hidden) + 1
+            flat = np.concatenate([self.params[f"{kind}{i}"].ravel()
+                                   for i in range(n_layers)
+                                   for kind in "wb"])
+            self._tables[device] = torch.as_tensor(flat, device=device)
+        return self._tables[device]
 
     def init(self, specs, profile, cpu) -> ControllerInit:
         params, chunked = heuristics.initialize(specs, profile, cpu,

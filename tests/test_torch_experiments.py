@@ -100,13 +100,6 @@ def test_figure_experiments_equal_the_benchmarks(name):
     assert [c.labels for c in t] == [c.labels for c in j]
     assert [c.scenario.name for c in t] == [c.scenario.name for c in j]
     assert [c.key for c in t] == [c.key for c in j]
-    # ... and the same cells as the sweep phases run
-    sweep_cells = {"fig2-smoke": chip_smoke.fig2_scenarios(smoke=True),
-                   "fig2": chip_smoke.fig2_scenarios(),
-                   "fig_dvfs": chip_smoke.fig_dvfs_scenarios(),
-                   "greendataflow": chip_smoke.greendataflow_scenarios()}
-    assert [c.key for c in t] == [tapi.scenario_key(sc)
-                                  for _, sc in sweep_cells[name]]
 
 
 def test_scenario_key_normalizes_spellings_as_in_jax():
@@ -187,6 +180,30 @@ def test_cache_hit_resume_and_version(tmp_path):
     assert r4.meta["executed"] == 1 and r4.meta["cache_hits"] == 3
     assert tapi.clear_cache(cache) == 4
     assert tapi.clear_cache(cache) == 0
+
+
+def test_cache_serves_no_record_of_the_jax_package(tmp_path):
+    """One directory may hold both packages' records under equal keys; the
+    port treats the JAX package's as misses (and JAX, which checks only its
+    version tag, would read the port's: that direction is JAX's own)."""
+    from repro.api import experiments as jexp
+
+    cache = str(tmp_path / "cells")
+    calls = []
+
+    def spy(scenarios):
+        calls.append(len(scenarios))
+        return tapi.sweep(scenarios, device="cpu")
+
+    exp = small_experiment(tapi, ttypes)
+    fake = {m: 0.0 for m in tapi.report.RESULT_METRICS}
+    for cell in exp.cells():
+        jexp._cache_write(cache, cell.key, dict(fake, name="jax"))
+    rep = exp.run(cache=cache, sweeper=spy)
+    assert calls == [4] and rep.meta["cache_hits"] == 0
+    assert all(float(e) > 0.0 for e in rep["energy_j"])
+    rep = exp.run(cache=cache, sweeper=spy)       # its own records hit
+    assert calls == [4] and rep.meta["cache_hits"] == 4
 
 
 def test_split_timing_runs_twice_and_needs_a_device(monkeypatch):

@@ -141,14 +141,14 @@ def test_kernel_spec_covers_the_builtin_controllers():
     assert tl.kernel_spec(learned.code(), tapi.make_environment(
         "dvfs"))[2].energy == tl.ENERGY_DVFS
     # the weight table: w0 row-major, b0, w1, b1, w2, b2 as float32
-    table = tl.policy_table(learned, "cpu")
+    table = learned.code().table("cpu")
     assert tl.policy_widths(learned) == (9, 32, 32, 9)
     assert table.dtype == torch.float32 and table.numel() == (
         9 * 32 + 32 + 32 * 32 + 32 + 32 * 9 + 9)
     assert torch.equal(table[:9 * 32],
                        torch.as_tensor(learned.params["w0"]).reshape(-1))
     assert torch.equal(table[-9:], torch.as_tensor(learned.params["b2"]))
-    assert tl.policy_table(learned, "cpu") is table   # uploaded once
+    assert learned.code().table("cpu") is table   # uploaded once
 
 
 def _codes(spec):

@@ -227,7 +227,8 @@ def test_launch_rejects_policies_no_instance_takes(host_launch,
     prow, f0, i0 = engine.pack_batch(key.env_code, inp)
 
     table = torch.zeros(10000)
-    monkeypatch.setattr(tl, "policy_table", lambda c, device: table)
+    monkeypatch.setattr(LearnedController, "table",
+                        lambda self, device: table)
 
     def call(widths):
         monkeypatch.setattr(tl, "policy_widths", lambda c: tuple(widths))
