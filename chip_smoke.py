@@ -111,12 +111,27 @@ Phases (each prints a line; any failure exits non-zero):
               prefill and decode tokens/s, peak memory; the prefill's
               logits through the kernels and through the plain versions,
               each against the float32 prefill of the same weights.
+19. recurrent train — recurrentgemma-2b training: (a) the backward
+              kernels at its heads (MQA 10/1 of 256; B 1/2; T 200/2,048/
+              4,096; window 0/2,048; bf16 wgmma / f32 FMA) vs their plain
+              version, times at B 2 x T 4,096 against bound, plain version
+              and SDPA's backward with the window mask; (b) the RG-LRU
+              backward kernel vs its plain version bit for bit (C 2,560;
+              B 1/2; T 1/200/4,096), timed; (c) two float32 train steps at
+              full width cut to 3 layers, B 1 x T 2,176, against
+              ``tests/torch_goldens/train_recurrentgemma_2b.json`` (JAX on
+              the CPU), attention on the FMA route; (d) bf16 at full width
+              and depth through ``trainer.train`` with the SLA-tuned
+              fetcher (B 2 x T 4,096, remat, 4 steps): step time, tokens/s,
+              peak memory, launches a step by kernel (16 kernel 2, 8 kernel
+              3, 36 kernel 5, 18 RG-LRU backward), a profiled step; then
+              one B 1 step through the kernels and the plain versions.
 
-Phases 5, 6, 9, 12, 16, 17c, 18c and 18f drive the main paths: each
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f and 19d drive the main paths: each
 kernel's launch count is set to 0 just before and read just after; every
 attention launch there must take the bf16 (wgmma) route.  The float32 (FMA) attention
 kernels' launches are counted over the float32 goldens' entry points
-(phases 8, 11 and 15).  The last two lines are the kernel summary and
+(phases 8, 11, 15 and 19c).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
 
@@ -127,7 +142,11 @@ and prints neither of the last two lines;
 
     python3 chip_smoke.py --learn
 
-runs phases 1-3 and 18 only, and prints neither either.
+runs phases 1-3 and 18 only, and prints neither either;
+
+    python3 chip_smoke.py --recurrent-train
+
+runs phases 1-2 and 19 only, and prints neither.
 """
 from __future__ import annotations
 
@@ -1410,12 +1429,16 @@ TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL, TRAIN_BF16_GRAD_RTOL = \
 
 
 def bwd_bound(B, H, Hkv, hd, T, causal, elem_bytes,
-              ops_per_s=BF16_TENSOR_OPS_PER_S):
+              ops_per_s=BF16_TENSOR_OPS_PER_S, window=0):
     """(bound_ms, bound_by, flops, bytes) of one attention backward: five
     products (s, dp, dq, dk, dv) = 10 hd operations per reachable (query,
-    key) pair and query head at ``ops_per_s`` (as :func:`flash_bound`); q,
+    key) pair and query head at ``ops_per_s`` (as :func:`flash_bound`; a
+    causal ``window`` > 0 reaches min(q + 1, window) keys from query q); q,
     k, v, o, dO and lse read once and dq, dk, dv written once."""
-    pairs = T * (T + 1) // 2 if causal else T * T
+    if causal:
+        pairs = sum(min(q + 1, window or T) for q in range(T))
+    else:
+        pairs = T * T
     flops = 10 * hd * H * B * pairs
     nbytes = (elem_bytes * hd * B * (4 * H * T + 4 * Hkv * T)
               + 4 * B * H * T)
@@ -1423,6 +1446,28 @@ def bwd_bound(B, H, Hkv, hd, T, causal, elem_bytes,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
+
+
+def hold_bwd(where, dname, got, want, worst, max_abs):
+    """Holds the backward kernels' (dq, dk, dv) to the plain version's at
+    phase 10's tolerances (float32: BWD_F32_TOL + BWD_F32_TOL x |ref|
+    element-wise; bf16: BWD_BF16_TOL of each gradient's largest magnitude)
+    and keeps the worst error and |err| by dtype in ``worst``,
+    ``max_abs``."""
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        if dname == "float32":
+            excess = float((diff - BWD_F32_TOL * b.abs()).max())
+            ok = excess <= BWD_F32_TOL
+            rel = float(diff.max())
+        else:
+            rel = float(diff.max()) / float(b.abs().max())
+            ok = rel <= BWD_BF16_TOL
+        check(ok, f"{where} {gname}: max |err| {float(diff.max())} (of max "
+                  f"{float(b.abs().max())})")
+        worst[dname] = max(worst[dname], rel)
+        max_abs[dname] = max(max_abs[dname], float(diff.max()))
 
 
 def phase_flash_bwd(dev) -> dict:
@@ -1454,21 +1499,9 @@ def phase_flash_bwd(dev) -> dict:
         o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
         got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
         want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
-            a, b = a.float(), b.float()
-            diff = (a - b).abs()
-            if dname == "float32":
-                excess = float((diff - BWD_F32_TOL * b.abs()).max())
-                ok = excess <= BWD_F32_TOL
-                rel = float(diff.max())
-            else:
-                rel = float(diff.max()) / float(b.abs().max())
-                ok = rel <= BWD_BF16_TOL
-            check(ok, f"flash backward {name} B={B} T={T} causal={causal} "
-                      f"window={window} {dname} {gname}: max |err| "
-                      f"{float(diff.max())} (of max {float(b.abs().max())})")
-            worst[dname] = max(worst[dname], rel)
-            max_abs[dname] = max(max_abs[dname], float(diff.max()))
+        hold_bwd(f"flash backward {name} B={B} T={T} causal={causal} "
+                 f"window={window} {dname}", dname, got, want, worst,
+                 max_abs)
         n += 1
         del q, k, v, do, o, lse, got, want
     torch.cuda.synchronize()
@@ -1550,8 +1583,19 @@ def _golden_index(idx, tokens):
                  slice(*i) if isinstance(i, list) else i for i in idx)
 
 
-def phase_train_golden(dev, tree):
-    """[11 train golden] two float32 train steps of qwen3-0.6b vs JAX's."""
+def attention_layers(cfg) -> int:
+    """How many of the model's layers attend (all of a dense model's;
+    recurrentgemma's local ones)."""
+    if cfg.family != "hybrid":
+        return cfg.num_layers
+    pat = cfg.block_pattern
+    return sum(pat[i % len(pat)] == "local" for i in range(cfg.num_layers))
+
+
+def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
+                       tag="[11 train golden]"):
+    """[11 train golden] (and 19c) two float32 train steps vs JAX's, from
+    the golden's weights ``tree`` (its ``num_layers`` cut applied)."""
     import dataclasses
 
     import numpy as np
@@ -1566,13 +1610,14 @@ def phase_train_golden(dev, tree):
     from repro_torch.train import (TrainState, loss_and_grads,
                                    make_loss_fn, make_train_step)
 
-    with open(os.path.join(ROOT, "tests", "torch_goldens",
-                           "train_qwen3_0_6b.json")) as f:
+    with open(os.path.join(ROOT, "tests", "torch_goldens", golden)) as f:
         gold = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
-    check(cfg.remat and cfg.remat_save == "nothing", "qwen3-0.6b remats")
+    arch = gold["arch"]
+    cut = {"num_layers": gold["num_layers"]} if "num_layers" in gold else {}
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+    check(cfg.remat and cfg.remat_save == "nothing", f"{arch} remats")
     bundle = build_model(cfg)
     params = convert.lm_params_from_jax(tree, cfg, dev)
     arr = np.random.default_rng(gold["token_seed"]).integers(
@@ -1582,23 +1627,19 @@ def phase_train_golden(dev, tree):
     fa0, bw0 = flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches
     _, _, _, grads = loss_and_grads(make_loss_fn(bundle, executor="cuda"),
                                     params, batch)
-    check(flash_attention_bwd_bhtd.launches - bw0 == cfg.num_layers,
-          "the gradient did not run the backward kernel once per layer")
+    check(flash_attention_bwd_bhtd.launches - bw0 == attention_layers(cfg),
+          "the gradient did not run the backward kernel once per attention "
+          "layer")
     g_err = 0.0
     for path, want in gold["grad_leaf_norms"].items():
-        leaf = grads
-        for key in path.split("/"):
-            leaf = leaf[key]
-        got = float(leaf.double().norm())
+        got = float(_leaf(grads, path).double().norm())
         g_err = max(g_err, abs(got - want) / want)
     check(g_err <= TRAIN_GNORM_RTOL,
           f"step-1 gradient leaf norms vs the golden: rel err {g_err}")
     gs_err = 0.0
     for (path, idx), want in zip(gold["check_leaves"], gold["grad_slices"]):
-        leaf = grads
-        for key in path.split("/"):
-            leaf = leaf[key]
-        got = leaf[_golden_index(idx, arr)].double().cpu().numpy()
+        got = _leaf(grads, path)[_golden_index(idx, arr)].double().cpu(
+        ).numpy()
         want = np.asarray(want)
         err = float(np.abs(got - want).max() / np.abs(want).max())
         check(err <= TRAIN_GRAD_ATOL, f"step-1 gradient slice {path} "
@@ -1626,10 +1667,8 @@ def phase_train_golden(dev, tree):
     for (path, idx), g1, want in zip(gold["check_leaves"],
                                      gold["grad_slices"],
                                      gold["param_slices_after_2"]):
-        leaf = state.params
-        for key in path.split("/"):
-            leaf = leaf[key]
-        got = leaf[_golden_index(idx, arr)].double().cpu().numpy()
+        got = _leaf(state.params, path)[_golden_index(idx, arr)].double(
+        ).cpu().numpy()
         d = np.abs(got - np.asarray(want))
         g1 = np.abs(np.asarray(g1))
         sure = g1 > TRAIN_G_FLOOR * g1.max()
@@ -1640,9 +1679,10 @@ def phase_train_golden(dev, tree):
         n_sure += int(sure.sum())
         n_all += d.size
     losses = [float(x["loss"]) for x in gold["steps"]]
-    print(f"[11 train golden] qwen3-0.6b float32 (TF32 off, remat), 2 x "
-          f"{gold['seq']} tokens, 2 make_train_step steps on the card vs "
-          f"train_qwen3_0_6b.json (JAX losses {losses}): rel err loss "
+    print(f"{tag} {arch} float32 (TF32 off, remat, {cfg.num_layers} "
+          f"layers), {gold['batch']} x {gold['seq']} tokens, 2 "
+          f"make_train_step steps on the card vs {golden} (JAX losses "
+          f"{losses}): rel err loss "
           f"{m_err['loss']:.3g}, ce {m_err['ce']:.3g} (tol "
           f"{TRAIN_LOSS_RTOL}), grad norm {m_err['grad_norm']:.3g} (tol "
           f"{TRAIN_GNORM_RTOL}), lr {m_err['lr']:.3g} (tol {TRAIN_LR_RTOL});"
@@ -1778,17 +1818,19 @@ def phase_train(dev) -> dict:
 #: Device-kernel groups of a training step, by kernel name (first match).
 STEP_GROUPS = (("flash forward (kernel 2)", ("flash_fwd",)),
                ("flash backward (kernel 3)", ("flash_bwd",)),
+               ("rglru backward", ("rglru_bwd_kernel",)),
+               ("rglru (kernel 5)", ("rglru_kernel",)),
                ("matrix products", ("gemm", "gemv", "cutlass", "xmma",
                                     "cublas", "nvjet", "sm90_", "sm80_")),
                ("copies", ("Memcpy", "Memset")))
 
 
-def profile_train_step(dev, bundle, state):
-    """One more B 8 x T 2048 step from ``state`` under ``torch.profiler``
-    (CPU and CUDA activity): device time by kernel group, the card's busy
-    time (the union of its kernels' intervals) and its idle share of the
-    step's host wall.  Prints "not measured" when the trace holds no
-    device events."""
+def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
+                       steps=TRAIN_STEPS, tag="[12 train]"):
+    """One more B x T step from ``state`` under ``torch.profiler`` (CPU and
+    CUDA activity): device time by kernel group, the card's busy time (the
+    union of its kernels' intervals) and its idle share of the step's host
+    wall.  Prints "not measured" when the trace holds no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1796,11 +1838,11 @@ def profile_train_step(dev, bundle, state):
     from repro_torch.train import make_train_step
 
     gen = torch.Generator().manual_seed(13)
-    toks = torch.randint(0, bundle.cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+    toks = torch.randint(0, bundle.cfg.vocab_size, (B, T + 1),
                          generator=gen, dtype=torch.int32).to(dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
-                                               total_steps=TRAIN_STEPS))
+                                               total_steps=steps))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1812,7 +1854,7 @@ def profile_train_step(dev, bundle, state):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"[12 train] profiled step: {wall_ms:.1f} ms host wall; the "
+        print(f"{tag} profiled step: {wall_ms:.1f} ms host wall; the "
               f"trace holds no device events: breakdown and idle share "
               f"not measured", flush=True)
         return None
@@ -1842,7 +1884,7 @@ def profile_train_step(dev, bundle, state):
     idle = max(0.0, 1.0 - busy_ms / wall_ms)
     parts = "; ".join(f"{g} {ms:.1f} ms" for g, ms in by.items())
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[12 train] profiled step ({TRAIN_B} x {TRAIN_T}, torch.profiler "
+    print(f"{tag} profiled step ({B} x {T}, torch.profiler "
           f"CPU+CUDA): host wall {wall_ms:.1f} ms, {len(kernels)} device "
           f"events, card busy {busy_ms:.1f} ms, idle {idle:.3f} of the "
           f"wall; device time by group: {parts}; largest other kernels: "
@@ -2196,11 +2238,12 @@ def wkv_bound(B, H, T, hd, elem_bytes, with_s0):
             else "bytes", flops, nbytes)
 
 
-def rglru_bound(B, T, C, elem_bytes):
-    """(bound_ms, bound_by, flops, bytes): a, b read and h written once, 2
-    operations per element."""
-    flops = 2 * B * T * C
-    nbytes = 3 * elem_bytes * B * T * C
+def rglru_bound(B, T, C, elem_bytes, arrays=3, ops=2):
+    """(bound_ms, bound_by, flops, bytes): the forward reads a, b and
+    writes h once (3 arrays), 2 operations per element; the backward reads
+    a, h, g and writes da, db (5 arrays), 3 operations per element."""
+    flops = ops * B * T * C
+    nbytes = arrays * elem_bytes * B * T * C
     t_ops = flops / F32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -2446,9 +2489,7 @@ def phase_recurrent_serve(dev, arch) -> dict:
     cfg = get_config(arch)
     check(cfg.dtype == "bfloat16", f"{arch} serves in bf16")
     bundle = build_model(cfg)
-    n_attn = sum(b == "local" for b in (
-        cfg.block_pattern[i % len(cfg.block_pattern)]
-        for i in range(cfg.num_layers)))
+    n_attn = attention_layers(cfg)
     want_prefill = ({"wkv": cfg.num_layers, "rglru": 0, "flash_attention": 0}
                     if cfg.family == "ssm" else
                     {"wkv": 0, "rglru": cfg.num_layers - n_attn,
@@ -2579,6 +2620,301 @@ def phase_recurrent_serve(dev, arch) -> dict:
 
 # ----------------------------------------------------------------- phases --
 
+# --------------------------------------------------- recurrent training --
+
+# Phase 19: recurrentgemma-2b training.  (a) Kernel 3 at its heads
+# (FLASH_256: MQA 10/1 of 256; window 0 and 2,048), both routes, held as
+# phase 10 holds it (hold_bwd), timed at the trainer's shape.
+RG_BWD_BATCH, RG_BWD_T, RG_BWD_WINDOWS = (1, 2), (200, 2048, 4096), (0, 2048)
+# (b) The RG-LRU backward kernel vs its plain version, bit for bit, at
+# C 2,560.
+RG_LRU_BWD_BATCH, RG_LRU_BWD_T = (1, 2), (1, 200, 4096)
+# (c) The float32 golden (tests/torch_goldens/make_train_golden.py
+# recurrentgemma-2b: full width, 3 of 26 layers, B 1 x T 2,176), held to
+# phase 11's tolerances.
+RG_TRAIN_GOLDEN = "train_recurrentgemma_2b.json"
+# (d) The trainer's cell: train_4k's sequence length
+# (src/repro/configs/__init__.py:45) at one card's 2 rows of its global
+# batch of 256, remat, 4 steps; then one B 1 step (loss and gradients)
+# through the kernels and through the plain versions, held to phase 12's
+# bf16 tolerances.
+RG_TRAIN_B, RG_TRAIN_T, RG_TRAIN_STEPS, RG_CHECK_B = 2, 4096, 4, 1
+
+
+def phase_recurrent_train_kernels(dev) -> dict:
+    """[19 recurrent train] (a) kernel 3 at recurrentgemma-2b's heads on
+    both routes and (b) the RG-LRU backward kernel, each vs its plain
+    version on the card, timed at the trainer's shape."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+    from repro_torch.kernels.rglru import (rglru_bwd_ref, rglru_scan,
+                                           rglru_scan_bwd)
+
+    H, Hkv, hd = FLASH_256
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def qkvd(B, T, dt):
+        return [torch.randn(B, T, h, hd, generator=g, device=dev).to(dt)
+                .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    max_abs = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for B, T, window, dname in itertools.product(
+            RG_BWD_BATCH, RG_BWD_T, RG_BWD_WINDOWS, ("bfloat16", "float32")):
+        q, k, v, do = qkvd(B, T, getattr(torch, dname))
+        kw = dict(causal=True, window=window)
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
+        want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        hold_bwd(f"[19a] flash backward hd 256 B={B} T={T} window={window} "
+                 f"{dname}", dname, got, want, worst, max_abs)
+        n += 1
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.synchronize()
+    print(f"[19 recurrent train] (a) kernel 3 == plain version on {n} cases "
+          f"at recurrentgemma-2b's heads ({H}/{Hkv} of {hd}; B "
+          f"{RG_BWD_BATCH}; T {RG_BWD_T}; causal, window "
+          f"{RG_BWD_WINDOWS}; bf16 wgmma / f32 FMA): max |err| f32 "
+          f"{worst['float32']:.3g} (tol {BWD_F32_TOL} + {BWD_F32_TOL} x "
+          f"|ref|), bf16 {worst['bfloat16']:.3g} of each gradient's max (tol "
+          f"{BWD_BF16_TOL})", flush=True)
+
+    B, T, w = RG_TRAIN_B, RG_TRAIN_T, FLASH_256_WINDOW
+    qpos = torch.arange(T, device=dev)
+    mask = (qpos[None] <= qpos[:, None]) & (qpos[None] > qpos[:, None] - w)
+    out = {}
+    for dname, ops_per_s, elem in (("bfloat16", BF16_TENSOR_OPS_PER_S, 2),
+                                   ("float32", F32_OPS_PER_S, 4)):
+        q, k, v, do = qkvd(B, T, getattr(torch, dname))
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, window=w)
+        reps = 5 if dname == "bfloat16" else 3
+        ms = time_cuda(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do,
+                                                        window=w), reps)
+        plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                       window=w), 2)
+        # SDPA with the window as a boolean mask; k and v expanded to the
+        # query heads (a view), so its backward sums dk and dv over them
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_o = F.scaled_dot_product_attention(
+            xs[0], xs[1].expand(B, H, T, hd), xs[2].expand(B, H, T, hd),
+            attn_mask=mask)
+        lib_ms = time_cuda(lambda: torch.autograd.grad(
+            lib_o, xs, do, retain_graph=True), reps)
+        bound_ms, bound_by, flops, nbytes = bwd_bound(
+            B, H, Hkv, hd, T, True, elem, ops_per_s, window=w)
+        print(f"[19 recurrent train] (a) {dname} "
+              f"({'wgmma' if elem == 2 else 'FMA'} kernels) B={B} T={T} "
+              f"window={w}: kernel {ms:.4f} ms (dq + dk/dv + delta, median "
+              f"of {reps}); bound {bound_ms:.4f} ms by {bound_by} ({flops} "
+              f"FLOP, {nbytes} B); x bound {ms / bound_ms:.1f}; plain "
+              f"{plain_ms:.3f} ms; scaled_dot_product_attention backward "
+              f"(window mask) {lib_ms:.4f} ms", flush=True)
+        out[dname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=max_abs[dname])
+        del q, k, v, do, o, lse, xs, lib_o
+
+    # (b) the RG-LRU backward kernel, bit for bit
+    C = RGLRU_C
+    n = 0
+    for B, T in itertools.product(RG_LRU_BWD_BATCH, RG_LRU_BWD_T):
+        a = torch.rand(B, T, C, generator=g, device=dev) * 0.1 + 0.9
+        b, gr = (torch.randn(B, T, C, generator=g, device=dev)
+                 for _ in range(2))
+        h = rglru_scan(a, b)
+        got = rglru_scan_bwd(a, h, gr)
+        want = rglru_bwd_ref(a, h, gr)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"[19b] rglru backward B={B} T={T}: kernel != plain version")
+        n += 1
+    B, T = RG_TRAIN_B, RG_TRAIN_T
+    ms = time_cuda(lambda: rglru_scan_bwd(a, h, gr), 5)
+    plain_ms = time_cuda(lambda: rglru_bwd_ref(a, h, gr), 2)
+    bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4, arrays=5,
+                                                    ops=3)
+    print(f"[19 recurrent train] (b) RG-LRU backward kernel == plain version "
+          f"bit for bit on {n} cases (C {C}; B {RG_LRU_BWD_BATCH}; T "
+          f"{RG_LRU_BWD_T}; f32); B={B} T={T}: kernel {ms:.4f} ms (median "
+          f"of 5); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at 3.35 "
+          f"TB/s, {flops} FLOP); x bound {ms / bound_ms:.1f}; plain "
+          f"{plain_ms:.3f} ms (median of 2); library call: none", flush=True)
+    out["rglru_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=0.0,
+                            library_ms=None)
+    del a, b, gr, h, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent_train(dev) -> dict:
+    """[19 recurrent train] recurrentgemma-2b training: (a, b) the backward
+    kernels vs their plain versions, (c) the float32 golden, (d) bf16 at
+    full width and depth through ``trainer.train``."""
+    import math
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import SLA, SLAPolicy
+    from repro_torch.data import SyntheticSource, TunedFetcher, batches
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.train import loss_and_grads, make_loss_fn
+    from repro_torch.train.trainer import TrainerConfig, train
+    from repro_torch.tree import leaves_with_paths
+
+    t_phase = time.perf_counter()
+    res = {"kernels": phase_recurrent_train_kernels(dev)}
+
+    # (c) the float32 golden, its attention on the FMA route
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           RG_TRAIN_GOLDEN)) as f:
+        gold = json.load(f)
+    cut = dataclasses.replace(get_config(gold["arch"]), dtype="float32",
+                              num_layers=gold["num_layers"])
+    t0 = time.perf_counter()
+    tree = convert.random_lm_params(cut, seed=gold["seed"])
+    print(f"[19 recurrent train] (c) {gold['arch']} weights, {cut.num_layers} "
+          f"of 26 layers ({gold['depth_cut']}), drawn with numpy in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    fma0 = fma_launches()
+    phase_train_golden(dev, tree, RG_TRAIN_GOLDEN, "[19 recurrent train] (c)")
+    res["fma"] = [b - a for a, b in zip(fma0, fma_launches())]
+    check(all(res["fma"]), f"the float32 golden launched the FMA attention "
+                           f"kernels {res['fma']} times")
+    del tree
+
+    # (d) bf16, full width and depth, through the trainer
+    cfg = get_config("recurrentgemma-2b")
+    check(cfg.dtype == "bfloat16" and cfg.remat, "recurrentgemma-2b trains "
+          "in bf16 with remat")
+    bundle = build_model(cfg)
+    n_attn = attention_layers(cfg)
+    n_rec = cfg.num_layers - n_attn
+    kernels = {"flash_attention": flash_attention_bhtd,
+               "flash_attention_bwd": flash_attention_bwd_bhtd,
+               "rglru": rglru_scan, "rglru_bwd": rglru_scan_bwd}
+    # remat recomputes each layer's forward in the backward
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "rglru": 2 * n_rec, "rglru_bwd": n_rec}
+    sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
+    fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
+    data = batches(fetcher.source, batch=RG_TRAIN_B, seq=RG_TRAIN_T,
+                   tuned=True, sla=sla, fetcher=fetcher)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=RG_TRAIN_STEPS)
+    marks = []
+
+    def hook(i, state, metrics):
+        marks.append((time.perf_counter(),
+                      {k: fn.launches for k, fn in kernels.items()},
+                      float(metrics["loss"]), float(metrics["grad_norm"])))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    try:
+        # the weights are drawn on the card (a generator of its own)
+        state, report = train(
+            bundle, opt, data,
+            TrainerConfig(total_steps=RG_TRAIN_STEPS, log_every=0,
+                          seed=torch.Generator(device=dev).manual_seed(0)),
+            hooks=hook, device=dev)
+    finally:
+        data.close()                   # stops the fetcher's threads
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check_bf16_route("recurrentgemma-2b train")
+    peak = torch.cuda.max_memory_allocated()
+    check(report.steps_run == RG_TRAIN_STEPS, f"ran {report.steps_run} steps")
+    check(all(math.isfinite(x) for x in report.losses),
+          f"non-finite loss: {report.losses}")
+    zero = {k: 0 for k in kernels}
+    per_step = [{k: b[1][k] - a[1][k] for k in kernels}
+                for a, b in zip([(t0, zero)] + marks, marks)]
+    check(all(p == want for p in per_step),
+          f"kernel launches per step {per_step}, expected {want} each")
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    mean_ms = statistics.mean(step_ms)
+    tokens = RG_TRAIN_B * RG_TRAIN_T
+    traj = []
+    for t, w, c, fi in fetcher.trajectory:
+        if not traj or traj[-1][1:] != (w, c, fi):
+            traj.append((round(t, 2), w, c, fi))
+    print(f"[19 recurrent train] (d) recurrentgemma-2b bf16 (remat, "
+          f"{cfg.num_layers} layers: {n_rec} RG-LRU, {n_attn} local MQA), "
+          f"{RG_TRAIN_STEPS} steps of {RG_TRAIN_B} x {RG_TRAIN_T} through "
+          f"trainer.train with SLA-tuned ingest: wall {wall:.3f} s (weights "
+          f"drawn on the card, init included; first step "
+          f"{(marks[0][0] - t0) * 1e3:.1f} ms); steps 2-{RG_TRAIN_STEPS} "
+          f"{mean_ms:.1f} ms a step (each {[round(x, 1) for x in step_ms]}) "
+          f"= {tokens / mean_ms * 1e3:.0f} tokens/s; peak memory {peak} B; "
+          f"launches per step {per_step[0]} ({launches} in all, every "
+          f"attention launch wgmma); losses "
+          f"{[round(x, 4) for x in report.losses]}; grad norms "
+          f"{[round(m[3], 4) for m in marks]}; fetcher (s, workers, cores, "
+          f"freq_idx) {traj}", flush=True)
+
+    breakdown = profile_train_step(dev, bundle, state, RG_TRAIN_B,
+                                   RG_TRAIN_T, RG_TRAIN_STEPS,
+                                   "[19 recurrent train] (d)")
+
+    # one step at B 1 from the trained state: kernels vs plain versions
+    gen = torch.Generator().manual_seed(19)
+    toks = torch.randint(0, cfg.vocab_size, (RG_CHECK_B, RG_TRAIN_T + 1),
+                         generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    got = {}
+    for ex in ("cuda", "reference"):
+        t1 = time.perf_counter()
+        loss, _, _, grads = loss_and_grads(make_loss_fn(bundle, executor=ex),
+                                           state.params, batch)
+        got[ex] = (float(loss), float(global_norm(grads)), grads,
+                   time.perf_counter() - t1)
+    (lk, gk, grk, sk), (lr_, gr, grr, sr) = got["cuda"], got["reference"]
+    l_err, g_err = abs(lk - lr_) / abs(lr_), abs(gk - gr) / gr
+    leaf_err = {p: float((a.float() - b.float()).norm()
+                         / b.float().norm().clamp_min(1e-30))
+                for (p, a), (_, b) in zip(leaves_with_paths(grk),
+                                          leaves_with_paths(grr))}
+    worst = max(leaf_err, key=leaf_err.get)
+    check(l_err <= TRAIN_BF16_LOSS_RTOL and g_err <= TRAIN_BF16_GNORM_RTOL
+          and leaf_err[worst] <= TRAIN_BF16_GRAD_RTOL,
+          f"recurrentgemma bf16 step, kernels vs plain: loss {lk} vs {lr_}, "
+          f"grad norm {gk} vs {gr}, worst leaf {worst} rel L2 "
+          f"{leaf_err[worst]}")
+    print(f"[19 recurrent train] (d) one bf16 step at {RG_CHECK_B} x "
+          f"{RG_TRAIN_T} from the trained state, kernels vs plain versions "
+          f"({sk:.1f} s / {sr:.1f} s): loss {lk:.6f} vs {lr_:.6f} (rel "
+          f"{l_err:.3g}, tol {TRAIN_BF16_LOSS_RTOL}); grad norm {gk:.5f} vs "
+          f"{gr:.5f} (rel {g_err:.3g}, tol {TRAIN_BF16_GNORM_RTOL}); "
+          f"per-leaf gradient rel L2 distance max {leaf_err[worst]:.3g} at "
+          f"{worst} (tol {TRAIN_BF16_GRAD_RTOL}), median "
+          f"{statistics.median(leaf_err.values()):.3g}", flush=True)
+    del state, got, grk, grr
+    torch.cuda.empty_cache()
+    print(f"[19 recurrent train] phase time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    res.update(launches=launches, per_step=per_step[0], step_ms=mean_ms,
+               peak=peak, breakdown=breakdown)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2586,12 +2922,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv,
-                 learn_only="--learn" in sys.argv)
+                 learn_only="--learn" in sys.argv,
+                 recurrent_only="--recurrent-train" in sys.argv)
 
 
-def smoke(dev, tick_only=False, learn_only=False) -> int:
+def smoke(dev, tick_only=False, learn_only=False,
+          recurrent_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
-    ``learn_only``, phases 1-3 and 18), on the CUDA device ``dev``."""
+    ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
+    and 19), on the CUDA device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -2660,9 +2999,15 @@ def smoke(dev, tick_only=False, learn_only=False) -> int:
         check(inst is not None, f"unexpected entry {name}")
         print(f"[2 build] wkv r/k/v {inst[0]}, w {inst[1]}: {line}")
     for name, line in build.ptxas_report(logs["rglru.cu"]).items():
-        inst = build.rglru_instance(name)
+        inst, entry = build.rglru_instance(name), "rglru"
+        if inst is None:
+            inst, entry = build.rglru_bwd_instance(name), "rglru_bwd"
         check(inst is not None, f"unexpected entry {name}")
-        print(f"[2 build] rglru {inst}: {line}")
+        print(f"[2 build] {entry} {inst}: {line}")
+    if recurrent_only:
+        phase_recurrent_train(dev)
+        print("chip_smoke: recurrent train phases (1-2, 19) passed")
+        return 0
     report = build.ptxas_report(logs["tick_loop.cu"])
     names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC", "LEARNED"]
     used = set()
@@ -2885,6 +3230,8 @@ def smoke(dev, tick_only=False, learn_only=False) -> int:
                     f"{fma[0]} (forward) and {fma[1]} (backward) times")
     rserve = {arch: phase_recurrent_serve(dev, arch)
               for arch in RECURRENT_SERVE}
+    rtrain = phase_recurrent_train(dev)
+    rk = rtrain["kernels"]
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -2905,7 +3252,8 @@ def smoke(dev, tick_only=False, learn_only=False) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
         "launches": serve["launches"] + trained["fa_launches"]
-        + rserve["recurrentgemma-2b"]["launches"]["flash_attention"],
+        + rserve["recurrentgemma-2b"]["launches"]["flash_attention"]
+        + rtrain["launches"]["flash_attention"],
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
                            serve["max_abs_err"]),
         "ms": flash["bf16"]["ms"], "plain_ms": flash["bf16"]["plain_ms"],
@@ -2926,6 +3274,17 @@ def smoke(dev, tick_only=False, learn_only=False) -> int:
         "replaces":
             "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
         "launches": fma[1], **bwd["f32"]}, {
+        "name": "flash_attention_bwd_hd256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "replaces":
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
+        "launches": rtrain["launches"]["flash_attention_bwd"],
+        **rk["bfloat16"]}, {
+        "name": "flash_attention_bwd_hd256_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces":
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
+        "launches": rtrain["fma"][1], **rk["float32"]}, {
         "name": "wkv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:68",
@@ -2936,12 +3295,24 @@ def smoke(dev, tick_only=False, learn_only=False) -> int:
         "name": "rglru", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru/rglru.py:61",
-        "launches": rserve["recurrentgemma-2b"]["launches"]["rglru"],
+        "launches": rserve["recurrentgemma-2b"]["launches"]["rglru"]
+        + rtrain["launches"]["rglru"],
+        "launches_by_path": {
+            "serve": rserve["recurrentgemma-2b"]["launches"]["rglru"],
+            "train": rtrain["launches"]["rglru"]},
         "max_abs_err": rglru["max_abs_err"], "ms": rglru["ms"],
         "plain_ms": rglru["plain_ms"], "bound_ms": rglru["bound_ms"],
-        "bound_by": rglru["bound_by"], "library_ms": None}]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": count}}))
+        "bound_by": rglru["bound_by"], "library_ms": None}, {
+        "name": "rglru_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru/rglru.py:61",
+        "note": "the port's own backward of that kernel: JAX has no Pallas "
+                "backward and differentiates its associative scan "
+                "(src/repro/models/rglru.py:102)",
+        "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

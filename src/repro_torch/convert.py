@@ -168,7 +168,8 @@ def states_to_jax(states):
 
 def train_state_from_jax(state, cfg, device):
     """A JAX ``TrainState`` with numpy leaves (``params``, ``opt.mu``,
-    ``opt.nu``, ``opt.count``, ``step``) -> the port's
+    ``opt.nu``, ``opt.count``, ``step``; blocks stacked, or recurrentgemma's
+    list of layers) -> the port's
     :class:`~repro_torch.train.TrainState` on ``device``.  Parameters take
     :func:`lm_params_from_jax`'s dtypes; moments and counters keep their
     own."""
@@ -178,6 +179,8 @@ def train_state_from_jax(state, cfg, device):
     def same(tree):
         if isinstance(tree, dict):
             return {k: same(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [same(v) for v in tree]
         return _tensor(tree, device)
     return TrainState(
         params=lm_params_from_jax(state.params, cfg, device),
@@ -193,6 +196,8 @@ def train_state_to_jax(state):
     def arr(tree):
         if isinstance(tree, dict):
             return {k: arr(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [arr(v) for v in tree]
         return _numpy(tree)
     return {"params": arr(state.params),
             "opt": {"mu": arr(state.opt.mu), "nu": arr(state.opt.nu),

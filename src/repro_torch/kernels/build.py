@@ -305,11 +305,25 @@ def rglru_instance(name: str):
         "float32" if m.group(1) == "f" else "bfloat16")
 
 
+def rglru_bwd_instance(name: str):
+    """The dtype of a, h and g (``"float32"`` or ``"bfloat16"``) of a
+    mangled ``rglru_bwd_kernel`` entry name."""
+    m = re.search(r"rglru_bwd_kernelI(f|13__nv_bfloat16)E", name)
+    return None if m is None else (
+        "float32" if m.group(1) == "f" else "bfloat16")
+
+
 def load_rglru() -> ctypes.CDLL:
-    """The RG-LRU scan library, built and loaded once per process."""
+    """The RG-LRU scan library (forward and backward), built and loaded
+    once per process."""
     lib, _ = _load("rglru.cu")
     fn = lib.rglru_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.rglru_bwd_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.c_void_p])
     fn.restype = ctypes.c_int

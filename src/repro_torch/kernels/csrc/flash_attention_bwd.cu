@@ -49,6 +49,9 @@
 //         that can reach the key tile.  8 row groups of 4 key rows x 16
 //         column lanes; a thread holds 4 x 4 transposed scores and dp
 //         entries, and 4 x hd/16 dk and dv accumulators each.
+// Head widths 64, 128 and 256; at 256 a thread holds 128 dq accumulators
+// or 2 x 64 dk/dv ones, and a block 205,824 (dq) or 214,528 (dk/dv) bytes
+// of shared memory, under the 232,448 a block may opt into.
 // Shared rows are padded to hd + 1 floats, so the lanes of a warp read
 // distinct banks both along rows and along columns.  The kernels take
 // element strides for q, k, v, dO, dq, dk and dv (the innermost dimension
@@ -437,7 +440,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// float32 q, k, v, dO, dq, dk, dv; hd 64 or 128.  strides: 21 element
+// float32 q, k, v, dO, dq, dk, dv; hd 64, 128 or 256.  strides: 21 element
 // strides (batch, head, time) of q, k, v, dO, dq, dk, dv in that order.
 // lse and delta: contiguous [B, H, Tq] float32.  Launches the dq kernel and
 // then the dk/dv kernel on ``stream``.  Returns a cudaError_t (0 on
@@ -456,6 +459,9 @@ int flash_attention_bwd_launch(int hd, const void* q, const void* k,
                              Hkv, Tq, Tk, strides, causal, window, scale, s);
   if (hd == 128)
     return launch<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
+                              Hkv, Tq, Tk, strides, causal, window, scale, s);
+  if (hd == 256)
+    return launch<float, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                               Hkv, Tq, Tk, strides, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -44,8 +44,17 @@
 //          dV += P^T dO and dK += dS^T Q with P^T and dS^T in registers and
 //          dO, Q read as MN-major B operands.
 // Query / key tiles that the mask rules out for a whole block are never
-// loaded; the mask runs only on tiles that cut it.  Head widths 64 and 128
-// (no path trains at 256).
+// loaded; the mask runs only on tiles that cut it.
+// Head widths 64, 128 and 256.  At 256 the hd-128 tiling needs 263 KB of
+// shared memory a block and 256 dk/dv accumulators a thread, over the
+// 227 KB and 255 registers there are.  So each block owns half of the
+// output columns (128 of dq, or of dk and dv): it still reduces S and dP
+// over all 256 (twice the k-steps, no more registers), and grids hold two
+// blocks per tile, head and row.  Its tiles keep their rows, with one K/V
+// (dq) or Q/dO (dk/dv) stage instead of two: 197,632 and 198,144 bytes.
+// The price: S and dP are computed twice over (22 hd operations per pair
+// where hd 128 takes 14), and the single stage does not overlap a tile's
+// load with the previous tile's products.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,14 +79,21 @@ constexpr int kKBQ = 64;
 template <int HD>
 struct Bwd {
   static constexpr int kBoxes = HD / 64;
-  // dq: Q, dO, then 2 stages of (K, V)
+  // blocks per tile along the output columns, the columns each owns, and
+  // the stages of the ring
+  static constexpr int kSplit = HD > 128 ? 2 : 1;
+  static constexpr int kOut = HD / kSplit;
+  static constexpr int kStages = HD > 128 ? 1 : 2;
+  // dq: Q, dO, then kStages stages of (K, V)
   static constexpr int kDqQ = kQBQ * HD * 2;
   static constexpr int kDqKV = kQBK * HD * 2;
-  static constexpr int kDqSmem = 2 * kDqQ + 4 * kDqKV + 1024;
-  // dk/dv: K, V, then 2 stages of (Q, dO), then 2 stages of (lse, delta)
+  static constexpr int kDqSmem = 2 * kDqQ + 2 * kStages * kDqKV + 1024;
+  // dk/dv: K, V, then kStages stages of (Q, dO), then kStages of (lse,
+  // delta)
   static constexpr int kKvK = kKBK * HD * 2;
   static constexpr int kKvQ = kKBQ * HD * 2;
-  static constexpr int kKvSmem = 2 * kKvK + 4 * kKvQ + 4 * kKBQ * 4 + 1024;
+  static constexpr int kKvSmem =
+      2 * kKvK + 2 * kStages * kKvQ + 2 * kStages * kKBQ * 4 + 1024;
 };
 
 // Element strides (batch, head, time) of dq, dk, dv.
@@ -97,17 +113,23 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          int Tq, int Tk, OutStrides st, int causal,
                          int window, float scale) {
   using C = Bwd<HD>;
-  constexpr int NS = kQBK / 2;   // s / dp accumulators a thread
-  constexpr int NO = HD / 2;     // dq accumulators a thread
+  constexpr int NS = kQBK / 2;       // s / dp accumulators a thread
+  constexpr int NO = C::kOut / 2;    // dq accumulators a thread
+  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bar_q, bar_full[2], bar_empty[2];
+  __shared__ uint64_t bar_q, bar_full[kStages], bar_empty[kStages];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = smem;
   uint8_t* sO = sQ + C::kDqQ;    // dO
-  uint8_t* sK[2] = {sO + C::kDqQ, sO + C::kDqQ + 2 * C::kDqKV};
-  uint8_t* sV[2] = {sK[0] + C::kDqKV, sK[1] + C::kDqKV};
+  uint8_t* sK[kStages];
+  uint8_t* sV[kStages];
+  for (int s = 0; s < kStages; ++s) {
+    sK[s] = sO + C::kDqQ + 2 * s * C::kDqKV;
+    sV[s] = sK[s] + C::kDqKV;
+  }
 
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / C::kSplit;
+  const int c0 = (blockIdx.x % C::kSplit) * C::kOut;   // first dq column
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kQBQ;   // longest first
   const int hk = h / (H / Hkv);
@@ -122,7 +144,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid == 0) {
     mbar_init(&bar_q, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&bar_full[s], 1);
       mbar_init(&bar_empty[s], kThreads);
     }
@@ -144,7 +166,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       tma_load_4d(sQ + x * kQBQ * 128, &tq, &bar_q, 64 * x, q0, h, b);
       tma_load_4d(sO + x * kQBQ * 128, &tdo, &bar_q, 64 * x, q0, h, b);
     }
-    if (n > 0) load_kv(0, k_begin);
+    for (int j = 0; j < kStages - 1 && j < n; ++j)
+      load_kv(j, k_begin + j * kQBK);
   }
 
   const int row0 = q0 + 64 * wg + acc_row(t, 0);
@@ -166,12 +189,16 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int it = 0; it < n; ++it) {
     const int k0 = k_begin + it * kQBK;
-    const int s = it & 1;
-    if (tid == 0 && it + 1 < n) {
-      if (it >= 1) mbar_wait(&bar_empty[s ^ 1], ((it - 1) >> 1) & 1);
-      load_kv(s ^ 1, k0 + kQBK);
+    const int s = it % kStages;
+    // request tile j = it + kStages - 1 once its stage is free (tile j -
+    // kStages consumed)
+    const int j = it + kStages - 1;
+    if (tid == 0 && j < n) {
+      if (j >= kStages)
+        mbar_wait(&bar_empty[j % kStages], (j / kStages - 1) & 1);
+      load_kv(j % kStages, k_begin + j * kQBK);
     }
-    mbar_wait(&bar_full[s], (it >> 1) & 1);
+    mbar_wait(&bar_full[s], (it / kStages) & 1);
 
     // S = Q K^T and dP = dO V^T.
     float sc[NS], dp[NS];
@@ -221,13 +248,16 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // dQ += dS K: K is the MN-major B operand, 16 keys a k-step.
+    // dQ += dS K: K's columns c0.. as the MN-major B operand, 16 keys a
+    // k-step.
     fence_acc<NO>(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQBK / 16; ++kk)
-      wgmma_rs<HD>(acc, df[kk],
-                   make_desc(k_addr + kk * 2048, kQBK * 128, 1024), 1);
+      wgmma_rs<C::kOut>(acc, df[kk],
+                        make_desc(k_addr + (c0 / 64) * kQBK * 128 + kk * 2048,
+                                  kQBK * 128, 1024),
+                        1);
     wgmma_commit();
     wgmma_wait0();
     fence_acc<NO>(acc);
@@ -239,7 +269,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = row0 + 8 * i;
     if (row >= Tq) continue;
     __nv_bfloat16* out =
-        dq + b * st.dq[0] + h * st.dq[1] + (long long)row * st.dq[2];
+        dq + b * st.dq[0] + h * st.dq[1] + (long long)row * st.dq[2] + c0;
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * (t % 4)) =
@@ -260,20 +290,28 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            int Tq, int Tk, OutStrides st, int causal,
                            int window, float scale) {
   using C = Bwd<HD>;
-  constexpr int NS = kKBQ / 2;   // s^T / dp^T accumulators a thread
-  constexpr int NO = HD / 2;     // dk and dv accumulators a thread, each
+  constexpr int NS = kKBQ / 2;       // s^T / dp^T accumulators a thread
+  constexpr int NO = C::kOut / 2;    // dk and dv accumulators a thread, each
+  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bar_k, bar_full[2], bar_empty[2];
+  __shared__ uint64_t bar_k, bar_full[kStages], bar_empty[kStages];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sK = smem;
   uint8_t* sV = sK + C::kKvK;
-  uint8_t* sQ[2] = {sV + C::kKvK, sV + C::kKvK + 2 * C::kKvQ};
-  uint8_t* sO[2] = {sQ[0] + C::kKvQ, sQ[1] + C::kKvQ};   // dO
-  float* sL = reinterpret_cast<float*>(sQ[1] + 2 * C::kKvQ);
-  float* sLse[2] = {sL, sL + kKBQ};
-  float* sDel[2] = {sL + 2 * kKBQ, sL + 3 * kKBQ};
+  float* sL = reinterpret_cast<float*>(sV + C::kKvK + 2 * kStages * C::kKvQ);
+  uint8_t* sQ[kStages];
+  uint8_t* sO[kStages];   // dO
+  float* sLse[kStages];
+  float* sDel[kStages];
+  for (int s = 0; s < kStages; ++s) {
+    sQ[s] = sV + C::kKvK + 2 * s * C::kKvQ;
+    sO[s] = sQ[s] + C::kKvQ;
+    sLse[s] = sL + s * kKBQ;
+    sDel[s] = sL + (kStages + s) * kKBQ;
+  }
 
-  const int hk = blockIdx.x;
+  const int hk = blockIdx.x / C::kSplit;
+  const int c0 = (blockIdx.x % C::kSplit) * C::kOut;   // first dk/dv column
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * kKBK;   // causal: the first key tiles are
                                       // the longest
@@ -290,7 +328,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid == 0) {
     mbar_init(&bar_k, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&bar_full[s], 1);
       mbar_init(&bar_empty[s], kThreads);
     }
@@ -316,7 +354,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       tma_load_4d(sK + x * kKBK * 128, &tk, &bar_k, 64 * x, k0, hk, b);
       tma_load_4d(sV + x * kKBK * 128, &tv, &bar_k, 64 * x, k0, hk, b);
     }
-    if (n > 0) load_q(0, 0);
+    for (int j = 0; j < kStages - 1 && j < n; ++j) load_q(j, j);
   }
 
   float dk_acc[NO], dv_acc[NO];
@@ -331,12 +369,15 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int it = 0; it < n; ++it) {
     const int q0 = q_begin + (it % nqt) * kKBQ;
-    const int s = it & 1;
-    if (tid == 0 && it + 1 < n) {
-      if (it >= 1) mbar_wait(&bar_empty[s ^ 1], ((it - 1) >> 1) & 1);
-      load_q(s ^ 1, it + 1);
+    const int s = it % kStages;
+    // request tile j = it + kStages - 1 once its stage is free
+    const int j = it + kStages - 1;
+    if (tid == 0 && j < n) {
+      if (j >= kStages)
+        mbar_wait(&bar_empty[j % kStages], (j / kStages - 1) & 1);
+      load_q(j % kStages, j);
     }
-    mbar_wait(&bar_full[s], (it >> 1) & 1);
+    mbar_wait(&bar_full[s], (it / kStages) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T.
     float sc[NS], dp[NS];
@@ -390,19 +431,22 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands, 16
-    // queries a k-step.
+    // dV += P^T dO and dK += dS^T Q: dO's and Q's columns c0.. are
+    // MN-major B operands, 16 queries a k-step.
+    const uint32_t col_off = (c0 / 64) * kKBQ * 128;
     fence_acc<NO>(dv_acc);
     fence_acc<NO>(dk_acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKBQ / 16; ++kk)
-      wgmma_rs<HD>(dv_acc, pf[kk],
-                   make_desc(o_addr + kk * 2048, kKBQ * 128, 1024), 1);
+      wgmma_rs<C::kOut>(
+          dv_acc, pf[kk],
+          make_desc(o_addr + col_off + kk * 2048, kKBQ * 128, 1024), 1);
 #pragma unroll
     for (int kk = 0; kk < kKBQ / 16; ++kk)
-      wgmma_rs<HD>(dk_acc, df[kk],
-                   make_desc(q_addr + kk * 2048, kKBQ * 128, 1024), 1);
+      wgmma_rs<C::kOut>(
+          dk_acc, df[kk],
+          make_desc(q_addr + col_off + kk * 2048, kKBQ * 128, 1024), 1);
     wgmma_commit();
     wgmma_wait0();
     fence_acc<NO>(dv_acc);
@@ -414,10 +458,10 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     const int kpos = kpos0 + 8 * i;
     if (kpos >= Tk) continue;
-    __nv_bfloat16* krow =
-        dk + b * st.dk[0] + hk * st.dk[1] + (long long)kpos * st.dk[2];
-    __nv_bfloat16* vrow =
-        dv + b * st.dv[0] + hk * st.dv[1] + (long long)kpos * st.dv[2];
+    __nv_bfloat16* krow = dk + b * st.dk[0] + hk * st.dk[1] +
+                          (long long)kpos * st.dk[2] + c0;
+    __nv_bfloat16* vrow = dv + b * st.dv[0] + hk * st.dv[1] +
+                          (long long)kpos * st.dv[2] + c0;
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       const int c = 8 * j + 2 * (t % 4);
@@ -463,7 +507,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem);
   if (e != cudaSuccess) return (int)e;
-  dq_kernel<<<dim3(H, B, (Tq + kQBQ - 1) / kQBQ), kThreads, C::kDqSmem,
+  dq_kernel<<<dim3(H * C::kSplit, B, (Tq + kQBQ - 1) / kQBQ), kThreads,
+              C::kDqSmem,
               stream>>>(maps[0], maps[1], maps[2], maps[3], lse, delta,
                         pitch, static_cast<__nv_bfloat16*>(dq), H, Hkv, Tq,
                         Tk, st, causal, window, scale);
@@ -474,7 +519,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   e = cudaFuncSetAttribute(
       kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kKvSmem);
   if (e != cudaSuccess) return (int)e;
-  kv_kernel<<<dim3(Hkv, B, (Tk + kKBK - 1) / kKBK), kThreads, C::kKvSmem,
+  kv_kernel<<<dim3(Hkv * C::kSplit, B, (Tk + kKBK - 1) / kKBK), kThreads,
+              C::kKvSmem,
               stream>>>(maps[4], maps[5], maps[6], maps[7], tlse, tdelta,
                         static_cast<__nv_bfloat16*>(dk),
                         static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, st,
@@ -488,7 +534,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// bf16 q, k, v, dO, dq, dk, dv; hd 64 or 128.  lse and delta: float32
+// bf16 q, k, v, dO, dq, dk, dv; hd 64, 128 or 256.  lse and delta: float32
 // [B, H, pitch] with pitch >= Tq a multiple of 4 (TMA's 16-byte rows).
 // geom: 8 x 9 values, the TMA maps of q, k, v, dO for the dq kernel and
 // again for the dk/dv kernel (dims (hd, T, heads, B), byte strides of T,
@@ -511,6 +557,9 @@ int flash_attention_bwd_sm90_launch(int hd, const void* q, const void* k,
                       Hkv, Tq, Tk, geom, ostrides, causal, window, scale, s);
   if (hd == 128)
     return launch<128>(q, k, v, dout, lse, delta, pitch, dq, dk, dv, B, H,
+                       Hkv, Tq, Tk, geom, ostrides, causal, window, scale, s);
+  if (hd == 256)
+    return launch<256>(q, k, v, dout, lse, delta, pitch, dq, dk, dv, B, H,
                        Hkv, Tq, Tk, geom, ostrides, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,8 +27,8 @@ from .flash_attention import (_check, _check_kernel_layout, _longlongs, route,
 from .ref import attention_bwd_ref
 
 #: Head widths the backward kernels are instantiated for (the dense
-#: family's; the recurrent families do not train yet).
-HEAD_DIMS = (64, 128)
+#: family's 64 and 128, recurrentgemma's 256).
+HEAD_DIMS = (64, 128, 256)
 
 
 #: The bf16 kernels' tiles: the dq kernel's query rows a block and key
@@ -40,13 +40,15 @@ SM90_DQ_BQ, SM90_DQ_BK, SM90_KV_BK, SM90_KV_BQ = 128, 64, 128, 64
 
 def sm90_smem_bytes(hd: int) -> tuple[int, int]:
     """Dynamic shared memory of one block of the bf16 dq and dk/dv kernels
-    (``Bwd<HD>::kDqSmem`` / ``kKvSmem``): dq holds the Q and dO tiles and 2
-    stages of K and V tiles; dk/dv the K and V tiles, 2 stages of Q and dO
-    tiles and 2 of the tile's lse and delta (float32); each with 1,024
-    bytes to align the base for the 128-byte swizzle."""
-    return (2 * hd * (2 * SM90_DQ_BQ + 4 * SM90_DQ_BK) + 1024,
-            2 * hd * (2 * SM90_KV_BK + 4 * SM90_KV_BQ) + 16 * SM90_KV_BQ
-            + 1024)
+    (``Bwd<HD>::kDqSmem`` / ``kKvSmem``): dq holds the Q and dO tiles and
+    its stages of K and V tiles; dk/dv the K and V tiles, its stages of Q
+    and dO tiles and of the tile's lse and delta (float32); 2 stages at hd
+    64 and 128, 1 at 256; each with 1,024 bytes to align the base for the
+    128-byte swizzle."""
+    stages = 1 if hd > 128 else 2
+    return (2 * hd * (2 * SM90_DQ_BQ + 2 * stages * SM90_DQ_BK) + 1024,
+            2 * hd * (2 * SM90_KV_BK + 2 * stages * SM90_KV_BQ)
+            + 8 * stages * SM90_KV_BQ + 1024)
 
 
 def smem_bytes(hd: int) -> tuple[int, int]:
@@ -70,8 +72,8 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
     view of the model's [B,T,H,hd] tensors is read and written in place).
 
     CPU tensors: the plain version.  CUDA tensors: one launch of each of
-    the two bf16 (``wgmma``) or float32 (FMA) kernels, hd 64 or 128, or an
-    exception."""
+    the two bf16 (``wgmma``) or float32 (FMA) kernels, hd 64, 128 or 256,
+    or an exception."""
     _check(q, k, v)
     B, H, Tq, hd = q.shape
     Tk = k.shape[2]

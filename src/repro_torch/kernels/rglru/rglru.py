@@ -1,13 +1,16 @@
-"""RG-LRU scan: the hand-written CUDA kernel's wrapper.
+"""RG-LRU scan: the hand-written CUDA kernels' wrappers.
 
 :func:`rglru_scan` replaces the JAX package's Pallas TPU kernel
-``repro/kernels/rglru/rglru.py::rglru_scan`` (``_rglru_kernel``).  The
-kernel is ``kernels/csrc/rglru.cu``, built by :mod:`repro_torch.kernels.
-build` at first use with ``-fmad=false``, so it equals its plain version
-bit for bit; its source note says what bounds it on an H100.  For tensors
-on the CPU the wrapper computes the plain version,
-:func:`~repro_torch.kernels.rglru.ref.rglru_ref`; for CUDA tensors it
-launches the kernel on the current stream without synchronising, or raises.
+``repro/kernels/rglru/rglru.py::rglru_scan`` (``_rglru_kernel``);
+:func:`rglru_scan_bwd` is its backward, the port's own (JAX differentiates
+its associative scan in XLA).  Both kernels are ``kernels/csrc/rglru.cu``,
+built by :mod:`repro_torch.kernels.build` at first use with
+``-fmad=false``, so each equals its plain version bit for bit; the source
+note says what bounds them on an H100.  For tensors on the CPU a wrapper
+computes the plain version (:func:`~repro_torch.kernels.rglru.ref.
+rglru_ref`, :func:`~repro_torch.kernels.rglru.ref.rglru_bwd_ref`); for
+CUDA tensors it launches its kernel on the current stream without
+synchronising, or raises.
 """
 from __future__ import annotations
 
@@ -15,9 +18,25 @@ import ctypes
 
 import torch
 
-from .ref import rglru_ref
+from .ref import rglru_bwd_ref, rglru_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_kernel_inputs(name, xs):
+    """The kernels take CUDA tensors of one float32 or bfloat16 dtype with
+    a contiguous channel dimension."""
+    x = xs[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"the RG-LRU kernels run on CUDA (or, as their "
+                         f"plain versions, on the CPU), got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the RG-LRU kernels take float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if any(y.stride(2) != 1 for y in xs):
+        raise ValueError(f"RG-LRU kernel: {name} need a contiguous channel "
+                         f"dimension, got strides "
+                         f"{[y.stride() for y in xs]}")
 
 
 def rglru_scan(a, b):
@@ -35,15 +54,7 @@ def rglru_scan(a, b):
                          f"({a.dtype}/{a.device}, {b.dtype}/{b.device})")
     if a.device.type == "cpu":
         return rglru_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"the RG-LRU kernel runs on CUDA (or, as its plain "
-                         f"version, on the CPU), got {a.device}")
-    if a.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the RG-LRU kernel takes float32 or bfloat16, got "
-                         f"{a.dtype}")
-    if a.stride(2) != 1 or b.stride(2) != 1:
-        raise ValueError(f"RG-LRU kernel: a and b need a contiguous channel "
-                         f"dimension, got strides {a.stride()}, {b.stride()}")
+    _check_kernel_inputs("a and b", (a, b))
     B, T, C = a.shape
     h = torch.empty_like(a)
     if B and T and C:
@@ -67,3 +78,48 @@ def rglru_scan(a, b):
 
 #: Kernel launches since the last reset (set to 0 to start counting).
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a, h, g):
+    """(da, db) [B, T, C] float32: the gradients of ``h = rglru_scan(a, b)``
+    for the output gradient ``g``, from the forward's ``h`` (a, h, g of one
+    shape and dtype; any strides whose channel one is 1).
+
+    CPU tensors: the plain version.  CUDA tensors: one launch of the
+    backward kernel, or an exception."""
+    if a.dim() != 3 or not a.shape == h.shape == g.shape:
+        raise ValueError(f"rglru_scan_bwd takes a, h, g [B, T, C] of one "
+                         f"shape, got {tuple(a.shape)}, {tuple(h.shape)}, "
+                         f"{tuple(g.shape)}")
+    if len({(x.dtype, x.device) for x in (a, h, g)}) != 1:
+        raise ValueError(f"rglru_scan_bwd: a, h and g differ in dtype or "
+                         f"device ({[(x.dtype, x.device) for x in (a, h, g)]})")
+    if a.device.type == "cpu":
+        return rglru_bwd_ref(a, h, g)
+    _check_kernel_inputs("a, h and g", (a, h, g))
+    B, T, C = a.shape
+    da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    if B and T and C:
+        from .. import build
+
+        lib = build.load_rglru()
+        strides = (ctypes.c_longlong * 10)(*[
+            x.stride(i) for x in (a, h, g, da, db) for i in (0, 1)])
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.rglru_bwd_launch(_DTYPE_CODE[a.dtype], a.data_ptr(),
+                                       h.data_ptr(), g.data_ptr(),
+                                       da.data_ptr(), db.data_ptr(), B, T, C,
+                                       strides, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"RG-LRU backward kernel launch failed: "
+                f"{build.cuda_error_string(lib, err, 'rglru')}")
+        rglru_scan_bwd.launches += 1
+    return da, db
+
+
+#: Backward kernel launches since the last reset (set to 0 to start
+#: counting).
+rglru_scan_bwd.launches = 0

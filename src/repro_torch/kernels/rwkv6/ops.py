@@ -10,12 +10,12 @@ from ..flash_attention.ops import check_executor
 from .ref import wkv_ref
 from .rwkv6 import wkv_bhtd
 
-#: The ROADMAP item that brings gradients through the recurrences.
-TRAINING_ITEM = "ROADMAP queue 1, item 9f (training rwkv6 and recurrentgemma)"
+#: The ROADMAP item that brings gradients through the WKV recurrence.
+TRAINING_ITEM = "ROADMAP queue 1, item 9f (training rwkv6)"
 
 
 def no_autograd(name, *xs):
-    """Neither recurrence has a backward kernel yet: refuse a call that
+    """The WKV recurrence has no backward kernel yet: refuse a call that
     autograd would record."""
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad
                                        for x in xs):

@@ -24,8 +24,15 @@ forward without a state and for a prefill into the empty ring cache, full
 scores under the ring's mask in decode.  Decode states are JAX's list: a
 ring cache dict per attention layer, ``(conv_state [B, W-1, C], h [B, C]
 float32)`` per recurrent layer; the forward returns new recurrent states
-and writes the ring caches in place.  Under autograd the forward raises
-(``kernels/rwkv6/ops.py::no_autograd``).
+and writes the ring caches in place.
+
+The forward without states builds an autograd graph when grad is enabled
+(training): the RG-LRU runs ``kernels/rglru``'s ``RGLRUScan`` (kernel 5,
+then its backward kernel), the local attention the ``FlashAttention``
+Function (kernels 2 and 3 at head width 256).  With ``cfg.remat`` each
+layer then runs under ``torch.utils.checkpoint``, as JAX wraps each in
+``jax.checkpoint`` (models/rglru.py:166-171), so the backward recomputes
+it.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rglru import rglru
 from . import layers as L
@@ -103,7 +111,9 @@ def rg_lru(p, x, h0=None, *, executor="auto"):
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_at),
                                        1e-12)) * (i * xf)
     if h0 is not None:
-        gated[:, 0] += a[:, 0] * h0.float()
+        # b_0 += a_0 h0, out of place: no view of gated is written
+        gated = torch.cat([gated[:, :1] + a[:, :1] * h0.float()[:, None],
+                           gated[:, 1:]], dim=1)
     h = rglru(a, gated, executor=executor)
     return h.to(x.dtype), h[:, -1]
 
@@ -148,6 +158,21 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None):
             "final_norm": _to(L.init_norm(cfg, cfg.d_model), dev)}
 
 
+def _layer_fwd(cfg: ModelConfig, i, p, x, positions, state, *, from_start,
+               executor):
+    """Layer ``i``: (x, its new state)."""
+    hn = L.apply_norm(cfg, p["ln1"], x)
+    if is_attn_layer(cfg, i):
+        h, st2 = L.attention(cfg, p["attn"], hn, positions, causal=True,
+                             window=cfg.sliding_window, cache=state,
+                             from_start=from_start, executor=executor)
+    else:
+        h, st2 = recurrent_block(cfg, p["rec"], hn, state,
+                                 executor=executor)
+    x = x + h
+    return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), st2
+
+
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
             states=None, logits_slice: Optional[int] = None,
             executor: str = "auto", **_):
@@ -173,19 +198,18 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
 
+    remat = cfg.remat and states is None and torch.is_grad_enabled()
     new_states = [] if states is not None else None
     for i, p in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_layer_fwd, cfg, i, p, x, positions, None,
+                           from_start=from_start, executor=executor,
+                           use_reentrant=False,
+                           context_fn=L.remat_policy(cfg))[0]
+            continue
         st = states[i] if states is not None else None
-        hn = L.apply_norm(cfg, p["ln1"], x)
-        if is_attn_layer(cfg, i):
-            h, st2 = L.attention(cfg, p["attn"], hn, positions, causal=True,
-                                 window=cfg.sliding_window, cache=st,
-                                 from_start=from_start, executor=executor)
-        else:
-            h, st2 = recurrent_block(cfg, p["rec"], hn, st,
-                                     executor=executor)
-        x = x + h
-        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+        x, st2 = _layer_fwd(cfg, i, p, x, positions, st,
+                            from_start=from_start, executor=executor)
         if states is not None:
             new_states.append(st2)
 

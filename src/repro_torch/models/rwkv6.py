@@ -17,8 +17,9 @@ triple (``tm_last`` [L, B, D], ``S`` [L, B, H, 64, 64] float32,
 ``cm_last`` [L, B, D]); the forward returns new ones, the token-shift
 carries in the activation dtype, as JAX's scan returns them.
 
-Neither recurrence has a backward kernel yet, so the forward raises under
-autograd (``kernels/rwkv6/ops.py::no_autograd``).  The mesh helpers
+The WKV recurrence has no backward kernel yet, so the forward raises
+under autograd (``kernels/rwkv6/ops.py::no_autograd``; training rwkv6 is
+ROADMAP queue 1, item 9f).  The mesh helpers
 (``_head_shard``, ``residual_shard``, ``logits_shard``) have no
 counterpart on one card.
 """

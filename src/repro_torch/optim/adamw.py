@@ -114,4 +114,6 @@ def _pick(tree, i):
     """Element ``i`` of each (p, m, v) leaf triple of ``tree``."""
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
     return tree[i]

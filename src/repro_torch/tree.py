@@ -1,7 +1,8 @@
-"""Parameter trees as ``jax.tree`` sees them: nested dicts (and
+"""Parameter trees as ``jax.tree`` sees them: nested dicts, lists (and
 NamedTuples) whose leaves are tensors, flattened in JAX's order -- dict keys
-sorted, NamedTuple fields in order -- so that sums over leaves and
-checkpoint files line up with the JAX package's."""
+sorted, list items and NamedTuple fields in order -- so that sums over
+leaves and checkpoint files line up with the JAX package's (recurrentgemma
+keeps its layers as a list of dicts)."""
 from __future__ import annotations
 
 
@@ -12,7 +13,8 @@ def _is_namedtuple(x) -> bool:
 def leaves_with_paths(tree, prefix: str = ""):
     """[(path, leaf)] in JAX's flatten order; paths as the JAX package's
     checkpoints write them (``.field`` for a NamedTuple field, ``/key`` for
-    a dict key, e.g. ``.params/blocks/attn/wq``)."""
+    a dict key, ``/i`` for a list item, e.g. ``.params/blocks/attn/wq``,
+    ``.params/layers/2/attn/wq``)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
@@ -24,6 +26,12 @@ def leaves_with_paths(tree, prefix: str = ""):
         for f in tree._fields:
             sep = "/" if prefix else ""
             out += leaves_with_paths(getattr(tree, f), f"{prefix}{sep}.{f}")
+        return out
+    if isinstance(tree, list):
+        out = []
+        for i, v in enumerate(tree):
+            sep = "/" if prefix else ""
+            out += leaves_with_paths(v, f"{prefix}{sep}{i}")
         return out
     return [(prefix, tree)]
 
@@ -42,6 +50,9 @@ def tree_map(fn, tree, *rest):
     if _is_namedtuple(tree):
         return type(tree)(*[tree_map(fn, v, *[r[i] for r in rest])
                             for i, v in enumerate(tree)])
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *[r[i] for r in rest])
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -59,4 +70,6 @@ def _in_flatten_order(tree):
         return {k: _in_flatten_order(tree[k]) for k in sorted(tree)}
     if _is_namedtuple(tree):
         return type(tree)(*[_in_flatten_order(v) for v in tree])
+    if isinstance(tree, list):
+        return [_in_flatten_order(v) for v in tree]
     return tree

@@ -83,11 +83,13 @@ void run_bwd(const std::vector<long long>& h, std::vector<std::vector<uint8_t>>&
   auto* dk = (__nv_bfloat16*)(st[5].data() + off[5] * 2);
   auto* dv = (__nv_bfloat16*)(st[6].data() + off[6] * 2);
   const float scale = 1.0f / std::sqrt((float)HD);
-  run_grid(dim3(H, B, (Tq + kQBQ - 1) / kQBQ), kThreads, [&] {
+  using C = Bwd<HD>;
+  if (C::kDqSmem > 232448 || C::kKvSmem > 232448) { printf("smem too large\n"); std::exit(3); }
+  run_grid(dim3(H * C::kSplit, B, (Tq + kQBQ - 1) / kQBQ), kThreads, [&] {
     flash_bwd_dq_sm90_kernel<HD>(m[0], m[1], m[2], m[3], lse.data(), delta.data(), pitch, dq, H,
                                  Hkv, Tq, Tk, os, causal, window, scale);
   });
-  run_grid(dim3(Hkv, B, (Tk + kKBK - 1) / kKBK), kThreads, [&] {
+  run_grid(dim3(Hkv * C::kSplit, B, (Tk + kKBK - 1) / kKBK), kThreads, [&] {
     flash_bwd_dkdv_sm90_kernel<HD>(m[4], m[5], m[6], m[7], tl, td, dk, dv, H, Hkv, Tq, Tk, os,
                                    causal, window, scale);
   });
@@ -142,7 +144,8 @@ int main(int argc, char** argv) {
     f.read((char*)lse.data(), nl * 4);
     f.read((char*)delta.data(), nl * 4);
     if (h[0] == 64) run_bwd<64>(h, st, lse, delta);
-    else run_bwd<128>(h, st, lse, delta);
+    else if (h[0] == 128) run_bwd<128>(h, st, lse, delta);
+    else run_bwd<256>(h, st, lse, delta);
     for (int i = 4; i < 7; ++i) out.write((char*)st[i].data(), st[i].size());
   }
   return 0;

@@ -1,21 +1,24 @@
-"""A short first call on the card after a change to the bf16 attention
-kernels (``src/repro_torch/kernels/csrc/*_sm90.cu``, ``sm90.cuh``):
+"""A short first call on the card after a change to the attention kernels
+(``src/repro_torch/kernels/csrc/*_sm90.cu``, ``sm90.cuh``,
+``flash_attention*.cu``) or the RG-LRU kernels (``rglru.cu``):
 
     python3 tests/sm90/probe.py
 
-1. build — nvcc builds the four attention sources; ptxas registers, spills
-   and stack per kernel, any warning, and the HGMMA count of each bf16
-   library.
+1. build — nvcc builds the four attention sources and rglru.cu; ptxas
+   registers, spills and stack per kernel, any warning, and the HGMMA
+   count of each bf16 library.
 2. probe — ``probe.cu``: TMA-loaded swizzled tiles into wgmma (both
    operands in shared memory; A in registers with an MN-major B) against
    ``torch.matmul``.
-3. fwd / bwd — the kernels against their plain versions on 13 small cases
-   (ragged T, Tq != Tk, windows, GQA 16/8, 14/2, 10/1, a key/value view of
-   a longer cache holding NaN past Tk); the backward run twice for bit
-   equality.
-4. timing — one median of 5 (CUDA events) of the forward at qwen3-0.6b's
-   and recurrentgemma-2b's heads and of the backward at qwen3-0.6b's, each
-   beside ``scaled_dot_product_attention``.
+3. fwd / bwd — the kernels against their plain versions on 17 small cases
+   (ragged T, Tq != Tk, windows, GQA 16/8, 14/2, 10/1 at hd 256, a
+   key/value view of a longer cache holding NaN past Tk); the backward run
+   twice for bit equality, at hd 256 on both routes (bf16 and float32).
+4. rglru — the forward and backward RG-LRU kernels against their plain
+   versions, bit for bit.
+5. timing — one median of 5 (CUDA events) of the forward at qwen3-0.6b's
+   and recurrentgemma-2b's heads and of the backward at both, each beside
+   ``scaled_dot_product_attention``.
 
 Each step prints its result and goes on when one fails; ``chip_smoke.py``
 is the full check.  Needs a CUDA card; imports nothing of JAX.
@@ -56,7 +59,7 @@ def step(name, fn):
 
 def builds():
     for src in ("flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu",
-                "flash_attention.cu", "flash_attention_bwd.cu"):
+                "flash_attention.cu", "flash_attention_bwd.cu", "rglru.cu"):
         _, log = build.build(src)
         for name, line in build.ptxas_report(log).items():
             print(src, name[-60:], line, flush=True)
@@ -123,11 +126,18 @@ def fwd():
 
 def bwd():
     g = torch.Generator().manual_seed(2)
-    for B, T, H, Hkv, hd, causal, window in [
-            (1, 128, 16, 8, 128, True, 0), (2, 200, 16, 8, 128, True, 64),
-            (1, 256, 14, 2, 64, False, 0), (2, 1000, 16, 8, 128, True, 0),
-            (1, 384, 14, 2, 64, False, 128)]:
-        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).bfloat16()
+    for B, T, H, Hkv, hd, causal, window, dt in [
+            (1, 128, 16, 8, 128, True, 0, torch.bfloat16),
+            (2, 200, 16, 8, 128, True, 64, torch.bfloat16),
+            (1, 256, 14, 2, 64, False, 0, torch.bfloat16),
+            (2, 1000, 16, 8, 128, True, 0, torch.bfloat16),
+            (1, 384, 14, 2, 64, False, 128, torch.bfloat16),
+            (2, 200, 10, 1, 256, True, 64, torch.bfloat16),
+            (1, 256, 10, 1, 256, False, 0, torch.bfloat16),
+            (2, 4096, 10, 1, 256, True, 2048, torch.bfloat16),
+            (2, 200, 10, 1, 256, True, 64, torch.float32),
+            (1, 2048, 10, 1, 256, True, 0, torch.float32)]:
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(dt)
                        .to(DEV).transpose(1, 2) for h in (H, Hkv, Hkv, H)]
         kw = dict(causal=causal, window=window)
         o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
@@ -137,9 +147,36 @@ def bwd():
         want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         errs = [float((a.float() - b.float()).abs().max())
                 / float(b.float().abs().max()) for a, b in zip(got, want)]
-        print("bwd", (B, T, H, Hkv, hd, causal, window),
+        print("bwd", (B, T, H, Hkv, hd, causal, window, dt),
               "dq dk dv max |err| of max", errs, "bit-equal twice",
               all(torch.equal(a, b) for a, b in zip(got, again)), flush=True)
+
+
+def rglru():
+    from repro_torch.kernels.rglru import (rglru_bwd_ref, rglru_ref,
+                                           rglru_scan, rglru_scan_bwd)
+
+    g = torch.Generator().manual_seed(4)
+    for B, T, C, dt in [(1, 1, 2560, torch.float32),
+                        (2, 200, 2560, torch.float32),
+                        (2, 4096, 2560, torch.float32),
+                        (1, 37, 300, torch.bfloat16)]:
+        a = (torch.rand(B, T, C, generator=g) * 0.1 + 0.9).to(DEV, dt)
+        b, gr = [torch.randn(B, T, C, generator=g).to(DEV, dt)
+                 for _ in range(2)]
+        h = rglru_scan(a, b)
+        da, db = rglru_scan_bwd(a, h, gr)
+        torch.cuda.synchronize()
+        rda, rdb = rglru_bwd_ref(a, h, gr)
+        print("rglru", (B, T, C, dt), "fwd bit-equal",
+              torch.equal(h, rglru_ref(a, b)), "bwd bit-equal",
+              torch.equal(da, rda) and torch.equal(db, rdb), "max |err|",
+              float((da - rda).abs().max()), float((db - rdb).abs().max()),
+              flush=True)
+        if T == 4096:
+            print("time rglru bwd", (B, T, C),
+                  f"{median_ms(lambda: rglru_scan_bwd(a, h, gr)):.4f} ms",
+                  flush=True)
 
 
 def median_ms(fn, reps=5):
@@ -171,12 +208,14 @@ def timing():
             q, k, v, is_causal=True, enable_gqa=True))
         print("time fwd", (B, T, H, Hkv, hd), f"{ms:.4f} ms, sdpa",
               f"{sdpa:.4f} ms", flush=True)
-        if hd == 128 and T == 2048:
+        if T == 2048:
             do = torch.randn_like(q)
-            o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
-            ms = median_ms(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse,
-                                                            do))
-            print("time bwd", (B, T), f"{ms:.4f} ms", flush=True)
+            o, lse = flash_attention_bhtd(q, k, v, return_lse=True,
+                                          window=w)
+            ms = median_ms(lambda: flash_attention_bwd_bhtd(
+                q, k, v, o, lse, do, window=w))
+            print("time bwd", (B, T, H, Hkv, hd), f"{ms:.4f} ms",
+                  flush=True)
 
 
 if __name__ == "__main__":
@@ -188,4 +227,5 @@ if __name__ == "__main__":
     step("probe", probe)
     step("fwd", fwd)
     step("bwd", bwd)
+    step("rglru", rglru)
     step("timing", timing)

@@ -4,8 +4,9 @@ CPU tensors computes the plain version) and the ``FlashAttention`` autograd
 Function, held to JAX's ``flash_attention_trainable`` (its Pallas dq and
 dk/dv kernels in interpret mode) and to ``jax.vjp`` through JAX's oracle.
 
-Tolerance 5e-5 (float32), as tests/test_kernels.py:181-182 holds JAX's
-backward kernels to its oracle.  Inputs are drawn with numpy.  The CUDA
+Head widths 64 and 128 (the dense family's) and 256 (recurrentgemma-2b's
+local MQA, 10/1 heads).  Tolerance 5e-5 (float32), as
+tests/test_kernels.py:181-182 holds JAX's backward kernels to its oracle.  Inputs are drawn with numpy.  The CUDA
 kernels themselves are held to the plain version on the card
 (tests/test_torch_gpu.py, chip_smoke.py phase 10).
 """
@@ -100,6 +101,9 @@ def test_backward_matches_jax_trainable_kernels(B, T, H, Hkv, causal,
     (200, 4, 1, 128, True, 48),    # ragged, hd 128, window
     (256, 16, 8, 128, True, 0),    # qwen3's heads
     (256, 14, 2, 64, False, 0),    # qwen2's heads, non-causal
+    (130, 10, 1, 256, True, 0),    # recurrentgemma's heads (MQA, hd 256)
+    (130, 10, 1, 256, True, 64),   # ... with the sliding window
+    (256, 10, 1, 256, True, 0),
 ])
 def test_backward_matches_jax_autodiff_of_the_oracle(T, H, Hkv, hd, causal,
                                                      window):
@@ -107,6 +111,18 @@ def test_backward_matches_jax_autodiff_of_the_oracle(T, H, Hkv, hd, causal,
     want = _jax_vjp(_jax_oracle(causal, window), q, k, v, do)
     _close(_port_grads(q, k, v, do, causal, window), want)
     _close(_plain_grads(q, k, v, do, causal, window), want)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_backward_at_recurrentgemma_heads_matches_jax_kernels(window):
+    """recurrentgemma-2b's local attention (10 query heads, 1 key/value
+    head of 256), causal: the Function and the plain version against JAX's
+    Pallas kernels in interpret mode."""
+    q, k, v, do = _inputs(256 + window, 1, 256, 10, 1, 256)
+    want = _jax_vjp(jax.jit(lambda q, k, v: flash_attention_trainable(
+        q, k, v, True, window, True)), q, k, v, do)
+    _close(_port_grads(q, k, v, do, True, window), want)
+    _close(_plain_grads(q, k, v, do, True, window), want)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
@@ -187,4 +203,8 @@ def test_backward_source_flags_instances_and_shared_memory():
         assert f"constexpr int {const};" in src
     dq, dkdv = bwd_module.smem_bytes(128)
     assert (dq, dkdv) == (107_520, 116_224)
-    assert all(b <= 232_448 for b in bwd_module.smem_bytes(128))
+    # hd 256 (recurrentgemma): the same formulas, under the opt-in limit
+    assert bwd_module.smem_bytes(256) == (205_824, 214_528)
+    assert 256 in bwd_module.HEAD_DIMS and "if (hd == 256)" in src
+    assert all(b <= 232_448 for hd in bwd_module.HEAD_DIMS
+               for b in bwd_module.smem_bytes(hd))

@@ -118,9 +118,9 @@ def test_dispatch_by_dtype_and_head_width():
     for hd in (32, 96, 512):
         with pytest.raises(ValueError, match="hd in"):
             fa.route(torch.bfloat16, hd)
-    with pytest.raises(ValueError, match="hd in"):
-        fa.route(torch.bfloat16, 256, fb.HEAD_DIMS)
-    assert fb.HEAD_DIMS == (64, 128) and fa.HEAD_DIMS == (64, 128, 256)
+        with pytest.raises(ValueError, match="hd in"):
+            fa.route(torch.bfloat16, hd, fb.HEAD_DIMS)
+    assert fb.HEAD_DIMS == fa.HEAD_DIMS == (64, 128, 256)
 
 
 def test_shared_memory_fits_every_instantiation():
@@ -134,8 +134,13 @@ def test_shared_memory_fits_every_instantiation():
     for const in ("kQBQ = 64 * kWarpgroups", "kQBK = 64",
                   "kKBK = 64 * kWarpgroups", "kKBQ = 64"):
         assert f"constexpr int {const};" in src
+    assert "kSplit = HD > 128 ? 2 : 1" in src
+    assert "kStages = HD > 128 ? 1 : 2" in src
     bwd = {hd: fb.sm90_smem_bytes(hd) for hd in fb.HEAD_DIMS}
-    assert bwd == {64: (66_560, 67_584), 128: (132_096, 133_120)}
+    # hd 256: Q + dO (128 x 256) and one stage of K + V (64 x 256), bf16;
+    # K + V (128 x 256), one stage of Q + dO and of lse + delta
+    assert bwd == {64: (66_560, 67_584), 128: (132_096, 133_120),
+                   256: (197_632, 198_144)}
     assert all(b <= SMEM_LIMIT for b in sizes.values())
     assert all(b <= SMEM_LIMIT for pair in bwd.values() for b in pair)
 
@@ -325,6 +330,8 @@ def test_emulated_forward_matches_jax(harness, tmp_path, B, Tq, Tk, H, Hkv,
     (1, 200, 2, 1, 64, True, 0),
     (1, 256, 2, 2, 128, False, 0),
     (1, 200, 4, 2, 128, True, 64),
+    (1, 130, 10, 1, 256, True, 64),   # recurrentgemma's heads, window
+    (1, 256, 2, 1, 256, False, 0),    # hd 256, non-causal
 ])
 def test_emulated_backward_matches_jax_vjp(harness, tmp_path, B, T, H, Hkv,
                                            hd, causal, window):

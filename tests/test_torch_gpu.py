@@ -29,7 +29,8 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention,
                                                  flash_attention_bhtd,
                                                  flash_attention_bwd_bhtd)
-from repro_torch.kernels.rglru import rglru_ref, rglru_scan
+from repro_torch.kernels.rglru import (rglru, rglru_bwd_ref, rglru_ref,
+                                       rglru_scan, rglru_scan_bwd)
 from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_ref
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -259,7 +260,8 @@ def _bwd_close(a, b, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64)])
+@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (14, 2, 64),
+                                      (10, 1, 256)])
 def test_flash_attention_bwd_kernel_vs_plain_version_on_the_card(
         cuda_device, dtype, H, Hkv, hd):
     """Backward kernel == plain version from the same o and lse, within
@@ -305,9 +307,11 @@ def test_flash_attention_bwd_kernel_vs_plain_version_on_the_card(
 def test_flash_attention_bwd_is_deterministic_on_the_card(cuda_device,
                                                          dtype):
     """Two backward runs on the same inputs give bit-equal dq, dk, dv: no
-    atomics, every output element written once (GQA 16/8 and 14/2)."""
+    atomics, every output element written once (GQA 16/8 and 14/2, MQA
+    10/1 at hd 256)."""
     g = torch.Generator().manual_seed(4)
-    for B, T, H, Hkv, hd in [(2, 1000, 16, 8, 128), (1, 512, 14, 2, 64)]:
+    for B, T, H, Hkv, hd in [(2, 1000, 16, 8, 128), (1, 512, 14, 2, 64),
+                             (2, 1000, 10, 1, 256)]:
         q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(
             cuda_device, dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H)]
         o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
@@ -365,3 +369,35 @@ def test_rglru_kernel_bit_exact_vs_plain_version_on_the_card(cuda_device,
         torch.cuda.synchronize()
         assert rglru_scan.launches == before + 1
         assert torch.equal(h, rglru_ref(a, b)), (B, T, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_bwd_kernel_bit_exact_vs_plain_version_on_the_card(
+        cuda_device, dtype):
+    """The RG-LRU backward kernel == its plain loop bit for bit (ragged T
+    and C, a strided g), one launch a call; under autograd ``rglru`` runs
+    both kernels and equals its ``reference`` executor bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    for B, T, C in [(1, 1, 2560), (2, 200, 300), (3, 64, 2560)]:
+        a = (torch.rand(B, T, C, generator=g) * 0.4 + 0.5).to(cuda_device,
+                                                              dtype)
+        b = (torch.randn(B, T, C, generator=g) * 0.1).to(cuda_device, dtype)
+        gr = torch.randn(B, T, 2 * C, generator=g).to(cuda_device,
+                                                       dtype)[..., :C]
+        h = rglru_scan(a, b)
+        before = rglru_scan_bwd.launches
+        da, db = rglru_scan_bwd(a, h, gr)
+        torch.cuda.synchronize()
+        assert rglru_scan_bwd.launches == before + 1
+        assert da.dtype == db.dtype == torch.float32
+        rda, rdb = rglru_bwd_ref(a, h, gr)
+        assert torch.equal(da, rda) and torch.equal(db, rdb), (B, T, C)
+    x = [t.detach().requires_grad_() for t in (a, b)]
+    out = {}
+    for ex in ("cuda", "reference"):
+        h = rglru(*x, executor=ex)
+        out[ex] = (h, torch.autograd.grad(h, x, gr.contiguous()))
+    assert torch.equal(out["cuda"][0], out["reference"][0])
+    for p, q in zip(out["cuda"][1], out["reference"][1]):
+        assert p.dtype == dtype and torch.equal(p, q)

@@ -276,10 +276,14 @@ def test_build_states_and_autograd():
     for a, b in zip(jax.tree.leaves(tst), jax.tree.leaves(jst)):
         assert np.asarray(a).dtype == b.dtype and np.array_equal(a, b)
     params["layers"][0]["rec"]["wx"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        bundle.forward(params, torch.zeros((1, 4), dtype=torch.long))
+    logits, _, _ = bundle.forward(params, torch.zeros((1, 4),
+                                                      dtype=torch.long))
+    (g,) = torch.autograd.grad(logits.sum(), params["layers"][0]["rec"]["wx"])
+    assert g.shape == params["layers"][0]["rec"]["wx"].shape
     with torch.no_grad():
-        bundle.forward(params, torch.zeros((1, 4), dtype=torch.long))
+        nograd, _, _ = bundle.forward(params, torch.zeros((1, 4),
+                                                          dtype=torch.long))
+    assert torch.equal(nograd, logits.detach())
 
 
 def test_random_lm_params_have_jax_tree_and_scales():

@@ -100,8 +100,12 @@ def test_executors_autograd_and_no_fallback_on_the_cpu():
         rglru(*tx, executor="cuda")
     with pytest.raises(ValueError, match="unknown attention executor"):
         rglru(*tx, executor="blocked")
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        rglru(tx[0].clone().requires_grad_(), tx[1])
+    # under autograd: the RGLRUScan Function, its plain versions on the CPU
+    a = tx[0].clone().requires_grad_()
+    h = rglru(a, tx[1])
+    assert type(h.grad_fn).__name__ == "RGLRUScanBackward"
+    assert torch.equal(h.detach(), rglru_ref(*tx))
+    assert rglru_scan.launches == before
     with pytest.raises(ValueError, match="one shape"):
         rglru_scan(tx[0], tx[1][:, :4])
     with pytest.raises(ValueError, match="differ in dtype"):

@@ -1,10 +1,15 @@
 """The port's training step against the JAX package's, on the CPU at smoke
 widths: ``cross_entropy``, the loss and its gradients, and three jitted
 ``make_train_step`` steps from a converted JAX train state, in float32 (and
-bf16 to a looser tolerance).
+bf16 to a looser tolerance).  The dense family (qwen3, qwen2) and the
+hybrid one (recurrentgemma-smoke: 6 layers rglru, rglru, local; window 16,
+so T 48 runs the window mask; its layers a list of dicts of two kinds),
+whose RG-LRU runs ``RGLRUScan`` and whose attention ``FlashAttention``,
+here their plain versions (JAX differentiates its associative scan).
 
 Tolerances, from the readings these tests take (float32 agrees to ~3e-7
-in the loss and ~1e-5 in the weights):
+in the loss and ~1e-5 in the weights; recurrentgemma ~8e-8 in the loss,
+~1.1e-6 in the grad norm, ~3.7e-5 in the weights after 3 steps):
   * loss and ce: rtol 2e-6; grad_norm: rtol 1e-5; lr: rtol 1e-6;
   * gradients: per leaf, atol 1e-5 x the leaf's largest |g| + rtol 1e-4;
   * weights: atol 5e-5 where |g| at step 1 exceeds 1e-3 x the leaf's
@@ -60,15 +65,20 @@ def _jnp(batch):
     return {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
 
 
+def _key(k):
+    """A JAX path entry's dict key or list index."""
+    return k.idx if hasattr(k, "idx") else k.key
+
+
 def _leaf_pairs(jtree, ttree):
     """[(path, jax leaf as float32 numpy, port leaf as float32 numpy)]."""
     out = []
     for path, a in jax.tree_util.tree_flatten_with_path(jtree)[0]:
         b = ttree
         for k in path:
-            b = b[k.key]
-        out.append(("/".join(k.key for k in path), np.asarray(a, np.float32),
-                    b.detach().float().numpy()))
+            b = b[_key(k)]
+        out.append(("/".join(str(_key(k)) for k in path),
+                    np.asarray(a, np.float32), b.detach().float().numpy()))
     return out
 
 
@@ -118,7 +128,8 @@ def test_cross_entropy_of_all_masked_labels_is_zero():
 
 # ----------------------------------------------- loss, grads and steps ---
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b",
+                                  "recurrentgemma-2b"])
 def test_loss_and_gradients_match_jax(arch):
     cfg, tcfg = _cfgs(arch)
     js, _ = _states(cfg, tcfg)
@@ -140,8 +151,9 @@ def test_loss_and_gradients_match_jax(arch):
 
 def _flat(tree, prefix=()):
     out = []
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out += _flat(v, prefix + (k,))
         else:
             out.append((prefix + (k,), v))
@@ -189,7 +201,8 @@ def _check_metrics(metrics, dtype="float32"):
                                    rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b",
+                                  "recurrentgemma-2b"])
 def test_three_train_steps_match_jax(arch):
     """From a converted JAX train state, three steps of the port against
     three jitted JAX steps on the same batches: metrics, weights, Adam
@@ -230,9 +243,19 @@ def test_microbatches_equal_one_batch_in_the_port():
 def test_remat_on_and_off_give_equal_values():
     """``cfg.remat`` runs each block under torch.utils.checkpoint: the
     recomputation gives the same values bit for bit on the CPU."""
+    _check_remat_equal("qwen3-0.6b")
+
+
+def test_hybrid_remat_on_and_off_give_equal_values():
+    """recurrentgemma runs each layer under torch.utils.checkpoint (the
+    backward recomputes its RG-LRU scan and attention): the same values."""
+    _check_remat_equal("recurrentgemma-2b")
+
+
+def _check_remat_equal(arch):
     out = []
     for remat in (True, False):
-        cfg, tcfg = _cfgs("qwen3-0.6b", remat=remat)
+        cfg, tcfg = _cfgs(arch, remat=remat)
         _, ts = _states(cfg, tcfg)
         b = _batches(cfg.vocab_size, 1)[0]
         ts, m = make_train_step(tbuild(tcfg), AdamWConfig(**OPT))(ts, b)

@@ -1,6 +1,7 @@
 """The port's trainer and checkpoints, on the CPU at smoke widths: the ports
 of tests/test_infra.py's checkpoint and restart tests, checkpoints crossing
-between the packages (the same on-disk layout), and the training launcher.
+between the packages (the same on-disk layout; recurrentgemma's list of
+layers as ``.params/layers/<i>/...``), and the training launcher.
 
 A float32 smoke model makes the two packages' losses comparable: held to
 rtol 2e-6, as in tests/test_torch_train.py.
@@ -116,7 +117,8 @@ def _keep_only(d, step):
         f.write(str(step))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b",
+                                  "recurrentgemma-2b"])
 def test_port_resumes_a_jax_checkpoint(arch):
     """The JAX trainer runs 8 steps, checkpointing at 4; the port restores
     step 4 from JAX's files, runs steps 5-8 on the same batches, and gives
@@ -177,9 +179,29 @@ def test_jax_resumes_a_port_checkpoint():
 def test_checkpoint_files_name_jax_paths():
     """meta.json lists JAX's paths, in JAX's flatten order, with JAX's
     dtype names; bf16 leaves are stored as uint16."""
-    cfg = get_smoke_config("qwen3-0.6b")
+    _check_jax_paths("qwen3-0.6b")
+
+
+def test_hybrid_checkpoint_files_name_jax_paths():
+    """recurrentgemma's list of layers: list items by index, in JAX's
+    order, and a bf16 state round-trips through the port's restore."""
+    tstate = _check_jax_paths("recurrentgemma-2b",
+                              (".params/layers/2/attn/wq",
+                               ".opt/.mu/layers/0/rec/lam"))
+    with tempfile.TemporaryDirectory() as d:
+        save(d, 3, tstate)
+        restored, step = restore_latest(d, tstate)
+        assert step == 3
+        for a, b in zip(_leaves(restored), _leaves(tstate)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _check_jax_paths(arch, must_have=()):
+    """Both packages save a fresh state of ``arch``; their meta.json files
+    agree.  Returns the port's state."""
+    cfg = get_smoke_config(arch)
     js = j_init(jbuild(cfg), jax.random.PRNGKey(0))
-    tstate = init_train_state(tbuild(t_get_smoke_config("qwen3-0.6b")), 0,
+    tstate = init_train_state(tbuild(t_get_smoke_config(arch)), 0,
                               device="cpu")
     from repro.ckpt import save as j_save
     import json
@@ -193,6 +215,8 @@ def test_checkpoint_files_name_jax_paths():
         arrs = np.load(os.path.join(d, "port", "step_1", "arrays.npz"))
         i = metas[1]["paths"].index(".params/embed")
         assert arrs[f"a{i}"].dtype == np.uint16
+        assert all(p in metas[1]["paths"] for p in must_have)
+    return tstate
 
 
 def test_trainer_checks_its_device():
@@ -215,6 +239,27 @@ def test_launch_train_cli_on_cpu():
     assert out.returncode == 0, out.stderr
     assert "qwen3-0.6b-smoke" in out.stdout
     assert "final loss" in out.stdout and "over 3 steps" in out.stdout
+
+
+def test_launch_train_cli_saves_and_resumes_hybrid_on_cpu():
+    """recurrentgemma through the launcher: 3 steps with a checkpoint, then
+    a run to 5 steps resumes from it and runs 2."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as d:
+        outs = []
+        for steps in (3, 5):
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "recurrentgemma-2b", "--smoke", "--device", "cpu",
+                 "--steps", str(steps), "--batch", "2", "--seq", "32",
+                 "--ckpt-dir", d],
+                capture_output=True, text=True, env=env, timeout=300,
+                cwd=ROOT)
+            assert out.returncode == 0, out.stderr
+            outs.append(out.stdout)
+        assert "recurrentgemma-smoke" in outs[0]
+        assert "over 3 steps" in outs[0] and "over 2 steps" in outs[1]
+        assert available_steps(d) == [3, 5]
 
 
 def test_launch_train_refuses_multi_card_options():
