@@ -114,10 +114,12 @@ Phases (each prints a line; any failure exits non-zero):
 19. recurrent train — recurrentgemma-2b training: (a) the backward
               kernels at its heads (MQA 10/1 of 256; B 1/2; T 200/2,048/
               4,096; window 0/2,048; bf16 wgmma / f32 FMA) vs their plain
-              version, times at B 2 x T 4,096 against bound, plain version
-              and SDPA's backward with the window mask; (b) the RG-LRU
-              backward kernel vs its plain version bit for bit (C 2,560;
-              B 1/2; T 1/200/4,096), timed; (c) two float32 train steps at
+              version, and the forward's o and LSE they read vs theirs;
+              times at B 2 x T 4,096 against bound, plain version, SDPA's
+              backward with the window mask and (bf16) SDPA's flash
+              backward, causal over all T; (b) the RG-LRU backward kernel,
+              and kernel 5's h it reads, vs their plain versions bit for
+              bit (C 2,560; B 1/2; T 1/200/4,096), timed; (c) two float32 train steps at
               full width cut to 3 layers, B 1 x T 2,176, against
               ``tests/torch_goldens/train_recurrentgemma_2b.json`` (JAX on
               the CPU), attention on the FMA route; (d) bf16 at full width
@@ -2624,10 +2626,13 @@ def phase_recurrent_serve(dev, arch) -> dict:
 
 # Phase 19: recurrentgemma-2b training.  (a) Kernel 3 at its heads
 # (FLASH_256: MQA 10/1 of 256; window 0 and 2,048), both routes, held as
-# phase 10 holds it (hold_bwd), timed at the trainer's shape.
+# phase 10 holds it (hold_bwd), timed at the trainer's shape; kernel 2's o
+# and LSE, which the backward reads, held as phase 7 holds them
+# (FLASH_TOL) at the same cases, the trainer's B 2 x T 4,096 with its
+# window of 2,048 among them.
 RG_BWD_BATCH, RG_BWD_T, RG_BWD_WINDOWS = (1, 2), (200, 2048, 4096), (0, 2048)
 # (b) The RG-LRU backward kernel vs its plain version, bit for bit, at
-# C 2,560.
+# C 2,560, and kernel 5's forward h, which it reads, likewise.
 RG_LRU_BWD_BATCH, RG_LRU_BWD_T = (1, 2), (1, 200, 4096)
 # (c) The float32 golden (tests/torch_goldens/make_train_golden.py
 # recurrentgemma-2b: full width, 3 of 26 layers, B 1 x T 2,176), held to
@@ -2650,11 +2655,14 @@ def phase_recurrent_train_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
                                                      flash_attention_bhtd,
                                                      flash_attention_bwd_bhtd)
-    from repro_torch.kernels.rglru import (rglru_bwd_ref, rglru_scan,
-                                           rglru_scan_bwd)
+    from repro_torch.kernels.rglru import (rglru_bwd_ref, rglru_ref,
+                                           rglru_scan, rglru_scan_bwd)
 
     H, Hkv, hd = FLASH_256
     g = torch.Generator(device=dev).manual_seed(19)
@@ -2665,12 +2673,21 @@ def phase_recurrent_train_kernels(dev) -> dict:
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     max_abs = {"float32": 0.0, "bfloat16": 0.0}
+    worst_fwd = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for B, T, window, dname in itertools.product(
             RG_BWD_BATCH, RG_BWD_T, RG_BWD_WINDOWS, ("bfloat16", "float32")):
         q, k, v, do = qkvd(B, T, getattr(torch, dname))
         kw = dict(causal=True, window=window)
         o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
+        o_ref, lse_ref = attention_ref(q, k, v, return_lse=True, **kw)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in ((o, o_ref), (lse, lse_ref)))
+        check(err <= FLASH_TOL[dname],
+              f"[19a] flash forward hd 256 B={B} T={T} window={window} "
+              f"{dname} (o and lse): max |err| {err}")
+        worst_fwd[dname] = max(worst_fwd[dname], err)
+        del o_ref, lse_ref
         got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
         want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         hold_bwd(f"[19a] flash backward hd 256 B={B} T={T} window={window} "
@@ -2684,7 +2701,9 @@ def phase_recurrent_train_kernels(dev) -> dict:
           f"{RG_BWD_WINDOWS}; bf16 wgmma / f32 FMA): max |err| f32 "
           f"{worst['float32']:.3g} (tol {BWD_F32_TOL} + {BWD_F32_TOL} x "
           f"|ref|), bf16 {worst['bfloat16']:.3g} of each gradient's max (tol "
-          f"{BWD_BF16_TOL})", flush=True)
+          f"{BWD_BF16_TOL}); the forward's o and lse (kernel 2) on the same "
+          f"cases: max |err| f32 {worst_fwd['float32']:.3g}, bf16 "
+          f"{worst_fwd['bfloat16']:.3g} (tol {FLASH_TOL})", flush=True)
 
     B, T, w = RG_TRAIN_B, RG_TRAIN_T, FLASH_256_WINDOW
     qpos = torch.arange(T, device=dev)
@@ -2707,19 +2726,34 @@ def phase_recurrent_train_kernels(dev) -> dict:
             attn_mask=mask)
         lib_ms = time_cuda(lambda: torch.autograd.grad(
             lib_o, xs, do, retain_graph=True), reps)
+        del lib_o
         bound_ms, bound_by, flops, nbytes = bwd_bound(
             B, H, Hkv, hd, T, True, elem, ops_per_s, window=w)
+        out[dname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=max_abs[dname])
+        flash_note = ""
+        if dname == "bfloat16":
+            # A mask takes SDPA off its flash backend; its flash backward,
+            # causal over all T (window 0), does more work than the
+            # windowed function and so bounds the library's time above.
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                lib_o = F.scaled_dot_product_attention(
+                    *xs, is_causal=True, enable_gqa=True)
+                flash_ms = time_cuda(lambda: torch.autograd.grad(
+                    lib_o, xs, do, retain_graph=True), reps)
+            del lib_o
+            out[dname]["library_flash_causal_ms"] = flash_ms
+            flash_note = (f"; its flash backend's backward, causal without "
+                          f"the window (more work) {flash_ms:.4f} ms")
         print(f"[19 recurrent train] (a) {dname} "
               f"({'wgmma' if elem == 2 else 'FMA'} kernels) B={B} T={T} "
               f"window={w}: kernel {ms:.4f} ms (dq + dk/dv + delta, median "
               f"of {reps}); bound {bound_ms:.4f} ms by {bound_by} ({flops} "
               f"FLOP, {nbytes} B); x bound {ms / bound_ms:.1f}; plain "
               f"{plain_ms:.3f} ms; scaled_dot_product_attention backward "
-              f"(window mask) {lib_ms:.4f} ms", flush=True)
-        out[dname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=max_abs[dname])
-        del q, k, v, do, o, lse, xs, lib_o
+              f"(window mask) {lib_ms:.4f} ms{flash_note}", flush=True)
+        del q, k, v, do, o, lse, xs
 
     # (b) the RG-LRU backward kernel, bit for bit
     C = RGLRU_C
@@ -2729,6 +2763,8 @@ def phase_recurrent_train_kernels(dev) -> dict:
         b, gr = (torch.randn(B, T, C, generator=g, device=dev)
                  for _ in range(2))
         h = rglru_scan(a, b)
+        check(torch.equal(h, rglru_ref(a, b)),
+              f"[19b] rglru forward B={B} T={T}: kernel != plain version")
         got = rglru_scan_bwd(a, h, gr)
         want = rglru_bwd_ref(a, h, gr)
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
@@ -2739,7 +2775,8 @@ def phase_recurrent_train_kernels(dev) -> dict:
     plain_ms = time_cuda(lambda: rglru_bwd_ref(a, h, gr), 2)
     bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4, arrays=5,
                                                     ops=3)
-    print(f"[19 recurrent train] (b) RG-LRU backward kernel == plain version "
+    print(f"[19 recurrent train] (b) RG-LRU backward kernel, and kernel 5's "
+          f"forward h that it reads, == plain versions "
           f"bit for bit on {n} cases (C {C}; B {RG_LRU_BWD_BATCH}; T "
           f"{RG_LRU_BWD_T}; f32); B={B} T={T}: kernel {ms:.4f} ms (median "
           f"of 5); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at 3.35 "
@@ -2828,11 +2865,9 @@ def phase_recurrent_train(dev) -> dict:
     reset_attention_counts()
     t0 = time.perf_counter()
     try:
-        # the weights are drawn on the card (a generator of its own)
         state, report = train(
             bundle, opt, data,
-            TrainerConfig(total_steps=RG_TRAIN_STEPS, log_every=0,
-                          seed=torch.Generator(device=dev).manual_seed(0)),
+            TrainerConfig(total_steps=RG_TRAIN_STEPS, log_every=0),
             hooks=hook, device=dev)
     finally:
         data.close()                   # stops the fetcher's threads
@@ -3305,10 +3340,9 @@ def smoke(dev, tick_only=False, learn_only=False,
         "bound_by": rglru["bound_by"], "library_ms": None}, {
         "name": "rglru_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru.cu",
-        "replaces": "src/repro/kernels/rglru/rglru.py:61",
-        "note": "the port's own backward of that kernel: JAX has no Pallas "
-                "backward and differentiates its associative scan "
-                "(src/repro/models/rglru.py:102)",
+        "replaces": "src/repro/models/rglru.py:102",
+        "note": "the port's own backward of kernel 5: JAX has no Pallas "
+                "backward and differentiates this associative scan in XLA",
         "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

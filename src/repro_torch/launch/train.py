@@ -9,7 +9,8 @@ port of ``repro/launch/train.py``).
 The flow is JAX's: train state -> SLA-tuned ingest -> fault-tolerant
 trainer.  The single-card mesh is the card itself; ``--tp`` > 1 and the
 production / multi-pod meshes belong to the multi-card slice (ROADMAP
-queue 1, item 9e).  Weights are random (``torch.Generator`` seed 0).
+queue 1, item 9e).  Weights are random, drawn on the device by a
+``torch.Generator`` there with seed 0.
 """
 from __future__ import annotations
 

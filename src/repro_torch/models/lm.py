@@ -67,9 +67,10 @@ def block_fwd(cfg: ModelConfig, p, x, positions, cache, *, from_start,
 
 
 def init_params(cfg: ModelConfig, seed=0, *, device=None):
-    """Random parameters in JAX's tree and init scales, drawn from a CPU
-    ``torch.Generator`` (``seed`` is an int or a generator), then moved to
-    ``device`` (default: the CUDA card; raises without one)."""
+    """Random parameters in JAX's tree and init scales, drawn from a
+    ``torch.Generator`` (``seed`` is an int, for a CPU generator, or a
+    generator, whose device draws), then moved to ``device`` (default: the
+    CUDA card; raises without one)."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)

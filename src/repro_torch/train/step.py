@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..api.scenario import resolve_device
 from ..kernels.flash_attention.ops import check_executor
 from ..models import EXTRA_KEYS, ModelBundle
 from ..optim import AdamWConfig, OptState, adamw_init, adamw_update
@@ -28,11 +29,13 @@ class TrainState(NamedTuple):
     step: torch.Tensor           # int32 scalar on the parameters' device
 
 
-def init_train_state(bundle: ModelBundle, seed=0, *, device=None
+def init_train_state(bundle: ModelBundle, seed: int = 0, *, device=None
                      ) -> TrainState:
-    """Fresh parameters (``bundle.init_params(seed, device)``), zero Adam
-    moments and step 0."""
-    params = bundle.init_params(seed, device=device)
+    """Fresh parameters, drawn on ``device`` by a ``torch.Generator`` there
+    seeded with ``seed``, zero Adam moments and step 0."""
+    dev = resolve_device(device)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(seed),
+                                device=dev)
     opt = adamw_init(params)
     return TrainState(params=params, opt=opt,
                       step=torch.zeros((), dtype=torch.int32,

@@ -33,8 +33,6 @@ class TrainerConfig:
     straggler_factor: float = 3.0
     microbatches: int = 1
     moe_impl: str = "gmm"
-    # an int (a CPU generator draws the weights) or a torch.Generator,
-    # whose device draws them (the hybrid family's init takes one)
     seed: int = 0
 
 

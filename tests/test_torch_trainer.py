@@ -45,6 +45,23 @@ def _leaves(state):
     return leaves(state)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-7b",
+                                  "recurrentgemma-2b"])
+def test_init_train_state_draws_on_its_device_from_the_seed(arch):
+    """The weights come from a generator on the state's device seeded with
+    the int (on the CPU: a CPU generator's stream), with zero moments."""
+    bundle = tbuild(t_get_smoke_config(arch))
+    state = init_train_state(bundle, 3, device="cpu")
+    want = bundle.init_params(torch.Generator(device="cpu").manual_seed(3),
+                              device="cpu")
+    other = init_train_state(bundle, 4, device="cpu")
+    for a, b in zip(_leaves(state.params), _leaves(want)):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    assert not torch.equal(state.params["embed"], other.params["embed"])
+    assert all(not x.any() for x in _leaves(state.opt.mu))
+    assert int(state.step) == 0
+
+
 def test_checkpoint_roundtrip_bf16():
     cfg = t_get_smoke_config("qwen2-0.5b")
     state = init_train_state(tbuild(cfg), 0, device="cpu")
