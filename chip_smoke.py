@@ -7,8 +7,10 @@ Phases (each prints a line; any failure exits non-zero):
 
 1. card     — ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build    — nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` at once
-              (one nvcc each, in parallel); ptxas registers / spills / shared
-              memory per instantiation used; the count of ``HGMMA``
+              (one nvcc each, in parallel), each source's nvcc wall time;
+              ptxas registers / spills / shared memory per instantiation
+              used (the grouped tick-loop kernel, kernel 5's two block
+              widths among them); the count of ``HGMMA``
               (wgmma) instructions in the bf16 attention libraries
               (``cuobjdump --dump-sass``), which must not be 0.
 3. goldens  — the 20 RUN_GOLDEN cells through ``repro_torch.api.run`` on the
@@ -17,9 +19,11 @@ Phases (each prints a line; any failure exits non-zero):
               ``reference`` executor on the card: final state rows and all
               seven traces bit-equal.
 5. fig2     — the main path: all 72 Figure 2 cells through
-              ``repro_torch.api.sweep``, one launch per group, against
-              ``tests/torch_goldens/fig2_full.json``; then the kernel and its
-              plain version on the same groups, compared and timed.
+              ``repro_torch.api.sweep``, all 6 groups in one launch of the
+              grouped kernel, against ``tests/torch_goldens/fig2_full.json``;
+              then the kernel (each group in its own launch, and all in one
+              grouped launch) and its plain version on the same groups,
+              compared bit for bit and timed.
 6. tune     — 4,096 EEMT lanes (256 SLA points x 16 bandwidth schedules) in
               one launch: kernel vs plain on every lane, times, bound, memory.
 17. environments — run right after phase 6, on the same kernel: (a) the
@@ -34,8 +38,9 @@ Phases (each prints a line; any failure exits non-zero):
               ismail-target and wget/curl on Chameleon x MIXED (900 s);
               (c) the 18 ``benchmarks/fig_dvfs.py`` cells and its 24
               GreenDataFlow cells through ``api.sweep`` against
-              ``tests/torch_goldens/fig_dvfs_full.json``, one launch per
-              group, timed; (d) phase 6's 4,096 lanes under dvfs hp race
+              ``tests/torch_goldens/fig_dvfs_full.json``, one launch a grid,
+              the grouped launch bit-equal to the groups' own launches,
+              timed; (d) phase 6's 4,096 lanes under dvfs hp race
               (n_big 4): kernel vs plain, times, bound, memory.
 18. learn   — run right after phase 17: learned control at
               ``benchmarks/learn.py``'s configuration.  (a) the EEMT
@@ -49,8 +54,9 @@ Phases (each prints a line; any failure exits non-zero):
               (Chameleon and CloudLab x small/mixed) for JAX's policy, then
               at phase 6's 4,096 lanes in one launch: times, bound (bytes, and the MLP's operations per
               controller tick at 67 TFLOP/s float32), memory; (c)
-              ``evaluate(JAX's policy, smoke=False)``: 20 cells in 5
-              launches against ``learn_full.json`` (a learned cell whose
+              ``evaluate(JAX's policy, smoke=False)``: 20 cells (5 groups)
+              in one launch, bit-equal to the groups' own launches,
+              against ``learn_full.json`` (a learned cell whose
               recorded top-two logit margin is at most 1e-5 of its largest
               |logit| is printed as a near tie, not held); (d) the port's BC
               policy within 1.10x of the teacher's energy (``vs_teacher``);
@@ -59,8 +65,8 @@ Phases (each prints a line; any failure exits non-zero):
               and the two runs bit-equal; (f) the fig2 and fig_dvfs
               Experiments (the port's copies of ``benchmarks/fig2.py``'s and
               ``benchmarks/fig_dvfs.py``'s) against their goldens and the
-              sweep of the same cells, one launch per group; a cached re-run
-              executes no cell.
+              sweep of the same cells, one launch an Experiment; a cached
+              re-run executes no cell.
 7. flash    — the flash-attention kernels vs their plain version on the
               card at qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T
               128/384/2048, causal or not, window 0/256, bf16 (wgmma
@@ -99,7 +105,10 @@ Phases (each prints a line; any failure exits non-zero):
               hd 64; B 1/8; T 1/64/200/2048; r/k/v bf16/f32 with w f32; S0
               zero or not): y and S_final; times against bound and plain.
 14. rglru   — the RG-LRU kernel vs its plain version, bit for bit (C 2560;
-              B 1/8; T 1/200/2048); times against bound and plain.
+              B 1/2/8; T 1/200/2048/4096; f32, bf16 at B 2 x T 200; a C not
+              a multiple of the block width; a strided a), each timed by
+              CUDA events (one call, and 20 queued behind a spin: device
+              time) against its bound, beside the earlier kernel's times.
 15. recurrent goldens — float32 (TF32 off) rwkv6-7b at full width and 4 of
               its 32 layers, and recurrentgemma-2b at full width and depth,
               against ``tests/torch_goldens/lm_rwkv6_7b.json`` and
@@ -117,17 +126,19 @@ Phases (each prints a line; any failure exits non-zero):
               version, and the forward's o and LSE they read vs theirs;
               times at B 2 x T 4,096 against bound, plain version, SDPA's
               backward with the window mask and (bf16) SDPA's flash
-              backward, causal over all T; (b) the RG-LRU backward kernel,
-              and kernel 5's h it reads, vs their plain versions bit for
-              bit (C 2,560; B 1/2; T 1/200/4,096), timed; (c) two float32 train steps at
-              full width cut to 3 layers, B 1 x T 2,176, against
+              backward, causal over all T, and the bf16 forward there
+              beside SDPA's; (b) the RG-LRU backward kernel, and kernel
+              5's h it reads, vs their plain versions bit for bit (C 2,560;
+              B 1/2; T 1/200/4,096), both timed; (c) two float32 train
+              steps at full width cut to 3 layers, B 1 x T 2,176, against
               ``tests/torch_goldens/train_recurrentgemma_2b.json`` (JAX on
               the CPU), attention on the FMA route; (d) bf16 at full width
               and depth through ``trainer.train`` with the SLA-tuned
               fetcher (B 2 x T 4,096, remat, 4 steps): step time, tokens/s,
               peak memory, launches a step by kernel (16 kernel 2, 8 kernel
-              3, 36 kernel 5, 18 RG-LRU backward), a profiled step; then
-              one B 1 step through the kernels and the plain versions.
+              3, 36 kernel 5, 18 RG-LRU backward), a profiled step and
+              kernel 5's share of it; then one B 1 step through the kernels
+              and the plain versions.
 
 Phases 5, 6, 9, 12, 16, 17c, 18c, 18f and 19d drive the main paths: each
 kernel's launch count is set to 0 just before and read just after; every
@@ -220,6 +231,11 @@ FIG2_DATASETS = ("small", "medium", "large", "mixed")
 
 # fig_dvfs axes (the port's copy of benchmarks/fig_dvfs.py and its
 # GreenDataFlow grid; tests/test_torch_environments.py holds them equal).
+# The sweep walls (s) when each group took a launch of its own: three runs
+# of this script on the PR 18 tree (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside today's.
+PER_GROUP_WALL_S = {"fig2": "0.379-0.663", "fig_dvfs": "0.095-0.703",
+                    "greendataflow": "0.314-0.363"}
 FIG_DVFS_TOOLS = ("wget/curl", "ME", "EEMT")
 FIG_DVFS_FCAPS = {"uncapped": None, "2.4ghz": 2.4, "1.8ghz": 1.8}
 FIG_DVFS_CORES = {"8c": 8, "4c": 4}
@@ -340,6 +356,40 @@ def tune_scenarios(executor="auto", environment=None, learned=None):
                             environment=environment,
                             name=f"tune/a{a}/b{b}/d{d}/m{m}/s{s}"))
     return out
+
+
+def mixed_partition_scenarios():
+    """A sweep of two partition counts: the tune cell's 4,096 EEMT lanes on
+    LARGE alone (P 1) beside 16 ME lanes over 8 partitions (MIXED twice,
+    then SMALL and MEDIUM; the tune cell's 16 bandwidth schedules).  The
+    keys differ in controller as well, so neither is padded to the other's
+    partition count."""
+    from repro_torch import api
+    from repro_torch.core import types
+
+    wide = (*types.MIXED, *types.MIXED, types.SMALL_FILES,
+            types.MEDIUM_FILES)
+    return ([dataclasses.replace(sc, datasets=(types.LARGE_FILES,))
+             for sc in tune_scenarios()]
+            + [api.Scenario(profile=types.CHAMELEON, datasets=wide,
+                            controller=api.make_controller("ME"),
+                            total_s=TUNE_TOTAL_S, dt=0.1, bw_schedule=bw,
+                            name=f"wide/s{s}")
+               for s, bw in zip(TUNE_SEEDS, tune_bw_schedules())])
+
+
+def padded_group_on_card(scenarios, key, dev, p):
+    """(prow, bw, f0, i0) of the sweep group ``key`` on ``dev`` widened to
+    ``p`` partitions with zero-byte ones (what padding it to a wider
+    group's partition count would launch)."""
+    from repro_torch.api import scenario as S
+    from repro_torch.core import engine
+
+    prepared, groups = S._prepare_groups(scenarios, dev)
+    wide = [S._pad_partitions(prepared[i], p) for i in groups[key]]
+    inp = S._stack_group(wide, range(len(wide)), dev)
+    prow, f0, i0 = engine.pack_batch(key.env_code, inp)
+    return prow, inp.bw, f0, i0
 
 
 def _tool_controller(tool):
@@ -567,6 +617,37 @@ def groups_on_card(scenarios, dev):
     return out
 
 
+def grouped_rows_on_card(scenarios, dev):
+    """The arguments of ``tick_loop.tick_loop_grouped`` for a sweep's
+    groups, on ``dev``, as ``api.run_groups`` hands them over."""
+    return [(key.ctrl_code, key.env_code, key.cpu, *rows, key.dt,
+             key.ctrl_every) for key, rows in groups_on_card(scenarios, dev)]
+
+
+def grouped_vs_groups(scenarios, dev, per_group, tag):
+    """Kernel 1's launch over a sweep's groups (one launch per partition
+    count among them) held against ``per_group`` (each group's own (f32,
+    i32, TickMetrics), in the sweep's group order) bit for bit: every final
+    row and all seven traces.  Returns (the launch's arguments, max
+    |err|)."""
+    from repro_torch.kernels import tick_loop as tl
+
+    rows = grouped_rows_on_card(scenarios, dev)
+    n_p = len({(r[3].shape[1] - 13) // 5 for r in rows})
+    before = tl.tick_loop.launches
+    grouped = tl.tick_loop_grouped(rows)
+    check(tl.tick_loop.launches - before == n_p,
+          f"{tag}: the sweep's groups of {n_p} partition count(s) took "
+          f"{tl.tick_loop.launches - before} launches")
+    worst = 0.0
+    for k, (out, want) in enumerate(zip(grouped, per_group)):
+        equal, err = compare_outputs(out, want)
+        check(equal, f"{tag}: group {k} of the grouped launch != its own "
+                     f"(max |err| {err})")
+        worst = max(worst, err)
+    return rows, worst
+
+
 def call(fn, key, rows):
     return fn(key.ctrl_code, key.env_code, key.cpu, *rows, dt=key.dt,
               ctrl_every=key.ctrl_every)
@@ -668,23 +749,12 @@ def bound_of(groups_rows, lane_ticks, ctrl_ticks=None):
             "operations", nbytes, ops)
 
 
-def instances_of(scenarios, dev):
-    """(P, KIND, SCALING, environment kernel?) instantiations a sweep would
-    launch."""
+def partition_counts_of(scenarios, dev):
+    """The partition counts (kernel instances) a sweep would launch."""
     from repro_torch.api import scenario as S
-    from repro_torch.api.controllers import as_controller
-    from repro_torch.api.environments import as_environment
-    from repro_torch.kernels import tick_loop as tl
 
-    keys = [S._group_key(as_controller(sc.controller),
-                         as_environment(sc.environment), sc,
-                         len(sc.datasets), dev) for sc in scenarios]
-    merged = S._merged_partition_counts(keys)
-    out = set()
-    for k in keys:
-        kind, scaling, spec = tl.kernel_spec(k.ctrl_code, k.env_code)
-        out.add((merged[k], kind, scaling, not spec.reference))
-    return out
+    _, groups = S._prepare_groups(scenarios, dev)
+    return {key.n_partitions for key in groups}
 
 
 def degeneration_scenarios(executor="auto"):
@@ -786,7 +856,7 @@ def phase_environments(dev, ref_runs) -> dict:
              "greendataflow": (greendataflow_scenarios(),
                                ("testbed", "tech", "idle", "tool"))}
     launches = {}
-    grs = []
+    grs, grouped_rows, ticks_c = [], [], []
     for gname, (cells, axes) in grids.items():
         g = gold[gname]
         scs = [sc for _, sc in cells]
@@ -799,8 +869,9 @@ def phase_environments(dev, ref_runs) -> dict:
         results = api.sweep(scs, device=dev)
         wall = time.perf_counter() - t0
         launches[gname] = tl.tick_loop.launches
-        check(launches[gname] == n_groups,
-              f"{gname}: {launches[gname]} launches for {n_groups} groups")
+        check(launches[gname] == 1,
+              f"{gname}: {launches[gname]} launches for one sweep of "
+              f"{n_groups} groups")
         want = {tuple(r[a] for a in axes): r for r in g["rows"]}
         n_exact = 0
         for (cell, _), r in zip(cells, results):
@@ -815,8 +886,10 @@ def phase_environments(dev, ref_runs) -> dict:
                            ("time_s", "energy_j", "avg_tput_MBps",
                             "avg_power_w"))
         print(f"[17 envs] (c) {gname}: {len(results)} cells in {n_groups} "
-              f"groups ({launches[gname]} launches), sweep wall {wall:.3f} "
-              f"s; {sum(r.completed for r in results)} completed; vs "
+              f"groups ({launches[gname]} launch; PR 16-18: {n_groups}), "
+              f"sweep wall {wall:.3f} s (PR 18: "
+              f"{PER_GROUP_WALL_S[gname]}); "
+              f"{sum(r.completed for r in results)} completed; vs "
               f"fig_dvfs_full.json: completed/time_s exact, energy/tput "
               f"rtol 1e-5, {n_exact}/{len(results)} cells bit-exact",
               flush=True)
@@ -824,17 +897,27 @@ def phase_environments(dev, ref_runs) -> dict:
             print(f"[17 envs] (c) headline "
                   f"{json.dumps(fig_dvfs_headline(cells, results))}; JAX "
                   f"{json.dumps(g['headline'])}", flush=True)
-        grs += groups_on_card(scs, dev)
-    kern_c = [call(tl.tick_loop, k, r) for k, r in grs]
-    ticks_c = [executed_lane_ticks(m, k.n_steps)
-               for (k, _), (_, _, m) in zip(grs, kern_c)]
-    ms_c = time_cuda(lambda: [call(tl.tick_loop, k, r) for k, r in grs], 5)
+        grs_g = groups_on_card(scs, dev)
+        kern_g = [call(tl.tick_loop, k, r) for k, r in grs_g]
+        rows_g, _ = grouped_vs_groups(scs, dev, kern_g, gname)
+        grouped_rows.append(rows_g)
+        grs += grs_g
+        ticks_c += [executed_lane_ticks(m, k.n_steps)
+                    for (k, _), (_, _, m) in zip(grs_g, kern_g)]
+        del kern_g
+    ms_c = time_cuda(lambda: [tl.tick_loop_grouped(r)
+                              for r in grouped_rows], 5)
+    group_ms_c = time_cuda(lambda: [call(tl.tick_loop, k, r)
+                                    for k, r in grs], 5)
     bound_c, by_c, nbytes_c, ops_c = bound_of(grs, ticks_c)
     print(f"[17 envs] (c) kernel on both grids' {len(grs)} groups: "
-          f"{ms_c:.3f} ms (median of 5, {len(grs)} launches); "
-          f"{sum(ticks_c)} executed lane-ticks; bound {bound_c:.4f} ms by "
-          f"{by_c} ({nbytes_c} B, {ops_c} ops)", flush=True)
-    del kern_c, grs
+          f"grouped {ms_c:.3f} ms (median of 5, 2 launches, one a grid, "
+          f"each bit-equal to its groups' own launches; PR 16-17: 186.901 "
+          f"in 42), the groups' own launches {group_ms_c:.3f} ms "
+          f"({len(grs)} launches); {sum(ticks_c)} executed lane-ticks; "
+          f"bound {bound_c:.4f} ms by {by_c} ({nbytes_c} B, {ops_c} ops)",
+          flush=True)
+    del grs, grouped_rows
 
     # (d) a tune-sized dvfs launch: 4,096 lanes in one group
     env_d = api.make_environment("dvfs", **DVFS_TUNE)
@@ -871,7 +954,8 @@ def phase_environments(dev, ref_runs) -> dict:
           f"{sum(r.completed for r in res_d)} completed", flush=True)
     print(f"[17 envs] phase time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "grids_ms": ms_c,
+            "grids_group_ms": group_ms_c, "dvfs_tune_ms": ms_d}
 
 
 def phase_learn(dev) -> dict:
@@ -1027,8 +1111,14 @@ def phase_learn(dev) -> dict:
                             device=dev)
     eval_wall = time.perf_counter() - t0
     eval_launches = tl.tick_loop.launches
-    check(eval_launches == n_groups,
-          f"learn eval: {eval_launches} launches for {n_groups} groups")
+    check(eval_launches == 1,
+          f"learn eval: {eval_launches} launches for one grid of "
+          f"{n_groups} groups")
+    eval_scs = [dataclasses.replace(c.scenario, executor="cuda")
+                for c in exp.cells()]
+    eval_grs = groups_on_card(eval_scs, dev)
+    grouped_vs_groups(eval_scs, dev, [call(tl.tick_loop, k, r)
+                                      for k, r in eval_grs], "learn eval")
     want = {(r["testbed"], r["dataset"], r["tool"]): r for r in gold["rows"]}
     near, n_exact = [], 0
     for r in report.rows():
@@ -1054,7 +1144,9 @@ def phase_learn(dev) -> dict:
               f"<= {LEARN_MARGIN} of the largest |logit|", flush=True)
     print(f"[18 learn] (c) evaluate(JAX BC policy, smoke=False): "
           f"{len(report)} cells in {n_groups} groups ({eval_launches} "
-          f"launches), wall {eval_wall:.3f} s; vs learn_full.json: "
+          f"launch, bit-equal to the groups' own launches; PR 17-18: "
+          f"{n_groups}), wall {eval_wall:.3f} s (PR 18: 0.088-0.093); vs "
+          f"learn_full.json: "
           f"completed/time_s exact, energy/tput rtol 1e-5 on "
           f"{len(report) - len(near)} cells ({len(near)} near ties), "
           f"{n_exact} bit-exact; learned cells' smallest margins "
@@ -1130,8 +1222,8 @@ def phase_learn(dev) -> dict:
             rep = exp.run(cache=cache, cells=cells_f, device=dev)
             wall = time.perf_counter() - t0
             launches[name] = tl.tick_loop.launches
-            check(launches[name] == golden["group_count"],
-                  f"{name}: {launches[name]} launches for "
+            check(launches[name] == 1,
+                  f"{name}: {launches[name]} launches for one grid of "
                   f"{golden['group_count']} groups")
             again = exp.run(cache=cache, cells=cells_f, device=dev)
             check(again.meta["executed"] == 0
@@ -1156,7 +1248,8 @@ def phase_learn(dev) -> dict:
                                                     "avg_tput_MBps",
                                                     "avg_power_w"))
         print(f"[18 learn] (f) {name}: {len(rep)} cells, {launches[name]} "
-              f"launches, wall {wall:.3f} s; rows == the sweep's; vs the "
+              f"launch (PR 17-18: {golden['group_count']}), wall "
+              f"{wall:.3f} s; rows == the sweep's; vs the "
               f"golden completed/time_s exact, energy/tput rtol 1e-5, "
               f"{n_exact} bit-exact; cached re-run executed 0 of "
               f"{len(cells_f)}", flush=True)
@@ -1203,13 +1296,14 @@ SERVE_BF16_TOL = 0.05
 
 
 def flash_bound(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes,
-                ops_per_s=BF16_TENSOR_OPS_PER_S):
+                ops_per_s=BF16_TENSOR_OPS_PER_S, window=0):
     """(bound_ms, bound_by, flops, bytes) of one attention call: 4 hd
     operations per reachable (query, key) pair and head at ``ops_per_s``
     (the tensor cores' bf16 rate; float32's 67 TFLOP/s for float32
     inputs); q, k, v read and o written once."""
     if causal:
-        pairs = sum(min(q + 1, Tk) for q in range(Tq))
+        reach = min(Tk, window) if window > 0 else Tk
+        pairs = sum(min(q + 1, reach) for q in range(Tq))
     else:
         pairs = Tq * Tk
     flops = 4 * hd * H * B * pairs
@@ -2204,7 +2298,7 @@ def phase_serve(dev, tree) -> dict:
 WKV_HEADS, WKV_BATCH, WKV_T = 64, (1, 8), (1, 64, 200, 2048)
 WKV_TOL = {"y_float32": 1e-4, "y_bfloat16": 1e-2, "S": 1e-4}
 # Phase 14: the RG-LRU kernel's cases at recurrentgemma-2b's width.
-RGLRU_C, RGLRU_BATCH, RGLRU_T = 2560, (1, 8), (1, 200, 2048)
+RGLRU_C, RGLRU_BATCH, RGLRU_T = 2560, (1, 2, 8), (1, 200, 2048, 4096)
 # Phase 15: the recurrent goldens' tolerance on top-5 logits and norms,
 # relative to the row's largest top-5 |logit| / its norm (float32 on the
 # card against XLA on the CPU: cuBLAS sums in another order, the WKV and
@@ -2327,51 +2421,147 @@ def phase_wkv(dev) -> dict:
     return res
 
 
+# Kernel 5's earlier times (CUDA events, median of 5; B 2 x T 4,096 by the
+# profiler in phase 19d's step), by (B, T) at C 2,560 in float32: the
+# first kernel, one thread a channel (my chip runs, PRs 15 and 18; NVIDIA
+# H100 80GB HBM3, 700 W), printed beside today's.
+RGLRU_EARLIER_MS = {(8, 2048): "PR 15: 1.0242", (1, 2048): "PR 15: 0.9121",
+                    (8, 1): "PR 15: 0.0443",
+                    (2, 4096): "PR 18: 1.81 (profiler, in the step)"}
+
+
+def kernel_device_ms(fn, reps=20):
+    """Device time (ms) of one call of ``fn``: CUDA events around ``reps``
+    calls queued behind a spin kernel (``torch.cuda._sleep``), so the card
+    runs them back to back and the host's launch overhead, which events
+    around one short call include, stays hidden.  None when the host took
+    longer to queue them than the spin lasts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued_s > SPIN_MIN_S:
+        return None
+    return start.elapsed_time(end) / reps
+
+
+def host_us_per_call(fn, reps=20):
+    """Host time (us) of one call of ``fn``, which enqueues work on the
+    card: ``reps`` calls queued behind a spin kernel, so none waits on the
+    card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / reps * 1e6
+
+
+# The spin ahead of kernel_device_ms's calls: 2e7 cycles, at least 10 ms at
+# the H100's 1.98 GHz boost clock; the host must queue the calls in less.
+SPIN_CYCLES, SPIN_MIN_S = 20_000_000, 0.010
+
+
 def phase_rglru(dev) -> dict:
-    """[14 rglru] kernel 5 vs its plain version, bit for bit, timed at the
-    serving prefill's shape."""
+    """[14 rglru] kernel 5 vs its plain version, bit for bit, and timed,
+    at every (B, T) of RGLRU_BATCH x RGLRU_T, a ragged C and a strided a."""
+    import ctypes
+    import importlib
     import itertools
 
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.rglru import rglru_ref, rglru_scan
 
+    wrapper = importlib.import_module("repro_torch.kernels.rglru.rglru")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(14)
     C = RGLRU_C
 
-    def inputs(B, T, dt):
-        a = (torch.rand(B, T, C, generator=g) * 0.1 + 0.9).to(dev, dt)
-        b = (torch.randn(B, T, C, generator=g) * 0.1).to(dev, dt)
+    def inputs(B, T, dt, c=C):
+        a = (torch.rand(B, T, c, generator=g) * 0.1 + 0.9).to(dev, dt)
+        b = (torch.randn(B, T, c, generator=g) * 0.1).to(dev, dt)
         return a, b
 
-    n = 0
-    cases = list(itertools.product(RGLRU_BATCH, RGLRU_T, ("float32",)))
-    cases.append((2, 200, "bfloat16"))
-    for B, T, dname in cases:
-        a, b = inputs(B, T, getattr(torch, dname))
+    cases = [(B, T, C, "float32", False)
+             for B, T in itertools.product(RGLRU_BATCH, RGLRU_T)]
+    cases += [(2, 200, C, "bfloat16", False),
+              (2, 300, 2536, "float32", False),    # C not a multiple of 32
+              (2, 300, C, "float32", True)]        # a strided view
+    out = {}
+    for B, T, c, dname, strided in cases:
+        a, b = inputs(B, T, getattr(torch, dname), c)
+        if strided:   # every other time step of a longer a
+            a = inputs(B, 2 * T, torch.float32, c)[0][:, ::2]
+            check(not a.is_contiguous(), "the strided case's a is strided")
+        width, tma = wrapper.kernel_plan(a, b, torch.empty_like(a), n_sms)
         h = rglru_scan(a, b)
         check(torch.equal(h, rglru_ref(a, b)),
-              f"rglru B={B} T={T} {dname}: kernel != plain version")
-        n += 1
-    torch.cuda.synchronize()
-    print(f"[14 rglru] kernel == plain version bit for bit on {n} cases "
-          f"(C {C}; B {RGLRU_BATCH}; T {RGLRU_T}; f32, and bf16 at B 2 "
-          f"T 200)", flush=True)
-    out = {}
-    for B, T in ((8, 2048), (1, 2048), (8, 1)):
-        a, b = inputs(B, T, torch.float32)
+              f"rglru B={B} T={T} C={c} {dname} strided={strided}: "
+              f"kernel != plain version")
         ms = time_cuda(lambda: rglru_scan(a, b), 5)
+        dev_ms = kernel_device_ms(lambda: rglru_scan(a, b))
+        host_us = host_us_per_call(lambda: rglru_scan(a, b))
         plain_ms = time_cuda(lambda: rglru_ref(a, b), 2)
-        bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4)
-        print(f"[14 rglru] recurrentgemma-2b width f32 B={B} T={T}: kernel "
-              f"{ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({nbytes} B at 3.35 TB/s, {flops} FLOP); x "
-              f"bound {ms / bound_ms:.1f}; plain {plain_ms:.3f} ms (median "
-              f"of 2); library call: none", flush=True)
-        out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+        bound_ms, bound_by, flops, nbytes = rglru_bound(
+            B, T, c, a.element_size())
+        main = c == C and dname == "float32" and not strided
+        earlier = RGLRU_EARLIER_MS.get((B, T), "not measured") if main \
+            else "not measured"
+        dev_txt = ("device time not measured" if dev_ms is None else
+                   f"{dev_ms:.4f} ms of device time (20 calls queued; x "
+                   f"bound {dev_ms / bound_ms:.1f})")
+        print(f"[14 rglru] B={B} T={T} C={c} {dname}"
+              f"{' strided a' if strided else ''}: bit-equal; "
+              f"{'TMA ring' if tma else 'direct path'}, {width} channels a "
+              f"block; kernel {ms:.4f} ms (CUDA events, median of 5), "
+              f"{dev_txt}; host {host_us:.1f} us a call; bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
+              f"B at 3.35 TB/s); earlier {earlier}; plain {plain_ms:.3f} "
+              f"ms (median of 2)", flush=True)
+        if (B, T) == (2, 4096) and main:
+            # the launch's own host cost on both paths: the TMA path
+            # encodes three tensor maps a call
+            lib = build.load_rglru()
+            h = torch.empty_like(a)
+            strides = (ctypes.c_longlong * 6)(*[
+                st for x in (a, b, h) for st in wrapper._strides(x)])
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            c_us = {}
+            for path in (1, 0):
+                def launch():
+                    err = lib.rglru_launch(0, a.data_ptr(), b.data_ptr(),
+                                           h.data_ptr(), B, T, c, strides,
+                                           width, path, stream)
+                    check(err == 0, f"rglru_launch (tma={path}): {err}")
+                c_us[path] = host_us_per_call(launch)
+            print(f"[14 rglru] B={B} T={T}: host cost of the C launch alone "
+                  f"{c_us[1]:.1f} us on the TMA path (three tensor maps "
+                  f"encoded), {c_us[0]:.1f} us on the direct path; the "
+                  f"wrapper {host_us:.1f} us", flush=True)
+        if main:
+            out[(B, T)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               host_us=host_us)
+        del a, b, h
     res = dict(out[(8, 2048)])
     res["max_abs_err"] = 0.0
+    res["train_shape"] = out[(2, 4096)]
     return res
 
 
@@ -2709,6 +2899,31 @@ def phase_recurrent_train_kernels(dev) -> dict:
     qpos = torch.arange(T, device=dev)
     mask = (qpos[None] <= qpos[:, None]) & (qpos[None] > qpos[:, None] - w)
     out = {}
+    # kernel 2 at the trainer's shape (bf16, the wgmma route), the forward
+    # the backward reads: against its bound, the plain version, SDPA with
+    # the window as a mask and SDPA's flash forward, causal over all T
+    q, k, v, _ = qkvd(B, T, torch.bfloat16)
+    fwd_ms = time_cuda(lambda: flash_attention_bhtd(q, k, v, window=w), 5)
+    fwd_plain_ms = time_cuda(lambda: attention_ref(q, k, v, window=w), 2)
+    fwd_lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q, k.expand(B, H, T, hd), v.expand(B, H, T, hd), attn_mask=mask), 5)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd_flash_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
+    fb_ms, fb_by, fb_flops, fb_bytes = flash_bound(
+        B, H, Hkv, hd, T, T, True, 2, window=w)
+    print(f"[19 recurrent train] (a) kernel 2, bf16 (wgmma) B={B} T={T} "
+          f"window={w}: {fwd_ms:.4f} ms (median of 5); bound {fb_ms:.4f} ms "
+          f"by {fb_by} ({fb_flops} FLOP, {fb_bytes} B); x bound "
+          f"{fwd_ms / fb_ms:.1f}; plain {fwd_plain_ms:.3f} ms; "
+          f"scaled_dot_product_attention (window mask) {fwd_lib_ms:.4f} ms, "
+          f"its flash backend causal without the window (more work) "
+          f"{fwd_flash_ms:.4f} ms", flush=True)
+    out["forward"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms,
+                          library_ms=fwd_lib_ms,
+                          library_flash_causal_ms=fwd_flash_ms,
+                          bound_ms=fb_ms, bound_by=fb_by)
+    del q, k, v
     for dname, ops_per_s, elem in (("bfloat16", BF16_TENSOR_OPS_PER_S, 2),
                                    ("float32", F32_OPS_PER_S, 4)):
         q, k, v, do = qkvd(B, T, getattr(torch, dname))
@@ -2771,6 +2986,15 @@ def phase_recurrent_train_kernels(dev) -> dict:
               f"[19b] rglru backward B={B} T={T}: kernel != plain version")
         n += 1
     B, T = RG_TRAIN_B, RG_TRAIN_T
+    fwd_ms = time_cuda(lambda: rglru_scan(a, b), 5)
+    fwd_dev_ms = kernel_device_ms(lambda: rglru_scan(a, b))
+    fwd_bound = rglru_bound(B, T, C, 4)[0]
+    print(f"[19 recurrent train] (b) kernel 5 (forward) B={B} T={T} C={C} "
+          f"f32: {fwd_ms:.4f} ms (CUDA events, median of 5), "
+          + ("device time not measured" if fwd_dev_ms is None else
+             f"{fwd_dev_ms:.4f} ms of device time (20 calls queued)")
+          + f"; bound {fwd_bound:.4f} ms by bytes; earlier "
+          f"{RGLRU_EARLIER_MS[(B, T)]}", flush=True)
     ms = time_cuda(lambda: rglru_scan_bwd(a, h, gr), 5)
     plain_ms = time_cuda(lambda: rglru_bwd_ref(a, h, gr), 2)
     bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4, arrays=5,
@@ -2908,6 +3132,15 @@ def phase_recurrent_train(dev) -> dict:
     breakdown = profile_train_step(dev, bundle, state, RG_TRAIN_B,
                                    RG_TRAIN_T, RG_TRAIN_STEPS,
                                    "[19 recurrent train] (d)")
+    k5 = "rglru (kernel 5)"
+    print(f"[19 recurrent train] (d) step {mean_ms:.1f} ms = "
+          f"{tokens / mean_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB; kernel 5 in the profiled step: "
+          + ("not measured" if breakdown is None else
+             f"{breakdown[k5]:.1f} ms of {breakdown['busy_ms']:.1f} ms of "
+             f"device time ({breakdown[k5] / breakdown['busy_ms']:.3f})")
+          + " (PR 18: 865.7 ms, 9,463 tokens/s, 65.28 GB; kernel 5 65.1 ms "
+          "of the device time)", flush=True)
 
     # one step at B 1 from the trained state: kernels vs plain versions
     gen = torch.Generator().manual_seed(19)
@@ -3000,7 +3233,9 @@ def smoke(dev, tick_only=False, learn_only=False,
     build.load_wkv()
     build.load_rglru()
     print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; nvcc wall time each: "
+          + ", ".join(f"{src} {build.nvcc_seconds(log)} s"
+                      for src, log in logs.items()), flush=True)
     for name, line in build.ptxas_report(
             logs["flash_attention.cu"]).items():
         inst = build.flash_attention_instance(name)
@@ -3034,17 +3269,20 @@ def smoke(dev, tick_only=False, learn_only=False,
         check(inst is not None, f"unexpected entry {name}")
         print(f"[2 build] wkv r/k/v {inst[0]}, w {inst[1]}: {line}")
     for name, line in build.ptxas_report(logs["rglru.cu"]).items():
-        inst, entry = build.rglru_instance(name), "rglru"
-        if inst is None:
-            inst, entry = build.rglru_bwd_instance(name), "rglru_bwd"
+        inst = build.rglru_instance(name)
+        if inst is not None:
+            print(f"[2 build] rglru {inst[0]}, {inst[1]} channels a block "
+                  f"(one warp; TMA ring of "
+                  f"{2 * 4 * 8192 + 128} B dynamic shared memory): {line}")
+            continue
+        inst = build.rglru_bwd_instance(name)
         check(inst is not None, f"unexpected entry {name}")
-        print(f"[2 build] {entry} {inst}: {line}")
+        print(f"[2 build] rglru_bwd {inst}: {line}")
     if recurrent_only:
         phase_recurrent_train(dev)
         print("chip_smoke: recurrent train phases (1-2, 19) passed")
         return 0
     report = build.ptxas_report(logs["tick_loop.cu"])
-    names = ["ME", "EEMT", "EETT", "ISMAIL", "STATIC", "LEARNED"]
     used = set()
     env_d = api.make_environment("dvfs", **DVFS_TUNE)
     learned_p, _ = golden_learned()
@@ -3061,19 +3299,14 @@ def smoke(dev, tick_only=False, learn_only=False,
                 [s for _, s in fig_dvfs_scenarios()],
                 [s for _, s in greendataflow_scenarios()],
                 tune_scenarios(environment=env_d)[:1]):
-        used |= instances_of(scs, dev)
-    by_inst = {}
-    for k, v in report.items():
-        for env, parse in ((False, build.tick_loop_instance),
-                           (True, build.tick_loop_env_instance)):
-            if parse(k) is not None:
-                by_inst[(*parse(k), env)] = v
-    for p, k, s, e in sorted(used):
-        check((p, k, s, e) in by_inst,
-              f"no ptxas entry for P={p} {names[k]} (environments: {e})")
-        entry = "tick_loop_env_kernel" if e else "tick_loop_kernel"
-        print(f"[2 build] {entry} P={p} {names[k]}{'+scaling' if s else ''}: "
-              f"{by_inst[(p, k, s, e)]}")
+        used |= partition_counts_of(scs, dev)
+    grouped = {build.tick_loop_grouped_instance(k): v
+               for k, v in report.items()}
+    check(sorted(grouped) == list(range(1, 9)),
+          f"tick-loop kernels {sorted(grouped)}, expected P 1-8 only")
+    for p in sorted(used):
+        print(f"[2 build] tick_loop_grouped_kernel P={p} (every KIND, "
+              f"scaling and environment flag in one kernel): {grouped[p]}")
 
     # 3. goldens
     before = tl.tick_loop.launches
@@ -3131,9 +3364,9 @@ def smoke(dev, tick_only=False, learn_only=False,
     results = api.sweep(scs, device=dev)
     wall = time.perf_counter() - t0
     main_launches = tl.tick_loop.launches
-    check(main_launches == n_groups,
-          f"main path launched the kernel {main_launches} times for "
-          f"{n_groups} groups")
+    check(main_launches == 1,
+          f"main path launched the kernel {main_launches} times for one "
+          f"sweep of {n_groups} groups")
     rows = {(r["testbed"], r["dataset"], r["tool"]): r for r in gold["rows"]}
     n_exact = 0
     for (cell, _), r in zip(cells, results):
@@ -3149,7 +3382,8 @@ def smoke(dev, tick_only=False, learn_only=False,
                         "avg_power_w"))
     headline = fig2_headline(cells, results)
     print(f"[5 fig2] {len(results)} cells in {n_groups} groups "
-          f"({main_launches} launches), sweep wall {wall:.3f} s; "
+          f"({main_launches} launch; PR 11-18: 6), sweep wall {wall:.3f} s "
+          f"(PR 18: {PER_GROUP_WALL_S['fig2']}); "
           f"{sum(r.completed for r in results)} completed; vs "
           f"fig2_full.json: completed/time_s exact, energy/tput rtol 1e-5, "
           f"{n_exact}/{len(results)} cells bit-exact", flush=True)
@@ -3169,15 +3403,34 @@ def smoke(dev, tick_only=False, learn_only=False,
           f"fig2 groups: kernel != plain version (max |err| {max_err})")
     ticks = [executed_lane_ticks(m, k.n_steps)
              for (k, _), (_, _, m) in zip(grs, kern)]
-    ms = time_cuda(lambda: [call(tl.tick_loop, k, r) for k, r in grs], 5)
+    group_ms = time_cuda(lambda: [call(tl.tick_loop, k, r)
+                                  for k, r in grs], 5)
+    # the main path's launch: every group at once, held to the plain
+    # version (and so to the groups' own launches) bit for bit
+    rows_g, err_g = grouped_vs_groups(scs, dev, plain, "fig2")
+    max_err = max(max_err, err_g)
+    ms = time_cuda(lambda: tl.tick_loop_grouped(rows_g), 5)
+    # a sweep costs its slowest group: each group in a launch of its own
+    per = []
+    for (k, r), t in zip(grs, ticks):
+        own = time_cuda(lambda: call(tl.tick_loop, k, r), 3)
+        per.append(f"{r[1].shape[0]}x{r[1].shape[1]} P{k.n_partitions} "
+                   f"{k.ctrl_code.name}: "
+                   f"{own:.3f} ms ({t / own * 1e3:.4g} lane-ticks/s)")
+    print(f"[5 fig2] each group in its own launch (median of 3): "
+          + "; ".join(per), flush=True)
     bound_ms, bound_by, nbytes, ops = bound_of(grs, ticks)
     shapes = ", ".join(f"{r[1].shape[0]}x{r[1].shape[1]}" for _, r in grs)
     print(f"[5 fig2] kernel vs plain on the card: {len(grs)} groups "
-          f"(lanes x ticks: {shapes}) bit-equal; kernel {ms:.3f} ms "
-          f"(median of 5, {len(grs)} launches), plain {plain_ms:.1f} ms "
-          f"(one run); {sum(ticks)} executed lane-ticks; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops)",
+          f"(lanes x ticks: {shapes}) bit-equal, each in its own launch "
+          f"and all in one launch (P "
+          f"{(rows_g[0][3].shape[1] - 13) // 5}); the sweep's launch {ms:.3f} "
+          f"ms (median of 5, 1 launch; PR 17: 56.982 in 6), the groups' "
+          f"own launches {group_ms:.3f} ms ({len(grs)} launches); plain "
+          f"{plain_ms:.1f} ms (one run); {sum(ticks)} executed lane-ticks; "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops)",
           flush=True)
+    del rows_g
 
     # 6. tune-sized sweep: 4,096 lanes in one group
     torch.cuda.reset_peak_memory_stats()
@@ -3223,6 +3476,55 @@ def smoke(dev, tick_only=False, learn_only=False,
           f"ms by {by_t}); plain {plain_t_ms:.1f} ms; peak memory "
           f"{peak} B; sweep end to end {tune_wall:.3f} s; "
           f"{sum(r.completed for r in tune_results)} completed", flush=True)
+
+    # 6b. a sweep of two partition counts: one launch per count, no group
+    # padded to another's; and what padding the P 1 group to P 8 would cost
+    mix = mixed_partition_scenarios()
+    tl.tick_loop.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix_results = api.sweep(mix, device=dev)
+    mix_wall = time.perf_counter() - t0
+    mix_launches = tl.tick_loop.launches
+    grs_m = groups_on_card(mix, dev)
+    check(sorted(k.n_partitions for k, _ in grs_m) == [1, 8]
+          and mix_launches == 2,
+          f"mixed sweep: partition counts "
+          f"{[k.n_partitions for k, _ in grs_m]} in {mix_launches} launches")
+    kern_m = [call(tl.tick_loop, k, r) for k, r in grs_m]
+    for (k, r), kern in zip(grs_m, kern_m):
+        eq, err = compare_outputs(kern, call(tl.tick_loop_reference, k, r))
+        check(eq, f"mixed sweep P{k.n_partitions}: kernel != plain version "
+                  f"(max |err| {err})")
+    rows_m, _ = grouped_vs_groups(mix, dev, kern_m, "mixed sweep")
+    ms_m = time_cuda(lambda: tl.tick_loop_grouped(rows_m), 5)
+    own_m = [time_cuda(lambda: call(tl.tick_loop, k, r), 5)
+             for k, r in grs_m]
+    (k1, r1, m1), = [(k, r, m) for (k, r), m in zip(grs_m, kern_m)
+                     if k.n_partitions == 1]
+    wide_rows = padded_group_on_card(mix, k1, dev, 8)
+    wide = call(tl.tick_loop, k1, wide_rows)
+    f32w = torch.cat([wide[0][:, :1], wide[0][:, 8:9], wide[0][:, 16:]],
+                     dim=1)
+    check(compare_outputs((f32w, wide[1], wide[2]), m1)[0],
+          "mixed sweep: the P 1 group padded to P 8 != at P 1")
+    ms_1 = own_m[[k.n_partitions for k, _ in grs_m].index(1)]
+    ms_w = time_cuda(lambda: call(tl.tick_loop, k1, wide_rows), 5)
+    ticks_1 = executed_lane_ticks(m1[2], k1.n_steps)
+    print(f"[6b mixed P] {len(mix)} cells in {len(grs_m)} groups (P 1: "
+          f"{r1[1].shape[0]} EEMT lanes on LARGE; P 8: 16 ME lanes): "
+          f"{mix_launches} launches, one a partition count, each group "
+          f"bit-equal to its own launch and the plain version; the sweep's "
+          f"launches "
+          f"{ms_m:.3f} ms (median of 5), each group's own "
+          + ", ".join(f"P{k.n_partitions} {t:.3f} ms"
+                      for (k, _), t in zip(grs_m, own_m))
+          + f"; sweep wall {mix_wall:.3f} s, "
+          f"{sum(r.completed for r in mix_results)} completed.  The P 1 "
+          f"group padded to P 8 (bit-equal): {ms_w:.3f} ms vs {ms_1:.3f} "
+          f"ms at P 1 over {ticks_1} executed lane-ticks: "
+          f"{ms_w / ms_1:.3f}x a lane-tick", flush=True)
+    del kern_m, rows_m, wide, wide_rows, mix_results
 
     # 17: the environment families, on the same kernel
     del kern, plain, grs, outs, results, tune_results, grs_t, rows_t, \
@@ -3282,7 +3584,11 @@ def smoke(dev, tick_only=False, learn_only=False,
                         "learned"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, {
+        "library_ms": None,
+        "note": "ms: fig2's groups in one grouped launch (the main path); "
+                "per_group_ms: each group in its own launch",
+        "per_group_ms": group_ms, "grids_ms": envs["grids_ms"],
+        "grids_per_group_ms": envs["grids_group_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
@@ -3294,7 +3600,8 @@ def smoke(dev, tick_only=False, learn_only=False,
         "ms": flash["bf16"]["ms"], "plain_ms": flash["bf16"]["plain_ms"],
         "bound_ms": flash["bf16"]["bound_ms"],
         "bound_by": flash["bf16"]["bound_by"],
-        "library_ms": flash["bf16"]["library_ms"]}, {
+        "library_ms": flash["bf16"]["library_ms"],
+        "hd256_train_forward": rk["forward"]}, {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
@@ -3337,7 +3644,11 @@ def smoke(dev, tick_only=False, learn_only=False,
             "train": rtrain["launches"]["rglru"]},
         "max_abs_err": rglru["max_abs_err"], "ms": rglru["ms"],
         "plain_ms": rglru["plain_ms"], "bound_ms": rglru["bound_ms"],
-        "bound_by": rglru["bound_by"], "library_ms": None}, {
+        "bound_by": rglru["bound_by"], "library_ms": None,
+        "device_ms": rglru["device_ms"],
+        "note": "ms at B 8 x T 2,048 (the serving prefill); train_shape at "
+                "B 2 x T 4,096; device_ms: 20 calls queued behind a spin",
+        "train_shape": rglru["train_shape"]}, {
         "name": "rglru_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru.cu",
         "replaces": "src/repro/models/rglru.py:102",

@@ -3,10 +3,11 @@
 ``sweep`` is the headline: it groups scenarios whose code path is identical
 (same controller code, environment code, CPU model, step count, tick stride,
 partition count and executor), stacks each group's numeric inputs along a
-leading lane axis, and runs the group as ONE lane batch — on a CUDA device,
-one launch of the tick-loop kernel.  A 72-cell figure grid becomes a handful
-of launches instead of 72, and each lane stops as soon as its transfer has
-drained.
+leading lane axis, and runs each group as ONE lane batch.  On a CUDA device
+one launch of the tick-loop kernel runs every group that shares a partition
+count (groups that differ in it alone are already padded to one, as the JAX
+package pads them), so a 72-cell figure grid is one launch instead of 72,
+and each lane stops as soon as its transfer has drained.
 
 Entry points run on the CUDA device unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and without a card they raise instead of
@@ -248,17 +249,25 @@ def run_groups(scenarios: Sequence[Scenario], *,
                device=None) -> tuple[list, list[GroupRun]]:
     """Prepare, group and execute ``scenarios``; returns the prepared
     scenarios and one :class:`GroupRun` per lane batch (outputs left on the
-    device — :func:`sweep` post-processes them)."""
+    device — :func:`sweep` post-processes them).
+
+    The groups on the ``cuda`` executor run together
+    (:func:`repro_torch.core.engine.run_cuda_groups`: one launch per
+    partition count among them); every other executor's run one by one."""
     dev = resolve_device(device)
     prepared, groups = _prepare_groups(scenarios, dev)
+    cuda = [key for key in groups if key.executor == "cuda"]
+    outs = dict(zip(cuda, engine.run_cuda_groups([
+        (key.ctrl_code, key.env_code, key.cpu, key.dt, key.ctrl_every,
+         _stack_group(prepared, groups[key], dev)) for key in cuda])))
     runs = []
     for key, idxs in groups.items():
-        inp = _stack_group(prepared, idxs, dev)
-        core = engine.get_runner(key.ctrl_code, key.env_code, key.cpu,
-                                 key.n_steps, key.dt, key.ctrl_every,
-                                 key.executor)
-        sim, ts, metrics = core(inp)
-        runs.append(GroupRun(key, idxs, sim, ts, metrics))
+        if key not in outs:
+            core = engine.get_runner(key.ctrl_code, key.env_code, key.cpu,
+                                     key.n_steps, key.dt, key.ctrl_every,
+                                     key.executor)
+            outs[key] = core(_stack_group(prepared, idxs, dev))
+        runs.append(GroupRun(key, idxs, *outs[key]))
     return prepared, runs
 
 
@@ -269,8 +278,8 @@ def _host(x):
 def sweep(scenarios: Sequence[Scenario], *,
           device=None) -> list[TransferResult]:
     """Run many scenarios, batching shape-compatible ones into one lane
-    batch (one kernel launch per group on a card).  Results come back in
-    input order, with numpy traces."""
+    batch (on a card, one kernel launch for all the groups of a partition
+    count).  Results come back in input order, with numpy traces."""
     prepared, runs = run_groups(scenarios, device=device)
     results: list[Optional[TransferResult]] = [None] * len(prepared)
     for run_ in runs:
@@ -289,8 +298,9 @@ def run(scenario: Scenario, *, device=None) -> TransferResult:
 
 
 def group_count(scenarios: Sequence[Scenario], *, device=None) -> int:
-    """Number of lane batches (kernel launches) a ``sweep`` over these on
-    ``device`` (default ``"cuda"``) would run.
+    """Number of lane batches (groups) a ``sweep`` over these on ``device``
+    (default ``"cuda"``) would run: the JAX package's executables.  On a
+    card one launch runs all the groups of a partition count.
 
     Computes only the group keys — no controller ``init`` or input arrays —
     and mirrors ``sweep``'s partition padding.  Needs no card.

@@ -33,7 +33,10 @@ Both take a lane batch in the flat rows of
   drives :func:`make_step_fn` over the whole batch, one tensor op at a time.
   It runs on any device and is the plain version the kernel is held to.
 * ``cuda`` — ``tick_loop``: one launch of the hand-written CUDA kernel for
-  the whole batch (built-in environments and controllers).
+  the whole batch (built-in environments and controllers).  Several
+  batches — a sweep's groups — run together through
+  :func:`run_cuda_groups`: one launch for all that share a partition
+  count.
 
 ``executor="auto"`` resolves per device (:func:`resolve_executor`): ``cuda``
 on a CUDA device, ``reference`` on the CPU.  The plain version runs on a
@@ -346,6 +349,28 @@ def build_core(controller, env, cpu: CpuProfile, *, n_steps: int, dt: float,
         return (sim, ts, m._replace(done=m.done != 0), *obs)
 
     return core
+
+
+def run_cuda_groups(batches):
+    """Several lane batches through the CUDA tick kernel together
+    (``tick_loop_grouped``: one launch per partition count among them),
+    each with the result its own :func:`build_core` core gives.
+
+    ``batches`` is a list of ``(controller, env, cpu, dt, ctrl_every,
+    inp)``, ``inp`` ScanInputs tensors on one CUDA device.  Returns one
+    ``(SimState, TunerState, TickMetrics)`` per batch, in order."""
+    from repro_torch.kernels import tick_loop as tl
+
+    rows = []
+    for ctrl, env, cpu, dt, ctrl_every, inp in batches:
+        prow, f0, i0 = pack_batch(env, inp)
+        rows.append((ctrl, env, cpu, prow, inp.bw, f0, i0, dt, ctrl_every))
+    out = []
+    for (*_, inp), (f32, i32, m) in zip(batches, tl.tick_loop_grouped(rows)):
+        sim, ts = tickstate.TickLayout(inp.pp.shape[-1]).unpack_state(f32,
+                                                                       i32)
+        out.append((sim, ts, m._replace(done=m.done != 0)))
+    return out
 
 
 # ------------------------------------------------------------ caches ------

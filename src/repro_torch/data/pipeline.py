@@ -103,6 +103,7 @@ class TunedFetcher:
         self._idx_lock = threading.Lock()
         self._stop = threading.Event()
         self._workers: list = []
+        self._ctl: Optional[threading.Thread] = None
         self._stats = FetchStats(t_start=time.monotonic())
         self._ts = TunerState(*host_tensors(
             tuners.init_tuner_state(2.0, 1, 0)))
@@ -140,13 +141,23 @@ class TunedFetcher:
         return self
 
     def stop(self):
+        """Stop and join the control thread and every worker thread, so
+        that none is left inside torch when the interpreter exits (a
+        thread running a torch op at teardown aborts the process).  The
+        join ends within about a second: a worker waits at most 1 s in
+        ``q.put``, the control loop wakes on the event.  A second call
+        does nothing."""
         self._stop.set()
+        threads = self._workers + ([self._ctl] if self._ctl else [])
+        self._workers, self._ctl = [], None
+        for t in threads:
+            if t is not threading.current_thread():
+                t.join()
 
     # -- the paper's controller, on real measurements ------------------
     def _control_loop(self):
         last_bytes = 0.0
-        while not self._stop.is_set():
-            time.sleep(self.sla.timeout_s)
+        while not self._stop.wait(self.sla.timeout_s):
             now_bytes = self._stats.bytes_fetched
             mb = (now_bytes - last_bytes) / 1e6
             last_bytes = now_bytes

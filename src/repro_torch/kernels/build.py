@@ -36,6 +36,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,8 +45,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: The tick loop's flags (bit-exact float32: no contraction, FTZ).
-NVCC_FLAGS = _BASE_FLAGS + ("-fmad=false", "-ftz=true")
+#: The tick loop's flags (bit-exact float32: no contraction, FTZ).  Its
+#: source holds 8 kernels (one per partition count, each with every
+#: controller's and environment's body), which nvcc optimizes in parallel
+#: over every core (``-split-compile=0``; the registers and the results
+#: are the same).
+NVCC_FLAGS = _BASE_FLAGS + ("-fmad=false", "-ftz=true", "-split-compile=0")
 
 #: nvcc flags per ``csrc`` source.
 SOURCE_FLAGS = {
@@ -79,7 +84,8 @@ def nvcc_path() -> str:
 
 def build(source: str) -> tuple[Path, str]:
     """Compile ``csrc/<source>`` (if its library is not built yet) and
-    return (library path, nvcc's output including ``-Xptxas -v``)."""
+    return (library path, nvcc's output including ``-Xptxas -v``, then its
+    wall time: :func:`nvcc_seconds`)."""
     src = CSRC / source
     flags = SOURCE_FLAGS[source]
     text = src.read_bytes() + b"".join(
@@ -96,9 +102,11 @@ def build(source: str) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True, timeout=900)
         out = proc.stdout + proc.stderr
+        out += f"\n{_NVCC_WALL} {time.perf_counter() - t0:.1f} s\n"
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} "
                                f"(exit {proc.returncode}):\n{out}")
@@ -108,6 +116,16 @@ def build(source: str) -> tuple[Path, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib, out
+
+
+_NVCC_WALL = "nvcc wall time:"
+
+
+def nvcc_seconds(log: str):
+    """The wall time of the nvcc run that wrote ``log`` (seconds), or None
+    for a log without it."""
+    m = re.search(re.escape(_NVCC_WALL) + r" ([0-9.]+) s", log)
+    return None if m is None else float(m.group(1))
 
 
 def ptxas_report(log: str) -> dict[str, str]:
@@ -126,20 +144,10 @@ def ptxas_report(log: str) -> dict[str, str]:
     return {k: "; ".join(v) for k, v in report.items()}
 
 
-def tick_loop_instance(name: str):
-    """(P, KIND, SCALING) of a mangled ``tick_loop_kernel`` entry name (the
-    reference environment's kernel)."""
-    m = re.search(r"tick_loop_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
-    return None if m is None else (int(m.group(1)), int(m.group(2)),
-                                   bool(int(m.group(3))))
-
-
-def tick_loop_env_instance(name: str):
-    """(P, KIND, SCALING) of a mangled ``tick_loop_env_kernel`` entry name
-    (the kernel with the environment codes)."""
-    m = re.search(r"tick_loop_env_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
-    return None if m is None else (int(m.group(1)), int(m.group(2)),
-                                   bool(int(m.group(3))))
+def tick_loop_grouped_instance(name: str):
+    """P of a mangled ``tick_loop_grouped_kernel`` entry name."""
+    m = re.search(r"tick_loop_grouped_kernelILi(\d+)E", name)
+    return None if m is None else int(m.group(1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,20 +156,36 @@ def _load(source: str):
     return ctypes.CDLL(str(path)), log
 
 
+#: ctypes argument types of ``tick_loop_set_group`` (csrc/tick_loop.cu)
+#: after its first two (the descriptor buffer and the index).
+TICK_LOOP_GROUP_ARGTYPES = (
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+       ctypes.POINTER(ctypes.c_float), ctypes.c_void_p, ctypes.c_void_p,
+       ctypes.POINTER(ctypes.c_int), ctypes.c_int])
+
+
+def bind_tick_loop(lib, launch: str = "tick_loop_grouped_launch"):
+    """Set the ctypes signatures of the tick-loop library's C interface
+    (``launch`` names its launch function: the card's, or a host build's)
+    and return ``lib``."""
+    fn = lib.tick_loop_set_group
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + TICK_LOOP_GROUP_ARGTYPES
+    fn.restype = ctypes.c_int
+    fn = getattr(lib, launch)
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.tick_loop_group_bytes.restype = ctypes.c_int
+    lib.tick_loop_max_groups.restype = ctypes.c_int
+    return lib
+
+
 def load_tick_loop() -> ctypes.CDLL:
     """The tick-loop library, built and loaded once per process."""
     lib, _ = _load("tick_loop.cu")
-    fn = lib.tick_loop_launch
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 13
-                   + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                           ctypes.POINTER(ctypes.c_float),
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_int),
-                                           ctypes.POINTER(ctypes.c_float),
-                                           ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.POINTER(ctypes.c_int),
-                                           ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    bind_tick_loop(lib)
     lib.tick_loop_error_string.argtypes = [ctypes.c_int]
     lib.tick_loop_error_string.restype = ctypes.c_char_p
     return lib
@@ -298,11 +322,11 @@ def load_wkv() -> ctypes.CDLL:
 
 
 def rglru_instance(name: str):
-    """The dtype (``"float32"`` or ``"bfloat16"``) of a mangled
-    ``rglru_kernel`` entry name."""
-    m = re.search(r"rglru_kernelI(f|13__nv_bfloat16)E", name)
+    """(dtype, channels a block) of a mangled ``rglru_kernel`` entry name:
+    dtype ``"float32"`` or ``"bfloat16"``, 16 or 32 channels."""
+    m = re.search(r"rglru_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
     return None if m is None else (
-        "float32" if m.group(1) == "f" else "bfloat16")
+        "float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
 
 
 def rglru_bwd_instance(name: str):
@@ -320,6 +344,7 @@ def load_rglru() -> ctypes.CDLL:
     fn = lib.rglru_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.rglru_bwd_launch

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention
-// kernels (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): the
-// fragment layouts of wgmma's m64nNk16 shape, shared-memory matrix
-// descriptors for 128-byte-swizzled tiles, mbarriers, TMA loads, wgmma, and
-// the host's tensor-map encoder.
+// kernels (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu) and the
+// RG-LRU scan's TMA ring (rglru.cu): the fragment layouts of wgmma's
+// m64nNk16 shape, shared-memory matrix descriptors for 128-byte-swizzled
+// tiles, mbarriers, TMA loads, wgmma, and the host's tensor-map encoder.
 //
 // Fragment layouts (PTX ISA, "Register Fragments and Shared Memory Matrix
 // Layouts" of wgmma).  Thread t (0..127) of a warpgroup, in warp w = t / 32
@@ -149,6 +149,50 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// A 3-D box (c0, c1, c2 its first element's coordinates) into shared
+// memory, unswizzled: element (i0, i1) of the box at dst + (i1 * box0 +
+// i0) * element size.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+// Orders this thread's earlier shared-memory accesses before later TMA
+// (async proxy) ones: a stage is read, then refilled; a tile is written,
+// then stored.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A 3-D box from shared memory to device memory (laid out as tma_load_3d
+// lays it), elements past the map's bounds not written; one bulk group a
+// commit.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until every committed store has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- wgmma ----
@@ -441,6 +485,27 @@ inline int encode_f32_2d(CUtensorMap* map, const float* ptr, long long T,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+// A 3-D map of float32 or bf16 elements: geom holds dims[3] (dim 0
+// contiguous), the byte strides of dims 1 and 2, and the box[3];
+// unswizzled, zeros past every bound.  Returns 0 or an error code.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* ptr, const long long* geom) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)geom[0], (cuuint64_t)geom[1],
+                              (cuuint64_t)geom[2]};
+  const cuuint64_t strides[2] = {(cuuint64_t)geom[3], (cuuint64_t)geom[4]};
+  const cuuint32_t box[3] = {(cuuint32_t)geom[5], (cuuint32_t)geom[6],
+                             (cuuint32_t)geom[7]};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }

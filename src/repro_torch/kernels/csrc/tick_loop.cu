@@ -8,28 +8,43 @@
 // ctrl_every ticks, the SLA tuner FSM (Algorithms 2, 4-6) and Algorithm 3
 // load control.  It writes the final state rows and seven per-tick traces.
 //
-// Design.  One thread per lane, a 1-D grid over lanes, the whole lane state
-// in registers; the CpuProfile (frequency ladder included) rides in the
-// by-value argument struct.  Each lane leaves its loop on its own as soon as
-// it has drained.  The physics and tuners are written out here (the TPU
-// kernel evaluated a staged jaxpr of the generic tick, with the
-// environment's constant tables hoisted into kernel inputs); templates
-// specialise on the partition count P (1..8), the controller KIND and
-// whether load control is on.
+// Design.  One thread per lane, the whole lane state in registers; each
+// lane leaves its loop on its own as soon as it has drained.  The physics
+// and tuners are written out here (the TPU kernel evaluated a staged jaxpr
+// of the generic tick, with the environment's constant tables hoisted into
+// kernel inputs) in run_lane<P, KIND, SCALING, ENV>, specialised on the
+// partition count P (1..8), the controller KIND, whether load control is on
+// and whether the environment codes are read.
 //
-// Environments.  tick_loop_kernel spells out the reference physics only.
-// tick_loop_env_kernel adds the other families of repro_torch.api
-// .environments, chosen by codes in the argument struct: the network model
-// (reference, lossy-wan: Mathis window cap, sharper knee, sinusoidal RTT
-// jitter; logfit: a fitted bandwidth schedule read through a device
+// One launch runs many lane batches ("groups": a sweep's, or a single
+// run's one).  Groups differ in controller, environment, CPU (frequency
+// ladder included), horizon and tick stride; the kernel's argument is a
+// table of group descriptors passed by value (__grid_constant__, read in
+// place from the parameter bank: at most kMaxGroups descriptors in CUDA's
+// 32,764 bytes of kernel parameters).  A 1-D grid of one-warp blocks: each
+// block belongs to one group, finds its descriptor from its block index
+// and switches to the group's run_lane body.  KIND, load control and the
+// environment flag are uniform across the block, so its warp never
+// diverges on them.  P is a template parameter of the kernel, one per
+// launch: the wrapper launches once per partition count among the groups
+// (a sweep's groups already share one when they differ in it alone,
+// repro_torch.api.scenario._merged_partition_counts), so no group runs
+// another's partition loops.
+//
+// Environments.  With ENV false (the reference network and energy models)
+// run_lane spells out the reference physics without a branch on the codes.
+// With ENV true it adds the other families of repro_torch.api
+// .environments, chosen by codes in the group's descriptor: the network
+// model (reference, lossy-wan: Mathis window cap, sharper knee, sinusoidal
+// RTT jitter; logfit: a fitted bandwidth schedule read through a device
 // pointer, and a fitted RTT) and the energy model (reference, big-little:
 // core mix; dvfs: core mix, V(f) interpolation over a table of at most 16
 // points carried by value, CV^2f power, leakage, race or pace idle, a
-// governor cap on the frequency).  Every lane of a launch shares the codes,
-// so their branches never diverge; the reference kernel is compiled without
-// them.  The controller keeps the profile's network numbers (the JAX engine
-// hands the tuner inp.net, not the environment's), so slow start's goal is
-// the nominal bandwidth under every environment.
+// governor cap on the frequency).  Every lane of a group shares the codes,
+// so their branches never diverge.  The controller keeps the profile's
+// network numbers (the JAX engine hands the tuner inp.net, not the
+// environment's), so slow start's goal is the nominal bandwidth under
+// every environment.
 //
 // Layout.  Traces are time-major [n_steps, B] (the wrapper hands back
 // transposed [B, n_steps] views), so at tick i the lanes of a warp store to
@@ -51,7 +66,8 @@
 // The learned controller (KIND LEARNED; repro/learn/controller.py:125-140,
 // the TPU kernel's hoisted constants).  Its MLP weights arrive as one
 // float32 table (w0, b0, w1, b1, ... row-major, the layer widths in the
-// argument struct); each block stages the table into shared memory once.
+// argument struct); each block stages its group's table into shared memory
+// once (the launch's dynamic shared memory is its largest table).
 // A controller tick featurizes the interval measurement (9 features:
 // clip, log1pf, log10f and divisions by the parameter row's nominal
 // bandwidth, max_ch and target), runs the tanh MLP per lane with the
@@ -101,7 +117,7 @@ struct Cpu {
   int n_freq, num_cores;
 };
 
-// The environment of a launch (tick_loop_env_kernel only).  The flags are
+// The environment of a group (read only when ENV is true).  The flags are
 // the JAX package's Python conditionals: no min or divide without loss, no
 // sin without jitter, no RTT override without a fitted RTT.
 struct Env {
@@ -590,104 +606,99 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
 // ---- launch ----------------------------------------------------------------
 
 // The learned controller's weight table into the block's shared memory.
-template <int KIND>
 __device__ __forceinline__ void stage_policy(const Args& a) {
-  if (KIND != LEARNED) return;
   for (int i = threadIdx.x; i < a.pol_size; i += blockDim.x)
     policy_smem[i] = a.policy[i];
   __syncthreads();
 }
 
-template <int P, int KIND, bool SCALING>
-__global__ void __launch_bounds__(kThreads) tick_loop_kernel(const Args a) {
-  stage_policy<KIND>(a);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < a.n_lanes) run_lane<P, KIND, SCALING, false>(a, lane);
-}
+// One group of a launch: its arguments, its partition count, its code
+// (block-uniform) and its first block in the launch.
+struct Group {
+  Args a;
+  int p, kind, scaling, env;
+  int first_block;
+};
 
-template <int P, int KIND, bool SCALING>
-__global__ void __launch_bounds__(kThreads)
-    tick_loop_env_kernel(const Args a) {
-  stage_policy<KIND>(a);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < a.n_lanes) run_lane<P, KIND, SCALING, true>(a, lane);
-}
+// A launch's argument: the descriptors by value, within CUDA's 32,764
+// bytes of kernel parameters.
+constexpr int kMaxGroups = 60;
+struct GroupTable {
+  int n_groups;
+  Group g[kMaxGroups];
+};
+static_assert(sizeof(GroupTable) <= 32764,
+              "the group table must fit the kernel parameter space");
 
-using KernelFn = void (*)(Args);
-
-template <int P, int KIND, bool SCALING>
-KernelFn instance(bool env) {
-  return env ? tick_loop_env_kernel<P, KIND, SCALING>
-             : tick_loop_kernel<P, KIND, SCALING>;
-}
-
-template <int P>
-KernelFn pick(int kind, int scaling, bool env) {
-  switch (kind) {
+template <int P, bool ENV>
+__device__ __forceinline__ void run_group_lane(const Group& gr,
+                                               const int lane) {
+  const Args& a = gr.a;
+  switch (gr.kind) {
     case ME:
-      return scaling ? instance<P, ME, true>(env)
-                     : instance<P, ME, false>(env);
+      if (gr.scaling) run_lane<P, ME, true, ENV>(a, lane);
+      else run_lane<P, ME, false, ENV>(a, lane);
+      return;
     case EEMT:
-      return scaling ? instance<P, EEMT, true>(env)
-                     : instance<P, EEMT, false>(env);
+      if (gr.scaling) run_lane<P, EEMT, true, ENV>(a, lane);
+      else run_lane<P, EEMT, false, ENV>(a, lane);
+      return;
     case EETT:
-      return scaling ? instance<P, EETT, true>(env)
-                     : instance<P, EETT, false>(env);
-    case ISMAIL:
-      return scaling ? nullptr : instance<P, ISMAIL, false>(env);
-    case STATIC:
-      return scaling ? nullptr : instance<P, STATIC, false>(env);
-    case LEARNED:
-      return scaling ? nullptr : instance<P, LEARNED, false>(env);
-    default:
-      return nullptr;
+      if (gr.scaling) run_lane<P, EETT, true, ENV>(a, lane);
+      else run_lane<P, EETT, false, ENV>(a, lane);
+      return;
+    case ISMAIL: run_lane<P, ISMAIL, false, ENV>(a, lane); return;
+    case STATIC: run_lane<P, STATIC, false, ENV>(a, lane); return;
+    case LEARNED: run_lane<P, LEARNED, false, ENV>(a, lane); return;
+    default: return;
   }
 }
 
-KernelFn pick_kernel(int p, int kind, int scaling, bool env) {
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    tick_loop_grouped_kernel(const __grid_constant__ GroupTable t) {
+  int g = 0;
+  while (g + 1 < t.n_groups &&
+         t.g[g + 1].first_block <= static_cast<int>(blockIdx.x))
+    ++g;
+  const Group& gr = t.g[g];
+  if (gr.kind == LEARNED) stage_policy(gr.a);
+  const int lane =
+      (static_cast<int>(blockIdx.x) - gr.first_block) * kThreads +
+      static_cast<int>(threadIdx.x);
+  if (lane >= gr.a.n_lanes) return;
+  if (gr.env) run_group_lane<P, true>(gr, lane);
+  else run_group_lane<P, false>(gr, lane);
+}
+
+using GroupedFn = void (*)(GroupTable);
+
+GroupedFn pick_grouped(int p) {
   switch (p) {
-    case 1: return pick<1>(kind, scaling, env);
-    case 2: return pick<2>(kind, scaling, env);
-    case 3: return pick<3>(kind, scaling, env);
-    case 4: return pick<4>(kind, scaling, env);
-    case 5: return pick<5>(kind, scaling, env);
-    case 6: return pick<6>(kind, scaling, env);
-    case 7: return pick<7>(kind, scaling, env);
-    case 8: return pick<8>(kind, scaling, env);
+    case 1: return tick_loop_grouped_kernel<1>;
+    case 2: return tick_loop_grouped_kernel<2>;
+    case 3: return tick_loop_grouped_kernel<3>;
+    case 4: return tick_loop_grouped_kernel<4>;
+    case 5: return tick_loop_grouped_kernel<5>;
+    case 6: return tick_loop_grouped_kernel<6>;
+    case 7: return tick_loop_grouped_kernel<7>;
+    case 8: return tick_loop_grouped_kernel<8>;
     default: return nullptr;
   }
 }
 
-}  // namespace tick
-
-extern "C" {
-
-// Launches one tick_loop_kernel (reference environment) or
-// tick_loop_env_kernel (any other) over n_lanes lanes on `stream` and
-// returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for an
-// argument no instantiation takes).  `cpu_consts` is a host array: ipc,
-// cycles_per_byte, cycles_per_byte_per_ch, pkg_static_w, core_static_w,
-// core_dyn_w_per_ghz3, mem_w_per_mbps, then 16 frequency levels.
-// `env_codes` holds network, energy, loss, jitter, fit_rtt, race, capped,
-// n_vf, n_bins; `env_consts` w_loss, knee_div, jitter_rate, jitter_frac,
-// bin_s, rtt_fit, n_big, little_perf, little_dyn, little_static, cap_nf,
-// leak_w, leak_w_per_v, idle_leak, max_freq, then 16 V(f) frequencies and
-// 16 voltages; `env_bins` is the device schedule of logfit (else null).
-// The learned controller (kind 5) takes `policy`, its device weight table
-// (w0, b0, w1, b1, ... row-major), and `widths`, a host array of
-// n_layers + 1 layer widths (9, hidden..., 9; at most 4 layers, each width
-// at most 64); other kinds ignore both.
-int tick_loop_launch(int p, int kind, int scaling, const void* prow,
-                     const void* bw, const void* f0, const void* i0,
-                     void* fout, void* iout, void* tput, void* power,
-                     void* load, void* nch, void* cores, void* freq,
-                     void* done, int n_lanes, int n_steps, int ctrl_every,
-                     float dt, const float* cpu_consts, int n_freq,
-                     int num_cores, const int* env_codes,
-                     const float* env_consts, const void* env_bins,
-                     const void* policy, const int* widths, int n_layers,
-                     void* stream) {
-  tick::Env env;
+// The arguments of one lane batch, from tick_loop_set_group's (below), or
+// cudaErrorInvalidValue for an argument no instantiation takes; *generic
+// says whether its blocks read the environment codes.
+int make_args(int p, int kind, int scaling, const void* prow, const void* bw,
+              const void* f0, const void* i0, void* fout, void* iout,
+              void* tput, void* power, void* load, void* nch, void* cores,
+              void* freq, void* done, int n_lanes, int n_steps,
+              int ctrl_every, float dt, const float* cpu_consts, int n_freq,
+              int num_cores, const int* env_codes, const float* env_consts,
+              const void* env_bins, const void* policy, const int* widths,
+              int n_layers, Args* out, bool* generic) {
+  Env env;
   env.network = env_codes[0];
   env.energy = env_codes[1];
   env.loss = env_codes[2];
@@ -697,26 +708,23 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
   env.capped = env_codes[6];
   env.n_vf = env_codes[7];
   env.n_bins = env_codes[8];
-  const bool generic = env.network != tick::NET_REFERENCE ||
-                       env.energy != tick::ENERGY_REFERENCE;
-  tick::KernelFn fn = tick::pick_kernel(p, kind, scaling, generic);
-  if (fn == nullptr || n_lanes <= 0 || ctrl_every <= 0 || n_freq <= 0 ||
-      n_freq > tick::kMaxFreq || env.network < 0 || env.network > 2 ||
-      env.energy < 0 || env.energy > 2 ||
-      (env.energy == tick::ENERGY_DVFS &&
-       (env.n_vf < 2 || env.n_vf > tick::kMaxVf)) ||
-      (env.network == tick::NET_LOGFIT &&
-       (env.n_bins < 1 || env_bins == nullptr))) {
+  *generic = env.network != NET_REFERENCE || env.energy != ENERGY_REFERENCE;
+  if (pick_grouped(p) == nullptr || kind < ME || kind > LEARNED ||
+      (scaling && kind > EETT) || n_lanes <= 0 ||
+      ctrl_every <= 0 || n_freq <= 0 || n_freq > kMaxFreq ||
+      env.network < 0 || env.network > 2 || env.energy < 0 ||
+      env.energy > 2 ||
+      (env.energy == ENERGY_DVFS && (env.n_vf < 2 || env.n_vf > kMaxVf)) ||
+      (env.network == NET_LOGFIT && (env.n_bins < 1 || env_bins == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int pol_size = 0;
-  if (kind == tick::LEARNED) {
+  if (kind == LEARNED) {
     bool ok = policy != nullptr && widths != nullptr && n_layers >= 1 &&
-              n_layers <= tick::kMaxLayers &&
-              widths[0] == tick::kFeatures &&
-              widths[n_layers] == tick::kHeads * tick::kClasses;
+              n_layers <= kMaxLayers && widths[0] == kFeatures &&
+              widths[n_layers] == kHeads * kClasses;
     for (int l = 0; ok && l <= n_layers; ++l)
-      ok = widths[l] >= 1 && widths[l] <= tick::kMaxWidth;
+      ok = widths[l] >= 1 && widths[l] <= kMaxWidth;
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     for (int l = 0; l < n_layers; ++l)
       pol_size += widths[l] * widths[l + 1] + widths[l + 1];
@@ -737,12 +745,12 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
   env.leak_w_per_v = ec[12];
   env.idle_leak = ec[13];
   env.max_freq = ec[14];
-  for (int k = 0; k < tick::kMaxVf; ++k) {
+  for (int k = 0; k < kMaxVf; ++k) {
     env.vf_f[k] = ec[15 + k];
-    env.vf_v[k] = ec[15 + tick::kMaxVf + k];
+    env.vf_v[k] = ec[15 + kMaxVf + k];
   }
   env.bins = static_cast<const float*>(env_bins);
-  tick::Args args;
+  Args& args = *out;
   args.prow = static_cast<const float*>(prow);
   args.bw = static_cast<const float*>(bw);
   args.f0 = static_cast<const float*>(f0);
@@ -767,20 +775,101 @@ int tick_loop_launch(int p, int kind, int scaling, const void* prow,
   args.cpu.core_static_w = cpu_consts[4];
   args.cpu.core_dyn_w = cpu_consts[5];
   args.cpu.mem_w = cpu_consts[6];
-  for (int k = 0; k < tick::kMaxFreq; ++k) args.cpu.freq[k] = cpu_consts[7 + k];
+  for (int k = 0; k < kMaxFreq; ++k) args.cpu.freq[k] = cpu_consts[7 + k];
   args.cpu.n_freq = n_freq;
   args.cpu.num_cores = num_cores;
   args.env = env;
   args.policy = static_cast<const float*>(policy);
   args.pol_size = pol_size;
   args.mlp.n_layers = pol_size ? n_layers : 0;
-  for (int l = 0; l <= tick::kMaxLayers; ++l)
+  for (int l = 0; l <= kMaxLayers; ++l)
     args.mlp.widths[l] = pol_size && l <= n_layers ? widths[l] : 0;
+  return 0;
+}
 
-  const dim3 block(tick::kThreads);
-  const dim3 grid((n_lanes + tick::kThreads - 1) / tick::kThreads);
-  void* params[] = {&args};
-  cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid, block, params,
+}  // namespace tick
+
+extern "C" {
+
+// The C interface (loaded with ctypes).  A launch is described on the host
+// first: tick_loop_set_group fills one descriptor of a buffer of
+// tick_loop_group_bytes() bytes each, then tick_loop_grouped_launch
+// launches the kernel once over the descriptors.
+//
+// tick_loop_set_group's arguments, for one lane batch of n_lanes lanes:
+// `cpu_consts` is a host array: ipc, cycles_per_byte,
+// cycles_per_byte_per_ch, pkg_static_w, core_static_w,
+// core_dyn_w_per_ghz3, mem_w_per_mbps, then 16 frequency levels.
+// `env_codes` holds network, energy, loss, jitter, fit_rtt, race, capped,
+// n_vf, n_bins; `env_consts` w_loss, knee_div, jitter_rate, jitter_frac,
+// bin_s, rtt_fit, n_big, little_perf, little_dyn, little_static, cap_nf,
+// leak_w, leak_w_per_v, idle_leak, max_freq, then 16 V(f) frequencies and
+// 16 voltages; `env_bins` is the device schedule of logfit (else null).
+// The learned controller (kind 5) takes `policy`, its device weight table
+// (w0, b0, w1, b1, ... row-major), and `widths`, a host array of
+// n_layers + 1 layer widths (9, hidden..., 9; at most 4 layers, each width
+// at most 64); other kinds ignore both.
+
+// Bytes of one group descriptor (the buffer tick_loop_set_group fills).
+int tick_loop_group_bytes() { return static_cast<int>(sizeof(tick::Group)); }
+
+// Groups a grouped launch takes at most.
+int tick_loop_max_groups() { return tick::kMaxGroups; }
+
+// Fills descriptor `index` of the host buffer `groups`; returns 0, or
+// cudaErrorInvalidValue for an argument no instantiation takes.
+int tick_loop_set_group(void* groups, int index, int p, int kind,
+                        int scaling, const void* prow, const void* bw,
+                        const void* f0, const void* i0, void* fout,
+                        void* iout, void* tput, void* power, void* load,
+                        void* nch, void* cores, void* freq, void* done,
+                        int n_lanes, int n_steps, int ctrl_every, float dt,
+                        const float* cpu_consts, int n_freq, int num_cores,
+                        const int* env_codes, const float* env_consts,
+                        const void* env_bins, const void* policy,
+                        const int* widths, int n_layers) {
+  if (index < 0 || index >= tick::kMaxGroups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tick::Group& g = static_cast<tick::Group*>(groups)[index];
+  bool generic = false;
+  const int err = tick::make_args(
+      p, kind, scaling, prow, bw, f0, i0, fout, iout, tput, power, load, nch,
+      cores, freq, done, n_lanes, n_steps, ctrl_every, dt, cpu_consts,
+      n_freq, num_cores, env_codes, env_consts, env_bins, policy, widths,
+      n_layers, &g.a, &generic);
+  if (err != 0) return err;
+  g.p = p;
+  g.kind = kind;
+  g.scaling = scaling;
+  g.env = generic ? 1 : 0;
+  g.first_block = 0;
+  return 0;
+}
+
+// Launches tick_loop_grouped_kernel<p> once on `stream` over the n_groups
+// descriptors that tick_loop_set_group filled, every one of partition
+// count p (each group's lanes in blocks of their own, in order), and
+// returns cudaGetLastError(), or cudaErrorInvalidValue for a table it
+// cannot take.
+int tick_loop_grouped_launch(int p, const void* groups, int n_groups,
+                             void* stream) {
+  const tick::GroupedFn fn = tick::pick_grouped(p);
+  if (fn == nullptr || n_groups < 1 || n_groups > tick::kMaxGroups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tick::GroupTable table{};   // 31,208 bytes, copied by the launch
+  table.n_groups = n_groups;
+  int blocks = 0, pol_size = 0;
+  for (int k = 0; k < n_groups; ++k) {
+    tick::Group& g = table.g[k];
+    g = static_cast<const tick::Group*>(groups)[k];
+    if (g.p != p) return static_cast<int>(cudaErrorInvalidValue);
+    g.first_block = blocks;
+    blocks += (g.a.n_lanes + tick::kThreads - 1) / tick::kThreads;
+    pol_size = g.a.pol_size > pol_size ? g.a.pol_size : pol_size;
+  }
+  void* params[] = {&table};
+  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(blocks),
+                   dim3(tick::kThreads), params,
                    static_cast<size_t>(pol_size) * sizeof(float),
                    static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());

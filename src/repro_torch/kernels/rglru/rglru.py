@@ -15,6 +15,7 @@ synchronising, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,13 +40,47 @@ def _check_kernel_inputs(name, xs):
                          f"{[y.stride() for y in xs]}")
 
 
+def _strides(x):
+    """(batch, time) element strides of [B, T, C] ``x``, the batch one made
+    T x time for B = 1 (never read, so any value serves, and TMA takes
+    this one)."""
+    B, T, _ = x.shape
+    return (T * x.stride(1) if B == 1 else x.stride(0)), x.stride(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_plan(a, b, h, n_sms: int) -> tuple[int, bool]:
+    """(channels a block, TMA or not) of the forward kernel for a, b and
+    its output h [B, T, C] on a card of ``n_sms`` SMs.  A block is one warp
+    over 16 or 32 channels of one row: 32 when B x C / 32 blocks give every
+    SM one, else 16.  a and b stream in and h out by TMA when TMA can
+    address all three (T > 1; base addresses and batch and time strides
+    16-byte aligned; rows that do not overlap); otherwise the kernel reads
+    and writes them directly, with the same result."""
+    B, T, C = a.shape
+    width = 32 if B * -(-C // 32) >= n_sms else 16
+    es = a.element_size()
+
+    def addressable(x):
+        sb, st = _strides(x)
+        return (x.data_ptr() % 16 == 0 and (sb * es) % 16 == 0
+                and (st * es) % 16 == 0 and st >= C and sb >= T * st)
+
+    return width, T > 1 and all(addressable(x) for x in (a, b, h))
+
+
 def rglru_scan(a, b):
     """a, b [B, T, C] -> h [B, T, C] in a's dtype, ``h_t = a_t h_{t-1} +
     b_t`` from zero.  Any strides whose channel one is 1; ``h`` is allocated
     with a's strides.
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
-    (float32 or bfloat16, a and b of one dtype), or an exception."""
+    (float32 or bfloat16, a and b of one dtype; its path by
+    :func:`kernel_plan`), or an exception."""
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"rglru_scan takes a, b [B, T, C] of one shape, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -61,13 +96,14 @@ def rglru_scan(a, b):
         from .. import build
 
         lib = build.load_rglru()
+        width, tma = kernel_plan(a, b, h, _sm_count(a.device))
         strides = (ctypes.c_longlong * 6)(*[
-            x.stride(i) for x in (a, b, h) for i in (0, 1)])
+            s for x in (a, b, h) for s in _strides(x)])
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             err = lib.rglru_launch(_DTYPE_CODE[a.dtype], a.data_ptr(),
                                    b.data_ptr(), h.data_ptr(), B, T, C,
-                                   strides, stream)
+                                   strides, width, int(tma), stream)
         if err != 0:
             raise RuntimeError(
                 f"RG-LRU kernel launch failed: "

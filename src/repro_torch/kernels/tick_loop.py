@@ -4,12 +4,14 @@ plain PyTorch version.
 :func:`tick_loop` replaces the JAX package's Pallas TPU kernel
 ``repro/core/engine.py::_build_pallas_core``: one launch runs every lane
 (transfer) of a batch from its packed initial rows to completion or to the
-horizon, and writes the seven per-tick traces.  The kernel is
-``csrc/tick_loop.cu`` (built by :mod:`repro_torch.kernels.build`); it spells
-out the built-in controllers (ME / EEMT / EETT with or without load
-control, Ismail's target tuner, the static baselines, and the learned
-controller of ``repro_torch.learn``, whose MLP weights ride in as the
-controller's own device table, ``LearnedController.table``) and the built-in environments — the
+horizon, and writes the seven per-tick traces; :func:`tick_loop_grouped`
+runs several batches (a sweep's groups) in one launch per partition count
+among them.  The kernel is ``csrc/tick_loop.cu`` (built by
+:mod:`repro_torch.kernels.build`); it spells out the built-in controllers
+(ME / EEMT / EETT with or without load control, Ismail's target tuner, the
+static baselines, and the learned controller of ``repro_torch.learn``,
+whose MLP weights ride in as the controller's own device table,
+``LearnedController.table``) and the built-in environments — the
 reference, lossy-wan and logfit network models, the reference, big-little
 and dvfs energy models, in any pairing — and raises for anything else
 (:func:`kernel_spec`).
@@ -46,6 +48,9 @@ _POLICY_KIND = {SLAPolicy.MIN_ENERGY: KIND_ME,
                 SLAPolicy.ISMAIL_TARGET: KIND_ISMAIL}
 
 MAX_PARTITIONS = 8   # the kernel is instantiated for P = 1..8
+#: Groups one launch takes (csrc/tick_loop.cu kMaxGroups: the descriptors
+#: ride in the kernel's parameters).
+MAX_GROUPS = 60
 MAX_FREQ_LEVELS = 16
 MAX_VF_POINTS = 16   # dvfs V(f) tables ride by value, as the ladder does
 #: The learned controller's MLP: layers, width of any layer, and the input
@@ -319,53 +324,20 @@ def tick_loop(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
 
     ``prow`` [B, 13+5P] f32, ``bw`` [B, n_steps] f32, ``f0`` [B, 2P+9] f32
     and ``i0`` [B, 3] i32, all on one device.  For CPU tensors this is
-    :func:`tick_loop_reference`; for CUDA tensors it launches the kernel on
-    the current stream without synchronising, or raises.
+    :func:`tick_loop_reference`; for CUDA tensors it is
+    :func:`tick_loop_grouped` of the one batch (no launch for B = 0).
     """
-    if prow.device.type == "cpu":
-        return tick_loop_reference(controller, env, cpu, prow, bw, f0, i0,
-                                   dt=dt, ctrl_every=ctrl_every)
-    if prow.device.type != "cuda":
-        raise ValueError(f"tick_loop runs on CUDA (or, as its plain version, "
-                         f"on the CPU), got {prow.device}")
-    n_lanes, n_steps = bw.shape
-    p = _n_partitions(prow)
-    if not 1 <= p <= MAX_PARTITIONS:
-        raise ValueError(f"the CUDA tick kernel takes 1..{MAX_PARTITIONS} "
-                         f"partitions, got {p}")
-    lay = tickstate.TickLayout(p)
-    dev = prow.device
-    _check("prow", prow, torch.float32, (n_lanes, lay.params_size), dev)
-    _check("bw", bw, torch.float32, (n_lanes, n_steps), dev)
-    _check("f0", f0, torch.float32, (n_lanes, lay.f32_size), dev)
-    _check("i0", i0, torch.int32, (n_lanes, lay.i32_size), dev)
-    if n_steps >= 2 ** 31 // max(n_lanes, 1):
-        raise ValueError("tick_loop: n_steps * B must fit in int32")
-
-    from . import build
-
-    lib = build.load_tick_loop()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err, out = marshal_and_launch(
-            lib.tick_loop_launch, controller, env, cpu, prow, bw, f0, i0,
-            dt=dt, ctrl_every=ctrl_every, stream=stream)
-    if err != 0:
-        raise RuntimeError(f"tick_loop kernel launch failed: "
-                           f"{build.cuda_error_string(lib, err)}")
-    if n_lanes:
-        tick_loop.launches += 1
-    return out
+    return tick_loop_grouped([(controller, env, cpu, prow, bw, f0, i0, dt,
+                               ctrl_every)])[0]
 
 
-def marshal_and_launch(launch, controller, env, cpu: CpuProfile, prow, bw,
-                         f0, i0, *, dt: float, ctrl_every: int, stream):
-    """Allocate the outputs, marshal the arguments of ``tick_loop_launch``
-    (``csrc/tick_loop.cu``) and call ``launch`` with them, unless the batch
-    is empty.  Returns (error code, (f32, i32, TickMetrics)).  The tensors'
-    device is the caller's business: :func:`tick_loop` hands CUDA tensors
-    to the CUDA library; tests/test_torch_tick_loop_host.py hands CPU
-    tensors to the same source compiled for the host."""
+def _marshal(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
+             dt: float, ctrl_every: int):
+    """Allocate a lane batch's outputs and marshal the arguments of
+    ``tick_loop_set_group`` (``csrc/tick_loop.cu``) after the descriptor
+    buffer and index.  Returns (arguments, (f32, i32, TickMetrics), tensors
+    the launch reads): the caller keeps the last alive until the launch is
+    enqueued."""
     kind, scaling, spec = kernel_spec(controller, env)
     n_lanes, n_steps = bw.shape
     prow, f0, i0 = prow.contiguous(), f0.contiguous(), i0.contiguous()
@@ -384,18 +356,124 @@ def marshal_and_launch(launch, controller, env, cpu: CpuProfile, prow, bw,
         policy = controller.table(prow.device).data_ptr()
         widths = (ctypes.c_int * len(w))(*w)
         n_layers = len(w) - 1
-    err = 0
-    if n_lanes:
-        err = launch(_n_partitions(prow), kind, int(scaling),
-                     prow.data_ptr(), bw_t.data_ptr(), f0.data_ptr(),
-                     i0.data_ptr(), fout.data_ptr(), iout.data_ptr(),
-                     *[buf.data_ptr() for buf in out],
-                     n_lanes, n_steps, int(ctrl_every),
-                     float(np.float32(dt)), consts, n_freq,
-                     int(cpu.num_cores), env_codes, env_consts, bins,
-                     policy, widths, n_layers, stream)
-    return err, (fout, iout, TickMetrics(*[b.t() for b in out]))
+    args = (_n_partitions(prow), kind, int(scaling),
+            prow.data_ptr(), bw_t.data_ptr(), f0.data_ptr(),
+            i0.data_ptr(), fout.data_ptr(), iout.data_ptr(),
+            *[buf.data_ptr() for buf in out],
+            n_lanes, n_steps, int(ctrl_every),
+            float(np.float32(dt)), consts, n_freq,
+            int(cpu.num_cores), env_codes, env_consts, bins,
+            policy, widths, n_layers)
+    return args, (fout, iout, TickMetrics(*[b.t() for b in out])), \
+        (prow, bw_t, f0, i0)
 
 
-#: Kernel launches since the last reset (set to 0 to start counting).
+def marshal_and_launch_groups(lib, launch, batches, *, stream):
+    """Marshal every lane batch of ``batches`` (see :func:`tick_loop_grouped`;
+    one partition count, at least one lane each) into one table of group
+    descriptors (``tick_loop_set_group`` of ``lib``) and call ``launch``
+    (``tick_loop_grouped_launch``'s signature) once on it.  Returns (error
+    code, [(f32, i32, TickMetrics)] in order).  The tensors' device is the
+    caller's business: :func:`tick_loop_grouped` hands CUDA tensors to the
+    CUDA library; tests/test_torch_tick_loop_host.py hands CPU tensors to
+    the same source compiled for the host."""
+    n = len(batches)
+    table = ctypes.create_string_buffer(lib.tick_loop_group_bytes() * n)
+    outs, keep = [], []     # keep: what the launch reads, alive until then
+    for i, (controller, env, cpu, prow, bw, f0, i0, dt, ctrl_every) in \
+            enumerate(batches):
+        args, out, k = _marshal(controller, env, cpu, prow, bw, f0, i0,
+                                dt=dt, ctrl_every=ctrl_every)
+        err = lib.tick_loop_set_group(table, i, *args)
+        if err != 0:
+            return err, None
+        outs.append(out)
+        keep.append(k)
+    return launch(_n_partitions(batches[0][3]), table, n, stream), outs
+
+
+def launch_groups(lib, launch, batches, *, stream):
+    """Run ``batches`` (see :func:`tick_loop_grouped`) in as few launches
+    of ``launch`` as the kernel takes: one per partition count among them
+    (and per :data:`MAX_GROUPS` batches of one count), the batches of no
+    lane in none.  Returns (error code, [(f32, i32, TickMetrics)] in order,
+    launches); on an error the outputs are None.  As
+    :func:`marshal_and_launch_groups`, the device is the caller's
+    business."""
+    outs = [None] * len(batches)
+    by_p: dict[int, list[int]] = {}
+    for i, (c, e, cpu, prow, bw, f0, i0, dt, ce) in enumerate(batches):
+        if bw.shape[0]:
+            by_p.setdefault(_n_partitions(prow), []).append(i)
+        else:
+            outs[i] = _marshal(c, e, cpu, prow, bw, f0, i0, dt=dt,
+                               ctrl_every=ce)[1]
+    launches = 0
+    for idxs in by_p.values():
+        for k in range(0, len(idxs), MAX_GROUPS):
+            chunk = idxs[k:k + MAX_GROUPS]
+            err, out = marshal_and_launch_groups(
+                lib, launch, [batches[i] for i in chunk], stream=stream)
+            if err != 0:
+                return err, None, launches
+            launches += 1
+            for i, o in zip(chunk, out):
+                outs[i] = o
+    return 0, outs, launches
+
+
+@torch.inference_mode()
+def tick_loop_grouped(batches):
+    """Run several lane batches — a sweep's groups — through the CUDA tick
+    kernel (``tick_loop_grouped_kernel``) in one launch per partition count
+    among them.
+
+    ``batches`` is a list of ``(controller, env, cpu, prow, bw, f0, i0,
+    dt, ctrl_every)``, each batch as :func:`tick_loop` takes it, all on one
+    device.  Returns one ``(f32, i32, TickMetrics)`` per batch, bit for bit
+    what :func:`tick_loop_reference` returns for it.  For CPU tensors each
+    batch runs :func:`tick_loop_reference`; for CUDA tensors this launches
+    the kernel (:func:`launch_groups`) on the current stream without
+    synchronising, or raises."""
+    if not batches:
+        return []
+    dev = batches[0][3].device
+    if dev.type == "cpu":
+        return [tick_loop_reference(c, e, cpu, prow, bw, f0, i0, dt=dt,
+                                    ctrl_every=ce)
+                for c, e, cpu, prow, bw, f0, i0, dt, ce in batches]
+    if dev.type != "cuda":
+        raise ValueError(f"tick_loop runs on CUDA (or, as its plain "
+                         f"version, on the CPU), got {dev}")
+    for _, _, _, prow, bw, f0, i0, _, _ in batches:
+        n_lanes, n_steps = bw.shape
+        p = _n_partitions(prow)
+        if not 1 <= p <= MAX_PARTITIONS:
+            raise ValueError(f"the CUDA tick kernel takes 1..{MAX_PARTITIONS}"
+                             f" partitions, got {p}")
+        lay = tickstate.TickLayout(p)
+        _check("prow", prow, torch.float32, (n_lanes, lay.params_size), dev)
+        _check("bw", bw, torch.float32, (n_lanes, n_steps), dev)
+        _check("f0", f0, torch.float32, (n_lanes, lay.f32_size), dev)
+        _check("i0", i0, torch.int32, (n_lanes, lay.i32_size), dev)
+        if n_steps >= 2 ** 31 // max(n_lanes, 1):
+            raise ValueError("tick_loop: n_steps * B must fit in int32")
+
+    from . import build
+
+    lib = build.load_tick_loop()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err, outs, launches = launch_groups(
+            lib, lib.tick_loop_grouped_launch, batches, stream=stream)
+    tick_loop.launches += launches
+    if err != 0:
+        raise RuntimeError(f"tick_loop kernel launch failed: "
+                           f"{build.cuda_error_string(lib, err)}")
+    return outs
+
+
+#: Kernel launches since the last reset (set to 0 to start counting):
+#: :func:`tick_loop` and :func:`tick_loop_grouped` count here, once per
+#: launch.
 tick_loop.launches = 0

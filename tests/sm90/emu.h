@@ -1,14 +1,16 @@
 // A CPU emulation of the CUDA and Hopper features that the bf16 attention
-// kernels (src/repro_torch/kernels/csrc/flash_attention{,_bwd}_sm90.cu) use,
-// so their device code compiles with g++ and runs on CPU tensors:
+// kernels (src/repro_torch/kernels/csrc/flash_attention{,_bwd}_sm90.cu) and
+// the RG-LRU scan's TMA ring (csrc/rglru.cu) use, so their device code
+// compiles with g++ and runs on CPU tensors:
 //   * a block's threads are std::threads meeting at std::barriers (the
 //     block, each warp, each warpgroup); shuffles go through shared slots;
 //   * shared memory is one global array whose shared-space addresses start
 //     48 bytes off a 1,024-byte boundary (the kernels align it themselves)
 //     and is filled with garbage before each block;
 //   * TMA copies a box at once, with the hardware's 128-byte swizzle (the
-//     16-byte chunk bits [4:6] of the address XOR bits [7:9]) and zeros
-//     past every bound, and then completes its bytes on the mbarrier;
+//     16-byte chunk bits [4:6] of the address XOR bits [7:9]) or unswizzled
+//     (2-D and 3-D boxes of 4- or 2-byte elements), and zeros past every
+//     bound, and then completes its bytes on the mbarrier;
 //   * mbarriers count arrivals and transaction bytes and flip a phase;
 //   * wgmma decodes its shared-memory descriptors (start, LBO, SBO) as the
 //     PTX ISA lays out K-major and MN-major 128B-swizzled operands, and
@@ -83,6 +85,9 @@ struct Block {
 inline Block g_block;
 
 inline void __syncthreads() { g_block.all->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_block.warp[threadIdx.x / 32]->arrive_and_wait();
+}
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   const int t = threadIdx.x;
   auto* b = g_block.warp[t / 32];
@@ -218,6 +223,47 @@ inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
   }
   mbar_tx_done(bar, (long long)map->box[0] * 4);
 }
+
+// A 3-D box of box[0] x box[1] elements of esize bytes at plane c2,
+// unswizzled, zeros past every bound (the RG-LRU scan's tiles).
+inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                        int c0, int c1, int c2) {
+  if (smem_u32(dst) % 128 || map->rank != 3 || map->swizzle) std::abort();
+  const int es = map->esize;
+  for (int r = 0; r < map->box[1]; ++r)
+    for (int c = 0; c < map->box[0]; ++c) {
+      const long long x0 = c0 + c, x1 = c1 + r;
+      uint8_t v[4] = {0, 0, 0, 0};
+      if (x0 >= 0 && x0 < map->dims[0] && x1 >= 0 && x1 < map->dims[1] &&
+          c2 >= 0 && c2 < map->dims[2])
+        std::memcpy(v, map->base + x0 * es + x1 * map->strides[0] +
+                           c2 * map->strides[1], es);
+      std::memcpy((uint8_t*)dst + ((long long)r * map->box[0] + c) * es, v,
+                  es);
+    }
+  mbar_tx_done(bar, (long long)map->box[0] * map->box[1] * es);
+}
+inline void fence_proxy_async() {}
+// The store reads the box at once and writes what lies inside the bounds.
+inline void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                         int c1, int c2) {
+  if (smem_u32(src) % 128 || map->rank != 3 || map->swizzle) std::abort();
+  const int es = map->esize;
+  for (int r = 0; r < map->box[1]; ++r)
+    for (int c = 0; c < map->box[0]; ++c) {
+      const long long x0 = c0 + c, x1 = c1 + r;
+      if (x0 >= 0 && x0 < map->dims[0] && x1 >= 0 && x1 < map->dims[1] &&
+          c2 >= 0 && c2 < map->dims[2])
+        std::memcpy(const_cast<uint8_t*>(map->base) + x0 * es +
+                        x1 * map->strides[0] + c2 * map->strides[1],
+                    (const uint8_t*)src + ((long long)r * map->box[0] + c) * es,
+                    es);
+    }
+}
+inline void bulk_commit() {}
+template <int N>
+inline void bulk_wait_read() {}
+inline void bulk_wait_all() {}
 
 // ---- wgmma ----
 inline void wgmma_fence() {}

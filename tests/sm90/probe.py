@@ -1,8 +1,12 @@
 """A short first call on the card after a change to the attention kernels
 (``src/repro_torch/kernels/csrc/*_sm90.cu``, ``sm90.cuh``,
-``flash_attention*.cu``) or the RG-LRU kernels (``rglru.cu``):
+``flash_attention*.cu``), the RG-LRU kernels (``rglru.cu``) or the tick
+loop's grouped launch (``tick_loop.cu``):
 
-    python3 tests/sm90/probe.py
+    python3 tests/sm90/probe.py [step ...]
+
+runs every step below, or only the named ones (build, probe, fwd, bwd,
+rglru, timing, tick, cells; ``cells`` is not among the default steps).
 
 1. build — nvcc builds the four attention sources and rglru.cu; ptxas
    registers, spills and stack per kernel, any warning, and the HGMMA
@@ -15,12 +19,24 @@
    key/value view of a longer cache holding NaN past Tk); the backward run
    twice for bit equality, at hd 256 on both routes (bf16 and float32).
 4. rglru — the forward and backward RG-LRU kernels against their plain
-   versions, bit for bit.
+   versions, bit for bit; the forward on both of its paths (the TMA ring,
+   the direct path) and both block widths, timed at the model's shapes.
 5. timing — one median of 5 (CUDA events) of the forward at qwen3-0.6b's
    and recurrentgemma-2b's heads and of the backward at both, each beside
    ``scaled_dot_product_attention``.
 
-Each step prints its result and goes on when one fails; ``chip_smoke.py``
+6. tick — the tick-loop launch of a sweep (its groups in one launch)
+   against each group's own launch on the Figure 2, fig_dvfs and
+   GreenDataFlow grids, bit for bit, both timed.
+7. cells — kernel 1's time on the tune, dvfs-tune and learned-tune cells
+   and the 20 RUN_GOLDEN cells, each in its own launch.  The package comes
+   from ``PROBE_SRC`` (default: this tree's ``src``), so two trees are
+   compared in one call: unpack the other (``git archive``) into the
+   ignored ``build/`` and run ``PROBE_SRC=build/<tree>/src python3
+   tests/sm90/probe.py cells`` and this tree's, alternating.
+
+Each step prints its result and goes on when one fails (the exit code
+is then 1); ``chip_smoke.py``
 is the full check.  Needs a CUDA card; imports nothing of JAX.
 """
 import ctypes
@@ -33,7 +49,7 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.environ.get("PROBE_SRC", os.path.join(ROOT, "src")))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -46,6 +62,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 DEV = torch.device("cuda")
 
 
+FAILED = []
+
+
 def step(name, fn):
     t0 = time.time()
     try:
@@ -53,16 +72,18 @@ def step(name, fn):
         print(f"== {name} ok ({time.time() - t0:.1f} s)", flush=True)
     except Exception:
         print(f"== {name} FAILED", flush=True)
+        FAILED.append(name)
         traceback.print_exc()
         sys.stdout.flush()
 
 
 def builds():
-    for src in ("flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu",
-                "flash_attention.cu", "flash_attention_bwd.cu", "rglru.cu"):
-        _, log = build.build(src)
+    logs = build.build_all()
+    for src, log in logs.items():
+        print(src, "nvcc", build.nvcc_seconds(log), "s", flush=True)
         for name, line in build.ptxas_report(log).items():
-            print(src, name[-60:], line, flush=True)
+            if src != "tick_loop.cu" or "grouped" in name:
+                print(src, name[-60:], line, flush=True)
         print("\n".join(x for x in log.splitlines() if "arning" in x))
         if "sm90" in src:
             print(src, "HGMMA", build.hgmma_count(src), flush=True)
@@ -153,9 +174,57 @@ def bwd():
 
 
 def rglru():
+    import importlib
+
     from repro_torch.kernels.rglru import (rglru_bwd_ref, rglru_ref,
                                            rglru_scan, rglru_scan_bwd)
 
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    mod = importlib.import_module("repro_torch.kernels.rglru.rglru")
+    g = torch.Generator().manual_seed(5)
+    bad = []
+    plan = mod.kernel_plan
+    for B, T, C, dt in [(1, 1, 2560, torch.float32),
+                        (8, 1, 2560, torch.bfloat16),
+                        (1, 200, 2560, torch.float32),
+                        (2, 4096, 2560, torch.float32),
+                        (8, 2048, 2560, torch.float32),
+                        (1, 2048, 2560, torch.float32),
+                        (2, 300, 100, torch.bfloat16),
+                        (2, 2048, 2560, torch.bfloat16)]:
+        a = (torch.rand(B, T, C, generator=g) * 0.1 + 0.9).to(DEV, dt)
+        b = torch.randn(B, T, C, generator=g).to(DEV, dt)
+        want = rglru_ref(a, b)
+        for force in (None, "direct", 16, 32):
+            orig = mod.kernel_plan
+            if force is not None:
+                w0, t0 = orig(a, b, torch.empty_like(a), 132)
+                mod.kernel_plan = (
+                    (lambda *x: (w0, False)) if force == "direct"
+                    else (lambda *x, f=force: (f, t0)))
+            try:
+                h = rglru_scan(a, b)
+                torch.cuda.synchronize()
+                ms = median_ms(lambda: rglru_scan(a, b))
+                dev_ms = cs.kernel_device_ms(lambda: rglru_scan(a, b))
+            finally:
+                mod.kernel_plan = orig
+            nbytes = 3 * a.numel() * a.element_size()
+            bad += [] if torch.equal(h, want) else [(B, T, C, dt, force)]
+            print("rglru fwd", (B, T, C, dt), "plan",
+                  plan(a, b, torch.empty_like(a), 132),
+                  "forced", force, "bit-equal", torch.equal(h, want),
+                  f"{ms:.4f} ms (events), {dev_ms} ms (device, 20 calls "
+                  f"queued), bound "
+                  f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
+    # a strided a: a channel slice of a wider tensor
+    a = (torch.rand(2, 300, 2568, generator=g) * 0.1 + 0.9).to(DEV)[..., :2560]
+    b = torch.randn(2, 300, 2560, generator=g).to(DEV)
+    print("rglru fwd strided a, plan", plan(a, b, torch.empty_like(a), 132),
+          "bit-equal",
+          torch.equal(rglru_scan(a, b), rglru_ref(a, b)), flush=True)
     g = torch.Generator().manual_seed(4)
     for B, T, C, dt in [(1, 1, 2560, torch.float32),
                         (2, 200, 2560, torch.float32),
@@ -177,6 +246,8 @@ def rglru():
             print("time rglru bwd", (B, T, C),
                   f"{median_ms(lambda: rglru_scan_bwd(a, h, gr)):.4f} ms",
                   flush=True)
+        bad += [] if torch.equal(h, rglru_ref(a, b)) else [(B, T, C, dt)]
+    assert not bad, f"not bit-equal: {bad}"
 
 
 def median_ms(fn, reps=5):
@@ -218,14 +289,91 @@ def timing():
                   flush=True)
 
 
+def tick():
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from repro_torch import api
+    from repro_torch.core import tickstate
+    from repro_torch.kernels import tick_loop as tl
+
+    for name, cells in (("fig2", cs.fig2_scenarios()),
+                        ("fig_dvfs", cs.fig_dvfs_scenarios()),
+                        ("greendataflow", cs.greendataflow_scenarios())):
+        scs = [sc for _, sc in cells]
+        tl.tick_loop.launches = 0
+        _, runs = api.run_groups(scs, device=DEV)
+        torch.cuda.synchronize()
+        launches = tl.tick_loop.launches
+        grs = cs.groups_on_card(scs, DEV)
+        own = [cs.call(tl.tick_loop, k, r) for k, r in grs]
+        same = 0
+        for run, (k, _), (f32, i32, m) in zip(runs, grs, own):
+            lay = tickstate.TickLayout(k.n_partitions)
+            got = (*lay.pack_state(run.sim, run.ts), *run.metrics)
+            want = (f32, i32, *m._replace(done=m.done != 0))
+            same += all(torch.equal(x, y) for x, y in zip(got, want))
+        rows = cs.grouped_rows_on_card(scs, DEV)
+        kernel_ms = median_ms(lambda: tl.tick_loop_grouped(rows))
+        if name == "fig2":
+            for k, r in grs:
+                own = median_ms(lambda: cs.call(tl.tick_loop, k, r), 3)
+                print(f"tick fig2 group {r[1].shape[0]}x{r[1].shape[1]} "
+                      f"P{k.n_partitions} {k.ctrl_code.name}: own launch "
+                      f"{own:.3f} ms", flush=True)
+        sweep_ms = median_ms(lambda: api.run_groups(scs, device=DEV))
+        own_ms = median_ms(lambda: [cs.call(tl.tick_loop, k, r)
+                                    for k, r in grs])
+        assert launches == 1 and same == len(grs), (name, launches, same)
+        print(f"tick {name}: {len(grs)} groups, {launches} launch(es); "
+              f"{same}/{len(grs)} groups bit-equal to their own launch; "
+              f"the sweep's launch {kernel_ms:.3f} ms, own launches "
+              f"{own_ms:.3f} ms; run_groups {sweep_ms:.3f} ms (host prep "
+              f"included)", flush=True)
+
+
+def cells():
+    """Kernel 1 on the one-group cells and the RUN_GOLDEN cells, each
+    batch in a launch of its own (``tick_loop.tick_loop``), with the
+    ``repro_torch`` that ``PROBE_SRC`` names: run it on two trees in one
+    call to compare their kernels."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from repro_torch import api
+    from repro_torch.kernels import tick_loop as tl
+
+    print("cells: repro_torch from", os.path.dirname(
+        os.path.dirname(tl.__file__)), flush=True)
+    env_d = api.make_environment("dvfs", **cs.DVFS_TUNE)
+    learned_p, _ = cs.golden_learned()
+    for name, scs in (("tune", cs.tune_scenarios(executor="cuda")),
+                      ("dvfs-tune", cs.tune_scenarios(executor="cuda",
+                                                      environment=env_d)),
+                      ("learned-tune", cs.tune_scenarios(
+                          executor="cuda", learned=learned_p))):
+        (k, r), = cs.groups_on_card(scs, DEV)
+        ms = [median_ms(lambda: cs.call(tl.tick_loop, k, r))
+              for _ in range(3)]
+        print(f"cells {name}: {r[1].shape[0]} lanes P{k.n_partitions}: "
+              f"{' '.join(f'{t:.3f}' for t in ms)} ms (three medians of 5)",
+              flush=True)
+    grs = cs.groups_on_card(list(cs.golden_scenarios("cuda").values()),
+                            DEV)
+    ms = [median_ms(lambda: [cs.call(tl.tick_loop, k, r) for k, r in grs])
+          for _ in range(3)]
+    print(f"cells RUN_GOLDEN: {sum(r[1].shape[0] for _, r in grs)} cells "
+          f"in {len(grs)} groups, a launch each: "
+          f"{' '.join(f'{t:.3f}' for t in ms)} ms for all (three medians "
+          f"of 5)", flush=True)
+
+
+STEPS = {"build": builds, "probe": probe, "fwd": fwd, "bwd": bwd,
+         "rglru": rglru, "timing": timing, "tick": tick, "cells": cells}
+
 if __name__ == "__main__":
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    step("build", builds)
-    step("probe", probe)
-    step("fwd", fwd)
-    step("bwd", bwd)
-    step("rglru", rglru)
-    step("timing", timing)
+    for name in sys.argv[1:] or [s for s in STEPS if s != "cells"]:
+        step(name, STEPS[name])
+    sys.exit(1 if FAILED else 0)

@@ -69,3 +69,25 @@ def test_tuned_fetcher_produces_and_tunes():
     assert stats.energy_j > 0
     for _, workers, cores, freq_idx in f.trajectory:
         assert 1 <= workers <= 16 and cores >= 1 and freq_idx >= 0
+
+
+def test_tuned_fetcher_joins_its_threads_on_close():
+    """Closing the batches generator stops the fetcher and joins its
+    control thread and every worker: a thread left inside torch when the
+    interpreter exits aborts the process.  A second stop() returns."""
+    f = TunedFetcher(SyntheticSource(100, 4096),
+                     SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.05,
+                         max_ch=8), max_workers=4, depth=2)
+    it = batches(f.source, batch=2, seq=64, tuned=True, fetcher=f)
+    for _ in range(4):
+        next(it)
+    threads = list(f._workers) + [f._ctl]
+    assert len(threads) == 5 and all(t.is_alive() for t in threads)
+    deadline = time.monotonic() + 20.0
+    while not f.trajectory and time.monotonic() < deadline:
+        time.sleep(0.02)                # the control loop has ticked
+    it.close()
+    assert not any(t.is_alive() for t in threads)
+    t0 = time.monotonic()
+    f.stop()
+    assert time.monotonic() - t0 < 0.5

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.api import scenario as S
-from repro_torch.core import engine
+from repro_torch.core import engine, tickstate
 from repro_torch.core import types
 from repro_torch.kernels import tick_loop as tl
 from repro_torch.kernels.flash_attention import (attention_bwd_ref,
@@ -94,6 +94,41 @@ def test_kernel_bit_exact_vs_plain_version_on_the_card(cuda_device):
         b = tl.tick_loop_reference(*args, **kw)
         for x, y in zip([a[0], a[1], *a[2]], [b[0], b[1], *b[2]]):
             assert torch.equal(x, y), key
+
+
+@pytest.mark.gpu
+def test_grouped_kernel_one_launch_per_sweep_on_the_card(cuda_device):
+    """A sweep of many groups (every controller kind, P 1..8, the
+    reference and two other environments) is one launch per partition
+    count among its groups; every group equals the plain version on the
+    group alone bit for bit, final rows and seven traces
+    (``tick_loop.launches`` counts launches, not groups)."""
+    import dataclasses
+
+    envs = [None, chip_smoke.env_smoke_environments()["dvfs hp race"],
+            chip_smoke.env_smoke_environments()["big-little"]]
+    scs = [dataclasses.replace(sc, environment=envs[k % 3], executor="cuda")
+           for k, sc in enumerate(_random_scenarios(
+               np.random.default_rng(1), 48))]
+    n_groups = api.group_count(scs)
+    assert 2 <= n_groups <= tl.MAX_GROUPS
+    before = tl.tick_loop.launches
+    prepared, runs = api.run_groups(scs)
+    torch.cuda.synchronize()
+    _, groups = S._prepare_groups(scs, cuda_device)
+    n_p = len({key.n_partitions for key in groups})
+    assert tl.tick_loop.launches == before + n_p and len(runs) == n_groups
+    for run in runs:
+        inp = S._stack_group(prepared, groups[run.key], cuda_device)
+        prow, f0, i0 = engine.pack_batch(run.key.env_code, inp)
+        f32, i32, m = tl.tick_loop_reference(
+            run.key.ctrl_code, run.key.env_code, run.key.cpu, prow, inp.bw,
+            f0, i0, dt=run.key.dt, ctrl_every=run.key.ctrl_every)
+        lay = tickstate.TickLayout(run.key.n_partitions)
+        got = (*lay.pack_state(run.sim, run.ts), *run.metrics)
+        want = (f32, i32, *m._replace(done=m.done != 0))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), run.key
 
 
 @pytest.mark.gpu

@@ -4,7 +4,8 @@ backward kernel's reverse scan) through its plain versions against
 ``jax.vjp`` of the JAX package's associative scan and of its model's
 ``rg_lru``; ``gradcheck`` of the plain pair in float64; and
 ``csrc/rglru.cu``'s two kernels built by g++ for the host
-(tests/tick_host/rglru_harness.cpp), bit-equal to the plain versions.
+(tests/tick_host/rglru_harness.cpp on the sm90 emulator), bit-equal to the
+plain versions.
 
 Tolerances, float32, as a share of each gradient's largest magnitude:
 the scan's gradients 2e-6 (measured 1.9e-7), the model's rg_lru
@@ -14,11 +15,7 @@ whose tree sums in another order than the sequential reverse recurrence
 (ROADMAP queue 3), and the gate and decay gradients sum the scan's over B
 and T.  The host build: bit for bit.
 """
-import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +34,10 @@ from repro_torch.kernels.rglru import (RGLRUScan, rglru, rglru_bwd_ref,
 from repro_torch.models import rglru as TR
 from repro_torch.tree import leaves_with_paths
 
+from torch_parity import build_rglru_host, rglru_host_call
+
 SCAN_TOL = 2e-6
 MODEL_TOL = 1e-5
-HOST_DIR = __file__.rsplit("/", 1)[0] + "/tick_host"
 
 
 def _inputs(seed, B, T, C):
@@ -166,42 +164,24 @@ def test_build_instances():
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    fn = build_rglru_host(tmp_path_factory.mktemp("rglru_host"))
+    if fn is None:
         pytest.skip("needs g++ to build rglru.cu for the host")
-    d = tmp_path_factory.mktemp("rglru_host")
-    src = (build.CSRC / "rglru.cu").read_text()
-    src = src[:src.index("template <typename T>\nint launch(")]
-    src = re.sub(r'#include [<"].*[>"]\n', "", src)
-    (d / "rglru_cut.inc").write_text(f"namespace rg {{\n{src}\n}}}}\n")
-    lib = d / "rglru_host.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", f"-I{HOST_DIR}", f"-I{d}", "-o",
-                    str(lib), f"{HOST_DIR}/rglru_harness.cpp"],
-                   check=True, capture_output=True, timeout=300)
-    fn = ctypes.CDLL(str(lib)).rglru_host
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)])
-    fn.restype = None
     return fn
 
 
 def _host(fn, bwd, xs, outs):
-    B, T, C = xs[0].shape
-    dtype = 0 if xs[0].dtype == torch.float32 else 1
-    st = [x.stride(i) for x in (*xs, *outs) for i in (0, 1)]
-    ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
-    fn(bwd, dtype, *ptrs, outs[0].data_ptr(),
-       outs[1].data_ptr() if len(outs) > 1 else None, B, T, C,
-       (ctypes.c_longlong * len(st))(*st))
+    rglru_host_call(fn, int(bwd), xs, outs)
 
 
 @pytest.mark.parametrize("B,T,C", [(2, 37, 300), (1, 1, 128), (3, 64, 96)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_host_build_equals_plain_versions(host_lib, B, T, C, dtype):
-    """Forward and backward kernel, ragged T (not a multiple of the
-    unrolled 8) and C (not of the 128-thread block), bit for bit; the
-    backward reads a strided g."""
+    """Forward (its direct path) and backward kernel, ragged T (not a
+    multiple of the unrolled 8) and C (not of the forward's 32-channel or
+    the backward's 128-thread block), bit for bit; the backward reads a
+    strided g.  tests/test_torch_rglru_sm90.py runs the forward's TMA
+    ring."""
     a, b, g = (torch.from_numpy(x).to(dtype) for x in _inputs(T, B, T, C))
     h = torch.empty_like(a)
     _host(host_lib, 0, (a, b), (h,))

@@ -118,9 +118,11 @@ def test_build_flags_and_instances():
     flags = build.SOURCE_FLAGS["rglru.cu"]
     assert "-fmad=false" in flags and "-ftz=true" not in flags
     assert build.rglru_instance(
-        "_ZN12_GLOBAL__N_112rglru_kernelIfEEvPKT_S3_PS1_iixxxxxx") == \
-        "float32"
+        "_ZN12_GLOBAL__N_112rglru_kernelIfLi32EEEv14CUtensorMap_stS1_PKT_"
+        "S4_PS2_iixxxxxxi") == ("float32", 32)
     assert build.rglru_instance(
-        "_ZN12_GLOBAL__N_112rglru_kernelI13__nv_bfloat16EEvPKT_") == \
-        "bfloat16"
+        "_ZN12_GLOBAL__N_112rglru_kernelI13__nv_bfloat16Li16EEEv14CUtensor"
+        "Map_st") == ("bfloat16", 16)
+    assert build.rglru_instance(
+        "_ZN12_GLOBAL__N_112rglru_kernelIfEEvPKT_S3_PS1_iixxxxxx") is None
     assert build.rglru_instance("wkv_kernelIffE") is None

@@ -285,22 +285,22 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_ptxas_report_parsing():
+    name3 = "_ZN4tick24tick_loop_grouped_kernelILi3EEEvNS_10GroupTableE"
     log = "\n".join([
-        "ptxas info    : Compiling entry function "
-        "'_ZN4tick16tick_loop_kernelILi3ELi1ELb1EEEvNS_4ArgsE' for 'sm_90a'",
-        "ptxas info    : Function properties for "
-        "_ZN4tick16tick_loop_kernelILi3ELi1ELb1EEEvNS_4ArgsE",
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 72 registers, used 0 barriers, 560 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{name3}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name3}",
+        "    544 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 236 registers, used 1 barriers, "
+        "31216 bytes cmem[0]",
     ])
     report = build.ptxas_report(log)
     (name, line), = report.items()
-    assert build.tick_loop_instance(name) == (3, tl.KIND_EEMT, True)
-    assert build.tick_loop_env_instance(name) is None
-    assert "72 registers" in line and "0 bytes spill stores" in line
-    env = "_ZN4tick20tick_loop_env_kernelILi8ELi4ELb0EEEvNS_4ArgsE"
-    assert build.tick_loop_env_instance(env) == (8, tl.KIND_STATIC, False)
-    assert build.tick_loop_instance(env) is None
+    assert build.tick_loop_grouped_instance(name) == 3
+    assert "236 registers" in line and "0 bytes spill stores" in line
+    assert build.tick_loop_grouped_instance(
+        "_ZN4tick24tick_loop_grouped_kernelILi8EEEvNS_10GroupTableE") == 8
+    assert build.tick_loop_grouped_instance(
+        "_ZN5rglru12rglru_kernelIfLi32EEEv") is None
 
 
 def test_build_flags_pin_the_numerics():

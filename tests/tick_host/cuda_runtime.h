@@ -23,6 +23,7 @@ inline thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __global__
 #define __launch_bounds__(x)
 #define __shared__
+#define __grid_constant__
 
 void __syncthreads();
 

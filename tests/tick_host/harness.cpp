@@ -1,7 +1,9 @@
 // csrc/tick_loop.cu on the CPU: the whole source, launched through a
 // cudaLaunchKernel that walks the grid block by block, each block's threads
 // as std::threads meeting at __syncthreads, with subnormals flushed
-// (FTZ | DAZ, as -ftz=true) in every thread.  Build (see
+// (FTZ | DAZ, as -ftz=true) in every thread.  The launch
+// (tick_loop_grouped_launch, its descriptors filled by
+// tick_loop_set_group) runs its blocks one after another.  Build (see
 // tests/test_torch_tick_loop_host.py):
 //   g++ -std=c++17 -O1 -ffp-contract=off -shared -fPIC -pthread \
 //       -I tests/tick_host -I src/repro_torch/kernels/csrc \
@@ -46,47 +48,45 @@ Barrier* g_barrier = nullptr;
 
 void __syncthreads() { g_barrier->wait(); }
 
+// Runs one block's threads as std::threads meeting at __syncthreads.
+template <typename A>
+void run_block(void (*kernel)(A), const A& args, dim3 grid, dim3 block,
+               unsigned b, unsigned csr) {
+  Barrier barrier(block.x);
+  g_barrier = &barrier;
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < block.x; ++t) {
+    threads.emplace_back([=, &args] {
+      _mm_setcsr(csr);
+      blockDim = block;
+      gridDim = grid;
+      blockIdx = dim3(b);
+      threadIdx = dim3(t);
+      kernel(args);
+    });
+  }
+  for (auto& th : threads) th.join();
+}
+
 cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block,
                              void** params, size_t smem, cudaStream_t) {
   if (smem > sizeof(tick::policy_smem)) return cudaErrorInvalidValue;
-  auto kernel = reinterpret_cast<void (*)(tick::Args)>(const_cast<void*>(fn));
-  const tick::Args args = *static_cast<tick::Args*>(params[0]);
   const unsigned csr = _mm_getcsr();
-  for (unsigned b = 0; b < grid.x; ++b) {
-    Barrier barrier(block.x);
-    g_barrier = &barrier;
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block.x; ++t) {
-      threads.emplace_back([=] {
-        _mm_setcsr(csr);
-        blockDim = block;
-        gridDim = grid;
-        blockIdx = dim3(b);
-        threadIdx = dim3(t);
-        kernel(args);
-      });
-    }
-    for (auto& th : threads) th.join();
-  }
+  auto kernel =
+      reinterpret_cast<void (*)(tick::GroupTable)>(const_cast<void*>(fn));
+  const auto& table = *static_cast<tick::GroupTable*>(params[0]);
+  for (unsigned b = 0; b < grid.x; ++b)
+    run_block(kernel, table, grid, block, b, csr);
   return cudaSuccess;
 }
 
-// tick_loop_launch's signature, under FTZ | DAZ.
-extern "C" int host_tick_loop_launch(
-    int p, int kind, int scaling, const void* prow, const void* bw,
-    const void* f0, const void* i0, void* fout, void* iout, void* tput,
-    void* power, void* load, void* nch, void* cores, void* freq, void* done,
-    int n_lanes, int n_steps, int ctrl_every, float dt,
-    const float* cpu_consts, int n_freq, int num_cores, const int* env_codes,
-    const float* env_consts, const void* env_bins, const void* policy,
-    const int* widths, int n_layers, void* stream) {
+// tick_loop_grouped_launch's signature, under FTZ | DAZ; its blocks run
+// one after another.
+extern "C" int host_tick_loop_grouped_launch(int p, const void* groups,
+                                             int n_groups, void* stream) {
   const unsigned csr = _mm_getcsr();
   _mm_setcsr(csr | 0x8040);
-  const int err = tick_loop_launch(
-      p, kind, scaling, prow, bw, f0, i0, fout, iout, tput, power, load, nch,
-      cores, freq, done, n_lanes, n_steps, ctrl_every, dt, cpu_consts, n_freq,
-      num_cores, env_codes, env_consts, env_bins, policy, widths, n_layers,
-      stream);
+  const int err = tick_loop_grouped_launch(p, groups, n_groups, stream);
   _mm_setcsr(csr);
   return err;
 }

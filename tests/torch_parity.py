@@ -1,7 +1,12 @@
 """Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py):
 JAX-side oracles and converters between the two packages' scenarios.  Data
 crosses between the packages as numpy; JAX stays on the CPU."""
+import ctypes
 import dataclasses
+import os
+import re
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -145,3 +150,51 @@ def summary(f32, done, prep):
     moved = float(f32[lay.off_bytes])
     return (completed, t, energy, moved / max(t, 1e-9),
             energy / max(t, 1e-9))
+
+
+def build_rglru_host(tmp_dir):
+    """``csrc/rglru.cu``'s kernels built by g++ for the host
+    (tests/tick_host/rglru_harness.cpp on the sm90 emulator, tests/sm90):
+    the ``rglru_host`` function of the library, or None without g++."""
+    from repro_torch.kernels import build
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = (build.CSRC / "rglru.cu").read_text()
+    src = src[:src.index("template <typename T>\nint launch(")]
+    src = re.sub(r'#include [<"].*[>"]\n', "", src)
+    src = src.replace("extern __shared__ uint8_t smem_raw[];",
+                      "using ::smem_raw;")
+    (tmp_dir / "rglru_cut.inc").write_text(f"namespace rg {{\n{src}\n}}}}\n")
+    lib = tmp_dir / "rglru_host.so"
+    # Hidden, non-unique symbols: the emulator's inline globals
+    # (threadIdx, ...) must not bind to those of another host build loaded
+    # in the same process (tests/tick_host/harness.cpp's).
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-fno-strict-aliasing", "-fvisibility=hidden",
+                    "-fno-gnu-unique", "-shared", "-fPIC", "-pthread",
+                    f"-I{here}/sm90", f"-I{build.CSRC}", f"-I{tmp_dir}",
+                    "-o", str(lib), f"{here}/tick_host/rglru_harness.cpp"],
+                   check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).rglru_host
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rglru_host_call(fn, mode, xs, outs, width=32):
+    """Run the host build: mode 0 the forward's direct path, 2 its TMA
+    ring (``xs`` = a, b; ``outs`` = h), 1 the backward (``xs`` = a, h, g;
+    ``outs`` = da, db); ``width`` the forward block's channels."""
+    B, T, C = xs[0].shape
+    dtype = 0 if xs[0].dtype.itemsize == 4 else 1
+    st = [x.stride(i) for x in (*xs, *outs) for i in (0, 1)]
+    ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
+    err = fn(mode, dtype, *ptrs, outs[0].data_ptr(),
+             outs[1].data_ptr() if len(outs) > 1 else None, B, T, C,
+             (ctypes.c_longlong * len(st))(*st), width)
+    assert err == 0
