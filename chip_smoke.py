@@ -101,9 +101,15 @@ Phases (each prints a line; any failure exits non-zero):
               (B 8 x T 2048, remat, 6 steps): step time, tokens/s, peak
               memory, launches per step, the fetcher's trajectory; then one
               step at B 2 through the kernels and through the plain versions.
-13. wkv     — the WKV kernel vs its plain version at rwkv6-7b's heads (H 64,
-              hd 64; B 1/8; T 1/64/200/2048; r/k/v bf16/f32 with w f32; S0
-              zero or not): y and S_final; times against bound and plain.
+13. wkv     — the WKV kernels vs their plain version at rwkv6-7b's heads
+              (H 64, hd 64; B 1/8; T 1/63/64/65/200/2048; r/k/v bf16 on
+              both routes, the chunked and the step kernel, or f32 with w
+              f32; S0 zero or not; decays of the model and at the extremes
+              exp(-exp(-8)) and exp(-exp(3))): y and S_final; at B 8 and
+              B 1 x T 2,048 and decode every route timed by CUDA events and
+              by device time against its bound (bytes, and the route's own
+              operations; the recurrent form's on the CUDA cores beside it)
+              and plain.
 14. rglru   — the RG-LRU kernel vs its plain version, bit for bit (C 2560;
               B 1/2/8; T 1/200/2048/4096; f32, bf16 at B 2 x T 200; a C not
               a multiple of the block width; a strided a), each timed by
@@ -119,7 +125,8 @@ Phases (each prints a line; any failure exits non-zero):
               ring of 2,048 wraps), launches per prefill and decode step,
               prefill and decode tokens/s, peak memory; the prefill's
               logits through the kernels and through the plain versions,
-              each against the float32 prefill of the same weights.
+              each against the float32 prefill of the same weights; the
+              WKV launches by route (the prefill's chunked, decode's step).
 19. recurrent train — recurrentgemma-2b training: (a) the backward
               kernels at its heads (MQA 10/1 of 256; B 1/2; T 200/2,048/
               4,096; window 0/2,048; bf16 wgmma / f32 FMA) vs their plain
@@ -127,9 +134,11 @@ Phases (each prints a line; any failure exits non-zero):
               times at B 2 x T 4,096 against bound, plain version, SDPA's
               backward with the window mask and (bf16) SDPA's flash
               backward, causal over all T, and the bf16 forward there
-              beside SDPA's; (b) the RG-LRU backward kernel, and kernel
-              5's h it reads, vs their plain versions bit for bit (C 2,560;
-              B 1/2; T 1/200/4,096), both timed; (c) two float32 train
+              beside SDPA's; (b) the RG-LRU backward kernel on both of
+              its paths (the TMA ring, the direct path), and kernel 5's h
+              it reads, vs their plain versions bit for bit (C 2,560; B 1/2;
+              T 1/63/65/200/4,096), timed by CUDA events and device time
+              on both paths; (c) two float32 train
               steps at full width cut to 3 layers, B 1 x T 2,176, against
               ``tests/torch_goldens/train_recurrentgemma_2b.json`` (JAX on
               the CPU), attention on the FMA route; (d) bf16 at full width
@@ -2295,8 +2304,20 @@ def phase_serve(dev, tree) -> dict:
 # tolerances, relative to the reference's largest |value| (at least 1):
 # float32 sums in another order with FMA contraction (1e-4); y rounded once
 # to bf16, where a last-bit float32 difference flips a rounding (1e-2).
-WKV_HEADS, WKV_BATCH, WKV_T = 64, (1, 8), (1, 64, 200, 2048)
+WKV_HEADS, WKV_BATCH, WKV_T = 64, (1, 8), (1, 63, 64, 65, 200, 2048)
 WKV_TOL = {"y_float32": 1e-4, "y_bfloat16": 1e-2, "S": 1e-4}
+# ... bf16 cases run on both routes (the wrapper's, and the other forced),
+# and the extreme decays exp(-exp(x)) for x over each range (x = -8: the
+# long memory, ~1 - 3e-4; x = 3: ~2e-9, products underflow within a
+# sub-chunk), at (B, T) of WKV_EXTREME_BT.
+WKV_EXTREME_X = ((-8.0, -8.0), (3.0, 3.0), (-8.0, 3.0))
+WKV_EXTREME_BT = ((1, 2048), (8, 200))
+# Kernel 4's earlier times (the step kernel, the only route before the
+# chunked one; CUDA events, median of 5; PERF.md's kernel table, NVIDIA
+# H100 80GB HBM3, 700 W), printed beside today's.
+WKV_EARLIER_MS = {(8, 2048): "step kernel alone: 1.6068",
+                  (1, 2048): "step kernel alone: 1.4558",
+                  (8, 1): "step kernel alone: 0.0618"}
 # Phase 14: the RG-LRU kernel's cases at recurrentgemma-2b's width.
 RGLRU_C, RGLRU_BATCH, RGLRU_T = 2560, (1, 2, 8), (1, 200, 2048, 4096)
 # Phase 15: the recurrent goldens' tolerance on top-5 logits and norms,
@@ -2320,18 +2341,38 @@ RECURRENT_SERVE = ("rwkv6-7b", "recurrentgemma-2b")
 RECURRENT_SERVE_RATIO = 1.25
 
 
-def wkv_bound(B, H, T, hd, elem_bytes, with_s0):
-    """(bound_ms, bound_by, flops, bytes) of one WKV call: 5 hd^2 float32
+def wkv_chunk_flops(B, H, T, hd):
+    """Tensor-core operations of the chunked route (csrc/wkv.cu,
+    ``wkv_chunk_kernel``) with its bf16 high/low split, per 64-step chunk
+    and head: the inter-chunk product (3 products of 64 x hd x hd), the
+    state's (2), A V (2) and A's three off-diagonal blocks (3 products of
+    64 x 16 x hd each), 2 operations a multiply-add; a partial last chunk
+    counts whole (its rows are computed)."""
+    per_chunk = 2 * 64 * hd * (7 * hd + 9 * 16)
+    return B * H * -(-T // 64) * per_chunk
+
+
+def wkv_bound(B, H, T, hd, elem_bytes, with_s0, route):
+    """(bound_ms, bound_by, flops, bytes, recurrent_ms) of one WKV call by
+    ``route``.  Bytes: r, k, v (and y) in their type and w in float32 read
+    (written) once, u, S0 and S_final once.  Operations: the route's own at
+    its unit's rate, the chunked route's tensor-core products
+    (wkv_chunk_flops) at 989 TFLOP/s, the step route's 5 hd^2 float32
     operations per (b, h, t) (r S, the decay, the outer product and their
-    sums) at the CUDA cores' rate; r, k, v (and y) in their type and w in
-    float32 read (written) once, u, S0 and S_final once."""
-    flops = 5 * hd * hd * B * H * T
+    sums) at the CUDA cores' 67 TFLOP/s.  recurrent_ms is that last figure
+    for any route: the recurrent form on the CUDA cores, kernel 4's bound
+    before the chunked route, printed beside the bound under its own name."""
+    rec_flops = 5 * hd * hd * B * H * T
     nbytes = (4 * elem_bytes + 4) * B * H * T * hd + 4 * H * hd \
         + 4 * B * H * hd * hd * (2 if with_s0 else 1)
-    t_ops = flops / F32_OPS_PER_S * 1e3
+    if route == "chunk":
+        flops, rate = wkv_chunk_flops(B, H, T, hd), BF16_TENSOR_OPS_PER_S
+    else:
+        flops, rate = rec_flops, F32_OPS_PER_S
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
+            else "bytes", flops, nbytes, rec_flops / F32_OPS_PER_S * 1e3)
 
 
 def rglru_bound(B, T, C, elem_bytes, arrays=3, ops=2):
@@ -2347,77 +2388,153 @@ def rglru_bound(B, T, C, elem_bytes, arrays=3, ops=2):
 
 
 def phase_wkv(dev) -> dict:
-    """[13 wkv] kernel 4 vs its plain version at rwkv6-7b's heads, timed at
-    the serving prefill's shape."""
+    """[13 wkv] kernel 4 vs its plain version at rwkv6-7b's heads on both
+    routes (the chunked kernel, the step kernel), at chunk-boundary Ts and
+    extreme decays; timed at the serving prefill's shapes and decode."""
+    import contextlib
+    import importlib
     import itertools
 
     import torch
 
     from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_ref
 
+    t_phase = time.perf_counter()
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(13)
     H, hd = WKV_HEADS, 64
 
-    def inputs(B, T, dt, with_s0):
+    def inputs(B, T, dt, with_s0, x_range=None):
         r, k, v = [(torch.randn(B, T, H, hd, generator=g) * 0.5).to(
             dev, dt).transpose(1, 2) for _ in range(3)]
-        # decays as the model makes them: exp(-exp(w0 + lora)), w0 = -6
-        w = torch.exp(-torch.exp(-6.0 + 2.0 * torch.randn(
-            B, T, H, hd, generator=g))).to(dev).transpose(1, 2)
+        if x_range is None:
+            # decays as the model makes them: exp(-exp(w0 + lora)), w0 = -6
+            x = -6.0 + 2.0 * torch.randn(B, T, H, hd, generator=g)
+        else:
+            lo, hi = x_range
+            x = lo + (hi - lo) * torch.rand(B, T, H, hd, generator=g)
+        w = torch.exp(-torch.exp(x)).to(dev).transpose(1, 2)
         u = (torch.randn(H, hd, generator=g) * 0.5).to(dev)
         S0 = ((torch.randn(B, H, hd, hd, generator=g) * 0.2).to(dev)
               if with_s0 else None)
         return r, k, v, w, u, S0
 
-    worst = {"y_float32": 0.0, "y_bfloat16": 0.0, "S": 0.0}
-    n = 0
-    for B, T, dname, with_s0 in itertools.product(
-            WKV_BATCH, WKV_T, ("bfloat16", "float32"), (False, True)):
-        args = inputs(B, T, getattr(torch, dname), with_s0)
+    def plan_of(args):
+        r, k, v, w = args[:4]
+        return mod.wkv_plan(r, k, v, w, torch.empty_like(r), n_sms)
+
+    @contextlib.contextmanager
+    def forced(plan):
+        """The wrapper with its route forced to ``plan`` (None: its own)."""
+        orig = mod.wkv_plan
+        if plan is not None:
+            mod.wkv_plan = lambda *a: plan
+        try:
+            yield
+        finally:
+            mod.wkv_plan = orig
+
+    def errors(args, want):
         y, S = wkv_bhtd(*args)
-        yr, Sr = wkv_ref(*args)
+        yr, Sr = want
         check(y.dtype == yr.dtype, "wkv output dtype")
         ey = float((y.float() - yr.float()).abs().max()) / max(
             1.0, float(yr.float().abs().max()))
         eS = float((S - Sr).abs().max()) / max(1.0, float(Sr.abs().max()))
-        check(ey <= WKV_TOL[f"y_{dname}"] and eS <= WKV_TOL["S"],
-              f"wkv B={B} T={T} {dname} S0={with_s0}: y err {ey}, S err "
-              f"{eS}")
-        worst[f"y_{dname}"] = max(worst[f"y_{dname}"], ey)
-        worst["S"] = max(worst["S"], eS)
-        n += 1
-        del args, y, S, yr, Sr
+        return ey, eS
+
+    worst = {"y_float32": 0.0, "y_bfloat16": 0.0, "S": 0.0}
+    by_route = {"chunk": 0, "step": 0}
+    n = 0
+    cases = [(B, T, dname, with_s0, None) for B, T, dname, with_s0 in
+             itertools.product(WKV_BATCH, WKV_T, ("bfloat16", "float32"),
+                               (False, True))]
+    cases += [(B, T, "bfloat16", True, x) for (B, T), x in
+              itertools.product(WKV_EXTREME_BT, WKV_EXTREME_X)]
+    for B, T, dname, with_s0, x_range in cases:
+        args = inputs(B, T, getattr(torch, dname), with_s0, x_range)
+        want = wkv_ref(*args)
+        own = plan_of(args)
+        plans = [None]
+        if dname == "bfloat16":   # the other route too
+            plans.append(("step", 64) if own[0] == "chunk" else
+                         ("chunk", 32))
+        for plan in plans:
+            route = (plan or own)[0]
+            with forced(plan):
+                ey, eS = errors(args, want)
+            check(ey <= WKV_TOL[f"y_{dname}"] and eS <= WKV_TOL["S"],
+                  f"wkv B={B} T={T} {dname} S0={with_s0} decays "
+                  f"{x_range or 'model'} {route} route: y err {ey}, S err "
+                  f"{eS}")
+            worst[f"y_{dname}"] = max(worst[f"y_{dname}"], ey)
+            worst["S"] = max(worst["S"], eS)
+            by_route[route] += 1
+            n += 1
+        del args, want
     torch.cuda.synchronize()
     print(f"[13 wkv] kernel == plain version on {n} cases (H {H}, hd {hd}; "
-          f"B {WKV_BATCH}; T {WKV_T}; r/k/v bf16 or f32, w f32; S0 zero or "
-          f"not): max err / max(1, max |ref|) y bf16 "
-          f"{worst['y_bfloat16']:.3g} (tol {WKV_TOL['y_bfloat16']}), y f32 "
-          f"{worst['y_float32']:.3g} (tol {WKV_TOL['y_float32']}), S_final "
-          f"{worst['S']:.3g} (tol {WKV_TOL['S']})", flush=True)
+          f"B {WKV_BATCH}; T {WKV_T}; r/k/v bf16 (both routes) or f32, w "
+          f"f32; S0 zero or not; decays exp(-exp(x)) of the model and over "
+          f"x in {WKV_EXTREME_X} at {WKV_EXTREME_BT}; {by_route['chunk']} "
+          f"on the chunked route, {by_route['step']} on the step route): "
+          f"max err / max(1, max |ref|) y bf16 {worst['y_bfloat16']:.3g} "
+          f"(tol {WKV_TOL['y_bfloat16']}), y f32 {worst['y_float32']:.3g} "
+          f"(tol {WKV_TOL['y_float32']}), S_final {worst['S']:.3g} (tol "
+          f"{WKV_TOL['S']})", flush=True)
+
     out = {}
-    for B, T, dname in ((8, 2048, "bfloat16"), (1, 2048, "bfloat16"),
-                        (8, 1, "bfloat16")):
+    for B, T in ((8, 2048), (1, 2048), (8, 1)):
         with_s0 = T == 1
-        args = inputs(B, T, getattr(torch, dname), with_s0)
-        ms = time_cuda(lambda: wkv_bhtd(*args), 5)
+        args = inputs(B, T, torch.bfloat16, with_s0)
+        own = plan_of(args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wkv_ref(*args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        bound_ms, bound_by, flops, nbytes = wkv_bound(B, H, T, hd, 2,
-                                                      with_s0)
-        print(f"[13 wkv] rwkv6-7b heads {dname} B={B} T={T}"
-              f"{' (decode, from a state)' if with_s0 else ''}: kernel "
-              f"{ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({flops} FLOP at 67 TFLOP/s float32, {nbytes} "
-              f"B); x bound {ms / bound_ms:.1f}; plain {plain_ms:.1f} ms "
-              f"(one run); library call: none", flush=True)
-        out[(B, T)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+        variants = [None]
+        if T > 1:
+            variants += [("chunk", nj) for nj in (64, 32)
+                         if ("chunk", nj) != own] + [("step", 64)]
+        timed = {}
+        for plan in variants:
+            route, nj = plan or own
+            with forced(plan):
+                ms = time_cuda(lambda: wkv_bhtd(*args), 5)
+                dev_ms = kernel_device_ms(lambda: wkv_bhtd(*args))
+            bound_ms, bound_by, flops, nbytes, rec_ms = wkv_bound(
+                B, H, T, hd, 2, with_s0, route)
+            timed[f"{route}/{nj}"] = dict(ms=ms, device_ms=dev_ms,
+                                          bound_ms=bound_ms,
+                                          bound_by=bound_by)
+            dev_txt = ("device time not measured" if dev_ms is None else
+                       f"{dev_ms:.4f} ms of device time (20 calls queued; "
+                       f"x bound {dev_ms / bound_ms:.2f})")
+            which = "the wrapper's plan" if plan is None else "forced"
+            print(f"[13 wkv] rwkv6-7b heads bf16 B={B} T={T}"
+                  f"{' (decode, from a state)' if with_s0 else ''}: "
+                  f"{route} route, {nj} columns a block ({which}): "
+                  f"{ms:.4f} ms (CUDA events, median of 5), {dev_txt}; "
+                  f"bound {bound_ms:.4f} ms by {bound_by} ({flops} FLOP at "
+                  f"{'989' if route == 'chunk' else '67'} TFLOP/s, {nbytes} "
+                  f"B at 3.35 TB/s); the recurrent form's operations at 67 "
+                  f"TFLOP/s {rec_ms:.4f} ms; earlier "
+                  f"{WKV_EARLIER_MS[(B, T)]}; plain {plain_ms:.1f} ms (one "
+                  f"run); library call: none", flush=True)
+        key = f"{own[0]}/{own[1]}"
+        out[(B, T)] = dict(timed[key], plain_ms=plain_ms, route=own[0],
+                           columns=own[1], recurrent_bound_ms=wkv_bound(
+                               B, H, T, hd, 2, with_s0, own[0])[4],
+                           variants=timed)
         del args
-    res = dict(out[(8, 2048)])
+    res = {k: out[(8, 2048)][k] for k in ("ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
     res["max_abs_err"] = max(worst.values())
+    res["shapes"] = {f"B{B} T{T}": v for (B, T), v in out.items()}
+    print(f"[13 wkv] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return res
 
 
@@ -2701,8 +2818,10 @@ def phase_recurrent_serve(dev, arch) -> dict:
         0, cfg.vocab_size, (B, T)), device=dev)
 
     # generate: the main path, launches counted from 0
+    from repro_torch.kernels.rwkv6 import wkv_bhtd
     for fn in KERNELS.values():
         fn.launches = 0
+    wkv_bhtd.route_launches = {"chunk": 0, "step": 0}
     reset_attention_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2712,6 +2831,13 @@ def phase_recurrent_serve(dev, arch) -> dict:
     torch.cuda.synchronize()
     gen_wall = time.perf_counter() - t0
     gen_launches = launch_counts()
+    wkv_routes = dict(wkv_bhtd.route_launches)
+    # the prefill's WKV launches by the chunked kernel, decode's by steps
+    want_routes = {"chunk": want_prefill["wkv"],
+                   "step": (N - 1) * want_decode["wkv"]}
+    check(wkv_routes == want_routes,
+          f"{arch} generate's WKV launches by route {wkv_routes}, not "
+          f"{want_routes}")
     check_bf16_route(f"{arch} generate")
     gen_peak = torch.cuda.max_memory_allocated()
     check(tuple(toks.shape) == (B, N), f"generate returned {toks.shape}")
@@ -2793,7 +2919,8 @@ def phase_recurrent_serve(dev, arch) -> dict:
     print(f"[16 recurrent serve] {arch} bf16, {cfg.num_layers} layers, "
           f"weights drawn on the card in {draw_s:.1f} s ({resident} B): "
           f"generate {B} x {T} prompt + {N} new tokens, wall "
-          f"{gen_wall:.3f} s, launches {gen_launches}; prefill "
+          f"{gen_wall:.3f} s, launches {gen_launches} (WKV by route "
+          f"{wkv_routes}); prefill "
           f"{pre_ms['cuda']:.1f} ms = {B * T / pre_ms['cuda'] * 1e3:.0f} "
           f"tok/s (plain versions {pre_ms['reference']:.1f} ms), launches "
           f"{pre_launches}; decode {step_ms:.2f} ms a step (mean of "
@@ -2807,7 +2934,9 @@ def phase_recurrent_serve(dev, arch) -> dict:
           f"({int(sure.sum())} with a clear top-2 margin)", flush=True)
     del logits, a, b, f
     torch.cuda.empty_cache()
-    return {"launches": gen_launches, "max_abs_err": err["each other"]}
+    return {"launches": gen_launches, "wkv_routes": wkv_routes,
+            "max_abs_err": err["each other"], "prefill_ms": pre_ms["cuda"],
+            "decode_ms": step_ms}
 
 
 # ----------------------------------------------------------------- phases --
@@ -2822,8 +2951,14 @@ def phase_recurrent_serve(dev, arch) -> dict:
 # window of 2,048 among them.
 RG_BWD_BATCH, RG_BWD_T, RG_BWD_WINDOWS = (1, 2), (200, 2048, 4096), (0, 2048)
 # (b) The RG-LRU backward kernel vs its plain version, bit for bit, at
-# C 2,560, and kernel 5's forward h, which it reads, likewise.
-RG_LRU_BWD_BATCH, RG_LRU_BWD_T = (1, 2), (1, 200, 4096)
+# C 2,560, on both of its paths (the TMA ring, the direct path), with T at
+# a float32 tile (64 steps at 32 channels a block) +- 1; and kernel 5's
+# forward h, which it reads, likewise.  Its earlier time (the first design,
+# one thread a channel; PERF.md's kernel table, NVIDIA H100 80GB HBM3,
+# 700 W) is printed beside today's.
+RG_LRU_BWD_T = (1, 63, 65, 200, 4096)
+RG_LRU_BWD_BATCH = (1, 2)
+RG_LRU_BWD_EARLIER = "one thread a channel: 0.8134 ms by CUDA events"
 # (c) The float32 golden (tests/torch_goldens/make_train_golden.py
 # recurrentgemma-2b: full width, 3 of 26 layers, B 1 x T 2,176), held to
 # phase 11's tolerances.
@@ -2970,9 +3105,27 @@ def phase_recurrent_train_kernels(dev) -> dict:
               f"(window mask) {lib_ms:.4f} ms{flash_note}", flush=True)
         del q, k, v, do, o, lse, xs
 
-    # (b) the RG-LRU backward kernel, bit for bit
+    # (b) the RG-LRU backward kernel, bit for bit, on both of its paths
+    import contextlib
+    import importlib
+
+    rg = importlib.import_module("repro_torch.kernels.rglru.rglru")
+
+    @contextlib.contextmanager
+    def path(tma):
+        """The backward with its path forced (None: the wrapper's own)."""
+        orig = rg.bwd_plan
+        if tma is not None:
+            rg.bwd_plan = lambda *x: (orig(*x)[0], tma)
+        try:
+            yield
+        finally:
+            rg.bwd_plan = orig
+
     C = RGLRU_C
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = 0
+    paths = {"ring": 0, "direct": 0}
     for B, T in itertools.product(RG_LRU_BWD_BATCH, RG_LRU_BWD_T):
         a = torch.rand(B, T, C, generator=g, device=dev) * 0.1 + 0.9
         b, gr = (torch.randn(B, T, C, generator=g, device=dev)
@@ -2980,11 +3133,18 @@ def phase_recurrent_train_kernels(dev) -> dict:
         h = rglru_scan(a, b)
         check(torch.equal(h, rglru_ref(a, b)),
               f"[19b] rglru forward B={B} T={T}: kernel != plain version")
-        got = rglru_scan_bwd(a, h, gr)
         want = rglru_bwd_ref(a, h, gr)
-        check(all(torch.equal(x, y) for x, y in zip(got, want)),
-              f"[19b] rglru backward B={B} T={T}: kernel != plain version")
-        n += 1
+        own = rg.bwd_plan(a, h, gr, *want, n_sms)[1]
+        # the ring's cases also run on the direct path, forced
+        for tma in ((None, False) if own else (None,)):
+            with path(tma):
+                got = rglru_scan_bwd(a, h, gr)
+            on = "ring" if own and tma is None else "direct"
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"[19b] rglru backward B={B} T={T} {on} path: kernel != "
+                  f"plain version")
+            paths[on] += 1
+            n += 1
     B, T = RG_TRAIN_B, RG_TRAIN_T
     fwd_ms = time_cuda(lambda: rglru_scan(a, b), 5)
     fwd_dev_ms = kernel_device_ms(lambda: rglru_scan(a, b))
@@ -2995,20 +3155,37 @@ def phase_recurrent_train_kernels(dev) -> dict:
              f"{fwd_dev_ms:.4f} ms of device time (20 calls queued)")
           + f"; bound {fwd_bound:.4f} ms by bytes; earlier "
           f"{RGLRU_EARLIER_MS[(B, T)]}", flush=True)
-    ms = time_cuda(lambda: rglru_scan_bwd(a, h, gr), 5)
     plain_ms = time_cuda(lambda: rglru_bwd_ref(a, h, gr), 2)
     bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4, arrays=5,
                                                     ops=3)
+    width, own = rg.bwd_plan(a, h, gr, *want, n_sms)
+    check(own, f"[19b] the trainer's shape B={B} T={T} takes the ring")
+    timed = {}
+    for on, tma in (("ring", None), ("direct", False)):
+        with path(tma):
+            ms = time_cuda(lambda: rglru_scan_bwd(a, h, gr), 5)
+            dev_ms = kernel_device_ms(lambda: rglru_scan_bwd(a, h, gr))
+        timed[on] = dict(ms=ms, device_ms=dev_ms)
+        dev_txt = ("device time not measured" if dev_ms is None else
+                   f"{dev_ms:.4f} ms of device time (20 calls queued; x "
+                   f"bound {dev_ms / bound_ms:.2f})")
+        print(f"[19 recurrent train] (b) RG-LRU backward, {on} path"
+              f"{'' if tma is None else ' (forced)'}, {width} channels a "
+              f"block, B={B} T={T}: {ms:.4f} ms (CUDA events, median of 5), "
+              f"{dev_txt}; bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B "
+              f"at 3.35 TB/s, {flops} FLOP); earlier {RG_LRU_BWD_EARLIER}",
+              flush=True)
     print(f"[19 recurrent train] (b) RG-LRU backward kernel, and kernel 5's "
-          f"forward h that it reads, == plain versions "
-          f"bit for bit on {n} cases (C {C}; B {RG_LRU_BWD_BATCH}; T "
-          f"{RG_LRU_BWD_T}; f32); B={B} T={T}: kernel {ms:.4f} ms (median "
-          f"of 5); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at 3.35 "
-          f"TB/s, {flops} FLOP); x bound {ms / bound_ms:.1f}; plain "
-          f"{plain_ms:.3f} ms (median of 2); library call: none", flush=True)
-    out["rglru_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+          f"forward h that it reads, == plain versions bit for bit on {n} "
+          f"cases ({paths['ring']} on the TMA ring, {paths['direct']} on "
+          f"the direct path; C {C}; B {RG_LRU_BWD_BATCH}; T {RG_LRU_BWD_T}; "
+          f"f32); plain {plain_ms:.3f} ms (median of 2) at B={B} T={T}; "
+          f"library call: none", flush=True)
+    out["rglru_bwd"] = dict(ms=timed["ring"]["ms"],
+                            device_ms=timed["ring"]["device_ms"],
+                            plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, max_abs_err=0.0,
-                            library_ms=None)
+                            library_ms=None, paths=timed)
     del a, b, gr, h, got, want
     torch.cuda.empty_cache()
     return out
@@ -3264,10 +3441,22 @@ def smoke(dev, tick_only=False, learn_only=False,
                  if hgmma is None else
                  f"{hgmma} HGMMA (wgmma) instructions in its SASS"),
               flush=True)
+    from repro_torch.kernels.rwkv6 import rwkv6 as wkv_mod
     for name, line in build.ptxas_report(logs["wkv.cu"]).items():
         inst = build.wkv_instance(name)
         check(inst is not None, f"unexpected entry {name}")
-        print(f"[2 build] wkv r/k/v {inst[0]}, w {inst[1]}: {line}")
+        w_bytes = 4 if inst[2] == "float32" else 2
+        smem = ("" if inst[0] == "step" else
+                f"; {wkv_mod.chunk_smem_bytes(inst[3], w_bytes)} B dynamic "
+                f"shared memory")
+        print(f"[2 build] wkv {inst[0]} route, r/k/v {inst[1]}, w {inst[2]}, "
+              f"{inst[3]} columns a block: {line}{smem}")
+    hgmma = build.hgmma_count("wkv.cu")
+    check(hgmma != 0, "wkv.cu: no HGMMA instruction in its library")
+    print(f"[2 build] wkv.cu: "
+          + ("cuobjdump not in the toolkit, HGMMA not counted"
+             if hgmma is None else
+             f"{hgmma} HGMMA (wgmma) instructions in its SASS"), flush=True)
     for name, line in build.ptxas_report(logs["rglru.cu"]).items():
         inst = build.rglru_instance(name)
         if inst is not None:
@@ -3277,7 +3466,8 @@ def smoke(dev, tick_only=False, learn_only=False,
             continue
         inst = build.rglru_bwd_instance(name)
         check(inst is not None, f"unexpected entry {name}")
-        print(f"[2 build] rglru_bwd {inst}: {line}")
+        print(f"[2 build] rglru_bwd {inst[0]}, {inst[1]} channels a block "
+              f"(one warp; TMA ring): {line}")
     if recurrent_only:
         phase_recurrent_train(dev)
         print("chip_smoke: recurrent train phases (1-2, 19) passed")
@@ -3631,9 +3821,15 @@ def smoke(dev, tick_only=False, learn_only=False,
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:68",
         "launches": rserve["rwkv6-7b"]["launches"]["wkv"],
+        "launches_by_route": rserve["rwkv6-7b"]["wkv_routes"],
         "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
+        "device_ms": wkv["device_ms"],
         "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
-        "bound_by": wkv["bound_by"], "library_ms": None}, {
+        "bound_by": wkv["bound_by"], "library_ms": None,
+        "note": "ms at B 8 x T 2,048 by the chunked route (wkv_chunk_kernel, "
+                "the prefill's); decode by the step route (wkv_kernel); "
+                "shapes: each shape's route and every route timed",
+        "shapes": wkv["shapes"]}, {
         "name": "rglru", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru/rglru.py:61",
@@ -3653,7 +3849,9 @@ def smoke(dev, tick_only=False, learn_only=False,
         "source": "src/repro_torch/kernels/csrc/rglru.cu",
         "replaces": "src/repro/models/rglru.py:102",
         "note": "the port's own backward of kernel 5: JAX has no Pallas "
-                "backward and differentiates this associative scan in XLA",
+                "backward and differentiates this associative scan in XLA; "
+                "ms at B 2 x T 4,096 on the TMA ring; paths: the ring and "
+                "the direct path",
         "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ subnormals to zero, as XLA does on the CPU and the TPU.  The RG-LRU scan
 is built with ``-fmad=false`` too, and without the flush: it equals its
 plain version (eager PyTorch on the card, which keeps IEEE subnormals) bit
 for bit.  The attention kernels (forward and backward, float32 and bf16)
-and the WKV recurrence claim no bit-exactness, only a stated tolerance
+and the WKV recurrence (both routes) claim no bit-exactness, only a stated tolerance
 against their plain versions, so they keep nvcc's default contraction and
 IEEE subnormals.  No source gets ``--use_fast_math`` (correctly rounded
 division and ``expf`` / ``logf``, as the references have).
@@ -296,16 +296,23 @@ def hgmma_count(source: str):
 
 
 def wkv_instance(name: str):
-    """(dtype of r/k/v, dtype of w) of a mangled ``wkv_kernel`` entry name,
-    each ``"float32"`` or ``"bfloat16"``."""
+    """(route, r/k/v dtype, w dtype, columns a block) of a mangled entry
+    name of ``wkv.cu``: route ``"step"`` (``wkv_kernel``, a block over all
+    64 columns) or ``"chunk"`` (``wkv_chunk_kernel``, bf16 r/k/v), each
+    dtype ``"float32"`` or ``"bfloat16"``."""
+    m = re.search(r"wkv_chunk_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+    if m is not None:
+        return ("chunk", "bfloat16",
+                "float32" if m.group(1) == "f" else "bfloat16",
+                int(m.group(2)))
     m = re.search(r"wkv_kernelI(f|13__nv_bfloat16)(f|S\d*_|13__nv_bfloat16)E",
                   name)
     if m is None:
         return None
     first = "float32" if m.group(1) == "f" else "bfloat16"
     second = m.group(2)
-    return first, (first if second.startswith("S") else
-                   "float32" if second == "f" else "bfloat16")
+    return ("step", first, first if second.startswith("S") else
+            "float32" if second == "f" else "bfloat16", 64)
 
 
 def load_wkv() -> ctypes.CDLL:
@@ -314,6 +321,7 @@ def load_wkv() -> ctypes.CDLL:
     fn = lib.wkv_launch
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.wkv_error_string.argtypes = [ctypes.c_int]
@@ -330,11 +338,12 @@ def rglru_instance(name: str):
 
 
 def rglru_bwd_instance(name: str):
-    """The dtype of a, h and g (``"float32"`` or ``"bfloat16"``) of a
-    mangled ``rglru_bwd_kernel`` entry name."""
-    m = re.search(r"rglru_bwd_kernelI(f|13__nv_bfloat16)E", name)
+    """(dtype of a, h and g, channels a block) of a mangled
+    ``rglru_bwd_kernel`` entry name: dtype ``"float32"`` or
+    ``"bfloat16"``, 16 or 32 channels."""
+    m = re.search(r"rglru_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
     return None if m is None else (
-        "float32" if m.group(1) == "f" else "bfloat16")
+        "float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
 
 
 def load_rglru() -> ctypes.CDLL:
@@ -350,6 +359,7 @@ def load_rglru() -> ctypes.CDLL:
     fn = lib.rglru_bwd_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.rglru_error_string.argtypes = [ctypes.c_int]

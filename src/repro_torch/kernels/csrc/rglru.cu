@@ -47,14 +47,24 @@
 // version (ref.py::rglru_bwd_ref): the kernel equals it bit for bit.  Its
 // bound is bytes: a, h, g read and da, db written, 5 x 4 B x B T C in
 // float32 (at B 2, T 4096, C 2560: 419 MB, 0.125 ms at 3.35 TB/s).  Its
-// design is the first forward's, walked from t = T - 1 down: one thread per
-// (b, c) in blocks of 128, the carry in a register, loads kUnroll steps
-// ahead; the forward's TMA ring is the next step for it.
+// design is the forward's, walked from the last tile down: one warp over
+// W channels of one row, a ring of kStages stages of [Tc x W] tiles of a,
+// h and g brought in by 3-D TMA, Tc = kTileBytes / (W x 4) (the steps of
+// a float32 tile, for either input type).  h's box starts one step early
+// (time coordinate k Tc - 1), so row j of its tile is h_{t-1} for t =
+// k Tc + j, and TMA's zero fill past the tensor's start gives h_{-1} = 0
+// as the plain loop has it.  a_{t+1} is carried across tiles in a
+// register.  da and db go out by one TMA store each a tile: over the h and
+// g tiles they were computed from (float32 inputs), or into two float32
+// tiles of their own (bf16 inputs, whose tiles are half as wide).  A stage
+// is refilled once its stores have read it, as in the forward.  Where TMA
+// cannot address an operand (T = 1; a base address or a batch or time
+// stride not a multiple of 16 bytes; rows that overlap) each lane walks
+// its channel straight from device memory, kUnroll steps of loads ahead,
+// with the same result bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <atomic>
 
 #include "sm90.cuh"
 
@@ -64,13 +74,28 @@ constexpr int kThreads = 32;        // the forward: one warp a block
 constexpr int kStages = 4;          // the forward's TMA ring
 constexpr int kTileBytes = 8192;    // one operand's tile of a stage
 constexpr int kSmem = 2 * kStages * kTileBytes + 128;   // + alignment
-constexpr int kBwdThreads = 128;    // the backward
 constexpr int kUnroll = 8;
 
 // Steps of a stage's tile for W channels of T.
 template <typename T, int W>
 struct Ring {
   static constexpr int kTc = kTileBytes / (W * static_cast<int>(sizeof(T)));
+  static_assert(kTc % kUnroll == 0 && kTc <= 256, "TMA box rows");
+};
+
+// The backward's stage for W channels of input type T: tiles of a, h and g
+// (kIn bytes each), then, for bf16 inputs, float32 tiles of da and db
+// (kTileBytes each); float32 inputs write da and db over h and g.  Tc is
+// a float32 tile's steps for either type.
+template <typename T, int W>
+struct BwdRing {
+  static constexpr int kTc = kTileBytes / (W * 4);
+  static constexpr int kIn = kTc * W * static_cast<int>(sizeof(T));
+  static constexpr bool kInPlace = sizeof(T) == 4;
+  static constexpr int kDa = kInPlace ? kIn : 3 * kIn;
+  static constexpr int kDb = kInPlace ? 2 * kIn : 3 * kIn + kTileBytes;
+  static constexpr int kStage = kInPlace ? 3 * kIn : 3 * kIn + 2 * kTileBytes;
+  static constexpr int kSmem = kStages * kStage + 128;   // + alignment
   static_assert(kTc % kUnroll == 0 && kTc <= 256, "TMA box rows");
 };
 
@@ -202,22 +227,14 @@ rglru_kernel(const __grid_constant__ CUtensorMap ta,
   if (lane == 0) sm90::bulk_wait_all();
 }
 
+// One channel's backward straight from device memory (the direct path).
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ h,
-                 const T* __restrict__ g, float* __restrict__ da,
-                 float* __restrict__ db, int C, int T_len, long long asb,
-                 long long ast, long long hsb, long long hst, long long gsb,
-                 long long gst, long long dasb, long long dast,
-                 long long dbsb, long long dbst) {
-  const int c = blockIdx.x * kBwdThreads + threadIdx.x;
-  const int bi = blockIdx.y;
-  if (c >= C) return;
-  const T* ab = a + bi * asb + c;
-  const T* hb = h + bi * hsb + c;
-  const T* gb = g + bi * gsb + c;
-  float* dab = da + bi * dasb + c;
-  float* dbb = db + bi * dbsb + c;
+__device__ __forceinline__ void bwd_direct(const T* ab, long long ast,
+                                           const T* hb, long long hst,
+                                           const T* gb, long long gst,
+                                           float* dab, long long dast,
+                                           float* dbb, long long dbst,
+                                           int T_len) {
   float lam = 0.0f, a_next = 0.0f;   // lam_{t+1} and a_{t+1}
   for (int t0 = T_len - 1; t0 >= 0; t0 -= kUnroll) {
     float av[kUnroll], gv[kUnroll], hv[kUnroll];
@@ -239,6 +256,119 @@ rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ h,
       }
     }
   }
+}
+
+// Stage q % kStages of the backward's ring: tile k = n_tiles - 1 - q of a
+// and g (steps k Tc ..) and of h one step earlier, on its mbarrier.
+template <typename T, int W>
+__device__ __forceinline__ void load_bwd_stage(uint8_t* ring, uint64_t* full,
+                                               const CUtensorMap* ta,
+                                               const CUtensorMap* th,
+                                               const CUtensorMap* tg, int q,
+                                               int n_tiles, int c0, int bi) {
+  using R = BwdRing<T, W>;
+  const int s = q % kStages;
+  const int t0 = (n_tiles - 1 - q) * R::kTc;
+  uint8_t* st = ring + s * R::kStage;
+  sm90::mbar_expect_tx(&full[s], 3 * R::kIn);
+  sm90::tma_load_3d(st, ta, &full[s], c0, t0, bi);
+  sm90::tma_load_3d(st + R::kIn, th, &full[s], c0, t0 - 1, bi);
+  sm90::tma_load_3d(st + 2 * R::kIn, tg, &full[s], c0, t0, bi);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+rglru_bwd_kernel(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap th,
+                 const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap tda,
+                 const __grid_constant__ CUtensorMap tdb,
+                 const T* __restrict__ a, const T* __restrict__ h,
+                 const T* __restrict__ g, float* __restrict__ da,
+                 float* __restrict__ db, int C, int T_len, long long asb,
+                 long long ast, long long hsb, long long hst, long long gsb,
+                 long long gst, long long dasb, long long dast,
+                 long long dbsb, long long dbst, int tma) {
+  using R = BwdRing<T, W>;
+  constexpr int kTc = R::kTc;
+  const int lane = threadIdx.x;
+  const int bi = blockIdx.y;
+  const int c0 = blockIdx.x * W;
+  const bool live = lane < W && c0 + lane < C;
+  if (!tma) {
+    const int c = c0 + lane;
+    if (live)
+      bwd_direct(a + bi * asb + c, ast, h + bi * hsb + c, hst,
+                 g + bi * gsb + c, gst, da + bi * dasb + c, dast,
+                 db + bi * dbsb + c, dbst, T_len);
+    return;
+  }
+  __shared__ uint64_t full[kStages];
+  uint8_t* ring =
+      smem_raw + ((128 - sm90::smem_u32(smem_raw) % 128) % 128);
+  const int n_tiles = (T_len + kTc - 1) / kTc;
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(&full[s], 1);
+    sm90::fence_barrier_init();
+    for (int q = 0; q < kStages - 1 && q < n_tiles; ++q)
+      load_bwd_stage<T, W>(ring, full, &ta, &th, &tg, q, n_tiles, c0, bi);
+  }
+  __syncwarp();
+  float lam = 0.0f, a_next = 0.0f;   // lam_{t+1} and a_{t+1}
+  for (int q = 0; q < n_tiles; ++q) {
+    const int s = q % kStages;
+    const int k = n_tiles - 1 - q;
+    sm90::mbar_wait(&full[s], (q / kStages) & 1);
+    uint8_t* st = ring + s * R::kStage;
+    const T* at = reinterpret_cast<const T*>(st);
+    const T* ht = reinterpret_cast<const T*>(st + R::kIn);
+    const T* gt = reinterpret_cast<const T*>(st + 2 * R::kIn);
+    float* dat = reinterpret_cast<float*>(st + R::kDa);
+    float* dbt = reinterpret_cast<float*>(st + R::kDb);
+    const int steps = T_len - k * kTc < kTc ? T_len - k * kTc : kTc;
+    if (live) {
+      // Groups of kUnroll steps from the top of the tile (row steps - 1)
+      // down; rows of a group below 0 are skipped.
+      for (int j0 = steps - 1; j0 >= 0; j0 -= kUnroll) {
+        float av[kUnroll], gv[kUnroll], hv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 - u >= 0 ? j0 - u : 0;
+          av[u] = to_f32(at[j * W + lane]);
+          gv[u] = to_f32(gt[j * W + lane]);
+          hv[u] = to_f32(ht[j * W + lane]);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (j0 - u >= 0) {
+            lam = a_next * lam + gv[u];
+            dbt[(j0 - u) * W + lane] = lam;
+            dat[(j0 - u) * W + lane] = lam * hv[u];
+            a_next = av[u];
+          }
+        }
+      }
+    }
+    sm90::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      sm90::tma_store_3d(&tda, dat, c0, k * kTc, bi);
+      sm90::tma_store_3d(&tdb, dbt, c0, k * kTc, bi);
+      sm90::bulk_commit();
+      // Refill the stage of tile q - 1 once its stores have read it (this
+      // tile's may still be reading), as the forward does.
+      const int next = q - 1 + kStages;
+      if (q >= 1 && next < n_tiles) {
+        sm90::bulk_wait_read<1>();
+        load_bwd_stage<T, W>(ring, full, &ta, &th, &tg, next, n_tiles, c0,
+                             bi);
+      } else if (q == 0 && kStages - 1 < n_tiles) {
+        load_bwd_stage<T, W>(ring, full, &ta, &th, &tg, kStages - 1,
+                             n_tiles, c0, bi);
+      }
+    }
+  }
+  if (lane == 0) sm90::bulk_wait_all();
 }
 
 template <typename T, int W>
@@ -272,20 +402,9 @@ int launch_width(const void* a, const void* b, void* h, int B, int T_len,
       const int err = sm90::encode_3d(maps[i], kType, ptrs[i], geom);
       if (err != 0) return err;
     }
-    // The ring's shared memory, allowed once per device (a bit of
-    // `allowed` each): the attribute outlives the launch.
     static std::atomic<unsigned long long> allowed{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    const unsigned long long bit = 1ull << (dev & 63);
-    if (!(allowed.load(std::memory_order_relaxed) & bit)) {
-      e = cudaFuncSetAttribute(rglru_kernel<T, W>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-      if (e != cudaSuccess) return (int)e;
-      allowed.fetch_or(bit, std::memory_order_relaxed);
-    }
+    const int err = sm90::allow_smem(rglru_kernel<T, W>, kSmem, allowed);
+    if (err != 0) return err;
   }
   const dim3 grid((C + W - 1) / W, B);
   rglru_kernel<T, W><<<grid, kThreads, tma ? kSmem : 0, stream>>>(
@@ -295,16 +414,51 @@ int launch_width(const void* a, const void* b, void* h, int B, int T_len,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int W>
+int launch_bwd_width(const void* a, const void* h, const void* g, float* da,
+                     float* db, int B, int T_len, int C, const long long* st,
+                     int tma, cudaStream_t stream) {
+  using R = BwdRing<T, W>;
+  CUtensorMap maps[5] = {};
+  if (tma) {
+    constexpr CUtensorMapDataType kType =
+        sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const void* ptrs[5] = {a, h, g, da, db};
+    for (int i = 0; i < 5; ++i) {
+      const long long es = i < 3 ? (long long)sizeof(T) : 4;
+      const long long geom[8] = {C, T_len, B, st[2 * i + 1] * es,
+                                 st[2 * i] * es, W, R::kTc, 1};
+      const int err = sm90::encode_3d(
+          &maps[i], i < 3 ? kType : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptrs[i],
+          geom);
+      if (err != 0) return err;
+    }
+    static std::atomic<unsigned long long> allowed{0};
+    const int err =
+        sm90::allow_smem(rglru_bwd_kernel<T, W>, R::kSmem, allowed);
+    if (err != 0) return err;
+  }
+  const dim3 grid((C + W - 1) / W, B);
+  rglru_bwd_kernel<T, W><<<grid, kThreads, tma ? R::kSmem : 0, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const T*>(a),
+      static_cast<const T*>(h), static_cast<const T*>(g), da, db, C, T_len,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      tma);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* a, const void* h, const void* g, float* da,
                float* db, int B, int T_len, int C, const long long* st,
-               cudaStream_t stream) {
-  const dim3 grid((C + kBwdThreads - 1) / kBwdThreads, B);
-  rglru_bwd_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(h),
-      static_cast<const T*>(g), da, db, C, T_len, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9]);
-  return (int)cudaGetLastError();
+               int width, int tma, cudaStream_t stream) {
+  if (width == 32)
+    return launch_bwd_width<T, 32>(a, h, g, da, db, B, T_len, C, st, tma,
+                                   stream);
+  if (width == 16)
+    return launch_bwd_width<T, 16>(a, h, g, da, db, B, T_len, C, st, tma,
+                                   stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -333,16 +487,23 @@ int rglru_launch(int dtype, const void* a, const void* b, void* h, int B,
 
 // The backward: dtype (a, h, g): 0 = float32, 1 = bfloat16; da and db
 // float32.  strides: 10 element strides (batch, time) of a, h, g, da, db in
-// that order.  Returns a cudaError_t (0 on success); 1
-// (cudaErrorInvalidValue) for a dtype without an instantiation.
+// that order.  width: the channels of a block, 16 or 32.  tma: 1 streams a,
+// h and g in and da and db out by TMA (base addresses and the batch and
+// time strides of all five 16-byte aligned), 0 takes the direct path.
+// Returns a cudaError_t (0 on success; 1, cudaErrorInvalidValue, for a
+// dtype or width without an instantiation), or sm90.cuh's tensor-map error
+// codes.
 int rglru_bwd_launch(int dtype, const void* a, const void* h, const void* g,
                      float* da, float* db, int B, int T, int C,
-                     const long long* strides, void* stream) {
+                     const long long* strides, int width, int tma,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(a, h, g, da, db, B, T, C, strides, s);
+    return launch_bwd<float>(a, h, g, da, db, B, T, C, strides, width, tma,
+                             s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(a, h, g, da, db, B, T, C, strides, s);
+    return launch_bwd<__nv_bfloat16>(a, h, g, da, db, B, T, C, strides,
+                                     width, tma, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -53,6 +53,24 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _plan(xs, n_sms: int) -> tuple[int, bool]:
+    """(channels a block, TMA or not) for the [B, T, C] operands ``xs`` of
+    one launch: 32 channels when B x C / 32 one-warp blocks give every SM
+    one, else 16; TMA when it can address every operand (T > 1; base
+    addresses and batch and time strides 16-byte aligned, each in its own
+    element size; rows that do not overlap)."""
+    B, T, C = xs[0].shape
+    width = 32 if B * -(-C // 32) >= n_sms else 16
+
+    def addressable(x):
+        sb, st = _strides(x)
+        es = x.element_size()
+        return (x.data_ptr() % 16 == 0 and (sb * es) % 16 == 0
+                and (st * es) % 16 == 0 and st >= C and sb >= T * st)
+
+    return width, T > 1 and all(addressable(x) for x in xs)
+
+
 def kernel_plan(a, b, h, n_sms: int) -> tuple[int, bool]:
     """(channels a block, TMA or not) of the forward kernel for a, b and
     its output h [B, T, C] on a card of ``n_sms`` SMs.  A block is one warp
@@ -61,16 +79,16 @@ def kernel_plan(a, b, h, n_sms: int) -> tuple[int, bool]:
     address all three (T > 1; base addresses and batch and time strides
     16-byte aligned; rows that do not overlap); otherwise the kernel reads
     and writes them directly, with the same result."""
-    B, T, C = a.shape
-    width = 32 if B * -(-C // 32) >= n_sms else 16
-    es = a.element_size()
+    return _plan((a, b, h), n_sms)
 
-    def addressable(x):
-        sb, st = _strides(x)
-        return (x.data_ptr() % 16 == 0 and (sb * es) % 16 == 0
-                and (st * es) % 16 == 0 and st >= C and sb >= T * st)
 
-    return width, T > 1 and all(addressable(x) for x in (a, b, h))
+def bwd_plan(a, h, g, da, db, n_sms: int) -> tuple[int, bool]:
+    """(channels a block, TMA or not) of the backward kernel for a, h, g
+    and its float32 outputs da, db [B, T, C]: the forward's rule over the
+    five operands.  Where TMA cannot address one of them (T = 1, a
+    misaligned base or stride, overlapping rows) each lane walks its
+    channel straight from device memory, with the same result."""
+    return _plan((a, h, g, da, db), n_sms)
 
 
 def rglru_scan(a, b):
@@ -122,7 +140,7 @@ def rglru_scan_bwd(a, h, g):
     shape and dtype; any strides whose channel one is 1).
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the
-    backward kernel, or an exception."""
+    backward kernel (its path by :func:`bwd_plan`), or an exception."""
     if a.dim() != 3 or not a.shape == h.shape == g.shape:
         raise ValueError(f"rglru_scan_bwd takes a, h, g [B, T, C] of one "
                          f"shape, got {tuple(a.shape)}, {tuple(h.shape)}, "
@@ -140,14 +158,15 @@ def rglru_scan_bwd(a, h, g):
         from .. import build
 
         lib = build.load_rglru()
+        width, tma = bwd_plan(a, h, g, da, db, _sm_count(a.device))
         strides = (ctypes.c_longlong * 10)(*[
-            x.stride(i) for x in (a, h, g, da, db) for i in (0, 1)])
+            s for x in (a, h, g, da, db) for s in _strides(x)])
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             err = lib.rglru_bwd_launch(_DTYPE_CODE[a.dtype], a.data_ptr(),
                                        h.data_ptr(), g.data_ptr(),
                                        da.data_ptr(), db.data_ptr(), B, T, C,
-                                       strides, stream)
+                                       strides, width, int(tma), stream)
         if err != 0:
             raise RuntimeError(
                 f"RG-LRU backward kernel launch failed: "

@@ -1,18 +1,23 @@
-"""RWKV-6 WKV recurrence: the hand-written CUDA kernel's wrapper.
+"""RWKV-6 WKV recurrence: the hand-written CUDA kernels' wrapper.
 
 :func:`wkv_bhtd` replaces the JAX package's Pallas TPU kernel
-``repro/kernels/rwkv6/rwkv6.py::wkv_bhtd`` (``_wkv_kernel``).  The kernel is
-``kernels/csrc/wkv.cu``, built by :mod:`repro_torch.kernels.build` at first
-use; its source note says what bounds it on an H100 and how it is laid
-out.  Beyond the TPU kernel it takes an initial state and returns the
-final one, which serving carries from the prefill into decode.  For tensors
-on the CPU the wrapper computes the plain version,
-:func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`; for CUDA tensors it
-launches the kernel on the current stream without synchronising, or raises.
+``repro/kernels/rwkv6/rwkv6.py::wkv_bhtd`` (``_wkv_kernel``).  The kernels
+are ``kernels/csrc/wkv.cu``, built by :mod:`repro_torch.kernels.build` at
+first use; its source note says what bounds them on an H100 and how they
+are laid out.  Two routes, chosen from dtype and shapes by
+:func:`wkv_plan`: the chunked kernel (bf16 r, k, v over a chunk or more:
+the serving prefill) and the step kernel (float32, and anything shorter
+than a chunk, such as decode).  Beyond the TPU kernel both take an
+initial state and return the final one, which serving carries from the
+prefill into decode.  For tensors on the CPU the wrapper computes the
+plain version, :func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`; for CUDA
+tensors it launches a kernel on the current stream without
+synchronising, or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +26,48 @@ from .ref import wkv_ref
 #: The kernel's head width (rwkv6's).
 HEAD_DIM = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: (r/k/v dtype, w dtype) pairs the kernel is instantiated for.
+#: (r/k/v dtype, w dtype) pairs the kernels are instantiated for.
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
+#: Steps of a chunk of the chunked kernel (csrc/wkv.cu ``kL``).
+CHUNK = 64
+_ROUTE_CODE = {"step": 0, "chunk": 1}
+
+
+def chunk_smem_bytes(nj: int, w_bytes: int) -> int:
+    """Dynamic shared memory of a chunked block over ``nj`` columns with a
+    decay of ``w_bytes`` bytes an element (csrc/wkv.cu ``Chunk::kSmem``)."""
+    tiles = 6 * 2048 + 2 * 8192 + nj * 128   # S^T over the r, k inputs
+    work = CHUNK * 72 * 4 + 4 * 256 * 4 + 10 * 64 * 4 + 2 * 64 * 4
+    inputs = 2 * CHUNK * 64 * 2 + CHUNK * nj * 2 + CHUNK * 64 * w_bytes
+    return tiles + work + inputs + 1024
+
+
+def wkv_plan(r, k, v, w, y, n_sms: int) -> tuple[str, int]:
+    """(route, columns a block) for [B, H, T, 64] r, k, v, w and the output
+    y on a card of ``n_sms`` SMs.  ``"chunk"`` for bf16 r, k, v with T of a
+    chunk or more whose rows cp.async can read in 16-byte pieces (base
+    addresses, and the strides of every dimension longer than 1, 16-byte
+    aligned); then 64 columns a block where B x H blocks give at least
+    7/8 of the SMs one, else 32 (two blocks a head).  Else ``"step"``,
+    whose block covers all 64 columns."""
+    B, H, T, _ = r.shape
+
+    def aligned(x):
+        es = x.element_size()
+        return x.data_ptr() % 16 == 0 and all(
+            (x.stride(d) * es) % 16 == 0 for d in range(3)
+            if x.shape[d] > 1)
+
+    if r.dtype != torch.bfloat16 or T < CHUNK or not all(
+            aligned(x) for x in (r, k, v, w, y)):
+        return "step", 64
+    return "chunk", 64 if 8 * B * H >= 7 * n_sms else 32
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(r, k, v, w, u, S0):
@@ -54,9 +98,9 @@ def wkv_bhtd(r, k, v, w, u, S0=None):
     [B, T, H, hd] tensors is read in place, and ``y`` is allocated with r's
     strides.
 
-    CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
+    CPU tensors: the plain version.  CUDA tensors: one launch of a kernel
     (r/k/v float32 with w float32; r/k/v bf16 with w float32 or bf16; hd
-    64), or an exception."""
+    64; its route by :func:`wkv_plan`), or an exception."""
     _check(r, k, v, w, u, S0)
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u, S0)
@@ -82,6 +126,7 @@ def wkv_bhtd(r, k, v, w, u, S0=None):
         from .. import build
 
         lib = build.load_wkv()
+        route, nj = wkv_plan(r, k, v, w, y, _sm_count(r.device))
         strides = (ctypes.c_longlong * 15)(*[
             x.stride(i) for x in (r, k, v, w, y) for i in (0, 1, 2)])
         with torch.cuda.device(r.device):
@@ -90,13 +135,17 @@ def wkv_bhtd(r, k, v, w, u, S0=None):
                 _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype], r.data_ptr(),
                 k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                 None if S0 is None else S0.data_ptr(), y.data_ptr(),
-                S.data_ptr(), B, H, T, strides, stream)
+                S.data_ptr(), B, H, T, strides, _ROUTE_CODE[route], nj,
+                stream)
         if err != 0:
-            raise RuntimeError(f"WKV kernel launch failed: "
+            raise RuntimeError(f"WKV kernel launch failed ({route} route): "
                                f"{build.cuda_error_string(lib, err, 'wkv')}")
         wkv_bhtd.launches += 1
+        wkv_bhtd.route_launches[route] += 1
     return y, S
 
 
-#: Kernel launches since the last reset (set to 0 to start counting).
+#: Kernel launches since the last reset (set to 0 to start counting), and
+#: the same split by route.
 wkv_bhtd.launches = 0
+wkv_bhtd.route_launches = {"chunk": 0, "step": 0}

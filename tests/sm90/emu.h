@@ -1,7 +1,7 @@
 // A CPU emulation of the CUDA and Hopper features that the bf16 attention
-// kernels (src/repro_torch/kernels/csrc/flash_attention{,_bwd}_sm90.cu) and
-// the RG-LRU scan's TMA ring (csrc/rglru.cu) use, so their device code
-// compiles with g++ and runs on CPU tensors:
+// kernels (src/repro_torch/kernels/csrc/flash_attention{,_bwd}_sm90.cu), the
+// RG-LRU scans' TMA rings (csrc/rglru.cu) and the chunked WKV (csrc/wkv.cu)
+// use, so their device code compiles with g++ and runs on CPU tensors:
 //   * a block's threads are std::threads meeting at std::barriers (the
 //     block, each warp, each warpgroup); shuffles go through shared slots;
 //   * shared memory is one global array whose shared-space addresses start
@@ -10,17 +10,20 @@
 //   * TMA copies a box at once, with the hardware's 128-byte swizzle (the
 //     16-byte chunk bits [4:6] of the address XOR bits [7:9]) or unswizzled
 //     (2-D and 3-D boxes of 4- or 2-byte elements), and zeros past every
-//     bound, and then completes its bytes on the mbarrier;
+//     bound, and then completes its bytes on the mbarrier; cp.async copies
+//     its 16 bytes at once;
 //   * mbarriers count arrivals and transaction bytes and flip a phase;
 //   * wgmma decodes its shared-memory descriptors (start, LBO, SBO) as the
 //     PTX ISA lays out K-major and MN-major 128B-swizzled operands, and
 //     computes each thread's accumulator registers from the fragment
 //     layouts of sm90.cuh (a register A operand is gathered from the
-//     warpgroup's threads through shared slots).
+//     warpgroup's threads through shared slots; its B operand K-major or
+//     MN-major).
 // So the emulation checks the kernels' index math, masks, softmax and
 // pipeline against their plain versions; that the card reads descriptors
 // and fragments the same way is checked on the card (tests/test_torch_gpu.py,
-// chip_smoke.py).  tests/test_torch_flash_sm90.py builds and runs it.
+// chip_smoke.py).  tests/test_torch_flash_sm90.py, test_torch_rglru_sm90.py
+// and test_torch_wkv_sm90.py build and run it.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -261,6 +264,14 @@ inline void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
     }
 }
 inline void bulk_commit() {}
+// cp.async lands at once.
+inline void cp_async16(void* dst, const void* src) {
+  if (smem_u32(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16)
+    std::abort();
+  std::memcpy(dst, src, 16);
+}
+inline void cp_async_commit() {}
+inline void cp_async_wait_all() {}
 template <int N>
 inline void bulk_wait_read() {}
 inline void bulk_wait_all() {}
@@ -303,6 +314,33 @@ inline void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d) {
     const int row = acc_row(t, r), col = acc_col(t, r);
     float s = 0.0f;
     for (int k = 0; k < 16; ++k) s += kmajor(da, row, k) * kmajor(db, col, k);
+    d[r] = (scale_d ? d[r] : 0.0f) + s;
+  }
+}
+// The warpgroup's register A operand (64 x 16), gathered through shared
+// slots from every thread's four registers.
+inline void gather_afrag(const uint32_t* a, float (&A)[64][16]) {
+  const int t = threadIdx.x % 128, wg = threadIdx.x / 128;
+  for (int i = 0; i < 4; ++i) g_block.afrag[wg][t][i] = a[i];
+  g_block.wg[wg]->arrive_and_wait();
+  for (int u = 0; u < 128; ++u)
+    for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 2; ++e)
+        A[afrag_row(u, i)][afrag_col(u, i, e)] =
+            bf2f((uint16_t)(g_block.afrag[wg][u][i] >> (16 * e)));
+  g_block.wg[wg]->arrive_and_wait();
+}
+// A in registers, B K-major in shared memory.
+template <int N>
+inline void wgmma_rs_k(float* d, const uint32_t* a, uint64_t b, int scale_d) {
+  static thread_local float A[64][16];
+  gather_afrag(a, A);
+  const int t = threadIdx.x % 128;
+  const Desc db = decode(b);
+  for (int r = 0; r < N / 2; ++r) {
+    const int row = acc_row(t, r), col = acc_col(t, r);
+    float s = 0.0f;
+    for (int k = 0; k < 16; ++k) s += A[row][k] * kmajor(db, col, k);
     d[r] = (scale_d ? d[r] : 0.0f) + s;
   }
 }

@@ -1,16 +1,17 @@
 """A short first call on the card after a change to the attention kernels
 (``src/repro_torch/kernels/csrc/*_sm90.cu``, ``sm90.cuh``,
-``flash_attention*.cu``), the RG-LRU kernels (``rglru.cu``) or the tick
-loop's grouped launch (``tick_loop.cu``):
+``flash_attention*.cu``), the RG-LRU kernels (``rglru.cu``), the WKV
+kernels (``wkv.cu``) or the tick loop's grouped launch (``tick_loop.cu``):
 
     python3 tests/sm90/probe.py [step ...]
 
 runs every step below, or only the named ones (build, probe, fwd, bwd,
-rglru, timing, tick, cells; ``cells`` is not among the default steps).
+rglru, wkv, timing, tick, cells; ``cells`` is not among the default
+steps).
 
-1. build — nvcc builds the four attention sources and rglru.cu; ptxas
-   registers, spills and stack per kernel, any warning, and the HGMMA
-   count of each bf16 library.
+1. build — nvcc builds every source; ptxas registers, spills and stack per
+   kernel, any warning, and the HGMMA count of each bf16 attention library
+   and of wkv.cu.
 2. probe — ``probe.cu``: TMA-loaded swizzled tiles into wgmma (both
    operands in shared memory; A in registers with an MN-major B) against
    ``torch.matmul``.
@@ -19,8 +20,15 @@ rglru, timing, tick, cells; ``cells`` is not among the default steps).
    key/value view of a longer cache holding NaN past Tk); the backward run
    twice for bit equality, at hd 256 on both routes (bf16 and float32).
 4. rglru — the forward and backward RG-LRU kernels against their plain
-   versions, bit for bit; the forward on both of its paths (the TMA ring,
-   the direct path) and both block widths, timed at the model's shapes.
+   versions, bit for bit, each on both of its paths (the TMA ring, the
+   direct path) and both block widths, timed at the model's shapes.
+4b. wkv — kernel 4 on both routes (the chunked kernel at 32 and 64
+   columns a block, the step kernel) against its plain version at
+   chip_smoke.py phase 13's tolerances (chunk-boundary T, extreme decays),
+   then every route timed at rwkv6-7b's heads (B 8 and 1 x T 2,048,
+   decode) by CUDA events and by device time.  ``wkv_profile`` (not a
+   default step): the chunked kernel built with -DWKV_PROFILE, the median
+   cycles of each phase of a chunk by warp.
 5. timing — one median of 5 (CUDA events) of the forward at qwen3-0.6b's
    and recurrentgemma-2b's heads and of the backward at both, each beside
    ``scaled_dot_product_attention``.
@@ -85,7 +93,7 @@ def builds():
             if src != "tick_loop.cu" or "grouped" in name:
                 print(src, name[-60:], line, flush=True)
         print("\n".join(x for x in log.splitlines() if "arning" in x))
-        if "sm90" in src:
+        if "sm90" in src or src == "wkv.cu":
             print(src, "HGMMA", build.hgmma_count(src), flush=True)
 
 
@@ -225,29 +233,188 @@ def rglru():
     print("rglru fwd strided a, plan", plan(a, b, torch.empty_like(a), 132),
           "bit-equal",
           torch.equal(rglru_scan(a, b), rglru_ref(a, b)), flush=True)
+    # the backward on both paths (the TMA ring, the direct path) and both
+    # widths, bit for bit; T at a float32 tile (64 steps at 32 channels)
+    # +- 1; timed at the trainer's shape
     g = torch.Generator().manual_seed(4)
+    bwd_plan = mod.bwd_plan
     for B, T, C, dt in [(1, 1, 2560, torch.float32),
+                        (2, 63, 2560, torch.float32),
+                        (2, 65, 2560, torch.float32),
                         (2, 200, 2560, torch.float32),
                         (2, 4096, 2560, torch.float32),
-                        (1, 37, 300, torch.bfloat16)]:
+                        (1, 37, 300, torch.bfloat16),
+                        (2, 700, 2560, torch.bfloat16)]:
         a = (torch.rand(B, T, C, generator=g) * 0.1 + 0.9).to(DEV, dt)
         b, gr = [torch.randn(B, T, C, generator=g).to(DEV, dt)
                  for _ in range(2)]
         h = rglru_scan(a, b)
-        da, db = rglru_scan_bwd(a, h, gr)
-        torch.cuda.synchronize()
         rda, rdb = rglru_bwd_ref(a, h, gr)
-        print("rglru", (B, T, C, dt), "fwd bit-equal",
-              torch.equal(h, rglru_ref(a, b)), "bwd bit-equal",
-              torch.equal(da, rda) and torch.equal(db, rdb), "max |err|",
-              float((da - rda).abs().max()), float((db - rdb).abs().max()),
-              flush=True)
-        if T == 4096:
-            print("time rglru bwd", (B, T, C),
-                  f"{median_ms(lambda: rglru_scan_bwd(a, h, gr)):.4f} ms",
+        own = bwd_plan(a, h, gr, rda, rdb, 132)
+        for force in (None, "direct", 16, 32):
+            if force is not None:
+                mod.bwd_plan = (
+                    (lambda *x: (own[0], False)) if force == "direct"
+                    else (lambda *x, f=force: (f, own[1])))
+            try:
+                da, db = rglru_scan_bwd(a, h, gr)
+                torch.cuda.synchronize()
+                ok = torch.equal(da, rda) and torch.equal(db, rdb)
+                ms = median_ms(lambda: rglru_scan_bwd(a, h, gr))
+                dev_ms = cs.kernel_device_ms(lambda: rglru_scan_bwd(a, h,
+                                                                    gr))
+            finally:
+                mod.bwd_plan = bwd_plan
+            nbytes = 3 * a.numel() * a.element_size() + 2 * 4 * a.numel()
+            bad += [] if ok else [("bwd", B, T, C, dt, force)]
+            print("rglru bwd", (B, T, C, dt), "plan", own, "forced", force,
+                  "bit-equal", ok, "max |err|",
+                  float((da - rda).abs().max()),
+                  float((db - rdb).abs().max()),
+                  f"{ms:.4f} ms (events), {dev_ms} ms (device, 20 calls "
+                  f"queued), bound {nbytes / 3.35e12 * 1e3:.4f} ms",
                   flush=True)
         bad += [] if torch.equal(h, rglru_ref(a, b)) else [(B, T, C, dt)]
     assert not bad, f"not bit-equal: {bad}"
+
+
+def wkv():
+    """Kernel 4 on both routes against its plain version at phase 13's
+    tolerances (chunk-boundary Ts, extreme decays, S0, w in float32 and
+    bf16, every column width of the chunked route), then each route timed
+    at rwkv6-7b's heads: B 8 and B 1 x T 2,048 and decode."""
+    import importlib
+
+    from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_ref
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
+    plan = mod.wkv_plan
+    g = torch.Generator().manual_seed(6)
+
+    def inputs(B, T, H, with_s0, x_range=None, wdt=torch.float32):
+        r, k, v = [(torch.randn(B, T, H, 64, generator=g) * 0.5).to(
+            DEV, torch.bfloat16).transpose(1, 2) for _ in range(3)]
+        x = (-6.0 + 2.0 * torch.randn(B, T, H, 64, generator=g)
+             if x_range is None else x_range[0] + (x_range[1] - x_range[0])
+             * torch.rand(B, T, H, 64, generator=g))
+        w = torch.exp(-torch.exp(x)).to(DEV, wdt).transpose(1, 2)
+        u = (torch.randn(H, 64, generator=g) * 0.5).to(DEV)
+        S0 = ((torch.randn(B, H, 64, 64, generator=g) * 0.2).to(DEV)
+              if with_s0 else None)
+        return r, k, v, w, u, S0
+
+    def run(args, force):
+        if force is not None:
+            mod.wkv_plan = lambda *x: force
+        try:
+            return wkv_bhtd(*args)
+        finally:
+            mod.wkv_plan = plan
+
+    bad = []
+    for B, T, H, with_s0, x_range, wdt in [
+            (1, 64, 1, False, None, torch.float32),
+            (2, 1, 4, True, None, torch.float32),
+            (2, 63, 4, True, None, torch.float32),
+            (2, 65, 4, False, None, torch.float32),
+            (1, 200, 3, True, (-8.0, 3.0), torch.float32),
+            (1, 300, 2, True, (-8.0, -8.0), torch.float32),
+            (1, 300, 2, True, (3.0, 3.0), torch.float32),
+            (2, 130, 3, True, None, torch.bfloat16),
+            (1, 2048, 64, True, None, torch.float32),
+            (8, 2048, 64, False, (-8.0, 3.0), torch.float32)]:
+        args = inputs(B, T, H, with_s0, x_range, wdt)
+        yr, Sr = wkv_ref(*args)
+        for force in (("step", 64), ("chunk", 64), ("chunk", 32)):
+            y, S = run(args, force)
+            torch.cuda.synchronize()
+            ey = float((y.float() - yr.float()).abs().max()) / max(
+                1.0, float(yr.float().abs().max()))
+            eS = float((S - Sr).abs().max()) / max(1.0, float(Sr.abs().max()))
+            ok = ey <= 1e-2 and eS <= 1e-4 and bool(torch.isfinite(y).all())
+            bad += [] if ok else [(B, T, H, with_s0, x_range, wdt, force)]
+            print("wkv", (B, T, H, with_s0, x_range, str(wdt)), force,
+                  f"y err {ey:.3g} S err {eS:.3g}", "ok" if ok else "BAD",
+                  flush=True)
+    for B, T in ((8, 2048), (1, 2048), (8, 1)):
+        args = inputs(B, T, 64, T == 1)
+        own = plan(args[0], args[1], args[2], args[3],
+                   torch.empty_like(args[0]), 132)
+        for force in (None, ("step", 64), ("chunk", 64), ("chunk", 32)):
+            ms = median_ms(lambda: run(args, force))
+            dev_ms = cs.kernel_device_ms(lambda: run(args, force))
+            route = force or own
+            bound = cs.wkv_bound(B, 64, T, 64, 2, T == 1, route[0])
+            print("time wkv", (B, T), "plan" if force is None else "forced",
+                  route, f"{ms:.4f} ms (events), {dev_ms} ms (device, 20 "
+                  f"calls queued), bound {bound[0]:.4f} ms by {bound[1]}, "
+                  f"recurrent form at 67 TFLOP/s {bound[4]:.4f} ms",
+                  flush=True)
+    assert not bad, f"out of tolerance: {bad}"
+
+
+def wkv_profile():
+    """Where a chunk's time goes: wkv.cu built with -DWKV_PROFILE, whose
+    chunked kernel records clock64() at 8 phase boundaries of its chunk 8
+    (lane 0 of each warp, every block); the median over blocks of each
+    phase's cycles, by warp, at B 1 and B 8 x T 2,048."""
+    import importlib
+
+    from repro_torch.kernels.rwkv6 import wkv_bhtd
+
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
+    lib_path = os.path.join(build.BUILD_DIR, "wkv_profile.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    p = subprocess.run([build.nvcc_path(), *build.SOURCE_FLAGS["wkv.cu"],
+                        "-DWKV_PROFILE", "-o", lib_path,
+                        os.path.join(build.CSRC, "wkv.cu")],
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr
+    lib = ctypes.CDLL(lib_path)
+    fn = lib.wkv_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])
+    lib.wkv_error_string.restype = ctypes.c_char_p
+    lib.wkv_profile_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    names = ["pass (walks, bonus, V^T)", "sync",
+             "A blocks + diagonal", "S^T tiles + syncs", "A to registers",
+             "y and S products + sync", "epilogue"]
+    g = torch.Generator().manual_seed(7)
+    orig_load, orig_plan = build.load_wkv, mod.wkv_plan
+    build.load_wkv = lambda: lib
+    try:
+        for B, nj in ((1, 64), (1, 32), (8, 64), (8, 32)):
+            T, H = 2048, 64
+            r, k, v = [(torch.randn(B, T, H, 64, generator=g) * 0.5).to(
+                DEV, torch.bfloat16).transpose(1, 2) for _ in range(3)]
+            w = torch.exp(-torch.exp(-6 + 2 * torch.randn(
+                B, T, H, 64, generator=g))).to(DEV).transpose(1, 2)
+            u = (torch.randn(H, 64, generator=g) * 0.5).to(DEV)
+            mod.wkv_plan = lambda *x: ("chunk", nj)
+            wkv_bhtd(r, k, v, w, u)
+            torch.cuda.synchronize()
+            blocks = B * H * (64 // nj)
+            buf = torch.zeros(blocks * 4 * 8, dtype=torch.int64)
+            err = lib.wkv_profile_read(buf.data_ptr(), buf.numel())
+            assert err == 0, err
+            marks = buf.view(blocks, 4, 8).double()
+            d = marks[:, :, 1:] - marks[:, :, :-1]
+            med = d.median(dim=0).values          # [warp, phase]
+            total = (marks[:, :, 7] - marks[:, :, 0]).median(dim=0).values
+            print(f"wkv profile B={B} T={T} nj={nj}: a chunk "
+                  f"{[round(x) for x in total.tolist()]} cycles by warp "
+                  f"(median over {blocks} blocks)", flush=True)
+            for i, name in enumerate(names):
+                print(f"  {name:28s}",
+                      " ".join(f"{x:8.0f}" for x in med[:, i].tolist()),
+                      flush=True)
+    finally:
+        build.load_wkv, mod.wkv_plan = orig_load, orig_plan
 
 
 def median_ms(fn, reps=5):
@@ -367,13 +534,15 @@ def cells():
 
 
 STEPS = {"build": builds, "probe": probe, "fwd": fwd, "bwd": bwd,
-         "rglru": rglru, "timing": timing, "tick": tick, "cells": cells}
+         "rglru": rglru, "wkv": wkv, "wkv_profile": wkv_profile,
+         "timing": timing, "tick": tick, "cells": cells}
 
 if __name__ == "__main__":
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    for name in sys.argv[1:] or [s for s in STEPS if s != "cells"]:
+    for name in sys.argv[1:] or [s for s in STEPS
+                                 if s not in ("cells", "wkv_profile")]:
         step(name, STEPS[name])
     sys.exit(1 if FAILED else 0)

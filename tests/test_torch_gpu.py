@@ -357,6 +357,23 @@ def test_flash_attention_bwd_is_deterministic_on_the_card(cuda_device,
             assert torch.equal(a, b)
 
 
+def _forced(module, attr, plan):
+    """Context: ``module.attr`` (a route or path planner) forced to return
+    ``plan(*its arguments)``; None keeps the wrapper's own."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(module, attr)
+        if plan is not None:
+            setattr(module, attr, lambda *a: plan(orig, *a))
+        try:
+            yield
+        finally:
+            setattr(module, attr, orig)
+    return ctx()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,w_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -366,28 +383,50 @@ def test_wkv_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
     """Kernel 4 == plain version on [B,T,H,64] views, from zero and from a
     state: y within 1e-4 (float32) / 1e-2 (bf16) of its largest |value|
     (float32 sums in another order, FMA contraction; one bf16 rounding of
-    y), S_final within 1e-4 of its largest |value|."""
+    y), S_final within 1e-4 of its largest |value|.  bf16 runs on both
+    routes (the chunked and the step kernel, the other one forced), at T
+    about a chunk of 64 and at the extreme decays exp(-exp(-8)) and
+    exp(-exp(3))."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
     g = torch.Generator().manual_seed(2)
-    for B, T, H, with_s0 in [(1, 1, 3, True), (2, 200, 4, False),
-                             (1, 64, 2, True), (3, 17, 1, True)]:
+    for B, T, H, with_s0, x_range in [
+            (1, 1, 3, True, None), (2, 200, 4, False, None),
+            (1, 64, 2, True, None), (3, 17, 1, True, None),
+            (2, 63, 2, True, None), (2, 65, 2, False, None),
+            (1, 150, 2, True, (-8.0, -8.0)), (1, 150, 2, True, (3.0, 3.0)),
+            (2, 300, 3, True, (-8.0, 3.0))]:
         r, k, v = [(torch.randn(B, T, H, 64, generator=g) * 0.5).to(
             cuda_device, dtype).transpose(1, 2) for _ in range(3)]
-        w = (torch.rand(B, T, H, 64, generator=g) * 0.5 + 0.45).to(
-            cuda_device, w_dtype).transpose(1, 2)
+        if x_range is None:
+            w = torch.rand(B, T, H, 64, generator=g) * 0.5 + 0.45
+        else:
+            w = torch.exp(-torch.exp(x_range[0] + (x_range[1] - x_range[0])
+                                     * torch.rand(B, T, H, 64, generator=g)))
+        w = w.to(cuda_device, w_dtype).transpose(1, 2)
         u = (torch.randn(H, 64, generator=g) * 0.3).to(cuda_device)
         S0 = ((torch.randn(B, H, 64, 64, generator=g) * 0.2).to(cuda_device)
               if with_s0 else None)
-        before = wkv_bhtd.launches
-        y, S = wkv_bhtd(r, k, v, w, u, S0)
-        torch.cuda.synchronize()
-        assert wkv_bhtd.launches == before + 1
         yr, Sr = wkv_ref(r, k, v, w, u, S0)
-        assert y.dtype == yr.dtype and y.transpose(1, 2).is_contiguous()
-        ytol = 1e-4 if dtype == torch.float32 else 1e-2
-        assert float((y.float() - yr.float()).abs().max()) <= \
-            ytol * max(1.0, float(yr.float().abs().max()))
-        assert float((S - Sr).abs().max()) <= \
-            1e-4 * max(1.0, float(Sr.abs().max()))
+        own = mod.wkv_plan(r, k, v, w, torch.empty_like(r), 132)[0]
+        plans = [None]
+        if dtype == torch.bfloat16:
+            plans.append((lambda orig, *a: ("step", 64)) if own == "chunk"
+                         else (lambda orig, *a: ("chunk", 32)))
+        for plan in plans:
+            before = wkv_bhtd.launches
+            with _forced(mod, "wkv_plan", plan):
+                y, S = wkv_bhtd(r, k, v, w, u, S0)
+            torch.cuda.synchronize()
+            assert wkv_bhtd.launches == before + 1
+            assert y.dtype == yr.dtype and y.transpose(1, 2).is_contiguous()
+            ytol = 1e-4 if dtype == torch.float32 else 1e-2
+            where = (B, T, H, x_range, own, plan is not None)
+            assert float((y.float() - yr.float()).abs().max()) <= \
+                ytol * max(1.0, float(yr.float().abs().max())), where
+            assert float((S - Sr).abs().max()) <= \
+                1e-4 * max(1.0, float(Sr.abs().max())), where
 
 
 @pytest.mark.gpu
@@ -411,23 +450,32 @@ def test_rglru_kernel_bit_exact_vs_plain_version_on_the_card(cuda_device,
 def test_rglru_bwd_kernel_bit_exact_vs_plain_version_on_the_card(
         cuda_device, dtype):
     """The RG-LRU backward kernel == its plain loop bit for bit (ragged T
-    and C, a strided g), one launch a call; under autograd ``rglru`` runs
+    and C, T at a tile +- 1, a strided g), on the wrapper's path and on the
+    direct path forced, one launch a call; under autograd ``rglru`` runs
     both kernels and equals its ``reference`` executor bit for bit."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.rglru.rglru")
     g = torch.Generator().manual_seed(5)
-    for B, T, C in [(1, 1, 2560), (2, 200, 300), (3, 64, 2560)]:
+    for B, T, C in [(1, 1, 2560), (2, 200, 300), (3, 64, 2560),
+                    (2, 63, 2560), (2, 65, 2560), (1, 700, 2560)]:
         a = (torch.rand(B, T, C, generator=g) * 0.4 + 0.5).to(cuda_device,
                                                               dtype)
         b = (torch.randn(B, T, C, generator=g) * 0.1).to(cuda_device, dtype)
         gr = torch.randn(B, T, 2 * C, generator=g).to(cuda_device,
                                                        dtype)[..., :C]
         h = rglru_scan(a, b)
-        before = rglru_scan_bwd.launches
-        da, db = rglru_scan_bwd(a, h, gr)
-        torch.cuda.synchronize()
-        assert rglru_scan_bwd.launches == before + 1
-        assert da.dtype == db.dtype == torch.float32
         rda, rdb = rglru_bwd_ref(a, h, gr)
-        assert torch.equal(da, rda) and torch.equal(db, rdb), (B, T, C)
+        # the wrapper's path, then the direct path forced
+        for plan in (None, lambda orig, *x: (orig(*x)[0], False)):
+            before = rglru_scan_bwd.launches
+            with _forced(mod, "bwd_plan", plan):
+                da, db = rglru_scan_bwd(a, h, gr)
+            torch.cuda.synchronize()
+            assert rglru_scan_bwd.launches == before + 1
+            assert da.dtype == db.dtype == torch.float32
+            assert torch.equal(da, rda) and torch.equal(db, rdb), \
+                (B, T, C, plan is None)
     x = [t.detach().requires_grad_() for t in (a, b)]
     out = {}
     for ex in ("cuda", "reference"):

@@ -149,15 +149,21 @@ def test_cpu_wrappers_launch_nothing_and_check_inputs():
 
 def test_build_instances():
     assert build.rglru_bwd_instance(
-        "_ZN12_GLOBAL__N_116rglru_bwd_kernelIfEEvPKT_S3_S3_PfS4_iixxxxxxxxxx"
-    ) == "float32"
+        "_ZN12_GLOBAL__N_116rglru_bwd_kernelIfLi32EEEv14CUtensorMap_stS1_S1_"
+        "S1_S1_PKT_S4_S4_PfS5_iixxxxxxxxxxi") == ("float32", 32)
     assert build.rglru_bwd_instance(
-        "_ZN12_GLOBAL__N_116rglru_bwd_kernelI13__nv_bfloat16EEvPKT_") == \
-        "bfloat16"
+        "_ZN12_GLOBAL__N_116rglru_bwd_kernelI13__nv_bfloat16Li16EEEv14CUtens"
+        "orMap_st") == ("bfloat16", 16)
     assert build.rglru_instance(
-        "_ZN12_GLOBAL__N_116rglru_bwd_kernelIfEEvPKT_S3_S3_PfS4_") is None
+        "_ZN12_GLOBAL__N_116rglru_bwd_kernelIfLi32EEEv14CUtensorMap_st") is \
+        None
     assert build.rglru_bwd_instance(
-        "_ZN12_GLOBAL__N_112rglru_kernelIfEEvPKT_S3_PS1_iixxxxxx") is None
+        "_ZN12_GLOBAL__N_112rglru_kernelIfLi32EEEv14CUtensorMap_stS1_PKT_"
+        "S4_PS2_iixxxxxxi") is None
+    # the first backward (one thread a channel, no width) is gone
+    assert build.rglru_bwd_instance(
+        "_ZN12_GLOBAL__N_116rglru_bwd_kernelIfEEvPKT_S3_S3_PfS4_iixxxxxxxxxx"
+    ) is None
 
 
 # ------------------------------------------------------- the host build --

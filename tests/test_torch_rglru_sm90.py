@@ -16,13 +16,14 @@ of path and width (``kernel_plan``) on the CPU.  The kernel runs on the
 card in tests/test_torch_gpu.py and chip_smoke.py phases 14 and 19b.
 """
 import importlib
+import itertools
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rglru import rglru_ref
+from repro_torch.kernels.rglru import rglru_bwd_ref, rglru_ref
 
 from torch_parity import build_rglru_host, rglru_host_call
 
@@ -37,6 +38,21 @@ def tile_steps(dtype, width):
     """Steps of one stage's tile (csrc/rglru.cu ``Ring::kTc``)."""
     return TILE_BYTES // (width * torch.tensor([], dtype=dtype)
                           .element_size())
+
+
+def bwd_tile_steps(width):
+    """Steps of one stage's tile of the backward (csrc/rglru.cu
+    ``BwdRing::kTc``: a float32 tile's, for either input type)."""
+    return TILE_BYTES // (width * 4)
+
+
+def bwd_stage_bytes(dtype, width):
+    """Bytes of one stage of the backward's ring (``BwdRing::kStage``):
+    a, h and g tiles; float32 da and db over h and g, or, for bf16, tiles
+    of their own."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    tin = bwd_tile_steps(width) * width * es
+    return 3 * tin + (0 if es == 4 else 2 * TILE_BYTES)
 
 
 @pytest.fixture(scope="module")
@@ -106,6 +122,91 @@ def test_strided_a_on_both_paths(host, dtype):
                 (width, mode)
 
 
+def _bwd(host, a, h, g, mode, width):
+    da, db = (torch.full(a.shape, float("nan")) for _ in range(2))
+    rglru_host_call(host, mode, (a, h, g), (da, db), width)
+    return da, db
+
+
+BWD_CASES = [
+    # B, T, C: T = 1; a tile - 1, a tile, a tile + 1 of either width's
+    # float32 tile (64 or 128 steps); ragged T and C; the ring wrapping
+    (1, 1, 40),
+    (2, 63, 48),
+    (1, 64, 32),
+    (2, 65, 40),
+    (1, 127, 64),
+    (1, 128, 16),
+    (2, 129, 36),
+    (1, 200, 100),
+    (2, 700, 48),
+]
+
+
+@pytest.mark.parametrize("B,T,C", BWD_CASES)
+@pytest.mark.parametrize("width", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_ring_equals_plain_version(host, B, T, C, width, dtype):
+    """The backward through its TMA ring (mode 3) and its direct path (mode
+    1), bit for bit; the first tile's h box starts at time -1 (zero fill),
+    a_{t+1} crosses every tile boundary in a register."""
+    a, b = _inputs(3 * T + C + width, B, T, C, dtype)
+    g = torch.from_numpy(np.random.default_rng(T + width).standard_normal(
+        (B, T, C)).astype(np.float32)).to(dtype)
+    h = rglru_ref(a, b)
+    want = rglru_bwd_ref(a, h, g)
+    if T == 700:
+        assert T > STAGES * bwd_tile_steps(width)      # the ring wraps
+    for mode in (3, 1):
+        got = _bwd(host, a, h, g, mode, width)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            mode
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_strided_g_on_both_paths(host, dtype):
+    """g as the wrapper may meet it: a channel slice of a wider gradient
+    (time stride 2 C, 16-byte aligned: TMA addresses it) and a, h views of
+    bigger storages; both paths bit for bit."""
+    B, T, C = 2, 150, 40
+    a, b = _inputs(11, B, T, C, dtype, strided=True)
+    h = rglru_ref(a, b)
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (B, T, 2 * C)).astype(np.float32)).to(dtype)[..., :C]
+    assert g.stride() == (T * 2 * C, 2 * C, 1)
+    want = rglru_bwd_ref(a, h, g)
+    for width in (16, 32):
+        for mode in (3, 1):
+            got = _bwd(host, a, h, g, mode, width)
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), (width, mode)
+
+
+def test_bwd_plan():
+    """The backward's choice: the forward's width rule; TMA when it can
+    address a, h, g, da and db (T > 1, 16-byte aligned bases and strides in
+    each operand's own element size, rows that do not overlap)."""
+    def plan(a, h, g, n_sms=132):
+        da, db = (torch.empty(a.shape) for _ in range(2))
+        return rglru_wrapper.bwd_plan(a, h, g, da, db, n_sms)
+
+    def x(B, T, C, dtype=torch.float32):
+        return torch.zeros(B, T, C, dtype=dtype)
+
+    assert plan(*(x(2, 4096, 2560),) * 3) == (32, True)
+    assert plan(*(x(1, 2048, 2560, torch.bfloat16),) * 3) == (16, True)
+    assert plan(*(x(2, 1, 2560),) * 3) == (32, False)          # T = 1
+    # the strided g of the card's test: time stride 2 C, aligned -> ring
+    g = torch.zeros(2, 200, 600)[..., :300]
+    assert plan(x(2, 200, 300), x(2, 200, 300), g) == (16, True)
+    # bf16 C 300 -> 600-byte rows: a time stride TMA cannot take
+    gb = torch.zeros(2, 200, 301, dtype=torch.bfloat16)[..., :300]
+    assert plan(x(2, 200, 300, torch.bfloat16),
+                x(2, 200, 300, torch.bfloat16), gb) == (16, False)
+    # bf16 C 300 alone: 600-byte rows are not 16-byte multiples -> direct
+    assert plan(*(x(2, 200, 300, torch.bfloat16),) * 3) == (16, False)
+
+
 def test_kernel_plan():
     """The wrapper's choice: 32 channels a block when B x C / 32 blocks
     give every SM one, else 16; TMA when it can address a, b and h (T > 1,
@@ -153,3 +254,8 @@ def test_source_geometry_and_build_names():
                                 (torch.bfloat16, 16, 256)):
         assert tile_steps(dtype, width) == steps <= 256   # a TMA box row
     assert "-fmad=false" in build.SOURCE_FLAGS["rglru.cu"]
+    # the backward's ring: four stages a block, two blocks an SM
+    for dtype, width in itertools.product((torch.float32, torch.bfloat16),
+                                          (16, 32)):
+        assert bwd_tile_steps(width) <= 256
+        assert 2 * (STAGES * bwd_stage_bytes(dtype, width) + 128) <= 232_448

@@ -136,11 +136,13 @@ def test_wrapper_checks_shapes_and_dtypes():
 def test_build_flags_and_instances():
     assert build.SOURCE_FLAGS["wkv.cu"] == build._BASE_FLAGS
     names = {"_ZN12_GLOBAL__N_110wkv_kernelIffEEvPKT_S3_S3_PKT0_":
-             ("float32", "float32"),
+             ("step", "float32", "float32", 64),
              "_ZN12_GLOBAL__N_110wkv_kernelI13__nv_bfloat16fEEvPKT_":
-             ("bfloat16", "float32"),
+             ("step", "bfloat16", "float32", 64),
              "_ZN12_GLOBAL__N_110wkv_kernelI13__nv_bfloat16S1_EEvPKT_":
-             ("bfloat16", "bfloat16")}
+             ("step", "bfloat16", "bfloat16", 64),
+             "_ZN12_GLOBAL__N_116wkv_chunk_kernelIfLi32EEEvPK13__nv_bfloat16":
+             ("chunk", "bfloat16", "float32", 32)}
     for name, inst in names.items():
         assert build.wkv_instance(name) == inst
     assert build.wkv_instance("rglru_kernelIfE") is None

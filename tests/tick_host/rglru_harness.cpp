@@ -57,39 +57,50 @@ void forward(const void* a, const void* b, void* h, int B, int T_len, int C,
   });
 }
 
-template <typename T>
-void backward(const void* x, const void* y, const void* z, void* o0,
-              void* o1, int B, int T_len, int C, const long long* st) {
-  run_grid(dim3((C + rg::kBwdThreads - 1) / rg::kBwdThreads, B),
-           rg::kBwdThreads, [&] {
-             rg::rglru_bwd_kernel<T>(
-                 static_cast<const T*>(x), static_cast<const T*>(y),
-                 static_cast<const T*>(z), static_cast<float*>(o0),
-                 static_cast<float*>(o1), C, T_len, st[0], st[1], st[2],
-                 st[3], st[4], st[5], st[6], st[7], st[8], st[9]);
-           });
+template <typename T, int W>
+void backward(const void* a, const void* h, const void* g, void* da,
+              void* db, int B, int T_len, int C, const long long* st,
+              int tma) {
+  CUtensorMap m[5] = {};
+  if (tma) {
+    constexpr int tc = rg::BwdRing<T, W>::kTc;
+    const void* ptrs[5] = {a, h, g, da, db};
+    for (int i = 0; i < 5; ++i)
+      m[i] = map3(ptrs[i], i < 3 ? (int)sizeof(T) : 4, C, T_len, B,
+                  st[2 * i + 1], st[2 * i], W, tc);
+  }
+  run_grid(dim3((C + W - 1) / W, B), rg::kThreads, [&] {
+    rg::rglru_bwd_kernel<T, W>(
+        m[0], m[1], m[2], m[3], m[4], static_cast<const T*>(a),
+        static_cast<const T*>(h), static_cast<const T*>(g),
+        static_cast<float*>(da), static_cast<float*>(db), C, T_len, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], tma);
+  });
 }
 
 template <typename T>
 int run(int mode, const void* x, const void* y, const void* z, void* o0,
         void* o1, int B, int T_len, int C, const long long* st, int width) {
-  if (mode == 1) {
-    backward<T>(x, y, z, o0, o1, B, T_len, C, st);
+  if (width != 16 && width != 32) return 1;
+  if (mode == 1 || mode == 3) {
+    const int tma = mode == 3;
+    if (width == 32) backward<T, 32>(x, y, z, o0, o1, B, T_len, C, st, tma);
+    else backward<T, 16>(x, y, z, o0, o1, B, T_len, C, st, tma);
     return 0;
   }
   const int tma = mode == 2;
   if (width == 32) forward<T, 32>(x, y, o0, B, T_len, C, st, tma);
-  else if (width == 16) forward<T, 16>(x, y, o0, B, T_len, C, st, tma);
-  else return 1;
+  else forward<T, 16>(x, y, o0, B, T_len, C, st, tma);
   return 0;
 }
 
 }  // namespace
 
 // mode 0: h = scan(x = a, y = b) into o0 on the direct path (strides of a,
-// b, h); mode 2: the same through the TMA ring; width: the block's
-// channels (16 or 32).  mode 1: (da, db) = (o0, o1) from x = a, y = h,
-// z = g (strides of a, h, g, da, db).  dtype 0 = float32, 1 = bfloat16.
+// b, h); mode 2: the same through the TMA ring.  mode 1: (da, db) = (o0,
+// o1) from x = a, y = h, z = g (strides of a, h, g, da, db) on the
+// backward's direct path; mode 3: the same through its TMA ring.  width:
+// the block's channels (16 or 32).  dtype 0 = float32, 1 = bfloat16.
 // Returns 0, or 1 for a width without an instantiation.
 extern "C" __attribute__((visibility("default"))) int rglru_host(int mode, int dtype, const void* x, const void* y,
                           const void* z, void* o0, void* o1, int B, int T,

@@ -188,8 +188,9 @@ def build_rglru_host(tmp_dir):
 
 def rglru_host_call(fn, mode, xs, outs, width=32):
     """Run the host build: mode 0 the forward's direct path, 2 its TMA
-    ring (``xs`` = a, b; ``outs`` = h), 1 the backward (``xs`` = a, h, g;
-    ``outs`` = da, db); ``width`` the forward block's channels."""
+    ring (``xs`` = a, b; ``outs`` = h), 1 the backward's direct path, 3 its
+    TMA ring (``xs`` = a, h, g; ``outs`` = da, db); ``width`` the block's
+    channels."""
     B, T, C = xs[0].shape
     dtype = 0 if xs[0].dtype.itemsize == 4 else 1
     st = [x.stride(i) for x in (*xs, *outs) for i in (0, 1)]
@@ -198,3 +199,56 @@ def rglru_host_call(fn, mode, xs, outs, width=32):
              outs[1].data_ptr() if len(outs) > 1 else None, B, T, C,
              (ctypes.c_longlong * len(st))(*st), width)
     assert err == 0
+
+
+def build_wkv_host(tmp_dir):
+    """``csrc/wkv.cu``'s kernels built by g++ for the host
+    (tests/sm90/wkv_harness.cpp on the sm90 emulator): the ``wkv_host``
+    function of the library (``wkv_launch``'s arguments without the
+    stream), or None without g++."""
+    from repro_torch.kernels import build
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = (build.CSRC / "wkv.cu").read_text()
+    src = src[:src.index("template <typename T, typename TW>\nint launch(")]
+    src = re.sub(r'#include [<"].*[>"]\n', "", src)
+    src = src.replace("extern __shared__ uint8_t smem_raw[];",
+                      "using ::smem_raw;")
+    (tmp_dir / "wkv_cut.inc").write_text(f"namespace wk {{\n{src}\n}}}}\n")
+    lib = tmp_dir / "wkv_host.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-fno-strict-aliasing",
+                    "-fvisibility=hidden", "-fno-gnu-unique", "-shared",
+                    "-fPIC", "-pthread", f"-I{here}/sm90", f"-I{build.CSRC}",
+                    f"-I{tmp_dir}", "-o", str(lib),
+                    f"{here}/sm90/wkv_harness.cpp"],
+                   check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).wkv_host
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv_host_call(fn, r, k, v, w, u, S0, route, nj=64):
+    """(y, S_final) of the host build on [B, H, T, 64] views: route 0 the
+    step kernel, 1 the chunked kernel over ``nj`` columns a block."""
+    import torch
+
+    B, H, T, _ = r.shape
+    y = torch.full(r.shape, float("nan"), dtype=r.dtype).transpose(1, 2) \
+        .contiguous().transpose(1, 2)
+    S = torch.full((B, H, 64, 64), float("nan"))
+    u = u.float().contiguous()
+    S0 = None if S0 is None else S0.float().contiguous()
+    st = [x.stride(i) for x in (r, k, v, w, y) for i in (0, 1, 2)]
+    code = {torch.float32: 0, torch.bfloat16: 1}
+    err = fn(code[r.dtype], code[w.dtype], r.data_ptr(), k.data_ptr(),
+             v.data_ptr(), w.data_ptr(), u.data_ptr(),
+             None if S0 is None else S0.data_ptr(), y.data_ptr(),
+             S.data_ptr(), B, H, T, (ctypes.c_longlong * 15)(*st), route, nj)
+    assert err == 0
+    return y, S
