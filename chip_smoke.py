@@ -148,11 +148,31 @@ Phases (each prints a line; any failure exits non-zero):
               3, 36 kernel 5, 18 RG-LRU backward), a profiled step and
               kernel 5's share of it; then one B 1 step through the kernels
               and the plain versions.
+20. fleet    — run right after phase 18: the offline fleet through the
+              tick kernel's wave mode (each wave's groups in one launch)
+              and offline tuning.  (a) tests/test_fleet.py's _GOLDEN (16
+              transfers) and tests/test_environments.py's FLEET_GOLDEN
+              (under the reference environment and dvfs's matched tables)
+              bit for bit, the reference / lossy-wan / big-little pool and
+              the learned lane (JAX's BC policy) each equal to ``api.run``,
+              and a 15-tick wave over controller strides of 2: the kernel
+              against the plain wave loop on the card, bit for bit, one
+              launch a wave; (b) ``benchmarks/fleet.py``'s fleet (10,000
+              Poisson transfers, 8 hosts x 16 slots, wave_s 15, dt 0.5)
+              against ``tests/torch_goldens/fleet_full.json`` (JAX on the
+              CPU: order, hosts, starts, completion and time exact, energy
+              to 1e-5): wall, transfers/s, launches, and a rerun split by
+              wave (kernel by CUDA events against its bound, copies, host
+              prep); its ``--smoke`` trace kernel against plain; (c)
+              ``examples/tune_controller.py``'s ``api.tune`` against
+              ``tests/torch_goldens/tune_full.json``: best, feasible and
+              evaluations equal, every row's metrics to 1e-5, launches by
+              rung.
 
-Phases 5, 6, 9, 12, 16, 17c, 18c, 18f and 19d drive the main paths: each
-kernel's launch count is set to 0 just before and read just after; every
-attention launch there must take the bf16 (wgmma) route.  The float32 (FMA) attention
-kernels' launches are counted over the float32 goldens' entry points
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b and 20c drive the main
+paths: each kernel's launch count is set to 0 just before and read just
+after; every attention launch there must take the bf16 (wgmma) route.  The
+float32 (FMA) attention kernels' launches are counted over the float32 goldens' entry points
 (phases 8, 11, 15 and 19c).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
@@ -165,6 +185,10 @@ and prints neither of the last two lines;
     python3 chip_smoke.py --learn
 
 runs phases 1-3 and 18 only, and prints neither either;
+
+    python3 chip_smoke.py --fleet
+
+runs phases 1-3 and 20 only, and prints neither;
 
     python3 chip_smoke.py --recurrent-train
 
@@ -284,6 +308,43 @@ LEARN_PG = dict(steps=6, lr=2e-3, tput_floor_mbps=400.0)
 LEARN_FEATURE_OPS = 80
 LEARN_TANH_OPS = 20
 LEARN_ACTION_OPS = 10
+
+# Phase 20: the offline fleet and offline tuning.  FLEET16_GOLDEN is
+# tests/test_fleet.py's _GOLDEN (jitted JAX; name -> energy_j, time_s,
+# start_s, host, completed) over its 16-transfer trace (2 hosts x 4 slots,
+# wave_s 10, dt 0.5); FLEET_ONE_GOLDEN is tests/test_environments.py's
+# FLEET_GOLDEN (completed, time_s, energy_j, moved_mb).  The full fleet is
+# benchmarks/fleet.py's configuration (:47-77 and run(): wave_s 15, dt 0.5),
+# copied here, held against tests/torch_goldens/fleet_full.json (JAX on
+# the CPU): per transfer placement, start, completion and time exact and
+# energy to FLEET_RTOL.  The tune search is examples/tune_controller.py's,
+# copied, held against tests/torch_goldens/tune_full.json.
+FLEET16_GOLDEN = {
+    "xfer-00": (1814.7784423828125, 116.0, 10.0, "host-0", True),
+    "xfer-01": (195.69314575195312, 10.5, 10.0, "host-1", True),
+    "xfer-02": (36.4241943359375, 3.5, 10.0, "host-0", True),
+    "xfer-03": (370.8283386230469, 37.0, 20.0, "host-0", True),
+    "xfer-04": (47.423377990722656, 3.0, 20.0, "host-1", True),
+    "xfer-05": (370.8283386230469, 37.0, 20.0, "host-0", True),
+    "xfer-06": (37.65775680541992, 4.0, 20.0, "host-1", True),
+    "xfer-07": (142.826171875, 8.5, 20.0, "host-0", True),
+    "xfer-08": (142.826171875, 8.5, 30.0, "host-1", True),
+    "xfer-09": (45.65776062011719, 5.0, 30.0, "host-1", True),
+    "xfer-10": (142.826171875, 8.5, 30.0, "host-1", True),
+    "xfer-11": (327.93096923828125, 34.0, 30.0, "host-0", True),
+    "xfer-12": (45.65776062011719, 5.0, 30.0, "host-1", True),
+    "xfer-13": (47.423377990722656, 3.0, 40.0, "host-1", True),
+    "xfer-14": (47.423377990722656, 3.0, 40.0, "host-1", True),
+    "xfer-15": (237.29710388183594, 16.5, 40.0, "host-1", True),
+}
+FLEET_ONE_GOLDEN = (True, 1.2000000000000002, 31.04885482788086, 1000.0)
+FLEET_NO_CONTENTION = 1e9
+FLEET_BENCH_CONTROLLERS = ("EEMT", "ME", "eett", "ismail-target",
+                           "wget/curl", "http/2")
+FLEET_WAVE_S, FLEET_DT = 15.0, 0.5
+FLEET_RTOL = 1e-5
+TUNE_EXAMPLE_RTOL = 1e-5
+
 
 # Tune-sized sweep: 4 x 4 x 4 x 4 SLA points x 16 bandwidth schedules.
 TUNE_ALPHA = (0.05, 0.1, 0.15, 0.2)
@@ -965,6 +1026,489 @@ def phase_environments(dev, ref_runs) -> dict:
           flush=True)
     return {"launches": launches, "grids_ms": ms_c,
             "grids_group_ms": group_ms_c, "dvfs_tune_ms": ms_d}
+
+
+def fleet_small_datasets():
+    from repro_torch.core.types import DatasetSpec
+
+    fast = (DatasetSpec("a", 200, 400.0, 2.0),
+            DatasetSpec("b", 10, 600.0, 60.0))
+    one = (DatasetSpec("c", 50, 500.0, 10.0),)
+    return fast, one
+
+
+def fleet16_trace():
+    """tests/test_fleet.py::test_offline_golden_cells_bit_exact's trace."""
+    from repro_torch import fleet
+    from repro_torch.core.types import CHAMELEON, DatasetSpec
+
+    fast, one = fleet_small_datasets()
+    return fleet.poisson_trace(
+        rate_per_s=0.5, n_transfers=16,
+        datasets=[one, fast, (DatasetSpec("a", 2000, 4000.0, 2.0),)],
+        controllers=("eemt", "me", "wget/curl"), profile=CHAMELEON,
+        seed=1810, total_s=600.0)
+
+
+def fleet_bench_build(smoke):
+    """benchmarks/fleet.py::build (its DATASETS, make_controller_menu)."""
+    from repro_torch import api, fleet
+    from repro_torch.core.types import CHAMELEON, GB, DatasetSpec
+
+    datasets = (
+        (DatasetSpec("web", 20_000, 2.0 * GB, 0.1),),
+        (DatasetSpec("data", 2_500, 8.0 * GB, 2.4),),
+        (DatasetSpec("archive", 64, 16.0 * GB, 256.0),),
+        (DatasetSpec("mix-s", 5_000, 1.0 * GB, 0.2),
+         DatasetSpec("mix-m", 1_000, 3.0 * GB, 2.4),
+         DatasetSpec("mix-l", 32, 8.0 * GB, 256.0)),
+    )
+    target = CHAMELEON.bandwidth_mbps * 0.5
+    menu = tuple(api.make_controller(n, target_tput_mbps=target)
+                 if n in ("eett", "ismail-target") else n
+                 for n in FLEET_BENCH_CONTROLLERS)
+    n_transfers, n_hosts, rate = ((400, 4, 0.4) if smoke
+                                  else (10_000, 8, 0.8))
+    trace = fleet.poisson_trace(
+        rate_per_s=rate, n_transfers=n_transfers, seed=1810,
+        datasets=datasets, controllers=menu, profile=CHAMELEON,
+        total_s=1800.0)
+    hosts = fleet.host_pool(n_hosts, nic_mbps=CHAMELEON.bandwidth_mbps,
+                            slots=16)
+    return trace, hosts
+
+
+def tune_example_experiment():
+    """examples/tune_controller.py's Experiment."""
+    from repro_torch import api
+    from repro_torch.core.types import CHAMELEON, GB, CpuProfile, DatasetSpec
+
+    return api.Experiment(
+        name="tune-eemt",
+        space=api.grid(api.axis("max_ch", (8, 16, 32, 64)),
+                       api.axis("max_load", (0.6, 0.85))),
+        base={"profile": CHAMELEON,
+              "datasets": (DatasetSpec("bulk", 800, 300.0 * GB, 384.0),),
+              "cpu": CpuProfile(), "total_s": 120.0,
+              "controller": lambda c: api.make_controller(
+                  "eemt", max_ch=c["max_ch"], max_load=c["max_load"])})
+
+
+def fleet_fields(t):
+    return (t.name, t.controller, t.host, t.arrival_s, t.start_s, t.time_s,
+            t.energy_j, t.moved_mb, t.completed, t.ideal_s)
+
+
+def fleet_same(a, b, tag):
+    """Two fleet reports bit for bit: every transfer, the host stats and
+    the totals."""
+    bad = [(x.name, fleet_fields(x), fleet_fields(y))
+           for x, y in zip(a.transfers, b.transfers)
+           if fleet_fields(x) != fleet_fields(y)]
+    check(len(a.transfers) == len(b.transfers) and not bad,
+          f"{tag}: {len(bad)} transfers differ, first {bad[:2]}")
+    check([dataclasses.astuple(h) for h in a.host_stats]
+          == [dataclasses.astuple(h) for h in b.host_stats]
+          and (a.sim_s, a.waves, a.dropped) == (b.sim_s, b.waves, b.dropped),
+          f"{tag}: host stats or (sim_s, waves, dropped) differ")
+
+
+def fleet_pair(trace, hosts, dev, tag, **kw):
+    """The fleet on the card through the kernel's wave mode and through the
+    plain wave loop: bit for bit, one launch a wave.  Returns the kernel's
+    report."""
+    from repro_torch import fleet
+    from repro_torch.kernels import tick_loop as tl
+
+    before = tl.tick_loop.launches
+    kern = fleet.run_fleet(trace, hosts, devices=[dev], **kw)
+    launches = tl.tick_loop.launches - before
+    plain = fleet.run_fleet(trace, hosts, devices=[dev],
+                            executor="reference", **kw)
+    check(tl.tick_loop.launches - before == launches,
+          f"{tag}: the plain fleet launched the kernel")
+    fleet_same(kern, plain, f"{tag}: kernel vs plain")
+    check(launches == kern.waves,
+          f"{tag}: {launches} launches for {kern.waves} waves")
+    return kern
+
+
+def fleet_golden_check(rep, gold, tag):
+    """A fleet report against fleet_full.json's columns: order, placement,
+    start, completion and time exact, energy to FLEET_RTOL; (sim_s, waves,
+    dropped) exact.  Returns the largest relative energy difference."""
+    ts = rep.transfers
+    check(len(ts) == len(gold["index"]),
+          f"{tag}: {len(ts)} transfers, JAX {len(gold['index'])}")
+    worst, n_exact = 0.0, 0
+    for k, t in enumerate(ts):
+        want = (gold["index"][k], gold["controllers"][gold["controller"][k]],
+                gold["hosts"][gold["host"][k]], gold["start_s"][k],
+                bool(gold["completed"][k]), gold["time_s"][k])
+        got = (int(t.name.rsplit("-", 1)[1]), t.controller, t.host,
+               t.start_s, t.completed, t.time_s)
+        check(got == want, f"{tag}: transfer {k}: {got} vs JAX {want}")
+        e = gold["energy_j"][k]
+        err = abs(t.energy_j - e) / max(abs(e), 1e-30)
+        check(err <= FLEET_RTOL, f"{tag}: {t.name} energy {t.energy_j} vs "
+                                 f"JAX {e}")
+        worst = max(worst, err)
+        n_exact += t.energy_j == e and t.moved_mb == gold["moved_mb"][k]
+    check((rep.sim_s, rep.waves, rep.dropped)
+          == (gold["sim_s"], gold["waves"], gold["dropped"]),
+          f"{tag}: (sim_s, waves, dropped) {(rep.sim_s, rep.waves, rep.dropped)}"
+          f" vs JAX {(gold['sim_s'], gold['waves'], gold['dropped'])}")
+    return worst, n_exact
+
+
+class WaveTimer:
+    """Splits a fleet run's device step by wave, on the card: the copies to
+    the card (``scheduler._to_device``, synchronised), the launch (CUDA
+    events around ``engine.run_cuda_wave_groups``: the wrapper's host-side
+    marshalling and the kernel) and the copies back (``scheduler._to_host``,
+    which synchronises); and each launch's bound: its lanes' state bytes
+    (each read or written once) against its executed lane-ticks'
+    operations.  Every ``sample``-th wave's batches are kept, to time the
+    kernel alone afterwards (:meth:`device_ms`).  Installed over the
+    scheduler's functions for one run (``with``)."""
+
+    def __init__(self, sample=100):
+        self.h2d_s = self.d2h_s = 0.0
+        self.events = []
+        self.bytes = self.ops = 0
+        self.sample = sample
+        self.kept = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import engine
+        from repro_torch.fleet import scheduler
+
+        self._saved = (scheduler._to_device, scheduler._to_host,
+                       engine.run_cuda_wave_groups)
+        to_device, to_host, launch = self._saved
+
+        def timed_to_device(dev, items):
+            t0 = time.perf_counter()
+            out = to_device(dev, items)
+            torch.cuda.synchronize()
+            self.h2d_s += time.perf_counter() - t0
+            return out
+
+        def timed_to_host(res):
+            t0 = time.perf_counter()
+            out = to_host(res)
+            self.d2h_s += time.perf_counter() - t0
+            return out
+
+        def timed_launch(waves):
+            if len(self.events) % self.sample == 0:
+                self.kept.append(waves)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = launch(waves)
+            end.record()
+            self.events.append((start, end))
+            self._bound(waves, res)
+            return res
+
+        scheduler._to_device, scheduler._to_host = (timed_to_device,
+                                                    timed_to_host)
+        engine.run_cuda_wave_groups = timed_launch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        from repro_torch.fleet import scheduler
+
+        (scheduler._to_device, scheduler._to_host,
+         engine.run_cuda_wave_groups) = self._saved
+
+    def _bound(self, waves, res):
+        import torch
+
+        from repro_torch.kernels import tick_loop as tl
+
+        for w, (_, _, done_at) in zip(waves, res):
+            kind, _, spec = tl.kernel_spec(w.controller, w.env)
+            b, p = w.bw.shape[0], (w.prow.shape[1] - 13) // 5
+            ticks = int(torch.where(done_at >= 0, done_at - w.step0 + 1,
+                                    w.wave_steps).sum())
+            self.bytes += 4 * (w.prow.numel() + 2 * b + 2 * w.f32.numel()
+                               + 2 * w.i32.numel() + b)
+            self.ops += ticks * (OPS_PER_LANE_TICK
+                                 + OPS_PER_PARTITION_TICK * p
+                                 + ENV_NET_OPS[spec.network]
+                                 + ENV_ENERGY_OPS[spec.energy])
+            if kind == tl.KIND_LEARNED:
+                tick_ops, table = learned_ops(w.controller)
+                self.bytes += 4 * table
+                self.ops += ticks // w.ctrl_every * tick_ops
+
+    def kernel_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def device_ms(self):
+        """Device time (ms) of each kept wave's launch: 5 launches queued
+        behind a spin (:func:`kernel_device_ms`)."""
+        from repro_torch.kernels import tick_loop as tl
+
+        return [kernel_device_ms(lambda w=w: tl.tick_wave_grouped(w), reps=5)
+                for w in self.kept]
+
+    def plain_ms(self):
+        """Each kept wave's groups through the plain wave loop on the card
+        (host clock, ending in a synchronise; one run each)."""
+        import torch
+
+        from repro_torch.kernels import tick_loop as tl
+
+        out = []
+        for waves in self.kept:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for w in waves:
+                tl.tick_wave_reference(
+                    w.controller, w.env, w.cpu, w.prow, w.bw, w.f32, w.i32,
+                    w.step0, wave_steps=w.wave_steps, dt=w.dt,
+                    ctrl_every=w.ctrl_every)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def bound_ms(self):
+        t_bytes = self.bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = self.ops / F32_OPS_PER_S * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fleet(dev) -> dict:
+    """Phase 20: the offline fleet through the tick kernel's wave mode, and
+    offline tuning.  (a) the fleet goldens, kernel against plain on the
+    card bit for bit; (b) the full benchmark fleet against JAX's CPU
+    golden, timed and split by wave, and the --smoke trace kernel against
+    plain; (c) examples/tune_controller.py's search against JAX's
+    golden."""
+    import math
+
+    import torch
+
+    from repro_torch import api, fleet
+    from repro_torch.core.types import CHAMELEON, CpuProfile
+    from repro_torch.kernels import tick_loop as tl
+
+    fast, one = fleet_small_datasets()
+    eemt = api.make_controller("eemt")
+
+    # 20a. The goldens.  _GOLDEN: 16 transfers, 2 hosts x 4 slots.
+    rep = fleet_pair(fleet16_trace(),
+                     fleet.host_pool(2, nic_mbps=CHAMELEON.bandwidth_mbps,
+                                     slots=4), dev, "20a _GOLDEN",
+                     wave_s=10.0, dt=0.5)
+    got = {t.name: (t.energy_j, t.time_s, t.start_s, t.host, t.completed)
+           for t in rep.transfers}
+    check(got == FLEET16_GOLDEN, "20a _GOLDEN: "
+          + str([(k, got.get(k), v) for k, v in FLEET16_GOLDEN.items()
+                 if got.get(k) != v][:3]))
+    check(rep.total_energy_j == math.fsum(v[0] for v in
+                                          FLEET16_GOLDEN.values())
+          and (rep.sim_s, rep.waves) == (130.0, 12),
+          f"20a _GOLDEN: total {rep.total_energy_j}, (sim_s, waves) "
+          f"{(rep.sim_s, rep.waves)}")
+    # FLEET_GOLDEN under the reference environment and dvfs's matched
+    # tables.
+    matched = api.Environment(network=api.DvfsNetworkModel(),
+                              energy=api.DvfsEnergyModel.matched(
+                                  CpuProfile()))
+    req = fleet.TransferRequest(arrival_s=0.0, datasets=fast,
+                                controller=eemt, profile=CHAMELEON,
+                                name="g", total_s=240.0)
+    for env in (None, matched):
+        r = fleet_pair([req], [fleet.Host("h", nic_mbps=FLEET_NO_CONTENTION,
+                                          environment=env)], dev,
+                       f"20a FLEET_GOLDEN {env and 'dvfs'}", wave_s=5.0,
+                       dt=0.1).transfers[0]
+        check((r.completed, r.time_s, r.energy_j, r.moved_mb)
+              == FLEET_ONE_GOLDEN, f"20a FLEET_GOLDEN: {r}")
+    # The heterogeneous pool (tests/test_environments.py:386-413): each
+    # pinned lane equals api.run under its host's environment.
+    envs = (None, "lossy-wan", "big-little")
+    hosts = [fleet.Host(f"h{i}", nic_mbps=FLEET_NO_CONTENTION, environment=e)
+             for i, e in enumerate(envs)]
+    reqs = [fleet.TransferRequest(arrival_s=0.0, datasets=fast,
+                                  controller=eemt, profile=CHAMELEON,
+                                  host=i, name=f"h{i}", total_s=600.0)
+            for i in range(len(envs))]
+    rep = fleet_pair(reqs, hosts, dev, "20a heterogeneous", wave_s=5.0,
+                     dt=0.1)
+    by = {t.name: t for t in rep.transfers}
+    for i, env in enumerate(envs):
+        solo = api.run(api.Scenario(profile=CHAMELEON, datasets=fast,
+                                    controller=eemt, environment=env,
+                                    total_s=600.0, dt=0.1), device=dev)
+        t = by[f"h{i}"]
+        check((t.time_s, t.energy_j) == (solo.time_s, solo.energy_j),
+              f"20a heterogeneous {env}: {t.time_s}/{t.energy_j} vs api.run "
+              f"{solo.time_s}/{solo.energy_j}")
+    # The learned controller through the fleet (tests/test_learn.py:248),
+    # with JAX's BC policy: its lane equals api.run bit for bit.
+    learned = api.make_controller("learned", params=golden_learned()[0])
+    reqs = [fleet.TransferRequest(arrival_s=0.0, datasets=fast,
+                                  controller=learned, profile=CHAMELEON,
+                                  name="lrn", total_s=240.0),
+            fleet.TransferRequest(arrival_s=1.0, datasets=one,
+                                  controller=eemt, profile=CHAMELEON,
+                                  name="heur", total_s=240.0)]
+    rep = fleet_pair(reqs, fleet.host_pool(2, nic_mbps=FLEET_NO_CONTENTION),
+                     dev, "20a learned", wave_s=5.0, dt=0.1)
+    lrn = {t.name: t for t in rep.transfers}["lrn"]
+    solo = api.run(api.Scenario(profile=CHAMELEON, datasets=fast,
+                                controller=learned, total_s=240.0, dt=0.1),
+                   device=dev)
+    check(lrn.moved_mb > 0 and (lrn.time_s, lrn.energy_j)
+          == (solo.time_s, solo.energy_j),
+          f"20a learned: {lrn.time_s}/{lrn.energy_j} vs api.run "
+          f"{solo.time_s}/{solo.energy_j}")
+    # A wave of 15 ticks over controller strides of 2: lanes admitted in
+    # different waves tick their controllers out of phase.
+    rep = fleet_pair(fleet16_trace(),
+                     fleet.host_pool(2, nic_mbps=CHAMELEON.bandwidth_mbps,
+                                     slots=4), dev, "20a unaligned",
+                     wave_s=7.5, dt=0.5)
+    print(f"[20a fleet goldens] _GOLDEN 16/16 bit-exact, (sim_s, waves) "
+          f"(130.0, 12); FLEET_GOLDEN under the reference environment and "
+          f"dvfs's matched tables; the reference / lossy-wan / big-little "
+          f"pool and the learned lane (JAX's BC policy) each equal to "
+          f"api.run; a 15-tick wave over strides of 2 ({rep.waves} waves): "
+          f"kernel == plain on the card in every case, bit for bit, one "
+          f"launch a wave", flush=True)
+
+    # 20b. The full offline fleet at the benchmark's size, then its --smoke
+    # trace kernel against plain.
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "fleet_full.json")) as f:
+        gold = json.load(f)
+    trace, hosts = fleet_bench_build(smoke=False)
+    tl.tick_loop.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = fleet.run_fleet(trace, hosts, wave_s=FLEET_WAVE_S, dt=FLEET_DT,
+                          devices=[dev])
+    wall = time.perf_counter() - t0
+    fleet_launches = tl.tick_loop.launches
+    check(fleet_launches == rep.waves,
+          f"20b: {fleet_launches} launches for {rep.waves} waves")
+    worst, n_exact = fleet_golden_check(rep, gold["full"], "20b fleet")
+    with WaveTimer() as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fleet.run_fleet(trace, hosts, wave_s=FLEET_WAVE_S,
+                                dt=FLEET_DT, devices=[dev])
+        split_wall = time.perf_counter() - t0
+    fleet_same(rep, again, "20b: the timed rerun")
+    ks = timer.kernel_ms()
+    kernel_s = sum(ks) / 1e3
+    bound_ms, bound_by = timer.bound_ms()
+    host_s = split_wall - timer.h2d_s - timer.d2h_s - kernel_s
+    n_waves = len(ks)
+    dev_ms = [t for t in timer.device_ms() if t is not None]
+    check(dev_ms, "20b: no wave's device time could be read")
+    wave_ms = statistics.median(dev_ms)
+    wave_plain_ms = statistics.median(timer.plain_ms())
+    print(f"[20b fleet] {len(trace)} transfers on {len(hosts)} hosts x 16 "
+          f"slots (benchmarks/fleet.py), wave_s {FLEET_WAVE_S}, dt "
+          f"{FLEET_DT}: wall {wall:.3f} s, {len(trace) / wall:.1f} "
+          f"transfers/s; {rep.waves} waves, {fleet_launches} launches; "
+          f"sim_s {rep.sim_s}, {rep.completed} completed, {rep.dropped} "
+          f"dropped; vs fleet_full.json: order, hosts, starts, completion "
+          f"and time exact, energy max rel diff {worst:.3g} (rtol "
+          f"{FLEET_RTOL}), {n_exact}/{len(trace)} transfers bit-exact",
+          flush=True)
+    print(f"[20b fleet] split (a rerun, bit-equal, wall {split_wall:.3f} s): "
+          f"launches (the wrapper's marshalling and the kernel, by events) "
+          f"{sum(ks):.3f} ms in {n_waves} = {sum(ks) / n_waves:.4f} ms a "
+          f"wave (median {statistics.median(ks):.4f}); the kernel alone "
+          f"(device time of every {timer.sample}th wave, {len(dev_ms)} "
+          f"waves, 5 launches queued behind a spin) median {wave_ms:.4f} ms "
+          f"a wave (min {min(dev_ms):.4f}, max {max(dev_ms):.4f}; the plain "
+          f"wave loop on the same waves {wave_plain_ms:.1f} ms, median); "
+          f"bound "
+          f"{bound_ms / n_waves:.3g} ms a wave by {bound_by} ({timer.bytes} "
+          f"B, {timer.ops} ops in all); host prep {host_s:.3f} s "
+          f"({host_s / split_wall:.1%} of the wall; "
+          f"{host_s / n_waves * 1e3:.3f} ms a wave), H2D {timer.h2d_s:.3f} "
+          f"s, D2H and sync {timer.d2h_s:.3f} s", flush=True)
+    jbc = gold["full"]["by_controller"]
+    for name, row in rep.by_controller().items():
+        p99 = row["slowdown"]["p99"]
+        print(f"[20b fleet] fleet/{name}: {row['joules_per_gb']:.1f} J/GB; "
+              f"p99={'na' if p99 is None else format(p99, '.2f')}; "
+              f"n={row['transfers']} (JAX {jbc[name]['joules_per_gb']:.1f} "
+              f"J/GB, p99 {jbc[name]['p99_slowdown']})", flush=True)
+    strace, shosts = fleet_bench_build(smoke=True)
+    t0 = time.perf_counter()
+    srep = fleet_pair(strace, shosts, dev, "20b smoke", wave_s=FLEET_WAVE_S,
+                      dt=FLEET_DT)
+    s_wall = time.perf_counter() - t0
+    s_worst, s_exact = fleet_golden_check(srep, gold["smoke"], "20b smoke")
+    print(f"[20b smoke] {len(strace)} transfers on {len(shosts)} hosts: "
+          f"kernel == plain on the card, bit for bit ({srep.waves} waves, "
+          f"one launch each; both runs {s_wall:.1f} s); vs fleet_full.json "
+          f"energy max rel diff {s_worst:.3g}, {s_exact}/{len(strace)} "
+          f"bit-exact", flush=True)
+
+    # 20c. examples/tune_controller.py's search.
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "tune_full.json")) as f:
+        tgold = json.load(f)
+    args = ("energy_j", ("avg_tput_gbps", ">=", 2.0))
+    kw = dict(seeds=[0, 1, 2], refine=2, device=dev)
+    tl.tick_loop.launches = 0
+    t0 = time.perf_counter()
+    res = api.tune(tune_example_experiment(), *args, **kw)
+    t_wall = time.perf_counter() - t0
+    tune_launches = tl.tick_loop.launches
+    check(res.best == tgold["best"] and res.feasible == tgold["feasible"]
+          and res.n_evals == tgold["n_evals"],
+          f"20c: best {res.best} feasible {res.feasible} n_evals "
+          f"{res.n_evals} vs JAX {tgold['best']} {tgold['feasible']} "
+          f"{tgold['n_evals']}")
+    jrep = api.Report.from_dict(tgold["report"])
+    check(len(res.report) == len(jrep)
+          and all(list(res.report[a]) == list(jrep[a]) for a in jrep.axes),
+          "20c: the search's rows differ from JAX's")
+    t_worst = 0.0
+    for m in jrep.metrics:
+        a, b = res.report[m].astype(float), jrep[m].astype(float)
+        err = float((abs(a - b) / abs(b).clip(1e-30)).max())
+        check(err <= TUNE_EXAMPLE_RTOL, f"20c: {m} rel diff {err}")
+        t_worst = max(t_worst, err)
+    rungs = []
+
+    def spy(scenarios):
+        before = tl.tick_loop.launches
+        out = api.sweep(scenarios, device=dev)
+        rungs.append((len(scenarios), tl.tick_loop.launches - before))
+        return out
+
+    api.tune(tune_example_experiment(), *args, sweeper=spy, **kw)
+    check(sum(n for _, n in rungs) == tune_launches
+          and all(n == 1 for _, n in rungs),
+          f"20c: launches by rung {rungs}, {tune_launches} in all")
+    print(f"[20c tune] examples/tune_controller.py's search on the card: "
+          f"best {res.best}, feasible {res.feasible}, {res.n_evals} "
+          f"evaluations, as JAX's; every row's metrics within rel "
+          f"{t_worst:.3g} (rtol {TUNE_EXAMPLE_RTOL}); wall {t_wall:.3f} s; "
+          f"{tune_launches} launches, by rung (cells, launches): {rungs}",
+          flush=True)
+    return {"launches": {"fleet": fleet_launches, "tune": tune_launches},
+            "wave_ms": wave_ms, "wave_launch_ms": sum(ks) / n_waves,
+            "wave_plain_ms": wave_plain_ms,
+            "wave_bound_ms": bound_ms / n_waves,
+            "wave_bound_by": bound_by, "fleet_wall_s": wall}
 
 
 def phase_learn(dev) -> dict:
@@ -3368,14 +3912,16 @@ def main() -> int:
         return 1
     return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv,
                  learn_only="--learn" in sys.argv,
-                 recurrent_only="--recurrent-train" in sys.argv)
+                 recurrent_only="--recurrent-train" in sys.argv,
+                 fleet_only="--fleet" in sys.argv)
 
 
 def smoke(dev, tick_only=False, learn_only=False,
-          recurrent_only=False) -> int:
+          recurrent_only=False, fleet_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
-    and 19), on the CUDA device ``dev``."""
+    and 19; with ``fleet_only``, phases 1-3 and 20), on the CUDA device
+    ``dev``."""
     import torch
 
     from repro_torch import api
@@ -3517,6 +4063,10 @@ def smoke(dev, tick_only=False, learn_only=False,
     if learn_only:
         phase_learn(dev)
         print("chip_smoke: learn phases (1-3, 18) passed")
+        return 0
+    if fleet_only:
+        phase_fleet(dev)
+        print("chip_smoke: fleet phases (1-3, 20) passed")
         return 0
 
     # 4. smoke grid: cuda executor vs reference executor, both on the card
@@ -3725,6 +4275,7 @@ def smoke(dev, tick_only=False, learn_only=False,
         print("chip_smoke: tick-loop phases (1-6, 17) passed")
         return 0
     learned = phase_learn(dev)
+    fleets = phase_fleet(dev)
 
     # 7-9: flash attention, the float32 golden, serving (the tick loop's
     # tensors are freed first, so the serving phases' peaks are their own)
@@ -3765,9 +4316,10 @@ def smoke(dev, tick_only=False, learn_only=False,
         "source": "src/repro_torch/kernels/csrc/tick_loop.cu",
         "replaces": "src/repro/core/engine.py:612",
         "launches": main_launches + sum(envs["launches"].values())
-        + sum(learned["launches"].values()),
+        + sum(learned["launches"].values())
+        + sum(fleets["launches"].values()),
         "launches_by_path": {"fig2": main_launches, **envs["launches"],
-                             **learned["launches"]},
+                             **learned["launches"], **fleets["launches"]},
         "environments": ["reference", "lossy-wan", "logfit", "big-little",
                          "dvfs"],
         "controllers": ["ME", "EEMT", "EETT", "ismail-target", "static",
@@ -3778,7 +4330,17 @@ def smoke(dev, tick_only=False, learn_only=False,
         "note": "ms: fig2's groups in one grouped launch (the main path); "
                 "per_group_ms: each group in its own launch",
         "per_group_ms": group_ms, "grids_ms": envs["grids_ms"],
-        "grids_per_group_ms": envs["grids_group_ms"]}, {
+        "grids_per_group_ms": envs["grids_group_ms"],
+        "wave_mode": {"ms_per_wave": fleets["wave_ms"],
+                      "launch_ms_per_wave": fleets["wave_launch_ms"],
+                      "plain_ms_per_wave": fleets["wave_plain_ms"],
+                      "bound_ms_per_wave": fleets["wave_bound_ms"],
+                      "bound_by": fleets["wave_bound_by"],
+                      "note": "the fleet's waves (phase 20b): each wave's "
+                              "groups in one launch; ms: device time "
+                              "(launches queued behind a spin), median of "
+                              "sampled waves; launch_ms: CUDA events around "
+                              "each launch call, marshalling included"}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",

@@ -220,10 +220,15 @@ def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
     """Build the tick of a lane batch: ``step((sim, ts), (step_idx, bw))``
     returns ``((sim', ts'), TickMetrics)`` with one value per lane.
 
-    ``step_idx`` is a Python int (every lane of a batch shares the clock),
-    ``bw`` the ``[B]`` bandwidth share of this tick.  A lane is ``live``
-    while it still has bytes remaining *and* ``step_idx < n_steps``;
-    non-live lanes freeze their whole carry and emit zeroed metrics.
+    ``step_idx`` is a Python int when every lane of the batch shares the
+    clock (a run or a sweep), or a ``[B]`` int32 tensor of each lane's own
+    absolute tick (a fleet wave, whose lanes were admitted at different
+    ticks): the controller then ticks, masked, on the lanes where
+    ``step_idx % ctrl_every == ctrl_every - 1``, as JAX's vmapped step
+    does.  ``bw`` is the ``[B]`` bandwidth share of this tick.  A lane is
+    ``live`` while it still has bytes remaining *and* ``step_idx <
+    n_steps`` (``n_steps`` with a shared clock only); non-live lanes freeze
+    their whole carry and emit zeroed metrics.
 
     With ``observe=True`` the step returns ``((sim', ts'), (TickMetrics,
     Observation))``; the flag is read here, so the default step is the
@@ -259,12 +264,17 @@ def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
         )
 
         ts_pre = ts  # post-accumulation, pre-decision (what the tick sees)
-        ctrl_tick = (controller.tunes
-                     and step_idx % ctrl_every == ctrl_every - 1)
+        per_lane = isinstance(step_idx, torch.Tensor)
+        ctrl_tick = controller.tunes and (
+            per_lane or step_idx % ctrl_every == ctrl_every - 1)
         if ctrl_tick:
             ts_new = _controller_tick(controller, ts, sim2, out.cpu_load,
                                       inp.net, cpu, inp.sla)
-            ts = TunerState(*[torch.where(live, n, o)
+            is_ctrl = live
+            if per_lane:
+                is_ctrl = torch.logical_and(
+                    live, step_idx % ctrl_every == ctrl_every - 1)
+            ts = TunerState(*[torch.where(is_ctrl, n, o)
                               for n, o in zip(ts_new, ts)])
 
         _, f = env.energy.operating_point(cpu, ts.cores, ts.freq_idx)
@@ -295,7 +305,7 @@ def make_step_fn(controller, env, cpu: CpuProfile, inp: ScanInputs, *,
             d_num_ch=ftz(ts.num_ch - ts_pre.num_ch) * livef,
             d_cores=masked_i(ts.cores - ts_pre.cores),
             d_freq_idx=masked_i(ts.freq_idx - ts_pre.freq_idx),
-            is_ctrl=(live if ctrl_tick else torch.zeros_like(live)),
+            is_ctrl=(is_ctrl if ctrl_tick else torch.zeros_like(live)),
             live=live,
         )
         return (sim2, ts), (metrics, obs)
@@ -373,6 +383,91 @@ def run_cuda_groups(batches):
     return out
 
 
+# ------------------------------------------------------------- waves ------
+#
+# The fleet (repro_torch.fleet) advances its in-flight transfers in waves
+# of ``wave_steps`` ticks, each lane resuming from its carried state
+# (JAX: repro/core/engine.py:692-853).  A wave lane differs from a run's in
+# three ways: its clock is its own absolute tick ``step0`` (ticks since the
+# transfer was admitted), so controller-tick alignment survives wave
+# boundaries; its bandwidth is one share for the whole wave (the host NIC
+# share), not a schedule; and a wave returns only the final rows and the
+# tick the lane drained on (``done_at``; -1 while live), not traces.  Both
+# forms share make_step_fn, so a transfer that never sees contention is
+# bit-identical between the fleet and ``api.run``.
+
+
+def build_wave_core(controller, env, cpu: CpuProfile, *, wave_steps: int,
+                    dt: float, ctrl_every: int):
+    """One wave of a lane batch in the state-tuple form:
+    ``core(inp, sim0, ts0, step0) -> (sim', ts', done_at)``.
+
+    ``inp`` is :class:`ScanInputs` tensors with a leading lane axis and
+    ``bw`` the ``[B]`` share of each lane for the wave; ``step0`` the
+    ``[B]`` int32 absolute tick of each lane at wave start.  ``done_at`` is
+    ``step0`` plus the tick (within the wave) during which the lane
+    drained, or -1 if it is still live after the wave; a lane drained
+    before the wave gets ``step0``.  The eager loop stops once every lane
+    has drained: drained lanes are frozen, so the ticks it skips are no-ops.
+    """
+
+    def core(inp: ScanInputs, sim0, ts0, step0):
+        step = make_step_fn(controller, env, cpu, inp, dt=dt,
+                            ctrl_every=ctrl_every)
+        step0 = torch.as_tensor(step0, dtype=torch.int32)
+        done_at = torch.full_like(step0, -1)
+        carry = (sim0, ts0)
+        for k in range(wave_steps):
+            carry, m = step(carry, (step0 + k, inp.bw))
+            done_at = torch.where(torch.logical_and(done_at < 0, m.done),
+                                  step0 + k, done_at)
+            if not bool((done_at < 0).any()):
+                break
+        return (*carry, done_at)
+
+    return core
+
+
+def build_blocked_wave_core(controller, env, cpu: CpuProfile, *,
+                            wave_steps: int, dt: float, ctrl_every: int,
+                            n_partitions: int, executor: str):
+    """One wave of a lane batch in the flat-row form: ``core(prow [B,
+    13+5P], bw [B], f32 [B, 2P+9], i32 [B, 3], step0 [B]) -> (f32', i32',
+    done_at)``, the rows of :class:`repro_torch.core.tickstate.TickLayout`
+    for ``n_partitions``.  ``executor`` ``"cuda"`` is the tick kernel's
+    wave mode (:func:`repro_torch.kernels.tick_loop.tick_wave`, one
+    launch), ``"reference"`` its plain version (``tick_wave_reference``:
+    :func:`build_wave_core` on the unpacked rows)."""
+    from repro_torch.kernels import tick_loop as tl
+
+    if executor not in EXECUTORS:
+        raise ValueError(f"build_blocked_wave_core needs a concrete "
+                         f"executor, got {executor!r}")
+    wave = tl.tick_wave if executor == "cuda" else tl.tick_wave_reference
+    width = tickstate.TickLayout(n_partitions).params_size
+
+    def core(prow, bw, f32, i32, step0):
+        if prow.shape[-1] != width:
+            raise ValueError(f"parameter rows of width {prow.shape[-1]}, the "
+                             f"runner was built for {n_partitions} "
+                             f"partitions ({width})")
+        return wave(controller, env, cpu, prow, bw, f32, i32, step0,
+                    wave_steps=wave_steps, dt=dt, ctrl_every=ctrl_every)
+
+    return core
+
+
+def run_cuda_wave_groups(waves):
+    """A fleet wave's lane batches through the CUDA tick kernel's wave mode
+    together: one launch per partition count among them (and per 60
+    batches).  ``waves`` is a list of
+    :class:`repro_torch.kernels.tick_loop.Wave`, tensors on one CUDA
+    device; returns one ``(f32', i32', done_at)`` per batch, in order."""
+    from repro_torch.kernels import tick_loop as tl
+
+    return tl.tick_wave_grouped(waves)
+
+
 # ------------------------------------------------------------ caches ------
 #
 # Runners are cached per (controller code, env code, cpu, shape...,
@@ -385,12 +480,13 @@ _RUNNERS: dict = {}
 
 
 def clear_runner_caches() -> None:
-    """Drop every cached runner."""
+    """Drop every cached runner (wave runners too)."""
     _RUNNERS.clear()
 
 
 def runner_cache_sizes() -> dict[str, int]:
-    """Cached runners (observability / leak tests)."""
+    """Cached runners, wave runners included (observability / leak
+    tests)."""
     return {"runner": len(_RUNNERS)}
 
 
@@ -407,4 +503,23 @@ def get_runner(controller_code, env_code, cpu: CpuProfile, n_steps: int,
                                    n_steps=n_steps, dt=dt,
                                    ctrl_every=ctrl_every, executor=executor,
                                    observe=observe)
+    return _RUNNERS[key]
+
+
+def get_wave_runner(controller_code, env_code, cpu: CpuProfile,
+                    wave_steps: int, dt: float, ctrl_every: int,
+                    executor: str, n_partitions: int):
+    """Flat-row wave core (:func:`build_blocked_wave_core`) for one
+    (controller code, environment code, cpu, wave shape, executor,
+    partition count) group, cached.  ``executor`` must already be resolved
+    (:func:`resolve_executor` with the lanes' device).  Lanes are
+    independent, so a batch may carry drained filler lanes (zero rows):
+    they are frozen from their first tick."""
+    key = ("wave", controller_code, env_code, cpu, wave_steps, dt,
+           ctrl_every, executor, n_partitions)
+    if key not in _RUNNERS:
+        _RUNNERS[key] = build_blocked_wave_core(
+            controller_code, env_code, cpu, wave_steps=wave_steps, dt=dt,
+            ctrl_every=ctrl_every, n_partitions=n_partitions,
+            executor=executor)
     return _RUNNERS[key]

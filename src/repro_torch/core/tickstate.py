@@ -148,3 +148,17 @@ class TickLayout:
         for k, f in enumerate(_PARAM_VECTORS):
             out[f] = row[..., base + k * p: base + (k + 1) * p]
         return out
+
+    # ---------------------------------------------- host reads of a row ----
+
+    def remaining_sum(self, f32) -> float:
+        """Total bytes left, read off a host (numpy) f32 state row."""
+        return float(np.sum(f32[..., :self.n_partitions]))
+
+    def energy_j(self, f32) -> float:
+        """Energy so far, read off a host f32 state row."""
+        return float(f32[..., self.off_energy])
+
+    def bytes_moved(self, f32) -> float:
+        """Bytes moved so far, read off a host f32 state row."""
+        return float(f32[..., self.off_bytes])

@@ -159,7 +159,7 @@ def _load(source: str):
 #: ctypes argument types of ``tick_loop_set_group`` (csrc/tick_loop.cu)
 #: after its first two (the descriptor buffer and the index).
 TICK_LOOP_GROUP_ARGTYPES = (
-    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
     + [ctypes.c_float, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
        ctypes.POINTER(ctypes.c_float), ctypes.c_void_p, ctypes.c_void_p,

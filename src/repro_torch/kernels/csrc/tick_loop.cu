@@ -77,6 +77,15 @@
 // clipped.  fsm counts controller ticks.  tanhf, log1pf and log10f are
 // libdevice's (no fast math).
 //
+// Waves (the offline fleet, repro_torch.fleet; JAX's wave runners,
+// repro/core/engine.py:724-791, which never used Pallas).  The same kernel
+// in wave mode: a group's lanes resume from their state rows for n_steps
+// ticks, each from its own absolute tick step0[lane] (lanes admitted in
+// different waves keep their controller phase), with one bandwidth share a
+// lane for the whole wave (bw read with stride 0 in time), no trace stores
+// and a done_at [B] output.  A wave's groups go in one launch, as a
+// sweep's do.
+//
 // Bound.  Per lane the tick is a serial chain of ~150 dependent scalar
 // float32 operations, so the kernel is latency-bound: a lane-tick costs the
 // chain's latency, and only more lanes in flight hide it.  Its traffic is
@@ -161,6 +170,11 @@ struct Args {
   int* cores;
   float* freq;
   int* done;
+  // Wave mode (the fleet's waves; null otherwise): each lane's start tick
+  // and its done_at output.  A wave reads bw as [B] (one share a lane for
+  // every tick) and leaves the trace pointers null.
+  const int* step0;    // [B]
+  int* done_at;        // [B]
   int n_lanes, n_steps, ctrl_every;
   float dt;
   Cpu cpu;
@@ -342,10 +356,17 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
   const float b_nom = bandwidth * (1.0f - cross);
   const float ramp = clip(dt / (8.0f * rtt_c), 0.0f, 1.0f);
 
+  // Wave mode: the lane's clock starts at step0[lane] (the controller
+  // tick's phase), its share is one value for the whole wave, and no trace
+  // is written.
+  const bool wave = a.step0 != nullptr;
+  const int clock0 = wave ? a.step0[lane] : 0;
+  const float bw_wave = wave ? a.bw[lane] : 0.0f;
+
   int i = 0;
   while (i < a.n_steps && sum_lr<P>(rem) > 0.0f) {
     const size_t o = static_cast<size_t>(i) * B + lane;
-    const float bw_scale = a.bw[o];
+    const float bw_scale = wave ? bw_wave : a.bw[o];
 
     // This tick's environment, from the lane's time before the step: the
     // jittered RTT (and the window ramp it sets), the schedule's bandwidth.
@@ -463,7 +484,7 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
 
     // Controller tick (repro/core/engine.py:228-242, 306-312;
     // repro/core/tuners.py:50-231; repro/core/load_control.py:20-44).
-    if (KIND != STATIC && (i % a.ctrl_every) == a.ctrl_every - 1) {
+    if (KIND != STATIC && ((clock0 + i) % a.ctrl_every) == a.ctrl_every - 1) {
       const float rs2 = sum_lr<P>(rem);
       const float win_s = vmax(acc_s, 1e-6f);
       const float avg_tput = acc_mb / win_s;
@@ -572,14 +593,22 @@ __device__ __forceinline__ void run_lane(const Args a, const int lane) {
       acc_s = 0.0f;
     }
 
-    a.tput[o] = tput;
-    a.power[o] = pw;
-    a.load[o] = load;
-    a.nch[o] = total_ch;
-    a.cores[o] = cores;
-    a.freq[o] = op_freq<ENV>(cpu, env, freq_idx);
-    a.done[o] = sum_lr<P>(rem) <= 0.0f ? 1 : 0;
+    if (!wave) {
+      a.tput[o] = tput;
+      a.power[o] = pw;
+      a.load[o] = load;
+      a.nch[o] = total_ch;
+      a.cores[o] = cores;
+      a.freq[o] = op_freq<ENV>(cpu, env, freq_idx);
+      a.done[o] = sum_lr<P>(rem) <= 0.0f ? 1 : 0;
+    }
     ++i;
+  }
+  // done_at: the absolute tick the lane drained on (step0 itself for a
+  // lane drained before the wave), or -1 while it is live.
+  if (wave) {
+    a.done_at[lane] =
+        sum_lr<P>(rem) <= 0.0f ? clock0 + (i > 0 ? i - 1 : 0) : -1;
   }
 
   float* so = a.fout + static_cast<size_t>(lane) * NF;
@@ -693,7 +722,8 @@ GroupedFn pick_grouped(int p) {
 int make_args(int p, int kind, int scaling, const void* prow, const void* bw,
               const void* f0, const void* i0, void* fout, void* iout,
               void* tput, void* power, void* load, void* nch, void* cores,
-              void* freq, void* done, int n_lanes, int n_steps,
+              void* freq, void* done, const void* step0, void* done_at,
+              int n_lanes, int n_steps,
               int ctrl_every, float dt, const float* cpu_consts, int n_freq,
               int num_cores, const int* env_codes, const float* env_consts,
               const void* env_bins, const void* policy, const int* widths,
@@ -715,7 +745,8 @@ int make_args(int p, int kind, int scaling, const void* prow, const void* bw,
       env.network < 0 || env.network > 2 || env.energy < 0 ||
       env.energy > 2 ||
       (env.energy == ENERGY_DVFS && (env.n_vf < 2 || env.n_vf > kMaxVf)) ||
-      (env.network == NET_LOGFIT && (env.n_bins < 1 || env_bins == nullptr))) {
+      (env.network == NET_LOGFIT && (env.n_bins < 1 || env_bins == nullptr)) ||
+      (step0 == nullptr) != (done_at == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int pol_size = 0;
@@ -764,6 +795,8 @@ int make_args(int p, int kind, int scaling, const void* prow, const void* bw,
   args.cores = static_cast<int*>(cores);
   args.freq = static_cast<float*>(freq);
   args.done = static_cast<int*>(done);
+  args.step0 = static_cast<const int*>(step0);
+  args.done_at = static_cast<int*>(done_at);
   args.n_lanes = n_lanes;
   args.n_steps = n_steps;
   args.ctrl_every = ctrl_every;
@@ -808,7 +841,12 @@ extern "C" {
 // The learned controller (kind 5) takes `policy`, its device weight table
 // (w0, b0, w1, b1, ... row-major), and `widths`, a host array of
 // n_layers + 1 layer widths (9, hidden..., 9; at most 4 layers, each width
-// at most 64); other kinds ignore both.
+// at most 64); other kinds ignore both.  `step0` and `done_at` (device
+// [n_lanes] int32, both or neither) select the wave mode: `bw` is then
+// [n_lanes], one share a lane for all n_steps ticks, the seven trace
+// pointers may be null (nothing is written to them), a lane's controller
+// ticks fall where (step0 + i) % ctrl_every == ctrl_every - 1, and
+// done_at receives step0 + the tick the lane drained on, or -1.
 
 // Bytes of one group descriptor (the buffer tick_loop_set_group fills).
 int tick_loop_group_bytes() { return static_cast<int>(sizeof(tick::Group)); }
@@ -823,6 +861,7 @@ int tick_loop_set_group(void* groups, int index, int p, int kind,
                         const void* f0, const void* i0, void* fout,
                         void* iout, void* tput, void* power, void* load,
                         void* nch, void* cores, void* freq, void* done,
+                        const void* step0, void* done_at,
                         int n_lanes, int n_steps, int ctrl_every, float dt,
                         const float* cpu_consts, int n_freq, int num_cores,
                         const int* env_codes, const float* env_consts,
@@ -834,9 +873,9 @@ int tick_loop_set_group(void* groups, int index, int p, int kind,
   bool generic = false;
   const int err = tick::make_args(
       p, kind, scaling, prow, bw, f0, i0, fout, iout, tput, power, load, nch,
-      cores, freq, done, n_lanes, n_steps, ctrl_every, dt, cpu_consts,
-      n_freq, num_cores, env_codes, env_consts, env_bins, policy, widths,
-      n_layers, &g.a, &generic);
+      cores, freq, done, step0, done_at, n_lanes, n_steps, ctrl_every, dt,
+      cpu_consts, n_freq, num_cores, env_codes, env_consts, env_bins, policy,
+      widths, n_layers, &g.a, &generic);
   if (err != 0) return err;
   g.p = p;
   g.kind = kind;
@@ -856,7 +895,7 @@ int tick_loop_grouped_launch(int p, const void* groups, int n_groups,
   const tick::GroupedFn fn = tick::pick_grouped(p);
   if (fn == nullptr || n_groups < 1 || n_groups > tick::kMaxGroups)
     return static_cast<int>(cudaErrorInvalidValue);
-  tick::GroupTable table{};   // 31,208 bytes, copied by the launch
+  tick::GroupTable table{};   // 32,168 bytes, copied by the launch
   table.n_groups = n_groups;
   int blocks = 0, pol_size = 0;
   for (int k = 0; k < n_groups; ++k) {

@@ -26,6 +26,13 @@ Both return ``(f32 [B, 2P+9], i32 [B, 3], TickMetrics)``; every trace is
 on, and on every tick never executed).  The traces are views of time-major
 ``[n_steps, B]`` buffers — the kernel's stores coalesce across the lanes of
 a warp that way — and the plain version uses the same layout.
+
+The fleet's waves (``repro_torch.fleet``) run the same kernel in its wave
+mode: :func:`tick_wave` / :func:`tick_wave_grouped` take :class:`Wave`
+batches — each lane's absolute start tick ``step0`` (its controller
+phase), one bandwidth share a lane for the whole wave, no traces — and
+return ``(f32, i32, done_at)``; :func:`tick_wave_reference` is their
+plain version.  A wave's groups go in one launch, as a sweep's do.
 """
 from __future__ import annotations
 
@@ -331,20 +338,47 @@ def tick_loop(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
                                ctrl_every)])[0]
 
 
-def _marshal(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
-             dt: float, ctrl_every: int):
+class Wave(NamedTuple):
+    """One lane batch of a fleet wave, as :func:`tick_wave` takes it: the
+    rows of its lanes, each lane's start tick and its one bandwidth share
+    for the whole wave of ``wave_steps`` ticks."""
+
+    controller: object
+    env: object
+    cpu: CpuProfile
+    prow: torch.Tensor      # [B, 13+5P] f32
+    bw: torch.Tensor        # [B] f32
+    f32: torch.Tensor       # [B, 2P+9] f32
+    i32: torch.Tensor       # [B, 3] i32
+    step0: torch.Tensor     # [B] i32
+    wave_steps: int
+    dt: float
+    ctrl_every: int
+
+
+def _marshal(batch):
     """Allocate a lane batch's outputs and marshal the arguments of
     ``tick_loop_set_group`` (``csrc/tick_loop.cu``) after the descriptor
-    buffer and index.  Returns (arguments, (f32, i32, TickMetrics), tensors
-    the launch reads): the caller keeps the last alive until the launch is
-    enqueued."""
+    buffer and index.  ``batch`` is a run's ``(controller, env, cpu, prow,
+    bw, f0, i0, dt, ctrl_every)`` or a :class:`Wave`.  Returns (arguments,
+    outputs, tensors the launch reads): the caller keeps the last alive
+    until the launch is enqueued.  The outputs are ``(f32, i32,
+    TickMetrics)`` for a run and ``(f32, i32, done_at)`` for a wave."""
+    wave = isinstance(batch, Wave)
+    if wave:
+        controller, env, cpu, prow, bw, f0, i0, step0, n_steps, dt, \
+            ctrl_every = batch
+        n_lanes = bw.shape[0]
+        bw_k = bw.contiguous()
+        step0 = step0.contiguous()
+    else:
+        controller, env, cpu, prow, bw, f0, i0, dt, ctrl_every = batch
+        n_lanes, n_steps = bw.shape
+        bw_k = bw.t().contiguous()                 # time-major [n_steps, B]
     kind, scaling, spec = kernel_spec(controller, env)
-    n_lanes, n_steps = bw.shape
     prow, f0, i0 = prow.contiguous(), f0.contiguous(), i0.contiguous()
-    bw_t = bw.t().contiguous()                     # time-major [n_steps, B]
     fout = torch.empty_like(f0)
     iout = torch.empty_like(i0)
-    out = _alloc_traces(n_steps, n_lanes, prow.device)
     consts, n_freq = _cpu_consts(cpu)
     env_codes = (ctypes.c_int * len(spec.codes))(*spec.codes)
     env_consts = (ctypes.c_float * len(spec.consts))(*spec.consts.tolist())
@@ -356,34 +390,44 @@ def _marshal(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
         policy = controller.table(prow.device).data_ptr()
         widths = (ctypes.c_int * len(w))(*w)
         n_layers = len(w) - 1
+    if wave:
+        done_at = torch.empty((n_lanes,), dtype=torch.int32,
+                              device=prow.device)
+        traces = [None] * len(TickMetrics._fields)
+        clock = (step0.data_ptr(), done_at.data_ptr())
+        outs = (fout, iout, done_at)
+        keep = (prow, bw_k, f0, i0, step0)
+    else:
+        bufs = _alloc_traces(n_steps, n_lanes, prow.device)
+        traces = [buf.data_ptr() for buf in bufs]
+        clock = (None, None)
+        outs = (fout, iout, TickMetrics(*[b.t() for b in bufs]))
+        keep = (prow, bw_k, f0, i0)
     args = (_n_partitions(prow), kind, int(scaling),
-            prow.data_ptr(), bw_t.data_ptr(), f0.data_ptr(),
-            i0.data_ptr(), fout.data_ptr(), iout.data_ptr(),
-            *[buf.data_ptr() for buf in out],
-            n_lanes, n_steps, int(ctrl_every),
+            prow.data_ptr(), bw_k.data_ptr(), f0.data_ptr(),
+            i0.data_ptr(), fout.data_ptr(), iout.data_ptr(), *traces,
+            *clock, n_lanes, n_steps, int(ctrl_every),
             float(np.float32(dt)), consts, n_freq,
             int(cpu.num_cores), env_codes, env_consts, bins,
             policy, widths, n_layers)
-    return args, (fout, iout, TickMetrics(*[b.t() for b in out])), \
-        (prow, bw_t, f0, i0)
+    return args, outs, keep
 
 
 def marshal_and_launch_groups(lib, launch, batches, *, stream):
-    """Marshal every lane batch of ``batches`` (see :func:`tick_loop_grouped`;
-    one partition count, at least one lane each) into one table of group
-    descriptors (``tick_loop_set_group`` of ``lib``) and call ``launch``
+    """Marshal every lane batch of ``batches`` (runs as
+    :func:`tick_loop_grouped` takes them, or :class:`Wave` s; one partition
+    count, at least one lane each) into one table of group descriptors
+    (``tick_loop_set_group`` of ``lib``) and call ``launch``
     (``tick_loop_grouped_launch``'s signature) once on it.  Returns (error
-    code, [(f32, i32, TickMetrics)] in order).  The tensors' device is the
-    caller's business: :func:`tick_loop_grouped` hands CUDA tensors to the
-    CUDA library; tests/test_torch_tick_loop_host.py hands CPU tensors to
-    the same source compiled for the host."""
+    code, [outputs] in order).  The tensors' device is the caller's
+    business: :func:`tick_loop_grouped` hands CUDA tensors to the CUDA
+    library; tests/test_torch_tick_loop_host.py hands CPU tensors to the
+    same source compiled for the host."""
     n = len(batches)
     table = ctypes.create_string_buffer(lib.tick_loop_group_bytes() * n)
     outs, keep = [], []     # keep: what the launch reads, alive until then
-    for i, (controller, env, cpu, prow, bw, f0, i0, dt, ctrl_every) in \
-            enumerate(batches):
-        args, out, k = _marshal(controller, env, cpu, prow, bw, f0, i0,
-                                dt=dt, ctrl_every=ctrl_every)
+    for i, batch in enumerate(batches):
+        args, out, k = _marshal(batch)
         err = lib.tick_loop_set_group(table, i, *args)
         if err != 0:
             return err, None
@@ -393,21 +437,20 @@ def marshal_and_launch_groups(lib, launch, batches, *, stream):
 
 
 def launch_groups(lib, launch, batches, *, stream):
-    """Run ``batches`` (see :func:`tick_loop_grouped`) in as few launches
-    of ``launch`` as the kernel takes: one per partition count among them
-    (and per :data:`MAX_GROUPS` batches of one count), the batches of no
-    lane in none.  Returns (error code, [(f32, i32, TickMetrics)] in order,
+    """Run ``batches`` (see :func:`marshal_and_launch_groups`) in as few
+    launches of ``launch`` as the kernel takes: one per partition count
+    among them (and per :data:`MAX_GROUPS` batches of one count), the
+    batches of no lane in none.  Returns (error code, [outputs] in order,
     launches); on an error the outputs are None.  As
     :func:`marshal_and_launch_groups`, the device is the caller's
     business."""
     outs = [None] * len(batches)
     by_p: dict[int, list[int]] = {}
-    for i, (c, e, cpu, prow, bw, f0, i0, dt, ce) in enumerate(batches):
-        if bw.shape[0]:
-            by_p.setdefault(_n_partitions(prow), []).append(i)
+    for i, batch in enumerate(batches):
+        if batch[4].shape[0]:
+            by_p.setdefault(_n_partitions(batch[3]), []).append(i)
         else:
-            outs[i] = _marshal(c, e, cpu, prow, bw, f0, i0, dt=dt,
-                               ctrl_every=ce)[1]
+            outs[i] = _marshal(batch)[1]
     launches = 0
     for idxs in by_p.values():
         for k in range(0, len(idxs), MAX_GROUPS):
@@ -420,6 +463,56 @@ def launch_groups(lib, launch, batches, *, stream):
             for i, o in zip(chunk, out):
                 outs[i] = o
     return 0, outs, launches
+
+
+def _check_batches(batches, dev):
+    """Raise unless every batch is on ``dev`` with the kernel's dtypes and
+    shapes, within its partition limit."""
+    for batch in batches:
+        prow, bw, f0, i0 = batch[3:7]
+        p = _n_partitions(prow)
+        if not 1 <= p <= MAX_PARTITIONS:
+            raise ValueError(f"the CUDA tick kernel takes 1..{MAX_PARTITIONS}"
+                             f" partitions, got {p}")
+        lay = tickstate.TickLayout(p)
+        n_lanes = bw.shape[0]
+        if isinstance(batch, Wave):
+            _check("bw", bw, torch.float32, (n_lanes,), dev)
+            _check("step0", batch.step0, torch.int32, (n_lanes,), dev)
+        else:
+            n_steps = bw.shape[1]
+            _check("bw", bw, torch.float32, (n_lanes, n_steps), dev)
+            if n_steps >= 2 ** 31 // max(n_lanes, 1):
+                raise ValueError("tick_loop: n_steps * B must fit in int32")
+        _check("prow", prow, torch.float32, (n_lanes, lay.params_size), dev)
+        _check("f0", f0, torch.float32, (n_lanes, lay.f32_size), dev)
+        _check("i0", i0, torch.int32, (n_lanes, lay.i32_size), dev)
+
+
+def _launch_on_card(batches, dev):
+    """:func:`launch_groups` of ``batches`` on the card's library, counted
+    in ``tick_loop.launches``; raises on a launch error."""
+    _check_batches(batches, dev)
+    from . import build
+
+    lib = build.load_tick_loop()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err, outs, launches = launch_groups(
+            lib, lib.tick_loop_grouped_launch, batches, stream=stream)
+    tick_loop.launches += launches
+    if err != 0:
+        raise RuntimeError(f"tick_loop kernel launch failed: "
+                           f"{build.cuda_error_string(lib, err)}")
+    return outs
+
+
+def _device_of(batches):
+    dev = batches[0][3].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"tick_loop runs on CUDA (or, as its plain "
+                         f"version, on the CPU), got {dev}")
+    return dev
 
 
 @torch.inference_mode()
@@ -437,43 +530,67 @@ def tick_loop_grouped(batches):
     synchronising, or raises."""
     if not batches:
         return []
-    dev = batches[0][3].device
+    dev = _device_of(batches)
     if dev.type == "cpu":
         return [tick_loop_reference(c, e, cpu, prow, bw, f0, i0, dt=dt,
                                     ctrl_every=ce)
                 for c, e, cpu, prow, bw, f0, i0, dt, ce in batches]
-    if dev.type != "cuda":
-        raise ValueError(f"tick_loop runs on CUDA (or, as its plain "
-                         f"version, on the CPU), got {dev}")
-    for _, _, _, prow, bw, f0, i0, _, _ in batches:
-        n_lanes, n_steps = bw.shape
-        p = _n_partitions(prow)
-        if not 1 <= p <= MAX_PARTITIONS:
-            raise ValueError(f"the CUDA tick kernel takes 1..{MAX_PARTITIONS}"
-                             f" partitions, got {p}")
-        lay = tickstate.TickLayout(p)
-        _check("prow", prow, torch.float32, (n_lanes, lay.params_size), dev)
-        _check("bw", bw, torch.float32, (n_lanes, n_steps), dev)
-        _check("f0", f0, torch.float32, (n_lanes, lay.f32_size), dev)
-        _check("i0", i0, torch.int32, (n_lanes, lay.i32_size), dev)
-        if n_steps >= 2 ** 31 // max(n_lanes, 1):
-            raise ValueError("tick_loop: n_steps * B must fit in int32")
+    return _launch_on_card(batches, dev)
 
-    from . import build
 
-    lib = build.load_tick_loop()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err, outs, launches = launch_groups(
-            lib, lib.tick_loop_grouped_launch, batches, stream=stream)
-    tick_loop.launches += launches
-    if err != 0:
-        raise RuntimeError(f"tick_loop kernel launch failed: "
-                           f"{build.cuda_error_string(lib, err)}")
-    return outs
+@torch.inference_mode()
+def tick_wave_reference(controller, env, cpu: CpuProfile, prow, bw, f32,
+                        i32, step0, *, wave_steps: int, dt: float,
+                        ctrl_every: int):
+    """Plain PyTorch wave over a lane batch (any device): every lane
+    resumes from its state rows and runs ``wave_steps`` ticks of
+    :func:`repro_torch.core.engine.make_step_fn` from its own absolute
+    tick ``step0`` (``[B]`` int32), at its one share ``bw`` (``[B]``).
+    Returns ``(f32', i32', done_at [B] int32)``: ``done_at`` is ``step0``
+    plus the tick the lane drained on, or -1 while it is live.  The loop
+    stops once every lane has drained (a drained lane is frozen)."""
+    lay = tickstate.TickLayout(_n_partitions(prow))
+    sim, ts = lay.unpack_state(f32, i32)
+    core = engine.build_wave_core(controller, env, cpu,
+                                  wave_steps=wave_steps, dt=dt,
+                                  ctrl_every=ctrl_every)
+    inp = engine.ScanInputs(state0=ts, bw=bw, **lay.unpack_params(prow))
+    sim, ts, done_at = core(inp, sim, ts, step0)
+    return (*lay.pack_state(sim, ts), done_at)
+
+
+def tick_wave(controller, env, cpu: CpuProfile, prow, bw, f32, i32, step0,
+              *, wave_steps: int, dt: float, ctrl_every: int):
+    """One wave of a lane batch through the CUDA tick kernel's wave mode
+    (one launch); for CPU tensors :func:`tick_wave_reference`.  Arguments
+    and result as :func:`tick_wave_reference`'s."""
+    return tick_wave_grouped([Wave(controller, env, cpu, prow, bw, f32, i32,
+                                   step0, wave_steps, dt, ctrl_every)])[0]
+
+
+@torch.inference_mode()
+def tick_wave_grouped(waves):
+    """Run a fleet wave's lane batches (:class:`Wave` s: one per controller
+    code x environment x CPU x controller stride) through the CUDA tick
+    kernel's wave mode in one launch per partition count among them (and
+    per :data:`MAX_GROUPS` batches).  Returns one ``(f32, i32, done_at)``
+    per batch, bit for bit what :func:`tick_wave_reference` returns for it.
+    For CPU tensors each batch runs :func:`tick_wave_reference`; for CUDA
+    tensors this launches the kernel on the current stream without
+    synchronising, or raises."""
+    if not waves:
+        return []
+    dev = _device_of(waves)
+    if dev.type == "cpu":
+        return [tick_wave_reference(w.controller, w.env, w.cpu, w.prow, w.bw,
+                                    w.f32, w.i32, w.step0,
+                                    wave_steps=w.wave_steps, dt=w.dt,
+                                    ctrl_every=w.ctrl_every)
+                for w in waves]
+    return _launch_on_card(waves, dev)
 
 
 #: Kernel launches since the last reset (set to 0 to start counting):
-#: :func:`tick_loop` and :func:`tick_loop_grouped` count here, once per
-#: launch.
+#: :func:`tick_loop`, :func:`tick_loop_grouped`, :func:`tick_wave` and
+#: :func:`tick_wave_grouped` count here, once per launch.
 tick_loop.launches = 0
