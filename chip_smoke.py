@@ -1168,9 +1168,11 @@ class WaveTimer:
     marshalling and the kernel) and the copies back (``scheduler._to_host``,
     which synchronises); and each launch's bound: its lanes' state bytes
     (each read or written once) against its executed lane-ticks'
-    operations.  Every ``sample``-th wave's batches are kept, to time the
-    kernel alone afterwards (:meth:`device_ms`).  Installed over the
-    scheduler's functions for one run (``with``)."""
+    operations.  Every ``sample``-th wave's batches are kept with the
+    kernel's outputs, to time the kernel alone afterwards
+    (:meth:`device_ms`) and to hold it against the plain wave
+    (:meth:`plain_ms`).  Installed over the scheduler's functions for one
+    run (``with``)."""
 
     def __init__(self, sample=100):
         self.h2d_s = self.d2h_s = 0.0
@@ -1203,14 +1205,15 @@ class WaveTimer:
             return out
 
         def timed_launch(waves):
-            if len(self.events) % self.sample == 0:
-                self.kept.append(waves)
+            keep = len(self.events) % self.sample == 0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             res = launch(waves)
             end.record()
             self.events.append((start, end))
+            if keep:
+                self.kept.append((waves, res))
             self._bound(waves, res)
             return res
 
@@ -1256,26 +1259,31 @@ class WaveTimer:
         from repro_torch.kernels import tick_loop as tl
 
         return [kernel_device_ms(lambda w=w: tl.tick_wave_grouped(w), reps=5)
-                for w in self.kept]
+                for w, _ in self.kept]
 
     def plain_ms(self):
         """Each kept wave's groups through the plain wave loop on the card
-        (host clock, ending in a synchronise; one run each)."""
+        (host clock, ending in a synchronise; one run each), each group's
+        ``(f32, i32, done_at)`` held bit for bit against what the kernel
+        returned for it in the fleet run."""
         import torch
 
         from repro_torch.kernels import tick_loop as tl
 
         out = []
-        for waves in self.kept:
+        for n, (waves, kern) in enumerate(self.kept):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for w in waves:
-                tl.tick_wave_reference(
-                    w.controller, w.env, w.cpu, w.prow, w.bw, w.f32, w.i32,
-                    w.step0, wave_steps=w.wave_steps, dt=w.dt,
-                    ctrl_every=w.ctrl_every)
+            plain = [tl.tick_wave_reference(
+                w.controller, w.env, w.cpu, w.prow, w.bw, w.f32, w.i32,
+                w.step0, wave_steps=w.wave_steps, dt=w.dt,
+                ctrl_every=w.ctrl_every) for w in waves]
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3)
+            for g, (a, b) in enumerate(zip(kern, plain)):
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"20b: wave {n * self.sample}, group {g}: the kernel's "
+                      f"rows or done_at differ from the plain wave's")
         return out
 
     def bound_ms(self):
@@ -1434,7 +1442,9 @@ def phase_fleet(dev) -> dict:
           f"(device time of every {timer.sample}th wave, {len(dev_ms)} "
           f"waves, 5 launches queued behind a spin) median {wave_ms:.4f} ms "
           f"a wave (min {min(dev_ms):.4f}, max {max(dev_ms):.4f}; the plain "
-          f"wave loop on the same waves {wave_plain_ms:.1f} ms, median); "
+          f"wave loop on the same waves {wave_plain_ms:.1f} ms, median, its "
+          f"rows and done_at bit-equal to the kernel's on all "
+          f"{len(timer.kept)}); "
           f"bound "
           f"{bound_ms / n_waves:.3g} ms a wave by {bound_by} ({timer.bytes} "
           f"B, {timer.ops} ops in all); host prep {host_s:.3f} s "

@@ -430,20 +430,16 @@ def build_wave_core(controller, env, cpu: CpuProfile, *, wave_steps: int,
 
 def build_blocked_wave_core(controller, env, cpu: CpuProfile, *,
                             wave_steps: int, dt: float, ctrl_every: int,
-                            n_partitions: int, executor: str):
-    """One wave of a lane batch in the flat-row form: ``core(prow [B,
-    13+5P], bw [B], f32 [B, 2P+9], i32 [B, 3], step0 [B]) -> (f32', i32',
-    done_at)``, the rows of :class:`repro_torch.core.tickstate.TickLayout`
-    for ``n_partitions``.  ``executor`` ``"cuda"`` is the tick kernel's
-    wave mode (:func:`repro_torch.kernels.tick_loop.tick_wave`, one
-    launch), ``"reference"`` its plain version (``tick_wave_reference``:
-    :func:`build_wave_core` on the unpacked rows)."""
+                            n_partitions: int):
+    """One wave of a lane batch in the flat-row form, plain PyTorch:
+    ``core(prow [B, 13+5P], bw [B], f32 [B, 2P+9], i32 [B, 3], step0 [B])
+    -> (f32', i32', done_at)``, the rows of
+    :class:`repro_torch.core.tickstate.TickLayout` for ``n_partitions``
+    (:func:`repro_torch.kernels.tick_loop.tick_wave_reference`:
+    :func:`build_wave_core` on the unpacked rows).  On a card the waves go
+    through the tick kernel instead (:func:`run_cuda_wave_groups`)."""
     from repro_torch.kernels import tick_loop as tl
 
-    if executor not in EXECUTORS:
-        raise ValueError(f"build_blocked_wave_core needs a concrete "
-                         f"executor, got {executor!r}")
-    wave = tl.tick_wave if executor == "cuda" else tl.tick_wave_reference
     width = tickstate.TickLayout(n_partitions).params_size
 
     def core(prow, bw, f32, i32, step0):
@@ -451,8 +447,9 @@ def build_blocked_wave_core(controller, env, cpu: CpuProfile, *,
             raise ValueError(f"parameter rows of width {prow.shape[-1]}, the "
                              f"runner was built for {n_partitions} "
                              f"partitions ({width})")
-        return wave(controller, env, cpu, prow, bw, f32, i32, step0,
-                    wave_steps=wave_steps, dt=dt, ctrl_every=ctrl_every)
+        return tl.tick_wave_reference(controller, env, cpu, prow, bw, f32,
+                                      i32, step0, wave_steps=wave_steps,
+                                      dt=dt, ctrl_every=ctrl_every)
 
     return core
 
@@ -508,18 +505,15 @@ def get_runner(controller_code, env_code, cpu: CpuProfile, n_steps: int,
 
 def get_wave_runner(controller_code, env_code, cpu: CpuProfile,
                     wave_steps: int, dt: float, ctrl_every: int,
-                    executor: str, n_partitions: int):
-    """Flat-row wave core (:func:`build_blocked_wave_core`) for one
-    (controller code, environment code, cpu, wave shape, executor,
-    partition count) group, cached.  ``executor`` must already be resolved
-    (:func:`resolve_executor` with the lanes' device).  Lanes are
-    independent, so a batch may carry drained filler lanes (zero rows):
-    they are frozen from their first tick."""
+                    n_partitions: int):
+    """Plain flat-row wave core (:func:`build_blocked_wave_core`) for one
+    (controller code, environment code, cpu, wave shape, partition count)
+    group, cached.  Lanes are independent, so a batch may carry drained
+    filler lanes (zero rows): they are frozen from their first tick."""
     key = ("wave", controller_code, env_code, cpu, wave_steps, dt,
-           ctrl_every, executor, n_partitions)
+           ctrl_every, n_partitions)
     if key not in _RUNNERS:
         _RUNNERS[key] = build_blocked_wave_core(
             controller_code, env_code, cpu, wave_steps=wave_steps, dt=dt,
-            ctrl_every=ctrl_every, n_partitions=n_partitions,
-            executor=executor)
+            ctrl_every=ctrl_every, n_partitions=n_partitions)
     return _RUNNERS[key]

@@ -25,7 +25,9 @@
    (``repro_torch.core.engine.run_cuda_wave_groups``); on the CPU each
    group runs the plain wave loop (``engine.get_wave_runner``).  With
    several devices each group's lanes are split over them
-   (``repro_torch.distributed.sharding``).
+   (``repro_torch.distributed.sharding``), each device runs the executor
+   resolved for it, and every device's share is started before any result
+   is copied back.
 4. **Drain & refill.**  Lanes whose transfers drained (or exceeded their
    budget) are retired, their host slots freed, and the next wave admits
    from the queue.
@@ -118,35 +120,36 @@ def _to_host(res: list) -> list:
     return [tuple(o[a:b] for o in outs) for a, b in zip(offs[:-1], offs[1:])]
 
 
-def _run_on_device(dev, items: list, wave_steps: int, dt: float,
-                   lay: tickstate.TickLayout, executor: str) -> list:
-    """One device's share of a wave: ``items`` is ``[(group key, host
-    rows)]``.  The rows go to ``dev`` (:func:`_to_device`), each group runs
-    as a slice of them (on ``cuda``, all groups in one launch) and the
-    outputs come back (:func:`_to_host`).  Returns ``[(f32', i32',
-    done_at)]`` host arrays, one per item."""
+def _launch_on_device(dev, items: list, wave_steps: int, dt: float,
+                      lay: tickstate.TickLayout, executor: str) -> list:
+    """Start one device's share of a wave: ``items`` is ``[(group key, host
+    rows)]``.  The rows go to ``dev`` (:func:`_to_device`) and each group
+    runs as a slice of them: with the ``cuda`` executor (``executor`` is
+    already resolved for ``dev``) all groups in one launch of the tick
+    kernel's wave mode, queued without a wait; with ``reference`` the plain
+    wave loop.  Returns ``[(f32', i32', done_at)]`` on ``dev``, one per
+    item."""
     batches = _to_device(dev, items)
     if executor == "cuda":
-        res = engine.run_cuda_wave_groups([
+        return engine.run_cuda_wave_groups([
             tl.Wave(code, env_code, cpu, *rows, wave_steps, dt, ctrl_every)
             for (code, env_code, cpu, ctrl_every), rows in batches])
-    else:
-        res = [engine.get_wave_runner(code, env_code, cpu, wave_steps, dt,
-                                      ctrl_every, executor,
-                                      lay.n_partitions)(*rows)
-               for (code, env_code, cpu, ctrl_every), rows in batches]
-    return _to_host(res)
+    return [engine.get_wave_runner(code, env_code, cpu, wave_steps, dt,
+                                   ctrl_every, lay.n_partitions)(*rows)
+            for (code, env_code, cpu, ctrl_every), rows in batches]
 
 
 def _run_wave_groups(groups: list, wave_steps: int, dt: float, devices,
-                     lay: tickstate.TickLayout, executor: str) -> None:
+                     executors: list, lay: tickstate.TickLayout) -> None:
     """Advance every group of a wave by ``wave_steps`` ticks, in place.
 
-    ``groups`` is ``[(key, lanes, shares)]``.  With several devices a
-    group of at least as many lanes is padded with drained zero lanes to a
-    multiple of the device count and split over the devices
+    ``groups`` is ``[(key, lanes, shares)]``; ``executors`` holds each
+    device's resolved executor.  With several devices a group of at least
+    as many lanes is padded with drained zero lanes to a multiple of the
+    device count and split over the devices
     (``sharding.pad_batch(fill="zero")``, ``split_batch``); smaller groups
-    run on the first device."""
+    run on the first device.  Every device's share is started before any
+    result is copied back, so the cards run their shares at once."""
     ndev = len(devices)
     per_dev: list = [[] for _ in devices]
     where = []                  # per group: [(device, item index)]
@@ -161,8 +164,10 @@ def _run_wave_groups(groups: list, wave_steps: int, dt: float, devices,
         for d, part in enumerate(parts):
             where[-1].append((d, len(per_dev[d])))
             per_dev[d].append((key, part))
-    outs = [_run_on_device(devices[d], items, wave_steps, dt, lay, executor)
-            if items else [] for d, items in enumerate(per_dev)]
+    started = [_launch_on_device(devices[d], items, wave_steps, dt, lay,
+                                 executors[d]) if items else []
+               for d, items in enumerate(per_dev)]
+    outs = [_to_host(res) if res else [] for res in started]
     for (_, lanes, _), locs in zip(groups, where):
         f32o, i32o, done_at = (np.concatenate(xs) for xs in zip(
             *[outs[d][i] for d, i in locs]))
@@ -191,9 +196,10 @@ def run_fleet(trace: Sequence[TransferRequest], hosts: Sequence[Host], *,
     ``devices`` are the torch devices the lanes run on (default: the CUDA
     device; pass ``["cpu"]`` for the plain version on the CPU); with
     several, each group's lanes are split over them.  ``executor`` picks the
-    wave's lowering (``repro_torch.core.engine.resolve_executor`` for the
-    first device: ``auto`` is the kernel on a card, the plain loop on the
-    CPU; every executor is bit-identical).
+    wave's lowering, resolved for each device
+    (``repro_torch.core.engine.resolve_executor``: ``auto`` is the kernel
+    on a card and the plain loop on the CPU; every executor is
+    bit-identical).
 
     ``faults`` injects a fault schedule (any object with the hooks of the
     JAX package's ``repro.workloads.faults.FaultSchedule``: ``churn_fold``,
@@ -216,7 +222,7 @@ def run_fleet(trace: Sequence[TransferRequest], hosts: Sequence[Host], *,
                else [resolve_device(d) for d in devices])
     if not devices:
         raise ValueError("need at least one device")
-    executor = engine.resolve_executor(executor, devices[0])
+    executors = [engine.resolve_executor(executor, d) for d in devices]
 
     reqs = sorted(trace, key=request_sort_key)
 
@@ -380,7 +386,7 @@ def run_fleet(trace: Sequence[TransferRequest], hosts: Sequence[Host], *,
             [(key, [lanes[i] for i in idxs],
               [share[lanes[i].host_idx] for i in idxs])
              for key, idxs in groups.items()],
-            wave_steps, dt, devices, lay, executor)
+            wave_steps, dt, devices, executors, lay)
 
         hosts_active = set()
         for before, ln in zip(moved_before, lanes):

@@ -28,11 +28,11 @@ on, and on every tick never executed).  The traces are views of time-major
 a warp that way — and the plain version uses the same layout.
 
 The fleet's waves (``repro_torch.fleet``) run the same kernel in its wave
-mode: :func:`tick_wave` / :func:`tick_wave_grouped` take :class:`Wave`
+mode: :func:`tick_wave_grouped` takes :class:`Wave`
 batches — each lane's absolute start tick ``step0`` (its controller
 phase), one bandwidth share a lane for the whole wave, no traces — and
-return ``(f32, i32, done_at)``; :func:`tick_wave_reference` is their
-plain version.  A wave's groups go in one launch, as a sweep's do.
+returns ``(f32, i32, done_at)`` for each; :func:`tick_wave_reference` is
+the plain version.  A wave's groups go in one launch, as a sweep's do.
 """
 from __future__ import annotations
 
@@ -339,9 +339,9 @@ def tick_loop(controller, env, cpu: CpuProfile, prow, bw, f0, i0, *,
 
 
 class Wave(NamedTuple):
-    """One lane batch of a fleet wave, as :func:`tick_wave` takes it: the
-    rows of its lanes, each lane's start tick and its one bandwidth share
-    for the whole wave of ``wave_steps`` ticks."""
+    """One lane batch of a fleet wave, as :func:`tick_wave_grouped` takes
+    it: the rows of its lanes, each lane's start tick and its one bandwidth
+    share for the whole wave of ``wave_steps`` ticks."""
 
     controller: object
     env: object
@@ -559,15 +559,6 @@ def tick_wave_reference(controller, env, cpu: CpuProfile, prow, bw, f32,
     return (*lay.pack_state(sim, ts), done_at)
 
 
-def tick_wave(controller, env, cpu: CpuProfile, prow, bw, f32, i32, step0,
-              *, wave_steps: int, dt: float, ctrl_every: int):
-    """One wave of a lane batch through the CUDA tick kernel's wave mode
-    (one launch); for CPU tensors :func:`tick_wave_reference`.  Arguments
-    and result as :func:`tick_wave_reference`'s."""
-    return tick_wave_grouped([Wave(controller, env, cpu, prow, bw, f32, i32,
-                                   step0, wave_steps, dt, ctrl_every)])[0]
-
-
 @torch.inference_mode()
 def tick_wave_grouped(waves):
     """Run a fleet wave's lane batches (:class:`Wave` s: one per controller
@@ -591,6 +582,6 @@ def tick_wave_grouped(waves):
 
 
 #: Kernel launches since the last reset (set to 0 to start counting):
-#: :func:`tick_loop`, :func:`tick_loop_grouped`, :func:`tick_wave` and
+#: :func:`tick_loop`, :func:`tick_loop_grouped` and
 #: :func:`tick_wave_grouped` count here, once per launch.
 tick_loop.launches = 0

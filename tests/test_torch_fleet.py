@@ -465,6 +465,55 @@ def test_lanes_split_over_devices_change_nothing():
     assert_equal(one, two)
 
 
+def test_each_device_resolves_its_own_executor(monkeypatch):
+    """A pool of a CPU and a card under ``auto``: the CPU's share runs the
+    plain wave and the card's share goes through the tick kernel's wave
+    mode (``engine.run_cuda_wave_groups``), never the plain loop.  Here the
+    card is a stand-in: its rows stay on the CPU and its launches run the
+    plain wave.  ``cuda`` asked of a pool with a CPU raises."""
+    import torch
+
+    from repro_torch.core import engine as tengine
+    from repro_torch.fleet import scheduler as tsched
+    from repro_torch.kernels import tick_loop as tl
+
+    trace = jfleet.poisson_trace(rate_per_s=1.0, n_transfers=12,
+                                 datasets=[ONE, FAST],
+                                 controllers=("eemt", "wget/curl"),
+                                 profile=CHAMELEON, seed=5, total_s=600.0)
+    hosts = jfleet.host_pool(2, nic_mbps=CHAMELEON.bandwidth_mbps, slots=4)
+    one = port_fleet(trace, hosts, wave_s=5.0, dt=0.1)
+    to_device, plain_runner = tsched._to_device, tengine.get_wave_runner
+    moved, launched, plain = [], [], []
+
+    def on_cpu(dev, items):
+        moved.append(torch.device(dev).type)
+        return to_device("cpu", items)
+
+    def card(waves):
+        launched.append(len(waves))
+        return tl.tick_wave_grouped(waves)
+
+    def runner(*a):
+        plain.append(moved[-1])
+        return plain_runner(*a)
+
+    monkeypatch.setattr(tsched, "resolve_device", torch.device)
+    monkeypatch.setattr(tsched, "_to_device", on_cpu)
+    monkeypatch.setattr(tengine, "run_cuda_wave_groups", card)
+    monkeypatch.setattr(tengine, "get_wave_runner", runner)
+    two = tfleet.run_fleet([port_request(r) for r in trace],
+                           [port_host(h) for h in hosts], wave_s=5.0,
+                           dt=0.1, devices=["cpu", "cuda"])
+    assert_equal(one, two)
+    assert launched and len(launched) == moved.count("cuda")
+    assert plain and set(plain) == {"cpu"}
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tfleet.run_fleet([port_request(r) for r in trace],
+                         [port_host(h) for h in hosts], wave_s=5.0, dt=0.1,
+                         devices=["cuda", "cpu"], executor="cuda")
+
+
 def test_sharding_helpers(monkeypatch):
     rows = (np.arange(10, dtype=np.float32).reshape(5, 2),
             np.arange(5, dtype=np.int32))

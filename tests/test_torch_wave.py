@@ -147,7 +147,7 @@ def test_plain_wave_matches_jax_wave_by_wave(ctrl, phase):
     code, env_code, cpu, ce = ts[0].key
     assert ce == 2 or ctrl == "wget/curl"
     runner = tengine.get_wave_runner(code, env_code, cpu, WAVE, DT, ce,
-                                     "reference", ts[0].n_partitions)
+                                     ts[0].n_partitions)
     prow, f32, i32 = (torch.as_tensor(x) for x in _rows(ts))
     bw = torch.tensor(SHARES, dtype=torch.float32)
     for w, (jf, ji, jd) in enumerate(want):
@@ -164,19 +164,15 @@ def test_wave_runner_is_cached_and_checks_its_width():
     tengine.clear_runner_caches()
     ctrl = tapi.make_controller("eemt").code()
     env = tapi.as_environment(None).code()
-    a = tengine.get_wave_runner(ctrl, env, CpuProfile(), WAVE, DT, 2,
-                                "reference", 2)
-    b = tengine.get_wave_runner(ctrl, env, CpuProfile(), WAVE, DT, 2,
-                                "reference", 2)
+    a = tengine.get_wave_runner(ctrl, env, CpuProfile(), WAVE, DT, 2, 2)
+    b = tengine.get_wave_runner(ctrl, env, CpuProfile(), WAVE, DT, 2, 2)
     assert a is b and tengine.runner_cache_sizes() == {"runner": 1}
+    c = tengine.get_wave_runner(ctrl, env, CpuProfile(), WAVE, DT, 2, 3)
+    assert c is not a and tengine.runner_cache_sizes() == {"runner": 2}
     with pytest.raises(ValueError):
         a(torch.zeros((1, 13 + 5 * 3)), torch.ones(1), torch.zeros((1, 15)),
           torch.zeros((1, 3), dtype=torch.int32),
           torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(ValueError):
-        tengine.build_blocked_wave_core(ctrl, env, CpuProfile(),
-                                        wave_steps=WAVE, dt=DT, ctrl_every=2,
-                                        n_partitions=2, executor="auto")
     tengine.clear_runner_caches()
 
 
@@ -190,7 +186,7 @@ def test_drained_and_zero_lanes_are_frozen():
     code, env_code, cpu, ce = ts[0].key
     prow, f32, i32 = (torch.as_tensor(x) for x in _rows(ts))
     runner = tengine.get_wave_runner(code, env_code, cpu, 400, DT, ce,
-                                     "reference", ts[0].n_partitions)
+                                     ts[0].n_partitions)
     bw = torch.ones(3)
     f1, i1, d1 = runner(prow, bw, f32, i32, torch.zeros(3, dtype=torch.int32))
     assert (d1 >= 0).all()
