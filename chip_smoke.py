@@ -163,14 +163,37 @@ Phases (each prints a line; any failure exits non-zero):
               CPU: order, hosts, starts, completion and time exact, energy
               to 1e-5): wall, transfers/s, launches, and a rerun split by
               wave (kernel by CUDA events against its bound, copies, host
-              prep); its ``--smoke`` trace kernel against plain; (c)
+              prep); its ``--smoke`` trace through the kernel against the
+              same file's smoke columns; (c)
               ``examples/tune_controller.py``'s ``api.tune`` against
               ``tests/torch_goldens/tune_full.json``: best, feasible and
               evaluations equal, every row's metrics to 1e-5, launches by
               rung.
+21. online   — run right after phase 20: the online fleet
+              (``run_fleet_online``: every occupied slot pool of a wave in
+              one launch of the tick kernel's wave mode) and the workloads.
+              (a) tests/test_fleet_online.py's shared trace (24 transfers, 2
+              hosts x 4 slots, wave_s 10, dt 0.5, pool_capacity 64) equal
+              to ``run_fleet`` per transfer and in totals, as is a 15-tick
+              wave over strides of 2; 8 transfers through one slot: the
+              kernel against the plain wave loop on the card, bit for
+              bit, one launch a wave; ``max_partitions`` 9 refused before
+              a wave; (b) ``benchmarks/fleet.py --online --smoke``'s leg
+              (10,000 diurnal transfers, 4 hosts, wave_s 20, dt 1.0,
+              pool_capacity 256) against
+              ``tests/torch_goldens/online_full.json`` (JAX on the CPU:
+              order, hosts, starts, completion, time and counters exact,
+              energy to 1e-5): wall, transfers/s, launches, a rerun split
+              by wave, every 10th wave's kernel held to the plain wave on
+              its occupied slots; peak device memory equal for 1,000 and
+              10,000 transfers; (c) ``benchmarks/workloads.py --smoke``'s
+              HTTP grid (8 cells) and fault leg (resume, scratch) through
+              both drivers: offline == online per transfer and ledger,
+              ``goodput_mb == offered_mb`` bit for bit, against
+              ``tests/torch_goldens/workloads_full.json``.
 
-Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b and 20c drive the main
-paths: each kernel's launch count is set to 0 just before and read just
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b and 21c drive
+the main paths: each kernel's launch count is set to 0 just before and read just
 after; every attention launch there must take the bf16 (wgmma) route.  The
 float32 (FMA) attention kernels' launches are counted over the float32 goldens' entry points
 (phases 8, 11, 15 and 19c).  The last two lines are the kernel summary and
@@ -188,7 +211,7 @@ runs phases 1-3 and 18 only, and prints neither either;
 
     python3 chip_smoke.py --fleet
 
-runs phases 1-3 and 20 only, and prints neither;
+runs phases 1-3, 20 and 21 only, and prints neither;
 
     python3 chip_smoke.py --recurrent-train
 
@@ -206,6 +229,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
@@ -344,6 +368,24 @@ FLEET_BENCH_CONTROLLERS = ("EEMT", "ME", "eett", "ismail-target",
 FLEET_WAVE_S, FLEET_DT = 15.0, 0.5
 FLEET_RTOL = 1e-5
 TUNE_EXAMPLE_RTOL = 1e-5
+
+# Phase 21: the online fleet and the workloads.  The online leg is
+# benchmarks/fleet.py's --online --smoke leg (build_online_stream and
+# _run_online_leg: a diurnal stream, 4 hosts at 10x Chameleon's NIC with
+# no slot limit, wave_s 20, dt 1.0, pool_capacity 256), copied here and
+# held against tests/torch_goldens/online_full.json (JAX on the CPU); the
+# workloads leg is benchmarks/workloads.py --smoke's HTTP grid and fault
+# leg, copied, held against tests/torch_goldens/workloads_full.json.
+# Placement, start, completion, time and every count exact, energy and MB
+# to FLEET_RTOL.
+ONLINE_CONTROLLERS = ("eemt", "me", "wget/curl")
+ONLINE_WAVE_S, ONLINE_DT, ONLINE_CAPACITY, ONLINE_HOSTS = 20.0, 1.0, 256, 4
+HTTP_CONTROLLERS = ("eemt", "wget/curl")
+HTTP_REUSE = {"reuse": 30.0, "cold": 0.0}
+HTTP_SLOS = {"tight": 6.0, "loose": 30.0}
+HTTP_SERVICE = dict(request_mb=64.0, size_menu=(0.5, 1.0, 2.0),
+                    conn_setup_mb=16.0, think_s=4.0, n_users=8, seed=1810)
+HTTP_REQUESTS = 80
 
 
 # Tune-sized sweep: 4 x 4 x 4 x 4 SLA points x 16 bandwidth schedules.
@@ -666,6 +708,13 @@ def degenerate_environments(profile, cpu):
 
 class Failed(Exception):
     pass
+
+
+def lap(label):
+    """Print the script's wall so far after ``label`` (where the 1,200 s
+    go)."""
+    print(f"[wall] {label} done at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
 
 def check(cond, msg):
@@ -1171,15 +1220,20 @@ class WaveTimer:
     operations.  Every ``sample``-th wave's batches are kept with the
     kernel's outputs, to time the kernel alone afterwards
     (:meth:`device_ms`) and to hold it against the plain wave
-    (:meth:`plain_ms`).  Installed over the scheduler's functions for one
-    run (``with``)."""
+    (:meth:`plain_ms`) on the rows whose parameter row is not all zero:
+    an online pool's free slots are zero rows, which the kernel leaves as
+    they are and the plain wave turns to NaN; an offline wave has none.
+    Installed over the scheduler's functions for one run (``with``); both
+    fleet loops run their waves through them
+    (``scheduler.run_wave_rows``)."""
 
-    def __init__(self, sample=100):
+    def __init__(self, sample=100, tag="20b"):
         self.h2d_s = self.d2h_s = 0.0
         self.events = []
         self.bytes = self.ops = 0
         self.sample = sample
         self.kept = []
+        self.tag = tag
 
     def __enter__(self):
         import torch
@@ -1280,10 +1334,12 @@ class WaveTimer:
                 ctrl_every=w.ctrl_every) for w in waves]
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3)
-            for g, (a, b) in enumerate(zip(kern, plain)):
-                check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                      f"20b: wave {n * self.sample}, group {g}: the kernel's "
-                      f"rows or done_at differ from the plain wave's")
+            for g, (w, a, b) in enumerate(zip(waves, kern, plain)):
+                m = w.prow.ne(0).any(dim=1)
+                check(all(torch.equal(x[m], y[m]) for x, y in zip(a, b)),
+                      f"{self.tag}: wave {n * self.sample}, group {g}: the "
+                      f"kernel's rows or done_at differ from the plain "
+                      f"wave's")
         return out
 
     def bound_ms(self):
@@ -1308,6 +1364,7 @@ def phase_fleet(dev) -> dict:
     from repro_torch.core.types import CHAMELEON, CpuProfile
     from repro_torch.kernels import tick_loop as tl
 
+    t_phase = time.perf_counter()
     fast, one = fleet_small_datasets()
     eemt = api.make_controller("eemt")
 
@@ -1458,17 +1515,23 @@ def phase_fleet(dev) -> dict:
               f"p99={'na' if p99 is None else format(p99, '.2f')}; "
               f"n={row['transfers']} (JAX {jbc[name]['joules_per_gb']:.1f} "
               f"J/GB, p99 {jbc[name]['p99_slowdown']})", flush=True)
+    # The --smoke trace on the kernel only: 20a's cases and the sampled
+    # full-size waves above already hold the kernel to the plain wave.
     strace, shosts = fleet_bench_build(smoke=True)
+    before = tl.tick_loop.launches
     t0 = time.perf_counter()
-    srep = fleet_pair(strace, shosts, dev, "20b smoke", wave_s=FLEET_WAVE_S,
-                      dt=FLEET_DT)
+    srep = fleet.run_fleet(strace, shosts, wave_s=FLEET_WAVE_S, dt=FLEET_DT,
+                           devices=[dev])
     s_wall = time.perf_counter() - t0
+    s_launches = tl.tick_loop.launches - before
+    check(s_launches == srep.waves,
+          f"20b smoke: {s_launches} launches for {srep.waves} waves")
     s_worst, s_exact = fleet_golden_check(srep, gold["smoke"], "20b smoke")
-    print(f"[20b smoke] {len(strace)} transfers on {len(shosts)} hosts: "
-          f"kernel == plain on the card, bit for bit ({srep.waves} waves, "
-          f"one launch each; both runs {s_wall:.1f} s); vs fleet_full.json "
-          f"energy max rel diff {s_worst:.3g}, {s_exact}/{len(strace)} "
-          f"bit-exact", flush=True)
+    print(f"[20b smoke] {len(strace)} transfers on {len(shosts)} hosts "
+          f"through the kernel ({srep.waves} waves, one launch each; wall "
+          f"{s_wall:.1f} s): vs fleet_full.json order, hosts, starts, "
+          f"completion and time exact, energy max rel diff {s_worst:.3g}, "
+          f"{s_exact}/{len(strace)} bit-exact", flush=True)
 
     # 20c. examples/tune_controller.py's search.
     with open(os.path.join(ROOT, "tests", "torch_goldens",
@@ -1514,11 +1577,396 @@ def phase_fleet(dev) -> dict:
           f"{t_worst:.3g} (rtol {TUNE_EXAMPLE_RTOL}); wall {t_wall:.3f} s; "
           f"{tune_launches} launches, by rung (cells, launches): {rungs}",
           flush=True)
+    print(f"[20 fleet] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return {"launches": {"fleet": fleet_launches, "tune": tune_launches},
             "wave_ms": wave_ms, "wave_launch_ms": sum(ks) / n_waves,
             "wave_plain_ms": wave_plain_ms,
             "wave_bound_ms": bound_ms / n_waves,
             "wave_bound_by": bound_by, "fleet_wall_s": wall}
+
+
+def online_bench_stream(n):
+    """benchmarks/fleet.py::build_online_stream (its ONLINE_DATASETS)."""
+    from repro_torch import fleet
+    from repro_torch.core.types import CHAMELEON, GB, DatasetSpec
+
+    datasets = ((DatasetSpec("svc-s", 64, 0.25 * GB, 0.1),),
+                (DatasetSpec("svc-m", 256, 1.0 * GB, 0.5),),
+                (DatasetSpec("svc-l", 16, 4.0 * GB, 64.0),))
+    return fleet.diurnal_stream(
+        base_rate_per_s=4.0, peak_rate_per_s=40.0, period_s=3600.0,
+        datasets=datasets, controllers=ONLINE_CONTROLLERS,
+        profile=CHAMELEON, seed=1810, n_transfers=n, total_s=900.0)
+
+
+def online_bench_hosts():
+    """benchmarks/fleet.py::_run_online_leg's pool."""
+    from repro_torch import fleet
+    from repro_torch.core.types import CHAMELEON
+
+    return fleet.host_pool(ONLINE_HOSTS,
+                           nic_mbps=10.0 * CHAMELEON.bandwidth_mbps, slots=0)
+
+
+def online_report_same(a, b, tag):
+    """Two online reports bit for bit: every tracked transfer, the summary
+    (totals, counters, percentiles, SLO and churn blocks) and the host
+    stats."""
+    bad = [(x.name, fleet_fields(x), fleet_fields(y))
+           for x, y in zip(a.transfers, b.transfers)
+           if fleet_fields(x) != fleet_fields(y)]
+    check(len(a.transfers) == len(b.transfers) and not bad,
+          f"{tag}: {len(bad)} transfers differ, first {bad[:2]}")
+    check(a.summary() == b.summary()
+          and [dataclasses.astuple(h) for h in a.host_stats]
+          == [dataclasses.astuple(h) for h in b.host_stats],
+          f"{tag}: summaries or host stats differ")
+
+
+def online_pair(reqs, hosts, dev, tag, **kw):
+    """The online fleet on the card through the kernel's wave mode and
+    through the plain wave loop: bit for bit on every tracked transfer and
+    the summary, one launch a wave.  Returns the kernel's report."""
+    from repro_torch import fleet
+    from repro_torch.kernels import tick_loop as tl
+
+    before = tl.tick_loop.launches
+    kern = fleet.run_fleet_online(reqs, hosts, devices=[dev],
+                                  track_transfers=True, **kw)
+    launches = tl.tick_loop.launches - before
+    plain = fleet.run_fleet_online(reqs, hosts, devices=[dev],
+                                   executor="reference",
+                                   track_transfers=True, **kw)
+    check(tl.tick_loop.launches - before == launches,
+          f"{tag}: the plain fleet launched the kernel")
+    online_report_same(kern, plain, f"{tag}: kernel vs plain")
+    check(launches == kern.waves == kern.counters["waves_run"],
+          f"{tag}: {launches} launches for {kern.waves} waves")
+    return kern
+
+
+def online_golden_check(rep, gold, tag):
+    """An online report against online_full.json: per tracked transfer
+    order, placement, arrival, start, completion and time exact, energy
+    and MB to FLEET_RTOL; (sim_s, waves, dropped) and the counters exact.
+    Returns (largest relative energy difference, transfers bit-exact)."""
+    got = (rep.sim_s, rep.waves, rep.dropped, rep.fold.transfers,
+           rep.completed)
+    want = tuple(gold[k] for k in ("sim_s", "waves", "dropped", "transfers",
+                                   "n_completed"))
+    check(got == want, f"{tag}: (sim_s, waves, dropped, transfers, "
+                       f"completed) {got} vs JAX {want}")
+    check(rep.counters == gold["counters"],
+          f"{tag}: counters {rep.counters} vs JAX {gold['counters']}")
+    worst, n_exact = 0.0, 0
+    for k, t in enumerate(rep.transfers or ()):
+        want = (gold["index"][k], gold["controllers"][gold["controller"][k]],
+                gold["hosts"][gold["host"][k]], gold["arrival_s"][k],
+                gold["start_s"][k], bool(gold["completed"][k]),
+                gold["time_s"][k])
+        got = (int(t.name.rsplit("-", 1)[1]), t.controller, t.host,
+               t.arrival_s, t.start_s, t.completed, t.time_s)
+        check(got == want, f"{tag}: transfer {k}: {got} vs JAX {want}")
+        for f in ("energy_j", "moved_mb"):
+            e, v = gold[f][k], getattr(t, f)
+            err = abs(v - e) / max(abs(e), 1e-30)
+            check(err <= FLEET_RTOL, f"{tag}: {t.name} {f} {v} vs JAX {e}")
+            worst = max(worst, err)
+        n_exact += t.energy_j == gold["energy_j"][k] \
+            and t.moved_mb == gold["moved_mb"][k]
+    for f, v in (("total_energy_j", rep.total_energy_j),
+                 ("total_gb", rep.total_gb)):
+        err = abs(v - gold[f]) / max(abs(gold[f]), 1e-30)
+        check(err <= FLEET_RTOL, f"{tag}: {f} {v} vs JAX {gold[f]}")
+    return worst, n_exact
+
+
+def close_to(got, want):
+    return abs(got - want) <= FLEET_RTOL * max(abs(got), abs(want))
+
+
+def phase_online(dev) -> dict:
+    """Phase 21: the online fleet (every occupied slot pool of a wave in
+    one launch of the tick kernel's wave mode) and the workloads (HTTP
+    services, fault schedules) through both fleet drivers.  (a) parity on
+    the card: online == offline per transfer, kernel == plain, recycling
+    through one slot, an unaligned wave, P above the kernel's 8 refused;
+    (b) the online leg of benchmarks/fleet.py --online --smoke against
+    JAX's CPU golden, timed and split by wave, its device memory at a
+    tenth of the stream; (c) benchmarks/workloads.py --smoke's HTTP grid
+    and fault leg against JAX's CPU golden, with the port's own bit-exact
+    invariants."""
+    import math
+
+    import torch
+
+    from repro_torch import fleet, workloads
+    from repro_torch.core.types import CHAMELEON, DatasetSpec
+    from repro_torch.kernels import tick_loop as tl
+
+    t_phase = time.perf_counter()
+    fast, one = fleet_small_datasets()
+
+    # 21a. tests/test_fleet_online.py's shared trace: 24 transfers, 2
+    # hosts x 4 slots, wave_s 10, dt 0.5, pool_capacity 64.
+    trace = fleet.poisson_trace(rate_per_s=0.5, n_transfers=24,
+                                datasets=[one, fast],
+                                controllers=("eemt", "me", "wget/curl"),
+                                profile=CHAMELEON, seed=11, total_s=600.0)
+    hosts = fleet.host_pool(2, nic_mbps=CHAMELEON.bandwidth_mbps, slots=4)
+    on = online_pair(trace, hosts, dev, "21a shared trace", wave_s=10.0,
+                     dt=0.5, pool_capacity=64)
+    off = fleet.run_fleet(trace, hosts, wave_s=10.0, dt=0.5, devices=[dev])
+    by = {t.name: t for t in on.transfers}
+    check(len(by) == len(off.transfers) == len(trace)
+          and all(by[t.name] == t for t in off.transfers)
+          and (on.total_energy_j, on.total_gb, on.sim_s, on.waves)
+          == (off.total_energy_j, off.total_gb, off.sim_s, off.waves),
+          "21a shared trace: the online fleet differs from the offline "
+          "run_fleet")
+    # A 15-tick wave over controller strides of 2 (lanes admitted in
+    # different waves tick their controllers out of phase), 8 slots a pool.
+    un = online_pair(trace, hosts, dev, "21a unaligned", wave_s=7.5, dt=0.5,
+                     pool_capacity=8)
+    un_off = fleet.run_fleet(trace, hosts, wave_s=7.5, dt=0.5, devices=[dev])
+    check([fleet_fields(t) for t in un.transfers]
+          == [fleet_fields(t) for t in un_off.transfers],
+          "21a unaligned: the online fleet differs from the offline one")
+    # Recycling through a 1-slot pool (tests/test_fleet_online.py:87).
+    reqs = [fleet.TransferRequest(arrival_s=0.0, datasets=one,
+                                  controller="wget/curl", profile=CHAMELEON,
+                                  name=f"r{i}", total_s=600.0)
+            for i in range(8)]
+    solo = fleet.host_pool(1, nic_mbps=FLEET_NO_CONTENTION)
+    big = online_pair(reqs, solo, dev, "21a pool 64", wave_s=5.0, dt=0.1,
+                      pool_capacity=64)
+    small = online_pair(reqs, solo, dev, "21a pool 1", wave_s=5.0, dt=0.1,
+                        pool_capacity=1)
+    check(small.completed == big.completed == 8
+          and small.counters["recycled_slots"] >= 7
+          and (small.total_energy_j, small.total_gb)
+          == (big.total_energy_j, big.total_gb)
+          and small.sim_s > big.sim_s,
+          f"21a pool 1: {small.counters} {small.total_energy_j} vs "
+          f"{big.total_energy_j}")
+    # Above the kernel's 8 partitions the cuda executor refuses the run
+    # before its first wave.
+    before = tl.tick_loop.launches
+    try:
+        fleet.run_fleet_online(trace, hosts, devices=[dev], max_partitions=9)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "max_partitions" in refused
+          and tl.tick_loop.launches == before,
+          f"21a: max_partitions 9 on the card: {refused!r}")
+    print(f"[21a online parity] the shared trace (24 transfers, {on.waves} "
+          f"waves) online == run_fleet per transfer and in totals, and a "
+          f"15-tick wave over strides of 2 ({un.waves} waves); 8 transfers "
+          f"through 1 slot ({small.counters['recycled_slots']} recycled) "
+          f"== through 64 in energy and GB: kernel == plain on the card "
+          f"in every case, bit for bit, one launch a wave; max_partitions "
+          f"9 refused before a wave: {refused}", flush=True)
+
+    # 21b. The online leg at benchmarks/fleet.py --online --smoke's size.
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "online_full.json")) as f:
+        gold = json.load(f)
+    kw = dict(wave_s=ONLINE_WAVE_S, dt=ONLINE_DT,
+              pool_capacity=ONLINE_CAPACITY, devices=[dev])
+    hosts = online_bench_hosts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    small = fleet.run_fleet_online(online_bench_stream(1_000), hosts, **kw)
+    small_wall = time.perf_counter() - t0
+    small_peak = torch.cuda.max_memory_allocated() - mem0
+    online_golden_check(small, gold["small"], "21b 1,000")
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tl.tick_loop.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = fleet.run_fleet_online(online_bench_stream(10_000), hosts,
+                                 track_transfers=True, **kw)
+    wall = time.perf_counter() - t0
+    online_launches = tl.tick_loop.launches
+    peak = torch.cuda.max_memory_allocated() - mem0
+    check(online_launches == rep.waves == rep.counters["waves_run"],
+          f"21b: {online_launches} launches for {rep.waves} waves")
+    worst, n_exact = online_golden_check(rep, gold["full"], "21b online")
+    check(peak == small_peak, f"21b: peak device memory {peak} B for "
+                              f"10,000 transfers, {small_peak} B for 1,000")
+    # The split in a rerun: the timer keeps its sampled waves on the card,
+    # which the memory reading above must not see.
+    with WaveTimer(sample=10, tag="21b") as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fleet.run_fleet_online(online_bench_stream(10_000), hosts,
+                                       track_transfers=True, **kw)
+        split_wall = time.perf_counter() - t0
+    online_report_same(rep, again, "21b: the timed rerun")
+    ks = timer.kernel_ms()
+    n_waves = len(ks)
+    host_s = split_wall - timer.h2d_s - timer.d2h_s - sum(ks) / 1e3
+    dev_ms = [t for t in timer.device_ms() if t is not None]
+    check(dev_ms, "21b: no wave's device time could be read")
+    wave_ms = statistics.median(dev_ms)
+    wave_plain_ms = statistics.median(timer.plain_ms())
+    bound_ms, bound_by = timer.bound_ms()
+    c = rep.counters
+    print(f"[21b online] {rep.fold.transfers} transfers "
+          f"(benchmarks/fleet.py --online --smoke: a diurnal stream, "
+          f"{len(hosts)} hosts, wave_s {ONLINE_WAVE_S}, dt {ONLINE_DT}, "
+          f"pool_capacity {ONLINE_CAPACITY}): wall {wall:.3f} s, "
+          f"{rep.fold.transfers / wall:.1f} transfers/s; {rep.waves} waves, "
+          f"{online_launches} launches; sim_s {rep.sim_s}; {c['pools']} "
+          f"pools, peak {c['peak_pool_in_flight']} a pool, "
+          f"{c['recycled_slots']} recycled slots, backlog peak "
+          f"{c['peak_queue_depth']}; vs online_full.json: order, hosts, "
+          f"arrivals, starts, completion, time and counters exact, energy "
+          f"and MB max rel diff {worst:.3g} (rtol {FLEET_RTOL}), "
+          f"{n_exact}/{rep.fold.transfers} transfers bit-exact; peak "
+          f"device memory {peak} B, equal to the 1,000-transfer leg's "
+          f"({small_wall:.3f} s)", flush=True)
+    print(f"[21b online] split (a rerun, bit-equal, wall {split_wall:.3f} "
+          f"s): launches (marshalling and the kernel, by events) "
+          f"{sum(ks):.3f} ms in {n_waves} = {sum(ks) / n_waves:.4f} ms a "
+          f"wave; the kernel alone (device time of every "
+          f"{timer.sample}th wave, {len(dev_ms)} waves) median "
+          f"{wave_ms:.4f} ms (min {min(dev_ms):.4f}, max {max(dev_ms):.4f}"
+          f"; the plain wave loop on the same waves {wave_plain_ms:.1f} ms, "
+          f"median, bit-equal to the kernel on every occupied slot of all "
+          f"{len(timer.kept)}); bound {bound_ms / n_waves:.3g} ms a wave by "
+          f"{bound_by} ({timer.bytes} B, {timer.ops} ops in all); host "
+          f"{host_s:.3f} s ({host_s / split_wall:.1%} of the wall; "
+          f"{host_s / n_waves * 1e3:.3f} ms a wave), H2D "
+          f"{timer.h2d_s:.3f} s, D2H and sync {timer.d2h_s:.3f} s",
+          flush=True)
+
+    # 21c. benchmarks/workloads.py --smoke: the HTTP grid and the fault
+    # leg, both drivers on the card.
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "workloads_full.json")) as f:
+        wgold = json.load(f)
+    tl.tick_loop.launches = 0
+    waves = 0
+    t0 = time.perf_counter()
+    hosts = fleet.host_pool(2, nic_mbps=4.0 * CHAMELEON.bandwidth_mbps,
+                            slots=0)
+    cells = [(ctrl, reuse, keep, slo, slo_s)
+             for ctrl in HTTP_CONTROLLERS
+             for reuse, keep in HTTP_REUSE.items()
+             for slo, slo_s in HTTP_SLOS.items()]
+    viol = []
+    for (ctrl, reuse, keep, slo, slo_s), g in zip(cells, wgold["http"]):
+        tag = f"21c http {ctrl}/{reuse}/{slo}"
+        check((g["controller"], g["reuse"], g["slo"]) == (ctrl, reuse, slo),
+              f"{tag}: golden cell {g['controller']}/{g['reuse']}/"
+              f"{g['slo']}")
+        svc = workloads.HttpService(controllers=(ctrl,), keepalive_s=keep,
+                                    **HTTP_SERVICE)
+        trace = workloads.http_request_trace(svc, n_requests=HTTP_REQUESTS)
+        off = fleet.run_fleet(trace, hosts, wave_s=5.0, dt=0.25,
+                              slo_s=slo_s, devices=[dev])
+        on = fleet.run_fleet_online(trace, hosts, wave_s=5.0, dt=0.25,
+                                    slo_s=slo_s, pool_capacity=256,
+                                    devices=[dev], track_transfers=True)
+        waves += off.waves + on.waves
+        check([fleet_fields(t) for t in on.transfers]
+              == [fleet_fields(t) for t in off.transfers]
+              and on.slo_violations() == off.slo_violations(),
+              f"{tag}: offline and online differ")
+        check((off.completed, on.completed, off.slo_violations(),
+               on.slo_violations(), off.sim_s, off.waves, on.sim_s, on.waves)
+              == (g["completed"], g["online_completed"], g["violations"],
+                  g["online_violations"], g["sim_s"], g["waves"],
+                  g["online_sim_s"], g["online_waves"])
+              and all(close_to(a, b) for a, b in (
+                  (off.total_energy_j, g["energy_j"]),
+                  (off.total_gb, g["gb"]),
+                  (on.total_energy_j, g["online_energy_j"]),
+                  (on.total_gb, g["online_gb"]))),
+              f"{tag}: {off.completed}/{on.completed} completed, "
+              f"{off.slo_violations()} violations, {off.total_energy_j} J "
+              f"vs JAX {g}")
+        viol.append(f"{ctrl}/{reuse}/{slo} {off.slo_violations()}")
+    http_s = time.perf_counter() - t0
+    # The fault leg: 12 bulk transfers, a seed-7 schedule and named kills.
+    from repro_torch.core.types import GB
+    datasets = ((DatasetSpec("bulk-m", 2_500, 24.0 * GB, 2.4),),
+                (DatasetSpec("bulk-l", 64, 48.0 * GB, 256.0),))
+    trace = fleet.poisson_trace(rate_per_s=0.05, n_transfers=12, seed=1810,
+                                datasets=datasets,
+                                controllers=("eemt", "me"),
+                                profile=CHAMELEON, total_s=3600.0)
+    hosts = fleet.host_pool(2, nic_mbps=2.0 * CHAMELEON.bandwidth_mbps,
+                            slots=4)
+    horizon = max(r.arrival_s for r in trace) + 600.0
+    base = workloads.FaultSchedule.generate(
+        n_hosts=2, horizon_s=horizon, seed=7, host_loss_per_hour=18.0,
+        outage_s=60.0, nic_degrade_per_hour=12.0, degrade_s=120.0)
+    kills = tuple(workloads.KillTransfer(
+        trace[i].name, math.ceil(trace[i].arrival_s / 10.0) * 10.0 + 5.0)
+        for i in range(0, 12, 5))
+    check(len(base.events) + len(kills) == wgold["faults"]["n_events"],
+          "21c faults: the schedule differs from JAX's")
+    churn = {}
+    for mode in ("resume", "scratch"):
+        tag, g = f"21c faults {mode}", wgold["faults"][mode]
+        fs = workloads.FaultSchedule(events=base.events + kills,
+                                     restart=mode)
+        off = fleet.run_fleet(trace, hosts, wave_s=10.0, dt=0.5, faults=fs,
+                              devices=[dev])
+        on = fleet.run_fleet_online(
+            sorted(trace, key=lambda r: r.arrival_s), hosts, wave_s=10.0,
+            dt=0.5, faults=fs, pool_capacity=64, devices=[dev],
+            track_transfers=True)
+        waves += off.waves + on.waves
+        c = off.churn
+        check(on.churn == c and tuple(on.transfers) == tuple(sorted(
+            off.transfers, key=lambda t: (t.start_s, t.name))),
+              f"{tag}: offline and online ledgers or transfers differ")
+        check(c["goodput_mb"] == c["offered_mb"]
+              and (mode == "scratch" or c["wasted_mb"] == 0.0),
+              f"{tag}: goodput {c['goodput_mb']!r} offered "
+              f"{c['offered_mb']!r} wasted {c['wasted_mb']!r}")
+        exact = ("restart", "kills", "host_loss_kills", "transfer_kills",
+                 "restarts", "retired", "completed")
+        check({k: c[k] for k in exact} == {k: g["churn"][k] for k in exact}
+              and (off.completed, off.sim_s, off.waves, on.sim_s, on.waves)
+              == (g["completed"], g["sim_s"], g["waves"], g["online_sim_s"],
+                  g["online_waves"])
+              and all(close_to(c[k], g["churn"][k]) for k in c
+                      if k not in exact)
+              and close_to(off.total_energy_j, g["energy_j"])
+              and close_to(off.total_gb, g["gb"]),
+              f"{tag}: {c} vs JAX {g}")
+        churn[mode] = c
+    workloads_launches = tl.tick_loop.launches
+    check(workloads_launches == waves,
+          f"21c: {workloads_launches} launches for {waves} waves")
+    r, sc = churn["resume"], churn["scratch"]
+    print(f"[21c workloads] HTTP grid (8 cells x {HTTP_REQUESTS} requests, "
+          f"both drivers, {http_s:.1f} s): offline == online per request, "
+          f"completed, violations, sim_s and waves as JAX's, energy and GB "
+          f"to {FLEET_RTOL}; violations {', '.join(viol)}.  Faults: resume "
+          f"{r['kills']} kills, goodput_frac {r['goodput_frac']}, "
+          f"goodput_mb == offered_mb == {r['offered_mb']} bit for bit, "
+          f"wasted 0.0; scratch {sc['kills']} kills, goodput_frac "
+          f"{sc['goodput_frac']:.4f}, wasted {sc['wasted_mb']:.1f} MB; "
+          f"offline == online ledgers and transfers, as JAX's.  "
+          f"{workloads_launches} launches for {waves} waves", flush=True)
+    print(f"[21 online] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": {"online": online_launches,
+                         "workloads": workloads_launches},
+            "wave_ms": wave_ms, "wave_launch_ms": sum(ks) / n_waves,
+            "wave_plain_ms": wave_plain_ms,
+            "wave_bound_ms": bound_ms / n_waves, "wave_bound_by": bound_by,
+            "wall_s": wall}
 
 
 def phase_learn(dev) -> dict:
@@ -3930,8 +4378,8 @@ def smoke(dev, tick_only=False, learn_only=False,
           recurrent_only=False, fleet_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
-    and 19; with ``fleet_only``, phases 1-3 and 20), on the CUDA device
-    ``dev``."""
+    and 19; with ``fleet_only``, phases 1-3, 20 and 21), on the CUDA
+    device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -4076,9 +4524,11 @@ def smoke(dev, tick_only=False, learn_only=False,
         return 0
     if fleet_only:
         phase_fleet(dev)
-        print("chip_smoke: fleet phases (1-3, 20) passed")
+        phase_online(dev)
+        print("chip_smoke: fleet phases (1-3, 20, 21) passed")
         return 0
 
+    lap("phases 1-3")
     # 4. smoke grid: cuda executor vs reference executor, both on the card
     outs = {}
     for ex in ("cuda", "reference"):
@@ -4099,6 +4549,7 @@ def smoke(dev, tick_only=False, learn_only=False,
           f"{n_eq} groups): cuda == reference on the card, final rows and "
           f"7 traces bit-equal", flush=True)
 
+    lap("phase 4")
     # 5. the main path: full Figure 2 through api.sweep
     with open(os.path.join(ROOT, "tests", "torch_goldens",
                            "fig2_full.json")) as f:
@@ -4182,6 +4633,7 @@ def smoke(dev, tick_only=False, learn_only=False,
           flush=True)
     del rows_g
 
+    lap("phase 5")
     # 6. tune-sized sweep: 4,096 lanes in one group
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4276,16 +4728,22 @@ def smoke(dev, tick_only=False, learn_only=False,
           f"{ms_w / ms_1:.3f}x a lane-tick", flush=True)
     del kern_m, rows_m, wide, wide_rows, mix_results
 
+    lap("phase 6")
     # 17: the environment families, on the same kernel
     del kern, plain, grs, outs, results, tune_results, grs_t, rows_t, \
         kern_t, ker_rows, ref_rows
     torch.cuda.empty_cache()
     envs = phase_environments(dev, ref_runs)
+    lap("phase 17")
     if tick_only:
         print("chip_smoke: tick-loop phases (1-6, 17) passed")
         return 0
     learned = phase_learn(dev)
+    lap("phase 18")
     fleets = phase_fleet(dev)
+    lap("phase 20")
+    online = phase_online(dev)
+    lap("phase 21")
 
     # 7-9: flash attention, the float32 golden, serving (the tick loop's
     # tensors are freed first, so the serving phases' peaks are their own)
@@ -4293,6 +4751,7 @@ def smoke(dev, tick_only=False, learn_only=False,
     print(f"[7 flash] {torch.cuda.memory_allocated()} B allocated on the "
           f"card after phases 1-6 and 17", flush=True)
     flash = phase_flash(dev)
+    lap("phase 7")
     tree = random_qwen3_params()
     # the float32 (FMA) attention kernels' launches over the float32
     # goldens' entry points (generate, the train step): phases 8, 11, 15
@@ -4305,21 +4764,31 @@ def smoke(dev, tick_only=False, learn_only=False,
             fma[i] += b - a
 
     count_fma(phase_lm_golden, dev, tree)
+    lap("phase 8")
     serve = phase_serve(dev, tree)
+    lap("phase 9")
     bwd = phase_flash_bwd(dev)
+    lap("phase 10")
     count_fma(phase_train_golden, dev, tree)
+    lap("phase 11")
     del tree
     trained = phase_train(dev)
+    lap("phase 12")
     wkv = phase_wkv(dev)
+    lap("phase 13")
     rglru = phase_rglru(dev)
+    lap("phase 14")
     for arch in RECURRENT_GOLDENS:
         count_fma(phase_recurrent_golden, dev, arch)
     check(all(fma), f"the float32 goldens launched the FMA attention kernels "
                     f"{fma[0]} (forward) and {fma[1]} (backward) times")
+    lap("phase 15")
     rserve = {arch: phase_recurrent_serve(dev, arch)
               for arch in RECURRENT_SERVE}
+    lap("phase 16")
     rtrain = phase_recurrent_train(dev)
     rk = rtrain["kernels"]
+    lap(f"phase 19: all phases, on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -4327,9 +4796,11 @@ def smoke(dev, tick_only=False, learn_only=False,
         "replaces": "src/repro/core/engine.py:612",
         "launches": main_launches + sum(envs["launches"].values())
         + sum(learned["launches"].values())
-        + sum(fleets["launches"].values()),
+        + sum(fleets["launches"].values())
+        + sum(online["launches"].values()),
         "launches_by_path": {"fig2": main_launches, **envs["launches"],
-                             **learned["launches"], **fleets["launches"]},
+                             **learned["launches"], **fleets["launches"],
+                             **online["launches"]},
         "environments": ["reference", "lossy-wan", "logfit", "big-little",
                          "dvfs"],
         "controllers": ["ME", "EEMT", "EETT", "ismail-target", "static",
@@ -4350,7 +4821,16 @@ def smoke(dev, tick_only=False, learn_only=False,
                               "groups in one launch; ms: device time "
                               "(launches queued behind a spin), median of "
                               "sampled waves; launch_ms: CUDA events around "
-                              "each launch call, marshalling included"}}, {
+                              "each launch call, marshalling included"},
+        "wave_mode_online": {
+            "ms_per_wave": online["wave_ms"],
+            "launch_ms_per_wave": online["wave_launch_ms"],
+            "plain_ms_per_wave": online["wave_plain_ms"],
+            "bound_ms_per_wave": online["wave_bound_ms"],
+            "bound_by": online["wave_bound_by"],
+            "note": "the online fleet's waves (phase 21b): every occupied "
+                    "slot pool of a wave in one launch, free slots "
+                    "included; timed as wave_mode"}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",

@@ -50,10 +50,11 @@ from .tuning import TuneResult, crn_bw_schedule, tune  # noqa: F401
 # Scenario / engine substrate and the controller registry above, so these
 # re-exports resolve lazily (PEP 562) — importing repro_torch.fleet first
 # must not recurse back into a half-initialized repro_torch.api.
-_FLEET_EXPORTS = ("FleetReport", "Host", "TransferRequest",
-                  "diurnal_stream", "host_pool", "poisson_stream",
-                  "poisson_trace", "replay_stream", "replay_trace",
-                  "run_fleet")
+_FLEET_EXPORTS = ("FleetReport", "Host", "OnlineConfig",
+                  "OnlineFleetReport", "TransferRequest", "diurnal_stream",
+                  "host_pool", "poisson_stream", "poisson_trace",
+                  "replay_stream", "replay_trace", "run_fleet",
+                  "run_fleet_online")
 
 
 def __getattr__(name):
@@ -68,6 +69,7 @@ __all__ = [
     "DvfsEnergyModel", "DvfsNetworkModel", "EnergyModel", "Environment",
     "Experiment", "FleetReport", "GroupRun", "Host",
     "IsmailTargetController", "LossyWanNetworkModel", "NetworkModel",
+    "OnlineConfig", "OnlineFleetReport",
     "ReferenceEnergyModel", "ReferenceNetworkModel", "Report", "Scenario",
     "StaticBaselineController", "TransferRequest", "TransferResult",
     "TuneResult", "TunerController", "as_controller", "as_environment",
@@ -78,6 +80,7 @@ __all__ = [
     "make_network_model", "poisson_stream", "poisson_trace",
     "register_controller", "register_energy_model",
     "register_environment", "register_network_model", "replay_stream",
-    "replay_trace", "resolve_device", "run", "run_fleet", "run_groups",
+    "replay_trace", "resolve_device", "run", "run_fleet",
+    "run_fleet_online", "run_groups",
     "scenario_key", "sweep", "tune", "zip_",
 ]

@@ -1,2 +1,3 @@
 from .checkpoint import (AsyncCheckpointer, available_steps,  # noqa: F401
                          restore_latest, save)
+from .tuned_writer import TunedCheckpointWriter  # noqa: F401

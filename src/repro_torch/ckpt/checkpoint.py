@@ -12,8 +12,9 @@ the other's checkpoints of the same model: JAX by leaf order, the port by
 ``meta["paths"]``.  A save copies every leaf to host memory first and
 writes from a background thread when asked; the mesh re-placement of
 JAX's ``restore_latest`` (``shardings``) has no counterpart on one card.
-The EETT-throttled writer (``tuned_writer.py``) waits for ROADMAP queue 1,
-item 8.
+The EETT-throttled shard writer is ``tuned_writer.py``
+(:class:`TunedCheckpointWriter`), which stores leaves as :func:`_host`
+does.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """repro_torch.fleet — trace-driven, fleet-scale transfer simulation.
 
-The PyTorch port of ``repro.fleet``'s offline half.  It runs thousands of
+The PyTorch port of ``repro.fleet``.  It runs thousands of
 concurrent transfers — Poisson or replayed-trace arrivals across a pool of
 hosts, each host with a transfer-slot budget and a shared NIC whose
 capacity is split among its in-flight transfers — on top of the
@@ -28,10 +28,13 @@ Quickstart::
     report = fleet.run_fleet(trace, hosts, wave_s=30.0, dt=0.1)  # the card
     print(report.summary())
 
-The online loop (``run_fleet_online``, ``OnlineConfig``, ``SlotPool``) is
-the next slice of the port; its stream adapters (``poisson_stream``,
-``diurnal_stream``, ``replay_stream``) and streaming aggregates
-(``FleetFold``, ``OnlineFleetReport``) are here already.
+For *unbounded* arrival streams — online operation with fixed host and
+device memory regardless of stream length — see :func:`run_fleet_online`
+(``repro_torch.fleet.online``: :class:`SlotPool` rows, every occupied pool
+of a wave in one launch of the tick kernel's wave mode) and the stream
+adapters (``poisson_stream``, ``diurnal_stream``, ``replay_stream``).
+Fault schedules and HTTP-service streams for both drivers are in
+``repro_torch.workloads``.
 """
 from .aggregates import (FleetFold, FleetReport,  # noqa: F401
                          FleetTransfer, OnlineFleetReport, QuantileSketch)
@@ -39,11 +42,13 @@ from .arrivals import (TransferRequest, diurnal_stream,  # noqa: F401
                        poisson_stream, poisson_trace, replay_stream,
                        replay_trace)
 from .hosts import Host, host_pool  # noqa: F401
+from .online import OnlineConfig, run_fleet_online  # noqa: F401
+from .ringbuf import SlotPool  # noqa: F401
 from .scheduler import run_fleet  # noqa: F401
 
 __all__ = [
-    "FleetFold", "FleetReport", "FleetTransfer", "Host",
-    "OnlineFleetReport", "QuantileSketch", "TransferRequest",
+    "FleetFold", "FleetReport", "FleetTransfer", "Host", "OnlineConfig",
+    "OnlineFleetReport", "QuantileSketch", "SlotPool", "TransferRequest",
     "diurnal_stream", "host_pool", "poisson_stream", "poisson_trace",
-    "replay_stream", "replay_trace", "run_fleet",
+    "replay_stream", "replay_trace", "run_fleet", "run_fleet_online",
 ]

@@ -48,7 +48,9 @@ recompiles; nothing is compiled per shape here, so lanes are not padded
 
 The admission/rescale decisions themselves (combo preparation, host
 picking, NIC shares, tick budgets, retirement records) live in
-``repro_torch.fleet.admission``.
+``repro_torch.fleet.admission``, and the wave's device step in
+:func:`run_wave_rows`: the online loop (``repro_torch.fleet.online``)
+shares both.
 """
 from __future__ import annotations
 
@@ -139,25 +141,28 @@ def _launch_on_device(dev, items: list, wave_steps: int, dt: float,
             for (code, env_code, cpu, ctrl_every), rows in batches]
 
 
-def _run_wave_groups(groups: list, wave_steps: int, dt: float, devices,
-                     executors: list, lay: tickstate.TickLayout) -> None:
-    """Advance every group of a wave by ``wave_steps`` ticks, in place.
+def run_wave_rows(groups: list, wave_steps: int, dt: float, devices,
+                  executors: list, lay: tickstate.TickLayout) -> list:
+    """Advance the host rows of every group of a wave by ``wave_steps``
+    ticks: ``groups`` is ``[(key, (prow, bw, f32, i32, step0))]`` (host
+    numpy), ``executors`` holds each device's resolved executor.  Returns
+    one ``(f32', i32', done_at)`` a group, new writable host arrays of its
+    lane count.
 
-    ``groups`` is ``[(key, lanes, shares)]``; ``executors`` holds each
-    device's resolved executor.  With several devices a group of at least
-    as many lanes is padded with drained zero lanes to a multiple of the
-    device count and split over the devices
-    (``sharding.pad_batch(fill="zero")``, ``split_batch``); smaller groups
-    run on the first device.  Every device's share is started before any
-    result is copied back, so the cards run their shares at once."""
+    With several devices a group of at least as many lanes is padded with
+    drained zero lanes to a multiple of the device count and split over
+    the devices (``sharding.pad_batch(fill="zero")``, ``split_batch``);
+    smaller groups run on the first device.  Every device's share is
+    started before any result is copied back, so the cards run their
+    shares at once.  Both fleet loops run their waves through here (the
+    offline one a wave's stacked lanes, the online one its slot pools)."""
     ndev = len(devices)
     per_dev: list = [[] for _ in devices]
     where = []                  # per group: [(device, item index)]
-    for key, lanes, shares in groups:
-        rows = _stack_group(lanes, shares)
-        if ndev > 1 and len(lanes) >= ndev:
-            rows, _ = shd.pad_batch(rows, ndev, fill="zero")
-            parts = shd.split_batch(rows, ndev)
+    for key, rows in groups:
+        if ndev > 1 and len(rows[1]) >= ndev:
+            padded, _ = shd.pad_batch(rows, ndev, fill="zero")
+            parts = shd.split_batch(padded, ndev)
         else:
             parts = [rows]
         where.append([])
@@ -168,9 +173,20 @@ def _run_wave_groups(groups: list, wave_steps: int, dt: float, devices,
                                  executors[d]) if items else []
                for d, items in enumerate(per_dev)]
     outs = [_to_host(res) if res else [] for res in started]
-    for (_, lanes, _), locs in zip(groups, where):
-        f32o, i32o, done_at = (np.concatenate(xs) for xs in zip(
-            *[outs[d][i] for d, i in locs]))
+    return [tuple(np.concatenate(xs)[:len(rows[1])] for xs in zip(
+                *[outs[d][i] for d, i in locs]))
+            for (_, rows), locs in zip(groups, where)]
+
+
+def _run_wave_groups(groups: list, wave_steps: int, dt: float, devices,
+                     executors: list, lay: tickstate.TickLayout) -> None:
+    """Advance every group of a wave by ``wave_steps`` ticks, in place:
+    ``groups`` is ``[(key, lanes, shares)]``, stacked and run by
+    :func:`run_wave_rows`."""
+    outs = run_wave_rows([(key, _stack_group(lanes, shares))
+                          for key, lanes, shares in groups],
+                         wave_steps, dt, devices, executors, lay)
+    for (_, lanes, _), (f32o, i32o, done_at) in zip(groups, outs):
         for b, ln in enumerate(lanes):
             ln.st_f32 = f32o[b]
             ln.st_i32 = i32o[b]
@@ -201,16 +217,16 @@ def run_fleet(trace: Sequence[TransferRequest], hosts: Sequence[Host], *,
     on a card and the plain loop on the CPU; every executor is
     bit-identical).
 
-    ``faults`` injects a fault schedule (any object with the hooks of the
-    JAX package's ``repro.workloads.faults.FaultSchedule``: ``churn_fold``,
+    ``faults`` injects a :class:`repro_torch.workloads.faults.FaultSchedule`
+    (or any object with its five driver hooks: ``churn_fold``,
     ``down_hosts``, ``kills_in``, ``nic_caps`` and ``restart``): host-loss
     windows kill in-flight lanes and block admission, NIC-degrade windows
     cap the contention rescale, named kills requeue transfers with their
     remaining bytes (``restart="resume"``) or from scratch, and the report
     grows a ``churn`` goodput-vs-throughput block.  ``slo_s`` arms
     per-request latency SLO tracking (``latency`` percentiles + ``slo``
-    violation block on the report).  Both default to off, leaving the
-    fault-free report unchanged.
+    violation block on the report; see ``repro_torch.workloads.http``).
+    Both default to off, leaving the fault-free report unchanged.
     """
     hosts = tuple(hosts)
     if not hosts:

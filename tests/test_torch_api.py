@@ -151,7 +151,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.launch.train, repro_torch.core.dvfs, "
             "repro_torch.workloads, repro_torch.workloads.logfit, "
             "repro_torch.learn, repro_torch.api.experiments, "
-            "repro_torch.api.report; "
+            "repro_torch.api.report, repro_torch.fleet.ringbuf, "
+            "repro_torch.fleet.online, repro_torch.workloads.faults, "
+            "repro_torch.workloads.http, repro_torch.ckpt.tuned_writer; "
             "from repro_torch import api; "
             "[api.make_environment(n) for n in api.list_environments()]; "
             "from repro_torch.configs import ARCHS, get_config; "
@@ -176,7 +178,10 @@ def test_port_sources_import_no_jax_and_no_repro():
                    "api/report.py", "api/experiments.py",
                    "learn/__init__.py", "learn/policy.py",
                    "learn/controller.py", "learn/rollout.py",
-                   "learn/train.py", "learn/evaluate.py"):
+                   "learn/train.py", "learn/evaluate.py",
+                   "fleet/ringbuf.py", "fleet/online.py",
+                   "workloads/faults.py", "workloads/http.py",
+                   "ckpt/tuned_writer.py"):
         assert os.path.join(ROOT, "src", "repro_torch", module) in files
     for path in files:
         with open(path) as f:

@@ -338,6 +338,37 @@ def test_fleet_through_the_kernel_wave_mode(host_lib, monkeypatch):
     assert calls == [1] * kern.waves
 
 
+@pytest.mark.parametrize("wave_s,capacity", [(10.0, 64), (7.5, 1)])
+def test_online_fleet_through_the_kernel_wave_mode(host_lib, monkeypatch,
+                                                   wave_s, capacity):
+    """``run_fleet_online``'s cuda path on the CPU: the host build stands
+    in for the card, every occupied slot pool of a wave in one launch
+    (free slots are zero rows the kernel leaves as they are), and the
+    report equals the plain online fleet's bit for bit, at an aligned and
+    an unaligned wave and through one slot a pool."""
+    from repro_torch import fleet as tfleet
+    from test_torch_fleet_online import _trace, assert_online_equal
+    calls = []
+
+    def on_host(waves):
+        outs, launches = _host_waves(host_lib, waves)
+        calls.append((launches, len(waves)))
+        return outs
+
+    trace = [port_request(r) for r in _trace()]
+    hosts = tfleet.host_pool(2, nic_mbps=CHAMELEON.bandwidth_mbps, slots=4)
+    kw = dict(wave_s=wave_s, dt=DT, pool_capacity=capacity,
+              track_transfers=True, devices=("cpu",))
+    plain = tfleet.run_fleet_online(trace, hosts, **kw)
+    monkeypatch.setattr(tengine, "run_cuda_wave_groups", on_host)
+    monkeypatch.setattr(tengine, "resolve_executor",
+                        lambda executor, device=None, **kw: "cuda")
+    kern = tfleet.run_fleet_online(trace, hosts, **kw)
+    assert_online_equal(plain, kern)
+    assert [n for n, _ in calls] == [1] * kern.waves
+    assert max(g for _, g in calls) == kern.counters["pools"] == 3
+
+
 def test_wave_batches_are_checked():
     """The card's checks on a wave batch (run before any launch): the
     partition limit, the [B] share and start ticks."""
