@@ -191,10 +191,24 @@ Phases (each prints a line; any failure exits non-zero):
               both drivers: offline == online per transfer and ledger,
               ``goodput_mb == offered_mb`` bit for bit, against
               ``tests/torch_goldens/workloads_full.json``.
+22. rwkv6 train — run right after phase 19: rwkv6-7b training.  (a) The
+              WKV backward kernel vs its plain version at rwkv6-7b's heads
+              (H 64 sliced out of 128; r/k/v f32 or bf16, w f32 or bf16;
+              T 1/63/64/65/200/4,096; S0 and dS_final zero and given;
+              decays exp(-exp(x)), x in [-8, 3]), timed at the trainer's
+              B 2 x T 4,096 against its bound and the plain version; (b)
+              two float32 train steps at full width cut to 4 of 32 layers,
+              B 1 x T 200, against ``tests/torch_goldens/
+              train_rwkv6_7b.json`` (JAX on the CPU; the weights phase 15
+              drew), both WKV kernels launched; (c) bf16 at full width and
+              8 of 32 layers through ``trainer.train`` (B 2 x T 4,096,
+              remat, 4 steps): finite losses, 16 WKV forward and 8
+              backward launches a step, step time, peak memory, a profiled
+              step's split.
 
-Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b and 21c drive
-the main paths: each kernel's launch count is set to 0 just before and read just
-after; every attention launch there must take the bf16 (wgmma) route.  The
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c and 22c
+drive the main paths: each kernel's launch count is set to 0 just before
+and read just after; every attention launch there must take the bf16 (wgmma) route.  The
 float32 (FMA) attention kernels' launches are counted over the float32 goldens' entry points
 (phases 8, 11, 15 and 19c).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -215,7 +229,11 @@ runs phases 1-3, 20 and 21 only, and prints neither;
 
     python3 chip_smoke.py --recurrent-train
 
-runs phases 1-2 and 19 only, and prints neither.
+runs phases 1-2 and 19 only, and prints neither;
+
+    python3 chip_smoke.py --rwkv6-train
+
+runs phases 1-2 and 22 only, and prints neither.
 """
 from __future__ import annotations
 
@@ -2519,12 +2537,14 @@ BWD_TIMED = ((1, 2048), (8, 2048))
 BWD_F32_TIMED = (1, 2048)
 # Phase 11: the float32 train golden's tolerances (full width and depth,
 # cuBLAS float32 against XLA on the CPU: sums in another order through 28
-# layers).  Weights are held where |g| at step 1 exceeds TRAIN_G_FLOOR of
-# its slice's largest |g| (Adam's first step is sign-like); elsewhere to
-# 2 lr per step.
-TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LR_RTOL = 1e-5, 1e-4, 1e-6
-TRAIN_GRAD_ATOL = 1e-3         # x the slice's largest |g|
-TRAIN_W_ATOL, TRAIN_G_FLOOR = 5e-5, 1e-3
+# layers): loss and ce, relative; gnorm, each leaf's step-1 gradient norm
+# and step 1's global norm, relative; gnorm_later, the later steps'
+# global norm; lr, relative; grad, a step-1 gradient slice, x the slice's
+# largest |g|; w, a step-2 weight where |g| at step 1 exceeds ``floor`` of
+# its slice's largest |g| (Adam's first step is sign-like); elsewhere 2 lr
+# per step.
+TRAIN_TOL = dict(loss=1e-5, gnorm=1e-4, gnorm_later=1e-4, lr=1e-6,
+                 grad=1e-3, w=5e-5, floor=1e-3)
 # Phase 12: the trainer's cell (launch/train.py:158-161 ingest).
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 6
 TRAIN_CHECK_B = 2
@@ -2692,7 +2712,9 @@ def _golden_index(idx, tokens):
 
 def attention_layers(cfg) -> int:
     """How many of the model's layers attend (all of a dense model's;
-    recurrentgemma's local ones)."""
+    recurrentgemma's local ones; none of rwkv6's)."""
+    if cfg.family == "ssm":
+        return 0
     if cfg.family != "hybrid":
         return cfg.num_layers
     pat = cfg.block_pattern
@@ -2700,9 +2722,11 @@ def attention_layers(cfg) -> int:
 
 
 def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
-                       tag="[11 train golden]"):
-    """[11 train golden] (and 19c) two float32 train steps vs JAX's, from
-    the golden's weights ``tree`` (its ``num_layers`` cut applied)."""
+                       tag="[11 train golden]", tol=TRAIN_TOL):
+    """[11 train golden] (and 19c, 22b) two float32 train steps vs JAX's,
+    from the golden's weights ``tree`` (its ``num_layers`` cut applied),
+    held to ``tol`` (TRAIN_TOL's keys).  Every reading is printed before
+    the first one out of its tolerance fails the phase."""
     import dataclasses
 
     import numpy as np
@@ -2737,21 +2761,27 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
     check(flash_attention_bwd_bhtd.launches - bw0 == attention_layers(cfg),
           "the gradient did not run the backward kernel once per attention "
           "layer")
-    g_err = 0.0
+    bad = []
+    g_errs = {}
     for path, want in gold["grad_leaf_norms"].items():
         got = float(_leaf(grads, path).double().norm())
-        g_err = max(g_err, abs(got - want) / want)
-    check(g_err <= TRAIN_GNORM_RTOL,
-          f"step-1 gradient leaf norms vs the golden: rel err {g_err}")
-    gs_err = 0.0
+        g_errs[path] = abs(got - want) / want
+    g_worst = max(g_errs, key=g_errs.get)
+    g_err = g_errs[g_worst]
+    if g_err > tol["gnorm"]:
+        bad.append(f"step-1 gradient leaf norms vs the golden: rel err "
+                   f"{g_err} at {g_worst}")
+    gs_err, gs_worst = 0.0, None
     for (path, idx), want in zip(gold["check_leaves"], gold["grad_slices"]):
         got = _leaf(grads, path)[_golden_index(idx, arr)].double().cpu(
         ).numpy()
         want = np.asarray(want)
         err = float(np.abs(got - want).max() / np.abs(want).max())
-        check(err <= TRAIN_GRAD_ATOL, f"step-1 gradient slice {path} "
-              f"{idx}: max |err| {err} of the slice's max")
-        gs_err = max(gs_err, err)
+        if err > tol["grad"]:
+            bad.append(f"step-1 gradient slice {path} {idx}: max |err| "
+                       f"{err} of the slice's max")
+        if err >= gs_err:
+            gs_err, gs_worst = err, path
     del grads
 
     state = TrainState(params=params, opt=adamw_init(params),
@@ -2761,15 +2791,16 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
     m_err = {}
     for i, want in enumerate(gold["steps"]):
         state, m = step(state, batch)
-        for k, tol in (("loss", TRAIN_LOSS_RTOL), ("ce", TRAIN_LOSS_RTOL),
-                       ("grad_norm", TRAIN_GNORM_RTOL),
-                       ("lr", TRAIN_LR_RTOL)):
+        for k, t in (("loss", tol["loss"]), ("ce", tol["loss"]),
+                     ("grad_norm", tol["gnorm"] if i == 0 else
+                      tol["gnorm_later"]), ("lr", tol["lr"])):
             err = abs(float(m[k]) - want[k]) / abs(want[k])
-            check(err <= tol, f"train step {i + 1} {k}: {float(m[k])} vs "
-                  f"the golden's {want[k]} (rel err {err}, tol {tol})")
+            if err > t:
+                bad.append(f"train step {i + 1} {k}: {float(m[k])} vs the "
+                           f"golden's {want[k]} (rel err {err}, tol {t})")
             m_err[k] = max(m_err.get(k, 0.0), err)
     lr = gold["opt"]["lr"]
-    w_err = 0.0
+    w_err, w_worst = 0.0, None
     n_sure = n_all = 0
     for (path, idx), g1, want in zip(gold["check_leaves"],
                                      gold["grad_slices"],
@@ -2778,11 +2809,13 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
         ).cpu().numpy()
         d = np.abs(got - np.asarray(want))
         g1 = np.abs(np.asarray(g1))
-        sure = g1 > TRAIN_G_FLOOR * g1.max()
-        check(bool((d[sure] <= TRAIN_W_ATOL).all())
-              and bool((d <= 2 * lr * 2).all()),
-              f"weights after step 2, {path} {idx}: |err| {d.tolist()}")
-        w_err = max(w_err, float(d[sure].max()) if sure.any() else 0.0)
+        sure = g1 > tol["floor"] * g1.max()
+        if not (bool((d[sure] <= tol["w"]).all())
+                and bool((d <= 2 * lr * 2).all())):
+            bad.append(f"weights after step 2, {path} {idx}: |err| "
+                       f"{d.tolist()}")
+        if sure.any() and float(d[sure].max()) >= w_err:
+            w_err, w_worst = float(d[sure].max()), path
         n_sure += int(sure.sum())
         n_all += d.size
     losses = [float(x["loss"]) for x in gold["steps"]]
@@ -2791,17 +2824,20 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
           f"make_train_step steps on the card vs {golden} (JAX losses "
           f"{losses}): rel err loss "
           f"{m_err['loss']:.3g}, ce {m_err['ce']:.3g} (tol "
-          f"{TRAIN_LOSS_RTOL}), grad norm {m_err['grad_norm']:.3g} (tol "
-          f"{TRAIN_GNORM_RTOL}), lr {m_err['lr']:.3g} (tol {TRAIN_LR_RTOL});"
-          f" step-1 gradient leaf norms {g_err:.3g} (tol "
-          f"{TRAIN_GNORM_RTOL}), slices {gs_err:.3g} of each slice's max "
-          f"(tol {TRAIN_GRAD_ATOL}); step-2 weights max |err| {w_err:.3g} "
-          f"on {n_sure}/{n_all} sure elements (tol {TRAIN_W_ATOL}); "
-          f"flash launches fwd "
+          f"{tol['loss']}), grad norm {m_err['grad_norm']:.3g} (tol "
+          f"{tol['gnorm']}, after step 1 {tol['gnorm_later']}), lr "
+          f"{m_err['lr']:.3g} (tol {tol['lr']});"
+          f" step-1 gradient leaf norms {g_err:.3g} at {g_worst} (tol "
+          f"{tol['gnorm']}), slices {gs_err:.3g} of each slice's max at "
+          f"{gs_worst} (tol {tol['grad']}); step-2 weights max |err| "
+          f"{w_err:.3g} at {w_worst} on {n_sure}/{n_all} sure elements "
+          f"(tol {tol['w']}); flash launches fwd "
           f"{flash_attention_bhtd.launches - fa0}, bwd "
           f"{flash_attention_bwd_bhtd.launches - bw0}", flush=True)
     del state, params, batch
     torch.cuda.empty_cache()
+    check(not bad, f"{tag} {len(bad)} reading(s) out of tolerance: "
+          + "; ".join(bad))
 
 
 def phase_train(dev) -> dict:
@@ -2927,6 +2963,8 @@ STEP_GROUPS = (("flash forward (kernel 2)", ("flash_fwd",)),
                ("flash backward (kernel 3)", ("flash_bwd",)),
                ("rglru backward", ("rglru_bwd_kernel",)),
                ("rglru (kernel 5)", ("rglru_kernel",)),
+               ("wkv backward", ("wkv_bwd_kernel",)),
+               ("wkv (kernel 4)", ("wkv_chunk_kernel", "wkv_kernel")),
                ("matrix products", ("gemm", "gemv", "cutlass", "xmma",
                                     "cublas", "nvjet", "sm90_", "sm80_")),
                ("copies", ("Memcpy", "Memset")))
@@ -3703,9 +3741,11 @@ RECURRENT_WEIGHT_CHECK = {
                           "layers/25/mlp/wd": (13, slice(0, 4))}}
 
 
-def phase_recurrent_golden(dev, arch):
+def phase_recurrent_golden(dev, arch, keep_tree=False):
     """[15 recurrent golden] a float32 recurrent model on the card vs the
-    JAX golden."""
+    JAX golden.  With ``keep_tree``, returns the numpy weights it drew
+    with their seed and depth ({"tree", "seed", "num_layers"}); else
+    None."""
     import dataclasses
 
     import numpy as np
@@ -3737,6 +3777,8 @@ def phase_recurrent_golden(dev, arch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = convert.lm_params_from_jax(tree, cfg, dev)
+    drawn = (dict(tree=tree, seed=gold["seed"], num_layers=cfg.num_layers)
+             if keep_tree else None)
     del tree
     bundle = build_model(cfg)
     prompt = torch.as_tensor(np.asarray(gold["prompt"]), device=dev)
@@ -3784,6 +3826,7 @@ def phase_recurrent_golden(dev, arch):
           f"{margin:.4g}", flush=True)
     del params, state, steps
     torch.cuda.empty_cache()
+    return drawn
 
 
 def phase_recurrent_serve(dev, arch) -> dict:
@@ -4362,6 +4405,330 @@ def phase_recurrent_train(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------- rwkv6 training --
+
+# Phase 22: rwkv6-7b training.  (a) The WKV backward kernel vs its plain
+# version at rwkv6-7b's heads (H 64 of 64, the upper half of a tensor of
+# 128 heads, so that every stride differs from a contiguous one): r, k, v
+# float32 or bf16 with w float32 or bf16; T about the 64-step checkpoints
+# and 8-step sub-chunks (WKV_BWD_T at B 1 with S0 and dS_final zero, at
+# B 2 with both given) and the trainer's T (WKV_BWD_LONG); decays
+# exp(-exp(x)) for x uniform in [-8, 3].  Tolerances, relative to the
+# reference's largest |value| (at least 1): 1e-2 for bf16 outputs (dr, dk,
+# dv; dw of a bf16 decay), one rounding of float32 sums taken in another
+# order; 1e-4 for float32 ones (dw of a float32 decay, du, dS0).  The
+# kernel recomputes its states in float32 from the same inputs as the
+# plain version and never reads the forward's chunked accumulators, so
+# the bf16 forward's route does not enter these tolerances.
+WKV_BWD_T = (1, 63, 64, 65, 200)
+WKV_BWD_LONG = ((2, 4096, "bfloat16", "float32", True, False),
+                (1, 4096, "float32", "float32", False, True),
+                (1, 4096, "bfloat16", "bfloat16", True, True))
+WKV_BWD_PAIRS = (("float32", "float32"), ("bfloat16", "float32"),
+                 ("bfloat16", "bfloat16"))
+WKV_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# (b) The float32 golden (tests/torch_goldens/make_train_golden.py
+# rwkv6-7b: full width, 4 of 32 layers, B 1 x T 200: three 64-step
+# checkpoints and a ragged tail), held to phase 11's tolerances but for
+# the gradient norms, which this cell's float32 arithmetic cannot hold to
+# 1e-4 (tests/torch_goldens/measure_rwkv6_conditioning.py, on the CPU):
+#   * step 1, each leaf's and the global one: 2e-3.  The gradient is
+#     ill-conditioned in the leaves the WKV's dr, dk and du feed (tm/wr,
+#     wk, u, the token-shift mixes, the norms and the embedding below
+#     them): against the same model's gradient in float64 (the port on
+#     the CPU), jitted JAX's float32 gradient (the golden) is 1.67e-4 off
+#     in those leaves' norms and the port's plain versions on the CPU
+#     7.0e-4 (8.6e-4 from the golden); JAX op by op is 8.1e-5 from jitted
+#     JAX.
+#   * step 2's global norm: 3e-2.  Step 1 takes the loss from 11.84 to
+#     0.52, and moving every weight by one float32 ulp (x (1 +- 2^-24))
+#     moves jitted JAX's own step-2 gradient norm by 1.30% (its step-1
+#     norm by 4.7e-4, its step-2 loss by 5.3e-6).
+RWKV_TRAIN_GOLDEN = "train_rwkv6_7b.json"
+RWKV_TRAIN_TOL = dict(TRAIN_TOL, gnorm=2e-3, gnorm_later=3e-2)
+# (c) bf16 at full width and 8 of 32 layers through trainer.train: the
+# update is not in place (adamw_update builds new params, mu and nu beside
+# the old ones), ~22 B a parameter with the gradient, so full depth's
+# 7.58 B parameters do not fit 80 GB and 8 layers' 2.30 B reckon to ~63
+# GB; train_4k's sequence at one card's 2 rows of its batch, remat, 4
+# steps (RG_TRAIN_*'s cut).
+RWKV_TRAIN_LAYERS = 8
+RWKV_TRAIN_BUDGET_S = 60.0      # the phase's time on a host like run I's
+
+
+def wkv_bwd_bound(B, H, T, hd, elem_bytes, w_bytes, with_s0, with_ds):
+    """(bound_ms, bound_by, flops, bytes) of one WKV backward call.  Bytes:
+    r, k, v, dy read and dr, dk, dv written once in their type, w read and
+    dw written once in its type, u, S0 and dS_final read and dS0 and du's
+    per-row partials written once.  Operations: 12 hd^2 float32 operations
+    per (b, h, t), the states' forward walk once (2 hd^2) and the
+    backward's five sums and state update (10 hd^2), at the CUDA cores'
+    67 TFLOP/s."""
+    n = B * H * T * hd
+    flops = 12 * hd * hd * B * H * T
+    nbytes = (7 * elem_bytes + 2 * w_bytes) * n + 4 * H * hd \
+        + 4 * B * H * hd * hd * (1 + with_s0 + with_ds) + 4 * B * H * hd
+    t_ops = flops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def phase_wkv_bwd(dev) -> dict:
+    """[22 rwkv6 train] (a) the WKV backward kernel vs its plain version on
+    the card; timed at the trainer's shape against its bound, the plain
+    version and the forward kernel there."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_bwd_bhtd, wkv_bwd_ref
+
+    H, hd = WKV_HEADS, 64
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def inputs(B, T, dname, wname, with_s0, with_ds):
+        def heads(x, dt):     # the upper H of 2 H heads
+            return x.to(dt).transpose(1, 2)[:, H:]
+
+        r, k, v = (heads(torch.randn(B, T, 2 * H, hd, generator=g,
+                                     device=dev) * 0.5, getattr(torch, dname))
+                   for _ in range(3))
+        dy = heads(torch.randn(B, T, 2 * H, hd, generator=g, device=dev),
+                   getattr(torch, dname))
+        x = -8.0 + 11.0 * torch.rand(B, T, 2 * H, hd, generator=g,
+                                     device=dev)
+        w = heads(torch.exp(-torch.exp(x)), getattr(torch, wname))
+        u = torch.randn(H, hd, generator=g, device=dev) * 0.5
+        S0, dS = (torch.randn(B, H, hd, hd, generator=g, device=dev) * 0.2
+                  if on else None for on in (with_s0, with_ds))
+        return r, k, v, w, u, S0, dy, dS
+
+    names = ("dr", "dk", "dv", "dw", "du", "dS0")
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    max_abs = 0.0
+    cases = [(B, T, dn, wn, on, on) for (dn, wn), T, (B, on) in
+             itertools.product(WKV_BWD_PAIRS, WKV_BWD_T,
+                               ((1, False), (2, True)))]
+    cases += list(WKV_BWD_LONG)
+    n = 0
+    for B, T, dname, wname, with_s0, with_ds in cases:
+        args = inputs(B, T, dname, wname, with_s0, with_ds)
+        want = wkv_bwd_ref(*args)
+        before = wkv_bwd_bhtd.launches
+        got = wkv_bwd_bhtd(*args)
+        torch.cuda.synchronize()
+        check(wkv_bwd_bhtd.launches == before + 1,
+              "the WKV backward wrapper launched other than once")
+        for name, a, b in zip(names, got, want):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"wkv_bwd {name}: {a.dtype} {tuple(a.shape)} vs "
+                  f"{b.dtype} {tuple(b.shape)}")
+            kind = "float32" if a.dtype == torch.float32 else "bfloat16"
+            diff = float((a.float() - b.float()).abs().max())
+            err = diff / max(1.0, float(b.float().abs().max()))
+            check(err <= WKV_BWD_TOL[kind],
+                  f"[22a] wkv_bwd B={B} T={T} {dname}/{wname} S0={with_s0} "
+                  f"dS_final={with_ds}: {name} err {err} (tol "
+                  f"{WKV_BWD_TOL[kind]})")
+            worst[kind] = max(worst[kind], err)
+            max_abs = max(max_abs, diff)
+        n += 1
+        del args, want, got
+    torch.cuda.synchronize()
+    print(f"[22 rwkv6 train] (a) WKV backward kernel == plain version on "
+          f"{n} cases (H {H} of 128 heads, hd {hd}; r/k/v and w "
+          f"{WKV_BWD_PAIRS}; T {WKV_BWD_T} at B 1 (S0, dS_final zero) and B 2 "
+          f"(both given), and (B, T, r/k/v, w, S0, dS_final) "
+          f"{WKV_BWD_LONG}; decays exp(-exp(x)), x in [-8, 3]): max err / "
+          f"max(1, max |ref|) bf16 outputs {worst['bfloat16']:.3g} (tol "
+          f"{WKV_BWD_TOL['bfloat16']}), float32 outputs "
+          f"{worst['float32']:.3g} (tol {WKV_BWD_TOL['float32']}); max "
+          f"|err| {max_abs:.3g}", flush=True)
+
+    # the trainer's call: bf16 r, k, v, dy, float32 w, no S0, S_final
+    # unused (its gradient None)
+    B, T = RG_TRAIN_B, RG_TRAIN_T
+    args = inputs(B, T, "bfloat16", "float32", False, False)
+    ms = time_cuda(lambda: wkv_bwd_bhtd(*args), 5)
+    dev_ms = kernel_device_ms(lambda: wkv_bwd_bhtd(*args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wkv_bwd_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fwd_ms = time_cuda(lambda: wkv_bhtd(*args[:6]), 5)
+    bound_ms, bound_by, flops, nbytes = wkv_bwd_bound(B, H, T, hd, 2, 4,
+                                                      False, False)
+    fb = wkv_bound(B, H, T, hd, 2, False, "chunk")
+    dev_txt = ("device time not measured" if dev_ms is None else
+               f"{dev_ms:.4f} ms of device time (20 calls queued; x bound "
+               f"{dev_ms / bound_ms:.2f})")
+    print(f"[22 rwkv6 train] (a) WKV backward, rwkv6-7b heads bf16 (w f32) "
+          f"B={B} T={T}: {ms:.4f} ms (CUDA events, median of 5), {dev_txt}; "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({flops} FLOP at 67 "
+          f"TFLOP/s, {nbytes} B at 3.35 TB/s); plain {plain_ms:.1f} ms (one "
+          f"run); library call: none (no PyTorch call computes this "
+          f"recurrence's gradient); the forward kernel at the same shape "
+          f"{fwd_ms:.4f} ms (bound {fb[0]:.4f})", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs,
+                max_rel_err=max(worst.values()), library_ms=None,
+                forward_ms=fwd_ms)
+
+
+def phase_rwkv6_train(dev, drawn=None) -> dict:
+    """[22 rwkv6 train] rwkv6-7b training: (a) the WKV backward kernel vs
+    its plain version, (b) the float32 golden (from ``drawn``, phase 15's
+    weights with their seed and depth, where they are the golden's), (c)
+    bf16 at full width and 8 of 32 layers through ``trainer.train``."""
+    import math
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import SLA, SLAPolicy
+    from repro_torch.data import SyntheticSource, TunedFetcher, batches
+    from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_bwd_bhtd
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    t_phase = time.perf_counter()
+    res = {"kernel": phase_wkv_bwd(dev)}
+
+    # (b) the float32 golden: the forward's step route (float32), the
+    # backward kernel
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           RWKV_TRAIN_GOLDEN)) as f:
+        gold = json.load(f)
+    cut = dataclasses.replace(get_config(gold["arch"]), dtype="float32",
+                              num_layers=gold["num_layers"])
+    if drawn is not None and (drawn["seed"], drawn["num_layers"]) == (
+            gold["seed"], cut.num_layers):
+        tree, how = drawn["tree"], "phase 15's draw, reused"
+    else:
+        t0 = time.perf_counter()
+        tree = convert.random_lm_params(cut, seed=gold["seed"])
+        how = f"drawn with numpy in {time.perf_counter() - t0:.1f} s"
+    del drawn
+    print(f"[22 rwkv6 train] (b) {gold['arch']} weights, {cut.num_layers} of "
+          f"32 layers ({gold['depth_cut']}), {how}", flush=True)
+    before = (wkv_bhtd.launches, wkv_bwd_bhtd.launches)
+    phase_train_golden(dev, tree, RWKV_TRAIN_GOLDEN, "[22 rwkv6 train] (b)",
+                       RWKV_TRAIN_TOL)
+    del tree
+    fwd, bwd = (b - a for a, b in zip(before, (wkv_bhtd.launches,
+                                               wkv_bwd_bhtd.launches)))
+    # the step-1 gradient and two steps, each block's forward twice (remat)
+    check(fwd == 3 * 2 * cut.num_layers and bwd == 3 * cut.num_layers,
+          f"the float32 golden launched the WKV kernels {fwd} (forward) and "
+          f"{bwd} (backward) times, not {6 * cut.num_layers} and "
+          f"{3 * cut.num_layers}")
+    res["golden_launches"] = {"wkv": fwd, "wkv_bwd": bwd}
+    print(f"[22 rwkv6 train] (b) WKV launches: {fwd} forward (step route, "
+          f"float32), {bwd} backward", flush=True)
+
+    # (c) bf16, full width, 8 of 32 layers, through the trainer
+    cfg = dataclasses.replace(get_config("rwkv6-7b"),
+                              num_layers=RWKV_TRAIN_LAYERS)
+    check(cfg.dtype == "bfloat16" and cfg.remat, "rwkv6-7b trains in bf16 "
+          "with remat")
+    bundle = build_model(cfg)
+    L = cfg.num_layers
+    kernels = {"wkv": wkv_bhtd, "wkv_bwd": wkv_bwd_bhtd}
+    # remat recomputes each block's forward in the backward
+    want = {"wkv": 2 * L, "wkv_bwd": L}
+    sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
+    fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
+    data = batches(fetcher.source, batch=RG_TRAIN_B, seq=RG_TRAIN_T,
+                   tuned=True, sla=sla, fetcher=fetcher)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=RG_TRAIN_STEPS)
+    marks = []
+
+    def hook(i, state, metrics):
+        marks.append((time.perf_counter(),
+                      {k: fn.launches for k, fn in kernels.items()},
+                      float(metrics["loss"]), float(metrics["grad_norm"])))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    wkv_bhtd.route_launches = {"chunk": 0, "step": 0}
+    t0 = time.perf_counter()
+    try:
+        state, report = train(
+            bundle, opt, data,
+            TrainerConfig(total_steps=RG_TRAIN_STEPS, log_every=0),
+            hooks=hook, device=dev)
+    finally:
+        data.close()                   # stops the fetcher's threads
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    routes = dict(wkv_bhtd.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(x.numel() for x in _leaves(state.params))
+    check(report.steps_run == RG_TRAIN_STEPS, f"ran {report.steps_run} steps")
+    check(all(math.isfinite(x) for x in report.losses),
+          f"non-finite loss: {report.losses}")
+    zero = {k: 0 for k in kernels}
+    per_step = [{k: b[1][k] - a[1][k] for k in kernels}
+                for a, b in zip([(t0, zero)] + marks, marks)]
+    check(all(p == want for p in per_step),
+          f"WKV launches per step {per_step}, expected {want} each")
+    check(routes["chunk"] == launches["wkv"],
+          f"the bf16 training forward took the WKV routes {routes}")
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    mean_ms = statistics.mean(step_ms)
+    tokens = RG_TRAIN_B * RG_TRAIN_T
+    print(f"[22 rwkv6 train] (c) rwkv6-7b bf16 (remat, full width, {L} of "
+          f"32 layers: {n_params} parameters), {RG_TRAIN_STEPS} steps of "
+          f"{RG_TRAIN_B} x {RG_TRAIN_T} through trainer.train with "
+          f"SLA-tuned ingest: wall {wall:.3f} s (weights drawn on the card, "
+          f"init included; first step {(marks[0][0] - t0) * 1e3:.1f} ms); "
+          f"steps 2-{RG_TRAIN_STEPS} {mean_ms:.1f} ms a step (each "
+          f"{[round(x, 1) for x in step_ms]}) = "
+          f"{tokens / mean_ms * 1e3:.0f} tokens/s; peak memory {peak} B "
+          f"({peak / 1e9:.2f} GB); WKV launches per step {per_step[0]} "
+          f"({launches} in all; forward routes {routes}); losses "
+          f"{[round(x, 4) for x in report.losses]}; grad norms "
+          f"{[round(m[3], 4) for m in marks]}", flush=True)
+    breakdown = profile_train_step(dev, bundle, state, RG_TRAIN_B,
+                                   RG_TRAIN_T, RG_TRAIN_STEPS,
+                                   "[22 rwkv6 train] (c)")
+    if breakdown is None:
+        split = "not measured"
+    else:
+        mm = breakdown["matrix products"]
+        wk = breakdown["wkv (kernel 4)"] + breakdown["wkv backward"]
+        split = (f"busy {breakdown['busy_ms']:.1f} ms: cuBLAS {mm:.1f}, "
+                 f"WKV kernels {wk:.1f} (forward "
+                 f"{breakdown['wkv (kernel 4)']:.1f}, backward "
+                 f"{breakdown['wkv backward']:.1f}), eager work and copies "
+                 f"{breakdown['busy_ms'] - mm - wk:.1f}; idle "
+                 f"{breakdown['idle']:.3f} of the wall")
+    print(f"[22 rwkv6 train] (c) step {mean_ms:.1f} ms = "
+          f"{tokens / mean_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB; profiled step: {split}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"[22 rwkv6 train] phase time {took:.1f} s (budget "
+          f"{RWKV_TRAIN_BUDGET_S:.0f} s"
+          f"{'' if took <= RWKV_TRAIN_BUDGET_S else ', over it'})",
+          flush=True)
+    res.update(launches=launches, routes=routes, per_step=per_step[0],
+               step_ms=mean_ms, peak=peak, breakdown=breakdown,
+               phase_s=took)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4371,15 +4738,16 @@ def main() -> int:
     return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv,
                  learn_only="--learn" in sys.argv,
                  recurrent_only="--recurrent-train" in sys.argv,
-                 fleet_only="--fleet" in sys.argv)
+                 fleet_only="--fleet" in sys.argv,
+                 rwkv6_only="--rwkv6-train" in sys.argv)
 
 
 def smoke(dev, tick_only=False, learn_only=False,
-          recurrent_only=False, fleet_only=False) -> int:
+          recurrent_only=False, fleet_only=False, rwkv6_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
-    and 19; with ``fleet_only``, phases 1-3, 20 and 21), on the CUDA
-    device ``dev``."""
+    and 19; with ``fleet_only``, phases 1-3, 20 and 21; with
+    ``rwkv6_only``, phases 1-2 and 22), on the CUDA device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -4412,6 +4780,7 @@ def smoke(dev, tick_only=False, learn_only=False,
     build.load_flash_attention_sm90()
     build.load_flash_attention_bwd_sm90()
     build.load_wkv()
+    build.load_wkv_bwd()
     build.load_rglru()
     print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s; nvcc wall time each: "
@@ -4461,6 +4830,12 @@ def smoke(dev, tick_only=False, learn_only=False,
           + ("cuobjdump not in the toolkit, HGMMA not counted"
              if hgmma is None else
              f"{hgmma} HGMMA (wgmma) instructions in its SASS"), flush=True)
+    for name, line in build.ptxas_report(logs["wkv_bwd.cu"]).items():
+        inst = build.wkv_bwd_instance(name)
+        check(inst is not None, f"unexpected entry {name}")
+        print(f"[2 build] wkv_bwd r/k/v {inst[0]}, w {inst[1]} (256 threads "
+              f"a (b, h); {wkv_mod.WKV_BWD_SMEM} B dynamic shared memory): "
+              f"{line}")
     for name, line in build.ptxas_report(logs["rglru.cu"]).items():
         inst = build.rglru_instance(name)
         if inst is not None:
@@ -4475,6 +4850,11 @@ def smoke(dev, tick_only=False, learn_only=False,
     if recurrent_only:
         phase_recurrent_train(dev)
         print("chip_smoke: recurrent train phases (1-2, 19) passed")
+        return 0
+    if rwkv6_only:
+        phase_rwkv6_train(dev)
+        lap("phase 22")
+        print("chip_smoke: rwkv6 train phases (1-2, 22) passed")
         return 0
     report = build.ptxas_report(logs["tick_loop.cu"])
     used = set()
@@ -4759,9 +5139,10 @@ def smoke(dev, tick_only=False, learn_only=False,
 
     def count_fma(phase, *args):
         before = fma_launches()
-        phase(*args)
+        out = phase(*args)
         for i, (a, b) in enumerate(zip(before, fma_launches())):
             fma[i] += b - a
+        return out
 
     count_fma(phase_lm_golden, dev, tree)
     lap("phase 8")
@@ -4778,8 +5159,13 @@ def smoke(dev, tick_only=False, learn_only=False,
     lap("phase 13")
     rglru = phase_rglru(dev)
     lap("phase 14")
+    # phase 22's float32 golden takes phase 15's rwkv6-7b weights where
+    # their seed and cut agree (4 of 32 layers, seed 0): drawn once
+    rwkv6_drawn = None
     for arch in RECURRENT_GOLDENS:
-        count_fma(phase_recurrent_golden, dev, arch)
+        drawn = count_fma(phase_recurrent_golden, dev, arch,
+                          arch == "rwkv6-7b")
+        rwkv6_drawn = drawn or rwkv6_drawn
     check(all(fma), f"the float32 goldens launched the FMA attention kernels "
                     f"{fma[0]} (forward) and {fma[1]} (backward) times")
     lap("phase 15")
@@ -4788,7 +5174,10 @@ def smoke(dev, tick_only=False, learn_only=False,
     lap("phase 16")
     rtrain = phase_recurrent_train(dev)
     rk = rtrain["kernels"]
-    lap(f"phase 19: all phases, on {card}")
+    lap("phase 19")
+    wtrain = phase_rwkv6_train(dev, rwkv6_drawn)
+    del rwkv6_drawn
+    lap(f"phase 22: all phases, on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -4872,8 +5261,12 @@ def smoke(dev, tick_only=False, learn_only=False,
         "name": "wkv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:68",
-        "launches": rserve["rwkv6-7b"]["launches"]["wkv"],
+        "launches": rserve["rwkv6-7b"]["launches"]["wkv"]
+        + wtrain["launches"]["wkv"],
+        "launches_by_path": {"serve": rserve["rwkv6-7b"]["launches"]["wkv"],
+                             "train": wtrain["launches"]["wkv"]},
         "launches_by_route": rserve["rwkv6-7b"]["wkv_routes"],
+        "train_launches_by_route": wtrain["routes"],
         "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
         "device_ms": wkv["device_ms"],
         "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
@@ -4904,7 +5297,19 @@ def smoke(dev, tick_only=False, learn_only=False,
                 "backward and differentiates this associative scan in XLA; "
                 "ms at B 2 x T 4,096 on the TMA ring; paths: the ring and "
                 "the direct path",
-        "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}]}))
+        "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}, {
+        "name": "wkv_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv_bwd.cu",
+        "replaces": "src/repro/models/rwkv6.py:186",
+        "note": "the port's own backward of kernel 4: JAX has no Pallas "
+                "backward and differentiates this lax.scan in XLA; ms at "
+                "B 2 x T 4,096 x H 64, bf16 r/k/v, float32 w (the "
+                "trainer's call); max_abs_err over phase 22a's cases",
+        "launches": wtrain["launches"]["wkv_bwd"],
+        "launches_by_path": {"train": wtrain["launches"]["wkv_bwd"],
+                             "train_golden":
+                                 wtrain["golden_launches"]["wkv_bwd"]},
+        **wtrain["kernel"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@ subnormals to zero, as XLA does on the CPU and the TPU.  The RG-LRU scan
 is built with ``-fmad=false`` too, and without the flush: it equals its
 plain version (eager PyTorch on the card, which keeps IEEE subnormals) bit
 for bit.  The attention kernels (forward and backward, float32 and bf16)
-and the WKV recurrence (both routes) claim no bit-exactness, only a stated tolerance
+and the WKV recurrence (both routes, and its backward) claim no
+bit-exactness, only a stated tolerance
 against their plain versions, so they keep nvcc's default contraction and
 IEEE subnormals.  No source gets ``--use_fast_math`` (correctly rounded
 division and ``expf`` / ``logf``, as the references have).
@@ -60,6 +61,7 @@ SOURCE_FLAGS = {
     "flash_attention_sm90.cu": _BASE_FLAGS,
     "flash_attention_bwd_sm90.cu": _BASE_FLAGS,
     "wkv.cu": _BASE_FLAGS,
+    "wkv_bwd.cu": _BASE_FLAGS,
     "rglru.cu": _BASE_FLAGS + ("-fmad=false",),
 }
 
@@ -305,14 +307,22 @@ def wkv_instance(name: str):
         return ("chunk", "bfloat16",
                 "float32" if m.group(1) == "f" else "bfloat16",
                 int(m.group(2)))
-    m = re.search(r"wkv_kernelI(f|13__nv_bfloat16)(f|S\d*_|13__nv_bfloat16)E",
+    pair = _type_pair("wkv_kernel", name)
+    return None if pair is None else ("step", *pair, 64)
+
+
+def _type_pair(kernel: str, name: str):
+    """(first, second) template type arguments of a mangled ``kernel<T,
+    TW>`` entry name, each ``"float32"`` or ``"bfloat16"`` (a repeated type
+    is a substitution, ``S<n>_``); None for another entry."""
+    m = re.search(kernel + r"I(f|13__nv_bfloat16)(f|S\d*_|13__nv_bfloat16)E",
                   name)
     if m is None:
         return None
     first = "float32" if m.group(1) == "f" else "bfloat16"
     second = m.group(2)
-    return ("step", first, first if second.startswith("S") else
-            "float32" if second == "f" else "bfloat16", 64)
+    return (first, first if second.startswith("S") else
+            "float32" if second == "f" else "bfloat16")
 
 
 def load_wkv() -> ctypes.CDLL:
@@ -326,6 +336,25 @@ def load_wkv() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.wkv_error_string.argtypes = [ctypes.c_int]
     lib.wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wkv_bwd_instance(name: str):
+    """(r/k/v dtype, w dtype) of a mangled ``wkv_bwd_kernel`` entry name
+    of ``wkv_bwd.cu``, each ``"float32"`` or ``"bfloat16"``."""
+    return _type_pair("wkv_bwd_kernel", name)
+
+
+def load_wkv_bwd() -> ctypes.CDLL:
+    """The WKV backward library, built and loaded once per process."""
+    lib, _ = _load("wkv_bwd.cu")
+    fn = lib.wkv_bwd_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 16
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.wkv_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.wkv_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -1,4 +1,4 @@
-"""RWKV-6 WKV recurrence: the hand-written CUDA kernels' wrapper.
+"""RWKV-6 WKV recurrence: the hand-written CUDA kernels' wrappers.
 
 :func:`wkv_bhtd` replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/rwkv6/rwkv6.py::wkv_bhtd`` (``_wkv_kernel``).  The kernels
@@ -9,10 +9,14 @@ are laid out.  Two routes, chosen from dtype and shapes by
 the serving prefill) and the step kernel (float32, and anything shorter
 than a chunk, such as decode).  Beyond the TPU kernel both take an
 initial state and return the final one, which serving carries from the
-prefill into decode.  For tensors on the CPU the wrapper computes the
-plain version, :func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`; for CUDA
-tensors it launches a kernel on the current stream without
-synchronising, or raises.
+prefill into decode.  :func:`wkv_bwd_bhtd` is the recurrence's backward,
+``kernels/csrc/wkv_bwd.cu`` (the port's own: the TPU kernel has no
+backward, and JAX differentiates its model's ``lax.scan``).  For tensors
+on the CPU a wrapper computes the plain version
+(:func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`,
+:func:`~repro_torch.kernels.rwkv6.ref.wkv_bwd_ref`); for CUDA tensors it
+launches its kernel on the current stream without synchronising, or
+raises.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import functools
 
 import torch
 
-from .ref import wkv_ref
+from .ref import wkv_bwd_ref, wkv_ref
 
 #: The kernel's head width (rwkv6's).
 HEAD_DIM = 64
@@ -29,8 +33,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: (r/k/v dtype, w dtype) pairs the kernels are instantiated for.
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
-#: Steps of a chunk of the chunked kernel (csrc/wkv.cu ``kL``).
+#: Steps of a chunk of the chunked kernel (csrc/wkv.cu ``kL``), and
+#: between the backward's checkpoints (csrc/wkv_bwd.cu ``kL``).
 CHUNK = 64
+#: Steps between the backward's sub-checkpoints (csrc/wkv_bwd.cu ``kNS``).
+BWD_SUB = 8
+#: Dynamic shared memory of a backward block (csrc/wkv_bwd.cu
+#: ``kSmemBytes``): a sub-chunk's states (BWD_SUB x 256 threads x 16
+#: floats), its five staged inputs, three gradient rows and dv's 8 warp
+#: partials, float32.
+WKV_BWD_SMEM = 4 * (BWD_SUB * 256 * 16 + 5 * BWD_SUB * 64 + 3 * BWD_SUB * 64
+                    + BWD_SUB * 8 * 64)
 _ROUTE_CODE = {"step": 0, "chunk": 1}
 
 
@@ -149,3 +162,91 @@ def wkv_bhtd(r, k, v, w, u, S0=None):
 #: the same split by route.
 wkv_bhtd.launches = 0
 wkv_bhtd.route_launches = {"chunk": 0, "step": 0}
+
+
+def wkv_bwd_scratch_floats(B: int, H: int, T: int) -> tuple[int, int]:
+    """Floats of the backward kernel's two float32 scratch buffers: a state
+    at every :data:`CHUNK`-step boundary, and at every :data:`BWD_SUB`-step
+    boundary of one chunk, per (b, h)."""
+    state = HEAD_DIM * HEAD_DIM
+    return (B * H * -(-T // CHUNK) * state,
+            B * H * (CHUNK // BWD_SUB) * state)
+
+
+def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
+    """The gradients of ``wkv_bhtd(r, k, v, w, u, S0)`` for the output
+    gradients ``dy`` [B, H, T, hd] (r's dtype) and ``dS_final`` [B, H, hd,
+    hd] (None: zeros) -> (dr, dk, dv in r's dtype, dw in w's, du [H, hd]
+    and dS0 [B, H, hd, hd] float32).  r, k, v, w, dy: any strides whose last
+    one is 1 (the model's [B, T, H, hd] through ``transpose(1, 2)``); dr,
+    dk, dv, dw are allocated with r's and w's strides.
+
+    CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
+    (the forward's type pairs; hd 64), whose per-row du the wrapper sums
+    over B, or an exception."""
+    _check(r, k, v, w, u, S0)
+    B, H, T, hd = r.shape
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
+        raise ValueError(f"wkv_bwd_bhtd: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"must match r {tuple(r.shape)} {r.dtype} on "
+                         f"{r.device}")
+    if dS_final is not None and (tuple(dS_final.shape) != (B, H, hd, hd)
+                                 or dS_final.device != r.device):
+        raise ValueError(f"wkv_bwd_bhtd: dS_final {tuple(dS_final.shape)} "
+                         f"is not [B, H, hd, hd] = {(B, H, hd, hd)} on "
+                         f"{r.device}")
+    if r.device.type == "cpu":
+        return wkv_bwd_ref(r, k, v, w, u, S0, dy, dS_final)
+    if r.device.type != "cuda":
+        raise ValueError(f"the WKV backward kernel runs on CUDA (or, as its "
+                         f"plain version, on the CPU), got {r.device}")
+    if (r.dtype, w.dtype) not in _PAIRS:
+        raise ValueError(f"the WKV backward kernel takes r/k/v and w dtypes "
+                         f"in {sorted((str(a), str(b)) for a, b in _PAIRS)}, "
+                         f"got ({r.dtype}, {w.dtype})")
+    if hd != HEAD_DIM:
+        raise ValueError(f"the WKV backward kernel takes hd {HEAD_DIM}, got "
+                         f"{hd}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
+        if x.stride(3) != 1:
+            raise ValueError(f"WKV backward kernel: {name} needs a "
+                             f"contiguous last dimension, got strides "
+                             f"{x.stride()}")
+    u = u.float().contiguous()
+    S0, dS_final = (None if x is None else x.float().contiguous()
+                    for x in (S0, dS_final))
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    dS0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B and H:
+        from .. import build
+
+        lib = build.load_wkv_bwd()
+        n_ckpt, n_sub = wkv_bwd_scratch_floats(B, H, T)
+        ckpt = torch.empty(n_ckpt, dtype=torch.float32, device=r.device)
+        sub = torch.empty(n_sub, dtype=torch.float32, device=r.device)
+        strides = (ctypes.c_longlong * 27)(*[
+            x.stride(i) for x in (r, k, v, w, dy, dr, dk, dv, dw)
+            for i in (0, 1, 2)])
+
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        with torch.cuda.device(r.device):
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            err = lib.wkv_bwd_launch(
+                _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype],
+                *[ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr, dk,
+                                   dv, dw, du, dS0, ckpt, sub)],
+                B, H, T, strides, stream)
+        if err != 0:
+            msg = build.cuda_error_string(lib, err, "wkv_bwd")
+            raise RuntimeError(f"WKV backward kernel launch failed: {msg}")
+        wkv_bwd_bhtd.launches += 1
+    return dr, dk, dv, dw, du.sum(0), dS0
+
+
+#: Backward kernel launches since the last reset (set to 0 to start
+#: counting).
+wkv_bwd_bhtd.launches = 0

@@ -3,7 +3,7 @@ architecture family.
 
 ``build(cfg)`` dispatches on ``cfg.family``:
     dense   -> lm.py     (decoder-only transformer; serves and trains)
-    ssm     -> rwkv6.py  (Finch, attention-free; serves)
+    ssm     -> rwkv6.py  (Finch, attention-free; serves and trains)
     hybrid  -> rglru.py  (recurrentgemma: RG-LRU + local attention; serves
                and trains)
 The other families, and the VLM/audio inputs of the dense forward, raise

@@ -17,9 +17,13 @@ triple (``tm_last`` [L, B, D], ``S`` [L, B, H, 64, 64] float32,
 ``cm_last`` [L, B, D]); the forward returns new ones, the token-shift
 carries in the activation dtype, as JAX's scan returns them.
 
-The WKV recurrence has no backward kernel yet, so the forward raises
-under autograd (``kernels/rwkv6/ops.py::no_autograd``; training rwkv6 is
-ROADMAP queue 1, item 9f).  The mesh helpers
+Training runs each block under ``torch.utils.checkpoint`` when
+``cfg.remat`` (JAX's ``jax.checkpoint`` per block, rwkv6.py:263-267), the
+WKV recurrence through its autograd Function (``kernels/rwkv6/ops.py::
+WKV``: the forward kernel, then the backward kernel, which walks the
+states again from the saved inputs); the decay's gradient flows on
+through ``w = exp(-exp(dec))`` into ``w0``, ``w_A`` and ``w_B`` by
+autograd.  The mesh helpers
 (``_head_shard``, ``residual_shard``, ``logits_shard``) have no
 counterpart on one card.
 """
@@ -30,6 +34,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rwkv6 import wkv
 from . import layers as L
@@ -214,8 +219,14 @@ def forward(cfg: ModelConfig, params, tokens, *, states=None,
     Returns (logits [B, T, V], new_states or None, aux_loss 0).
     """
     x = _ln(params["ln0"], params["embed"][tokens.long()])
+    remat = cfg.remat and states is None and torch.is_grad_enabled()
     sts = []
     for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+        if remat:
+            x = checkpoint(block_fwd, cfg, bp, x, None, executor=executor,
+                           use_reentrant=False,
+                           context_fn=L.remat_policy(cfg))[0]
+            continue
         st = None if states is None else tuple(s[i] for s in states)
         x, st2 = block_fwd(cfg, bp, x, st, executor=executor)
         sts.append(st2)

@@ -2,8 +2,8 @@
 tick loop (reference physics, every environment family, the learned
 controller), flash
 attention forward (hd 64, 128 and 256) and backward, each by both routes
-(bf16: wgmma; float32: FMA), the WKV recurrence and the RG-LRU scan, each
-against its plain version.
+(bf16: wgmma; float32: FMA), the WKV recurrence and its backward, and the
+RG-LRU scan and its backward, each against its plain version.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -31,7 +31,8 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention_bwd_bhtd)
 from repro_torch.kernels.rglru import (rglru, rglru_bwd_ref, rglru_ref,
                                        rglru_scan, rglru_scan_bwd)
-from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_ref
+from repro_torch.kernels.rwkv6 import (wkv, wkv_bhtd, wkv_bwd_bhtd,
+                                       wkv_bwd_ref, wkv_ref)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -427,6 +428,58 @@ def test_wkv_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
                 ytol * max(1.0, float(yr.float().abs().max())), where
             assert float((S - Sr).abs().max()) <= \
                 1e-4 * max(1.0, float(Sr.abs().max())), where
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_wkv_bwd_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
+                                                     w_dtype):
+    """The WKV backward kernel == wkv_bwd_ref on [B,T,H,64] views (heads
+    sliced out of a wider tensor), S0 and dS_final zero or given, T about
+    the 64-step checkpoints and the 8-step sub-chunks, decays over
+    exp(-exp(x)), x in [-8, 3]: outputs in bf16 within 1e-2 of their
+    largest |value| (one rounding), float32 ones within 1e-4 (sums in
+    another order, FMA contraction); one launch a call.  Under autograd
+    ``wkv`` runs both kernels and its gradients stand as close to the
+    ``reference`` executor's."""
+    g = torch.Generator().manual_seed(4)
+    for B, T, H, with_s0, with_ds in [
+            (1, 1, 2, False, True), (2, 63, 2, True, False),
+            (1, 64, 3, True, True), (2, 65, 1, False, False),
+            (1, 200, 2, True, True), (1, 1000, 1, True, False)]:
+        def draw(scale=0.5):
+            x = torch.randn(B, T, 2 * H, 64, generator=g) * scale
+            return x.to(cuda_device, dtype).transpose(1, 2)[:, H:]
+        r, k, v, dy = draw(), draw(), draw(), draw(1.0)
+        x = -8.0 + 11.0 * torch.rand(B, T, 2 * H, 64, generator=g)
+        w = torch.exp(-torch.exp(x)).to(cuda_device, w_dtype).transpose(
+            1, 2)[:, H:]
+        u = (torch.randn(H, 64, generator=g) * 0.5).to(cuda_device)
+        S0, dS = ((torch.randn(B, H, 64, 64, generator=g) * 0.2).to(
+            cuda_device) if on else None for on in (with_s0, with_ds))
+        want = wkv_bwd_ref(r, k, v, w, u, S0, dy, dS)
+        before = wkv_bwd_bhtd.launches
+        got = wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS)
+        torch.cuda.synchronize()
+        assert wkv_bwd_bhtd.launches == before + 1
+        for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got,
+                              want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            tol = 1e-4 if a.dtype == torch.float32 else 1e-2
+            assert float((a.float() - b.float()).abs().max()) <= tol * max(
+                1.0, float(b.float().abs().max())), (name, B, T, H)
+    leaves = [t.transpose(1, 2).detach().requires_grad_()
+              for t in (r, k, v, w)] + [u.requires_grad_()]
+    out = {}
+    for ex in ("cuda", "reference"):
+        y, _ = wkv(*leaves, executor=ex)
+        out[ex] = torch.autograd.grad(y, leaves, dy.transpose(1, 2))
+    for a, b in zip(out["cuda"], out["reference"]):
+        tol = 1e-4 if a.dtype == torch.float32 else 1e-2
+        assert float((a.float() - b.float()).abs().max()) <= tol * max(
+            1.0, float(b.float().abs().max()))
 
 
 @pytest.mark.gpu

@@ -161,12 +161,20 @@ def test_build_states_and_autograd():
     tst = bundle.init_decode_state(3, 8, device="cpu")
     for a, b in zip(convert.states_to_jax(tst), jst):
         assert a.dtype == b.dtype and a.shape == b.shape and not a.any()
-    for leaf in (params["blocks"]["tm"]["wr"], params["embed"]):
+    # under autograd the forward runs the WKV Function: the gradients
+    # equal those through the plain pair (executor "reference")
+    leaves = (params["blocks"]["tm"]["wr"], params["blocks"]["tm"]["u"],
+              params["embed"])
+    for leaf in leaves:
         leaf.requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        bundle.forward(params, torch.zeros((1, 4), dtype=torch.long))
+    tokens = torch.arange(12, dtype=torch.long).reshape(2, 6) % 7
+    grads = [torch.autograd.grad(bundle.forward(
+        params, tokens, executor=ex)[0].float().square().sum(), leaves)
+        for ex in ("auto", "reference")]
+    for a, b in zip(*grads):
+        assert a.abs().max() > 0 and torch.equal(a, b)
     with torch.no_grad():
-        bundle.forward(params, torch.zeros((1, 4), dtype=torch.long))
+        assert not bundle.forward(params, tokens)[0].requires_grad
 
 
 def test_random_lm_params_have_jax_tree_and_scales():

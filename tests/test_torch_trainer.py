@@ -135,7 +135,7 @@ def _keep_only(d, step):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "rwkv6-7b"])
 def test_port_resumes_a_jax_checkpoint(arch):
     """The JAX trainer runs 8 steps, checkpointing at 4; the port restores
     step 4 from JAX's files, runs steps 5-8 on the same batches, and gives

@@ -21,7 +21,8 @@ from repro.kernels.rwkv6 import wkv as j_wkv
 from repro.kernels.rwkv6 import wkv_oracle as j_wkv_oracle
 from repro.models.rwkv6 import wkv_scan_with_state as j_scan_with_state
 from repro_torch.kernels import build
-from repro_torch.kernels.rwkv6 import wkv, wkv_bhtd, wkv_oracle, wkv_ref
+from repro_torch.kernels.rwkv6 import (wkv, wkv_bhtd, wkv_bwd_bhtd,
+                                       wkv_bwd_ref, wkv_oracle, wkv_ref)
 
 def _inputs(seed, B, T, H, dtype, w_dtype=None):
     """r, k, v, w [B, T, H, 64] and u [H, 64] as (jax, torch) lists; w in
@@ -104,7 +105,7 @@ def test_kernel_layout_is_a_strided_view_and_the_state_is_optional():
 
 def test_executors_autograd_and_no_fallback_on_the_cpu():
     _, tx = _inputs(2, 1, 8, 2, "float32")
-    before = wkv_bhtd.launches
+    before, bwd0 = wkv_bhtd.launches, wkv_bwd_bhtd.launches
     a = wkv(*tx, executor="auto")
     b = wkv(*tx, executor="reference")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -113,11 +114,22 @@ def test_executors_autograd_and_no_fallback_on_the_cpu():
         wkv(*tx, executor="cuda")
     with pytest.raises(ValueError, match="unknown attention executor"):
         wkv(*tx, executor="pallas")
+    # under autograd: the WKV Function, whose gradients equal the plain
+    # pair's (wkv_ref, wkv_bwd_ref) under either executor, with no launch
     grad = [x.clone().requires_grad_() for x in tx]
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        wkv(*grad)
+    y, S = wkv(*grad)
+    assert type(y.grad_fn).__name__ == "TransposeBackward0"
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(y, grad, dy)
+    ref = torch.autograd.grad(wkv(*grad, executor="reference")[0], grad, dy)
+    want = wkv_bwd_ref(*[x.detach().transpose(1, 2) for x in tx[:4]],
+                       tx[4], None, dy.transpose(1, 2))
+    for a, b, c in zip(got, ref, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c.transpose(1, 2) if c.dim() == 4 else c)
+    assert wkv_bhtd.launches == before and wkv_bwd_bhtd.launches == bwd0
     with torch.no_grad():
-        wkv(*grad)
+        assert not wkv(*grad)[0].requires_grad
 
 
 def test_wrapper_checks_shapes_and_dtypes():

@@ -16,6 +16,13 @@ machine with the card draws the same weights).
     each kind of the block pattern); B = 1 row of T + 1 = 2,177 tokens, so
     that T > window and the window mask cuts the attention.  The header
     states the cut; peak host memory is recorded in it.
+  * ``rwkv6-7b`` -> ``train_rwkv6_7b.json``: full width (d_model 4,096, 64
+    heads of 64, d_ff 14,336, vocab 65,536), cut to 4 of its 32 layers
+    (``lm_rwkv6_7b.json``'s cut and seed); B = 1 row of T + 1 = 201
+    tokens: three 64-step WKV checkpoints and a ragged tail.  Its slices
+    reach every kind of leaf, ``tm/u``, ``tm/w0``, ``tm/w_A``,
+    ``tm/mix_A`` and ``tm/gn_scale`` (which only the WKV backward
+    reaches) among them.  Peak host memory about 25 GB, ~80 s.
 
 Tokens come from ``np.random.default_rng(3)``, split into tokens and labels
 shifted by one, as ``repro.data.batches`` does.  The step is
@@ -24,7 +31,7 @@ shifted by one, as ``repro.data.batches`` does.  The step is
 loss, ce, grad_norm and lr of both steps, the step-1 gradient's L2 norm
 per leaf and a few slices of it (the row's ``check``), and the same slices
 of the parameters after step 2.  The port reproduces them on the card
-(chip_smoke.py phases 11 and 19c).
+(chip_smoke.py phases 11, 19c and 22b).
 """
 import dataclasses
 import json
@@ -89,6 +96,35 @@ GOLDENS = {
                ("layers/2/attn/wo", (300, slice(0, 8))),
                ("layers/2/mlp/wd", (13, slice(0, 8))),
                ("final_norm/scale", (slice(0, 8),)))),
+    "rwkv6-7b": dict(
+        file="train_rwkv6_7b.json", num_layers=4,
+        cut="4 of 32 layers (the serving golden's cut and seed): the full "
+            "depth's float32 train state is 91 GB on a host",
+        batch=1, seq=200,
+        check=(("embed", (None, slice(0, 8))),
+               ("ln0/scale", (slice(0, 8),)),
+               ("blocks/ln1/scale", (0, slice(0, 8))),
+               ("blocks/ln2/bias", (1, slice(0, 8))),
+               ("blocks/tm/mu", (1, 4, slice(0, 8))),
+               ("blocks/tm/mix_A", (3, 2, 100, slice(0, 8))),
+               ("blocks/tm/mix_B", (0, 4, 3, slice(0, 8))),
+               ("blocks/tm/w0", (0, slice(0, 8))),
+               ("blocks/tm/w_A", (1, 5, slice(0, 8))),
+               ("blocks/tm/w_B", (2, 7, slice(0, 8))),
+               ("blocks/tm/u", (3, slice(0, 8))),
+               ("blocks/tm/wr", (3, 7, slice(-8, None))),
+               ("blocks/tm/wk", (0, 3, slice(0, 8))),
+               ("blocks/tm/wv", (1, 11, slice(0, 8))),
+               ("blocks/tm/wg", (2, 100, slice(0, 8))),
+               ("blocks/tm/wo", (3, 300, slice(0, 8))),
+               ("blocks/tm/gn_scale", (2, slice(0, 8))),
+               ("blocks/cm/mu_k", (3, slice(0, 8))),
+               ("blocks/cm/wk", (0, 13, slice(0, 8))),
+               ("blocks/cm/wv", (1, 5, slice(0, 8))),
+               ("blocks/cm/wr", (2, 9, slice(0, 8))),
+               ("ln_out/scale", (slice(0, 8),)),
+               ("head", (5, slice(0, 8))),
+               ("head", (4095, slice(-8, None))))),
 }
 
 

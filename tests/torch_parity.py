@@ -252,3 +252,72 @@ def wkv_host_call(fn, r, k, v, w, u, S0, route, nj=64):
              S.data_ptr(), B, H, T, (ctypes.c_longlong * 15)(*st), route, nj)
     assert err == 0
     return y, S
+
+
+def build_wkv_bwd_host(tmp_dir):
+    """``csrc/wkv_bwd.cu``'s kernel built by g++ for the host
+    (tests/sm90/wkv_bwd_harness.cpp on the sm90 emulator): the
+    ``wkv_bwd_host`` function of the library (``wkv_bwd_launch``'s
+    arguments without the stream), or None without g++."""
+    from repro_torch.kernels import build
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = (build.CSRC / "wkv_bwd.cu").read_text()
+    src = src[:src.index("template <typename T, typename TW>\nint launch(")]
+    src = re.sub(r'#include [<"].*[>"]\n', "", src)
+    src = src.replace("extern __shared__ uint8_t smem_raw[];",
+                      "using ::smem_raw;")
+    (tmp_dir / "wkv_bwd_cut.inc").write_text(
+        f"namespace wb {{\n{src}\n}}}}\n")
+    lib = tmp_dir / "wkv_bwd_host.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-fno-strict-aliasing",
+                    "-fvisibility=hidden", "-fno-gnu-unique", "-shared",
+                    "-fPIC", "-pthread", f"-I{here}/sm90", f"-I{build.CSRC}",
+                    f"-I{tmp_dir}", "-o", str(lib),
+                    f"{here}/sm90/wkv_bwd_harness.cpp"],
+                   check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).wkv_bwd_host
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 16
+                   + [ctypes.c_int] * 3
+                   + [ctypes.POINTER(ctypes.c_longlong)])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv_bwd_host_call(fn, r, k, v, w, u, S0, dy, dS_final):
+    """(dr, dk, dv, dw, du [H, 64], dS0) of the host build on [B, H, T, 64]
+    views, the gradients allocated with r's (and w's) strides and filled
+    with NaN first, du's per-row partials summed over B as the wrapper
+    sums them."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import rwkv6 as wrapper
+
+    B, H, T, _ = r.shape
+
+    def nan_like(x):
+        return torch.full_like(x, float("nan"))
+
+    dr, dk, dv, dw = (nan_like(x) for x in (r, k, v, w))
+    du = torch.full((B, H, 64), float("nan"))
+    dS0 = torch.full((B, H, 64, 64), float("nan"))
+    ckpt, sub = (torch.full((n,), float("nan"))
+                 for n in wrapper.wkv_bwd_scratch_floats(B, H, T))
+    u = u.float().contiguous()
+    S0, dS_final = (None if x is None else x.float().contiguous()
+                    for x in (S0, dS_final))
+    st = [x.stride(i) for x in (r, k, v, w, dy, dr, dk, dv, dw)
+          for i in (0, 1, 2)]
+    code = {torch.float32: 0, torch.bfloat16: 1}
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = fn(code[r.dtype], code[w.dtype], *[ptr(x) for x in (
+        r, k, v, w, dy, u, S0, dS_final, dr, dk, dv, dw, du, dS0, ckpt,
+        sub)], B, H, T, (ctypes.c_longlong * 27)(*st))
+    assert err == 0
+    return dr, dk, dv, dw, du.sum(0), dS0
