@@ -241,6 +241,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2963,7 +2964,8 @@ STEP_GROUPS = (("flash forward (kernel 2)", ("flash_fwd",)),
                ("flash backward (kernel 3)", ("flash_bwd",)),
                ("rglru backward", ("rglru_bwd_kernel",)),
                ("rglru (kernel 5)", ("rglru_kernel",)),
-               ("wkv backward", ("wkv_bwd_kernel",)),
+               ("wkv backward", ("wkv_bwd_kernel", "wkv_bwd_state_kernel",
+                                 "wkv_bwd_chunk_kernel")),
                ("wkv (kernel 4)", ("wkv_chunk_kernel", "wkv_kernel")),
                ("matrix products", ("gemm", "gemv", "cutlass", "xmma",
                                     "cublas", "nvjet", "sm90_", "sm80_")),
@@ -4407,19 +4409,23 @@ def phase_recurrent_train(dev) -> dict:
 
 # --------------------------------------------------------- rwkv6 training --
 
-# Phase 22: rwkv6-7b training.  (a) The WKV backward kernel vs its plain
-# version at rwkv6-7b's heads (H 64 of 64, the upper half of a tensor of
-# 128 heads, so that every stride differs from a contiguous one): r, k, v
-# float32 or bf16 with w float32 or bf16; T about the 64-step checkpoints
-# and 8-step sub-chunks (WKV_BWD_T at B 1 with S0 and dS_final zero, at
-# B 2 with both given) and the trainer's T (WKV_BWD_LONG); decays
-# exp(-exp(x)) for x uniform in [-8, 3].  Tolerances, relative to the
-# reference's largest |value| (at least 1): 1e-2 for bf16 outputs (dr, dk,
-# dv; dw of a bf16 decay), one rounding of float32 sums taken in another
-# order; 1e-4 for float32 ones (dw of a float32 decay, du, dS0).  The
-# kernel recomputes its states in float32 from the same inputs as the
-# plain version and never reads the forward's chunked accumulators, so
-# the bf16 forward's route does not enter these tolerances.
+# Phase 22: rwkv6-7b training.  (a) The WKV backward's two routes vs its
+# plain version at rwkv6-7b's heads (H 64 of 64, the upper half of a tensor
+# of 128 heads, so that every stride differs from a contiguous one): r, k,
+# v float32 or bf16 with w float32 or bf16; T about the 64-step chunks and
+# their sub-chunks (WKV_BWD_T at B 1 with S0 and dS_final zero, at B 2 with
+# both given) and the trainer's T (WKV_BWD_LONG); decays exp(-exp(x)) for
+# x uniform in [-8, 3], and phase 13's extreme ranges (WKV_EXTREME_X) at
+# (B, T) of WKV_BWD_EXTREME_BT.  Every bf16 case runs on both routes (the
+# plan's, and the other forced); float32 cases take the step route.
+# Tolerances, relative to the reference's largest |value| (at least 1):
+# 1e-2 for bf16 outputs (dr, dk, dv; dw of a bf16 decay), one rounding of
+# float32 sums taken in another order; 1e-4 for float32 ones (dw of a
+# float32 decay, du, dS0), which the chunked route's bf16 high + low
+# operand split holds as kernel 4's chunked route holds S_final.  Both
+# routes recompute the states from the same inputs as the plain version
+# and never read the forward's accumulators, so the forward's route does
+# not enter these tolerances.
 WKV_BWD_T = (1, 63, 64, 65, 200)
 WKV_BWD_LONG = ((2, 4096, "bfloat16", "float32", True, False),
                 (1, 4096, "float32", "float32", False, True),
@@ -4427,6 +4433,12 @@ WKV_BWD_LONG = ((2, 4096, "bfloat16", "float32", True, False),
 WKV_BWD_PAIRS = (("float32", "float32"), ("bfloat16", "float32"),
                  ("bfloat16", "bfloat16"))
 WKV_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+WKV_BWD_EXTREME_BT = ((1, 2048), (2, 200))
+# The step route's time at the trainer's shape when it was the only route
+# (PERF.md's kernel table, row 4b, device time; NVIDIA H100 80GB HBM3,
+# 700 W), printed beside today's.
+WKV_BWD_EARLIER_MS = "the step route alone, before the chunked one: " \
+    "6.7707-6.8119"
 # (b) The float32 golden (tests/torch_goldens/make_train_golden.py
 # rwkv6-7b: full width, 4 of 32 layers, B 1 x T 200: three 64-step
 # checkpoints and a ragged tail), held to phase 11's tolerances but for
@@ -4456,38 +4468,67 @@ RWKV_TRAIN_LAYERS = 8
 RWKV_TRAIN_BUDGET_S = 60.0      # the phase's time on a host like run I's
 
 
-def wkv_bwd_bound(B, H, T, hd, elem_bytes, w_bytes, with_s0, with_ds):
-    """(bound_ms, bound_by, flops, bytes) of one WKV backward call.  Bytes:
-    r, k, v, dy read and dr, dk, dv written once in their type, w read and
-    dw written once in its type, u, S0 and dS_final read and dS0 and du's
-    per-row partials written once.  Operations: 12 hd^2 float32 operations
-    per (b, h, t), the states' forward walk once (2 hd^2) and the
-    backward's five sums and state update (10 hd^2), at the CUDA cores'
-    67 TFLOP/s."""
+def wkv_bwd_chunk_flops(B, H, T, hd):
+    """Tensor-core operations of the backward's chunked route
+    (csrc/wkv_bwd_chunk.cu) with its bf16 high/low splits, 2 a
+    multiply-add: the state pass's two products (hi, lo) of hd x hd x 64 a
+    chunk, forward over all but the last chunk and backward over all; the
+    chunk pass's, per chunk and head: 11 products of 64 x hd x 64 (dv's
+    kbar dS_e in 3 splits and A^T dY in 2, dA, dA^T, dY S_c^T and V dS_e^T
+    in 2 each), the sub-chunk blocks (3 a side, 3 splits, 64 x hd x 16)
+    and A's three off-diagonal blocks (3 splits of 64 x 16 x hd each); a
+    partial last chunk counts whole."""
+    nc = -(-T // 64)
+    state = 2 * 2 * hd * hd * 64 * (2 * nc - 1)
+    chunk = 2 * (11 * 64 * hd * 64 + 18 * 64 * hd * 16 + 9 * 64 * 16 * hd)
+    return B * H * (state + nc * chunk)
+
+
+def wkv_bwd_bound(B, H, T, hd, elem_bytes, w_bytes, with_s0, with_ds,
+                  route="step"):
+    """(bound_ms, bound_by, flops, bytes, recurrent_ms) of one WKV backward
+    call by ``route``.  Bytes: r, k, v, dy read and dr, dk, dv written once
+    in their type, w read and dw written once in its type, u, S0 and
+    dS_final read and dS0 and du's per-row partials written once.
+    Operations: the route's own at its unit's rate, the chunked route's
+    tensor-core products (wkv_bwd_chunk_flops) at 989 TFLOP/s, the step
+    route's 12 hd^2 float32 operations per (b, h, t) (the states' forward
+    walk once, 2 hd^2, and the backward's five sums and state update, 10
+    hd^2) at the CUDA cores' 67 TFLOP/s.  recurrent_ms is that last figure
+    for any route, printed beside the bound under its own name."""
     n = B * H * T * hd
-    flops = 12 * hd * hd * B * H * T
+    rec_flops = 12 * hd * hd * B * H * T
     nbytes = (7 * elem_bytes + 2 * w_bytes) * n + 4 * H * hd \
         + 4 * B * H * hd * hd * (1 + with_s0 + with_ds) + 4 * B * H * hd
-    t_ops = flops / F32_OPS_PER_S * 1e3
+    if route == "chunk":
+        flops, rate = wkv_bwd_chunk_flops(B, H, T, hd), BF16_TENSOR_OPS_PER_S
+    else:
+        flops, rate = rec_flops, F32_OPS_PER_S
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
+            else "bytes", flops, nbytes, rec_flops / F32_OPS_PER_S * 1e3)
 
 
 def phase_wkv_bwd(dev) -> dict:
-    """[22 rwkv6 train] (a) the WKV backward kernel vs its plain version on
-    the card; timed at the trainer's shape against its bound, the plain
-    version and the forward kernel there."""
+    """[22 rwkv6 train] (a) the WKV backward's routes vs its plain version
+    on the card (the chunked route and the step route, each bf16 case on
+    both); both timed at the trainer's shape against their bounds, beside
+    the plain version and the forward kernel there."""
+    import contextlib
+    import importlib
     import itertools
 
     import torch
 
     from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_bwd_bhtd, wkv_bwd_ref
 
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     H, hd = WKV_HEADS, 64
     g = torch.Generator(device=dev).manual_seed(22)
 
-    def inputs(B, T, dname, wname, with_s0, with_ds):
+    def inputs(B, T, dname, wname, with_s0, with_ds, x_range=(-8.0, 3.0)):
         def heads(x, dt):     # the upper H of 2 H heads
             return x.to(dt).transpose(1, 2)[:, H:]
 
@@ -4496,87 +4537,182 @@ def phase_wkv_bwd(dev) -> dict:
                    for _ in range(3))
         dy = heads(torch.randn(B, T, 2 * H, hd, generator=g, device=dev),
                    getattr(torch, dname))
-        x = -8.0 + 11.0 * torch.rand(B, T, 2 * H, hd, generator=g,
-                                     device=dev)
+        lo, hi = x_range
+        x = lo + (hi - lo) * torch.rand(B, T, 2 * H, hd, generator=g,
+                                        device=dev)
         w = heads(torch.exp(-torch.exp(x)), getattr(torch, wname))
         u = torch.randn(H, hd, generator=g, device=dev) * 0.5
         S0, dS = (torch.randn(B, H, hd, hd, generator=g, device=dev) * 0.2
                   if on else None for on in (with_s0, with_ds))
         return r, k, v, w, u, S0, dy, dS
 
+    @contextlib.contextmanager
+    def forced(plan):
+        """The wrapper with its route forced to ``plan`` (None: its own)."""
+        orig = mod.wkv_bwd_plan
+        if plan is not None:
+            mod.wkv_bwd_plan = lambda *a: plan
+        try:
+            yield
+        finally:
+            mod.wkv_bwd_plan = orig
+
     names = ("dr", "dk", "dv", "dw", "du", "dS0")
-    worst = {"bfloat16": 0.0, "float32": 0.0}
-    max_abs = 0.0
-    cases = [(B, T, dn, wn, on, on) for (dn, wn), T, (B, on) in
+    worst = {(route, kind): 0.0 for route in ("chunk", "step")
+             for kind in ("bfloat16", "float32")}
+    max_abs = {"chunk": 0.0, "step": 0.0}
+    cases = [(B, T, dn, wn, on, on, None) for (dn, wn), T, (B, on) in
              itertools.product(WKV_BWD_PAIRS, WKV_BWD_T,
                                ((1, False), (2, True)))]
-    cases += list(WKV_BWD_LONG)
+    cases += [c + (None,) for c in WKV_BWD_LONG]
+    cases += [(B, T, "bfloat16", "float32", True, True, x)
+              for (B, T), x in itertools.product(WKV_BWD_EXTREME_BT,
+                                                 WKV_EXTREME_X)]
     n = 0
-    for B, T, dname, wname, with_s0, with_ds in cases:
-        args = inputs(B, T, dname, wname, with_s0, with_ds)
+    for B, T, dname, wname, with_s0, with_ds, x_range in cases:
+        args = inputs(B, T, dname, wname, with_s0, with_ds,
+                      x_range or (-8.0, 3.0))
         want = wkv_bwd_ref(*args)
-        before = wkv_bwd_bhtd.launches
-        got = wkv_bwd_bhtd(*args)
-        torch.cuda.synchronize()
-        check(wkv_bwd_bhtd.launches == before + 1,
-              "the WKV backward wrapper launched other than once")
-        for name, a, b in zip(names, got, want):
-            check(a.dtype == b.dtype and a.shape == b.shape,
-                  f"wkv_bwd {name}: {a.dtype} {tuple(a.shape)} vs "
-                  f"{b.dtype} {tuple(b.shape)}")
-            kind = "float32" if a.dtype == torch.float32 else "bfloat16"
-            diff = float((a.float() - b.float()).abs().max())
-            err = diff / max(1.0, float(b.float().abs().max()))
-            check(err <= WKV_BWD_TOL[kind],
-                  f"[22a] wkv_bwd B={B} T={T} {dname}/{wname} S0={with_s0} "
-                  f"dS_final={with_ds}: {name} err {err} (tol "
-                  f"{WKV_BWD_TOL[kind]})")
-            worst[kind] = max(worst[kind], err)
-            max_abs = max(max_abs, diff)
-        n += 1
-        del args, want, got
+        own = mod.wkv_bwd_plan(*args[:4], args[6], n_sms)
+        check(dname == "bfloat16" or own[0] == "step",
+              f"[22a] a float32 case planned on the {own[0]} route")
+        plans = [None]
+        if dname == "bfloat16":   # the other route too
+            plans.append(("step", 64) if own[0] == "chunk" else
+                         ("chunk", 32))
+        for plan in plans:
+            route = (plan or own)[0]
+            before = dict(wkv_bwd_bhtd.route_launches)
+            with forced(plan):
+                got = wkv_bwd_bhtd(*args)
+            torch.cuda.synchronize()
+            check(wkv_bwd_bhtd.route_launches[route] == before[route] + 1
+                  and sum(wkv_bwd_bhtd.route_launches.values())
+                  == sum(before.values()) + 1,
+                  f"the WKV backward wrapper did not launch once on the "
+                  f"{route} route")
+            for name, a, b in zip(names, got, want):
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"wkv_bwd {name}: {a.dtype} {tuple(a.shape)} vs "
+                      f"{b.dtype} {tuple(b.shape)}")
+                kind = "float32" if a.dtype == torch.float32 else "bfloat16"
+                diff = float((a.float() - b.float()).abs().max())
+                err = diff / max(1.0, float(b.float().abs().max()))
+                check(err <= WKV_BWD_TOL[kind],
+                      f"[22a] wkv_bwd B={B} T={T} {dname}/{wname} "
+                      f"S0={with_s0} dS_final={with_ds} decays x in "
+                      f"{x_range or (-8.0, 3.0)} {route} route"
+                      f"{' (forced)' if plan else ''}: {name} err {err} "
+                      f"(tol {WKV_BWD_TOL[kind]})")
+                worst[route, kind] = max(worst[route, kind], err)
+                max_abs[route] = max(max_abs[route], diff)
+            n += 1
+            del got
+        del args, want
     torch.cuda.synchronize()
-    print(f"[22 rwkv6 train] (a) WKV backward kernel == plain version on "
-          f"{n} cases (H {H} of 128 heads, hd {hd}; r/k/v and w "
-          f"{WKV_BWD_PAIRS}; T {WKV_BWD_T} at B 1 (S0, dS_final zero) and B 2 "
-          f"(both given), and (B, T, r/k/v, w, S0, dS_final) "
-          f"{WKV_BWD_LONG}; decays exp(-exp(x)), x in [-8, 3]): max err / "
-          f"max(1, max |ref|) bf16 outputs {worst['bfloat16']:.3g} (tol "
-          f"{WKV_BWD_TOL['bfloat16']}), float32 outputs "
-          f"{worst['float32']:.3g} (tol {WKV_BWD_TOL['float32']}); max "
-          f"|err| {max_abs:.3g}", flush=True)
+    print(f"[22 rwkv6 train] (a) WKV backward == plain version on {n} runs "
+          f"(H {H} of 128 heads, hd {hd}; r/k/v and w {WKV_BWD_PAIRS}; T "
+          f"{WKV_BWD_T} at B 1 (S0, dS_final zero) and B 2 (both given), "
+          f"(B, T, r/k/v, w, S0, dS_final) {WKV_BWD_LONG}; decays "
+          f"exp(-exp(x)), x in [-8, 3], and x in {WKV_EXTREME_X} at (B, T) "
+          f"{WKV_BWD_EXTREME_BT}; every bf16 case on both routes, float32 "
+          f"on the step route): max err / max(1, max |ref|), chunked route "
+          f"bf16 outputs {worst['chunk', 'bfloat16']:.3g}, float32 outputs "
+          f"{worst['chunk', 'float32']:.3g}; step route bf16 "
+          f"{worst['step', 'bfloat16']:.3g}, float32 "
+          f"{worst['step', 'float32']:.3g} (tol {WKV_BWD_TOL['bfloat16']} "
+          f"/ {WKV_BWD_TOL['float32']}); max |err| chunk "
+          f"{max_abs['chunk']:.3g}, step {max_abs['step']:.3g}", flush=True)
 
     # the trainer's call: bf16 r, k, v, dy, float32 w, no S0, S_final
-    # unused (its gradient None)
+    # unused (its gradient None), on each route
     B, T = RG_TRAIN_B, RG_TRAIN_T
     args = inputs(B, T, "bfloat16", "float32", False, False)
-    ms = time_cuda(lambda: wkv_bwd_bhtd(*args), 5)
-    dev_ms = kernel_device_ms(lambda: wkv_bwd_bhtd(*args))
+    own = mod.wkv_bwd_plan(*args[:4], args[6], n_sms)
+    check(own[0] == "chunk", f"the trainer's backward planned {own}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wkv_bwd_ref(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     fwd_ms = time_cuda(lambda: wkv_bhtd(*args[:6]), 5)
-    bound_ms, bound_by, flops, nbytes = wkv_bwd_bound(B, H, T, hd, 2, 4,
-                                                      False, False)
     fb = wkv_bound(B, H, T, hd, 2, False, "chunk")
-    dev_txt = ("device time not measured" if dev_ms is None else
-               f"{dev_ms:.4f} ms of device time (20 calls queued; x bound "
-               f"{dev_ms / bound_ms:.2f})")
-    print(f"[22 rwkv6 train] (a) WKV backward, rwkv6-7b heads bf16 (w f32) "
-          f"B={B} T={T}: {ms:.4f} ms (CUDA events, median of 5), {dev_txt}; "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({flops} FLOP at 67 "
-          f"TFLOP/s, {nbytes} B at 3.35 TB/s); plain {plain_ms:.1f} ms (one "
-          f"run); library call: none (no PyTorch call computes this "
-          f"recurrence's gradient); the forward kernel at the same shape "
-          f"{fwd_ms:.4f} ms (bound {fb[0]:.4f})", flush=True)
+    timed = {}
+    for plan in [None] + [p for p in (("chunk", 32), ("chunk", 64),
+                                      ("step", 64)) if p != own]:
+        route, nj = plan or own
+        with forced(plan):
+            ms = time_cuda(lambda: wkv_bwd_bhtd(*args), 5)
+            dev_ms = kernel_device_ms(lambda: wkv_bwd_bhtd(*args))
+            split = (kernel_split_ms(lambda: wkv_bwd_bhtd(*args), "wkv_bwd")
+                     if route == "chunk" else None)
+        bound_ms, bound_by, flops, nbytes, rec_ms = wkv_bwd_bound(
+            B, H, T, hd, 2, 4, False, False, route)
+        timed[f"{route}/{nj}"] = dict(ms=ms, device_ms=dev_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      recurrent_bound_ms=rec_ms, split=split)
+        dev_txt = ("device time not measured" if dev_ms is None else
+                   f"{dev_ms:.4f} ms of device time (20 calls queued; x "
+                   f"bound {dev_ms / bound_ms:.2f})")
+        split_txt = ("" if not split else "; by kernel (profiler, median of "
+                     "5 calls): " + ", ".join(f"{k} {v:.4f} ms"
+                                              for k, v in split.items()))
+        print(f"[22 rwkv6 train] (a) WKV backward, rwkv6-7b heads bf16 (w "
+              f"f32) B={B} T={T}: {route} route"
+              f"{f', state pass over {nj} columns a block' if route == 'chunk' else ''}"
+              f" ({'the plan' if plan is None else 'forced'}): {ms:.4f} ms "
+              f"(CUDA events, median of 5), {dev_txt}{split_txt}; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops} FLOP at "
+              f"{'989' if route == 'chunk' else '67'} TFLOP/s, {nbytes} B "
+              f"at 3.35 TB/s); the recurrent form's operations at 67 "
+              f"TFLOP/s {rec_ms:.4f} ms; earlier {WKV_BWD_EARLIER_MS}; "
+              f"plain {plain_ms:.1f} ms (one run); library call: none (no "
+              f"PyTorch call computes this recurrence's gradient); the "
+              f"forward kernel at the same shape {fwd_ms:.4f} ms (bound "
+              f"{fb[0]:.4f})", flush=True)
     del args
     torch.cuda.empty_cache()
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs,
-                max_rel_err=max(worst.values()), library_ms=None,
-                forward_ms=fwd_ms)
+    mine = timed[f"{own[0]}/{own[1]}"]
+    step = timed["step/64"]
+    return dict(ms=mine["ms"], device_ms=mine["device_ms"],
+                plain_ms=plain_ms, bound_ms=mine["bound_ms"],
+                bound_by=mine["bound_by"],
+                recurrent_bound_ms=mine["recurrent_bound_ms"],
+                max_abs_err=max_abs["chunk"],
+                max_rel_err=max(worst["chunk", k]
+                                for k in ("bfloat16", "float32")),
+                library_ms=None, forward_ms=fwd_ms, split=mine["split"],
+                variants=timed,
+                step=dict(ms=step["ms"], device_ms=step["device_ms"],
+                          plain_ms=plain_ms, bound_ms=step["bound_ms"],
+                          bound_by=step["bound_by"],
+                          max_abs_err=max_abs["step"],
+                          max_rel_err=max(worst["step", k]
+                                          for k in ("bfloat16", "float32")),
+                          library_ms=None))
+
+
+def kernel_split_ms(fn, key, calls=5):
+    """Device time (ms) of each kernel whose name holds ``key`` in one call
+    of ``fn``: the median over ``calls`` calls under ``torch.profiler``;
+    None when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
+            name = re.search(r"(\w+_kernel)", e.name)
+            name = name.group(1) if name else e.name[:40]
+            times.setdefault(name, []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    return {k: statistics.median(v) for k, v in times.items()} or None
 
 
 def phase_rwkv6_train(dev, drawn=None) -> dict:
@@ -4618,19 +4754,26 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     print(f"[22 rwkv6 train] (b) {gold['arch']} weights, {cut.num_layers} of "
           f"32 layers ({gold['depth_cut']}), {how}", flush=True)
     before = (wkv_bhtd.launches, wkv_bwd_bhtd.launches)
+    bwd_routes0 = dict(wkv_bwd_bhtd.route_launches)
     phase_train_golden(dev, tree, RWKV_TRAIN_GOLDEN, "[22 rwkv6 train] (b)",
                        RWKV_TRAIN_TOL)
     del tree
     fwd, bwd = (b - a for a, b in zip(before, (wkv_bhtd.launches,
                                                wkv_bwd_bhtd.launches)))
+    bwd_routes = {k: v - bwd_routes0[k]
+                  for k, v in wkv_bwd_bhtd.route_launches.items()}
     # the step-1 gradient and two steps, each block's forward twice (remat)
     check(fwd == 3 * 2 * cut.num_layers and bwd == 3 * cut.num_layers,
           f"the float32 golden launched the WKV kernels {fwd} (forward) and "
           f"{bwd} (backward) times, not {6 * cut.num_layers} and "
           f"{3 * cut.num_layers}")
+    check(bwd_routes == {"chunk": 0, "step": bwd},
+          f"the float32 golden's backward took the routes {bwd_routes}, not "
+          f"the step route alone")
     res["golden_launches"] = {"wkv": fwd, "wkv_bwd": bwd}
+    res["golden_bwd_routes"] = bwd_routes
     print(f"[22 rwkv6 train] (b) WKV launches: {fwd} forward (step route, "
-          f"float32), {bwd} backward", flush=True)
+          f"float32), {bwd} backward (routes {bwd_routes})", flush=True)
 
     # (c) bf16, full width, 8 of 32 layers, through the trainer
     cfg = dataclasses.replace(get_config("rwkv6-7b"),
@@ -4660,6 +4803,7 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     wkv_bhtd.route_launches = {"chunk": 0, "step": 0}
+    wkv_bwd_bhtd.route_launches = {"chunk": 0, "step": 0}
     t0 = time.perf_counter()
     try:
         state, report = train(
@@ -4672,6 +4816,7 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     routes = dict(wkv_bhtd.route_launches)
+    bwd_routes = dict(wkv_bwd_bhtd.route_launches)
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(x.numel() for x in _leaves(state.params))
     check(report.steps_run == RG_TRAIN_STEPS, f"ran {report.steps_run} steps")
@@ -4684,6 +4829,8 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
           f"WKV launches per step {per_step}, expected {want} each")
     check(routes["chunk"] == launches["wkv"],
           f"the bf16 training forward took the WKV routes {routes}")
+    check(bwd_routes == {"chunk": launches["wkv_bwd"], "step": 0},
+          f"the bf16 training backward took the WKV routes {bwd_routes}")
     step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
     mean_ms = statistics.mean(step_ms)
     tokens = RG_TRAIN_B * RG_TRAIN_T
@@ -4696,7 +4843,8 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
           f"{[round(x, 1) for x in step_ms]}) = "
           f"{tokens / mean_ms * 1e3:.0f} tokens/s; peak memory {peak} B "
           f"({peak / 1e9:.2f} GB); WKV launches per step {per_step[0]} "
-          f"({launches} in all; forward routes {routes}); losses "
+          f"({launches} in all; forward routes {routes}, backward routes "
+          f"{bwd_routes}); losses "
           f"{[round(x, 4) for x in report.losses]}; grad norms "
           f"{[round(m[3], 4) for m in marks]}", flush=True)
     breakdown = profile_train_step(dev, bundle, state, RG_TRAIN_B,
@@ -4723,7 +4871,8 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
           f"{RWKV_TRAIN_BUDGET_S:.0f} s"
           f"{'' if took <= RWKV_TRAIN_BUDGET_S else ', over it'})",
           flush=True)
-    res.update(launches=launches, routes=routes, per_step=per_step[0],
+    res.update(launches=launches, routes=routes, bwd_routes=bwd_routes,
+               per_step=per_step[0],
                step_ms=mean_ms, peak=peak, breakdown=breakdown,
                phase_s=took)
     return res
@@ -4781,6 +4930,7 @@ def smoke(dev, tick_only=False, learn_only=False,
     build.load_flash_attention_bwd_sm90()
     build.load_wkv()
     build.load_wkv_bwd()
+    build.load_wkv_bwd_chunk()
     build.load_rglru()
     print(f"[2 build] {', '.join(logs)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s; nvcc wall time each: "
@@ -4832,10 +4982,28 @@ def smoke(dev, tick_only=False, learn_only=False,
              f"{hgmma} HGMMA (wgmma) instructions in its SASS"), flush=True)
     for name, line in build.ptxas_report(logs["wkv_bwd.cu"]).items():
         inst = build.wkv_bwd_instance(name)
-        check(inst is not None, f"unexpected entry {name}")
-        print(f"[2 build] wkv_bwd r/k/v {inst[0]}, w {inst[1]} (256 threads "
-              f"a (b, h); {wkv_mod.WKV_BWD_SMEM} B dynamic shared memory): "
-              f"{line}")
+        check(inst is not None and len(inst) == 2, f"unexpected entry {name}")
+        print(f"[2 build] wkv_bwd step route, r/k/v {inst[0]}, w {inst[1]} "
+              f"(256 threads a (b, h); {wkv_mod.WKV_BWD_SMEM} B dynamic "
+              f"shared memory): {line}")
+    for name, line in build.ptxas_report(logs["wkv_bwd_chunk.cu"]).items():
+        inst = build.wkv_bwd_instance(name)
+        check(inst is not None and len(inst) == 3, f"unexpected entry {name}")
+        w_bytes = 4 if inst[1] == "float32" else 2
+        smem = (wkv_mod.bwd_chunk_smem_bytes(w_bytes) if inst[2] == "chunk"
+                else wkv_mod.bwd_state_smem_bytes(int(inst[2][6:]), w_bytes))
+        what = ("chunk pass (128 threads a (b, h, chunk))"
+                if inst[2] == "chunk" else
+                f"state pass (128 threads a (b, h) and {inst[2][6:]} "
+                f"columns)")
+        print(f"[2 build] wkv_bwd chunked route, {what}, r/k/v {inst[0]}, w "
+              f"{inst[1]}: {line}; {smem} B dynamic shared memory")
+    hgmma = build.hgmma_count("wkv_bwd_chunk.cu")
+    check(hgmma != 0, "wkv_bwd_chunk.cu: no HGMMA instruction in its library")
+    print(f"[2 build] wkv_bwd_chunk.cu: "
+          + ("cuobjdump not in the toolkit, HGMMA not counted"
+             if hgmma is None else
+             f"{hgmma} HGMMA (wgmma) instructions in its SASS"), flush=True)
     for name, line in build.ptxas_report(logs["rglru.cu"]).items():
         inst = build.rglru_instance(name)
         if inst is not None:
@@ -5298,18 +5466,29 @@ def smoke(dev, tick_only=False, learn_only=False,
                 "ms at B 2 x T 4,096 on the TMA ring; paths: the ring and "
                 "the direct path",
         "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}, {
+        "name": "wkv_bwd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv_bwd_chunk.cu",
+        "replaces": "src/repro/models/rwkv6.py:186",
+        "note": "the port's own backward of kernel 4 (JAX has no Pallas "
+                "backward and differentiates this lax.scan in XLA), its "
+                "chunked route: a state pass and a chunk pass, one wrapper "
+                "launch; ms at B 2 x T 4,096 x H 64, bf16 r/k/v, float32 w "
+                "(the trainer's call); max_abs_err over phase 22a's runs "
+                "on this route",
+        "launches": wtrain["bwd_routes"]["chunk"],
+        "launches_by_path": {"train": wtrain["bwd_routes"]["chunk"]},
+        **{k: v for k, v in wtrain["kernel"].items()
+           if k not in ("step", "variants")}}, {
         "name": "wkv_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv_bwd.cu",
         "replaces": "src/repro/models/rwkv6.py:186",
-        "note": "the port's own backward of kernel 4: JAX has no Pallas "
-                "backward and differentiates this lax.scan in XLA; ms at "
-                "B 2 x T 4,096 x H 64, bf16 r/k/v, float32 w (the "
-                "trainer's call); max_abs_err over phase 22a's cases",
-        "launches": wtrain["launches"]["wkv_bwd"],
-        "launches_by_path": {"train": wtrain["launches"]["wkv_bwd"],
-                             "train_golden":
-                                 wtrain["golden_launches"]["wkv_bwd"]},
-        **wtrain["kernel"]}]}))
+        "note": "the backward's step route (float32, short or misaligned "
+                "inputs); ms at B 2 x T 4,096 x H 64, bf16 r/k/v, float32 "
+                "w, forced; max_abs_err over phase 22a's runs on this route",
+        "launches": wtrain["golden_bwd_routes"]["step"],
+        "launches_by_path": {"train_golden":
+                             wtrain["golden_bwd_routes"]["step"]},
+        **wtrain["kernel"]["step"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

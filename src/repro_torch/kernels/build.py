@@ -62,6 +62,7 @@ SOURCE_FLAGS = {
     "flash_attention_bwd_sm90.cu": _BASE_FLAGS,
     "wkv.cu": _BASE_FLAGS,
     "wkv_bwd.cu": _BASE_FLAGS,
+    "wkv_bwd_chunk.cu": _BASE_FLAGS,
     "rglru.cu": _BASE_FLAGS + ("-fmad=false",),
 }
 
@@ -340,8 +341,20 @@ def load_wkv() -> ctypes.CDLL:
 
 
 def wkv_bwd_instance(name: str):
-    """(r/k/v dtype, w dtype) of a mangled ``wkv_bwd_kernel`` entry name
-    of ``wkv_bwd.cu``, each ``"float32"`` or ``"bfloat16"``."""
+    """The instance of a mangled entry name of the WKV backward: (r/k/v
+    dtype, w dtype) of ``wkv_bwd_kernel`` (``wkv_bwd.cu``, the step route);
+    (r/k/v dtype, w dtype, pass) of the chunked route's kernels
+    (``wkv_bwd_chunk.cu``): pass ``"state/<columns a block>"`` for
+    ``wkv_bwd_state_kernel``, ``"chunk"`` for ``wkv_bwd_chunk_kernel``;
+    each dtype ``"float32"`` or ``"bfloat16"``; None for another entry."""
+    m = re.search(r"wkv_bwd_state_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+    if m is not None:
+        return ("bfloat16", "float32" if m.group(1) == "f" else "bfloat16",
+                f"state/{m.group(2)}")
+    m = re.search(r"wkv_bwd_chunk_kernelI(f|13__nv_bfloat16)E", name)
+    if m is not None:
+        return ("bfloat16", "float32" if m.group(1) == "f" else "bfloat16",
+                "chunk")
     return _type_pair("wkv_bwd_kernel", name)
 
 
@@ -355,6 +368,20 @@ def load_wkv_bwd() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.wkv_bwd_error_string.argtypes = [ctypes.c_int]
     lib.wkv_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_wkv_bwd_chunk() -> ctypes.CDLL:
+    """The chunked WKV backward library (``wkv_bwd_chunk.cu``), built and
+    loaded once per process."""
+    lib, _ = _load("wkv_bwd_chunk.cu")
+    fn = lib.wkv_bwd_chunk_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 16
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.wkv_bwd_chunk_error_string.argtypes = [ctypes.c_int]
+    lib.wkv_bwd_chunk_error_string.restype = ctypes.c_char_p
     return lib
 
 

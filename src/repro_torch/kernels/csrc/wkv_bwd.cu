@@ -1,4 +1,8 @@
-// RWKV-6 WKV recurrence, backward, for Hopper (sm_90a), hand-written CUDA.
+// RWKV-6 WKV recurrence, backward, the step route, for Hopper (sm_90a),
+// hand-written CUDA: float32 r, k, v, and any inputs shorter than a chunk
+// (64 steps) or whose rows are not 16-byte aligned (rwkv6.py,
+// wkv_bwd_plan).  bf16 r, k, v over a chunk or more take the chunked route,
+// csrc/wkv_bwd_chunk.cu (the trainer's call).
 //
 // Replaces no TPU kernel: the Pallas kernel
 // src/repro/kernels/rwkv6/rwkv6.py::wkv_bhtd has no backward, and the JAX
@@ -59,8 +63,9 @@
 // activation type and w, dw in float32 (~0.8 GB at bf16: 0.24 ms at 3.35
 // TB/s): bound by operations on the CUDA cores.  One block an SM (160 KB
 // of shared memory, 8 warps) runs dependent chains of 16 FMAs and
-// shuffles, so it is latency-bound, well above that bound; the chunked
-// form on wgmma (the forward's products transposed) is later work.
+// shuffles, so it is latency-bound, well above that bound (17.5x at B 2 x
+// T 4,096 x H 64, PERF.md).  That is why bf16 inputs over a chunk take the
+// chunked form on wgmma instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -9,9 +9,13 @@ are laid out.  Two routes, chosen from dtype and shapes by
 the serving prefill) and the step kernel (float32, and anything shorter
 than a chunk, such as decode).  Beyond the TPU kernel both take an
 initial state and return the final one, which serving carries from the
-prefill into decode.  :func:`wkv_bwd_bhtd` is the recurrence's backward,
-``kernels/csrc/wkv_bwd.cu`` (the port's own: the TPU kernel has no
-backward, and JAX differentiates its model's ``lax.scan``).  For tensors
+prefill into decode.  :func:`wkv_bwd_bhtd` is the recurrence's backward
+(the port's own: the TPU kernel has no backward, and JAX differentiates
+its model's ``lax.scan``), with two routes by :func:`wkv_bwd_plan`:
+``kernels/csrc/wkv_bwd_chunk.cu`` (bf16 r, k, v over a chunk or more: the
+trainer's call; a state pass, then one block per chunk on the tensor
+cores) and ``kernels/csrc/wkv_bwd.cu`` (the step route: float32, short or
+misaligned inputs).  For tensors
 on the CPU a wrapper computes the plain version
 (:func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`,
 :func:`~repro_torch.kernels.rwkv6.ref.wkv_bwd_ref`); for CUDA tensors it
@@ -56,6 +60,15 @@ def chunk_smem_bytes(nj: int, w_bytes: int) -> int:
     return tiles + work + inputs + 1024
 
 
+def _aligned(x) -> bool:
+    """Base address, and the strides of every dimension but the last that
+    is longer than 1, 16-byte aligned: rows cp.async reads in 16-byte
+    pieces."""
+    es = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        (x.stride(d) * es) % 16 == 0 for d in range(3) if x.shape[d] > 1)
+
+
 def wkv_plan(r, k, v, w, y, n_sms: int) -> tuple[str, int]:
     """(route, columns a block) for [B, H, T, 64] r, k, v, w and the output
     y on a card of ``n_sms`` SMs.  ``"chunk"`` for bf16 r, k, v with T of a
@@ -65,17 +78,40 @@ def wkv_plan(r, k, v, w, y, n_sms: int) -> tuple[str, int]:
     7/8 of the SMs one, else 32 (two blocks a head).  Else ``"step"``,
     whose block covers all 64 columns."""
     B, H, T, _ = r.shape
-
-    def aligned(x):
-        es = x.element_size()
-        return x.data_ptr() % 16 == 0 and all(
-            (x.stride(d) * es) % 16 == 0 for d in range(3)
-            if x.shape[d] > 1)
-
     if r.dtype != torch.bfloat16 or T < CHUNK or not all(
-            aligned(x) for x in (r, k, v, w, y)):
+            _aligned(x) for x in (r, k, v, w, y)):
         return "step", 64
     return "chunk", 64 if 8 * B * H >= 7 * n_sms else 32
+
+
+def wkv_bwd_plan(r, k, v, w, dy, n_sms: int) -> tuple[str, int]:
+    """(route, columns a state-pass block) of the backward for [B, H, T,
+    64] r, k, v, w and dy, by :func:`wkv_plan`'s rule: ``"chunk"``
+    (csrc/wkv_bwd_chunk.cu) for bf16 r, k, v with T of a chunk or more and
+    16-byte aligned rows, its state pass over 64 columns a block where B x
+    H blocks give at least 7/8 of the SMs one, else 32; else ``"step"``
+    (csrc/wkv_bwd.cu, a block over all 64 columns)."""
+    return wkv_plan(r, k, v, w, dy, n_sms)
+
+
+def bwd_state_smem_bytes(nj: int, w_bytes: int) -> int:
+    """Dynamic shared memory of a state-pass block over ``nj`` columns
+    (csrc/wkv_bwd_chunk.cu ``StateSmem::kSmem``): the operand tiles, two
+    buffers of a chunk's inputs, and a state's split tiles on their way
+    out."""
+    buf = CHUNK * 64 * 2 + CHUNK * 64 * w_bytes + CHUNK * nj * 2
+    return 2 * 8192 + nj * 128 + 2 * buf + 4 * 64 * 4 + 64 * 4 + 16384 + 1024
+
+
+def bwd_chunk_smem_bytes(w_bytes: int) -> int:
+    """Dynamic shared memory of a chunk-pass block (csrc/wkv_bwd_chunk.cu
+    ``ChunkSmem::kSmem``): each of its two warpgroups' v, dy, state, kF and
+    rE tiles, w, A's (then K's) float array, dA's diagonal blocks and the
+    per-channel sums, rounded to 1 KB."""
+    tiles = 2 * 8192 + 16384 + 16384 + 12288
+    share = (tiles + CHUNK * 64 * w_bytes + CHUNK * 68 * 4 + 4 * 256 * 4
+             + 25 * 64 * 4 + 5 * 4 * 64 * 4 + 3 * 64 * 4 + 2 * 64 * 4)
+    return 2 * -(-share // 1024) * 1024 + 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,6 +209,15 @@ def wkv_bwd_scratch_floats(B: int, H: int, T: int) -> tuple[int, int]:
             B * H * (CHUNK // BWD_SUB) * state)
 
 
+def wkv_bwd_chunk_scratch_floats(B: int, H: int, T: int) -> tuple[int, int]:
+    """Floats of the chunked backward's scratch: each of its two state
+    buffers (S at every chunk's start, the state gradient after every
+    chunk; 16 KB a state, held as split bf16 tiles), and du's partials
+    (one row of 64 per (b, h, chunk))."""
+    nc = -(-T // CHUNK)
+    return B * H * nc * HEAD_DIM * HEAD_DIM, B * H * nc * HEAD_DIM
+
+
 def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
     """The gradients of ``wkv_bhtd(r, k, v, w, u, S0)`` for the output
     gradients ``dy`` [B, H, T, hd] (r's dtype) and ``dS_final`` [B, H, hd,
@@ -181,9 +226,12 @@ def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
     one is 1 (the model's [B, T, H, hd] through ``transpose(1, 2)``); dr,
     dk, dv, dw are allocated with r's and w's strides.
 
-    CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
-    (the forward's type pairs; hd 64), whose per-row du the wrapper sums
-    over B, or an exception."""
+    CPU tensors: the plain version.  CUDA tensors: the route of
+    :func:`wkv_bwd_plan` (the forward's type pairs; hd 64), or an
+    exception: ``"chunk"`` launches the state pass and the chunk pass
+    (csrc/wkv_bwd_chunk.cu), whose du per (b, h, chunk) the wrapper sums;
+    ``"step"`` launches wkv_bwd_kernel (csrc/wkv_bwd.cu), whose du per row
+    it sums over B.  No fallback from one route to the other."""
     _check(r, k, v, w, u, S0)
     B, H, T, hd = r.shape
     if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
@@ -222,10 +270,7 @@ def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
     if B and H:
         from .. import build
 
-        lib = build.load_wkv_bwd()
-        n_ckpt, n_sub = wkv_bwd_scratch_floats(B, H, T)
-        ckpt = torch.empty(n_ckpt, dtype=torch.float32, device=r.device)
-        sub = torch.empty(n_sub, dtype=torch.float32, device=r.device)
+        route, nj = wkv_bwd_plan(r, k, v, w, dy, _sm_count(r.device))
         strides = (ctypes.c_longlong * 27)(*[
             x.stride(i) for x in (r, k, v, w, dy, dr, dk, dv, dw)
             for i in (0, 1, 2)])
@@ -233,20 +278,46 @@ def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
         def ptr(x):
             return None if x is None else x.data_ptr()
 
-        with torch.cuda.device(r.device):
-            stream = torch.cuda.current_stream(r.device).cuda_stream
-            err = lib.wkv_bwd_launch(
-                _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype],
-                *[ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr, dk,
-                                   dv, dw, du, dS0, ckpt, sub)],
-                B, H, T, strides, stream)
+        if route == "chunk":
+            lib = build.load_wkv_bwd_chunk()
+            n_state, n_du = wkv_bwd_chunk_scratch_floats(B, H, T)
+            sc, dse = (torch.empty(n_state, dtype=torch.float32,
+                                   device=r.device) for _ in range(2))
+            du = torch.empty(n_du, dtype=torch.float32, device=r.device)
+            with torch.cuda.device(r.device):
+                stream = torch.cuda.current_stream(r.device).cuda_stream
+                err = lib.wkv_bwd_chunk_launch(
+                    _DTYPE_CODE[w.dtype],
+                    *[ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr,
+                                       dk, dv, dw, du, dS0, sc, dse)],
+                    B, H, T, strides, nj, stream)
+            kernel = "wkv_bwd_chunk"
+        else:
+            lib = build.load_wkv_bwd()
+            n_ckpt, n_sub = wkv_bwd_scratch_floats(B, H, T)
+            ckpt = torch.empty(n_ckpt, dtype=torch.float32, device=r.device)
+            sub = torch.empty(n_sub, dtype=torch.float32, device=r.device)
+            with torch.cuda.device(r.device):
+                stream = torch.cuda.current_stream(r.device).cuda_stream
+                err = lib.wkv_bwd_launch(
+                    _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype],
+                    *[ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr,
+                                       dk, dv, dw, du, dS0, ckpt, sub)],
+                    B, H, T, strides, stream)
+            kernel = "wkv_bwd"
         if err != 0:
-            msg = build.cuda_error_string(lib, err, "wkv_bwd")
-            raise RuntimeError(f"WKV backward kernel launch failed: {msg}")
+            msg = build.cuda_error_string(lib, err, kernel)
+            raise RuntimeError(f"WKV backward kernel launch failed ({route} "
+                               f"route): {msg}")
         wkv_bwd_bhtd.launches += 1
+        wkv_bwd_bhtd.route_launches[route] += 1
+        if route == "chunk":
+            return dr, dk, dv, dw, du.view(B, H, -1, hd).sum((0, 2)), dS0
     return dr, dk, dv, dw, du.sum(0), dS0
 
 
-#: Backward kernel launches since the last reset (set to 0 to start
-#: counting).
+#: Backward wrapper calls that launched (the chunked route's two kernels
+#: count as one) since the last reset (set to 0 to start counting), and the
+#: same split by route.
 wkv_bwd_bhtd.launches = 0
+wkv_bwd_bhtd.route_launches = {"chunk": 0, "step": 0}

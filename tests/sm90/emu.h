@@ -273,6 +273,8 @@ inline void cp_async16(void* dst, const void* src) {
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
 template <int N>
+inline void cp_async_wait_group() {}
+template <int N>
 inline void bulk_wait_read() {}
 inline void bulk_wait_all() {}
 

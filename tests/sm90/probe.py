@@ -28,7 +28,10 @@ steps).
    then every route timed at rwkv6-7b's heads (B 8 and 1 x T 2,048,
    decode) by CUDA events and by device time.  ``wkv_profile`` (not a
    default step): the chunked kernel built with -DWKV_PROFILE, the median
-   cycles of each phase of a chunk by warp.
+   cycles of each phase of a chunk by warp.  ``wkv_bwd_profile`` (not a
+   default step): the WKV backward's chunk pass built with
+   -DWKV_BWD_PROFILE, the same for its chunks, and each kernel's SASS
+   instruction count.
 5. timing — one median of 5 (CUDA events) of the forward at qwen3-0.6b's
    and recurrentgemma-2b's heads and of the backward at both, each beside
    ``scaled_dot_product_attention``.
@@ -417,6 +420,89 @@ def wkv_profile():
         build.load_wkv, mod.wkv_plan = orig_load, orig_plan
 
 
+def wkv_bwd_profile():
+    """Where a chunk of the WKV backward's chunk pass spends its time:
+    wkv_bwd_chunk.cu built with -DWKV_BWD_PROFILE, whose chunk pass records
+    clock64() at 21 points of its blocks over chunk 8 (lane 0 of
+    each warp); the median over (b, h) of each phase's cycles, by warp, at
+    B 2 x T 4,096 x H 64 (the trainer's call) and at H 1 (64 blocks: one an
+    SM, nothing beside it), and the SASS instructions of each kernel."""
+    import importlib
+
+    from repro_torch.kernels.rwkv6 import wkv_bwd_bhtd
+
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
+    lib_path = os.path.join(build.BUILD_DIR, "wkv_bwd_profile.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    p = subprocess.run([build.nvcc_path(),
+                        *build.SOURCE_FLAGS["wkv_bwd_chunk.cu"],
+                        "-DWKV_BWD_PROFILE", "-o", lib_path,
+                        os.path.join(build.CSRC, "wkv_bwd_chunk.cu")],
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if os.path.isfile(tool):
+        sass = subprocess.run([tool, "--dump-sass", lib_path],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        counts, cur = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                cur = line.split("Function :")[1].strip()[:70]
+                counts[cur] = 0
+            elif cur and line.strip().startswith("/*") and "*/" in line[
+                    line.index("/*") + 2:]:
+                counts[cur] += 1
+        for name, count in counts.items():
+            print(f"wkv_bwd SASS {name}: ~{count} instructions", flush=True)
+    lib = ctypes.CDLL(lib_path)
+    fn = lib.wkv_bwd_chunk_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 16
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.c_int, ctypes.c_void_p])
+    lib.wkv_bwd_chunk_error_string.restype = ctypes.c_char_p
+    lib.wkv_bwd_profile_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    names = ["inputs issued (cp.async)", "u",
+             "inputs landed + sync", "walks, bonus", "GP + sync",
+             "A: first frags", "A: first diag", "A: first wait",
+             "A: the rest", "sync, A's array", "sync", "dv", "K side",
+             "S_c landed, rowsum, K stored", "X side",
+             "X store, r/k again, syncs",
+             "dr, dk, dw: loads, C_d", "dr, dk, dw: forward walk",
+             "dr, dk, dw: backward walk", "dr, dk, dw: second sub-chunk"]
+    g = torch.Generator().manual_seed(7)
+    orig = build.load_wkv_bwd_chunk
+    build.load_wkv_bwd_chunk = lambda: lib
+    try:
+        for B, T, H in ((2, 4096, 64), (1, 4096, 1)):
+            r, k, v, dy = [(torch.randn(B, T, H, 64, generator=g) * 0.5).to(
+                DEV, torch.bfloat16).transpose(1, 2) for _ in range(4)]
+            w = torch.exp(-torch.exp(-6 + 2 * torch.randn(
+                B, T, H, 64, generator=g))).to(DEV).transpose(1, 2)
+            u = (torch.randn(H, 64, generator=g) * 0.5).to(DEV)
+            before = wkv_bwd_bhtd.route_launches["chunk"]
+            wkv_bwd_bhtd(r, k, v, w, u, None, dy)
+            torch.cuda.synchronize()
+            assert wkv_bwd_bhtd.route_launches["chunk"] == before + 1
+            blocks = B * H
+            buf = torch.zeros(blocks * 4 * 21, dtype=torch.int64)
+            assert lib.wkv_bwd_profile_read(buf.data_ptr(), buf.numel()) == 0
+            marks = buf.view(blocks, 4, 21).double()
+            d = marks[:, :, 1:] - marks[:, :, :-1]
+            med = d.median(dim=0).values          # [warp, phase]
+            total = (marks[:, :, 20] - marks[:, :, 0]).median(dim=0).values
+            print(f"wkv_bwd profile B={B} T={T} H={H}: a chunk "
+                  f"{[round(x) for x in total.tolist()]} cycles by warp "
+                  f"(median over {blocks} blocks of chunk 8; "
+                  f"{B * H * T // 64} blocks in all)", flush=True)
+            for i, name in enumerate(names):
+                print(f"  {name:28s}",
+                      " ".join(f"{x:8.0f}" for x in med[:, i].tolist()),
+                      flush=True)
+    finally:
+        build.load_wkv_bwd_chunk = orig
+
+
 def median_ms(fn, reps=5):
     fn()
     torch.cuda.synchronize()
@@ -535,7 +621,8 @@ def cells():
 
 STEPS = {"build": builds, "probe": probe, "fwd": fwd, "bwd": bwd,
          "rglru": rglru, "wkv": wkv, "wkv_profile": wkv_profile,
-         "timing": timing, "tick": tick, "cells": cells}
+         "wkv_bwd_profile": wkv_bwd_profile, "timing": timing, "tick": tick,
+         "cells": cells}
 
 if __name__ == "__main__":
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
@@ -543,6 +630,7 @@ if __name__ == "__main__":
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     for name in sys.argv[1:] or [s for s in STEPS
-                                 if s not in ("cells", "wkv_profile")]:
+                                 if s not in ("cells", "wkv_profile",
+                                              "wkv_bwd_profile")]:
         step(name, STEPS[name])
     sys.exit(1 if FAILED else 0)

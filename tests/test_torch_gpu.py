@@ -436,14 +436,18 @@ def test_wkv_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
     (torch.bfloat16, torch.bfloat16)])
 def test_wkv_bwd_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
                                                      w_dtype):
-    """The WKV backward kernel == wkv_bwd_ref on [B,T,H,64] views (heads
-    sliced out of a wider tensor), S0 and dS_final zero or given, T about
-    the 64-step checkpoints and the 8-step sub-chunks, decays over
-    exp(-exp(x)), x in [-8, 3]: outputs in bf16 within 1e-2 of their
-    largest |value| (one rounding), float32 ones within 1e-4 (sums in
-    another order, FMA contraction); one launch a call.  Under autograd
-    ``wkv`` runs both kernels and its gradients stand as close to the
-    ``reference`` executor's."""
+    """The WKV backward == wkv_bwd_ref on [B,T,H,64] views (heads sliced
+    out of a wider tensor), S0 and dS_final zero or given, T about the
+    64-step chunks and their sub-chunks, decays over exp(-exp(x)), x in
+    [-8, 3]: outputs in bf16 within 1e-2 of their largest |value| (one
+    rounding), float32 ones within 1e-4 (sums in another order, FMA
+    contraction, the chunked route's bf16 high + low operand split); one
+    wrapper launch a call, on its plan's route, and every bf16 case again
+    on the other route.  Under autograd ``wkv`` runs both kernels and its
+    gradients stand as close to the ``reference`` executor's."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
     g = torch.Generator().manual_seed(4)
     for B, T, H, with_s0, with_ds in [
             (1, 1, 2, False, True), (2, 63, 2, True, False),
@@ -460,16 +464,27 @@ def test_wkv_bwd_kernel_vs_plain_version_on_the_card(cuda_device, dtype,
         S0, dS = ((torch.randn(B, H, 64, 64, generator=g) * 0.2).to(
             cuda_device) if on else None for on in (with_s0, with_ds))
         want = wkv_bwd_ref(r, k, v, w, u, S0, dy, dS)
-        before = wkv_bwd_bhtd.launches
-        got = wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS)
-        torch.cuda.synchronize()
-        assert wkv_bwd_bhtd.launches == before + 1
-        for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got,
-                              want):
-            assert a.dtype == b.dtype and a.shape == b.shape, name
-            tol = 1e-4 if a.dtype == torch.float32 else 1e-2
-            assert float((a.float() - b.float()).abs().max()) <= tol * max(
-                1.0, float(b.float().abs().max())), (name, B, T, H)
+        own = mod.wkv_bwd_plan(r, k, v, w, dy, 132)[0]
+        assert own == ("chunk" if dtype == torch.bfloat16 and T >= 64
+                       else "step")
+        plans = [None]
+        if dtype == torch.bfloat16:
+            plans.append((lambda orig, *a: ("step", 64)) if own == "chunk"
+                         else (lambda orig, *a: ("chunk", 32)))
+        for plan in plans:
+            route = own if plan is None else plan(None)[0]
+            before = dict(wkv_bwd_bhtd.route_launches)
+            with _forced(mod, "wkv_bwd_plan", plan):
+                got = wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS)
+            torch.cuda.synchronize()
+            assert wkv_bwd_bhtd.route_launches[route] == before[route] + 1
+            for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dS0"),
+                                  got, want):
+                assert a.dtype == b.dtype and a.shape == b.shape, name
+                tol = 1e-4 if a.dtype == torch.float32 else 1e-2
+                assert float((a.float() - b.float()).abs().max()) <= \
+                    tol * max(1.0, float(b.float().abs().max())), \
+                    (name, B, T, H, route)
     leaves = [t.transpose(1, 2).detach().requires_grad_()
               for t in (r, k, v, w)] + [u.requires_grad_()]
     out = {}

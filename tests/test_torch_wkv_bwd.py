@@ -3,9 +3,12 @@
 (``wkv_scan`` from zero, ``wkv_scan_with_state`` from S0) with cotangents
 on y and on S_final; ``gradcheck`` of the plain pair in float64; the
 ``WKV`` autograd Function (forward kernel 4, backward ``wkv_bwd_bhtd``)
-under the executors, launching nothing on the CPU; and
-``csrc/wkv_bwd.cu`` built by g++ for the host (tests/sm90/
-wkv_bwd_harness.cpp on the sm90 emulator) against the plain version.
+under the executors, launching nothing on the CPU; the chunked route's
+algebra in float64 (``torch_parity.wkv_bwd_chunked_f64``) against the
+step form; the routing (``wkv_bwd_plan``); and both routes' kernels
+(``csrc/wkv_bwd.cu``, ``csrc/wkv_bwd_chunk.cu``) built by g++ for the host
+(tests/sm90/wkv_bwd_harness.cpp on the sm90 emulator) against the plain
+version.
 
 Inputs are drawn with numpy; decays are exp(-exp(x)) for x uniform in
 [-8, 3] (x = 3: ~2e-9, where a walk back by dividing by w would blow up).
@@ -14,9 +17,14 @@ Tolerances, as a share of each gradient's largest |value|: float32 1e-5
 orders); bf16 r, k, v (w float32, the model's pair) 2e-2: dr, dk, dv are
 rounded once to bf16 (2^-8 relative), and a last-bit float32 difference
 can flip that rounding; the host build 1e-5 in float32 and 1e-2 for its
-bf16 outputs (measured 1.5e-3).  The kernel is held to the plain version
-on the card (tests/test_torch_gpu.py, chip_smoke.py phase 22).
+bf16 outputs (measured 1.5e-3; the chunked route's float32 outputs 4e-6,
+its operands split bf16 high + low as kernel 4's chunked route splits
+them, so it is held to 1e-4 as the card holds it); the chunked algebra in
+float64 1e-12 (measured 1.5e-15).  The kernels are held to the plain
+version on the card (tests/test_torch_gpu.py, chip_smoke.py phase 22).
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,22 +36,27 @@ from repro.models.rwkv6 import wkv_scan_with_state as j_scan_with_state
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6 import (WKV, wkv, wkv_bhtd, wkv_bwd_bhtd,
                                        wkv_bwd_ref)
+from repro_torch.kernels.rwkv6 import rwkv6 as wrapper
 
-from torch_parity import build_wkv_bwd_host, wkv_bwd_host_call
+from torch_parity import (build_wkv_bwd_host, wkv_bwd_chunk_host_call,
+                          wkv_bwd_chunked_f64, wkv_bwd_host_call)
 
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 HOST_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+CHUNK_HOST_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+F64_TOL = 1e-12
 NAMES = ("dr", "dk", "dv", "dw", "du", "dS0")
 
 
-def _draw(seed, B, T, H):
+def _draw(seed, B, T, H, x_range=(-8.0, 3.0)):
     """r, k, v, w [B, T, H, 64], u [H, 64], S0 [B, H, 64, 64] and the
-    cotangents dy [B, T, H, 64], dS [B, H, 64, 64], float32 numpy."""
+    cotangents dy [B, T, H, 64], dS [B, H, 64, 64], float32 numpy; decays
+    exp(-exp(x)), x uniform over ``x_range``."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, 64), np.float32) * 0.5
                for _ in range(3))
-    x = rng.uniform(-8.0, 3.0, (B, T, H, 64))
+    x = rng.uniform(*x_range, (B, T, H, 64))
     w = np.exp(-np.exp(x)).astype(np.float32)
     u = rng.standard_normal((H, 64), np.float32) * 0.5
     S0 = rng.standard_normal((B, H, 64, 64), np.float32) * 0.2
@@ -172,6 +185,74 @@ def test_function_takes_a_cpu_executor_and_no_fallback():
         wkv_bwd_bhtd(*args, u0, None, args[0], torch.zeros(1, 2, 64, 32))
 
 
+@pytest.mark.parametrize("x_range", [(-8.0, 3.0), (-8.0, -8.0), (3.0, 3.0)])
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("T", [64, 65, 128, 200])
+def test_chunked_algebra_in_float64_is_the_step_form(T, with_s0, x_range):
+    """The chunked route's algebra (state pass, then per chunk the
+    products, scans and sub-chunk sums of csrc/wkv_bwd_chunk.cu) in
+    float64 equals the step form: whole chunks, a one-step and a ragged
+    last chunk; S0 and dS_final given or zero; decays over [-8, 3], at
+    x = -8 (1 - 3e-4: the long memory) and x = 3 (2e-9: products
+    underflow within a sub-chunk)."""
+    r, k, v, w, u, S0, dy, dS = (torch.from_numpy(x).double() for x in
+                                 _draw(T + int(with_s0), 1, T, 2, x_range))
+    args = [x.transpose(1, 2) for x in (r, k, v, w)] + [u]
+    args += [S0 if with_s0 else None, dy.transpose(1, 2),
+             dS if with_s0 else None]
+    want = wkv_bwd_ref(*args)
+    got = wkv_bwd_chunked_f64(*args)
+    for name, a, b in zip(NAMES, got, want):
+        assert a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= F64_TOL * float(
+            b.abs().max()), name
+
+
+def test_wkv_bwd_plan():
+    """The backward's route by wkv_plan's rule: chunked for bf16 r, k, v
+    with T of a chunk or more and 16-byte aligned rows (the state pass over
+    64 columns a block when B x H blocks fill the card, else 32), else the
+    step kernel; the trainer's call (bf16, w float32, B 2 x T 4,096 x H
+    64) takes the chunked route."""
+    def x(B, T, H, dtype=torch.bfloat16):
+        return torch.zeros(B, T, H, 64, dtype=dtype).transpose(1, 2)
+
+    def plan(B, T, H, dtype=torch.bfloat16, wdtype=torch.float32, n=132):
+        r = x(B, T, H, dtype)
+        got = wrapper.wkv_bwd_plan(r, r, r, x(B, T, H, wdtype), r, n)
+        assert got == wrapper.wkv_plan(r, r, r, x(B, T, H, wdtype), r, n)
+        return got
+
+    assert plan(2, 4096, 64) == ("chunk", 64)
+    assert plan(1, 2048, 64) == ("chunk", 32)
+    assert plan(2, 4096, 64, wdtype=torch.bfloat16) == ("chunk", 64)
+    assert plan(2, wrapper.CHUNK, 64)[0] == "chunk"
+    assert plan(2, wrapper.CHUNK - 1, 64) == ("step", 64)
+    assert plan(1, 200, 4, dtype=torch.float32) == ("step", 64)
+    # a row start off 16 bytes: one element into the storage
+    base = torch.zeros(1 + 2 * 100 * 4 * 64, dtype=torch.bfloat16)
+    r = base[1:].view(2, 100, 4, 64).transpose(1, 2)
+    assert wrapper.wkv_bwd_plan(r, r, r, x(2, 100, 4, torch.float32),
+                                x(2, 100, 4), 132) == ("step", 64)
+
+
+def test_chunked_route_geometry():
+    """The chunk and sub-chunk the algebra assumes; a state-pass block
+    leaves room for two an SM, a chunk-pass block (two warpgroups) fits one
+    (232,448 bytes a block at most, 233,472 an SM, 1 KB each reserved)."""
+    src = (build.CSRC / "wkv_bwd_chunk.cu").read_text()
+    assert f"constexpr int kL = {wrapper.CHUNK};" in src
+    assert "constexpr int kSub = 16;" in src
+    assert build.SOURCE_FLAGS["wkv_bwd_chunk.cu"] == build._BASE_FLAGS
+    for w_bytes in (4, 2):
+        assert wrapper.bwd_chunk_smem_bytes(w_bytes) <= 232_448
+        for nj in (32, 64):
+            assert 2 * (wrapper.bwd_state_smem_bytes(nj, w_bytes) + 1024) \
+                <= 233_472
+    n_state, n_du = wrapper.wkv_bwd_chunk_scratch_floats(2, 64, 4096)
+    assert n_state == 2 * 64 * 64 * 64 * 64 and n_du == 2 * 64 * 64 * 64
+
+
 def test_build_flags_and_instances():
     assert build.SOURCE_FLAGS["wkv_bwd.cu"] == build._BASE_FLAGS
     names = {"_ZN12_GLOBAL__N_114wkv_bwd_kernelIffEEvNS_4ArgsIT_T0_EE":
@@ -185,6 +266,20 @@ def test_build_flags_and_instances():
     assert build.wkv_bwd_instance(
         "_ZN12_GLOBAL__N_110wkv_kernelIffEEvPKT_S3_S3_PKT0_") is None
     assert build.wkv_instance(next(iter(names))) is None
+    # the chunked route's entries (nvcc's names, as ptxas reports them)
+    prefix = "_ZN49_GLOBAL__N__26da44b0_16_wkv_bwd_chunk_cu_92ed1109"
+    chunked = {
+        "20wkv_bwd_state_kernelIfLi64EEEvNS_4ArgsIT_EE":
+            ("bfloat16", "float32", "state/64"),
+        "20wkv_bwd_state_kernelI13__nv_bfloat16Li32EEEvNS_4ArgsIT_EE":
+            ("bfloat16", "bfloat16", "state/32"),
+        "20wkv_bwd_chunk_kernelIfEEvNS_4ArgsIT_EE":
+            ("bfloat16", "float32", "chunk"),
+        "20wkv_bwd_chunk_kernelI13__nv_bfloat16EEvNS_4ArgsIT_EE":
+            ("bfloat16", "bfloat16", "chunk")}
+    for name, inst in chunked.items():
+        assert build.wkv_bwd_instance(prefix + name) == inst
+        assert build.wkv_instance(prefix + name) is None
 
 
 # ------------------------------------------------------- the host build --
@@ -225,3 +320,38 @@ def test_host_build_equals_plain_version(host_lib, B, H, T, dtype, w_dtype,
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _rel(a.float().numpy(), b.float().numpy()) <= \
             HOST_TOL[a.dtype], name
+
+
+@pytest.mark.parametrize("H,T,w_dtype,with_s0,with_ds,nj,x_range", [
+    (1, 64, torch.float32, True, True, 32, (-8.0, 3.0)),
+    (2, 65, torch.float32, False, False, 64, (-8.0, 3.0)),
+    (1, 128, torch.bfloat16, True, True, 32, (-8.0, -8.0)),
+    (1, 200, torch.float32, True, False, 32, (3.0, 3.0)),
+    (2, 200, torch.bfloat16, False, True, 64, (-8.0, 3.0))])
+def test_host_chunked_route_equals_plain_version(host_lib, H, T, w_dtype,
+                                                 with_s0, with_ds, nj,
+                                                 x_range):
+    """The chunked route (state pass over 32 or 64 columns a block, then
+    the chunk pass) on bf16 r, k, v, dy: one chunk, a one-step last chunk
+    (T 65), whole chunks, a ragged last chunk (T 200); heads sliced out of
+    a wider tensor; w float32 or bf16; decays over [-8, 3] and at x = -8
+    and x = 3."""
+    B = 1
+    r, k, v, w, u, S0, dy, dS = _draw(T + 7 * H, B, T, 2 * H, x_range)
+
+    def heads(x, dt):
+        return _bhtd(x, dt)[:, H:]          # the upper H of 2 H heads
+
+    args = [heads(x, torch.bfloat16) for x in (r, k, v)] + [
+        heads(w, w_dtype)]
+    u_t = torch.from_numpy(u[H:])
+    S0_t = torch.from_numpy(S0[:, H:]) if with_s0 else None
+    dS_t = torch.from_numpy(dS[:, H:]) if with_ds else None
+    g = heads(dy, torch.bfloat16)
+    got = wkv_bwd_chunk_host_call(host_lib, *args, u_t, S0_t, g, dS_t,
+                                  nj=nj)
+    want = wkv_bwd_ref(*args, u_t, S0_t, g, dS_t)
+    for name, a, b in zip(NAMES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel(a.float().numpy(), b.float().numpy()) <= \
+            CHUNK_HOST_TOL[a.dtype], name
