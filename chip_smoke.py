@@ -35,8 +35,11 @@ Phases (each prints a line; any failure exits non-zero):
               cell; (b) kernel vs plain on the card for lossy-wan,
               big-little, dvfs hp race / lp capped and a fitted logfit
               schedule x ME, EEMT (with and without scaling), EETT,
-              ismail-target and wget/curl on Chameleon x MIXED (900 s);
-              (c) the 18 ``benchmarks/fig_dvfs.py`` cells and its 24
+              ismail-target and wget/curl on Chameleon x MIXED (900 s),
+              bit for bit: ~170 s of plain loops, run by a child process
+              (``python3 chip_smoke.py --env-plain``) on the same card
+              beside phases 8, 11, 15 and 23c, which time nothing, and
+              joined after them (inline with ``--tick-loop``); (c) the 18 ``benchmarks/fig_dvfs.py`` cells and its 24
               GreenDataFlow cells through ``api.sweep`` against
               ``tests/torch_goldens/fig_dvfs_full.json``, one launch a grid,
               the grouped launch bit-equal to the groups' own launches,
@@ -205,12 +208,36 @@ Phases (each prints a line; any failure exits non-zero):
               remat, 4 steps): finite losses, 16 WKV forward and 8
               backward launches a step, step time, peak memory, a profiled
               step's split.
+23. families — run last: the MoE, VLM and audio families at full width
+              and depth in bf16, weights drawn on the card.  (a)
+              ``serve.generate`` of qwen3-moe-30b-a3b (8 x 2,048 + 32,
+              ``moe_impl="gmm"``), qwen2-vl-2b (8 x 2,048 + 32; the first
+              1,024 slots a 32 x 32 image's ``vision_embeds`` with M-RoPE
+              positions) and whisper-small (1,500 frames encoded once, 8 x
+              64 + 384): kernel 2 launched once a layer in the prefill (48,
+              28, 12), never in a decode step, all on the bf16 route;
+              prefill and decode times, tokens/s, peak memory, eager calls
+              and host syncs a decode step; (b) each prefill through the
+              kernel against the plain version (the MoE's plain run routed
+              as the kernel's, its own differing expert sets counted, each
+              at a near tie), and the MoE's decode through moe_dense
+              against moe_gmm; (c) run beside 17b's child, after phase 15:
+              the three float32 goldens (``tests/torch_goldens/lm_qwen3_
+              moe_30b_a3b.json`` at 2 of 48 layers, ``lm_qwen2_vl_2b.json``,
+              ``lm_whisper_small.json``; JAX on the CPU), teacher-forced,
+              every MoE expert set held to JAX's; (d) kernel 2 at head
+              width 64 (B 8 x T 64 and 2,048, 12 heads) against its bound,
+              the plain version and SDPA.
 
-Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c and 22c
-drive the main paths: each kernel's launch count is set to 0 just before
+The order: 1-6, 17, 18, 20, 21, 7, then the float32 goldens 8, 11, 15
+and 23c beside 17b's child (joined after them), then 9, 10, 12, 13, 14,
+16, 19, 22 and 23 (a, b, d).
+
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c, 22c and
+23a drive the main paths: each kernel's launch count is set to 0 just before
 and read just after; every attention launch there must take the bf16 (wgmma) route.  The
 float32 (FMA) attention kernels' launches are counted over the float32 goldens' entry points
-(phases 8, 11, 15 and 19c).  The last two lines are the kernel summary and
+(phases 8, 11, 15, 19c and 23c).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
 
@@ -233,7 +260,11 @@ runs phases 1-2 and 19 only, and prints neither;
 
     python3 chip_smoke.py --rwkv6-train
 
-runs phases 1-2 and 22 only, and prints neither.
+runs phases 1-2 and 22 only, and prints neither;
+
+    python3 chip_smoke.py --families
+
+runs phases 1-2 and 23 only, and prints neither.
 """
 from __future__ import annotations
 
@@ -962,29 +993,8 @@ def phase_environments(dev, ref_runs) -> dict:
           f"bit-equal to the goldens and to the reference runs' 7 traces; "
           f"{launched} launches", flush=True)
 
-    # (b) kernel == plain version on the card, per environment
-    t_plain = 0.0
-    by_env: dict = {}
-    for (en, cn), sc in env_smoke_scenarios(executor="cuda"):
-        (key, rows), = groups_on_card([sc], dev)
-        kern = call(tl.tick_loop, key, rows)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain = call(tl.tick_loop_reference, key, rows)
-        torch.cuda.synchronize()
-        t_plain += time.perf_counter() - t0
-        equal, err = compare_outputs(kern, plain)
-        check(equal, f"17b {en} / {cn}: kernel != plain version "
-                     f"(max |err| {err})")
-        by_env.setdefault(en, []).append(
-            (cn, executed_lane_ticks(kern[2], key.n_steps)))
-    for en, runs in by_env.items():
-        print(f"[17 envs] (b) {en}: kernel == plain on the card for "
-              f"{len(runs)} controllers (final rows and 7 traces bit-equal);"
-              f" executed ticks "
-              + ", ".join(f"{cn} {t}" for cn, t in runs), flush=True)
-    print(f"[17 envs] (b) plain versions {t_plain:.1f} s in all",
-          flush=True)
+    # (b) runs in a child process (start_env_plain_child), beside phases
+    # that time nothing
 
     # (c) the fig_dvfs and GreenDataFlow grids at full size (main paths)
     with open(os.path.join(ROOT, "tests", "torch_goldens",
@@ -1094,6 +1104,72 @@ def phase_environments(dev, ref_runs) -> dict:
           flush=True)
     return {"launches": launches, "grids_ms": ms_c,
             "grids_group_ms": group_ms_c, "dvfs_tune_ms": ms_d}
+
+
+def env_plain_check(dev) -> None:
+    """Phase 17b: kernel == plain version on the card, per environment and
+    controller (the child process's work: see :class:`EnvPlainChild`)."""
+    import torch
+
+    from repro_torch.kernels import tick_loop as tl
+
+    t_plain = 0.0
+    by_env: dict = {}
+    for (en, cn), sc in env_smoke_scenarios(executor="cuda"):
+        (key, rows), = groups_on_card([sc], dev)
+        kern = call(tl.tick_loop, key, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = call(tl.tick_loop_reference, key, rows)
+        torch.cuda.synchronize()
+        t_plain += time.perf_counter() - t0
+        equal, err = compare_outputs(kern, plain)
+        check(equal, f"17b {en} / {cn}: kernel != plain version "
+                     f"(max |err| {err})")
+        by_env.setdefault(en, []).append(
+            (cn, executed_lane_ticks(kern[2], key.n_steps)))
+    for en, runs in by_env.items():
+        print(f"[17 envs] (b) {en}: kernel == plain on the card for "
+              f"{len(runs)} controllers (final rows and 7 traces bit-equal);"
+              f" executed ticks "
+              + ", ".join(f"{cn} {t}" for cn, t in runs), flush=True)
+    print(f"[17 envs] (b) plain versions {t_plain:.1f} s in all",
+          flush=True)
+
+
+
+class EnvPlainChild:
+    """Phase 17b in a child process on the same card (``python3
+    chip_smoke.py --env-plain``): the 30 plain tick loops take ~170 s of
+    host time, so they run beside phases that time nothing (8, 11, 15 and
+    23c) and are joined after them.  The same card and libdevice keep the
+    comparison bit for bit; the child's failure or crash fails the run."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--env-plain"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(self.proc)
+
+    def join(self) -> float:
+        """Wait for the child, print its lines, fail on its failure;
+        returns the seconds waited."""
+        t0 = time.perf_counter()
+        out, _ = self.proc.communicate(timeout=900)
+        waited = time.perf_counter() - t0
+        for line in out.splitlines():
+            print(line, flush=True)
+        check(self.proc.returncode == 0,
+              f"17b's child process exited {self.proc.returncode}")
+        print(f"[17 envs] (b) child process: "
+              f"{time.perf_counter() - self.t0:.1f} s from start to join, "
+              f"{waited:.1f} s waited at the join", flush=True)
+        return waited
+
+
+#: Child processes to stop if the script fails before joining them.
+CHILDREN: list = []
 
 
 def fleet_small_datasets():
@@ -3054,8 +3130,8 @@ def random_qwen3_params():
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -4878,25 +4954,588 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     return res
 
 
+# ------------------------------------------- MoE, VLM and audio serving --
+
+# Phase 23: the MoE, VLM and audio families at full width and depth, bf16,
+# weights drawn on the card from torch.Generator seed 0, the prompt from
+# numpy seed 1 and each family's inputs from numpy seed 2.  Per model:
+# (batch, prompt, new tokens).  whisper's 64 + 384 = 448 positions are
+# upstream whisper's decoder context.
+FAMILY_SERVE = {"qwen3-moe-30b-a3b": (8, 2048, 32),
+                "qwen2-vl-2b": (8, 2048, 32),
+                "whisper-small": (8, 64, 384)}
+# qwen2-vl's image: src/repro/launch/input_specs.py's VLM_IMG_TOKENS = 1,024
+# patch slots, a 32 x 32 grid.
+VLM_IMAGE_SIDE = 32
+# Decode steps timed per model (after the generate).
+FAMILY_DECODE_STEPS = 8
+# 23c: the float32 goldens (tests/torch_goldens/make_lm_golden.py's
+# FAMILIES), held to phase 8's tolerance (GOLDEN_RTOL); weights by position.
+FAMILY_GOLDENS = {"qwen3-moe-30b-a3b": "lm_qwen3_moe_30b_a3b.json",
+                  "qwen2-vl-2b": "lm_qwen2_vl_2b.json",
+                  "whisper-small": "lm_whisper_small.json"}
+FAMILY_WEIGHT_CHECK = {
+    "qwen3-moe-30b-a3b": {"embed": (0, slice(0, 4)),
+                          "blocks/moe/router": (1, -1, slice(-4, None)),
+                          "blocks/moe/wg": (1, 127, 5, slice(0, 4)),
+                          "blocks/moe/wd": (0, 64, -1, slice(-4, None))},
+    "qwen2-vl-2b": {"embed": (0, slice(0, 4)),
+                    "blocks/attn/wq": (27, -1, slice(-4, None)),
+                    "blocks/mlp/wd": (13, 5, slice(0, 4))},
+    "whisper-small": {"embed": (-1, slice(0, 4)),
+                      "enc_layers/11/attn/wq": (-1, slice(-4, None)),
+                      "dec_layers/11/cross_attn/wk": (5, slice(0, 4)),
+                      "dec_layers/0/mlp/wd": (13, slice(0, 4))}}
+# 23c: an MoE token's expert set may differ from JAX's only where JAX's
+# top-k margin (the k-th minus the (k+1)-th router probability) is below
+# this: float32 router logits on the card and in XLA differ by sums in
+# another order over d_model, ~1e-7 of a probability.
+FAMILY_FLIP_MARGIN = 1e-5
+# 23d: kernel 2 at head width 64, whisper's heads (12 of 64, MHA): its
+# prefill's shape (B, T) and a long one.
+FLASH_64 = (12, 12, 64)
+FLASH_64_TIMED = ((8, 64), (8, 2048))
+# The phase's budget (s), on the host that ran the whole script in 886.8 s.
+FAMILY_BUDGET_S = 90
+
+
+def mrope_grid_positions(B, T, side):
+    """Qwen2-VL's M-RoPE positions [3, B, T]: a side x side patch grid (t =
+    0, h = row, w = col) in the first side^2 slots, then the text at t = h
+    = w = side + i."""
+    import numpy as np
+
+    r, c = np.divmod(np.arange(side * side), side)
+    text = side + np.arange(T - side * side)
+    pos = np.stack([np.concatenate([np.zeros(side * side, int), text]),
+                    np.concatenate([r, text]), np.concatenate([c, text])])
+    return np.broadcast_to(pos[:, None], (3, B, T)).astype(np.int64)
+
+
+def family_inputs(cfg, B, T, dev, dtype, side):
+    """The family's extra inputs on ``dev`` (numpy seed 2): the VLM's patch
+    embeddings and M-RoPE positions, whisper's frame embeddings."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2)
+    if cfg.family == "vlm":
+        ve = rng.standard_normal((B, side * side, cfg.d_model), np.float32)
+        return {"vision_embeds": torch.as_tensor(ve, device=dev).to(dtype),
+                "mrope_pos": torch.as_tensor(
+                    mrope_grid_positions(B, T, side), device=dev)}
+    if cfg.family == "audio":
+        fe = rng.standard_normal((B, cfg.encoder_positions, cfg.d_model),
+                                 np.float32)
+        return {"frame_embeds": torch.as_tensor(fe, device=dev).to(dtype)}
+    return {}
+
+
+class RouterLog:
+    """While entered, records every MoE router call of the port: each
+    token's expert set (sorted) and its probabilities, on the card.  With
+    ``replay`` (the log of another run of the same inputs), each call
+    routes to that run's experts instead, weighted by this call's own
+    probabilities at them (renormalised), and still records its own
+    choice: two runs then differ only by what else differs."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers as TL
+
+        self.calls, self._orig = [], TL.moe_router
+
+        def rec(cfg, p, xf):
+            w, ids, aux = self._orig(cfg, p, xf)
+            probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+            self.calls.append((ids.sort(dim=1).values, probs, ids))
+            if self.replay is not None:
+                ids = self.replay.calls[len(self.calls) - 1][2]
+                w = probs.gather(1, ids)
+                w = w / w.sum(dim=-1, keepdim=True)
+            return w, ids, aux
+        TL.moe_router = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as TL
+
+        TL.moe_router = self._orig
+
+
+def routing_flips(a, b, k):
+    """Compare two runs' router logs (the same inputs, call by call):
+    ((token, layer) expert sets that differ, the largest ratio of a
+    flipped token's top-k margin to twice the two runs' largest
+    probability difference at it).  A set can only flip where the margin
+    (the k-th minus the (k+1)-th probability) is below twice that
+    difference: a ratio above 1 is a fault."""
+    import torch
+
+    n, worst = 0, 0.0
+    for (ia, pa, _), (ib, pb, _) in zip(a.calls, b.calls):
+        diff = (ia != ib).any(dim=1)
+        n += int(diff.sum())
+        if diff.any():
+            idx = torch.nonzero(diff)[:, 0]
+            top = pa[idx].topk(k + 1, dim=1).values
+            margin = top[:, k - 1] - top[:, k]
+            dp = (pa[idx] - pb[idx]).abs().max(dim=1).values
+            worst = max(worst, float((margin / (2 * dp)).max()))
+    return n, worst
+
+
+def decode_profile(step, params, state, tok, pos, **extra):
+    """One decode step's eager torch calls (top-level ``aten::`` ops, host
+    side) and host syncs (torch's sync debug mode, one warning a sync)."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                out = step(params, state, tok, pos, **extra)
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    n_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                and (e.cpu_parent is None
+                     or not e.cpu_parent.name.startswith("aten::")))
+    return out, n_ops, syncs
+
+
+def phase_family_serve(dev, arch) -> dict:
+    """[23 families] (a) a model at full width and depth in bf16 through
+    ``serve.generate``; (b) its prefill through the kernel against the
+    plain version (and, for the MoE, moe_dense against moe_gmm at
+    decode)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bhtd
+    from repro_torch.models import build as build_model
+    from repro_torch.models import whisper
+    from repro_torch.serve import generate, make_decode_step, make_prefill
+
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16", f"{arch} serves in bf16")
+    bundle = build_model(cfg)
+    B, T, N = FAMILY_SERVE[arch]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    n_params = sum(x.numel() for x in _leaves(params))
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, T)), device=dev)
+    extra = family_inputs(cfg, B, T, dev, torch.bfloat16, VLM_IMAGE_SIDE)
+    enc_ms = None
+    if cfg.family == "audio":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            extra = {"enc_out": whisper.encode(cfg, params,
+                                               extra["frame_embeds"])}
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+    decode_extra = {k: v for k, v in extra.items() if k == "enc_out"}
+
+    # (a) generate: the main path, launches counted from 0
+    reset_attention_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = generate(bundle, params, prompt, N, T + N, device=dev,
+                    executor="cuda", moe_impl="gmm", **extra)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = flash_attention_bhtd.launches
+    check_bf16_route(f"{arch} generate")
+    gen_peak = torch.cuda.max_memory_allocated()
+    check(tuple(toks.shape) == (B, N), f"{arch} generate returned "
+                                       f"{tuple(toks.shape)}")
+    check(gen_launches == cfg.num_layers,
+          f"{arch} generate launched kernel 2 {gen_launches} times, not "
+          f"{cfg.num_layers} (one a layer in the prefill, none a decode "
+          f"step)")
+
+    # the prefill alone, kernel then plain version (the MoE's routing
+    # logged in both), then decode steps after the kernel's prefill
+    logits, pre_ms, logs = {}, {}, {}
+    for ex in ("cuda", "reference"):
+        state = bundle.init_decode_state(B, T + N, device=dev)
+        prefill = make_prefill(bundle, executor=ex)
+        with RouterLog(replay=logs.get("cuda")) as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = flash_attention_bhtd.launches
+            logits[ex], st = prefill(params, state, prompt, **extra)
+            torch.cuda.synchronize()
+            pre_ms[ex] = (time.perf_counter() - t0) * 1e3
+        logs[ex] = log
+        if ex == "cuda":
+            pre_launches, state = flash_attention_bhtd.launches - before, st
+        del st
+    check(pre_launches == cfg.num_layers,
+          f"{arch} prefill launched kernel 2 {pre_launches} times")
+    step = make_decode_step(bundle, executor="cuda")
+    tok = toks[:, :1]
+    pos = torch.full((B, 1), T, dtype=torch.long, device=dev)
+    before = flash_attention_bhtd.launches
+    (tok, _, state), n_ops, syncs = decode_profile(step, params, state, tok,
+                                                   pos, **decode_extra)
+    check(flash_attention_bhtd.launches == before,
+          f"{arch}: a decode step launched kernel 2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FAMILY_DECODE_STEPS):
+        pos = torch.full((B, 1), T + 1 + i, dtype=torch.long, device=dev)
+        tok, _, state = step(params, state, tok, pos, **decode_extra)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / FAMILY_DECODE_STEPS
+    dense = None
+    if cfg.moe is not None:
+        # moe_dense against moe_gmm on the same decode inputs: each call
+        # writes this step's keys at the same slot before reading it
+        pos = torch.full((B, 1), T + 1 + FAMILY_DECODE_STEPS,
+                         dtype=torch.long, device=dev)
+        out = {}
+        for impl in ("gmm", "dense"):
+            _, lg, _ = make_decode_step(bundle, moe_impl=impl,
+                                        executor="cuda")(params, state, tok,
+                                                         pos)
+            out[impl] = lg[:, -1].float()
+        scale = float(out["gmm"].abs().max())
+        dense = float((out["dense"] - out["gmm"]).abs().max()) / scale
+        check(dense <= SERVE_BF16_TOL,
+              f"{arch} decode: moe_dense vs moe_gmm max |err| {dense:.4g} "
+              f"of max |logit| > {SERVE_BF16_TOL}")
+    del state
+
+    # (b) kernel vs plain: the prefill's last logits (the plain run routed
+    # as the kernel's, its own choices counted; whisper's -1e30 padding
+    # left out)
+    V = cfg.vocab_size
+    a = logits["cuda"][:, -1, :V].float()
+    b = logits["reference"][:, -1, :V].float()
+    check(bool(torch.isfinite(a).all()), f"{arch}: non-finite logits")
+    check(torch.equal(a.argmax(-1).int(), toks[:, 0]),
+          f"{arch}: generate's first token is not its prefill's argmax")
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max()) / scale
+    check(err <= SERVE_BF16_TOL,
+          f"{arch} bf16 prefill logits, kernel vs plain: max |err| {err:.4g} "
+          f"of max |logit| > {SERVE_BF16_TOL}")
+    flips, flip_ratio = 0, 0.0
+    if cfg.moe is not None:
+        flips, flip_ratio = routing_flips(logs["cuda"], logs["reference"],
+                                          cfg.moe.top_k)
+        check(flip_ratio <= 1.0,
+              f"{arch}: an expert set differs between the kernel's and the "
+              f"plain prefill at a top-k margin {flip_ratio:.3g} x twice "
+              f"the runs' probability difference (not a near tie)")
+    del logs, logits
+    peak = torch.cuda.max_memory_allocated()
+    check(max(gen_peak, draw_peak, peak) < 80e9,
+          f"{arch}: peak device memory {max(gen_peak, peak)} B")
+    tokens_s = B / step_ms * 1e3
+    flipped = ""
+    if cfg.moe is not None:
+        flipped = (f"; the plain run routed as the kernel's: its own expert "
+                   f"sets differ at {flips} of {B * T * cfg.num_layers} "
+                   f"(token, layer), each at a near tie (margin at most "
+                   f"{flip_ratio:.3g} x twice the runs' probability "
+                   f"difference); decode moe_dense vs moe_gmm {dense:.4g} "
+                   f"of max |logit| (tol {SERVE_BF16_TOL})")
+    enc = "" if enc_ms is None else (f"; encode {cfg.num_encoder_layers} "
+                                     f"layers x {cfg.encoder_positions} "
+                                     f"frames {enc_ms:.1f} ms")
+    print(f"[23 families] (a) {arch} bf16, {cfg.num_layers} layers, "
+          f"{n_params} parameters drawn on the card in {draw_s:.1f} s "
+          f"({resident} B; peak while drawing {draw_peak} B){enc}; "
+          f"generate {B} x {T} prompt + {N} new tokens: wall "
+          f"{gen_wall:.3f} s, {gen_launches} kernel 2 launches (one a "
+          f"layer in the prefill, 0 a decode step, all wgmma); prefill "
+          f"{pre_ms['cuda']:.1f} ms = {B * T / pre_ms['cuda'] * 1e3:.0f} "
+          f"tok/s (plain attention {pre_ms['reference']:.1f} ms); decode "
+          f"{step_ms:.2f} ms a step (mean of {FAMILY_DECODE_STEPS}) = "
+          f"{tokens_s:.0f} tok/s, {n_ops} eager torch calls and {syncs} "
+          f"host syncs a step; peak memory {gen_peak} B", flush=True)
+    print(f"[23 families] (b) {arch}: prefill logits kernel vs plain max "
+          f"|err| {err:.4g} of max |logit| {scale:.4g} (tol "
+          f"{SERVE_BF16_TOL}){flipped}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": gen_launches, "prefill_ms": pre_ms["cuda"],
+            "plain_prefill_ms": pre_ms["reference"], "decode_ms": step_ms,
+            "peak": gen_peak, "max_abs_err": err, "eager_calls": n_ops,
+            "syncs": syncs}
+
+
+def start_family_draws():
+    """23c's float32 weights (``random_lm_params``, numpy alone), drawn in
+    threads of their own (numpy releases the GIL while it fills), so they
+    overlap the phases before 23c: {arch: future of (tree, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=len(FAMILY_GOLDENS))
+
+    def draw(arch):
+        from repro_torch import convert
+
+        t0 = time.perf_counter()
+        gold = family_golden(arch)
+        tree = convert.random_lm_params(family_golden_config(arch, gold),
+                                        seed=gold["seed"])
+        return tree, time.perf_counter() - t0
+    futures = {arch: pool.submit(draw, arch) for arch in FAMILY_GOLDENS}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def family_golden(arch):
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           FAMILY_GOLDENS[arch])) as f:
+        return json.load(f)
+
+
+def family_golden_config(arch, gold):
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              num_layers=gold["config"]["num_layers"])
+    check(dataclasses.asdict(cfg) == {
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in gold["config"].items()},
+          f"{arch}: the golden's config differs from the port's")
+    return cfg
+
+
+def phase_family_golden(dev, arch, drawn) -> dict:
+    """[23 families] (c) a float32 model on the card vs its JAX golden,
+    teacher-forced: each decode step takes the golden's token, so a step
+    where the golden's top two logits lie within the tolerance (a near
+    tie, its argmax either way) does not derail the rest.  For the MoE,
+    every token's expert set is held to JAX's: a set may differ only at a
+    near tie (JAX's top-k margin below FAMILY_FLIP_MARGIN), and its row is
+    then held only up to that step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import build as build_model
+    from repro_torch.models import whisper
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    gold = family_golden(arch)
+    cfg = family_golden_config(arch, gold)
+    t0 = time.perf_counter()
+    tree, draw_s = drawn.result()
+    wait_s = time.perf_counter() - t0
+    for path, vals in gold["weight_check"].items():
+        got = _leaf(tree, path)[FAMILY_WEIGHT_CHECK[arch][path]]
+        check([float(x) for x in got] == vals,
+              f"random_lm_params differs from the golden's at {path}: "
+              f"numpy drew other weights here")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = convert.lm_params_from_jax(tree, cfg, dev)
+    del tree
+    bundle = build_model(cfg)
+    prompt = torch.as_tensor(np.asarray(gold["prompt"]), device=dev)
+    B, T, N = gold["batch"], gold["prompt_len"], gold["new_tokens"]
+    extra = family_inputs(cfg, B, T, dev, torch.float32,
+                          gold.get("image_grid"))
+    if cfg.family == "audio":
+        with torch.no_grad():
+            extra = {"enc_out": whisper.encode(cfg, params,
+                                               extra["frame_embeds"])}
+    again = {k: v for k, v in extra.items() if k == "enc_out"}
+    state = bundle.init_decode_state(B, T + N, device=dev)
+    prefill = make_prefill(bundle, executor="cuda")
+    step = make_decode_step(bundle, executor="cuda")
+    gtok = torch.as_tensor(gold["tokens"], device=dev)          # [B, N]
+    V = cfg.vocab_size      # whisper's padding logits (-1e30) left out
+    with RouterLog() as log:
+        logits, state = prefill(params, state, prompt, **extra)
+        steps = [logits[:, -1, :V].float()]
+        for i in range(N - 1):
+            pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
+            _, logits, state = step(params, state,
+                                    gtok[:, i:i + 1].to(torch.int32), pos,
+                                    **again)
+            steps.append(logits[:, -1, :V].float())
+
+    # (step, row) held: all but those a flipped expert set reaches (MoE):
+    # its own step, and the later ones unless it was in the last layer
+    # (whose output reaches no cache)
+    tainted = set()
+    flips = []
+    if cfg.moe is not None:
+        L = cfg.num_layers
+        for i, gs in enumerate(gold["steps"]):
+            for layer in range(L):
+                got = log.calls[i * L + layer][0].tolist()
+                for n, (a, b) in enumerate(zip(got, gs["experts"][layer])):
+                    if a != b:
+                        m = gs["router_margins"][layer][n]
+                        row = n // (T if i == 0 else 1)
+                        flips.append((i, layer, row, m))
+                        check(m <= FAMILY_FLIP_MARGIN,
+                              f"{arch} step {i} layer {layer} row {row}: "
+                              f"expert set {a} != JAX's {b} at a router "
+                              f"margin {m:.3g} > {FAMILY_FLIP_MARGIN}")
+                        last = N if layer < L - 1 else i + 1
+                        tainted |= {(j, row) for j in range(i, last)}
+    top_err = norm_err = 0.0
+    ties, n_held = [], 0
+    for i, (s, gs) in enumerate(zip(steps, gold["steps"])):
+        rows = [r for r in range(B) if (i, r) not in tainted]
+        n_held += len(rows)
+        ids = torch.as_tensor(gs["top5_ids"], device=dev)
+        vals = s.gather(1, ids).double().cpu().numpy()[rows]
+        want = np.asarray(gs["top5"])[rows]
+        if rows:
+            top_err = max(top_err, float(
+                (np.abs(vals - want).max(1) / np.abs(want).max(1)).max()))
+            norms = s.double().norm(dim=-1).cpu().numpy()[rows]
+            gn = np.asarray(gs["norm"])[rows]
+            norm_err = max(norm_err, float((np.abs(norms - gn) / gn).max()))
+        got = s.argmax(-1).tolist()
+        for r in rows:
+            if got[r] != gs["token"][r]:
+                tol = 2 * GOLDEN_RTOL * float(np.abs(gs["top5"][r]).max())
+                check(gs["margin"][r] <= tol,
+                      f"{arch} step {i} row {r}: greedy token {got[r]} != "
+                      f"JAX's {gs['token'][r]} with a top-2 margin "
+                      f"{gs['margin'][r]:.3g} above {tol:.3g}")
+                ties.append((i, r, gs["margin"][r]))
+    check(top_err <= GOLDEN_RTOL and norm_err <= GOLDEN_RTOL,
+          f"{arch} float32 logits vs the golden: top-5 rel err {top_err}, "
+          f"norm rel err {norm_err} (tol {GOLDEN_RTOL})")
+    margin = min(m for gs in gold["steps"] for m in gs["margin"])
+    routed = ""
+    if cfg.moe is not None:
+        least = min(min(gs["router_margin"]) for gs in gold["steps"])
+        routed = (f"; every token's expert set == JAX's but {len(flips)} "
+                  f"(step, layer, row, JAX's margin) {flips}; smallest JAX "
+                  f"router margin {least:.3g}")
+    print(f"[23 families] (c) {arch} float32 (TF32 off; "
+          f"{cfg.num_layers} layers: {gold['depth_cut'] or 'full depth'}), "
+          f"{B} x {T} prompt tokens + {N} teacher-forced steps on the card "
+          f"(weights drawn in {draw_s:.1f} s beside the earlier phases, "
+          f"waited {wait_s:.1f} s): greedy tokens == "
+          f"{FAMILY_GOLDENS[arch]}'s on {n_held - len(ties)}/{n_held} held "
+          f"(step, row), near ties {ties}; top-5 logits max rel err "
+          f"{top_err:.3g}, norms {norm_err:.3g} (tol {GOLDEN_RTOL}); "
+          f"smallest golden top-2 margin {margin:.4g}{routed}", flush=True)
+    del params, state, steps
+    torch.cuda.empty_cache()
+    return {"flips": len(flips), "ties": len(ties)}
+
+
+def phase_flash64(dev) -> dict:
+    """[23 families] (d) kernel 2 at head width 64 (whisper's heads):
+    kernel vs plain version, timed against its bound, the plain version
+    and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_bhtd)
+
+    g = torch.Generator().manual_seed(23)
+    H, Hkv, hd = FLASH_64
+    out = {}
+    for B, T in FLASH_64_TIMED:
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2) for h in (H, Hkv, Hkv)]
+        err = float((flash_attention_bhtd(q, k, v).float()
+                     - attention_ref(q, k, v).float()).abs().max())
+        check(err <= FLASH_TOL["bfloat16"],
+              f"flash attention hd 64 B={B} T={T}: max |err| {err}")
+        ms = time_cuda(lambda: flash_attention_bhtd(q, k, v), 5)
+        plain_ms = time_cuda(lambda: attention_ref(q, k, v), 5)
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 5)
+        bound_ms, bound_by, flops, nbytes = flash_bound(B, H, Hkv, hd, T, T,
+                                                        True, 2)
+        print(f"[23 families] (d) kernel 2 bf16 (wgmma) causal hd 64 (heads "
+              f"{H}/{Hkv}) B={B} T={T}: kernel {ms:.4f} ms (median of 5); "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({flops} FLOP, "
+              f"{nbytes} B); x bound {ms / bound_ms:.1f}; plain "
+              f"{plain_ms:.3f} ms; scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms; max |err| {err:.3g} (tol 2e-2)", flush=True)
+        out[f"B{B}_T{T}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 max_abs_err=err)
+        del q, k, v
+    return out
+
+
+def phase_families(dev) -> dict:
+    """Phase 23 (a, b, d): the three families served at full width."""
+    t_phase = time.perf_counter()
+    res = {arch: phase_family_serve(dev, arch) for arch in FAMILY_SERVE}
+    res["hd64"] = phase_flash64(dev)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def family_budget(serve_s, golden_s):
+    took = serve_s + golden_s
+    print(f"[23 families] phase time {took:.1f} s (a, b, d {serve_s:.1f} s; "
+          f"c {golden_s:.1f} s; budget {FAMILY_BUDGET_S:.0f} s"
+          f"{'' if took <= FAMILY_BUDGET_S else ', over it'})", flush=True)
+    return took
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    return smoke(torch.device("cuda"), tick_only="--tick-loop" in sys.argv,
-                 learn_only="--learn" in sys.argv,
-                 recurrent_only="--recurrent-train" in sys.argv,
-                 fleet_only="--fleet" in sys.argv,
-                 rwkv6_only="--rwkv6-train" in sys.argv)
+    if "--env-plain" in sys.argv:
+        env_plain_check(torch.device("cuda"))
+        return 0
+    try:
+        return smoke(torch.device("cuda"),
+                     tick_only="--tick-loop" in sys.argv,
+                     learn_only="--learn" in sys.argv,
+                     recurrent_only="--recurrent-train" in sys.argv,
+                     fleet_only="--fleet" in sys.argv,
+                     rwkv6_only="--rwkv6-train" in sys.argv,
+                     families_only="--families" in sys.argv)
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
-def smoke(dev, tick_only=False, learn_only=False,
-          recurrent_only=False, fleet_only=False, rwkv6_only=False) -> int:
+def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
+          fleet_only=False, rwkv6_only=False, families_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
     and 19; with ``fleet_only``, phases 1-3, 20 and 21; with
-    ``rwkv6_only``, phases 1-2 and 22), on the CUDA device ``dev``."""
+    ``rwkv6_only``, phases 1-2 and 22; with ``families_only``, phases 1-2
+    and 23), on the CUDA device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -5023,6 +5662,17 @@ def smoke(dev, tick_only=False, learn_only=False,
         phase_rwkv6_train(dev)
         lap("phase 22")
         print("chip_smoke: rwkv6 train phases (1-2, 22) passed")
+        return 0
+    if families_only:
+        draws = start_family_draws()
+        t0 = time.perf_counter()
+        for arch in FAMILY_GOLDENS:
+            phase_family_golden(dev, arch, draws[arch])
+        golden_s = time.perf_counter() - t0
+        fams = phase_families(dev)
+        family_budget(fams["phase_s"], golden_s)
+        lap("phase 23")
+        print("chip_smoke: family phases (1-2, 23) passed")
         return 0
     report = build.ptxas_report(logs["tick_loop.cu"])
     used = set()
@@ -5284,6 +5934,8 @@ def smoke(dev, tick_only=False, learn_only=False,
     envs = phase_environments(dev, ref_runs)
     lap("phase 17")
     if tick_only:
+        env_plain_check(dev)
+        lap("phase 17b")
         print("chip_smoke: tick-loop phases (1-6, 17) passed")
         return 0
     learned = phase_learn(dev)
@@ -5300,9 +5952,15 @@ def smoke(dev, tick_only=False, learn_only=False,
           f"card after phases 1-6 and 17", flush=True)
     flash = phase_flash(dev)
     lap("phase 7")
+    # The float32 goldens (8, 11, 15, 23c) time nothing: 17b's child
+    # process runs beside them, and 23c's weights are drawn in threads
+    # meanwhile.
+    child = EnvPlainChild()
+    draws = start_family_draws()
     tree = random_qwen3_params()
     # the float32 (FMA) attention kernels' launches over the float32
     # goldens' entry points (generate, the train step): phases 8, 11, 15
+    # and 23c
     fma = [0, 0]
 
     def count_fma(phase, *args):
@@ -5314,19 +5972,8 @@ def smoke(dev, tick_only=False, learn_only=False,
 
     count_fma(phase_lm_golden, dev, tree)
     lap("phase 8")
-    serve = phase_serve(dev, tree)
-    lap("phase 9")
-    bwd = phase_flash_bwd(dev)
-    lap("phase 10")
     count_fma(phase_train_golden, dev, tree)
     lap("phase 11")
-    del tree
-    trained = phase_train(dev)
-    lap("phase 12")
-    wkv = phase_wkv(dev)
-    lap("phase 13")
-    rglru = phase_rglru(dev)
-    lap("phase 14")
     # phase 22's float32 golden takes phase 15's rwkv6-7b weights where
     # their seed and cut agree (4 of 32 layers, seed 0): drawn once
     rwkv6_drawn = None
@@ -5337,6 +5984,25 @@ def smoke(dev, tick_only=False, learn_only=False,
     check(all(fma), f"the float32 goldens launched the FMA attention kernels "
                     f"{fma[0]} (forward) and {fma[1]} (backward) times")
     lap("phase 15")
+    t0 = time.perf_counter()
+    for arch in FAMILY_GOLDENS:
+        count_fma(phase_family_golden, dev, arch, draws[arch])
+    golden_s = time.perf_counter() - t0
+    del draws
+    lap("phase 23c")
+    child.join()
+    lap("phase 17b (joined)")
+    serve = phase_serve(dev, tree)
+    lap("phase 9")
+    del tree
+    bwd = phase_flash_bwd(dev)
+    lap("phase 10")
+    trained = phase_train(dev)
+    lap("phase 12")
+    wkv = phase_wkv(dev)
+    lap("phase 13")
+    rglru = phase_rglru(dev)
+    lap("phase 14")
     rserve = {arch: phase_recurrent_serve(dev, arch)
               for arch in RECURRENT_SERVE}
     lap("phase 16")
@@ -5345,7 +6011,11 @@ def smoke(dev, tick_only=False, learn_only=False,
     lap("phase 19")
     wtrain = phase_rwkv6_train(dev, rwkv6_drawn)
     del rwkv6_drawn
-    lap(f"phase 22: all phases, on {card}")
+    lap("phase 22")
+    fams = phase_families(dev)
+    family_budget(fams["phase_s"], golden_s)
+    fam_launches = sum(fams[a]["launches"] for a in FAMILY_SERVE)
+    lap(f"phase 23: all phases, on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -5393,14 +6063,17 @@ def smoke(dev, tick_only=False, learn_only=False,
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
         "launches": serve["launches"] + trained["fa_launches"]
         + rserve["recurrentgemma-2b"]["launches"]["flash_attention"]
-        + rtrain["launches"]["flash_attention"],
+        + rtrain["launches"]["flash_attention"] + fam_launches,
+        "launches_by_family_generate": {a: fams[a]["launches"]
+                                        for a in FAMILY_SERVE},
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
-                           serve["max_abs_err"]),
+                           serve["max_abs_err"],
+                           *(v["max_abs_err"] for v in fams["hd64"].values())),
         "ms": flash["bf16"]["ms"], "plain_ms": flash["bf16"]["plain_ms"],
         "bound_ms": flash["bf16"]["bound_ms"],
         "bound_by": flash["bf16"]["bound_by"],
         "library_ms": flash["bf16"]["library_ms"],
-        "hd256_train_forward": rk["forward"]}, {
+        "hd256_train_forward": rk["forward"], "hd64": fams["hd64"]}, {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",

@@ -78,11 +78,13 @@ def _tensor(a, device, dtype=None):
 
 
 #: Leaves JAX's init keeps in float32 under any model dtype: qk-norm
-#: scales, rwkv6's mixing, decay, bonus and GroupNorm parameters, and the
-#: RG-LRU's Λ; and everything under a norm.
-_F32_LEAVES = ("q_norm", "k_norm", "mu", "w0", "u", "gn_scale", "mu_k",
-               "mu_r", "lam")
-_F32_NORMS = ("ln0", "ln1", "ln2", "ln_out", "final_norm")
+#: scales, the MoE router, rwkv6's mixing, decay, bonus and GroupNorm
+#: parameters, and the RG-LRU's Λ; and everything under a norm (whisper's
+#: included).
+_F32_LEAVES = ("q_norm", "k_norm", "router", "mu", "w0", "u", "gn_scale",
+               "mu_k", "mu_r", "lam")
+_F32_NORMS = ("ln0", "ln1", "ln2", "ln_x", "ln_out", "final_norm",
+              "enc_norm", "dec_norm")
 
 
 def _f32_leaf(path) -> bool:
@@ -109,7 +111,10 @@ def lm_params_from_jax(tree, cfg, device):
 
 def caches_from_jax(tree, device):
     """JAX stacked caches (``k``/``v`` [L, B, S, Hkv, hd], ``idx`` [L],
-    ``prow`` marker for per-row caches) -> the port's cache dict."""
+    ``prow`` marker for per-row caches) -> the port's cache dict; or
+    whisper's list of per-layer caches -> a list of the port's."""
+    if isinstance(tree, (list, tuple)):
+        return [caches_from_jax(c, device) for c in tree]
     return {"k": _tensor(tree["k"], device), "v": _tensor(tree["v"], device),
             "idx": int(np.asarray(tree["idx"]).reshape(-1)[0]),
             "per_row": "prow" in tree}
@@ -128,7 +133,12 @@ def _numpy(t):
 
 def caches_to_jax(caches):
     """The port's cache dict -> JAX's stacked cache tree as numpy
-    (bfloat16 leaves as ``ml_dtypes.bfloat16``, the type JAX reads)."""
+    (bfloat16 leaves as ``ml_dtypes.bfloat16``, the type JAX reads); a
+    list of per-layer caches (whisper's) -> JAX's list, each ``idx`` a
+    scalar."""
+    if isinstance(caches, list):
+        return [{"k": _numpy(c["k"]), "v": _numpy(c["v"]),
+                 "idx": np.int32(c["idx"])} for c in caches]
     n_layers = caches["k"].shape[0]
     arr = _numpy
     out = {"k": arr(caches["k"]), "v": arr(caches["v"]),
@@ -207,27 +217,27 @@ def train_state_to_jax(state):
 
 def random_lm_params(cfg, seed: int = 0):
     """Random LM parameters in JAX's tree layout, as float32 numpy, from
-    ``np.random.default_rng(seed)`` alone, for the dense, ssm (rwkv6) and
-    hybrid (recurrentgemma) families.
+    ``np.random.default_rng(seed)`` alone, for every family.
 
-    Dense (blocks stacked [L, ...]).  Scales are JAX's init (models/lm.py:63,
-    layers.py:183-202, 435-451): ``embed`` normal * 0.02; attention weights
-    normal / sqrt(d_model); ``wg``/``wu`` normal / sqrt(d_model), ``wd``
-    normal / sqrt(d_ff); biases 0 and norm scales 1.  Draw order: embed,
-    then per block leaf (wq, wk, wv, wo, wg, wu, wd) all L layers at once,
-    then ``head`` if untied.  The other families: :func:`_random_rwkv6`,
-    :func:`_random_rglru`."""
+    Decoder-only LMs (dense, MoE, VLM; blocks stacked [L, ...]).  Scales
+    are JAX's init (models/lm.py:63, layers.py:183-202, 435-451, 464-480):
+    ``embed`` normal * 0.02; attention weights normal / sqrt(d_model);
+    ``wg``/``wu`` normal / sqrt(d_model), ``wd`` normal / sqrt(d_ff); the
+    MoE's ``router`` normal / sqrt(d_model) (float32 in every dtype), its
+    experts [L, E, ...] as the MLP's at ``d_ff_expert``, and its shared
+    experts one MLP of ``num_shared_experts x d_ff_expert``; biases 0 and
+    norm scales 1.  Draw order: embed, then per block leaf (wq, wk, wv, wo,
+    then wg, wu, wd or router, wg, wu, wd and the shared wg, wu, wd) all L
+    layers at once, then ``head`` if untied.  The other families:
+    :func:`_random_rwkv6`, :func:`_random_rglru`, :func:`_random_whisper`."""
     if cfg.family == "ssm":
         return _random_rwkv6(cfg, np.random.default_rng(seed))
     if cfg.family == "hybrid":
         return _random_rglru(cfg, np.random.default_rng(seed))
-    if cfg.moe is not None or cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError("random_lm_params covers the dense "
-                                  "swiglu/geglu LMs, rwkv6 and "
-                                  "recurrentgemma")
+    if cfg.family == "audio":
+        return _random_whisper(cfg, np.random.default_rng(seed))
     rng = np.random.default_rng(seed)
-    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
-    hd, h, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    L, d = cfg.num_layers, cfg.d_model
 
     def norm():
         if cfg.norm_type == "ln_nonparam":
@@ -237,29 +247,89 @@ def random_lm_params(cfg, seed: int = 0):
             out["bias"] = np.zeros((L, d), np.float32)
         return out
 
-    s_d, s_ff = 1.0 / np.sqrt(d), 1.0 / np.sqrt(ff)
     embed = _normal(rng, (cfg.vocab_size, d), 0.02)
-    attn = {"wq": _normal(rng, (L, d, h * hd), s_d),
-            "wk": _normal(rng, (L, d, hkv * hd), s_d),
-            "wv": _normal(rng, (L, d, hkv * hd), s_d),
-            "wo": _normal(rng, (L, h * hd, d), s_d)}
-    if cfg.qkv_bias:
-        attn.update(bq=np.zeros((L, h * hd), np.float32),
-                    bk=np.zeros((L, hkv * hd), np.float32),
-                    bv=np.zeros((L, hkv * hd), np.float32))
-    if cfg.qk_norm:
-        attn.update(q_norm=np.ones((L, hd), np.float32),
-                    k_norm=np.ones((L, hd), np.float32))
-    mlp = {"wg": _normal(rng, (L, d, ff), s_d),
-           "wu": _normal(rng, (L, d, ff), s_d),
-           "wd": _normal(rng, (L, ff, d), s_ff)}
-    params = {"embed": embed,
-              "blocks": {"ln1": norm(), "attn": attn, "ln2": norm(),
-                         "mlp": mlp},
+    blocks = {"ln1": norm(), "attn": _random_attention(cfg, rng, (L,)),
+              "ln2": norm()}
+    if cfg.moe is not None:
+        m = cfg.moe
+        E, ff = m.num_experts, m.d_ff_expert
+        moe = {"router": _normal(rng, (L, d, E), 1.0 / np.sqrt(d)),
+               **_random_swiglu(rng, (L, E), d, ff)}
+        if m.num_shared_experts:
+            moe["shared"] = _random_swiglu(rng, (L,), d,
+                                           ff * m.num_shared_experts)
+        blocks["moe"] = moe
+    elif cfg.mlp_type in ("swiglu", "geglu"):
+        blocks["mlp"] = _random_swiglu(rng, (L,), d, cfg.d_ff)
+    else:
+        raise ValueError(f"a decoder-only LM with mlp_type "
+                         f"{cfg.mlp_type!r} has no JAX init")
+    params = {"embed": embed, "blocks": blocks,
               "final_norm": {k: v[0] for k, v in norm().items()}}
     if not cfg.tie_embeddings:
         params["head"] = _normal(rng, (d, cfg.vocab_size), 0.02)
     return params
+
+
+def _random_attention(cfg, rng, lead=(), cross=False):
+    """Attention weights [*lead, ...] (layers.py:183-202): wq, wk, wv, wo
+    drawn in that order; biases 0 (none for ``cross``), qk-norm scales 1."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    s_d = 1.0 / np.sqrt(d)
+    p = {"wq": _normal(rng, lead + (d, h * hd), s_d),
+         "wk": _normal(rng, lead + (d, hkv * hd), s_d),
+         "wv": _normal(rng, lead + (d, hkv * hd), s_d),
+         "wo": _normal(rng, lead + (h * hd, d), s_d)}
+    if cfg.qkv_bias and not cross:
+        p.update(bq=np.zeros(lead + (h * hd,), np.float32),
+                 bk=np.zeros(lead + (hkv * hd,), np.float32),
+                 bv=np.zeros(lead + (hkv * hd,), np.float32))
+    if cfg.qk_norm:
+        p.update(q_norm=np.ones(lead + (hd,), np.float32),
+                 k_norm=np.ones(lead + (hd,), np.float32))
+    return p
+
+
+def _random_swiglu(rng, lead, d, ff):
+    """A SwiGLU MLP's wg, wu, wd [*lead, ...], drawn in that order."""
+    return {"wg": _normal(rng, lead + (d, ff), 1.0 / np.sqrt(d)),
+            "wu": _normal(rng, lead + (d, ff), 1.0 / np.sqrt(d)),
+            "wd": _normal(rng, lead + (ff, d), 1.0 / np.sqrt(ff))}
+
+
+def _random_whisper(cfg, rng):
+    """whisper (models/whisper.py:34-63 in JAX), lists of per-layer dicts:
+    ``embed`` [padded vocab, D] normal * 0.02; attention as
+    :func:`_random_attention` (the cross-attention without biases); the
+    GELU MLP's ``wu`` normal / sqrt(d_model), ``wd`` normal / sqrt(d_ff),
+    biases 0; LayerNorm scales 1, biases 0.  Draw order: embed; then layer
+    by layer the encoder's (attention, wu, wd), then the decoder's
+    (self-attention, cross-attention, wu, wd)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    pv = ((cfg.vocab_size + 15) // 16) * 16          # whisper.padded_vocab
+
+    def ln():
+        return {"scale": np.ones((d,), np.float32),
+                "bias": np.zeros((d,), np.float32)}
+
+    def gelu_mlp():
+        return {"wu": _normal(rng, (d, ff), 1.0 / np.sqrt(d)),
+                "bu": np.zeros((ff,), np.float32),
+                "wd": _normal(rng, (ff, d), 1.0 / np.sqrt(ff)),
+                "bd": np.zeros((d,), np.float32)}
+    embed = _normal(rng, (pv, d), 0.02)
+    enc = [{"ln1": ln(), "attn": _random_attention(cfg, rng), "ln2": ln(),
+            "mlp": gelu_mlp()} for _ in range(cfg.num_encoder_layers)]
+    dec = []
+    for _ in range(cfg.num_layers):
+        self_attn = _random_attention(cfg, rng)
+        cross_attn = _random_attention(cfg, rng, cross=True)
+        dec.append({"ln1": ln(), "self_attn": self_attn, "ln_x": ln(),
+                    "cross_attn": cross_attn, "ln2": ln(),
+                    "mlp": gelu_mlp()})
+    return {"embed": embed, "enc_layers": enc, "enc_norm": ln(),
+            "dec_layers": dec, "dec_norm": ln()}
 
 
 def _normal(rng, shape, scale):
@@ -316,7 +386,6 @@ def _random_rglru(cfg, rng):
     or recurrent block (wx, wy, conv_w, gate_a, gate_x, wo), then its MLP
     (wg, wu, wd)."""
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    hd, h, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     lru = cfg.lru_width or d
     bd = lru // 8
     s_d = 1.0 / np.sqrt(d)
@@ -326,10 +395,7 @@ def _random_rglru(cfg, rng):
         p = {"ln1": {"scale": np.ones((d,), np.float32)},
              "ln2": {"scale": np.ones((d,), np.float32)}}
         if cfg.block_pattern[i % len(cfg.block_pattern)] == "local":
-            p["attn"] = {"wq": _normal(rng, (d, h * hd), s_d),
-                         "wk": _normal(rng, (d, hkv * hd), s_d),
-                         "wv": _normal(rng, (d, hkv * hd), s_d),
-                         "wo": _normal(rng, (h * hd, d), s_d)}
+            p["attn"] = _random_attention(cfg, rng)
         else:
             p["rec"] = {
                 "wx": _normal(rng, (d, lru), s_d),
@@ -342,9 +408,7 @@ def _random_rglru(cfg, rng):
                            "b": np.zeros((lru,), np.float32)},
                 "lam": np.linspace(2.2, 6.9, lru).astype(np.float32),
                 "wo": _normal(rng, (lru, d), 1.0 / np.sqrt(lru))}
-        p["mlp"] = {"wg": _normal(rng, (d, ff), s_d),
-                    "wu": _normal(rng, (d, ff), s_d),
-                    "wd": _normal(rng, (ff, d), 1.0 / np.sqrt(ff))}
+        p["mlp"] = _random_swiglu(rng, (), d, ff)
         layers.append(p)
     return {"embed": embed, "layers": layers,
             "final_norm": {"scale": np.ones((d,), np.float32)}}

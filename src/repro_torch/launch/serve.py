@@ -5,13 +5,20 @@ recurrent state, on the CUDA card unless ``--device cpu`` (the port of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --device cpu --smoke --batch 4 --prompt-len 16 --new-tokens 32
 
 Weights are random (``torch.Generator`` seed 0), the prompt is drawn with
-numpy seed 1.  The kernels (flash attention, WKV, RG-LRU) run on the card
-and their plain versions on the CPU; the launcher prints how many times
-each kernel launched in the prefill and in one decode step.
+numpy seed 1.  The audio family (whisper) attends to encoder output
+``enc_out`` [B, 1,500, d_model] drawn in bf16 with numpy seed 2 (JAX's
+launcher draws it with key 2), passed to the prefill and to every decode
+step; the VLM serves text alone, as JAX's launcher does; the MoE family
+runs ``moe_impl="gmm"``.  The kernels (flash attention, WKV, RG-LRU) run
+on the card and their plain versions on the CPU; the launcher prints how
+many times each kernel launched in the prefill and in one decode step.
 """
 from __future__ import annotations
 
@@ -56,8 +63,14 @@ def main(argv=None):
     prefill = make_prefill(bundle)
     step = make_decode_step(bundle)
 
+    kw = {}
+    if cfg.family == "audio":
+        enc = np.random.default_rng(2).standard_normal(
+            (B, cfg.encoder_positions, cfg.d_model), dtype=np.float32)
+        kw["enc_out"] = torch.as_tensor(enc, device=dev).to(torch.bfloat16)
+
     before = launch_counts()
-    logits, state = prefill(params, state, prompt)
+    logits, state = prefill(params, state, prompt, **kw)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     pre = launch_counts(before)
     toks = [tok]
@@ -68,7 +81,7 @@ def main(argv=None):
     for i in range(N - 1):
         pos = torch.full((B, 1), T + i, dtype=torch.long, device=dev)
         before = launch_counts()
-        tok, _, state = step(params, state, tok, pos)
+        tok, _, state = step(params, state, tok, pos, **kw)
         if i == 0:
             dec = launch_counts(before)
         toks.append(tok)

@@ -1,6 +1,6 @@
-"""Shared neural layers of the dense LM and of recurrentgemma's local
-attention (the port of ``repro/models/layers.py``; functional style over
-parameter dicts).
+"""Shared neural layers of the decoder-only LMs (dense, MoE, VLM), of
+whisper and of recurrentgemma's local attention (the port of
+``repro/models/layers.py``; functional style over parameter dicts).
 
 Conventions, as in the JAX package:
   * params are nested dicts of tensors, weights in JAX's ``[in, out]``
@@ -13,8 +13,8 @@ Conventions, as in the JAX package:
 Causal attention over a sequence that starts at position 0 -- a forward
 without a cache with Tq > 1, or a prefill into an empty (contiguous or
 ring) cache -- runs the flash attention kernel (``kernels/flash_attention``);
-decode, Tq > 1 into a non-empty cache and non-causal attention use
-:func:`attention_scores_full`,
+decode, Tq > 1 into a non-empty cache and non-causal attention (whisper's
+encoder and cross-attention) use :func:`attention_scores_full`,
 as JAX does for them (or for a short sequence).  Which one
 runs is decided from shapes and host state (the cache's write offset is a
 Python int), never by a device read.  Attention without a cache is
@@ -35,9 +35,16 @@ and keys a window or more behind.  A write that does not fit between its
 slot and the ring's end raises ``ValueError`` (JAX raises for a prefill
 longer than the ring, and clamps the start of one that would wrap).
 
+The MoE layers (JAX's layers.py:464-556) route in float32 and run the
+experts as plain PyTorch, as JAX leaves them to XLA: :func:`moe_gmm` sorts
+the (token, expert) pairs by expert and runs one ``torch.matmul`` per
+expert over its contiguous rows (``lax.ragged_dot``), skipping empty
+experts; its group sizes come to the host once a call.  Each token's k
+weighted expert outputs are summed in JAX's scatter order (ascending
+expert id), one add at a time in the activations' dtype, never by atomics.
+
 No counterpart here: ``residual_shard``, ``logits_shard`` and ``_cp_shard``
-(mesh constraints; this port runs on one card), and the MoE layers and
-M-RoPE (their slice comes later).
+(mesh constraints; this port runs on one card).
 """
 from __future__ import annotations
 
@@ -133,9 +140,30 @@ def apply_rope(x, cos, sin):
                      dim=-1).to(x.dtype)
 
 
+def mrope_cos_sin(positions3, sections, head_dim: int, theta: float):
+    """M-RoPE (qwen2-vl): positions3 [3, B, T] (t/h/w), ``sections`` split
+    the rotary dims among the three rows (truncated to head_dim // 2).
+    Returns cos/sin [B, T, 1, hd//2].  JAX selects each dim's row by a
+    one-hot einsum; a gather takes the same values exactly."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions3.device) / half)
+    ang = positions3[..., None].float() * freqs            # [3, B, T, half]
+    idx = [i for i, s in enumerate(sections) for _ in range(s)][:half]
+    if len(idx) != half:
+        raise ValueError(f"mrope_sections {sections} cover {len(idx)} of "
+                         f"{half} rotary dims")
+    dims = torch.arange(half, device=ang.device)
+    ang = ang[torch.as_tensor(idx, device=ang.device), :, :, dims]
+    ang = ang.permute(1, 2, 0)                              # [B, T, half]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
 # ------------------------------------------------------------- attention ---
 
-def init_attention(cfg: ModelConfig, gen):
+def init_attention(cfg: ModelConfig, gen, cross: bool = False):
+    """Attention weights; ``cross`` (whisper's cross-attention) has no QKV
+    biases."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     s = 1.0 / math.sqrt(d)
@@ -146,7 +174,7 @@ def init_attention(cfg: ModelConfig, gen):
         "wv": _normal(gen, (d, hkv * hd), s, dt),
         "wo": _normal(gen, (h * hd, d), s, dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h * hd,), dtype=dt)
         p["bk"] = torch.zeros((hkv * hd,), dtype=dt)
         p["bv"] = torch.zeros((hkv * hd,), dtype=dt)
@@ -156,17 +184,19 @@ def init_attention(cfg: ModelConfig, gen):
     return p
 
 
-def _qkv(cfg: ModelConfig, p, x):
+def _qkv(cfg: ModelConfig, p, x, xkv=None):
     hd = cfg.resolved_head_dim
+    xkv = x if xkv is None else xkv
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, T = x.shape[:2]
+    Tk = xkv.shape[1]
     q = q.reshape(B, T, cfg.num_heads, hd)
-    k = k.reshape(B, T, cfg.num_kv_heads, hd)
-    v = v.reshape(B, T, cfg.num_kv_heads, hd)
+    k = k.reshape(B, Tk, cfg.num_kv_heads, hd)
+    v = v.reshape(B, Tk, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
@@ -238,7 +268,8 @@ def _write_ring(cache, k, v, positions):
 
 
 def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
-              cache=None, from_start=False, executor="auto"):
+              cache=None, from_start=False, xkv=None, mrope_pos=None,
+              executor="auto"):
     """Unified attention: forward without a cache, prefill, and decode.
 
     cache: None -> plain forward over x; a layer cache dict
@@ -247,18 +278,25 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     ``idx % len`` (ring) or at ``positions`` (per row) and attend over the
     cache.  ``from_start``: the caller's positions are
     0..T-1 in every row (host knowledge; the forward's default).
+    ``xkv`` [B, Tk, D]: keys and values from it (cross-attention, or
+    whisper's encoder with xkv = x), without the rotary embedding.
+    ``mrope_pos`` [3, B, T]: M-RoPE positions, used when ``cfg.mrope``.
     ``executor`` picks the flash-attention sites' implementation
     (``auto``/``cuda``/``reference``, kernels/flash_attention/ops.py).
     Returns (y [B,T,D], new_cache_or_None).  Without a cache, causal
     attention over Tq > 1 runs the kernel, which covers both of JAX's
     branches (full scores, and ``attention_chunked`` past ``q_chunk``).
     """
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, xkv)
     hd = cfg.resolved_head_dim
 
-    if cfg.use_rope:
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    if xkv is None and cfg.use_rope:
+        if cfg.mrope and mrope_pos is not None:
+            cos, sin = mrope_cos_sin(mrope_pos, cfg.mrope_sections, hd,
+                                     cfg.rope_theta)
+        else:
+            cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+            cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -356,3 +394,104 @@ def mlp(cfg: ModelConfig, p, x):
                 * (x @ p["wu"])) @ p["wd"]
     return F.gelu(x @ p["wu"] + p["bu"], approximate="tanh") @ p["wd"] \
         + p["bd"]
+
+
+# ------------------------------------------------------------------- moe ---
+
+def init_moe(cfg: ModelConfig, gen):
+    """Router (float32 under any model dtype), stacked expert weights
+    [E, ...] and, where the config has them, the shared experts as one
+    wider MLP.  Draw order: router, wg, wu, wd, shared."""
+    m = cfg.moe
+    d, ff, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    dt = _dtype(cfg)
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    p = {
+        "router": _normal(gen, (d, E), s_in, torch.float32),
+        "wg": _normal(gen, (E, d, ff), s_in, dt),
+        "wu": _normal(gen, (E, d, ff), s_in, dt),
+        "wd": _normal(gen, (E, ff, d), s_out, dt),
+    }
+    if m.num_shared_experts:
+        p["shared"] = init_mlp(cfg, gen, d_ff=ff * m.num_shared_experts)
+    return p
+
+
+def moe_router(cfg: ModelConfig, p, xf):
+    """Top-k routing in float32.  xf [N, D] -> (weights [N, k] renormalised
+    over the k, expert ids [N, k] by falling probability, Switch-style
+    load-balance aux loss)."""
+    m = cfg.moe
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)      # [N, E]
+    w, ids = torch.topk(probs, m.top_k, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    E = m.num_experts
+    me = probs.mean(dim=0)                                   # mean prob/expert
+    ce = F.one_hot(ids[:, 0], E).float().mean(dim=0)         # top-1 share
+    aux = E * torch.sum(me * ce) * m.load_balance_coef
+    return w, ids, aux
+
+
+def _swiglu(x, wg, wu, wd, dtype):
+    return (F.silu(x @ wg) * (x @ wu)).to(dtype) @ wd
+
+
+def moe_gmm(cfg: ModelConfig, p, x):
+    """Dropless MoE: the k (token, expert) pairs of every token sorted by
+    expert (a stable sort, as ``jnp.argsort``), each expert's contiguous
+    rows through its SwiGLU by ``torch.matmul`` (JAX's ``lax.ragged_dot``),
+    empty experts skipped.  The group sizes come to the host: one sync a
+    call.  x [B, T, D] -> (y [B, T, D], aux)."""
+    m = cfg.moe
+    B, T, D = x.shape
+    N, k = B * T, m.top_k
+    xf = x.reshape(N, D)
+    w, ids, aux = moe_router(cfg, p, xf)
+
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)                 # [N*k]
+    xs = xf[order // k]                                      # source token
+    # each expert's first row in the sorted order (no device sync until
+    # the one copy to the host)
+    bounds = torch.searchsorted(flat[order], torch.arange(
+        m.num_experts + 1, device=x.device)).tolist()
+    wg, wu, wd = (p[n].unbind(0) for n in ("wg", "wu", "wd"))
+    ys = [_swiglu(xs[a:b], wg[e], wu[e], wd[e], x.dtype)
+          for e, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])) if b > a]
+    y = torch.cat(ys) * w.reshape(-1)[order].to(x.dtype)[:, None]
+
+    # JAX scatters y into zeros of y's dtype (``.at[tok].add``): each
+    # token's k contributions are added in sorted order, i.e. by ascending
+    # expert id, each sum rounded to the dtype.  Gather them back in that
+    # order and add one at a time.
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(N * k, device=x.device)
+    c = y[slot.view(N, k).sort(dim=1).values]                # [N, k, D]
+    out = c[:, 0]
+    for j in range(1, k):
+        out = out + c[:, j]
+
+    if m.num_shared_experts:
+        out = out + mlp(cfg, p["shared"], xf)
+    return out.reshape(B, T, D), aux
+
+
+def moe_dense(cfg: ModelConfig, p, x):
+    """All-experts formulation: every token through every expert, combined
+    by the routing weights (E/k x the operations of :func:`moe_gmm`)."""
+    m = cfg.moe
+    B, T, D = x.shape
+    xf = x.reshape(B * T, D)
+    w, ids, aux = moe_router(cfg, p, xf)
+    mask = F.one_hot(ids, m.num_experts).float()                  # [N,k,E]
+    comb = torch.einsum("nk,nke->ne", w, mask).to(x.dtype)        # [N,E]
+
+    g = torch.einsum("nd,edf->enf", xf, p["wg"])
+    u = torch.einsum("nd,edf->enf", xf, p["wu"])
+    h = (F.silu(g) * u).to(x.dtype)
+    y = torch.einsum("enf,efd->end", h, p["wd"])                  # [E,N,D]
+    out = torch.einsum("end,ne->nd", y, comb)
+
+    if m.num_shared_experts:
+        out = out + mlp(cfg, p["shared"], xf)
+    return out.reshape(B, T, D), aux

@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.rwkv6 import wkv
 from . import layers as L
 from .common import ModelConfig
-from .lm import _stack, _to, _unstack
+from .lm import _stacked, _to, _unstack
 
 HEAD_DIM = 64
 LORA_MIX = 32
@@ -113,8 +113,8 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None):
     params = {"embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
                                  dt),
               "ln0": _ln_params(cfg.d_model),
-              "blocks": _stack([_to(init_block(cfg, gen), dev)
-                                for _ in range(cfg.num_layers)]),
+              "blocks": _stacked(cfg.num_layers,
+                                 lambda: init_block(cfg, gen), dev),
               "ln_out": _ln_params(cfg.d_model),
               "head": L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
                                 dt)}

@@ -210,9 +210,20 @@ def test_build_serves_dense_and_names_the_rest():
     assert params["blocks"]["attn"]["wq"].shape[0] == 2
     st = bundle.init_decode_state(2, 8, device="cpu")
     assert st["k"].dtype == torch.bfloat16 and st["idx"] == 0
-    for arch in ("qwen3-moe-30b-a3b", "qwen2-vl-2b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 9e"):
-            t_build(t_smoke(arch))
+    # every family builds (MoE, VLM and whisper since item 9e's first
+    # part); the MoE's expert-parallel a2a names its multi-card item
+    for arch in ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "qwen2-vl-2b",
+                 "whisper-small"):
+        b = t_build(t_smoke(arch))
+        assert b.state_kwarg == "caches"
+        kw = ({"frame_embeds": torch.zeros((1, 16, 64))}
+              if arch == "whisper-small" else {})
+        b.forward(b.init_params(0, device="cpu"),
+                  torch.zeros((1, 4), dtype=torch.long), **kw)
+    moe = t_build(t_smoke("qwen3-moe-30b-a3b"))
+    with pytest.raises(NotImplementedError, match="item 9e.*multi-card"):
+        moe.forward(moe.init_params(0, device="cpu"),
+                    torch.zeros((1, 4), dtype=torch.long), moe_impl="a2a")
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):     # served since 9c/9d
         assert t_build(t_smoke(arch)).state_kwarg == "states"
 

@@ -305,10 +305,15 @@ def test_unported_options_raise_and_name_their_item():
     with pytest.raises(NotImplementedError, match="9e"):
         make_train_step(bundle, AdamWConfig(), grad_acc_specs={})
     _, ts = _states(*_cfgs("qwen3-0.6b"))
+    # vision_embeds are ported (item 9e's first part): the dense LM takes
+    # them as JAX's lm.forward does, in its first slots
     b = dict(_batches(tcfg.vocab_size, 1)[0],
              vision_embeds=torch.zeros(4, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="9e"):
-        make_train_step(bundle, AdamWConfig())(ts, b)
+    _, m = make_train_step(bundle, AdamWConfig())(ts, b)
+    _, m0 = make_train_step(bundle, AdamWConfig())(
+        ts, _batches(tcfg.vocab_size, 1)[0])
+    assert np.isfinite(float(m["loss"])) and float(m["loss"]) != float(
+        m0["loss"])
     with pytest.raises(NotImplementedError, match="dots"):
         cfg2 = dataclasses.replace(tcfg, remat_save="dots")
         make_train_step(tbuild(cfg2), AdamWConfig())(
