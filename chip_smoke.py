@@ -208,6 +208,28 @@ Phases (each prints a line; any failure exits non-zero):
               remat, 4 steps): finite losses, 16 WKV forward and 8
               backward launches a step, step time, peak memory, a profiled
               step's split.
+24. mesh     — the multi-rank base on one card, a world of one rank over
+              NCCL (``repro_torch.launch.mesh``, ``distributed/``).  (a)
+              run after phase 11: ``make_host_mesh(model=1)``, a (1, 1)
+              ``("data", "model")`` mesh; ``chunked_psum`` through
+              ``shard_map`` equal to its input; ``compressed_grad_tree``
+              over qwen3-0.6b's leaf shapes (float32, seeded) on the card
+              bit-equal to the same call on the CPU; (c) phase 11's two
+              float32 steps again with the state placed by
+              ``shardings(mesh, param_specs(...))`` and ``grad_acc_specs =
+              zero_specs(...)``: every metric and final weight bit-equal
+              to phase 11's run; (b) inside phase 23, on 23a's
+              qwen3-moe-30b-a3b weights: the prefill with
+              ``moe_impl="a2a"`` at ample capacity (factor E / k, nothing
+              dropped; B 1 x T 2,048) against the gmm prefill (the a2a
+              routed as gmm's; its own differing expert sets each at a
+              near tie; logits within ``SERVE_BF16_TOL``), then at the
+              production factor 1.25 on 23a's 8 x 2,048 prompt: time
+              beside 23a's gmm prefill, each layer's dropped share, kernel
+              2 launched 48 times (all wgmma), finite logits, peak memory;
+              one all-to-all against a copy of its bytes; the a2a prefill
+              profiled (device time by kernel group, idle share; 23b
+              profiles gmm's).
 23. families — run last: the MoE, VLM and audio families at full width
               and depth in bf16, weights drawn on the card.  (a)
               ``serve.generate`` of qwen3-moe-30b-a3b (8 x 2,048 + 32,
@@ -221,7 +243,9 @@ Phases (each prints a line; any failure exits non-zero):
               kernel against the plain version (the MoE's plain run routed
               as the kernel's, its own differing expert sets counted, each
               at a near tie), and the MoE's decode through moe_dense
-              against moe_gmm; (c) run beside 17b's child, after phase 15:
+              against moe_gmm; the MoE's prefill profiled (device time by
+              kernel group, idle share); (c) run beside 17b's child, after
+              phase 15:
               the three float32 goldens (``tests/torch_goldens/lm_qwen3_
               moe_30b_a3b.json`` at 2 of 48 layers, ``lm_qwen2_vl_2b.json``,
               ``lm_whisper_small.json``; JAX on the CPU), teacher-forced,
@@ -229,15 +253,15 @@ Phases (each prints a line; any failure exits non-zero):
               width 64 (B 8 x T 64 and 2,048, 12 heads) against its bound,
               the plain version and SDPA.
 
-The order: 1-6, 17, 18, 20, 21, 7, then the float32 goldens 8, 11, 15
-and 23c beside 17b's child (joined after them), then 9, 10, 12, 13, 14,
-16, 19, 22 and 23 (a, b, d).
+The order: 1-6, 17, 18, 20, 21, 7, then the float32 goldens 8, 11, 24
+(a, c), 15 and 23c beside 17b's child (joined after them), then 9, 10,
+12, 13, 14, 16, 19, 22 and 23 (a, b, 24b, d).
 
-Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c, 22c and
-23a drive the main paths: each kernel's launch count is set to 0 just before
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c, 22c, 23a
+and 24b drive the main paths: each kernel's launch count is set to 0 just before
 and read just after; every attention launch there must take the bf16 (wgmma) route.  The
 float32 (FMA) attention kernels' launches are counted over the float32 goldens' entry points
-(phases 8, 11, 15, 19c and 23c).  The last two lines are the kernel summary and
+(phases 8, 11, 24c, 15, 19c and 23c).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
 
@@ -264,10 +288,16 @@ runs phases 1-2 and 22 only, and prints neither;
 
     python3 chip_smoke.py --families
 
-runs phases 1-2 and 23 only, and prints neither.
+runs phases 1-2 and 23 only, and prints neither;
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1-2, 11 and 24 (with 23a-b of the MoE, whose weights 24b
+reads) only, and prints neither.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -2799,11 +2829,15 @@ def attention_layers(cfg) -> int:
 
 
 def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
-                       tag="[11 train golden]", tol=TRAIN_TOL):
-    """[11 train golden] (and 19c, 22b) two float32 train steps vs JAX's,
-    from the golden's weights ``tree`` (its ``num_layers`` cut applied),
-    held to ``tol`` (TRAIN_TOL's keys).  Every reading is printed before
-    the first one out of its tolerance fails the phase."""
+                       tag="[11 train golden]", tol=TRAIN_TOL, mesh=None):
+    """[11 train golden] (and 19c, 22b, 24c) two float32 train steps vs
+    JAX's, from the golden's weights ``tree`` (its ``num_layers`` cut
+    applied), held to ``tol`` (TRAIN_TOL's keys).  Every reading is
+    printed before the first one out of its tolerance fails the phase.
+    With ``mesh`` (24c) the state is placed on it by ``shardings(mesh,
+    param_specs(...))`` and the step is given ``grad_acc_specs =
+    zero_specs(...)``.  Returns the steps' metrics and the final weights
+    (on the card)."""
     import dataclasses
 
     import numpy as np
@@ -2863,11 +2897,26 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
 
     state = TrainState(params=params, opt=adamw_init(params),
                        step=torch.zeros((), dtype=torch.int32, device=dev))
+    acc_specs = None
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+        from repro_torch.train import place_state
+
+        state = place_state(state, mesh)
+        acc_specs = sharding.zero_specs(sharding.param_specs(
+            params, model_divisor=sharding.mesh_shape(mesh)["model"]),
+            params, mesh)
     step = make_train_step(bundle, AdamWConfig(**gold["opt"]),
-                           executor="cuda")
+                           executor="cuda", grad_acc_specs=acc_specs)
     m_err = {}
+    readings = []
     for i, want in enumerate(gold["steps"]):
-        state, m = step(state, batch)
+        if mesh is None:
+            state, m = step(state, batch)
+        else:
+            with sharding.set_mesh(mesh):
+                state, m = step(state, batch)
+        readings.append({k: float(v) for k, v in m.items()})
         for k, t in (("loss", tol["loss"]), ("ce", tol["loss"]),
                      ("grad_norm", tol["gnorm"] if i == 0 else
                       tol["gnorm_later"]), ("lr", tol["lr"])):
@@ -2879,6 +2928,8 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
     lr = gold["opt"]["lr"]
     w_err, w_worst = 0.0, None
     n_sure = n_all = 0
+    if mesh is not None:
+        state = state._replace(params=sharding.gather_full(state.params))
     for (path, idx), g1, want in zip(gold["check_leaves"],
                                      gold["grad_slices"],
                                      gold["param_slices_after_2"]):
@@ -2911,10 +2962,12 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
           f"(tol {tol['w']}); flash launches fwd "
           f"{flash_attention_bhtd.launches - fa0}, bwd "
           f"{flash_attention_bwd_bhtd.launches - bw0}", flush=True)
+    final = state.params
     del state, params, batch
     torch.cuda.empty_cache()
     check(not bad, f"{tag} {len(bad)} reading(s) out of tolerance: "
           + "; ".join(bad))
+    return {"metrics": readings, "final": final}
 
 
 def phase_train(dev) -> dict:
@@ -3048,48 +3101,34 @@ STEP_GROUPS = (("flash forward (kernel 2)", ("flash_fwd",)),
                ("copies", ("Memcpy", "Memset")))
 
 
-def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
-                       steps=TRAIN_STEPS, tag="[12 train]"):
-    """One more B x T step from ``state`` under ``torch.profiler`` (CPU and
-    CUDA activity): device time by kernel group, the card's busy time (the
-    union of its kernels' intervals) and its idle share of the step's host
-    wall.  Prints "not measured" when the trace holds no device events."""
+def profile_split(fn, groups, other):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity), ended by
+    a sync: (host wall ms, device events, card busy ms (the union of its
+    kernels' intervals), device ms by group of ``groups`` (name, kernel
+    name keys) and ``other``, the largest ``other`` kernels), or None when
+    the trace holds no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train import make_train_step
-
-    gen = torch.Generator().manual_seed(13)
-    toks = torch.randint(0, bundle.cfg.vocab_size, (B, T + 1),
-                         generator=gen, dtype=torch.int32).to(dev)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
-                                               total_steps=steps))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, m = step(state, batch)
-        float(m["loss"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"{tag} profiled step: {wall_ms:.1f} ms host wall; the "
-              f"trace holds no device events: breakdown and idle share "
-              f"not measured", flush=True)
-        return None
-    other = "other (elementwise, reductions, optimizer)"
-    by = {name: 0.0 for name, _ in STEP_GROUPS}
+        return wall_ms, None
+    by = {name: 0.0 for name, _ in groups}
     by[other] = 0.0
     others = {}
     spans = []
     for e in kernels:
         dur = (e.time_range.end - e.time_range.start) / 1e3
         spans.append((e.time_range.start, e.time_range.end))
-        group = next((g for g, keys in STEP_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in e.name for k in keys)), other)
         by[group] += dur
         if group == other:
@@ -3103,12 +3142,40 @@ def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
         elif b > end:
             busy += b - end
             end = b
-    busy_ms = busy / 1e3
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    return wall_ms, (len(kernels), busy / 1e3, by, top)
+
+
+def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
+                       steps=TRAIN_STEPS, tag="[12 train]"):
+    """One more B x T step from ``state`` under ``torch.profiler`` (CPU and
+    CUDA activity): device time by kernel group, the card's busy time (the
+    union of its kernels' intervals) and its idle share of the step's host
+    wall.  Prints "not measured" when the trace holds no device events."""
+    import torch
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    gen = torch.Generator().manual_seed(13)
+    toks = torch.randint(0, bundle.cfg.vocab_size, (B, T + 1),
+                         generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
+                                               total_steps=steps))
+    other = "other (elementwise, reductions, optimizer)"
+    wall_ms, split = profile_split(
+        lambda: float(step(state, batch)[1]["loss"]), STEP_GROUPS, other)
+    if split is None:
+        print(f"{tag} profiled step: {wall_ms:.1f} ms host wall; the "
+              f"trace holds no device events: breakdown and idle share "
+              f"not measured", flush=True)
+        return None
+    n, busy_ms, by, top = split
     idle = max(0.0, 1.0 - busy_ms / wall_ms)
     parts = "; ".join(f"{g} {ms:.1f} ms" for g, ms in by.items())
-    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     print(f"{tag} profiled step ({B} x {T}, torch.profiler "
-          f"CPU+CUDA): host wall {wall_ms:.1f} ms, {len(kernels)} device "
+          f"CPU+CUDA): host wall {wall_ms:.1f} ms, {n} device "
           f"events, card busy {busy_ms:.1f} ms, idle {idle:.3f} of the "
           f"wall; device time by group: {parts}; largest other kernels: "
           f"{[(n, round(ms, 1)) for n, ms in top]}", flush=True)
@@ -5113,11 +5180,11 @@ def decode_profile(step, params, state, tok, pos, **extra):
     return out, n_ops, syncs
 
 
-def phase_family_serve(dev, arch) -> dict:
+def phase_family_serve(dev, arch, mesh=None) -> dict:
     """[23 families] (a) a model at full width and depth in bf16 through
     ``serve.generate``; (b) its prefill through the kernel against the
     plain version (and, for the MoE, moe_dense against moe_gmm at
-    decode)."""
+    decode); for the MoE with ``mesh``, phase 24b on the same weights."""
     import numpy as np
     import torch
 
@@ -5279,12 +5346,19 @@ def phase_family_serve(dev, arch) -> dict:
     print(f"[23 families] (b) {arch}: prefill logits kernel vs plain max "
           f"|err| {err:.4g} of max |logit| {scale:.4g} (tol "
           f"{SERVE_BF16_TOL}){flipped}", flush=True)
+    a2a = None
+    if cfg.moe is not None:
+        profile_prefill(dev, bundle, params, prompt, "gmm",
+                        "[23 families] (b)")
+    if mesh is not None and cfg.moe is not None:
+        a2a = phase_mesh_moe(dev, bundle, params, prompt, mesh,
+                             pre_ms["cuda"], gen_peak)
     del params
     torch.cuda.empty_cache()
     return {"launches": gen_launches, "prefill_ms": pre_ms["cuda"],
             "plain_prefill_ms": pre_ms["reference"], "decode_ms": step_ms,
             "peak": gen_peak, "max_abs_err": err, "eager_calls": n_ops,
-            "syncs": syncs}
+            "syncs": syncs, "a2a": a2a}
 
 
 def start_family_draws():
@@ -5488,13 +5562,26 @@ def phase_flash64(dev) -> dict:
     return out
 
 
-def phase_families(dev) -> dict:
-    """Phase 23 (a, b, d): the three families served at full width."""
+def phase_families(dev, mesh=None) -> dict:
+    """Phase 23 (a, b, d): the three families served at full width (and
+    with ``mesh``, phase 24b on the MoE's weights, timed apart)."""
     t_phase = time.perf_counter()
-    res = {arch: phase_family_serve(dev, arch) for arch in FAMILY_SERVE}
+    res = {arch: phase_family_serve(dev, arch, mesh) for arch in
+           FAMILY_SERVE}
     res["hd64"] = phase_flash64(dev)
-    res["phase_s"] = time.perf_counter() - t_phase
+    a2a = res["qwen3-moe-30b-a3b"]["a2a"]
+    res["phase_s"] = time.perf_counter() - t_phase - (
+        a2a["phase_s"] if a2a else 0.0)
     return res
+
+
+def mesh_budget(*parts):
+    took = sum(parts)
+    print(f"[24 mesh] phase time {took:.1f} s ("
+          + ", ".join(f"{n} {t:.1f} s" for n, t in zip("acb", parts))
+          + f"; budget {MESH_BUDGET_S:.0f} s"
+          + ("" if took <= MESH_BUDGET_S else ", over it") + ")", flush=True)
+    return took
 
 
 def family_budget(serve_s, golden_s):
@@ -5503,6 +5590,415 @@ def family_budget(serve_s, golden_s):
           f"c {golden_s:.1f} s; budget {FAMILY_BUDGET_S:.0f} s"
           f"{'' if took <= FAMILY_BUDGET_S else ', over it'})", flush=True)
     return took
+
+
+# 24: the multi-rank base on one card, a world of one rank over NCCL.
+# (a) chunked_psum through shard_map on a [4,096, 1,024] float32 input; the
+# int8 compression over qwen3-0.6b's leaf shapes (float32, drawn on the card
+# with seed 0, scaled to a gradient's size), card against CPU.
+MESH_PSUM_SHAPE = (4096, 1024)
+MESH_INT8_ARCH = "qwen3-0.6b"
+MESH_INT8_SCALE = 1e-3
+# (b) qwen3-moe-30b-a3b's a2a prefill on phase 23a's weights: at ample
+# capacity (factor E / k, so C = N and nothing drops) at B 1 x T 2,048
+# against the gmm prefill; at the production factor on 23a's 8 x 2,048
+# prompt.
+A2A_AMPLE_B = 1
+A2A_FACTOR = 1.25
+# a2a and gmm prefills timed in turn at the production factor, this many
+# of each (medians and spread reported).
+A2A_TIMED = 3
+# (c) the launcher's step with the state plain and placed, this many
+# timed steps of each after one untimed.
+MESH_STEP_TIMED = 3
+# The phase's budget (s), on the host of PR 25's run B.
+MESH_BUDGET_S = 40
+# 24b's profiled prefills: device time by kernel group.
+MOE_GROUPS = (("flash forward (kernel 2)", ("flash_fwd",)),
+              ("matrix products", ("gemm", "gemv", "cutlass", "xmma",
+                                   "cublas", "nvjet", "sm90_", "sm80_")),
+              ("all-to-all (NCCL)", ("nccl",)),
+              ("index, scatter, gather", ("index", "scatter", "gather")),
+              ("scans, sorts", ("scan", "Scan", "sort", "Sort", "cumsum")),
+              ("copies", ("Memcpy", "Memset", "copy")))
+
+
+def bit_equal(a, b) -> bool:
+    """Same dtype, shape and bits (float32 compared as int32)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def phase_mesh_world(dev) -> dict:
+    """[24 mesh] (a) the host mesh of a world of one rank over NCCL on the
+    card, chunked_psum through shard_map, and compressed_grad_tree on the
+    card against the same call on the CPU, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build as build_model
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(model=1, device=dev)
+    backend = str(dist.get_backend())
+    init_s = time.perf_counter() - t_phase
+    check(backend == "nccl", f"the card's world runs {backend!r}, not nccl")
+    shape = sharding.mesh_shape(mesh)
+    check(shape == {"data": 1, "model": 1}, f"host mesh {shape}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(MESH_PSUM_SHAPE, generator=gen, device=dev)
+    y = sharding.shard_map(
+        lambda v: collectives.chunked_psum(v, ("data", "model"), 4),
+        mesh=mesh, in_specs=sharding.P(), out_specs=sharding.P())(x)
+    check(bit_equal(x, y), "chunked_psum on a world of one changed its input")
+    shapes = build_model(get_config(MESH_INT8_ARCH)).init_params(
+        0, device="meta")
+    grads = tree_map(lambda m: torch.randn(
+        m.shape, generator=gen, device=dev) * MESH_INT8_SCALE, shapes)
+    n = sum(g.numel() for g in leaves(grads))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = collectives.compressed_grad_tree(grads)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    host = tree_map(lambda g: g.cpu(), grads)
+    del grads
+    t0 = time.perf_counter()
+    cpu = collectives.compressed_grad_tree(host)
+    cpu_s = time.perf_counter() - t0
+    bad = [f"{name} {path}"
+           for name, a, b in zip(("q", "scale", "error"), card, cpu)
+           for (path, u), (_, v) in zip(leaves_with_paths(a),
+                                        leaves_with_paths(b))
+           if not bit_equal(u, v)]
+    check(not bad, f"[24 mesh] int8 card != CPU at {len(bad)} leaves: "
+                   f"{bad[:6]}")
+    q_bytes = sum(q.numel() for q in leaves(card[0]))
+    del card, cpu, host
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"[24 mesh] (a) make_host_mesh(model=1) on the card: "
+          f"{dict(shape)}, backend {backend}, started in {init_s:.1f} s; "
+          f"chunked_psum of {list(MESH_PSUM_SHAPE)} float32 over (data, "
+          f"model) in 4 chunks == its input bit for bit; "
+          f"compressed_grad_tree over {MESH_INT8_ARCH}'s "
+          f"{len(leaves(shapes))} leaf shapes ({n} float32 values, scale "
+          f"{MESH_INT8_SCALE}): q ({q_bytes} B int8, 4x fewer than "
+          f"float32), scales and errors on the card == on the CPU bit for "
+          f"bit (card {card_ms:.1f} ms, CPU {cpu_s:.1f} s beside 17b's "
+          f"child); {took:.1f} s", flush=True)
+    return {"mesh": mesh, "phase_s": took}
+
+
+def phase_mesh_train(dev, tree, mesh, p11, count_fma) -> float:
+    """[24 mesh] (c) phase 11's two float32 steps again with the state
+    placed on the 1 x 1 mesh and grad_acc_specs = zero_specs: every metric
+    and every final weight bit-equal to phase 11's run without a mesh."""
+    from repro_torch.tree import leaves_with_paths
+
+    t0 = time.perf_counter()
+    got = count_fma(phase_train_golden, dev, tree, "train_qwen3_0_6b.json",
+                    "[24 mesh] (c)", TRAIN_TOL, mesh)
+    bad = [f"step {i + 1} {k}" for i, (a, b) in
+           enumerate(zip(got["metrics"], p11["metrics"])) for k in a
+           if a[k] != b[k]]
+    pairs = list(zip(leaves_with_paths(got["final"]),
+                     leaves_with_paths(p11["final"])))
+    bad += [path for (path, a), (_, b) in pairs if not bit_equal(a, b)]
+    took = time.perf_counter() - t0
+    check(not bad, f"[24 mesh] (c) the mesh's steps differ from phase 11's "
+                   f"at {bad[:6]}")
+    print(f"[24 mesh] (c) two float32 steps with the state placed on the "
+          f"1 x 1 mesh (params and moments by shardings(param_specs), "
+          f"grad_acc_specs = zero_specs): loss, ce, grad norm, lr of both "
+          f"steps and all {len(pairs)} final weight leaves bit-equal to "
+          f"phase 11's run without a mesh; {took:.1f} s", flush=True)
+    return took + phase_mesh_launcher_step(dev, mesh)
+
+
+def phase_mesh_launcher_step(dev, mesh) -> float:
+    """[24 mesh] (c) what placing the state costs the one-card launcher:
+    qwen3-0.6b train steps (bf16, full width, the launcher's README shape
+    TRAIN_B x TRAIN_T) from one state, plain (no mesh: the trainer's) and
+    placed on the 1 x 1 mesh by ``place_state`` (the launcher's), timed in
+    turn after one untimed step each, whose metrics must be bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   place_state)
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    bundle = build_model(cfg)
+    plain = init_train_state(bundle, 0, device=dev)
+    with sharding.set_mesh(mesh):
+        placed = place_state(plain, mesh)
+    step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
+                                               total_steps=20),
+                           executor="cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                         generator=g, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    states = {"plain": plain, "placed": placed}
+    times = {name: [] for name in states}
+    first = {}
+    for i in range(MESH_STEP_TIMED + 1):
+        for name, st in states.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (sharding.set_mesh(mesh) if name == "placed"
+                  else contextlib.nullcontext()):
+                _, m = step(st, batch)
+            m = {k: float(v) for k, v in m.items()}       # reads back
+            ms = (time.perf_counter() - t) * 1e3
+            if i == 0:
+                first[name] = m
+            else:
+                times[name].append(ms)
+    del states, plain, placed, batch, toks
+    torch.cuda.empty_cache()
+    check(first["plain"] == first["placed"],
+          f"[24 mesh] (c) the placed state's first step differs: "
+          f"{first['placed']} vs {first['plain']}")
+    med = {name: statistics.median(t) for name, t in times.items()}
+    took = time.perf_counter() - t0
+    print(f"[24 mesh] (c) the launcher's step, qwen3-0.6b bf16 at {TRAIN_B} "
+          f"x {TRAIN_T} from one state, in turn (host wall to the metrics "
+          f"read back): plain median {med['plain']:.1f} ms (each "
+          f"{[round(x, 1) for x in times['plain']]}), placed on the 1 x 1 "
+          f"mesh median {med['placed']:.1f} ms (each "
+          f"{[round(x, 1) for x in times['placed']]}): placed / plain "
+          f"{med['placed'] / med['plain']:.4f}; first steps' loss, ce, aux, "
+          f"grad norm and lr bit-equal; {took:.1f} s", flush=True)
+    return took
+
+
+class A2ACapacity:
+    """While entered, ``moe_impl="a2a"`` runs at capacity ``factor`` (the
+    model calls ``moe_a2a`` with its default 1.25, as JAX's does)."""
+
+    def __init__(self, factor):
+        self.factor = factor
+
+    def __enter__(self):
+        import functools
+
+        from repro_torch.distributed import moe_a2a as A
+
+        self._orig = A.moe_a2a
+        A.moe_a2a = functools.partial(self._orig,
+                                      capacity_factor=self.factor)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import moe_a2a as A
+
+        A.moe_a2a = self._orig
+
+
+class IdLog:
+    """While entered, keeps every MoE router call's expert ids [N, k]."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as TL
+
+        self.calls, self._orig = [], TL.moe_router
+
+        def rec(cfg, p, xf):
+            w, ids, aux = self._orig(cfg, p, xf)
+            self.calls.append(ids)
+            return w, ids, aux
+        TL.moe_router = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as TL
+
+        TL.moe_router = self._orig
+
+
+def profile_prefill(dev, bundle, params, prompt, moe_impl, tag):
+    """One more bf16 prefill of ``prompt`` under ``torch.profiler``: host
+    wall, the card's busy time and idle share, device time by
+    ``MOE_GROUPS``."""
+    from repro_torch.serve import make_prefill
+
+    B, T = prompt.shape
+    state = bundle.init_decode_state(B, T, device=dev)
+    run = make_prefill(bundle, moe_impl=moe_impl, executor="cuda")
+    wall, split = profile_split(lambda: run(params, state, prompt),
+                                MOE_GROUPS, "other")
+    del state
+    if split is None:
+        print(f"{tag} profiled {moe_impl} prefill: {wall:.1f} ms host wall; "
+              f"no device events: split not measured", flush=True)
+        return
+    n, busy, by, top = split
+    print(f"{tag} profiled {moe_impl} prefill (torch.profiler CPU+CUDA, B "
+          f"{B} x T {T}): host wall {wall:.1f} ms, {n} device events, card "
+          f"busy {busy:.1f} ms, idle {max(0.0, 1 - busy / wall):.3f} of the "
+          f"wall; device time by group: "
+          + "; ".join(f"{g} {ms:.1f} ms" for g, ms in by.items())
+          + f"; largest other kernels: "
+          f"{[(k_, round(ms, 1)) for k_, ms in top]}", flush=True)
+
+
+def phase_mesh_moe(dev, bundle, params, prompt, mesh, gmm_ms,
+                   gmm_peak) -> dict:
+    """[24 mesh] (b) qwen3-moe-30b-a3b's prefill through ``moe_a2a`` on
+    the 1 x 1 mesh, on phase 23a's weights: at ample capacity against the
+    gmm prefill (the a2a routed as gmm's, its own differing expert sets
+    each at a near tie); at the production factor on the 8 x 2,048 prompt:
+    the a2a and gmm prefills timed in turn, each layer's dropped share,
+    launches, peak."""
+    import torch
+
+    from repro_torch.distributed import moe_a2a as A
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention import flash_attention_bhtd
+    from repro_torch.serve import make_prefill
+
+    t_phase = time.perf_counter()
+    cfg = bundle.cfg
+    E, k, D = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    B, T = prompt.shape
+    ample = E / k
+    logits, logs = {}, {}
+    with sharding.set_mesh(mesh), A2ACapacity(ample):
+        for impl in ("gmm", "a2a"):
+            state = bundle.init_decode_state(A2A_AMPLE_B, T, device=dev)
+            prefill = make_prefill(bundle, moe_impl=impl, executor="cuda")
+            with RouterLog(replay=logs.get("gmm")) as log:
+                logits[impl], _ = prefill(params, state,
+                                          prompt[:A2A_AMPLE_B])
+            logs[impl] = log
+            del state
+    n_ample = A2A_AMPLE_B * T
+    c_ample = A.capacity(n_ample, k, E, ample)
+    dropped_ample = sum(int((~A.dispatch_slots(ids, E, c_ample)[1]).sum())
+                        for _, _, ids in logs["a2a"].calls)
+    a = logits["a2a"][:, -1].float()
+    b = logits["gmm"][:, -1].float()
+    check(bool(torch.isfinite(a).all()), "a2a prefill: non-finite logits")
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max()) / scale
+    flips, ratio = routing_flips(logs["a2a"], logs["gmm"], k)
+    del logs, logits
+    check(dropped_ample == 0 and c_ample == n_ample,
+          f"ample capacity {c_ample} for {n_ample} tokens dropped "
+          f"{dropped_ample} pairs")
+    check(ratio <= 1.0, f"a2a vs gmm: an expert set differs at a top-k "
+                        f"margin {ratio:.3g} x twice the runs' probability "
+                        f"difference (not a near tie)")
+    check(err <= SERVE_BF16_TOL, f"a2a vs gmm prefill logits max |err| "
+                                 f"{err:.4g} of max |logit| > "
+                                 f"{SERVE_BF16_TOL}")
+
+    state = bundle.init_decode_state(B, T, device=dev)
+    prefill = make_prefill(bundle, moe_impl="a2a", executor="cuda")
+    reset_attention_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    t0 = time.perf_counter()
+    with sharding.set_mesh(mesh), IdLog() as ids:
+        lg, _ = prefill(params, state, prompt)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    launches = flash_attention_bhtd.launches
+    check_bf16_route("a2a prefill")
+    peak = torch.cuda.max_memory_allocated()
+    # a2a and gmm prefills timed in turn, A2A_TIMED of each
+    runs = {"a2a": prefill,
+            "gmm": make_prefill(bundle, moe_impl="gmm", executor="cuda")}
+    times = {impl: [] for impl in runs}
+    for _ in range(A2A_TIMED):
+        for impl, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sharding.set_mesh(mesh):
+                run(params, state, prompt)
+            torch.cuda.synchronize()
+            times[impl].append((time.perf_counter() - t0) * 1e3)
+    a2a_ms, gmm_med = (statistics.median(times[i]) for i in ("a2a", "gmm"))
+    lo = min(times["a2a"]) / max(times["gmm"])
+    hi = max(times["a2a"]) / min(times["gmm"])
+    del state
+    check(bool(torch.isfinite(lg.float()).all()),
+          "a2a prefill at the production factor: non-finite logits")
+    check(launches == cfg.num_layers,
+          f"the a2a prefill launched kernel 2 {launches} times, not "
+          f"{cfg.num_layers}")
+    check(len(ids.calls) == cfg.num_layers, "a router call a layer")
+    C = A.capacity(B * T, k, E, A2A_FACTOR)
+    drops = [float((~A.dispatch_slots(i, E, C)[1]).float().mean())
+             for i in ids.calls]
+    del ids, lg
+    send = E * (C + 1) * D * 2
+    # where the time goes: one dispatch all-to-all of a layer's [E, C, D]
+    # buffer over the model axis (NCCL, a world of one) against a copy of
+    # the same bytes
+    buf = torch.zeros((E, C, D), dtype=torch.bfloat16, device=dev)
+    a2a_one = sharding.shard_map(
+        lambda v: sharding.all_to_all(v, "model", 0, 1), mesh=mesh,
+        in_specs=sharding.P(), out_specs=sharding.P())
+    a2a_one_ms = time_cuda(lambda: a2a_one(buf), 3)
+    copy_ms = time_cuda(lambda: buf.clone(), 3)
+    del buf
+    # and the prefill profiled (23b profiles gmm's)
+    with sharding.set_mesh(mesh):
+        profile_prefill(dev, bundle, params, prompt, "a2a", "[24 mesh] (b)")
+    took = time.perf_counter() - t_phase
+    print(f"[24 mesh] (b) {cfg.name} on the 1 x 1 mesh, moe_impl a2a: "
+          f"ample capacity (factor {ample:g}: C {c_ample} = N, 0 pairs "
+          f"dropped) at B {A2A_AMPLE_B} x T {T} vs the gmm prefill: last "
+          f"logits max |err| {err:.4g} of max |logit| {scale:.4g} (tol "
+          f"{SERVE_BF16_TOL}); routed as gmm's, its own expert sets differ "
+          f"at {flips} of {n_ample * cfg.num_layers} (token, layer), each "
+          f"at a near tie (margin at most {ratio:.3g} x twice the runs' "
+          f"probability difference)", flush=True)
+    print(f"[24 mesh] (b) production factor {A2A_FACTOR} at B {B} x T {T} "
+          f"(C {C} slots an expert; send buffer [{E}, {C + 1}, {D}] bf16 = {send} "
+          f"B): prefills in turn, {A2A_TIMED} each (host wall, synchronized): "
+          f"a2a median {a2a_ms:.1f} ms (each "
+          f"{[round(x, 1) for x in times['a2a']]}), gmm median {gmm_med:.1f} "
+          f"ms (each {[round(x, 1) for x in times['gmm']]}); a2a / gmm "
+          f"{a2a_ms / gmm_med:.3f} of the medians, {lo:.3f}-{hi:.3f} over "
+          f"the runs, at a mean dropped share of "
+          f"{statistics.mean(drops):.4f} (a different answer from gmm's); "
+          f"the first, counted a2a prefill {first_ms:.1f} ms, 23a's timed "
+          f"gmm prefill {gmm_ms:.1f} ms; {launches} kernel 2 "
+          f"launches (all wgmma), logits finite, peak {peak} B (gmm "
+          f"generate {gmm_peak} B; PR 25 run B 67.1 GB); dropped (token, "
+          f"expert) share by layer: "
+          + " ".join(f"{d:.4f}" for d in drops)
+          + f" (mean {statistics.mean(drops):.4f}, max {max(drops):.4f}); "
+          f"one all-to-all of a layer's [{E}, {C}, {D}] bf16 buffer "
+          f"{a2a_one_ms:.3f} ms (CUDA events, median of 3; a copy of its "
+          f"bytes {copy_ms:.3f} ms), two a layer: "
+          f"{2 * cfg.num_layers * a2a_one_ms:.1f} ms of the prefill; "
+          f"{retries} allocator retries in the timed prefill; "
+          f"{took:.1f} s", flush=True)
+    return {"launches": launches, "prefill_ms": a2a_ms, "gmm_ms": gmm_med,
+            "times": times,
+            "max_abs_err": err, "peak": peak, "drops": drops,
+            "a2a_ms": a2a_one_ms, "copy_ms": copy_ms, "phase_s": took}
 
 
 def main() -> int:
@@ -5521,21 +6017,26 @@ def main() -> int:
                      recurrent_only="--recurrent-train" in sys.argv,
                      fleet_only="--fleet" in sys.argv,
                      rwkv6_only="--rwkv6-train" in sys.argv,
-                     families_only="--families" in sys.argv)
+                     families_only="--families" in sys.argv,
+                     mesh_only="--mesh" in sys.argv)
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        if "repro_torch.launch.mesh" in sys.modules:
+            sys.modules["repro_torch.launch.mesh"].close_world()
 
 
 def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
-          fleet_only=False, rwkv6_only=False, families_only=False) -> int:
+          fleet_only=False, rwkv6_only=False, families_only=False,
+          mesh_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
     and 19; with ``fleet_only``, phases 1-3, 20 and 21; with
     ``rwkv6_only``, phases 1-2 and 22; with ``families_only``, phases 1-2
-    and 23), on the CUDA device ``dev``."""
+    and 23; with ``mesh_only``, phases 1-2, 11 and 24, with 23a-b for the
+    MoE), on the CUDA device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -5662,6 +6163,20 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         phase_rwkv6_train(dev)
         lap("phase 22")
         print("chip_smoke: rwkv6 train phases (1-2, 22) passed")
+        return 0
+    if mesh_only:
+        tree = random_qwen3_params()
+        p11 = phase_train_golden(dev, tree)
+        lap("phase 11")
+        world = phase_mesh_world(dev)
+        c_s = phase_mesh_train(dev, tree, world["mesh"], p11,
+                               lambda phase, *a: phase(*a))
+        del tree, p11
+        moe = phase_family_serve(dev, "qwen3-moe-30b-a3b", world["mesh"])
+        mesh_budget(world["phase_s"], c_s, moe["a2a"]["phase_s"])
+        lap("phase 24")
+        print("chip_smoke: mesh phases (1-2, 11, 24 with 23a-b of the MoE) "
+              "passed")
         return 0
     if families_only:
         draws = start_family_draws()
@@ -5972,8 +6487,13 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
 
     count_fma(phase_lm_golden, dev, tree)
     lap("phase 8")
-    count_fma(phase_train_golden, dev, tree)
+    p11 = count_fma(phase_train_golden, dev, tree)
     lap("phase 11")
+    # 24 (a, c): a world of one rank over NCCL; phase 11 again on its mesh
+    world = phase_mesh_world(dev)
+    mesh_c_s = phase_mesh_train(dev, tree, world["mesh"], p11, count_fma)
+    del p11
+    lap("phase 24a, c")
     # phase 22's float32 golden takes phase 15's rwkv6-7b weights where
     # their seed and cut agree (4 of 32 layers, seed 0): drawn once
     rwkv6_drawn = None
@@ -6012,10 +6532,12 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     wtrain = phase_rwkv6_train(dev, rwkv6_drawn)
     del rwkv6_drawn
     lap("phase 22")
-    fams = phase_families(dev)
+    fams = phase_families(dev, world["mesh"])
     family_budget(fams["phase_s"], golden_s)
+    a2a = fams["qwen3-moe-30b-a3b"]["a2a"]
+    mesh_budget(world["phase_s"], mesh_c_s, a2a["phase_s"])
     fam_launches = sum(fams[a]["launches"] for a in FAMILY_SERVE)
-    lap(f"phase 23: all phases, on {card}")
+    lap(f"phase 23 (24b in it): all phases, on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -6063,9 +6585,11 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
         "launches": serve["launches"] + trained["fa_launches"]
         + rserve["recurrentgemma-2b"]["launches"]["flash_attention"]
-        + rtrain["launches"]["flash_attention"] + fam_launches,
+        + rtrain["launches"]["flash_attention"] + fam_launches
+        + a2a["launches"],
         "launches_by_family_generate": {a: fams[a]["launches"]
                                         for a in FAMILY_SERVE},
+        "launches_a2a_prefill": a2a["launches"],
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
                            serve["max_abs_err"],
                            *(v["max_abs_err"] for v in fams["hd64"].values())),

@@ -1,7 +1,4 @@
-"""Lane-batch distribution over torch devices (``sharding``).
-
-The JAX package's ``repro.distributed`` also holds the model stack's
-parameter partitioning and collectives; those parts are later work of the
-port (ROADMAP queue 1, item 9e).
-"""
-from . import sharding  # noqa: F401
+"""Partitioning, collectives and expert parallelism over a mesh of ranks
+(``sharding``, ``collectives``, ``moe_a2a``), and the lane-batch split of
+the engine and the fleets over torch devices (``sharding``)."""
+from . import collectives, sharding  # noqa: F401

@@ -19,6 +19,12 @@ step; the VLM serves text alone, as JAX's launcher does; the MoE family
 runs ``moe_impl="gmm"``.  The kernels (flash attention, WKV, RG-LRU) run
 on the card and their plain versions on the CPU; the launcher prints how
 many times each kernel launched in the prefill and in one decode step.
+
+It runs under the host mesh of ``--tp`` model ranks (``launch/mesh.py``;
+a world of one rank is started when no process group runs, and ended
+after), as JAX's does: no parameter is placed by specs when serving, so
+every rank computes tp 1's tokens; a ``--tp`` beyond the world raises as
+JAX's mesh does without the devices.
 """
 from __future__ import annotations
 
@@ -30,9 +36,11 @@ import torch
 
 from repro_torch.api.scenario import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.distributed.sharding import set_mesh
 from repro_torch.kernels.flash_attention import flash_attention_bhtd
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.rwkv6 import wkv_bhtd
+from repro_torch.launch.mesh import close_world, init_world, make_host_mesh
 from repro_torch.models import build
 from repro_torch.serve import make_decode_step, make_prefill
 
@@ -47,11 +55,18 @@ def main(argv=None):
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        raise NotImplementedError("multi-card serving (--tp > 1) is queued: "
-                                  "ROADMAP queue 1, item 9e")
 
     dev = resolve_device(args.device)
+    started = init_world(dev)
+    try:
+        with set_mesh(make_host_mesh(model=args.tp, device=dev)):
+            return _serve(args, dev)
+    finally:
+        if started:
+            close_world()
+
+
+def _serve(args, dev):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = build(cfg)
     params = bundle.init_params(0, device=dev)

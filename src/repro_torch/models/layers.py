@@ -65,9 +65,23 @@ def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def generator(seed, device):
+    """The generator an ``init_params`` draws from: ``seed`` itself if it
+    is a ``torch.Generator`` (whose device draws), else a CPU generator
+    seeded with it; None on the ``meta`` device, where nothing is drawn
+    (the port's ``jax.eval_shape``: :func:`_normal` then returns meta
+    tensors of the real shapes and dtypes)."""
+    if torch.device(device).type == "meta":
+        return None
+    return seed if isinstance(seed, torch.Generator) else \
+        torch.Generator().manual_seed(int(seed))
+
+
 def _normal(gen, shape, scale, dtype):
     """float32 standard normals from ``gen``, on the generator's device,
-    scaled and cast."""
+    scaled and cast (with ``gen`` None, an empty meta tensor)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device)
             * scale).to(dtype)
 

@@ -40,8 +40,9 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
-#: The MoE implementations of the forward (JAX's ``moe_impl``); ``a2a``
-#: (expert parallelism, ``distributed/moe_a2a.py``) needs several cards.
+#: The MoE implementations of the forward (JAX's ``moe_impl``); ``a2a`` is
+#: expert parallelism over the ambient mesh's 'model' axis
+#: (``distributed/moe_a2a.py``; ``gmm`` without a mesh).
 MOE_IMPLS = ("gmm", "dense", "a2a")
 
 
@@ -68,8 +69,12 @@ def block_fwd(cfg: ModelConfig, p, x, positions, cache, mrope_pos, *,
     x = x + h
     hn = L.apply_norm(cfg, p["ln2"], x)
     if cfg.moe is not None:
-        fn = L.moe_gmm if moe_impl == "gmm" else L.moe_dense
-        h, aux = fn(cfg, p["moe"], hn)
+        if moe_impl == "a2a":
+            from ..distributed.moe_a2a import moe_a2a
+            h, aux = moe_a2a(cfg, p["moe"], hn)
+        else:
+            fn = L.moe_gmm if moe_impl == "gmm" else L.moe_dense
+            h, aux = fn(cfg, p["moe"], hn)
     else:
         h = L.mlp(cfg, p["mlp"], hn)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -77,14 +82,9 @@ def block_fwd(cfg: ModelConfig, p, x, positions, cache, mrope_pos, *,
 
 
 def check_moe_impl(cfg: ModelConfig, moe_impl: str):
-    """Refuses an unknown ``moe_impl``, and ``a2a`` for an MoE model."""
+    """Refuses an unknown ``moe_impl``."""
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {moe_impl!r}; have {MOE_IMPLS}")
-    if moe_impl == "a2a" and cfg.moe is not None:
-        raise NotImplementedError(
-            "moe_impl='a2a' is expert parallelism over several cards "
-            "(distributed/moe_a2a.py): ROADMAP queue 1, item 9e "
-            "(multi-card); one card runs 'gmm' or 'dense'")
 
 
 def _stacked(n, make, dev):
@@ -117,13 +117,13 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None):
     """Random parameters in JAX's tree and init scales, drawn from a
     ``torch.Generator`` (``seed`` is an int, for a CPU generator, or a
     generator, whose device draws), on ``device`` (default: the CUDA card;
-    raises without one).  Draw order: embed, then block by block
+    raises without one; ``"meta"``: the shapes alone, nothing drawn).
+    Draw order: embed, then block by block
     (attention, then MLP or MoE), then head."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator().manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     dt = L._dtype(cfg)
     params = {"embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
                                  dt).to(dev),
@@ -150,8 +150,9 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     vision_embeds  [B, Tv, D] pre-computed patch embeddings (VLM stub):
                they replace the embeddings of the first Tv token slots
     mrope_pos  [3, B, T] M-RoPE positions (t/h/w), used when ``cfg.mrope``
-    moe_impl   ``gmm`` (:func:`layers.moe_gmm`) or ``dense``
-               (:func:`layers.moe_dense`); ``a2a`` raises (several cards)
+    moe_impl   ``gmm`` (:func:`layers.moe_gmm`), ``dense``
+               (:func:`layers.moe_dense`) or ``a2a``
+               (:func:`~repro_torch.distributed.moe_a2a.moe_a2a`)
     logits_slice  compute logits of the last ``logits_slice`` positions only
     executor   the flash-attention sites' implementation (``auto``:
                the kernel on a card, the plain version on the CPU)

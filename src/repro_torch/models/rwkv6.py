@@ -103,12 +103,12 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None):
     """Random parameters in JAX's tree and init scales, drawn from a
     ``torch.Generator`` (``seed`` is an int, for a CPU generator, or a
     generator, whose device draws), then moved to ``device`` (default: the
-    CUDA card; raises without one)."""
+    CUDA card; raises without one; ``"meta"``: the shapes alone, nothing
+    drawn)."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator().manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     dt = L._dtype(cfg)
     params = {"embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
                                  dt),

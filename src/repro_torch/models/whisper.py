@@ -67,13 +67,13 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None):
     """Random parameters in JAX's tree and init scales from a
     ``torch.Generator`` (``seed`` an int, for a CPU generator, or a
     generator, whose device draws), on ``device`` (default: the CUDA card;
-    raises without one).  Draw order: embed, the encoder's layers, the
+    raises without one; ``"meta"``: the shapes alone, nothing drawn).
+    Draw order: embed, the encoder's layers, the
     decoder's."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator().manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     embed = L._normal(gen, (padded_vocab(cfg), cfg.d_model), 0.02,
                       L._dtype(cfg)).to(dev)
     enc = [_to(init_enc_layer(cfg, gen), dev)

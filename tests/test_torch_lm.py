@@ -221,9 +221,11 @@ def test_build_serves_dense_and_names_the_rest():
         b.forward(b.init_params(0, device="cpu"),
                   torch.zeros((1, 4), dtype=torch.long), **kw)
     moe = t_build(t_smoke("qwen3-moe-30b-a3b"))
-    with pytest.raises(NotImplementedError, match="item 9e.*multi-card"):
-        moe.forward(moe.init_params(0, device="cpu"),
-                    torch.zeros((1, 4), dtype=torch.long), moe_impl="a2a")
+    mp = moe.init_params(0, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    # expert parallelism (item 9e.2) is moe_gmm without a mesh, as JAX's
+    assert torch.equal(moe.forward(mp, toks, moe_impl="a2a")[0],
+                       moe.forward(mp, toks, moe_impl="gmm")[0])
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):     # served since 9c/9d
         assert t_build(t_smoke(arch)).state_kwarg == "states"
 

@@ -213,11 +213,15 @@ def test_bf16_scatter_order_is_ascending_expert_id():
 
 
 def test_a2a_raises_naming_the_multi_card_item():
+    """``a2a`` is ported (item 9e.2, tests/test_torch_moe_a2a.py): without
+    a mesh it is moe_gmm, as JAX's moe_a2a; an unknown impl still
+    raises."""
     tcfg = t_smoke("qwen3-moe-30b-a3b")
     tp = TLM.init_params(tcfg, 0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 9e.*multi-card"):
-        TLM.forward(tcfg, tp, toks, moe_impl="a2a")
+    a2a = TLM.forward(tcfg, tp, toks, moe_impl="a2a")
+    gmm = TLM.forward(tcfg, tp, toks, moe_impl="gmm")
+    assert torch.equal(a2a[0], gmm[0]) and torch.equal(a2a[2], gmm[2])
     with pytest.raises(ValueError, match="unknown moe_impl"):
         TLM.forward(tcfg, tp, toks, moe_impl="megablocks")
     dense = t_smoke("qwen3-0.6b")      # a dense model has no experts

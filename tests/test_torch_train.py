@@ -44,6 +44,7 @@ from repro_torch.configs import get_smoke_config as t_get_smoke_config
 from repro_torch.data import SyntheticSource, batches
 from repro_torch.models import build as tbuild
 from repro_torch.optim import AdamWConfig
+from repro_torch.tree import leaves as tleaves
 from repro_torch.train import (cross_entropy, make_loss_fn, make_train_step)
 
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -300,11 +301,32 @@ def test_bf16_train_steps_close_to_jax():
 
 
 def test_unported_options_raise_and_name_their_item():
+    """``remat_save="dots"`` (item 9e.7) raises.  ``grad_acc_specs`` is
+    ported (item 9e.1): it places the float32 accumulator on the ambient
+    mesh and changes no number; without a mesh it raises."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import close_world, make_host_mesh
+
     _, tcfg = _cfgs("qwen3-0.6b")
     bundle = tbuild(tcfg)
-    with pytest.raises(NotImplementedError, match="9e"):
-        make_train_step(bundle, AdamWConfig(), grad_acc_specs={})
     _, ts = _states(*_cfgs("qwen3-0.6b"))
+    b2 = _batches(tcfg.vocab_size, 1)[0]
+    plain, pm = make_train_step(bundle, AdamWConfig(), microbatches=2)(ts, b2)
+    mesh = make_host_mesh(model=1, device="cpu")
+    try:
+        specs = sharding.zero_specs(sharding.param_specs(ts.params),
+                                    ts.params, mesh)
+        step = make_train_step(bundle, AdamWConfig(), microbatches=2,
+                               grad_acc_specs=specs)
+        with pytest.raises(ValueError, match="set_mesh"):
+            step(ts, b2)
+        with sharding.set_mesh(mesh):
+            placed, qm = step(ts, b2)
+    finally:
+        close_world()
+    assert all(torch.equal(a, b) for a, b in zip(tleaves(plain),
+                                                   tleaves(placed)))
+    assert all(torch.equal(pm[k], qm[k]) for k in pm)
     # vision_embeds are ported (item 9e's first part): the dense LM takes
     # them as JAX's lm.forward does, in its first slots
     b = dict(_batches(tcfg.vocab_size, 1)[0],

@@ -280,7 +280,12 @@ def test_launch_train_cli_saves_and_resumes_hybrid_on_cpu():
 
 
 def test_launch_train_refuses_multi_card_options():
+    """--tp 2 and the production meshes need worlds of 2 and 256 / 512
+    ranks (tests/test_torch_mesh.py): in one process they raise as JAX's
+    mesh does without the devices."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="9e"):
-        main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
-              "--tp", "2"])
+    for extra in (["--tp", "2"], ["--production-mesh"],
+                  ["--production-mesh", "--multi-pod"]):
+        with pytest.raises(ValueError, match="Number of ranks 1"):
+            main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+                  *extra])
