@@ -22,8 +22,9 @@ Phases (each prints a line; any failure exits non-zero):
               ``repro_torch.api.sweep``, all 6 groups in one launch of the
               grouped kernel, against ``tests/torch_goldens/fig2_full.json``;
               then the kernel (each group in its own launch, and all in one
-              grouped launch) and its plain version on the same groups,
-              compared bit for bit and timed.
+              grouped launch, bit-equal) and its plain version on the first
+              3 of the 6 groups (``FIG2_PLAIN_GROUPS``), compared bit for
+              bit and timed.
 6. tune     — 4,096 EEMT lanes (256 SLA points x 16 bandwidth schedules) in
               one launch: kernel vs plain on every lane, times, bound, memory.
 17. environments — run right after phase 6, on the same kernel: (a) the
@@ -252,10 +253,29 @@ Phases (each prints a line; any failure exits non-zero):
               every MoE expert set held to JAX's; (d) kernel 2 at head
               width 64 (B 8 x T 64 and 2,048, 12 heads) against its bound,
               the plain version and SDPA.
+25. dryrun  — the dry run (``repro_torch.launch.dryrun``): (a) its CLI in
+              child processes (``python -m repro_torch.launch.dryrun``, meta
+              tensors, no card) over a fake world of 256 ranks on the 16 x
+              16 mesh, with probes, for qwen3-0.6b and qwen3-moe-30b-a3b
+              ``train_4k``, started beside 17b's child and joined after it:
+              each cell's bottleneck, three roofline terms, peak a device and
+              useful FLOP share, every number finite, model_flops = 6
+              N_active D; (b, after 12) qwen3-0.6b ``prefill_32k`` (B 32 x T
+              32,768) at the probe's depth: the meta count, then the same
+              step on the card over 24a's world of one (bf16, kernel 2 at hd
+              128): FLOPs and bytes equal to the meta count exactly, the peak
+              within 10% of its ``temp_bytes``, median of 3 by CUDA events
+              beside the roofline time; (c, in 16) rwkv6-7b's prefill
+              counted on the card and on meta, equal (kernel 4's formula);
+              (d, after 12) phase 12's step under ``remat_save="dots"``
+              beside ``"nothing"``, in turn: the loss bit-equal, the grad
+              norm within the spread of two "nothing" runs, peak and step
+              ms.
 
 The order: 1-6, 17, 18, 20, 21, 7, then the float32 goldens 8, 11, 24
-(a, c), 15 and 23c beside 17b's child (joined after them), then 9, 10,
-12, 13, 14, 16, 19, 22 and 23 (a, b, 24b, d).
+(a, c), 15 and 23c beside 17b's and 25a's children (joined after them),
+then 9, 10, 12, 25 (d, b), 13, 14, 16 (25c in it), 19, 22 and 23 (a, b,
+24b, d).
 
 Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c, 22c, 23a
 and 24b drive the main paths: each kernel's launch count is set to 0 just before
@@ -293,7 +313,12 @@ runs phases 1-2 and 23 only, and prints neither;
     python3 chip_smoke.py --mesh
 
 runs phases 1-2, 11 and 24 (with 23a-b of the MoE, whose weights 24b
-reads) only, and prints neither.
+reads) only, and prints neither;
+
+    python3 chip_smoke.py --dryrun
+
+runs phases 1-2, 24a (the world of one) and 25 (with 16 of rwkv6-7b, in
+which 25c runs) only, and prints neither.
 """
 from __future__ import annotations
 
@@ -312,10 +337,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit), and the kernels'
+# operations and bytes by their shapes: one source with the dry run's
+# counts (repro_torch.launch.hlo_stats, repro_torch.kernels.cost).
+from repro_torch.kernels import cost  # noqa: E402
+from repro_torch.launch.hlo_stats import (  # noqa: E402
+    BF16_TENSOR_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S)
 # Float32 operations of one lane-tick of csrc/tick_loop.cu, counted from the
 # source: ~22 per partition (channel split, channel rate, drain, window) and
 # ~70 per lane (contention, capacity, power, accumulators, the controller
@@ -363,6 +390,12 @@ RUN_GOLDEN = {
 FIG2_TOOLS = ("wget/curl", "http/2", "ismail-min-energy", "ismail-max-tput",
               "ME", "EEMT")
 FIG2_SMOKE = (("chameleon",), ("small", "mixed"), ("wget/curl", "ME", "EEMT"))
+# Phase 5b runs the plain version on the first FIG2_PLAIN_GROUPS of fig2's
+# 6 groups (the cut that keeps the script under 950 s of its 1,200): each
+# of those held to the kernel bit for bit; all 72 cells stay held to
+# tests/torch_goldens/fig2_full.json, and the grouped launch to every
+# group's own launch.
+FIG2_PLAIN_GROUPS = 3
 FIG2_TESTBEDS = ("chameleon", "cloudlab", "didclab")
 FIG2_DATASETS = ("small", "medium", "large", "mixed")
 
@@ -2433,17 +2466,12 @@ SERVE_BF16_TOL = 0.05
 
 def flash_bound(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes,
                 ops_per_s=BF16_TENSOR_OPS_PER_S, window=0):
-    """(bound_ms, bound_by, flops, bytes) of one attention call: 4 hd
-    operations per reachable (query, key) pair and head at ``ops_per_s``
-    (the tensor cores' bf16 rate; float32's 67 TFLOP/s for float32
-    inputs); q, k, v read and o written once."""
-    if causal:
-        reach = min(Tk, window) if window > 0 else Tk
-        pairs = sum(min(q + 1, reach) for q in range(Tq))
-    else:
-        pairs = Tq * Tk
-    flops = 4 * hd * H * B * pairs
-    nbytes = elem_bytes * hd * B * (2 * H * Tq + 2 * Hkv * Tk)
+    """(bound_ms, bound_by, flops, bytes) of one attention call
+    (``cost.flash_fwd``: 4 hd operations per reachable (query, key) pair
+    and head; q, k, v read and o written once) at ``ops_per_s`` (the
+    tensor cores' bf16 rate; float32's 67 TFLOP/s for float32 inputs)."""
+    flops, nbytes = cost.flash_fwd(B, H, Hkv, hd, Tq, Tk, causal,
+                                   elem_bytes, window)
     t_ops = flops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -2664,18 +2692,14 @@ TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL, TRAIN_BF16_GRAD_RTOL = \
 
 def bwd_bound(B, H, Hkv, hd, T, causal, elem_bytes,
               ops_per_s=BF16_TENSOR_OPS_PER_S, window=0):
-    """(bound_ms, bound_by, flops, bytes) of one attention backward: five
-    products (s, dp, dq, dk, dv) = 10 hd operations per reachable (query,
-    key) pair and query head at ``ops_per_s`` (as :func:`flash_bound`; a
-    causal ``window`` > 0 reaches min(q + 1, window) keys from query q); q,
-    k, v, o, dO and lse read once and dq, dk, dv written once."""
-    if causal:
-        pairs = sum(min(q + 1, window or T) for q in range(T))
-    else:
-        pairs = T * T
-    flops = 10 * hd * H * B * pairs
-    nbytes = (elem_bytes * hd * B * (4 * H * T + 4 * Hkv * T)
-              + 4 * B * H * T)
+    """(bound_ms, bound_by, flops, bytes) of one attention backward
+    (``cost.flash_bwd``: five products (s, dp, dq, dk, dv) = 10 hd
+    operations per reachable (query, key) pair and query head; q, k, v, o,
+    dO and lse read once and dq, dk, dv written once) at ``ops_per_s`` (as
+    :func:`flash_bound`; a causal ``window`` > 0 reaches min(q + 1,
+    window) keys from query q)."""
+    flops, nbytes = cost.flash_bwd(B, H, Hkv, hd, T, T, causal, elem_bytes,
+                                   window)
     t_ops = flops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -3526,46 +3550,33 @@ RECURRENT_SERVE = ("rwkv6-7b", "recurrentgemma-2b")
 RECURRENT_SERVE_RATIO = 1.25
 
 
-def wkv_chunk_flops(B, H, T, hd):
-    """Tensor-core operations of the chunked route (csrc/wkv.cu,
-    ``wkv_chunk_kernel``) with its bf16 high/low split, per 64-step chunk
-    and head: the inter-chunk product (3 products of 64 x hd x hd), the
-    state's (2), A V (2) and A's three off-diagonal blocks (3 products of
-    64 x 16 x hd each), 2 operations a multiply-add; a partial last chunk
-    counts whole (its rows are computed)."""
-    per_chunk = 2 * 64 * hd * (7 * hd + 9 * 16)
-    return B * H * -(-T // 64) * per_chunk
-
-
 def wkv_bound(B, H, T, hd, elem_bytes, with_s0, route):
     """(bound_ms, bound_by, flops, bytes, recurrent_ms) of one WKV call by
-    ``route``.  Bytes: r, k, v (and y) in their type and w in float32 read
-    (written) once, u, S0 and S_final once.  Operations: the route's own at
-    its unit's rate, the chunked route's tensor-core products
-    (wkv_chunk_flops) at 989 TFLOP/s, the step route's 5 hd^2 float32
-    operations per (b, h, t) (r S, the decay, the outer product and their
-    sums) at the CUDA cores' 67 TFLOP/s.  recurrent_ms is that last figure
-    for any route: the recurrent form on the CUDA cores, kernel 4's bound
-    before the chunked route, printed beside the bound under its own name."""
+    ``route`` (``cost.wkv_fwd``, w in float32).  Bytes: r, k, v (and y) in
+    their type and w in float32 read (written) once, u, S0 and S_final
+    once.  Operations: the route's own at its unit's rate, the chunked
+    route's tensor-core products (``cost.wkv_chunk_flops``) at 989
+    TFLOP/s, the step route's 5 hd^2 float32 operations per (b, h, t) (r
+    S, the decay, the outer product and their sums) at the CUDA cores' 67
+    TFLOP/s.  recurrent_ms is that last figure for any route: the recurrent
+    form on the CUDA cores, kernel 4's bound before the chunked route,
+    printed beside the bound under its own name."""
     rec_flops = 5 * hd * hd * B * H * T
-    nbytes = (4 * elem_bytes + 4) * B * H * T * hd + 4 * H * hd \
-        + 4 * B * H * hd * hd * (2 if with_s0 else 1)
-    if route == "chunk":
-        flops, rate = wkv_chunk_flops(B, H, T, hd), BF16_TENSOR_OPS_PER_S
-    else:
-        flops, rate = rec_flops, F32_OPS_PER_S
+    flops, nbytes = cost.wkv_fwd(B, H, T, hd, elem_bytes, 4, with_s0, route)
+    rate = BF16_TENSOR_OPS_PER_S if route == "chunk" else F32_OPS_PER_S
     t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes, rec_flops / F32_OPS_PER_S * 1e3)
 
 
-def rglru_bound(B, T, C, elem_bytes, arrays=3, ops=2):
+def rglru_bound(B, T, C, elem_bytes, backward=False):
     """(bound_ms, bound_by, flops, bytes): the forward reads a, b and
-    writes h once (3 arrays), 2 operations per element; the backward reads
-    a, h, g and writes da, db (5 arrays), 3 operations per element."""
-    flops = ops * B * T * C
-    nbytes = arrays * elem_bytes * B * T * C
+    writes h once, 2 operations per element (``cost.rglru_fwd``); the
+    backward reads a, h, g and writes the float32 da, db, 3 operations per
+    element (``cost.rglru_bwd``)."""
+    flops, nbytes = (cost.rglru_bwd if backward else cost.rglru_fwd)(
+        B, T, C, elem_bytes)
     t_ops = flops / F32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -4050,6 +4061,8 @@ def phase_recurrent_serve(dev, arch) -> dict:
         if ex == "cuda":
             pre_launches, state = launch_counts(c0), st
         del st
+    if cfg.family == "ssm":
+        count_prefill_card_and_meta(bundle, params, prompt, T + N, arch)
     check(pre_launches == want_prefill,
           f"{arch} prefill launched {pre_launches}, not {want_prefill}")
     step = make_decode_step(bundle, executor="cuda")
@@ -4127,6 +4140,283 @@ def phase_recurrent_serve(dev, arch) -> dict:
     return {"launches": gen_launches, "wkv_routes": wkv_routes,
             "max_abs_err": err["each other"], "prefill_ms": pre_ms["cuda"],
             "decode_ms": step_ms}
+
+
+# ------------------------------------------------------------- dry run --
+
+# Phase 25: the dry run (src/repro_torch/launch/dryrun.py).  (a) Its CLI
+# over a fake world of 256 ranks on the 16 x 16 mesh, with probes, in child
+# processes beside the float32 goldens (they time nothing), for these cells.
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"))
+# (b) This cell at the probe's depth (PROBE_DEPTHS[0] layers) counted on meta
+# and run on the card over the world of one: the card's FLOPs and bytes
+# equal to the meta count, its peak (max_memory_allocated above the level
+# before the call) within DRYRUN_PEAK_RTOL of the meta count's temp_bytes.
+DRYRUN_CARD = ("qwen3-0.6b", "prefill_32k")
+DRYRUN_PEAK_RTOL = 0.10
+
+
+class DryrunChildren:
+    """[25 dryrun] (a) ``python -m repro_torch.launch.dryrun --arch A
+    --shape S`` for each of DRYRUN_CELLS in turn, in one child process (one
+    CPU thread; meta tensors, no card; the module run by ``runpy`` as
+    ``-m`` runs it), started beside the float32 goldens and joined after
+    them: one process, so it takes one core from 17b's child, not two."""
+
+    def __init__(self):
+        import tempfile
+
+        self.out = tempfile.mkdtemp(prefix="dryrun_")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   OMP_NUM_THREADS="1")
+        argv = [["dryrun", "--arch", arch, "--shape", shape, "--out",
+                 self.out] for arch, shape in DRYRUN_CELLS]
+        code = ("import runpy, sys\n"
+                f"for argv in {argv!r}:\n"
+                "    sys.argv = argv\n"
+                "    runpy.run_module('repro_torch.launch.dryrun', "
+                "run_name='__main__')\n")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
+        CHILDREN.append(self.proc)
+
+    def join(self) -> dict:
+        """Wait for the child; hold each cell's result (every number
+        finite, model_flops = 6 N_active D) and print its roofline terms,
+        peak and useful FLOP share.  Returns {arch: result}."""
+        import math
+        import shutil
+
+        from repro_torch.configs import SHAPES, get_config
+
+        t0 = time.perf_counter()
+        out = self.proc.communicate(timeout=900)[0]
+        waited = time.perf_counter() - t0
+        check(self.proc.returncode == 0, f"[25 dryrun] (a) the child exited "
+              f"{self.proc.returncode}\n{out[-3000:]}")
+        res = {}
+        for arch, shape in DRYRUN_CELLS:
+            with open(os.path.join(self.out,
+                                   f"{arch}_{shape}_16x16.json")) as f:
+                r = json.load(f)
+            bad = [path for path, v in _numbers(r)
+                   if not math.isfinite(v)]
+            check(not bad, f"[25 dryrun] (a) {arch} {shape}: non-finite "
+                           f"{bad}")
+            sh = SHAPES[shape]
+            want = (6 * get_config(arch).active_param_count()
+                    * sh["seq_len"] * sh["global_batch"])
+            check(r["model_flops"] == want,
+                  f"[25 dryrun] (a) {arch}: model_flops {r['model_flops']} "
+                  f"!= 6 N_active D = {want}")
+            t = r["roofline"]
+            print(f"[25 dryrun] (a) {arch} {shape} over a fake world of "
+                  f"{r['chips']} ranks ({r['mesh']}), probes: bottleneck "
+                  f"{t['bottleneck']}; compute {t['compute_s']:.4f} s, "
+                  f"memory {t['memory_s']:.4f} s, collective "
+                  f"{t['collective_s']:.4f} s a step "
+                  f"({r['flops_per_device']:.4g} FLOP, "
+                  f"{r['hbm_bytes_per_device']:.4g} B, "
+                  f"{r['coll_bytes_per_device']:.4g} collective B a device);"
+                  f" peak {r['memory']['peak_per_device'] / 1e9:.2f} GB a "
+                  f"device; useful FLOP share {r['useful_flops_ratio']:.4f}; "
+                  f"full program traced in {r['compile_s']} s", flush=True)
+            res[arch] = r
+        shutil.rmtree(self.out, ignore_errors=True)
+        print(f"[25 dryrun] (a) child process: "
+              f"{time.perf_counter() - self.t0:.1f} s from start to join, "
+              f"{waited:.1f} s waited at the join", flush=True)
+        return res
+
+
+def _numbers(tree, path=""):
+    """[(path, number)] of a JSON tree's ints and floats."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _numbers(
+            v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _numbers(
+            v, f"{path}/{i}")]
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return [(path, tree)]
+    return []
+
+
+def phase_dryrun_card(dev, mesh) -> dict:
+    """[25 dryrun] (b) the dry run's prediction on meta against the card: a
+    depth probe of DRYRUN_CARD (bf16, kernel 2 at hd 128) counted on meta,
+    then the same step on the card over the world of one (``mesh``), counted
+    and timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import set_mesh
+    from repro_torch.kernels.flash_attention import flash_attention_bhtd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_stats import StepCounter, roofline_terms
+
+    t_phase = time.perf_counter()
+    arch, shape = DRYRUN_CARD
+    probe = dryrun._probe_cfgs(get_config(arch))[0][1][0]
+    pred = dryrun.count_cell(probe, shape, mesh, None)
+    terms = roofline_terms(pred["flops"], pred["bytes"], pred["coll"], 1)
+    roof_ms = max(terms["compute_s"], terms["memory_s"],
+                  terms["collective_s"]) * 1e3
+    fn, args = dryrun.build_cell(probe, shape, mesh, device=dev, seed=0)
+
+    def step():
+        with set_mesh(mesh):
+            return fn(*args)
+
+    step()                                   # cuBLAS workspaces, libraries
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts()
+    with StepCounter() as c:
+        out = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = flash_attention_bhtd.launches
+    check_bf16_route("[25 dryrun] (b)")
+    temp = pred["memory"]["temp_bytes"]
+    B = out.shape[0]
+    check(tuple(out.shape) == (B, 1) and bool(
+        ((out >= 0) & (out < probe.vocab_size)).all()),
+        f"[25 dryrun] (b) next tokens {tuple(out.shape)} out of range")
+    check(launches == probe.num_layers,
+          f"[25 dryrun] (b) kernel 2 launched {launches} times, not "
+          f"{probe.num_layers}")
+    check(c.flops == pred["flops"] and c.bytes == pred["bytes"]
+          and c.collectives == pred["coll_detail"],
+          f"[25 dryrun] (b) the card counted {c.flops} FLOP, {c.bytes} B, "
+          f"{c.collectives}; meta {pred['flops']}, {pred['bytes']}, "
+          f"{pred['coll_detail']}")
+    check(abs(peak - temp) <= DRYRUN_PEAK_RTOL * temp,
+          f"[25 dryrun] (b) peak {peak} B on the card vs {temp} B counted "
+          f"on meta (more than {DRYRUN_PEAK_RTOL:.0%} apart)")
+    del out
+    ms = time_cuda(step, 3)
+    print(f"[25 dryrun] (b) {arch} {shape} at {probe.num_layers} of "
+          f"{get_config(arch).num_layers} layers (B {B} x T "
+          f"{args[1]['tokens'].shape[1]}), bf16, world of one: meta "
+          f"{pred['flops']:.6g} FLOP, {pred['bytes']:.6g} B == the card's "
+          f"count exactly ({c.kernels['flash_attention_bhtd']['calls']} "
+          f"kernel 2 calls, {launches} launches); peak {peak} B on the "
+          f"card vs temp_bytes {temp} B on meta ({peak / temp - 1:+.2%}; "
+          f"peak_per_device {pred['memory']['peak_per_device']} B); "
+          f"{ms:.1f} ms (CUDA events, median of 3) vs the roofline "
+          f"{roof_ms:.1f} ms by {terms['bottleneck']} (compute "
+          f"{terms['compute_s'] * 1e3:.1f}, memory "
+          f"{terms['memory_s'] * 1e3:.1f} ms): share {roof_ms / ms:.3f}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del fn, args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "roofline_ms": roof_ms, "peak": peak, "temp": temp,
+            "flops": pred["flops"], "bytes": pred["bytes"]}
+
+
+def count_prefill_card_and_meta(bundle, params, prompt, max_len, tag):
+    """[25 dryrun] (c) one prefill through the kernels counted on the card
+    (``params``, ``prompt``) and the same call on meta: FLOPs, bytes and
+    each kernel's count must be equal."""
+    import torch
+
+    from repro_torch.launch.hlo_stats import StepCounter
+    from repro_torch.serve import make_prefill
+
+    prefill = make_prefill(bundle, executor="cuda")
+    B = prompt.shape[0]
+    got = {}
+    for where in ("card", "meta"):
+        if where == "card":
+            p, pr = params, prompt
+        else:
+            p, pr = bundle.init_params(0, device="meta"), prompt.to("meta")
+        st = bundle.init_decode_state(B, max_len, device=pr.device)
+        with StepCounter() as c:
+            prefill(p, st, pr)
+        got[where] = (c.flops, c.bytes, c.kernels)
+        del st
+    torch.cuda.synchronize()
+    check(got["card"] == got["meta"],
+          f"[25 dryrun] (c) {tag}: the card counted {got['card']}, meta "
+          f"{got['meta']}")
+    flops, nbytes, kernels = got["card"]
+    print(f"[25 dryrun] (c) {tag} prefill {tuple(prompt.shape)} through the "
+          f"kernels counted on the card == on meta: {flops:.6g} FLOP, "
+          f"{nbytes:.6g} B; kernels "
+          + ", ".join(f"{k} {v['calls']} calls {v['flops']:.4g} FLOP "
+                      f"{v['bytes']:.4g} B" for k, v in kernels.items()),
+          flush=True)
+
+
+def phase_dots(dev) -> dict:
+    """[25 dryrun] (d) phase 12's train step (qwen3-0.6b, bf16, remat,
+    TRAIN_B x TRAIN_T) with ``remat_save="dots"`` beside ``"nothing"``,
+    from one fresh state on one batch, in turn (nothing, dots, nothing,
+    dots): the first-step loss bit-equal, the gradient norm within the
+    spread of the two "nothing" runs; each one's peak memory and step ms."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    state = init_train_state(build_model(cfg), seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    steps = {save: make_train_step(build_model(dataclasses.replace(
+        cfg, remat_save=save)), opt) for save in ("nothing", "dots")}
+    steps["nothing"](state, batch)           # warm-up
+    runs = []
+    for save in ("nothing", "dots", "nothing", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, m = steps[save](state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append((save, m["loss"].item(), m["grad_norm"].item(), ms,
+                     torch.cuda.max_memory_allocated() - before))
+        del new, m
+    loss = {r[1] for r in runs}
+    gn = {s: [r[2] for r in runs if r[0] == s] for s in steps}
+    spread = max(gn["nothing"]) - min(gn["nothing"])
+    off = max(abs(g - gn["nothing"][0]) for g in gn["dots"])
+    check(len(loss) == 1, f"[25 dryrun] (d) first-step losses differ: "
+                          f"{runs}")
+    check(off <= spread, f"[25 dryrun] (d) dots' gradient norms {gn['dots']}"
+                         f" vs nothing's {gn['nothing']}: {off} off, beyond "
+                         f"their spread {spread}")
+    med = {s: statistics.median(r[3] for r in runs if r[0] == s)
+           for s in steps}
+    peak = {s: max(r[4] for r in runs if r[0] == s) for s in steps}
+    print(f"[25 dryrun] (d) qwen3-0.6b bf16 train step {TRAIN_B} x "
+          f"{TRAIN_T}, remat_save dots vs nothing in turn: loss "
+          f"{runs[0][1]!r} bit-equal in all 4; grad norm nothing "
+          f"{gn['nothing']}, dots {gn['dots']} ({off} off, spread {spread});"
+          f" step ms nothing {med['nothing']:.1f}, dots {med['dots']:.1f} "
+          f"(each {[round(r[3], 1) for r in runs]}); peak above the state "
+          f"nothing {peak['nothing']} B, dots {peak['dots']} B "
+          f"({peak['dots'] / peak['nothing']:.3f}x); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del state, steps, batch, toks
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "peak": peak}
 
 
 # ----------------------------------------------------------------- phases --
@@ -4346,8 +4636,8 @@ def phase_recurrent_train_kernels(dev) -> dict:
           + f"; bound {fwd_bound:.4f} ms by bytes; earlier "
           f"{RGLRU_EARLIER_MS[(B, T)]}", flush=True)
     plain_ms = time_cuda(lambda: rglru_bwd_ref(a, h, gr), 2)
-    bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4, arrays=5,
-                                                    ops=3)
+    bound_ms, bound_by, flops, nbytes = rglru_bound(B, T, C, 4,
+                                                    backward=True)
     width, own = rg.bwd_plan(a, h, gr, *want, n_sms)
     check(own, f"[19b] the trainer's shape B={B} T={T} takes the ring")
     timed = {}
@@ -4611,42 +4901,23 @@ RWKV_TRAIN_LAYERS = 8
 RWKV_TRAIN_BUDGET_S = 60.0      # the phase's time on a host like run I's
 
 
-def wkv_bwd_chunk_flops(B, H, T, hd):
-    """Tensor-core operations of the backward's chunked route
-    (csrc/wkv_bwd_chunk.cu) with its bf16 high/low splits, 2 a
-    multiply-add: the state pass's two products (hi, lo) of hd x hd x 64 a
-    chunk, forward over all but the last chunk and backward over all; the
-    chunk pass's, per chunk and head: 11 products of 64 x hd x 64 (dv's
-    kbar dS_e in 3 splits and A^T dY in 2, dA, dA^T, dY S_c^T and V dS_e^T
-    in 2 each), the sub-chunk blocks (3 a side, 3 splits, 64 x hd x 16)
-    and A's three off-diagonal blocks (3 splits of 64 x 16 x hd each); a
-    partial last chunk counts whole."""
-    nc = -(-T // 64)
-    state = 2 * 2 * hd * hd * 64 * (2 * nc - 1)
-    chunk = 2 * (11 * 64 * hd * 64 + 18 * 64 * hd * 16 + 9 * 64 * 16 * hd)
-    return B * H * (state + nc * chunk)
-
-
 def wkv_bwd_bound(B, H, T, hd, elem_bytes, w_bytes, with_s0, with_ds,
                   route="step"):
     """(bound_ms, bound_by, flops, bytes, recurrent_ms) of one WKV backward
-    call by ``route``.  Bytes: r, k, v, dy read and dr, dk, dv written once
-    in their type, w read and dw written once in its type, u, S0 and
-    dS_final read and dS0 and du's per-row partials written once.
-    Operations: the route's own at its unit's rate, the chunked route's
-    tensor-core products (wkv_bwd_chunk_flops) at 989 TFLOP/s, the step
-    route's 12 hd^2 float32 operations per (b, h, t) (the states' forward
-    walk once, 2 hd^2, and the backward's five sums and state update, 10
-    hd^2) at the CUDA cores' 67 TFLOP/s.  recurrent_ms is that last figure
-    for any route, printed beside the bound under its own name."""
-    n = B * H * T * hd
+    call by ``route`` (``cost.wkv_bwd``).  Bytes: r, k, v, dy read and dr,
+    dk, dv written once in their type, w read and dw written once in its
+    type, u, S0 and dS_final read and dS0 and du's per-row partials written
+    once.  Operations: the route's own at its unit's rate, the chunked
+    route's tensor-core products (``cost.wkv_bwd_chunk_flops``) at 989
+    TFLOP/s, the step route's 12 hd^2 float32 operations per (b, h, t) (the
+    states' forward walk once, 2 hd^2, and the backward's five sums and
+    state update, 10 hd^2) at the CUDA cores' 67 TFLOP/s.  recurrent_ms is
+    that last figure for any route, printed beside the bound under its own
+    name."""
     rec_flops = 12 * hd * hd * B * H * T
-    nbytes = (7 * elem_bytes + 2 * w_bytes) * n + 4 * H * hd \
-        + 4 * B * H * hd * hd * (1 + with_s0 + with_ds) + 4 * B * H * hd
-    if route == "chunk":
-        flops, rate = wkv_bwd_chunk_flops(B, H, T, hd), BF16_TENSOR_OPS_PER_S
-    else:
-        flops, rate = rec_flops, F32_OPS_PER_S
+    flops, nbytes = cost.wkv_bwd(B, H, T, hd, elem_bytes, w_bytes, with_s0,
+                                 with_ds, route)
+    rate = BF16_TENSOR_OPS_PER_S if route == "chunk" else F32_OPS_PER_S
     t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -6018,7 +6289,8 @@ def main() -> int:
                      fleet_only="--fleet" in sys.argv,
                      rwkv6_only="--rwkv6-train" in sys.argv,
                      families_only="--families" in sys.argv,
-                     mesh_only="--mesh" in sys.argv)
+                     mesh_only="--mesh" in sys.argv,
+                     dryrun_only="--dryrun" in sys.argv)
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -6030,13 +6302,14 @@ def main() -> int:
 
 def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
           fleet_only=False, rwkv6_only=False, families_only=False,
-          mesh_only=False) -> int:
+          mesh_only=False, dryrun_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
     and 19; with ``fleet_only``, phases 1-3, 20 and 21; with
     ``rwkv6_only``, phases 1-2 and 22; with ``families_only``, phases 1-2
     and 23; with ``mesh_only``, phases 1-2, 11 and 24, with 23a-b for the
-    MoE), on the CUDA device ``dev``."""
+    MoE; with ``dryrun_only``, phases 1-2, 24a's world and 25, with 16 for
+    rwkv6-7b), on the CUDA device ``dev``."""
     import torch
 
     from repro_torch import api
@@ -6178,6 +6451,17 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         print("chip_smoke: mesh phases (1-2, 11, 24 with 23a-b of the MoE) "
               "passed")
         return 0
+    if dryrun_only:
+        dry = DryrunChildren()
+        world = phase_mesh_world(dev)
+        phase_dots(dev)
+        phase_dryrun_card(dev, world["mesh"])
+        phase_recurrent_serve(dev, "rwkv6-7b")
+        dry.join()
+        lap("phase 25")
+        print("chip_smoke: dry-run phases (1-2, 24a, 25 with 16 of rwkv6-7b)"
+              " passed")
+        return 0
     if families_only:
         draws = start_family_draws()
         t0 = time.perf_counter()
@@ -6308,7 +6592,8 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     grs = groups_on_card(scs, dev)
     kern = [call(tl.tick_loop, k, rows_) for k, rows_ in grs]
     t0 = time.perf_counter()
-    plain = [call(tl.tick_loop_reference, k, rows_) for k, rows_ in grs]
+    plain = [call(tl.tick_loop_reference, k, rows_)
+             for k, rows_ in grs[:FIG2_PLAIN_GROUPS]]
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     errs = [compare_outputs(a, b) for a, b in zip(kern, plain)]
@@ -6319,9 +6604,9 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
              for (k, _), (_, _, m) in zip(grs, kern)]
     group_ms = time_cuda(lambda: [call(tl.tick_loop, k, r)
                                   for k, r in grs], 5)
-    # the main path's launch: every group at once, held to the plain
-    # version (and so to the groups' own launches) bit for bit
-    rows_g, err_g = grouped_vs_groups(scs, dev, plain, "fig2")
+    # the main path's launch: every group at once, held to the groups' own
+    # launches (and so to the plain version where it ran) bit for bit
+    rows_g, err_g = grouped_vs_groups(scs, dev, kern, "fig2")
     max_err = max(max_err, err_g)
     ms = time_cuda(lambda: tl.tick_loop_grouped(rows_g), 5)
     # a sweep costs its slowest group: each group in a launch of its own
@@ -6335,13 +6620,15 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
           + "; ".join(per), flush=True)
     bound_ms, bound_by, nbytes, ops = bound_of(grs, ticks)
     shapes = ", ".join(f"{r[1].shape[0]}x{r[1].shape[1]}" for _, r in grs)
-    print(f"[5 fig2] kernel vs plain on the card: {len(grs)} groups "
-          f"(lanes x ticks: {shapes}) bit-equal, each in its own launch "
-          f"and all in one launch (P "
+    print(f"[5 fig2] kernel vs plain on the card: the first "
+          f"{len(plain)} of {len(grs)} groups bit-equal to the plain "
+          f"version, all {len(grs)} (lanes x ticks: {shapes}) each in its "
+          f"own launch and all in one launch bit-equal (P "
           f"{(rows_g[0][3].shape[1] - 13) // 5}); the sweep's launch {ms:.3f} "
           f"ms (median of 5, 1 launch; PR 17: 56.982 in 6), the groups' "
           f"own launches {group_ms:.3f} ms ({len(grs)} launches); plain "
-          f"{plain_ms:.1f} ms (one run); {sum(ticks)} executed lane-ticks; "
+          f"{plain_ms:.1f} ms over {len(plain)} groups (one run); "
+          f"{sum(ticks)} executed lane-ticks; "
           f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops)",
           flush=True)
     del rows_g
@@ -6471,6 +6758,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     # process runs beside them, and 23c's weights are drawn in threads
     # meanwhile.
     child = EnvPlainChild()
+    dry = DryrunChildren()
     draws = start_family_draws()
     tree = random_qwen3_params()
     # the float32 (FMA) attention kernels' launches over the float32
@@ -6512,6 +6800,8 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     lap("phase 23c")
     child.join()
     lap("phase 17b (joined)")
+    dry.join()
+    lap("phase 25a (joined)")
     serve = phase_serve(dev, tree)
     lap("phase 9")
     del tree
@@ -6519,6 +6809,9 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     lap("phase 10")
     trained = phase_train(dev)
     lap("phase 12")
+    phase_dots(dev)
+    phase_dryrun_card(dev, world["mesh"])
+    lap("phase 25b, d")
     wkv = phase_wkv(dev)
     lap("phase 13")
     rglru = phase_rglru(dev)
@@ -6558,7 +6851,9 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "note": "ms: fig2's groups in one grouped launch (the main path); "
-                "per_group_ms: each group in its own launch",
+                "per_group_ms: each group in its own launch; plain_ms: "
+                f"the plain version over the first {FIG2_PLAIN_GROUPS} of "
+                "the 6 groups",
         "per_group_ms": group_ms, "grids_ms": envs["grids_ms"],
         "grids_per_group_ms": envs["grids_group_ms"],
         "wave_mode": {"ms_per_wave": fleets["wave_ms"],

@@ -626,19 +626,21 @@ def _placements(mesh, spec):
     out = [Replicate()] * len(names)
     for dim, axes in enumerate(tuple(spec)):
         axes = _axes_tuple(axes)
-        if len(axes) > 1:
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
             raise NotImplementedError(
-                f"a dim sharded over several mesh axes {axes} has no "
-                f"DTensor placement here")
-        for a in axes:
-            out[names.index(a)] = Shard(dim)
+                f"a dim sharded over mesh axes {axes} out of the mesh's "
+                f"order {tuple(names)} has no DTensor placement here")
+        for i in idx:
+            out[i] = Shard(dim)
     return tuple(out)
 
 
 def shardings(mesh, specs):
     """Each spec of the tree as DTensor placements, one per mesh dim
     (``Shard(i)`` where dim i is sharded over that axis, else
-    ``Replicate()``)."""
+    ``Replicate()``; a dim over several axes in the mesh's order, JAX's
+    ``("pod", "data")``, is ``Shard(i)`` on each, the first the major)."""
     return _map_with_path(lambda _, s: _placements(mesh, s), specs)
 
 

@@ -16,4 +16,7 @@ version.
                       repro/kernels/rglru/rglru.py::rglru_scan
     build           — nvcc build of csrc/*.cu into plain-C libraries, one per
                       source with its own flags, at first use
+    cost            — each kernel's operations and bytes from its shapes, and
+                      the hook by which a wrapper reports them to a step
+                      counter (launch/hlo_stats.py)
 """

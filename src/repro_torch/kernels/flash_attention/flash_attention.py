@@ -12,7 +12,10 @@ they are laid out.  For tensors on the CPU the wrapper computes the
 kernels' plain version,
 :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`; for CUDA
 tensors it launches one kernel on the current stream without
-synchronising, or raises.
+synchronising, or raises; for ``meta`` tensors (the dry run) it returns
+the outputs' shapes and types and launches nothing.  A step counter
+active around a call counts the kernel's operations and bytes
+(:mod:`repro_torch.kernels.cost`) on every device.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import math
 
 import torch
 
+from .. import cost
 from .ref import attention_ref
 
 #: Head widths the kernel is instantiated for (qwen2's 64, qwen3's 128,
@@ -119,6 +123,14 @@ def _check_kernel_layout(name, x):
                          f"strides {x.stride()}")
 
 
+def _fwd_cost(q, k, v, *, causal: bool = True, window: int = 0,
+              return_lse: bool = False):
+    B, H, Tq, hd = q.shape
+    return cost.flash_fwd(B, H, k.shape[1], hd, Tq, k.shape[2], causal,
+                          q.element_size(), window)
+
+
+@cost.counted("flash_attention_bhtd", _fwd_cost)
 def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
     """q [B,H,Tq,hd], k/v [B,Hkv,Tk,hd] -> o [B,H,Tq,hd] in q's dtype (and
@@ -128,7 +140,7 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the bf16
     (``wgmma``) or the float32 (FMA) kernel, hd 64, 128 or 256, or an
-    exception."""
+    exception.  Meta tensors: the empty outputs, no launch."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise ValueError("flash_attention_bhtd is forward only; take "
@@ -136,9 +148,12 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                          "FlashAttention autograd Function, whose backward "
                          "is flash_attention_bwd_bhtd)")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             return_lse=return_lse)
-    if q.device.type != "cuda":
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            return_lse=return_lse)
+        if return_lse:
+            return cost.strided_like(out[0], q), out[1]
+        return cost.strided_like(out, q)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA (or, as its plain "
                          f"version, on the CPU), got {q.device}")
     B, H, Tq, hd = q.shape
@@ -150,7 +165,7 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     _check_kernel_layout("o", o)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if B and Tq:
+    if B and Tq and q.device.type == "cuda":
         from .. import build
 
         scale = float(1.0 / math.sqrt(hd))

@@ -13,7 +13,9 @@ source notes say what bounds them on an H100 and how they are laid out.
 For tensors on the CPU the wrapper computes the plain version,
 :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`; for
 CUDA tensors it launches the kernels on the current stream without
-synchronising, or raises.
+synchronising, or raises; for ``meta`` tensors it makes the outputs and
+the scratch as on the card and launches nothing.  It is counted as kernel
+3 (:mod:`repro_torch.kernels.cost`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from .. import cost
 from .flash_attention import (_check, _check_kernel_layout, _longlongs, route,
                               tma_geometry)
 from .ref import attention_bwd_ref
@@ -63,6 +66,13 @@ def smem_bytes(hd: int) -> tuple[int, int]:
                  + 2 * 64))
 
 
+def _bwd_cost(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+    B, H, Tq, hd = q.shape
+    return cost.flash_bwd(B, H, k.shape[1], hd, Tq, k.shape[2], causal,
+                          q.element_size(), window)
+
+
+@cost.counted("flash_attention_bwd_bhtd", _bwd_cost)
 def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0):
     """Gradients of :func:`flash_attention_bhtd` from its saved output ``o``
@@ -73,7 +83,7 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
 
     CPU tensors: the plain version.  CUDA tensors: one launch of each of
     the two bf16 (``wgmma``) or float32 (FMA) kernels, hd 64, 128 or 256,
-    or an exception."""
+    or an exception.  Meta tensors: the outputs and scratch, no launch."""
     _check(q, k, v)
     B, H, Tq, hd = q.shape
     Tk = k.shape[2]
@@ -87,9 +97,11 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"[B,H,Tq] = {(B, H, Tq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                 window=window)
-    if q.device.type != "cuda":
+        grads = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+        return tuple(cost.strided_like(g, x) for g, x in zip(grads,
+                                                             (q, k, v)))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA (or, as its plain "
                          f"version, on the CPU), got {q.device}")
     kernel = route(q.dtype, hd, HEAD_DIMS)
@@ -108,6 +120,8 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
     lse_p[..., :Tq] = lse
     delta = lse.new_empty((B, H, pitch))
     delta[..., :Tq] = (do.float() * o.float()).sum(-1)
+    if q.device.type == "meta":
+        return dq, dk, dv
     if B and Tq and Tk:
         from .. import build
 

@@ -75,7 +75,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(
             f"non-causal flash attention needs Tk divisible by bk "
             f"(Tk={k.shape[1]}, bk={BK}); pad K/V")
-    if executor == "cuda" and q.device.type != "cuda":
+    if executor == "cuda" and q.device.type not in ("cuda", "meta"):
         raise ValueError(f"executor='cuda' needs CUDA tensors, got "
                          f"{q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

@@ -45,7 +45,7 @@ def rglru(a, b, *, executor: str = "auto"):
     and an input requires it, the call goes through :class:`RGLRUScan`,
     whose backward follows the same executor."""
     check_executor(executor)
-    if executor == "cuda" and a.device.type != "cuda":
+    if executor == "cuda" and a.device.type not in ("cuda", "meta"):
         raise ValueError(f"executor='cuda' needs CUDA tensors, got "
                          f"{a.device}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):

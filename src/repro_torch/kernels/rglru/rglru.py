@@ -10,7 +10,9 @@ note says what bounds them on an H100.  For tensors on the CPU a wrapper
 computes the plain version (:func:`~repro_torch.kernels.rglru.ref.
 rglru_ref`, :func:`~repro_torch.kernels.rglru.ref.rglru_bwd_ref`); for
 CUDA tensors it launches its kernel on the current stream without
-synchronising, or raises.
+synchronising, or raises; for ``meta`` tensors it returns the outputs and
+launches nothing.  Each is counted by its formula
+(:mod:`repro_torch.kernels.cost`).
 """
 from __future__ import annotations
 
@@ -19,16 +21,17 @@ import functools
 
 import torch
 
+from .. import cost
 from .ref import rglru_bwd_ref, rglru_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_kernel_inputs(name, xs):
-    """The kernels take CUDA tensors of one float32 or bfloat16 dtype with
-    a contiguous channel dimension."""
+    """The kernels take CUDA (or meta) tensors of one float32 or bfloat16
+    dtype with a contiguous channel dimension."""
     x = xs[0]
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"the RG-LRU kernels run on CUDA (or, as their "
                          f"plain versions, on the CPU), got {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -50,7 +53,7 @@ def _strides(x):
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return cost.sm_count(device)
 
 
 def _plan(xs, n_sms: int) -> tuple[int, bool]:
@@ -91,6 +94,8 @@ def bwd_plan(a, h, g, da, db, n_sms: int) -> tuple[int, bool]:
     return _plan((a, h, g, da, db), n_sms)
 
 
+@cost.counted("rglru_scan", lambda a, b: cost.rglru_fwd(
+    *a.shape, a.element_size()))
 def rglru_scan(a, b):
     """a, b [B, T, C] -> h [B, T, C] in a's dtype, ``h_t = a_t h_{t-1} +
     b_t`` from zero.  Any strides whose channel one is 1; ``h`` is allocated
@@ -98,7 +103,8 @@ def rglru_scan(a, b):
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the kernel
     (float32 or bfloat16, a and b of one dtype; its path by
-    :func:`kernel_plan`), or an exception."""
+    :func:`kernel_plan`), or an exception.  Meta tensors: the output, no
+    launch."""
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"rglru_scan takes a, b [B, T, C] of one shape, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -110,7 +116,7 @@ def rglru_scan(a, b):
     _check_kernel_inputs("a and b", (a, b))
     B, T, C = a.shape
     h = torch.empty_like(a)
-    if B and T and C:
+    if B and T and C and a.device.type == "cuda":
         from .. import build
 
         lib = build.load_rglru()
@@ -134,13 +140,16 @@ def rglru_scan(a, b):
 rglru_scan.launches = 0
 
 
+@cost.counted("rglru_scan_bwd", lambda a, h, g: cost.rglru_bwd(
+    *a.shape, a.element_size()))
 def rglru_scan_bwd(a, h, g):
     """(da, db) [B, T, C] float32: the gradients of ``h = rglru_scan(a, b)``
     for the output gradient ``g``, from the forward's ``h`` (a, h, g of one
     shape and dtype; any strides whose channel one is 1).
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the
-    backward kernel (its path by :func:`bwd_plan`), or an exception."""
+    backward kernel (its path by :func:`bwd_plan`), or an exception.  Meta
+    tensors: the outputs, no launch."""
     if a.dim() != 3 or not a.shape == h.shape == g.shape:
         raise ValueError(f"rglru_scan_bwd takes a, h, g [B, T, C] of one "
                          f"shape, got {tuple(a.shape)}, {tuple(h.shape)}, "
@@ -154,7 +163,7 @@ def rglru_scan_bwd(a, h, g):
     B, T, C = a.shape
     da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     db = torch.empty_like(da)
-    if B and T and C:
+    if B and T and C and a.device.type == "cuda":
         from .. import build
 
         lib = build.load_rglru()

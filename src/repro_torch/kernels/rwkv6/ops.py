@@ -58,7 +58,7 @@ def wkv(r, k, v, w, u, S0=None, *, executor: str = "auto"):
     requires it, the call goes through :class:`WKV`, whose backward follows
     the same executor."""
     check_executor(executor)
-    if executor == "cuda" and r.device.type != "cuda":
+    if executor == "cuda" and r.device.type not in ("cuda", "meta"):
         raise ValueError(f"executor='cuda' needs CUDA tensors, got "
                          f"{r.device}")
     args = (_t(r), _t(k), _t(v), _t(w), u, S0)

@@ -20,7 +20,9 @@ on the CPU a wrapper computes the plain version
 (:func:`~repro_torch.kernels.rwkv6.ref.wkv_ref`,
 :func:`~repro_torch.kernels.rwkv6.ref.wkv_bwd_ref`); for CUDA tensors it
 launches its kernel on the current stream without synchronising, or
-raises.
+raises; for ``meta`` tensors it plans the route as on an H100, makes the
+outputs and scratch and launches nothing.  Each is counted by its route's
+formula (:mod:`repro_torch.kernels.cost`).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import functools
 
 import torch
 
+from .. import cost
 from .ref import wkv_bwd_ref, wkv_ref
 
 #: The kernel's head width (rwkv6's).
@@ -116,7 +119,7 @@ def bwd_chunk_smem_bytes(w_bytes: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return cost.sm_count(device)
 
 
 def _check(r, k, v, w, u, S0):
@@ -140,6 +143,14 @@ def _check(r, k, v, w, u, S0):
         raise ValueError("wkv_bhtd: inputs on different devices")
 
 
+def _fwd_cost(r, k, v, w, u, S0=None):
+    B, H, T, hd = r.shape
+    route = wkv_plan(r, k, v, w, r, cost.H100_SMS)[0]
+    return cost.wkv_fwd(B, H, T, hd, r.element_size(), w.element_size(),
+                        S0 is not None, route)
+
+
+@cost.counted("wkv_bhtd", _fwd_cost)
 def wkv_bhtd(r, k, v, w, u, S0=None):
     """r, k, v, w [B, H, T, hd]; u [H, hd]; S0 [B, H, hd, hd] or None ->
     (y [B, H, T, hd] in r's dtype, S_final [B, H, hd, hd] float32).  Any
@@ -149,11 +160,13 @@ def wkv_bhtd(r, k, v, w, u, S0=None):
 
     CPU tensors: the plain version.  CUDA tensors: one launch of a kernel
     (r/k/v float32 with w float32; r/k/v bf16 with w float32 or bf16; hd
-    64; its route by :func:`wkv_plan`), or an exception."""
+    64; its route by :func:`wkv_plan`), or an exception.  Meta tensors:
+    the outputs, no launch."""
     _check(r, k, v, w, u, S0)
     if r.device.type == "cpu":
-        return wkv_ref(r, k, v, w, u, S0)
-    if r.device.type != "cuda":
+        y, S = wkv_ref(r, k, v, w, u, S0)
+        return cost.strided_like(y, r), S
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"the WKV kernel runs on CUDA (or, as its plain "
                          f"version, on the CPU), got {r.device}")
     B, H, T, hd = r.shape
@@ -171,7 +184,7 @@ def wkv_bhtd(r, k, v, w, u, S0=None):
     S0 = None if S0 is None else S0.float().contiguous()
     y = torch.empty_like(r)
     S = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    if B and H:
+    if B and H and r.device.type == "cuda":
         from .. import build
 
         lib = build.load_wkv()
@@ -218,6 +231,14 @@ def wkv_bwd_chunk_scratch_floats(B: int, H: int, T: int) -> tuple[int, int]:
     return B * H * nc * HEAD_DIM * HEAD_DIM, B * H * nc * HEAD_DIM
 
 
+def _bwd_cost(r, k, v, w, u, S0, dy, dS_final=None):
+    B, H, T, hd = r.shape
+    route = wkv_bwd_plan(r, k, v, w, dy, cost.H100_SMS)[0]
+    return cost.wkv_bwd(B, H, T, hd, r.element_size(), w.element_size(),
+                        S0 is not None, dS_final is not None, route)
+
+
+@cost.counted("wkv_bwd_bhtd", _bwd_cost)
 def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
     """The gradients of ``wkv_bhtd(r, k, v, w, u, S0)`` for the output
     gradients ``dy`` [B, H, T, hd] (r's dtype) and ``dS_final`` [B, H, hd,
@@ -231,7 +252,8 @@ def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
     exception: ``"chunk"`` launches the state pass and the chunk pass
     (csrc/wkv_bwd_chunk.cu), whose du per (b, h, chunk) the wrapper sums;
     ``"step"`` launches wkv_bwd_kernel (csrc/wkv_bwd.cu), whose du per row
-    it sums over B.  No fallback from one route to the other."""
+    it sums over B.  No fallback from one route to the other.  Meta
+    tensors: the route's outputs and scratch, no launch."""
     _check(r, k, v, w, u, S0)
     B, H, T, hd = r.shape
     if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
@@ -244,8 +266,11 @@ def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
                          f"is not [B, H, hd, hd] = {(B, H, hd, hd)} on "
                          f"{r.device}")
     if r.device.type == "cpu":
-        return wkv_bwd_ref(r, k, v, w, u, S0, dy, dS_final)
-    if r.device.type != "cuda":
+        dr, dk, dv, dw, du, dS0 = wkv_bwd_ref(r, k, v, w, u, S0, dy,
+                                              dS_final)
+        return (*(cost.strided_like(g, x) for g, x in
+                  ((dr, r), (dk, k), (dv, v), (dw, w))), du, dS0)
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"the WKV backward kernel runs on CUDA (or, as its "
                          f"plain version, on the CPU), got {r.device}")
     if (r.dtype, w.dtype) not in _PAIRS:
@@ -268,52 +293,56 @@ def wkv_bwd_bhtd(r, k, v, w, u, S0, dy, dS_final=None):
     du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
     dS0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if B and H:
-        from .. import build
-
         route, nj = wkv_bwd_plan(r, k, v, w, dy, _sm_count(r.device))
-        strides = (ctypes.c_longlong * 27)(*[
-            x.stride(i) for x in (r, k, v, w, dy, dr, dk, dv, dw)
-            for i in (0, 1, 2)])
-
-        def ptr(x):
-            return None if x is None else x.data_ptr()
-
         if route == "chunk":
-            lib = build.load_wkv_bwd_chunk()
             n_state, n_du = wkv_bwd_chunk_scratch_floats(B, H, T)
-            sc, dse = (torch.empty(n_state, dtype=torch.float32,
-                                   device=r.device) for _ in range(2))
+            scratch = [torch.empty(n_state, dtype=torch.float32,
+                                   device=r.device) for _ in range(2)]
             du = torch.empty(n_du, dtype=torch.float32, device=r.device)
-            with torch.cuda.device(r.device):
-                stream = torch.cuda.current_stream(r.device).cuda_stream
-                err = lib.wkv_bwd_chunk_launch(
-                    _DTYPE_CODE[w.dtype],
-                    *[ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr,
-                                       dk, dv, dw, du, dS0, sc, dse)],
-                    B, H, T, strides, nj, stream)
-            kernel = "wkv_bwd_chunk"
         else:
-            lib = build.load_wkv_bwd()
-            n_ckpt, n_sub = wkv_bwd_scratch_floats(B, H, T)
-            ckpt = torch.empty(n_ckpt, dtype=torch.float32, device=r.device)
-            sub = torch.empty(n_sub, dtype=torch.float32, device=r.device)
-            with torch.cuda.device(r.device):
-                stream = torch.cuda.current_stream(r.device).cuda_stream
-                err = lib.wkv_bwd_launch(
-                    _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype],
-                    *[ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr,
-                                       dk, dv, dw, du, dS0, ckpt, sub)],
-                    B, H, T, strides, stream)
-            kernel = "wkv_bwd"
-        if err != 0:
-            msg = build.cuda_error_string(lib, err, kernel)
-            raise RuntimeError(f"WKV backward kernel launch failed ({route} "
-                               f"route): {msg}")
-        wkv_bwd_bhtd.launches += 1
-        wkv_bwd_bhtd.route_launches[route] += 1
+            scratch = [torch.empty(n, dtype=torch.float32, device=r.device)
+                       for n in wkv_bwd_scratch_floats(B, H, T)]
+        if r.device.type == "cuda":
+            _launch_bwd(route, nj, r, k, v, w, dy, u, S0, dS_final, dr, dk,
+                        dv, dw, du, dS0, scratch)
         if route == "chunk":
             return dr, dk, dv, dw, du.view(B, H, -1, hd).sum((0, 2)), dS0
     return dr, dk, dv, dw, du.sum(0), dS0
+
+
+def _launch_bwd(route, nj, r, k, v, w, dy, u, S0, dS_final, dr, dk, dv, dw,
+                du, dS0, scratch):
+    """One launch of the backward's ``route`` (the chunked route's two
+    kernels count as one) on the current stream, or an exception."""
+    from .. import build
+
+    B, H, T, _ = r.shape
+    strides = (ctypes.c_longlong * 27)(*[
+        x.stride(i) for x in (r, k, v, w, dy, dr, dk, dv, dw)
+        for i in (0, 1, 2)])
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    ptrs = [ptr(x) for x in (r, k, v, w, dy, u, S0, dS_final, dr, dk, dv,
+                             dw, du, dS0, *scratch)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        if route == "chunk":
+            lib, kernel = build.load_wkv_bwd_chunk(), "wkv_bwd_chunk"
+            err = lib.wkv_bwd_chunk_launch(_DTYPE_CODE[w.dtype], *ptrs, B, H,
+                                           T, strides, nj, stream)
+        else:
+            lib, kernel = build.load_wkv_bwd(), "wkv_bwd"
+            err = lib.wkv_bwd_launch(_DTYPE_CODE[r.dtype],
+                                     _DTYPE_CODE[w.dtype], *ptrs, B, H, T,
+                                     strides, stream)
+    if err != 0:
+        msg = build.cuda_error_string(lib, err, kernel)
+        raise RuntimeError(f"WKV backward kernel launch failed ({route} "
+                           f"route): {msg}")
+    wkv_bwd_bhtd.launches += 1
+    wkv_bwd_bhtd.route_launches[route] += 1
 
 
 #: Backward wrapper calls that launched (the chunked route's two kernels

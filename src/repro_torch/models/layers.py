@@ -48,12 +48,15 @@ No counterpart here: ``residual_shard``, ``logits_shard`` and ``_cp_shard``
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import noop_context_fn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..kernels.flash_attention import flash_attention
 from .common import ModelConfig
@@ -86,16 +89,29 @@ def _normal(gen, shape, scale, dtype):
             * scale).to(dtype)
 
 
+#: The products ``remat_save="dots"`` keeps: matrix products without batch
+#: dimensions (JAX's ``dots_with_no_batch_dims_saveable``); ``x @ w`` of
+#: [B, T, D] by [D, F] folds into one of them, a batched ``bmm`` (the
+#: attention scores and the dense MoE's expert products) is recomputed.
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_policy(cfg: ModelConfig):
     """What a rematerialised block keeps for the backward (JAX's
     layers.py:63-70), as ``torch.utils.checkpoint``'s ``context_fn``.
     ``'nothing'`` recomputes the whole block and keeps only its inputs (the
-    default context).  ``'dots'`` (JAX's ``dots_with_no_batch_dims_saveable``)
-    is not ported: no config uses it (ROADMAP queue 1, item 9e)."""
+    default context).  ``'dots'`` also keeps the outputs of the products in
+    :data:`SAVED_DOTS` and recomputes everything else (a selective
+    checkpoint): the same gradients, fewer operations in the backward and
+    more memory held."""
     if getattr(cfg, "remat_save", "nothing") == "dots":
-        raise NotImplementedError("remat_save='dots' is not ported (ROADMAP "
-                                  "queue 1, item 9e); every config uses "
-                                  "'nothing'")
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
     return noop_context_fn
 
 

@@ -188,8 +188,14 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, *,
             lo, c, a, *gl = reduce([lo, c, a, *leaves(g)])
             return lo, c, a, unflatten_like(g, gl)
         m = microbatches
-        mbs = [{k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
-                for k, v in batch.items()} for i in range(m)]
+
+        def split(k, v, i):
+            if k == "mrope_pos":        # [3, B, S]: batch is dim 1
+                return v.reshape((v.shape[0], m, v.shape[1] // m)
+                                 + v.shape[2:])[:, i]
+            return v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+        mbs = [{k: split(k, v, i) for k, v in batch.items()}
+               for i in range(m)]
         grads = _constrain(tree_map(
             lambda p: torch.zeros_like(p, dtype=torch.float32), params))
         loss = ce = aux = 0.0

@@ -1,7 +1,7 @@
 """``repro_torch.models`` (the dense LM) against ``repro.models`` at smoke
-widths on the CPU: qwen3-0.6b (qk-norm, GQA), qwen2-0.5b (QKV bias, GQA)
-and olmo-1b (``ln_nonparam``), with the JAX weights carried across by
-``convert.lm_params_from_jax``.
+widths on the CPU: qwen3-0.6b (qk-norm, GQA), qwen2-0.5b (QKV bias, GQA),
+olmo-1b (``ln_nonparam``) and yi-9b (GQA 4/2, three layers), with the JAX
+weights carried across by ``convert.lm_params_from_jax``.
 
 Tolerances (max |logit difference| over every position and step):
   * float32 model, float32 caches: rtol 1e-5, atol 1e-5 (measured worst
@@ -30,7 +30,7 @@ from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.models import build as t_build
 from repro_torch.models import lm as TLM
 
-ARCHS = ["qwen3-0.6b", "qwen2-0.5b", "olmo-1b"]
+ARCHS = ["qwen3-0.6b", "qwen2-0.5b", "olmo-1b", "yi-9b"]
 
 # JAX's forward, jitted with the config static: one compile per shape
 j_forward = jax.jit(JLM.forward, static_argnums=0)

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_smoke_config
 from repro.models import build as jbuild
@@ -43,9 +44,11 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config as t_get_smoke_config
 from repro_torch.data import SyntheticSource, batches
 from repro_torch.models import build as tbuild
+from repro_torch.models.layers import SAVED_DOTS
 from repro_torch.optim import AdamWConfig
 from repro_torch.tree import leaves as tleaves
 from repro_torch.train import (cross_entropy, make_loss_fn, make_train_step)
+from repro_torch.tree import unflatten_like
 
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 #: The first Adam moment after three steps, atol as a share of the leaf's
@@ -301,9 +304,10 @@ def test_bf16_train_steps_close_to_jax():
 
 
 def test_unported_options_raise_and_name_their_item():
-    """``remat_save="dots"`` (item 9e.7) raises.  ``grad_acc_specs`` is
-    ported (item 9e.1): it places the float32 accumulator on the ambient
-    mesh and changes no number; without a mesh it raises."""
+    """Nothing is left unported: ``remat_save="dots"`` trains as
+    ``"nothing"`` does, bit for bit.  ``grad_acc_specs`` (item 9e.1)
+    places the float32 accumulator on the ambient mesh and changes no
+    number; without a mesh it raises."""
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import close_world, make_host_mesh
 
@@ -336,7 +340,66 @@ def test_unported_options_raise_and_name_their_item():
         ts, _batches(tcfg.vocab_size, 1)[0])
     assert np.isfinite(float(m["loss"])) and float(m["loss"]) != float(
         m0["loss"])
-    with pytest.raises(NotImplementedError, match="dots"):
-        cfg2 = dataclasses.replace(tcfg, remat_save="dots")
-        make_train_step(tbuild(cfg2), AdamWConfig())(
-            ts, _batches(tcfg.vocab_size, 1)[0])
+    b1 = _batches(tcfg.vocab_size, 1)[0]
+    s1, m1 = make_train_step(bundle, AdamWConfig())(ts, b1)
+    s2, m2 = make_train_step(tbuild(dataclasses.replace(
+        tcfg, remat_save="dots")), AdamWConfig())(ts, b1)
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    assert all(torch.equal(a, b) for a, b in zip(tleaves(s1.params),
+                                                   tleaves(s2.params)))
+
+
+class _MatmulCount(TorchDispatchMode):
+    """Counts the matrix products without batch dims (``aten.mm``,
+    ``aten.addmm``) run while entered."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in SAVED_DOTS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-30b-a3b",
+                                  "recurrentgemma-2b", "rwkv6-7b",
+                                  "whisper-small"])
+def test_dots_remat_keeps_the_products(arch):
+    """``remat_save="dots"`` (JAX's ``dots_with_no_batch_dims_saveable``)
+    gives ``"nothing"``'s loss and gradients bit for bit, and its backward
+    recomputes no product: it runs the ``aten.mm`` of a backward without
+    remat, where ``"nothing"`` runs more."""
+    base, tcfg = _cfgs(arch)
+    out = {}
+    for tag, kw in (("nothing", {}), ("dots", dict(remat_save="dots")),
+                    ("off", dict(remat=False))):
+        bundle = tbuild(dataclasses.replace(tcfg, **kw))
+        params = bundle.init_params(0, device="cpu")
+        batch = _batches(tcfg.vocab_size, 1, seq=32)[0]
+        if tcfg.family == "audio":
+            batch["frame_embeds"] = torch.randn(
+                4, tcfg.encoder_positions, tcfg.d_model,
+                generator=torch.Generator().manual_seed(2))
+        req = [p.detach().requires_grad_(True) for p in tleaves(params)]
+        with torch.enable_grad():
+            loss, _ = make_loss_fn(bundle, "dense" if tcfg.moe else "gmm")(
+                unflatten_like(params, req), batch)
+            with _MatmulCount() as mm:
+                grads = torch.autograd.grad(loss, req)
+        out[tag] = (loss, grads, mm.n)
+    assert torch.equal(out["nothing"][0], out["dots"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["nothing"][1],
+                                                   out["dots"][1]))
+    assert out["dots"][2] == out["off"][2] < out["nothing"][2]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-2b"])
+def test_dots_train_steps_match_jax_dots(arch):
+    """Two float32 steps with ``remat_save="dots"`` in both packages, to
+    test_three_train_steps_match_jax's tolerances."""
+    cfg, tcfg = _cfgs(arch, remat_save="dots")
+    js, ts, metrics, grads1 = _run_both(cfg, tcfg, 2)
+    _check_metrics(metrics)
+    _check_weights(js.params, ts.params, grads1, 2, "float32")

@@ -163,11 +163,22 @@ def test_prefill_then_decode_bfloat16_and_generate():
     np.testing.assert_array_equal(got.numpy(), np.stack(want, 1))
 
 
+def _extra(cfg):
+    ve, mp = _inputs(cfg, 4, 32)
+    return {"vision_embeds": ve, "mrope_pos": mp}
+
+
 def test_train_step_matches_jax():
-    def extra(cfg):
-        ve, mp = _inputs(cfg, 4, 32)
-        return {"vision_embeds": ve, "mrope_pos": mp}
-    js, ts, metrics, g1 = P.run_train_steps(ARCH, batch_kw=extra,
+    js, ts, metrics, g1 = P.run_train_steps(ARCH, batch_kw=_extra,
+                                            mrope_sections=SECTIONS)
+    P.check_train(js, ts, metrics, g1)
+
+
+def test_train_step_in_microbatches_matches_jax():
+    """Two microbatches: M-RoPE's positions [3, B, T] split along B (dim
+    1), as JAX's step splits them."""
+    js, ts, metrics, g1 = P.run_train_steps(ARCH, batch_kw=_extra,
+                                            microbatches=2,
                                             mrope_sections=SECTIONS)
     P.check_train(js, ts, metrics, g1)
 

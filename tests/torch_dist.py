@@ -1,5 +1,5 @@
 """Worlds of several processes on the CPU for the port's multi-rank tests
-(tests/test_torch_{mesh,collectives,moe_a2a}.py).
+(tests/test_torch_{mesh,collectives,moe_a2a,dryrun}.py).
 
 ``start_world(case, world, tmp)`` spawns ``world`` Python processes, each
 a rank of a gloo process group over a ``FileStore`` in ``tmp`` (no
@@ -371,6 +371,61 @@ def case_production(rank, world):
     return out
 
 
+#: Small cells for counting the dry run's step on the CPU: (shape name,
+#: SHAPES entry) added to ``repro_torch.configs.SHAPES`` while a count runs.
+DRYRUN_SHAPES = {
+    "train_tiny": dict(kind="train", seq_len=64, global_batch=4),
+    "prefill_tiny": dict(kind="prefill", seq_len=64, global_batch=4),
+    "decode_tiny": dict(kind="decode", seq_len=64, global_batch=4),
+    "prefill_vlm": dict(kind="prefill", seq_len=1088, global_batch=2),
+}
+
+
+def dryrun_config(arch):
+    """``arch``'s smoke config at a head width the attention kernels take
+    (64; qwen2-vl's M-RoPE sections halve with it), as the dry run counts
+    only what the card can launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    if cfg.family == "ssm" or cfg.resolved_head_dim in (64, 128, 256):
+        return cfg
+    kw = dict(head_dim=64)
+    if cfg.mrope:
+        kw["mrope_sections"] = (8, 12, 12)
+    return dataclasses.replace(cfg, **kw)
+
+
+def count_dryrun_cells(cells, mesh, device):
+    """{(arch, shape): count_cell's counts} of the dry run's step for each
+    cell (on ``device``, microbatches 2) over ``mesh``."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import count_cell
+
+    saved = dict(configs.SHAPES)
+    configs.SHAPES.update(DRYRUN_SHAPES)
+    try:
+        return {(a, s): count_cell(dryrun_config(a), s, mesh, None,
+                                   microbatches=2, device=device)
+                for a, s in cells}
+    finally:
+        configs.SHAPES.clear()
+        configs.SHAPES.update(saved)
+
+
+def case_dryrun(rank, world, cells):
+    """The dry run's counts of ``cells`` on this rank, on CPU tensors over
+    the host mesh (model 2)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model=2, device="cpu")
+    res = count_dryrun_cells([tuple(c) for c in cells], mesh, "cpu")
+    return {f"{a}/{s}": {k: r[k] for k in ("flops", "bytes", "coll_detail")}
+            for (a, s), r in res.items()}
+
+
 def case_many(rank, world, parts):
     """Several cases in turn on one world (fewer processes to start):
     ``parts`` is a list of [name, case, keywords]; {name: result}."""
@@ -379,7 +434,7 @@ def case_many(rank, world, parts):
 
 CASES = {"collectives": case_collectives, "mesh": case_mesh,
          "moe_a2a": case_moe_a2a, "serve": case_serve, "train": case_train,
-         "train_a2a": case_train_a2a,
+         "train_a2a": case_train_a2a, "dryrun": case_dryrun,
          "production": case_production, "many": case_many}
 
 

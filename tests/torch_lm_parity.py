@@ -150,17 +150,20 @@ def jit_forward(fn):
 
 
 def run_train_steps(arch, dtype="float32", batch_kw=None, n_steps=1,
-                    **over):
+                    microbatches=1, **over):
     """``n_steps`` jitted JAX train steps and the port's from the same
     converted state on the same batches (4 x 32 tokens, numpy seeds;
-    ``batch_kw(cfg)`` adds the family's inputs) -> (JAX state, port state,
-    [(JAX metrics, port metrics)], JAX's step-1 gradients)."""
+    ``batch_kw(cfg)`` adds the family's inputs; both steps in
+    ``microbatches``) -> (JAX state, port state, [(JAX metrics, port
+    metrics)], JAX's step-1 gradients)."""
     jcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, **over)
     tcfg = dataclasses.replace(t_smoke(arch), dtype=dtype, **over)
     js = j_init(jbuild(jcfg), jax.random.PRNGKey(0))
     ts = convert.train_state_from_jax(jax.device_get(js), tcfg, "cpu")
-    jstep = jax.jit(j_make_train_step(jbuild(jcfg), JAdamW(**OPT)))
-    tstep = make_train_step(tbuild(tcfg), AdamWConfig(**OPT))
+    jstep = jax.jit(j_make_train_step(jbuild(jcfg), JAdamW(**OPT),
+                                      microbatches=microbatches))
+    tstep = make_train_step(tbuild(tcfg), AdamWConfig(**OPT),
+                            microbatches=microbatches)
     metrics, grads1 = [], None
     for i in range(n_steps):
         toks = tokens(jcfg, (4, 33), seed=20 + i)
