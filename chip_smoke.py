@@ -91,9 +91,12 @@ Phases (each prints a line; any failure exits non-zero):
               launch per layer per prefill.
 
 10. flash bwd — the flash-attention backward kernels vs their plain
-              version on the card (qwen3 and qwen2 heads; B 1/2; T 128/200/
-              384/1000/2048; causal or not; window 0/256; bf16 (wgmma) /
-              f32 (FMA)); times against bound, plain version and the
+              version on the card (the heads of qwen3 (16/8 of 128), qwen2
+              (14/2 of 64), whisper (12/12 of 64), olmo-1b (16/16 of 128)
+              and qwen2-vl-2b (12/2 of 128); B 1/2; T 128/200/384/1000/
+              2048; causal or not; window 0/256; and B 2 x T 4,096 causal;
+              bf16 (wgmma) / f32 (FMA)); times against bound, plain
+              version and the
               backward of ``scaled_dot_product_attention``, bf16 at B 1/8
               and f32 at B 1 x T 2048.
 11. train golden — full-width qwen3-0.6b in float32 (TF32 off): two
@@ -244,7 +247,8 @@ Phases (each prints a line; any failure exits non-zero):
               kernel against the plain version (the MoE's plain run routed
               as the kernel's, its own differing expert sets counted, each
               at a near tie), and the MoE's decode through moe_dense
-              against moe_gmm; the MoE's prefill profiled (device time by
+              against moe_gmm (routed alike, the same count); the MoE's
+              prefill profiled (device time by
               kernel group, idle share); (c) run beside 17b's child, after
               phase 15:
               the three float32 goldens (``tests/torch_goldens/lm_qwen3_
@@ -271,17 +275,52 @@ Phases (each prints a line; any failure exits non-zero):
               beside ``"nothing"``, in turn: the loss bit-equal, the grad
               norm within the spread of two "nothing" runs, peak and step
               ms.
+26. archs   — run last (b and d's goldens after 23c): every arch of
+              ``configs.ARCHS`` on the card.  (a) ``serve.generate`` of
+              the four archs the earlier phases do not serve, bf16, full
+              width and depth, weights drawn on the card: qwen2-0.5b (14/2
+              heads of 64, QKV bias), olmo-1b (16/16 of 128, non-parametric
+              LayerNorm), yi-9b (32/4 of 128, untied head) and
+              moonshot-v1-16b-a3b (64 experts top 6, 2 shared, ``moe_impl=
+              "gmm"``), 8 x 2,048 + 32 each: kernel 2 once a layer in the
+              prefill (24, 16, 48, 48), never in a decode step, all wgmma;
+              the prefill through the kernel against the plain version
+              within SERVE_BF16_TOL (moonshot's plain run routed as the
+              kernel's, its own differing expert sets counted, each at a
+              near tie), prefill and decode ms, tokens/s, peak memory,
+              eager calls and host syncs a decode step, moonshot's prefill
+              profiled; (b) their float32 goldens (``tests/torch_goldens/
+              lm_{qwen2_0_5b,olmo_1b,yi_9b,moonshot_v1_16b_a3b}.json``; yi
+              at 4 and moonshot at 2 of 48 layers), teacher-forced as 23c;
+              (c) bf16 training at full width and depth, B 2 x T 4,096
+              (``train_4k``'s sequence, one card's 2 rows of its 256),
+              remat, 4 steps: qwen2-0.5b and olmo-1b through
+              ``repro_torch.launch.train.main``, whisper-small (1,500
+              frames) and qwen2-vl-2b (a 32 x 32 image in the first 1,024
+              slots, M-RoPE) through ``trainer.train``: finite losses,
+              kernel 2 twice and kernel 3 once a layer a step (48/24,
+              32/16, 24/12, 56/28), all wgmma; step ms, tokens/s, peak
+              memory, a profiled step's split; (d) the float32 train
+              goldens of qwen2-0.5b, whisper-small and qwen2-vl-2b
+              (``train_*.json``, full depth, on (b)'s and 23c's weights)
+              to TRAIN_TOL, and kernel 3 at head width 64 (whisper's
+              12/12 and qwen2-0.5b's 14/2 heads; held to its plain version
+              in phase 10) timed at B 2 x T 4,096 against its bound, the
+              plain version and SDPA's backward; (e) kernel
+              2 at qwen2-0.5b's heads (hd 64, GQA 7), olmo-1b's (hd 128,
+              16/16) and yi-9b's (hd 128, 32/4) as 23d.  Its time is
+              printed against ARCH_BUDGET_S.
 
 The order: 1-6, 17, 18, 20, 21, 7, then the float32 goldens 8, 11, 24
-(a, c), 15 and 23c beside 17b's and 25a's children (joined after them),
-then 9, 10, 12, 25 (d, b), 13, 14, 16 (25c in it), 19, 22 and 23 (a, b,
-24b, d).
+(a, c), 15, 23c and 26 (b, d's goldens) beside 17b's and 25a's children
+(joined after them), then 9, 10, 12, 25 (d, b), 13, 14, 16 (25c in it),
+19, 22, 23 (a, b, 24b, d) and 26 (a, c, d's kernel, e).
 
-Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c, 22c, 23a
-and 24b drive the main paths: each kernel's launch count is set to 0 just before
+Phases 5, 6, 9, 12, 16, 17c, 18c, 18f, 19d, 20b, 20c, 21b, 21c, 22c, 23a,
+24b, 26a and 26c drive the main paths: each kernel's launch count is set to 0 just before
 and read just after; every attention launch there must take the bf16 (wgmma) route.  The
 float32 (FMA) attention kernels' launches are counted over the float32 goldens' entry points
-(phases 8, 11, 24c, 15, 19c and 23c).  The last two lines are the kernel summary and
+(phases 8, 11, 24c, 15, 19c, 23c, 26b and 26d).  The last two lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package; it needs a CUDA card and the rest of the repository.
 
@@ -318,7 +357,12 @@ reads) only, and prints neither;
     python3 chip_smoke.py --dryrun
 
 runs phases 1-2, 24a (the world of one) and 25 (with 16 of rwkv6-7b, in
-which 25c runs) only, and prints neither.
+which 25c runs) only, and prints neither;
+
+    python3 chip_smoke.py --archs
+
+runs phases 1-2, 10 (where kernel 3 is held at the trained archs' heads)
+and 26 only, and prints neither.
 """
 from __future__ import annotations
 
@@ -2659,13 +2703,21 @@ def phase_flash(dev) -> dict:
     return {"bf16": res, "f32": f32}
 
 
-# Phase 10: the backward's cases (FLASH_HEADS; non-causal only where T is
-# a multiple of the 128-key block, JAX's contract) and tolerances.  float32:
+# Phase 10: the backward's cases (BWD_HEADS x BWD_BATCH x BWD_T, causal or
+# not, window 0 or 256; non-causal only where T is a multiple of the 128-key
+# block, JAX's contract; and each head grouping at the trainer's B 2 x T
+# 4,096 (BWD_TRAIN_BT), causal) and tolerances.  BWD_HEADS: phase 7's, and
+# those of the archs phase 26 trains that phase 7 does not hold: whisper's
+# 12/12 of 64 (GQA 1), olmo-1b's 16/16 of 128 (GQA 1) and qwen2-vl-2b's 12/2
+# of 128 (GQA 6).  float32:
 # tests/test_kernels.py:181-182 (atol 5e-5 + rtol 5e-5 element-wise).  bf16:
 # 1e-2 of each gradient's largest magnitude -- both sides round every output
 # once to bf16 (2^-8 of a value), and float32 sums in another order can
 # flip that rounding: two bf16 ulps of the largest value, with a margin.
+BWD_HEADS = dict(FLASH_HEADS, whisper=(12, 12, 64), olmo=(16, 16, 128),
+                 qwen2_vl=(12, 2, 128))
 BWD_BATCH, BWD_T = (1, 2), (128, 200, 384, 1000, 2048)
+BWD_TRAIN_BT = (2, 4096)
 BWD_F32_TOL = 5e-5
 BWD_BF16_TOL = 1e-2
 BWD_TIMED = ((1, 2048), (8, 2048))
@@ -2743,13 +2795,15 @@ def phase_flash_bwd(dev) -> dict:
     g = torch.Generator().manual_seed(10)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     max_abs = {"float32": 0.0, "bfloat16": 0.0}
-    n = 0
-    for (name, (H, Hkv, hd)), B, T, causal, window, dname in \
-            itertools.product(FLASH_HEADS.items(), BWD_BATCH, BWD_T,
-                              (True, False), (0, 256),
-                              ("bfloat16", "float32")):
-        if not causal and T % 128:
-            continue
+    hd64 = {"float32": 0.0, "bfloat16": 0.0}
+    dtypes = ("bfloat16", "float32")
+    cases = [c for c in itertools.product(BWD_HEADS, BWD_BATCH, BWD_T,
+                                          (True, False), (0, 256), dtypes)
+             if c[3] or c[2] % 128 == 0]
+    cases += [(name, *BWD_TRAIN_BT, True, 0, dname) for name in BWD_HEADS
+              for dname in dtypes]
+    for name, B, T, causal, window, dname in cases:
+        H, Hkv, hd = BWD_HEADS[name]
         dt = getattr(torch, dname)
         q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(dev, dt)
                        .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
@@ -2757,18 +2811,21 @@ def phase_flash_bwd(dev) -> dict:
         o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
         got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
         want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        hold_bwd(f"flash backward {name} B={B} T={T} causal={causal} "
-                 f"window={window} {dname}", dname, got, want, worst,
-                 max_abs)
-        n += 1
+        hold_bwd(f"flash backward {name} ({H}/{Hkv} of {hd}) B={B} T={T} "
+                 f"causal={causal} window={window} {dname}", dname, got,
+                 want, worst, hd64 if hd == 64 else max_abs)
         del q, k, v, do, o, lse, got, want
     torch.cuda.synchronize()
-    print(f"[10 flash bwd] kernel == plain version on {n} cases (heads "
-          f"{FLASH_HEADS}; B {BWD_BATCH}; T {BWD_T}; causal or not; window "
-          f"0/256; bf16/f32): max |err| f32 {worst['float32']:.3g} (tol "
+    for dname in dtypes:
+        max_abs[dname] = max(max_abs[dname], hd64[dname])
+    print(f"[10 flash bwd] kernel == plain version on {len(cases)} cases "
+          f"(heads {BWD_HEADS}; B {BWD_BATCH} x T {BWD_T}, causal or not, "
+          f"window 0/256; and B {BWD_TRAIN_BT[0]} x T {BWD_TRAIN_BT[1]} "
+          f"causal; bf16/f32): max |err| f32 {worst['float32']:.3g} (tol "
           f"{BWD_F32_TOL} + {BWD_F32_TOL} x |ref|), bf16 "
           f"{worst['bfloat16']:.3g} of each gradient's max (tol "
-          f"{BWD_BF16_TOL})", flush=True)
+          f"{BWD_BF16_TOL}); at head width 64, max |err| (absolute) f32 "
+          f"{hd64['float32']:.3g}, bf16 {hd64['bfloat16']:.3g}", flush=True)
 
     H, Hkv, hd = FLASH_HEADS["qwen3"]
     out = {}
@@ -2831,7 +2888,8 @@ def phase_flash_bwd(dev) -> dict:
     del q, k, v, do, o, lse, xs, lib_o
     torch.cuda.empty_cache()
     return {"bf16": dict(out[(TRAIN_B, TRAIN_T)],
-                         max_abs_err=max_abs["bfloat16"]), "f32": f32}
+                         max_abs_err=max_abs["bfloat16"]), "f32": f32,
+            "hd64_max_abs_err": hd64["bfloat16"]}
 
 
 def _golden_index(idx, tokens):
@@ -2890,6 +2948,11 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
         0, cfg.vocab_size, (gold["batch"], gold["seq"] + 1)).astype(np.int32)
     batch = {"tokens": torch.as_tensor(arr[:, :-1], device=dev),
              "labels": torch.as_tensor(arr[:, 1:], device=dev)}
+    if "extra_seed" in gold:
+        # whisper's frames, qwen2-vl's image grid and M-RoPE positions
+        batch.update(family_inputs(cfg, gold["batch"], gold["seq"], dev,
+                                   torch.float32, gold.get("image_grid"),
+                                   gold["extra_seed"]))
     fa0, bw0 = flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches
     _, _, _, grads = loss_and_grads(make_loss_fn(bundle, executor="cuda"),
                                     params, batch)
@@ -2996,84 +3059,26 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
 
 def phase_train(dev) -> dict:
     """[12 train] bf16 qwen3-0.6b through the trainer with tuned ingest."""
-    import math
-
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core.types import SLA, SLAPolicy
-    from repro_torch.data import SyntheticSource, TunedFetcher, batches
     from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
                                                      flash_attention_bwd_bhtd)
-    from repro_torch.models import build as build_model
     from repro_torch.optim import AdamWConfig, global_norm
     from repro_torch.train import loss_and_grads, make_loss_fn, \
         make_train_step
-    from repro_torch.train.trainer import TrainerConfig, train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("qwen3-0.6b")
-    check(cfg.dtype == "bfloat16" and cfg.remat, "qwen3-0.6b trains in "
-          "bf16 with remat")
-    bundle = build_model(cfg)
-    sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
-    fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
-    data = batches(fetcher.source, batch=TRAIN_B, seq=TRAIN_T, tuned=True,
-                   sla=sla, fetcher=fetcher)
-    marks = []
-
-    def hook(i, state, metrics):
-        marks.append((time.perf_counter(), flash_attention_bhtd.launches,
-                      flash_attention_bwd_bhtd.launches,
-                      float(metrics["loss"]), float(metrics["grad_norm"])))
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_attention_counts()
-    t0 = time.perf_counter()
-    try:
-        state, report = train(
-            bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
-                                total_steps=TRAIN_STEPS),
-            data, TrainerConfig(total_steps=TRAIN_STEPS, log_every=0),
-            hooks=hook, device=dev)
-    finally:
-        data.close()                   # stops the fetcher's threads
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fa, bw = flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches
-    check_bf16_route("train")
-    peak = torch.cuda.max_memory_allocated()
-    check(report.steps_run == TRAIN_STEPS, f"ran {report.steps_run} steps")
-    check(all(math.isfinite(x) for x in report.losses),
-          f"non-finite loss: {report.losses}")
-    per_fa = [b[1] - a[1] for a, b in zip([(t0, 0, 0)] + marks, marks)]
-    per_bw = [b[2] - a[2] for a, b in zip([(t0, 0, 0)] + marks, marks)]
-    check(per_fa == [2 * cfg.num_layers] * TRAIN_STEPS
-          and per_bw == [cfg.num_layers] * TRAIN_STEPS,
-          f"kernel launches per step: forward {per_fa}, backward {per_bw}")
-    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
-    mean_ms = statistics.mean(step_ms)
-    tokens = TRAIN_B * TRAIN_T
-    traj = []
-    for t, w, c, fi in fetcher.trajectory:
-        if not traj or traj[-1][1:] != (w, c, fi):
-            traj.append((round(t, 2), w, c, fi))
-    print(f"[12 train] qwen3-0.6b bf16 (remat), {TRAIN_STEPS} steps of "
-          f"{TRAIN_B} x {TRAIN_T} through trainer.train with SLA-tuned "
-          f"ingest: wall {wall:.3f} s (init included); steps 2-"
-          f"{TRAIN_STEPS} {mean_ms:.1f} ms a step (each "
-          f"{[round(x, 1) for x in step_ms]}) = {tokens / mean_ms * 1e3:.0f}"
-          f" tokens/s; peak memory {peak} B; launches per step: flash "
-          f"forward {per_fa[0]}, backward {per_bw[0]} ({fa} and {bw} in "
-          f"all); losses {[round(x, 4) for x in report.losses]}; grad "
-          f"norms {[round(m[4], 4) for m in marks]}; fetcher "
-          f"(s, workers, cores, freq_idx) {traj}; "
-          f"{fetcher.stats.bytes_fetched / 1e6:.1f} MB fetched, "
-          f"{fetcher.stats.energy_j:.1f} J accounted", flush=True)
-
-    breakdown = profile_train_step(dev, bundle, state)
+    L = cfg.num_layers
+    run = train_on_card(
+        dev, "[12 train]", cfg, {"flash_attention": flash_attention_bhtd,
+                                 "flash_attention_bwd":
+                                 flash_attention_bwd_bhtd},
+        {"flash_attention": 2 * L, "flash_attention_bwd": L}, TRAIN_B,
+        TRAIN_T, TRAIN_STEPS, f"{L} layers", keep_state=True)
+    state, bundle = run.pop("state"), run.pop("bundle")
 
     # one step at B 2 from a copy of the trained state: kernels vs plain
     gen = torch.Generator().manual_seed(12)
@@ -3109,7 +3114,9 @@ def phase_train(dev) -> dict:
           f"median {statistics.median(leaf_err.values()):.3g}", flush=True)
     del state, res, grk, grr
     torch.cuda.empty_cache()
-    return {"fa_launches": fa, "bwd_launches": bw, "breakdown": breakdown}
+    return {"fa_launches": run["launches"]["flash_attention"],
+            "bwd_launches": run["launches"]["flash_attention_bwd"],
+            "breakdown": run["breakdown"]}
 
 
 #: Device-kernel groups of a training step, by kernel name (first match).
@@ -3171,11 +3178,12 @@ def profile_split(fn, groups, other):
 
 
 def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
-                       steps=TRAIN_STEPS, tag="[12 train]"):
-    """One more B x T step from ``state`` under ``torch.profiler`` (CPU and
-    CUDA activity): device time by kernel group, the card's busy time (the
-    union of its kernels' intervals) and its idle share of the step's host
-    wall.  Prints "not measured" when the trace holds no device events."""
+                       steps=TRAIN_STEPS, tag="[12 train]", extra=None):
+    """One more B x T step from ``state`` (with the model's ``extra``
+    inputs) under ``torch.profiler`` (CPU and CUDA activity): device time
+    by kernel group, the card's busy time (the union of its kernels'
+    intervals) and its idle share of the step's host wall.  Prints "not
+    measured" when the trace holds no device events."""
     import torch
 
     from repro_torch.optim import AdamWConfig
@@ -3184,7 +3192,7 @@ def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
     gen = torch.Generator().manual_seed(13)
     toks = torch.randint(0, bundle.cfg.vocab_size, (B, T + 1),
                          generator=gen, dtype=torch.int32).to(dev)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **(extra or {})}
     step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
                                                total_steps=steps))
     other = "other (elementwise, reductions, optimizer)"
@@ -3204,6 +3212,128 @@ def profile_train_step(dev, bundle, state, B=TRAIN_B, T=TRAIN_T,
           f"wall; device time by group: {parts}; largest other kernels: "
           f"{[(n, round(ms, 1)) for n, ms in top]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": idle, **by}
+
+
+def train_on_card(dev, tag, cfg, kernels, want, B, T, steps, desc,
+                  extra=None, launcher_argv=None, keep_state=False):
+    """bf16 training of ``cfg`` on the card (phases 12, 19d, 22c, 26c):
+    ``steps`` steps of B x T through ``trainer.train`` fed by SLA-tuned
+    ingest (with the model's ``extra`` inputs), or, with
+    ``launcher_argv``, through ``repro_torch.launch.train.main`` (its call
+    of ``train`` replaced, for the run, by one that adds the hook; a
+    launcher that does not call it fails the phase).  ``kernels`` {name:
+    wrapper}: their counts set to 0 just before the run and read after
+    each step, which must launch ``want`` {name: count}; every loss finite
+    and every attention launch on the bf16 route.  Prints the run's line
+    and one profiled step (:func:`profile_train_step`, inside the
+    launcher's mesh while it stands); returns the readings (``routes``:
+    each kernel's launches by route over the steps alone), and the final
+    state and bundle with ``keep_state``."""
+    import math
+    import unittest.mock
+
+    import torch
+
+    from repro_torch.core.types import SLA, SLAPolicy
+    from repro_torch.data import SyntheticSource, TunedFetcher, batches
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    check(cfg.dtype == "bfloat16" and cfg.remat,
+          f"{cfg.name} trains in bf16 with remat")
+    marks, out = [], {}
+
+    def hook(i, state, metrics):
+        marks.append((time.perf_counter(),
+                      {k: fn.launches for k, fn in kernels.items()},
+                      float(metrics["loss"]), float(metrics["grad_norm"])))
+
+    def traced(bundle, opt, data, tcfg, **kw):
+        """The trainer with the hook; after its last step, the peak, the
+        parameter count, the kernels' launches by route and one profiled
+        step."""
+        state, report = train(bundle, opt, data, tcfg, hooks=hook, **kw)
+        torch.cuda.synchronize()
+        out.update(end=time.perf_counter(), report=report,
+                   peak=torch.cuda.max_memory_allocated(),
+                   params=sum(x.numel() for x in _leaves(state.params)),
+                   routes={k: dict(fn.route_launches)
+                           for k, fn in kernels.items()
+                           if hasattr(fn, "route_launches")})
+        out["breakdown"] = profile_train_step(dev, bundle, state, B, T,
+                                              steps, f"{tag} {cfg.name}",
+                                              extra)
+        if keep_state:
+            out.update(state=state, bundle=bundle)
+        return state, report
+
+    fetcher = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    if launcher_argv is not None:
+        how = "repro_torch.launch.train.main"
+        with unittest.mock.patch.object(launcher, "train", traced):
+            launcher.main(launcher_argv)
+        check("report" in out, f"{how} did not run trainer.train")
+    else:
+        how = "trainer.train with SLA-tuned ingest" + "".join(
+            f", {k} {list(v.shape)}" for k, v in (extra or {}).items())
+        sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
+        fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
+        data = batches(fetcher.source, batch=B, seq=T, tuned=True, sla=sla,
+                       fetcher=fetcher)
+        try:
+            traced(build_model(cfg),
+                   AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=steps),
+                   ({**b, **extra} for b in data) if extra else data,
+                   TrainerConfig(total_steps=steps, log_every=0), device=dev)
+        finally:
+            data.close()                   # stops the fetcher's threads
+    report = out["report"]
+    check(report.steps_run == steps,
+          f"{cfg.name}: ran {report.steps_run} steps")
+    check(all(math.isfinite(x) for x in report.losses),
+          f"{cfg.name}: non-finite loss: {report.losses}")
+    zero = {k: 0 for k in kernels}
+    per_step = [{k: b[1][k] - a[1][k] for k in kernels}
+                for a, b in zip([(t0, zero)] + marks, marks)]
+    check(all(p == want for p in per_step),
+          f"{cfg.name}: kernel launches per step {per_step}, expected "
+          f"{want} each")
+    check_bf16_route(f"{cfg.name} train")
+    launches = {k: sum(p[k] for p in per_step) for k in kernels}
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    mean_ms = statistics.mean(step_ms)
+    fetched = ""
+    if fetcher is not None:
+        traj = []
+        for t, w, c, fi in fetcher.trajectory:
+            if not traj or traj[-1][1:] != (w, c, fi):
+                traj.append((round(t, 2), w, c, fi))
+        fetched = (f"; fetcher (s, workers, cores, freq_idx) {traj}, "
+                   f"{fetcher.stats.bytes_fetched / 1e6:.1f} MB fetched, "
+                   f"{fetcher.stats.energy_j:.1f} J accounted")
+    print(f"{tag} {cfg.name} bf16 (remat, {desc}; {out['params']} "
+          f"parameters), {steps} steps of {B} x {T} through {how}: wall "
+          f"{out['end'] - t0:.3f} s (weights drawn on the card, init "
+          f"included; first step {(marks[0][0] - t0) * 1e3:.1f} ms); steps "
+          f"2-{steps} {mean_ms:.1f} ms a step (each "
+          f"{[round(x, 1) for x in step_ms]}) = "
+          f"{B * T / mean_ms * 1e3:.0f} tokens/s; peak memory {out['peak']} "
+          f"B ({out['peak'] / 1e9:.2f} GB); launches per step {per_step[0]} "
+          f"({launches} in all); losses "
+          f"{[round(x, 4) for x in report.losses]}; grad norms "
+          f"{[round(m[3], 4) for m in marks]}{fetched}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches, per_step=per_step[0],
+                step_ms=mean_ms, losses=report.losses)
 
 
 def random_qwen3_params():
@@ -4675,21 +4805,15 @@ def phase_recurrent_train(dev) -> dict:
     """[19 recurrent train] recurrentgemma-2b training: (a, b) the backward
     kernels vs their plain versions, (c) the float32 golden, (d) bf16 at
     full width and depth through ``trainer.train``."""
-    import math
-
     import torch
 
     from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.core.types import SLA, SLAPolicy
-    from repro_torch.data import SyntheticSource, TunedFetcher, batches
     from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
                                                      flash_attention_bwd_bhtd)
     from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
-    from repro_torch.models import build as build_model
-    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.optim import global_norm
     from repro_torch.train import loss_and_grads, make_loss_fn
-    from repro_torch.train.trainer import TrainerConfig, train
     from repro_torch.tree import leaves_with_paths
 
     t_phase = time.perf_counter()
@@ -4715,80 +4839,22 @@ def phase_recurrent_train(dev) -> dict:
 
     # (d) bf16, full width and depth, through the trainer
     cfg = get_config("recurrentgemma-2b")
-    check(cfg.dtype == "bfloat16" and cfg.remat, "recurrentgemma-2b trains "
-          "in bf16 with remat")
-    bundle = build_model(cfg)
     n_attn = attention_layers(cfg)
     n_rec = cfg.num_layers - n_attn
-    kernels = {"flash_attention": flash_attention_bhtd,
-               "flash_attention_bwd": flash_attention_bwd_bhtd,
-               "rglru": rglru_scan, "rglru_bwd": rglru_scan_bwd}
     # remat recomputes each layer's forward in the backward
-    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-            "rglru": 2 * n_rec, "rglru_bwd": n_rec}
-    sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
-    fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
-    data = batches(fetcher.source, batch=RG_TRAIN_B, seq=RG_TRAIN_T,
-                   tuned=True, sla=sla, fetcher=fetcher)
-    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=RG_TRAIN_STEPS)
-    marks = []
-
-    def hook(i, state, metrics):
-        marks.append((time.perf_counter(),
-                      {k: fn.launches for k, fn in kernels.items()},
-                      float(metrics["loss"]), float(metrics["grad_norm"])))
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    reset_attention_counts()
-    t0 = time.perf_counter()
-    try:
-        state, report = train(
-            bundle, opt, data,
-            TrainerConfig(total_steps=RG_TRAIN_STEPS, log_every=0),
-            hooks=hook, device=dev)
-    finally:
-        data.close()                   # stops the fetcher's threads
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    check_bf16_route("recurrentgemma-2b train")
-    peak = torch.cuda.max_memory_allocated()
-    check(report.steps_run == RG_TRAIN_STEPS, f"ran {report.steps_run} steps")
-    check(all(math.isfinite(x) for x in report.losses),
-          f"non-finite loss: {report.losses}")
-    zero = {k: 0 for k in kernels}
-    per_step = [{k: b[1][k] - a[1][k] for k in kernels}
-                for a, b in zip([(t0, zero)] + marks, marks)]
-    check(all(p == want for p in per_step),
-          f"kernel launches per step {per_step}, expected {want} each")
-    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
-    mean_ms = statistics.mean(step_ms)
+    run = train_on_card(
+        dev, "[19 recurrent train] (d)", cfg,
+        {"flash_attention": flash_attention_bhtd,
+         "flash_attention_bwd": flash_attention_bwd_bhtd,
+         "rglru": rglru_scan, "rglru_bwd": rglru_scan_bwd},
+        {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+         "rglru": 2 * n_rec, "rglru_bwd": n_rec},
+        RG_TRAIN_B, RG_TRAIN_T, RG_TRAIN_STEPS,
+        f"{cfg.num_layers} layers: {n_rec} RG-LRU, {n_attn} local MQA",
+        keep_state=True)
+    state, bundle = run.pop("state"), run.pop("bundle")
+    mean_ms, peak, breakdown = run["step_ms"], run["peak"], run["breakdown"]
     tokens = RG_TRAIN_B * RG_TRAIN_T
-    traj = []
-    for t, w, c, fi in fetcher.trajectory:
-        if not traj or traj[-1][1:] != (w, c, fi):
-            traj.append((round(t, 2), w, c, fi))
-    print(f"[19 recurrent train] (d) recurrentgemma-2b bf16 (remat, "
-          f"{cfg.num_layers} layers: {n_rec} RG-LRU, {n_attn} local MQA), "
-          f"{RG_TRAIN_STEPS} steps of {RG_TRAIN_B} x {RG_TRAIN_T} through "
-          f"trainer.train with SLA-tuned ingest: wall {wall:.3f} s (weights "
-          f"drawn on the card, init included; first step "
-          f"{(marks[0][0] - t0) * 1e3:.1f} ms); steps 2-{RG_TRAIN_STEPS} "
-          f"{mean_ms:.1f} ms a step (each {[round(x, 1) for x in step_ms]}) "
-          f"= {tokens / mean_ms * 1e3:.0f} tokens/s; peak memory {peak} B; "
-          f"launches per step {per_step[0]} ({launches} in all, every "
-          f"attention launch wgmma); losses "
-          f"{[round(x, 4) for x in report.losses]}; grad norms "
-          f"{[round(m[3], 4) for m in marks]}; fetcher (s, workers, cores, "
-          f"freq_idx) {traj}", flush=True)
-
-    breakdown = profile_train_step(dev, bundle, state, RG_TRAIN_B,
-                                   RG_TRAIN_T, RG_TRAIN_STEPS,
-                                   "[19 recurrent train] (d)")
     k5 = "rglru (kernel 5)"
     print(f"[19 recurrent train] (d) step {mean_ms:.1f} ms = "
           f"{tokens / mean_ms * 1e3:.0f} tokens/s, peak memory "
@@ -4835,8 +4901,8 @@ def phase_recurrent_train(dev) -> dict:
     torch.cuda.empty_cache()
     print(f"[19 recurrent train] phase time "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    res.update(launches=launches, per_step=per_step[0], step_ms=mean_ms,
-               peak=peak, breakdown=breakdown)
+    res.update(launches=run["launches"], per_step=run["per_step"],
+               step_ms=mean_ms, peak=peak, breakdown=breakdown)
     return res
 
 
@@ -5134,18 +5200,9 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     its plain version, (b) the float32 golden (from ``drawn``, phase 15's
     weights with their seed and depth, where they are the golden's), (c)
     bf16 at full width and 8 of 32 layers through ``trainer.train``."""
-    import math
-
-    import torch
-
     from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.core.types import SLA, SLAPolicy
-    from repro_torch.data import SyntheticSource, TunedFetcher, batches
     from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_bwd_bhtd
-    from repro_torch.models import build as build_model
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train.trainer import TrainerConfig, train
 
     t_phase = time.perf_counter()
     res = {"kernel": phase_wkv_bwd(dev)}
@@ -5192,78 +5249,23 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     # (c) bf16, full width, 8 of 32 layers, through the trainer
     cfg = dataclasses.replace(get_config("rwkv6-7b"),
                               num_layers=RWKV_TRAIN_LAYERS)
-    check(cfg.dtype == "bfloat16" and cfg.remat, "rwkv6-7b trains in bf16 "
-          "with remat")
-    bundle = build_model(cfg)
     L = cfg.num_layers
-    kernels = {"wkv": wkv_bhtd, "wkv_bwd": wkv_bwd_bhtd}
-    # remat recomputes each block's forward in the backward
-    want = {"wkv": 2 * L, "wkv_bwd": L}
-    sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT, timeout_s=0.5, max_ch=8)
-    fetcher = TunedFetcher(SyntheticSource(cfg.vocab_size, 1 << 16), sla)
-    data = batches(fetcher.source, batch=RG_TRAIN_B, seq=RG_TRAIN_T,
-                   tuned=True, sla=sla, fetcher=fetcher)
-    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=RG_TRAIN_STEPS)
-    marks = []
-
-    def hook(i, state, metrics):
-        marks.append((time.perf_counter(),
-                      {k: fn.launches for k, fn in kernels.items()},
-                      float(metrics["loss"]), float(metrics["grad_norm"])))
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
     wkv_bhtd.route_launches = {"chunk": 0, "step": 0}
     wkv_bwd_bhtd.route_launches = {"chunk": 0, "step": 0}
-    t0 = time.perf_counter()
-    try:
-        state, report = train(
-            bundle, opt, data,
-            TrainerConfig(total_steps=RG_TRAIN_STEPS, log_every=0),
-            hooks=hook, device=dev)
-    finally:
-        data.close()                   # stops the fetcher's threads
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    routes = dict(wkv_bhtd.route_launches)
-    bwd_routes = dict(wkv_bwd_bhtd.route_launches)
-    peak = torch.cuda.max_memory_allocated()
-    n_params = sum(x.numel() for x in _leaves(state.params))
-    check(report.steps_run == RG_TRAIN_STEPS, f"ran {report.steps_run} steps")
-    check(all(math.isfinite(x) for x in report.losses),
-          f"non-finite loss: {report.losses}")
-    zero = {k: 0 for k in kernels}
-    per_step = [{k: b[1][k] - a[1][k] for k in kernels}
-                for a, b in zip([(t0, zero)] + marks, marks)]
-    check(all(p == want for p in per_step),
-          f"WKV launches per step {per_step}, expected {want} each")
+    # remat recomputes each block's forward in the backward
+    run = train_on_card(
+        dev, "[22 rwkv6 train] (c)", cfg,
+        {"wkv": wkv_bhtd, "wkv_bwd": wkv_bwd_bhtd},
+        {"wkv": 2 * L, "wkv_bwd": L}, RG_TRAIN_B, RG_TRAIN_T,
+        RG_TRAIN_STEPS, f"full width, {L} of 32 layers")
+    launches = run["launches"]
+    routes, bwd_routes = run["routes"]["wkv"], run["routes"]["wkv_bwd"]
     check(routes["chunk"] == launches["wkv"],
           f"the bf16 training forward took the WKV routes {routes}")
     check(bwd_routes == {"chunk": launches["wkv_bwd"], "step": 0},
           f"the bf16 training backward took the WKV routes {bwd_routes}")
-    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
-    mean_ms = statistics.mean(step_ms)
+    mean_ms, peak, breakdown = run["step_ms"], run["peak"], run["breakdown"]
     tokens = RG_TRAIN_B * RG_TRAIN_T
-    print(f"[22 rwkv6 train] (c) rwkv6-7b bf16 (remat, full width, {L} of "
-          f"32 layers: {n_params} parameters), {RG_TRAIN_STEPS} steps of "
-          f"{RG_TRAIN_B} x {RG_TRAIN_T} through trainer.train with "
-          f"SLA-tuned ingest: wall {wall:.3f} s (weights drawn on the card, "
-          f"init included; first step {(marks[0][0] - t0) * 1e3:.1f} ms); "
-          f"steps 2-{RG_TRAIN_STEPS} {mean_ms:.1f} ms a step (each "
-          f"{[round(x, 1) for x in step_ms]}) = "
-          f"{tokens / mean_ms * 1e3:.0f} tokens/s; peak memory {peak} B "
-          f"({peak / 1e9:.2f} GB); WKV launches per step {per_step[0]} "
-          f"({launches} in all; forward routes {routes}, backward routes "
-          f"{bwd_routes}); losses "
-          f"{[round(x, 4) for x in report.losses]}; grad norms "
-          f"{[round(m[3], 4) for m in marks]}", flush=True)
-    breakdown = profile_train_step(dev, bundle, state, RG_TRAIN_B,
-                                   RG_TRAIN_T, RG_TRAIN_STEPS,
-                                   "[22 rwkv6 train] (c)")
     if breakdown is None:
         split = "not measured"
     else:
@@ -5278,17 +5280,14 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
     print(f"[22 rwkv6 train] (c) step {mean_ms:.1f} ms = "
           f"{tokens / mean_ms * 1e3:.0f} tokens/s, peak memory "
           f"{peak / 1e9:.2f} GB; profiled step: {split}", flush=True)
-    del state
-    torch.cuda.empty_cache()
     took = time.perf_counter() - t_phase
     print(f"[22 rwkv6 train] phase time {took:.1f} s (budget "
           f"{RWKV_TRAIN_BUDGET_S:.0f} s"
           f"{'' if took <= RWKV_TRAIN_BUDGET_S else ', over it'})",
           flush=True)
     res.update(launches=launches, routes=routes, bwd_routes=bwd_routes,
-               per_step=per_step[0],
-               step_ms=mean_ms, peak=peak, breakdown=breakdown,
-               phase_s=took)
+               per_step=run["per_step"], step_ms=mean_ms, peak=peak,
+               breakdown=breakdown, phase_s=took)
     return res
 
 
@@ -5350,13 +5349,13 @@ def mrope_grid_positions(B, T, side):
     return np.broadcast_to(pos[:, None], (3, B, T)).astype(np.int64)
 
 
-def family_inputs(cfg, B, T, dev, dtype, side):
-    """The family's extra inputs on ``dev`` (numpy seed 2): the VLM's patch
-    embeddings and M-RoPE positions, whisper's frame embeddings."""
+def family_inputs(cfg, B, T, dev, dtype, side, seed=2):
+    """The family's extra inputs on ``dev`` (numpy ``seed``): the VLM's
+    patch embeddings and M-RoPE positions, whisper's frame embeddings."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     if cfg.family == "vlm":
         ve = rng.standard_normal((B, side * side, cfg.d_model), np.float32)
         return {"vision_embeds": torch.as_tensor(ve, device=dev).to(dtype),
@@ -5371,11 +5370,14 @@ def family_inputs(cfg, B, T, dev, dtype, side):
 
 class RouterLog:
     """While entered, records every MoE router call of the port: each
-    token's expert set (sorted) and its probabilities, on the card.  With
-    ``replay`` (the log of another run of the same inputs), each call
-    routes to that run's experts instead, weighted by this call's own
-    probabilities at them (renormalised), and still records its own
-    choice: two runs then differ only by what else differs."""
+    token's expert set (sorted), its probabilities, its expert ids and the
+    router's weights, on the card.  With ``replay`` (the log of another run
+    of the same inputs), each call routes to that run's experts instead:
+    a token whose own set is the replayed one keeps the port's own weights
+    at them, and a token whose set differs (a near tie, which
+    :func:`routing_flips` counts) takes the replayed call's weights.  Each
+    call still records its own choice: two runs then differ only by what
+    else differs."""
 
     def __init__(self, replay=None):
         self.replay = replay
@@ -5390,11 +5392,13 @@ class RouterLog:
         def rec(cfg, p, xf):
             w, ids, aux = self._orig(cfg, p, xf)
             probs = torch.softmax(xf.float() @ p["router"], dim=-1)
-            self.calls.append((ids.sort(dim=1).values, probs, ids))
+            self.calls.append((ids.sort(dim=1).values, probs, ids, w))
             if self.replay is not None:
-                ids = self.replay.calls[len(self.calls) - 1][2]
-                w = probs.gather(1, ids)
-                w = w / w.sum(dim=-1, keepdim=True)
+                _, _, rids, rw = self.replay.calls[len(self.calls) - 1]
+                eq = rids.unsqueeze(2) == ids.unsqueeze(1)    # [N, k, k]
+                own = (eq * w.unsqueeze(1)).sum(dim=2)
+                same = eq.any(dim=2).all(dim=1, keepdim=True)
+                w, ids = torch.where(same, own, rw), rids
             return w, ids, aux
         TL.moe_router = rec
         return self
@@ -5415,7 +5419,7 @@ def routing_flips(a, b, k):
     import torch
 
     n, worst = 0, 0.0
-    for (ia, pa, _), (ib, pb, _) in zip(a.calls, b.calls):
+    for (ia, pa, *_), (ib, pb, *_) in zip(a.calls, b.calls):
         diff = (ia != ib).any(dim=1)
         n += int(diff.sum())
         if diff.any():
@@ -5451,11 +5455,14 @@ def decode_profile(step, params, state, tok, pos, **extra):
     return out, n_ops, syncs
 
 
-def phase_family_serve(dev, arch, mesh=None) -> dict:
+def phase_family_serve(dev, arch, mesh=None, shapes=FAMILY_SERVE,
+                       tag="[23 families]") -> dict:
     """[23 families] (a) a model at full width and depth in bf16 through
-    ``serve.generate``; (b) its prefill through the kernel against the
-    plain version (and, for the MoE, moe_dense against moe_gmm at
-    decode); for the MoE with ``mesh``, phase 24b on the same weights."""
+    ``serve.generate``, at its (batch, prompt, new tokens) in ``shapes``;
+    (b) its prefill through the kernel against the plain version (and, for
+    the MoE, moe_dense against moe_gmm at decode, and a profiled prefill);
+    for the MoE with ``mesh``, phase 24b on the same weights.  Phase 26a
+    runs it with its own ``shapes`` and ``tag``."""
     import numpy as np
     import torch
 
@@ -5468,7 +5475,7 @@ def phase_family_serve(dev, arch, mesh=None) -> dict:
     cfg = get_config(arch)
     check(cfg.dtype == "bfloat16", f"{arch} serves in bf16")
     bundle = build_model(cfg)
-    B, T, N = FAMILY_SERVE[arch]
+    B, T, N = shapes[arch]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5549,15 +5556,24 @@ def phase_family_serve(dev, arch, mesh=None) -> dict:
     dense = None
     if cfg.moe is not None:
         # moe_dense against moe_gmm on the same decode inputs: each call
-        # writes this step's keys at the same slot before reading it
+        # writes this step's keys at the same slot before reading it; the
+        # dense run routed as gmm's (its own differing expert sets counted,
+        # each at a near tie, as (b) counts the prefill's)
         pos = torch.full((B, 1), T + 1 + FAMILY_DECODE_STEPS,
                          dtype=torch.long, device=dev)
-        out = {}
+        out, dlogs = {}, {}
         for impl in ("gmm", "dense"):
-            _, lg, _ = make_decode_step(bundle, moe_impl=impl,
-                                        executor="cuda")(params, state, tok,
-                                                         pos)
+            with RouterLog(replay=dlogs.get("gmm")) as dlogs[impl]:
+                _, lg, _ = make_decode_step(bundle, moe_impl=impl,
+                                            executor="cuda")(params, state,
+                                                             tok, pos)
             out[impl] = lg[:, -1].float()
+        dflips, dratio = routing_flips(dlogs["gmm"], dlogs["dense"],
+                                       cfg.moe.top_k)
+        check(dratio <= 1.0,
+              f"{arch} decode: an expert set differs between moe_gmm and "
+              f"moe_dense at a top-k margin {dratio:.3g} x twice the runs' "
+              f"probability difference (not a near tie)")
         scale = float(out["gmm"].abs().max())
         dense = float((out["dense"] - out["gmm"]).abs().max()) / scale
         check(dense <= SERVE_BF16_TOL,
@@ -5599,11 +5615,13 @@ def phase_family_serve(dev, arch, mesh=None) -> dict:
                    f"(token, layer), each at a near tie (margin at most "
                    f"{flip_ratio:.3g} x twice the runs' probability "
                    f"difference); decode moe_dense vs moe_gmm {dense:.4g} "
-                   f"of max |logit| (tol {SERVE_BF16_TOL})")
+                   f"of max |logit| (tol {SERVE_BF16_TOL}; dense routed as "
+                   f"gmm, its own expert sets differ at {dflips} of "
+                   f"{B * cfg.num_layers}, margin at most {dratio:.3g} x)")
     enc = "" if enc_ms is None else (f"; encode {cfg.num_encoder_layers} "
                                      f"layers x {cfg.encoder_positions} "
                                      f"frames {enc_ms:.1f} ms")
-    print(f"[23 families] (a) {arch} bf16, {cfg.num_layers} layers, "
+    print(f"{tag} (a) {arch} bf16, {cfg.num_layers} layers, "
           f"{n_params} parameters drawn on the card in {draw_s:.1f} s "
           f"({resident} B; peak while drawing {draw_peak} B){enc}; "
           f"generate {B} x {T} prompt + {N} new tokens: wall "
@@ -5614,13 +5632,12 @@ def phase_family_serve(dev, arch, mesh=None) -> dict:
           f"{step_ms:.2f} ms a step (mean of {FAMILY_DECODE_STEPS}) = "
           f"{tokens_s:.0f} tok/s, {n_ops} eager torch calls and {syncs} "
           f"host syncs a step; peak memory {gen_peak} B", flush=True)
-    print(f"[23 families] (b) {arch}: prefill logits kernel vs plain max "
+    print(f"{tag} (b) {arch}: prefill logits kernel vs plain max "
           f"|err| {err:.4g} of max |logit| {scale:.4g} (tol "
           f"{SERVE_BF16_TOL}){flipped}", flush=True)
     a2a = None
     if cfg.moe is not None:
-        profile_prefill(dev, bundle, params, prompt, "gmm",
-                        "[23 families] (b)")
+        profile_prefill(dev, bundle, params, prompt, "gmm", f"{tag} (b)")
     if mesh is not None and cfg.moe is not None:
         a2a = phase_mesh_moe(dev, bundle, params, prompt, mesh,
                              pre_ms["cuda"], gen_peak)
@@ -5632,13 +5649,15 @@ def phase_family_serve(dev, arch, mesh=None) -> dict:
             "syncs": syncs, "a2a": a2a}
 
 
-def start_family_draws():
-    """23c's float32 weights (``random_lm_params``, numpy alone), drawn in
-    threads of their own (numpy releases the GIL while it fills), so they
-    overlap the phases before 23c: {arch: future of (tree, seconds)}."""
+def start_family_draws(archs=FAMILY_GOLDENS):
+    """The float32 weights of the goldens of ``archs`` (23c's, and 26b's;
+    ``random_lm_params``, numpy alone), drawn in threads of their own
+    (numpy releases the GIL while it fills; at most 4 at once, in the
+    order given), so they overlap the phases before them: {arch: future of
+    (tree, seconds)}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    pool = ThreadPoolExecutor(max_workers=len(FAMILY_GOLDENS))
+    pool = ThreadPoolExecutor(max_workers=min(4, len(archs)))
 
     def draw(arch):
         from repro_torch import convert
@@ -5648,14 +5667,14 @@ def start_family_draws():
         tree = convert.random_lm_params(family_golden_config(arch, gold),
                                         seed=gold["seed"])
         return tree, time.perf_counter() - t0
-    futures = {arch: pool.submit(draw, arch) for arch in FAMILY_GOLDENS}
+    futures = {arch: pool.submit(draw, arch) for arch in archs}
     pool.shutdown(wait=False)
     return futures
 
 
 def family_golden(arch):
     with open(os.path.join(ROOT, "tests", "torch_goldens",
-                           FAMILY_GOLDENS[arch])) as f:
+                           {**FAMILY_GOLDENS, **ARCH_GOLDENS}[arch])) as f:
         return json.load(f)
 
 
@@ -5671,14 +5690,15 @@ def family_golden_config(arch, gold):
     return cfg
 
 
-def phase_family_golden(dev, arch, drawn) -> dict:
+def phase_family_golden(dev, arch, drawn, tag="[23 families] (c)") -> dict:
     """[23 families] (c) a float32 model on the card vs its JAX golden,
     teacher-forced: each decode step takes the golden's token, so a step
     where the golden's top two logits lie within the tolerance (a near
     tie, its argmax either way) does not derail the rest.  For the MoE,
     every token's expert set is held to JAX's: a set may differ only at a
     near tie (JAX's top-k margin below FAMILY_FLIP_MARGIN), and its row is
-    then held only up to that step."""
+    then held only up to that step.  Phase 26b runs it on its own archs
+    under its own ``tag`` (the lines' prefix)."""
     import numpy as np
     import torch
 
@@ -5688,6 +5708,7 @@ def phase_family_golden(dev, arch, drawn) -> dict:
     from repro_torch.serve import make_decode_step, make_prefill
 
     gold = family_golden(arch)
+    gold_file = {**FAMILY_GOLDENS, **ARCH_GOLDENS}[arch]
     cfg = family_golden_config(arch, gold)
     t0 = time.perf_counter()
     tree, draw_s = drawn.result()
@@ -5780,12 +5801,12 @@ def phase_family_golden(dev, arch, drawn) -> dict:
         routed = (f"; every token's expert set == JAX's but {len(flips)} "
                   f"(step, layer, row, JAX's margin) {flips}; smallest JAX "
                   f"router margin {least:.3g}")
-    print(f"[23 families] (c) {arch} float32 (TF32 off; "
+    print(f"{tag} {arch} float32 (TF32 off; "
           f"{cfg.num_layers} layers: {gold['depth_cut'] or 'full depth'}), "
           f"{B} x {T} prompt tokens + {N} teacher-forced steps on the card "
           f"(weights drawn in {draw_s:.1f} s beside the earlier phases, "
           f"waited {wait_s:.1f} s): greedy tokens == "
-          f"{FAMILY_GOLDENS[arch]}'s on {n_held - len(ties)}/{n_held} held "
+          f"{gold_file}'s on {n_held - len(ties)}/{n_held} held "
           f"(step, row), near ties {ties}; top-5 logits max rel err "
           f"{top_err:.3g}, norms {norm_err:.3g} (tol {GOLDEN_RTOL}); "
           f"smallest golden top-2 margin {margin:.4g}{routed}", flush=True)
@@ -5794,10 +5815,12 @@ def phase_family_golden(dev, arch, drawn) -> dict:
     return {"flips": len(flips), "ties": len(ties)}
 
 
-def phase_flash64(dev) -> dict:
-    """[23 families] (d) kernel 2 at head width 64 (whisper's heads):
-    kernel vs plain version, timed against its bound, the plain version
-    and SDPA."""
+def phase_flash64(dev, heads=FLASH_64, tag="[23 families] (d)",
+                  shapes=FLASH_64_TIMED) -> dict:
+    """[23 families] (d) kernel 2 at head width 64 (whisper's ``heads``)
+    at each (B, T) of ``shapes``: kernel vs plain version, timed against
+    its bound, the plain version and SDPA (phase 26e: at the new archs'
+    heads)."""
     import torch
     import torch.nn.functional as F
 
@@ -5805,22 +5828,23 @@ def phase_flash64(dev) -> dict:
                                                      flash_attention_bhtd)
 
     g = torch.Generator().manual_seed(23)
-    H, Hkv, hd = FLASH_64
+    H, Hkv, hd = heads
     out = {}
-    for B, T in FLASH_64_TIMED:
+    for B, T in shapes:
         q, k, v = [torch.randn(B, T, h, hd, generator=g).to(
             dev, torch.bfloat16).transpose(1, 2) for h in (H, Hkv, Hkv)]
         err = float((flash_attention_bhtd(q, k, v).float()
                      - attention_ref(q, k, v).float()).abs().max())
         check(err <= FLASH_TOL["bfloat16"],
-              f"flash attention hd 64 B={B} T={T}: max |err| {err}")
+              f"flash attention hd {hd} ({H}/{Hkv}) B={B} T={T}: max |err| "
+              f"{err}")
         ms = time_cuda(lambda: flash_attention_bhtd(q, k, v), 5)
         plain_ms = time_cuda(lambda: attention_ref(q, k, v), 5)
         lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 5)
+            q, k, v, is_causal=True, enable_gqa=Hkv != H), 5)
         bound_ms, bound_by, flops, nbytes = flash_bound(B, H, Hkv, hd, T, T,
                                                         True, 2)
-        print(f"[23 families] (d) kernel 2 bf16 (wgmma) causal hd 64 (heads "
+        print(f"{tag} kernel 2 bf16 (wgmma) causal hd {hd} (heads "
               f"{H}/{Hkv}) B={B} T={T}: kernel {ms:.4f} ms (median of 5); "
               f"bound {bound_ms:.4f} ms by {bound_by} ({flops} FLOP, "
               f"{nbytes} B); x bound {ms / bound_ms:.1f}; plain "
@@ -5860,6 +5884,199 @@ def family_budget(serve_s, golden_s):
     print(f"[23 families] phase time {took:.1f} s (a, b, d {serve_s:.1f} s; "
           f"c {golden_s:.1f} s; budget {FAMILY_BUDGET_S:.0f} s"
           f"{'' if took <= FAMILY_BUDGET_S else ', over it'})", flush=True)
+    return took
+
+
+# ---------------------------------------------------- every arch (26) --
+# Phase 26: every arch of configs.ARCHS on the card.  (a) The four archs
+# the earlier phases do not serve, bf16, full width and depth, weights
+# drawn on the card (torch.Generator seed 0), phase 23a's prompt shape
+# (batch, prompt, new tokens).
+ARCH_SERVE = {"qwen2-0.5b": (8, 2048, 32), "olmo-1b": (8, 2048, 32),
+              "yi-9b": (8, 2048, 32), "moonshot-v1-16b-a3b": (8, 2048, 32)}
+# (b) Their float32 goldens (tests/torch_goldens/make_lm_golden.py's
+# FAMILIES: qwen2-0.5b and olmo-1b at full depth, yi-9b at 4 of 48 layers,
+# moonshot at 2 of 48), teacher-forced as 23c; weights by position.
+ARCH_GOLDENS = {"qwen2-0.5b": "lm_qwen2_0_5b.json",
+                "olmo-1b": "lm_olmo_1b.json", "yi-9b": "lm_yi_9b.json",
+                "moonshot-v1-16b-a3b": "lm_moonshot_v1_16b_a3b.json"}
+FAMILY_WEIGHT_CHECK.update({
+    "qwen2-0.5b": {"embed": (0, slice(0, 4)),
+                   "blocks/attn/wq": (23, -1, slice(-4, None)),
+                   "blocks/attn/bk": (11, slice(0, 4)),
+                   "blocks/mlp/wd": (13, 5, slice(0, 4))},
+    "olmo-1b": {"embed": (0, slice(0, 4)),
+                "blocks/attn/wq": (15, -1, slice(-4, None)),
+                "blocks/mlp/wd": (13, 5, slice(0, 4))},
+    "yi-9b": {"embed": (0, slice(0, 4)),
+              "blocks/attn/wq": (3, -1, slice(-4, None)),
+              "blocks/mlp/wd": (2, 5, slice(0, 4)),
+              "head": (5, slice(-4, None))},
+    "moonshot-v1-16b-a3b": {"embed": (0, slice(0, 4)),
+                            "blocks/moe/router": (1, -1, slice(-4, None)),
+                            "blocks/moe/wg": (1, 63, 5, slice(0, 4)),
+                            "blocks/moe/shared/wd": (0, -1,
+                                                     slice(-4, None))}})
+# (c) Training on the card of every arch whose bf16 AdamW state fits one
+# card (~22 B a parameter): train_4k's sequence at one card's 2 rows of its
+# global batch of 256, remat, ARCH_TRAIN_STEPS steps.  qwen2-0.5b and
+# olmo-1b through the launcher (tokens alone, as JAX's launcher feeds);
+# whisper-small and qwen2-vl-2b through trainer.train with train_4k's extra
+# inputs (src/repro/launch/input_specs.py:98-110: 1,500 frames; a 32 x 32
+# image in the first 1,024 slots with its M-RoPE positions).  yi-9b (8.83 B
+# parameters, ~194 GB of state) and moonshot (28.55 B, ~628 GB) need ROADMAP
+# item 10m's per-layer gather.
+ARCH_TRAIN_LAUNCHER = ("qwen2-0.5b", "olmo-1b")
+ARCH_TRAIN_TRAINER = ("whisper-small", "qwen2-vl-2b")
+ARCH_TRAIN_B, ARCH_TRAIN_T, ARCH_TRAIN_STEPS = 2, 4096, 4
+# (d) The float32 train goldens (tests/torch_goldens/make_train_golden.py:
+# full depth, B 2 x T 128; whisper's frames and qwen2-vl's 8 x 8 image
+# grid from numpy seed 2), held to phase 11's TRAIN_TOL, on the weights of
+# the serving golden of the same arch, seed and depth (drawn once).
+ARCH_TRAIN_GOLDENS = {"qwen2-0.5b": "train_qwen2_0_5b.json",
+                      "whisper-small": "train_whisper_small.json",
+                      "qwen2-vl-2b": "train_qwen2_vl_2b.json"}
+# (d) kernel 3 at head width 64: whisper's heads (12/12, GQA group 1) and
+# qwen2-0.5b's (14/2, group 7), held to its plain version in phase 10
+# (BWD_HEADS, with the other trained archs' groupings), timed at the
+# trainer's B 2 x T 4,096; (e) kernel 2 at the served archs' new head
+# groupings as 23d: (H, Hkv, hd) and the (B, T) timed.
+ARCH_FLASH = {"hd64_gqa7": ((14, 2, 64), FLASH_64_TIMED),
+              "hd128_gqa1": ((16, 16, 128), ((8, 2048),)),
+              "hd128_gqa8": ((32, 4, 128), ((8, 2048),))}
+# The phase's budget (s) on a host that runs the earlier phases in ~816 s,
+# counted as FAMILY_BUDGET_S: (a, c, d's kernel, e) and (b, d's goldens).
+ARCH_BUDGET_S = 120
+
+
+def arch_train(dev, arch) -> dict:
+    """[26 archs] (c) one arch trained in bf16 at full width and depth
+    (:func:`train_on_card`), ARCH_TRAIN_STEPS steps of ARCH_TRAIN_B x
+    ARCH_TRAIN_T: through ``repro_torch.launch.train.main``
+    (ARCH_TRAIN_LAUNCHER, tokens alone) or ``trainer.train`` with the extra
+    inputs (ARCH_TRAIN_TRAINER).  Kernel 2 twice a layer a step (remat),
+    kernel 3 once."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    cfg = get_config(arch)
+    B, T, S = ARCH_TRAIN_B, ARCH_TRAIN_T, ARCH_TRAIN_STEPS
+    L = attention_layers(cfg)
+    kernels = {"flash_attention": flash_attention_bhtd,
+               "flash_attention_bwd": flash_attention_bwd_bhtd}
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    desc = f"{cfg.num_layers} layers"
+    if arch in ARCH_TRAIN_LAUNCHER:
+        return train_on_card(dev, "[26 archs] (c)", cfg, kernels, want, B, T,
+                             S, desc, launcher_argv=[
+                                 "--arch", arch, "--batch", str(B), "--seq",
+                                 str(T), "--steps", str(S)])
+    # train_4k's extra inputs (numpy seed 2): whisper's frames, qwen2-vl's
+    # VLM_IMAGE_SIDE x VLM_IMAGE_SIDE image and its M-RoPE positions
+    extra = family_inputs(cfg, B, T, dev, torch.bfloat16, VLM_IMAGE_SIDE)
+    return train_on_card(dev, "[26 archs] (c)", cfg, kernels, want, B, T, S,
+                         desc, extra=extra)
+
+
+def phase_flash_bwd64(dev) -> dict:
+    """[26 archs] (d) kernel 3 at head width 64 (held to its plain version
+    in phase 10, BWD_HEADS), timed at the trainer's B 2 x T 4,096, causal,
+    bf16, at whisper's heads (12/12, GQA 1) and qwen2-0.5b's (14/2, GQA
+    7) against its bound (10 hd operations a reachable pair and head at
+    989 TFLOP/s), the plain version and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    B, T = ARCH_TRAIN_B, ARCH_TRAIN_T
+    out = {}
+    for name in ("whisper", "qwen2"):
+        H, Hkv, hd = BWD_HEADS[name]
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g, device=dev)
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for h in (H, Hkv, Hkv, H)]
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
+        ms = time_cuda(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do),
+                       5)
+        plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+                             2)
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_o = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                               enable_gqa=Hkv != H)
+        lib_ms = time_cuda(lambda: torch.autograd.grad(
+            lib_o, xs, do, retain_graph=True), 5)
+        bound_ms, bound_by, flops, nbytes = bwd_bound(B, H, Hkv, hd, T,
+                                                      True, 2)
+        print(f"[26 archs] (d) kernel 3 bf16 (wgmma kernels) causal hd 64 "
+              f"{name} heads {H}/{Hkv} B={B} T={T}: kernel {ms:.4f} ms (dq "
+              f"+ dk/dv + delta, median of 5); bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flops} FLOP, {nbytes} B); x bound "
+              f"{ms / bound_ms:.1f}; plain {plain_ms:.3f} ms (median of 2); "
+              f"scaled_dot_product_attention backward {lib_ms:.4f} ms",
+              flush=True)
+        out[f"{name}_B{B}_T{T}"] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+        del q, k, v, do, o, lse, xs, lib_o
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_arch_goldens(dev, draws) -> float:
+    """[26 archs] (b) the four serving goldens, teacher-forced (as 23c),
+    and (d) the three float32 train goldens (as phase 11), each on the
+    weights of the serving golden of its arch (``draws``: {arch: future
+    of (tree, seconds)}, 23c's for whisper and qwen2-vl).  Returns the
+    seconds taken."""
+    t0 = time.perf_counter()
+    for arch in ARCH_GOLDENS:
+        # each tree is let go after its last use
+        phase_family_golden(dev, arch, draws[arch] if arch in
+                            ARCH_TRAIN_GOLDENS else draws.pop(arch),
+                            "[26 archs] (b)")
+    for arch, file in ARCH_TRAIN_GOLDENS.items():
+        with open(os.path.join(ROOT, "tests", "torch_goldens", file)) as f:
+            gold = json.load(f)
+        lm = family_golden(arch)
+        check((gold["arch"], gold["seed"], gold["num_layers"])
+              == (arch, lm["seed"], lm["config"]["num_layers"]),
+              f"{file}: not the weights of {arch}'s serving golden")
+        phase_train_golden(dev, draws.pop(arch).result()[0], file,
+                           "[26 archs] (d)")
+    return time.perf_counter() - t0
+
+
+def phase_archs(dev) -> dict:
+    """Phase 26 (a, c, d's kernel 3, e): the four archs served, the four
+    trained, kernel 3 at head width 64 and kernel 2 at the new head
+    groupings; returns each path's launches, the kernels' readings and the
+    seconds taken."""
+    t_phase = time.perf_counter()
+    res = {"serve": {arch: phase_family_serve(dev, arch, shapes=ARCH_SERVE,
+                                              tag="[26 archs]")
+                     for arch in ARCH_SERVE}}
+    res["train"] = {arch: arch_train(dev, arch)
+                    for arch in ARCH_TRAIN_LAUNCHER + ARCH_TRAIN_TRAINER}
+    res["bwd64"] = phase_flash_bwd64(dev)
+    res["fwd"] = {name: phase_flash64(dev, heads, "[26 archs] (e)", shapes)
+                  for name, (heads, shapes) in ARCH_FLASH.items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def arch_budget(run_s, golden_s):
+    took = run_s + golden_s
+    print(f"[26 archs] phase time {took:.1f} s (a, c, d's kernel, e "
+          f"{run_s:.1f} s; b, d's goldens {golden_s:.1f} s; budget "
+          f"{ARCH_BUDGET_S:.0f} s"
+          f"{'' if took <= ARCH_BUDGET_S else ', over it'})", flush=True)
     return took
 
 
@@ -6162,7 +6379,7 @@ def phase_mesh_moe(dev, bundle, params, prompt, mesh, gmm_ms,
     n_ample = A2A_AMPLE_B * T
     c_ample = A.capacity(n_ample, k, E, ample)
     dropped_ample = sum(int((~A.dispatch_slots(ids, E, c_ample)[1]).sum())
-                        for _, _, ids in logs["a2a"].calls)
+                        for _, _, ids, _ in logs["a2a"].calls)
     a = logits["a2a"][:, -1].float()
     b = logits["gmm"][:, -1].float()
     check(bool(torch.isfinite(a).all()), "a2a prefill: non-finite logits")
@@ -6290,7 +6507,8 @@ def main() -> int:
                      rwkv6_only="--rwkv6-train" in sys.argv,
                      families_only="--families" in sys.argv,
                      mesh_only="--mesh" in sys.argv,
-                     dryrun_only="--dryrun" in sys.argv)
+                     dryrun_only="--dryrun" in sys.argv,
+                     archs_only="--archs" in sys.argv)
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -6302,14 +6520,15 @@ def main() -> int:
 
 def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
           fleet_only=False, rwkv6_only=False, families_only=False,
-          mesh_only=False, dryrun_only=False) -> int:
+          mesh_only=False, dryrun_only=False, archs_only=False) -> int:
     """Every phase (with ``tick_only``, phases 1-6 and 17; with
     ``learn_only``, phases 1-3 and 18; with ``recurrent_only``, phases 1-2
     and 19; with ``fleet_only``, phases 1-3, 20 and 21; with
     ``rwkv6_only``, phases 1-2 and 22; with ``families_only``, phases 1-2
     and 23; with ``mesh_only``, phases 1-2, 11 and 24, with 23a-b for the
     MoE; with ``dryrun_only``, phases 1-2, 24a's world and 25, with 16 for
-    rwkv6-7b), on the CUDA device ``dev``."""
+    rwkv6-7b; with ``archs_only``, phases 1-2 and 26), on the CUDA device
+    ``dev``."""
     import torch
 
     from repro_torch import api
@@ -6461,6 +6680,17 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         lap("phase 25")
         print("chip_smoke: dry-run phases (1-2, 24a, 25 with 16 of rwkv6-7b)"
               " passed")
+        return 0
+    if archs_only:
+        # 26d's train goldens of whisper and qwen2-vl take 23c's weights
+        draws = start_family_draws(tuple(ARCH_GOLDENS)
+                                   + ("whisper-small", "qwen2-vl-2b"))
+        phase_flash_bwd(dev)
+        lap("phase 10")
+        archs = phase_archs(dev)
+        arch_budget(archs["phase_s"], phase_arch_goldens(dev, draws))
+        lap("phase 26")
+        print("chip_smoke: arch phases (1-2, 10, 26) passed")
         return 0
     if families_only:
         draws = start_family_draws()
@@ -6759,7 +6989,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     # meanwhile.
     child = EnvPlainChild()
     dry = DryrunChildren()
-    draws = start_family_draws()
+    draws = start_family_draws(tuple(FAMILY_GOLDENS) + tuple(ARCH_GOLDENS))
     tree = random_qwen3_params()
     # the float32 (FMA) attention kernels' launches over the float32
     # goldens' entry points (generate, the train step): phases 8, 11, 15
@@ -6794,10 +7024,15 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     lap("phase 15")
     t0 = time.perf_counter()
     for arch in FAMILY_GOLDENS:
-        count_fma(phase_family_golden, dev, arch, draws[arch])
+        # whisper's and qwen2-vl's weights serve 26d's train goldens too
+        count_fma(phase_family_golden, dev, arch,
+                  draws[arch] if arch in ARCH_TRAIN_GOLDENS
+                  else draws.pop(arch))
     golden_s = time.perf_counter() - t0
-    del draws
     lap("phase 23c")
+    arch_golden_s = count_fma(phase_arch_goldens, dev, draws)
+    del draws
+    lap("phase 26b, d (goldens)")
     child.join()
     lap("phase 17b (joined)")
     dry.join()
@@ -6830,7 +7065,16 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     a2a = fams["qwen3-moe-30b-a3b"]["a2a"]
     mesh_budget(world["phase_s"], mesh_c_s, a2a["phase_s"])
     fam_launches = sum(fams[a]["launches"] for a in FAMILY_SERVE)
-    lap(f"phase 23 (24b in it): all phases, on {card}")
+    lap("phase 23 (24b in it)")
+    archs = phase_archs(dev)
+    arch_budget(archs["phase_s"], arch_golden_s)
+    arch_serve = {a: archs["serve"][a]["launches"] for a in ARCH_SERVE}
+    arch_fwd = {a: t["launches"]["flash_attention"]
+                for a, t in archs["train"].items()}
+    arch_bwd = {a: t["launches"]["flash_attention_bwd"]
+                for a, t in archs["train"].items()}
+    hd64_train = ("qwen2-0.5b", "whisper-small")
+    lap(f"phase 26: all phases, on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
@@ -6881,18 +7125,32 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         "launches": serve["launches"] + trained["fa_launches"]
         + rserve["recurrentgemma-2b"]["launches"]["flash_attention"]
         + rtrain["launches"]["flash_attention"] + fam_launches
-        + a2a["launches"],
+        + a2a["launches"] + sum(arch_serve.values())
+        + sum(arch_fwd.values()),
+        "launches_by_path": {
+            "serve_qwen3": serve["launches"], "train_qwen3":
+            trained["fa_launches"], "serve_recurrentgemma":
+            rserve["recurrentgemma-2b"]["launches"]["flash_attention"],
+            "train_recurrentgemma": rtrain["launches"]["flash_attention"],
+            "a2a_prefill": a2a["launches"],
+            **{f"serve_{a}": n for a, n in arch_serve.items()},
+            **{f"train_{a}": n for a, n in arch_fwd.items()}},
         "launches_by_family_generate": {a: fams[a]["launches"]
                                         for a in FAMILY_SERVE},
         "launches_a2a_prefill": a2a["launches"],
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
                            serve["max_abs_err"],
-                           *(v["max_abs_err"] for v in fams["hd64"].values())),
+                           *(v["max_abs_err"] for v in fams["hd64"].values()),
+                           *(archs["serve"][a]["max_abs_err"]
+                             for a in ARCH_SERVE),
+                           *(v["max_abs_err"] for f in archs["fwd"].values()
+                             for v in f.values())),
         "ms": flash["bf16"]["ms"], "plain_ms": flash["bf16"]["plain_ms"],
         "bound_ms": flash["bf16"]["bound_ms"],
         "bound_by": flash["bf16"]["bound_by"],
         "library_ms": flash["bf16"]["library_ms"],
-        "hd256_train_forward": rk["forward"], "hd64": fams["hd64"]}, {
+        "hd256_train_forward": rk["forward"], "hd64": fams["hd64"],
+        **archs["fwd"]}, {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:130",
@@ -6901,7 +7159,24 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces":
             "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
-        "launches": trained["bwd_launches"], **bwd["bf16"]}, {
+        "launches": trained["bwd_launches"]
+        + sum(n for a, n in arch_bwd.items() if a not in hd64_train),
+        "launches_by_path": {"train_qwen3": trained["bwd_launches"],
+                             **{f"train_{a}": n for a, n in arch_bwd.items()
+                                if a not in hd64_train}},
+        **bwd["bf16"]}, {
+        "name": "flash_attention_bwd_hd64", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "replaces":
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:151",
+        "note": "kernel 3 at head width 64 (held in phase 10, timed in "
+                "26d); ms at qwen2-0.5b's "
+                "heads (14/2, GQA 7), B 2 x T 4,096 causal, bf16; shapes: "
+                "whisper-small's heads (12/12) too",
+        "launches": sum(arch_bwd[a] for a in hd64_train),
+        "launches_by_path": {f"train_{a}": arch_bwd[a] for a in hd64_train},
+        **archs["bwd64"][f"qwen2_B{ARCH_TRAIN_B}_T{ARCH_TRAIN_T}"],
+        "max_abs_err": bwd["hd64_max_abs_err"], "shapes": archs["bwd64"]}, {
         "name": "flash_attention_bwd_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces":

@@ -1,7 +1,8 @@
 """The port's training step against the JAX package's, on the CPU at smoke
 widths: ``cross_entropy``, the loss and its gradients, and three jitted
 ``make_train_step`` steps from a converted JAX train state, in float32 (and
-bf16 to a looser tolerance).  The dense family (qwen3, qwen2), the hybrid
+bf16 to a looser tolerance).  The dense family (qwen3, qwen2, olmo-1b's
+non-parametric LayerNorm, yi-9b's untied head), the hybrid
 one (recurrentgemma-smoke: 6 layers rglru, rglru, local; window 16, so T
 48 runs the window mask; its layers a list of dicts of two kinds), whose
 RG-LRU runs ``RGLRUScan`` and whose attention ``FlashAttention``, and the
@@ -147,7 +148,8 @@ def test_cross_entropy_of_all_masked_labels_is_zero():
 # ----------------------------------------------- loss, grads and steps ---
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b",
-                                  "recurrentgemma-2b", "rwkv6-7b"])
+                                  "recurrentgemma-2b", "rwkv6-7b",
+                                  "olmo-1b", "yi-9b"])
 def test_loss_and_gradients_match_jax(arch):
     cfg, tcfg = _cfgs(arch)
     js, _ = _states(cfg, tcfg)
@@ -220,7 +222,8 @@ def _check_metrics(metrics, dtype="float32"):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-0.5b",
-                                  "recurrentgemma-2b", "rwkv6-7b"])
+                                  "recurrentgemma-2b", "rwkv6-7b",
+                                  "olmo-1b", "yi-9b"])
 def test_three_train_steps_match_jax(arch):
     """From a converted JAX train state, three steps of the port against
     three jitted JAX steps on the same batches: metrics, weights, Adam

@@ -1,7 +1,8 @@
 """The port's trainer and checkpoints, on the CPU at smoke widths: the ports
 of tests/test_infra.py's checkpoint and restart tests, checkpoints crossing
 between the packages (the same on-disk layout; recurrentgemma's list of
-layers as ``.params/layers/<i>/...``), and the training launcher.
+layers as ``.params/layers/<i>/...``), and the training launcher (its CLI,
+and ``main`` in process for qwen2-0.5b and olmo-1b).
 
 A float32 smoke model makes the two packages' losses comparable: held to
 rtol 2e-6, as in tests/test_torch_train.py.
@@ -277,6 +278,21 @@ def test_launch_train_cli_saves_and_resumes_hybrid_on_cpu():
         assert "recurrentgemma-smoke" in outs[0]
         assert "over 3 steps" in outs[0] and "over 2 steps" in outs[1]
         assert available_steps(d) == [3, 5]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmo-1b"])
+def test_launch_train_main_trains_dense_archs_on_cpu(arch, capsys):
+    """The launcher called in process, as the card's phase 26c calls it
+    (here with ``--smoke --device cpu``): qwen2-0.5b (JAX's launcher
+    example) and olmo-1b take three steps, every loss finite."""
+    from repro_torch.launch.train import main
+
+    rep = main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                "3", "--batch", "2", "--seq", "32"])
+    assert rep.steps_run == 3 and len(rep.losses) == 3
+    assert np.isfinite(rep.losses).all()
+    out = capsys.readouterr().out
+    assert f"{arch}-smoke" in out and "over 3 steps" in out
 
 
 def test_launch_train_refuses_multi_card_options():

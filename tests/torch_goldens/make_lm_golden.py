@@ -27,6 +27,19 @@ cut, the peak host memory and the seconds of the run.
     through ``whisper.forward`` (JAX's ``make_decode_step`` passes none);
     the records cover the 51,865 real logits, not the padding's -1e30.
 
+``make_lm_golden.py qwen2-0.5b olmo-1b yi-9b moonshot-v1-16b-a3b`` makes
+the goldens of the other four archs (chip_smoke.py phase 26b) the same
+way:
+  * ``lm_qwen2_0_5b.json``: full depth (QKV bias, 14/2 heads of 64); 16 s,
+    3.8 GB of peak host memory;
+  * ``lm_olmo_1b.json``: full depth (non-parametric LayerNorm); 34 s,
+    7.8 GB;
+  * ``lm_yi_9b.json``: 4 of 48 layers (untied head; full depth is 35 GB
+    of float32 weights); 36 s, 8.9 GB;
+  * ``lm_moonshot_v1_16b_a3b.json``: 2 of 48 layers (64 experts top 6, 2
+    shared; full depth is 114 GB), with every token's expert set and
+    router margin as for qwen3-moe; 61 s, 11.3 GB.
+
 Two prompts of 32 tokens (numpy seed 1) are prefilled into JAX's default
 bf16 caches, then 16 greedy tokens are decoded (``repro.serve``'s
 ``make_prefill`` / ``make_decode_step``, as ``generate`` runs them).  For
@@ -130,8 +143,8 @@ def main():
           f"{min(margins):.6g}")
 
 
-#: The MoE, VLM and audio goldens: file, depth cut (None: full depth) and
-#: its reason, and weights by position.
+#: The MoE, VLM and audio goldens, and the other four archs': file, depth
+#: cut (None: full depth) and its reason, and weights by position.
 FAMILIES = {
     "qwen3-moe-30b-a3b": dict(
         file="lm_qwen3_moe_30b_a3b.json", num_layers=2,
@@ -152,6 +165,33 @@ FAMILIES = {
                ("enc_layers/11/attn/wq", (-1, slice(-4, None))),
                ("dec_layers/11/cross_attn/wk", (5, slice(0, 4))),
                ("dec_layers/0/mlp/wd", (13, slice(0, 4))))),
+    "qwen2-0.5b": dict(
+        file="lm_qwen2_0_5b.json", num_layers=None, cut=None,
+        check=(("embed", (0, slice(0, 4))),
+               ("blocks/attn/wq", (23, -1, slice(-4, None))),
+               ("blocks/attn/bk", (11, slice(0, 4))),
+               ("blocks/mlp/wd", (13, 5, slice(0, 4))))),
+    "olmo-1b": dict(
+        file="lm_olmo_1b.json", num_layers=None, cut=None,
+        check=(("embed", (0, slice(0, 4))),
+               ("blocks/attn/wq", (15, -1, slice(-4, None))),
+               ("blocks/mlp/wd", (13, 5, slice(0, 4))))),
+    "yi-9b": dict(
+        file="lm_yi_9b.json", num_layers=4,
+        cut="4 of 48 layers: full depth is 35 GB of float32 weights on "
+            "each machine's host",
+        check=(("embed", (0, slice(0, 4))),
+               ("blocks/attn/wq", (3, -1, slice(-4, None))),
+               ("blocks/mlp/wd", (2, 5, slice(0, 4))),
+               ("head", (5, slice(-4, None))))),
+    "moonshot-v1-16b-a3b": dict(
+        file="lm_moonshot_v1_16b_a3b.json", num_layers=2,
+        cut="2 of 48 layers: full depth is 114 GB of float32 weights on "
+            "each machine's host",
+        check=(("embed", (0, slice(0, 4))),
+               ("blocks/moe/router", (1, -1, slice(-4, None))),
+               ("blocks/moe/wg", (1, 63, 5, slice(0, 4))),
+               ("blocks/moe/shared/wd", (0, -1, slice(-4, None))))),
 }
 EXTRA_SEED = 2
 IMAGE_GRID = 4

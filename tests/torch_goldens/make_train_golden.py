@@ -23,6 +23,18 @@ machine with the card draws the same weights).
     reach every kind of leaf, ``tm/u``, ``tm/w0``, ``tm/w_A``,
     ``tm/mix_A`` and ``tm/gn_scale`` (which only the WKV backward
     reaches) among them.  Peak host memory about 25 GB, ~80 s.
+  * ``qwen2-0.5b`` -> ``train_qwen2_0_5b.json``: full width and depth (24
+    layers, 14/2 heads of 64, QKV bias, vocab 151,936), B 2 x T 128, its
+    slices reaching the biases; 34 s, 9.3 GB of peak host memory.
+  * ``whisper-small`` -> ``train_whisper_small.json``: full depth (12
+    encoder and 12 decoder layers), B 2 x T 128 with 1,500 frames of
+    ``frame_embeds`` [2, 1,500, 768] from numpy seed 2 (EXTRA_SEED); its
+    slices reach the encoder, the cross-attention and both final norms;
+    304 s, 12.9 GB.
+  * ``qwen2-vl-2b`` -> ``train_qwen2_vl_2b.json``: full depth (28 layers),
+    B 2 x T 128 whose first 64 slots are an 8 x 8 image grid
+    (``vision_embeds`` from numpy seed 2 and M-RoPE positions; the peak
+    stayed under 40 GB, so no cut); 95 s, 28.6 GB.
 
 Tokens come from ``np.random.default_rng(3)``, split into tokens and labels
 shifted by one, as ``repro.data.batches`` does.  The step is
@@ -30,8 +42,10 @@ shifted by one, as ``repro.data.batches`` does.  The step is
 ``AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)``.  The file keeps
 loss, ce, grad_norm and lr of both steps, the step-1 gradient's L2 norm
 per leaf and a few slices of it (the row's ``check``), and the same slices
-of the parameters after step 2.  The port reproduces them on the card
-(chip_smoke.py phases 11, 19c and 22b).
+of the parameters after step 2, under a header with the depth cut (null:
+full depth), the parameter count, the peak host memory and the seconds
+of the run (and the extra inputs' seed and image grid).  The port
+reproduces them on the card (chip_smoke.py phases 11, 19c, 22b and 26d).
 """
 import dataclasses
 import json
@@ -48,6 +62,7 @@ from repro.configs import get_config
 from repro.models import build
 from repro.optim import AdamWConfig, adamw_init
 from repro.train import TrainState, make_loss_fn, make_train_step
+from make_lm_golden import mrope_positions
 from repro_torch import convert
 from repro_torch.configs import get_config as t_get_config
 
@@ -125,7 +140,60 @@ GOLDENS = {
                ("ln_out/scale", (slice(0, 8),)),
                ("head", (5, slice(0, 8))),
                ("head", (4095, slice(-8, None))))),
+    "qwen2-0.5b": dict(
+        file="train_qwen2_0_5b.json", num_layers=None, cut=None, batch=2,
+        seq=128,
+        check=(("embed", (None, slice(0, 8))),
+               ("embed", (151935, slice(0, 8))),
+               ("blocks/attn/wq", (23, -1, slice(-8, None))),
+               ("blocks/attn/wk", (0, 3, slice(0, 8))),
+               ("blocks/attn/wv", (7, 100, slice(0, 8))),
+               ("blocks/attn/wo", (14, 100, slice(0, 8))),
+               ("blocks/attn/bq", (5, slice(0, 8))),
+               ("blocks/attn/bk", (23, slice(0, 8))),
+               ("blocks/attn/bv", (11, slice(-8, None))),
+               ("blocks/ln1/scale", (0, slice(0, 8))),
+               ("blocks/ln2/scale", (20, slice(0, 8))),
+               ("blocks/mlp/wd", (13, 5, slice(0, 8))),
+               ("blocks/mlp/wg", (23, 7, slice(0, 8))),
+               ("final_norm/scale", (slice(0, 8),)))),
+    "whisper-small": dict(
+        file="train_whisper_small.json", num_layers=None, cut=None, batch=2,
+        seq=128, extra="frames",
+        check=(("embed", (None, slice(0, 8))),
+               ("embed", (51864, slice(0, 8))),
+               ("enc_layers/0/attn/wq", (5, slice(0, 8))),
+               ("enc_layers/11/mlp/wd", (13, slice(0, 8))),
+               ("enc_layers/6/ln1/bias", (slice(0, 8),)),
+               ("enc_norm/scale", (slice(0, 8),)),
+               ("dec_layers/0/self_attn/wk", (3, slice(0, 8))),
+               ("dec_layers/5/cross_attn/wk", (5, slice(0, 8))),
+               ("dec_layers/5/cross_attn/wv", (7, slice(-8, None))),
+               ("dec_layers/11/cross_attn/wo", (100, slice(0, 8))),
+               ("dec_layers/11/ln_x/scale", (slice(0, 8),)),
+               ("dec_layers/3/mlp/bu", (slice(0, 8),)),
+               ("dec_norm/bias", (slice(0, 8),)))),
+    "qwen2-vl-2b": dict(
+        file="train_qwen2_vl_2b.json", num_layers=None, cut=None, batch=2,
+        seq=128, extra="image",
+        check=(("embed", (None, slice(0, 8))),
+               ("embed", (151935, slice(0, 8))),
+               ("blocks/attn/wq", (27, -1, slice(-8, None))),
+               ("blocks/attn/wk", (0, 3, slice(0, 8))),
+               ("blocks/attn/wo", (14, 100, slice(0, 8))),
+               ("blocks/attn/bq", (5, slice(0, 8))),
+               ("blocks/attn/bv", (27, slice(0, 8))),
+               ("blocks/ln1/scale", (0, slice(0, 8))),
+               ("blocks/mlp/wd", (13, 5, slice(0, 8))),
+               ("blocks/mlp/wu", (27, 7, slice(0, 8))),
+               ("final_norm/scale", (slice(0, 8),)))),
 }
+#: The extra inputs of the audio and VLM rows, from numpy seed EXTRA_SEED:
+#: whisper's frame embeddings [B, 1,500, d_model]; qwen2-vl's IMAGE_GRID x
+#: IMAGE_GRID patch embeddings in the first slots of each row and its M-RoPE
+#: positions (t = 0, h = row, w = col; the text at t = h = w = grid + i).
+EXTRA_SEED = 2
+IMAGE_GRID = 8
 
 
 def leaf(tree, path):
@@ -134,10 +202,19 @@ def leaf(tree, path):
     return tree
 
 
-def batch(vocab, rows, seq):
+def batch(cfg, rows, seq, extra=None):
     arr = np.random.default_rng(TOKEN_SEED).integers(
-        0, vocab, (rows, seq + 1)).astype(np.int32)
-    return {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+        0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
+    out = {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+    rng = np.random.default_rng(EXTRA_SEED)
+    if extra == "frames":
+        out["frame_embeds"] = rng.standard_normal(
+            (rows, cfg.encoder_positions, cfg.d_model), np.float32)
+    elif extra == "image":
+        out["vision_embeds"] = rng.standard_normal(
+            (rows, IMAGE_GRID ** 2, cfg.d_model), np.float32)
+        out["mrope_pos"] = mrope_positions(rows, seq, IMAGE_GRID)
+    return out
 
 
 def index(idx, tokens):
@@ -168,7 +245,7 @@ def main(arch="qwen3-0.6b", path=None):
     del tree
     bundle = build(cfg)
     check = row["check"]
-    b = batch(cfg.vocab_size, row["batch"], row["seq"])
+    b = batch(cfg, row["batch"], row["seq"], row.get("extra"))
     jb = jax.tree.map(jnp.asarray, b)
 
     # the step-1 gradient, kept only as per-leaf norms and slices
@@ -197,13 +274,16 @@ def main(arch="qwen3-0.6b", path=None):
     out = {"source": "repro.train.make_train_step (jitted, remat on), JAX "
                      "package on the CPU, float32 model",
            "arch": arch, "dtype": "float32"}
-    if row["cut"] is not None:
-        out.update(depth_cut=row["cut"], num_layers=cfg.num_layers,
-                   parameters=int(sum(x.size for x in
-                                      jax.tree.leaves(state.params))),
-                   peak_host_gb=round(resource.getrusage(
-                       resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, 2),
-                   seconds=round(time.time() - t0, 1))
+    out.update(depth_cut=row["cut"], num_layers=cfg.num_layers,
+               parameters=int(sum(x.size for x in
+                                  jax.tree.leaves(state.params))),
+               peak_host_gb=round(resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, 2),
+               seconds=round(time.time() - t0, 1))
+    if "extra" in row:
+        out.update(extra_seed=EXTRA_SEED)
+        if row["extra"] == "image":
+            out.update(image_grid=IMAGE_GRID)
     out.update({"seed": SEED, "token_seed": TOKEN_SEED,
                 "batch": row["batch"], "seq": row["seq"], "opt": OPT,
                 "steps": steps,
