@@ -941,6 +941,14 @@ def compare_outputs(a, b):
     return equal, err
 
 
+def spilled(ptxas_line: str) -> int:
+    """Bytes of spill stores and loads in one entry's ptxas line
+    (``build.ptxas_report``)."""
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                  ptxas_line)
+    return int(m.group(1)) + int(m.group(2)) if m else 0
+
+
 def time_cuda(fn, reps):
     """Median wall time (ms) of ``fn()`` on the card over ``reps`` runs, by
     CUDA events, after one warm-up run."""
@@ -2489,8 +2497,17 @@ FLASH_FULL_T, FLASH_TAIL = 2048, 256
 FLASH_256 = (10, 1, 256)
 FLASH_256_WINDOW, FLASH_256_T = 2048, (200, 2048)
 FLASH_256_TIMED = ((1, 2048), (8, 2048))
-# The float32 (FMA) kernel's timed shape (B, T), at qwen3's heads.
+# The float32 (FMA) kernels' timed shape (B, T) and head groupings (H, Hkv,
+# hd, window; causal): qwen3's, qwen2's and recurrentgemma's (phases 7 and
+# 10).  F32_EARLIER: the first design's times there (one 4-warp block of
+# 4 x 4 scalar tiles), forward and backward, as PERF.md's kernel table has
+# them (H100 80GB HBM3, 700 W).
 FLASH_F32_TIMED = (1, 2048)
+F32_HEADS = {"qwen3": (16, 8, 128, 0), "qwen2": (14, 2, 64, 0),
+             "recurrentgemma": (10, 1, 256, 2048)}
+F32_EARLIER = {"qwen3": ("1.0302 ms", "3.7726 ms"),
+               "qwen2": ("0.6069 ms", "2.8049 ms"),
+               "recurrentgemma": ("2.1165 ms", "10.9111 ms")}
 # Weights by position (tests/torch_goldens/make_lm_golden.py CHECK_LEAVES).
 GOLDEN_WEIGHT_CHECK = {"embed": (0, slice(0, 4)),
                        "blocks/attn/wq": (27, -1, slice(-4, None)),
@@ -2675,27 +2692,33 @@ def phase_flash(dev) -> dict:
               f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
         del q, k, v
 
-    # the float32 (FMA) kernel at qwen3's heads
-    H, Hkv, hd = FLASH_HEADS["qwen3"]
+    # the float32 (FMA) kernel at each grouping of F32_HEADS
     B, T = FLASH_F32_TIMED
-    q, k, v = [torch.randn(B, T, h, hd, generator=g).to(dev).transpose(1, 2)
-               for h in (H, Hkv, Hkv)]
-    ms = time_cuda(lambda: flash_attention_bhtd(q, k, v), 5)
-    plain_ms = time_cuda(lambda: attention_ref(q, k, v), 5)
-    lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 5)
-    bound_ms, bound_by, flops, nbytes = flash_bound(
-        B, H, Hkv, hd, T, T, True, 4, F32_OPS_PER_S)
-    print(f"[7 flash] qwen3 f32 (FMA kernel) causal B={B} T={T}: kernel "
-          f"{ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
-          f"{bound_by} at the 67 TFLOP/s float32 rate ({flops} FLOP, "
-          f"{nbytes} B); x bound {ms / bound_ms:.1f}; plain "
-          f"{plain_ms:.3f} ms; scaled_dot_product_attention {lib_ms:.4f} ms",
-          flush=True)
-    f32 = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by,
-               max_abs_err=max(worst["float32"], worst256["float32"]))
-    del q, k, v
+    shapes = {}
+    for name, (H, Hkv, hd, w) in F32_HEADS.items():
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(dev)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv)]
+        ms = time_cuda(lambda: flash_attention_bhtd(q, k, v, window=w), 5)
+        plain_ms = time_cuda(lambda: attention_ref(q, k, v, window=w), 5)
+        # at T <= window the window masks nothing: plain causal attention
+        check(w == 0 or w >= T, "F32_HEADS' windows reach all of T")
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
+        bound_ms, bound_by, flops, nbytes = flash_bound(
+            B, H, Hkv, hd, T, T, True, 4, F32_OPS_PER_S, window=w)
+        print(f"[7 flash] {name} f32 (FMA kernel) {H}/{Hkv} of {hd} causal "
+              f"window {w} B={B} T={T}: kernel {ms:.4f} ms (median of 5); "
+              f"bound {bound_ms:.4f} ms by {bound_by} at the 67 TFLOP/s "
+              f"float32 rate ({flops} FLOP, {nbytes} B); share "
+              f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; "
+              f"scaled_dot_product_attention f32 {lib_ms:.4f} ms; the first "
+              f"design {F32_EARLIER[name][0]}", flush=True)
+        shapes[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v
+    f32 = dict(shapes["qwen3"],
+               max_abs_err=max(worst["float32"], worst256["float32"]),
+               shapes=shapes)
     torch.cuda.empty_cache()
     res = dict(out[(GEN_BATCH, GEN_PROMPT)])
     res["max_abs_err"] = max(res["max_abs_err"], worst["bfloat16"],
@@ -2862,30 +2885,37 @@ def phase_flash_bwd(dev) -> dict:
                            bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, do, o, lse, xs, lib_o
 
-    # the float32 (FMA) kernels at qwen3's heads
+    # the float32 (FMA) kernels at each grouping of F32_HEADS
     B, T = BWD_F32_TIMED
-    q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(dev)
-                   .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
-    o, lse = flash_attention_bhtd(q, k, v, return_lse=True)
-    ms = time_cuda(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do), 5)
-    plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, lse, do), 5)
-    xs = [x.detach().requires_grad_() for x in (q, k, v)]
-    lib_o = F.scaled_dot_product_attention(*xs, is_causal=True,
-                                           enable_gqa=True)
-    lib_ms = time_cuda(lambda: torch.autograd.grad(
-        lib_o, xs, do, retain_graph=True), 5)
-    bound_ms, bound_by, flops, nbytes = bwd_bound(B, H, Hkv, hd, T, True, 4,
-                                                  F32_OPS_PER_S)
-    print(f"[10 flash bwd] qwen3 f32 (FMA kernels) causal B={B} T={T}: "
-          f"kernel {ms:.4f} ms (dq + dk/dv + delta, median of 5); bound "
-          f"{bound_ms:.4f} ms by {bound_by} at the 67 TFLOP/s float32 rate "
-          f"({flops} FLOP, {nbytes} B); x bound {ms / bound_ms:.1f}; plain "
-          f"{plain_ms:.3f} ms; scaled_dot_product_attention backward "
-          f"{lib_ms:.4f} ms", flush=True)
-    f32 = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by,
-               max_abs_err=max_abs["float32"])
-    del q, k, v, do, o, lse, xs, lib_o
+    shapes = {}
+    for name, (H, Hkv, hd, w) in F32_HEADS.items():
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(dev)
+                       .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, window=w)
+        ms = time_cuda(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do,
+                                                        window=w), 5)
+        plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                       window=w), 5)
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_o = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                               enable_gqa=True)
+        lib_ms = time_cuda(lambda: torch.autograd.grad(
+            lib_o, xs, do, retain_graph=True), 5)
+        bound_ms, bound_by, flops, nbytes = bwd_bound(
+            B, H, Hkv, hd, T, True, 4, F32_OPS_PER_S, window=w)
+        print(f"[10 flash bwd] {name} f32 (FMA kernels) {H}/{Hkv} of {hd} "
+              f"causal window {w} B={B} T={T}: kernel {ms:.4f} ms (dq + "
+              f"dk/dv + delta, median of 5); bound {bound_ms:.4f} ms by "
+              f"{bound_by} at the 67 TFLOP/s float32 rate ({flops} FLOP, "
+              f"{nbytes} B); share {bound_ms / ms:.3f}; plain "
+              f"{plain_ms:.3f} ms; scaled_dot_product_attention f32 backward "
+              f"{lib_ms:.4f} ms; the first design {F32_EARLIER[name][1]}",
+              flush=True)
+        shapes[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, do, o, lse, xs, lib_o
+    f32 = dict(shapes["qwen3"], max_abs_err=max_abs["float32"],
+               shapes=shapes)
     torch.cuda.empty_cache()
     return {"bf16": dict(out[(TRAIN_B, TRAIN_T)],
                          max_abs_err=max_abs["bfloat16"]), "f32": f32,
@@ -4560,6 +4590,9 @@ def phase_dots(dev) -> dict:
 # (FLASH_TOL) at the same cases, the trainer's B 2 x T 4,096 with its
 # window of 2,048 among them.
 RG_BWD_BATCH, RG_BWD_T, RG_BWD_WINDOWS = (1, 2), (200, 2048, 4096), (0, 2048)
+# The float32 backward's first design at the trainer's shape (PERF.md's
+# kernel table, H100 80GB HBM3, 700 W), printed beside today's.
+RG_F32_BWD_EARLIER = "27.2186 ms"
 # (b) The RG-LRU backward kernel vs its plain version, bit for bit, at
 # C 2,560, on both of its paths (the TMA ring, the direct path), with T at
 # a float32 tile (64 steps at 32 channels a block) +- 1; and kernel 5's
@@ -4706,6 +4739,8 @@ def phase_recurrent_train_kernels(dev) -> dict:
             out[dname]["library_flash_causal_ms"] = flash_ms
             flash_note = (f"; its flash backend's backward, causal without "
                           f"the window (more work) {flash_ms:.4f} ms")
+        if dname == "float32":
+            flash_note = f"; the first design {RG_F32_BWD_EARLIER}"
         print(f"[19 recurrent train] (a) {dname} "
               f"({'wgmma' if elem == 2 else 'FMA'} kernels) B={B} T={T} "
               f"window={w}: kernel {ms:.4f} ms (dq + dk/dv + delta, median "
@@ -6568,19 +6603,41 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
           f"{time.perf_counter() - t0:.1f} s; nvcc wall time each: "
           + ", ".join(f"{src} {build.nvcc_seconds(log)} s"
                       for src, log in logs.items()), flush=True)
+    # The float32 (FMA) kernels: registers and spills (none allowed), shared
+    # memory and the warps an SM holds (fa.resident_warps).
     for name, line in build.ptxas_report(
             logs["flash_attention.cu"]).items():
         inst = build.flash_attention_instance(name)
-        check(inst is not None, f"unexpected entry {name}")
+        combine = build.flash_attention_combine_instance(name)
+        check(inst is not None or combine is not None,
+              f"unexpected entry {name}")
+        check(spilled(line) == 0, f"flash_attention.cu {name} spills: "
+                                  f"{line}")
+        if combine is not None:
+            print(f"[2 build] flash_attention.cu combine {combine[0]} "
+                  f"hd={combine[1]}: {line}", flush=True)
+            continue
+        smem = fa.smem_bytes(inst[1])
         print(f"[2 build] flash_attention.cu {inst[0]} hd={inst[1]}: "
-              f"{line}; {fa.smem_bytes(inst[1])} B dynamic shared memory")
+              f"{line}; {smem} B dynamic shared memory; "
+              f"{fa.resident_warps(smem, fa.F32_THREADS[inst[1]])} warps "
+              f"an SM")
     for name, line in build.ptxas_report(
             logs["flash_attention_bwd.cu"]).items():
         inst = build.flash_attention_bwd_instance(name)
         check(inst is not None, f"unexpected entry {name}")
+        check(spilled(line) == 0, f"flash_attention_bwd.cu {inst[0]} "
+                                  f"hd={inst[2]} spills: {line}")
+        if inst[0] == "sum":
+            print(f"[2 build] flash_attention_bwd.cu sum {inst[1]} "
+                  f"hd={inst[2]}: {line}", flush=True)
+            continue
         smem = fa_bwd.smem_bytes(inst[2])[inst[0] == "dkdv"]
+        threads = (fa_bwd.F32_KV_THREADS if inst[0] == "dkdv"
+                   else fa_bwd.F32_DQ_THREADS)[inst[2]]
         print(f"[2 build] flash_attention_bwd.cu {inst[0]} {inst[1]} "
-              f"hd={inst[2]}: {line}; {smem} B dynamic shared memory")
+              f"hd={inst[2]}: {line}; {smem} B dynamic shared memory; "
+              f"{fa.resident_warps(smem, threads)} warps an SM")
     for src in ("flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu"):
         for name, line in build.ptxas_report(logs[src]).items():
             inst = build.flash_attention_sm90_instance(name)

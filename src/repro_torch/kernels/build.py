@@ -194,6 +194,15 @@ def load_tick_loop() -> ctypes.CDLL:
     return lib
 
 
+def flash_attention_combine_instance(name: str):
+    """(dtype, hd) of a mangled ``flash_fwd_combine_kernel`` entry name
+    (the float32 forward's shares' combine), else None."""
+    m = re.search(r"flash_fwd_combine_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                  name)
+    return None if m is None else (
+        "float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
+
+
 def flash_attention_instance(name: str):
     """(dtype, hd) of a mangled ``flash_fwd_kernel`` entry name (the
     float32 path): dtype ``"float32"`` or ``"bfloat16"``."""
@@ -210,7 +219,8 @@ def load_flash_attention() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p])
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -219,10 +229,11 @@ def load_flash_attention() -> ctypes.CDLL:
 
 def flash_attention_bwd_instance(name: str):
     """(kernel, dtype, hd) of a mangled ``flash_bwd_dq_kernel`` /
-    ``flash_bwd_dkdv_kernel`` entry name: kernel ``"dq"`` or ``"dkdv"``,
+    ``flash_bwd_dkdv_kernel`` / ``flash_bwd_sum_kernel`` entry name: kernel
+    ``"dq"``, ``"dkdv"`` or ``"sum"`` (the float32 dk/dv shares' sum),
     dtype ``"float32"`` or ``"bfloat16"``."""
-    m = re.search(r"flash_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                  name)
+    m = re.search(r"flash_bwd_(dq|dkdv|sum)_kernelI(f|13__nv_bfloat16)"
+                  r"Li(\d+)E", name)
     return None if m is None else (
         m.group(1), "float32" if m.group(2) == "f" else "bfloat16",
         int(m.group(3)))
@@ -236,7 +247,9 @@ def load_flash_attention_bwd() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p])
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p

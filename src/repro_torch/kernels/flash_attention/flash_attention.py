@@ -5,8 +5,8 @@
 (``_fa_kernel``).  Two kernels compute it, chosen by the input type
 (:func:`route`): bf16 goes to ``kernels/csrc/flash_attention_sm90.cu``
 (``wgmma`` on the tensor cores, tiles brought in by TMA), float32 to
-``kernels/csrc/flash_attention.cu`` (float32 FMAs: ``wgmma`` would round
-float32 to TF32).  Both are built by :mod:`repro_torch.kernels.build` at
+``kernels/csrc/flash_attention.cu`` (float32 FMAs on 8 x 8 register
+tiles, K and V by cp.async: ``wgmma`` would round float32 to TF32).  Both are built by :mod:`repro_torch.kernels.build` at
 first use; their source notes say what bounds them on an H100 and how
 they are laid out.  For tensors on the CPU the wrapper computes the
 kernels' plain version,
@@ -32,12 +32,58 @@ from .ref import attention_ref
 HEAD_DIMS = (64, 128, 256)
 
 
+#: The float32 kernel's threads and query rows a block by head width
+#: (csrc/flash_attention.cu, ``Fwd<HD>``); its key tiles are 64 rows.
+F32_THREADS = {64: 128, 128: 128, 256: 256}
+F32_BQ = {64: 128, 128: 64, 256: 64}
+F32_BK = 64
+
+
 def smem_bytes(hd: int) -> int:
     """Dynamic shared memory of one block of the float32 kernel
-    (csrc/flash_attention.cu, ``smem_floats``): the q tile (64 x hd+1), a k
-    tile (32 x hd+1), a v tile (32 x hd) and the probabilities (64 x 33),
-    as float32."""
-    return 4 * (64 * (hd + 1) + 32 * (hd + 1) + 32 * hd + 64 * 33)
+    (csrc/flash_attention.cu, ``Fwd<HD>::kSmem``), as float32: the Q tile
+    (BQ x hd), the ring's two stages (a K and a V tile, 64 x hd each), p^T
+    (64 x BQ) and two floats a query row (its rescale and its
+    denominator); BQ is :data:`F32_BQ`."""
+    bq = F32_BQ[hd]
+    return 4 * (bq * hd + 2 * F32_BK * hd + F32_BK * bq + 2 * bq)
+
+
+def shares(blocks: int, slots: int, most: int) -> int:
+    """Into how many shares a float32 kernel cuts each block's loop: where
+    its ``blocks`` fill less than one wave of the card's block ``slots``,
+    ceil(2 slots / blocks), at most ``most`` (the longest loop); else 1.
+    Each share's float32 sums go to a scratch that one more pass adds in a
+    fixed order, so a causal mask's long and short loops even out.  (From
+    one wave on, a second share cost more than it evened out: qwen3's
+    16/8 heads at B 1 x T 2,048, PERF.md.)"""
+    if blocks >= slots:
+        return 1
+    return max(1, min(-(-2 * slots // blocks), most))
+
+
+def f32_split(B: int, H: int, Tq: int, Tk: int, hd: int, n_sms: int) -> int:
+    """Shares of the float32 forward (:func:`shares`): its blocks are the
+    query tiles x heads x batch rows, two an SM at hd 64 and 128, one at
+    256 (``n_sms`` SMs); each query tile's key tiles are cut."""
+    return shares(-(-Tq // F32_BQ[hd]) * H * B,
+                  n_sms * (1 if hd == 256 else 2), -(-Tk // F32_BK))
+
+
+#: An H100 SM's shared memory, the part of it each resident block
+#: reserves, its registers and the most a lane may hold.
+SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 233_472, 1024
+SM_REGISTERS, MAX_LANE_REGISTERS = 65_536, 255
+
+
+def resident_warps(smem: int, threads: int) -> int:
+    """Warps one H100 SM holds at once of a kernel whose blocks have
+    ``threads`` threads and ``smem`` bytes of dynamic shared memory: as many
+    blocks as shared memory (with each block's 1,024 reserved bytes) and
+    registers at the most a lane may hold (255) allow."""
+    blocks = min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES),
+                 SM_REGISTERS // (threads * MAX_LANE_REGISTERS))
+    return blocks * threads // 32
 
 
 #: The bf16 kernel's query rows a block (two warpgroups of 64).
@@ -59,8 +105,10 @@ def sm90_smem_bytes(hd: int) -> int:
 
 def route(dtype, hd: int, head_dims=HEAD_DIMS) -> str:
     """Which kernel takes inputs of ``dtype`` and head width ``hd``:
-    ``"wgmma"`` (bf16) or ``"fma"`` (float32).  A choice by input type, made
-    on the host: a kernel that fails still raises."""
+    ``"wgmma"`` (bf16: tensor cores, tiles by TMA) or ``"fma"`` (float32:
+    float32 FMAs on register tiles, tiles by cp.async; wgmma would round
+    float32 to TF32).  A choice by input type, made on the host: a kernel
+    that fails still raises."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the flash attention kernels take float32 or "
                          f"bfloat16, got {dtype}")
@@ -139,8 +187,9 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     read in place, and ``o`` is allocated with q's strides.
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the bf16
-    (``wgmma``) or the float32 (FMA) kernel, hd 64, 128 or 256, or an
-    exception.  Meta tensors: the empty outputs, no launch."""
+    (``wgmma``) or the float32 (FMA) kernel (and the shares' combine where
+    :func:`f32_split` cuts its key loops), hd 64, 128 or 256, or an
+    exception.  Meta tensors: the empty outputs (and scratch), no launch."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise ValueError("flash_attention_bhtd is forward only; take "
@@ -165,6 +214,13 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     _check_kernel_layout("o", o)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    # The float32 kernel's shares and their scratch (f32_split).
+    split, part = 1, None
+    if kernel == "fma":
+        split = f32_split(B, H, Tq, Tk, hd, cost.sm_count(q.device))
+        if split > 1:
+            part = torch.empty(split * B * H * Tq * (hd + 2),
+                               dtype=torch.float32, device=q.device)
     if B and Tq and q.device.type == "cuda":
         from .. import build
 
@@ -190,7 +246,8 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                 err = lib.flash_attention_launch(
                     hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), lse_ptr, B, H, Hkv, Tq, Tk, strides,
-                    int(bool(causal)), int(window), scale, stream)
+                    int(bool(causal)), int(window), scale, split,
+                    None if part is None else part.data_ptr(), stream)
                 name = "flash_attention"
         if err != 0:
             raise RuntimeError(

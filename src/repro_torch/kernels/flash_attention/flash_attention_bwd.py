@@ -6,10 +6,13 @@ flash_attention_bwd_bhtd`` (``_dq_kernel``, ``_dkdv_kernel``).  Two sources
 compute it, chosen by the input type (:func:`~.flash_attention.route`):
 bf16 goes to ``kernels/csrc/flash_attention_bwd_sm90.cu`` (``wgmma`` on
 the tensor cores, tiles brought in by TMA), float32 to
-``kernels/csrc/flash_attention_bwd.cu`` (float32 FMAs).  Each is a dq
-kernel, then a dk/dv kernel that sums each key/value head's group in
-float32, built by :mod:`repro_torch.kernels.build` at first use; the
-source notes say what bounds them on an H100 and how they are laid out.
+``kernels/csrc/flash_attention_bwd.cu`` (float32 FMAs on register tiles,
+tiles by cp.async).  Each is a dq kernel, then a dk/dv kernel that sums
+each key/value head's group in float32 (the float32 ones, where they have
+too few blocks to fill the card, in shares that a sum kernel adds in
+order: :func:`f32_dq_split`, :func:`f32_kv_split`), built by :mod:`repro_torch.kernels.build` at first
+use; the source notes say what bounds them on an H100 and how they are
+laid out.
 For tensors on the CPU the wrapper computes the plain version,
 :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`; for
 CUDA tensors it launches the kernels on the current stream without
@@ -26,7 +29,7 @@ import torch
 
 from .. import cost
 from .flash_attention import (_check, _check_kernel_layout, _longlongs, route,
-                              tma_geometry)
+                              shares, tma_geometry)
 from .ref import attention_bwd_ref
 
 #: Head widths the backward kernels are instantiated for (the dense
@@ -54,16 +57,49 @@ def sm90_smem_bytes(hd: int) -> tuple[int, int]:
             + 8 * stages * SM90_KV_BQ + 1024)
 
 
+#: The float32 kernels' threads and tiles by head width
+#: (csrc/flash_attention_bwd.cu, ``Dq<HD>``, ``Dkv<HD>``): the dq kernel's
+#: threads, query rows a block and keys a stage; the dk/dv kernel's
+#: threads and query rows a stage (its blocks hold 64 keys).
+F32_DQ_THREADS = {64: 128, 128: 256, 256: 256}
+F32_DQ_BQ = {64: 128, 128: 128, 256: 64}
+F32_DQ_BK = {64: 32, 128: 32, 256: 16}
+F32_KV_THREADS = {64: 128, 128: 256, 256: 256}
+F32_KV_BQ = {64: 32, 128: 64, 256: 16}
+F32_KV_BK = 64
+
+
 def smem_bytes(hd: int) -> tuple[int, int]:
     """Dynamic shared memory of one block of the float32 dq and dk/dv
-    kernels (csrc/flash_attention_bwd.cu, ``dq_smem_floats`` /
-    ``dkdv_smem_floats``), as float32: dq holds q and dO tiles (64 x
-    hd+1), k and v tiles (32 x hd+1) and ds (64 x 33); dk/dv holds k and v
-    (32 x hd+1), q and dO (64 x hd+1), p^T and ds^T (32 x 65) and 2 x 64
-    row scalars."""
-    return (4 * (2 * 64 * (hd + 1) + 2 * 32 * (hd + 1) + 64 * 33),
-            4 * (2 * 32 * (hd + 1) + 2 * 64 * (hd + 1) + 2 * 32 * 65
-                 + 2 * 64))
+    kernels (csrc/flash_attention_bwd.cu, ``Dq<HD>::kSmem`` /
+    ``Dkv<HD>::kSmem``), as float32: dq holds the Q and dO tiles (BQ x
+    hd), its ring's two stages of K and V (BK x hd each) and ds (BK x BQ);
+    dk/dv holds the K and V tiles (64 x hd), its ring's two stages of Q and
+    dO (BQ x hd each), p and ds (BQ x 64)."""
+    bq, bk, kq = F32_DQ_BQ[hd], F32_DQ_BK[hd], F32_KV_BQ[hd]
+    return (4 * (2 * bq * hd + 4 * bk * hd + bk * bq),
+            4 * (2 * F32_KV_BK * hd + 4 * kq * hd + 2 * kq * F32_KV_BK))
+
+
+def f32_kv_split(B: int, H: int, Hkv: int, Tq: int, Tk: int, hd: int,
+                 n_sms: int) -> int:
+    """Shares of the float32 dk/dv kernel (:func:`~.flash_attention.shares`):
+    its blocks are the key tiles x key/value heads x batch rows, two an SM
+    at hd 64, else one (``n_sms`` SMs); each key tile's (query head, query
+    tile) items are cut, and a sum kernel adds the shares."""
+    return shares(-(-Tk // F32_KV_BK) * Hkv * B,
+                  n_sms * (2 if hd == 64 else 1),
+                  (H // Hkv) * -(-Tq // F32_KV_BQ[hd]))
+
+
+def f32_dq_split(B: int, H: int, Tq: int, Tk: int, hd: int,
+                 n_sms: int) -> int:
+    """Shares of the float32 dq kernel (:func:`~.flash_attention.shares`):
+    its blocks are the query tiles x query heads x batch rows, two an SM at
+    hd 64, else one; each query tile's key tiles are cut, and a sum kernel
+    adds the shares."""
+    return shares(-(-Tq // F32_DQ_BQ[hd]) * H * B,
+                  n_sms * (2 if hd == 64 else 1), -(-Tk // F32_DQ_BK[hd]))
 
 
 def _bwd_cost(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
@@ -82,7 +118,9 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
     view of the model's [B,T,H,hd] tensors is read and written in place).
 
     CPU tensors: the plain version.  CUDA tensors: one launch of each of
-    the two bf16 (``wgmma``) or float32 (FMA) kernels, hd 64, 128 or 256,
+    the two bf16 (``wgmma``) or float32 (FMA; and the shares' sums where
+    :func:`f32_dq_split` or :func:`f32_kv_split` cut the work) kernels,
+    hd 64, 128 or 256,
     or an exception.  Meta tensors: the outputs and scratch, no launch."""
     _check(q, k, v)
     B, H, Tq, hd = q.shape
@@ -115,11 +153,28 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
     # (flash_attention_bwd.py:144).  The bf16 kernels read both by TMA,
     # whose rows must be 16-byte multiples: [B, H, pitch], pitch = Tq
     # rounded up to 4.
-    pitch = Tq if kernel == "fma" else -(-Tq // 4) * 4
-    lse_p = lse.new_empty((B, H, pitch))
-    lse_p[..., :Tq] = lse
-    delta = lse.new_empty((B, H, pitch))
-    delta[..., :Tq] = (do.float() * o.float()).sum(-1)
+    # The float32 kernels read both as contiguous [B, H, Tq]: lse as it is,
+    # delta summed straight into its buffer.
+    if kernel == "fma":
+        pitch, lse_p = Tq, lse.contiguous()
+        delta = torch.sum(do * o, -1, out=lse.new_empty((B, H, Tq)))
+    else:
+        pitch = -(-Tq // 4) * 4
+        lse_p = lse.new_empty((B, H, pitch))
+        lse_p[..., :Tq] = lse
+        delta = lse.new_empty((B, H, pitch))
+        delta[..., :Tq] = (do.float() * o.float()).sum(-1)
+    # The float32 kernels' shares and their scratch (f32_kv_split,
+    # f32_dq_split).
+    split, part, dq_split, dq_part = 1, None, 1, None
+    if kernel == "fma":
+        n_sms = cost.sm_count(q.device)
+        split = f32_kv_split(B, H, k.shape[1], Tq, Tk, hd, n_sms)
+        if split > 1:
+            part = lse.new_empty((2, split, B, k.shape[1], Tk, hd))
+        dq_split = f32_dq_split(B, H, Tq, Tk, hd, n_sms)
+        if dq_split > 1:
+            dq_part = lse.new_empty((dq_split, B, H, Tq, hd))
     if q.device.type == "meta":
         return dq, dk, dv
     if B and Tq and Tk:
@@ -155,7 +210,9 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
                     do.data_ptr(), lse_p.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
                     k.shape[1], Tq, Tk, strides, int(bool(causal)),
-                    int(window), scale, stream)
+                    int(window), scale, split,
+                    None if part is None else part.data_ptr(), dq_split,
+                    None if dq_part is None else dq_part.data_ptr(), stream)
                 name = "flash_attention_bwd"
         if err != 0:
             raise RuntimeError(

@@ -1,5 +1,6 @@
 // A CPU emulation of the CUDA and Hopper features that the bf16 attention
 // kernels (src/repro_torch/kernels/csrc/flash_attention{,_bwd}_sm90.cu), the
+// float32 attention kernels' cp.async rings (csrc/flash_attention{,_bwd}.cu), the
 // RG-LRU scans' TMA rings (csrc/rglru.cu) and the chunked WKV (csrc/wkv.cu)
 // use, so their device code compiles with g++ and runs on CPU tensors:
 //   * a block's threads are std::threads meeting at std::barriers (the
@@ -11,7 +12,8 @@
 //     16-byte chunk bits [4:6] of the address XOR bits [7:9]) or unswizzled
 //     (2-D and 3-D boxes of 4- or 2-byte elements), and zeros past every
 //     bound, and then completes its bytes on the mbarrier; cp.async copies
-//     its 16 bytes at once;
+//     its 16 bytes at once (or, with EMU_CP_ASYNC_DEFERRED, when its thread
+//     waits for its group);
 //   * mbarriers count arrivals and transaction bytes and flip a phase;
 //   * wgmma decodes its shared-memory descriptors (start, LBO, SBO) as the
 //     PTX ISA lays out K-major and MN-major 128B-swizzled operands, and
@@ -22,8 +24,8 @@
 // So the emulation checks the kernels' index math, masks, softmax and
 // pipeline against their plain versions; that the card reads descriptors
 // and fragments the same way is checked on the card (tests/test_torch_gpu.py,
-// chip_smoke.py).  tests/test_torch_flash_sm90.py, test_torch_rglru_sm90.py
-// and test_torch_wkv_sm90.py build and run it.
+// chip_smoke.py).  tests/test_torch_flash_sm90.py, test_torch_rglru_sm90.py,
+// test_torch_wkv_sm90.py and test_torch_flash_f32_emu.py build and run it.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -264,6 +266,7 @@ inline void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
     }
 }
 inline void bulk_commit() {}
+#ifndef EMU_CP_ASYNC_DEFERRED
 // cp.async lands at once.
 inline void cp_async16(void* dst, const void* src) {
   if (smem_u32(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16)
@@ -274,6 +277,34 @@ inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
 template <int N>
 inline void cp_async_wait_group() {}
+#else
+// cp.async lands only when the issuing thread waits for its group
+// (wait_group N: every committed group but the newest N; wait_all: every
+// committed group), as late as the hardware may land it: a read before the
+// wait, or by another thread before a barrier after it, sees the 0xCD
+// garbage (the float32 attention kernels' harness).
+inline thread_local std::vector<std::vector<std::pair<void*, const void*>>>
+    t_cp_groups;
+inline thread_local std::vector<std::pair<void*, const void*>> t_cp_open;
+inline void cp_async16(void* dst, const void* src) {
+  if (smem_u32(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16)
+    std::abort();
+  t_cp_open.emplace_back(dst, src);
+}
+inline void cp_async_commit() {
+  t_cp_groups.push_back(std::move(t_cp_open));
+  t_cp_open.clear();
+}
+inline void cp_async_land(size_t keep) {
+  while (t_cp_groups.size() > keep) {
+    for (const auto& c : t_cp_groups.front()) std::memcpy(c.first, c.second, 16);
+    t_cp_groups.erase(t_cp_groups.begin());
+  }
+}
+inline void cp_async_wait_all() { cp_async_land(0); }
+template <int N>
+inline void cp_async_wait_group() { cp_async_land(N); }
+#endif
 template <int N>
 inline void bulk_wait_read() {}
 inline void bulk_wait_all() {}

@@ -6,7 +6,7 @@ kernels (``wkv.cu``) or the tick loop's grouped launch (``tick_loop.cu``):
     python3 tests/sm90/probe.py [step ...]
 
 runs every step below, or only the named ones (build, probe, fwd, bwd,
-rglru, wkv, timing, tick, cells; ``cells`` is not among the default
+f32, rglru, wkv, timing, tick, cells; ``cells`` is not among the default
 steps).
 
 1. build — nvcc builds every source; ptxas registers, spills and stack per
@@ -35,6 +35,14 @@ steps).
 5. timing — one median of 5 (CUDA events) of the forward at qwen3-0.6b's
    and recurrentgemma-2b's heads and of the backward at both, each beside
    ``scaled_dot_product_attention``.
+5b. f32 — the float32 (FMA) kernels alone: their build (registers,
+   spills), 10 cases against the plain versions (the backward twice, bit
+   for bit), then each timed at qwen3's, qwen2's and recurrentgemma's heads
+   (B 1 x T 2,048; the backward also at B 2 x T 4,096, window 2,048) beside
+   its bound, its plain version and SDPA in float32.  With ``PROBE_SRC`` it
+   times another tree's kernels: run it for the parent and this tree,
+   alternating, in one call.  ``f32_shares`` (not a default step): each
+   kernel's device time with its shares forced to 1 and 2 in turn.
 
 6. tick — the tick-loop launch of a sweep (its groups in one launch)
    against each group's own launch on the Figure 2, fig_dvfs and
@@ -542,6 +550,204 @@ def timing():
                   flush=True)
 
 
+# The float32 route's timed shapes (chip_smoke.py phases 7, 10 and 19a):
+# (name, B, T, H, Hkv, hd, window), all causal.
+F32_TIMED = [("qwen3", 1, 2048, 16, 8, 128, 0),
+             ("qwen2", 1, 2048, 14, 2, 64, 0),
+             ("recurrentgemma", 1, 2048, 10, 1, 256, 2048),
+             ("recurrentgemma", 2, 4096, 10, 1, 256, 2048)]
+
+
+def f32():
+    """The float32 (FMA) kernels: their two sources built (ptxas's
+    registers, spills and stack per entry), both held to the plain versions
+    (float32: 2e-5 forward, 5e-5 + 5e-5 |ref| backward, chip_smoke.py's
+    tolerances), the backward run twice for bit equality, then each timed
+    at F32_TIMED beside its bound (cost.flash_fwd / flash_bwd at 67 TFLOP/s
+    and 3.35 TB/s), its plain version and scaled_dot_product_attention in
+    float32 (the window as a mask where it cuts).  With ``PROBE_SRC`` it
+    measures another tree's kernels the same way."""
+    from repro_torch.kernels import cost
+
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        log = build.build_log(src)
+        print(src, "nvcc", build.nvcc_seconds(log), "s", flush=True)
+        for name, line in build.ptxas_report(log).items():
+            print(src, name[-70:], line, flush=True)
+        print("\n".join(x for x in log.splitlines() if "arning" in x))
+    g = torch.Generator().manual_seed(4)
+    worst_f = worst_b = 0.0
+    for B, Tq, Tk, H, Hkv, hd, causal, window, extra in [
+            (1, 128, 128, 2, 1, 128, True, 0, 0),
+            (2, 200, 200, 16, 8, 128, True, 0, 0),
+            (1, 70, 130, 14, 2, 64, True, 0, 0),
+            (2, 384, 384, 14, 2, 64, False, 0, 0),
+            (2, 1000, 1000, 10, 1, 256, True, 0, 0),
+            (1, 2048, 2048, 10, 1, 256, True, 2048, 0),
+            (2, 200, 200, 16, 8, 128, True, 64, 0),
+            (2, 150, 150, 16, 8, 128, True, 0, 100),
+            (1, 2048, 2048, 14, 2, 64, True, 0, 0),
+            (2, 4096, 4096, 10, 1, 256, True, 2048, 0)]:
+        q, do = [torch.randn(B, Tq, H, hd, generator=g).to(DEV)
+                 .transpose(1, 2) for _ in range(2)]
+        kc, vc = [torch.randn(B, Tk + extra, Hkv, hd, generator=g).to(DEV)
+                  for _ in range(2)]
+        kc[:, Tk:] = float("nan")
+        vc[:, Tk:] = float("nan")
+        k, v = kc[:, :Tk].transpose(1, 2), vc[:, :Tk].transpose(1, 2)
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, **kw)
+        ro, rl = attention_ref(q, k, v, return_lse=True, **kw)
+        ef = max(float((o - ro).abs().max()), float((lse - rl).abs().max()))
+        worst_f = max(worst_f, ef)
+        line = f"f32 fwd {(B, Tq, Tk, H, Hkv, hd, causal, window, extra)} " \
+               f"o/lse max |err| {ef:.3g}"
+        if Tq == Tk and not extra:
+            got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
+            again = flash_attention_bwd_bhtd(q, k, v, o, lse, do, **kw)
+            want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            excess = max(float((abs(a - b) - 5e-5 * b.abs()).max())
+                         for a, b in zip(got, want))
+            worst_b = max(worst_b, excess)
+            line += (f"; bwd max(|err| - 5e-5 |ref|) {excess:.3g}, bit-equal "
+                     f"twice {all(torch.equal(a, b) for a, b in zip(got, again))}")
+        torch.cuda.synchronize()
+        print(line, flush=True)
+        del q, do, kc, vc, k, v, o, lse, ro, rl
+    print(f"f32 worst: fwd {worst_f:.3g} (tol 2e-5), bwd excess {worst_b:.3g} "
+          f"(tol 5e-5)", flush=True)
+    assert worst_f <= 2e-5 and worst_b <= 5e-5
+
+    for name, B, T, H, Hkv, hd, w in F32_TIMED:
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(DEV)
+                       .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+        mask = None
+        if 0 < w < T:
+            pos = torch.arange(T, device=DEV)
+            mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
+
+        def sdpa(xs):
+            if mask is None:
+                return F.scaled_dot_product_attention(
+                    xs[0], xs[1], xs[2], is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                xs[0], xs[1].expand(B, H, T, hd), xs[2].expand(B, H, T, hd),
+                attn_mask=mask)
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, window=w)
+        reps = 5 if T <= 2048 else 3
+        if T <= 2048:
+            ms = median_ms(lambda: flash_attention_bhtd(q, k, v, window=w),
+                           reps)
+            plain = median_ms(lambda: attention_ref(q, k, v, window=w), 2)
+            lib = median_ms(lambda: sdpa((q, k, v)), reps)
+            fl, nb = cost.flash_fwd(B, H, Hkv, hd, T, T, True, 4, w)
+            bound = max(fl / 67e12, nb / 3.35e12) * 1e3
+            print(f"f32 time fwd {name} {(B, T, H, Hkv, hd, w)}: kernel "
+                  f"{ms:.4f} ms, bound {bound:.4f}, share {bound / ms:.3f}, "
+                  f"plain {plain:.3f}, sdpa f32 {lib:.4f}", flush=True)
+        ms = median_ms(lambda: flash_attention_bwd_bhtd(q, k, v, o, lse, do,
+                                                        window=w), reps)
+        plain = median_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                    window=w), 2)
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        lo = sdpa(xs)
+        lib = median_ms(lambda: torch.autograd.grad(lo, xs, do,
+                                                    retain_graph=True), reps)
+        fl, nb = cost.flash_bwd(B, H, Hkv, hd, T, T, True, 4, w)
+        bound = max(fl / 67e12, nb / 3.35e12) * 1e3
+        print(f"f32 time bwd {name} {(B, T, H, Hkv, hd, w)}: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f}, share {bound / ms:.3f}, "
+              f"plain {plain:.3f}, sdpa f32 backward {lib:.4f}", flush=True)
+        # ten calls queued between two events: the host's share shows as
+        # the difference from the single-call time
+        if T <= 2048:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                flash_attention_bwd_bhtd(q, k, v, o, lse, do, window=w)
+            end.record()
+            torch.cuda.synchronize()
+            print(f"f32 time bwd {name} {(B, T)}: ten calls queued "
+                  f"{start.elapsed_time(end) / 10:.4f} ms a call", flush=True)
+        # device time by kernel (one call each under the profiler)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if T <= 2048:
+                flash_attention_bhtd(q, k, v, window=w)
+            flash_attention_bwd_bhtd(q, k, v, o, lse, do, window=w)
+            torch.cuda.synchronize()
+        parts = [(e.key, e.device_time_total / 1e3)
+                 for e in prof.key_averages() if "flash" in e.key]
+        print(f"f32 device {name} {(B, T)}: " + "; ".join(
+            f"{kname[:40]} {t:.4f} ms" for kname, t in parts), flush=True)
+        del q, k, v, do, o, lse, xs, lo
+        torch.cuda.empty_cache()
+    # the forward at B 8 (more blocks than the card's slots)
+    for name, B, T, H, Hkv, hd, w in F32_TIMED[:3]:
+        B = 8
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(DEV)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv)]
+        ms = median_ms(lambda: flash_attention_bhtd(q, k, v, window=w))
+        fl, nb = cost.flash_fwd(B, H, Hkv, hd, T, T, True, 4, w)
+        bound = max(fl / 67e12, nb / 3.35e12) * 1e3
+        print(f"f32 time fwd {name} {(B, T, H, Hkv, hd, w)}: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f}, share {bound / ms:.3f}",
+              flush=True)
+        del q, k, v
+
+
+def f32_shares():
+    """The float32 kernels' device time (profiler, 5 calls each) at qwen3's
+    and recurrentgemma's heads, B 1 x T 2,048, with every kernel's shares
+    forced to 1 and to 2 in turn (1, 2, 1, 2, three times): the measurement
+    behind ``flash_attention.shares``' one-wave threshold."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    fb = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention_bwd")
+    plans = (fa.f32_split, fb.f32_dq_split, fb.f32_kv_split)
+    g = torch.Generator().manual_seed(5)
+    try:
+        for name, H, Hkv, hd, w in [("qwen3", 16, 8, 128, 0),
+                                    ("recurrentgemma", 10, 1, 256, 2048)]:
+            q, k, v, do = [torch.randn(1, 2048, h, hd, generator=g).to(DEV)
+                           .transpose(1, 2) for h in (H, Hkv, Hkv, H)]
+            o, lse = flash_attention_bhtd(q, k, v, return_lse=True, window=w)
+            res = {}
+            for n in (1, 2, 1, 2, 1, 2):
+                fa.f32_split = fb.f32_dq_split = fb.f32_kv_split = \
+                    lambda *a, n=n: n
+                for _ in range(2):
+                    flash_attention_bhtd(q, k, v, window=w)
+                    flash_attention_bwd_bhtd(q, k, v, o, lse, do, window=w)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        flash_attention_bhtd(q, k, v, window=w)
+                        flash_attention_bwd_bhtd(q, k, v, o, lse, do,
+                                                 window=w)
+                    torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    for kname in ("flash_fwd_kernel", "flash_fwd_combine",
+                                  "flash_bwd_dq_kernel", "flash_bwd_dkdv",
+                                  "flash_bwd_sum"):
+                        if kname in e.key:
+                            res.setdefault((n, kname), []).append(
+                                e.device_time_total / 1e3 / 5)
+            for (n, kname), ts in sorted(res.items()):
+                print(f"f32 shares {name} {n}: {kname} "
+                      + " ".join(f"{t:.4f}" for t in ts) + " ms a call",
+                      flush=True)
+            del q, k, v, do, o, lse
+    finally:
+        fa.f32_split, fb.f32_dq_split, fb.f32_kv_split = plans
+
+
 def tick():
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -620,9 +826,9 @@ def cells():
 
 
 STEPS = {"build": builds, "probe": probe, "fwd": fwd, "bwd": bwd,
-         "rglru": rglru, "wkv": wkv, "wkv_profile": wkv_profile,
-         "wkv_bwd_profile": wkv_bwd_profile, "timing": timing, "tick": tick,
-         "cells": cells}
+         "f32": f32, "f32_shares": f32_shares, "rglru": rglru, "wkv": wkv,
+         "wkv_profile": wkv_profile, "wkv_bwd_profile": wkv_bwd_profile,
+         "timing": timing, "tick": tick, "cells": cells}
 
 if __name__ == "__main__":
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
@@ -631,6 +837,7 @@ if __name__ == "__main__":
                          text=True).stdout.strip(), flush=True)
     for name in sys.argv[1:] or [s for s in STEPS
                                  if s not in ("cells", "wkv_profile",
-                                              "wkv_bwd_profile")]:
+                                              "wkv_bwd_profile",
+                                              "f32_shares")]:
         step(name, STEPS[name])
     sys.exit(1 if FAILED else 0)

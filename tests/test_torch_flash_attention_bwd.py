@@ -182,8 +182,8 @@ def test_backward_wrapper_checks_its_inputs():
 
 def test_backward_source_flags_instances_and_shared_memory():
     """The backward source has its own flags (no fast math), its own
-    instance parser for the build report, and shared-memory sizes that
-    match the source's formulas."""
+    instance parser for the build report (the dq, dk/dv and share-sum
+    kernels), and shared-memory sizes that match the source's formulas."""
     from repro_torch.kernels import build
 
     assert "flash_attention_bwd.cu" in build.SOURCE_FLAGS
@@ -194,17 +194,27 @@ def test_backward_source_flags_instances_and_shared_memory():
         "PS1_iiiiNS_7StridesEiif": ("dq", "float32", 64),
         "_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li128EEEv"
         "PKT_S4_S4_S4_PKfS6_PS2_S7_iiiiNS_7StridesEiif":
-            ("dkdv", "bfloat16", 128)}
+            ("dkdv", "bfloat16", 128),
+        "_ZN12_GLOBAL__N_120flash_bwd_sum_kernelIfLi256EEEvPKfPT_S4_iiiNS_7"
+        "StridesEi": ("sum", "float32", 256)}
     for name, inst in names.items():
         assert build.flash_attention_bwd_instance(name) == inst
         assert build.flash_attention_instance(name) is None
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    for const in ("kQBQ = 64", "kQBK = 32", "kKBK = 32", "kKBQ = 64"):
-        assert f"constexpr int {const};" in src
+    # the dq kernel's query rows a block and keys a stage; the dk/dv
+    # kernel's keys a block and query rows a stage
+    for const in ("kBQ = HD == 256 ? 64 : 128", "kTB = HD == 256 ? 4 : 8",
+                  "kBK = kNB * kTB", "kBK = 64",
+                  "kBQ = HD == 64 ? 32 : HD == 128 ? 64 : 16"):
+        assert f"static constexpr int {const};" in src
+    assert (bwd_module.F32_DQ_BQ, bwd_module.F32_DQ_BK, bwd_module.F32_KV_BK,
+            bwd_module.F32_KV_BQ) == ({64: 128, 128: 128, 256: 64},
+                                      {64: 32, 128: 32, 256: 16}, 64,
+                                      {64: 32, 128: 64, 256: 16})
     dq, dkdv = bwd_module.smem_bytes(128)
-    assert (dq, dkdv) == (107_520, 116_224)
+    assert (dq, dkdv) == (212_992, 229_376)
     # hd 256 (recurrentgemma): the same formulas, under the opt-in limit
-    assert bwd_module.smem_bytes(256) == (205_824, 214_528)
+    assert bwd_module.smem_bytes(256) == (200_704, 204_800)
     assert 256 in bwd_module.HEAD_DIMS and "if (hd == 256)" in src
     assert all(b <= 232_448 for hd in bwd_module.HEAD_DIMS
                for b in bwd_module.smem_bytes(hd))
