@@ -85,7 +85,7 @@ Phases (each prints a line; any failure exits non-zero):
               lm_qwen3_0_6b.json`` (JAX on the CPU): 16 greedy tokens exact,
               top-5 logits and norms to a stated tolerance.
 9. serve    — full-width qwen3-0.6b in bf16: (a) ``generate`` of 8 x 2,048
-              prompt tokens + 128 new ones, kernel vs plain prefill logits;
+              prompt tokens + 64 new ones, kernel vs plain prefill logits;
               (b) ``ContinuousBatcher`` with EEMT admission over 16 slots,
               64 requests of 128-2,048 prompt tokens: all finish, one kernel
               launch per layer per prefill.
@@ -128,7 +128,7 @@ Phases (each prints a line; any failure exits non-zero):
               ``lm_recurrentgemma_2b.json`` (JAX on the CPU): 16 greedy
               tokens exact, top-5 logits and norms to a stated tolerance.
 16. recurrent serve — both in bf16 at full width and depth: ``generate``
-              of 8 x 2,048 prompt tokens + 128 new ones (recurrentgemma's
+              of 8 x 2,048 prompt tokens + 64 new ones (recurrentgemma's
               ring of 2,048 wraps), launches per prefill and decode step,
               prefill and decode tokens/s, peak memory; the prefill's
               logits through the kernels and through the plain versions,
@@ -233,7 +233,12 @@ Phases (each prints a line; any failure exits non-zero):
               2 launched 48 times (all wgmma), finite logits, peak memory;
               one all-to-all against a copy of its bytes; the a2a prefill
               profiled (device time by kernel group, idle share; 23b
-              profiles gmm's).
+              profiles gmm's); (d, e) the partitioned step at tp 2, two
+              ranks of a gloo world on the card: phase 11's float32
+              golden, then olmo-1b in bf16 at full width and depth beside
+              tp 1 (losses, grad norms, bytes and peak a rank, kernels 2
+              and 3 at 8 heads); (f) qwen3-0.6b's and yi-9b's train_4k
+              dry runs beside the parent tree's values.
 23. families — run last: the MoE, VLM and audio families at full width
               and depth in bf16, weights drawn on the card.  (a)
               ``serve.generate`` of qwen3-moe-30b-a3b (8 x 2,048 + 32,
@@ -282,7 +287,7 @@ Phases (each prints a line; any failure exits non-zero):
               heads of 64, QKV bias), olmo-1b (16/16 of 128, non-parametric
               LayerNorm), yi-9b (32/4 of 128, untied head) and
               moonshot-v1-16b-a3b (64 experts top 6, 2 shared, ``moe_impl=
-              "gmm"``), 8 x 2,048 + 32 each: kernel 2 once a layer in the
+              "gmm"``), 8 x 2,048 + 16 each: kernel 2 once a layer in the
               prefill (24, 16, 48, 48), never in a decode step, all wgmma;
               the prefill through the kernel against the plain version
               within SERVE_BF16_TOL (moonshot's plain run routed as the
@@ -2516,8 +2521,11 @@ GOLDEN_WEIGHT_CHECK = {"embed": (0, slice(0, 4)),
 # to the row's largest top-5 |logit| / its norm (measured on the H100 80GB
 # HBM3 at 700 W: see PERF.md).
 GOLDEN_RTOL = 1e-3
-# Phase 9: serving shapes.
-GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 2048, 128
+# Phases 9 and 16: serving shapes.  New tokens cut from 128 to 64 (the
+# cuts named for the next slice that adds time: phase 16's, then phase
+# 9's) when the whole script read 1,141.7 s of its 1,200 with phase 24
+# (d)-(f); recurrentgemma's ring of 2,048 still wraps at 2,048 + 64.
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 2048, 64
 CB_SLOTS, CB_MAX_LEN, CB_REQUESTS, CB_MAX_NEW = 16, 4096, 64, 64
 CB_PROMPT = (128, 2048)     # prompt lengths, uniform, numpy seed 2
 # Phase 9a: kernel vs plain prefill logits in bf16, as a share of the
@@ -3046,7 +3054,7 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
     w_err, w_worst = 0.0, None
     n_sure = n_all = 0
     if mesh is not None:
-        state = state._replace(params=sharding.gather_full(state.params))
+        state = state._replace(params=gather_blocks(state.params))
     for (path, idx), g1, want in zip(gold["check_leaves"],
                                      gold["grad_slices"],
                                      gold["param_slices_after_2"]):
@@ -3084,7 +3092,37 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
     torch.cuda.empty_cache()
     check(not bad, f"{tag} {len(bad)} reading(s) out of tolerance: "
           + "; ".join(bad))
-    return {"metrics": readings, "final": final}
+    # each reading beside its limit
+    shares = {"loss": (m_err["loss"], tol["loss"]),
+              "ce": (m_err["ce"], tol["loss"]),
+              "grad_norm": (m_err["grad_norm"], tol["gnorm"]),
+              "lr": (m_err["lr"], tol["lr"]),
+              "grad_leaf_norms": (g_err, tol["gnorm"]),
+              "grad_slices": (gs_err, tol["grad"]),
+              "weights": (w_err, tol["w"])}
+    return {"metrics": readings, "final": final, "shares": shares}
+
+
+def gather_blocks(tree):
+    """Every DTensor leaf of ``tree`` as its whole value, gathered by
+    ``torch.distributed``'s own all-gather (DTensor's ``full_tensor``
+    takes the functional collectives, which a gloo group on the card does
+    not carry); other leaves as they are."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import sharding
+
+    def whole(x):
+        if not sharding.is_placed(x):
+            return x
+        axes = [[] for _ in range(x.dim())]
+        for name, pl in zip(x.device_mesh.mesh_dim_names, x.placements):
+            if isinstance(pl, Shard):
+                axes[pl.dim].append(name)
+        return sharding._gather_global(
+            x.to_local(), tuple(x.shape), x.device_mesh,
+            sharding.P(*(tuple(a) for a in axes)))
+    return sharding._map_with_path(lambda _, x: whole(x), tree)
 
 
 def phase_train(dev) -> dict:
@@ -4307,7 +4345,8 @@ def phase_recurrent_serve(dev, arch) -> dict:
 # Phase 25: the dry run (src/repro_torch/launch/dryrun.py).  (a) Its CLI
 # over a fake world of 256 ranks on the 16 x 16 mesh, with probes, in child
 # processes beside the float32 goldens (they time nothing), for these cells.
-DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"))
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
+                ("yi-9b", "train_4k"))
 # (b) This cell at the probe's depth (PROBE_DEPTHS[0] layers) counted on meta
 # and run on the card over the world of one: the card's FLOPs and bytes
 # equal to the meta count, its peak (max_memory_allocated above the level
@@ -5925,10 +5964,10 @@ def family_budget(serve_s, golden_s):
 # ---------------------------------------------------- every arch (26) --
 # Phase 26: every arch of configs.ARCHS on the card.  (a) The four archs
 # the earlier phases do not serve, bf16, full width and depth, weights
-# drawn on the card (torch.Generator seed 0), phase 23a's prompt shape
-# (batch, prompt, new tokens).
-ARCH_SERVE = {"qwen2-0.5b": (8, 2048, 32), "olmo-1b": (8, 2048, 32),
-              "yi-9b": (8, 2048, 32), "moonshot-v1-16b-a3b": (8, 2048, 32)}
+# drawn on the card (torch.Generator seed 0), phase 23a's batch, prompt
+# and new tokens (each cut from 32 to 16 when phase 24 gained (d)-(f)).
+ARCH_SERVE = {"qwen2-0.5b": (8, 2048, 16), "olmo-1b": (8, 2048, 16),
+              "yi-9b": (8, 2048, 16), "moonshot-v1-16b-a3b": (8, 2048, 16)}
 # (b) Their float32 goldens (tests/torch_goldens/make_lm_golden.py's
 # FAMILIES: qwen2-0.5b and olmo-1b at full depth, yi-9b at 4 of 48 layers,
 # moonshot at 2 of 48), teacher-forced as 23c; weights by position.
@@ -5954,16 +5993,18 @@ FAMILY_WEIGHT_CHECK.update({
                                                      slice(-4, None))}})
 # (c) Training on the card of every arch whose bf16 AdamW state fits one
 # card (~22 B a parameter): train_4k's sequence at one card's 2 rows of its
-# global batch of 256, remat, ARCH_TRAIN_STEPS steps.  qwen2-0.5b and
-# olmo-1b through the launcher (tokens alone, as JAX's launcher feeds);
-# whisper-small and qwen2-vl-2b through trainer.train with train_4k's extra
-# inputs (src/repro/launch/input_specs.py:98-110: 1,500 frames; a 32 x 32
-# image in the first 1,024 slots with its M-RoPE positions).  yi-9b (8.83 B
-# parameters, ~194 GB of state) and moonshot (28.55 B, ~628 GB) need ROADMAP
-# item 10m's per-layer gather.
+# global batch of 256, remat, ARCH_TRAIN_STEPS steps (4 cut to 3 with
+# phase 24 (d)-(f)).  qwen2-0.5b and olmo-1b through the launcher (tokens
+# alone, as JAX's launcher feeds); whisper-small and qwen2-vl-2b through
+# trainer.train with train_4k's extra inputs
+# (src/repro/launch/input_specs.py:98-110: 1,500 frames; a 32 x 32 image in
+# the first 1,024 slots with its M-RoPE positions).  yi-9b (8.83 B
+# parameters, ~194 GB of state) needs a state split over several cards (the
+# partitioned step, phase 24 (e)-(f)); moonshot (28.55 B, ~628 GB) also the
+# MoE's partitioned step (ROADMAP queue 1).
 ARCH_TRAIN_LAUNCHER = ("qwen2-0.5b", "olmo-1b")
 ARCH_TRAIN_TRAINER = ("whisper-small", "qwen2-vl-2b")
-ARCH_TRAIN_B, ARCH_TRAIN_T, ARCH_TRAIN_STEPS = 2, 4096, 4
+ARCH_TRAIN_B, ARCH_TRAIN_T, ARCH_TRAIN_STEPS = 2, 4096, 3
 # (d) The float32 train goldens (tests/torch_goldens/make_train_golden.py:
 # full depth, B 2 x T 128; whisper's frames and qwen2-vl's 8 x 8 image
 # grid from numpy seed 2), held to phase 11's TRAIN_TOL, on the weights of
@@ -6311,6 +6352,395 @@ def phase_mesh_launcher_step(dev, mesh) -> float:
     return took
 
 
+# (d, e) The partitioned train step (train/step.py) over a world of TP_RANKS
+# ranks on the one card: each rank a child process of this script
+# (``--tp-rank``), in a gloo group of its own over a FileStore (NCCL takes
+# one rank a device; the launcher's world-of-one rule stays), a
+# ("data", "model") mesh of (1, TP_RANKS).  gloo carries the card's tensors
+# through the host: no time here is an NVLink figure.  (d) phase 11's
+# float32 golden at tp 2, held to TRAIN_TOL; (e) olmo-1b in bf16 at full
+# width and depth with remat, ARCH_TRAIN_B x ARCH_TRAIN_T, TP_OLMO_STEPS
+# steps from the placed init (init_train_state(mesh=...)) on in-order
+# SyntheticSource batches, against tp 1's steps on the same batches on the
+# card (this process, before the ranks start), the losses to
+# TRAIN_BF16_LOSS_RTOL (phase 12's bf16 bound: the same roundings in
+# another sum order).  Each rank's parameter and moment bytes at most
+# TP_BYTES_SHARE of tp 1's; kernels 2 and 3 at TP_OLMO_HEADS heads.  The
+# grad norms against tp 1's to TP_GNORM_RTOL: the losses barely see a
+# gradient scaled wrongly by a missing or doubled all-reduce (Adam is
+# nearly scale-invariant per leaf and lr is at most 4.5e-5 here), the
+# norm does.  Read on an H100 80GB HBM3 at 700 W (tests/sm90/probe.py
+# tp_fault): 2.57e-4 clean; 0.735 with copy_to_model's gradient
+# all-reduce taken away (the losses then 0.092 off).
+TP_RANKS = 2
+TP_OLMO = "olmo-1b"
+TP_OLMO_STEPS = 3
+TP_OLMO_HEADS = 8
+TP_BYTES_SHARE = 0.55
+TP_GNORM_RTOL = 2e-2
+# (f) The dry run's partitioned cells (25a's children, DRYRUN_CELLS): what
+# the parent tree (before the partitioned step) printed for them on meta at
+# 16 x 16 (python -m repro_torch.launch.dryrun --arch A --shape train_4k at
+# commit beeb03c): flops_per_device, peak_per_device, useful_flops_ratio.
+TP_DRYRUN_BEFORE = {
+    "qwen3-0.6b": (419102371872768.0, 18737611816, 0.03494829236048929),
+    "yi-9b": (4648576248446976.0, 293615340584, 0.04667703318116177)}
+# (f) what the partitioned step must reach: qwen3-0.6b's useful FLOP share
+# at least this many times the parent's, yi-9b's peak under one card.
+TP_DRYRUN_USEFUL_GAIN, TP_DRYRUN_PEAK_B = 4.0, 80e9
+
+
+def tp_batches(vocab, n):
+    """``n`` in-order SyntheticSource batches of ARCH_TRAIN_B x
+    ARCH_TRAIN_T (the same in every process)."""
+    from repro_torch.data import SyntheticSource, batches
+
+    it = batches(SyntheticSource(vocab, 1 << 16), batch=ARCH_TRAIN_B,
+                 seq=ARCH_TRAIN_T, tuned=False)
+    out = [next(it) for _ in range(n)]
+    it.close()
+    return out
+
+
+def state_bytes(state):
+    """(parameter bytes, moment bytes) this rank holds of ``state``."""
+    from repro_torch.distributed import sharding
+
+    def nbytes(tree):
+        return sum((x.to_local() if sharding.is_placed(x) else x).numel()
+                   * x.element_size() for x in _leaves(tree))
+    return nbytes(state.params), nbytes(state.opt.mu) + nbytes(state.opt.nu)
+
+
+def olmo_steps(dev, mesh=None):
+    """TP_OLMO_STEPS bf16 steps of olmo-1b (make_train_step, the cuda
+    executor) from init_train_state(seed 0), placed on ``mesh`` when given,
+    on tp_batches: per-step losses, grad norms and host walls (each ending
+    in a read of the loss), the state's bytes, the peak, and kernels 2
+    and 3's launches a step and the head counts they ran at."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(TP_OLMO)
+    check(cfg.dtype == "bfloat16" and cfg.remat, f"{TP_OLMO} trains in "
+          f"bf16 with remat")
+    bundle = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(bundle, 0, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    pbytes, mbytes = state_bytes(state)
+    step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
+                                               total_steps=TP_OLMO_STEPS),
+                           executor="cuda")
+    heads = {"fwd": set(), "bwd": set()}
+    real = (ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd)
+
+    def fwd(q, *a, **kw):
+        heads["fwd"].add(q.shape[1])
+        return real[0](q, *a, **kw)
+
+    def bwd(q, *a, **kw):
+        heads["bwd"].add(q.shape[1])
+        return real[1](q, *a, **kw)
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in tp_batches(cfg.vocab_size, TP_OLMO_STEPS)]
+    ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = fwd, bwd
+    losses, gnorms, walls, per_step = [], [], [], []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            n0 = (flash_attention_bhtd.launches,
+                  flash_attention_bwd_bhtd.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (sharding.set_mesh(mesh) if mesh is not None
+                  else contextlib.nullcontext()):
+                state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t) * 1e3)
+            gnorms.append(float(m["grad_norm"]))
+            per_step.append((flash_attention_bhtd.launches - n0[0],
+                             flash_attention_bwd_bhtd.launches - n0[1]))
+    finally:
+        ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = real
+    peak = torch.cuda.max_memory_allocated()
+    del state, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": walls,
+            "param_bytes": pbytes, "moment_bytes": mbytes,
+            "init_s": init_s, "init_peak": init_peak, "peak": peak,
+            "launches": per_step, "heads": {k: sorted(v)
+                                            for k, v in heads.items()},
+            "layers": cfg.num_layers, "num_heads": cfg.num_heads}
+
+
+def save_tree(tree, d):
+    """A tree of dicts of numpy arrays as one .npy file a leaf under
+    ``d`` (path keys joined by ``.``), for :func:`load_tree`."""
+    import numpy as np
+
+    os.makedirs(d)
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                np.save(os.path.join(d, ".".join(path + (k,)) + ".npy"), v)
+    walk(tree, ())
+
+
+def load_tree(d):
+    """The tree :func:`save_tree` wrote under ``d``."""
+    import numpy as np
+
+    tree = {}
+    for name in sorted(os.listdir(d)):
+        *path, leaf = name[:-len(".npy")].split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.load(os.path.join(d, name))
+    return tree
+
+
+def tp_rank_main(rank, store, out):
+    """A rank of phase 24 (d, e) (``chip_smoke.py --tp-rank R STORE OUT``):
+    the gloo world of TP_RANKS ranks, the (1, TP_RANKS) mesh, (d) then
+    (e); its readings to ``out`` as JSON."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
+                                                     flash_attention_bwd_bhtd)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(TP_RANKS).reshape(1, TP_RANKS),
+                          mesh_dim_names=("data", "model"))
+        res = {"backend": str(dist.get_backend())}
+        t0 = time.perf_counter()
+        tree = load_tree(os.path.join(os.path.dirname(store), "tree"))
+        n0 = (flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches)
+        gold = phase_train_golden(dev, tree, tag=f"[24 mesh] (d) rank {rank}",
+                                  mesh=mesh)
+        res["d"] = {"metrics": gold["metrics"], "shares": gold["shares"],
+                    "launches": [flash_attention_bhtd.launches - n0[0],
+                                 flash_attention_bwd_bhtd.launches - n0[1]],
+                    "s": time.perf_counter() - t0}
+        del tree, gold
+        t0 = time.perf_counter()
+        res["e"] = olmo_steps(dev, mesh)
+        res["e"]["s"] = time.perf_counter() - t0
+        with open(out + ".tmp", "w") as f:
+            json.dump(res, f)
+        os.replace(out + ".tmp", out)
+    finally:
+        dist.destroy_process_group()
+
+
+class MeshTP:
+    """[24 mesh] (d, e): tp 1's olmo-1b steps in this process, then the
+    TP_RANKS ranks started (child processes: (d), then (e)); the
+    full run joins them after the float32 goldens, which time nothing
+    (the ranks' step times beside them are host-staged figures anyway)."""
+
+    def __init__(self, dev, tree):
+        import tempfile
+
+        self.t0 = time.perf_counter()
+        self.tp1 = olmo_steps(dev)
+        self.tp1_s = time.perf_counter() - self.t0
+        self.dir = tempfile.mkdtemp(prefix="tp_world_")
+        # the golden's weights for (d), written once for both ranks
+        save_tree(tree, os.path.join(self.dir, "tree"))
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.procs, self.outs, self.logs = [], [], []
+        for rank in range(TP_RANKS):
+            self.outs.append(os.path.join(self.dir, f"rank{rank}.json"))
+            self.logs.append(open(os.path.join(self.dir, f"rank{rank}.log"),
+                                  "w"))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank",
+                 str(rank), os.path.join(self.dir, "store"), self.outs[-1]],
+                stdout=self.logs[-1], stderr=subprocess.STDOUT, cwd=ROOT,
+                env=env))
+            CHILDREN.append(self.procs[-1])
+
+    def join(self, p11_metrics) -> dict:
+        """Wait for the ranks; hold and print (d) and (e) beside phase
+        11's steps (``p11_metrics``) and tp 1's.  Returns the seconds from
+        the start to the join and rank 0's kernel 2 and 3 launches a step
+        in (e)."""
+        import shutil
+
+        t_wait = time.perf_counter()
+        codes = [p.wait(timeout=900) for p in self.procs]
+        waited = time.perf_counter() - t_wait
+        for f in self.logs:
+            f.close()
+        try:
+            return phase_mesh_tp(self.dir, self.outs, codes, self.tp1,
+                                 p11_metrics, time.perf_counter() - self.t0,
+                                 waited)
+        finally:
+            # the golden's weights (2.4 GB of .npy), the store, the logs
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
+    """[24 mesh] (d, e) the ranks' readings (``outs``, their logs in
+    ``d``) held and printed beside phase 11's and tp 1's."""
+    import math
+
+    for rank in range(TP_RANKS):
+        with open(os.path.join(d, f"rank{rank}.log")) as f:
+            text = f.read()
+        print("".join(f"  [rank {rank}] {line}\n"
+                      for line in text.splitlines()[-12:]), end="",
+              flush=True)
+    check(codes == [0] * TP_RANKS, f"[24 mesh] (d, e) the ranks exited "
+                                   f"{codes}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    card = nvidia_card()
+    # (d) phase 11's golden at tp 2: both ranks the same, each reading's
+    # share of its limit, and the distance from phase 11's tp 1 steps
+    r0 = ranks[0]
+    check(all(r["d"]["metrics"] == r0["d"]["metrics"] for r in ranks),
+          "[24 mesh] (d) the ranks' metrics differ")
+    check(r0["backend"] == "gloo", f"[24 mesh] (d) backend {r0['backend']}")
+    vs11 = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+               zip(r0["d"]["metrics"], p11_metrics)
+               for k in ("loss", "ce", "grad_norm"))
+    print(f"[24 mesh] (d) qwen3-0.6b float32 (TF32 off, remat, 28 layers) "
+          f"two partitioned steps at tp {TP_RANKS} (a (1, {TP_RANKS}) mesh "
+          f"of {TP_RANKS} processes on the one card, gloo) vs "
+          f"train_qwen3_0_6b.json: each reading / its limit "
+          + ", ".join(f"{k} {v[0]:.3g} / {v[1]} = {v[0] / v[1]:.3f}"
+                      for k, v in r0["d"]["shares"].items())
+          + f"; loss, ce and grad norm {vs11:.3g} (relative) from phase "
+          f"11's tp 1 steps; kernels 2 and 3 launched "
+          f"{r0['d']['launches']} times a rank (FMA route); "
+          f"{r0['d']['s']:.1f} s a rank; {card}", flush=True)
+    # (e) olmo-1b at tp 2 against tp 1
+    e0 = ranks[0]["e"]
+    check(all(r["e"]["losses"] == e0["losses"] for r in ranks),
+          "[24 mesh] (e) the ranks' losses differ")
+    for r in ranks:
+        check(all(math.isfinite(x) for x in r["e"]["losses"]),
+              f"[24 mesh] (e) non-finite loss {r['e']['losses']}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(e0["losses"], tp1["losses"])]
+    check(max(errs) <= TRAIN_BF16_LOSS_RTOL,
+          f"[24 mesh] (e) tp {TP_RANKS} losses {e0['losses']} vs tp 1's "
+          f"{tp1['losses']}: rel err {errs} > {TRAIN_BF16_LOSS_RTOL}")
+    check(all(r["e"]["grad_norms"] == e0["grad_norms"] for r in ranks),
+          "[24 mesh] (e) the ranks' grad norms differ")
+    g_errs = [abs(a - b) / abs(b) for a, b in zip(e0["grad_norms"],
+                                                  tp1["grad_norms"])]
+    check(max(g_errs) <= TP_GNORM_RTOL,
+          f"[24 mesh] (e) tp {TP_RANKS} grad norms {e0['grad_norms']} vs "
+          f"tp 1's {tp1['grad_norms']}: rel err {g_errs} > {TP_GNORM_RTOL}")
+    L = e0["layers"]
+    for r in ranks:
+        e = r["e"]
+        share = (e["param_bytes"] + e["moment_bytes"]) / (
+            tp1["param_bytes"] + tp1["moment_bytes"])
+        check(e["param_bytes"] <= TP_BYTES_SHARE * tp1["param_bytes"]
+              and e["moment_bytes"] <= TP_BYTES_SHARE * tp1["moment_bytes"],
+              f"[24 mesh] (e) a rank holds {e['param_bytes']} B of "
+              f"parameters and {e['moment_bytes']} B of moments, tp 1 "
+              f"{tp1['param_bytes']} and {tp1['moment_bytes']}")
+        check(all(tuple(p) == (2 * L, L) for p in e["launches"]),
+              f"[24 mesh] (e) kernel 2, 3 launches a step {e['launches']}, "
+              f"expected ({2 * L}, {L})")
+        check(e["heads"] == {"fwd": [TP_OLMO_HEADS], "bwd": [TP_OLMO_HEADS]},
+              f"[24 mesh] (e) kernels 2 and 3 ran at heads {e['heads']}")
+    check(tp1["heads"] == {"fwd": [tp1["num_heads"]],
+                           "bwd": [tp1["num_heads"]]},
+          f"[24 mesh] (e) tp 1's kernels ran at heads {tp1['heads']}")
+    print(f"[24 mesh] (e) {TP_OLMO} bf16 (remat, {L} layers) "
+          f"{TP_OLMO_STEPS} steps of {ARCH_TRAIN_B} x {ARCH_TRAIN_T} from "
+          f"the placed init, tp {TP_RANKS} (gloo, its collectives through "
+          f"the host: no NVLink figure) vs tp 1 on the card: losses "
+          f"{[round(x, 5) for x in e0['losses']]} vs "
+          f"{[round(x, 5) for x in tp1['losses']]} (rel err "
+          f"{max(errs):.3g}, tol {TRAIN_BF16_LOSS_RTOL}, share "
+          f"{max(errs) / TRAIN_BF16_LOSS_RTOL:.3f}); grad norms "
+          f"{[round(x, 4) for x in e0['grad_norms']]} vs "
+          f"{[round(x, 4) for x in tp1['grad_norms']]} (rel err "
+          f"{max(g_errs):.3g}, tol {TP_GNORM_RTOL}, share "
+          f"{max(g_errs) / TP_GNORM_RTOL:.3f}); "
+          + "; ".join(
+              f"rank {i}: parameters {r['e']['param_bytes']} B, moments "
+              f"{r['e']['moment_bytes']} B "
+              f"({(r['e']['param_bytes'] + r['e']['moment_bytes']) / (tp1['param_bytes'] + tp1['moment_bytes']):.4f} "
+              f"of tp 1's {tp1['param_bytes']} + {tp1['moment_bytes']} B), "
+              f"peak {r['e']['peak'] / 1e9:.2f} GB (init peak "
+              f"{r['e']['init_peak'] / 1e9:.2f} GB, drawn in "
+              f"{r['e']['init_s']:.1f} s), kernel 2, 3 launches a step "
+              f"{r['e']['launches'][0]} at {r['e']['heads']['fwd']} of "
+              f"{r['e']['num_heads']} heads, step ms "
+              f"{[round(x, 1) for x in r['e']['step_ms']]} (host-staged "
+              f"collectives)" for i, r in enumerate(ranks))
+          + f"; tp 1: peak {tp1['peak'] / 1e9:.2f} GB, step ms "
+          f"{[round(x, 1) for x in tp1['step_ms']]}, kernel 2, 3 launches "
+          f"a step {tp1['launches'][0]} at {tp1['heads']['fwd']} heads; "
+          f"{card}", flush=True)
+    print(f"[24 mesh] (d, e) {took:.1f} s from tp 1's steps to the join "
+          f"({waited:.1f} s waited at it)", flush=True)
+    return {"s": took, "launches_a_step": e0["launches"][0],
+            "heads": TP_OLMO_HEADS}
+
+
+def nvidia_card() -> str:
+    """The card's name and power limit (nvidia-smi)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi failed"
+
+
+def phase_mesh_dryrun(res) -> None:
+    """[24 mesh] (f) 25a's dry runs of the partitioned cells beside what
+    the parent tree printed (TP_DRYRUN_BEFORE), held to
+    TP_DRYRUN_USEFUL_GAIN and TP_DRYRUN_PEAK_B."""
+    for arch, (flops, peak, useful) in TP_DRYRUN_BEFORE.items():
+        r = res[arch]
+        print(f"[24 mesh] (f) {arch} train_4k on meta at 16 x 16 (fake "
+              f"world of 256), the partitioned step: flops_per_device "
+              f"{r['flops_per_device']:.6g} (before {flops:.6g}), "
+              f"peak_per_device {r['memory']['peak_per_device']} B "
+              f"(before {peak}), useful FLOP share "
+              f"{r['useful_flops_ratio']:.4f} (before {useful:.4f})",
+              flush=True)
+    q = res["qwen3-0.6b"]["useful_flops_ratio"]
+    check(q >= TP_DRYRUN_USEFUL_GAIN * TP_DRYRUN_BEFORE["qwen3-0.6b"][2],
+          f"[24 mesh] (f) qwen3-0.6b useful FLOP share {q}")
+    y = res["yi-9b"]["memory"]["peak_per_device"]
+    check(y < TP_DRYRUN_PEAK_B, f"[24 mesh] (f) yi-9b peak {y} B")
+
+
 class A2ACapacity:
     """While entered, ``moe_impl="a2a"`` runs at capacity ``factor`` (the
     model calls ``moe_a2a`` with its default 1.25, as JAX's does)."""
@@ -6533,6 +6963,10 @@ def main() -> int:
     if "--env-plain" in sys.argv:
         env_plain_check(torch.device("cuda"))
         return 0
+    if "--tp-rank" in sys.argv:
+        i = sys.argv.index("--tp-rank")
+        tp_rank_main(int(sys.argv[i + 1]), sys.argv[i + 2], sys.argv[i + 3])
+        return 0
     try:
         return smoke(torch.device("cuda"),
                      tick_only="--tick-loop" in sys.argv,
@@ -6714,18 +7148,23 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         print("chip_smoke: rwkv6 train phases (1-2, 22) passed")
         return 0
     if mesh_only:
+        dry = DryrunChildren()
         tree = random_qwen3_params()
         p11 = phase_train_golden(dev, tree)
         lap("phase 11")
         world = phase_mesh_world(dev)
         c_s = phase_mesh_train(dev, tree, world["mesh"], p11,
                                lambda phase, *a: phase(*a))
+        MeshTP(dev, tree).join(p11["metrics"])
         del tree, p11
+        lap("phase 24d, e")
+        phase_mesh_dryrun(dry.join())
+        lap("phase 24f (25a joined)")
         moe = phase_family_serve(dev, "qwen3-moe-30b-a3b", world["mesh"])
         mesh_budget(world["phase_s"], c_s, moe["a2a"]["phase_s"])
         lap("phase 24")
-        print("chip_smoke: mesh phases (1-2, 11, 24 with 23a-b of the MoE) "
-              "passed")
+        print("chip_smoke: mesh phases (1-2, 11, 24 with 23a-b of the MoE "
+              "and 25a's dry runs) passed")
         return 0
     if dryrun_only:
         dry = DryrunChildren()
@@ -7067,8 +7506,13 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     # 24 (a, c): a world of one rank over NCCL; phase 11 again on its mesh
     world = phase_mesh_world(dev)
     mesh_c_s = phase_mesh_train(dev, tree, world["mesh"], p11, count_fma)
+    p11_metrics = p11["metrics"]
     del p11
     lap("phase 24a, c")
+    # 24 (d, e): the partitioned step on two ranks of the card, beside the
+    # float32 goldens
+    tp = MeshTP(dev, tree)
+    lap("phase 24e's tp 1 steps")
     # phase 22's float32 golden takes phase 15's rwkv6-7b weights where
     # their seed and cut agree (4 of 32 layers, seed 0): drawn once
     rwkv6_drawn = None
@@ -7092,8 +7536,10 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     lap("phase 26b, d (goldens)")
     child.join()
     lap("phase 17b (joined)")
-    dry.join()
-    lap("phase 25a (joined)")
+    mesh_tp = tp.join(p11_metrics)
+    lap("phase 24d, e (joined)")
+    phase_mesh_dryrun(dry.join())
+    lap("phase 25a (joined), 24f")
     serve = phase_serve(dev, tree)
     lap("phase 9")
     del tree
@@ -7194,6 +7640,9 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
             **{f"train_{a}": n for a, n in arch_fwd.items()}},
         "launches_by_family_generate": {a: fams[a]["launches"]
                                         for a in FAMILY_SERVE},
+        "launches_a_step_a_rank_tp2": {
+            f"train_{TP_OLMO}": mesh_tp["launches_a_step"][0],
+            "heads": mesh_tp["heads"]},
         "launches_a2a_prefill": a2a["launches"],
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
                            serve["max_abs_err"],
@@ -7221,6 +7670,9 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         "launches_by_path": {"train_qwen3": trained["bwd_launches"],
                              **{f"train_{a}": n for a, n in arch_bwd.items()
                                 if a not in hd64_train}},
+        "launches_a_step_a_rank_tp2": {
+            f"train_{TP_OLMO}": mesh_tp["launches_a_step"][1],
+            "heads": mesh_tp["heads"]},
         **bwd["bf16"]}, {
         "name": "flash_attention_bwd_hd64", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",

@@ -21,8 +21,8 @@ The router runs in float32 (``layers.moe_router``), the experts as batched
 products over [E_loc, mp*C, D]; the dispatch and the combine are plain
 PyTorch, as JAX leaves them to XLA.
 
-Cost at a world of several ranks, until the per-layer gather (ROADMAP item
-10m) hands each rank only its experts: arrays are global
+Cost at a world of several ranks, until the MoE's partitioned step (ROADMAP
+queue 1) hands each rank only its experts: arrays are global
 (``sharding.shard_map``), so every rank holds all E experts and the whole
 [B, T, D] activations, and expert parallelism saves neither memory nor
 communication over ``moe_gmm``.  Each MoE layer cuts a copy of the rank's

@@ -718,3 +718,123 @@ def place_like(tree, like):
         lambda path, x: place(x, _at(like, path).device_mesh,
                               _at(like, path).placements)
         if is_placed(_at(like, path)) else x, tree)
+
+
+# ---------------------------------------------- tensor-parallel regions ---
+#
+# What GSPMD makes of JAX's placed train step for the dense family, written
+# out (megatron's scheme): a region of the model takes the replicated
+# activations in through :func:`copy_to_model` (identity; the gradient,
+# partial on each rank, summed over 'model'), computes the rank's share of
+# the heads or columns on its blocks, and leaves through
+# :func:`reduce_from_model` (the partial row products summed; the
+# gradient, replicated, passed through).  Inside :func:`partitioned`, the
+# model reads :func:`model_axis`; outside it, or at model 1, there is no
+# region and every function below is the identity, so one card's step
+# runs unchanged.
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The model axis a partitioned step computes over: this rank's process
+    group over 'model', the axis's size and this rank's index on it."""
+
+    group: object
+    size: int
+    rank: int
+
+
+_PARTITIONED: list = []
+
+
+@contextlib.contextmanager
+def partitioned(mesh):
+    """While entered, the model's parameters are this rank's blocks by
+    ``param_specs`` over ``mesh``'s 'model' axis, and the model computes
+    its share of each product (:func:`model_axis`)."""
+    dm = _device_mesh(mesh)
+    n = mesh_shape(dm).get("model", 1)
+    _PARTITIONED.append(None if n == 1 else ModelAxis(
+        axis_group(dm, "model"), n, axis_index(dm, "model")))
+    try:
+        yield _PARTITIONED[-1]
+    finally:
+        _PARTITIONED.pop()
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The model axis of the :func:`partitioned` step running now, or None
+    (no partitioned step, or a model axis of one rank)."""
+    return _PARTITIONED[-1] if _PARTITIONED else None
+
+
+def _all_reduce(x, ax):
+    x = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, group=ax.group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.ax), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(ax.size)]
+        dist.all_gather(parts, x.contiguous(), group=ax.group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, ctx.ax)
+        return g.chunk(ctx.ax.size, ctx.dim)[ctx.ax.rank].contiguous(), \
+            None, None
+
+
+def copy_to_model(x, ax: Optional[ModelAxis]):
+    """``x`` (replicated over 'model') entering a region: the same value;
+    its gradient summed over the axis."""
+    return x if ax is None else _CopyToModel.apply(x, ax)
+
+
+def reduce_from_model(x, ax: Optional[ModelAxis]):
+    """The rank's partial ``x`` leaving a region: the sum over the axis;
+    its gradient as it is."""
+    return x if ax is None else _ReduceFromModel.apply(x, ax)
+
+
+def gather_from_model(x, ax: Optional[ModelAxis], dim: int = -1):
+    """The ranks' blocks of ``x`` along ``dim`` put together in rank order
+    (an all-gather); the gradient summed over the axis and cut back to the
+    rank's block."""
+    if ax is None:
+        return x
+    return _GatherFromModel.apply(x, ax, dim % x.dim())
+
+
+def max_over_model(x, ax: Optional[ModelAxis]):
+    """The elementwise maximum over the axis of ``x`` (no gradient)."""
+    if ax is None:
+        return x
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=ax.group)
+    return x

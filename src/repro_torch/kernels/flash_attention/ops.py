@@ -60,17 +60,38 @@ class FlashAttention(torch.autograd.Function):
         return _t(dq), _t(dk), _t(dv), None, None, None
 
 
+def gqa_kv(k, v, n_q: int, heads):
+    """k/v [B,Tk,n,hd] arranged for ``n_q`` query heads of a model's
+    ``heads = (q_head0, kv_head0, group)``: the query heads are the model's
+    q_head0.., k/v hold its key-value heads kv_head0.., and query head h
+    attends with key-value head h // group.  Returns the key-value heads
+    those query heads use, a slice where they take them in equal groups
+    (the kernels' GQA), else one per query head (a gather, whose
+    gradient adds each group's parts)."""
+    q0, k0, g = heads
+    idx = [(q0 + i) // g - k0 for i in range(n_q)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if n_q % n == 0 and idx == [lo + i // (n_q // n) for i in range(n_q)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.as_tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    executor: str = "auto"):
+                    executor: str = "auto", heads=None):
     """q [B,Tq,H,hd], k/v [B,Tk,Hkv,hd] -> [B,Tq,H,hd], by executor:
     ``auto`` is the kernel on a CUDA device and the plain version on the
     CPU; ``cuda`` is the kernel and raises for CPU tensors; ``reference`` is
     the plain version on any device (the card's comparison).  When grad is
     enabled and an input requires it, the call goes through
     :class:`FlashAttention`, whose backward follows the same executor.
+    ``heads`` (a rank's share of a model's heads, :func:`gqa_kv`): q and
+    k/v hold some of the model's heads, and k/v are cut to those q uses.
 
     Non-causal attention requires Tk % BK == 0 (or Tk <= BK)."""
     check_executor(executor)
+    if heads is not None:
+        k, v = gqa_kv(k, v, q.shape[2], heads)
     if not causal and k.shape[1] % min(BK, k.shape[1]) != 0:
         raise ValueError(
             f"non-causal flash attention needs Tk divisible by bk "

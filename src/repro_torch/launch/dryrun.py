@@ -10,14 +10,19 @@ under a :class:`~repro_torch.launch.hlo_stats.StepCounter` that counts
 its FLOPs, bytes, collectives and live memory, the hand-written kernels
 by their own formulas.
 
-What is counted is the port's program on one rank, not what GSPMD would
-make of JAX's: the data-parallel train step (``train/step.py``) gathers
-every leaf whole, each rank computes its block of the batch and the model
-axis computes the same products on every rank; ``shard_map`` all-gathers
-its outputs; under ``moe_impl="a2a"`` every rank runs the whole batch.
-The serving cells run the same way: the parameters placed by their specs
-and gathered whole, each rank its block of the batch (and of the decode
-state) by the batch axes, the next tokens of a prefill all-gathered.
+What is counted is the port's program on one rank.  The dense family's
+train cells run the partitioned step (``train/step.py``), what GSPMD makes
+of JAX's: each rank holds its blocks of the parameters (``param_specs``)
+and of the moments (``zero_specs``), computes its block of the batch with
+its share of every product (megatron's column and row blocks, the
+vocabulary cut over 'model') and updates its blocks.  The other
+families' train cells run the data-parallel step: every leaf gathered
+whole, each rank its block of the batch, the model axis computing the
+same products on every rank; ``shard_map`` all-gathers its outputs; under
+``moe_impl="a2a"`` every rank runs the whole batch.  The serving cells
+run the same way: the parameters placed by their specs and gathered
+whole, each rank its block of the batch (and of the decode state) by the
+batch axes, the next tokens of a prefill all-gathered.
 
 Two counts per cell:
 
@@ -36,9 +41,11 @@ Two counts per cell:
 
 Host syncs cannot run on ``meta``: the MoE runs ``moe_dense`` (JAX's
 choice), or ``a2a`` under ``--opt``; ``moe_gmm`` reads its group sizes on
-the host.  ``seq_parallel`` and ``cp_attention`` are sharding hints in
-JAX and no-ops in the port: the dry run takes them and they change no
-count.
+the host.  ``seq_parallel`` (the residual stream cut over 'model') and
+``cp_attention`` (queries cut by sequence) are sharding hints in JAX and
+no-ops in the port, partitioned step included: the dry run takes them and
+they change no count, so the residual stream and the saved activations
+stay whole on every rank of the model axis.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k

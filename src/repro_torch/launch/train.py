@@ -11,10 +11,13 @@ fault-tolerant trainer.  The mesh is the host mesh of ``--tp`` model ranks
 over the world (``launch/mesh.py``: a world of one rank is started when no
 process group runs, and ended after), or with ``--production-mesh`` the
 16 x 16 pod (2 x 16 x 16 with ``--multi-pod``), which needs 256 (512)
-ranks.  Parameters and AdamW moments are placed by ``param_specs``; every
-rank draws the same weights (a ``torch.Generator`` on its device, seed 0)
-and reads rank 0's batches, and takes the data-parallel step
-(``train/step.py``).  On one card: a 1 x 1 mesh, one card's numbers.
+ranks.  Parameters are placed by ``param_specs`` and AdamW moments by
+``zero_specs`` (``init_train_state(mesh=...)``: every rank makes the same
+draws, a ``torch.Generator`` on its device with seed 0, and keeps its
+blocks); every rank reads rank 0's batches and takes the placed step
+(``train/step.py``: partitioned over the model axis for the dense family,
+data-parallel for the others).  On one card: a 1 x 1 mesh, one card's
+numbers.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.launch.mesh import (close_world, init_world, make_host_mesh,
                                      make_production_mesh)
 from repro_torch.models import build
 from repro_torch.optim import AdamWConfig
-from repro_torch.train import init_train_state, place_state
+from repro_torch.train import init_train_state
 from repro_torch.train.trainer import TrainerConfig, train
 
 
@@ -76,7 +79,7 @@ def _train(args, dev):
           f"({cfg.param_count() / 1e6:.1f}M params)")
 
     with set_mesh(mesh):
-        state = place_state(init_train_state(bundle, 0, device=dev), mesh)
+        state = init_train_state(bundle, 0, device=dev, mesh=mesh)
 
         sla = SLA(policy=SLAPolicy.MAX_THROUGHPUT if args.sla == "max_tput"
                   else SLAPolicy.MIN_ENERGY, timeout_s=0.5, max_ch=8)

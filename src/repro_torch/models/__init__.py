@@ -40,8 +40,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if fam in ("dense", "moe", "vlm"):
         return ModelBundle(
             cfg=cfg,
-            init_params=lambda seed=0, device=None: lm.init_params(
-                cfg, seed, device=device),
+            init_params=lambda seed=0, device=None, cut=None: lm.init_params(
+                cfg, seed, device=device, cut=cut),
             forward=lambda params, tokens, **kw: lm.forward(
                 cfg, params, tokens, **kw),
             init_decode_state=lambda b, m, dtype=torch.bfloat16,

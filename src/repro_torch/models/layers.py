@@ -43,8 +43,22 @@ experts; its group sizes come to the host once a call.  Each token's k
 weighted expert outputs are summed in JAX's scatter order (ascending
 expert id), one add at a time in the activations' dtype, never by atomics.
 
-No counterpart here: ``residual_shard``, ``logits_shard`` and ``_cp_shard``
-(mesh constraints; this port runs on one card).
+Inside a partitioned train step (``distributed.sharding.partitioned``),
+the dense family's attention and MLP hold this rank's blocks of their
+weights by ``param_specs`` and compute its share, as GSPMD partitions JAX's
+placed step: column blocks of ``wq``/``wk``/``wv`` (and their biases) give
+the rank's query heads and the key-value heads they use, ``wg``/``wu`` its
+columns of the hidden layer, and the row products with ``wo`` and ``wd``
+are summed over the model axis.  A leaf the specs leave whole (a dim the
+axis does not divide) enters the region whole and is cut there; a block
+that is not the heads the rank needs (heads cut below a head, or query
+heads that do not divide the axis) is gathered first.  Outside one, or at
+model 1, nothing here changes.
+
+No counterpart here: ``residual_shard`` (sequence parallelism) and
+``_cp_shard`` (context-parallel attention), mesh constraints that change no
+number and run as no-ops; ``logits_shard`` is the vocabulary-cut logits of
+a partitioned step (``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -58,7 +72,10 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..distributed.sharding import (copy_to_model, gather_from_model,
+                                    model_axis, reduce_from_model)
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ops import gqa_kv
 from .common import ModelConfig
 
 NEG_INF = -2.0e38
@@ -214,22 +231,72 @@ def init_attention(cfg: ModelConfig, gen, cross: bool = False):
     return p
 
 
-def _qkv(cfg: ModelConfig, p, x, xkv=None):
+def local_heads(cfg: ModelConfig, ax) -> tuple:
+    """(first query head, query heads, first key-value head, key-value
+    heads) this rank computes on the model axis ``ax``: its H / size
+    query heads where the axis divides H (every head where it does not,
+    or without an axis), and the key-value heads those use (head h uses
+    h // (H / Hkv))."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if ax is None or H % ax.size:
+        return 0, H, 0, Hkv
+    n = H // ax.size
+    g = H // Hkv
+    q0 = ax.rank * n
+    return q0, n, q0 // g, (q0 + n - 1) // g + 1 - q0 // g
+
+
+def _share(w, ax, dim: int, full: int):
+    """This rank's share of ``w`` along ``dim`` (``full`` long whole): the
+    leaf as it is where the rank holds its block there, else (the specs
+    left it whole) the rank's chunk of it, the leaf entering the region;
+    ``w`` itself without an axis."""
+    if ax is None or w.shape[dim] != full:
+        return w
+    a, b = full * ax.rank // ax.size, full * (ax.rank + 1) // ax.size
+    return copy_to_model(w, ax).narrow(dim, a, b - a)
+
+
+def _head_cols(w, ax, first: int, n: int, hd: int, total: int):
+    """The last-dim columns of heads ``first``..``first + n`` of ``total``
+    heads of width ``hd`` from ``w``: whole (entering the region), or this
+    rank's block, used as it is where it is exactly those heads and
+    gathered from the model axis where it is not; ``w`` itself without an
+    axis."""
+    if ax is None:
+        return w
+    lo, hi = first * hd, (first + n) * hd
+    cols = w.shape[-1]
+    if cols == total * hd:
+        return copy_to_model(w, ax)[..., lo:hi]
+    if (lo, hi) == (ax.rank * cols, (ax.rank + 1) * cols):
+        return w
+    return gather_from_model(w, ax)[..., lo:hi]
+
+
+def _qkv(cfg: ModelConfig, p, x, xkv=None, ax=None):
+    """q [B,T,H,hd], k/v [B,Tk,Hkv,hd]; with a model axis ``ax``, the
+    rank's heads (:func:`local_heads`) from its blocks."""
     hd = cfg.resolved_head_dim
+    x = copy_to_model(x, ax)
     xkv = x if xkv is None else xkv
-    q = x @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
+    q0, nq, k0, nk = local_heads(cfg, ax)
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    q = x @ _head_cols(p["wq"], ax, q0, nq, hd, H)
+    k = xkv @ _head_cols(p["wk"], ax, k0, nk, hd, Hkv)
+    v = xkv @ _head_cols(p["wv"], ax, k0, nk, hd, Hkv)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + _head_cols(p["bq"], ax, q0, nq, hd, H)
+        k = k + _head_cols(p["bk"], ax, k0, nk, hd, Hkv)
+        v = v + _head_cols(p["bv"], ax, k0, nk, hd, Hkv)
     B, T = x.shape[:2]
     Tk = xkv.shape[1]
-    q = q.reshape(B, T, cfg.num_heads, hd)
-    k = k.reshape(B, Tk, cfg.num_kv_heads, hd)
-    v = v.reshape(B, Tk, cfg.num_kv_heads, hd)
+    q = q.reshape(B, T, nq, hd)
+    k = k.reshape(B, Tk, nk, hd)
+    v = v.reshape(B, Tk, nk, hd)
     if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"])
-        k = rms_head_norm(k, p["k_norm"])
+        q = rms_head_norm(q, copy_to_model(p["q_norm"], ax))
+        k = rms_head_norm(k, copy_to_model(p["k_norm"], ax))
     return q, k, v
 
 
@@ -317,8 +384,17 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     attention over Tq > 1 runs the kernel, which covers both of JAX's
     branches (full scores, and ``attention_chunked`` past ``q_chunk``).
     """
-    q, k, v = _qkv(cfg, p, x, xkv)
+    ax = model_axis()
+    if ax is not None and (cache is not None or xkv is not None):
+        raise ValueError("a partitioned step runs self-attention without a "
+                         "cache")
+    q, k, v = _qkv(cfg, p, x, xkv, ax)
     hd = cfg.resolved_head_dim
+    # a rank's query heads and the key-value heads they use (GQA by the
+    # global head index), for the kernel's wrapper
+    q0, _, k0, _ = local_heads(cfg, ax)
+    heads = None if ax is None else (q0, k0,
+                                     cfg.num_heads // cfg.num_kv_heads)
 
     if xkv is None and cfg.use_rope:
         if cfg.mrope and mrope_pos is not None:
@@ -369,16 +445,26 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
             y = attention_scores_full(q, ck.to(q.dtype), cv.to(q.dtype), bias)
     elif Tq > 1 and causal:
         y = flash_attention(q, k, v, causal=True, window=window,
-                            executor=executor)
+                            executor=executor, heads=heads)
     else:
         # One query, or non-causal attention (JAX ignores the window
         # there): full scores, JAX's branch for a short sequence.
         bias = torch.zeros((1, 1, 1, 1, 1), dtype=torch.float32,
                            device=x.device)
+        if heads is not None:
+            k, v = gqa_kv(k, v, q.shape[2], heads)
         y = attention_scores_full(q, k, v, bias)
 
-    y = y.reshape(B, Tq, cfg.num_heads * hd) @ p["wo"]
-    return y, new_cache
+    y = y.reshape(B, Tq, q.shape[2] * hd)
+    # the row product of the rank's rows of wo, summed over the model axis:
+    # its heads' rows, or its chunk of every head's rows where each rank
+    # computed every head (the axis does not divide H)
+    full = cfg.num_heads * hd
+    wo = _share(p["wo"], ax, 0, full)
+    if wo.shape[0] != y.shape[-1]:
+        a = full * ax.rank // ax.size
+        y = y[..., a:a + wo.shape[0]]
+    return reduce_from_model(y @ wo, ax), new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -416,14 +502,20 @@ def init_mlp(cfg: ModelConfig, gen, d_ff: Optional[int] = None):
 
 
 def mlp(cfg: ModelConfig, p, x):
+    """The block's MLP; in a partitioned step (``cfg.d_ff`` wide), the
+    rank's columns of ``wg``/``wu`` and rows of ``wd``, the row product
+    summed over the model axis, ``bd`` added once after the sum."""
+    ax = model_axis()
+    F_, x = cfg.d_ff, copy_to_model(x, ax)
+    wu, wd = _share(p["wu"], ax, -1, F_), _share(p["wd"], ax, 0, F_)
     # jax.nn.gelu defaults to the tanh approximation.
-    if cfg.mlp_type == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    if cfg.mlp_type == "geglu":
-        return (F.gelu(x @ p["wg"], approximate="tanh")
-                * (x @ p["wu"])) @ p["wd"]
-    return F.gelu(x @ p["wu"] + p["bu"], approximate="tanh") @ p["wd"] \
-        + p["bd"]
+    if cfg.mlp_type == "gelu":
+        h = F.gelu(x @ wu + _share(p["bu"], ax, -1, F_), approximate="tanh")
+        return reduce_from_model(h @ wd, ax) + p["bd"]
+    g = x @ _share(p["wg"], ax, -1, F_)
+    g = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(
+        g, approximate="tanh")
+    return reduce_from_model((g * (x @ wu)) @ wd, ax)
 
 
 # ------------------------------------------------------------------- moe ---

@@ -12,6 +12,12 @@ grad is enabled (training); with ``cfg.remat`` each block then runs under
 ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``, lm.py:96-97), so the
 backward recomputes it.  The cached paths (prefill and decode) run without
 grad.
+
+In a partitioned train step (``distributed.sharding.partitioned``) the
+vocabulary is cut over the model axis where the specs cut ``embed`` (and
+``head``): the lookup zeroes the rows outside the rank's range and sums
+over the axis, and the logits are the rank's block of the vocabulary
+(JAX's ``logits_shard``), for ``train.step.cross_entropy`` to reduce.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (copy_to_model, model_axis,
+                                    reduce_from_model)
 from . import layers as L
 from .common import ModelConfig
 
@@ -87,23 +95,27 @@ def check_moe_impl(cfg: ModelConfig, moe_impl: str):
         raise ValueError(f"unknown moe_impl {moe_impl!r}; have {MOE_IMPLS}")
 
 
-def _stacked(n, make, dev):
+def _stacked(n, make, dev, cut=None):
     """``n`` layer trees from ``make()`` (called n times in a row, so the
     draws are those of n calls), every leaf stacked [n, ...] on ``dev``:
     each stacked leaf is allocated once and filled layer by layer, so the
     peak is the stack and one layer (stacking n drawn layers would hold the
-    weights twice: 2 x 60.4 GB at qwen3-moe-30b-a3b's size)."""
-    def alloc(node):
-        return {k: alloc(v) if isinstance(v, dict) else
-                torch.empty((n,) + v.shape, dtype=v.dtype, device=dev)
+    weights twice: 2 x 60.4 GB at qwen3-moe-30b-a3b's size).  ``cut(path,
+    layer leaf)``: what of each layer's leaf is kept (a rank's block)."""
+    cut = cut or (lambda path, x: x)
+
+    def alloc(node, path=()):
+        return {k: alloc(v, path + (k,)) if isinstance(v, dict) else
+                torch.empty((n,) + cut(path + (k,), v).shape,
+                            dtype=v.dtype, device=dev)
                 for k, v in node.items()}
 
-    def fill(dst, src, i):
+    def fill(dst, src, i, path=()):
         for k, v in src.items():
             if isinstance(v, dict):
-                fill(dst[k], v, i)
+                fill(dst[k], v, i, path + (k,))
             else:
-                dst[k][i].copy_(v)
+                dst[k][i].copy_(cut(path + (k,), v))
     blocks = None
     for i in range(n):
         layer = make()
@@ -113,27 +125,60 @@ def _stacked(n, make, dev):
     return blocks
 
 
-def init_params(cfg: ModelConfig, seed=0, *, device=None):
+def init_params(cfg: ModelConfig, seed=0, *, device=None, cut=None):
     """Random parameters in JAX's tree and init scales, drawn from a
     ``torch.Generator`` (``seed`` is an int, for a CPU generator, or a
     generator, whose device draws), on ``device`` (default: the CUDA card;
     raises without one; ``"meta"``: the shapes alone, nothing drawn).
     Draw order: embed, then block by block
-    (attention, then MLP or MoE), then head."""
+    (attention, then MLP or MoE), then head.  ``cut(path, leaf, stacked)``
+    keeps a part of each leaf as it is drawn (a rank's block:
+    ``train.step.init_train_state`` with a mesh), a stacked one layer by
+    layer (``stacked`` True, the layer's leaf without its L axis), so the
+    whole tree never exists; the draws are the same."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
     gen = L.generator(seed, dev)
     dt = L._dtype(cfg)
-    params = {"embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
-                                 dt).to(dev),
+    keep = cut or (lambda path, x, stacked: x)
+    params = {"embed": keep(("embed",), L._normal(
+                  gen, (cfg.vocab_size, cfg.d_model), 0.02, dt).to(dev),
+                  False),
               "blocks": _stacked(cfg.num_layers,
-                                 lambda: init_block(cfg, gen), dev),
+                                 lambda: init_block(cfg, gen), dev,
+                                 lambda path, x: keep(("blocks",) + path, x,
+                                                      True)),
               "final_norm": L.init_norm(cfg, cfg.d_model)}
     if not cfg.tie_embeddings:
-        params["head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
-                                   dt)
+        params["head"] = keep(("head",), L._normal(
+            gen, (cfg.d_model, cfg.vocab_size), 0.02, dt), False)
     return _to(params, dev)
+
+
+def embed(cfg: ModelConfig, params, tokens):
+    """The token embeddings [B, T, D]; in a partitioned step whose rank
+    holds a block of the vocabulary's rows, the rank's rows looked up (the
+    others zero) and summed over the model axis."""
+    e, ax = params["embed"], model_axis()
+    if ax is None or e.shape[0] == cfg.vocab_size:
+        return e[tokens.long()]
+    n = e.shape[0]
+    t = tokens.long() - ax.rank * n
+    inside = (t >= 0) & (t < n)
+    x = e[t.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    return reduce_from_model(x, ax)
+
+
+def logits_of(cfg: ModelConfig, params, x):
+    """x @ the output embedding (tied: ``embed``'s transpose); in a
+    partitioned step, the rank's block of the vocabulary where it holds
+    one."""
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    ax = model_axis()
+    if ax is not None and w.shape[1] != cfg.vocab_size:
+        x = copy_to_model(x, ax)
+    return x @ w.to(x.dtype)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
@@ -172,7 +217,7 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
 def _forward(cfg, params, tokens, positions, caches, vision_embeds,
              mrope_pos, moe_impl, logits_slice, executor):
     B, T = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = embed(cfg, params, tokens)
     if vision_embeds is not None:
         Tv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, Tv:]], dim=1)
@@ -199,10 +244,7 @@ def _forward(cfg, params, tokens, positions, caches, vision_embeds,
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T.to(x.dtype)
-    else:
-        logits = x @ params["head"]
+    logits = logits_of(cfg, params, x)
     new_caches = None
     if caches is not None:
         new_caches = {k: v for k, v in caches.items() if k != "rows"}

@@ -70,22 +70,40 @@ def warmup_cosine(cfg: AdamWConfig, step):
     return cfg.lr * warm * frac
 
 
-def global_norm(tree):
+def global_norm(tree, cut=None, group=None):
+    """The float32 norm of every leaf of ``tree`` together, the squares
+    summed in leaf order.  Over the blocks of a partitioned step: ``cut``
+    (one flag a leaf, in leaf order) marks the leaves of which each rank
+    of ``group`` holds a block; their squares are summed over the group
+    (one all-reduce), and a replicated leaf counts once."""
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)]
+    if cut is not None and any(cut):
+        import torch.distributed as dist
+
+        part = torch.stack([s if c else torch.zeros_like(s)
+                            for s, c in zip(sq, cut)])
+        dist.all_reduce(part, group=group)
+        sq = [part[i] if c else s for i, (s, c) in enumerate(zip(sq, cut))]
     return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm):
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm, gn=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm (``gn``, where the caller has it: a partitioned step's, taken
+    over its blocks)."""
+    gn = global_norm(grads) if gn is None else gn
     scale = torch.minimum(_f32(1.0, gn), torch.div(
         _f32(max_norm, gn), torch.clamp_min(gn, 1e-9)))
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
 
 
-def adamw_update(cfg: AdamWConfig, grads, state: OptState, params):
+def adamw_update(cfg: AdamWConfig, grads, state: OptState, params,
+                 grad_norm=None):
     """Returns (new_params, new_state, metrics); nothing is updated in
-    place."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    place.  Elementwise but for the clip, so a partitioned step updates
+    its blocks (or its data shares of them) with ``grad_norm``, the norm
+    of the whole gradient (:func:`global_norm` over the blocks)."""
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     count = state.count + 1
     lr = warmup_cosine(cfg, count)
     b1, b2 = cfg.b1, cfg.b2

@@ -10,10 +10,12 @@
 The state lives on ``device`` (the card unless told otherwise); each batch
 is moved there before its step, and a step's wall time ends when its loss
 is read back.  A caller may hand in its own ``state`` -- one placed on a
-mesh (``distributed.sharding.place_tree``) takes the data-parallel step,
-every rank fed the same global batches.  Checkpoints of a placed state
-hold its whole leaves, on a mesh of one rank only (a mesh of several
-would need every rank to decide each save alike; ROADMAP item 10).
+mesh (``train.step.place_state``, ``init_train_state(mesh=...)``) takes
+the placed step (partitioned for the dense family, data-parallel for the
+others), every rank fed the same global batches.  Checkpoints of a placed
+state hold its whole leaves, on a mesh of one rank only (a mesh of
+several would need every rank to decide each save alike; ROADMAP queue
+1).
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ kernels (``wkv.cu``) or the tick loop's grouped launch (``tick_loop.cu``):
     python3 tests/sm90/probe.py [step ...]
 
 runs every step below, or only the named ones (build, probe, fwd, bwd,
-f32, rglru, wkv, timing, tick, cells; ``cells`` is not among the default
-steps).
+f32, rglru, wkv, timing, tick, cells, tp_fault; ``cells`` and
+``tp_fault`` are not among the default steps).
 
 1. build — nvcc builds every source; ptxas registers, spills and stack per
    kernel, any warning, and the HGMMA count of each bf16 attention library
@@ -53,6 +53,15 @@ steps).
    compared in one call: unpack the other (``git archive``) into the
    ignored ``build/`` and run ``PROBE_SRC=build/<tree>/src python3
    tests/sm90/probe.py cells`` and this tree's, alternating.
+8. tp_fault (not a default step) — chip_smoke.py phase 24(e)'s olmo-1b
+   steps at tp 2 (two gloo ranks on the one card) against tp 1's, run
+   clean, then with a fault planted in the ranks' processes only: "1"
+   the model axis's gradient all-reduce taken away (``copy_to_model``'s
+   backward passes the rank's partial gradient on), "2" one doubled
+   (``reduce_from_model``'s backward sums the replicated gradient over
+   the axis once more: 2 g at tp 2): each run's loss and grad-norm
+   distance from tp 1, the readings between which 24(e)'s grad-norm
+   tolerance sits.
 
 Each step prints its result and goes on when one fails (the exit code
 is then 1); ``chip_smoke.py``
@@ -825,12 +834,81 @@ def cells():
           f"of 5)", flush=True)
 
 
+def tp_fault_rank(rank, store, out, fault):
+    """A rank of :func:`tp_fault`: chip_smoke's ``olmo_steps`` on the
+    (1, TP_RANKS) mesh of a gloo world on the one card, ``fault`` ("1",
+    "2": :func:`tp_fault`'s) planted first; rank 0's readings to
+    ``out``."""
+    import json
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from repro_torch.distributed import sharding
+
+    if fault == "1":
+        sharding._CopyToModel.backward = staticmethod(
+            lambda ctx, g: (g, None))
+    elif fault == "2":
+        sharding._ReduceFromModel.backward = staticmethod(
+            lambda ctx, g: (g * C.TP_RANKS, None))
+    torch.cuda.set_device(DEV.index or 0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, C.TP_RANKS),
+                            rank=rank, world_size=C.TP_RANKS)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(C.TP_RANKS).reshape(
+            1, C.TP_RANKS), mesh_dim_names=("data", "model"))
+        res = C.olmo_steps(DEV, mesh)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_fault():
+    import json
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+
+    tp1 = C.olmo_steps(DEV)
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for fault in ("0", "1", "2"):
+            out = os.path.join(d, f"run{fault}.json")
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-fault-rank",
+                 str(r), os.path.join(d, f"store{fault}"), out, fault],
+                env=dict(os.environ, OMP_NUM_THREADS="1"))
+                for r in range(C.TP_RANKS)]
+            codes = [p.wait(timeout=900) for p in procs]
+            assert codes == [0] * C.TP_RANKS, codes
+            with open(out) as f:
+                runs[fault] = json.load(f)
+    for fault, r in runs.items():
+        def rel(k):
+            return max(abs(a - b) / abs(b) for a, b in zip(r[k], tp1[k]))
+        print(f"tp_fault {('clean', 'missing', 'doubled')[int(fault)]}: "
+              f"{C.TP_OLMO} tp {C.TP_RANKS} losses {r['losses']} vs tp 1 "
+              f"{tp1['losses']} (rel {rel('losses'):.3g}); grad norms "
+              f"{r['grad_norms']} vs tp 1 {tp1['grad_norms']} (rel "
+              f"{rel('grad_norms'):.3g})", flush=True)
+
+
 STEPS = {"build": builds, "probe": probe, "fwd": fwd, "bwd": bwd,
          "f32": f32, "f32_shares": f32_shares, "rglru": rglru, "wkv": wkv,
          "wkv_profile": wkv_profile, "wkv_bwd_profile": wkv_bwd_profile,
-         "timing": timing, "tick": tick, "cells": cells}
+         "timing": timing, "tick": tick, "cells": cells,
+         "tp_fault": tp_fault}
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-fault-rank"]:
+        tp_fault_rank(int(sys.argv[2]), *sys.argv[3:6])
+        sys.exit(0)
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -838,6 +916,6 @@ if __name__ == "__main__":
     for name in sys.argv[1:] or [s for s in STEPS
                                  if s not in ("cells", "wkv_profile",
                                               "wkv_bwd_profile",
-                                              "f32_shares")]:
+                                              "f32_shares", "tp_fault")]:
         step(name, STEPS[name])
     sys.exit(1 if FAILED else 0)

@@ -22,6 +22,7 @@ import sys
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 import torch_dist as D
 from repro_torch import configs
@@ -186,8 +187,10 @@ def test_probes_extrapolate_to_the_full_depth(arch, shape):
 def test_dp_only_cuts_the_batch_over_every_axis():
     """``dp_only`` (JAX's pure data parallelism): the batch splits over
     ('data', 'model'), the parameters are replicated, so each rank of a
-    2 x 2 mesh runs half the rows, and exactly half the FLOPs, of the
-    default step, whose model axis repeats its data rank's rows."""
+    2 x 2 mesh runs half the rows of the default step, whose model axis
+    partitions every product of its data rank's rows instead: the same
+    FLOPs, the default step's all-reduces carrying the row products'
+    partial sums."""
     cfg = D.dryrun_config("qwen3-0.6b")
     with dryrun.fake_world(4):
         mesh = make_host_mesh(model=2, device="cpu")
@@ -196,18 +199,32 @@ def test_dp_only_cuts_the_batch_over_every_axis():
         base, dp = (dryrun.count_cell(cfg, "train_4k", mesh, None,
                                       microbatches=2, dp_only=flag)
                     for flag in (False, True))
-    assert dp["flops"] * 2 == base["flops"]
+    assert dp["flops"] == base["flops"]
+    red = [c["coll_detail"]["bytes"]["all-reduce"] for c in (base, dp)]
+    assert red[0] > 100 * red[1]
 
 
 def test_meta_count_equals_a_cpu_run(gloo_counts):
     """The dry run's step counted on meta equals the same step run on CPU
     tensors (the kernels' plain versions inside their wrappers), FLOPs,
     bytes and collectives exactly; and a fake world of four counts the
-    collectives a gloo world of four runs."""
+    collectives a gloo world of four runs.  The dense train cell takes the
+    partitioned step: at model 2 it counts half the FLOPs of a rank of a
+    mesh of the same two data ranks at model 1 (no product repeated over
+    the model axis), with the model axis's all-reduces beside the data
+    axes' mean."""
     with dryrun.fake_world(4):
         mesh = make_host_mesh(model=2, device="cpu")
         meta = D.count_dryrun_cells(CPU_CELLS, mesh, "meta")
         cpu = D.count_dryrun_cells(CPU_CELLS, mesh, "cpu")
+        dense = [c for c in CPU_CELLS if c == ("qwen3-0.6b", "train_tiny")]
+        model1 = D.count_dryrun_cells(dense, DeviceMesh(
+            "cpu", torch.arange(2).reshape(2, 1),
+            mesh_dim_names=("data", "model")), "meta")[dense[0]]
+    tp = meta[dense[0]]
+    assert tp["flops"] * 2 == model1["flops"]
+    n = [c["coll_detail"]["counts"]["all-reduce"] for c in (tp, model1)]
+    assert n[0] > n[1]
     ranks = D.join(gloo_counts)
     for cell in CPU_CELLS:
         m, c = meta[cell], cpu[cell]

@@ -38,6 +38,9 @@ DATA2_F32_RTOL = 1e-6
 #: averaged, against one batch's, differ by a bf16 ulp, and Adam's first
 #: steps move a weight by its gradient's sign (measured 6.2e-6).
 DATA2_BF16_RTOL = 1e-4
+#: bf16 losses at model 2 against model 1: the partitioned step sums the
+#: row products of two ranks' bf16 halves (measured 6.0e-5).
+MODEL2_BF16_RTOL = 1e-4
 
 
 def _jax_specs(shapes, **kw):
@@ -300,11 +303,13 @@ def test_serve_tp2_is_tp1(worlds):
 
 
 @pytest.mark.parametrize("world,case,rtol", [
-    ("1x2", "train", 0.0), ("1x2", "train_mb", 0.0),
+    ("1x2", "train", MODEL2_BF16_RTOL), ("1x2", "train_mb", MODEL2_BF16_RTOL),
     ("2x2", "train_f32", DATA2_F32_RTOL), ("2x2", "train", DATA2_BF16_RTOL)])
 def test_train_on_a_mesh_is_tp1(worlds, world, case, rtol):
-    """3 launcher steps on a (1, 2) mesh equal tp 1's bit for bit (two
-    microbatches too); on (2, 2), to the mean over two data ranks."""
+    """3 launcher steps on a (1, 2) mesh equal tp 1's to the partitioned
+    step's bf16 row sums (two microbatches too); on (2, 2), to the mean
+    over two data ranks and those sums (float32:
+    tests/test_torch_tensor_parallel.py holds the dense family to JAX)."""
     want = np.asarray(worlds["1"][0][case])
     for r in worlds[world]:
         got = np.asarray(r[case])

@@ -1,0 +1,352 @@
+"""The partitioned train step (``train/step.py``; the tensor-parallel regions
+of ``distributed/sharding.py``, ``models/layers.py`` and ``models/lm.py``)
+on gloo worlds of the CPU against jitted JAX and the port's own step on
+one rank.
+
+The ranks (tests/torch_dist.py ``tp_train``, ``tp_parts``) import no JAX;
+this process runs JAX.  Worlds, as (data, model) host meshes: (1, 1), (1,
+2), (1, 4) and (2, 2).  qwen3 smoke at model 4 has 2 key-value heads, so
+``wk``/``wv`` are cut into half heads and gathered; the MLP, the attention
+and the vocabulary are cut at every model size here.  The (2, 2) world
+also runs qwen3-moe smoke's data-parallel step on batches whose data
+ranks mask unequal shares of their labels, held against JAX's steps of
+the loss that step means (``jax_moe_runs``).
+
+Tolerances, from the readings these tests take:
+  * against JAX, test_torch_train's (float32 agrees to ~3e-7 in the loss):
+    loss and ce rtol 2e-6, grad_norm rtol 1e-5, lr rtol 1e-6; weights
+    atol 5e-5 where |g| at step 1 exceeds 1e-3 x the leaf's largest |g|,
+    else 2 lr a step (Adam's first step is sign-like); the first moment
+    rtol 1e-4 + atol 1e-5 x the leaf's largest;
+  * against the port on one rank (``TP1_RTOL``): the row products summed
+    over ranks, the cut cross-entropy and the data mean change only
+    float32 round-off (measured at most 1.6e-7 in the loss, 2.0e-7 in the
+    grad norm and 4.5e-7 in the sure weights over the 12 cases);
+  * the cut cross-entropy against the whole one: rtol 1e-6 (value) and
+    1e-5 (gradient), and against JAX's as test_torch_train's.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh, NamedSharding
+
+import torch_dist as D
+from repro.distributed import sharding as JS
+from repro.models import build as jbuild
+from repro.optim import AdamWConfig as JAdamW
+from repro.optim import adamw_init as j_adamw_init
+from repro.optim import adamw_update as j_adamw_update
+from repro.train import TrainState as JTrainState
+from repro.train import cross_entropy as j_cross_entropy
+from repro.train import make_loss_fn as j_make_loss_fn
+from repro.train import make_train_step as j_make_train_step
+from repro_torch import convert
+from repro_torch.optim import global_norm
+from repro_torch.train import cross_entropy
+from repro_torch.tree import leaves_with_paths
+
+#: name: (ranks, model size); data = ranks / model.
+WORLDS = {"1x1": (1, 1), "1x2": (2, 2), "1x4": (4, 4), "2x2": (4, 2)}
+TP_WORLDS = ("1x2", "1x4", "2x2")
+#: Against the port at one rank: loss and ce, grad_norm (relative), and
+#: the weights' largest |difference| where the step-1 gradient is sure
+#: (as against JAX).
+TP1_RTOL = dict(loss=1e-6, grad_norm=1e-6, w=5e-6)
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """{world: every rank's {"train": ..., "parts": ...}}: all started at
+    once, then joined."""
+    tmp = tmp_path_factory.mktemp("tp")
+    started = {}
+    for name, (n, model) in WORLDS.items():
+        parts = [["train", "tp_train", {"model": model}]]
+        if model > 1:
+            parts.append(["parts", "tp_parts", {"model": model}])
+        if name == "2x2":
+            parts.append(["moe", "tp_train", {
+                "model": model, "archs": [D.TP_MOE_ARCH], "uneven": True}])
+        started[name] = D.start_world("many", n, tmp / name, parts=parts)
+    return {k: D.join(w) for k, w in started.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """{arch: (metrics of each step, final params, final mu, step-1
+    gradients)} of jitted JAX from the same weights and batches."""
+    out = {}
+    for arch in D.TP_ARCHS:
+        cfg = D.tp_config(arch, "repro.configs")
+        params = jax.tree.map(jnp.asarray, convert.random_lm_params(cfg, 0))
+        state = JTrainState(params, j_adamw_init(params),
+                            jnp.zeros((), jnp.int32))
+        bundle = jbuild(cfg)
+        step = jax.jit(j_make_train_step(bundle, JAdamW(**D.TP_OPT)))
+        bs = [{k: jnp.asarray(v) for k, v in b.items()}
+              for b in D.tp_batches(cfg.vocab_size)]
+        g1 = jax.jit(jax.grad(lambda p, b: j_make_loss_fn(bundle)(p, b)[0]))(
+            params, bs[0])
+        metrics = []
+        for b in bs:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[arch] = (metrics, jax.device_get(state.params),
+                     jax.device_get(state.opt.mu), jax.device_get(g1))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_moe_runs():
+    """(metrics of each step, final params, step-1 gradients, step 1's CE
+    of the whole batch) of JAX's steps of qwen3-moe smoke on
+    tp_moe_batches with the loss of the data-parallel step over two data
+    ranks (the batch's first and second halves): the global batch's mean
+    CE, each half's weighted by its unmasked labels, plus the mean of the
+    halves' load-balancing terms (1 / 2 each; JAX's global batch has one
+    term of every token, which a data rank cannot see)."""
+    cfg = D.tp_config(D.TP_MOE_ARCH, "repro.configs")
+    params = jax.tree.map(jnp.asarray, convert.random_lm_params(cfg, 0))
+    loss_fn = j_make_loss_fn(jbuild(cfg))
+    h = D.TP_B // 2
+
+    def ranks_loss(p, b):
+        halves = [{k: v[r * h:(r + 1) * h] for k, v in b.items()}
+                  for r in range(2)]
+        parts = [loss_fn(p, x)[1] for x in halves]
+        cs = [jnp.sum(x["labels"] >= 0).astype(jnp.float32) for x in halves]
+        ce = (cs[0] * parts[0][0] + cs[1] * parts[1][0]) / (cs[0] + cs[1])
+        aux = (parts[0][1] + parts[1][1]) / 2
+        return ce + aux, (ce, aux)
+    grad_fn = jax.jit(jax.value_and_grad(ranks_loss, has_aux=True))
+    opt_cfg, opt = JAdamW(**D.TP_OPT), j_adamw_init(params)
+    bs = [{k: jnp.asarray(v) for k, v in b.items()}
+          for b in D.tp_moe_batches(cfg.vocab_size)]
+    whole = float(jax.jit(loss_fn)(params, bs[0])[1][0])
+    metrics, g1 = [], None
+    for b in bs:
+        (loss, (ce, aux)), g = grad_fn(params, b)
+        g1 = g if g1 is None else g1
+        params, opt, om = j_adamw_update(opt_cfg, g, opt, params)
+        metrics.append({"loss": float(loss), "ce": float(ce),
+                        "aux": float(aux),
+                        **{k: float(v) for k, v in om.items()}})
+    return metrics, jax.device_get(params), jax.device_get(g1), whole
+
+
+def _pairs(a, b):
+    """[(path, a leaf, b leaf)] of two trees of JAX's layout (numpy)."""
+    return [(p, np.asarray(x, np.float32), np.asarray(y, np.float32))
+            for (p, x), (_, y) in zip(leaves_with_paths(a),
+                                      leaves_with_paths(b))]
+
+
+def _check_weights(want, got, g1, w_atol, steps=D.TP_STEPS):
+    lr = D.TP_OPT["lr"]
+    for (path, a, b), (_, g, _) in zip(_pairs(want, got), _pairs(g1, got)):
+        d = np.abs(a - b)
+        g = np.abs(g)
+        sure = g > 1e-3 * g.max()
+        assert (d[sure] <= w_atol).all(), (path, d[sure].max())
+        assert (d <= 2 * lr * steps).all(), (path, d.max())
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+@pytest.mark.parametrize("arch", D.TP_ARCHS)
+def test_partitioned_steps_match_jax(worlds, jax_runs, arch, world):
+    """Three float32 steps of each dense smoke config, its state placed on
+    the world's mesh, against jitted JAX's from the same weights: every
+    rank's metrics, final weights and first moments."""
+    jm, jp, jmu, g1 = jax_runs[arch]
+    for rank in worlds[world]:
+        r = rank["train"][arch]
+        assert r["step"] == D.TP_STEPS
+        for want, got in zip(jm, r["metrics"]):
+            for k, rtol in (("loss", 2e-6), ("ce", 2e-6),
+                            ("grad_norm", 1e-5), ("lr", 1e-6)):
+                np.testing.assert_allclose(got[k], want[k], rtol=rtol,
+                                           err_msg=k)
+        _check_weights(jp, r["params"], g1, 5e-5)
+        for path, a, b in _pairs(jmu, r["mu"]):
+            np.testing.assert_allclose(b, a, rtol=1e-4,
+                                       atol=1e-5 * np.abs(a).max(),
+                                       err_msg=path)
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+@pytest.mark.parametrize("arch", D.TP_ARCHS)
+def test_partitioned_steps_match_one_rank(worlds, jax_runs, arch, world):
+    """The same steps against the port's on a world of one rank (a 1 x 1
+    mesh, one card's numbers): float32 round-off apart (``TP1_RTOL``);
+    the ranks of a world agree bit for bit."""
+    base = worlds["1x1"][0]["train"][arch]
+    g1 = jax_runs[arch][3]
+    first = worlds[world][0]["train"][arch]
+    for rank in worlds[world]:
+        r = rank["train"][arch]
+        for want, got in zip(base["metrics"], r["metrics"]):
+            for k in ("loss", "ce", "grad_norm"):
+                np.testing.assert_allclose(
+                    got[k], want[k], rtol=TP1_RTOL.get(k, TP1_RTOL["loss"]),
+                    err_msg=k)
+            assert got["lr"] == want["lr"]
+        _check_weights(base["params"], r["params"], g1, TP1_RTOL["w"])
+        assert r["metrics"] == first["metrics"]
+        for _, a, b in _pairs(first["params"], r["params"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_data_parallel_moe_step_weights_only_the_ce(worlds, jax_moe_runs):
+    """qwen3-moe smoke's data-parallel step (each leaf gathered whole) on
+    2 x 2, its data ranks masking about 0.46 and 0.1 of their labels:
+    every rank's metrics and final weights are those of JAX's steps of the
+    loss the step means (``jax_moe_runs``: the CE weighted by each rank's
+    unmasked labels, the load-balancing terms 1 / 2 each), at
+    test_torch_train's tolerances and aux rtol 1e-5; step 1's CE is JAX's
+    over the whole batch."""
+    jm, jp, g1, whole = jax_moe_runs
+    for rank in worlds["2x2"]:
+        r = rank["moe"][D.TP_MOE_ARCH]
+        assert r["step"] == D.TP_STEPS
+        np.testing.assert_allclose(r["metrics"][0]["ce"], whole, rtol=2e-6)
+        for want, got in zip(jm, r["metrics"]):
+            assert want["aux"] > 0
+            for k, rtol in (("loss", 2e-6), ("ce", 2e-6), ("aux", 1e-5),
+                            ("grad_norm", 1e-5), ("lr", 1e-6)):
+                np.testing.assert_allclose(got[k], want[k], rtol=rtol,
+                                           err_msg=k)
+        _check_weights(jp, r["params"], g1, 5e-5)
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+@pytest.mark.parametrize("arch", D.TP_ARCHS)
+def test_blocks_have_jax_shard_shapes(worlds, arch, world):
+    """Each rank holds only its blocks: every parameter leaf at
+    ``NamedSharding(mesh, param_specs).shard_shape`` and every moment at
+    that of ``zero_specs`` (also cut over 'data'), JAX's specs on an
+    abstract mesh of the world's shape."""
+    n, model = WORLDS[world]
+    mesh = AbstractMesh((n // model, model), ("data", "model"))
+    cfg = D.tp_config(arch, "repro.configs")
+    shapes = jax.eval_shape(jbuild(cfg).init_params, jax.random.PRNGKey(0))
+    pspecs = JS.param_specs(shapes, model_divisor=model)
+    zspecs = JS.zero_specs(pspecs, shapes, mesh)
+
+    def want(specs):
+        return jax.tree.map(
+            lambda s, x: NamedSharding(mesh, s).shard_shape(x.shape),
+            specs, shapes,
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    wp, wz = want(pspecs), want(zspecs)
+    for rank in worlds[world]:
+        got_p, got_mu = rank["train"][arch]["local"]
+        for (path, a), (_, b) in zip(leaves_with_paths(wp),
+                                     leaves_with_paths(got_p)):
+            assert tuple(a) == tuple(b), path
+        for (path, a), (_, b) in zip(leaves_with_paths(wz),
+                                     leaves_with_paths(got_mu)):
+            assert tuple(a) == tuple(b), path
+    if model > 1:
+        # the attention's and the MLP's blocks, the vocabulary's
+        got_p = worlds[world][0]["train"][arch]["local"][0]
+        assert got_p["blocks"]["mlp"]["wd"][1] == cfg.d_ff // model
+        assert got_p["embed"][0] == cfg.vocab_size // model
+
+
+@pytest.mark.parametrize("T", D.TP_CE_T)
+@pytest.mark.parametrize("world", ["1x2", "1x4"])
+def test_cross_entropy_over_a_cut_vocabulary(worlds, world, T):
+    """Each rank's cross_entropy of its block of the vocabulary (model 2
+    and 4; a tenth of the labels masked) equals the whole vocabulary's,
+    value and gradient block, and JAX's."""
+    logits, labels = D.tp_ce_inputs(T)
+    whole = torch.from_numpy(logits).requires_grad_()
+    v = cross_entropy(whole, torch.from_numpy(labels))
+    (g,) = torch.autograd.grad(v, whole)
+    jv = j_cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
+    n = D.TP_CE_VOCAB // WORLDS[world][1]
+    for r, rank in enumerate(worlds[world]):
+        got = rank["parts"]["ce"][T]
+        np.testing.assert_allclose(got["value"], float(v), rtol=1e-6)
+        np.testing.assert_allclose(got["value"], float(jv), rtol=2e-6)
+        np.testing.assert_allclose(got["grad"],
+                                   g.numpy()[..., r * n:(r + 1) * n],
+                                   rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+def test_global_norm_over_blocks(worlds, world):
+    """global_norm over the blocks of a placed gradient tree (each cut
+    leaf's squares summed over 'model', a replicated leaf once) equals the
+    norm of the whole tree, on every rank."""
+    for rank in worlds[world]:
+        p = rank["parts"]
+        assert any(p["cut"]) and not all(p["cut"])
+        np.testing.assert_allclose(p["norm_blocks"], p["norm_whole"],
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+def test_placed_init_is_the_placed_whole_init(worlds, world):
+    """init_train_state(mesh=...) draws as the whole init does and keeps
+    each rank's blocks (a decoder-only LM cut leaf by leaf as drawn,
+    rwkv6 cut after): parameters and moments equal to place_state of the
+    whole state, placements and global shapes too, on every rank."""
+    for rank in worlds[world]:
+        for arch, same in rank["parts"]["init"].items():
+            assert same and all(same), arch
+
+
+@pytest.mark.parametrize("H,Hkv,size", [(4, 2, 4), (16, 8, 16),
+                                         (32, 4, 2), (12, 2, 3)])
+def test_attention_over_a_ranks_heads(H, Hkv, size):
+    """flash_attention(heads=(q_head0, kv_head0, group)) on each rank's
+    query heads, with every key-value head, equals those heads of the
+    whole attention (GQA by the global head index: a rank's heads within
+    one group, several groups, and 12/2 over 3 ranks, whose 4 heads take
+    two key-value heads unevenly); the ranks' k and v gradients add up to
+    the whole one's."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(H * 100 + size)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 24, h, 16), dtype=np.float32)).requires_grad_()
+        for h in (H, Hkv, Hkv, H))
+    y = flash_attention(q, k, v)
+    gk, gv = torch.autograd.grad(y, (k, v), do)
+    n = H // size
+    sk, sv = torch.zeros_like(k), torch.zeros_like(v)
+    for r in range(size):
+        sl = slice(r * n, (r + 1) * n)
+        yr = flash_attention(q[:, :, sl], k, v, heads=(r * n, 0, H // Hkv))
+        torch.testing.assert_close(yr, y[:, :, sl], rtol=1e-6, atol=1e-6)
+        a, b = torch.autograd.grad(yr, (k, v), do[:, :, sl])
+        sk, sv = sk + a, sv + b
+    torch.testing.assert_close(sk, gk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sv, gv, rtol=1e-5, atol=1e-6)
+
+
+def test_global_norm_without_blocks_is_unchanged():
+    """``cut=None`` is the one-card norm, bit for bit."""
+    rng = np.random.default_rng(0)
+    tree = {"a": torch.from_numpy(rng.standard_normal((3, 4),
+                                                      dtype=np.float32)),
+            "b": [torch.from_numpy(rng.standard_normal(5, dtype=np.float32))]}
+    want = torch.sqrt(torch.sum(torch.square(tree["a"]))
+                      + torch.sum(torch.square(tree["b"][0])))
+    assert torch.equal(global_norm(tree), want)
+    assert torch.equal(global_norm(tree, cut=[False, False]), want)
+
+
+def test_the_port_runs_the_dense_family_partitioned():
+    """The dense family takes the partitioned step; the others keep the
+    data-parallel one (ROADMAP queue 1)."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.train.step import PARTITIONED_FAMILIES
+
+    dense = [a for a in ARCHS if get_config(a).family in PARTITIONED_FAMILIES]
+    assert dense == ["qwen2-0.5b", "qwen3-0.6b", "olmo-1b", "yi-9b"]
+    # yi's untied head is cut by vocabulary as the tied embedding is
+    assert D.tp_config("yi-9b").tie_embeddings is False

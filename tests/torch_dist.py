@@ -351,6 +351,173 @@ def case_train_a2a(rank, world):
     return _np(out)
 
 
+#: The partitioned step's cases (tests/test_torch_tensor_parallel.py): the
+#: dense smoke configs in float32, three steps of B 4 x T 48 (numpy seed
+#: 7 a step), from ``convert.random_lm_params(cfg, 0)``.
+TP_ARCHS = ("qwen3-0.6b", "qwen2-0.5b", "olmo-1b", "yi-9b")
+TP_STEPS, TP_B, TP_T = 3, 4, 48
+TP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def tp_config(arch, configs="repro_torch.configs"):
+    """``arch``'s smoke config in float32, from ``configs`` (the port's
+    ``repro_torch.configs`` or JAX's ``repro.configs``)."""
+    import dataclasses
+    import importlib
+
+    mod = importlib.import_module(configs)
+    return dataclasses.replace(mod.get_smoke_config(arch), dtype="float32")
+
+
+def tp_batches(vocab):
+    """The TP_STEPS global batches of ``SyntheticSource``'s Zipf tokens
+    (test_torch_train's): {tokens, labels} as int32 numpy, a tenth of the
+    labels masked (-1, numpy seed 7), so that the data ranks' shares of
+    the unmasked labels differ."""
+    from repro_torch.data import SyntheticSource, batches
+
+    it = batches(SyntheticSource(vocab, 4096), batch=TP_B, seq=TP_T,
+                 tuned=False)
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(TP_STEPS):
+        b = {k: v.numpy() for k, v in next(it).items()}
+        b["labels"][rng.random(b["labels"].shape) < 0.1] = -1
+        out.append(b)
+    it.close()
+    return out
+
+
+#: The MoE family's data-parallel case (its state placed, each leaf
+#: gathered whole): qwen3-moe smoke on tp_moe_batches.
+TP_MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+def tp_moe_batches(vocab):
+    """tp_batches with the first half of each batch's rows (the first data
+    rank's at two data ranks) further masked, 0.4 of its labels (numpy
+    seed 8), so the data ranks' counts of unmasked labels are far apart."""
+    rng = np.random.default_rng(8)
+    out = tp_batches(vocab)
+    for b in out:
+        lb = b["labels"][:TP_B // 2]
+        lb[rng.random(lb.shape) < 0.4] = -1
+    return out
+
+
+def case_tp_train(rank, world, model, archs=TP_ARCHS, uneven=False):
+    """Each arch's TP_STEPS float32 steps with the state placed on the
+    (world / model, model) host mesh, on tp_batches (``uneven``:
+    tp_moe_batches): every step's metrics, the final weights and moments
+    gathered whole, and the shapes of this rank's blocks of the parameters
+    and moments."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainState, make_train_step, place_state
+
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = tp_config(arch)
+        params = convert.lm_params_from_jax(convert.random_lm_params(cfg, 0),
+                                            cfg, "cpu")
+        state = TrainState(params, adamw_init(params),
+                           torch.zeros((), dtype=torch.int32))
+        step = make_train_step(build(cfg), AdamWConfig(**TP_OPT))
+        with S.set_mesh(mesh):
+            state = place_state(state, mesh)
+            metrics = []
+            for b in (tp_moe_batches if uneven else tp_batches)(
+                    cfg.vocab_size):
+                state, m = step(state, {k: torch.from_numpy(v)
+                                        for k, v in b.items()})
+                metrics.append({k: float(v) for k, v in m.items()})
+            local = S._map_with_path(lambda _, x: tuple(x.to_local().shape),
+                                     (state.params, state.opt.mu))
+            full = S.gather_full((state.params, state.opt.mu))
+        out[arch] = {"metrics": metrics, "params": full[0], "mu": full[1],
+                     "local": local, "step": int(state.step)}
+    return _np(out)
+
+
+#: The vocabulary and the sequence lengths of the cut cross-entropy's
+#: cases (one chunk, and two with a remainder).
+TP_CE_VOCAB, TP_CE_T = 96, (40, 700)
+
+
+def tp_ce_inputs(T):
+    """(logits [2, T, TP_CE_VOCAB] float32, labels [2, T] int32 with a
+    tenth masked) from numpy seed T."""
+    rng = np.random.default_rng(T)
+    logits = rng.standard_normal((2, T, TP_CE_VOCAB), dtype=np.float32) * 3
+    labels = rng.integers(0, TP_CE_VOCAB, (2, T)).astype(np.int32)
+    labels[rng.random((2, T)) < 0.1] = -1
+    return logits, labels
+
+
+def case_tp_parts(rank, world, model):
+    """On the (world / model, model) host mesh: ``cross_entropy`` of this
+    rank's block of the vocabulary (value and gradient), and
+    ``global_norm`` over the blocks of a gradient tree placed by
+    ``param_specs`` (qwen3 smoke's shapes, numpy seed 3), beside the
+    norm of the whole tree."""
+    import torch
+
+    import torch.distributed.tensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import global_norm
+    from repro_torch.train import cross_entropy
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {"ce": {}}
+    with S.partitioned(mesh) as ax:
+        n = TP_CE_VOCAB // model
+        for T in TP_CE_T:
+            logits, labels = tp_ce_inputs(T)
+            block = torch.from_numpy(
+                logits[..., ax.rank * n:(ax.rank + 1) * n]).requires_grad_()
+            v = cross_entropy(block, torch.from_numpy(labels), model=ax)
+            (g,) = torch.autograd.grad(v, block)
+            out["ce"][T] = {"value": v, "grad": g}
+    rng = np.random.default_rng(3)
+    grads = tree_map(lambda m: torch.from_numpy(rng.standard_normal(
+        tuple(m.shape), dtype=np.float32)), build(tp_config(
+            "qwen3-0.6b")).init_params(0, device="meta"))
+    specs = S.param_specs(grads, model_divisor=model)
+    placed = S.place_tree(grads, mesh, S.shardings(mesh, specs))
+    cut = [any(a == "model" for a in s if a) for s in leaves(
+        S._map_with_path(lambda _, s: tuple(s), specs))]
+    out["norm_blocks"] = global_norm(
+        tree_map(lambda x: x.to_local(), placed), cut=cut,
+        group=S.axis_group(mesh, "model"))
+    out["norm_whole"] = global_norm(grads)
+    out["cut"] = cut
+    # the placed init against placing a whole one: the same blocks
+    from repro_torch.train import init_train_state, place_state
+
+    out["init"] = {}
+    for arch in ("qwen3-0.6b", "yi-9b", "rwkv6-7b"):
+        bundle = build(get_smoke_config(arch))
+        a = init_train_state(bundle, 0, device="cpu", mesh=mesh)
+        b = place_state(init_train_state(bundle, 0, device="cpu"), mesh)
+        out["init"][arch] = [
+            (x.placements == y.placements and x.shape == y.shape
+             and torch.equal(x.to_local(), y.to_local()))
+            for x, y in zip(leaves(a), leaves(b))
+            if isinstance(y, torch.distributed.tensor.DTensor)]
+    return _np(out)
+
+
 def case_production(rank, world):
     """make_production_mesh on torch's fake process group of 256 and of
     512 ranks, in one process."""
@@ -435,7 +602,9 @@ def case_many(rank, world, parts):
 CASES = {"collectives": case_collectives, "mesh": case_mesh,
          "moe_a2a": case_moe_a2a, "serve": case_serve, "train": case_train,
          "train_a2a": case_train_a2a, "dryrun": case_dryrun,
-         "production": case_production, "many": case_many}
+         "production": case_production, "tp_train": case_tp_train,
+         "tp_parts": case_tp_parts,
+         "many": case_many}
 
 
 def main(argv):
