@@ -237,12 +237,19 @@ Phases (each prints a line; any failure exits non-zero):
               ranks of a gloo world on the card: phase 11's float32
               golden, then olmo-1b in bf16 at full width and depth beside
               tp 1 (losses, grad norms, bytes and peak a rank, kernels 2
-              and 3 at 8 heads); (f) qwen3-0.6b's and yi-9b's train_4k
-              dry runs beside the parent tree's values.
+              and 3 at 8 heads); (g) in the same ranks, the MoE family's
+              partitioned step (moe_impl gmm, each rank its experts):
+              qwen3-moe-30b-a3b and moonshot-v1-16b-a3b in bf16 at full
+              width, 2 of 48 layers, beside tp 1 routed alike (tp 1's
+              router log replayed; each expert set a rank's own router
+              picks otherwise at a near tie), held as (e), kernels 2 and
+              3 at 16 and 8 heads; (f) qwen3-0.6b's, yi-9b's and
+              qwen3-moe-30b-a3b's train_4k dry runs beside the parent
+              tree's values.
 23. families — run last: the MoE, VLM and audio families at full width
               and depth in bf16, weights drawn on the card.  (a)
-              ``serve.generate`` of qwen3-moe-30b-a3b (8 x 2,048 + 32,
-              ``moe_impl="gmm"``), qwen2-vl-2b (8 x 2,048 + 32; the first
+              ``serve.generate`` of qwen3-moe-30b-a3b (8 x 2,048 + 16,
+              ``moe_impl="gmm"``), qwen2-vl-2b (8 x 2,048 + 16; the first
               1,024 slots a 32 x 32 image's ``vision_embeds`` with M-RoPE
               positions) and whisper-small (1,500 frames encoded once, 8 x
               64 + 384): kernel 2 launched once a layer in the prefill (48,
@@ -2740,13 +2747,15 @@ def phase_flash(dev) -> dict:
 # 4,096 (BWD_TRAIN_BT), causal) and tolerances.  BWD_HEADS: phase 7's, and
 # those of the archs phase 26 trains that phase 7 does not hold: whisper's
 # 12/12 of 64 (GQA 1), olmo-1b's 16/16 of 128 (GQA 1) and qwen2-vl-2b's 12/2
-# of 128 (GQA 6).  float32:
+# of 128 (GQA 6); and a rank's heads at tp 2 in phase 24 (e, g): qwen3-moe's
+# 16/2 of 128 (GQA 8), olmo-1b's and moonshot's 8/8 of 128.  float32:
 # tests/test_kernels.py:181-182 (atol 5e-5 + rtol 5e-5 element-wise).  bf16:
 # 1e-2 of each gradient's largest magnitude -- both sides round every output
 # once to bf16 (2^-8 of a value), and float32 sums in another order can
 # flip that rounding: two bf16 ulps of the largest value, with a margin.
 BWD_HEADS = dict(FLASH_HEADS, whisper=(12, 12, 64), olmo=(16, 16, 128),
-                 qwen2_vl=(12, 2, 128))
+                 qwen2_vl=(12, 2, 128), qwen3_moe_tp2=(16, 2, 128),
+                 tp2_8_8=(8, 8, 128))
 BWD_BATCH, BWD_T = (1, 2), (128, 200, 384, 1000, 2048)
 BWD_TRAIN_BT = (2, 4096)
 BWD_F32_TOL = 5e-5
@@ -5371,9 +5380,10 @@ def phase_rwkv6_train(dev, drawn=None) -> dict:
 # weights drawn on the card from torch.Generator seed 0, the prompt from
 # numpy seed 1 and each family's inputs from numpy seed 2.  Per model:
 # (batch, prompt, new tokens).  whisper's 64 + 384 = 448 positions are
-# upstream whisper's decoder context.
-FAMILY_SERVE = {"qwen3-moe-30b-a3b": (8, 2048, 32),
-                "qwen2-vl-2b": (8, 2048, 32),
+# upstream whisper's decoder context.  The MoE's and the VLM's 16 new
+# tokens (32 until phase 24g came): the script's wall.
+FAMILY_SERVE = {"qwen3-moe-30b-a3b": (8, 2048, 16),
+                "qwen2-vl-2b": (8, 2048, 16),
                 "whisper-small": (8, 64, 384)}
 # qwen2-vl's image: src/repro/launch/input_specs.py's VLM_IMG_TOKENS = 1,024
 # patch slots, a 32 x 32 grid.
@@ -5465,8 +5475,10 @@ class RouterLog:
 
         def rec(cfg, p, xf):
             w, ids, aux = self._orig(cfg, p, xf)
-            probs = torch.softmax(xf.float() @ p["router"], dim=-1)
-            self.calls.append((ids.sort(dim=1).values, probs, ids, w))
+            with torch.no_grad():
+                probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+            self.calls.append((ids.sort(dim=1).values, probs, ids,
+                               w.detach()))
             if self.replay is not None:
                 _, _, rids, rw = self.replay.calls[len(self.calls) - 1]
                 eq = rids.unsqueeze(2) == ids.unsqueeze(1)    # [N, k, k]
@@ -6378,16 +6390,37 @@ TP_OLMO_STEPS = 3
 TP_OLMO_HEADS = 8
 TP_BYTES_SHARE = 0.55
 TP_GNORM_RTOL = 2e-2
+# (g) The MoE family's partitioned step in the same two ranks, after (e):
+# each arch at full width, bf16, remat, TP_MOE_LAYERS of 48 layers (full
+# depth is ~670 GB (qwen3-moe) and ~628 GB (moonshot) of state, which two
+# ranks of one card would still hold on the one card), ARCH_TRAIN_B x
+# ARCH_TRAIN_T, TP_MOE_STEPS steps from the placed init on in-order
+# SyntheticSource batches under moe_impl gmm (the trainer's), against tp
+# 1's steps on the same batches in this process before the ranks start,
+# routed alike: tp 1's RouterLog goes to the ranks through the world's
+# directory, the ranks replay it, and each expert set a rank's own router
+# picks otherwise must be a near tie (routing_flips' ratio at most 1).
+# The same holds as (e)'s; kernels 2 and 3 at the rank's heads.
+TP_MOE = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+TP_MOE_LAYERS = 2
+TP_MOE_STEPS = 2
+TP_MOE_BUDGET_S = 40
 # (f) The dry run's partitioned cells (25a's children, DRYRUN_CELLS): what
 # the parent tree (before the partitioned step) printed for them on meta at
 # 16 x 16 (python -m repro_torch.launch.dryrun --arch A --shape train_4k at
 # commit beeb03c): flops_per_device, peak_per_device, useful_flops_ratio.
 TP_DRYRUN_BEFORE = {
     "qwen3-0.6b": (419102371872768.0, 18737611816, 0.03494829236048929),
-    "yi-9b": (4648576248446976.0, 293615340584, 0.04667703318116177)}
+    "yi-9b": (4648576248446976.0, 293615340584, 0.04667703318116177),
+    # before the MoE's partitioned step (commit 5b41e77's 25a, as printed:
+    # 1.628e+16 FLOP, 1063.63 GB, useful share 0.0046)
+    "qwen3-moe-30b-a3b": (1.628e16, 1063.63e9, 0.0046)}
 # (f) what the partitioned step must reach: qwen3-0.6b's useful FLOP share
-# at least this many times the parent's, yi-9b's peak under one card.
+# at least this many times the parent's, yi-9b's and qwen3-moe's peaks
+# under one card, qwen3-moe's FLOPs a device at most this share of the
+# parent's.
 TP_DRYRUN_USEFUL_GAIN, TP_DRYRUN_PEAK_B = 4.0, 80e9
+TP_DRYRUN_MOE_FLOPS_SHARE = 1 / 8
 
 
 def tp_batches(vocab, n):
@@ -6413,14 +6446,30 @@ def state_bytes(state):
 
 
 def olmo_steps(dev, mesh=None):
-    """TP_OLMO_STEPS bf16 steps of olmo-1b (make_train_step, the cuda
-    executor) from init_train_state(seed 0), placed on ``mesh`` when given,
-    on tp_batches: per-step losses, grad norms and host walls (each ending
-    in a read of the loss), the state's bytes, the peak, and kernels 2
-    and 3's launches a step and the head counts they ran at."""
-    import torch
+    """(e): TP_OLMO_STEPS bf16 steps of olmo-1b (:func:`tp_train_steps`)."""
+    from repro_torch.configs import get_config
+
+    return tp_train_steps(dev, get_config(TP_OLMO), TP_OLMO_STEPS, mesh)
+
+
+def tp_moe_config(arch):
+    """(g): ``arch`` at full width, TP_MOE_LAYERS of its layers."""
+    import dataclasses
 
     from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=TP_MOE_LAYERS)
+
+
+def tp_train_steps(dev, cfg, n_steps, mesh=None):
+    """``n_steps`` bf16 steps of ``cfg`` (make_train_step, the cuda
+    executor, moe_impl gmm) from init_train_state(seed 0), placed on
+    ``mesh`` when given, on tp_batches: per-step losses, grad norms and
+    host walls (each ending in a read of the loss), the state's bytes,
+    the peak, and kernels 2 and 3's launches a step and the head counts
+    they ran at."""
+    import torch
+
     from repro_torch.distributed import sharding
     from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
                                                      flash_attention_bwd_bhtd)
@@ -6429,8 +6478,7 @@ def olmo_steps(dev, mesh=None):
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import init_train_state, make_train_step
 
-    cfg = get_config(TP_OLMO)
-    check(cfg.dtype == "bfloat16" and cfg.remat, f"{TP_OLMO} trains in "
+    check(cfg.dtype == "bfloat16" and cfg.remat, f"{cfg.name} trains in "
           f"bf16 with remat")
     bundle = build_model(cfg)
     torch.cuda.synchronize()
@@ -6443,7 +6491,7 @@ def olmo_steps(dev, mesh=None):
     init_peak = torch.cuda.max_memory_allocated()
     pbytes, mbytes = state_bytes(state)
     step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
-                                               total_steps=TP_OLMO_STEPS),
+                                               total_steps=n_steps),
                            executor="cuda")
     heads = {"fwd": set(), "bwd": set()}
     real = (ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd)
@@ -6456,7 +6504,7 @@ def olmo_steps(dev, mesh=None):
         heads["bwd"].add(q.shape[1])
         return real[1](q, *a, **kw)
     batches = [{k: v.to(dev) for k, v in b.items()}
-               for b in tp_batches(cfg.vocab_size, TP_OLMO_STEPS)]
+               for b in tp_batches(cfg.vocab_size, n_steps)]
     ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = fwd, bwd
     losses, gnorms, walls, per_step = [], [], [], []
     try:
@@ -6485,6 +6533,56 @@ def olmo_steps(dev, mesh=None):
             "launches": per_step, "heads": {k: sorted(v)
                                             for k, v in heads.items()},
             "layers": cfg.num_layers, "num_heads": cfg.num_heads}
+
+
+class RouterCalls:
+    """A RouterLog's calls saved under a directory, one ``.npy`` file an
+    array (``save``), and read back onto a device as a log to replay and
+    compare against (``load``)."""
+
+    NAMES = ("sets", "probs", "ids", "w")
+
+    @staticmethod
+    def save(log, d):
+        import numpy as np
+
+        os.makedirs(d)
+        for i, call in enumerate(log.calls):
+            for name, x in zip(RouterCalls.NAMES, call):
+                np.save(os.path.join(d, f"{i}.{name}.npy"),
+                        x.detach().cpu().numpy())
+
+    @staticmethod
+    def load(d, dev):
+        import types
+
+        import numpy as np
+        import torch
+
+        n = len(os.listdir(d)) // len(RouterCalls.NAMES)
+        log = types.SimpleNamespace(calls=[tuple(
+            torch.from_numpy(np.load(os.path.join(d, f"{i}.{name}.npy")))
+            .to(dev) for name in RouterCalls.NAMES) for i in range(n)])
+        return log
+
+
+def tp_moe_rank(dev, mesh, d):
+    """(g) in a rank: each of TP_MOE's steps on ``mesh``, replaying tp 1's
+    router log (under ``d``), and the expert sets its own router picked
+    otherwise (routing_flips against tp 1's log)."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in TP_MOE:
+        cfg = tp_moe_config(arch)
+        tp1 = RouterCalls.load(os.path.join(d, f"router_{arch}"), dev)
+        with RouterLog(replay=tp1) as log:
+            r = tp_train_steps(dev, cfg, TP_MOE_STEPS, mesh)
+        r["flips"] = routing_flips(log, tp1, cfg.moe.top_k)
+        r["calls"] = len(log.calls)
+        out[arch] = r
+        del tp1, log
+    out["s"] = time.perf_counter() - t0
+    return out
 
 
 def save_tree(tree, d):
@@ -6518,9 +6616,9 @@ def load_tree(d):
 
 
 def tp_rank_main(rank, store, out):
-    """A rank of phase 24 (d, e) (``chip_smoke.py --tp-rank R STORE OUT``):
-    the gloo world of TP_RANKS ranks, the (1, TP_RANKS) mesh, (d) then
-    (e); its readings to ``out`` as JSON."""
+    """A rank of phase 24 (d, e, g) (``chip_smoke.py --tp-rank R STORE
+    OUT``): the gloo world of TP_RANKS ranks, the (1, TP_RANKS) mesh, (d),
+    (e) then (g); its readings to ``out`` as JSON."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -6549,6 +6647,7 @@ def tp_rank_main(rank, store, out):
         t0 = time.perf_counter()
         res["e"] = olmo_steps(dev, mesh)
         res["e"]["s"] = time.perf_counter() - t0
+        res["g"] = tp_moe_rank(dev, mesh, os.path.dirname(store))
         with open(out + ".tmp", "w") as f:
             json.dump(res, f)
         os.replace(out + ".tmp", out)
@@ -6557,8 +6656,9 @@ def tp_rank_main(rank, store, out):
 
 
 class MeshTP:
-    """[24 mesh] (d, e): tp 1's olmo-1b steps in this process, then the
-    TP_RANKS ranks started (child processes: (d), then (e)); the
+    """[24 mesh] (d, e, g): tp 1's olmo-1b and MoE steps in this process
+    (the MoE's router logs written for the ranks to replay), then the
+    TP_RANKS ranks started (child processes: (d), (e), then (g)); the
     full run joins them after the float32 goldens, which time nothing
     (the ranks' step times beside them are host-staged figures anyway)."""
 
@@ -6569,6 +6669,15 @@ class MeshTP:
         self.tp1 = olmo_steps(dev)
         self.tp1_s = time.perf_counter() - self.t0
         self.dir = tempfile.mkdtemp(prefix="tp_world_")
+        self.moe_tp1 = {}
+        for arch in TP_MOE:
+            with RouterLog() as log:
+                self.moe_tp1[arch] = tp_train_steps(
+                    dev, tp_moe_config(arch), TP_MOE_STEPS)
+            self.moe_tp1[arch]["calls"] = len(log.calls)
+            RouterCalls.save(log, os.path.join(self.dir, f"router_{arch}"))
+            del log
+        self.moe_tp1_s = time.perf_counter() - self.t0 - self.tp1_s
         # the golden's weights for (d), written once for both ranks
         save_tree(tree, os.path.join(self.dir, "tree"))
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -6597,9 +6706,12 @@ class MeshTP:
         for f in self.logs:
             f.close()
         try:
-            return phase_mesh_tp(self.dir, self.outs, codes, self.tp1,
-                                 p11_metrics, time.perf_counter() - self.t0,
-                                 waited)
+            out = phase_mesh_tp(self.dir, self.outs, codes, self.tp1,
+                                p11_metrics, time.perf_counter() - self.t0,
+                                waited)
+            out["moe"] = phase_mesh_moe_tp(self.outs, self.moe_tp1,
+                                           self.moe_tp1_s)
+            return out
         finally:
             # the golden's weights (2.4 GB of .npy), the store, the logs
             shutil.rmtree(self.dir, ignore_errors=True)
@@ -6712,6 +6824,109 @@ def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
             "heads": TP_OLMO_HEADS}
 
 
+def phase_mesh_moe_tp(outs, tp1, tp1_s) -> dict:
+    """[24 mesh] (g) the ranks' MoE steps (``outs``) held and printed beside
+    tp 1's (``tp1``, taken in ``tp1_s`` s before the ranks started).
+    Returns {arch: rank 0's kernel 2 and 3 launches a step and heads}."""
+    import math
+
+    from repro_torch.distributed.sharding import ModelAxis
+    from repro_torch.models.layers import local_heads
+
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f)["g"])
+    card = nvidia_card()
+    res = {}
+    for arch in TP_MOE:
+        cfg = tp_moe_config(arch)
+        t1, g0 = tp1[arch], ranks[0][arch]
+        for r in ranks:
+            g = r[arch]
+            check(all(math.isfinite(x) for x in g["losses"]),
+                  f"[24 mesh] (g) {arch} non-finite loss {g['losses']}")
+            check(g["losses"] == g0["losses"]
+                  and g["grad_norms"] == g0["grad_norms"],
+                  f"[24 mesh] (g) {arch}: the ranks' losses or grad norms "
+                  f"differ")
+            check(g["calls"] == t1["calls"],
+                  f"[24 mesh] (g) {arch}: {g['calls']} router calls, tp 1 "
+                  f"{t1['calls']}")
+            n, worst = g["flips"]
+            check(worst <= 1.0, f"[24 mesh] (g) {arch}: a rank's expert set "
+                  f"differs from tp 1's beyond a near tie (margin / twice "
+                  f"the probabilities' difference {worst:.4g} > 1)")
+            check(g["param_bytes"] <= TP_BYTES_SHARE * t1["param_bytes"]
+                  and g["moment_bytes"]
+                  <= TP_BYTES_SHARE * t1["moment_bytes"],
+                  f"[24 mesh] (g) {arch}: a rank holds {g['param_bytes']} B "
+                  f"of parameters and {g['moment_bytes']} B of moments, "
+                  f"tp 1 {t1['param_bytes']} and {t1['moment_bytes']}")
+            L = g["layers"]
+            check(all(tuple(p) == (2 * L, L) for p in g["launches"]),
+                  f"[24 mesh] (g) {arch}: kernel 2, 3 launches a step "
+                  f"{g['launches']}, expected ({2 * L}, {L})")
+            nq = local_heads(cfg, ModelAxis(None, TP_RANKS, 0))[1]
+            check(g["heads"] == {"fwd": [nq], "bwd": [nq]},
+                  f"[24 mesh] (g) {arch}: kernels 2 and 3 ran at heads "
+                  f"{g['heads']}, the rank's {nq}")
+        check(t1["heads"] == {"fwd": [cfg.num_heads],
+                              "bwd": [cfg.num_heads]},
+              f"[24 mesh] (g) {arch}: tp 1's kernels ran at heads "
+              f"{t1['heads']}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(g0["losses"],
+                                                     t1["losses"])]
+        g_errs = [abs(a - b) / abs(b) for a, b in zip(g0["grad_norms"],
+                                                       t1["grad_norms"])]
+        check(max(errs) <= TRAIN_BF16_LOSS_RTOL,
+              f"[24 mesh] (g) {arch} tp {TP_RANKS} losses {g0['losses']} vs "
+              f"tp 1's {t1['losses']}: rel err {errs} > "
+              f"{TRAIN_BF16_LOSS_RTOL}")
+        check(max(g_errs) <= TP_GNORM_RTOL,
+              f"[24 mesh] (g) {arch} tp {TP_RANKS} grad norms "
+              f"{g0['grad_norms']} vs tp 1's {t1['grad_norms']}: rel err "
+              f"{g_errs} > {TP_GNORM_RTOL}")
+        print(f"[24 mesh] (g) {arch} bf16 (remat, {cfg.num_layers} of 48 "
+              f"layers, moe_impl gmm) {TP_MOE_STEPS} steps of "
+              f"{ARCH_TRAIN_B} x {ARCH_TRAIN_T} from the placed init, tp "
+              f"{TP_RANKS} (gloo: no NVLink figure; routed as tp 1, "
+              f"{g0['calls']} router calls replayed) vs tp 1 on the card: "
+              f"losses {[round(x, 5) for x in g0['losses']]} vs "
+              f"{[round(x, 5) for x in t1['losses']]} (rel err "
+              f"{max(errs):.3g}, tol {TRAIN_BF16_LOSS_RTOL}, share "
+              f"{max(errs) / TRAIN_BF16_LOSS_RTOL:.3f}); grad norms "
+              f"{[round(x, 4) for x in g0['grad_norms']]} vs "
+              f"{[round(x, 4) for x in t1['grad_norms']]} (rel err "
+              f"{max(g_errs):.3g}, tol {TP_GNORM_RTOL}, share "
+              f"{max(g_errs) / TP_GNORM_RTOL:.3f}); "
+              + "; ".join(
+                  f"rank {i}: parameters {r[arch]['param_bytes']} B, "
+                  f"moments {r[arch]['moment_bytes']} B "
+                  f"({(r[arch]['param_bytes'] + r[arch]['moment_bytes']) / (t1['param_bytes'] + t1['moment_bytes']):.4f} "
+                  f"of tp 1's {t1['param_bytes']} + {t1['moment_bytes']} "
+                  f"B), peak {r[arch]['peak'] / 1e9:.2f} GB (init peak "
+                  f"{r[arch]['init_peak'] / 1e9:.2f} GB), expert sets of "
+                  f"its own router off tp 1's {r[arch]['flips'][0]}, each "
+                  f"a near tie (largest ratio {r[arch]['flips'][1]:.4g}, "
+                  f"limit 1), kernel 2, 3 launches a step "
+                  f"{r[arch]['launches'][0]} at {r[arch]['heads']['fwd']} "
+                  f"of {cfg.num_heads} heads, step ms "
+                  f"{[round(x, 1) for x in r[arch]['step_ms']]}"
+                  for i, r in enumerate(ranks))
+              + f"; tp 1: peak {t1['peak'] / 1e9:.2f} GB, step ms "
+              f"{[round(x, 1) for x in t1['step_ms']]}, kernel 2, 3 "
+              f"launches a step {t1['launches'][0]} at "
+              f"{t1['heads']['fwd']} heads; {card}", flush=True)
+        res[arch] = {"launches_a_step": g0["launches"][0],
+                     "heads": g0["heads"]["fwd"][0]}
+    took = max(r["s"] for r in ranks)
+    print(f"[24 mesh] (g) tp 1's MoE steps {tp1_s:.1f} s in this process; "
+          f"the ranks' (g) {took:.1f} s (budget {TP_MOE_BUDGET_S} s"
+          f"{'' if took <= TP_MOE_BUDGET_S else ', over it'})", flush=True)
+    return res
+
+
 def nvidia_card() -> str:
     """The card's name and power limit (nvidia-smi)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6737,8 +6952,13 @@ def phase_mesh_dryrun(res) -> None:
     q = res["qwen3-0.6b"]["useful_flops_ratio"]
     check(q >= TP_DRYRUN_USEFUL_GAIN * TP_DRYRUN_BEFORE["qwen3-0.6b"][2],
           f"[24 mesh] (f) qwen3-0.6b useful FLOP share {q}")
-    y = res["yi-9b"]["memory"]["peak_per_device"]
-    check(y < TP_DRYRUN_PEAK_B, f"[24 mesh] (f) yi-9b peak {y} B")
+    for arch in ("yi-9b", "qwen3-moe-30b-a3b"):
+        y = res[arch]["memory"]["peak_per_device"]
+        check(y < TP_DRYRUN_PEAK_B, f"[24 mesh] (f) {arch} peak {y} B")
+    f = res["qwen3-moe-30b-a3b"]["flops_per_device"]
+    check(f <= TP_DRYRUN_MOE_FLOPS_SHARE
+          * TP_DRYRUN_BEFORE["qwen3-moe-30b-a3b"][0],
+          f"[24 mesh] (f) qwen3-moe-30b-a3b {f} FLOP a device")
 
 
 class A2ACapacity:
@@ -7157,7 +7377,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
                                lambda phase, *a: phase(*a))
         MeshTP(dev, tree).join(p11["metrics"])
         del tree, p11
-        lap("phase 24d, e")
+        lap("phase 24d, e, g")
         phase_mesh_dryrun(dry.join())
         lap("phase 24f (25a joined)")
         moe = phase_family_serve(dev, "qwen3-moe-30b-a3b", world["mesh"])
@@ -7512,7 +7732,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     # 24 (d, e): the partitioned step on two ranks of the card, beside the
     # float32 goldens
     tp = MeshTP(dev, tree)
-    lap("phase 24e's tp 1 steps")
+    lap("phase 24e, g's tp 1 steps")
     # phase 22's float32 golden takes phase 15's rwkv6-7b weights where
     # their seed and cut agree (4 of 32 layers, seed 0): drawn once
     rwkv6_drawn = None
@@ -7537,7 +7757,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     child.join()
     lap("phase 17b (joined)")
     mesh_tp = tp.join(p11_metrics)
-    lap("phase 24d, e (joined)")
+    lap("phase 24d, e, g (joined)")
     phase_mesh_dryrun(dry.join())
     lap("phase 25a (joined), 24f")
     serve = phase_serve(dev, tree)
@@ -7642,7 +7862,10 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
                                         for a in FAMILY_SERVE},
         "launches_a_step_a_rank_tp2": {
             f"train_{TP_OLMO}": mesh_tp["launches_a_step"][0],
-            "heads": mesh_tp["heads"]},
+            "heads": mesh_tp["heads"],
+            **{k: v for a, m in mesh_tp["moe"].items() for k, v in (
+                (f"train_{a}", m["launches_a_step"][0]),
+                (f"heads_{a}", m["heads"]))}},
         "launches_a2a_prefill": a2a["launches"],
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
                            serve["max_abs_err"],
@@ -7672,7 +7895,10 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
                                 if a not in hd64_train}},
         "launches_a_step_a_rank_tp2": {
             f"train_{TP_OLMO}": mesh_tp["launches_a_step"][1],
-            "heads": mesh_tp["heads"]},
+            "heads": mesh_tp["heads"],
+            **{k: v for a, m in mesh_tp["moe"].items() for k, v in (
+                (f"train_{a}", m["launches_a_step"][1]),
+                (f"heads_{a}", m["heads"]))}},
         **bwd["bf16"]}, {
         "name": "flash_attention_bwd_hd64", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",

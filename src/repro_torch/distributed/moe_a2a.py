@@ -21,17 +21,28 @@ The router runs in float32 (``layers.moe_router``), the experts as batched
 products over [E_loc, mp*C, D]; the dispatch and the combine are plain
 PyTorch, as JAX leaves them to XLA.
 
-Cost at a world of several ranks, until the MoE's partitioned step (ROADMAP
-queue 1) hands each rank only its experts: arrays are global
-(``sharding.shard_map``), so every rank holds all E experts and the whole
-[B, T, D] activations, and expert parallelism saves neither memory nor
-communication over ``moe_gmm``.  Each MoE layer cuts a copy of the rank's
-E/mp experts, all-gathers its output [B, T, D] over the data and model
-axes, and in the backward all-reduces the experts' gradient blocks over
-the data axes and all-gathers them (all E, on every rank), all-gathers the
-activations' gradient and all-reduces the router's over the whole mesh --
-besides the two all-to-alls of [E, C, D] each way.  A world of one rank
-(the card) skips all of it: the blocks are the inputs themselves.
+Two ways in.  Inside a partitioned train step
+(``sharding.partitioned``, what GSPMD makes of JAX's placed step) the
+body runs on the rank's own arrays: its block of the batch cut by
+sequence over 'model' where T divides (JAX's ``x_spec``; the cut enters
+by ``copy_to_model``), its E/mp experts (``param_specs``' blocks of
+``moe/w[gud]``), the replicated router entering by ``copy_to_model``,
+the two all-to-alls over the model group, and the sequence blocks put
+back into the replicated stream by an all-gather whose gradient is only
+cut (``gather_out_of_model``).  The aux is the mean over 'model' of the
+ranks' local estimates (JAX's ``pmean``; the step averages it over the
+data axes), its gradient 1 / mp a rank.  Per layer and rank that moves
+the two all-to-alls of [E, C, D] each way and an all-gather of the
+rank's [B/dp, T/mp, D] output, besides the regions' all-reduces of the
+input's and the router's gradients.
+
+Outside one (serving, the 1 x 1 mesh), arrays are global
+(``sharding.shard_map``): every rank holds all E experts and the whole
+[B, T, D] activations, each MoE layer cuts a copy of the rank's E/mp
+experts and all-gathers its output over the data and model axes, and
+its backward all-reduces and all-gathers every gradient; a world of
+one rank (the card) skips all of it: the blocks are the inputs
+themselves.
 """
 from __future__ import annotations
 
@@ -42,7 +53,10 @@ import torch.nn.functional as F
 
 from ..models import layers as L
 from ..models.common import ModelConfig
-from .sharding import P, all_to_all, get_abstract_mesh, pmean, shard_map
+from .sharding import (P, all_to_all, all_to_all_model, copy_to_model,
+                       gather_out_of_model, get_abstract_mesh, model_axis,
+                       partitioned_mesh, pmean, reduce_from_model,
+                       replicated_from_model, shard_map)
 
 
 def _axes():
@@ -82,11 +96,50 @@ def dispatch_slots(ids, num_experts: int, cap: int):
     return flat_e, keep, slot
 
 
+def _experts(cfg: ModelConfig, xf, w, ids, wg, wu, wd, exchange,
+             capacity_factor):
+    """JAX's body from the routing on: the capacity-bounded dispatch of
+    the tokens ``xf`` [N, D] (routed ``w``, ``ids`` [N, k]), the dispatch
+    ``exchange`` (all-to-all over the model ranks) to the local experts
+    ``wg``/``wu``/``wd`` [E_loc, ...], their products, the return
+    exchange and the combine.  Returns out [N, D]."""
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    N, D = xf.shape
+    C = capacity(N, k, E, capacity_factor)
+    flat_e, keep, slot = dispatch_slots(ids, E, C)
+    tok = torch.arange(N, device=xf.device).repeat_interleave(k)
+    send = xf.new_zeros((E, C + 1, D))
+    send = send.index_put((flat_e, slot), xf[tok])    # dropped -> slot C
+    send = send[:, :C]                                # [E, C, D]
+
+    # dispatch: [E, C, D] -> [E_loc, mp*C, D]
+    recv = exchange(send, 0, 1)
+
+    # the local experts
+    g = torch.bmm(recv, wg)
+    u = torch.bmm(recv, wu)
+    h = (F.silu(g) * u).to(xf.dtype)
+    y = torch.bmm(h, wd)                              # [E_loc, mp*C, D]
+
+    # return: -> [E, C, D]
+    back = exchange(y, 1, 0)
+
+    # combine
+    back_p = torch.cat([back, back.new_zeros((E, 1, D))], dim=1)
+    gathered = back_p[flat_e, slot]                   # [N*k, D]
+    wk = (w.reshape(-1) * keep.to(torch.float32)).to(gathered.dtype)
+    return torch.sum((gathered * wk[:, None]).reshape(N, k, D), dim=1)
+
+
 def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25):
     """Drop-in replacement for ``layers.moe_gmm`` / ``moe_dense`` under a
     mesh.  x [B, T, D] -> (out [B, T, D], aux loss scalar: each rank's
-    load-balance estimate, averaged over the mesh).  Without a mesh or
-    its 'model' axis, ``moe_gmm``."""
+    load-balance estimate, averaged over the mesh).  Inside a partitioned
+    step, on the rank's arrays (:func:`_partitioned`); else on global
+    arrays over the ambient mesh, and without a mesh or its 'model' axis,
+    ``moe_gmm``."""
+    if partitioned_mesh() is not None:
+        return _partitioned(cfg, p, x, capacity_factor)
     m, dp, model_ax = _axes()
     moe = cfg.moe
     assert moe is not None
@@ -94,7 +147,7 @@ def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25):
         return L.moe_gmm(cfg, p, x)
 
     mp = m.shape[model_ax]
-    E, k = moe.num_experts, moe.top_k
+    E = moe.num_experts
     assert E % mp == 0, (E, mp)
 
     B, T, D = x.shape
@@ -103,35 +156,12 @@ def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25):
 
     def body(xl, router, wg, wu, wd):
         Bl, Tl, _ = xl.shape
-        N = Bl * Tl
-        xf = xl.reshape(N, D)
+        xf = xl.reshape(Bl * Tl, D)
         w, ids, aux = L.moe_router(cfg, {"router": router}, xf)
         aux = pmean(aux, dp + (model_ax,))
-
-        C = capacity(N, k, E, capacity_factor)
-        flat_e, keep, slot = dispatch_slots(ids, E, C)
-        tok = torch.arange(N, device=x.device).repeat_interleave(k)
-        send = xl.new_zeros((E, C + 1, D))
-        send = send.index_put((flat_e, slot), xf[tok])    # dropped -> slot C
-        send = send[:, :C]                                # [E, C, D]
-
-        # dispatch: [E, C, D] -> [E_loc, mp*C, D]
-        recv = all_to_all(send, model_ax, split_axis=0, concat_axis=1)
-
-        # the local experts
-        g = torch.bmm(recv, wg)
-        u = torch.bmm(recv, wu)
-        h = (F.silu(g) * u).to(xl.dtype)
-        y = torch.bmm(h, wd)                              # [E_loc, mp*C, D]
-
-        # return: -> [E, C, D]
-        back = all_to_all(y, model_ax, split_axis=1, concat_axis=0)
-
-        # combine
-        back_p = torch.cat([back, back.new_zeros((E, 1, D))], dim=1)
-        gathered = back_p[flat_e, slot]                   # [N*k, D]
-        wk = (w.reshape(-1) * keep.to(torch.float32)).to(gathered.dtype)
-        out = torch.sum((gathered * wk[:, None]).reshape(N, k, D), dim=1)
+        out = _experts(cfg, xf, w, ids, wg, wu, wd,
+                       lambda v, s, c: all_to_all(v, model_ax, s, c),
+                       capacity_factor)
         return out.reshape(Bl, Tl, D), aux
 
     specs_in = (x_spec, P(None, None), P(model_ax, None, None),
@@ -141,6 +171,42 @@ def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25):
         x, p["router"], p["wg"], p["wu"], p["wd"])
 
     if moe.num_shared_experts:
-        out = out + L.mlp(cfg, p["shared"], x.reshape(B * T, D)).reshape(
+        out = out + L.shared_experts(cfg, p, x.reshape(B * T, D)).reshape(
+            B, T, D)
+    return out, aux
+
+
+def _partitioned(cfg: ModelConfig, p, x, capacity_factor):
+    """:func:`moe_a2a` inside a partitioned step: JAX's body on this
+    rank's arrays (module docstring).  ``x`` [B/dp, T, D] is the rank's
+    block of the batch, replicated over 'model'; ``p`` its blocks of the
+    MoE's leaves."""
+    ax = model_axis()
+    mp = 1 if ax is None else ax.size
+    E = cfg.moe.num_experts
+    assert E % mp == 0, (E, mp)
+    B, T, D = x.shape
+    xin = copy_to_model(x, ax)
+    cut = mp > 1 and T % mp == 0
+    if cut:             # the rank's sequence block (JAX's x_spec)
+        xin = xin.narrow(1, ax.rank * (T // mp), T // mp)
+    Bl, Tl = xin.shape[:2]
+    xf = xin.reshape(Bl * Tl, D)
+    w, ids, aux = L.moe_router(
+        cfg, {"router": copy_to_model(p["router"], ax)}, xf)
+    # the mean over 'model': every rank carries the loss whole, so each
+    # local estimate's gradient is 1 / mp (reduce_from_model passes the
+    # gradient as it is; the router's is then summed by its copy)
+    aux = reduce_from_model(aux, ax) / mp
+    out = _experts(cfg, xf, w, ids, *(L._share(p[n], ax, 0, E)
+                                      for n in ("wg", "wu", "wd")),
+                   lambda v, s, c: all_to_all_model(v, ax, s, c),
+                   capacity_factor).reshape(Bl, Tl, D)
+    # back into the replicated stream: the sequence blocks gathered, or
+    # (T not cut) the output every rank computed alike
+    out = gather_out_of_model(out, ax, 1) if cut else \
+        replicated_from_model(out, ax)
+    if cfg.moe.num_shared_experts:
+        out = out + L.shared_experts(cfg, p, x.reshape(B * T, D)).reshape(
             B, T, D)
     return out, aux

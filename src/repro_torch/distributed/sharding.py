@@ -504,14 +504,19 @@ def all_to_all(x, axis, split_axis, concat_axis):
     Autograd-aware (``torch.distributed.nn.functional.all_to_all_single``
     sends the gradients back)."""
     dm = current_shard_mesh()
-    n = axis_size(dm, axis)
+    return _all_to_all(x, axis_group(dm, axis), axis_size(dm, axis),
+                       split_axis, concat_axis)
+
+
+def _all_to_all(x, group, n, split_axis, concat_axis):
+    """:func:`all_to_all` over the ``n`` ranks of ``group``."""
     shape = list(x.shape)
     parts = x.reshape(shape[:split_axis] + [n, shape[split_axis] // n]
                       + shape[split_axis + 1:]).movedim(split_axis, 0)
     send = parts.contiguous()
     with _autograd_collectives() as dfn:
         recv = dfn.all_to_all_single(torch.empty_like(send), send,
-                                     group=axis_group(dm, axis))
+                                     group=group)
     # recv [n (source), ...the part...]: concatenate along concat_axis
     recv = recv.movedim(0, concat_axis)
     out_shape = list(recv.shape)
@@ -722,16 +727,19 @@ def place_like(tree, like):
 
 # ---------------------------------------------- tensor-parallel regions ---
 #
-# What GSPMD makes of JAX's placed train step for the dense family, written
-# out (megatron's scheme): a region of the model takes the replicated
-# activations in through :func:`copy_to_model` (identity; the gradient,
-# partial on each rank, summed over 'model'), computes the rank's share of
-# the heads or columns on its blocks, and leaves through
-# :func:`reduce_from_model` (the partial row products summed; the
-# gradient, replicated, passed through).  Inside :func:`partitioned`, the
-# model reads :func:`model_axis`; outside it, or at model 1, there is no
-# region and every function below is the identity, so one card's step
-# runs unchanged.
+# What GSPMD makes of JAX's placed train step for the dense and MoE
+# families, written out (megatron's scheme): a region of the model takes
+# the replicated activations in through :func:`copy_to_model` (identity;
+# the gradient, partial on each rank, summed over 'model'), computes the
+# rank's share of the heads, columns or experts on its blocks, and leaves
+# through :func:`reduce_from_model` (the partial sums summed; the
+# gradient, replicated, passed through), :func:`gather_out_of_model` (the
+# ranks' blocks of an activation gathered; the gradient cut) or
+# :func:`replicated_from_model` (a value every rank computed alike; the
+# gradient shared out).  Inside :func:`partitioned`, the model reads
+# :func:`model_axis`; outside it, or at model 1, there is no region and
+# every function below is the identity, so one card's step runs
+# unchanged.
 
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
@@ -743,20 +751,23 @@ class ModelAxis:
     rank: int
 
 
+#: (mesh, model axis or None) of each :func:`partitioned` entered.
 _PARTITIONED: list = []
 
 
 @contextlib.contextmanager
 def partitioned(mesh):
     """While entered, the model's parameters are this rank's blocks by
-    ``param_specs`` over ``mesh``'s 'model' axis, and the model computes
-    its share of each product (:func:`model_axis`)."""
+    ``param_specs`` over ``mesh``'s 'model' axis, its inputs the rank's
+    block of the batch, and the model computes its share of each product
+    (:func:`model_axis`)."""
     dm = _device_mesh(mesh)
     n = mesh_shape(dm).get("model", 1)
-    _PARTITIONED.append(None if n == 1 else ModelAxis(
-        axis_group(dm, "model"), n, axis_index(dm, "model")))
+    ax = None if n == 1 else ModelAxis(axis_group(dm, "model"), n,
+                                       axis_index(dm, "model"))
+    _PARTITIONED.append((dm, ax))
     try:
-        yield _PARTITIONED[-1]
+        yield ax
     finally:
         _PARTITIONED.pop()
 
@@ -764,7 +775,13 @@ def partitioned(mesh):
 def model_axis() -> Optional[ModelAxis]:
     """The model axis of the :func:`partitioned` step running now, or None
     (no partitioned step, or a model axis of one rank)."""
-    return _PARTITIONED[-1] if _PARTITIONED else None
+    return _PARTITIONED[-1][1] if _PARTITIONED else None
+
+
+def partitioned_mesh():
+    """The mesh of the :func:`partitioned` step running now (at any model
+    size), or None."""
+    return _PARTITIONED[-1][0] if _PARTITIONED else None
 
 
 def _all_reduce(x, ax):
@@ -796,8 +813,8 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ax, dim):
-        ctx.ax, ctx.dim = ax, dim
+    def forward(ctx, x, ax, dim, summed):
+        ctx.ax, ctx.dim, ctx.summed = ax, dim, summed
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
                  for _ in range(ax.size)]
         dist.all_gather(parts, x.contiguous(), group=ax.group)
@@ -805,9 +822,21 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = _all_reduce(g, ctx.ax)
+        if ctx.summed:
+            g = _all_reduce(g, ctx.ax)
         return g.chunk(ctx.ax.size, ctx.dim)[ctx.ax.rank].contiguous(), \
-            None, None
+            None, None, None
+
+
+class _ReplicatedFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.ax.size, None
 
 
 def copy_to_model(x, ax: Optional[ModelAxis]):
@@ -824,11 +853,38 @@ def reduce_from_model(x, ax: Optional[ModelAxis]):
 
 def gather_from_model(x, ax: Optional[ModelAxis], dim: int = -1):
     """The ranks' blocks of ``x`` along ``dim`` put together in rank order
-    (an all-gather); the gradient summed over the axis and cut back to the
-    rank's block."""
+    (an all-gather), for use inside a region (a weight's blocks); the
+    gradient, partial on each rank, summed over the axis and cut back to
+    the rank's block."""
     if ax is None:
         return x
-    return _GatherFromModel.apply(x, ax, dim % x.dim())
+    return _GatherFromModel.apply(x, ax, dim % x.dim(), True)
+
+
+def gather_out_of_model(x, ax: Optional[ModelAxis], dim: int = -1):
+    """The ranks' blocks of an activation along ``dim`` leaving a region
+    into the replicated stream (an all-gather in rank order); the
+    gradient, replicated, cut back to the rank's block (no sum: that
+    would count it ``size`` times)."""
+    if ax is None:
+        return x
+    return _GatherFromModel.apply(x, ax, dim % x.dim(), False)
+
+
+def replicated_from_model(x, ax: Optional[ModelAxis]):
+    """``x``, computed whole and alike by every rank of the axis, leaving a
+    region as the replicated value: the same value; each rank's gradient a
+    1 / size share of the replicated one, so that their sum over the axis
+    (where the inputs entered by :func:`copy_to_model`) is it."""
+    return x if ax is None else _ReplicatedFromModel.apply(x, ax)
+
+
+def all_to_all_model(x, ax: Optional[ModelAxis], split_axis, concat_axis):
+    """:func:`all_to_all` over the model axis of a partitioned step (the
+    identity without one)."""
+    if ax is None:
+        return x
+    return _all_to_all(x, ax.group, ax.size, split_axis, concat_axis)
 
 
 def max_over_model(x, ax: Optional[ModelAxis]):

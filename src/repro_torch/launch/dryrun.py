@@ -10,19 +10,20 @@ under a :class:`~repro_torch.launch.hlo_stats.StepCounter` that counts
 its FLOPs, bytes, collectives and live memory, the hand-written kernels
 by their own formulas.
 
-What is counted is the port's program on one rank.  The dense family's
-train cells run the partitioned step (``train/step.py``), what GSPMD makes
-of JAX's: each rank holds its blocks of the parameters (``param_specs``)
-and of the moments (``zero_specs``), computes its block of the batch with
-its share of every product (megatron's column and row blocks, the
-vocabulary cut over 'model') and updates its blocks.  The other
+What is counted is the port's program on one rank.  The dense and MoE
+families' train cells run the partitioned step (``train/step.py``), what
+GSPMD makes of JAX's: each rank holds its blocks of the parameters
+(``param_specs``) and of the moments (``zero_specs``), computes its block
+of the batch with its share of every product (megatron's column and row
+blocks, the vocabulary cut over 'model', the MoE's E / model experts
+beside the replicated router) and updates its blocks.  The other
 families' train cells run the data-parallel step: every leaf gathered
 whole, each rank its block of the batch, the model axis computing the
-same products on every rank; ``shard_map`` all-gathers its outputs; under
-``moe_impl="a2a"`` every rank runs the whole batch.  The serving cells
-run the same way: the parameters placed by their specs and gathered
-whole, each rank its block of the batch (and of the decode state) by the
-batch axes, the next tokens of a prefill all-gathered.
+same products on every rank.  The serving cells run the same way: the
+parameters placed by their specs and gathered whole, each rank its block
+of the batch (and of the decode state) by the batch axes, the next
+tokens of a prefill all-gathered; under ``moe_impl="a2a"`` every rank
+runs the whole batch and ``shard_map`` all-gathers its outputs.
 
 Two counts per cell:
 
@@ -40,8 +41,10 @@ Two counts per cell:
    encoder, which it then counts twice).
 
 Host syncs cannot run on ``meta``: the MoE runs ``moe_dense`` (JAX's
-choice), or ``a2a`` under ``--opt``; ``moe_gmm`` reads its group sizes on
-the host.  ``seq_parallel`` (the residual stream cut over 'model') and
+choice; in a train cell each rank's experts on its tokens), or ``a2a``
+under ``--opt`` (in a train cell the rank's sequence block exchanged with
+its experts by all-to-alls over 'model'); ``moe_gmm`` reads its group
+sizes on the host.  ``seq_parallel`` (the residual stream cut over 'model') and
 ``cp_attention`` (queries cut by sequence) are sharding hints in JAX and
 no-ops in the port, partitioned step included: the dry run takes them and
 they change no count, so the residual stream and the saved activations

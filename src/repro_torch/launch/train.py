@@ -15,9 +15,9 @@ ranks.  Parameters are placed by ``param_specs`` and AdamW moments by
 ``zero_specs`` (``init_train_state(mesh=...)``: every rank makes the same
 draws, a ``torch.Generator`` on its device with seed 0, and keeps its
 blocks); every rank reads rank 0's batches and takes the placed step
-(``train/step.py``: partitioned over the model axis for the dense family,
-data-parallel for the others).  On one card: a 1 x 1 mesh, one card's
-numbers.
+(``train/step.py``: partitioned over the model axis for the dense and
+MoE families, data-parallel for the others).  On one card: a 1 x 1
+mesh, one card's numbers.
 """
 from __future__ import annotations
 

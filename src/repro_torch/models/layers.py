@@ -44,16 +44,19 @@ weighted expert outputs are summed in JAX's scatter order (ascending
 expert id), one add at a time in the activations' dtype, never by atomics.
 
 Inside a partitioned train step (``distributed.sharding.partitioned``),
-the dense family's attention and MLP hold this rank's blocks of their
+the attention, the MLP and the MoE hold this rank's blocks of their
 weights by ``param_specs`` and compute its share, as GSPMD partitions JAX's
 placed step: column blocks of ``wq``/``wk``/``wv`` (and their biases) give
 the rank's query heads and the key-value heads they use, ``wg``/``wu`` its
 columns of the hidden layer, and the row products with ``wo`` and ``wd``
-are summed over the model axis.  A leaf the specs leave whole (a dim the
-axis does not divide) enters the region whole and is cut there; a block
-that is not the heads the rank needs (heads cut below a head, or query
-heads that do not divide the axis) is gathered first.  Outside one, or at
-model 1, nothing here changes.
+are summed over the model axis; the MoE's ``w[gud]`` blocks are its E /
+model experts, whose outputs are summed over the axis, beside a router
+every rank runs alike.  A leaf the specs leave whole (a dim the axis does
+not divide) enters the region whole and is cut there (whole and block
+told apart by the dim's full size); a block that is not the heads the
+rank needs (heads cut below a head, or query heads that do not divide
+the axis) is gathered first.  Outside one, or at model 1, nothing here
+changes.
 
 No counterpart here: ``residual_shard`` (sequence parallelism) and
 ``_cp_shard`` (context-parallel attention), mesh constraints that change no
@@ -501,12 +504,14 @@ def init_mlp(cfg: ModelConfig, gen, d_ff: Optional[int] = None):
     }
 
 
-def mlp(cfg: ModelConfig, p, x):
-    """The block's MLP; in a partitioned step (``cfg.d_ff`` wide), the
-    rank's columns of ``wg``/``wu`` and rows of ``wd``, the row product
+def mlp(cfg: ModelConfig, p, x, d_ff: Optional[int] = None):
+    """The block's MLP, ``d_ff`` wide whole (``cfg.d_ff`` by default; the
+    MoE's shared experts are ``d_ff_expert * num_shared_experts``); in a
+    partitioned step, the rank's columns of ``wg``/``wu`` and rows of
+    ``wd`` (told from the whole leaves by that width), the row product
     summed over the model axis, ``bd`` added once after the sum."""
     ax = model_axis()
-    F_, x = cfg.d_ff, copy_to_model(x, ax)
+    F_, x = d_ff or cfg.d_ff, copy_to_model(x, ax)
     wu, wd = _share(p["wu"], ax, -1, F_), _share(p["wd"], ax, 0, F_)
     # jax.nn.gelu defaults to the tanh approximation.
     if cfg.mlp_type == "gelu":
@@ -549,9 +554,33 @@ def moe_router(cfg: ModelConfig, p, xf):
     w = w / w.sum(dim=-1, keepdim=True)
     E = m.num_experts
     me = probs.mean(dim=0)                                   # mean prob/expert
-    ce = F.one_hot(ids[:, 0], E).float().mean(dim=0)         # top-1 share
+    ce = _one_hot(ids[:, 0], E).mean(dim=0)                  # top-1 share
     aux = E * torch.sum(me * ce) * m.load_balance_coef
     return w, ids, aux
+
+
+def _one_hot(ids, n: int):
+    """float32 one-hot of ``ids`` over ``n`` classes (``F.one_hot``'s
+    values, without the range check it runs on CPU tensors: a host read
+    the card and ``meta`` do not make)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(
+        torch.float32)
+
+
+def _expert_block(E: int, ax) -> tuple:
+    """(first, end) of the experts this rank runs on the model axis ``ax``
+    (its block of ``moe/w[gud]`` by ``param_specs``, or its chunk of a
+    leaf the specs leave whole); every expert without an axis."""
+    if ax is None:
+        return 0, E
+    return E * ax.rank // ax.size, E * (ax.rank + 1) // ax.size
+
+
+def shared_experts(cfg: ModelConfig, p, xf):
+    """The shared experts' output for the tokens ``xf`` [N, D]: one MLP
+    of them all, ``d_ff_expert * num_shared_experts`` wide whole."""
+    m = cfg.moe
+    return mlp(cfg, p["shared"], xf, m.d_ff_expert * m.num_shared_experts)
 
 
 def _swiglu(x, wg, wu, wd, dtype):
@@ -563,24 +592,44 @@ def moe_gmm(cfg: ModelConfig, p, x):
     expert (a stable sort, as ``jnp.argsort``), each expert's contiguous
     rows through its SwiGLU by ``torch.matmul`` (JAX's ``lax.ragged_dot``),
     empty experts skipped.  The group sizes come to the host: one sync a
-    call.  x [B, T, D] -> (y [B, T, D], aux)."""
+    call.  x [B, T, D] -> (y [B, T, D], aux).
+
+    In a partitioned step the router runs on the replicated tokens on
+    every rank alike (its load-balancing term too, whose gradient is
+    not summed over the axis); only the pairs of the rank's experts
+    (:func:`_expert_block`) run, their tokens and routing weights entering
+    the region (:func:`~repro_torch.distributed.sharding.copy_to_model`:
+    their gradients summed over the axis), and each token's partial sum
+    over them leaves summed over the axis."""
     m = cfg.moe
+    ax = model_axis()
     B, T, D = x.shape
-    N, k = B * T, m.top_k
+    N, k, E = B * T, m.top_k, m.num_experts
     xf = x.reshape(N, D)
     w, ids, aux = moe_router(cfg, p, xf)
+    e0, e1 = _expert_block(E, ax)
 
     flat = ids.reshape(-1)
     order = torch.argsort(flat, stable=True)                 # [N*k]
-    xs = xf[order // k]                                      # source token
     # each expert's first row in the sorted order (no device sync until
     # the one copy to the host)
     bounds = torch.searchsorted(flat[order], torch.arange(
-        m.num_experts + 1, device=x.device)).tolist()
-    wg, wu, wd = (p[n].unbind(0) for n in ("wg", "wu", "wd"))
-    ys = [_swiglu(xs[a:b], wg[e], wu[e], wd[e], x.dtype)
-          for e, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])) if b > a]
-    y = torch.cat(ys) * w.reshape(-1)[order].to(x.dtype)[:, None]
+        E + 1, device=x.device)).tolist()
+    a, b = bounds[e0], bounds[e1]
+    mine = order[a:b]                                        # the rank's pairs
+    xs = copy_to_model(xf, ax)[mine // k]                    # source token
+    wg, wu, wd = (_share(p[n], ax, 0, E).unbind(0) for n in ("wg", "wu",
+                                                             "wd"))
+    ys = [_swiglu(xs[lo - a:hi - a], wg[e - e0], wu[e - e0], wd[e - e0],
+                  x.dtype)
+          for e, lo, hi in zip(range(e0, e1), bounds[e0:e1],
+                               bounds[e0 + 1:e1 + 1]) if hi > lo]
+    if not ys:        # no pair of the rank's experts: none contributes
+        ys = [_swiglu(xs, wg[0], wu[0], wd[0], x.dtype)]
+    wr = copy_to_model(w, ax).reshape(-1)[mine].to(x.dtype)
+    y = torch.cat(ys) * wr[:, None]
+    if (a, b) != (0, N * k):          # the other ranks' pairs add zeros
+        y = F.pad(y, (0, 0, a, N * k - b))
 
     # JAX scatters y into zeros of y's dtype (``.at[tok].add``): each
     # token's k contributions are added in sorted order, i.e. by ascending
@@ -592,28 +641,37 @@ def moe_gmm(cfg: ModelConfig, p, x):
     out = c[:, 0]
     for j in range(1, k):
         out = out + c[:, j]
+    out = reduce_from_model(out, ax)
 
     if m.num_shared_experts:
-        out = out + mlp(cfg, p["shared"], xf)
+        out = out + shared_experts(cfg, p, xf)
     return out.reshape(B, T, D), aux
 
 
 def moe_dense(cfg: ModelConfig, p, x):
     """All-experts formulation: every token through every expert, combined
-    by the routing weights (E/k x the operations of :func:`moe_gmm`)."""
+    by the routing weights (E/k x the operations of :func:`moe_gmm`).  In
+    a partitioned step (what GSPMD makes of JAX's placed ``moe_dense``)
+    the router runs alike on every rank, the rank's experts on every
+    token, the combine weights of those experts entering the region, and
+    the partial combine leaves summed over the axis."""
     m = cfg.moe
+    ax = model_axis()
     B, T, D = x.shape
+    E = m.num_experts
     xf = x.reshape(B * T, D)
     w, ids, aux = moe_router(cfg, p, xf)
-    mask = F.one_hot(ids, m.num_experts).float()                  # [N,k,E]
+    mask = _one_hot(ids, E)                                       # [N,k,E]
     comb = torch.einsum("nk,nke->ne", w, mask).to(x.dtype)        # [N,E]
+    comb = _share(comb, ax, 1, E)             # the rank's experts' columns
 
-    g = torch.einsum("nd,edf->enf", xf, p["wg"])
-    u = torch.einsum("nd,edf->enf", xf, p["wu"])
+    xin = copy_to_model(xf, ax)
+    g = torch.einsum("nd,edf->enf", xin, _share(p["wg"], ax, 0, E))
+    u = torch.einsum("nd,edf->enf", xin, _share(p["wu"], ax, 0, E))
     h = (F.silu(g) * u).to(x.dtype)
-    y = torch.einsum("enf,efd->end", h, p["wd"])                  # [E,N,D]
-    out = torch.einsum("end,ne->nd", y, comb)
+    y = torch.einsum("enf,efd->end", h, _share(p["wd"], ax, 0, E))  # [E,N,D]
+    out = reduce_from_model(torch.einsum("end,ne->nd", y, comb), ax)
 
     if m.num_shared_experts:
-        out = out + mlp(cfg, p["shared"], xf)
+        out = out + shared_experts(cfg, p, xf)
     return out.reshape(B, T, D), aux

@@ -10,27 +10,32 @@ places the accumulator by its specs on the ambient mesh (JAX's
 ``with_sharding_constraint``), which changes no number.
 
 A state placed on a mesh (DTensor leaves, :func:`place_state`) of a dense
-model takes the partitioned step, what GSPMD makes of JAX's step jitted
-with the state's shardings: each rank keeps only its blocks of the
-parameters (``param_specs``) and of the AdamW moments (``zero_specs``:
-ZeRO-1, also cut over 'data'), computes the gradients of its block of
-the batch (``batch_spec``) with its share of every product (the model's
-tensor-parallel regions, ``distributed.sharding.partitioned``: megatron's
-column and row blocks, the vocabulary cut over 'model'), averages them
-over the data axes, clips by the norm over the blocks, and updates its
-blocks, each cut to the moments' data share and gathered back over
-'data'.  At model 1 and one data rank the numbers are one card's bit for
-bit; over several ranks the row products' sums and the data mean change
-the float32 round-off.
+or MoE model takes the partitioned step, what GSPMD makes of JAX's step
+jitted with the state's shardings: each rank keeps only its blocks of
+the parameters (``param_specs``) and of the AdamW moments
+(``zero_specs``: ZeRO-1, also cut over 'data'), computes the gradients of
+its block of the batch (``batch_spec``) with its share of every product
+(the model's tensor-parallel regions, ``distributed.sharding.partitioned``:
+megatron's column and row blocks, the vocabulary cut over 'model', and
+the MoE's E / model experts of ``moe/w[gud]`` beside the replicated
+router), averages them over the data axes, clips by the norm over the
+blocks, and updates its blocks, each cut to the moments' data share and
+gathered back over 'data'.  At model 1 and one data rank the numbers are
+one card's bit for bit; over several ranks the row products' and the
+experts' sums and the data mean change the float32 round-off.
+
+The MoE runs in the step as ``moe_impl`` names it, on the rank's blocks:
+``gmm`` the pairs routed to the rank's experts, ``dense`` the rank's
+experts on every token, their outputs summed over 'model'; ``a2a`` its
+block of the batch cut by sequence over 'model' and exchanged with the
+rank's experts by all-to-alls (``distributed/moe_a2a.py``).  The
+load-balancing term is computed alike on every model rank (the a2a's:
+the mean of the ranks' local estimates) and counts 1 / n a data rank.
 
 The other families take the data-parallel step: each leaf is gathered
 whole where the model uses it, the rank computes the gradients of its
 block of the batch, they are averaged over the data axes, every rank
-applies the same update to the whole leaves and keeps its blocks.  An
-MoE model under ``moe_impl="a2a"`` runs the whole batch on every rank
-instead: ``moe_a2a``'s ``shard_map`` takes global arrays and cuts the
-tokens over the data axes itself, and its gradients come out global (the
-same on every rank), so nothing is averaged after.
+applies the same update to the whole leaves and keeps its blocks.
 """
 from __future__ import annotations
 
@@ -248,7 +253,7 @@ def _batch_block(batch, mesh):
 
 #: The families whose placed state takes the partitioned step (module
 #: docstring); the others gather every leaf whole.
-PARTITIONED_FAMILIES = ("dense",)
+PARTITIONED_FAMILIES = ("dense", "moe")
 
 
 def _cut_on(x, axis: str):
@@ -318,7 +323,7 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, *,
     ``grad_acc_specs``: optional spec tree for the float32 accumulator,
     placed by it on the ambient mesh (``sharding.set_mesh``); the
     partitioned step accumulates its blocks as they are.  A state placed
-    on a mesh takes the partitioned step (a dense model) or the
+    on a mesh takes the partitioned step (a dense or MoE model) or the
     data-parallel one (module docstring), with the global ``batch``
     (every rank the same).  ``executor`` picks the
     flash-attention sites' implementation, forward and backward (``auto``:
@@ -326,8 +331,6 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, *,
     the plain versions anywhere)."""
     check_executor(executor)
     loss_fn = make_loss_fn(bundle, moe_impl, executor=executor)
-    # moe_a2a cuts the global batch over the data axes itself
-    global_batch = moe_impl == "a2a" and bundle.cfg.moe is not None
 
     def _constrain(tree):
         if grad_acc_specs is None:
@@ -395,15 +398,13 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, *,
         placed = sharding.is_placed(leaves(params)[0])
         if placed and bundle.cfg.family in PARTITIONED_FAMILIES:
             return partitioned_step(state, batch)
-        if placed and not global_batch:
+        if placed:
             mesh = leaves(params)[0].device_mesh
             params, opt = sharding.gather_full((params, opt))
             loss, ce, aux, grads = grads_of(
                 params, batch, _data_mean(mesh),
                 block=lambda mb: _batch_block(mb, mesh))
         else:
-            if placed:
-                params, opt = sharding.gather_full((params, opt))
             loss, ce, aux, grads = grads_of(params, batch)
         with torch.no_grad():
             new_params, new_opt, om = adamw_update(opt_cfg, grads, opt,

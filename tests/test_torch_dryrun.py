@@ -41,14 +41,13 @@ SMOKE_CELLS = [("qwen2-0.5b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
                ("qwen2-vl-2b", "prefill_32k")]
 
 #: One cell of each family for the probes, and for the meta-vs-CPU and
-#: fake-vs-gloo counts (small shapes, tests/torch_dist.py).  The MoE is
-#: left out of the CPU run: ATen's one_hot checks its class values on the
-#: CPU (a min and a host read), and not on the card or on meta.
+#: fake-vs-gloo counts (small shapes, tests/torch_dist.py).
 PROBE_CELLS = [("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
                ("rwkv6-7b", "train_4k"), ("recurrentgemma-2b", "train_4k"),
                ("whisper-small", "train_4k"),
                ("qwen2-vl-2b", "prefill_32k")]
 CPU_CELLS = [("qwen3-0.6b", "train_tiny"), ("qwen3-0.6b", "prefill_tiny"),
+             ("qwen3-moe-30b-a3b", "train_tiny"),
              ("rwkv6-7b", "train_tiny"), ("rwkv6-7b", "decode_tiny"),
              ("recurrentgemma-2b", "train_tiny"),
              ("whisper-small", "train_tiny"),
@@ -208,23 +207,40 @@ def test_meta_count_equals_a_cpu_run(gloo_counts):
     """The dry run's step counted on meta equals the same step run on CPU
     tensors (the kernels' plain versions inside their wrappers), FLOPs,
     bytes and collectives exactly; and a fake world of four counts the
-    collectives a gloo world of four runs.  The dense train cell takes the
-    partitioned step: at model 2 it counts half the FLOPs of a rank of a
-    mesh of the same two data ranks at model 1 (no product repeated over
-    the model axis), with the model axis's all-reduces beside the data
-    axes' mean."""
+    collectives a gloo world of four runs.  The dense and MoE train cells
+    take the partitioned step: at model 2 the dense one counts half the
+    FLOPs of a rank of a mesh of the same two data ranks at model 1 (no
+    product repeated over the model axis), the MoE's (moe_dense) half
+    but the routing's, which every rank runs alike, with the model axis's
+    all-reduces beside the data axes' mean."""
+    tp_cells = [("qwen3-0.6b", "train_tiny"), ("qwen3-moe-30b-a3b",
+                                               "train_tiny")]
     with dryrun.fake_world(4):
         mesh = make_host_mesh(model=2, device="cpu")
         meta = D.count_dryrun_cells(CPU_CELLS, mesh, "meta")
         cpu = D.count_dryrun_cells(CPU_CELLS, mesh, "cpu")
-        dense = [c for c in CPU_CELLS if c == ("qwen3-0.6b", "train_tiny")]
-        model1 = D.count_dryrun_cells(dense, DeviceMesh(
+        model1 = D.count_dryrun_cells(tp_cells, DeviceMesh(
             "cpu", torch.arange(2).reshape(2, 1),
-            mesh_dim_names=("data", "model")), "meta")[dense[0]]
-    tp = meta[dense[0]]
-    assert tp["flops"] * 2 == model1["flops"]
-    n = [c["coll_detail"]["counts"]["all-reduce"] for c in (tp, model1)]
-    assert n[0] > n[1]
+            mesh_dim_names=("data", "model")), "meta")
+    for cell in tp_cells:
+        tp = meta[cell]
+        n = [c["coll_detail"]["counts"]["all-reduce"]
+             for c in (tp, model1[cell])]
+        assert n[0] > n[1], cell
+    dense, moe = (meta[c]["flops"] * 2 - model1[c]["flops"]
+                  for c in tp_cells)
+    assert dense == 0
+    cfg = D.dryrun_config("qwen3-moe-30b-a3b")
+    rows = D.DRYRUN_SHAPES["train_tiny"]
+    tokens = rows["global_batch"] // 2 * rows["seq_len"]   # a data rank's
+    # what every rank computes alike, a layer: the router's product [N, D]
+    # x [D, E] (forward, its two backward products, the remat's forward
+    # again) and the combine weights' [N, k] x [N, k, E] (forward, the
+    # weights' backward product, the remat's forward)
+    E = cfg.moe.num_experts
+    router = 2 * tokens * cfg.d_model * E
+    comb = 2 * tokens * cfg.moe.top_k * E
+    assert moe == (4 * router + 3 * comb) * cfg.num_layers
     ranks = D.join(gloo_counts)
     for cell in CPU_CELLS:
         m, c = meta[cell], cpu[cell]

@@ -323,10 +323,13 @@ def test_train_on_a_mesh_is_tp1(worlds, world, case, rtol):
 
 def test_placed_a2a_step_at_two_data_ranks(worlds):
     """qwen3-moe smoke (float32) under moe_impl="a2a" on 2 x 2, two steps:
-    the placed state's step runs the whole batch on every rank (moe_a2a's
-    shard_map cuts it over the data axes), so its losses and final weights
-    are the plain state's global step's bit for bit, on every rank.  At
-    ample capacity the first cross-entropy is the gmm step's without a
+    the placed state's step is the partitioned one (each rank its block
+    of the batch, cut by sequence over 'model', and its experts), the
+    plain state's runs moe_a2a's shard_map on global arrays; both route
+    each rank's same tokens, so their losses agree to the data mean's
+    round-off (``DATA2_F32_RTOL``; measured 7.6e-8) and their final
+    weights to test_torch_train's 5e-5 (measured 1.2e-5), on every rank.
+    At ample capacity the first cross-entropy is the gmm step's without a
     mesh, to test_torch_moe_a2a's 1e-5 (the loss and the second step
     differ by design: a2a's aux is the mean of each shard's estimate)."""
     from repro_torch.tree import leaves
@@ -334,11 +337,12 @@ def test_placed_a2a_step_at_two_data_ranks(worlds):
     for r in worlds["2x2"]:
         res = r["train_a2a"]
         assert np.isfinite(res["placed"]["losses"]).all()
-        np.testing.assert_array_equal(res["placed"]["losses"],
-                                      res["global"]["losses"])
+        np.testing.assert_allclose(res["placed"]["losses"],
+                                   res["global"]["losses"],
+                                   rtol=DATA2_F32_RTOL)
         for a, b in zip(leaves(res["placed"]["params"]),
                         leaves(res["global"]["params"])):
-            np.testing.assert_array_equal(a, b)
+            np.testing.assert_allclose(a, b, rtol=0, atol=5e-5)
         np.testing.assert_allclose(res["ample"]["ce"][0],
                                    res["gmm"]["ce"][0], rtol=1e-5, atol=0)
 

@@ -3,14 +3,25 @@ of ``distributed/sharding.py``, ``models/layers.py`` and ``models/lm.py``)
 on gloo worlds of the CPU against jitted JAX and the port's own step on
 one rank.
 
-The ranks (tests/torch_dist.py ``tp_train``, ``tp_parts``) import no JAX;
-this process runs JAX.  Worlds, as (data, model) host meshes: (1, 1), (1,
-2), (1, 4) and (2, 2).  qwen3 smoke at model 4 has 2 key-value heads, so
+The ranks (tests/torch_dist.py ``tp_train``, ``tp_parts``, ``tp_moe``,
+``tp_moe_parts``, ``a2a_region``) import no JAX; this process runs JAX
+while they run.  Worlds, as (data, model) host meshes: (1, 1), (1, 2),
+(1, 4) and (2, 2).  qwen3 smoke at model 4 has 2 key-value heads, so
 ``wk``/``wv`` are cut into half heads and gathered; the MLP, the attention
-and the vocabulary are cut at every model size here.  The (2, 2) world
-also runs qwen3-moe smoke's data-parallel step on batches whose data
-ranks mask unequal shares of their labels, held against JAX's steps of
-the loss that step means (``jax_moe_runs``).
+and the vocabulary are cut at every model size here.
+
+The MoE family (qwen3-moe smoke, and moonshot smoke with two shared
+experts, whose MLP is then 2 x d_ff wide) takes the partitioned step
+under ``moe_impl`` gmm and dense: each rank its E / model experts.  At
+(1, 2) and (1, 4) it is held against JAX's jitted steps of the same
+``moe_impl``; at (2, 2) its data ranks mask unequal shares of their
+labels, held against JAX's steps of the loss the step means
+(``jax_moe_runs``: the load-balancing term is each data rank's, 1 / 2
+each).  Under a2a at ample capacity its steps without a load-balancing
+term are JAX's gmm steps, and its term is the mean of the ranks' local
+estimates (``jax_a2a_local``); the a2a layer on a rank's blocks is held
+to JAX's ``moe_a2a`` under a 2 x 2 mesh (tests/torch_goldens/
+moe_a2a.json).
 
 Tolerances, from the readings these tests take:
   * against JAX, test_torch_train's (float32 agrees to ~3e-7 in the loss):
@@ -25,6 +36,11 @@ Tolerances, from the readings these tests take:
   * the cut cross-entropy against the whole one: rtol 1e-6 (value) and
     1e-5 (gradient), and against JAX's as test_torch_train's.
 """
+import base64
+import contextlib
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +51,7 @@ from jax.sharding import AbstractMesh, NamedSharding
 import torch_dist as D
 from repro.distributed import sharding as JS
 from repro.models import build as jbuild
+from repro.models import layers as JL
 from repro.optim import AdamWConfig as JAdamW
 from repro.optim import adamw_init as j_adamw_init
 from repro.optim import adamw_update as j_adamw_update
@@ -54,27 +71,74 @@ TP_WORLDS = ("1x2", "1x4", "2x2")
 #: the weights' largest |difference| where the step-1 gradient is sure
 #: (as against JAX).
 TP1_RTOL = dict(loss=1e-6, grad_norm=1e-6, w=5e-6)
+#: The MoE family's runs: ``arch/moe_impl``.
+MOE_RUNS = [f"{a}/{i}" for a in D.TP_MOE_ARCHS for i in D.TP_MOE_IMPLS]
+#: The MoE's tp 1 at each world: the same data ranks at model 1 (the
+#: load-balancing term is each data rank's).
+MOE_TP1 = {"1x2": ("1x1", "moe"), "1x4": ("1x1", "moe"),
+           "2x2": ("1x2", "moe_dp2")}
+#: The a2a's load-balancing term and the router's gradient against JAX's
+#: (its output at ample capacity is gmm's; the term the mean of the ranks'
+#: local estimates): rtol, and atol as a share of the largest |gradient|.
+A2A_AUX_RTOL, A2A_GRAD_ATOL = 1e-5, 1e-5
 
 
 @pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
-    """{world: every rank's {"train": ..., "parts": ...}}: all started at
-    once, then joined."""
+def started(tmp_path_factory):
+    """Every world started at once (joined by ``worlds``, after JAX's
+    runs, which run meanwhile)."""
     tmp = tmp_path_factory.mktemp("tp")
+    moe = {"1x1": [["moe", "tp_moe", {"model": 1}]],
+           "1x2": [["moe", "tp_moe", {"model": 2}],
+                   ["moe_dp2", "tp_moe", {"model": 1, "uneven": True,
+                                          "a2a": False}],
+                   ["moe_parts", "tp_moe_parts", {"model": 2}]],
+           "1x4": [["moe", "tp_moe", {"model": 4}]],
+           "2x2": [["moe", "tp_moe", {"model": 2, "uneven": True}],
+                   ["a2a_region", "a2a_region", {}]]}
     started = {}
     for name, (n, model) in WORLDS.items():
         parts = [["train", "tp_train", {"model": model}]]
         if model > 1:
             parts.append(["parts", "tp_parts", {"model": model}])
-        if name == "2x2":
-            parts.append(["moe", "tp_train", {
-                "model": model, "archs": [D.TP_MOE_ARCH], "uneven": True}])
-        started[name] = D.start_world("many", n, tmp / name, parts=parts)
-    return {k: D.join(w) for k, w in started.items()}
+        started[name] = D.start_world("many", n, tmp / name,
+                                      parts=parts + moe[name])
+    return started
 
 
 @pytest.fixture(scope="module")
-def jax_runs():
+def worlds(started, jax_runs, jax_moe_plain, jax_moe_runs, jax_a2a_local):
+    """{world: every rank's {"train": ..., "parts": ..., "moe": ...}}."""
+    return {k: D.join(w) for k, w in started.items()}
+
+
+def _jax_steps(cfg, bs, moe_impl="gmm", loss_fn=None):
+    """(metrics of each step, final params, final mu, step-1 gradients) of
+    JAX's steps of ``cfg`` from ``convert.random_lm_params(cfg, 0)``, one
+    a batch of ``bs``: jitted ``make_train_step`` of ``moe_impl``, or
+    with ``loss_fn(params, batch) -> (loss, (ce, aux))`` its jitted
+    gradients and ``adamw_update``."""
+    params = jax.tree.map(jnp.asarray, convert.random_lm_params(cfg, 0))
+    bundle = jbuild(cfg)
+    bs = [{k: jnp.asarray(v) for k, v in b.items()} for b in bs]
+    if loss_fn is None:
+        loss_fn = j_make_loss_fn(bundle, moe_impl)
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    opt_cfg, opt = JAdamW(**D.TP_OPT), j_adamw_init(params)
+    metrics, g1 = [], None
+    for b in bs:
+        (loss, (ce, aux)), g = grad_fn(params, b)
+        g1 = g if g1 is None else g1
+        params, opt, om = j_adamw_update(opt_cfg, g, opt, params)
+        metrics.append({"loss": float(loss), "ce": float(ce),
+                        "aux": float(aux),
+                        **{k: float(v) for k, v in om.items()}})
+    return (metrics, jax.device_get(params), jax.device_get(opt.mu),
+            jax.device_get(g1))
+
+
+@pytest.fixture(scope="module")
+def jax_runs(started):
     """{arch: (metrics of each step, final params, final mu, step-1
     gradients)} of jitted JAX from the same weights and batches."""
     out = {}
@@ -99,41 +163,95 @@ def jax_runs():
 
 
 @pytest.fixture(scope="module")
-def jax_moe_runs():
-    """(metrics of each step, final params, step-1 gradients, step 1's CE
-    of the whole batch) of JAX's steps of qwen3-moe smoke on
-    tp_moe_batches with the loss of the data-parallel step over two data
+def jax_moe_plain(started):
+    """{run: _jax_steps} of JAX's steps of each MoE run on tp_batches (one
+    data rank's loss: JAX's own), and ``a2a``: qwen3-moe's gmm steps
+    without a load-balancing term."""
+    out = {}
+    for run in MOE_RUNS:
+        arch, impl = run.split("/")
+        cfg = D.tp_config(arch, "repro.configs")
+        out[run] = _jax_steps(cfg, D.tp_batches(cfg.vocab_size), impl)
+    cfg = D.tp_config(D.TP_MOE_ARCH, "repro.configs", load_balance_coef=0.0)
+    out["a2a"] = _jax_steps(cfg, D.tp_batches(cfg.vocab_size))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_moe_runs(started):
+    """{run: (metrics of each step, final params, step-1 gradients, step
+    1's CE of the whole batch)} of JAX's steps of each MoE run on
+    tp_moe_batches with the loss of the partitioned step over two data
     ranks (the batch's first and second halves): the global batch's mean
     CE, each half's weighted by its unmasked labels, plus the mean of the
     halves' load-balancing terms (1 / 2 each; JAX's global batch has one
     term of every token, which a data rank cannot see)."""
+    out = {}
+    for run in MOE_RUNS:
+        arch, impl = run.split("/")
+        cfg = D.tp_config(arch, "repro.configs")
+        loss_fn = j_make_loss_fn(jbuild(cfg), impl)
+        h = D.TP_B // 2
+
+        def ranks_loss(p, b, loss_fn=loss_fn):
+            halves = [{k: v[r * h:(r + 1) * h] for k, v in b.items()}
+                      for r in range(2)]
+            parts = [loss_fn(p, x)[1] for x in halves]
+            cs = [jnp.sum(x["labels"] >= 0).astype(jnp.float32)
+                  for x in halves]
+            ce = (cs[0] * parts[0][0] + cs[1] * parts[1][0]) / (cs[0]
+                                                                + cs[1])
+            aux = (parts[0][1] + parts[1][1]) / 2
+            return ce + aux, (ce, aux)
+        bs = D.tp_moe_batches(cfg.vocab_size)
+        metrics, params, _, g1 = _jax_steps(cfg, bs, loss_fn=ranks_loss)
+        whole = float(jax.jit(loss_fn)(
+            jax.tree.map(jnp.asarray, convert.random_lm_params(cfg, 0)),
+            {k: jnp.asarray(v) for k, v in bs[0].items()})[1][0])
+        out[run] = (metrics, params, g1, whole)
+    return out
+
+
+@contextlib.contextmanager
+def _local_estimates(nd, mp):
+    """While entered, JAX's ``moe_gmm`` returns the a2a's load-balancing
+    term: the mean of the estimates of the ``nd`` x ``mp`` blocks of its
+    tokens (data rank by batch rows, model rank by sequence), its output
+    as it is (the a2a's at ample capacity)."""
+    real = JL.moe_gmm
+
+    def local(cfg, p, x):
+        y, _ = real(cfg, p, x)
+        B, T, Dm = x.shape
+        b, t = B // nd, T // mp
+        auxs = [JL.moe_router(cfg, p, x[i * b:(i + 1) * b, j * t:(j + 1)
+                                        * t].reshape(-1, Dm))[2]
+                for i in range(nd) for j in range(mp)]
+        return y, sum(auxs) / len(auxs)
+    JL.moe_gmm = local
+    try:
+        yield
+    finally:
+        JL.moe_gmm = real
+
+
+@pytest.fixture(scope="module")
+def jax_a2a_local(started):
+    """{world: (step 1's load-balancing term, the router's step-1
+    gradient)} of qwen3-moe on tp_batches' first batch with the a2a's
+    term at the world's blocks (``_local_estimates``), by jitted JAX."""
     cfg = D.tp_config(D.TP_MOE_ARCH, "repro.configs")
     params = jax.tree.map(jnp.asarray, convert.random_lm_params(cfg, 0))
-    loss_fn = j_make_loss_fn(jbuild(cfg))
-    h = D.TP_B // 2
-
-    def ranks_loss(p, b):
-        halves = [{k: v[r * h:(r + 1) * h] for k, v in b.items()}
-                  for r in range(2)]
-        parts = [loss_fn(p, x)[1] for x in halves]
-        cs = [jnp.sum(x["labels"] >= 0).astype(jnp.float32) for x in halves]
-        ce = (cs[0] * parts[0][0] + cs[1] * parts[1][0]) / (cs[0] + cs[1])
-        aux = (parts[0][1] + parts[1][1]) / 2
-        return ce + aux, (ce, aux)
-    grad_fn = jax.jit(jax.value_and_grad(ranks_loss, has_aux=True))
-    opt_cfg, opt = JAdamW(**D.TP_OPT), j_adamw_init(params)
-    bs = [{k: jnp.asarray(v) for k, v in b.items()}
-          for b in D.tp_moe_batches(cfg.vocab_size)]
-    whole = float(jax.jit(loss_fn)(params, bs[0])[1][0])
-    metrics, g1 = [], None
-    for b in bs:
-        (loss, (ce, aux)), g = grad_fn(params, b)
-        g1 = g if g1 is None else g1
-        params, opt, om = j_adamw_update(opt_cfg, g, opt, params)
-        metrics.append({"loss": float(loss), "ce": float(ce),
-                        "aux": float(aux),
-                        **{k: float(v) for k, v in om.items()}})
-    return metrics, jax.device_get(params), jax.device_get(g1), whole
+    b = {k: jnp.asarray(v) for k, v in D.tp_batches(cfg.vocab_size)[0]
+         .items()}
+    out = {}
+    for world, (n, model) in WORLDS.items():
+        with _local_estimates(n // model, model):
+            (_, (_, aux)), g = jax.jit(jax.value_and_grad(
+                j_make_loss_fn(jbuild(cfg)), has_aux=True))(params, b)
+        out[world] = (float(aux),
+                      np.asarray(g["blocks"]["moe"]["router"]))
+    return out
 
 
 def _pairs(a, b):
@@ -198,38 +316,207 @@ def test_partitioned_steps_match_one_rank(worlds, jax_runs, arch, world):
             np.testing.assert_array_equal(a, b)
 
 
-def test_data_parallel_moe_step_weights_only_the_ce(worlds, jax_moe_runs):
-    """qwen3-moe smoke's data-parallel step (each leaf gathered whole) on
-    2 x 2, its data ranks masking about 0.46 and 0.1 of their labels:
-    every rank's metrics and final weights are those of JAX's steps of the
-    loss the step means (``jax_moe_runs``: the CE weighted by each rank's
-    unmasked labels, the load-balancing terms 1 / 2 each), at
-    test_torch_train's tolerances and aux rtol 1e-5; step 1's CE is JAX's
-    over the whole batch."""
-    jm, jp, g1, whole = jax_moe_runs
-    for rank in worlds["2x2"]:
-        r = rank["moe"][D.TP_MOE_ARCH]
-        assert r["step"] == D.TP_STEPS
-        np.testing.assert_allclose(r["metrics"][0]["ce"], whole, rtol=2e-6)
-        for want, got in zip(jm, r["metrics"]):
-            assert want["aux"] > 0
-            for k, rtol in (("loss", 2e-6), ("ce", 2e-6), ("aux", 1e-5),
-                            ("grad_norm", 1e-5), ("lr", 1e-6)):
+def _check_metrics(want_metrics, got_metrics, aux=True):
+    """Each step's metrics at test_torch_train's tolerances (aux rtol
+    1e-5, where it is compared)."""
+    for want, got in zip(want_metrics, got_metrics):
+        for k, rtol in (("loss", 2e-6), ("ce", 2e-6), ("aux", 1e-5),
+                        ("grad_norm", 1e-5), ("lr", 1e-6)):
+            if k != "aux" or aux:
                 np.testing.assert_allclose(got[k], want[k], rtol=rtol,
                                            err_msg=k)
+
+
+def test_data_parallel_moe_step_weights_only_the_ce(worlds, jax_moe_runs):
+    """qwen3-moe smoke's step under gmm with its state placed on 2 x 2 (the
+    partitioned step: each rank its experts), its data ranks masking about
+    0.46 and 0.1 of their labels: every rank's metrics and final weights
+    are those of JAX's steps of the loss the step means
+    (``jax_moe_runs``: the CE weighted by each rank's unmasked labels, the
+    load-balancing terms 1 / 2 each), at test_torch_train's tolerances and
+    aux rtol 1e-5; step 1's CE is JAX's over the whole batch."""
+    jm, jp, g1, whole = jax_moe_runs[f"{D.TP_MOE_ARCH}/gmm"]
+    for rank in worlds["2x2"]:
+        r = rank["moe"][f"{D.TP_MOE_ARCH}/gmm"]
+        assert r["step"] == D.TP_STEPS
+        np.testing.assert_allclose(r["metrics"][0]["ce"], whole, rtol=2e-6)
+        assert all(want["aux"] > 0 for want in jm)
+        _check_metrics(jm, r["metrics"])
+        _check_weights(jp, r["params"], g1, 5e-5)
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+@pytest.mark.parametrize("run", MOE_RUNS)
+def test_moe_partitioned_steps_match_jax(worlds, jax_moe_plain,
+                                         jax_moe_runs, run, world):
+    """Three float32 steps of each MoE smoke config under gmm and dense,
+    the state placed on the world's mesh (each rank its experts, the
+    router whole), against JAX's steps of the same ``moe_impl`` from the
+    same weights: every rank's metrics, final weights (and at one data
+    rank the first moments); at 2 x 2 JAX's steps of the two data ranks'
+    loss on unequal masks (``jax_moe_runs``)."""
+    if world == "2x2":
+        jm, jp, g1, _ = jax_moe_runs[run]
+        jmu = None
+    else:
+        jm, jp, jmu, g1 = jax_moe_plain[run]
+    for rank in worlds[world]:
+        r = rank["moe"][run]
+        assert r["step"] == D.TP_STEPS
+        _check_metrics(jm, r["metrics"])
+        _check_weights(jp, r["params"], g1, 5e-5)
+        for path, a, b in (_pairs(jmu, r["mu"]) if jmu is not None else ()):
+            np.testing.assert_allclose(b, a, rtol=1e-4,
+                                       atol=1e-5 * np.abs(a).max(),
+                                       err_msg=path)
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+@pytest.mark.parametrize("run", MOE_RUNS)
+def test_moe_partitioned_steps_match_one_rank(worlds, jax_moe_plain,
+                                              jax_moe_runs, run, world):
+    """The same steps against the port's at model 1 over the same data
+    ranks (``MOE_TP1``): float32 round-off apart (``TP1_RTOL``), the
+    experts' sums over the model axis included; the ranks of a world
+    agree bit for bit."""
+    where, part = MOE_TP1[world]
+    base = worlds[where][0][part][run]
+    g1 = jax_moe_runs[run][2] if world == "2x2" else jax_moe_plain[run][3]
+    first = worlds[world][0]["moe"][run]
+    for rank in worlds[world]:
+        r = rank["moe"][run]
+        for want, got in zip(base["metrics"], r["metrics"]):
+            for k in ("loss", "ce", "aux", "grad_norm"):
+                np.testing.assert_allclose(
+                    got[k], want[k], rtol=TP1_RTOL.get(k, TP1_RTOL["loss"]),
+                    err_msg=k)
+            assert got["lr"] == want["lr"]
+        _check_weights(base["params"], r["params"], g1, TP1_RTOL["w"])
+        assert r["metrics"] == first["metrics"]
+        for _, a, b in _pairs(first["params"], r["params"]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("run", MOE_RUNS)
+def test_moe_router_gradient_is_tp1s(worlds, run):
+    """At (1, 2), the router's step-1 gradient taken in the partitioned
+    region (the router run alike on both ranks, the combine weights of
+    each rank's experts entering the region) equals tp 1's, to
+    ``TP1_RTOL``'s weights' bound of the largest."""
+    for rank in worlds["1x2"]:
+        g = rank["moe_parts"][run]
+        np.testing.assert_allclose(g["region"], g["tp1"], rtol=0,
+                                   atol=TP1_RTOL["w"]
+                                   * np.abs(g["tp1"]).max())
+
+
+def test_shared_experts_on_a_ranks_blocks_are_tp1s(worlds):
+    """moonshot's two shared experts (one MLP 2 x d_ff wide) on a rank's
+    blocks at (1, 2) (d_ff columns each: the width of ``cfg.d_ff``, which
+    must not be taken for the whole leaf) give tp 1's output."""
+    cfg = D.tp_config("moonshot-v1-16b-a3b")
+    width = cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+    for rank in worlds["1x2"]:
+        p = rank["moe_parts"]
+        assert p["shared_block"] == (width // 2, cfg.d_model) == (
+            cfg.d_ff, cfg.d_model)
+        np.testing.assert_allclose(p["shared"], p["shared_tp1"], rtol=1e-5,
+                                   atol=1e-6 * np.abs(p["shared_tp1"]).max())
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_a2a_partitioned_steps_match_jax_gmm(worlds, jax_moe_plain, world):
+    """qwen3-moe's partitioned step under a2a at ample capacity (nothing
+    drops, so the a2a is the dropless gmm) without a load-balancing term
+    (the a2a's is the ranks' local estimates, not gmm's global one):
+    every rank's metrics and final weights are JAX's gmm steps' (1 x 1:
+    the body at model 1, no all-to-all)."""
+    jm, jp, jmu, g1 = jax_moe_plain["a2a"]
+    for rank in worlds[world]:
+        r = rank["moe"]["a2a"]
+        assert all(m["aux"] == 0 for m in r["metrics"])
+        _check_metrics(jm, r["metrics"], aux=False)
         _check_weights(jp, r["params"], g1, 5e-5)
 
 
 @pytest.mark.parametrize("world", list(WORLDS))
-@pytest.mark.parametrize("arch", D.TP_ARCHS)
+def test_a2a_load_balance_term_is_the_mean_of_local_estimates(
+        worlds, jax_a2a_local, world):
+    """The a2a's load-balancing term at step 1 is the mean of the ranks'
+    local estimates (JAX's ``pmean`` over the data and model axes:
+    ``jax_a2a_local``), and at (1, 2) the router's gradient in the region
+    is JAX's gradient of that loss (the term counted once: every model
+    rank carries the loss whole)."""
+    aux, g_router = jax_a2a_local[world]
+    for rank in worlds[world]:
+        np.testing.assert_allclose(rank["moe"]["a2a_aux"]["metrics"][0]
+                                   ["aux"], aux, rtol=A2A_AUX_RTOL)
+    if world == "1x2":
+        for rank in worlds[world]:
+            np.testing.assert_allclose(
+                rank["moe_parts"]["a2a"], g_router, rtol=0,
+                atol=A2A_GRAD_ATOL * np.abs(g_router).max())
+
+
+def _golden(tag):
+    with open(os.path.join(os.path.dirname(__file__), "torch_goldens",
+                           "moe_a2a.json")) as f:
+        return json.load(f)["cases"][tag]
+
+
+def _f32(s, shape):
+    return np.frombuffer(base64.b64decode(s), "<f4").reshape(shape)
+
+
+@pytest.mark.parametrize("tag", ["ample", "tight", "grad", "t7"])
+def test_a2a_layer_on_a_ranks_blocks_is_jax_a2a(worlds, tag):
+    """moe_a2a inside a partitioned region of 2 x 2, on each rank's blocks
+    (its data rank's rows, its model rank's experts), against JAX's
+    moe_a2a under a 2 x 2 mesh (tests/torch_goldens/moe_a2a.json, as
+    tests/test_torch_moe_a2a.py holds the global path): the output rows
+    to 1e-5, the aux to 1e-6 (tight: tokens dropped by each rank's own
+    order), and the gradients of ``sum(y^2) + aux`` (the rank's blocks of
+    JAX's) to 1e-5 of the largest."""
+    g = _golden(tag)
+    B, E = D.MOE["B"], D.MOE["E"]
+    for r, rank in enumerate(worlds["2x2"]):
+        d, m = divmod(r, 2)
+        got = rank["a2a_region"][tag]
+        y = got["y"]
+        rows = slice(d * y.shape[0], (d + 1) * y.shape[0])
+        want = _f32(g["y"], (B,) + y.shape[1:])[rows]
+        np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5)
+        assert abs(float(got["aux"]) - g["aux"]) <= 1e-6
+        for name, v in got.get("grads", {}).items():
+            if name == "router":
+                w = _f32(g["grads"][name], v.shape)
+            elif name == "x":
+                w = _f32(g["grads"][name], (B,) + v.shape[1:])[rows]
+            else:
+                n = v.shape[0]
+                w = _f32(g["grads"][name], (E,) + v.shape[1:])[
+                    m * n:(m + 1) * n]
+            np.testing.assert_allclose(v, w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=f"{tag} d/d{name}")
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+@pytest.mark.parametrize("arch", D.TP_ARCHS + D.TP_MOE_ARCHS)
 def test_blocks_have_jax_shard_shapes(worlds, arch, world):
     """Each rank holds only its blocks: every parameter leaf at
     ``NamedSharding(mesh, param_specs).shard_shape`` and every moment at
     that of ``zero_specs`` (also cut over 'data'), JAX's specs on an
-    abstract mesh of the world's shape."""
+    abstract mesh of the world's shape; the MoE's experts E / model a
+    rank."""
     n, model = WORLDS[world]
     mesh = AbstractMesh((n // model, model), ("data", "model"))
     cfg = D.tp_config(arch, "repro.configs")
+    moe = cfg.moe is not None
+
+    def local(rank):
+        return (rank["moe"][f"{arch}/gmm"] if moe else
+                rank["train"][arch])["local"]
     shapes = jax.eval_shape(jbuild(cfg).init_params, jax.random.PRNGKey(0))
     pspecs = JS.param_specs(shapes, model_divisor=model)
     zspecs = JS.zero_specs(pspecs, shapes, mesh)
@@ -241,7 +528,7 @@ def test_blocks_have_jax_shard_shapes(worlds, arch, world):
             is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
     wp, wz = want(pspecs), want(zspecs)
     for rank in worlds[world]:
-        got_p, got_mu = rank["train"][arch]["local"]
+        got_p, got_mu = local(rank)
         for (path, a), (_, b) in zip(leaves_with_paths(wp),
                                      leaves_with_paths(got_p)):
             assert tuple(a) == tuple(b), path
@@ -249,9 +536,18 @@ def test_blocks_have_jax_shard_shapes(worlds, arch, world):
                                      leaves_with_paths(got_mu)):
             assert tuple(a) == tuple(b), path
     if model > 1:
-        # the attention's and the MLP's blocks, the vocabulary's
-        got_p = worlds[world][0]["train"][arch]["local"][0]
-        assert got_p["blocks"]["mlp"]["wd"][1] == cfg.d_ff // model
+        # the attention's and the MLP's (or the experts') blocks, the
+        # vocabulary's
+        got_p = local(worlds[world][0])[0]
+        if moe:
+            m = cfg.moe
+            assert got_p["blocks"]["moe"]["wg"][1] == m.num_experts // model
+            assert got_p["blocks"]["moe"]["router"][2] == m.num_experts
+            if m.num_shared_experts:
+                assert got_p["blocks"]["moe"]["shared"]["wd"][1] == (
+                    m.d_ff_expert * m.num_shared_experts // model)
+        else:
+            assert got_p["blocks"]["mlp"]["wd"][1] == cfg.d_ff // model
         assert got_p["embed"][0] == cfg.vocab_size // model
 
 
@@ -341,12 +637,13 @@ def test_global_norm_without_blocks_is_unchanged():
 
 
 def test_the_port_runs_the_dense_family_partitioned():
-    """The dense family takes the partitioned step; the others keep the
-    data-parallel one (ROADMAP queue 1)."""
+    """The dense and MoE families take the partitioned step; the others
+    keep the data-parallel one (ROADMAP queue 1)."""
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.train.step import PARTITIONED_FAMILIES
 
     dense = [a for a in ARCHS if get_config(a).family in PARTITIONED_FAMILIES]
-    assert dense == ["qwen2-0.5b", "qwen3-0.6b", "olmo-1b", "yi-9b"]
+    assert dense == ["qwen2-0.5b", "qwen3-0.6b", "olmo-1b", "yi-9b",
+                     "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b"]
     # yi's untied head is cut by vocabulary as the tied embedding is
     assert D.tp_config("yi-9b").tie_embeddings is False

@@ -297,18 +297,16 @@ def case_train(rank, world, tp, dtype="bfloat16", microbatches=1):
 def case_train_a2a(rank, world):
     """qwen3-moe smoke in float32 under ``moe_impl="a2a"`` on a 2 x 2 mesh,
     two steps of one seeded 4 x 16 batch: the state placed (the launcher's
-    step) and plain (global arrays, as JAX's), at the model's capacity
-    factor; placed again at ample capacity (E / k: nothing drops), and the
-    gmm step without a mesh.  Each run's losses, cross-entropies and final
-    parameters."""
+    step: the partitioned one) and plain (global arrays, as JAX's), at the
+    model's capacity factor; placed again at ample capacity (E / k:
+    nothing drops), and the gmm step without a mesh.  Each run's losses,
+    cross-entropies and final parameters."""
     import contextlib
     import dataclasses
-    import functools
 
     import torch
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.distributed import moe_a2a as A
     from repro_torch.distributed import sharding as S
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build
@@ -340,13 +338,8 @@ def case_train_a2a(rank, world):
                 "params": S.gather_full(state.params)}
 
     out = {"placed": run("a2a", True), "global": run("a2a", False)}
-    orig = A.moe_a2a
-    A.moe_a2a = functools.partial(
-        orig, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
-    try:
+    with A2AFactor(cfg.moe.num_experts / cfg.moe.top_k):
         out["ample"] = run("a2a", True)
-    finally:
-        A.moe_a2a = orig
     out["gmm"] = run("gmm", False, on_mesh=False)
     return _np(out)
 
@@ -359,14 +352,22 @@ TP_STEPS, TP_B, TP_T = 3, 4, 48
 TP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
-def tp_config(arch, configs="repro_torch.configs"):
+def tp_config(arch, configs="repro_torch.configs", **moe):
     """``arch``'s smoke config in float32, from ``configs`` (the port's
-    ``repro_torch.configs`` or JAX's ``repro.configs``)."""
+    ``repro_torch.configs`` or JAX's ``repro.configs``); moonshot's with
+    two shared experts, so that their MLP is 2 x d_ff wide as in the full
+    config; ``moe``: other MoEConfig fields replaced."""
     import dataclasses
     import importlib
 
     mod = importlib.import_module(configs)
-    return dataclasses.replace(mod.get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(mod.get_smoke_config(arch), dtype="float32")
+    if arch == "moonshot-v1-16b-a3b":
+        moe = dict(num_shared_experts=2, **moe)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
 
 
 def tp_batches(vocab):
@@ -388,9 +389,14 @@ def tp_batches(vocab):
     return out
 
 
-#: The MoE family's data-parallel case (its state placed, each leaf
-#: gathered whole): qwen3-moe smoke on tp_moe_batches.
+#: The MoE family's partitioned cases: both MoE archs (moonshot with two
+#: shared experts, ``tp_config``) under each ``moe_impl`` of the
+#: trainer's; at two data ranks on tp_moe_batches.  The a2a runs
+#: qwen3-moe at ample capacity (``TP_A2A_FACTOR``: nothing drops).
 TP_MOE_ARCH = "qwen3-moe-30b-a3b"
+TP_MOE_ARCHS = (TP_MOE_ARCH, "moonshot-v1-16b-a3b")
+TP_MOE_IMPLS = ("gmm", "dense")
+TP_A2A_FACTOR = 8.0
 
 
 def tp_moe_batches(vocab):
@@ -405,43 +411,216 @@ def tp_moe_batches(vocab):
     return out
 
 
-def case_tp_train(rank, world, model, archs=TP_ARCHS, uneven=False):
-    """Each arch's TP_STEPS float32 steps with the state placed on the
-    (world / model, model) host mesh, on tp_batches (``uneven``:
-    tp_moe_batches): every step's metrics, the final weights and moments
-    gathered whole, and the shapes of this rank's blocks of the parameters
-    and moments."""
+def tp_params(cfg):
+    """``convert.random_lm_params(cfg, 0)`` (JAX's tree, drawn by numpy)
+    as the port's CPU tensors."""
+    from repro_torch import convert
+
+    return convert.lm_params_from_jax(convert.random_lm_params(cfg, 0), cfg,
+                                      "cpu")
+
+
+def tp_steps(cfg, mesh, bs, moe_impl="gmm"):
+    """float32 steps of ``cfg`` from :func:`tp_params` with the state
+    placed on ``mesh``, one a batch of ``bs``: every step's metrics, the
+    final weights and moments gathered whole, and the shapes of this
+    rank's blocks of the parameters and moments."""
     import torch
 
-    from repro_torch import convert
     from repro_torch.distributed import sharding as S
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import TrainState, make_train_step, place_state
+
+    params = tp_params(cfg)
+    state = TrainState(params, adamw_init(params),
+                       torch.zeros((), dtype=torch.int32))
+    step = make_train_step(build(cfg), AdamWConfig(**TP_OPT),
+                           moe_impl=moe_impl)
+    with S.set_mesh(mesh):
+        state = place_state(state, mesh)
+        metrics = []
+        for b in bs:
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        local = S._map_with_path(lambda _, x: tuple(x.to_local().shape),
+                                 (state.params, state.opt.mu))
+        full = S.gather_full((state.params, state.opt.mu))
+    return {"metrics": metrics, "params": full[0], "mu": full[1],
+            "local": local, "step": int(state.step)}
+
+
+def case_tp_train(rank, world, model, archs=TP_ARCHS, uneven=False):
+    """Each arch's TP_STEPS float32 steps (:func:`tp_steps`) on the
+    (world / model, model) host mesh, on tp_batches (``uneven``:
+    tp_moe_batches)."""
+    from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(model=model, device="cpu")
     out = {}
     for arch in archs:
         cfg = tp_config(arch)
-        params = convert.lm_params_from_jax(convert.random_lm_params(cfg, 0),
-                                            cfg, "cpu")
-        state = TrainState(params, adamw_init(params),
-                           torch.zeros((), dtype=torch.int32))
-        step = make_train_step(build(cfg), AdamWConfig(**TP_OPT))
-        with S.set_mesh(mesh):
-            state = place_state(state, mesh)
-            metrics = []
-            for b in (tp_moe_batches if uneven else tp_batches)(
-                    cfg.vocab_size):
-                state, m = step(state, {k: torch.from_numpy(v)
-                                        for k, v in b.items()})
-                metrics.append({k: float(v) for k, v in m.items()})
-            local = S._map_with_path(lambda _, x: tuple(x.to_local().shape),
-                                     (state.params, state.opt.mu))
-            full = S.gather_full((state.params, state.opt.mu))
-        out[arch] = {"metrics": metrics, "params": full[0], "mu": full[1],
-                     "local": local, "step": int(state.step)}
+        out[arch] = tp_steps(cfg, mesh, (tp_moe_batches if uneven else
+                                         tp_batches)(cfg.vocab_size))
+    return _np(out)
+
+
+class A2AFactor:
+    """While entered, the model's ``moe_a2a`` runs at capacity factor
+    ``factor`` (it calls it with the default 1.25, as JAX's does)."""
+
+    def __init__(self, factor):
+        self.factor = factor
+
+    def __enter__(self):
+        import functools
+
+        from repro_torch.distributed import moe_a2a as A
+
+        self.orig = A.moe_a2a
+        A.moe_a2a = functools.partial(self.orig, capacity_factor=self.factor)
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import moe_a2a as A
+
+        A.moe_a2a = self.orig
+
+
+def case_tp_moe(rank, world, model, uneven=False, a2a=True):
+    """The MoE family's partitioned steps on the (world / model, model)
+    host mesh: each of TP_MOE_ARCHS under each of TP_MOE_IMPLS
+    (:func:`tp_steps`, on tp_batches, ``uneven``: tp_moe_batches), keyed
+    ``arch/impl``; with ``a2a``, qwen3-moe under ``moe_impl="a2a"`` at
+    TP_A2A_FACTOR on tp_batches, its load-balancing term off (``a2a``),
+    and one step with it on (``a2a_aux``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {}
+    for arch in TP_MOE_ARCHS:
+        cfg = tp_config(arch)
+        bs = (tp_moe_batches if uneven else tp_batches)(cfg.vocab_size)
+        for impl in TP_MOE_IMPLS:
+            out[f"{arch}/{impl}"] = tp_steps(cfg, mesh, bs, impl)
+    if a2a:
+        with A2AFactor(TP_A2A_FACTOR):
+            cfg = tp_config(TP_MOE_ARCH, load_balance_coef=0.0)
+            out["a2a"] = tp_steps(cfg, mesh, tp_batches(cfg.vocab_size),
+                                  "a2a")
+            cfg = tp_config(TP_MOE_ARCH)
+            out["a2a_aux"] = tp_steps(cfg, mesh,
+                                      tp_batches(cfg.vocab_size)[:1], "a2a")
+    return _np(out)
+
+
+def tp_moe_step1(cfg, mesh, moe_impl):
+    """The gradients of qwen3-moe's loss on tp_batches' first batch at
+    :func:`tp_params`, taken as the partitioned step does (inside
+    ``sharding.partitioned(mesh)`` on this rank's blocks) at one data
+    rank, and without a mesh (tp 1)."""
+    import torch
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import build
+    from repro_torch.train.step import loss_and_grads, make_loss_fn
+
+    params = tp_params(cfg)
+    batch = {k: torch.from_numpy(v)
+             for k, v in tp_batches(cfg.vocab_size)[0].items()}
+    loss_fn = make_loss_fn(build(cfg), moe_impl)
+    specs = S.param_specs(params, model_divisor=S.mesh_shape(mesh)["model"])
+    local = S._map_with_path(
+        lambda path, x: S.local_block(x, mesh, S._at(specs, path)), params)
+    with S.partitioned(mesh):
+        region = loss_and_grads(loss_fn, local, batch)[3]
+    return region, loss_and_grads(loss_fn, params, batch)[3]
+
+
+def case_tp_moe_parts(rank, world, model):
+    """On the (1, model) host mesh: the router's step-1 gradient of both
+    MoE archs under gmm and dense, taken in the partitioned region and
+    at tp 1 (:func:`tp_moe_step1`); qwen3-moe's under a2a at TP_A2A_FACTOR
+    in the region; and moonshot's shared experts' output on this rank's
+    blocks of layer 0 in the region and whole without one."""
+    import torch
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {}
+    for arch in TP_MOE_ARCHS:
+        cfg = tp_config(arch)
+        for impl in TP_MOE_IMPLS:
+            region, whole = tp_moe_step1(cfg, mesh, impl)
+            out[f"{arch}/{impl}"] = {
+                "region": region["blocks"]["moe"]["router"],
+                "tp1": whole["blocks"]["moe"]["router"]}
+    with A2AFactor(TP_A2A_FACTOR):
+        region, _ = tp_moe_step1(tp_config(TP_MOE_ARCH), mesh, "a2a")
+    out["a2a"] = region["blocks"]["moe"]["router"]
+    cfg = tp_config("moonshot-v1-16b-a3b")
+    shared = {k: v[0] for k, v in
+              tp_params(cfg)["blocks"]["moe"]["shared"].items()}
+    specs = S.param_specs({"moe": {"shared": shared}}, model_divisor=model)
+    mine = {k: S.local_block(v, mesh, specs["moe"]["shared"][k])
+            for k, v in shared.items()}
+    xf = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (24, cfg.d_model), np.float32))
+    with S.partitioned(mesh):
+        out["shared"] = L.shared_experts(cfg, {"shared": mine}, xf)
+    out["shared_tp1"] = L.shared_experts(cfg, {"shared": shared}, xf)
+    out["shared_block"] = tuple(mine["wd"].shape)
+    return _np(out)
+
+
+def case_a2a_region(rank, world):
+    """moe_a2a inside a partitioned region of the 2 x 2 host mesh, on this
+    rank's blocks of test_moe_a2a's inputs (its data rank's rows of x, the
+    router whole, its model rank's experts): output and aux at capacity
+    factors 8.0 and 0.5, and the gradient of the global ``sum(y^2) +
+    aux`` (each data rank's share of it, the replicated leaves' gradients
+    summed over 'data') at 4.0 and at T 7 (which the model axis does not
+    divide).  The aux is the data ranks' mean."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.moe_a2a import moe_a2a
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common
+
+    cfg = moe_config(common=common)
+    mesh = make_host_mesh(model=2, device="cpu")
+    nd = S.mesh_shape(mesh)["data"]
+    dgroup = S.axis_group(mesh, "data")
+    out = {}
+    for tag, T, cf, grad in (("ample", None, 8.0, False),
+                             ("tight", None, 0.5, False),
+                             ("grad", None, 4.0, True),
+                             ("t7", 7, 8.0, True)):
+        pn, xn = moe_inputs(T)
+        p = {k: S.local_block(torch.from_numpy(v), mesh, S.P() if
+                              k == "router" else S.P("model"))
+             .clone().requires_grad_(grad) for k, v in pn.items()}
+        x = S.local_block(torch.from_numpy(xn), mesh, S.P("data")).clone() \
+            .requires_grad_(grad)
+        with S.partitioned(mesh):
+            y, aux = moe_a2a(cfg, p, x, capacity_factor=cf)
+            res = {"y": y.detach()}
+            if grad:
+                loss = torch.sum(torch.square(y)) + aux / nd
+                gs = dict(zip([*p, "x"], torch.autograd.grad(
+                    loss, [*p.values(), x])))
+                for k in p:         # replicated over 'data'
+                    dist.all_reduce(gs[k], group=dgroup)
+                res["grads"] = gs
+        aux = aux.detach().clone()
+        dist.all_reduce(aux, group=dgroup)
+        res["aux"] = aux / nd
+        out[tag] = res
     return _np(out)
 
 
@@ -603,7 +782,8 @@ CASES = {"collectives": case_collectives, "mesh": case_mesh,
          "moe_a2a": case_moe_a2a, "serve": case_serve, "train": case_train,
          "train_a2a": case_train_a2a, "dryrun": case_dryrun,
          "production": case_production, "tp_train": case_tp_train,
-         "tp_parts": case_tp_parts,
+         "tp_parts": case_tp_parts, "tp_moe": case_tp_moe,
+         "tp_moe_parts": case_tp_moe_parts, "a2a_region": case_a2a_region,
          "many": case_many}
 
 
