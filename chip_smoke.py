@@ -74,7 +74,9 @@ Phases (each prints a line; any failure exits non-zero):
 7. flash    — the flash-attention kernels vs their plain version on the
               card at qwen3-0.6b's and qwen2-0.5b's head shapes (B 1/8, T
               128/384/2048, causal or not, window 0/256, bf16 (wgmma
-              kernel) / f32 (FMA kernel), with/without LSE); times against
+              kernel) / f32 (FMA kernel), with/without LSE), and on
+              blocks of queries at an offset (FLASH_OFFSET: qwen2's at
+              T / 2 and 0, qwen3's at T / 4, both routes); times against
               bound, plain version and ``scaled_dot_product_attention``;
               T = 32,768 checked on its last 256 query rows; then
               recurrentgemma-2b's heads (MQA 10/1 of 256; B 1/8, T 200/
@@ -95,7 +97,9 @@ Phases (each prints a line; any failure exits non-zero):
               (14/2 of 64), whisper (12/12 of 64), olmo-1b (16/16 of 128)
               and qwen2-vl-2b (12/2 of 128); B 1/2; T 128/200/384/1000/
               2048; causal or not; window 0/256; and B 2 x T 4,096 causal;
-              bf16 (wgmma) / f32 (FMA)); times against bound, plain
+              bf16 (wgmma) / f32 (FMA)), and phase 7's blocks of queries
+              at an offset (the dk, dv of keys past the last query zero);
+              times against bound, plain
               version and the
               backward of ``scaled_dot_product_attention``, bf16 at B 1/8
               and f32 at B 1 x T 2048.
@@ -234,18 +238,23 @@ Phases (each prints a line; any failure exits non-zero):
               one all-to-all against a copy of its bytes; the a2a prefill
               profiled (device time by kernel group, idle share; 23b
               profiles gmm's); (d, e) the partitioned step at tp 2, two
-              ranks of a gloo world on the card: phase 11's float32
-              golden, then olmo-1b in bf16 at full width and depth beside
-              tp 1 (losses, grad norms, bytes and peak a rank, kernels 2
-              and 3 at 8 heads); (g) in the same ranks, the MoE family's
-              partitioned step (moe_impl gmm, each rank its experts):
-              qwen3-moe-30b-a3b and moonshot-v1-16b-a3b in bf16 at full
-              width, 2 of 48 layers, beside tp 1 routed alike (tp 1's
+              ranks of a gloo world on the card, sequence-parallel
+              residuals on: phase 11's float32 golden with context-
+              parallel attention (every head on the rank's half of the
+              positions, the float32 kernels at its query offset), then
+              olmo-1b in bf16 at full width and depth beside tp 1
+              (losses, grad norms, bytes, saved block inputs and peak a
+              rank, kernels 2 and 3 at 8 heads); (g) in the same ranks,
+              the MoE family's partitioned step (moe_impl gmm, each rank
+              its experts): qwen3-moe-30b-a3b and moonshot-v1-16b-a3b in
+              bf16 at full width, 2 of 48 layers, beside tp 1 routed
+              alike (tp 1's
               router log replayed; each expert set a rank's own router
               picks otherwise at a near tie), held as (e), kernels 2 and
-              3 at 16 and 8 heads; (f) qwen3-0.6b's, yi-9b's and
-              qwen3-moe-30b-a3b's train_4k dry runs beside the parent
-              tree's values.
+              3 at 16 and 8 heads, saved block inputs 1 / 2 of tp 1's;
+              (f) qwen3-0.6b's, yi-9b's, qwen3-moe-30b-a3b's and
+              qwen2-0.5b's train_4k dry runs beside the parent tree's
+              values (qwen2's on its busiest model rank).
 23. families — run last: the MoE, VLM and audio families at full width
               and depth in bf16, weights drawn on the card.  (a)
               ``serve.generate`` of qwen3-moe-30b-a3b (8 x 2,048 + 16,
@@ -2500,6 +2509,16 @@ def phase_learn(dev) -> dict:
 FLASH_HEADS = {"qwen3": (16, 8, 128), "qwen2": (14, 2, 64)}
 FLASH_BATCH, FLASH_T = (1, 8), (128, 384, 2048)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Kernels 2 (phase 7) and 3 (phase 10) on a block of queries at an offset
+# against every key (context-parallel attention: query row i at position
+# q_offset + i, keys from 0), both routes, B 1: (name, (H, Hkv, hd), Tq,
+# Tk, q_offset).  qwen2-0.5b's 14/2 of 64 at T / 2 (the second of two
+# blocks) and at 0 (the first: its last 1,024 keys no query reaches, so
+# the backward writes their dk, dv as zeros); qwen3's 16/8 of 128 at
+# T / 4 (the second of four blocks; keys past 1,024 unreached).
+FLASH_OFFSET = (("qwen2", (14, 2, 64), 1024, 2048, 1024),
+                ("qwen2", (14, 2, 64), 1024, 2048, 0),
+                ("qwen3", (16, 8, 128), 512, 2048, 512))
 # Timed at qwen3's heads, bf16, causal: (B, T).  Past FLASH_FULL_T only the
 # last FLASH_TAIL query rows are held to the plain version.
 FLASH_TIMED = ((1, 2048), (8, 2048), (1, 32768))
@@ -2624,6 +2643,33 @@ def phase_flash(dev) -> dict:
     print(f"[7 flash] kernel == plain version on {n} cases (heads "
           f"{FLASH_HEADS}; B {FLASH_BATCH}; T {FLASH_T}; causal or not; "
           f"window 0/256; bf16/f32; with/without LSE): max |err| bf16 "
+          f"{worst['bfloat16']:.3g} (tol 2e-2), f32 {worst['float32']:.3g} "
+          f"(tol 2e-5)", flush=True)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for (name, (H, Hkv, hd), Tq, Tk, off), dname, lse in itertools.product(
+            FLASH_OFFSET, ("bfloat16", "float32"), (False, True)):
+        dt = getattr(torch, dname)
+        q = torch.randn(1, Tq, H, hd, generator=g).to(dev, dt).transpose(1, 2)
+        k, v = [torch.randn(1, Tk, Hkv, hd, generator=g).to(dev, dt)
+                .transpose(1, 2) for _ in range(2)]
+        kw = dict(return_lse=lse, q_offset=off)
+        got = flash_attention_bhtd(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        if not lse:
+            got, want = (got,), (want,)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        check(err <= FLASH_TOL[dname],
+              f"flash attention {name} Tq={Tq} Tk={Tk} q_offset={off} "
+              f"{dname} lse={lse}: max |err| {err}")
+        worst[dname] = max(worst[dname], err)
+        n += 1
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    print(f"[7 flash] with a query offset (a block of queries against every "
+          f"key, causal): kernel == plain version on {n} cases "
+          f"({FLASH_OFFSET}; bf16/f32; with/without LSE): max |err| bf16 "
           f"{worst['bfloat16']:.3g} (tol 2e-2), f32 {worst['float32']:.3g} "
           f"(tol 2e-5)", flush=True)
 
@@ -2855,13 +2901,37 @@ def phase_flash_bwd(dev) -> dict:
                  f"causal={causal} window={window} {dname}", dname, got,
                  want, worst, hd64 if hd == 64 else max_abs)
         del q, k, v, do, o, lse, got, want
+    # a block of queries at an offset, against every key (FLASH_OFFSET):
+    # the key tiles past the last query get zero dk and dv
+    for (name, (H, Hkv, hd), Tq, Tk, off), dname in itertools.product(
+            FLASH_OFFSET, dtypes):
+        dt = getattr(torch, dname)
+        q, do = [torch.randn(1, Tq, H, hd, generator=g).to(dev, dt)
+                 .transpose(1, 2) for _ in range(2)]
+        k, v = [torch.randn(1, Tk, Hkv, hd, generator=g).to(dev, dt)
+                .transpose(1, 2) for _ in range(2)]
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True, q_offset=off)
+        got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, q_offset=off)
+        want = attention_bwd_ref(q, k, v, o, lse, do, q_offset=off)
+        where = (f"flash backward {name} ({H}/{Hkv} of {hd}) Tq={Tq} Tk={Tk} "
+                 f"q_offset={off} {dname}")
+        hold_bwd(where, dname, got, want, worst, hd64 if hd == 64 else
+                 max_abs)
+        if off + Tq < Tk:
+            check(all(not bool(x[:, :, off + Tq:].any()) for x in got[1:]),
+                  f"{where}: dk, dv of keys past the last query not zero")
+        del q, k, v, do, o, lse, got, want
+    cases += [(name, 1, Tq, True, 0, dname) for (name, _, Tq, _, _) in
+              FLASH_OFFSET for dname in dtypes]
     torch.cuda.synchronize()
     for dname in dtypes:
         max_abs[dname] = max(max_abs[dname], hd64[dname])
     print(f"[10 flash bwd] kernel == plain version on {len(cases)} cases "
           f"(heads {BWD_HEADS}; B {BWD_BATCH} x T {BWD_T}, causal or not, "
           f"window 0/256; and B {BWD_TRAIN_BT[0]} x T {BWD_TRAIN_BT[1]} "
-          f"causal; bf16/f32): max |err| f32 {worst['float32']:.3g} (tol "
+          f"causal; bf16/f32; and with a query offset, {FLASH_OFFSET}, "
+          f"the dk, dv of keys past the last query zero): max |err| f32 "
+          f"{worst['float32']:.3g} (tol "
           f"{BWD_F32_TOL} + {BWD_F32_TOL} x |ref|), bf16 "
           f"{worst['bfloat16']:.3g} of each gradient's max (tol "
           f"{BWD_BF16_TOL}); at head width 64, max |err| (absolute) f32 "
@@ -2958,14 +3028,16 @@ def attention_layers(cfg) -> int:
 
 
 def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
-                       tag="[11 train golden]", tol=TRAIN_TOL, mesh=None):
+                       tag="[11 train golden]", tol=TRAIN_TOL, mesh=None,
+                       fields=None):
     """[11 train golden] (and 19c, 22b, 24c) two float32 train steps vs
     JAX's, from the golden's weights ``tree`` (its ``num_layers`` cut
     applied), held to ``tol`` (TRAIN_TOL's keys).  Every reading is
     printed before the first one out of its tolerance fails the phase.
     With ``mesh`` (24c) the state is placed on it by ``shardings(mesh,
     param_specs(...))`` and the step is given ``grad_acc_specs =
-    zero_specs(...)``.  Returns the steps' metrics and the final weights
+    zero_specs(...)``; ``fields``: config fields replaced (24d's
+    ``cp_attention``).  Returns the steps' metrics and the final weights
     (on the card)."""
     import dataclasses
 
@@ -2987,7 +3059,8 @@ def phase_train_golden(dev, tree, golden="train_qwen3_0_6b.json",
     torch.backends.cudnn.allow_tf32 = False
     arch = gold["arch"]
     cut = {"num_layers": gold["num_layers"]} if "num_layers" in gold else {}
-    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut,
+                              **(fields or {}))
     check(cfg.remat and cfg.remat_save == "nothing", f"{arch} remats")
     bundle = build_model(cfg)
     params = convert.lm_params_from_jax(tree, cfg, dev)
@@ -4355,7 +4428,7 @@ def phase_recurrent_serve(dev, arch) -> dict:
 # over a fake world of 256 ranks on the 16 x 16 mesh, with probes, in child
 # processes beside the float32 goldens (they time nothing), for these cells.
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
-                ("yi-9b", "train_4k"))
+                ("yi-9b", "train_4k"), ("qwen2-0.5b", "train_4k"))
 # (b) This cell at the probe's depth (PROBE_DEPTHS[0] layers) counted on meta
 # and run on the card over the world of one: the card's FLOPs and bytes
 # equal to the meta count, its peak (max_memory_allocated above the level
@@ -6385,6 +6458,10 @@ def phase_mesh_launcher_step(dev, mesh) -> float:
 # tp_fault): 2.57e-4 clean; 0.735 with copy_to_model's gradient
 # all-reduce taken away (the losses then 0.092 off).
 TP_RANKS = 2
+# (d) runs context-parallel attention (cp_attention; qwen3's 16 heads
+# divide 2): each rank every head on its half of the golden's 128
+# positions, the second half at query offset 64 in the float32 kernels.
+TP_GOLDEN_FIELDS = {"cp_attention": True}
 TP_OLMO = "olmo-1b"
 TP_OLMO_STEPS = 3
 TP_OLMO_HEADS = 8
@@ -6421,6 +6498,29 @@ TP_DRYRUN_BEFORE = {
 # parent's.
 TP_DRYRUN_USEFUL_GAIN, TP_DRYRUN_PEAK_B = 4.0, 80e9
 TP_DRYRUN_MOE_FLOPS_SHARE = 1 / 8
+# (f) the same cells on the tree before sequence-parallel residuals and
+# context-parallel attention (commit 8b48f06, run on the CPU):
+# flops_per_device, peak_per_device, useful_flops_ratio, and kernel 2's
+# and kernel 3's FLOPs a device (the full program's count).
+TP_DRYRUN_PARENT = {
+    "qwen2-0.5b": (78354900320256.0, 1214877044, 0.1549308440799295,
+                   23095381327872, 28869226659840),
+    "qwen3-0.6b": (28118043590656.0, 1410081844, 0.520907942046557,
+                   3849230221312, 4811537776640),
+    "yi-9b": (310327224827904.0, 10321636404, 0.6992030683555078,
+              13197360758784, 16496700948480),
+    "qwen3-moe-30b-a3b": (1033827350740992.0, 30071111712,
+                          0.07230584318518363, 13197360758784,
+                          16496700948480)}
+# (f) the remat saves of the block inputs a rank that sequence
+# parallelism takes away (L x [2, 4,096, D] bf16 x 15 / 16: PERF.md's
+# prediction); each peak must fall by at least TP_SP_PEAK_SHARE of them.
+# qwen2-0.5b's kernels 2 and 3 on its busiest model rank (context-parallel
+# attention: 14 heads at model 16) at most TP_CP_KERNEL_SHARE of the
+# parent's FLOPs (its last query block reaches 0.121 of the pairs).
+TP_SP_SAVES = {"yi-9b": 3.020e9, "qwen3-0.6b": 0.440e9}
+TP_SP_PEAK_SHARE = 0.5
+TP_CP_KERNEL_SHARE = 0.15
 
 
 def tp_batches(vocab, n):
@@ -6461,19 +6561,83 @@ def tp_moe_config(arch):
     return dataclasses.replace(get_config(arch), num_layers=TP_MOE_LAYERS)
 
 
+class AttnCalls:
+    """While entered, the (query heads, query rows, query offset) of every
+    call of kernels 2 (``fwd``) and 3 (``bwd``) through the model's
+    wrapper (``ops``), as sorted lists of distinct tuples."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.calls = {"fwd": set(), "bwd": set()}
+        self._real = (ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd)
+
+        def wrap(key, fn):
+            def call(q, *a, **kw):
+                self.calls[key].add((q.shape[1], q.shape[2],
+                                     kw.get("q_offset", 0)))
+                return fn(q, *a, **kw)
+            return call
+        ops.flash_attention_bhtd = wrap("fwd", self._real[0])
+        ops.flash_attention_bwd_bhtd = wrap("bwd", self._real[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+
+        ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = self._real
+        self.calls = {k: sorted(v) for k, v in self.calls.items()}
+
+
+class SavedBlockInputs:
+    """While entered, the bytes autograd saves of the remat blocks' inputs
+    (the tensors ``models.lm`` hands ``torch.utils.checkpoint``): every
+    saved tensor seen by ``saved_tensors_hooks`` whose storage is one of
+    those inputs', each counted once (``bytes``; ``inputs``: the blocks
+    run).  It keeps addresses only, so it holds no tensor alive."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import lm
+
+        self._lm, self._real = lm, lm.checkpoint
+        self._inputs, self._saved = set(), set()
+
+        def checkpoint(fn, cfg, bp, x, *args, **kw):
+            self._inputs.add(x.data_ptr())
+            self.inputs += 1
+            return self._real(fn, cfg, bp, x, *args, **kw)
+
+        def pack(t):
+            self._saved.add((t.data_ptr(), t.untyped_storage().nbytes()))
+            return t
+        self.inputs = 0
+        lm.checkpoint = checkpoint
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            pack, lambda t: t)
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._hooks.__exit__(*exc)
+        self._lm.checkpoint = self._real
+        self.bytes = sum(n for p, n in self._saved if p in self._inputs)
+
+
 def tp_train_steps(dev, cfg, n_steps, mesh=None):
     """``n_steps`` bf16 steps of ``cfg`` (make_train_step, the cuda
     executor, moe_impl gmm) from init_train_state(seed 0), placed on
     ``mesh`` when given, on tp_batches: per-step losses, grad norms and
     host walls (each ending in a read of the loss), the state's bytes,
-    the peak, and kernels 2 and 3's launches a step and the head counts
-    they ran at."""
+    the peak, the block inputs' bytes saved in step 1
+    (:class:`SavedBlockInputs`), and kernels 2 and 3's launches a step and
+    the head counts they ran at."""
     import torch
 
     from repro_torch.distributed import sharding
     from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
                                                      flash_attention_bwd_bhtd)
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import build as build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import init_train_state, make_train_step
@@ -6493,46 +6657,36 @@ def tp_train_steps(dev, cfg, n_steps, mesh=None):
     step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
                                                total_steps=n_steps),
                            executor="cuda")
-    heads = {"fwd": set(), "bwd": set()}
-    real = (ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd)
-
-    def fwd(q, *a, **kw):
-        heads["fwd"].add(q.shape[1])
-        return real[0](q, *a, **kw)
-
-    def bwd(q, *a, **kw):
-        heads["bwd"].add(q.shape[1])
-        return real[1](q, *a, **kw)
     batches = [{k: v.to(dev) for k, v in b.items()}
                for b in tp_batches(cfg.vocab_size, n_steps)]
-    ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = fwd, bwd
     losses, gnorms, walls, per_step = [], [], [], []
-    try:
+    saved = SavedBlockInputs()          # step 1's
+    with AttnCalls() as calls:
         torch.cuda.reset_peak_memory_stats()
-        for b in batches:
+        for i, b in enumerate(batches):
             n0 = (flash_attention_bhtd.launches,
                   flash_attention_bwd_bhtd.launches)
             torch.cuda.synchronize()
             t = time.perf_counter()
             with (sharding.set_mesh(mesh) if mesh is not None
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), \
+                    (saved if i == 0 else contextlib.nullcontext()):
                 state, m = step(state, b)
             losses.append(float(m["loss"]))
             walls.append((time.perf_counter() - t) * 1e3)
             gnorms.append(float(m["grad_norm"]))
             per_step.append((flash_attention_bhtd.launches - n0[0],
                              flash_attention_bwd_bhtd.launches - n0[1]))
-    finally:
-        ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = real
     peak = torch.cuda.max_memory_allocated()
     del state, batches
     torch.cuda.empty_cache()
     return {"losses": losses, "grad_norms": gnorms, "step_ms": walls,
             "param_bytes": pbytes, "moment_bytes": mbytes,
             "init_s": init_s, "init_peak": init_peak, "peak": peak,
-            "launches": per_step, "heads": {k: sorted(v)
-                                            for k, v in heads.items()},
-            "layers": cfg.num_layers, "num_heads": cfg.num_heads}
+            "launches": per_step, "heads": {k: sorted({c[0] for c in v})
+                                            for k, v in calls.calls.items()},
+            "saved": (saved.bytes, saved.inputs), "layers": cfg.num_layers,
+            "num_heads": cfg.num_heads}
 
 
 class RouterCalls:
@@ -6637,12 +6791,14 @@ def tp_rank_main(rank, store, out):
         t0 = time.perf_counter()
         tree = load_tree(os.path.join(os.path.dirname(store), "tree"))
         n0 = (flash_attention_bhtd.launches, flash_attention_bwd_bhtd.launches)
-        gold = phase_train_golden(dev, tree, tag=f"[24 mesh] (d) rank {rank}",
-                                  mesh=mesh)
+        with AttnCalls() as calls:
+            gold = phase_train_golden(dev, tree,
+                                      tag=f"[24 mesh] (d) rank {rank}",
+                                      mesh=mesh, fields=TP_GOLDEN_FIELDS)
         res["d"] = {"metrics": gold["metrics"], "shares": gold["shares"],
                     "launches": [flash_attention_bhtd.launches - n0[0],
                                  flash_attention_bwd_bhtd.launches - n0[1]],
-                    "s": time.perf_counter() - t0}
+                    "calls": calls.calls, "s": time.perf_counter() - t0}
         del tree, gold
         t0 = time.perf_counter()
         res["e"] = olmo_steps(dev, mesh)
@@ -6717,6 +6873,24 @@ class MeshTP:
             shutil.rmtree(self.dir, ignore_errors=True)
 
 
+def check_saved(where, saved, tp1_saved):
+    """A rank's block inputs saved in step 1 (:class:`SavedBlockInputs`:
+    bytes, blocks) are exactly 1 / TP_RANKS of tp 1's (the residual stream
+    cut by sequence), over as many blocks."""
+    check(saved[1] == tp1_saved[1] and saved[0] * TP_RANKS == tp1_saved[0]
+          and saved[0] > 0,
+          f"{where}: a rank saved {saved[0]} B of {saved[1]} block inputs, "
+          f"tp 1 {tp1_saved[0]} B of {tp1_saved[1]}: not 1 / {TP_RANKS}")
+
+
+def saved_line(r, tp1) -> str:
+    """The block inputs a rank saved against tp 1's, for the prints."""
+    return (f"block inputs saved for the backward {r['saved'][0]} B "
+            f"({r['saved'][0] / tp1['saved'][0]:.4f} of tp 1's "
+            f"{tp1['saved'][0]} B over {tp1['saved'][1]} blocks; 1 / "
+            f"{TP_RANKS} = {1 / TP_RANKS:.4f})")
+
+
 def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
     """[24 mesh] (d, e) the ranks' readings (``outs``, their logs in
     ``d``) held and printed beside phase 11's and tp 1's."""
@@ -6744,6 +6918,19 @@ def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
     vs11 = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
                zip(r0["d"]["metrics"], p11_metrics)
                for k in ("loss", "ce", "grad_norm"))
+    # context-parallel: every head on the rank's block of the positions at
+    # its query offset (and the whole sequence in the gradient check that
+    # the golden takes first, without the mesh)
+    with open(os.path.join(ROOT, "tests", "torch_goldens",
+                           "train_qwen3_0_6b.json")) as f:
+        T = json.load(f)["seq"]
+    n = T // TP_RANKS
+    for rank, r in enumerate(ranks):
+        for key in ("fwd", "bwd"):
+            want = sorted([(16, n, rank * n), (16, T, 0)])
+            check([tuple(c) for c in r["d"]["calls"][key]] == want,
+                  f"[24 mesh] (d) rank {rank}: kernel {key} calls (heads, "
+                  f"rows, offset) {r['d']['calls'][key]}, expected {want}")
     print(f"[24 mesh] (d) qwen3-0.6b float32 (TF32 off, remat, 28 layers) "
           f"two partitioned steps at tp {TP_RANKS} (a (1, {TP_RANKS}) mesh "
           f"of {TP_RANKS} processes on the one card, gloo) vs "
@@ -6751,9 +6938,13 @@ def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
           + ", ".join(f"{k} {v[0]:.3g} / {v[1]} = {v[0] / v[1]:.3f}"
                       for k, v in r0["d"]["shares"].items())
           + f"; loss, ce and grad norm {vs11:.3g} (relative) from phase "
-          f"11's tp 1 steps; kernels 2 and 3 launched "
-          f"{r0['d']['launches']} times a rank (FMA route); "
-          f"{r0['d']['s']:.1f} s a rank; {card}", flush=True)
+          f"11's tp 1 steps; context-parallel attention "
+          f"({TP_GOLDEN_FIELDS}): kernels 2 and 3 launched "
+          f"{r0['d']['launches']} times a rank (FMA route), (heads, query "
+          f"rows, query offset) "
+          + ", ".join(f"rank {i} {r['d']['calls']['fwd']}"
+                      for i, r in enumerate(ranks))
+          + f"; {r0['d']['s']:.1f} s a rank; {card}", flush=True)
     # (e) olmo-1b at tp 2 against tp 1
     e0 = ranks[0]["e"]
     check(all(r["e"]["losses"] == e0["losses"] for r in ranks),
@@ -6787,6 +6978,7 @@ def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
               f"expected ({2 * L}, {L})")
         check(e["heads"] == {"fwd": [TP_OLMO_HEADS], "bwd": [TP_OLMO_HEADS]},
               f"[24 mesh] (e) kernels 2 and 3 ran at heads {e['heads']}")
+        check_saved(f"[24 mesh] (e) {TP_OLMO}", e["saved"], tp1["saved"])
     check(tp1["heads"] == {"fwd": [tp1["num_heads"]],
                            "bwd": [tp1["num_heads"]]},
           f"[24 mesh] (e) tp 1's kernels ran at heads {tp1['heads']}")
@@ -6811,9 +7003,9 @@ def phase_mesh_tp(d, outs, codes, tp1, p11_metrics, took, waited) -> dict:
               f"{r['e']['init_peak'] / 1e9:.2f} GB, drawn in "
               f"{r['e']['init_s']:.1f} s), kernel 2, 3 launches a step "
               f"{r['e']['launches'][0]} at {r['e']['heads']['fwd']} of "
-              f"{r['e']['num_heads']} heads, step ms "
-              f"{[round(x, 1) for x in r['e']['step_ms']]} (host-staged "
-              f"collectives)" for i, r in enumerate(ranks))
+              f"{r['e']['num_heads']} heads, {saved_line(r['e'], tp1)}, "
+              f"step ms {[round(x, 1) for x in r['e']['step_ms']]} "
+              f"(host-staged collectives)" for i, r in enumerate(ranks))
           + f"; tp 1: peak {tp1['peak'] / 1e9:.2f} GB, step ms "
           f"{[round(x, 1) for x in tp1['step_ms']]}, kernel 2, 3 launches "
           f"a step {tp1['launches'][0]} at {tp1['heads']['fwd']} heads; "
@@ -6871,6 +7063,7 @@ def phase_mesh_moe_tp(outs, tp1, tp1_s) -> dict:
             check(g["heads"] == {"fwd": [nq], "bwd": [nq]},
                   f"[24 mesh] (g) {arch}: kernels 2 and 3 ran at heads "
                   f"{g['heads']}, the rank's {nq}")
+            check_saved(f"[24 mesh] (g) {arch}", g["saved"], t1["saved"])
         check(t1["heads"] == {"fwd": [cfg.num_heads],
                               "bwd": [cfg.num_heads]},
               f"[24 mesh] (g) {arch}: tp 1's kernels ran at heads "
@@ -6911,7 +7104,8 @@ def phase_mesh_moe_tp(outs, tp1, tp1_s) -> dict:
                   f"a near tie (largest ratio {r[arch]['flips'][1]:.4g}, "
                   f"limit 1), kernel 2, 3 launches a step "
                   f"{r[arch]['launches'][0]} at {r[arch]['heads']['fwd']} "
-                  f"of {cfg.num_heads} heads, step ms "
+                  f"of {cfg.num_heads} heads, {saved_line(r[arch], t1)}, "
+                  f"step ms "
                   f"{[round(x, 1) for x in r[arch]['step_ms']]}"
                   for i, r in enumerate(ranks))
               + f"; tp 1: peak {t1['peak'] / 1e9:.2f} GB, step ms "
@@ -6938,17 +7132,43 @@ def nvidia_card() -> str:
 
 def phase_mesh_dryrun(res) -> None:
     """[24 mesh] (f) 25a's dry runs of the partitioned cells beside what
-    the parent tree printed (TP_DRYRUN_BEFORE), held to
-    TP_DRYRUN_USEFUL_GAIN and TP_DRYRUN_PEAK_B."""
-    for arch, (flops, peak, useful) in TP_DRYRUN_BEFORE.items():
+    the trees before the partitioned step (TP_DRYRUN_BEFORE) and before
+    sequence and context parallelism (TP_DRYRUN_PARENT) printed, held to
+    TP_DRYRUN_USEFUL_GAIN, TP_DRYRUN_PEAK_B, TP_SP_PEAK_SHARE and
+    TP_CP_KERNEL_SHARE."""
+    for arch, parent in TP_DRYRUN_PARENT.items():
         r = res[arch]
+        flops, peak, useful = TP_DRYRUN_BEFORE.get(arch, parent[:3])
+        k = r["kernels"]
+        kf = (k["flash_attention_bhtd"]["flops"],
+              k["flash_attention_bwd_bhtd"]["flops"])
         print(f"[24 mesh] (f) {arch} train_4k on meta at 16 x 16 (fake "
-              f"world of 256), the partitioned step: flops_per_device "
-              f"{r['flops_per_device']:.6g} (before {flops:.6g}), "
-              f"peak_per_device {r['memory']['peak_per_device']} B "
-              f"(before {peak}), useful FLOP share "
-              f"{r['useful_flops_ratio']:.4f} (before {useful:.4f})",
+              f"world of 256, model rank {r['model_index']}), the "
+              f"partitioned step: flops_per_device "
+              f"{r['flops_per_device']:.6g} (parent {parent[0]:.6g}; "
+              f"before the partitioned step {flops:.6g}), peak_per_device "
+              f"{r['memory']['peak_per_device']} B (parent {parent[1]}; "
+              f"before {peak}), useful FLOP share "
+              f"{r['useful_flops_ratio']:.4f} (parent {parent[2]:.4f}; "
+              f"before {useful:.4f}), kernel 2 and 3 FLOPs {kf[0]:.6g} and "
+              f"{kf[1]:.6g} (parent {parent[3]:.6g} and {parent[4]:.6g}: "
+              f"{kf[0] / parent[3]:.4f}, {kf[1] / parent[4]:.4f})",
               flush=True)
+    for arch, saves in TP_SP_SAVES.items():
+        fell = TP_DRYRUN_PARENT[arch][1] - res[arch]["memory"][
+            "peak_per_device"]
+        check(fell >= TP_SP_PEAK_SHARE * saves,
+              f"[24 mesh] (f) {arch} peak fell {fell} B, under "
+              f"{TP_SP_PEAK_SHARE} of the {saves:.4g} B of saves cut")
+    r = res["qwen2-0.5b"]
+    check(r["model_index"] == 15, f"[24 mesh] (f) qwen2-0.5b counted on "
+                                  f"model rank {r['model_index']}, not 15")
+    for i, name in enumerate(("flash_attention_bhtd",
+                              "flash_attention_bwd_bhtd")):
+        got = r["kernels"][name]["flops"]
+        check(got <= TP_CP_KERNEL_SHARE * TP_DRYRUN_PARENT["qwen2-0.5b"][3
+                                                                       + i],
+              f"[24 mesh] (f) qwen2-0.5b {name} {got} FLOP a device")
     q = res["qwen3-0.6b"]["useful_flops_ratio"]
     check(q >= TP_DRYRUN_USEFUL_GAIN * TP_DRYRUN_BEFORE["qwen3-0.6b"][2],
           f"[24 mesh] (f) qwen3-0.6b useful FLOP share {q}")

@@ -24,17 +24,19 @@ PyTorch, as JAX leaves them to XLA.
 Two ways in.  Inside a partitioned train step
 (``sharding.partitioned``, what GSPMD makes of JAX's placed step) the
 body runs on the rank's own arrays: its block of the batch cut by
-sequence over 'model' where T divides (JAX's ``x_spec``; the cut enters
-by ``copy_to_model``), its E/mp experts (``param_specs``' blocks of
-``moe/w[gud]``), the replicated router entering by ``copy_to_model``,
-the two all-to-alls over the model group, and the sequence blocks put
-back into the replicated stream by an all-gather whose gradient is only
-cut (``gather_out_of_model``).  The aux is the mean over 'model' of the
+sequence over 'model' where T divides (JAX's ``x_spec``), its E/mp
+experts (``param_specs``' blocks of ``moe/w[gud]``), the replicated
+router entering by ``copy_to_model``, and the two all-to-alls over the
+model group.  Under sequence parallelism (``seq``) the input is the
+rank's block of the stream already and the output stays one: per layer
+and rank only the two all-to-alls of [E, C, D] each way move, besides
+the all-reduce of the router's gradient.  Without it, the input is the
+replicated stream, cut to the rank's block (entering by
+``copy_to_model``), and the output's blocks are put back into the
+replicated stream by an all-gather whose gradient is only cut
+(``gather_out_of_model``).  The aux is the mean over 'model' of the
 ranks' local estimates (JAX's ``pmean``; the step averages it over the
-data axes), its gradient 1 / mp a rank.  Per layer and rank that moves
-the two all-to-alls of [E, C, D] each way and an all-gather of the
-rank's [B/dp, T/mp, D] output, besides the regions' all-reduces of the
-input's and the router's gradients.
+data axes), its gradient 1 / mp a rank.
 
 Outside one (serving, the 1 x 1 mesh), arrays are global
 (``sharding.shard_map``): every rank holds all E experts and the whole
@@ -131,15 +133,17 @@ def _experts(cfg: ModelConfig, xf, w, ids, wg, wu, wd, exchange,
     return torch.sum((gathered * wk[:, None]).reshape(N, k, D), dim=1)
 
 
-def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25):
+def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25,
+            seq: bool = False):
     """Drop-in replacement for ``layers.moe_gmm`` / ``moe_dense`` under a
     mesh.  x [B, T, D] -> (out [B, T, D], aux loss scalar: each rank's
     load-balance estimate, averaged over the mesh).  Inside a partitioned
-    step, on the rank's arrays (:func:`_partitioned`); else on global
+    step, on the rank's arrays (:func:`_partitioned`; ``seq``: x and out
+    are the rank's blocks of the sequence-parallel stream); else on global
     arrays over the ambient mesh, and without a mesh or its 'model' axis,
     ``moe_gmm``."""
     if partitioned_mesh() is not None:
-        return _partitioned(cfg, p, x, capacity_factor)
+        return _partitioned(cfg, p, x, capacity_factor, seq)
     m, dp, model_ax = _axes()
     moe = cfg.moe
     assert moe is not None
@@ -176,19 +180,22 @@ def moe_a2a(cfg: ModelConfig, p, x, *, capacity_factor: float = 1.25):
     return out, aux
 
 
-def _partitioned(cfg: ModelConfig, p, x, capacity_factor):
+def _partitioned(cfg: ModelConfig, p, x, capacity_factor, seq=False):
     """:func:`moe_a2a` inside a partitioned step: JAX's body on this
-    rank's arrays (module docstring).  ``x`` [B/dp, T, D] is the rank's
-    block of the batch, replicated over 'model'; ``p`` its blocks of the
-    MoE's leaves."""
+    rank's arrays (module docstring).  ``x`` is the rank's block of the
+    batch: [B/dp, T/mp, D], its block of the sequence-parallel stream
+    (``seq``), or [B/dp, T, D] replicated over 'model'; ``p`` its blocks
+    of the MoE's leaves."""
     ax = model_axis()
     mp = 1 if ax is None else ax.size
     E = cfg.moe.num_experts
     assert E % mp == 0, (E, mp)
     B, T, D = x.shape
-    xin = copy_to_model(x, ax)
-    cut = mp > 1 and T % mp == 0
-    if cut:             # the rank's sequence block (JAX's x_spec)
+    # the rank's sequence block (JAX's x_spec): the input itself under
+    # sequence parallelism, else cut from the replicated stream
+    cut = not seq and mp > 1 and T % mp == 0
+    xin = x if seq else copy_to_model(x, ax)
+    if cut:
         xin = xin.narrow(1, ax.rank * (T // mp), T // mp)
     Bl, Tl = xin.shape[:2]
     xf = xin.reshape(Bl * Tl, D)
@@ -203,10 +210,12 @@ def _partitioned(cfg: ModelConfig, p, x, capacity_factor):
                    lambda v, s, c: all_to_all_model(v, ax, s, c),
                    capacity_factor).reshape(Bl, Tl, D)
     # back into the replicated stream: the sequence blocks gathered, or
-    # (T not cut) the output every rank computed alike
-    out = gather_out_of_model(out, ax, 1) if cut else \
-        replicated_from_model(out, ax)
+    # (T not cut) the output every rank computed alike; under sequence
+    # parallelism the block stays
+    if not seq:
+        out = gather_out_of_model(out, ax, 1) if cut else \
+            replicated_from_model(out, ax)
     if cfg.moe.num_shared_experts:
-        out = out + L.shared_experts(cfg, p, x.reshape(B * T, D)).reshape(
-            B, T, D)
+        out = out + L.shared_experts(cfg, p, x.reshape(B * T, D),
+                                     seq).reshape(B, T, D)
     return out, aux

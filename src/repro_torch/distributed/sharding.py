@@ -736,10 +736,16 @@ def place_like(tree, like):
 # gradient, replicated, passed through), :func:`gather_out_of_model` (the
 # ranks' blocks of an activation gathered; the gradient cut) or
 # :func:`replicated_from_model` (a value every rank computed alike; the
-# gradient shared out).  Inside :func:`partitioned`, the model reads
-# :func:`model_axis`; outside it, or at model 1, there is no region and
-# every function below is the identity, so one card's step runs
-# unchanged.
+# gradient shared out).  With sequence parallelism (megatron's SP: JAX's
+# ``residual_shard``), the stream between the regions is each rank's
+# block of the sequence instead of the whole: a region takes it in
+# through :func:`gather_from_sequence` (an all-gather over T; the
+# gradient, partial on each rank, reduce-scattered) and leaves through
+# :func:`scatter_to_sequence` (the partial sums reduce-scattered over T;
+# the gradient, the rank's block, all-gathered).  Inside
+# :func:`partitioned`, the model reads :func:`model_axis`; outside it, or
+# at model 1, there is no region and every function below is the
+# identity, so one card's step runs unchanged.
 
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
@@ -828,6 +834,49 @@ class _GatherFromModel(torch.autograd.Function):
             None, None, None
 
 
+def _gather_seq(x, ax, dim):
+    """The ranks' blocks of ``x`` along ``dim`` put together in rank order,
+    by ``all_gather_into_tensor`` (which gathers along the leading dim)."""
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((ax.size * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=ax.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _scatter_seq(x, ax, dim):
+    """The sum of ``x`` over the axis, of which this rank keeps its block
+    along ``dim``, by ``reduce_scatter_tensor``."""
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % ax.size:
+        raise ValueError(f"a reduce-scatter over {ax.size} ranks cuts dim "
+                         f"{dim} of {tuple(x.shape)} into equal blocks")
+    out = xt.new_empty((xt.shape[0] // ax.size,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=ax.group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _gather_seq(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_seq(g, ctx.ax, ctx.dim), None, None
+
+
+class _ScatterToSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _scatter_seq(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.ax, ctx.dim), None, None
+
+
 class _ReplicatedFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
@@ -869,6 +918,38 @@ def gather_out_of_model(x, ax: Optional[ModelAxis], dim: int = -1):
     if ax is None:
         return x
     return _GatherFromModel.apply(x, ax, dim % x.dim(), False)
+
+
+def gather_from_sequence(x, ax: Optional[ModelAxis], dim: int = 1):
+    """The ranks' blocks of the sequence-parallel stream ``x`` along
+    ``dim`` (T) put together in rank order, entering a region (an
+    all-gather): the gradient, partial on each rank (its heads, columns
+    or experts), summed over the axis and cut to the rank's block (a
+    reduce-scatter).  It sums what :func:`copy_to_model` sums and cuts
+    what :func:`gather_out_of_model` cuts."""
+    if ax is None:
+        return x
+    return _GatherFromSequence.apply(x, ax, dim % x.dim())
+
+
+def scatter_to_sequence(x, ax: Optional[ModelAxis], dim: int = 1):
+    """The rank's partial ``x`` leaving a region into the sequence-parallel
+    stream: summed over the axis, the rank keeping its block along
+    ``dim`` (a reduce-scatter); the gradient of the block, the rank's
+    own, put back together whole (an all-gather), not summed.  It sums
+    what :func:`reduce_from_model` sums and keeps a block of it."""
+    if ax is None:
+        return x
+    return _ScatterToSequence.apply(x, ax, dim % x.dim())
+
+
+def sequence_block(T: int, ax: Optional[ModelAxis]) -> tuple:
+    """(first position, length) of this rank's block of a sequence of
+    ``T`` cut over the model axis (the whole sequence without one)."""
+    if ax is None:
+        return 0, T
+    n = T // ax.size
+    return ax.rank * n, n
 
 
 def replicated_from_model(x, ax: Optional[ModelAxis]):

@@ -220,7 +220,8 @@ def load_flash_attention() -> ctypes.CDLL:
                    + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_void_p])
+                                           ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -249,7 +250,8 @@ def load_flash_attention_bwd() -> ctypes.CDLL:
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_void_p])
+                                           ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -273,7 +275,7 @@ def load_flash_attention_sm90() -> ctypes.CDLL:
                    + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong)] * 2
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_sm90_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_sm90_error_string.restype = ctypes.c_char_p
@@ -289,7 +291,7 @@ def load_flash_attention_bwd_sm90() -> ctypes.CDLL:
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong)] * 2
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_sm90_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_sm90_error_string.restype = ctypes.c_char_p

@@ -85,31 +85,46 @@ def sm_count(device) -> int:
 
 # ------------------------------------------------------------ formulas ---
 
-def causal_pairs(Tq: int, Tk: int, causal: bool, window: int = 0) -> int:
+def _reach(n: int, Tk: int) -> int:
+    """sum of min(j, Tk) for j = 1 .. n (0 for n <= 0)."""
+    if n <= 0:
+        return 0
+    if n <= Tk:
+        return n * (n + 1) // 2
+    return Tk * (Tk + 1) // 2 + (n - Tk) * Tk
+
+
+def causal_pairs(Tq: int, Tk: int, causal: bool, window: int = 0,
+                 q_offset: int = 0) -> int:
     """(query, key) pairs an attention call reaches: every pair without a
-    mask; with the causal mask, min(q + 1, reach) keys from query q, reach
-    being ``window`` (when > 0) or Tk."""
+    mask; with the causal mask, query row i at position p = q_offset + i
+    reaches the keys max(0, p - window + 1) .. min(p, Tk - 1) (from 0
+    without a window).  Summed in closed form: the pairs of positions
+    0 .. q_offset + Tq - 1 less those of 0 .. q_offset - 1."""
     if not causal:
         return Tq * Tk
-    r = min(Tk, window) if window > 0 else Tk
-    if Tq <= r:
-        return Tq * (Tq + 1) // 2
-    return r * (r + 1) // 2 + (Tq - r) * r
+
+    def upto(n):        # pairs of the query positions 0 .. n - 1
+        return _reach(n, Tk) - (_reach(n - window, Tk) if window > 0
+                                else 0)
+    return upto(q_offset + Tq) - upto(q_offset)
 
 
-def flash_fwd(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes, window=0):
+def flash_fwd(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes, window=0,
+              q_offset=0):
     """Kernel 2: 4 hd operations per reachable (query, key) pair and query
     head (s = q k and o += p v); q, k, v read and o written once."""
-    flops = 4 * hd * H * B * causal_pairs(Tq, Tk, causal, window)
+    flops = 4 * hd * H * B * causal_pairs(Tq, Tk, causal, window, q_offset)
     nbytes = elem_bytes * hd * B * (2 * H * Tq + 2 * Hkv * Tk)
     return flops, nbytes
 
 
-def flash_bwd(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes, window=0):
+def flash_bwd(B, H, Hkv, hd, Tq, Tk, causal, elem_bytes, window=0,
+              q_offset=0):
     """Kernel 3: five products (s, dp, dq, dk, dv) = 10 hd operations per
     reachable pair and query head; q, o, dO, k, v and the float32 lse read
     once, dq, dk, dv written once."""
-    flops = 10 * hd * H * B * causal_pairs(Tq, Tk, causal, window)
+    flops = 10 * hd * H * B * causal_pairs(Tq, Tk, causal, window, q_offset)
     nbytes = (elem_bytes * hd * B * (4 * H * Tq + 4 * Hkv * Tk)
               + 4 * B * H * Tq)
     return flops, nbytes

@@ -9,9 +9,11 @@
 // with scale 1/sqrt(hd); masked entries (causal: key > query; window w > 0:
 // key <= query - w; keys past Tk) set to -1e30; an online max and
 // denominator per query row; o = acc / max(l, 1e-30) rounded to the input
-// type; optionally lse = m + log(max(l, 1e-30)) in float32.  Query and key
-// positions both count from 0 (the TPU kernel's in-block indices).  GQA:
-// query head h reads key/value head h / (H / Hkv).
+// type; optionally lse = m + log(max(l, 1e-30)) in float32.  Key j sits
+// at position j and query row i at q_offset + i (0: the TPU kernel's
+// in-block indices; a rank's block of queries under context parallelism
+// passes its first position).  GQA: query head h reads key/value head
+// h / (H / Hkv).
 //
 // What bounds it on this card.  Counting only reachable score entries, the
 // work is 4 * hd * H * B * sum(reachable (q, k)) operations against reading
@@ -42,7 +44,8 @@
 //     K_{j+1} while O += P_j V_j is, so every copy overlaps a product.
 //   * Key tiles that the causal or window mask rules out for every row of
 //     the block are never loaded (about half the work at causal), and query
-//     tiles run heaviest first.
+//     tiles run heaviest first (under the causal mask the last tile reaches
+//     the most keys at any q_offset).
 //
 // The count behind the tiles (per block; an SM has 233,472 bytes of shared
 // memory, 1,024 of them reserved per block, and 65,536 registers):
@@ -99,7 +102,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long ksh, long long kst, long long vsb, long long vsh,
                  long long vst, long long osb, long long osh, long long ost,
                  int causal, int window, float scale, int split,
-                 float* __restrict__ part) {
+                 float* __restrict__ part, int q_offset) {
   static_assert(sizeof(T) == 4, "the float32 path");
   using C = Fwd<HD>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kS, R = C::kRows;
@@ -132,10 +135,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int cg = tid % (HD / 8);
   const int rg = tid / (HD / 8);
 
-  // Key tiles holding a key that some row of this block can reach; this
-  // share's consecutive part of them.
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // Key tiles holding a key that some row of this block (positions p0 ..
+  // p0 + BQ - 1) can reach; this share's consecutive part of them.
+  const int p0 = q_offset + q0;
+  const int k_end = causal ? min(Tk, p0 + BQ) : Tk;
+  int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   k_begin = (k_begin / BK) * BK;
   const int n_all = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int t_begin = share * n_all / split;
@@ -173,8 +177,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fa32::dot_tile<HD, 8, 8, 8, L, 8>(s, Qs, 8 * sr, 0, Ks, kg, ds * L);
     fa32::reduce_slices<8, 8, S>(s, ds);
 
-    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > p0) ||
+                      (window > 0 && k0 <= p0 + BQ - 1 - window);
     // Each kept row's max over the tile's 64 keys (8 here, 8 lanes kg),
     // the online rescale, p and the row sum.
     float mx[R], sum[R], corr[R];
@@ -184,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float x = s[i][j] * scale;
-        if (edge && sm90::hidden(q0 + 8 * sr + ko + i, k0 + kg + 8 * j, Tk,
+        if (edge && sm90::hidden(p0 + 8 * sr + ko + i, k0 + kg + 8 * j, Tk,
                                  causal, window))
           x = kNegInf;
         s[i][j] = x;
@@ -359,7 +363,7 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int Tq, int Tk, const long long* st,
            int causal, int window, float scale, int split, float* part,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   if (split < 1 || (split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   constexpr int bytes = Fwd<HD>::kSmem;
@@ -372,7 +376,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Tq, Tk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], causal, window, scale, split, part);
+      st[10], st[11], causal, window, scale, split, part, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
   const long long chunks = (long long)B * H * Tq * (HD / 4);
@@ -394,22 +398,23 @@ extern "C" {
 // writes o; > 1: part is a float32 scratch of split x B x H x Tq x (hd + 2)
 // floats and flash_fwd_combine_kernel writes o).  Returns a cudaError_t (0
 // on success); 1 (cudaErrorInvalidValue) for an hd the kernel has no
-// instantiation for or a split without its scratch.
+// instantiation for or a split without its scratch.  q_offset: the position
+// of query row 0 (keys from 0).
 int flash_attention_launch(int hd, const void* q, const void* k,
                            const void* v, void* o, float* lse, int B, int H,
                            int Hkv, int Tq, int Tk, const long long* strides,
                            int causal, int window, float scale, int split,
-                           float* part, void* stream) {
+                           float* part, int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<float, 64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
-                             causal, window, scale, split, part, s);
+                             causal, window, scale, split, part, q_offset, s);
   if (hd == 128)
     return launch<float, 128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
-                              causal, window, scale, split, part, s);
+                              causal, window, scale, split, part, q_offset, s);
   if (hd == 256)
     return launch<float, 256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, strides,
-                              causal, window, scale, split, part, s);
+                              causal, window, scale, split, part, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,8 +15,11 @@
 //   dq = ds.k,    dk = ds^T.q,    dv = p^T.dO.
 // lse is the forward kernel's m + log(max(l, 1e-30)) over *scaled* scores
 // (flash_attention.cu), so s is formed the same way: dot product, then
-// times scale.  GQA: query head h reads key/value head h / (H / Hkv); dk
-// and dv are summed over the group's query heads in float32 (JAX keeps
+// times scale.  Key j sits at position j and query row i at q_offset + i
+// (the forward's positions); a key tile that no query reaches (past the
+// last query, under the causal mask) gets zero dk and dv.  GQA: query
+// head h reads key/value head h / (H / Hkv); dk and dv are summed over
+// the group's query heads in float32 (JAX keeps
 // per-query-head [B, H, Tk, hd] intermediates rounded to the input type
 // and sums them afterwards, :178-179, :188-189).
 //
@@ -157,7 +160,9 @@ __device__ __forceinline__ void get(const float* row, int c, int off, int sw,
   }
 }
 
-// Rows of the causal or window mask and keys past Tk (positions from 0).
+// Query rows past Tq, and the causal or window mask and keys past Tk, with
+// positions from 0 (a caller with a query offset shifts the keys and Tk
+// by it instead: the dq kernel has no register to spare for it).
 __device__ __forceinline__ bool masked(int qpos, int kpos, int Tq, int Tk,
                                        int causal, int window) {
   return qpos >= Tq || sm90::hidden(qpos, kpos, Tk, causal, window);
@@ -165,14 +170,15 @@ __device__ __forceinline__ bool masked(int qpos, int kpos, int Tq, int Tk,
 
 // The (head, query tile) items of one key tile of the dk/dv kernel: the
 // group's heads x the query tiles [q_begin, q_begin + nq BQ) that reach
-// keys [k0, k0 + BK).
+// keys [k0, k0 + BK) (none past the last query).
 template <int HD>
 __device__ __forceinline__ void kv_items(int k0, int Tq, int causal,
-                                                  int window, int* q_begin,
-                                                  int* nq) {
+                                         int window, int q_offset,
+                                         int* q_begin, int* nq) {
   constexpr int BQ = Dkv<HD>::kBQ, BK = Dkv<HD>::kBK;
-  const int qb = causal ? (k0 / BQ) * BQ : 0;
-  const int qe = window > 0 ? min(Tq, k0 + BK + window - 1) : Tq;
+  const int qb = causal ? (max(0, k0 - q_offset) / BQ) * BQ : 0;
+  const int qe =
+      window > 0 ? min(Tq, max(0, k0 + BK + window - 1 - q_offset)) : Tq;
   *q_begin = qb;
   *nq = qe > qb ? (qe - qb + BQ - 1) / BQ : 0;
 }
@@ -197,7 +203,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int Hkv, int Tq, int Tk, Strides st, int causal,
                     int window, float scale, int split,
-                    float* __restrict__ part) {
+                    float* __restrict__ part, int q_offset) {
   static_assert(sizeof(T) == 4, "the float32 path");
   using C = Dq<HD>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kS, R = C::kRows;
@@ -231,9 +237,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int cg = tid % (HD / 8);
   const int rg = tid / (HD / 8);
 
-  // Key tiles that some row of this block reaches; this share's part.
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // Key tiles that some row of this block (positions q_offset + q0 ..
+  // q_offset + q0 + BQ - 1) reaches; this share's part.
+  const int k_end = causal ? min(Tk, q_offset + q0 + BQ) : Tk;
+  int k_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   k_begin = (k_begin / BK) * BK;
   const int n_all = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int t_begin = share * n_all / split;
@@ -288,8 +295,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           : 0.0f;
     }
 
-    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    // The mask in the block's own row indices: the tile's keys and Tk
+    // shifted by the query offset.
+    const int kq = k0 - q_offset;
+    const bool edge = k0 + BK > Tk || (causal && kq + BK - 1 > q0) ||
+                      (window > 0 && kq <= q0 + BQ - 1 - window);
     const int c = (8 * sr + ko) >> 2;
     if (half == 0) {
 #pragma unroll
@@ -298,7 +308,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           const int qpos = q0 + 8 * sr + ko + i;
-          x[i] = edge && masked(qpos, k0 + kg + 4 * j, Tq, Tk, causal, window)
+          x[i] = edge && masked(qpos, kq + kg + 4 * j, Tq, Tk - q_offset,
+                                causal, window)
                      ? 0.0f
                      : expf(s[i][j] * scale - rowv[i]);
         }
@@ -351,7 +362,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, float* __restrict__ part, int H,
                       int Hkv, int Tq, int Tk, Strides st, int causal,
-                      int window, float scale, int split) {
+                      int window, float scale, int split, int q_offset) {
   static_assert(sizeof(T) == 4, "the float32 path");
   using C = Dkv<HD>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kS, R = C::kRows;
@@ -389,7 +400,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ka = tt / CG;
 
   int q_begin, nq;
-  kv_items<HD>(k0, Tq, causal, window, &q_begin, &nq);
+  kv_items<HD>(k0, Tq, causal, window, q_offset, &q_begin, &nq);
   const int n_items = group * nq;
   const int share = (n_items + split - 1) / split;
   const int i_begin = min(n_items, g * share);
@@ -453,8 +464,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     const bool edge = q0 + BQ > Tq || k0 + BK > Tk ||
-                      (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+                      (causal && k0 + BK - 1 > q_offset + q0) ||
+                      (window > 0 && k0 <= q_offset + q0 + BQ - 1 - window);
     const int c = (8 * kr + ko) >> 2;
     if (half == 0) {
 #pragma unroll
@@ -463,8 +474,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x[R];
 #pragma unroll
         for (int i = 0; i < R; ++i)
-          x[i] = edge && masked(q0 + ql, k0 + 8 * kr + ko + i, Tq, Tk,
-                                causal, window)
+          x[i] = edge && masked(q0 + ql, k0 - q_offset + 8 * kr + ko + i, Tq,
+                                Tk - q_offset, causal, window)
                      ? 0.0f
                      : expf(s[i][j] * scale - colv[j]);
         put<R>(Pb + ql * BK, c, ko & 3, ql & 7, x);
@@ -545,7 +556,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dv, int B, int H, int Hkv, int Tq, int Tk,
            const long long* s, int causal, int window, float scale,
            int split, float* part, int dq_split, float* dq_part,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = s[i];
@@ -582,7 +593,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   dq_kernel<<<dq_grid<HD>(B, H, Tq, dq_split), Dq<HD>::kThreads, dq_bytes,
               stream>>>(tq, tk, tv, to, lse, delta, static_cast<T*>(dq), H,
                         Hkv, Tq, Tk, st, causal, window, scale, dq_split,
-                        dq_part);
+                        dq_part, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (dq_split > 1) {
@@ -598,7 +609,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   kv_kernel<<<dkdv_grid<HD>(B, Hkv, Tk, split), Dkv<HD>::kThreads, kv_bytes,
               stream>>>(tq, tk, tv, to, lse, delta, static_cast<T*>(dk),
                         static_cast<T*>(dv), part, H, Hkv, Tq, Tk, st,
-                        causal, window, scale, split);
+                        causal, window, scale, split, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
   err = sum_shares(part, dk, Hkv, Tk, st.dk, split);
@@ -620,7 +631,8 @@ extern "C" {
 // dv; > 1: part is a float32 scratch of 2 x split x B x Hkv x Tk x hd
 // floats, and flash_bwd_sum_kernel adds the shares); dq_split, dq_part: the
 // same for each query tile's key tiles in the dq kernel (dq_part: dq_split
-// x B x H x Tq x hd floats).  Launches the dq kernel (and its sum), then
+// x B x H x Tq x hd floats).  q_offset: the position of query row 0 (keys
+// from 0).  Launches the dq kernel (and its sum), then
 // the dk/dv kernel (and its sums) on ``stream``.  Returns a cudaError_t (0
 // on success); 1 (cudaErrorInvalidValue) for an hd the kernels have no
 // instantiation for or a split without its scratch.
@@ -632,20 +644,20 @@ int flash_attention_bwd_launch(int hd, const void* q, const void* k,
                                const long long* strides, int causal,
                                int window, float scale, int split,
                                float* part, int dq_split, float* dq_part,
-                               void* stream) {
+                               int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                              Hkv, Tq, Tk, strides, causal, window, scale,
-                             split, part, dq_split, dq_part, s);
+                             split, part, dq_split, dq_part, q_offset, s);
   if (hd == 128)
     return launch<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                               Hkv, Tq, Tk, strides, causal, window, scale,
-                              split, part, dq_split, dq_part, s);
+                              split, part, dq_split, dq_part, q_offset, s);
   if (hd == 256)
     return launch<float, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                               Hkv, Tq, Tk, strides, causal, window, scale,
-                              split, part, dq_split, dq_part, s);
+                              split, part, dq_split, dq_part, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,8 +12,11 @@
 // the wrapper in float32):
 //   dp = dO.v^T,  ds = p o (dp - delta) * scale,
 //   dq = ds.k,    dk = ds^T.q,    dv = p^T.dO.
-// GQA: dk and dv are summed over each key/value head's group of query heads
-// in float32 registers.  p and ds are rounded to bf16 before their products
+// Key j sits at position j and query row i at q_offset + i (the forward's
+// positions, flash_attention_sm90.cu).  GQA: dk and dv are summed over each
+// key/value head's group of query heads in float32 registers; a key tile
+// that no query reaches (past the last query, under the causal mask) is
+// written as zeros.  p and ds are rounded to bf16 before their products
 // (as FlashAttention-2 and -3 do); the plain version keeps them in float32.
 // Deterministic: no atomics, every output element is written once.
 //
@@ -111,7 +114,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ delta, int pitch,
                          __nv_bfloat16* __restrict__ dq, int H, int Hkv,
                          int Tq, int Tk, OutStrides st, int causal,
-                         int window, float scale) {
+                         int window, float scale, int q_offset) {
   using C = Bwd<HD>;
   constexpr int NS = kQBK / 2;       // s / dp accumulators a thread
   constexpr int NO = C::kOut / 2;    // dq accumulators a thread
@@ -137,8 +140,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = tid / 128;
   const int t = tid % 128;
 
-  const int k_end = causal ? min(Tk, q0 + kQBQ) : Tk;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // Key tiles that some row of this block (positions p0 .. p0 + kQBQ - 1)
+  // can reach.
+  const int p0 = q_offset + q0;
+  const int k_end = causal ? min(Tk, p0 + kQBQ) : Tk;
+  int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   k_begin = (k_begin / kQBK) * kQBK;
   const int n = k_end > k_begin ? (k_end - k_begin + kQBK - 1) / kQBK : 0;
 
@@ -226,8 +232,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
     // p = exp(s scale - lse), ds = p (dp - delta) scale, packed in bf16 as
     // the A operand of dQ += dS K.
-    const bool cut = k0 + kQBK > Tk || (causal && k0 + kQBK - 1 > q0) ||
-                     (window > 0 && k0 <= q0 + kQBQ - 1 - window);
+    const bool cut = k0 + kQBK > Tk || (causal && k0 + kQBK - 1 > p0) ||
+                     (window > 0 && k0 <= p0 + kQBQ - 1 - window);
     uint32_t df[kQBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kQBK / 16; ++kk) {
@@ -238,8 +244,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 2; ++e) {
           const int r = 8 * kk + 2 * i + e;
           const int ri = (r % 4) / 2;
-          const bool hide = cut && hidden(row0 + 8 * ri, k0 + acc_col(t, r),
-                                          Tk, causal, window);
+          const bool hide =
+              cut && hidden(q_offset + row0 + 8 * ri, k0 + acc_col(t, r), Tk,
+                            causal, window);
           const float p =
               hide ? 0.0f : exp2f(sc[r] * scale_log2 - row_lse[ri]);
           ds[e] = p * (dp[r] - row_delta[ri]) * scale;
@@ -288,7 +295,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int H, int Hkv,
                            int Tq, int Tk, OutStrides st, int causal,
-                           int window, float scale) {
+                           int window, float scale, int q_offset) {
   using C = Bwd<HD>;
   constexpr int NS = kKBQ / 2;       // s^T / dp^T accumulators a thread
   constexpr int NO = C::kOut / 2;    // dk and dv accumulators a thread, each
@@ -320,9 +327,11 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = tid / 128;
   const int t = tid % 128;
 
-  // Query tiles holding a query that can reach some key of this block.
-  const int q_begin = causal ? (k0 / kKBQ) * kKBQ : 0;
-  const int q_end = window > 0 ? min(Tq, k0 + kKBK + window - 1) : Tq;
+  // Query tiles holding a query that can reach some key of this block
+  // (query row i at position q_offset + i); none past the last query.
+  const int q_begin = causal ? (max(0, k0 - q_offset) / kKBQ) * kKBQ : 0;
+  const int q_end =
+      window > 0 ? min(Tq, max(0, k0 + kKBK + window - 1 - q_offset)) : Tq;
   const int nqt = q_end > q_begin ? (q_end - q_begin + kKBQ - 1) / kKBQ : 0;
   const int n = group * nqt;
 
@@ -406,8 +415,8 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // p^T and ds^T on the fragments (rows keys, columns queries), packed
     // in bf16 as the A operands of dV += P^T dO and dK += dS^T Q.
     const bool cut = q0 + kKBQ > Tq || k0 + kKBK > Tk ||
-                     (causal && k0 + kKBK - 1 > q0) ||
-                     (window > 0 && k0 <= q0 + kKBQ - 1 - window);
+                     (causal && k0 + kKBK - 1 > q_offset + q0) ||
+                     (window > 0 && k0 <= q_offset + q0 + kKBQ - 1 - window);
     uint32_t pf[kKBQ / 16][4], df[kKBQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kKBQ / 16; ++kk) {
@@ -418,10 +427,11 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 2; ++e) {
           const int r = 8 * kk + 2 * i + e;
           const int col = acc_col(t, r);
-          const int qpos = q0 + col;
+          const int qi = q0 + col;
           const bool hide =
-              cut && (qpos >= Tq || hidden(qpos, kpos0 + 8 * ((r % 4) / 2),
-                                           Tk, causal, window));
+              cut && (qi >= Tq || hidden(q_offset + qi,
+                                         kpos0 + 8 * ((r % 4) / 2), Tk,
+                                         causal, window));
           p[e] = hide ? 0.0f
                       : exp2f(sc[r] * scale_log2 - sLse[s][col] * kLog2e);
           ds[e] = p[e] * (dp[r] - sDel[s][col]) * scale;
@@ -478,7 +488,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, int pitch, void* dq,
            void* dk, void* dv, int B, int H, int Hkv, int Tq, int Tk,
            const long long* geom, const long long* ostr, int causal,
-           int window, float scale, cudaStream_t stream) {
+           int window, float scale, int q_offset, cudaStream_t stream) {
   using C = Bwd<HD>;
   OutStrides st;
   for (int i = 0; i < 3; ++i) {
@@ -511,7 +521,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
               C::kDqSmem,
               stream>>>(maps[0], maps[1], maps[2], maps[3], lse, delta,
                         pitch, static_cast<__nv_bfloat16*>(dq), H, Hkv, Tq,
-                        Tk, st, causal, window, scale);
+                        Tk, st, causal, window, scale, q_offset);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
@@ -524,7 +534,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
               stream>>>(maps[4], maps[5], maps[6], maps[7], tlse, tdelta,
                         static_cast<__nv_bfloat16*>(dk),
                         static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, st,
-                        causal, window, scale);
+                        causal, window, scale, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -539,7 +549,8 @@ extern "C" {
 // geom: 8 x 9 values, the TMA maps of q, k, v, dO for the dq kernel and
 // again for the dk/dv kernel (dims (hd, T, heads, B), byte strides of T,
 // heads and B, box columns and rows).  ostrides: 9 element strides (batch,
-// head, time) of dq, dk, dv.  Launches the dq kernel and then the dk/dv
+// head, time) of dq, dk, dv.  q_offset: the position of query row 0 (keys
+// from 0).  Launches the dq kernel and then the dk/dv
 // kernel on ``stream``.  Returns a cudaError_t (0 on success), 1
 // (cudaErrorInvalidValue) for an hd or box the kernels do not take, or a
 // tensor-map error (flash_attention_bwd_sm90_error_string).
@@ -550,17 +561,21 @@ int flash_attention_bwd_sm90_launch(int hd, const void* q, const void* k,
                                     int B, int H, int Hkv, int Tq, int Tk,
                                     const long long* geom,
                                     const long long* ostrides, int causal,
-                                    int window, float scale, void* stream) {
+                                    int window, float scale, int q_offset,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<64>(q, k, v, dout, lse, delta, pitch, dq, dk, dv, B, H,
-                      Hkv, Tq, Tk, geom, ostrides, causal, window, scale, s);
+                      Hkv, Tq, Tk, geom, ostrides, causal, window, scale,
+                      q_offset, s);
   if (hd == 128)
     return launch<128>(q, k, v, dout, lse, delta, pitch, dq, dk, dv, B, H,
-                       Hkv, Tq, Tk, geom, ostrides, causal, window, scale, s);
+                       Hkv, Tq, Tk, geom, ostrides, causal, window, scale,
+                       q_offset, s);
   if (hd == 256)
     return launch<256>(q, k, v, dout, lse, delta, pitch, dq, dk, dv, B, H,
-                       Hkv, Tq, Tk, geom, ostrides, causal, window, scale, s);
+                       Hkv, Tq, Tk, geom, ostrides, causal, window, scale,
+                       q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,8 +9,11 @@
 // (causal: key > query; window w > 0: key <= query - w; keys past Tk) set to
 // -1e30; an online max and denominator per query row; o = acc / max(l,
 // 1e-30) rounded to bf16; optionally lse = m + log(max(l, 1e-30)) in
-// float32.  Query and key positions both count from 0.  GQA: query head h
-// reads key/value head h / (H / Hkv).  One difference in rounding: the
+// float32.  Key j sits at position j and query row i at q_offset + i (0:
+// the TPU kernel's in-block positions; a rank's block of queries under
+// context parallelism passes its first position, as JAX's
+// attention_chunked(q_offset=...) counts it).  GQA: query head h reads
+// key/value head h / (H / Hkv).  One difference in rounding: the
 // probabilities are rounded to bf16 before O += P V (as FlashAttention-2
 // and -3 do); the plain version keeps them in float32.
 //
@@ -78,7 +81,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                       int H, int Hkv, int Tq, int Tk, long long osb,
                       long long osh, long long ost, int causal, int window,
-                      float scale_log2) {
+                      float scale_log2, int q_offset) {
   using C = Fwd<HD>;
   constexpr int kBK = C::kBK;
   constexpr int NS = kBK / 2;    // score accumulators a thread
@@ -98,9 +101,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = tid / 128;
   const int t = tid % 128;
 
-  // Key tiles holding a key that some row of this block can reach.
-  const int k_end = causal ? min(Tk, q0 + kBQ) : Tk;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // Key tiles holding a key that some row of this block can reach (its
+  // rows sit at positions p0 .. p0 + kBQ - 1).
+  const int p0 = q_offset + q0;
+  const int k_end = causal ? max(0, min(Tk, p0 + kBQ)) : Tk;
+  int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   k_begin = (k_begin / kBK) * kBK;
   const int n = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
@@ -134,7 +139,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};     // this thread's share of the row sums
-  // this thread's rows: row0 and row0 + 8
+  // this thread's rows: row0 and row0 + 8 (at positions q_offset + row)
   const int row0 = q0 + 64 * wg + acc_row(t, 0);
   const uint32_t q_addr = smem_u32(sQ) + wg * 64 * 128;
   mbar_wait(&bar_q, 0);
@@ -165,13 +170,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_acc<NS>(sc);
 
     // Scale into the exp2 domain and mask, where the tile cuts the mask.
-    const bool cut = k0 + kBK > Tk || (causal && k0 + kBK - 1 > q0) ||
-                     (window > 0 && k0 <= q0 + kBQ - 1 - window);
+    const bool cut = k0 + kBK > Tk || (causal && k0 + kBK - 1 > p0) ||
+                     (window > 0 && k0 <= p0 + kBQ - 1 - window);
 #pragma unroll
     for (int r = 0; r < NS; ++r) {
       const float x = sc[r] * scale_log2;
-      sc[r] = cut && hidden(row0 + 8 * ((r % 4) / 2), k0 + acc_col(t, r), Tk,
-                            causal, window)
+      sc[r] = cut && hidden(q_offset + row0 + 8 * ((r % 4) / 2),
+                            k0 + acc_col(t, r), Tk, causal, window)
                   ? kNegInf
                   : x;
     }
@@ -246,7 +251,7 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int Tq, int Tk, const long long* geom,
            const long long* ostr, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   using C = Fwd<HD>;
   // the boxes the wrapper computed must be the kernel's tiles
   if (geom[7] != 64 || geom[8] != kBQ || geom[16] != 64 ||
@@ -265,7 +270,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Hkv, Tq, Tk,
       ostr[0], ostr[1], ostr[2], causal, window,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -278,7 +283,8 @@ extern "C" {
 // bf16 q, k, v, o; hd 64, 128 or 256.  geom: for each of q, k, v, 9 values
 // (dims (hd, T, heads, B), byte strides of T, heads and B, box columns and
 // rows) of its TMA map.  ostrides: o's element strides (batch, head,
-// time).  lse may be null.  Returns a cudaError_t (0 on success), 1
+// time).  lse may be null.  q_offset: the position of query row 0 (keys
+// from 0).  Returns a cudaError_t (0 on success), 1
 // (cudaErrorInvalidValue) for an hd or box the kernel does not take, or a
 // tensor-map error (flash_attention_sm90_error_string).
 int flash_attention_sm90_launch(int hd, const void* q, const void* k,
@@ -286,17 +292,18 @@ int flash_attention_sm90_launch(int hd, const void* q, const void* k,
                                 int H, int Hkv, int Tq, int Tk,
                                 const long long* geom,
                                 const long long* ostrides, int causal,
-                                int window, float scale, void* stream) {
+                                int window, float scale, int q_offset,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, geom, ostrides,
-                      causal, window, scale, s);
+                      causal, window, scale, q_offset, s);
   if (hd == 128)
     return launch<128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, geom, ostrides,
-                       causal, window, scale, s);
+                       causal, window, scale, q_offset, s);
   if (hd == 256)
     return launch<256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, geom, ostrides,
-                       causal, window, scale, s);
+                       causal, window, scale, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

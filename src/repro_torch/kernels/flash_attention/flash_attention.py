@@ -62,12 +62,24 @@ def shares(blocks: int, slots: int, most: int) -> int:
     return max(1, min(-(-2 * slots // blocks), most))
 
 
-def f32_split(B: int, H: int, Tq: int, Tk: int, hd: int, n_sms: int) -> int:
+def key_extent(Tq: int, Tk: int, causal: bool = True,
+               q_offset: int = 0) -> int:
+    """Keys the longest query tile's loop covers: under the causal mask the
+    last query's position + 1 (query row i at ``q_offset + i``), at most
+    Tk; Tk without it.  The float32 kernels run their query tiles longest
+    first, and their shares cut loops of at most this many keys."""
+    return min(Tk, q_offset + Tq) if causal else Tk
+
+
+def f32_split(B: int, H: int, Tq: int, Tk: int, hd: int, n_sms: int,
+              causal: bool = True, q_offset: int = 0) -> int:
     """Shares of the float32 forward (:func:`shares`): its blocks are the
     query tiles x heads x batch rows, two an SM at hd 64 and 128, one at
-    256 (``n_sms`` SMs); each query tile's key tiles are cut."""
+    256 (``n_sms`` SMs); each query tile's key tiles are cut, the longest
+    loop being :func:`key_extent`'s keys."""
     return shares(-(-Tq // F32_BQ[hd]) * H * B,
-                  n_sms * (1 if hd == 256 else 2), -(-Tk // F32_BK))
+                  n_sms * (1 if hd == 256 else 2),
+                  -(-key_extent(Tq, Tk, causal, q_offset) // F32_BK))
 
 
 #: An H100 SM's shared memory, the part of it each resident block
@@ -172,19 +184,22 @@ def _check_kernel_layout(name, x):
 
 
 def _fwd_cost(q, k, v, *, causal: bool = True, window: int = 0,
-              return_lse: bool = False):
+              return_lse: bool = False, q_offset: int = 0):
     B, H, Tq, hd = q.shape
     return cost.flash_fwd(B, H, k.shape[1], hd, Tq, k.shape[2], causal,
-                          q.element_size(), window)
+                          q.element_size(), window, q_offset)
 
 
 @cost.counted("flash_attention_bhtd", _fwd_cost)
 def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False, q_offset: int = 0):
     """q [B,H,Tq,hd], k/v [B,Hkv,Tk,hd] -> o [B,H,Tq,hd] in q's dtype (and
     lse [B,H,Tq] float32 when ``return_lse``).  Any strides whose last one
     is 1: a ``transpose(1, 2)`` view of the model's [B,T,H,hd] tensors is
-    read in place, and ``o`` is allocated with q's strides.
+    read in place, and ``o`` is allocated with q's strides.  Query row i
+    sits at position ``q_offset + i`` and key j at j (:func:`~.ref.
+    attention_ref`'s positions; a rank's block of the queries under
+    context parallelism).
 
     CPU tensors: the plain version.  CUDA tensors: one launch of the bf16
     (``wgmma``) or the float32 (FMA) kernel (and the shares' combine where
@@ -196,9 +211,11 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                          "gradients through ops.flash_attention (the "
                          "FlashAttention autograd Function, whose backward "
                          "is flash_attention_bwd_bhtd)")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_bhtd: q_offset {q_offset} < 0")
     if q.device.type == "cpu":
         out = attention_ref(q, k, v, causal=causal, window=window,
-                            return_lse=return_lse)
+                            return_lse=return_lse, q_offset=q_offset)
         if return_lse:
             return cost.strided_like(out[0], q), out[1]
         return cost.strided_like(out, q)
@@ -217,7 +234,8 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
     # The float32 kernel's shares and their scratch (f32_split).
     split, part = 1, None
     if kernel == "fma":
-        split = f32_split(B, H, Tq, Tk, hd, cost.sm_count(q.device))
+        split = f32_split(B, H, Tq, Tk, hd, cost.sm_count(q.device),
+                          causal, q_offset)
         if split > 1:
             part = torch.empty(split * B * H * Tq * (hd + 2),
                                dtype=torch.float32, device=q.device)
@@ -237,7 +255,8 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                     hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), lse_ptr, B, H, Hkv, Tq, Tk, geom,
                     _longlongs([o.stride(i) for i in (0, 1, 2)]),
-                    int(bool(causal)), int(window), scale, stream)
+                    int(bool(causal)), int(window), scale, int(q_offset),
+                    stream)
                 name = "flash_attention_sm90"
             else:
                 lib = build.load_flash_attention()
@@ -247,7 +266,8 @@ def flash_attention_bhtd(q, k, v, *, causal: bool = True, window: int = 0,
                     hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), lse_ptr, B, H, Hkv, Tq, Tk, strides,
                     int(bool(causal)), int(window), scale, split,
-                    None if part is None else part.data_ptr(), stream)
+                    None if part is None else part.data_ptr(), int(q_offset),
+                    stream)
                 name = "flash_attention"
         if err != 0:
             raise RuntimeError(

@@ -28,8 +28,8 @@ import math
 import torch
 
 from .. import cost
-from .flash_attention import (_check, _check_kernel_layout, _longlongs, route,
-                              shares, tma_geometry)
+from .flash_attention import (_check, _check_kernel_layout, _longlongs,
+                              key_extent, route, shares, tma_geometry)
 from .ref import attention_bwd_ref
 
 #: Head widths the backward kernels are instantiated for (the dense
@@ -86,36 +86,44 @@ def f32_kv_split(B: int, H: int, Hkv: int, Tq: int, Tk: int, hd: int,
     """Shares of the float32 dk/dv kernel (:func:`~.flash_attention.shares`):
     its blocks are the key tiles x key/value heads x batch rows, two an SM
     at hd 64, else one (``n_sms`` SMs); each key tile's (query head, query
-    tile) items are cut, and a sum kernel adds the shares."""
+    tile) items are cut, and a sum kernel adds the shares.  The most items
+    are key tile 0's, every query tile's under the causal mask at any query
+    offset (query row i sits at ``q_offset + i`` >= 0), so the plan does
+    not depend on the offset."""
     return shares(-(-Tk // F32_KV_BK) * Hkv * B,
                   n_sms * (2 if hd == 64 else 1),
                   (H // Hkv) * -(-Tq // F32_KV_BQ[hd]))
 
 
-def f32_dq_split(B: int, H: int, Tq: int, Tk: int, hd: int,
-                 n_sms: int) -> int:
+def f32_dq_split(B: int, H: int, Tq: int, Tk: int, hd: int, n_sms: int,
+                 causal: bool = True, q_offset: int = 0) -> int:
     """Shares of the float32 dq kernel (:func:`~.flash_attention.shares`):
     its blocks are the query tiles x query heads x batch rows, two an SM at
-    hd 64, else one; each query tile's key tiles are cut, and a sum kernel
-    adds the shares."""
+    hd 64, else one; each query tile's key tiles are cut (the longest loop
+    :func:`~.flash_attention.key_extent`'s keys), and a sum kernel adds
+    the shares."""
     return shares(-(-Tq // F32_DQ_BQ[hd]) * H * B,
-                  n_sms * (2 if hd == 64 else 1), -(-Tk // F32_DQ_BK[hd]))
+                  n_sms * (2 if hd == 64 else 1),
+                  -(-key_extent(Tq, Tk, causal, q_offset) // F32_DQ_BK[hd]))
 
 
-def _bwd_cost(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+def _bwd_cost(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
     B, H, Tq, hd = q.shape
     return cost.flash_bwd(B, H, k.shape[1], hd, Tq, k.shape[2], causal,
-                          q.element_size(), window)
+                          q.element_size(), window, q_offset)
 
 
 @cost.counted("flash_attention_bwd_bhtd", _bwd_cost)
 def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, q_offset: int = 0):
     """Gradients of :func:`flash_attention_bhtd` from its saved output ``o``
     and ``lse``.  q, o, do [B,H,Tq,hd]; k/v [B,Hkv,Tk,hd]; lse [B,H,Tq]
     float32.  Returns (dq [B,H,Tq,hd], dk, dv [B,Hkv,Tk,hd]) in the inputs'
     dtype, each allocated with its input's strides (a ``transpose(1, 2)``
     view of the model's [B,T,H,hd] tensors is read and written in place).
+    Query row i sits at position ``q_offset + i`` (the forward's); a key
+    no query reaches gets zero dk and dv.
 
     CPU tensors: the plain version.  CUDA tensors: one launch of each of
     the two bf16 (``wgmma``) or float32 (FMA; and the shares' sums where
@@ -136,7 +144,7 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{tuple(lse.shape)}")
     if q.device.type == "cpu":
         grads = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                  window=window)
+                                  window=window, q_offset=q_offset)
         return tuple(cost.strided_like(g, x) for g, x in zip(grads,
                                                              (q, k, v)))
     if q.device.type not in ("cuda", "meta"):
@@ -172,7 +180,7 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
         split = f32_kv_split(B, H, k.shape[1], Tq, Tk, hd, n_sms)
         if split > 1:
             part = lse.new_empty((2, split, B, k.shape[1], Tk, hd))
-        dq_split = f32_dq_split(B, H, Tq, Tk, hd, n_sms)
+        dq_split = f32_dq_split(B, H, Tq, Tk, hd, n_sms, causal, q_offset)
         if dq_split > 1:
             dq_part = lse.new_empty((dq_split, B, H, Tq, hd))
     if q.device.type == "meta":
@@ -198,7 +206,8 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
                     k.shape[1], Tq, Tk, _longlongs(geom),
                     _longlongs([x.stride(i) for x in (dq, dk, dv)
                                 for i in (0, 1, 2)]),
-                    int(bool(causal)), int(window), scale, stream)
+                    int(bool(causal)), int(window), scale, int(q_offset),
+                    stream)
                 name = "flash_attention_bwd_sm90"
             else:
                 lib = build.load_flash_attention_bwd()
@@ -212,7 +221,8 @@ def flash_attention_bwd_bhtd(q, k, v, o, lse, do, *, causal: bool = True,
                     k.shape[1], Tq, Tk, strides, int(bool(causal)),
                     int(window), scale, split,
                     None if part is None else part.data_ptr(), dq_split,
-                    None if dq_part is None else dq_part.data_ptr(), stream)
+                    None if dq_part is None else dq_part.data_ptr(),
+                    int(q_offset), stream)
                 name = "flash_attention_bwd"
         if err != 0:
             raise RuntimeError(

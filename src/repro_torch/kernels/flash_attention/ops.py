@@ -40,12 +40,13 @@ class FlashAttention(torch.autograd.Function):
     for CPU tensors).  Saves q, k, v, o (kernel layout) and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, reference):
+    def forward(ctx, q, k, v, causal, window, reference, q_offset=0):
         fwd = attention_ref if reference else flash_attention_bhtd
         o, lse = fwd(_t(q), _t(k), _t(v), causal=causal, window=window,
-                     return_lse=True)
+                     return_lse=True, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.reference = causal, window, reference
+        ctx.q_offset = q_offset
         return _t(o)
 
     @staticmethod
@@ -56,8 +57,8 @@ class FlashAttention(torch.autograd.Function):
             do = _t(g.contiguous())
         bwd = attention_bwd_ref if ctx.reference else flash_attention_bwd_bhtd
         dq, dk, dv = bwd(_t(q), _t(k), _t(v), o, lse, do, causal=ctx.causal,
-                         window=ctx.window)
-        return _t(dq), _t(dk), _t(dv), None, None, None
+                         window=ctx.window, q_offset=ctx.q_offset)
+        return _t(dq), _t(dk), _t(dv), None, None, None, None
 
 
 def gqa_kv(k, v, n_q: int, heads):
@@ -78,7 +79,7 @@ def gqa_kv(k, v, n_q: int, heads):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    executor: str = "auto", heads=None):
+                    executor: str = "auto", heads=None, q_offset: int = 0):
     """q [B,Tq,H,hd], k/v [B,Tk,Hkv,hd] -> [B,Tq,H,hd], by executor:
     ``auto`` is the kernel on a CUDA device and the plain version on the
     CPU; ``cuda`` is the kernel and raises for CPU tensors; ``reference`` is
@@ -87,6 +88,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     :class:`FlashAttention`, whose backward follows the same executor.
     ``heads`` (a rank's share of a model's heads, :func:`gqa_kv`): q and
     k/v hold some of the model's heads, and k/v are cut to those q uses.
+    ``q_offset``: the position of q's first row, keys from 0 (a rank's
+    block of the queries against every key, context-parallel attention).
 
     Non-causal attention requires Tk % BK == 0 (or Tk <= BK)."""
     check_executor(executor)
@@ -101,13 +104,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window,
-                                    executor == "reference")
+                                    executor == "reference", q_offset)
     if executor == "reference":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     return _t(flash_attention_bhtd(_t(q), _t(k), _t(v), causal=causal,
-                                   window=window))
+                                   window=window, q_offset=q_offset))
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
     return _t(attention_ref(_t(q), _t(k), _t(v), causal=causal,
-                            window=window))
+                            window=window, q_offset=q_offset))

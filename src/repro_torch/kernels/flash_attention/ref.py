@@ -29,10 +29,11 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     """q [B,H,Tq,hd], k/v [B,Hkv,Tk,hd] -> [B,H,Tq,hd] in q's dtype (and
     lse [B,H,Tq] float32 when ``return_lse``).
 
-    Query row i sits at position ``q_offset + i`` and key j at j (the
-    kernel's positions, with ``q_offset`` 0).  ``q_offset`` lets a caller
-    check a slice of the rows of a long sequence without its full score
-    matrix."""
+    Query row i sits at position ``q_offset + i`` and key j at j, as in
+    the kernels (and JAX's ``attention_chunked(q_offset=...)``): a block
+    of the queries of a longer sequence against all of its keys, as
+    context-parallel attention runs it, or a slice of the rows checked
+    without the full score matrix."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -50,7 +51,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                      window: int = 0):
+                      window: int = 0, q_offset: int = 0):
     """The backward from the forward's saved ``lse`` (the formulas of
     ``repro/kernels/flash_attention/flash_attention_bwd.py:8-10``) on whole
     matrices in float32: with s = q.k^T / sqrt(hd) masked, p = exp(s - lse),
@@ -59,7 +60,8 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
     q, o, do [B,H,Tq,hd]; k/v [B,Hkv,Tk,hd]; lse [B,H,Tq] float32.  Returns
     (dq [B,H,Tq,hd], dk, dv [B,Hkv,Tk,hd]) in the inputs' dtypes, dk and dv
-    summed over each key/value head's group of query heads."""
+    summed over each key/value head's group of query heads.  Query row i
+    sits at position ``q_offset + i`` (:func:`attention_ref`)."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -68,7 +70,7 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     kf = torch.repeat_interleave(k.float(), rep, dim=1)
     vf = torch.repeat_interleave(v.float(), rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    mask = _mask(Tq, Tk, causal, window, q.device)
+    mask = _mask(Tq, Tk, causal, window, q.device, q_offset)
     p = torch.exp(s - lse.float()[..., None]).masked_fill(mask, 0.0)
     delta = (dof * o.float()).sum(-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)

@@ -44,11 +44,15 @@ Host syncs cannot run on ``meta``: the MoE runs ``moe_dense`` (JAX's
 choice; in a train cell each rank's experts on its tokens), or ``a2a``
 under ``--opt`` (in a train cell the rank's sequence block exchanged with
 its experts by all-to-alls over 'model'); ``moe_gmm`` reads its group
-sizes on the host.  ``seq_parallel`` (the residual stream cut over 'model') and
-``cp_attention`` (queries cut by sequence) are sharding hints in JAX and
-no-ops in the port, partitioned step included: the dry run takes them and
-they change no count, so the residual stream and the saved activations
-stay whole on every rank of the model axis.
+sizes on the host.  In the partitioned train cells ``seq_parallel`` (on
+by default; ``dp_only`` turns it off) cuts the residual stream, and so
+the saved block inputs, by sequence over 'model', and context-parallel
+attention (where the heads do not divide the model axis, or
+``cp_attention``, which ``--opt`` sets) gives each model rank its block
+of the queries over every head.  The last model rank's block sees the
+most keys, so such a cell is counted on that rank (the fake world's rank
+``model - 1``: data index 0, model index ``model - 1``); every other cell
+on rank 0.  The result says which (``model_index``).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
@@ -77,7 +81,7 @@ from ..optim import AdamWConfig, OptState, adamw_init
 from ..train import TrainState, make_train_step
 from .hlo_stats import StepCounter, roofline_terms, tensor_leaves
 from .input_specs import NamedSharding, _batch_axes, input_specs
-from .mesh import make_production_mesh
+from .mesh import MULTI_POD_SHAPE, POD_SHAPE, make_production_mesh
 
 TRAIN_MICROBATCHES = 8     # bounds activation memory on the train cells
 
@@ -109,10 +113,11 @@ def _register_fake_backend():
 
 
 @contextlib.contextmanager
-def fake_world(n: int):
-    """A world of ``n`` ranks in this process, as rank 0 of a fake process
-    group (its collectives move nothing), ended on exit.  A running world
-    of ``n`` ranks is used as it is; one of another size raises."""
+def fake_world(n: int, rank: int = 0):
+    """A world of ``n`` ranks in this process, as rank ``rank`` of a fake
+    process group (its collectives move nothing), ended on exit.  A
+    running world of ``n`` ranks is used as it is; one of another size
+    raises."""
     if dist.is_initialized():
         have = dist.get_world_size()
         if have != n:
@@ -121,7 +126,7 @@ def fake_world(n: int):
         yield False
         return
     _register_fake_backend()
-    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
                             world_size=n)
     try:
         yield True
@@ -403,6 +408,24 @@ def probe_extrapolate(cfg, shape_name, mesh, moe_impl, dp_only=False):
     return total, detail
 
 
+def counted_rank(cfg, shape_name: str, multi_pod: bool,
+                 dp_only: bool = False) -> int:
+    """The rank of the production mesh's fake world a cell is counted on:
+    the last model rank (data index 0) where its partitioned train step
+    runs context-parallel attention, whose last query block reaches the
+    most keys; else rank 0."""
+    from ..models.layers import context_parallel
+    from ..train.step import PARTITIONED_FAMILIES
+
+    shape, names = MULTI_POD_SHAPE if multi_pod else POD_SHAPE
+    mp = dict(zip(names, shape))["model"]
+    sh = SHAPES[shape_name]
+    cp = (sh["kind"] == "train" and not dp_only
+          and cfg.family in PARTITIONED_FAMILIES
+          and context_parallel(cfg, mp, sh["seq_len"]))
+    return mp - 1 if cp else 0
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              moe_impl=None, extra_opts=None, verbose=True,
              skip_probes=False):
@@ -416,9 +439,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         cfg = dataclasses.replace(cfg, **ovr)
     dp_only = bool(opts.get("dp_only"))
     n = 512 if multi_pod else 256
-    with fake_world(n):
+    with fake_world(n, counted_rank(cfg, shape_name, multi_pod, dp_only)):
         mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
         chips = mesh.size()
+        model_index = sharding.axis_index(mesh, "model")
         # 1. full program: its memory (and, without probes, its costs)
         t0 = time.time()
         full = count_cell(cfg, shape_name, mesh, moe_impl,
@@ -441,7 +465,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     result = {
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
-        "chips": chips, "kind": sh["kind"], "device": "meta",
+        "chips": chips, "model_index": model_index, "kind": sh["kind"],
+        "device": "meta",
         "moe_impl": _moe_impl(cfg, moe_impl) if cfg.moe else None,
         "compile_s": round(t_trace, 1),
         "flops_per_device": total["flops"],

@@ -58,10 +58,21 @@ rank needs (heads cut below a head, or query heads that do not divide
 the axis) is gathered first.  Outside one, or at model 1, nothing here
 changes.
 
-No counterpart here: ``residual_shard`` (sequence parallelism) and
-``_cp_shard`` (context-parallel attention), mesh constraints that change no
-number and run as no-ops; ``logits_shard`` is the vocabulary-cut logits of
-a partitioned step (``models/lm.py``).
+Two of JAX's sharding constraints change what a rank computes there, and
+the port runs them as GSPMD does:
+  * sequence parallelism (``seq``; JAX's ``residual_shard`` where
+    :func:`sequence_parallel` holds, decided by ``models/lm.py``): the
+    residual stream between the regions is the rank's [B, T / model, D]
+    block, so each region takes its input in by an all-gather over T
+    (``gather_from_sequence``, in place of ``copy_to_model``) and leaves
+    by a reduce-scatter (``scatter_to_sequence``, in place of
+    ``reduce_from_model``); the norms run on the block;
+  * context-parallel attention (JAX's ``_cp_shard``, where
+    :func:`context_parallel` holds): the rank computes every head for its
+    block of the queries, at query offset rank x T / model in kernels 2
+    and 3, against K and V gathered over T.
+``logits_shard`` is the vocabulary-cut logits of a partitioned step
+(``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -76,7 +87,10 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     noop_context_fn)
 
 from ..distributed.sharding import (copy_to_model, gather_from_model,
-                                    model_axis, reduce_from_model)
+                                    gather_from_sequence, gather_out_of_model,
+                                    model_axis, reduce_from_model,
+                                    replicated_from_model,
+                                    scatter_to_sequence, sequence_block)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ops import gqa_kv
 from .common import ModelConfig
@@ -160,7 +174,13 @@ def _norm_impl(norm_type: str, p, x, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
-def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6, *, seq=False):
+    """The config's norm of ``x``; ``seq``: x is the rank's sequence block
+    of a partitioned step, whose share of the parameters' gradient the
+    parameters, entering the region, sum over the model axis."""
+    if seq:
+        ax = model_axis()
+        p = {k: copy_to_model(v, ax) for k, v in p.items()}
     return _norm_impl(cfg.norm_type, p, x, eps)
 
 
@@ -234,12 +254,33 @@ def init_attention(cfg: ModelConfig, gen, cross: bool = False):
     return p
 
 
+def sequence_parallel(cfg: ModelConfig, ax, T: int) -> bool:
+    """Whether a forward without a cache cuts its residual stream of
+    length ``T`` by sequence over the model axis ``ax`` (JAX's
+    ``residual_shard``, models/layers.py:73-87): ``cfg.seq_parallel``, an
+    axis of more than one rank (``ax`` not None), and T divisible by it."""
+    return bool(cfg.seq_parallel) and ax is not None and T % ax.size == 0
+
+
+def context_parallel(cfg: ModelConfig, mp: int, T: int) -> bool:
+    """JAX's condition for context-parallel attention over a model axis
+    of ``mp`` ranks (models/layers.py:384-399): mp > 1, T divisible by it,
+    and heads that it does not divide, or ``cfg.cp_attention``.  JAX also
+    asks Tq > q_chunk, which only picks its chunked branch over full
+    scores; the port's kernel computes both branches, so the condition
+    is left out."""
+    return (mp > 1 and T % mp == 0
+            and (cfg.num_heads % mp != 0
+                 or bool(getattr(cfg, "cp_attention", False))))
+
+
 def local_heads(cfg: ModelConfig, ax) -> tuple:
     """(first query head, query heads, first key-value head, key-value
     heads) this rank computes on the model axis ``ax``: its H / size
     query heads where the axis divides H (every head where it does not,
-    or without an axis), and the key-value heads those use (head h uses
-    h // (H / Hkv))."""
+    or without an axis: on a partitioned path only where T does not
+    divide either, as context-parallel attention takes the rest), and
+    the key-value heads those use (head h uses h // (H / Hkv))."""
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
     if ax is None or H % ax.size:
         return 0, H, 0, Hkv
@@ -260,6 +301,31 @@ def _share(w, ax, dim: int, full: int):
     return copy_to_model(w, ax).narrow(dim, a, b - a)
 
 
+def _whole(w, ax, dim: int, full: int):
+    """The whole of leaf ``w`` (``full`` long along ``dim``) inside a
+    region: the leaf entering where the specs left it whole, else the
+    ranks' blocks gathered (either way its gradient, the rank's share,
+    summed over the axis); ``w`` itself without an axis."""
+    if ax is None:
+        return w
+    if w.shape[dim] == full:
+        return copy_to_model(w, ax)
+    return gather_from_model(w, ax, dim)
+
+
+def _enter(x, ax, seq: bool, dim: int = 1):
+    """A region's input: the replicated stream by ``copy_to_model``, or
+    (``seq``) the rank's sequence block gathered along ``dim``."""
+    return gather_from_sequence(x, ax, dim) if seq else copy_to_model(x, ax)
+
+
+def _leave(y, ax, seq: bool, dim: int = 1):
+    """A region's partial output: summed over the axis, whole
+    (``reduce_from_model``) or (``seq``) the rank's block along ``dim``."""
+    return (scatter_to_sequence(y, ax, dim) if seq
+            else reduce_from_model(y, ax))
+
+
 def _head_cols(w, ax, first: int, n: int, hd: int, total: int):
     """The last-dim columns of heads ``first``..``first + n`` of ``total``
     heads of width ``hd`` from ``w``: whole (entering the region), or this
@@ -277,13 +343,15 @@ def _head_cols(w, ax, first: int, n: int, hd: int, total: int):
     return gather_from_model(w, ax)[..., lo:hi]
 
 
-def _qkv(cfg: ModelConfig, p, x, xkv=None, ax=None):
-    """q [B,T,H,hd], k/v [B,Tk,Hkv,hd]; with a model axis ``ax``, the
-    rank's heads (:func:`local_heads`) from its blocks."""
+def _qkv(cfg: ModelConfig, p, x, xkv=None, ax=None, heads=None):
+    """q [B,T,H,hd], k/v [B,Tk,Hkv,hd] of ``x`` (inside the region: the
+    caller brings it in); with a model axis ``ax``, the heads ``heads`` =
+    (first query head, query heads, first key-value head, key-value
+    heads), by default the rank's (:func:`local_heads`), from its
+    blocks."""
     hd = cfg.resolved_head_dim
-    x = copy_to_model(x, ax)
     xkv = x if xkv is None else xkv
-    q0, nq, k0, nk = local_heads(cfg, ax)
+    q0, nq, k0, nk = heads or local_heads(cfg, ax)
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
     q = x @ _head_cols(p["wq"], ax, q0, nq, hd, H)
     k = xkv @ _head_cols(p["wk"], ax, k0, nk, hd, Hkv)
@@ -367,9 +435,47 @@ def _write_ring(cache, k, v, positions):
     return ck, cv
 
 
+def _rope(cfg: ModelConfig, q, k, positions, mrope_pos):
+    """q and k rotated at ``positions`` [B, T] (``mrope_pos`` [3, B, T]
+    under M-RoPE)."""
+    hd = cfg.resolved_head_dim
+    if cfg.mrope and mrope_pos is not None:
+        cos, sin = mrope_cos_sin(mrope_pos, cfg.mrope_sections, hd,
+                                 cfg.rope_theta)
+    else:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+def _cp_attention(cfg: ModelConfig, p, x, positions, window, mrope_pos,
+                  executor, seq, ax):
+    """Context-parallel causal self-attention on the model axis ``ax``
+    (JAX's ``_cp_shard`` route): the rank's block of T / size queries
+    over every head, from the whole ``wq`` (its blocks gathered); K and V
+    computed on the block and gathered over T (the small GQA K/V); kernels
+    2 and 3 at query offset rank x T / size; the block's output by the
+    whole ``wo``, the rank's block of the stream (``seq``) or, without
+    sequence parallelism, gathered back into the replicated stream."""
+    hd, H, Hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    t0, n = sequence_block(positions.shape[1], ax)
+    xb = x if seq else copy_to_model(x, ax).narrow(1, t0, n)
+    q, k, v = _qkv(cfg, p, xb, None, ax, heads=(0, H, 0, Hkv))
+    if cfg.use_rope:
+        q, k = _rope(cfg, q, k, positions[:, t0:t0 + n],
+                     None if mrope_pos is None else
+                     mrope_pos[:, :, t0:t0 + n])
+    k, v = gather_from_sequence(k, ax), gather_from_sequence(v, ax)
+    y = flash_attention(q, k, v, causal=True, window=window,
+                        executor=executor, q_offset=t0)
+    B = y.shape[0]
+    y = y.reshape(B, n, H * hd) @ _whole(p["wo"], ax, 0, H * hd)
+    return y if seq else gather_out_of_model(y, ax, 1)
+
+
 def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
               cache=None, from_start=False, xkv=None, mrope_pos=None,
-              executor="auto"):
+              executor="auto", seq=False):
     """Unified attention: forward without a cache, prefill, and decode.
 
     cache: None -> plain forward over x; a layer cache dict
@@ -383,15 +489,23 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     ``mrope_pos`` [3, B, T]: M-RoPE positions, used when ``cfg.mrope``.
     ``executor`` picks the flash-attention sites' implementation
     (``auto``/``cuda``/``reference``, kernels/flash_attention/ops.py).
+    ``seq``: in a partitioned step, x and y are the rank's blocks of the
+    sequence-parallel stream (``positions`` whole).
     Returns (y [B,T,D], new_cache_or_None).  Without a cache, causal
     attention over Tq > 1 runs the kernel, which covers both of JAX's
-    branches (full scores, and ``attention_chunked`` past ``q_chunk``).
+    branches (full scores, and ``attention_chunked`` past ``q_chunk``);
+    in a partitioned step where :func:`context_parallel` holds, on the
+    rank's block of the queries (:func:`_cp_attention`).
     """
     ax = model_axis()
     if ax is not None and (cache is not None or xkv is not None):
         raise ValueError("a partitioned step runs self-attention without a "
                          "cache")
-    q, k, v = _qkv(cfg, p, x, xkv, ax)
+    if ax is not None and causal and context_parallel(
+            cfg, ax.size, positions.shape[1]):
+        return _cp_attention(cfg, p, x, positions, window, mrope_pos,
+                             executor, seq, ax), None
+    q, k, v = _qkv(cfg, p, _enter(x, ax, seq), xkv, ax)
     hd = cfg.resolved_head_dim
     # a rank's query heads and the key-value heads they use (GQA by the
     # global head index), for the kernel's wrapper
@@ -400,14 +514,7 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
                                      cfg.num_heads // cfg.num_kv_heads)
 
     if xkv is None and cfg.use_rope:
-        if cfg.mrope and mrope_pos is not None:
-            cos, sin = mrope_cos_sin(mrope_pos, cfg.mrope_sections, hd,
-                                     cfg.rope_theta)
-        else:
-            cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-            cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q, k = _rope(cfg, q, k, positions, mrope_pos)
 
     B, Tq = q.shape[:2]
     new_cache = None
@@ -461,13 +568,13 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     y = y.reshape(B, Tq, q.shape[2] * hd)
     # the row product of the rank's rows of wo, summed over the model axis:
     # its heads' rows, or its chunk of every head's rows where each rank
-    # computed every head (the axis does not divide H)
+    # computed every head (the axis divides neither H nor T)
     full = cfg.num_heads * hd
     wo = _share(p["wo"], ax, 0, full)
     if wo.shape[0] != y.shape[-1]:
         a = full * ax.rank // ax.size
         y = y[..., a:a + wo.shape[0]]
-    return reduce_from_model(y @ wo, ax), new_cache
+    return _leave(y @ wo, ax, seq), new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -504,23 +611,36 @@ def init_mlp(cfg: ModelConfig, gen, d_ff: Optional[int] = None):
     }
 
 
-def mlp(cfg: ModelConfig, p, x, d_ff: Optional[int] = None):
-    """The block's MLP, ``d_ff`` wide whole (``cfg.d_ff`` by default; the
-    MoE's shared experts are ``d_ff_expert * num_shared_experts``); in a
-    partitioned step, the rank's columns of ``wg``/``wu`` and rows of
-    ``wd`` (told from the whole leaves by that width), the row product
-    summed over the model axis, ``bd`` added once after the sum."""
-    ax = model_axis()
-    F_, x = d_ff or cfg.d_ff, copy_to_model(x, ax)
+def _mlp_rows(cfg: ModelConfig, p, x, F_: int, ax):
+    """The MLP's row product of ``x`` (inside the region) before the sum
+    over the model axis and ``bd``: the rank's columns of ``wg``/``wu``
+    and rows of ``wd`` (whole leaves, ``F_`` wide, cut)."""
     wu, wd = _share(p["wu"], ax, -1, F_), _share(p["wd"], ax, 0, F_)
     # jax.nn.gelu defaults to the tanh approximation.
     if cfg.mlp_type == "gelu":
         h = F.gelu(x @ wu + _share(p["bu"], ax, -1, F_), approximate="tanh")
-        return reduce_from_model(h @ wd, ax) + p["bd"]
+        return h @ wd
     g = x @ _share(p["wg"], ax, -1, F_)
     g = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(
         g, approximate="tanh")
-    return reduce_from_model((g * (x @ wu)) @ wd, ax)
+    return (g * (x @ wu)) @ wd
+
+
+def mlp(cfg: ModelConfig, p, x, d_ff: Optional[int] = None, seq=False):
+    """The block's MLP, ``d_ff`` wide whole (``cfg.d_ff`` by default; the
+    MoE's shared experts are ``d_ff_expert * num_shared_experts``); in a
+    partitioned step, the rank's columns of ``wg``/``wu`` and rows of
+    ``wd`` (told from the whole leaves by that width), the row product
+    summed over the model axis, ``bd`` added once after the sum.  ``seq``:
+    x and the output are the rank's blocks of the sequence-parallel stream
+    along dim -2 (the tokens of [B, T, D] or [N, D])."""
+    ax = model_axis()
+    F_ = d_ff or cfg.d_ff
+    y = _leave(_mlp_rows(cfg, p, _enter(x, ax, seq, -2), F_, ax), ax, seq,
+               -2)
+    if cfg.mlp_type == "gelu":
+        y = y + (copy_to_model(p["bd"], ax) if seq else p["bd"])
+    return y
 
 
 # ------------------------------------------------------------------- moe ---
@@ -576,18 +696,48 @@ def _expert_block(E: int, ax) -> tuple:
     return E * ax.rank // ax.size, E * (ax.rank + 1) // ax.size
 
 
-def shared_experts(cfg: ModelConfig, p, xf):
+def shared_experts(cfg: ModelConfig, p, xf, seq=False):
     """The shared experts' output for the tokens ``xf`` [N, D]: one MLP
-    of them all, ``d_ff_expert * num_shared_experts`` wide whole."""
+    of them all, ``d_ff_expert * num_shared_experts`` wide whole (``seq``:
+    :func:`mlp`'s)."""
     m = cfg.moe
-    return mlp(cfg, p["shared"], xf, m.d_ff_expert * m.num_shared_experts)
+    return mlp(cfg, p["shared"], xf, m.d_ff_expert * m.num_shared_experts,
+               seq)
+
+
+def _moe_tokens(x, ax, seq: bool):
+    """(the tokens [N, D] the router runs on, the same tokens inside the
+    region) of a MoE layer's input ``x``: the replicated tokens, entering
+    by ``copy_to_model``; or (``seq``) the rank's sequence block gathered
+    over T, which the router, run alike on every rank, sees as a
+    replicated value (``replicated_from_model``: each rank's gradient a
+    1 / size share, which the gather's reduce-scatter sums)."""
+    D = x.shape[-1]
+    if seq:
+        xin = gather_from_sequence(x, ax).reshape(-1, D)
+        return replicated_from_model(xin, ax), xin
+    xf = x.reshape(-1, D)
+    return xf, copy_to_model(xf, ax)
+
+
+def _moe_out(cfg: ModelConfig, p, out, xin, x, ax, seq: bool):
+    """A MoE layer's output [B, T, D] (the rank's block under ``seq``) from
+    the rank's partial expert sums ``out`` [N, D] and, where the config has
+    them, the shared experts' row product of ``xin``, summed over the
+    model axis together."""
+    m = cfg.moe
+    if m.num_shared_experts:
+        out = out + _mlp_rows(cfg, p["shared"], xin,
+                              m.d_ff_expert * m.num_shared_experts, ax)
+    B, T = x.shape[0], out.shape[0] // x.shape[0]
+    return _leave(out.reshape(B, T, -1), ax, seq)
 
 
 def _swiglu(x, wg, wu, wd, dtype):
     return (F.silu(x @ wg) * (x @ wu)).to(dtype) @ wd
 
 
-def moe_gmm(cfg: ModelConfig, p, x):
+def moe_gmm(cfg: ModelConfig, p, x, seq=False):
     """Dropless MoE: the k (token, expert) pairs of every token sorted by
     expert (a stable sort, as ``jnp.argsort``), each expert's contiguous
     rows through its SwiGLU by ``torch.matmul`` (JAX's ``lax.ragged_dot``),
@@ -599,14 +749,15 @@ def moe_gmm(cfg: ModelConfig, p, x):
     not summed over the axis); only the pairs of the rank's experts
     (:func:`_expert_block`) run, their tokens and routing weights entering
     the region (:func:`~repro_torch.distributed.sharding.copy_to_model`:
-    their gradients summed over the axis), and each token's partial sum
-    over them leaves summed over the axis."""
+    their gradients summed over the axis; ``seq``: :func:`_moe_tokens`),
+    and each token's partial sum over them, with the shared experts',
+    leaves summed over the axis (:func:`_moe_out`)."""
     m = cfg.moe
     ax = model_axis()
-    B, T, D = x.shape
-    N, k, E = B * T, m.top_k, m.num_experts
-    xf = x.reshape(N, D)
-    w, ids, aux = moe_router(cfg, p, xf)
+    xr, xin = _moe_tokens(x, ax, seq)
+    N, D = xin.shape
+    k, E = m.top_k, m.num_experts
+    w, ids, aux = moe_router(cfg, p, xr)
     e0, e1 = _expert_block(E, ax)
 
     flat = ids.reshape(-1)
@@ -617,7 +768,7 @@ def moe_gmm(cfg: ModelConfig, p, x):
         E + 1, device=x.device)).tolist()
     a, b = bounds[e0], bounds[e1]
     mine = order[a:b]                                        # the rank's pairs
-    xs = copy_to_model(xf, ax)[mine // k]                    # source token
+    xs = xin[mine // k]                                      # source token
     wg, wu, wd = (_share(p[n], ax, 0, E).unbind(0) for n in ("wg", "wu",
                                                              "wd"))
     ys = [_swiglu(xs[lo - a:hi - a], wg[e - e0], wu[e - e0], wd[e - e0],
@@ -641,37 +792,29 @@ def moe_gmm(cfg: ModelConfig, p, x):
     out = c[:, 0]
     for j in range(1, k):
         out = out + c[:, j]
-    out = reduce_from_model(out, ax)
-
-    if m.num_shared_experts:
-        out = out + shared_experts(cfg, p, xf)
-    return out.reshape(B, T, D), aux
+    return _moe_out(cfg, p, out, xin, x, ax, seq), aux
 
 
-def moe_dense(cfg: ModelConfig, p, x):
+def moe_dense(cfg: ModelConfig, p, x, seq=False):
     """All-experts formulation: every token through every expert, combined
     by the routing weights (E/k x the operations of :func:`moe_gmm`).  In
     a partitioned step (what GSPMD makes of JAX's placed ``moe_dense``)
     the router runs alike on every rank, the rank's experts on every
     token, the combine weights of those experts entering the region, and
-    the partial combine leaves summed over the axis."""
+    the partial combine leaves summed over the axis (``seq``:
+    :func:`moe_gmm`'s)."""
     m = cfg.moe
     ax = model_axis()
-    B, T, D = x.shape
     E = m.num_experts
-    xf = x.reshape(B * T, D)
-    w, ids, aux = moe_router(cfg, p, xf)
+    xr, xin = _moe_tokens(x, ax, seq)
+    w, ids, aux = moe_router(cfg, p, xr)
     mask = _one_hot(ids, E)                                       # [N,k,E]
     comb = torch.einsum("nk,nke->ne", w, mask).to(x.dtype)        # [N,E]
     comb = _share(comb, ax, 1, E)             # the rank's experts' columns
 
-    xin = copy_to_model(xf, ax)
     g = torch.einsum("nd,edf->enf", xin, _share(p["wg"], ax, 0, E))
     u = torch.einsum("nd,edf->enf", xin, _share(p["wu"], ax, 0, E))
     h = (F.silu(g) * u).to(x.dtype)
     y = torch.einsum("enf,efd->end", h, _share(p["wd"], ax, 0, E))  # [E,N,D]
-    out = reduce_from_model(torch.einsum("end,ne->nd", y, comb), ax)
-
-    if m.num_shared_experts:
-        out = out + shared_experts(cfg, p, xf)
-    return out.reshape(B, T, D), aux
+    out = torch.einsum("end,ne->nd", y, comb)
+    return _moe_out(cfg, p, out, xin, x, ax, seq), aux

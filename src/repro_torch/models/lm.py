@@ -18,6 +18,12 @@ vocabulary is cut over the model axis where the specs cut ``embed`` (and
 ``head``): the lookup zeroes the rows outside the rank's range and sums
 over the axis, and the logits are the rank's block of the vocabulary
 (JAX's ``logits_shard``), for ``train.step.cross_entropy`` to reduce.
+Where ``layers.sequence_parallel`` holds (JAX's ``residual_shard``,
+lm.py:40-41: ``cfg.seq_parallel``, no cache, the model axis dividing T),
+the residual stream is the rank's [B, T / model, D] block from the
+embedding (whose sum over the axis is reduce-scattered) through every
+block and the final norm; the logits gather T first, so they stay whole
+in T and cut by vocabulary.  Elsewhere the stream is whole on every rank.
 """
 from __future__ import annotations
 
@@ -27,8 +33,10 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import (copy_to_model, model_axis,
-                                    reduce_from_model)
+from ..distributed.sharding import (copy_to_model, gather_from_sequence,
+                                    gather_out_of_model, model_axis,
+                                    reduce_from_model, scatter_to_sequence,
+                                    sequence_block)
 from . import layers as L
 from .common import ModelConfig
 
@@ -68,23 +76,25 @@ def init_block(cfg: ModelConfig, gen):
 
 
 def block_fwd(cfg: ModelConfig, p, x, positions, cache, mrope_pos, *,
-              moe_impl, from_start, executor):
-    """One block: (x, new cache, aux loss)."""
+              moe_impl, from_start, executor, seq=False):
+    """One block: (x, new cache, aux loss).  ``seq``: x is the rank's
+    block of the sequence-parallel stream (module docstring)."""
     h, new_cache = L.attention(
-        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions,
+        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x, seq=seq), positions,
         causal=True, window=cfg.sliding_window, cache=cache,
-        from_start=from_start, mrope_pos=mrope_pos, executor=executor)
+        from_start=from_start, mrope_pos=mrope_pos, executor=executor,
+        seq=seq)
     x = x + h
-    hn = L.apply_norm(cfg, p["ln2"], x)
+    hn = L.apply_norm(cfg, p["ln2"], x, seq=seq)
     if cfg.moe is not None:
         if moe_impl == "a2a":
             from ..distributed.moe_a2a import moe_a2a
-            h, aux = moe_a2a(cfg, p["moe"], hn)
+            h, aux = moe_a2a(cfg, p["moe"], hn, seq=seq)
         else:
             fn = L.moe_gmm if moe_impl == "gmm" else L.moe_dense
-            h, aux = fn(cfg, p["moe"], hn)
+            h, aux = fn(cfg, p["moe"], hn, seq=seq)
     else:
-        h = L.mlp(cfg, p["mlp"], hn)
+        h = L.mlp(cfg, p["mlp"], hn, seq=seq)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, new_cache, aux
 
@@ -156,28 +166,37 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None, cut=None):
     return _to(params, dev)
 
 
-def embed(cfg: ModelConfig, params, tokens):
+def embed(cfg: ModelConfig, params, tokens, seq=False):
     """The token embeddings [B, T, D]; in a partitioned step whose rank
     holds a block of the vocabulary's rows, the rank's rows looked up (the
-    others zero) and summed over the model axis."""
+    others zero) and summed over the model axis.  ``seq``: the rank's
+    block [B, T / model, D] of the sum (a reduce-scatter), or of a whole
+    table's lookup (the table entering the region)."""
     e, ax = params["embed"], model_axis()
     if ax is None or e.shape[0] == cfg.vocab_size:
-        return e[tokens.long()]
+        if not seq:
+            return e[tokens.long()]
+        t0, n = sequence_block(tokens.shape[1], ax)
+        return copy_to_model(e, ax)[tokens[:, t0:t0 + n].long()]
     n = e.shape[0]
     t = tokens.long() - ax.rank * n
     inside = (t >= 0) & (t < n)
     x = e[t.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
-    return reduce_from_model(x, ax)
+    return scatter_to_sequence(x, ax) if seq else reduce_from_model(x, ax)
 
 
-def logits_of(cfg: ModelConfig, params, x):
+def logits_of(cfg: ModelConfig, params, x, seq=False):
     """x @ the output embedding (tied: ``embed``'s transpose); in a
     partitioned step, the rank's block of the vocabulary where it holds
-    one."""
+    one.  ``seq``: x is the rank's sequence block, gathered over T first
+    (into the region, or, for a whole vocabulary every rank computes
+    alike, into the replicated stream)."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     ax = model_axis()
     if ax is not None and w.shape[1] != cfg.vocab_size:
-        x = copy_to_model(x, ax)
+        x = gather_from_sequence(x, ax) if seq else copy_to_model(x, ax)
+    elif seq:
+        x = gather_out_of_model(x, ax, 1)
     return x @ w.to(x.dtype)
 
 
@@ -217,17 +236,26 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
 def _forward(cfg, params, tokens, positions, caches, vision_embeds,
              mrope_pos, moe_impl, logits_slice, executor):
     B, T = tokens.shape
-    x = embed(cfg, params, tokens)
+    ax = model_axis()
+    # the residual stream cut by sequence (JAX's residual_shard; a forward
+    # without a cache, whose logits are all kept)
+    seq = (caches is None and logits_slice is None
+           and L.sequence_parallel(cfg, ax, T))
+    x = embed(cfg, params, tokens, seq)
     if vision_embeds is not None:
-        Tv = vision_embeds.shape[1]
-        x = torch.cat([vision_embeds.to(x.dtype), x[:, Tv:]], dim=1)
+        # they replace the first Tv token slots (of the rank's block)
+        t0, n = sequence_block(T, ax if seq else None)
+        m = max(0, min(vision_embeds.shape[1] - t0, n))
+        x = torch.cat([vision_embeds[:, t0:t0 + m].to(x.dtype), x[:, m:]],
+                      dim=1)
     from_start = positions is None
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
 
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     context_fn = L.remat_policy(cfg) if remat else None
-    kw = dict(moe_impl=moe_impl, from_start=from_start, executor=executor)
+    kw = dict(moe_impl=moe_impl, from_start=from_start, executor=executor,
+              seq=seq)
     auxs = []
     for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
         c = None
@@ -241,10 +269,10 @@ def _forward(cfg, params, tokens, positions, caches, vision_embeds,
             x, _, aux = block_fwd(cfg, bp, x, positions, c, mrope_pos, **kw)
         auxs.append(aux)
 
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    x = L.apply_norm(cfg, params["final_norm"], x, seq=seq)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    logits = logits_of(cfg, params, x)
+    logits = logits_of(cfg, params, x, seq)
     new_caches = None
     if caches is not None:
         new_caches = {k: v for k, v in caches.items() if k != "rows"}

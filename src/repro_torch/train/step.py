@@ -20,9 +20,20 @@ megatron's column and row blocks, the vocabulary cut over 'model', and
 the MoE's E / model experts of ``moe/w[gud]`` beside the replicated
 router), averages them over the data axes, clips by the norm over the
 blocks, and updates its blocks, each cut to the moments' data share and
-gathered back over 'data'.  At model 1 and one data rank the numbers are
-one card's bit for bit; over several ranks the row products' and the
-experts' sums and the data mean change the float32 round-off.
+gathered back over 'data'.  Between the regions the residual stream is
+the rank's block of the sequence where JAX's ``residual_shard`` cuts it
+(``seq_parallel``, the model axis dividing T: megatron's sequence
+parallelism, an all-gather over T into each region and a reduce-scatter
+out of it, so the blocks' saved inputs are 1 / model a rank), whole on
+every model rank elsewhere; attention runs context-parallel where JAX's
+``_cp_shard`` does (the heads not dividing the model axis, or
+``cp_attention``: each rank every head on its block of the queries).
+Both cut only over 'model', inside the model (``models/lm.py``,
+``models/layers.py``), so the batch's rows and the data mean are as
+without them.  At model 1 and one data rank the numbers are one card's
+bit for bit; over several ranks the row products' and the experts' sums,
+the data mean and the sequence blocks' reductions change the float32
+round-off.
 
 The MoE runs in the step as ``moe_impl`` names it, on the rank's blocks:
 ``gmm`` the pairs routed to the rank's experts, ``dense`` the rank's

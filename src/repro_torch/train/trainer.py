@@ -72,7 +72,7 @@ def train(bundle: ModelBundle, opt_cfg: AdamWConfig, data: Iterator[dict],
         if placed and leaves(state.params)[0].device_mesh.mesh.numel() > 1:
             raise NotImplementedError(
                 "checkpoints of a state placed over several ranks: ROADMAP "
-                "item 10 (one rank's mesh, or no mesh, checkpoints)")
+                "item 9g.5 (one rank's mesh, or no mesh, checkpoints)")
         ckpt = AsyncCheckpointer(tcfg.ckpt_dir)
         restored, rstep = restore_latest(tcfg.ckpt_dir, host(state))
         if restored is not None:

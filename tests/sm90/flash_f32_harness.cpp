@@ -51,7 +51,8 @@ namespace {
 template <int HD>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int B, int H, int Hkv, int Tq, int Tk, const long long* st,
-        int causal, int window, float scale, int split, float* part) {
+        int causal, int window, float scale, int split, float* part,
+        int q_offset) {
   using C = fwdk::Fwd<HD>;
   if (C::kSmem > 232448 || C::kSmem > (int)sizeof(smem_raw)) return 2;
   if (split < 1 || (split > 1 && part == nullptr)) return 1;
@@ -59,7 +60,7 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
     fwdk::flash_fwd_kernel<float, HD>(
         q, k, v, o, lse, H, Hkv, Tq, Tk, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window,
-        scale, split, part);
+        scale, split, part, q_offset);
   });
   if (split > 1)
     run_grid(dim3(4), 256, [&] {
@@ -74,7 +75,7 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
         const float* lse, const float* delta, float* dq, float* dk,
         float* dv, int B, int H, int Hkv, int Tq, int Tk, const long long* s,
         int causal, int window, float scale, int split, float* part,
-        int dq_split, float* dq_part) {
+        int dq_split, float* dq_part, int q_offset) {
   using Q = bwdk::Dq<HD>;
   using KV = bwdk::Dkv<HD>;
   if (Q::kSmem > 232448 || KV::kSmem > 232448) return 2;
@@ -101,13 +102,14 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
   run_grid(bwdk::dq_grid<HD>(B, H, Tq, dq_split), Q::kThreads, [&] {
     bwdk::flash_bwd_dq_kernel<float, HD>(q, k, v, dout, lse, delta, dq, H,
                                          Hkv, Tq, Tk, st, causal, window,
-                                         scale, dq_split, dq_part);
+                                         scale, dq_split, dq_part, q_offset);
   });
   if (dq_split > 1) sum(dq_part, dq, H, Tq, st.dq, dq_split);
   run_grid(bwdk::dkdv_grid<HD>(B, Hkv, Tk, split), KV::kThreads, [&] {
     bwdk::flash_bwd_dkdv_kernel<float, HD>(q, k, v, dout, lse, delta, dk,
                                            dv, part, H, Hkv, Tq, Tk, st,
-                                           causal, window, scale, split);
+                                           causal, window, scale, split,
+                                           q_offset);
   });
   if (split > 1) {
     sum(part, dk, Hkv, Tk, st.dk, split);
@@ -125,16 +127,17 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
 extern "C" __attribute__((visibility("default"))) int flash_f32_fwd_host(
     int hd, const float* q, const float* k, const float* v, float* o,
     float* lse, int B, int H, int Hkv, int Tq, int Tk, const long long* st,
-    int causal, int window, float scale, int split, float* part) {
+    int causal, int window, float scale, int split, float* part,
+    int q_offset) {
   if (hd == 64)
     return fwd<64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, st, causal, window,
-                   scale, split, part);
+                   scale, split, part, q_offset);
   if (hd == 128)
     return fwd<128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, st, causal, window,
-                    scale, split, part);
+                    scale, split, part, q_offset);
   if (hd == 256)
     return fwd<256>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, st, causal, window,
-                    scale, split, part);
+                    scale, split, part, q_offset);
   return 1;
 }
 
@@ -145,17 +148,18 @@ extern "C" __attribute__((visibility("default"))) int flash_f32_bwd_host(
     const float* dout, const float* lse, const float* delta, float* dq,
     float* dk, float* dv, int B, int H, int Hkv, int Tq, int Tk,
     const long long* st, int causal, int window, float scale, int split,
-    float* part, int dq_split, float* dq_part) {
+    float* part, int dq_split, float* dq_part, int q_offset) {
   if (hd == 64)
     return bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, Tq, Tk,
-                   st, causal, window, scale, split, part, dq_split, dq_part);
+                   st, causal, window, scale, split, part, dq_split, dq_part,
+                   q_offset);
   if (hd == 128)
     return bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, Tq,
                     Tk, st, causal, window, scale, split, part, dq_split,
-                    dq_part);
+                    dq_part, q_offset);
   if (hd == 256)
     return bwd<256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, Tq,
                     Tk, st, causal, window, scale, split, part, dq_split,
-                    dq_part);
+                    dq_part, q_offset);
   return 1;
 }

@@ -4,7 +4,8 @@
 //   harness fwd <in> <out>    harness bwd <in> <out>    harness layout
 // The input file is written by tests/test_torch_flash_sm90.py: a header of
 // int64 (shapes, masks, the wrappers' TMA geometry, output strides, the
-// storage sizes and offsets of every tensor) and the tensors' storages.
+// storage sizes and offsets of every tensor, the query offset) and the
+// tensors' storages.
 // kernels_cut.inc is the two sources' device code up to their launch
 // functions, each in its own namespace (fwdk, bwdk).
 #include "emu.h"
@@ -47,6 +48,7 @@ void run_fwd(const std::vector<long long>& h, std::vector<uint8_t>& q, std::vect
   const long long* geom = &h[9];
   const long long* ostr = &h[36];
   const long long* off = &h[39 + 4];   // storage offsets q k v o (elements)
+  const int q_offset = h[47];
   using namespace fwdk;
   using C = Fwd<HD>;
   if (geom[8] != kBQ || geom[17] != C::kBK) { printf("box mismatch\n"); std::exit(3); }
@@ -56,7 +58,8 @@ void run_fwd(const std::vector<long long>& h, std::vector<uint8_t>& q, std::vect
   float scale_log2 = (1.0f / std::sqrt((float)HD)) * 1.4426950408889634f;
   run_grid(dim3(H, B, (Tq + kBQ - 1) / kBQ), kThreads, [&] {
     flash_fwd_sm90_kernel<HD>(tq, tk, tv, op, h[8] ? lse.data() : nullptr, H, Hkv, Tq, Tk,
-                              ostr[0], ostr[1], ostr[2], causal, window, scale_log2);
+                              ostr[0], ostr[1], ostr[2], causal, window, scale_log2,
+                              q_offset);
   });
   if (C::kSmem > 232448) { printf("smem too large\n"); std::exit(3); }
 }
@@ -69,6 +72,7 @@ void run_bwd(const std::vector<long long>& h, std::vector<std::vector<uint8_t>>&
   const long long* geom = &h[9];
   const long long* ostr = &h[81];
   const long long* off = &h[90 + 7];
+  const int q_offset = h[104];
   using namespace bwdk;
   OutStrides os;
   for (int i = 0; i < 3; ++i) { os.dq[i] = ostr[i]; os.dk[i] = ostr[3 + i]; os.dv[i] = ostr[6 + i]; }
@@ -87,11 +91,11 @@ void run_bwd(const std::vector<long long>& h, std::vector<std::vector<uint8_t>>&
   if (C::kDqSmem > 232448 || C::kKvSmem > 232448) { printf("smem too large\n"); std::exit(3); }
   run_grid(dim3(H * C::kSplit, B, (Tq + kQBQ - 1) / kQBQ), kThreads, [&] {
     flash_bwd_dq_sm90_kernel<HD>(m[0], m[1], m[2], m[3], lse.data(), delta.data(), pitch, dq, H,
-                                 Hkv, Tq, Tk, os, causal, window, scale);
+                                 Hkv, Tq, Tk, os, causal, window, scale, q_offset);
   });
   run_grid(dim3(Hkv * C::kSplit, B, (Tk + kKBK - 1) / kKBK), kThreads, [&] {
     flash_bwd_dkdv_sm90_kernel<HD>(m[4], m[5], m[6], m[7], tl, td, dk, dv, H, Hkv, Tq, Tk, os,
-                                   causal, window, scale);
+                                   causal, window, scale, q_offset);
   });
 }
 
@@ -122,7 +126,7 @@ int main(int argc, char** argv) {
   std::ifstream f(argv[2], std::ios::binary);
   std::ofstream out(argv[3], std::ios::binary);
   if (std::string(argv[1]) == "fwd") {
-    auto h = rd_ll(f, 39 + 8);
+    auto h = rd_ll(f, 39 + 9);
     const long long* n = &h[39];
     auto q = rd_bytes(f, n[0] * 2), k = rd_bytes(f, n[1] * 2), v = rd_bytes(f, n[2] * 2);
     std::vector<uint8_t> o(n[3] * 2, 0xFF);
@@ -134,7 +138,7 @@ int main(int argc, char** argv) {
     out.write((char*)o.data(), o.size());
     out.write((char*)lse.data(), lse.size() * 4);
   } else {
-    auto h = rd_ll(f, 90 + 14);
+    auto h = rd_ll(f, 90 + 15);
     const long long* n = &h[90];
     std::vector<std::vector<uint8_t>> st(7);
     for (int i = 0; i < 4; ++i) st[i] = rd_bytes(f, n[i] * 2);

@@ -188,7 +188,8 @@ def test_dp_only_cuts_the_batch_over_every_axis():
     ('data', 'model'), the parameters are replicated, so each rank of a
     2 x 2 mesh runs half the rows of the default step, whose model axis
     partitions every product of its data rank's rows instead: the same
-    FLOPs, the default step's all-reduces carrying the row products'
+    FLOPs, the default step's reductions (reduce-scatters over T under
+    sequence parallelism, and all-reduces) carrying the row products'
     partial sums."""
     cfg = D.dryrun_config("qwen3-0.6b")
     with dryrun.fake_world(4):
@@ -199,7 +200,8 @@ def test_dp_only_cuts_the_batch_over_every_axis():
                                       microbatches=2, dp_only=flag)
                     for flag in (False, True))
     assert dp["flops"] == base["flops"]
-    red = [c["coll_detail"]["bytes"]["all-reduce"] for c in (base, dp)]
+    red = [sum(c["coll_detail"]["bytes"].get(k, 0)
+               for k in ("all-reduce", "reduce-scatter")) for c in (base, dp)]
     assert red[0] > 100 * red[1]
 
 
@@ -246,10 +248,17 @@ def test_meta_count_equals_a_cpu_run(gloo_counts):
         m, c = meta[cell], cpu[cell]
         for k in ("flops", "bytes", "coll_detail"):
             assert m[k] == c[k], (cell, k, m[k], c[k])
+        # gloo's reduce-scatter on CPU tensors copies its result into the
+        # output when the caller waits, in the caller's thread, where the
+        # counter sees a copy (read and written): 2 x the result's bytes
+        # more than the program moves (a fake world, or NCCL, write the
+        # output in the collective itself)
+        rs = m["coll_detail"]["bytes"].get("reduce-scatter", 0)
         for r in ranks:
             g = r[f"{cell[0]}/{cell[1]}"]
             assert g["coll_detail"] == m["coll_detail"], cell
-            assert (g["flops"], g["bytes"]) == (m["flops"], m["bytes"])
+            assert (g["flops"], g["bytes"]) == (m["flops"],
+                                                m["bytes"] + 2 * rs)
 
 
 def _flat(tree, shards, path=""):

@@ -42,6 +42,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro.models.layers import attention_chunked as j_attention_chunked
 from repro_torch.kernels import build
 
 fa = importlib.import_module(
@@ -89,11 +90,11 @@ def lib(tmp_path_factory):
     h.flash_f32_fwd_host.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ll, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p])
+           ctypes.c_void_p, ctypes.c_int])
     h.flash_f32_bwd_host.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ll, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-        + [ctypes.c_int, ctypes.c_void_p] * 2)
+        + [ctypes.c_int, ctypes.c_void_p] * 2 + [ctypes.c_int])
     return h
 
 
@@ -112,27 +113,29 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def emulated_forward(lib, q, k, v, causal, window, split=None):
+def emulated_forward(lib, q, k, v, causal, window, split=None, q_offset=0):
     """(o, lse) of the float32 forward kernel under the emulator, o with
     q's strides as the wrapper allocates it; ``split`` shares (default: the
-    wrapper's plan for a card of EMU_SMS SMs)."""
+    wrapper's plan for a card of EMU_SMS SMs); query row i at position
+    q_offset + i."""
     B, H, Tq, hd = q.shape
     Tk = k.shape[2]
     if split is None:
-        split = fa.f32_split(B, H, Tq, Tk, hd, EMU_SMS)
+        split = fa.f32_split(B, H, Tq, Tk, hd, EMU_SMS, causal, q_offset)
     o = torch.full_like(q, float("nan"))
     lse = torch.full((B, H, Tq), float("nan"))
     part = _scratch(split, B * H * Tq * (hd + 2))
     err = lib.flash_f32_fwd_host(
         hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, H, k.shape[1], Tq, Tk, _strides(q, k, v, o),
-        int(causal), window, 1.0 / math.sqrt(hd), split, _ptr(part))
+        int(causal), window, 1.0 / math.sqrt(hd), split, _ptr(part),
+        q_offset)
     assert err == 0
     return o, lse
 
 
 def emulated_backward(lib, q, k, v, o, lse, do, causal, window, split=None,
-                      dq_split=None):
+                      dq_split=None, q_offset=0):
     """(dq, dk, dv) of the float32 backward kernels under the emulator, with
     the wrapper's delta and ``split`` dk/dv and ``dq_split`` dq shares
     (default: the wrapper's plans for a card of EMU_SMS SMs)."""
@@ -141,7 +144,8 @@ def emulated_backward(lib, q, k, v, o, lse, do, causal, window, split=None,
     if split is None:
         split = fb.f32_kv_split(B, H, Hkv, Tq, Tk, hd, EMU_SMS)
     if dq_split is None:
-        dq_split = fb.f32_dq_split(B, H, Tq, Tk, hd, EMU_SMS)
+        dq_split = fb.f32_dq_split(B, H, Tq, Tk, hd, EMU_SMS, causal,
+                                   q_offset)
     delta = (do * o).sum(-1).contiguous()
     outs = [torch.full_like(x, float("nan")) for x in (q, k, v)]
     part = _scratch(2 * split, B, Hkv, Tk, hd)
@@ -151,7 +155,8 @@ def emulated_backward(lib, q, k, v, o, lse, do, causal, window, split=None,
         lse.contiguous().data_ptr(), delta.data_ptr(),
         *[x.data_ptr() for x in outs], B, H, Hkv, Tq, Tk,
         _strides(q, k, v, do, *outs), int(causal), window,
-        1.0 / math.sqrt(hd), split, _ptr(part), dq_split, _ptr(dq_part))
+        1.0 / math.sqrt(hd), split, _ptr(part), dq_split, _ptr(dq_part),
+        q_offset)
     assert err == 0
     return outs
 
@@ -256,6 +261,64 @@ def test_emulated_backward_matches_jax_vjp(lib, B, T, H, Hkv, hd, causal,
                             window))
 
 
+#: Blocks of queries at an offset against every key (the cases of
+#: tests/test_torch_flash_sm90.py): (B, Tq, Tk, H, Hkv, hd, window,
+#: q_offset); the shares planned from the offset's key extent.
+OFFSET_CASES = [
+    (1, 128, 512, 7, 1, 64, 0, 384),
+    (1, 100, 400, 2, 1, 64, 0, 200),
+    (1, 64, 256, 4, 2, 128, 0, 64),
+    (1, 80, 240, 2, 1, 256, 100, 120),
+]
+
+
+@functools.partial(jax.jit, static_argnames=("window", "q_offset"))
+def _jax_offset(q, k, v, do, window, q_offset):
+    """JAX's attention_chunked of a block of queries at ``q_offset``
+    (model layout), its log-sum-exp, and the vjp at ``do``."""
+    def fn(q, k, v):
+        return j_attention_chunked(q, k, v, causal=True, window=window,
+                                   q_chunk=q.shape[1], q_offset=q_offset)
+    o, vjp = jax.vjp(fn, q, k, v)
+    hd, H, Hkv = q.shape[3], q.shape[2], k.shape[2]
+    kr = jnp.repeat(_tr(k), H // Hkv, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", _tr(q), kr) / math.sqrt(hd)
+    qpos = q_offset + jnp.arange(q.shape[1])[:, None]
+    kpos = jnp.arange(k.shape[1])[None, :]
+    mask = kpos > qpos
+    if window > 0:
+        mask |= kpos <= qpos - window
+    s = jnp.where(mask, -1.0e30, s)
+    return o, jax.nn.logsumexp(s, axis=-1), vjp(do)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,Hkv,hd,window,q_offset", OFFSET_CASES)
+def test_emulated_kernels_with_a_query_offset_match_jax(
+        lib, B, Tq, Tk, H, Hkv, hd, window, q_offset):
+    """Forward and backward with query row i at q_offset + i against JAX's
+    ``attention_chunked(q_offset=...)`` and its ``jax.vjp``, at FWD_TOL
+    and BWD_TOL (the outputs start as NaN: the dk, dv rows of keys no
+    query reaches are written, as zeros)."""
+    tq, tk, tv, tdo = _inputs(Tq + Tk + hd + q_offset,
+                              [(B, Tq, H, hd), (B, Tk, Hkv, hd),
+                               (B, Tk, Hkv, hd), (B, Tq, H, hd)])
+    q, k, v, do = (x.transpose(1, 2) for x in (tq, tk, tv, tdo))
+    o, lse = emulated_forward(lib, q, k, v, True, window, q_offset=q_offset)
+    want, want_lse, grads = _jax_offset(*[x.numpy() for x in
+                                          (tq, tk, tv, tdo)],
+                                        window=window, q_offset=q_offset)
+    np.testing.assert_allclose(o.transpose(1, 2).numpy(), np.asarray(want),
+                               atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               atol=FWD_TOL, rtol=0)
+    got = emulated_backward(lib, q, k, v, o, lse, do, True, window,
+                            q_offset=q_offset)
+    _hold_bwd(got, [np.asarray(g) for g in grads])
+    if q_offset + Tq < Tk:
+        for g in got[1:]:
+            assert not g[:, :, q_offset + Tq:].any()
+
+
 def test_shares_are_deterministic(lib):
     """Two runs with shares are bit-equal (forward, dq, dk, dv); one share
     (each output written by its own kernel) agrees with them to float32
@@ -301,6 +364,17 @@ def test_shares_fill_the_card_only_where_blocks_are_few():
     assert [fb.f32_dq_split(1, H, 2048, 2048, hd, 132)
             for H, hd in ((16, 128), (14, 64), (10, 256))] == [1, 3, 1]
     assert fa.f32_split(8, 16, 2048, 2048, 128, 132) == 1
+    # a block of queries at an offset: the longest loop is the last
+    # query's keys (qwen2's 14 heads, T 2,048 cut in 16: 128 queries a
+    # rank; rank 0's loops are 2 key tiles long, rank 15's 32, which
+    # the dq kernel cuts in as many shares as its blocks fill the card)
+    assert fa.key_extent(128, 2048, True, 1920) == 2048
+    assert fa.key_extent(128, 2048, True, 0) == 128
+    assert fa.key_extent(128, 2048, False, 0) == 2048
+    assert [fa.f32_split(1, 14, 128, 2048, 64, 132, True, o)
+            for o in (0, 1920)] == [2, 32]
+    assert [fb.f32_dq_split(1, 14, 128, 2048, 64, 132, True, o)
+            for o in (0, 1920)] == [4, 38]
     # one key tile: nothing to cut
     assert fa.f32_split(1, 1, 64, 64, 128, 132) == 1
 

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro.models.layers import attention_chunked as j_attention_chunked
 from repro_torch.kernels import build
 
 fa = importlib.import_module(
@@ -221,9 +222,10 @@ def _storage(x):
     return bytes(x.untyped_storage())
 
 
-def emulated_forward(harness, tmp_path, q, k, v, causal, window):
+def emulated_forward(harness, tmp_path, q, k, v, causal, window,
+                     q_offset=0):
     """(o, lse) of the bf16 forward kernel, run under the emulator with
-    the wrapper's TMA geometry."""
+    the wrapper's TMA geometry (query row i at position q_offset + i)."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -234,7 +236,7 @@ def emulated_forward(harness, tmp_path, q, k, v, causal, window):
     header = ([hd, B, H, Hkv, Tq, Tk, int(causal), window, 1] + geom
               + [o.stride(i) for i in (0, 1, 2)]
               + [x.untyped_storage().nbytes() // 2 for x in xs]
-              + [x.storage_offset() for x in xs])
+              + [x.storage_offset() for x in xs] + [q_offset])
     data = _run(harness, "fwd", header, [_storage(x) for x in xs[:3]],
                 tmp_path)
     n = o.untyped_storage().nbytes()
@@ -243,7 +245,7 @@ def emulated_forward(harness, tmp_path, q, k, v, causal, window):
 
 
 def emulated_backward(harness, tmp_path, q, k, v, o, lse, do, causal,
-                      window):
+                      window, q_offset=0):
     """(dq, dk, dv) of the bf16 backward kernels under the emulator, with
     the wrapper's TMA geometry and padded lse / delta."""
     B, H, Tq, hd = q.shape
@@ -263,7 +265,7 @@ def emulated_backward(harness, tmp_path, q, k, v, o, lse, do, causal,
     header = ([hd, B, H, Hkv, Tq, Tk, int(causal), window, pitch] + geom
               + [x.stride(i) for x in outs for i in (0, 1, 2)]
               + [x.untyped_storage().nbytes() // 2 for x in xs]
-              + [x.storage_offset() for x in xs])
+              + [x.storage_offset() for x in xs] + [q_offset])
     data = _run(harness, "bwd", header,
                 [_storage(x) for x in xs[:4]]
                 + [lse_p.numpy().tobytes(), delta.numpy().tobytes()],
@@ -355,3 +357,59 @@ def test_emulated_backward_matches_jax_vjp(harness, tmp_path, B, T, H, Hkv,
         assert a.shape == b.shape
         err = float(np.abs(a - b).max()) / float(np.abs(b).max())
         assert err <= 1e-2, err
+
+
+#: Blocks of queries at an offset against every key, as context-parallel
+#: attention runs them: (B, Tq, Tk, H, Hkv, hd, window, q_offset).  The
+#: last block of four (qwen2-0.5b's hd 64 GQA 7), a middle block whose
+#: last key tiles no query reaches (their dk, dv zeros), hd 128 at T / 4
+#: and hd 256 with a window.
+OFFSET_CASES = [
+    (1, 128, 512, 7, 1, 64, 0, 384),
+    (1, 100, 400, 2, 1, 64, 0, 200),
+    (1, 64, 256, 4, 2, 128, 0, 64),
+    (1, 150, 300, 2, 1, 256, 100, 150),
+]
+
+
+def _jax_offset(q, k, v, window, q_offset):
+    """JAX's attention_chunked (model layout) of a block of queries whose
+    first sits at ``q_offset``, against keys from 0."""
+    return j_attention_chunked(q, k, v, causal=True, window=window,
+                               q_chunk=q.shape[1], q_offset=q_offset)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,Hkv,hd,window,q_offset", OFFSET_CASES)
+def test_emulated_kernels_with_a_query_offset_match_jax(
+        harness, tmp_path, B, Tq, Tk, H, Hkv, hd, window, q_offset):
+    """The forward and the backward kernels with query row i at position
+    q_offset + i, against JAX's ``attention_chunked(q_offset=...)`` and
+    its ``jax.vjp`` at the tolerances above (every dk, dv row written:
+    the outputs start as NaN)."""
+    (tq, tk, tv, tdo), nps = _bf16_inputs(
+        Tq + Tk + hd + q_offset, [(B, Tq, H, hd), (B, Tk, Hkv, hd),
+                                  (B, Tk, Hkv, hd), (B, Tq, H, hd)])
+    q, k, v, do = (x.transpose(1, 2) for x in (tq, tk, tv, tdo))
+    o, lse = emulated_forward(harness, tmp_path, q, k, v, True, window,
+                              q_offset)
+    want = np.asarray(_jax_offset(*[jnp.asarray(x) for x in nps[:3]],
+                                  window, q_offset))
+    np.testing.assert_allclose(o.transpose(1, 2).float().numpy(), want,
+                               atol=2e-2, rtol=0)
+    from repro_torch.kernels.flash_attention import attention_ref
+    _, ref_lse = attention_ref(q, k, v, window=window, return_lse=True,
+                               q_offset=q_offset)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    got = emulated_backward(harness, tmp_path, q, k, v, o, lse, do, True,
+                            window, q_offset)
+    _, vjp = jax.vjp(lambda a, b, c: _jax_offset(a, b, c, window, q_offset),
+                     *[jnp.asarray(x) for x in nps[:3]])
+    for a, b in zip(got, vjp(jnp.asarray(nps[3]))):
+        a, b = a.transpose(1, 2).float().numpy(), np.asarray(b)
+        assert a.shape == b.shape
+        err = float(np.abs(a - b).max()) / float(np.abs(b).max())
+        assert err <= 1e-2, err
+    if q_offset + Tq < Tk:       # keys no query reaches
+        for g in got[1:]:
+            assert not g[:, :, q_offset + Tq:].float().any()

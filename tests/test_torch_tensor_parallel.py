@@ -77,6 +77,13 @@ MOE_RUNS = [f"{a}/{i}" for a in D.TP_MOE_ARCHS for i in D.TP_MOE_IMPLS]
 #: load-balancing term is each data rank's).
 MOE_TP1 = {"1x2": ("1x1", "moe"), "1x4": ("1x1", "moe"),
            "2x2": ("1x2", "moe_dp2")}
+#: Sequence parallelism off against on (the configs' default), and the
+#: variants held against jitted JAX with the world they run on
+#: (tests/torch_dist.py TP_VARIANTS).
+SP_OFF = ["sp_off/qwen3-0.6b", "sp_off/yi-9b"]
+T45 = ["t45/qwen2-0.5b", "t45/qwen3-moe-30b-a3b"]
+VARIANT_WORLDS = {"cp/qwen3-0.6b": "1x2", "cp6/qwen2-0.5b": "1x4",
+                  **{name: "1x2" for name in T45}}
 #: The a2a's load-balancing term and the router's gradient against JAX's
 #: (its output at ample capacity is gmm's; the term the mean of the ranks'
 #: local estimates): rtol, and atol as a share of the largest |gradient|.
@@ -88,6 +95,16 @@ def started(tmp_path_factory):
     """Every world started at once (joined by ``worlds``, after JAX's
     runs, which run meanwhile)."""
     tmp = tmp_path_factory.mktemp("tp")
+    var = {"1x1": [],
+           "1x2": [["var", "tp_variants", {
+               "model": 2, "names": [*SP_OFF, "cp/qwen3-0.6b", *T45],
+               "saved": ["sp/qwen3-0.6b", "sp/qwen3-moe-30b-a3b",
+                         "t45/qwen2-0.5b"]}]],
+           "1x4": [["var", "tp_variants", {
+               "model": 4, "names": ["cp6/qwen2-0.5b"],
+               "saved": ["sp/qwen3-0.6b", "cp6/qwen2-0.5b"]}]],
+           "2x2": [["var", "tp_variants", {
+               "model": 2, "names": SP_OFF, "saved": ["sp/qwen3-0.6b"]}]]}
     moe = {"1x1": [["moe", "tp_moe", {"model": 1}]],
            "1x2": [["moe", "tp_moe", {"model": 2}],
                    ["moe_dp2", "tp_moe", {"model": 1, "uneven": True,
@@ -102,12 +119,13 @@ def started(tmp_path_factory):
         if model > 1:
             parts.append(["parts", "tp_parts", {"model": model}])
         started[name] = D.start_world("many", n, tmp / name,
-                                      parts=parts + moe[name])
+                                      parts=parts + moe[name] + var[name])
     return started
 
 
 @pytest.fixture(scope="module")
-def worlds(started, jax_runs, jax_moe_plain, jax_moe_runs, jax_a2a_local):
+def worlds(started, jax_runs, jax_moe_plain, jax_moe_runs, jax_a2a_local,
+           jax_variants):
     """{world: every rank's {"train": ..., "parts": ..., "moe": ...}}."""
     return {k: D.join(w) for k, w in started.items()}
 
@@ -210,6 +228,16 @@ def jax_moe_runs(started):
             {k: jnp.asarray(v) for k, v in bs[0].items()})[1][0])
         out[run] = (metrics, params, g1, whole)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_variants(started):
+    """{variant: _jax_steps} of JAX's jitted steps of each variant held
+    against JAX (VARIANT_WORLDS), its config replaced alike
+    (``D.tp_variant`` of JAX's configs): ``cp_attention`` is a sharding
+    hint to JAX, so its steps are those of the math."""
+    return {name: _jax_steps(*D.tp_variant(name, "repro.configs"))
+            for name in VARIANT_WORLDS}
 
 
 @contextlib.contextmanager
@@ -647,3 +675,72 @@ def test_the_port_runs_the_dense_family_partitioned():
                      "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b"]
     # yi's untied head is cut by vocabulary as the tied embedding is
     assert D.tp_config("yi-9b").tie_embeddings is False
+
+
+@pytest.mark.parametrize("world", ["1x2", "2x2"])
+@pytest.mark.parametrize("name", SP_OFF)
+def test_sequence_parallel_steps_match_sp_off(worlds, jax_runs, name,
+                                              world):
+    """The partitioned steps with the residual stream cut by sequence (the
+    configs' default: every case above runs it) against the same steps
+    with ``seq_parallel`` off, on the same world: float32 round-off apart
+    (``TP1_RTOL``: the sums over the model axis are reduce-scatters of
+    the same partial sums in place of all-reduces)."""
+    arch = name.split("/")[1]
+    g1 = jax_runs[arch][3]
+    for rank in worlds[world]:
+        on, off = rank["train"][arch], rank["var"][name]
+        for want, got in zip(off["metrics"], on["metrics"]):
+            for k in ("loss", "ce", "grad_norm"):
+                np.testing.assert_allclose(
+                    got[k], want[k], rtol=TP1_RTOL.get(k, TP1_RTOL["loss"]),
+                    err_msg=k)
+            assert got["lr"] == want["lr"]
+        _check_weights(off["params"], on["params"], g1, TP1_RTOL["w"])
+
+
+@pytest.mark.parametrize("name", list(VARIANT_WORLDS))
+def test_context_parallel_and_undivided_steps_match_jax(worlds, jax_variants,
+                                                        name):
+    """Three float32 steps of each variant against JAX's jitted steps of
+    the same config, at the dense tests' tolerances (metrics, weights,
+    first moments): context-parallel attention at (1, 2) by
+    ``cp_attention`` and at (1, 4) where the 6 heads do not divide the
+    axis (every head on the rank's block of the queries, at query offset
+    rank x T / model, K and V gathered); and at T 45, which the model
+    axis does not divide, the whole stream (the dense and the MoE)."""
+    jm, jp, jmu, g1 = jax_variants[name]
+    for rank in worlds[VARIANT_WORLDS[name]]:
+        r = rank["var"][name]
+        assert r["step"] == D.TP_STEPS
+        _check_metrics(jm, r["metrics"])
+        _check_weights(jp, r["params"], g1, 5e-5)
+        for path, a, b in _pairs(jmu, r["mu"]):
+            np.testing.assert_allclose(b, a, rtol=1e-4,
+                                       atol=1e-5 * np.abs(a).max(),
+                                       err_msg=path)
+
+
+@pytest.mark.parametrize("world", TP_WORLDS)
+def test_sequence_parallel_saves_a_block_of_each_input(worlds, world):
+    """The bytes of the remat blocks' inputs a rank saves for the backward
+    (``saved_tensors_hooks``, tests/torch_dist.py ``SavedBlockInputs``):
+    with the stream whole, every layer's [B / data, T, D] float32 input;
+    cut by sequence, exactly 1 / model of that (the dense and the MoE,
+    and context-parallel attention at (1, 4)); at T 45, which the axis
+    does not divide, the whole."""
+    n, model = WORLDS[world]
+    for rank in worlds[world]:
+        saved = rank["var"]["saved"]
+        assert saved
+        for name, got in saved.items():
+            cfg, bs, _ = D.tp_variant(name)
+            T = bs[0]["tokens"].shape[1]
+            whole = (cfg.num_layers * D.TP_B // (n // model) * T
+                     * cfg.d_model * 4)
+            assert tuple(got["off"]) == (whole, cfg.num_layers), name
+            if T % model:
+                assert tuple(got["sp"]) == tuple(got["off"]), name
+            else:
+                assert got["sp"][0] * model == whole, name
+                assert got["sp"][1] == cfg.num_layers, name

@@ -370,14 +370,14 @@ def tp_config(arch, configs="repro_torch.configs", **moe):
     return cfg
 
 
-def tp_batches(vocab):
+def tp_batches(vocab, T=TP_T):
     """The TP_STEPS global batches of ``SyntheticSource``'s Zipf tokens
-    (test_torch_train's): {tokens, labels} as int32 numpy, a tenth of the
-    labels masked (-1, numpy seed 7), so that the data ranks' shares of
-    the unmasked labels differ."""
+    (test_torch_train's), B TP_B x ``T``: {tokens, labels} as int32 numpy,
+    a tenth of the labels masked (-1, numpy seed 7), so that the data
+    ranks' shares of the unmasked labels differ."""
     from repro_torch.data import SyntheticSource, batches
 
-    it = batches(SyntheticSource(vocab, 4096), batch=TP_B, seq=TP_T,
+    it = batches(SyntheticSource(vocab, 4096), batch=TP_B, seq=T,
                  tuned=False)
     rng = np.random.default_rng(7)
     out = []
@@ -449,6 +449,104 @@ def tp_steps(cfg, mesh, bs, moe_impl="gmm"):
         full = S.gather_full((state.params, state.opt.mu))
     return {"metrics": metrics, "params": full[0], "mu": full[1],
             "local": local, "step": int(state.step)}
+
+
+#: The sequence- and context-parallel variants of the partitioned step
+#: (tests/test_torch_tensor_parallel.py): name -> (arch, config fields
+#: replaced, T, moe_impl).  ``sp_off``: sequence parallelism off (JAX's
+#: ``dp_only`` turns it off), against the default on; ``cp``: context-
+#: parallel attention by ``cp_attention`` where the heads divide the
+#: axis; ``cp6``: qwen2 smoke with 6 heads (GQA 3), which 4 does not
+#: divide; ``t45``: a T that 2 does not divide (the whole stream);
+#: ``sp``: the default (for the bytes each rank saves).
+TP_VARIANTS = {
+    "sp_off/qwen3-0.6b": ("qwen3-0.6b", {"seq_parallel": False}, TP_T,
+                          "gmm"),
+    "sp_off/yi-9b": ("yi-9b", {"seq_parallel": False}, TP_T, "gmm"),
+    "cp/qwen3-0.6b": ("qwen3-0.6b", {"cp_attention": True}, TP_T, "gmm"),
+    "cp6/qwen2-0.5b": ("qwen2-0.5b", {"num_heads": 6, "num_kv_heads": 2,
+                                      "head_dim": 16}, TP_T, "gmm"),
+    "t45/qwen2-0.5b": ("qwen2-0.5b", {}, 45, "gmm"),
+    "t45/qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}, 45, "gmm"),
+    "sp/qwen3-0.6b": ("qwen3-0.6b", {}, TP_T, "gmm"),
+    "sp/qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}, TP_T, "gmm"),
+}
+
+
+def tp_variant(name, configs="repro_torch.configs"):
+    """(config from ``configs``, batches, moe_impl) of TP_VARIANTS[name]."""
+    import dataclasses
+
+    arch, fields, T, impl = TP_VARIANTS[name]
+    cfg = dataclasses.replace(tp_config(arch, configs), **fields)
+    return cfg, tp_batches(cfg.vocab_size, T), impl
+
+
+class SavedBlockInputs:
+    """While entered, the bytes autograd saves of the remat blocks' inputs
+    (the tensors ``models.lm`` hands ``torch.utils.checkpoint``): every
+    saved tensor seen by ``saved_tensors_hooks`` whose storage is one of
+    those inputs', each counted once (``bytes``; ``inputs``: the blocks
+    run).  It keeps addresses only, so it holds no tensor alive."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import lm
+
+        self._lm, self._real = lm, lm.checkpoint
+        self._inputs, self._saved = set(), set()
+
+        def checkpoint(fn, cfg, bp, x, *args, **kw):
+            self._inputs.add(x.data_ptr())
+            self.inputs += 1
+            return self._real(fn, cfg, bp, x, *args, **kw)
+
+        def pack(t):
+            self._saved.add((t.data_ptr(), t.untyped_storage().nbytes()))
+            return t
+        self.inputs = 0
+        lm.checkpoint = checkpoint
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            pack, lambda t: t)
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._hooks.__exit__(*exc)
+        self._lm.checkpoint = self._real
+        self.bytes = sum(n for p, n in self._saved if p in self._inputs)
+
+
+def tp_saved(cfg, mesh, bs, moe_impl="gmm"):
+    """The bytes of the block inputs a rank saves in one partitioned step
+    (:func:`tp_steps` on ``bs[:1]``) of ``cfg``, and the blocks run."""
+    with SavedBlockInputs() as s:
+        tp_steps(cfg, mesh, bs[:1], moe_impl)
+    return s.bytes, s.inputs
+
+
+def case_tp_variants(rank, world, model, names, saved=()):
+    """On the (world / model, model) host mesh: TP_VARIANTS ``names``'
+    TP_STEPS float32 steps (:func:`tp_steps`), and for each variant of
+    ``saved`` the block inputs' bytes a rank saves in step 1 beside the
+    same step's with sequence parallelism off (:func:`tp_saved`)."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {}
+    for name in names:
+        cfg, bs, impl = tp_variant(name)
+        out[name] = tp_steps(cfg, mesh, bs, impl)
+    out["saved"] = {}
+    for name in saved:
+        cfg, bs, impl = tp_variant(name)
+        off = dataclasses.replace(cfg, seq_parallel=False)
+        out["saved"][name] = {"sp": tp_saved(cfg, mesh, bs, impl),
+                              "off": tp_saved(off, mesh, bs, impl)}
+    return _np(out)
 
 
 def case_tp_train(rank, world, model, archs=TP_ARCHS, uneven=False):
@@ -784,7 +882,7 @@ CASES = {"collectives": case_collectives, "mesh": case_mesh,
          "production": case_production, "tp_train": case_tp_train,
          "tp_parts": case_tp_parts, "tp_moe": case_tp_moe,
          "tp_moe_parts": case_tp_moe_parts, "a2a_region": case_a2a_region,
-         "many": case_many}
+         "tp_variants": case_tp_variants, "many": case_many}
 
 
 def main(argv):
