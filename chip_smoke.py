@@ -2519,6 +2519,14 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_OFFSET = (("qwen2", (14, 2, 64), 1024, 2048, 1024),
                 ("qwen2", (14, 2, 64), 1024, 2048, 0),
                 ("qwen3", (16, 8, 128), 512, 2048, 512))
+# Kernels 2 (phase 7) and 3 (phase 10) at a rank's heads in phase 24 (h)'s
+# partitioned step (tp 2), at the trainer's B 2 x T 4,096 (BWD_TRAIN_BT),
+# causal, both routes: (name, (H, Hkv, hd), window) of recurrentgemma-2b's
+# 5/1 of 256 with its window, qwen2-vl-2b's 6/1 of 128 and whisper-small's
+# decoder 6/6 of 64.
+TP_HEADS = (("recurrentgemma_tp2", (5, 1, 256), 2048),
+            ("qwen2_vl_tp2", (6, 1, 128), 0),
+            ("whisper_tp2", (6, 6, 64), 0))
 # Timed at qwen3's heads, bf16, causal: (B, T).  Past FLASH_FULL_T only the
 # last FLASH_TAIL query rows are held to the plain version.
 FLASH_TIMED = ((1, 2048), (8, 2048), (1, 32768))
@@ -2672,6 +2680,30 @@ def phase_flash(dev) -> dict:
           f"({FLASH_OFFSET}; bf16/f32; with/without LSE): max |err| bf16 "
           f"{worst['bfloat16']:.3g} (tol 2e-2), f32 {worst['float32']:.3g} "
           f"(tol 2e-5)", flush=True)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    B, T = BWD_TRAIN_BT
+    for (name, (H, Hkv, hd), window), dname in itertools.product(
+            TP_HEADS, ("bfloat16", "float32")):
+        dt = getattr(torch, dname)
+        q, k, v = [torch.randn(B, T, h, hd, generator=g).to(dev, dt)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv)]
+        kw = dict(window=window, return_lse=True)
+        got = flash_attention_bhtd(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        check(err <= FLASH_TOL[dname],
+              f"flash attention {name} ({H}/{Hkv} of {hd}) B={B} T={T} "
+              f"window={window} {dname}: max |err| {err}")
+        worst[dname] = max(worst[dname], err)
+        n += 1
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    print(f"[7 flash] at a rank's heads in phase 24 (h) (tp 2): kernel == "
+          f"plain version on {n} cases ({TP_HEADS}; B {B} x T {T}, causal; "
+          f"bf16/f32; o and LSE): max |err| bf16 {worst['bfloat16']:.3g} "
+          f"(tol 2e-2), f32 {worst['float32']:.3g} (tol 2e-5)", flush=True)
 
     H, Hkv, hd = FLASH_HEADS["qwen3"]
     out = {}
@@ -2923,6 +2955,22 @@ def phase_flash_bwd(dev) -> dict:
         del q, k, v, do, o, lse, got, want
     cases += [(name, 1, Tq, True, 0, dname) for (name, _, Tq, _, _) in
               FLASH_OFFSET for dname in dtypes]
+    # a rank's heads in phase 24 (h) (TP_HEADS), at the trainer's shape
+    for (name, (H, Hkv, hd), window), dname in itertools.product(
+            TP_HEADS, dtypes):
+        B, T = BWD_TRAIN_BT
+        q, k, v, do = [torch.randn(B, T, h, hd, generator=g).to(
+            dev, getattr(torch, dname)).transpose(1, 2)
+            for h in (H, Hkv, Hkv, H)]
+        o, lse = flash_attention_bhtd(q, k, v, return_lse=True,
+                                      window=window)
+        got = flash_attention_bwd_bhtd(q, k, v, o, lse, do, window=window)
+        want = attention_bwd_ref(q, k, v, o, lse, do, window=window)
+        hold_bwd(f"flash backward {name} ({H}/{Hkv} of {hd}) B={B} T={T} "
+                 f"window={window} {dname}", dname, got, want, worst,
+                 hd64 if hd == 64 else max_abs)
+        cases.append((name, B, T, True, window, dname))
+        del q, k, v, do, o, lse, got, want
     torch.cuda.synchronize()
     for dname in dtypes:
         max_abs[dname] = max(max_abs[dname], hd64[dname])
@@ -2930,7 +2978,9 @@ def phase_flash_bwd(dev) -> dict:
           f"(heads {BWD_HEADS}; B {BWD_BATCH} x T {BWD_T}, causal or not, "
           f"window 0/256; and B {BWD_TRAIN_BT[0]} x T {BWD_TRAIN_BT[1]} "
           f"causal; bf16/f32; and with a query offset, {FLASH_OFFSET}, "
-          f"the dk, dv of keys past the last query zero): max |err| f32 "
+          f"the dk, dv of keys past the last query zero; and a rank's heads "
+          f"in phase 24 (h), {TP_HEADS}, at B {BWD_TRAIN_BT[0]} x T "
+          f"{BWD_TRAIN_BT[1]}): max |err| f32 "
           f"{worst['float32']:.3g} (tol "
           f"{BWD_F32_TOL} + {BWD_F32_TOL} x |ref|), bf16 "
           f"{worst['bfloat16']:.3g} of each gradient's max (tol "
@@ -3794,6 +3844,9 @@ def phase_serve(dev, tree) -> dict:
 # float32 sums in another order with FMA contraction (1e-4); y rounded once
 # to bf16, where a last-bit float32 difference flips a rounding (1e-2).
 WKV_HEADS, WKV_BATCH, WKV_T = 64, (1, 8), (1, 63, 64, 65, 200, 2048)
+# Kernels 4 (phase 13) and 4b (phase 22a) at a rank's heads of rwkv6-7b's
+# 64 in the partitioned step (tp 2 and tp 16) at the trainer's B x T.
+WKV_TP_HEADS, WKV_TP_BT = (32, 4), (2, 4096)
 WKV_TOL = {"y_float32": 1e-4, "y_bfloat16": 1e-2, "S": 1e-4}
 # ... bf16 cases run on both routes (the wrapper's, and the other forced),
 # and the extreme decays exp(-exp(x)) for x over each range (x = -8: the
@@ -3881,7 +3934,7 @@ def phase_wkv(dev) -> dict:
     g = torch.Generator().manual_seed(13)
     H, hd = WKV_HEADS, 64
 
-    def inputs(B, T, dt, with_s0, x_range=None):
+    def inputs(B, T, dt, with_s0, x_range=None, H=H):
         r, k, v = [(torch.randn(B, T, H, hd, generator=g) * 0.5).to(
             dev, dt).transpose(1, 2) for _ in range(3)]
         if x_range is None:
@@ -3923,13 +3976,15 @@ def phase_wkv(dev) -> dict:
     worst = {"y_float32": 0.0, "y_bfloat16": 0.0, "S": 0.0}
     by_route = {"chunk": 0, "step": 0}
     n = 0
-    cases = [(B, T, dname, with_s0, None) for B, T, dname, with_s0 in
+    cases = [(B, T, dname, with_s0, None, H) for B, T, dname, with_s0 in
              itertools.product(WKV_BATCH, WKV_T, ("bfloat16", "float32"),
                                (False, True))]
-    cases += [(B, T, "bfloat16", True, x) for (B, T), x in
+    cases += [(B, T, "bfloat16", True, x, H) for (B, T), x in
               itertools.product(WKV_EXTREME_BT, WKV_EXTREME_X)]
-    for B, T, dname, with_s0, x_range in cases:
-        args = inputs(B, T, getattr(torch, dname), with_s0, x_range)
+    cases += [(*WKV_TP_BT, dname, False, None, h) for h, dname in
+              itertools.product(WKV_TP_HEADS, ("bfloat16", "float32"))]
+    for B, T, dname, with_s0, x_range, nh in cases:
+        args = inputs(B, T, getattr(torch, dname), with_s0, x_range, nh)
         want = wkv_ref(*args)
         own = plan_of(args)
         plans = [None]
@@ -3941,7 +3996,7 @@ def phase_wkv(dev) -> dict:
             with forced(plan):
                 ey, eS = errors(args, want)
             check(ey <= WKV_TOL[f"y_{dname}"] and eS <= WKV_TOL["S"],
-                  f"wkv B={B} T={T} {dname} S0={with_s0} decays "
+                  f"wkv B={B} T={T} H={nh} {dname} S0={with_s0} decays "
                   f"{x_range or 'model'} {route} route: y err {ey}, S err "
                   f"{eS}")
             worst[f"y_{dname}"] = max(worst[f"y_{dname}"], ey)
@@ -3953,7 +4008,9 @@ def phase_wkv(dev) -> dict:
     print(f"[13 wkv] kernel == plain version on {n} cases (H {H}, hd {hd}; "
           f"B {WKV_BATCH}; T {WKV_T}; r/k/v bf16 (both routes) or f32, w "
           f"f32; S0 zero or not; decays exp(-exp(x)) of the model and over "
-          f"x in {WKV_EXTREME_X} at {WKV_EXTREME_BT}; {by_route['chunk']} "
+          f"x in {WKV_EXTREME_X} at {WKV_EXTREME_BT}; and a rank's H "
+          f"{WKV_TP_HEADS} at B {WKV_TP_BT[0]} x T {WKV_TP_BT[1]} (the "
+          f"partitioned step's); {by_route['chunk']} "
           f"on the chunked route, {by_route['step']} on the step route): "
           f"max err / max(1, max |ref|) y bf16 {worst['y_bfloat16']:.3g} "
           f"(tol {WKV_TOL['y_bfloat16']}), y f32 {worst['y_float32']:.3g} "
@@ -4426,9 +4483,15 @@ def phase_recurrent_serve(dev, arch) -> dict:
 
 # Phase 25: the dry run (src/repro_torch/launch/dryrun.py).  (a) Its CLI
 # over a fake world of 256 ranks on the 16 x 16 mesh, with probes, in child
-# processes beside the float32 goldens (they time nothing), for these cells.
-DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
-                ("yi-9b", "train_4k"), ("qwen2-0.5b", "train_4k"))
+# processes beside the float32 goldens (they time nothing), for these cells:
+# each group in a child of its own (the second, the recurrent, VLM and
+# audio families' cells, 29-42 s each on one CPU thread).
+DRYRUN_GROUPS = (
+    (("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
+     ("yi-9b", "train_4k"), ("qwen2-0.5b", "train_4k")),
+    (("rwkv6-7b", "train_4k"), ("recurrentgemma-2b", "train_4k"),
+     ("qwen2-vl-2b", "train_4k"), ("whisper-small", "train_4k")))
+DRYRUN_CELLS = tuple(c for g in DRYRUN_GROUPS for c in g)
 # (b) This cell at the probe's depth (PROBE_DEPTHS[0] layers) counted on meta
 # and run on the card over the world of one: the card's FLOPs and bytes
 # equal to the meta count, its peak (max_memory_allocated above the level
@@ -4439,10 +4502,10 @@ DRYRUN_PEAK_RTOL = 0.10
 
 class DryrunChildren:
     """[25 dryrun] (a) ``python -m repro_torch.launch.dryrun --arch A
-    --shape S`` for each of DRYRUN_CELLS in turn, in one child process (one
-    CPU thread; meta tensors, no card; the module run by ``runpy`` as
-    ``-m`` runs it), started beside the float32 goldens and joined after
-    them: one process, so it takes one core from 17b's child, not two."""
+    --shape S`` for each cell of a group of DRYRUN_GROUPS in turn, in a
+    child process a group (one CPU thread each; meta tensors, no card; the
+    module run by ``runpy`` as ``-m`` runs it), started beside the float32
+    goldens and joined after them."""
 
     def __init__(self):
         import tempfile
@@ -4450,21 +4513,23 @@ class DryrunChildren:
         self.out = tempfile.mkdtemp(prefix="dryrun_")
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    OMP_NUM_THREADS="1")
-        argv = [["dryrun", "--arch", arch, "--shape", shape, "--out",
-                 self.out] for arch, shape in DRYRUN_CELLS]
-        code = ("import runpy, sys\n"
-                f"for argv in {argv!r}:\n"
-                "    sys.argv = argv\n"
-                "    runpy.run_module('repro_torch.launch.dryrun', "
-                "run_name='__main__')\n")
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", code], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
-        CHILDREN.append(self.proc)
+        self.procs = []
+        for group in DRYRUN_GROUPS:
+            argv = [["dryrun", "--arch", arch, "--shape", shape, "--out",
+                     self.out] for arch, shape in group]
+            code = ("import runpy, sys\n"
+                    f"for argv in {argv!r}:\n"
+                    "    sys.argv = argv\n"
+                    "    runpy.run_module('repro_torch.launch.dryrun', "
+                    "run_name='__main__')\n")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env))
+            CHILDREN.append(self.procs[-1])
 
     def join(self) -> dict:
-        """Wait for the child; hold each cell's result (every number
+        """Wait for the children; hold each cell's result (every number
         finite, model_flops = 6 N_active D) and print its roofline terms,
         peak and useful FLOP share.  Returns {arch: result}."""
         import math
@@ -4473,10 +4538,12 @@ class DryrunChildren:
         from repro_torch.configs import SHAPES, get_config
 
         t0 = time.perf_counter()
-        out = self.proc.communicate(timeout=900)[0]
-        waited = time.perf_counter() - t0
-        check(self.proc.returncode == 0, f"[25 dryrun] (a) the child exited "
-              f"{self.proc.returncode}\n{out[-3000:]}")
+        waits = []
+        for proc in self.procs:
+            out = proc.communicate(timeout=900)[0]
+            waits.append(time.perf_counter() - t0)
+            check(proc.returncode == 0, f"[25 dryrun] (a) a child exited "
+                  f"{proc.returncode}\n{out[-3000:]}")
         res = {}
         for arch, shape in DRYRUN_CELLS:
             with open(os.path.join(self.out,
@@ -4506,9 +4573,11 @@ class DryrunChildren:
                   f"full program traced in {r['compile_s']} s", flush=True)
             res[arch] = r
         shutil.rmtree(self.out, ignore_errors=True)
-        print(f"[25 dryrun] (a) child process: "
+        print(f"[25 dryrun] (a) {len(self.procs)} child processes: "
               f"{time.perf_counter() - self.t0:.1f} s from start to join, "
-              f"{waited:.1f} s waited at the join", flush=True)
+              + ", ".join(f"the group of {g[0][0]} done {w:.1f} s into the "
+                          f"join" for g, w in zip(DRYRUN_GROUPS, waits)),
+              flush=True)
         return res
 
 
@@ -4722,6 +4791,9 @@ RG_F32_BWD_EARLIER = "27.2186 ms"
 # 700 W) is printed beside today's.
 RG_LRU_BWD_T = (1, 63, 65, 200, 4096)
 RG_LRU_BWD_BATCH = (1, 2)
+# ... and kernels 5 and 5b at a rank's channels of the 2,560 in the
+# partitioned step (tp 2 and tp 16), at the trainer's B 2 x T 4,096.
+RG_LRU_TP_C = (1280, 160)
 RG_LRU_BWD_EARLIER = "one thread a channel: 0.8134 ms by CUDA events"
 # (c) The float32 golden (tests/torch_goldens/make_train_golden.py
 # recurrentgemma-2b: full width, 3 of 26 layers, B 1 x T 2,176), held to
@@ -4892,13 +4964,19 @@ def phase_recurrent_train_kernels(dev) -> dict:
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = 0
     paths = {"ring": 0, "direct": 0}
-    for B, T in itertools.product(RG_LRU_BWD_BATCH, RG_LRU_BWD_T):
-        a = torch.rand(B, T, C, generator=g, device=dev) * 0.1 + 0.9
-        b, gr = (torch.randn(B, T, C, generator=g, device=dev)
+    # a rank's channels first: the last case, at C and the trainer's shape,
+    # is the one timed below
+    cases = [(RG_TRAIN_B, RG_TRAIN_T, c) for c in RG_LRU_TP_C]
+    cases += [(B, T, C) for B, T in itertools.product(RG_LRU_BWD_BATCH,
+                                                      RG_LRU_BWD_T)]
+    for B, T, Cn in cases:
+        a = torch.rand(B, T, Cn, generator=g, device=dev) * 0.1 + 0.9
+        b, gr = (torch.randn(B, T, Cn, generator=g, device=dev)
                  for _ in range(2))
         h = rglru_scan(a, b)
         check(torch.equal(h, rglru_ref(a, b)),
-              f"[19b] rglru forward B={B} T={T}: kernel != plain version")
+              f"[19b] rglru forward B={B} T={T} C={Cn}: kernel != plain "
+              f"version")
         want = rglru_bwd_ref(a, h, gr)
         own = rg.bwd_plan(a, h, gr, *want, n_sms)[1]
         # the ring's cases also run on the direct path, forced
@@ -4907,8 +4985,8 @@ def phase_recurrent_train_kernels(dev) -> dict:
                 got = rglru_scan_bwd(a, h, gr)
             on = "ring" if own and tma is None else "direct"
             check(all(torch.equal(x, y) for x, y in zip(got, want)),
-                  f"[19b] rglru backward B={B} T={T} {on} path: kernel != "
-                  f"plain version")
+                  f"[19b] rglru backward B={B} T={T} C={Cn} {on} path: "
+                  f"kernel != plain version")
             paths[on] += 1
             n += 1
     B, T = RG_TRAIN_B, RG_TRAIN_T
@@ -4945,7 +5023,9 @@ def phase_recurrent_train_kernels(dev) -> dict:
           f"forward h that it reads, == plain versions bit for bit on {n} "
           f"cases ({paths['ring']} on the TMA ring, {paths['direct']} on "
           f"the direct path; C {C}; B {RG_LRU_BWD_BATCH}; T {RG_LRU_BWD_T}; "
-          f"f32); plain {plain_ms:.3f} ms (median of 2) at B={B} T={T}; "
+          f"and a rank's C {RG_LRU_TP_C} at B {RG_TRAIN_B} x T {RG_TRAIN_T}, "
+          f"the partitioned step's; f32); plain {plain_ms:.3f} ms (median "
+          f"of 2) at B={B} T={T}; "
           f"library call: none", flush=True)
     out["rglru_bwd"] = dict(ms=timed["ring"]["ms"],
                             device_ms=timed["ring"]["device_ms"],
@@ -5164,7 +5244,8 @@ def phase_wkv_bwd(dev) -> dict:
     H, hd = WKV_HEADS, 64
     g = torch.Generator(device=dev).manual_seed(22)
 
-    def inputs(B, T, dname, wname, with_s0, with_ds, x_range=(-8.0, 3.0)):
+    def inputs(B, T, dname, wname, with_s0, with_ds, x_range=(-8.0, 3.0),
+               H=H):
         def heads(x, dt):     # the upper H of 2 H heads
             return x.to(dt).transpose(1, 2)[:, H:]
 
@@ -5197,17 +5278,20 @@ def phase_wkv_bwd(dev) -> dict:
     worst = {(route, kind): 0.0 for route in ("chunk", "step")
              for kind in ("bfloat16", "float32")}
     max_abs = {"chunk": 0.0, "step": 0.0}
-    cases = [(B, T, dn, wn, on, on, None) for (dn, wn), T, (B, on) in
+    cases = [(B, T, dn, wn, on, on, None, H) for (dn, wn), T, (B, on) in
              itertools.product(WKV_BWD_PAIRS, WKV_BWD_T,
                                ((1, False), (2, True)))]
-    cases += [c + (None,) for c in WKV_BWD_LONG]
-    cases += [(B, T, "bfloat16", "float32", True, True, x)
+    cases += [c + (None, H) for c in WKV_BWD_LONG]
+    cases += [(B, T, "bfloat16", "float32", True, True, x, H)
               for (B, T), x in itertools.product(WKV_BWD_EXTREME_BT,
                                                  WKV_EXTREME_X)]
+    # a rank's heads in the partitioned step, as the trainer calls it
+    cases += [(*WKV_TP_BT, "bfloat16", "float32", False, False, None, h)
+              for h in WKV_TP_HEADS]
     n = 0
-    for B, T, dname, wname, with_s0, with_ds, x_range in cases:
+    for B, T, dname, wname, with_s0, with_ds, x_range, nh in cases:
         args = inputs(B, T, dname, wname, with_s0, with_ds,
-                      x_range or (-8.0, 3.0))
+                      x_range or (-8.0, 3.0), nh)
         want = wkv_bwd_ref(*args)
         own = mod.wkv_bwd_plan(*args[:4], args[6], n_sms)
         check(dname == "bfloat16" or own[0] == "step",
@@ -5235,7 +5319,7 @@ def phase_wkv_bwd(dev) -> dict:
                 diff = float((a.float() - b.float()).abs().max())
                 err = diff / max(1.0, float(b.float().abs().max()))
                 check(err <= WKV_BWD_TOL[kind],
-                      f"[22a] wkv_bwd B={B} T={T} {dname}/{wname} "
+                      f"[22a] wkv_bwd B={B} T={T} H={nh} {dname}/{wname} "
                       f"S0={with_s0} dS_final={with_ds} decays x in "
                       f"{x_range or (-8.0, 3.0)} {route} route"
                       f"{' (forced)' if plan else ''}: {name} err {err} "
@@ -5251,7 +5335,9 @@ def phase_wkv_bwd(dev) -> dict:
           f"{WKV_BWD_T} at B 1 (S0, dS_final zero) and B 2 (both given), "
           f"(B, T, r/k/v, w, S0, dS_final) {WKV_BWD_LONG}; decays "
           f"exp(-exp(x)), x in [-8, 3], and x in {WKV_EXTREME_X} at (B, T) "
-          f"{WKV_BWD_EXTREME_BT}; every bf16 case on both routes, float32 "
+          f"{WKV_BWD_EXTREME_BT}; a rank's H {WKV_TP_HEADS} at B "
+          f"{WKV_TP_BT[0]} x T {WKV_TP_BT[1]}, bf16 r/k/v, float32 w (the "
+          f"partitioned step's); every bf16 case on both routes, float32 "
           f"on the step route): max err / max(1, max |ref|), chunked route "
           f"bf16 outputs {worst['chunk', 'bfloat16']:.3g}, float32 outputs "
           f"{worst['chunk', 'float32']:.3g}; step route bf16 "
@@ -6463,7 +6549,9 @@ TP_RANKS = 2
 # positions, the second half at query offset 64 in the float32 kernels.
 TP_GOLDEN_FIELDS = {"cp_attention": True}
 TP_OLMO = "olmo-1b"
-TP_OLMO_STEPS = 3
+# 3 steps cut to 2 with (h) (a tp-2 olmo-1b step through gloo takes 7.2-8.4
+# s; PERF.md section 5)
+TP_OLMO_STEPS = 2
 TP_OLMO_HEADS = 8
 TP_BYTES_SHARE = 0.55
 TP_GNORM_RTOL = 2e-2
@@ -6482,6 +6570,26 @@ TP_MOE = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 TP_MOE_LAYERS = 2
 TP_MOE_STEPS = 2
 TP_MOE_BUDGET_S = 40
+# (h) The recurrent, VLM and audio families' partitioned step in the same
+# two ranks, after (g): each arch at full width, bf16, remat, cut in depth
+# (TP_FAM_DEPTH: rwkv6-7b 2 of 32 layers, recurrentgemma-2b 3 of 26 (rglru,
+# rglru, local), qwen2-vl-2b 2 of 28, whisper-small 2 + 2 of 12 + 12),
+# ARCH_TRAIN_B x ARCH_TRAIN_T, TP_FAM_STEPS steps from the placed init on
+# in-order SyntheticSource batches (whisper's 1,500 frames and qwen2-vl's
+# VLM_IMAGE_SIDE^2 image by family_inputs), against tp 1's steps on the
+# same batches in this process before the ranks start.  Held as (e):
+# losses to TRAIN_BF16_LOSS_RTOL, grad norms to TP_GNORM_RTOL, a rank's
+# bytes at most TP_BYTES_SHARE of tp 1's, its saved block inputs 1 /
+# TP_RANKS; kernels 2 and 3 at the rank's query heads (recurrentgemma 5/1
+# of 256, qwen2-vl 6/1 of 128, whisper's decoder 6/6 of 64), kernels 4
+# and 4b at the rank's H / 2 heads, 5 and 5b at its lru / 2 channels, each
+# as many launches a step as tp 1's.
+TP_FAM_DEPTH = {"rwkv6-7b": {"num_layers": 2},
+                "recurrentgemma-2b": {"num_layers": 3},
+                "qwen2-vl-2b": {"num_layers": 2},
+                "whisper-small": {"num_layers": 2, "num_encoder_layers": 2}}
+TP_FAM_STEPS = 2
+TP_FAM_BUDGET_S = 30
 # (f) The dry run's partitioned cells (25a's children, DRYRUN_CELLS): what
 # the parent tree (before the partitioned step) printed for them on meta at
 # 16 x 16 (python -m repro_torch.launch.dryrun --arch A --shape train_4k at
@@ -6521,6 +6629,24 @@ TP_DRYRUN_PARENT = {
 TP_SP_SAVES = {"yi-9b": 3.020e9, "qwen3-0.6b": 0.440e9}
 TP_SP_PEAK_SHARE = 0.5
 TP_CP_KERNEL_SHARE = 0.15
+# (f) the recurrent, VLM and audio families' cells (25a's second child) on
+# the tree before their partitioned step (commit 922b154, run on the CPU):
+# flops_per_device, peak_per_device, useful_flops_ratio, and kernels 4 and
+# 4b's FLOPs a device (rwkv6-7b) or 5 and 5b's bytes (recurrentgemma-2b).
+# Each must reach TP_DRYRUN_USEFUL_GAIN x its useful share and a peak
+# below the parent's and TP_DRYRUN_PEAK_B; the kernels' counts exactly 1
+# / 16 of the parent's (linear in the heads and channels a rank runs).
+TP_DRYRUN_FAM_PARENT = {
+    "rwkv6-7b": (3839735122362368.0, 246789022760, 0.05358341312381992,
+                 {"wkv_bhtd": ("flops", 20340965113856),
+                  "wkv_bwd_bhtd": ("flops", 23880018165760)}),
+    "recurrentgemma-2b": (1293327731261440.0, 76208497960,
+                          0.04827928581676554,
+                          {"rglru_scan": ("bytes", 72477573120),
+                           "rglru_scan_bwd": ("bytes", 60397977600)}),
+    "qwen2-vl-2b": (832106561273856.0, 53596238632, 0.04558882664371063, {}),
+    "whisper-small": (123646777491456.0, 7956301608, 0.04730743597736055,
+                      {})}
 
 
 def tp_batches(vocab, n):
@@ -6552,6 +6678,25 @@ def olmo_steps(dev, mesh=None):
     return tp_train_steps(dev, get_config(TP_OLMO), TP_OLMO_STEPS, mesh)
 
 
+def tp_fam_config(arch):
+    """(h): ``arch`` at full width, cut to TP_FAM_DEPTH."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **TP_FAM_DEPTH[arch])
+
+
+def tp_fam_rank(dev, mesh):
+    """(h) in a rank: each of TP_FAM_DEPTH's archs' TP_FAM_STEPS steps on
+    ``mesh``."""
+    t0 = time.perf_counter()
+    out = {arch: tp_train_steps(dev, tp_fam_config(arch), TP_FAM_STEPS, mesh)
+           for arch in TP_FAM_DEPTH}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def tp_moe_config(arch):
     """(g): ``arch`` at full width, TP_MOE_LAYERS of its layers."""
     import dataclasses
@@ -6562,58 +6707,81 @@ def tp_moe_config(arch):
 
 
 class AttnCalls:
-    """While entered, the (query heads, query rows, query offset) of every
-    call of kernels 2 (``fwd``) and 3 (``bwd``) through the model's
-    wrapper (``ops``), as sorted lists of distinct tuples."""
+    """While entered, the shapes of every call of kernels 2 (``fwd``) and
+    3 (``bwd``) through the model's wrapper (``ops``): (query heads, query
+    rows, query offset); and of kernels 4 (``wkv``), 4b (``wkv_bwd``), 5
+    (``rglru``) and 5b (``rglru_bwd``) through their autograd Functions'
+    modules: (heads,) and (channels,); each a sorted list of distinct
+    tuples."""
+
+    SITES = (("repro_torch.kernels.flash_attention.ops",
+              (("fwd", "flash_attention_bhtd"),
+               ("bwd", "flash_attention_bwd_bhtd"))),
+             ("repro_torch.kernels.rwkv6.ops",
+              (("wkv", "wkv_bhtd"), ("wkv_bwd", "wkv_bwd_bhtd"))),
+             ("repro_torch.kernels.rglru.ops",
+              (("rglru", "rglru_scan"), ("rglru_bwd", "rglru_scan_bwd"))))
+
+    @staticmethod
+    def shape(key, q, kw):
+        if key in ("fwd", "bwd"):
+            return (q.shape[1], q.shape[2], kw.get("q_offset", 0))
+        return (q.shape[1],) if key.startswith("wkv") else (q.shape[-1],)
 
     def __enter__(self):
-        from repro_torch.kernels.flash_attention import ops
-
-        self.calls = {"fwd": set(), "bwd": set()}
-        self._real = (ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd)
+        self.calls = {key: set() for _, keys in self.SITES
+                      for key, _ in keys}
+        self._real = []
 
         def wrap(key, fn):
             def call(q, *a, **kw):
-                self.calls[key].add((q.shape[1], q.shape[2],
-                                     kw.get("q_offset", 0)))
+                self.calls[key].add(self.shape(key, q, kw))
                 return fn(q, *a, **kw)
             return call
-        ops.flash_attention_bhtd = wrap("fwd", self._real[0])
-        ops.flash_attention_bwd_bhtd = wrap("bwd", self._real[1])
+        for mod_name, keys in self.SITES:
+            mod = importlib.import_module(mod_name)
+            for key, name in keys:
+                self._real.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, wrap(key, getattr(mod, name)))
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels.flash_attention import ops
-
-        ops.flash_attention_bhtd, ops.flash_attention_bwd_bhtd = self._real
+        for mod, name, fn in self._real:
+            setattr(mod, name, fn)
         self.calls = {k: sorted(v) for k, v in self.calls.items()}
 
 
 class SavedBlockInputs:
     """While entered, the bytes autograd saves of the remat blocks' inputs
-    (the tensors ``models.lm`` hands ``torch.utils.checkpoint``): every
-    saved tensor seen by ``saved_tensors_hooks`` whose storage is one of
-    those inputs', each counted once (``bytes``; ``inputs``: the blocks
-    run).  It keeps addresses only, so it holds no tensor alive."""
+    (the tensors the models hand ``torch.utils.checkpoint``, each block's
+    first tensor argument: ``lm``'s, ``rwkv6``'s, ``rglru``'s layers and
+    ``whisper``'s encoder and decoder layers): every saved tensor seen by
+    ``saved_tensors_hooks`` whose storage is one of those inputs', each
+    counted once (``bytes``; ``inputs``: the blocks run).  It keeps
+    addresses only, so it holds no tensor alive."""
 
     def __enter__(self):
         import torch
 
-        from repro_torch.models import lm
+        from repro_torch.models import lm, rglru, rwkv6, whisper
 
-        self._lm, self._real = lm, lm.checkpoint
+        self._mods = [(m, m.checkpoint) for m in (lm, rwkv6, rglru, whisper)]
         self._inputs, self._saved = set(), set()
 
-        def checkpoint(fn, cfg, bp, x, *args, **kw):
-            self._inputs.add(x.data_ptr())
-            self.inputs += 1
-            return self._real(fn, cfg, bp, x, *args, **kw)
+        def patched(real):
+            def checkpoint(fn, *args, **kw):
+                x = next(a for a in args if isinstance(a, torch.Tensor))
+                self._inputs.add(x.data_ptr())
+                self.inputs += 1
+                return real(fn, *args, **kw)
+            return checkpoint
 
         def pack(t):
             self._saved.add((t.data_ptr(), t.untyped_storage().nbytes()))
             return t
         self.inputs = 0
-        lm.checkpoint = checkpoint
+        for m, real in self._mods:
+            m.checkpoint = patched(real)
         self._hooks = torch.autograd.graph.saved_tensors_hooks(
             pack, lambda t: t)
         self._hooks.__enter__()
@@ -6621,23 +6789,28 @@ class SavedBlockInputs:
 
     def __exit__(self, *exc):
         self._hooks.__exit__(*exc)
-        self._lm.checkpoint = self._real
+        for m, real in self._mods:
+            m.checkpoint = real
         self.bytes = sum(n for p, n in self._saved if p in self._inputs)
 
 
 def tp_train_steps(dev, cfg, n_steps, mesh=None):
     """``n_steps`` bf16 steps of ``cfg`` (make_train_step, the cuda
     executor, moe_impl gmm) from init_train_state(seed 0), placed on
-    ``mesh`` when given, on tp_batches: per-step losses, grad norms and
-    host walls (each ending in a read of the loss), the state's bytes,
-    the peak, the block inputs' bytes saved in step 1
-    (:class:`SavedBlockInputs`), and kernels 2 and 3's launches a step and
-    the head counts they ran at."""
+    ``mesh`` when given, on tp_batches (with the family's inputs,
+    ``family_inputs``): per-step losses, grad norms and host walls (each
+    ending in a read of the loss), the state's bytes, the peak, the block
+    inputs' bytes saved in step 1 (:class:`SavedBlockInputs`), kernels 2
+    and 3's launches a step (``launches``) and every kernel's of the
+    train step (``kernels``: 2, 3, 4, 4b, 5, 5b), and the head counts
+    (channels for 5 and 5b) they ran at."""
     import torch
 
     from repro_torch.distributed import sharding
     from repro_torch.kernels.flash_attention import (flash_attention_bhtd,
                                                      flash_attention_bwd_bhtd)
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.rwkv6 import wkv_bhtd, wkv_bwd_bhtd
     from repro_torch.models import build as build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import init_train_state, make_train_step
@@ -6657,15 +6830,22 @@ def tp_train_steps(dev, cfg, n_steps, mesh=None):
     step = make_train_step(bundle, AdamWConfig(lr=3e-4, warmup_steps=20,
                                                total_steps=n_steps),
                            executor="cuda")
-    batches = [{k: v.to(dev) for k, v in b.items()}
+    extra = family_inputs(cfg, ARCH_TRAIN_B, ARCH_TRAIN_T, dev,
+                          torch.bfloat16, VLM_IMAGE_SIDE)
+    batches = [dict({k: v.to(dev) for k, v in b.items()}, **extra)
                for b in tp_batches(cfg.vocab_size, n_steps)]
-    losses, gnorms, walls, per_step = [], [], [], []
+    del extra
+    counted = {"2": flash_attention_bhtd, "3": flash_attention_bwd_bhtd,
+               "4": wkv_bhtd, "4b": wkv_bwd_bhtd, "5": rglru_scan,
+               "5b": rglru_scan_bwd}
+    losses, gnorms, walls, per_step, kernels = [], [], [], [], []
     saved = SavedBlockInputs()          # step 1's
     with AttnCalls() as calls:
         torch.cuda.reset_peak_memory_stats()
         for i, b in enumerate(batches):
             n0 = (flash_attention_bhtd.launches,
                   flash_attention_bwd_bhtd.launches)
+            k0 = {k: fn.launches for k, fn in counted.items()}
             torch.cuda.synchronize()
             t = time.perf_counter()
             with (sharding.set_mesh(mesh) if mesh is not None
@@ -6677,14 +6857,17 @@ def tp_train_steps(dev, cfg, n_steps, mesh=None):
             gnorms.append(float(m["grad_norm"]))
             per_step.append((flash_attention_bhtd.launches - n0[0],
                              flash_attention_bwd_bhtd.launches - n0[1]))
+            kernels.append({k: fn.launches - k0[k]
+                            for k, fn in counted.items()})
     peak = torch.cuda.max_memory_allocated()
     del state, batches
     torch.cuda.empty_cache()
     return {"losses": losses, "grad_norms": gnorms, "step_ms": walls,
             "param_bytes": pbytes, "moment_bytes": mbytes,
             "init_s": init_s, "init_peak": init_peak, "peak": peak,
-            "launches": per_step, "heads": {k: sorted({c[0] for c in v})
-                                            for k, v in calls.calls.items()},
+            "launches": per_step, "kernels": kernels,
+            "heads": {k: sorted({c[0] for c in v})
+                      for k, v in calls.calls.items() if v},
             "saved": (saved.bytes, saved.inputs), "layers": cfg.num_layers,
             "num_heads": cfg.num_heads}
 
@@ -6770,9 +6953,9 @@ def load_tree(d):
 
 
 def tp_rank_main(rank, store, out):
-    """A rank of phase 24 (d, e, g) (``chip_smoke.py --tp-rank R STORE
+    """A rank of phase 24 (d, e, g, h) (``chip_smoke.py --tp-rank R STORE
     OUT``): the gloo world of TP_RANKS ranks, the (1, TP_RANKS) mesh, (d),
-    (e) then (g); its readings to ``out`` as JSON."""
+    (e), (g) then (h); its readings to ``out`` as JSON."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -6804,6 +6987,7 @@ def tp_rank_main(rank, store, out):
         res["e"] = olmo_steps(dev, mesh)
         res["e"]["s"] = time.perf_counter() - t0
         res["g"] = tp_moe_rank(dev, mesh, os.path.dirname(store))
+        res["h"] = tp_fam_rank(dev, mesh)
         with open(out + ".tmp", "w") as f:
             json.dump(res, f)
         os.replace(out + ".tmp", out)
@@ -6812,11 +6996,12 @@ def tp_rank_main(rank, store, out):
 
 
 class MeshTP:
-    """[24 mesh] (d, e, g): tp 1's olmo-1b and MoE steps in this process
-    (the MoE's router logs written for the ranks to replay), then the
-    TP_RANKS ranks started (child processes: (d), (e), then (g)); the
-    full run joins them after the float32 goldens, which time nothing
-    (the ranks' step times beside them are host-staged figures anyway)."""
+    """[24 mesh] (d, e, g, h): tp 1's olmo-1b, MoE and (h) families' steps
+    in this process (the MoE's router logs written for the ranks to
+    replay), then the TP_RANKS ranks started (child processes: (d), (e),
+    (g), then (h)); the full run joins them after the float32 goldens,
+    which time nothing (the ranks' step times beside them are host-staged
+    figures anyway)."""
 
     def __init__(self, dev, tree):
         import tempfile
@@ -6834,6 +7019,11 @@ class MeshTP:
             RouterCalls.save(log, os.path.join(self.dir, f"router_{arch}"))
             del log
         self.moe_tp1_s = time.perf_counter() - self.t0 - self.tp1_s
+        t_fam = time.perf_counter()
+        self.fam_tp1 = {arch: tp_train_steps(dev, tp_fam_config(arch),
+                                             TP_FAM_STEPS)
+                        for arch in TP_FAM_DEPTH}
+        self.fam_tp1_s = time.perf_counter() - t_fam
         # the golden's weights for (d), written once for both ranks
         save_tree(tree, os.path.join(self.dir, "tree"))
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -6867,6 +7057,8 @@ class MeshTP:
                                 waited)
             out["moe"] = phase_mesh_moe_tp(self.outs, self.moe_tp1,
                                            self.moe_tp1_s)
+            out["fam"] = phase_mesh_fam_tp(self.outs, self.fam_tp1,
+                                           self.fam_tp1_s)
             return out
         finally:
             # the golden's weights (2.4 GB of .npy), the store, the logs
@@ -7121,6 +7313,119 @@ def phase_mesh_moe_tp(outs, tp1, tp1_s) -> dict:
     return res
 
 
+def tp_fam_expected(cfg, mp) -> dict:
+    """(h): each kernel's launches a step of ``cfg``'s train step with
+    remat (every forward kernel twice: the forward and the backward's
+    recompute) and the heads or channels a rank of ``mp`` runs it at."""
+    from repro_torch.distributed.sharding import ModelAxis
+    from repro_torch.models.layers import local_heads
+
+    la = attention_layers(cfg)
+    if cfg.family == "audio":           # the decoder's causal attention
+        la = cfg.num_layers
+    rec = cfg.num_layers - la if cfg.family == "hybrid" else 0
+    wkv = cfg.num_layers if cfg.family == "ssm" else 0
+    launches = {"2": 2 * la, "3": la, "4": 2 * wkv, "4b": wkv,
+                "5": 2 * rec, "5b": rec}
+    nq = local_heads(cfg, None if mp == 1 else ModelAxis(None, mp, 0))[1]
+    lru = cfg.lru_width or cfg.d_model
+    heads = {"fwd": [nq] if la else None, "bwd": [nq] if la else None,
+             "wkv": [cfg.num_heads // mp] if wkv else None,
+             "wkv_bwd": [cfg.num_heads // mp] if wkv else None,
+             "rglru": [lru // mp] if rec else None,
+             "rglru_bwd": [lru // mp] if rec else None}
+    return launches, {k: v for k, v in heads.items() if v}
+
+
+def phase_mesh_fam_tp(outs, tp1, tp1_s) -> dict:
+    """[24 mesh] (h) the ranks' steps of the recurrent, VLM and audio
+    families (``outs``) held and printed beside tp 1's (``tp1``, taken in
+    ``tp1_s`` s before the ranks started).  Returns {arch: rank 0's
+    launches a step of each kernel and the heads or channels}."""
+    import math
+
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f)["h"])
+    card = nvidia_card()
+    res = {}
+    for arch in TP_FAM_DEPTH:
+        cfg = tp_fam_config(arch)
+        t1, h0 = tp1[arch], ranks[0][arch]
+        launches, heads = tp_fam_expected(cfg, TP_RANKS)
+        launches1, heads1 = tp_fam_expected(cfg, 1)
+        check(all(k == launches1 for k in t1["kernels"])
+              and t1["heads"] == heads1,
+              f"[24 mesh] (h) {arch}: tp 1's launches {t1['kernels']} at "
+              f"{t1['heads']}, expected {launches1} at {heads1}")
+        for r in ranks:
+            h = r[arch]
+            check(all(math.isfinite(x) for x in h["losses"]),
+                  f"[24 mesh] (h) {arch} non-finite loss {h['losses']}")
+            check(h["losses"] == h0["losses"]
+                  and h["grad_norms"] == h0["grad_norms"],
+                  f"[24 mesh] (h) {arch}: the ranks' losses or grad norms "
+                  f"differ")
+            check(h["param_bytes"] <= TP_BYTES_SHARE * t1["param_bytes"]
+                  and h["moment_bytes"]
+                  <= TP_BYTES_SHARE * t1["moment_bytes"],
+                  f"[24 mesh] (h) {arch}: a rank holds {h['param_bytes']} B "
+                  f"of parameters and {h['moment_bytes']} B of moments, "
+                  f"tp 1 {t1['param_bytes']} and {t1['moment_bytes']}")
+            check(all(k == launches for k in h["kernels"]),
+                  f"[24 mesh] (h) {arch}: launches a step {h['kernels']}, "
+                  f"expected {launches}")
+            check(h["heads"] == heads,
+                  f"[24 mesh] (h) {arch}: kernels ran at {h['heads']}, the "
+                  f"rank's {heads}")
+            check_saved(f"[24 mesh] (h) {arch}", h["saved"], t1["saved"])
+        errs = [abs(a - b) / abs(b) for a, b in zip(h0["losses"],
+                                                     t1["losses"])]
+        g_errs = [abs(a - b) / abs(b) for a, b in zip(h0["grad_norms"],
+                                                       t1["grad_norms"])]
+        check(max(errs) <= TRAIN_BF16_LOSS_RTOL,
+              f"[24 mesh] (h) {arch} tp {TP_RANKS} losses {h0['losses']} vs "
+              f"tp 1's {t1['losses']}: rel err {errs} > "
+              f"{TRAIN_BF16_LOSS_RTOL}")
+        check(max(g_errs) <= TP_GNORM_RTOL,
+              f"[24 mesh] (h) {arch} tp {TP_RANKS} grad norms "
+              f"{h0['grad_norms']} vs tp 1's {t1['grad_norms']}: rel err "
+              f"{g_errs} > {TP_GNORM_RTOL}")
+        depth = ", ".join(f"{k} {v}" for k, v in TP_FAM_DEPTH[arch].items())
+        print(f"[24 mesh] (h) {arch} bf16 (remat, {depth}) {TP_FAM_STEPS} "
+              f"steps of {ARCH_TRAIN_B} x {ARCH_TRAIN_T} from the placed "
+              f"init, tp {TP_RANKS} (gloo: no NVLink figure) vs tp 1 on the "
+              f"card: losses {[round(x, 5) for x in h0['losses']]} vs "
+              f"{[round(x, 5) for x in t1['losses']]} (rel err "
+              f"{max(errs):.3g}, tol {TRAIN_BF16_LOSS_RTOL}, share "
+              f"{max(errs) / TRAIN_BF16_LOSS_RTOL:.3f}); grad norms "
+              f"{[round(x, 4) for x in h0['grad_norms']]} vs "
+              f"{[round(x, 4) for x in t1['grad_norms']]} (rel err "
+              f"{max(g_errs):.3g}, tol {TP_GNORM_RTOL}, share "
+              f"{max(g_errs) / TP_GNORM_RTOL:.3f}); "
+              + "; ".join(
+                  f"rank {i}: parameters {r[arch]['param_bytes']} B, "
+                  f"moments {r[arch]['moment_bytes']} B "
+                  f"({(r[arch]['param_bytes'] + r[arch]['moment_bytes']) / (t1['param_bytes'] + t1['moment_bytes']):.4f} "
+                  f"of tp 1's {t1['param_bytes']} + {t1['moment_bytes']} "
+                  f"B), peak {r[arch]['peak'] / 1e9:.2f} GB (init peak "
+                  f"{r[arch]['init_peak'] / 1e9:.2f} GB), launches a step "
+                  f"{r[arch]['kernels'][0]} at {r[arch]['heads']}, "
+                  f"{saved_line(r[arch], t1)}, step ms "
+                  f"{[round(x, 1) for x in r[arch]['step_ms']]}"
+                  for i, r in enumerate(ranks))
+              + f"; tp 1: peak {t1['peak'] / 1e9:.2f} GB, step ms "
+              f"{[round(x, 1) for x in t1['step_ms']]}, launches a step "
+              f"{t1['kernels'][0]} at {t1['heads']}; {card}", flush=True)
+        res[arch] = {"kernels": h0["kernels"][0], "heads": h0["heads"]}
+    took = max(r["s"] for r in ranks)
+    print(f"[24 mesh] (h) tp 1's steps {tp1_s:.1f} s in this process; the "
+          f"ranks' (h) {took:.1f} s (budget {TP_FAM_BUDGET_S} s"
+          f"{'' if took <= TP_FAM_BUDGET_S else ', over it'})", flush=True)
+    return res
+
+
 def nvidia_card() -> str:
     """The card's name and power limit (nvidia-smi)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7179,6 +7484,30 @@ def phase_mesh_dryrun(res) -> None:
     check(f <= TP_DRYRUN_MOE_FLOPS_SHARE
           * TP_DRYRUN_BEFORE["qwen3-moe-30b-a3b"][0],
           f"[24 mesh] (f) qwen3-moe-30b-a3b {f} FLOP a device")
+    mp = 16                     # the 16 x 16 mesh's model axis
+    for arch, (flops, peak, useful, kern) in TP_DRYRUN_FAM_PARENT.items():
+        r = res[arch]
+        got = (r["flops_per_device"], r["memory"]["peak_per_device"],
+               r["useful_flops_ratio"])
+        kinds = {name: (what, r["kernels"][name][what], want)
+                 for name, (what, want) in kern.items()}
+        print(f"[24 mesh] (f) {arch} train_4k on meta at 16 x 16 (fake "
+              f"world of 256, model rank {r['model_index']}), the "
+              f"partitioned step: flops_per_device {got[0]:.6g} (parent "
+              f"{flops:.6g}: {got[0] / flops:.4f}), peak_per_device "
+              f"{got[1]} B (parent {peak}: {got[1] / peak:.4f}), useful FLOP "
+              f"share {got[2]:.4f} (parent {useful:.4f}: x "
+              f"{got[2] / useful:.2f})"
+              + "".join(f"; {name} {what} {v} (parent {w}: 1 / {w / v:g})"
+                        for name, (what, v, w) in kinds.items()), flush=True)
+        check(got[2] >= TP_DRYRUN_USEFUL_GAIN * useful,
+              f"[24 mesh] (f) {arch} useful FLOP share {got[2]}, under "
+              f"{TP_DRYRUN_USEFUL_GAIN} x the parent's {useful}")
+        check(got[1] < min(peak, TP_DRYRUN_PEAK_B),
+              f"[24 mesh] (f) {arch} peak {got[1]} B, parent {peak}")
+        for name, (what, v, w) in kinds.items():
+            check(v * mp == w, f"[24 mesh] (f) {arch} {name} {what} {v} "
+                               f"a device, not 1 / {mp} of the parent's {w}")
 
 
 class A2ACapacity:
@@ -7912,6 +8241,8 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     lap("phase 20")
     online = phase_online(dev)
     lap("phase 21")
+    print(f"[wall] phases 1-21 took {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
     # 7-9: flash attention, the float32 golden, serving (the tick loop's
     # tensors are freed first, so the serving phases' peaks are their own)
@@ -8019,6 +8350,13 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
     hd64_train = ("qwen2-0.5b", "whisper-small")
     lap(f"phase 26: all phases, on {card}")
 
+    def fam_tp2(kernel, key):
+        """24h's launches a step a rank of ``kernel`` and what it ran at
+        (``key`` of the heads or channels), by arch, where it ran."""
+        return {k: v for a, m in mesh_tp["fam"].items() if m["kernels"][
+            kernel] for k, v in ((f"train_{a}", m["kernels"][kernel]),
+                                 (f"heads_{a}", m["heads"][key]))}
+
     print(json.dumps({"kernels": [{
         "name": "tick_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tick_loop.cu",
@@ -8085,7 +8423,8 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
             "heads": mesh_tp["heads"],
             **{k: v for a, m in mesh_tp["moe"].items() for k, v in (
                 (f"train_{a}", m["launches_a_step"][0]),
-                (f"heads_{a}", m["heads"]))}},
+                (f"heads_{a}", m["heads"]))},
+            **fam_tp2("2", "fwd")},
         "launches_a2a_prefill": a2a["launches"],
         "max_abs_err": max(flash["bf16"]["max_abs_err"],
                            serve["max_abs_err"],
@@ -8118,7 +8457,8 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
             "heads": mesh_tp["heads"],
             **{k: v for a, m in mesh_tp["moe"].items() for k, v in (
                 (f"train_{a}", m["launches_a_step"][1]),
-                (f"heads_{a}", m["heads"]))}},
+                (f"heads_{a}", m["heads"]))},
+            **fam_tp2("3", "bwd")},
         **bwd["bf16"]}, {
         "name": "flash_attention_bwd_hd64", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
@@ -8155,6 +8495,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         + wtrain["launches"]["wkv"],
         "launches_by_path": {"serve": rserve["rwkv6-7b"]["launches"]["wkv"],
                              "train": wtrain["launches"]["wkv"]},
+        "launches_a_step_a_rank_tp2": fam_tp2("4", "wkv"),
         "launches_by_route": rserve["rwkv6-7b"]["wkv_routes"],
         "train_launches_by_route": wtrain["routes"],
         "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
@@ -8173,6 +8514,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
         "launches_by_path": {
             "serve": rserve["recurrentgemma-2b"]["launches"]["rglru"],
             "train": rtrain["launches"]["rglru"]},
+        "launches_a_step_a_rank_tp2": fam_tp2("5", "rglru"),
         "max_abs_err": rglru["max_abs_err"], "ms": rglru["ms"],
         "plain_ms": rglru["plain_ms"], "bound_ms": rglru["bound_ms"],
         "bound_by": rglru["bound_by"], "library_ms": None,
@@ -8187,7 +8529,9 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
                 "backward and differentiates this associative scan in XLA; "
                 "ms at B 2 x T 4,096 on the TMA ring; paths: the ring and "
                 "the direct path",
-        "launches": rtrain["launches"]["rglru_bwd"], **rk["rglru_bwd"]}, {
+        "launches": rtrain["launches"]["rglru_bwd"],
+        "launches_a_step_a_rank_tp2": fam_tp2("5b", "rglru_bwd"),
+        **rk["rglru_bwd"]}, {
         "name": "wkv_bwd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv_bwd_chunk.cu",
         "replaces": "src/repro/models/rwkv6.py:186",
@@ -8199,6 +8543,7 @@ def smoke(dev, tick_only=False, learn_only=False, recurrent_only=False,
                 "on this route",
         "launches": wtrain["bwd_routes"]["chunk"],
         "launches_by_path": {"train": wtrain["bwd_routes"]["chunk"]},
+        "launches_a_step_a_rank_tp2": fam_tp2("4b", "wkv_bwd"),
         **{k: v for k, v in wtrain["kernel"].items()
            if k not in ("step", "variants")}}, {
         "name": "wkv_bwd", "route": "cuda",

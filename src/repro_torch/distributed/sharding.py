@@ -727,24 +727,35 @@ def place_like(tree, like):
 
 # ---------------------------------------------- tensor-parallel regions ---
 #
-# What GSPMD makes of JAX's placed train step for the dense and MoE
-# families, written out (megatron's scheme): a region of the model takes
-# the replicated activations in through :func:`copy_to_model` (identity;
-# the gradient, partial on each rank, summed over 'model'), computes the
-# rank's share of the heads, columns or experts on its blocks, and leaves
-# through :func:`reduce_from_model` (the partial sums summed; the
-# gradient, replicated, passed through), :func:`gather_out_of_model` (the
-# ranks' blocks of an activation gathered; the gradient cut) or
-# :func:`replicated_from_model` (a value every rank computed alike; the
-# gradient shared out).  With sequence parallelism (megatron's SP: JAX's
-# ``residual_shard``), the stream between the regions is each rank's
-# block of the sequence instead of the whole: a region takes it in
-# through :func:`gather_from_sequence` (an all-gather over T; the
-# gradient, partial on each rank, reduce-scattered) and leaves through
-# :func:`scatter_to_sequence` (the partial sums reduce-scattered over T;
-# the gradient, the rank's block, all-gathered).  Inside
-# :func:`partitioned`, the model reads :func:`model_axis`; outside it, or
-# at model 1, there is no region and every function below is the
+# What GSPMD makes of JAX's placed train step for every family, written
+# out (megatron's scheme): a region of the model (attention, an MLP, the
+# MoE, rwkv6's time and channel mixes, the RG-LRU block) takes the
+# replicated activations in through :func:`copy_to_model` (identity; the
+# gradient, partial on each rank, summed over 'model'), computes the
+# rank's share of the heads, columns, channels or experts on its blocks,
+# and leaves through :func:`reduce_from_model` (the partial sums summed;
+# the gradient, replicated, passed through), :func:`gather_out_of_model`
+# (the ranks' blocks of an activation gathered into the replicated
+# stream; the gradient only cut: rwkv6's ``sigmoid(xr @ wr)`` without
+# sequence parallelism) or :func:`replicated_from_model` (a value every
+# rank computed alike; the gradient shared out).  Inside a region,
+# :func:`gather_from_model` puts the ranks' blocks together where each
+# rank goes on to use all of them for a share of its own (a weight's
+# column blocks where the heads do not divide the axis; the RG-LRU's
+# gate inputs where a rank's channels are less than a block; rwkv6's
+# ``r`` under sequence parallelism): the gradient, partial on each rank,
+# summed and cut.  A replicated leaf used inside a region enters by
+# :func:`copy_to_model`, its gradient summed (rwkv6's LoRAs and ``mu``),
+# or as the rank's share of it (``layers._share``: ``u``, ``w0``, the
+# RG-LRU's ``lam``, conv and gate biases).  With sequence parallelism
+# (megatron's SP: JAX's ``residual_shard``), the stream between the
+# regions is each rank's block of the sequence instead of the whole: a
+# region takes it in through :func:`gather_from_sequence` (an all-gather
+# over T; the gradient, partial on each rank, reduce-scattered) and
+# leaves through :func:`scatter_to_sequence` (the partial sums
+# reduce-scattered over T; the gradient, the rank's block, all-gathered).
+# Inside :func:`partitioned`, the model reads :func:`model_axis`; outside
+# it, or at model 1, there is no region and every function below is the
 # identity, so one card's step runs unchanged.
 
 @dataclasses.dataclass(frozen=True)

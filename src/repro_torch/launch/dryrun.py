@@ -10,16 +10,14 @@ under a :class:`~repro_torch.launch.hlo_stats.StepCounter` that counts
 its FLOPs, bytes, collectives and live memory, the hand-written kernels
 by their own formulas.
 
-What is counted is the port's program on one rank.  The dense and MoE
-families' train cells run the partitioned step (``train/step.py``), what
-GSPMD makes of JAX's: each rank holds its blocks of the parameters
-(``param_specs``) and of the moments (``zero_specs``), computes its block
-of the batch with its share of every product (megatron's column and row
-blocks, the vocabulary cut over 'model', the MoE's E / model experts
-beside the replicated router) and updates its blocks.  The other
-families' train cells run the data-parallel step: every leaf gathered
-whole, each rank its block of the batch, the model axis computing the
-same products on every rank.  The serving cells run the same way: the
+What is counted is the port's program on one rank.  Every family's train
+cells run the partitioned step (``train/step.py``), what GSPMD makes of
+JAX's: each rank holds its blocks of the parameters (``param_specs``) and
+of the moments (``zero_specs``), computes its block of the batch with its
+share of every product (megatron's column and row blocks of the
+attention, the MLPs, rwkv6's mixes and the RG-LRU block, the vocabulary
+cut over 'model', the MoE's E / model experts beside the replicated
+router) and updates its blocks.  The serving cells run otherwise: the
 parameters placed by their specs and gathered whole, each rank its block
 of the batch (and of the decode state) by the batch axes, the next
 tokens of a prefill all-gathered; under ``moe_impl="a2a"`` every rank
@@ -415,13 +413,11 @@ def counted_rank(cfg, shape_name: str, multi_pod: bool,
     runs context-parallel attention, whose last query block reaches the
     most keys; else rank 0."""
     from ..models.layers import context_parallel
-    from ..train.step import PARTITIONED_FAMILIES
 
     shape, names = MULTI_POD_SHAPE if multi_pod else POD_SHAPE
     mp = dict(zip(names, shape))["model"]
     sh = SHAPES[shape_name]
     cp = (sh["kind"] == "train" and not dp_only
-          and cfg.family in PARTITIONED_FAMILIES
           and context_parallel(cfg, mp, sh["seq_len"]))
     return mp - 1 if cp else 0
 

@@ -24,6 +24,13 @@ from .common import ModelConfig, MoEConfig  # noqa: F401
 EXTRA_KEYS = ("frame_embeds", "vision_embeds", "mrope_pos")
 
 
+def logits_width(cfg: ModelConfig) -> int:
+    """The width of the forward's whole logits (and of the vocabulary
+    table's rows): whisper's padded vocabulary, else ``vocab_size``."""
+    return whisper.padded_vocab(cfg) if cfg.family == "audio" else \
+        cfg.vocab_size
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     """Uniform interface over heterogeneous families."""
@@ -51,8 +58,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if fam == "ssm":
         return ModelBundle(
             cfg=cfg,
-            init_params=lambda seed=0, device=None: rwkv6.init_params(
-                cfg, seed, device=device),
+            init_params=lambda seed=0, device=None, cut=None:
+            rwkv6.init_params(cfg, seed, device=device, cut=cut),
             forward=lambda params, tokens, **kw: rwkv6.forward(
                 cfg, params, tokens, **kw),
             init_decode_state=lambda b, m, dtype=torch.bfloat16,
@@ -62,8 +69,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if fam == "hybrid":
         return ModelBundle(
             cfg=cfg,
-            init_params=lambda seed=0, device=None: rglru.init_params(
-                cfg, seed, device=device),
+            init_params=lambda seed=0, device=None, cut=None:
+            rglru.init_params(cfg, seed, device=device, cut=cut),
             forward=lambda params, tokens, **kw: rglru.forward(
                 cfg, params, tokens, **kw),
             init_decode_state=lambda b, m, dtype=torch.bfloat16,
@@ -73,8 +80,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if fam == "audio":
         return ModelBundle(
             cfg=cfg,
-            init_params=lambda seed=0, device=None: whisper.init_params(
-                cfg, seed, device=device),
+            init_params=lambda seed=0, device=None, cut=None:
+            whisper.init_params(cfg, seed, device=device, cut=cut),
             forward=lambda params, tokens, **kw: whisper.forward(
                 cfg, params, tokens, **kw),
             init_decode_state=lambda b, m, dtype=torch.bfloat16,

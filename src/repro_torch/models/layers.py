@@ -44,9 +44,11 @@ weighted expert outputs are summed in JAX's scatter order (ascending
 expert id), one add at a time in the activations' dtype, never by atomics.
 
 Inside a partitioned train step (``distributed.sharding.partitioned``),
-the attention, the MLP and the MoE hold this rank's blocks of their
-weights by ``param_specs`` and compute its share, as GSPMD partitions JAX's
-placed step: column blocks of ``wq``/``wk``/``wv`` (and their biases) give
+the attention (self and cross), the MLP and the MoE hold this rank's
+blocks of their weights by ``param_specs`` and compute its share, as
+GSPMD partitions JAX's placed step (rwkv6's mixes and the RG-LRU block
+are regions of their own models, built of the helpers here): column
+blocks of ``wq``/``wk``/``wv`` (and their biases) give
 the rank's query heads and the key-value heads they use, ``wg``/``wu`` its
 columns of the hidden layer, and the row products with ``wo`` and ``wd``
 are summed over the model axis; the MoE's ``w[gud]`` blocks are its E /
@@ -70,7 +72,9 @@ the port runs them as GSPMD does:
   * context-parallel attention (JAX's ``_cp_shard``, where
     :func:`context_parallel` holds): the rank computes every head for its
     block of the queries, at query offset rank x T / model in kernels 2
-    and 3, against K and V gathered over T.
+    and 3, against K and V gathered over T (non-causal: full scores;
+    cross-attention: K and V of the whole encoder output, which the
+    caller brought into the region once).
 ``logits_shard`` is the vocabulary-cut logits of a partitioned step
 (``models/lm.py``).
 """
@@ -326,6 +330,18 @@ def _leave(y, ax, seq: bool, dim: int = 1):
             else reduce_from_model(y, ax))
 
 
+def _rows_out(y, w, ax, full: int, seq: bool):
+    """A region's row product ``y @ w`` leaving it (:func:`_leave`) with the
+    rank's rows of ``w`` (``full`` rows whole): y's columns are those
+    rows, or (each rank computed every head) every row, of which the
+    rank's chunk is taken."""
+    w = _share(w, ax, 0, full)
+    if w.shape[0] != y.shape[-1]:
+        a = full * ax.rank // ax.size
+        y = y[..., a:a + w.shape[0]]
+    return _leave(y @ w, ax, seq)
+
+
 def _head_cols(w, ax, first: int, n: int, hd: int, total: int):
     """The last-dim columns of heads ``first``..``first + n`` of ``total``
     heads of width ``hd`` from ``w``: whole (entering the region), or this
@@ -449,25 +465,34 @@ def _rope(cfg: ModelConfig, q, k, positions, mrope_pos):
 
 
 def _cp_attention(cfg: ModelConfig, p, x, positions, window, mrope_pos,
-                  executor, seq, ax):
-    """Context-parallel causal self-attention on the model axis ``ax``
-    (JAX's ``_cp_shard`` route): the rank's block of T / size queries
-    over every head, from the whole ``wq`` (its blocks gathered); K and V
-    computed on the block and gathered over T (the small GQA K/V); kernels
-    2 and 3 at query offset rank x T / size; the block's output by the
-    whole ``wo``, the rank's block of the stream (``seq``) or, without
+                  executor, seq, ax, causal=True, xkv=None, rope=True):
+    """Context-parallel attention on the model axis ``ax`` (JAX's
+    ``_cp_shard`` route): the rank's block of T / size queries over every
+    head, from the whole ``wq`` (its blocks gathered).  Self-attention: K
+    and V computed on the block and gathered over T (the small GQA K/V);
+    cross-attention (``xkv``, the whole keys' input already inside the
+    region): K and V of every key from it through the whole ``wk``/``wv``,
+    nothing gathered over T.  Causal attention runs kernels 2 and 3 at
+    query offset rank x T / size; non-causal (whisper's encoder and
+    cross-attention) full scores without a mask.  The block's output by
+    the whole ``wo``: the rank's block of the stream (``seq``) or, without
     sequence parallelism, gathered back into the replicated stream."""
     hd, H, Hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     t0, n = sequence_block(positions.shape[1], ax)
     xb = x if seq else copy_to_model(x, ax).narrow(1, t0, n)
-    q, k, v = _qkv(cfg, p, xb, None, ax, heads=(0, H, 0, Hkv))
-    if cfg.use_rope:
-        q, k = _rope(cfg, q, k, positions[:, t0:t0 + n],
-                     None if mrope_pos is None else
-                     mrope_pos[:, :, t0:t0 + n])
-    k, v = gather_from_sequence(k, ax), gather_from_sequence(v, ax)
-    y = flash_attention(q, k, v, causal=True, window=window,
-                        executor=executor, q_offset=t0)
+    q, k, v = _qkv(cfg, p, xb, xkv, ax, heads=(0, H, 0, Hkv))
+    if xkv is None:
+        if rope and cfg.use_rope:
+            q, k = _rope(cfg, q, k, positions[:, t0:t0 + n],
+                         None if mrope_pos is None else
+                         mrope_pos[:, :, t0:t0 + n])
+        k, v = gather_from_sequence(k, ax), gather_from_sequence(v, ax)
+    if causal:
+        y = flash_attention(q, k, v, causal=True, window=window,
+                            executor=executor, q_offset=t0)
+    else:
+        y = attention_scores_full(q, k, v, torch.zeros(
+            (1, 1, 1, 1, 1), dtype=torch.float32, device=x.device))
     B = y.shape[0]
     y = y.reshape(B, n, H * hd) @ _whole(p["wo"], ax, 0, H * hd)
     return y if seq else gather_out_of_model(y, ax, 1)
@@ -485,7 +510,10 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     cache.  ``from_start``: the caller's positions are
     0..T-1 in every row (host knowledge; the forward's default).
     ``xkv`` [B, Tk, D]: keys and values from it (cross-attention, or
-    whisper's encoder with xkv = x), without the rotary embedding.
+    whisper's encoder with xkv = x), without the rotary embedding; in a
+    partitioned step an ``xkv`` other than x is already inside the region
+    (whisper's encoder output, brought in once for every layer), and
+    ``xkv = x`` enters with x, once.
     ``mrope_pos`` [3, B, T]: M-RoPE positions, used when ``cfg.mrope``.
     ``executor`` picks the flash-attention sites' implementation
     (``auto``/``cuda``/``reference``, kernels/flash_attention/ops.py).
@@ -498,13 +526,14 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     rank's block of the queries (:func:`_cp_attention`).
     """
     ax = model_axis()
-    if ax is not None and (cache is not None or xkv is not None):
-        raise ValueError("a partitioned step runs self-attention without a "
-                         "cache")
-    if ax is not None and causal and context_parallel(
-            cfg, ax.size, positions.shape[1]):
+    if ax is not None and cache is not None:
+        raise ValueError("a partitioned step runs attention without a cache")
+    rope = xkv is None
+    if ax is not None and xkv is x:         # whisper's encoder: self
+        xkv = None
+    if ax is not None and context_parallel(cfg, ax.size, positions.shape[1]):
         return _cp_attention(cfg, p, x, positions, window, mrope_pos,
-                             executor, seq, ax), None
+                             executor, seq, ax, causal, xkv, rope), None
     q, k, v = _qkv(cfg, p, _enter(x, ax, seq), xkv, ax)
     hd = cfg.resolved_head_dim
     # a rank's query heads and the key-value heads they use (GQA by the
@@ -513,7 +542,7 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
     heads = None if ax is None else (q0, k0,
                                      cfg.num_heads // cfg.num_kv_heads)
 
-    if xkv is None and cfg.use_rope:
+    if rope and cfg.use_rope:
         q, k = _rope(cfg, q, k, positions, mrope_pos)
 
     B, Tq = q.shape[:2]
@@ -565,16 +594,11 @@ def attention(cfg: ModelConfig, p, x, positions, *, causal=True, window=0,
             k, v = gqa_kv(k, v, q.shape[2], heads)
         y = attention_scores_full(q, k, v, bias)
 
-    y = y.reshape(B, Tq, q.shape[2] * hd)
     # the row product of the rank's rows of wo, summed over the model axis:
     # its heads' rows, or its chunk of every head's rows where each rank
     # computed every head (the axis divides neither H nor T)
-    full = cfg.num_heads * hd
-    wo = _share(p["wo"], ax, 0, full)
-    if wo.shape[0] != y.shape[-1]:
-        a = full * ax.rank // ax.size
-        y = y[..., a:a + wo.shape[0]]
-    return _leave(y @ wo, ax, seq), new_cache
+    return _rows_out(y.reshape(B, Tq, q.shape[2] * hd), p["wo"], ax,
+                     cfg.num_heads * hd, seq), new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

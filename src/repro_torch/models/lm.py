@@ -2,7 +2,9 @@
 (qwen2-0.5b, qwen3-0.6b, olmo-1b, yi-9b), the MoE family
 (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b) and the VLM family's text backbone
 (qwen2-vl-2b: M-RoPE; patch embeddings arrive pre-computed through
-``vision_embeds``).
+``vision_embeds``).  Its :func:`embed` and :func:`logits_of` are every
+family's vocabulary, cut or whole in a partitioned step (rwkv6's,
+recurrentgemma's and whisper's too).
 
 Parameters keep JAX's tree: ``embed`` [V, D], ``blocks`` with every leaf
 stacked over layers [L, ...], ``final_norm`` (and ``head`` when the
@@ -24,6 +26,11 @@ the residual stream is the rank's [B, T / model, D] block from the
 embedding (whose sum over the axis is reduce-scattered) through every
 block and the final norm; the logits gather T first, so they stay whole
 in T and cut by vocabulary.  Elsewhere the stream is whole on every rank.
+The VLM's ``vision_embeds`` replace the first Tv slots of the sequence,
+of the rank's block under sequence parallelism; its M-RoPE positions
+reach context-parallel attention as the query block's.  The lookup's
+gradient is the rank's rows (cut only); the logits' input, gathered over
+T into the region, has its partial gradients summed.
 """
 from __future__ import annotations
 
@@ -105,6 +112,13 @@ def check_moe_impl(cfg: ModelConfig, moe_impl: str):
         raise ValueError(f"unknown moe_impl {moe_impl!r}; have {MOE_IMPLS}")
 
 
+def _cut_tree(tree, path, keep):
+    """``keep(path, leaf, False)`` over the leaves of a tree of dicts (a
+    layer drawn whole: what an ``init_params``' ``cut`` keeps of it)."""
+    return {k: _cut_tree(v, path + (k,), keep) if isinstance(v, dict)
+            else keep(path + (k,), v, False) for k, v in tree.items()}
+
+
 def _stacked(n, make, dev, cut=None):
     """``n`` layer trees from ``make()`` (called n times in a row, so the
     draws are those of n calls), every leaf stacked [n, ...] on ``dev``:
@@ -166,14 +180,15 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None, cut=None):
     return _to(params, dev)
 
 
-def embed(cfg: ModelConfig, params, tokens, seq=False):
+def embed(cfg: ModelConfig, params, tokens, seq=False, vocab=None):
     """The token embeddings [B, T, D]; in a partitioned step whose rank
     holds a block of the vocabulary's rows, the rank's rows looked up (the
     others zero) and summed over the model axis.  ``seq``: the rank's
     block [B, T / model, D] of the sum (a reduce-scatter), or of a whole
-    table's lookup (the table entering the region)."""
+    table's lookup (the table entering the region).  ``vocab``: the
+    table's rows whole (default ``cfg.vocab_size``; whisper's padded)."""
     e, ax = params["embed"], model_axis()
-    if ax is None or e.shape[0] == cfg.vocab_size:
+    if ax is None or e.shape[0] == (vocab or cfg.vocab_size):
         if not seq:
             return e[tokens.long()]
         t0, n = sequence_block(tokens.shape[1], ax)
@@ -185,15 +200,15 @@ def embed(cfg: ModelConfig, params, tokens, seq=False):
     return scatter_to_sequence(x, ax) if seq else reduce_from_model(x, ax)
 
 
-def logits_of(cfg: ModelConfig, params, x, seq=False):
+def logits_of(cfg: ModelConfig, params, x, seq=False, vocab=None):
     """x @ the output embedding (tied: ``embed``'s transpose); in a
     partitioned step, the rank's block of the vocabulary where it holds
     one.  ``seq``: x is the rank's sequence block, gathered over T first
     (into the region, or, for a whole vocabulary every rank computes
-    alike, into the replicated stream)."""
+    alike, into the replicated stream).  ``vocab``: :func:`embed`'s."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     ax = model_axis()
-    if ax is not None and w.shape[1] != cfg.vocab_size:
+    if ax is not None and w.shape[1] != (vocab or cfg.vocab_size):
         x = gather_from_sequence(x, ax) if seq else copy_to_model(x, ax)
     elif seq:
         x = gather_out_of_model(x, ax, 1)

@@ -33,6 +33,23 @@ Function (kernels 2 and 3 at head width 256).  With ``cfg.remat`` each
 layer then runs under ``torch.utils.checkpoint``, as JAX wraps each in
 ``jax.checkpoint`` (models/rglru.py:166-171), so the backward recomputes
 it.
+
+In a partitioned train step (``distributed.sharding.partitioned``) the
+recurrent block is a tensor-parallel region on the rank's blocks by
+``param_specs``: its columns (channels) of ``wx`` and ``wy`` on the input
+gathered whole in T (from the rank's block where
+``layers.sequence_parallel`` holds, JAX's ``residual_shard``: the causal
+conv needs each token's predecessors), the conv, the gates, the RG-LRU
+(kernels 5 and 5b) on those channels, and the row product with its rows
+of ``wo``, summed over the axis on the way out.  ``conv_w``, ``conv_b``,
+``lam`` and the gates' biases are replicated leaves of which the rank
+uses its channels' share (their gradients summed over the axis,
+``layers._share``).  A block-diagonal gate's output channel reads its
+block's inputs: where the rank's channels are whole blocks those are its
+own, else (a share narrower than a block, or across one) the rank's
+blocks of the conv output are gathered first (their gradients summed,
+then cut).  The local attention and the MLPs are ``layers``' regions; the
+tied vocabulary ``lm.embed``'s and ``lm.logits_of``'s.
 """
 from __future__ import annotations
 
@@ -43,10 +60,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (copy_to_model, gather_from_model,
+                                    model_axis)
 from ..kernels.rglru import rglru
 from . import layers as L
+from . import lm
 from .common import ModelConfig
-from .lm import _to
+from .lm import _cut_tree, _to
 
 GATE_BLOCKS = 8
 LRU_C = 8.0
@@ -62,12 +82,23 @@ def init_block_diag(gen, d, blocks, dt):
             "b": torch.zeros((d,), dtype=dt)}
 
 
-def block_diag_apply(p, x):
-    """x [..., D] with D = blocks * bd."""
+def block_diag_apply(p, x, ax=None):
+    """x [..., D] with D = blocks * bd.  On a model axis ``ax`` (a
+    partitioned step), x is the rank's channels [..., D / size] and so is
+    the output: the blocks that hold them, on the rank's own channels
+    where those are whole blocks, else on the channels gathered from the
+    axis (module docstring)."""
     blocks, bd, _ = p["w"].shape
-    xs = x.reshape(x.shape[:-1] + (blocks, bd))
-    y = torch.einsum("...gi,gij->...gj", xs, p["w"])
-    return y.reshape(x.shape) + p["b"]
+    C = blocks * bd
+    rank, size = (0, 1) if ax is None else (ax.rank, ax.size)
+    c0, c1 = C * rank // size, C * (rank + 1) // size
+    g0, g1 = c0 // bd, -(-c1 // bd)
+    whole = C % size == 0 and (C // size) % bd == 0     # on every rank
+    xin = x if whole else gather_from_model(x, ax)[..., g0 * bd:g1 * bd]
+    xs = xin.reshape(xin.shape[:-1] + (g1 - g0, bd))
+    y = torch.einsum("...gi,gij->...gj", xs, copy_to_model(p["w"], ax)[g0:g1])
+    y = y.reshape(xin.shape)[..., c0 - g0 * bd:c1 - g0 * bd]
+    return y + L._share(p["b"], ax, -1, C)
 
 
 def init_recurrent_block(cfg: ModelConfig, gen):
@@ -101,11 +132,14 @@ def causal_conv1d(x, w, b, state=None):
 def rg_lru(p, x, h0=None, *, executor="auto"):
     """x [B, T, C] -> (y [B, T, C] in x's dtype, h_last [B, C] float32).
     The carried state is folded into the first step (``b_0 += a_0 h0``),
-    then the scan runs from zero."""
+    then the scan runs from zero.  In a partitioned step x is the rank's
+    channels of the whole C = ``lam``'s length."""
     xf = x.float()
-    r = torch.sigmoid(block_diag_apply(p["gate_a"], x).float())
-    i = torch.sigmoid(block_diag_apply(p["gate_x"], x).float())
-    log_a1 = -F.softplus(-p["lam"])                  # log σ(Λ) < 0
+    ax = model_axis()
+    r = torch.sigmoid(block_diag_apply(p["gate_a"], x, ax).float())
+    i = torch.sigmoid(block_diag_apply(p["gate_x"], x, ax).float())
+    lam = L._share(p["lam"], ax, -1, p["lam"].shape[-1])
+    log_a1 = -F.softplus(-lam)                       # log σ(Λ) < 0
     log_at = LRU_C * r * log_a1
     a = torch.exp(log_at)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_at),
@@ -118,16 +152,27 @@ def rg_lru(p, x, h0=None, *, executor="auto"):
     return h.to(x.dtype), h[:, -1]
 
 
-def recurrent_block(cfg: ModelConfig, p, x, state=None, *, executor="auto"):
-    """state = (conv_state [B, W-1, C], h [B, C]) or None."""
+def recurrent_block(cfg: ModelConfig, p, x, state=None, *, executor="auto",
+                    seq=False):
+    """state = (conv_state [B, W-1, C], h [B, C]) or None.  In a
+    partitioned step (module docstring; ``seq``: x and the output are the
+    rank's sequence blocks) no state is returned."""
     conv_st = h0 = None
     if state is not None:
         conv_st, h0 = state
-    u = x @ p["wx"]
-    u, conv_st2 = causal_conv1d(u, p["conv_w"], p["conv_b"], conv_st)
+    ax = model_axis()
+    if ax is not None and state is not None:
+        raise ValueError("a partitioned step runs the RG-LRU without a "
+                         "state")
+    C = p["lam"].shape[-1]
+    x = L._enter(x, ax, seq)
+    u = x @ L._share(p["wx"], ax, -1, C)
+    u, conv_st2 = causal_conv1d(u, L._share(p["conv_w"], ax, -1, C),
+                                L._share(p["conv_b"], ax, -1, C), conv_st)
     u, h_last = rg_lru(p, u, h0, executor=executor)
-    gate = F.gelu(x @ p["wy"], approximate="tanh")
-    return (u * gate) @ p["wo"], (conv_st2, h_last)
+    gate = F.gelu(x @ L._share(p["wy"], ax, -1, C), approximate="tanh")
+    y = L._leave((u * gate) @ L._share(p["wo"], ax, 0, C), ax, seq)
+    return y, (conv_st2, h_last) if ax is None else None
 
 
 def init_layer(cfg: ModelConfig, gen, i: int):
@@ -141,36 +186,43 @@ def init_layer(cfg: ModelConfig, gen, i: int):
     return p
 
 
-def init_params(cfg: ModelConfig, seed=0, *, device=None):
+def init_params(cfg: ModelConfig, seed=0, *, device=None, cut=None):
     """Random parameters in JAX's tree and init scales, drawn from a
     ``torch.Generator`` (``seed`` is an int, for a CPU generator, or a
     generator, whose device draws), then moved to ``device`` (default: the
     CUDA card; raises without one; ``"meta"``: the shapes alone, nothing
-    drawn)."""
+    drawn).  ``cut(path, leaf, stacked)``: what of each leaf is kept as
+    it is drawn (``lm.init_params``'s)."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
     gen = L.generator(seed, dev)
-    return {"embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
-                               L._dtype(cfg)).to(dev),
-            "layers": [_to(init_layer(cfg, gen, i), dev)
+    keep = cut or (lambda path, x, stacked: x)
+    embed = keep(("embed",), L._normal(
+        gen, (cfg.vocab_size, cfg.d_model), 0.02, L._dtype(cfg)), False)
+    return {"embed": embed.to(dev),
+            "layers": [_to(_cut_tree(init_layer(cfg, gen, i),
+                                     ("layers", i), keep), dev)
                        for i in range(cfg.num_layers)],
             "final_norm": _to(L.init_norm(cfg, cfg.d_model), dev)}
 
 
 def _layer_fwd(cfg: ModelConfig, i, p, x, positions, state, *, from_start,
-               executor):
-    """Layer ``i``: (x, its new state)."""
-    hn = L.apply_norm(cfg, p["ln1"], x)
+               executor, seq=False):
+    """Layer ``i``: (x, its new state).  ``seq``: x is the rank's block of
+    a partitioned step's sequence-parallel stream."""
+    hn = L.apply_norm(cfg, p["ln1"], x, seq=seq)
     if is_attn_layer(cfg, i):
         h, st2 = L.attention(cfg, p["attn"], hn, positions, causal=True,
                              window=cfg.sliding_window, cache=state,
-                             from_start=from_start, executor=executor)
+                             from_start=from_start, executor=executor,
+                             seq=seq)
     else:
         h, st2 = recurrent_block(cfg, p["rec"], hn, state,
-                                 executor=executor)
+                                 executor=executor, seq=seq)
     x = x + h
-    return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), st2
+    return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x, seq=seq),
+                     seq=seq), st2
 
 
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
@@ -191,9 +243,13 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     RecurrentGemma scales the embeddings by sqrt(d_model).
     """
     B, T = tokens.shape
+    # the residual stream cut by sequence (JAX's residual_shard,
+    # rglru.py:153; a forward without a state, whose logits are all kept)
+    seq = (states is None and logits_slice is None
+           and L.sequence_parallel(cfg, model_axis(), T))
     emb = params["embed"]
-    x = emb[tokens.long()] * torch.tensor(math.sqrt(cfg.d_model),
-                                          dtype=emb.dtype)
+    x = lm.embed(cfg, params, tokens, seq) * torch.tensor(
+        math.sqrt(cfg.d_model), dtype=emb.dtype)
     from_start = positions is None
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
@@ -204,19 +260,20 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
         if remat:
             x = checkpoint(_layer_fwd, cfg, i, p, x, positions, None,
                            from_start=from_start, executor=executor,
-                           use_reentrant=False,
+                           seq=seq, use_reentrant=False,
                            context_fn=L.remat_policy(cfg))[0]
             continue
         st = states[i] if states is not None else None
         x, st2 = _layer_fwd(cfg, i, p, x, positions, st,
-                            from_start=from_start, executor=executor)
+                            from_start=from_start, executor=executor,
+                            seq=seq)
         if states is not None:
             new_states.append(st2)
 
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    x = L.apply_norm(cfg, params["final_norm"], x, seq=seq)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    logits = x @ emb.T.to(x.dtype)
+    logits = lm.logits_of(cfg, params, x, seq)
     return logits, new_states, torch.zeros((), dtype=torch.float32,
                                            device=x.device)
 

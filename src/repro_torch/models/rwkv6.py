@@ -23,9 +23,31 @@ WKV recurrence through its autograd Function (``kernels/rwkv6/ops.py::
 WKV``: the forward kernel, then the backward kernel, which walks the
 states again from the saved inputs); the decay's gradient flows on
 through ``w = exp(-exp(dec))`` into ``w0``, ``w_A`` and ``w_B`` by
-autograd.  The mesh helpers
-(``_head_shard``, ``residual_shard``, ``logits_shard``) have no
-counterpart on one card.
+autograd.
+
+In a partitioned train step (``distributed.sharding.partitioned``) the
+time mix and the channel mix are tensor-parallel regions on the rank's
+blocks by ``param_specs``, as GSPMD partitions JAX's placed step (JAX's
+``_head_shard`` puts the WKV's heads on 'model').  Each region takes its
+input whole in T (gathered over T from the rank's block where
+``layers.sequence_parallel`` holds, JAX's ``residual_shard``), because
+the token shift needs every token's predecessor, and runs the shift and
+``ddlerp`` there alike on every rank.  The time mix computes the rank's
+heads: ``wr``/``wk``/``wv``/``wg``'s columns (whole heads of 64 where the
+axis divides H; else every head on every rank, the column blocks
+gathered), the WKV kernel on those heads, the per-head GroupNorm, and the
+row product with its rows of ``wo``, summed over the axis on the way out.
+The replicated leaves it reads (the LoRAs, ``mu``, ``w0``, ``u``,
+``gn_scale``) enter the region, so their gradients, partial on each rank,
+are summed over the axis (``w0``, ``u``, ``gn_scale`` and ``w_B``'s output
+columns as the rank's share, ``layers._share``'s rule).  The channel mix
+computes its columns of ``wk`` and the row product with ``wv`` (summed
+over the axis), and ``sigmoid(xr @ wr)`` on its columns of ``wr``,
+gathered over D to meet that sum: into the replicated stream (gradient
+cut only) or, under sequence parallelism, inside the region and narrowed
+to the rank's block (gradient summed, then cut).  The vocabulary is
+``lm.embed``'s and ``lm.logits_of``'s; the LayerNorms on the rank's block
+have their parameters' gradients summed over the axis.
 """
 from __future__ import annotations
 
@@ -36,8 +58,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (copy_to_model, gather_from_model,
+                                    gather_out_of_model, model_axis,
+                                    sequence_block)
 from ..kernels.rwkv6 import wkv
 from . import layers as L
+from . import lm
 from .common import ModelConfig
 from .lm import _stacked, _to, _unstack
 
@@ -99,29 +125,38 @@ def init_block(cfg: ModelConfig, gen):
             "ln2": _ln_params(cfg.d_model), "cm": init_channel_mix(cfg, gen)}
 
 
-def init_params(cfg: ModelConfig, seed=0, *, device=None):
+def init_params(cfg: ModelConfig, seed=0, *, device=None, cut=None):
     """Random parameters in JAX's tree and init scales, drawn from a
     ``torch.Generator`` (``seed`` is an int, for a CPU generator, or a
     generator, whose device draws), then moved to ``device`` (default: the
     CUDA card; raises without one; ``"meta"``: the shapes alone, nothing
-    drawn)."""
+    drawn).  ``cut(path, leaf, stacked)``: what of each leaf is kept as
+    it is drawn (``lm.init_params``'s)."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
     gen = L.generator(seed, dev)
     dt = L._dtype(cfg)
-    params = {"embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
-                                 dt),
+    keep = cut or (lambda path, x, stacked: x)
+    params = {"embed": keep(("embed",), L._normal(
+                  gen, (cfg.vocab_size, cfg.d_model), 0.02, dt), False),
               "ln0": _ln_params(cfg.d_model),
               "blocks": _stacked(cfg.num_layers,
-                                 lambda: init_block(cfg, gen), dev),
+                                 lambda: init_block(cfg, gen), dev,
+                                 lambda path, x: keep(("blocks",) + path, x,
+                                                      True)),
               "ln_out": _ln_params(cfg.d_model),
-              "head": L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
-                                dt)}
+              "head": keep(("head",), L._normal(
+                  gen, (cfg.d_model, cfg.vocab_size), 0.02, dt), False)}
     return _to(params, dev)
 
 
-def _ln(p, x, eps=1e-5):
+def _ln(p, x, eps=1e-5, seq=False):
+    """LayerNorm; ``seq``: x is the rank's sequence block of a partitioned
+    step (the parameters enter the region: their gradients summed)."""
+    if seq:
+        ax = model_axis()
+        p = {k: copy_to_model(v, ax) for k, v in p.items()}
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, correction=0)
@@ -159,49 +194,93 @@ def ddlerp(p, x, xs):
     return (base + lo * dx[None]).to(x.dtype)
 
 
+def _rank_heads(H: int, ax) -> tuple:
+    """(first head, heads) the rank computes: its H / size where the
+    axis divides H, else every head (every head without an axis)."""
+    if ax is None or H % ax.size:
+        return 0, H
+    return ax.rank * (H // ax.size), H // ax.size
+
+
 def time_mix(cfg: ModelConfig, p, x, shift_last=None, S0=None, *,
-             executor="auto"):
-    """The Finch time mix.  Returns (y, (last token, S_final))."""
+             executor="auto", seq=False):
+    """The Finch time mix.  Returns (y, (last token, S_final)).  In a
+    partitioned step (module docstring) y is the rank's block of the
+    stream under ``seq``, else whole; the carries are not returned."""
     B, T, D = x.shape
     H = _heads(cfg)
+    ax = model_axis()
+    if ax is not None:
+        if S0 is not None or shift_last is not None:
+            raise ValueError("a partitioned step runs rwkv6 without a state")
+        x = L._enter(x, ax, seq)
+        T = x.shape[1]
+        # ddlerp's and the decay LoRA's input side, run alike on every
+        # rank; the rest by the rank's heads below
+        p = dict(p, **{k: copy_to_model(p[k], ax)
+                       for k in ("mu", "mix_A", "mix_B", "w_A")})
+    h0, nh = _rank_heads(H, ax)
+
+    def cols(w):        # the rank's heads' last-dim columns of w
+        return L._head_cols(w, ax, h0, nh, HEAD_DIM, H)
     xs = time_shift(x, shift_last)
     xr, xk, xv, xg, xw = ddlerp(p, x, xs)
 
-    r = (xr @ p["wr"]).reshape(B, T, H, HEAD_DIM)
-    k = (xk @ p["wk"]).reshape(B, T, H, HEAD_DIM)
-    v = (xv @ p["wv"]).reshape(B, T, H, HEAD_DIM)
-    g = xg @ p["wg"]
+    r = (xr @ cols(p["wr"])).reshape(B, T, nh, HEAD_DIM)
+    k = (xk @ cols(p["wk"])).reshape(B, T, nh, HEAD_DIM)
+    v = (xv @ cols(p["wv"])).reshape(B, T, nh, HEAD_DIM)
+    g = xg @ cols(p["wg"])
 
     # The decay stays float32 (rwkv6.py:175-176 in JAX: a bf16 decay near
     # 1.0 loses the long-range memory it exists for).
-    dec = p["w0"] + torch.tanh(xw @ p["w_A"]).float() @ p["w_B"].float()
-    w = torch.exp(-torch.exp(dec)).reshape(B, T, H, HEAD_DIM)
+    dec = cols(p["w0"]) + torch.tanh(xw @ p["w_A"]).float() @ cols(
+        p["w_B"]).float()
+    w = torch.exp(-torch.exp(dec)).reshape(B, T, nh, HEAD_DIM)
 
-    u = p["u"].reshape(H, HEAD_DIM)
+    u = cols(p["u"]).reshape(nh, HEAD_DIM)
     y, S = wkv(r, k, v, w, u, S0, executor=executor)
-    y = _group_norm(y.reshape(B, T, D), p["gn_scale"], H)
-    y = (y * F.silu(g)) @ p["wo"]
-    return y, (x[:, -1], S)
+    y = _group_norm(y.reshape(B, T, nh * HEAD_DIM), cols(p["gn_scale"]), nh)
+    y = L._rows_out(y * F.silu(g), p["wo"], ax, D, seq)
+    return y, (x[:, -1], S) if ax is None else None
 
 
-def channel_mix(cfg: ModelConfig, p, x, shift_last=None):
+def channel_mix(cfg: ModelConfig, p, x, shift_last=None, seq=False):
+    """The squared-ReLU channel mix.  Returns (y, last token); in a
+    partitioned step (module docstring) y is the rank's block under
+    ``seq``, else whole (the token of no use: there is no state)."""
+    ax = model_axis()
+    D, F_ = cfg.d_model, cfg.d_ff
+    if ax is not None and (shift_last is not None or p["wr"].shape[-1] == D):
+        raise ValueError(f"a partitioned step runs rwkv6 without a state, "
+                         f"the channel mix's wr cut over the model axis of "
+                         f"{ax.size} (it must divide D = {D})")
+    x = L._enter(x, ax, seq)
     xs = time_shift(x, shift_last)
-    xk = (x + (xs - x) * p["mu_k"]).to(x.dtype)
-    xr = (x + (xs - x) * p["mu_r"]).to(x.dtype)
-    k = torch.square(torch.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+    xk = (x + (xs - x) * copy_to_model(p["mu_k"], ax)).to(x.dtype)
+    xr = (x + (xs - x) * copy_to_model(p["mu_r"], ax)).to(x.dtype)
+    k = torch.square(torch.relu(xk @ L._share(p["wk"], ax, -1, F_)))
+    kv = L._leave(k @ L._share(p["wv"], ax, 0, F_), ax, seq)
+    r = torch.sigmoid(xr @ p["wr"])         # the rank's columns, every t
+    if ax is not None:
+        t0, n = sequence_block(x.shape[1], ax if seq else None)
+        r = (gather_from_model(r, ax).narrow(1, t0, n) if seq
+             else gather_out_of_model(r, ax))
+    return r * kv, x[:, -1]
 
 
-def block_fwd(cfg: ModelConfig, p, x, state=None, *, executor="auto"):
-    """state = (tm_last, S, cm_last) or None."""
+def block_fwd(cfg: ModelConfig, p, x, state=None, *, executor="auto",
+              seq=False):
+    """state = (tm_last, S, cm_last) or None.  ``seq``: x is the rank's
+    block of a partitioned step's sequence-parallel stream."""
     tm_last = S0 = cm_last = None
     if state is not None:
         tm_last, S0, cm_last = state
-    h, (tm_last2, S2) = time_mix(cfg, p["tm"], _ln(p["ln1"], x), tm_last,
-                                 S0, executor=executor)
+    h, st = time_mix(cfg, p["tm"], _ln(p["ln1"], x, seq=seq), tm_last, S0,
+                     executor=executor, seq=seq)
     x = x + h
-    h, cm_last2 = channel_mix(cfg, p["cm"], _ln(p["ln2"], x), cm_last)
-    return x + h, (tm_last2, S2, cm_last2)
+    h, cm_last2 = channel_mix(cfg, p["cm"], _ln(p["ln2"], x, seq=seq),
+                              cm_last, seq=seq)
+    return x + h, None if st is None else (*st, cm_last2)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, states=None,
@@ -218,26 +297,30 @@ def forward(cfg: ModelConfig, params, tokens, *, states=None,
     Other keywords (positions, moe_impl) are ignored, as in JAX.
     Returns (logits [B, T, V], new_states or None, aux_loss 0).
     """
-    x = _ln(params["ln0"], params["embed"][tokens.long()])
+    # the residual stream cut by sequence (JAX's residual_shard,
+    # rwkv6.py:244; a forward without a state, whose logits are all kept)
+    seq = (states is None and logits_slice is None
+           and L.sequence_parallel(cfg, model_axis(), tokens.shape[1]))
+    x = _ln(params["ln0"], lm.embed(cfg, params, tokens, seq), seq=seq)
     remat = cfg.remat and states is None and torch.is_grad_enabled()
     sts = []
     for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
         if remat:
             x = checkpoint(block_fwd, cfg, bp, x, None, executor=executor,
-                           use_reentrant=False,
+                           seq=seq, use_reentrant=False,
                            context_fn=L.remat_policy(cfg))[0]
             continue
         st = None if states is None else tuple(s[i] for s in states)
-        x, st2 = block_fwd(cfg, bp, x, st, executor=executor)
+        x, st2 = block_fwd(cfg, bp, x, st, executor=executor, seq=seq)
         sts.append(st2)
     new_states = None
     if states is not None:
         new_states = tuple(torch.stack(parts) for parts in zip(*sts))
 
-    x = _ln(params["ln_out"], x)
+    x = _ln(params["ln_out"], x, seq=seq)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    logits = x @ params["head"]
+    logits = lm.logits_of(cfg, params, x, seq)
     return logits, new_states, torch.zeros((), dtype=torch.float32,
                                            device=x.device)
 

@@ -17,6 +17,20 @@ prefill into empty caches.  Decode caches are a list of per-layer KV caches
 (:func:`init_caches`).  Under grad with ``cfg.remat``, each layer runs
 under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``,
 whisper.py:87-88, :117-118).
+
+In a partitioned train step (``distributed.sharding.partitioned``) the
+attention and the MLP of both stacks are ``layers``' regions on the
+rank's blocks.  Each stack's residual stream is the rank's block of its
+sequence where ``layers.sequence_parallel`` holds (JAX's
+``residual_shard``: the frames, the tokens), whole elsewhere.  The
+encoder's output enters the decoder's regions once, for all its layers:
+gathered over T by ``gather_from_sequence`` (whose reduce-scatter sums
+the ranks' partial gradients, each its heads' or query block's) where
+the encoder ran sequence-parallel, else by ``copy_to_model`` (the same
+sum); the cross-attention takes it as it is, so its gradient is summed
+once.  The tied, padded vocabulary is cut by rows through
+``lm.embed`` and ``lm.logits_of``, the padding's -1e30 on the rank's
+block of the logits by global column index.
 """
 from __future__ import annotations
 
@@ -26,9 +40,12 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (copy_to_model, gather_from_sequence,
+                                    model_axis, sequence_block)
 from . import layers as L
+from . import lm
 from .common import ModelConfig
-from .lm import _to
+from .lm import _cut_tree, _to
 
 
 def padded_vocab(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -63,22 +80,26 @@ def init_dec_layer(cfg: ModelConfig, gen):
             "mlp": L.init_mlp(cfg, gen)}
 
 
-def init_params(cfg: ModelConfig, seed=0, *, device=None):
+def init_params(cfg: ModelConfig, seed=0, *, device=None, cut=None):
     """Random parameters in JAX's tree and init scales from a
     ``torch.Generator`` (``seed`` an int, for a CPU generator, or a
     generator, whose device draws), on ``device`` (default: the CUDA card;
     raises without one; ``"meta"``: the shapes alone, nothing drawn).
     Draw order: embed, the encoder's layers, the
-    decoder's."""
+    decoder's.  ``cut(path, leaf, stacked)``: what of each leaf is kept
+    as it is drawn (``lm.init_params``'s)."""
     from ..api.scenario import resolve_device
 
     dev = resolve_device(device)
     gen = L.generator(seed, dev)
-    embed = L._normal(gen, (padded_vocab(cfg), cfg.d_model), 0.02,
-                      L._dtype(cfg)).to(dev)
-    enc = [_to(init_enc_layer(cfg, gen), dev)
-           for _ in range(cfg.num_encoder_layers)]
-    dec = [_to(init_dec_layer(cfg, gen), dev) for _ in range(cfg.num_layers)]
+    keep = cut or (lambda path, x, stacked: x)
+    embed = keep(("embed",), L._normal(
+        gen, (padded_vocab(cfg), cfg.d_model), 0.02, L._dtype(cfg)),
+        False).to(dev)
+    enc = [_to(_cut_tree(init_enc_layer(cfg, gen), ("enc_layers", i), keep),
+               dev) for i in range(cfg.num_encoder_layers)]
+    dec = [_to(_cut_tree(init_dec_layer(cfg, gen), ("dec_layers", i), keep),
+               dev) for i in range(cfg.num_layers)]
     return {"embed": embed, "enc_layers": enc,
             "enc_norm": _to(L.init_norm(cfg, cfg.d_model), dev),
             "dec_layers": dec,
@@ -89,32 +110,37 @@ def _remat(cfg):
     return cfg.remat and torch.is_grad_enabled()
 
 
-def encode(cfg: ModelConfig, params, frame_embeds):
+def encode(cfg: ModelConfig, params, frame_embeds, seq=False):
     """frame_embeds [B, F, D] (the stub frontend's output) -> the encoder's
     output [B, F, D]: bidirectional self-attention, no rotary embedding.
     The frames plus their positions (in the frames' dtype, as JAX adds
     them) are brought to the model's dtype; JAX would instead promote a
-    bf16 stream against float32 weights op by op."""
+    bf16 stream against float32 weights op by op.  ``seq``: in a
+    partitioned step, the stream and the output are the rank's block of
+    the frames."""
     B, F, D = frame_embeds.shape
-    pos = torch.arange(F, device=frame_embeds.device)[None].expand(B, F)
-    x = (frame_embeds + sinusoidal(pos, D).to(frame_embeds.dtype)).to(
-        L._dtype(cfg))
+    t0, n = sequence_block(F, model_axis() if seq else None)
+    pos = torch.arange(t0, t0 + n, device=frame_embeds.device)[None].expand(
+        B, n)
+    x = (frame_embeds[:, t0:t0 + n] + sinusoidal(pos, D).to(
+        frame_embeds.dtype)).to(L._dtype(cfg))
     zero_pos = torch.zeros((B, F), dtype=torch.long,
                            device=frame_embeds.device)
 
     def enc_layer(p, x):
-        hn = L.apply_norm(cfg, p["ln1"], x)
+        hn = L.apply_norm(cfg, p["ln1"], x, seq=seq)
         h, _ = L.attention(cfg, p["attn"], hn, zero_pos, causal=False,
-                           xkv=hn)
+                           xkv=hn, seq=seq)
         x = x + h
-        return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+        return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x,
+                                                     seq=seq), seq=seq)
 
     remat = _remat(cfg)
     context_fn = L.remat_policy(cfg) if remat else None
     for p in params["enc_layers"]:
         x = (checkpoint(enc_layer, p, x, use_reentrant=False,
                         context_fn=context_fn) if remat else enc_layer(p, x))
-    return L.apply_norm(cfg, params["enc_norm"], x)
+    return L.apply_norm(cfg, params["enc_norm"], x, seq=seq)
 
 
 def decode(cfg: ModelConfig, params, tokens, enc_out, *, positions=None,
@@ -122,27 +148,36 @@ def decode(cfg: ModelConfig, params, tokens, enc_out, *, positions=None,
     """The decoder stack.  ``caches``: the list of per-layer self-attention
     KV caches (written in place; the returned list replaces it) or None.
     ``enc_out`` is brought to the model's dtype (for a float32 model, the
-    exact upcast of JAX's promotion of bf16 frames).
-    Returns (logits [B, T, padded vocab], new_caches)."""
+    exact upcast of JAX's promotion of bf16 frames); in a partitioned
+    step it is already inside the regions (module docstring).
+    Returns (logits [B, T, padded vocab], new_caches): in a partitioned
+    step the rank's block of the vocabulary where it holds one."""
     B, T = tokens.shape
+    ax = model_axis()
     enc_out = enc_out.to(L._dtype(cfg))
     from_start = positions is None
     if positions is None:
         positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-    x = params["embed"][tokens.long()] + sinusoidal(
-        positions, cfg.d_model).to(params["embed"].dtype)
+    seq = (caches is None and logits_slice is None
+           and L.sequence_parallel(cfg, ax, T))
+    pv = padded_vocab(cfg)
+    t0, n = sequence_block(T, ax if seq else None)
+    x = lm.embed(cfg, params, tokens, seq, vocab=pv) + sinusoidal(
+        positions[:, t0:t0 + n], cfg.d_model).to(params["embed"].dtype)
 
     def dec_layer(p, x, cache):
         h, c2 = L.attention(cfg, p["self_attn"],
-                            L.apply_norm(cfg, p["ln1"], x), positions,
-                            causal=True, cache=cache, from_start=from_start,
-                            executor=executor)
+                            L.apply_norm(cfg, p["ln1"], x, seq=seq),
+                            positions, causal=True, cache=cache,
+                            from_start=from_start, executor=executor,
+                            seq=seq)
         x = x + h
         h, _ = L.attention(cfg, p["cross_attn"],
-                           L.apply_norm(cfg, p["ln_x"], x), positions,
-                           causal=False, xkv=enc_out)
+                           L.apply_norm(cfg, p["ln_x"], x, seq=seq),
+                           positions, causal=False, xkv=enc_out, seq=seq)
         x = x + h
-        return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), c2
+        return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x,
+                                                     seq=seq), seq=seq), c2
 
     remat = caches is None and _remat(cfg)
     context_fn = L.remat_policy(cfg) if remat else None
@@ -156,13 +191,15 @@ def decode(cfg: ModelConfig, params, tokens, enc_out, *, positions=None,
         if caches is not None:
             new_caches.append(c2)
 
-    x = L.apply_norm(cfg, params["dec_norm"], x)
+    x = L.apply_norm(cfg, params["dec_norm"], x, seq=seq)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    logits = x @ params["embed"].T.to(x.dtype)
-    pv = params["embed"].shape[0]
+    logits = lm.logits_of(cfg, params, x, seq, vocab=pv)
     if pv != cfg.vocab_size:   # mask the vocab-padding slots
-        pad = torch.arange(pv, device=logits.device) >= cfg.vocab_size
+        # by global column: the rank's block starts at rank x its width
+        c0 = 0 if logits.shape[-1] == pv else ax.rank * logits.shape[-1]
+        pad = torch.arange(c0, c0 + logits.shape[-1],
+                           device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits, new_caches
 
@@ -178,10 +215,15 @@ def forward(cfg: ModelConfig, params, tokens, *, frame_embeds=None,
     if enc_out is None and frame_embeds is None:
         raise ValueError("whisper needs frame_embeds, or enc_out from "
                          "encode()")
+    ax = model_axis()
     with torch.no_grad() if caches is not None else \
             contextlib.nullcontext():
         if enc_out is None:
-            enc_out = encode(cfg, params, frame_embeds)
+            seq = L.sequence_parallel(cfg, ax, frame_embeds.shape[1])
+            enc_out = encode(cfg, params, frame_embeds, seq)
+            # into the decoder's regions once (module docstring)
+            enc_out = (gather_from_sequence(enc_out, ax) if seq
+                       else copy_to_model(enc_out, ax))
         logits, new_caches = decode(cfg, params, tokens, enc_out,
                                     positions=positions, caches=caches,
                                     logits_slice=logits_slice,

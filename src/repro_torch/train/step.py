@@ -9,14 +9,15 @@ Gradient accumulation over microbatches is a Python loop (JAX's
 places the accumulator by its specs on the ambient mesh (JAX's
 ``with_sharding_constraint``), which changes no number.
 
-A state placed on a mesh (DTensor leaves, :func:`place_state`) of a dense
-or MoE model takes the partitioned step, what GSPMD makes of JAX's step
-jitted with the state's shardings: each rank keeps only its blocks of
-the parameters (``param_specs``) and of the AdamW moments
-(``zero_specs``: ZeRO-1, also cut over 'data'), computes the gradients of
-its block of the batch (``batch_spec``) with its share of every product
-(the model's tensor-parallel regions, ``distributed.sharding.partitioned``:
-megatron's column and row blocks, the vocabulary cut over 'model', and
+A state placed on a mesh (DTensor leaves, :func:`place_state`) takes the
+partitioned step, what GSPMD makes of JAX's step jitted with the state's
+shardings, for every family: each rank keeps only its blocks of the
+parameters (``param_specs``) and of the AdamW moments (``zero_specs``:
+ZeRO-1, also cut over 'data'), computes the gradients of its block of the
+batch (``batch_spec``) with its share of every product (the model's
+tensor-parallel regions, ``distributed.sharding.partitioned``: megatron's
+column and row blocks of the attention, the MLPs, rwkv6's time and
+channel mixes and the RG-LRU block, the vocabulary cut over 'model', and
 the MoE's E / model experts of ``moe/w[gud]`` beside the replicated
 router), averages them over the data axes, clips by the norm over the
 blocks, and updates its blocks, each cut to the moments' data share and
@@ -24,16 +25,18 @@ gathered back over 'data'.  Between the regions the residual stream is
 the rank's block of the sequence where JAX's ``residual_shard`` cuts it
 (``seq_parallel``, the model axis dividing T: megatron's sequence
 parallelism, an all-gather over T into each region and a reduce-scatter
-out of it, so the blocks' saved inputs are 1 / model a rank), whole on
-every model rank elsewhere; attention runs context-parallel where JAX's
-``_cp_shard`` does (the heads not dividing the model axis, or
-``cp_attention``: each rank every head on its block of the queries).
-Both cut only over 'model', inside the model (``models/lm.py``,
-``models/layers.py``), so the batch's rows and the data mean are as
-without them.  At model 1 and one data rank the numbers are one card's
-bit for bit; over several ranks the row products' and the experts' sums,
-the data mean and the sequence blocks' reductions change the float32
-round-off.
+out of it, so the blocks' saved inputs are 1 / model a rank; whisper's
+encoder and decoder each by its own length), whole on every model rank
+elsewhere; attention runs context-parallel where JAX's ``_cp_shard``
+does (the heads not dividing the model axis, or ``cp_attention``: each
+rank every head on its block of the queries; whisper's cross-attention
+too).  Both cut only over 'model', inside the model (``models/``), so the
+batch's rows and the data mean are as without them.  At model 1 and one
+data rank the numbers are one card's bit for bit; over several ranks the
+row products' and the experts' sums, the data mean and the sequence
+blocks' reductions change the float32 round-off.  A mesh without a
+'model' axis (the dry run's ``dp_only``) runs the same step with no
+region: each rank the whole model on its rows.
 
 The MoE runs in the step as ``moe_impl`` names it, on the rank's blocks:
 ``gmm`` the pairs routed to the rank's experts, ``dense`` the rank's
@@ -42,11 +45,6 @@ block of the batch cut by sequence over 'model' and exchanged with the
 rank's experts by all-to-alls (``distributed/moe_a2a.py``).  The
 load-balancing term is computed alike on every model rank (the a2a's:
 the mean of the ranks' local estimates) and counts 1 / n a data rank.
-
-The other families take the data-parallel step: each leaf is gathered
-whole where the model uses it, the rank computes the gradients of its
-block of the batch, they are averaged over the data axes, every rank
-applies the same update to the whole leaves and keeps its blocks.
 """
 from __future__ import annotations
 
@@ -58,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from ..api.scenario import resolve_device
 from ..distributed import sharding
 from ..kernels.flash_attention.ops import check_executor
-from ..models import EXTRA_KEYS, ModelBundle
+from ..models import EXTRA_KEYS, ModelBundle, logits_width
 from ..optim import (AdamWConfig, OptState, adamw_init, adamw_update,
                      global_norm)
 from ..tree import leaves, tree_map, unflatten_like
@@ -75,10 +73,10 @@ def init_train_state(bundle: ModelBundle, seed: int = 0, *, device=None,
     """Fresh parameters, drawn on ``device`` by a ``torch.Generator`` there
     seeded with ``seed``, zero Adam moments and step 0.  With ``mesh``,
     the state :func:`place_state` would make of it, from the same draws,
-    the rank keeping only its blocks: a decoder-only LM's leaves are cut as
-    they are drawn (a stacked one layer by layer), so the peak is one
-    leaf beside the blocks, and the moments are made at their blocks'
-    shapes (``zero_specs``)."""
+    the rank keeping only its blocks: every family's leaves are cut as
+    they are drawn (a stacked one layer by layer, a list's layer by
+    layer), so the peak is one leaf or layer beside the blocks, and the
+    moments are made at their blocks' shapes (``zero_specs``)."""
     from torch.distributed.tensor import DTensor
 
     dev = resolve_device(device)
@@ -98,11 +96,7 @@ def init_train_state(bundle: ModelBundle, seed: int = 0, *, device=None,
         spec = sharding._at(pspecs, path)
         spec = sharding.P(*tuple(spec)[1:]) if stacked else spec
         return sharding.local_block(x, mesh, spec).clone()
-    if bundle.cfg.family in ("dense", "moe", "vlm"):
-        params = bundle.init_params(gen, device=dev, cut=keep)
-    else:
-        params = sharding._map_with_path(
-            keep, bundle.init_params(gen, device=dev))
+    params = bundle.init_params(gen, device=dev, cut=keep)
 
     def placed(local, specs):
         return sharding._map_with_path(
@@ -179,8 +173,10 @@ def make_loss_fn(bundle: ModelBundle, moe_impl: str = "gmm", *,
         logits, _, aux = bundle.forward(params, batch["tokens"],
                                         moe_impl=moe_impl, executor=executor,
                                         **kw)
+        # the rank's block of a vocabulary cut over the axis, told from
+        # the whole logits by their width (whisper's is padded)
         ax = sharding.model_axis()
-        cut = ax is not None and logits.shape[-1] != bundle.cfg.vocab_size
+        cut = ax is not None and logits.shape[-1] != logits_width(bundle.cfg)
         ce = cross_entropy(logits, batch["labels"], model=ax if cut else None)
         return ce + aux, (ce, aux)
     return loss_fn
@@ -262,11 +258,6 @@ def _batch_block(batch, mesh):
         sharding.batch_spec(mesh)) for k, v in batch.items()}
 
 
-#: The families whose placed state takes the partitioned step (module
-#: docstring); the others gather every leaf whole.
-PARTITIONED_FAMILIES = ("dense", "moe")
-
-
 def _cut_on(x, axis: str):
     """The dim a placed leaf is cut on over the mesh axis ``axis`` (of more
     than one rank), or None."""
@@ -334,9 +325,8 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, *,
     ``grad_acc_specs``: optional spec tree for the float32 accumulator,
     placed by it on the ambient mesh (``sharding.set_mesh``); the
     partitioned step accumulates its blocks as they are.  A state placed
-    on a mesh takes the partitioned step (a dense or MoE model) or the
-    data-parallel one (module docstring), with the global ``batch``
-    (every rank the same).  ``executor`` picks the
+    on a mesh takes the partitioned step (module docstring), with the
+    global ``batch`` (every rank the same).  ``executor`` picks the
     flash-attention sites' implementation, forward and backward (``auto``:
     the kernels on a card, the plain versions on the CPU; ``reference``:
     the plain versions anywhere)."""
@@ -406,23 +396,12 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, *,
 
     def train_step(state: TrainState, batch):
         params, opt = state.params, state.opt
-        placed = sharding.is_placed(leaves(params)[0])
-        if placed and bundle.cfg.family in PARTITIONED_FAMILIES:
+        if sharding.is_placed(leaves(params)[0]):
             return partitioned_step(state, batch)
-        if placed:
-            mesh = leaves(params)[0].device_mesh
-            params, opt = sharding.gather_full((params, opt))
-            loss, ce, aux, grads = grads_of(
-                params, batch, _data_mean(mesh),
-                block=lambda mb: _batch_block(mb, mesh))
-        else:
-            loss, ce, aux, grads = grads_of(params, batch)
+        loss, ce, aux, grads = grads_of(params, batch)
         with torch.no_grad():
             new_params, new_opt, om = adamw_update(opt_cfg, grads, opt,
                                                    params)
-        if placed:
-            new_params, new_opt = sharding.place_like(
-                (new_params, new_opt), (state.params, state.opt))
         metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 

@@ -615,9 +615,10 @@ def test_global_norm_over_blocks(worlds, world):
 @pytest.mark.parametrize("world", TP_WORLDS)
 def test_placed_init_is_the_placed_whole_init(worlds, world):
     """init_train_state(mesh=...) draws as the whole init does and keeps
-    each rank's blocks (a decoder-only LM cut leaf by leaf as drawn,
-    rwkv6 cut after): parameters and moments equal to place_state of the
-    whole state, placements and global shapes too, on every rank."""
+    each rank's blocks (every family cut leaf by leaf as drawn: stacked
+    layers one at a time, recurrentgemma's and whisper's lists layer by
+    layer): parameters and moments equal to place_state of the whole
+    state, placements and global shapes too, on every rank."""
     for rank in worlds[world]:
         for arch, same in rank["parts"]["init"].items():
             assert same and all(same), arch
@@ -665,14 +666,13 @@ def test_global_norm_without_blocks_is_unchanged():
 
 
 def test_the_port_runs_the_dense_family_partitioned():
-    """The dense and MoE families take the partitioned step; the others
-    keep the data-parallel one (ROADMAP queue 1)."""
-    from repro_torch.configs import ARCHS, get_config
-    from repro_torch.train.step import PARTITIONED_FAMILIES
+    """The dense and MoE families take the partitioned step, as every
+    family now does: the step keeps no family list and no data-parallel
+    branch (tests/test_torch_tensor_parallel_families.py runs a placed
+    state of every arch through it)."""
+    from repro_torch.train import step
 
-    dense = [a for a in ARCHS if get_config(a).family in PARTITIONED_FAMILIES]
-    assert dense == ["qwen2-0.5b", "qwen3-0.6b", "olmo-1b", "yi-9b",
-                     "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b"]
+    assert not hasattr(step, "PARTITIONED_FAMILIES")
     # yi's untied head is cut by vocabulary as the tied embedding is
     assert D.tp_config("yi-9b").tie_embeddings is False
 

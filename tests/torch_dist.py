@@ -1,5 +1,6 @@
 """Worlds of several processes on the CPU for the port's multi-rank tests
-(tests/test_torch_{mesh,collectives,moe_a2a,dryrun}.py).
+(tests/test_torch_{mesh,collectives,moe_a2a,dryrun,tensor_parallel,
+tensor_parallel_families}.py).
 
 ``start_world(case, world, tmp)`` spawns ``world`` Python processes, each
 a rank of a gloo process group over a ``FileStore`` in ``tmp`` (no
@@ -15,6 +16,7 @@ is a rank's command line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -60,9 +62,9 @@ def start_world(case: str, world: int, tmp, **kw) -> World:
     return World(case, world, procs, outs, logs)
 
 
-def join(w: World) -> list:
+def join(w: World, timeout: float = JOIN_TIMEOUT_S) -> list:
     """Every rank's result, in rank order; raises AssertionError if a rank
-    fails or the world is not done within ``JOIN_TIMEOUT_S``."""
+    fails or the world is not done within ``timeout`` s of its start."""
     def kill(why):
         for p in w.procs:
             if p.poll() is None:
@@ -83,8 +85,8 @@ def join(w: World) -> list:
             kill(f"rank {bad[0]} exited with {codes[bad[0]]}")
         if all(c == 0 for c in codes):
             break
-        if time.monotonic() - w.t0 > JOIN_TIMEOUT_S:
-            kill(f"not done after {JOIN_TIMEOUT_S:.0f} s")
+        if time.monotonic() - w.t0 > timeout:
+            kill(f"not done after {timeout:.0f} s")
         time.sleep(0.05)
     res = []
     for out in w.outs:
@@ -420,35 +422,44 @@ def tp_params(cfg):
                                       "cpu")
 
 
-def tp_steps(cfg, mesh, bs, moe_impl="gmm"):
-    """float32 steps of ``cfg`` from :func:`tp_params` with the state
-    placed on ``mesh``, one a batch of ``bs``: every step's metrics, the
-    final weights and moments gathered whole, and the shapes of this
-    rank's blocks of the parameters and moments."""
+def tp_steps(cfg, mesh, bs, moe_impl="gmm", tree=None, saved=False):
+    """float32 steps of ``cfg`` from :func:`tp_params` (or the numpy
+    parameter ``tree`` in JAX's layout) with the state placed on ``mesh``,
+    one a batch of ``bs``: every step's metrics, the final weights and
+    moments gathered whole, and the shapes of this rank's blocks of the
+    parameters and moments; with ``saved``, step 1's saved block inputs
+    (:class:`SavedBlockInputs`: bytes, blocks)."""
     import torch
 
+    from repro_torch import convert
     from repro_torch.distributed import sharding as S
     from repro_torch.models import build
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import TrainState, make_train_step, place_state
 
-    params = tp_params(cfg)
+    params = (tp_params(cfg) if tree is None else
+              convert.lm_params_from_jax(tree, cfg, "cpu"))
     state = TrainState(params, adamw_init(params),
                        torch.zeros((), dtype=torch.int32))
     step = make_train_step(build(cfg), AdamWConfig(**TP_OPT),
                            moe_impl=moe_impl)
+    out = {}
     with S.set_mesh(mesh):
         state = place_state(state, mesh)
         metrics = []
-        for b in bs:
-            state, m = step(state, {k: torch.from_numpy(v)
-                                    for k, v in b.items()})
+        for i, b in enumerate(bs):
+            with SavedBlockInputs() if saved and i == 0 else \
+                    contextlib.nullcontext() as s:
+                state, m = step(state, {k: torch.from_numpy(v)
+                                        for k, v in b.items()})
+            if s is not None:
+                out["saved"] = (s.bytes, s.inputs)
             metrics.append({k: float(v) for k, v in m.items()})
         local = S._map_with_path(lambda _, x: tuple(x.to_local().shape),
                                  (state.params, state.opt.mu))
         full = S.gather_full((state.params, state.opt.mu))
     return {"metrics": metrics, "params": full[0], "mu": full[1],
-            "local": local, "step": int(state.step)}
+            "local": local, "step": int(state.step), **out}
 
 
 #: The sequence- and context-parallel variants of the partitioned step
@@ -484,29 +495,35 @@ def tp_variant(name, configs="repro_torch.configs"):
 
 class SavedBlockInputs:
     """While entered, the bytes autograd saves of the remat blocks' inputs
-    (the tensors ``models.lm`` hands ``torch.utils.checkpoint``): every
-    saved tensor seen by ``saved_tensors_hooks`` whose storage is one of
-    those inputs', each counted once (``bytes``; ``inputs``: the blocks
-    run).  It keeps addresses only, so it holds no tensor alive."""
+    (the tensors the models hand ``torch.utils.checkpoint``, each block's
+    first tensor argument: ``lm``'s, ``rwkv6``'s, ``rglru``'s layers and
+    ``whisper``'s encoder and decoder layers): every saved tensor seen by
+    ``saved_tensors_hooks`` whose storage is one of those inputs', each
+    counted once (``bytes``; ``inputs``: the blocks run).  It keeps
+    addresses only, so it holds no tensor alive."""
 
     def __enter__(self):
         import torch
 
-        from repro_torch.models import lm
+        from repro_torch.models import lm, rglru, rwkv6, whisper
 
-        self._lm, self._real = lm, lm.checkpoint
+        self._mods = [(m, m.checkpoint) for m in (lm, rwkv6, rglru, whisper)]
         self._inputs, self._saved = set(), set()
 
-        def checkpoint(fn, cfg, bp, x, *args, **kw):
-            self._inputs.add(x.data_ptr())
-            self.inputs += 1
-            return self._real(fn, cfg, bp, x, *args, **kw)
+        def patched(real):
+            def checkpoint(fn, *args, **kw):
+                x = next(a for a in args if isinstance(a, torch.Tensor))
+                self._inputs.add(x.data_ptr())
+                self.inputs += 1
+                return real(fn, *args, **kw)
+            return checkpoint
 
         def pack(t):
             self._saved.add((t.data_ptr(), t.untyped_storage().nbytes()))
             return t
         self.inputs = 0
-        lm.checkpoint = checkpoint
+        for m, real in self._mods:
+            m.checkpoint = patched(real)
         self._hooks = torch.autograd.graph.saved_tensors_hooks(
             pack, lambda t: t)
         self._hooks.__enter__()
@@ -514,7 +531,8 @@ class SavedBlockInputs:
 
     def __exit__(self, *exc):
         self._hooks.__exit__(*exc)
-        self._lm.checkpoint = self._real
+        for m, real in self._mods:
+            m.checkpoint = real
         self.bytes = sum(n for p, n in self._saved if p in self._inputs)
 
 
@@ -562,6 +580,150 @@ def case_tp_train(rank, world, model, archs=TP_ARCHS, uneven=False):
         out[arch] = tp_steps(cfg, mesh, (tp_moe_batches if uneven else
                                          tp_batches)(cfg.vocab_size))
     return _np(out)
+
+
+#: The recurrent, VLM and audio families' partitioned step
+#: (tests/test_torch_tensor_parallel_families.py): their smoke configs in
+#: float32, TP_STEPS steps of tp_batches from ``convert.random_lm_params(
+#: cfg, 0)``.  qwen2-vl's M-RoPE sections fitted to its head of 16
+#: (tests/test_torch_vlm.py's), its image a grid of FAM_GRID patches.
+FAM_ARCHS = ("rwkv6-7b", "recurrentgemma-2b", "qwen2-vl-2b", "whisper-small")
+FAM_MROPE = (2, 3, 3)
+FAM_GRID = (2, 4)
+#: The variants: name -> (arch, config fields replaced, T, options):
+#: ``gate1``: the RG-LRU's gates one block of the whole width (wider than
+#: a rank's share: its inputs gathered); ``cp``: context-parallel
+#: attention by ``cp_attention`` (whisper's encoder, decoder and
+#: cross-attention; qwen2-vl's M-RoPE on the query block; recurrentgemma's
+#: window); ``v500``: a vocabulary padded to 512 (the mask on the last
+#: rank's block); ``t45``: a T the axis does not divide (whisper: its
+#: decoder; the encoder's 16 frames still cut); ``tv30``: 30 image patches
+#: (a grid of 5 x 6), longer than a rank's block.
+FAM_VARIANTS = {
+    "gate1/recurrentgemma-2b": ("recurrentgemma-2b", {}, TP_T,
+                                {"gate_blocks": 1}),
+    "cp/recurrentgemma-2b": ("recurrentgemma-2b", {"cp_attention": True},
+                             TP_T, {}),
+    "cp/whisper-small": ("whisper-small", {"cp_attention": True}, TP_T, {}),
+    "v500/whisper-small": ("whisper-small", {"vocab_size": 500}, TP_T, {}),
+    "t45/rwkv6-7b": ("rwkv6-7b", {}, 45, {}),
+    "t45/recurrentgemma-2b": ("recurrentgemma-2b", {}, 45, {}),
+    "t45/whisper-small": ("whisper-small", {}, 45, {}),
+    "tv30/qwen2-vl-2b": ("qwen2-vl-2b", {}, TP_T, {"grid": (5, 6)}),
+    "cp/qwen2-vl-2b": ("qwen2-vl-2b", {"cp_attention": True}, TP_T, {}),
+}
+
+
+def mrope_positions(B, T, grid):
+    """[3, B, T] int32 M-RoPE positions (tests/test_torch_vlm.py's): the
+    grid's rows x cols patches (t 0, h the row, w the column), then the
+    text at max(rows, cols) + i in all three."""
+    rows, cols = grid
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    text = max(rows, cols) + np.arange(T - rows * cols)
+    pos = np.stack([np.concatenate([np.zeros(rows * cols, int), text]),
+                    np.concatenate([r, text]), np.concatenate([c, text])])
+    return np.broadcast_to(pos[:, None], (3, B, T)).astype(np.int32)
+
+
+def fam_case(name, configs="repro_torch.configs"):
+    """(config from ``configs``, batches, numpy parameter tree) of an arch
+    of FAM_ARCHS (its defaults) or of FAM_VARIANTS[name]: tp_batches of
+    its vocabulary and T, each with the family's inputs (whisper's frames
+    [B, frames, D], qwen2-vl's patch embeddings and M-RoPE positions;
+    numpy seed 3), and ``convert.random_lm_params(cfg, 0)`` (its gates
+    redrawn at ``gate_blocks`` blocks, numpy seed 11)."""
+    import dataclasses
+
+    from repro_torch import convert
+
+    arch, fields, T, opts = FAM_VARIANTS.get(name, (name, {}, TP_T, {}))
+    cfg = tp_config(arch, configs)
+    if cfg.mrope:
+        fields = dict(mrope_sections=FAM_MROPE, **fields)
+    cfg = dataclasses.replace(cfg, **fields)
+    rng = np.random.default_rng(3)
+    extra = {}
+    if cfg.family == "audio":
+        extra["frame_embeds"] = rng.standard_normal(
+            (TP_B, cfg.encoder_positions, cfg.d_model), np.float32)
+    if cfg.family == "vlm":
+        grid = opts.get("grid", FAM_GRID)
+        extra["vision_embeds"] = rng.standard_normal(
+            (TP_B, grid[0] * grid[1], cfg.d_model), np.float32)
+        extra["mrope_pos"] = mrope_positions(TP_B, T, grid)
+    bs = [dict(b, **extra) for b in tp_batches(cfg.vocab_size, T)]
+    tree = convert.random_lm_params(cfg, 0)
+    if "gate_blocks" in opts:
+        n = opts["gate_blocks"]
+        g = np.random.default_rng(11)
+        for layer in tree["layers"]:
+            for gate in ("gate_a", "gate_x"):
+                if "rec" in layer:
+                    w = layer["rec"][gate]["w"]
+                    bd = w.shape[0] * w.shape[1] // n
+                    layer["rec"][gate]["w"] = (g.standard_normal(
+                        (n, bd, bd), np.float32) / np.sqrt(bd)).astype(
+                            np.float32)
+    return cfg, bs, tree
+
+
+def case_fam(rank, world, model, names):
+    """On the (world / model, model) host mesh: each of ``names``' (an
+    arch of FAM_ARCHS or a FAM_VARIANTS name) TP_STEPS float32 steps
+    (:func:`tp_steps`, step 1's saved block inputs too)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {}
+    for name in names:
+        cfg, bs, tree = fam_case(name)
+        out[name] = tp_steps(cfg, mesh, bs, tree=tree, saved=True)
+    return _np(out)
+
+
+def case_fam_route(rank, world):
+    """For every arch of ``configs.ARCHS`` (its smoke config in float32,
+    the family's inputs as :func:`fam_case`'s), whether one step of a
+    state placed on the 1 x 1 host mesh runs the partitioned step
+    (enters ``sharding.partitioned``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   place_state)
+
+    mesh = make_host_mesh(model=1, device="cpu")
+    real, entered = S.partitioned, []
+
+    def partitioned(m):
+        entered.append(True)
+        return real(m)
+    S.partitioned = partitioned
+    out = {}
+    try:
+        for arch in ARCHS:
+            cfg, bs, _ = fam_case(arch) if arch in FAM_ARCHS else (
+                tp_config(arch), tp_batches(tp_config(arch).vocab_size),
+                None)
+            bundle = build(dataclasses.replace(cfg, num_layers=1)
+                           if cfg.family != "hybrid" else cfg)
+            step = make_train_step(bundle, AdamWConfig(**TP_OPT))
+            with S.set_mesh(mesh):
+                state = place_state(init_train_state(bundle, 0, device="cpu"),
+                                    mesh)
+                entered.clear()
+                step(state, {k: torch.from_numpy(v) for k, v in bs[0].items()})
+            out[arch] = bool(entered)
+    finally:
+        S.partitioned = real
+    return out
 
 
 class A2AFactor:
@@ -783,7 +945,8 @@ def case_tp_parts(rank, world, model):
     from repro_torch.train import init_train_state, place_state
 
     out["init"] = {}
-    for arch in ("qwen3-0.6b", "yi-9b", "rwkv6-7b"):
+    for arch in ("qwen3-0.6b", "yi-9b", "rwkv6-7b", "recurrentgemma-2b",
+                 "qwen2-vl-2b", "whisper-small"):
         bundle = build(get_smoke_config(arch))
         a = init_train_state(bundle, 0, device="cpu", mesh=mesh)
         b = place_state(init_train_state(bundle, 0, device="cpu"), mesh)
@@ -882,7 +1045,8 @@ CASES = {"collectives": case_collectives, "mesh": case_mesh,
          "production": case_production, "tp_train": case_tp_train,
          "tp_parts": case_tp_parts, "tp_moe": case_tp_moe,
          "tp_moe_parts": case_tp_moe_parts, "a2a_region": case_a2a_region,
-         "tp_variants": case_tp_variants, "many": case_many}
+         "tp_variants": case_tp_variants, "fam": case_fam,
+         "fam_route": case_fam_route, "many": case_many}
 
 
 def main(argv):
